@@ -3,6 +3,7 @@ from graphphysics_torch.core.graph import (
     Graph,
     bucket_size,
     concat_graphs,
+    pad_graph_csr_np,
     pad_graph_np,
     pad_graph_sorted_np,
     round_up,
@@ -16,6 +17,7 @@ __all__ = [
     "NodeType",
     "bucket_size",
     "concat_graphs",
+    "pad_graph_csr_np",
     "pad_graph_np",
     "pad_graph_sorted_np",
     "resolve_device",

@@ -10,7 +10,9 @@ arrays; ``Graph.to(device)`` turns them into tensors on the device.
 The port adds a receiver-sorted padding (``pad_graph_sorted_np``): edges are
 stably sorted by receiver and ``row_bounds`` holds each node's ``[start, end)``
 range of real edges, which is what the CUDA segment-sum kernel reads
-(``ops.csr_segment``).
+(``ops.csr_segment``). The sender-sorted padding of the attention kernel
+(``pad_graph_csr_np``, ``ops.csr_attention``) keeps its ranges apart, in
+``sender_bounds``, so neither kernel can read the other's layout.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from graphphysics_torch.core.device import DeviceLike, resolve_device
+from graphphysics_torch.ops.csr_attention import BLOCK_NODES
 from graphphysics_torch.ops.csr_segment import compute_row_bounds
 
 
@@ -45,6 +48,9 @@ class Graph:
             receiver: node ``n``'s real edges are
             ``[row_bounds[0, n], row_bounds[1, n])``; padding edges lie
             outside every range.
+        sender_bounds: ``[2, N]`` int32 or None. The same per-node ranges
+            for edges sorted by sender (``pad_graph_csr_np``), read by the
+            attention kernel.
     """
 
     x: Any
@@ -57,6 +63,7 @@ class Graph:
     y: Any
     exclude_mask: Any = None
     row_bounds: Any = None
+    sender_bounds: Any = None
 
     @property
     def num_nodes(self) -> int:
@@ -166,6 +173,29 @@ def pad_graph_np(
     )
 
 
+def _pad_sorted(by: str, x, pos, senders, receivers, n_pad, e_pad, edge_attr, y, node_type_index):
+    """``pad_graph_np`` with the real edges stably sorted by ``by``
+    ("receivers" or "senders") and that side's per-node ranges of real edges
+    attached (``row_bounds`` or ``sender_bounds``). Padded edges (both ends
+    the last node) follow every real edge, so the sorted side stays
+    ascending, and the ranges stop before them: the last node's range holds
+    only its real edges even when ``n_pad == N``."""
+    order = np.argsort(receivers if by == "receivers" else senders, kind="stable")
+    g = pad_graph_np(
+        x,
+        pos,
+        np.asarray(senders)[order],
+        np.asarray(receivers)[order],
+        n_pad,
+        e_pad,
+        edge_attr=None if edge_attr is None else np.asarray(edge_attr)[order],
+        y=y,
+        node_type_index=node_type_index,
+    )
+    bounds = compute_row_bounds(getattr(g, by), n_pad, num_real_edges=len(order))
+    return g.replace(**{"row_bounds" if by == "receivers" else "sender_bounds": bounds})
+
+
 def pad_graph_sorted_np(
     x: np.ndarray,
     pos: np.ndarray,
@@ -178,26 +208,38 @@ def pad_graph_sorted_np(
     node_type_index: Optional[int] = None,
 ) -> Graph:
     """``pad_graph_np`` with the real edges stably sorted by receiver and the
-    per-node ``row_bounds`` of the segment-sum kernel attached. Padded edges
-    (receiver = last node) follow every real edge, so receivers stay
-    ascending, and the row ranges stop before them: the last node's range
-    holds only its real edges even when ``n_pad == N``. Node outputs equal
-    the unsorted graph's up to summation order; edge arrays come out
-    permuted by ``np.argsort(receivers, kind="stable")``."""
-    order = np.argsort(receivers, kind="stable")
-    g = pad_graph_np(
-        x,
-        pos,
-        np.asarray(senders)[order],
-        np.asarray(receivers)[order],
-        n_pad,
-        e_pad,
-        edge_attr=None if edge_attr is None else np.asarray(edge_attr)[order],
-        y=y,
-        node_type_index=node_type_index,
+    per-node ``row_bounds`` of the segment-sum kernel attached (see
+    ``_pad_sorted``). Node outputs equal the unsorted graph's up to
+    summation order; edge arrays come out permuted by
+    ``np.argsort(receivers, kind="stable")``."""
+    return _pad_sorted(
+        "receivers", x, pos, senders, receivers, n_pad, e_pad, edge_attr, y, node_type_index
     )
-    return g.replace(
-        row_bounds=compute_row_bounds(g.receivers, n_pad, num_real_edges=len(order))
+
+
+def pad_graph_csr_np(
+    x: np.ndarray,
+    pos: np.ndarray,
+    senders: np.ndarray,
+    receivers: np.ndarray,
+    n_pad: int,
+    e_pad: int,
+    edge_attr: Optional[np.ndarray] = None,
+    y: Optional[np.ndarray] = None,
+    node_type_index: Optional[int] = None,
+) -> Graph:
+    """``pad_graph_np`` with the real edges stably sorted by sender and the
+    per-node ``sender_bounds`` of the attention kernel attached (see
+    ``_pad_sorted``), as the JAX package's ``pad_graph_csr_np``, whose
+    per-block ranges these refine. ``n_pad`` must be a multiple of the JAX
+    kernel's node block (``BLOCK_NODES`` = 128), as there."""
+    if n_pad % BLOCK_NODES:
+        raise ValueError(
+            f"CSR layout requires node padding {n_pad} to be a multiple of "
+            f"{BLOCK_NODES}; round the node budget up"
+        )
+    return _pad_sorted(
+        "senders", x, pos, senders, receivers, n_pad, e_pad, edge_attr, y, node_type_index
     )
 
 
@@ -218,9 +260,9 @@ def stack_graphs(graphs: List[Graph]) -> Graph:
 
 def concat_graphs(graphs: List[Graph]) -> Graph:
     """Batch same-shape padded host Graphs into one flat graph, offsetting
-    edge indices by each graph's node count and row bounds by its edge count.
-    Edges never cross graph boundaries, so one segment sum covers the batch,
-    and receiver-sorted members stay sorted."""
+    edge indices by each graph's node count and row or sender bounds by its
+    edge count. Edges never cross graph boundaries, so one segment sum covers
+    the batch, and sorted members stay sorted."""
     if len(graphs) == 1:
         return graphs[0]
     n = graphs[0].num_nodes
@@ -228,8 +270,9 @@ def concat_graphs(graphs: List[Graph]) -> Graph:
     for g in graphs:
         if g.num_nodes != n or g.num_edges != e:
             raise ValueError("concat_graphs requires identical padded shapes")
-    if len({g.row_bounds is None for g in graphs}) != 1:
-        raise ValueError("concat_graphs: mix of sorted and unsorted graphs")
+    for field in ("row_bounds", "sender_bounds"):
+        if len({getattr(g, field) is None for g in graphs}) != 1:
+            raise ValueError(f"concat_graphs: some graphs have {field}, some not")
 
     def cat(field):
         vals = [getattr(g, field) for g in graphs]
@@ -255,5 +298,8 @@ def concat_graphs(graphs: List[Graph]) -> Graph:
         exclude_mask=cat("exclude_mask"),
         row_bounds=(
             None if graphs[0].row_bounds is None else offset("row_bounds", e, axis=1)
+        ),
+        sender_bounds=(
+            None if graphs[0].sender_bounds is None else offset("sender_bounds", e, axis=1)
         ),
     )

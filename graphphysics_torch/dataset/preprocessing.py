@@ -32,10 +32,14 @@ def add_edge_features(sample: RawSample, rng: np.random.Generator) -> RawSample:
     return sample
 
 
-def build_preprocessing() -> "Pipeline":
-    """FaceToEdge, then the edge features: the pipeline of a dataset without
+def build_preprocessing(add_edges_features: bool = True) -> "Pipeline":
+    """FaceToEdge, then the edge features unless ``add_edges_features`` is
+    false (a model without edge inputs): the pipeline of a dataset without
     world-position parameters, with noise removed."""
-    return Pipeline([apply_face_to_edge, add_edge_features])
+    steps: List[Transform] = [apply_face_to_edge]
+    if add_edges_features:
+        steps.append(add_edge_features)
+    return Pipeline(steps)
 
 
 class Pipeline:

@@ -10,8 +10,10 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from graphphysics_torch.ops.attention import sparse_graph_attention
 from graphphysics_torch.ops.segment import masked_segment_sum, take_rows
 
 
@@ -77,6 +79,106 @@ class GraphNetBlock(nn.Module):
         )
         node_update = self.node_block(torch.cat([x, aggr], dim=-1))
         return x + node_update, edge_attr + edge_update
+
+
+class GatedMLP(nn.Module):
+    """GEGLU: ``gelu(linear1(x)) * linear2(x)`` with the exact (erf) GELU,
+    both ``expansion_factor * hidden_size`` wide."""
+
+    def __init__(self, in_size: int, hidden_size: int, expansion_factor: int = 3):
+        super().__init__()
+        width = expansion_factor * hidden_size
+        self.linear1 = nn.Linear(in_size, width)
+        self.linear2 = nn.Linear(in_size, width)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.gelu(self.linear1(x), approximate="none") * self.linear2(x)
+
+
+class GatedMLPBlock(nn.Sequential):
+    """RMSNorm, GEGLU, Linear: the reference ``build_gated_mlp`` Sequential
+    (``0.scale``, ``1.linear1|linear2``, ``2``)."""
+
+    def __init__(self, in_size: int, hidden_size: int, out_size: int, expansion_factor: int = 3):
+        super().__init__(
+            RMSNorm(in_size),
+            GatedMLP(in_size, hidden_size, expansion_factor),
+            nn.Linear(expansion_factor * hidden_size, out_size),
+        )
+
+
+class Attention(nn.Module):
+    """Multi-head adjacency-masked attention with the reference's quirks:
+    q/k/v are read in the ``(N, head_dim, num_heads)`` layout, so head h
+    holds the columns ``h, h+H, h+2H, ...``, the output goes back through the
+    same layout before ``proj``, and scores are scaled by
+    ``num_heads ** -0.5`` (not ``head_dim ** -0.5``).
+
+    ``q_proj``, ``k_proj`` and ``v_proj`` are separate Linear layers; a
+    reference model that shares the q weight (``use_separate_proj_weight``
+    false) loads as three equal weights with their own biases, which is what
+    ``export_reference_state_dict`` writes."""
+
+    def __init__(self, output_dim: int, num_heads: int = 4):
+        super().__init__()
+        if output_dim % num_heads:
+            raise ValueError(f"output_dim {output_dim} is not a multiple of {num_heads} heads")
+        self.num_heads = num_heads
+        self.q_proj = nn.Linear(output_dim, output_dim)
+        self.k_proj = nn.Linear(output_dim, output_dim)
+        self.v_proj = nn.Linear(output_dim, output_dim)
+        self.proj = nn.Linear(output_dim, output_dim)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        senders: torch.Tensor,
+        receivers: torch.Tensor,
+        edge_mask: Optional[torch.Tensor] = None,
+        sender_bounds: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        n, d = x.shape
+        h = self.num_heads
+
+        def to_heads(t):  # (N, head_dim, H) layout, then [N, H, head_dim]
+            return t.reshape(n, d // h, h).transpose(1, 2)
+
+        y = sparse_graph_attention(
+            to_heads(self.q_proj(x)),
+            to_heads(self.k_proj(x)),
+            to_heads(self.v_proj(x)),
+            senders,
+            receivers,
+            num_nodes=n,
+            edge_mask=edge_mask,
+            scale=h ** -0.5,
+            sender_bounds=sender_bounds,
+        )
+        # back to the flat layout: [N, H, Dh] -> (N, Dh, H) -> [N, D]
+        return self.proj(y.transpose(1, 2).reshape(n, d))
+
+
+class TransformerBlock(nn.Module):
+    """Pre-norm transformer block: ``x + attention(norm1(x))``, then
+    ``x + gated_mlp(norm2(x))``."""
+
+    def __init__(self, output_dim: int, num_heads: int = 4):
+        super().__init__()
+        self.attention = Attention(output_dim, num_heads)
+        self.norm1 = RMSNorm(output_dim)
+        self.norm2 = RMSNorm(output_dim)
+        self.gated_mlp = GatedMLPBlock(output_dim, output_dim, output_dim)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        senders: torch.Tensor,
+        receivers: torch.Tensor,
+        edge_mask: Optional[torch.Tensor] = None,
+        sender_bounds: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        x = x + self.attention(self.norm1(x), senders, receivers, edge_mask, sender_bounds)
+        return x + self.gated_mlp(self.norm2(x))
 
 
 def reset_parameters(module: nn.Module, generator: torch.Generator) -> nn.Module:

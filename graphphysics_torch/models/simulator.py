@@ -6,7 +6,9 @@ whose statistics are buffers named as in the reference ``state_dict``
 (``_output_normalizer._acc_sum`` ...). Graphs are batched by concatenation
 (``core.graph.concat_graphs``), so the simulator always sees one flat graph.
 This slice ports the eval forward of the plain (K = 0) decoder and
-``accumulate_stats``; training comes with a later slice.
+``accumulate_stats``; training comes with a later slice. A model without
+edge features (``edge_input_size == 0``, the transformer) has no edge
+normalizer, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -61,7 +63,7 @@ class SimulatorConfig:
     """Index layout of the raw node-feature matrix."""
 
     node_input_size: int  # features fed to the model, INCLUDING the NodeType.SIZE one-hot
-    edge_input_size: int
+    edge_input_size: int  # 0: no edge features and no edge normalizer
     output_size: int
     feature_index_start: int
     feature_index_end: int
@@ -84,7 +86,9 @@ class Simulator(nn.Module):
         self.model = model
         self._output_normalizer = Normalizer(config.output_size)
         self._node_normalizer = Normalizer(config.node_input_size)
-        self._edge_normalizer = Normalizer(config.edge_input_size)
+        self._edge_normalizer = (
+            Normalizer(config.edge_input_size) if config.edge_input_size > 0 else None
+        )
         self.to(resolve_device(device))
 
     def _pre_target(self, graph: Graph) -> torch.Tensor:
@@ -110,7 +114,8 @@ class Simulator(nn.Module):
         self._node_normalizer.accumulate(
             self._build_node_features(graph), mask=graph.node_mask
         )
-        self._edge_normalizer.accumulate(graph.edge_attr, mask=graph.edge_mask)
+        if self._edge_normalizer is not None and graph.edge_attr is not None:
+            self._edge_normalizer.accumulate(graph.edge_attr, mask=graph.edge_mask)
 
     def forward(
         self, graph: Graph
@@ -119,9 +124,11 @@ class Simulator(nn.Module):
         target_delta_normalized = (
             None if graph.y is None else self._output_normalizer(graph.y - pre_target)
         )
+        edge_attr = graph.edge_attr
+        if self._edge_normalizer is not None and edge_attr is not None:
+            edge_attr = self._edge_normalizer(edge_attr)
         model_graph = graph.replace(
-            x=self._node_normalizer(self._build_node_features(graph)),
-            edge_attr=self._edge_normalizer(graph.edge_attr),
+            x=self._node_normalizer(self._build_node_features(graph)), edge_attr=edge_attr
         )
         network_output = self.model(model_graph)
         outputs = pre_target + self._output_normalizer.inverse(network_output)

@@ -58,10 +58,11 @@ def compute_row_bounds(
     """``[2, num_nodes]`` int32: node n's real edges are
     ``[bounds[0, n], bounds[1, n])``. Only the first ``num_real_edges``
     entries count (default: all), so trailing padding edges fall outside
-    every range. ``receivers_sorted`` must be ascending over those entries."""
+    every range. ``receivers_sorted`` (or senders, for the sender-sorted
+    layout) must be ascending over those entries."""
     recv = np.asarray(receivers_sorted)[:num_real_edges]
     if len(recv) > 1 and np.any(recv[1:] < recv[:-1]):
-        raise ValueError("compute_row_bounds: receivers are not sorted")
+        raise ValueError("compute_row_bounds: the segment ids are not sorted")
     nodes = np.arange(num_nodes)
     return np.stack(
         [
@@ -113,16 +114,20 @@ def _check_cuda_args(data, receivers, row_bounds, mask) -> None:
             fail(f"{name} is on {t.device}, data on {data.device}")
 
 
-def _check_in_range(receivers, row_bounds, mask) -> None:
-    e = torch.arange(receivers.shape[0], device=receivers.device)
-    r = receivers.to(torch.int64)
-    inside = (row_bounds[0][r] <= e) & (e < row_bounds[1][r])
+def check_in_range(op: str, side: str, segments, bounds, mask) -> None:
+    """Raise unless every unmasked edge ``e`` lies in its segment's range
+    ``[bounds[0, s], bounds[1, s])``, ``s = segments[e]``: the layout the
+    CUDA kernels trust. ``op`` and ``side`` (``"receiver"`` or
+    ``"sender"``) name the caller and its segment index in the message."""
+    e = torch.arange(segments.shape[0], device=segments.device)
+    s = segments.to(torch.int64)
+    inside = (bounds[0][s] <= e) & (e < bounds[1][s])
     if mask is not None:
         inside |= ~mask
     if not bool(inside.all()):
         raise ValueError(
-            "csr_segment_sum: an unmasked edge lies outside its receiver's "
-            "row range (edges not sorted by receiver, or stale row_bounds)"
+            f"{op}: an unmasked edge lies outside its {side}'s row range "
+            f"(edges not sorted by {side}, or stale bounds)"
         )
 
 
@@ -176,7 +181,7 @@ def csr_segment_sum(
     if data.is_cuda:
         _check_cuda_args(data, receivers, row_bounds, mask)
         return _launch(data, row_bounds, mask)
-    _check_in_range(receivers, row_bounds, mask)
+    check_in_range("csr_segment_sum", "receiver", receivers, row_bounds, mask)
     return csr_segment_sum_reference(data, receivers, row_bounds.shape[1], mask)
 
 

@@ -1,5 +1,6 @@
 """Segment reductions over padded edge lists (counterpart of
-``graphphysics_tpu/ops/segment.py``)."""
+``graphphysics_tpu/ops/segment.py``): the segment sum and the segment
+softmax."""
 
 from __future__ import annotations
 
@@ -8,6 +9,9 @@ from typing import Optional
 import torch
 
 from graphphysics_torch.ops.csr_segment import csr_segment_sum, csr_segment_sum_reference
+
+_NEG_INF = -1e30
+_16BIT = (torch.float16, torch.bfloat16)
 
 
 def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -32,7 +36,7 @@ def masked_segment_sum(
     A CUDA tensor without ``row_bounds`` raises: the kernel needs the sorted
     layout, and nothing falls back to another path."""
     out_dtype = data.dtype
-    if out_dtype in (torch.float16, torch.bfloat16):
+    if out_dtype in _16BIT:
         data = data.to(torch.float32)
     if row_bounds is not None:
         if row_bounds.shape[-1] != num_segments:
@@ -48,3 +52,35 @@ def masked_segment_sum(
     else:
         out = csr_segment_sum_reference(data, segment_ids, num_segments, mask)
     return out.to(out_dtype)
+
+
+def segment_softmax(
+    scores: torch.Tensor,
+    segment_ids: torch.Tensor,
+    num_segments: int,
+    mask: Optional[torch.Tensor] = None,
+    eps: float = 1e-16,
+) -> torch.Tensor:
+    """Numerically stable softmax of per-edge ``scores`` (``[E, ...]``)
+    within each segment. Masked edges get probability 0; a segment with no
+    edges, or only masked ones, gives all-zero rows. 16-bit scores compute
+    in f32 and return their own dtype. Plain PyTorch on every device (a
+    ``scatter_reduce`` max and an ``index_add_`` sum)."""
+    out_dtype = scores.dtype
+    if out_dtype in _16BIT:
+        scores = scores.to(torch.float32)
+    seg = segment_ids.to(torch.int64)
+    idx = seg.reshape(seg.shape + (1,) * (scores.dim() - 1)).expand_as(scores)
+    if mask is not None:
+        m = mask.reshape(mask.shape + (1,) * (scores.dim() - 1))
+        scores = torch.where(m, scores, torch.full((), _NEG_INF, dtype=scores.dtype, device=scores.device))
+    shape = (num_segments,) + tuple(scores.shape[1:])
+    seg_max = torch.full(shape, float("-inf"), dtype=scores.dtype, device=scores.device)
+    seg_max = seg_max.scatter_reduce(0, idx, scores, "amax", include_self=False)
+    # empty segments keep -inf: replace by a finite value, as the JAX package
+    seg_max = torch.where(torch.isfinite(seg_max), seg_max, torch.zeros((), dtype=seg_max.dtype, device=seg_max.device))
+    ex = torch.exp(scores - seg_max.index_select(0, seg))
+    if mask is not None:
+        ex = torch.where(m, ex, torch.zeros((), dtype=ex.dtype, device=ex.device))
+    denom = torch.zeros(shape, dtype=ex.dtype, device=ex.device).index_add_(0, seg, ex)
+    return (ex / (denom.index_select(0, seg) + eps)).to(out_dtype)

@@ -8,7 +8,9 @@ Python loop over frames that stay on the device:
   ``mask = NOT(NORMAL | OUTFLOW)``.
 
 ``stacked_trajectory`` builds the ``[T, ...]`` frames a trajectory reaches
-``rollout`` as, like the JAX ``Trainer._stacked_trajectory``.
+``rollout`` as, like the JAX ``Trainer._stacked_trajectory``, in the edge
+layout of the model's kernel: receiver-sorted for EncodeProcessDecode,
+sender-sorted (CSR) for EncodeTransformDecode.
 """
 
 from __future__ import annotations
@@ -19,9 +21,17 @@ import numpy as np
 import torch
 
 from graphphysics_torch.core.device import DeviceLike, resolve_device
-from graphphysics_torch.core.graph import Graph, pad_graph_sorted_np, stack_graphs
+from graphphysics_torch.core.graph import (
+    Graph,
+    pad_graph_csr_np,
+    pad_graph_sorted_np,
+    stack_graphs,
+)
 from graphphysics_torch.core.nodetype import NodeType
 from graphphysics_torch.dataset.h5_dataset import frame_to_sample
+
+# edge layouts of stacked_trajectory: each names its padding
+LAYOUTS = {"sorted": pad_graph_sorted_np, "csr": pad_graph_csr_np}
 
 
 def build_mask(node_type: torch.Tensor) -> torch.Tensor:
@@ -38,16 +48,23 @@ def stacked_trajectory(
     e_pad: int,
     node_type_index: int,
     preprocessing: Callable,
+    layout: str = "sorted",
 ) -> Graph:
     """Every usable frame of ``traj`` (each with the next frame as target),
-    preprocessed, padded receiver-sorted to ``(n_pad, e_pad)`` and stacked
-    into one host Graph with a leading ``[T - 1]`` axis."""
+    preprocessed, padded to ``(n_pad, e_pad)`` and stacked into one host
+    Graph with a leading ``[T - 1]`` axis. ``layout`` "sorted" sorts edges
+    by receiver (``pad_graph_sorted_np``, ``row_bounds``: EncodeProcessDecode),
+    "csr" by sender (``pad_graph_csr_np``, ``sender_bounds``:
+    EncodeTransformDecode)."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}; expected one of {sorted(LAYOUTS)}")
+    pad = LAYOUTS[layout]
     frames = []
     for frame in range(meta["trajectory_length"] - 1):
         sample = frame_to_sample(traj, frame, meta, frame_target=frame + 1)
         sample = preprocessing(sample, np.random.default_rng(frame))
         frames.append(
-            pad_graph_sorted_np(
+            pad(
                 sample.x,
                 sample.pos,
                 sample.senders,
@@ -66,7 +83,10 @@ def rollout(
     sim, frames: Graph, device: DeviceLike = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Autoregressive rollout of ``sim`` over stacked trajectory frames
-    (leaves ``[T, ...]``), on ``device`` (``cuda`` unless named).
+    (leaves ``[T, ...]``), on ``device`` (``cuda`` unless named). Every
+    output column ``output_index_start:output_index_end`` is fed back, also
+    those the model does not read as features (panels: outputs 0:3,
+    features 0:2).
 
     Returns ``(predictions [T, N, d], targets [T, N, d])`` on the device,
     with boundary-clamped predictions."""

@@ -11,7 +11,11 @@ The format is the reference ``Simulator.save_checkpoint`` dict:
 with tensors or numpy arrays as values (the JAX package's
 ``export_reference_checkpoint`` writes numpy arrays), or a ``torch.save`` file
 of it. The port's module tree carries the reference names, so the weights
-load with ``load_state_dict(strict=True)``.
+load with ``load_state_dict(strict=True)``: EncodeProcessDecode's
+``processor_list.{i}.edge_block|node_block`` keys as well as
+EncodeTransformDecode's ``processor_list.{i}.attention|norm1|norm2|gated_mlp``
+ones. A model without edge features has no edge normalizer, and its
+checkpoint carries ``"_edge_normalizer": None``.
 """
 
 from __future__ import annotations
@@ -39,7 +43,9 @@ def load_reference_checkpoint(
 ) -> Simulator:
     """Load ``checkpoint`` (a dict or a path to a ``torch.save`` file of one)
     into ``sim`` in place and return it. Raises on any missing, unexpected or
-    mis-shaped key."""
+    mis-shaped key; a normalizer that is None or absent in the checkpoint
+    loads nothing, so strict loading then fails unless ``sim`` has none
+    either."""
     if isinstance(checkpoint, (str, os.PathLike)):
         checkpoint = torch.load(checkpoint, map_location="cpu", weights_only=True)
     model_sd = checkpoint["model"]

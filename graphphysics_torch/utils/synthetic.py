@@ -1,7 +1,7 @@
-"""Synthetic cylinder-flow trajectories with the CylinderFlow schema
+"""Synthetic trajectories with the CylinderFlow and panels schemas
 (counterpart of part of ``graphphysics_tpu/utils/synthetic.py``), built in
-memory: the dict ``load_meta_trajectory`` returns for a trajectory that
-``write_cylinder_h5`` wrote, and its meta."""
+memory: the trajectory dict and meta that ``write_cylinder_h5`` and
+``write_panels_xdmf`` would give a reader, without the files."""
 
 from __future__ import annotations
 
@@ -74,3 +74,49 @@ def cylinder_trajectory(
         ),
     }
     return traj, cylinder_meta(steps)
+
+
+def panels_meta(steps: int) -> Dict[str, Any]:
+    """The panels meta; its feature order fixes the x layout
+    ``[Vitesse(3), NodeType(1), time(1)]`` (features 0:2, node_type_index 3
+    in ``training_config/panels.json``)."""
+    return {
+        "dt": 0.05,
+        "features": {
+            "cells": {"type": "static", "shape": [steps, -1, 3], "dtype": "int32"},
+            "mesh_pos": {"type": "static", "shape": [steps, -1, 2], "dtype": "float32"},
+            "VitesseCoarse": {"type": "dynamic", "shape": [steps, -1, 3], "dtype": "float32"},
+            "NodeTypeCoarse": {"type": "static", "shape": [steps, -1, 1], "dtype": "int32"},
+        },
+        "field_names": ["cells", "mesh_pos", "VitesseCoarse", "NodeTypeCoarse"],
+        "trajectory_length": steps,
+    }
+
+
+def panels_trajectory(
+    steps: int = 12, nx: int = 12, ny: int = 8, phase0: float = 0.0
+) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
+    """One panels trajectory in memory: ``(traj, meta)`` with ``cells``,
+    ``mesh_pos``, ``VitesseCoarse [T,N,3]`` (the third component zero) and a
+    static ``NodeTypeCoarse [T,N,1]`` holding a square WALL panel inside the
+    flow, where the velocity is zero. These are the arrays, in meta order,
+    that ``write_panels_xdmf`` writes for a trajectory of phase ``phase0``
+    and amplitude 1 (its trajectory ``k`` without a seed has phase
+    ``0.15 * k``)."""
+    points, tris = triangulated_grid(nx, ny)
+    nt = cylinder_node_types(points)
+    panel = (np.abs(points[:, 0] - 0.4) < 0.12) & (np.abs(points[:, 1] - 0.5) < 0.15)
+    nt[panel] = int(NodeType.WALL_BOUNDARY)
+    damp = (1.0 - (nt == int(NodeType.WALL_BOUNDARY)))[:, None]
+    zero = np.zeros((len(points), 1), np.float32)
+    vit = [
+        (np.concatenate([synth_velocity(points, 0.05 * t + phase0), zero], axis=1) * damp)
+        for t in range(steps)
+    ]
+    traj = {
+        "cells": np.repeat(tris[None], steps, axis=0),
+        "mesh_pos": np.repeat(points[None], steps, axis=0),
+        "VitesseCoarse": np.stack(vit).astype(np.float32),
+        "NodeTypeCoarse": np.repeat(nt[None, :, None], steps, axis=0),
+    }
+    return traj, panels_meta(steps)

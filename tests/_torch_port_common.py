@@ -1,11 +1,18 @@
 """Shared helpers of the ``test_torch_port_*`` files: weights carried from
 flax to the port through ``export_reference_state_dict`` and one simulator
-configuration built on both sides."""
+configuration built on both sides.
+
+Importing this module caps torch's intra-op threads: the test workers also
+run XLA, and torch's default of one thread per core oversubscribes a small
+machine when several workers run at once. Every port test file imports it."""
 
 import numpy as np
 import torch
 
 from graphphysics_tpu.utils.torch_import import export_reference_state_dict
+
+TORCH_THREADS = 2
+torch.set_num_threads(TORCH_THREADS)
 
 
 def state_dict_under(prefix: str, model_params) -> dict:

@@ -31,6 +31,7 @@ from graphphysics_torch.dataset import build_preprocessing, frame_to_sample
 from graphphysics_torch.ops.segment import masked_segment_sum
 from graphphysics_torch.topology import build as topo
 from graphphysics_torch.utils import synthetic
+from tests import _torch_port_common  # noqa: F401  (caps torch's threads)
 
 FIELDS = ("x", "pos", "senders", "receivers", "edge_attr", "node_mask", "edge_mask", "y")
 

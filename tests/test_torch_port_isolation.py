@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests import _torch_port_common  # noqa: F401  (caps torch's threads)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "graphphysics_tpu")
 
@@ -42,6 +44,8 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "import graphphysics_torch.dataset, graphphysics_torch.training\n"
         "import graphphysics_torch.topology, graphphysics_torch.utils.synthetic\n"
         "import graphphysics_torch.utils.reference_weights\n"
+        "import graphphysics_torch.ops.attention, graphphysics_torch.ops.csr_attention\n"
+        "import graphphysics_torch.training.parse_parameters\n"
         "from graphphysics_torch.ops import _native\n"
         "print(json.dumps({'new': sorted(set(sys.modules) - before),\n"
         "                  'loaded': sorted(_native._loaded)}))\n"

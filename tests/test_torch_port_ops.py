@@ -20,6 +20,7 @@ from graphphysics_torch.ops.csr_segment import (
     csr_segment_sum_reference,
 )
 from graphphysics_torch.ops.segment import masked_segment_sum, take_rows
+from tests import _torch_port_common  # noqa: F401  (caps torch's threads)
 
 # f32 sums of the same terms in another order (the tolerance of
 # tests/test_pallas_segment.py)
@@ -155,3 +156,30 @@ def test_take_rows_matches_jnp_take():
         take_rows(torch.from_numpy(x), torch.from_numpy(idx)).numpy(),
         np.asarray(jnp.take(jnp.asarray(x), jnp.asarray(idx), axis=0)),
     )
+
+
+def _fake_nvcc(tmp_path, monkeypatch, body):
+    from graphphysics_torch.ops import _native
+
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(f"#!/bin/sh\n{body}\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_native, "nvcc_path", lambda: str(nvcc))
+    monkeypatch.setattr(_native, "BUILD_DIR", tmp_path / "build")
+    return _native
+
+
+def test_build_is_bounded_by_its_timeout(tmp_path, monkeypatch):
+    native = _fake_nvcc(tmp_path, monkeypatch, "echo compiling; exec sleep 30")
+    with pytest.raises(RuntimeError, match="did not finish within") as info:
+        native.build(timeout=0.5)
+    assert "compiling" in str(info.value)  # the compiler's output comes with the error
+    assert list((tmp_path / "build").iterdir()) == []  # no library, log or partial file left
+
+
+def test_build_reports_compiler_errors(tmp_path, monkeypatch):
+    native = _fake_nvcc(tmp_path, monkeypatch, "echo 'error: no such thing'; exit 1")
+    with pytest.raises(RuntimeError, match="nvcc failed for csr_softmax_spmm.cu") as info:
+        native.build(["csr_softmax_spmm.cu"])
+    assert "error: no such thing" in str(info.value)
+    assert list((tmp_path / "build").iterdir()) == []
