@@ -25,7 +25,20 @@ and the CUDA toolkit. Phases, each of which raises on failure:
    15 x 128, 4-head EncodeTransformDecode simulator built from
    ``training_config/panels.json`` (random weights from the seed), checked
    the same way;
-6. transformer batched forward: one eval forward on the panels_csr batch.
+6. transformer batched forward: one eval forward on the panels_csr batch;
+7. backward kernels: K1b (``csr_segment_sum_backward``) at K1's three shapes
+   and K3 (``csr_softmax_spmm_backward``) at K2's, each against its plain
+   version on the card, ``torch.autograd.grad`` through the wrapper against
+   the same call through the plain forward, with device times and bounds;
+8. training: ``Trainer`` steps of the 15 x 128 EncodeProcessDecode
+   (``training_config/cylinder.json``) on the cylinder batch and of the
+   15 x 128, 4-head EncodeTransformDecode (``panels.json``) on the panels_csr
+   batch: 3 warm-up steps, 20 timed ones with the launches per step checked,
+   the first step against the same step on the CPU from equal weights, and
+   a ``torch.profiler`` breakdown of 3 steps;
+9. training pipeline: synthetic trajectories through ``BaseDataset``,
+   ``GraphLoader`` and ``Trainer.fit`` with rollout validation, for both
+   models, launches checked.
 
 Every line but the last is a JSON object (one per phase), apart from the
 card's ``nvidia-smi`` line; the ``{"kernels": [...]}`` line comes just before
@@ -55,6 +68,14 @@ BLOCKS = 15
 HEADS = 4
 # f32 sums of ~10 N(0,1) terms per row in another order than index_add_
 KERNEL_ATOL = 1e-4
+# K1b is a gather: exact
+GATHER_ATOL = 0.0
+# K3 vs its plain version: the same formula, expf and per-head sums in
+# another order
+K3_RTOL, K3_ATOL = 1e-5, 1e-5
+# K3 through autograd vs autograd of the plain two-pass softmax: the delta
+# identity against the softmax's own backward, f32
+K3_GRAD_RTOL, K3_GRAD_ATOL = 1e-4, 1e-4
 # K2: online vs two-pass softmax in f32, a few ulps per edge of a row
 SOFTMAX_ATOL = 1e-5
 SOFTMAX_RTOL = 1e-5
@@ -63,6 +84,27 @@ ROLLOUT_ATOL = 1e-4
 ROLLOUT_RTOL = 1e-4
 CPU_FRAMES = 3
 PANELS_CONFIG = "training_config/panels.json"
+CYLINDER_CONFIG = "training_config/cylinder.json"
+WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS = 3, 20, 3
+# first training step on the card vs the CPU from equal weights: f32
+# without TF32, 15 blocks deep, sums in another order and index_add_
+# atomics in the gathers' backward
+STEP_LOSS_RTOL = 1e-5
+# ||grad_card - grad_cpu|| / ||grad_cpu|| of each parameter, the worst one
+# taken, per model: 15 blocks of f32 forward and backward in two summation
+# orders. Sound runs on an H100 read 4.5e-4 (EPD) and 9.3e-7 (transformer);
+# the same check on copies with a planted fault (chip_smoke_mutants.py)
+# read 0.16 and 0.28 (K1b dropping one graph's gradient, or the last edge
+# of each row) and 1.0e-3, 1.0e-2 and 0.70 (K3 with dscores 0.1% or 1% off,
+# or one graph's dscores dropped).
+EPD_GRAD_RTOL = 1e-2
+TRANSFORMER_GRAD_RTOL = 1e-4
+# parameters whose gradient is 0 in exact arithmetic: the softmax ignores a
+# shift shared by a query's scores, so the key bias gets round-off only. Its
+# largest gradient entry, over the largest of all other parameters', is held
+# below STEP_ROUNDOFF_SHARE on each device instead (2.6e-10 read).
+ROUNDOFF_LEAVES = ("k_proj.bias",)
+STEP_ROUNDOFF_SHARE = 1e-6
 # graphs of the two training batches: nodes and real edges of each, padded
 # to 2,048 / 12,288. Graph 0 has n_pad == n with padded edges on its real
 # last node, graph 4 no padding at all; the others pad both.
@@ -131,10 +173,18 @@ def copies_past_l2(bytes_moved: int) -> int:
 
 def _category(kernel: str) -> str:
     k = kernel.lower()
+    if "csr_segment_sum_bwd" in k:
+        return "csr_segment_sum_bwd"
     if "csr_segment_sum" in k:
         return "csr_segment_sum"
+    if "softmax_spmm_bwd" in k:
+        return "softmax_spmm_bwd"
     if "softmax_spmm" in k:
         return "softmax_spmm"
+    if "multi_tensor" in k or "adam" in k:
+        return "optimizer"
+    if "indexfunc" in k or "index_add" in k or "scatter" in k:
+        return "index_add_scatter"
     if "gemm" in k or "cutlass" in k or "sm90_" in k:
         return "gemm"
     if "indexselect" in k or "index_select" in k or "gather" in k:
@@ -146,16 +196,20 @@ def _category(kernel: str) -> str:
     return "elementwise_other"
 
 
-def device_breakdown(fn, frames: int):
-    """Device time of ``fn`` (a rollout of ``frames`` frames) by kernel, from
-    torch.profiler's CUDA activity; None where the profiler saw no kernel."""
+def device_breakdown(fn, frames: int, unit: str = "frame"):
+    """Device time of ``fn`` (a rollout of ``frames`` frames, or ``frames``
+    train steps with ``unit="step"``) by kernel, from torch.profiler's CUDA
+    activity; None where the profiler saw no kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = [r for r in prof.key_averages() if r.device_type == DeviceType.CUDA]
+    # user-annotated ranges (the optimizer's step) span kernels counted on
+    # their own rows: summing both would count that time twice
+    rows = [r for r in prof.key_averages()
+            if r.device_type == DeviceType.CUDA and not getattr(r, "is_user_annotation", False)]
     if not rows:
         return None
 
@@ -163,18 +217,19 @@ def device_breakdown(fn, frames: int):
         return getattr(r, "self_device_time_total", None) or getattr(r, "self_cuda_time_total", 0.0)
 
     total_us = sum(us(r) for r in rows)
+    per = f"ms_per_{unit}"
     groups = {}
     for r in rows:
-        g = groups.setdefault(_category(r.key), {"ms_per_frame": 0.0, "kernels_per_frame": 0.0})
-        g["ms_per_frame"] += us(r) / 1e3 / frames
-        g["kernels_per_frame"] += r.count / frames
+        g = groups.setdefault(_category(r.key), {per: 0.0, f"kernels_per_{unit}": 0.0})
+        g[per] += us(r) / 1e3 / frames
+        g[f"kernels_per_{unit}"] += r.count / frames
     top = sorted(rows, key=us, reverse=True)[:8]
     return {
-        "device_ms_per_frame": total_us / 1e3 / frames,
-        "kernels_per_frame": sum(r.count for r in rows) / frames,
+        f"device_ms_per_{unit}": total_us / 1e3 / frames,
+        f"kernels_per_{unit}": sum(r.count for r in rows) / frames,
         "by_category": groups,
         "top_kernels": [
-            {"name": r.key[:90], "ms_per_frame": us(r) / 1e3 / frames, "count_per_frame": r.count / frames}
+            {"name": r.key[:90], per: us(r) / 1e3 / frames, f"count_per_{unit}": r.count / frames}
             for r in top
         ],
     }
@@ -379,6 +434,165 @@ def k2_case(name, graph, width, seed):
     }
 
 
+def k1b_case(name, graph, seed):
+    """Hold csr_segment_sum_backward against its plain version on one edge
+    layout, and autograd through csr_segment_sum against autograd of the
+    plain forward."""
+    from graphphysics_torch.ops.csr_segment import (
+        csr_segment_sum,
+        csr_segment_sum_backward,
+        csr_segment_sum_backward_reference,
+        csr_segment_sum_reference,
+    )
+
+    dev = torch.device("cuda")
+    recv = torch.as_tensor(graph.receivers).to(dev)
+    bounds = torch.as_tensor(graph.row_bounds).to(dev)
+    mask = torch.as_tensor(graph.edge_mask).to(dev)
+    e, n = recv.shape[0], bounds.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randn((n, HIDDEN), generator=gen, device=dev)
+    data = torch.randn((e, HIDDEN), generator=gen, device=dev)
+
+    got = csr_segment_sum_backward(g, recv, bounds, mask)
+    want = csr_segment_sum_backward_reference(g, recv, bounds, mask)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    if not err <= GATHER_ATOL or not bool((got[~mask] == 0).all()):
+        raise AssertionError(f"{name}: K1b vs plain max_abs_err {err} > {GATHER_ATOL}")
+    d = data.clone().requires_grad_(True)
+    (grad,) = torch.autograd.grad(csr_segment_sum(d, recv, bounds, mask), d, g)
+    d = data.clone().requires_grad_(True)
+    (grad_plain,) = torch.autograd.grad(csr_segment_sum_reference(d, recv, n, mask), d, g)
+    grad_err = (grad - grad_plain).abs().max().item()
+    if not grad_err <= GATHER_ATOL:
+        raise AssertionError(f"{name}: autograd through K1 vs plain max_abs_err {grad_err}")
+
+    # every edge row is written; each node's g row and bounds read once;
+    # each edge's receiver and mask byte read
+    bytes_moved = e * HIDDEN * 4 + e * (4 + 1) + n * (HIDDEN * 4 + 8)
+    copies = copies_past_l2(bytes_moved)
+    gs = [(g,)] + [(g.clone(),) for _ in range(copies - 1)]
+    with torch.no_grad():
+        kernel_t = device_ms(lambda x: csr_segment_sum_backward(x, recv, bounds, mask), gs)
+        plain_t = device_ms(lambda x: csr_segment_sum_backward_reference(x, recv, bounds, mask), gs)
+        library_t = device_ms(lambda x: x.index_select(0, recv), gs)
+    bound = bytes_moved / H100_BYTES_PER_S * 1e3
+    return {
+        "shape": name,
+        "nodes": n,
+        "edges": e,
+        "real_edges": int(mask.sum().item()),
+        "hidden": HIDDEN,
+        "max_abs_err": err,
+        "tolerance": GATHER_ATOL,
+        "autograd_max_abs_err": grad_err,
+        "ms": kernel_t,
+        "plain_ms": plain_t,
+        "library_ms": library_t,
+        "library_note": "index_select(0, receivers): the same gather without zeroing masked and padded edges",
+        "bound_ms": bound,
+        "bound_by": "bytes",
+        "bytes": bytes_moved,
+        "input_copies": copies,
+    }
+
+
+def k3_case(name, graph, width, seed):
+    """Hold csr_softmax_spmm_backward against its plain version on one
+    sender-sorted layout (scores masked as csr_sparse_attention masks
+    them), and autograd through csr_softmax_spmm against autograd of the
+    plain forward."""
+    from graphphysics_torch.ops.csr_attention import (
+        NEG,
+        csr_softmax_spmm,
+        csr_softmax_spmm_backward,
+        csr_softmax_spmm_backward_reference,
+        csr_softmax_spmm_reference,
+    )
+
+    dev = torch.device("cuda")
+    seg = torch.as_tensor(graph.senders).to(dev)
+    bounds = torch.as_tensor(graph.sender_bounds).to(dev)
+    mask = torch.as_tensor(graph.edge_mask).to(dev)
+    e, n, h = seg.shape[0], bounds.shape[1], HEADS
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    scores = 3 * torch.randn((e, h), generator=gen, device=dev)
+    scores = torch.where(mask[:, None], scores, torch.full((), NEG, device=dev))
+    values = torch.randn((e, width), generator=gen, device=dev)
+    g = torch.randn((n, width), generator=gen, device=dev)
+    with torch.no_grad():
+        out, ml = csr_softmax_spmm(scores, values, seg, bounds, mask)
+
+    got = csr_softmax_spmm_backward(scores, values, seg, bounds, ml, out, g, mask)
+    want = csr_softmax_spmm_backward_reference(scores, values, seg, ml, out, g, mask)
+    torch.cuda.synchronize()
+    errs = [(a - b).abs().max().item() for a, b in zip(got, want)]
+    for a, b, what in zip(got, want, ("dscores", "dvalues")):
+        if not torch.isfinite(a).all() or not bool((a[~mask] == 0).all()):
+            raise AssertionError(f"{name}: K3 {what} not finite, or not 0 on masked edges")
+        if not torch.allclose(a, b, rtol=K3_RTOL, atol=K3_ATOL):
+            raise AssertionError(f"{name}: K3 vs plain {what} max_abs_err {(a - b).abs().max().item()}")
+
+    def grads_of(forward):
+        s_, v_ = scores.clone().requires_grad_(True), values.clone().requires_grad_(True)
+        return torch.autograd.grad(forward(s_, v_)[0], (s_, v_), g)
+
+    kernel_grads = grads_of(lambda s_, v_: csr_softmax_spmm(s_, v_, seg, bounds, mask))
+    plain_grads = grads_of(lambda s_, v_: csr_softmax_spmm_reference(s_, v_, seg, n, mask))
+    grad_errs = [(a - b).abs().max().item() for a, b in zip(kernel_grads, plain_grads)]
+    for a, b in zip(kernel_grads, plain_grads):
+        if not torch.allclose(a, b, rtol=K3_GRAD_RTOL, atol=K3_GRAD_ATOL):
+            raise AssertionError(f"{name}: autograd through K2/K3 vs plain max_abs_err {grad_errs}")
+
+    # reads: each real edge's scores, value row and mask byte; each node's
+    # out and g rows, (m, l) per head and two bounds. Writes: every edge's
+    # dscores and dvalues rows, padding included.
+    real_edges = int(mask.sum().item())
+    bytes_moved = (real_edges * (4 * h + 4 * width + 1) + n * (8 * width + 8 * h + 8)
+                   + e * (4 * h + 4 * width))
+    copies = copies_past_l2(bytes_moved)
+    inputs = [(scores, values, ml, out, g)] + [
+        tuple(t.clone() for t in (scores, values, ml, out, g)) for _ in range(copies - 1)
+    ]
+    with torch.no_grad():
+        kernel_t = device_ms(
+            lambda s_, v_, ml_, o_, g_: csr_softmax_spmm_backward(s_, v_, seg, bounds, ml_, o_, g_, mask),
+            inputs)
+        plain_t = device_ms(
+            lambda s_, v_, ml_, o_, g_: csr_softmax_spmm_backward_reference(s_, v_, seg, ml_, o_, g_, mask),
+            inputs)
+    bound = bytes_moved / H100_BYTES_PER_S * 1e3
+    # f32 operations per real edge: per head an exponential, a division and
+    # the dscores product; per column the dvalues product and the dot's
+    # multiply-add; per node and column the delta multiply-add
+    ops = real_edges * (3 * width + 3 * h) + n * 2 * width
+    ops_bound = ops / H100_F32_OPS_PER_S * 1e3
+    return {
+        "shape": name,
+        "nodes": n,
+        "edges": e,
+        "real_edges": real_edges,
+        "empty_rows": int((ml[h:] == 0).all(dim=0).sum().item()),
+        "width": width,
+        "heads": h,
+        "max_abs_err": max(errs),
+        "dscores_dvalues_max_abs_err": errs,
+        "tolerance": {"rtol": K3_RTOL, "atol": K3_ATOL},
+        "autograd_max_abs_err": grad_errs,
+        "autograd_tolerance": {"rtol": K3_GRAD_RTOL, "atol": K3_GRAD_ATOL},
+        "ms": kernel_t,
+        "plain_ms": plain_t,
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the softmax + SpMM backward",
+        "bound_ms": max(bound, ops_bound),
+        "bound_by": "bytes" if bound >= ops_bound else "operations",
+        "bytes": bytes_moved,
+        "operations": ops,
+        "input_copies": copies,
+    }
+
+
 def build_epd(seed, device):
     from graphphysics_torch.core import NodeType
     from graphphysics_torch.models import (
@@ -518,6 +732,183 @@ def trajectory_frames(make_traj, frames, node_type_index, preprocessing, layout)
     return stacked, sizes
 
 
+def load_config(path, blocks=None):
+    with open(path) as fp:
+        param = json.load(fp)
+    if blocks is not None:
+        param["model"]["message_passing_num"] = blocks
+    return param
+
+
+def first_step(name, param, batch, seed, total_steps, grad_rtol):
+    """The first ``Trainer`` step on the card against the same step on the
+    CPU from equal weights (seeded ``init_state``): the loss, and each
+    parameter's gradient within ``grad_rtol``, with the worst one named."""
+    from graphphysics_torch.training import Trainer
+
+    loss, grads = {}, {}
+    for dev in ("cpu", "cuda"):
+        trainer = Trainer(param, learning_rate=1e-4, warmup=10, seed=seed, device=dev)
+        trainer.init_state(total_steps)
+        loss[dev] = trainer.train_step(batch).item()
+        grads[dev] = {n: p.grad.detach().cpu() for n, p in trainer.sim.named_parameters()}
+        del trainer
+    loss_err = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+    roundoff = [n for n in grads["cpu"] if n.endswith(ROUNDOFF_LEAVES)]
+    rel = {n: ((grads["cuda"][n] - g).norm() / g.norm()).item()
+           for n, g in grads["cpu"].items() if n not in roundoff}
+    worst = max(rel, key=rel.get)
+    share = 0.0
+    for dev, gs in grads.items():
+        top = max(g.abs().max().item() for n, g in gs.items() if n not in roundoff)
+        share = max([share] + [gs[n].abs().max().item() / top for n in roundoff])
+    result = {
+        "first_step_cpu_loss": loss["cpu"],
+        "first_step_card_loss": loss["cuda"],
+        "first_step_loss_rel_err": loss_err,
+        "first_step_grad_rel_err_worst": rel[worst],
+        "first_step_grad_worst_param": worst,
+        "first_step_grad_rel_err_median": float(np.median(list(rel.values()))),
+        "first_step_params_compared": len(rel),
+        "first_step_roundoff_params": len(roundoff),
+        "first_step_roundoff_share": share,
+        "first_step_tolerance": {"loss_rtol": STEP_LOSS_RTOL, "grad_rtol_per_param": grad_rtol,
+                                 "roundoff_share": STEP_ROUNDOFF_SHARE},
+    }
+    if not (math.isfinite(loss["cuda"]) and loss_err <= STEP_LOSS_RTOL
+            and rel[worst] <= grad_rtol and share <= STEP_ROUNDOFF_SHARE):
+        raise AssertionError(f"{name}: first step card vs CPU out of tolerance: {result}")
+    return result
+
+
+def train(name, param, batch, counts, expected, seed, grad_rtol):
+    """``Trainer`` on one concatenated batch on the card: the first step
+    against the CPU (``first_step``), then on a fresh trainer 3 warm-up
+    steps and 20 timed ones with every launch count zeroed just before them
+    and checked just after against ``expected`` (kernel name -> launches per
+    step), then a profile of 3 steps."""
+    from graphphysics_torch.training import Trainer
+
+    total_steps = 1 + WARMUP_STEPS + TIMED_STEPS + PROFILED_STEPS
+    first = first_step(name, param, batch, seed, total_steps, grad_rtol)
+
+    trainer = Trainer(param, learning_rate=1e-4, warmup=10, seed=seed, device="cuda")
+    trainer.init_state(total_steps)
+    dev_batch = batch.to("cuda")
+    for _ in range(WARMUP_STEPS):
+        trainer.train_step(dev_batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counts.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    losses = [trainer.train_step(dev_batch) for _ in range(TIMED_STEPS)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counts.items()}
+    want = {k: expected.get(k, 0) * TIMED_STEPS for k in counts}
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches} in {TIMED_STEPS} steps, expected {want}")
+    losses = [x.item() for x in losses]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: non-finite loss {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    ms_per_step = seconds / TIMED_STEPS * 1e3
+    breakdown = device_breakdown(
+        lambda: [trainer.train_step(dev_batch) for _ in range(PROFILED_STEPS)], PROFILED_STEPS, unit="step"
+    )
+    real_edges = int(np.asarray(batch.edge_mask).sum())
+    return {
+        "graphs": len(BATCH_NODES),
+        "nodes": batch.num_nodes,
+        "edges": batch.num_edges,
+        "real_edges": real_edges,
+        "ms_per_step": ms_per_step,
+        "padded_edges_per_s": batch.num_edges / (ms_per_step / 1e3),
+        "real_edges_per_s": real_edges / (ms_per_step / 1e3),
+        "steps_timed": TIMED_STEPS,
+        "launches": launches,
+        "launches_per_step": {k: v / TIMED_STEPS for k, v in launches.items()},
+        "first_loss": losses[0],
+        "last_loss": losses[-1],
+        "peak_memory_gb": peak_gb,
+        **first,
+        "profiled_steps": PROFILED_STEPS,
+        "breakdown": breakdown if breakdown is not None else "not measured",
+        "device_idle_share": (
+            None if breakdown is None else 1.0 - breakdown["device_ms_per_step"] / ms_per_step
+        ),
+    }
+
+
+def pipeline(name, param, make_traj, counts, expected, seed):
+    """Synthetic trajectories on ``triangulated_grid(64, 32)`` (2,048 nodes)
+    through a ``BaseDataset`` with the config's training preprocessing (its
+    noise included), ``GraphLoader`` batches of 8 frames and
+    ``Trainer.fit`` for 2 epochs with rollout validation on the card.
+    ``expected`` gives (launches per step, launches per validated frame)."""
+    import tempfile
+
+    from graphphysics_torch.dataset import BaseDataset, GraphLoader, frame_to_sample
+    from graphphysics_torch.training import Trainer, edge_layout, get_preprocessing
+
+    edges = param["model"]["edge_input_size"] > 0
+    trajs = [make_traj(steps=9, nx=64, ny=32, phase0=0.15 * k)[0] for k in range(2)]
+    meta = make_traj(steps=9, nx=2, ny=2)[1]
+
+    class Trajectories(BaseDataset):
+        """The in-memory trajectories as a dataset."""
+
+        size_dataset = len(trajs)
+
+        def _load(self, index):
+            traj, frame = self.get_traj_frame(index)
+            return frame_to_sample(trajs[traj], frame, self.meta, frame_target=frame + 1)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        meta_path = f"{tmp}/meta.json"
+        with open(meta_path, "w") as fp:
+            json.dump(meta, fp)
+        common = dict(add_edge_features=edges, edge_layout=edge_layout(param),
+                      node_type_index=param["index"]["node_type_index"], seed=seed)
+        train_ds = Trajectories(meta_path, preprocessing=get_preprocessing(param, use_edge_feature=edges),
+                                **common)
+        val_ds = Trajectories(meta_path, preprocessing=get_preprocessing(
+            param, use_edge_feature=edges, remove_noise=True), **common)
+        loader = GraphLoader(train_ds, batch_size=8, shuffle=True, seed=seed)
+        trainer = Trainer(param, learning_rate=1e-4, warmup=2, seed=seed, device="cuda")
+        for fn in counts.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        history = trainer.fit(loader, val_dataset=val_ds, num_epochs=2, val_trajectories=1)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counts.items()}
+    steps = 2 * len(loader)
+    frames = 2 * train_ds.frames_per_trajectory
+    want = {k: expected.get(k, (0, 0))[0] * steps + expected.get(k, (0, 0))[1] * frames
+            for k in counts}
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, expected {want}")
+    values = history["train_loss"] + history["val_rmse"]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"{name}: non-finite history {history}")
+    batch = loader.peek()
+    return {
+        "dataset_items": len(train_ds),
+        "batch_nodes": batch.num_nodes,
+        "batch_edges": batch.num_edges,
+        "node_budget": train_ds.node_budget,
+        "edge_budget": train_ds.edge_budget,
+        "steps": steps,
+        "validated_frames": frames,
+        "train_loss": history["train_loss"],
+        "val_rmse": history["val_rmse"],
+        "launches": launches,
+        "fit_s": seconds,
+    }
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -530,15 +921,20 @@ def main() -> int:
 
     from graphphysics_torch.dataset import build_preprocessing
     from graphphysics_torch.ops import _native
-    from graphphysics_torch.ops.csr_attention import csr_softmax_spmm
-    from graphphysics_torch.ops.csr_segment import csr_segment_sum
+    from graphphysics_torch.ops.csr_attention import csr_softmax_spmm, csr_softmax_spmm_backward
+    from graphphysics_torch.ops.csr_segment import csr_segment_sum, csr_segment_sum_backward
     from graphphysics_torch.training import get_preprocessing
     from graphphysics_torch.utils.synthetic import cylinder_trajectory, panels_trajectory
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
-    counts = {"csr_segment_sum": csr_segment_sum, "csr_softmax_spmm": csr_softmax_spmm}
+    counts = {
+        "csr_segment_sum": csr_segment_sum,
+        "csr_segment_sum_backward": csr_segment_sum_backward,
+        "csr_softmax_spmm": csr_softmax_spmm,
+        "csr_softmax_spmm_backward": csr_softmax_spmm_backward,
+    }
 
     # 1. environment and build ---------------------------------------------------
     t0 = time.perf_counter()
@@ -560,85 +956,129 @@ def main() -> int:
     epd_frames, epd_sizes = trajectory_frames(
         cylinder_trajectory, args.frames, 2, build_preprocessing(), "sorted"
     )
-    with open(PANELS_CONFIG) as fp:
-        panels = json.load(fp)
+    panels = load_config(PANELS_CONFIG)
+    cylinder = load_config(CYLINDER_CONFIG)
     tf_frames, tf_sizes = trajectory_frames(
         panels_trajectory, args.frames, panels["index"]["node_type_index"],
         get_preprocessing(panels, use_edge_feature=False, remove_noise=True), "csr",
     )
+    cyl_batch = flagship_batch(args.seed)
+    tf_batch = panels_batch(args.seed + 200)
+    aneurysm_epd = random_graph(66000, 520000, 66560, 524288, args.seed + 100)
+    aneurysm_csr = random_csr_graph(66000, 520000, 66560, 524288, args.seed + 300)
 
-    # 2. kernels -------------------------------------------------------------------
+    # 2, 7. kernels, forward and backward -------------------------------------------
     k1_shapes = [
         k1_case("serving_frame", epd_frames[0], args.seed),
-        k1_case("flagship_batch_8x2048", flagship_batch(args.seed), args.seed + 1),
-        k1_case("aneurysm_epd_66560x524288",
-                random_graph(66000, 520000, 66560, 524288, args.seed + 100), args.seed + 2),
+        k1_case("flagship_batch_8x2048", cyl_batch, args.seed + 1),
+        k1_case("aneurysm_epd_66560x524288", aneurysm_epd, args.seed + 2),
     ]
     for s in k1_shapes:
         emit({"phase": "kernel", "name": "csr_segment_sum", **s})
     k2_shapes = [
         k2_case("transformer_serving_frame", tf_frames[0], HIDDEN, args.seed + 3),
-        k2_case("panels_csr_batch_8x2048", panels_batch(args.seed + 200), HIDDEN, args.seed + 4),
-        k2_case("aneurysm_csr_66560x524288",
-                random_csr_graph(66000, 520000, 66560, 524288, args.seed + 300), 64, args.seed + 5),
+        k2_case("panels_csr_batch_8x2048", tf_batch, HIDDEN, args.seed + 4),
+        k2_case("aneurysm_csr_66560x524288", aneurysm_csr, 64, args.seed + 5),
     ]
     for s in k2_shapes:
         emit({"phase": "kernel", "name": "csr_softmax_spmm", **s})
+    k1b_shapes = [
+        k1b_case("serving_frame", epd_frames[0], args.seed + 6),
+        k1b_case("flagship_batch_8x2048", cyl_batch, args.seed + 7),
+        k1b_case("aneurysm_epd_66560x524288", aneurysm_epd, args.seed + 8),
+    ]
+    for s in k1b_shapes:
+        emit({"phase": "kernel", "name": "csr_segment_sum_backward", **s})
+    k3_shapes = [
+        k3_case("transformer_serving_frame", tf_frames[0], HIDDEN, args.seed + 9),
+        k3_case("panels_csr_batch_8x2048", tf_batch, HIDDEN, args.seed + 10),
+        k3_case("aneurysm_csr_66560x524288", aneurysm_csr, 64, args.seed + 11),
+    ]
+    for s in k3_shapes:
+        emit({"phase": "kernel", "name": "csr_softmax_spmm_backward", **s})
+    del aneurysm_epd, aneurysm_csr
 
     # 3-4. EPD: serving rollout and batched forward --------------------------------
     epd, result, profile_line = serve(
         "epd_serving", build_epd, epd_frames, counts, {"csr_segment_sum": BLOCKS}, args.seed
     )
-    epd_launches = result["launches"]["csr_segment_sum"]
     emit({"phase": "serving", "model": f"EncodeProcessDecode {BLOCKS}x{HIDDEN}, cylinder",
           **epd_sizes, **result})
     emit({"phase": "serving_profile", "model": "EncodeProcessDecode", **profile_line})
     emit({"phase": "batched", "model": "EncodeProcessDecode", **batched_forward(
-        "epd_batched", epd, flagship_batch(args.seed).to("cuda"), counts,
-        {"csr_segment_sum": BLOCKS})})
+        "epd_batched", epd, cyl_batch.to("cuda"), counts, {"csr_segment_sum": BLOCKS})})
     del epd
 
     # 5-6. transformer: serving rollout and batched forward ------------------------
     blocks = panels["model"]["message_passing_num"]
+    tf_model = (f"EncodeTransformDecode {blocks}x{panels['model']['hidden_size']}, "
+                f"{panels['model']['num_heads']} heads, {PANELS_CONFIG}")
     tf, result, profile_line = serve(
         "transformer_serving", lambda seed, dev: build_transformer(panels, seed, dev),
         tf_frames, counts, {"csr_softmax_spmm": blocks}, args.seed,
     )
-    tf_launches = result["launches"]["csr_softmax_spmm"]
-    emit({"phase": "transformer_serving",
-          "model": f"EncodeTransformDecode {blocks}x{panels['model']['hidden_size']}, "
-                   f"{panels['model']['num_heads']} heads, {PANELS_CONFIG}",
-          **tf_sizes, **result})
+    emit({"phase": "transformer_serving", "model": tf_model, **tf_sizes, **result})
     emit({"phase": "transformer_serving_profile", "model": "EncodeTransformDecode", **profile_line})
     emit({"phase": "transformer_batched", "model": "EncodeTransformDecode", **batched_forward(
-        "transformer_batched", tf, panels_batch(args.seed + 200).to("cuda"), counts,
-        {"csr_softmax_spmm": blocks})})
+        "transformer_batched", tf, tf_batch.to("cuda"), counts, {"csr_softmax_spmm": blocks})})
+    del tf
+
+    # 8. training: the main path of this slice ---------------------------------------
+    epd_blocks = cylinder["model"]["message_passing_num"]
+    epd_train = train("epd_training", cylinder, cyl_batch, counts,
+                      {"csr_segment_sum": epd_blocks, "csr_segment_sum_backward": epd_blocks},
+                      args.seed, EPD_GRAD_RTOL)
+    emit({"phase": "epd_training",
+          "model": f"EncodeProcessDecode {epd_blocks}x{cylinder['model']['hidden_size']}, "
+                   f"{CYLINDER_CONFIG}", **epd_train})
+    tf_train = train("transformer_training", panels, tf_batch, counts,
+                     {"csr_softmax_spmm": blocks, "csr_softmax_spmm_backward": blocks}, args.seed,
+                     TRANSFORMER_GRAD_RTOL)
+    emit({"phase": "transformer_training", "model": tf_model, **tf_train})
+
+    # 9. training pipeline: dataset, loader, fit with validation --------------------
+    emit({"phase": "epd_pipeline", **pipeline(
+        "epd_pipeline", cylinder, cylinder_trajectory, counts,
+        {"csr_segment_sum": (epd_blocks, epd_blocks), "csr_segment_sum_backward": (epd_blocks, 0)},
+        args.seed)})
+    emit({"phase": "transformer_pipeline", **pipeline(
+        "transformer_pipeline", panels, panels_trajectory, counts,
+        {"csr_softmax_spmm": (blocks, blocks), "csr_softmax_spmm_backward": (blocks, 0)},
+        args.seed)})
 
     def entry(name, source, replaces, launches, shapes, tolerance):
-        first = shapes[0]
+        main = shapes[1]  # the 8 x 2,048 batch: the training path's shape
         return {
             "name": name,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
             "launches": launches,
-            "max_abs_err": first["max_abs_err"],
+            "max_abs_err": main["max_abs_err"],
             "tolerance": tolerance,
-            "ms": first["ms"],
-            "plain_ms": first["plain_ms"],
-            "bound_ms": first["bound_ms"],
-            "bound_by": first["bound_by"],
-            "library_ms": first["library_ms"],
+            "ms": main["ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "shape": main["shape"],
             "shapes": shapes,
         }
 
+    launched = {k: v for r in (epd_train, tf_train) for k, v in r["launches"].items() if v}
     kernels = {"kernels": [
         entry("csr_segment_sum", "graphphysics_torch/csrc/csr_segment_sum.cu",
-              "graphphysics_tpu/ops/pallas_segment.py:148", epd_launches, k1_shapes,
+              "graphphysics_tpu/ops/pallas_segment.py:148", launched["csr_segment_sum"], k1_shapes,
               KERNEL_ATOL),
+        entry("csr_segment_sum_backward", "graphphysics_torch/csrc/csr_segment_sum.cu",
+              "graphphysics_tpu/ops/pallas_segment.py:228", launched["csr_segment_sum_backward"],
+              k1b_shapes, GATHER_ATOL),
         entry("csr_softmax_spmm", "graphphysics_torch/csrc/csr_softmax_spmm.cu",
-              "graphphysics_tpu/ops/pallas_attention.py:255", tf_launches, k2_shapes,
+              "graphphysics_tpu/ops/pallas_attention.py:255", launched["csr_softmax_spmm"], k2_shapes,
               {"rtol": SOFTMAX_RTOL, "atol": SOFTMAX_ATOL}),
+        entry("csr_softmax_spmm_backward", "graphphysics_torch/csrc/csr_softmax_spmm_bwd.cu",
+              "graphphysics_tpu/ops/pallas_attention.py:398", launched["csr_softmax_spmm_backward"],
+              k3_shapes, {"rtol": K3_RTOL, "atol": K3_ATOL}),
     ]}
     print(smi, flush=True)
     print(json.dumps(kernels), flush=True)

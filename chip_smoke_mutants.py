@@ -1,0 +1,88 @@
+"""How far a planted fault in K1b or K3 moves ``chip_smoke.first_step``, the
+check of the first train step on the card against the CPU: the readings
+that its per-model gradient limits (``EPD_GRAD_RTOL``,
+``TRANSFORMER_GRAD_RTOL``) must sit below.
+
+For each fault the tree is copied to a temporary directory, one line of a
+kernel's source is replaced there, the kernels are built from the copy and
+``first_step`` runs on the flagship batch (K1b faults, EPD 15 x 128) or the
+panels batch (K3 faults, transformer 15 x 128) with its limits lifted. One
+JSON line per fault. The repo itself is never changed. Needs one CUDA card:
+
+    python3 chip_smoke_mutants.py
+"""
+
+import json
+import math
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+K1 = "graphphysics_torch/csrc/csr_segment_sum.cu"
+K3 = "graphphysics_torch/csrc/csr_softmax_spmm_bwd.cu"
+K1B_LIVE = "if (live) live = bounds[r] <= e && e < bounds[num_rows + r];"
+K3_DSCORES = "live ? attn * (dot - delta) : 0.0f"
+# name -> (model, source, line, faulty line); graph 5 of the panels batch is
+# the one with empty softmax rows
+FAULTS = {
+    "k1b_zero_graph5": ("epd", K1, K1B_LIVE, K1B_LIVE[:-1] + " && r / 2048 != 5;"),
+    "k1b_drop_last_edge": ("epd", K1, K1B_LIVE, K1B_LIVE.replace("e < bounds", "e + 1 < bounds")),
+    "k3_dscores_x1.001": ("transformer", K3, K3_DSCORES, "live ? 1.001f * attn * (dot - delta) : 0.0f"),
+    "k3_dscores_x1.01": ("transformer", K3, K3_DSCORES, "live ? 1.01f * attn * (dot - delta) : 0.0f"),
+    "k3_dscores_zero_graph5": ("transformer", K3, K3_DSCORES,
+                               "(live && row / 2048 != 5) ? attn * (dot - delta) : 0.0f"),
+}
+
+
+def read_fault(model: str, name: str) -> dict:
+    """``first_step`` with lifted limits, in the tree of the working directory."""
+    import torch
+
+    import chip_smoke as cs
+    from graphphysics_torch.ops import _native
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _native.build()
+    cs.STEP_LOSS_RTOL = cs.STEP_ROUNDOFF_SHARE = math.inf
+    if model == "epd":
+        param, batch = cs.load_config(cs.CYLINDER_CONFIG), cs.flagship_batch(0)
+    else:
+        param, batch = cs.load_config(cs.PANELS_CONFIG), cs.panels_batch(200)
+    total_steps = 1 + cs.WARMUP_STEPS + cs.TIMED_STEPS + cs.PROFILED_STEPS
+    return {"fault": name, **cs.first_step(name, param, batch, 0, total_steps, math.inf)}
+
+
+def main() -> int:
+    if len(sys.argv) == 3:  # the child: one fault, in its copy
+        print("RESULT " + json.dumps(read_fault(*sys.argv[1:])), flush=True)
+        return 0
+    failed = 0
+    for name, (model, source, line, faulty) in FAULTS.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            copy = os.path.join(tmp, "tree")
+            shutil.copytree(ROOT, copy, ignore=shutil.ignore_patterns(".git", "build", "chiprun_out"))
+            path = os.path.join(copy, source)
+            with open(path) as fp:
+                text = fp.read()
+            if text.count(line) != 1:
+                raise SystemExit(f"{name}: the line to replace is not in {source} once")
+            with open(path, "w") as fp:
+                fp.write(text.replace(line, faulty))
+            script = os.path.join(copy, os.path.basename(__file__))
+            proc = subprocess.run([sys.executable, script, model, name], cwd=copy,
+                                  capture_output=True, text=True, timeout=600)
+        lines = [x[len("RESULT "):] for x in proc.stdout.splitlines() if x.startswith("RESULT ")]
+        if proc.returncode or not lines:
+            failed += 1
+            print(f"{name}: failed\n{proc.stderr[-3000:]}", file=sys.stderr, flush=True)
+        else:
+            print(lines[-1], flush=True)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,15 +1,27 @@
-"""H5 trajectories (counterpart of the trajectory readers in
-``graphphysics_tpu/dataset/h5_dataset.py``): read one trajectory per the
-meta schema and turn a frame into a ``RawSample``. ``h5py`` is imported only
-by the function that opens a file."""
+"""H5 trajectories (counterpart of ``graphphysics_tpu/dataset/h5_dataset.py``):
+read one trajectory per the meta schema, turn a frame into a ``RawSample``,
+and ``H5Dataset``, the training dataset over an h5 file of trajectories.
+``h5py`` is imported only by the function that opens a file."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from collections import OrderedDict
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from graphphysics_torch.dataset.dataset import BaseDataset
 from graphphysics_torch.dataset.sample import RawSample, meshdata_to_sample
+
+# trajectories an H5Dataset keeps in memory (the last ones read)
+TRAJ_CACHE_SIZE = 2
+
+
+def open_h5(h5_path: str):
+    """``h5py.File(h5_path, "r")``."""
+    import h5py
+
+    return h5py.File(h5_path, "r")
 
 
 def load_meta_trajectory(file_handle, traj_key: str, meta: Dict[str, Any]) -> Dict[str, np.ndarray]:
@@ -32,9 +44,7 @@ def load_meta_trajectory(file_handle, traj_key: str, meta: Dict[str, Any]) -> Di
 
 def read_h5_trajectory(h5_path: str, traj_key: str, meta: Dict[str, Any]) -> Dict[str, np.ndarray]:
     """Open ``h5_path`` and read trajectory ``traj_key``."""
-    import h5py
-
-    with h5py.File(h5_path, "r") as f:
+    with open_h5(h5_path) as f:
         return load_meta_trajectory(f, traj_key, meta)
 
 
@@ -89,3 +99,78 @@ def frame_to_sample(
         time=frame * meta.get("dt", 1),
         target=target_point_data,
     )
+
+
+class H5Dataset(BaseDataset):
+    """Frames of the trajectories of one h5 file, one group per trajectory,
+    laid out per the meta (``BaseDataset`` for the item pipeline). The file
+    handle opens at first read and the last ``TRAJ_CACHE_SIZE``
+    trajectories stay in memory."""
+
+    def __init__(
+        self,
+        h5_path: str,
+        meta_path: str,
+        switch_to_val: bool = False,
+        **kwargs,
+    ):
+        super().__init__(meta_path=meta_path, **kwargs)
+        if switch_to_val:
+            # the last "train" only: a whole-path replace would corrupt a
+            # directory whose name contains it
+            i = h5_path.rfind("train")
+            if i >= 0:
+                h5_path = h5_path[:i] + "test" + h5_path[i + 5 :]
+        self.h5_path = h5_path
+        self._file = None
+        self._traj_cache: OrderedDict = OrderedDict()
+        with open_h5(h5_path) as f:
+            self.datasets_index: List[str] = list(f.keys())
+
+    @property
+    def size_dataset(self) -> int:
+        return len(self.datasets_index)
+
+    def _handle(self):
+        if self._file is None:
+            self._file = open_h5(self.h5_path)
+        return self._file
+
+    def _trajectory(self, traj_index: int) -> Dict[str, np.ndarray]:
+        if traj_index in self._traj_cache:
+            self._traj_cache.move_to_end(traj_index)
+            return self._traj_cache[traj_index]
+        traj = load_meta_trajectory(self._handle(), self.datasets_index[traj_index], self.meta)
+        self._traj_cache[traj_index] = traj
+        while len(self._traj_cache) > TRAJ_CACHE_SIZE:
+            self._traj_cache.popitem(last=False)
+        return traj
+
+    def scan_node_counts(self) -> List[int]:
+        """Each trajectory's node count from the shape of its ``mesh_pos``."""
+        f = self._handle()
+        shape_meta = self.meta["features"]["mesh_pos"]["shape"]
+        d = shape_meta[-1]
+        counts = []
+        for key in self.datasets_index:
+            arr = f[key]["mesh_pos"]
+            if arr.ndim == len(shape_meta) and arr.ndim >= 2 and arr.shape[-1] == d:
+                n = arr.shape[-2]
+            elif len(shape_meta) == 2:
+                n = int(np.prod(arr.shape)) // d  # static mesh_pos stored flat
+            else:
+                # flat dynamic layout: elements / (T * d), T from the meta
+                t = shape_meta[0] if shape_meta[0] and shape_meta[0] > 0 else self.trajectory_length
+                n = int(np.prod(arr.shape)) // (t * d)
+            counts.append(int(n))
+        return counts
+
+    def _load(self, index: int) -> RawSample:
+        traj_index, frame = self.get_traj_frame(index)
+        return frame_to_sample(self._trajectory(traj_index), frame, self.meta, frame_target=frame + 1)
+
+    def close(self) -> None:
+        """Close the h5 handle (reopened at the next read)."""
+        if self._file is not None:
+            self._file.close()
+            self._file = None

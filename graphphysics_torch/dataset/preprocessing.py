@@ -1,15 +1,20 @@
 """Host-side preprocessing pipeline (counterpart of
-``graphphysics_tpu/dataset/preprocessing.py``) for the steps that prediction
-runs on a mesh dataset: FaceToEdge and the Cartesian + Distance edge
-features. Prediction builds the pipeline without training noise; noise,
-world-position features and the other transforms come with later slices."""
+``graphphysics_tpu/dataset/preprocessing.py``) for the steps that training
+and prediction run on a mesh dataset: FaceToEdge, the Cartesian + Distance
+edge features and the training noise. World-position features and the other
+transforms come with later slices. Randomness comes from the
+``numpy.random.Generator`` each step is handed, drawn in the JAX package's
+order, so the same generator gives the same noise."""
 
 from __future__ import annotations
 
-from typing import Callable, List
+import math
+from functools import partial
+from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 
+from graphphysics_torch.core.nodetype import NodeType
 from graphphysics_torch.dataset.sample import RawSample
 from graphphysics_torch.topology import cartesian_distance_features, face_to_edge
 
@@ -32,13 +37,60 @@ def add_edge_features(sample: RawSample, rng: np.random.Generator) -> RawSample:
     return sample
 
 
-def build_preprocessing(add_edges_features: bool = True) -> "Pipeline":
+def add_noise(
+    sample: RawSample,
+    rng: np.random.Generator,
+    noise_index_start: Union[int, Sequence[int]],
+    noise_index_end: Union[int, Sequence[int]],
+    noise_scale: Union[float, Sequence[float]],
+    node_type_index: int,
+    t: Optional[float] = None,
+) -> RawSample:
+    """Gaussian training noise on the feature slices
+    ``[noise_index_start, noise_index_end)``, zero on every node that is not
+    NORMAL; ``t`` selects the cosine curriculum ``10*std*(1+cos(t*pi))``.
+    One ``rng.normal`` draw per slice, in slice order."""
+    starts = [noise_index_start] if isinstance(noise_index_start, int) else list(noise_index_start)
+    ends = [noise_index_end] if isinstance(noise_index_end, int) else list(noise_index_end)
+    scales = (
+        [noise_scale] * len(starts)
+        if isinstance(noise_scale, (int, float))
+        else list(noise_scale)
+    )
+    if len(starts) != len(ends) or len(scales) != len(starts):
+        raise ValueError("noise index/scale lists must have equal length")
+
+    non_normal = sample.x[:, node_type_index] != NodeType.NORMAL
+    for start, end, scale in zip(starts, ends, scales):
+        scale_ = 10 * scale * (1 + math.cos(t * math.pi)) if t is not None else scale
+        noise = rng.normal(size=sample.x[:, start:end].shape).astype(sample.x.dtype) * scale_
+        noise[non_normal] = 0
+        sample.x[:, start:end] += noise
+    return sample
+
+
+def build_preprocessing(
+    noise_parameters: Optional[dict] = None, add_edges_features: bool = True
+) -> "Pipeline":
     """FaceToEdge, then the edge features unless ``add_edges_features`` is
     false (a model without edge inputs): the pipeline of a dataset without
-    world-position parameters, with noise removed."""
+    world-position parameters. ``noise_parameters`` (``noise_index_start``,
+    ``noise_index_end``, ``noise_scale``, ``node_type_index``) inserts
+    ``add_noise`` at position 1, after FaceToEdge, as the JAX package does."""
     steps: List[Transform] = [apply_face_to_edge]
     if add_edges_features:
         steps.append(add_edge_features)
+    if noise_parameters is not None:
+        steps.insert(
+            1,
+            partial(
+                add_noise,
+                noise_index_start=noise_parameters["noise_index_start"],
+                noise_index_end=noise_parameters["noise_index_end"],
+                noise_scale=noise_parameters["noise_scale"],
+                node_type_index=noise_parameters["node_type_index"],
+            ),
+        )
     return Pipeline(steps)
 
 

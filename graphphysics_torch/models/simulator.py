@@ -5,8 +5,10 @@ The three running normalizers (node / edge / output-delta) are submodules
 whose statistics are buffers named as in the reference ``state_dict``
 (``_output_normalizer._acc_sum`` ...). Graphs are batched by concatenation
 (``core.graph.concat_graphs``), so the simulator always sees one flat graph.
-This slice ports the eval forward of the plain (K = 0) decoder and
-``accumulate_stats``; training comes with a later slice. A model without
+``forward`` has the training branch (the batch is folded into the
+normalizers, then normalized with the updated statistics, in the same call,
+as flax's mutable collection does) and the eval branch of the plain
+(K = 0) decoder. A model without
 edge features (``edge_input_size == 0``, the transformer) has no edge
 normalizer, as in the JAX package.
 """
@@ -73,12 +75,9 @@ class SimulatorConfig:
 
 
 class Simulator(nn.Module):
-    """Wraps a processor model with normalization and delta-target handling.
-
-    ``forward`` is the eval branch of the reference ``Simulator.forward``:
-    ``(network_output, target_delta_normalized, outputs)`` with
-    ``outputs = pre_target + output_normalizer.inverse(network_output)``.
-    The module is moved to ``device`` (``cuda`` unless named)."""
+    """Wraps a processor model with normalization and delta-target handling,
+    as the reference ``Simulator.forward``. The module is moved to
+    ``device`` (``cuda`` unless named)."""
 
     def __init__(self, config: SimulatorConfig, model: nn.Module, device: DeviceLike = None):
         super().__init__()
@@ -118,8 +117,19 @@ class Simulator(nn.Module):
             self._edge_normalizer.accumulate(graph.edge_attr, mask=graph.edge_mask)
 
     def forward(
-        self, graph: Graph
-    ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
+        self, graph: Graph, is_training: bool = False, accumulate_stats: Optional[bool] = None
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
+        """``(network_output, target_delta_normalized, outputs)``.
+
+        ``accumulate_stats`` (default: ``is_training``) first folds the
+        graph's real rows into the three normalizers, so this batch is
+        normalized with statistics that include it. Training returns
+        ``outputs = None``; eval returns the denormalized prediction
+        ``pre_target + output_normalizer.inverse(network_output)``."""
+        if accumulate_stats is None:
+            accumulate_stats = is_training
+        if accumulate_stats:
+            self.accumulate_stats(graph)
         pre_target = self._pre_target(graph)
         target_delta_normalized = (
             None if graph.y is None else self._output_normalizer(graph.y - pre_target)
@@ -131,5 +141,7 @@ class Simulator(nn.Module):
             x=self._node_normalizer(self._build_node_features(graph)), edge_attr=edge_attr
         )
         network_output = self.model(model_graph)
+        if is_training:
+            return network_output, target_delta_normalized, None
         outputs = pre_target + self._output_normalizer.inverse(network_output)
         return network_output, target_delta_normalized, outputs

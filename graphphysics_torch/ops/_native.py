@@ -24,7 +24,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("csr_segment_sum.cu", "csr_softmax_spmm.cu")
+SOURCES = ("csr_segment_sum.cu", "csr_softmax_spmm.cu", "csr_softmax_spmm_bwd.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -127,3 +127,13 @@ def load(source: str) -> ctypes.CDLL:
         build([source])
     lib = _loaded[source] = ctypes.CDLL(str(path))
     return lib
+
+
+def function(source: str, name: str, pointers: int, ints: Sequence) -> ctypes._CFuncPtr:
+    """The C function ``name`` of ``source``'s library (built first if it is
+    missing), typed as ``pointers`` device pointers, then the ctypes integer
+    types ``ints``, then the stream, returning the CUDA error code."""
+    fn = getattr(load(source), name)
+    fn.argtypes = [ctypes.c_void_p] * pointers + list(ints) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn

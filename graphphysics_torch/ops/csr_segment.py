@@ -2,11 +2,13 @@
 ``graphphysics_tpu/ops/pallas_segment.py``.
 
 ``csr_segment_sum`` computes ``out[n] = sum of data[e] over the real edges e
-with receivers[e] == n``. For a CUDA tensor it launches the hand-written
-Hopper kernel ``csrc/csr_segment_sum.cu`` (built with ``nvcc`` at first use)
-or raises; for a CPU tensor it takes ``csr_segment_sum_reference``, the plain
-PyTorch version (masked ``index_add_`` into f32). Nothing else selects
-between the two.
+with receivers[e] == n``, as a ``torch.autograd.Function`` whose backward is
+``csr_segment_sum_backward``: ``ddata[e] = g[receivers[e]]`` on the real
+unmasked edges and 0 elsewhere. For CUDA tensors both launch hand-written
+Hopper kernels of ``csrc/csr_segment_sum.cu`` (built with ``nvcc`` at first
+use) or raise; for CPU tensors they take ``csr_segment_sum_reference`` and
+``csr_segment_sum_backward_reference``, the plain PyTorch versions. Nothing
+else selects between the two.
 
 The kernel reads per-node ``[start, end)`` ranges of real edges
 (``compute_row_bounds``, built on the host with the padding) instead of the
@@ -72,46 +74,77 @@ def compute_row_bounds(
     ).astype(np.int32)
 
 
+def accumulation_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the plain versions compute in: float32 for 16-bit and
+    float32 inputs, float64 for float64 (the gradient checks)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def csr_segment_sum_reference(
     data: torch.Tensor,
     receivers: torch.Tensor,
     num_nodes: int,
     mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version: masked ``index_add_`` into f32, returned in
-    ``data``'s dtype. Masked edges contribute nothing."""
-    src = data.to(torch.float32)
+    """Plain PyTorch version: masked ``index_add_`` into f32 (f64 for f64
+    data), returned in ``data``'s dtype. Masked edges contribute nothing."""
+    acc = accumulation_dtype(data.dtype)
+    src = data.to(acc)
     if mask is not None:
         src = torch.where(mask[:, None], src, torch.zeros((), dtype=src.dtype, device=src.device))
-    out = torch.zeros((num_nodes,) + tuple(data.shape[1:]), dtype=torch.float32, device=data.device)
+    out = torch.zeros((num_nodes,) + tuple(data.shape[1:]), dtype=acc, device=data.device)
     out.index_add_(0, receivers.to(torch.int64), src)
     return out.to(data.dtype)
 
 
-def _check_cuda_args(data, receivers, row_bounds, mask) -> None:
-    def fail(msg):
-        raise ValueError(f"csr_segment_sum: {msg}")
+def csr_segment_sum_backward_reference(
+    g: torch.Tensor,
+    receivers: torch.Tensor,
+    row_bounds: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the backward: ``ddata[e] = g[receivers[e]]``
+    for each unmasked edge inside its receiver's range, exactly 0 for every
+    other edge (masked edges, padding). The JAX ``_bwd`` gathers for every
+    edge; the two agree on the real unmasked edges."""
+    n = row_bounds.shape[1]
+    e = torch.arange(receivers.shape[0], device=receivers.device)
+    r = receivers.to(torch.int64)
+    rc = r.clamp(0, n - 1)
+    bounds = row_bounds.to(torch.int64)
+    live = (r >= 0) & (r < n) & (bounds[0][rc] <= e) & (e < bounds[1][rc])
+    if mask is not None:
+        live &= mask
+    return torch.where(live[:, None], g.index_select(0, rc), torch.zeros((), dtype=g.dtype, device=g.device))
 
-    if data.dtype != torch.float32:
-        fail(f"the CUDA kernel takes float32 data, got {data.dtype}")
-    if data.dim() != 2 or not data.is_contiguous():
-        fail(f"data must be a contiguous [E, H] tensor, got {tuple(data.shape)}")
-    if data.requires_grad and torch.is_grad_enabled():
-        fail("the CUDA kernel has no backward yet; call it under no_grad")
-    e = data.shape[0]
-    if receivers.shape != (e,):
-        fail(f"receivers must be [{e}], got {tuple(receivers.shape)}")
+
+def _check_cuda_args(op, t, edges, receivers, row_bounds, mask) -> None:
+    """Raise unless the kernels of ``op`` take these tensors: ``t`` (data
+    [E, H] or gradient [N, H]) float32 and contiguous, the edge layout of
+    ``edges`` edges on its device."""
+
+    def fail(msg):
+        raise ValueError(f"{op}: {msg}")
+
+    if t.dtype != torch.float32:
+        fail(f"the CUDA kernel takes float32 data, got {t.dtype}")
+    if t.dim() != 2 or not t.is_contiguous():
+        fail(f"data must be a contiguous 2-D tensor, got {tuple(t.shape)}")
+    if receivers.shape != (edges,):
+        fail(f"receivers must be [{edges}], got {tuple(receivers.shape)}")
+    if receivers.dtype != torch.int32 or not receivers.is_contiguous():
+        fail("receivers must be contiguous int32 (the backward kernel reads them)")
     if row_bounds.dim() != 2 or row_bounds.shape[0] != 2:
         fail(f"row_bounds must be [2, N], got {tuple(row_bounds.shape)}")
     if row_bounds.dtype != torch.int32 or not row_bounds.is_contiguous():
         fail("row_bounds must be contiguous int32")
     if mask is not None and (
-        mask.shape != (e,) or mask.dtype != torch.bool or not mask.is_contiguous()
+        mask.shape != (edges,) or mask.dtype != torch.bool or not mask.is_contiguous()
     ):
-        fail(f"mask must be a contiguous bool [{e}] tensor")
-    for name, t in (("receivers", receivers), ("row_bounds", row_bounds), ("mask", mask)):
-        if t is not None and t.device != data.device:
-            fail(f"{name} is on {t.device}, data on {data.device}")
+        fail(f"mask must be a contiguous bool [{edges}] tensor")
+    for name, x in (("receivers", receivers), ("row_bounds", row_bounds), ("mask", mask)):
+        if x is not None and x.device != t.device:
+            fail(f"{name} is on {x.device}, data on {t.device}")
 
 
 def check_in_range(op: str, side: str, segments, bounds, mask) -> None:
@@ -132,12 +165,8 @@ def check_in_range(op: str, side: str, segments, bounds, mask) -> None:
 
 
 def _launch(data, row_bounds, mask) -> torch.Tensor:
-    lib = _native.load(SOURCE)
-    fn = lib.csr_segment_sum_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    fn = _native.function(SOURCE, "csr_segment_sum_f32", 4,
+                          (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int))
     e, h = data.shape
     n = row_bounds.shape[1]
     out = torch.empty((n, h), dtype=torch.float32, device=data.device)
@@ -161,6 +190,49 @@ def _launch(data, row_bounds, mask) -> torch.Tensor:
     return out
 
 
+def _launch_backward(g, receivers, row_bounds, mask) -> torch.Tensor:
+    fn = _native.function(SOURCE, "csr_segment_sum_bwd_f32", 5,
+                          (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int))
+    n, h = g.shape
+    e = receivers.shape[0]
+    ddata = torch.empty((e, h), dtype=torch.float32, device=g.device)
+    if e == 0 or h == 0:
+        return ddata
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        err = fn(
+            g.data_ptr(),
+            receivers.data_ptr(),
+            row_bounds.data_ptr(),
+            None if mask is None else mask.data_ptr(),
+            ddata.data_ptr(),
+            n,
+            e,
+            h,
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"csr_segment_sum backward kernel launch failed: CUDA error {err}")
+    csr_segment_sum_backward.launches += 1
+    return ddata
+
+
+class _SegmentSum(torch.autograd.Function):
+    """K1 forward, K1b backward (CUDA) or their plain versions (CPU)."""
+
+    @staticmethod
+    def forward(ctx, data, receivers, row_bounds, mask):
+        ctx.save_for_backward(receivers, row_bounds, mask)
+        if data.is_cuda:
+            return _launch(data, row_bounds, mask)
+        return csr_segment_sum_reference(data, receivers, row_bounds.shape[1], mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        receivers, row_bounds, mask = ctx.saved_tensors
+        return csr_segment_sum_backward(g, receivers, row_bounds, mask), None, None, None
+
+
 def csr_segment_sum(
     data: torch.Tensor,
     receivers: torch.Tensor,
@@ -170,19 +242,45 @@ def csr_segment_sum(
     """Sum ``data`` ([E, H]) rows into ``N = row_bounds.shape[1]`` rows by
     receiver-sorted ``receivers``; ``row_bounds`` is ``compute_row_bounds``
     of those receivers and ``mask`` ([E] bool) drops edges anywhere.
+    Differentiable in ``data``: the gradient is ``csr_segment_sum_backward``.
 
     The kernel reads only the row ranges, so every unmasked edge must lie in
-    its receiver's range. A CUDA tensor launches the Hopper kernel (float32,
-    forward only) and adds one to ``csr_segment_sum.launches``; the CUDA path
-    trusts the layout and does not check it, so unsorted edges or stale
-    ``row_bounds`` give wrong sums without an error there (build graphs with
+    its receiver's range. A CUDA tensor launches the Hopper kernel (float32)
+    and adds one to ``csr_segment_sum.launches``; the CUDA path trusts the
+    layout and does not check it, so unsorted edges or stale ``row_bounds``
+    give wrong sums without an error there (build graphs with
     ``pad_graph_sorted_np``, which keeps the two together). A CPU tensor
     checks that precondition and takes ``csr_segment_sum_reference``."""
     if data.is_cuda:
-        _check_cuda_args(data, receivers, row_bounds, mask)
-        return _launch(data, row_bounds, mask)
-    check_in_range("csr_segment_sum", "receiver", receivers, row_bounds, mask)
-    return csr_segment_sum_reference(data, receivers, row_bounds.shape[1], mask)
+        _check_cuda_args("csr_segment_sum", data, data.shape[0], receivers, row_bounds, mask)
+    else:
+        check_in_range("csr_segment_sum", "receiver", receivers, row_bounds, mask)
+    return _SegmentSum.apply(data, receivers, row_bounds, mask)
 
 
 csr_segment_sum.launches = 0
+
+
+def csr_segment_sum_backward(
+    g: torch.Tensor,
+    receivers: torch.Tensor,
+    row_bounds: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The gradient of ``csr_segment_sum`` with respect to its data, from
+    the output's gradient ``g`` ([N, H]): ``[E, H]`` with ``g[receivers[e]]``
+    on each unmasked edge inside its receiver's range and 0 on every other
+    edge. A CUDA tensor launches the Hopper kernel (float32; every edge row
+    is written) and adds one to ``csr_segment_sum_backward.launches``; a CPU
+    tensor takes ``csr_segment_sum_backward_reference``."""
+    if not g.is_cuda:
+        return csr_segment_sum_backward_reference(g, receivers, row_bounds, mask)
+    op = "csr_segment_sum_backward"
+    g = g.contiguous()
+    _check_cuda_args(op, g, receivers.shape[0], receivers, row_bounds, mask)
+    if row_bounds.shape[1] != g.shape[0]:
+        raise ValueError(f"{op}: row_bounds covers {row_bounds.shape[1]} rows, g has {g.shape[0]}")
+    return _launch_backward(g, receivers, row_bounds, mask)
+
+
+csr_segment_sum_backward.launches = 0

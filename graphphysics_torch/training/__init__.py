@@ -1,4 +1,12 @@
+from graphphysics_torch.training.losses import (
+    l1_smooth_loss,
+    l2_loss,
+    make_local_loss,
+    node_type_mask,
+)
 from graphphysics_torch.training.parse_parameters import (
+    edge_layout,
+    get_dataset,
     get_model,
     get_preprocessing,
     get_simulator,
@@ -10,13 +18,23 @@ from graphphysics_torch.training.rollout import (
     rollout_rmse,
     stacked_trajectory,
 )
+from graphphysics_torch.training.schedule import cosine_warmup_schedule
+from graphphysics_torch.training.trainer import Trainer
 
 __all__ = [
+    "Trainer",
     "build_mask",
+    "cosine_warmup_schedule",
+    "edge_layout",
+    "get_dataset",
     "get_model",
     "get_preprocessing",
     "get_simulator",
     "get_simulator_config",
+    "l1_smooth_loss",
+    "l2_loss",
+    "make_local_loss",
+    "node_type_mask",
     "rollout",
     "rollout_rmse",
     "stacked_trajectory",

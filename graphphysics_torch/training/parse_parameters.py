@@ -1,8 +1,9 @@
 """Config parsing and factories for the reference JSON training-config schema
 (counterpart of ``graphphysics_tpu/training/parse_parameters.py``):
-``get_preprocessing``, ``get_model``, ``get_simulator_config`` and
-``get_simulator`` for the configurations the port serves today, float32
-with the plain (K = 0) decoder. A key that asks for more raises
+``get_preprocessing``, ``get_model``, ``get_simulator_config``,
+``get_simulator``, ``edge_layout`` and ``get_dataset`` for the
+configurations the port trains and serves today: float32, the plain (K = 0)
+decoder, h5 datasets. A key that asks for more raises
 ``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 
@@ -14,6 +15,7 @@ from torch import nn
 
 from graphphysics_torch.core.device import DeviceLike
 from graphphysics_torch.core.nodetype import NodeType
+from graphphysics_torch.dataset.h5_dataset import H5Dataset
 from graphphysics_torch.dataset.preprocessing import Pipeline, build_preprocessing
 from graphphysics_torch.models.processors import EncodeProcessDecode, EncodeTransformDecode
 from graphphysics_torch.models.simulator import Simulator, SimulatorConfig
@@ -27,14 +29,22 @@ def get_preprocessing(
     param: Dict[str, Any], use_edge_feature: bool = True, remove_noise: bool = False
 ) -> Pipeline:
     """The preprocessing pipeline of ``param``: FaceToEdge, plus the edge
-    features when ``use_edge_feature``. Prediction passes
-    ``remove_noise=True``; training noise and world-position edges wait."""
+    features when ``use_edge_feature``, plus the training noise of
+    ``transformations.preprocessing`` unless ``remove_noise`` (prediction
+    and validation) or its scale is 0. World-position edges wait."""
     pre = param.get("transformations", {}).get("preprocessing", {})
-    if pre.get("noise", 0) != 0 and not remove_noise:
-        raise _waits("training noise", "item 3, host data")
     if param.get("transformations", {}).get("world_pos_parameters", {}).get("use", False):
         raise _waits("world-position edges", "item 3, host data")
-    return build_preprocessing(add_edges_features=use_edge_feature)
+    noise_scale = pre.get("noise", 0)
+    noise_parameters = None
+    if noise_scale != 0 and not remove_noise:
+        noise_parameters = {
+            "noise_index_start": pre.get("noise_index_start"),
+            "noise_index_end": pre.get("noise_index_end"),
+            "noise_scale": noise_scale,
+            "node_type_index": param["index"]["node_type_index"],
+        }
+    return build_preprocessing(noise_parameters=noise_parameters, add_edges_features=use_edge_feature)
 
 
 def get_model(param: Dict[str, Any]) -> nn.Module:
@@ -85,3 +95,63 @@ def get_simulator_config(param: Dict[str, Any]) -> SimulatorConfig:
 def get_simulator(param: Dict[str, Any], device: DeviceLike = None) -> Simulator:
     """The Simulator of ``param`` on ``device`` (``cuda`` unless named)."""
     return Simulator(get_simulator_config(param), get_model(param), device=device)
+
+
+# the edge layout of each model family: the one its kernel reads
+MODEL_EDGE_LAYOUTS = {"epd": "sorted", "transformer": "csr"}
+
+
+def edge_layout(param: Dict[str, Any]) -> str:
+    """The dataset edge layout for ``param``: receiver-sorted (``"sorted"``)
+    for EncodeProcessDecode, sender-sorted (``"csr"``) for
+    EncodeTransformDecode, as ``stacked_trajectory`` lays them out. The
+    config's ``dataset.edge_layout`` "auto", "coo" (the JAX default, the same
+    edges unsorted) or absent resolves to that; "csr" is taken by the
+    transformer only, whose kernel it is; "ell" is not ported yet."""
+    model_type = param["model"].get("type")
+    if model_type not in MODEL_EDGE_LAYOUTS:
+        raise ValueError(f"Model type {model_type!r} not supported.")
+    wanted = param.get("dataset", {}).get("edge_layout") or "auto"
+    layout = MODEL_EDGE_LAYOUTS[model_type]
+    if wanted == "ell":
+        raise _waits("the ELL edge layout", "item 11, training features")
+    if wanted in ("auto", "coo") or wanted == layout:
+        return layout
+    raise ValueError(
+        f"edge_layout {wanted!r} does not fit model type {model_type!r}: its kernel "
+        f"reads the {layout!r} layout"
+    )
+
+
+def get_dataset(
+    param: Dict[str, Any],
+    preprocessing,
+    use_edge_feature: bool = True,
+    switch_to_val: bool = False,
+    **budget_kwargs,
+) -> H5Dataset:
+    """The dataset of ``param["dataset"]`` (``extension`` "h5"), in the
+    model's edge layout (``edge_layout``), with the config's
+    ``bucket_multiple`` and ``edge_headroom``; ``budget_kwargs`` override
+    them and may give ``node_budget``, ``edge_budget`` and ``seed``."""
+    dataset_params = param.get("dataset", {})
+    extension = dataset_params.get("extension", "")
+    if extension == "xdmf":
+        raise _waits("the XDMF datasets", "item 10, XDMF path")
+    if extension != "h5":
+        raise ValueError(f"Dataset extension {extension!r} not supported.")
+    for k in ("bucket_multiple", "edge_headroom", "num_buckets"):
+        if k not in budget_kwargs and dataset_params.get(k) is not None:
+            budget_kwargs[k] = dataset_params[k]
+    return H5Dataset(
+        h5_path=dataset_params["h5_path"],
+        meta_path=dataset_params["meta_path"],
+        switch_to_val=switch_to_val,
+        preprocessing=preprocessing,
+        khop=dataset_params.get("khop", 1),
+        new_edges_ratio=dataset_params.get("new_edges_ratio", 0),
+        add_edge_features=use_edge_feature,
+        node_type_index=param["index"]["node_type_index"],
+        edge_layout=edge_layout(param),
+        **budget_kwargs,
+    )

@@ -4,8 +4,21 @@ configuration built on both sides.
 
 Importing this module caps torch's intra-op threads: the test workers also
 run XLA, and torch's default of one thread per core oversubscribes a small
-machine when several workers run at once. Every port test file imports it."""
+machine when several workers run at once. Every port test file imports it.
 
+It also turns JAX's asynchronous CPU dispatch off for the process. With it
+on, an eager call of a Pallas kernel in TPU interpret mode (the port tests'
+references, and the JAX package's own tests) can deadlock: the kernel's
+``io_callback`` dispatches jnp ops from the runtime's thread while the main
+thread dispatches the next op, and neither returns. On an 8-core CPU, six
+processes that each ran ``EncodeTransformDecode.apply`` on a CSR graph 40
+times in interpret mode all hung within 9 calls with it on, and all
+finished with it off. The flag is read when the CPU client is made, so it
+has to be set before the first array: pytest imports every test module
+before it runs a test, and no module before the first port file makes one.
+Synchronous dispatch computes the same values."""
+
+import jax
 import numpy as np
 import torch
 
@@ -13,6 +26,7 @@ from graphphysics_tpu.utils.torch_import import export_reference_state_dict
 
 TORCH_THREADS = 2
 torch.set_num_threads(TORCH_THREADS)
+jax.config.update("jax_cpu_enable_async_dispatch", False)
 
 
 def state_dict_under(prefix: str, model_params) -> dict:

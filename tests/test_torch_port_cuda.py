@@ -1,7 +1,8 @@
 """Card tests of the port's CUDA kernels: ``csr_segment_sum`` and
-``csr_softmax_spmm`` against their plain versions on edge cases, and the EPD
-and transformer forwards on the card against the CPU. Marked ``cuda``; they
-skip without a card. This file imports no JAX, so on a machine without it
+``csr_softmax_spmm`` and their backward kernels against their plain versions
+on edge cases, autograd through both wrappers, the EPD and transformer
+forwards on the card against the CPU, and two train steps of each model on
+the card against the CPU. Marked ``cuda``; they skip without a card. This file imports no JAX, so on a machine without it
 run them with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py
@@ -84,8 +85,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         csr_segment_sum(torch.randn(8, 100, device=cuda).t(), recv, bounds)
     with pytest.raises(ValueError, match="int32"):
         csr_segment_sum(data, recv, bounds.long())
-    with pytest.raises(ValueError, match="no backward"):
-        csr_segment_sum(data.requires_grad_(True), recv, bounds)
+    # a gradient now goes through the backward kernel
+    assert csr_segment_sum(data.clone().requires_grad_(True), recv, bounds).requires_grad
     with pytest.raises(ValueError, match="row_bounds"):
         masked_segment_sum(data.detach(), recv, 32)
     out16 = masked_segment_sum(data.detach().half(), recv, 32, row_bounds=bounds)
@@ -190,8 +191,8 @@ def test_softmax_spmm_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         csr_softmax_spmm(s, torch.zeros(64, 512, device=cuda).t(), seg, bounds)
     with pytest.raises(ValueError, match="int32"):
         csr_softmax_spmm(s, v, seg, bounds.long())
-    with pytest.raises(ValueError, match="no backward"):
-        csr_softmax_spmm(s.requires_grad_(True), v, seg, bounds)
+    out, ml = csr_softmax_spmm(s.clone().requires_grad_(True), v, seg, bounds)
+    assert out.requires_grad and not ml.requires_grad  # the backward kernel takes gradients now
     q = torch.zeros(128, 4, 16, device=cuda)
     with pytest.raises(ValueError, match="sender_bounds"):
         sparse_graph_attention(q, q, q, seg, seg, 128)
@@ -226,3 +227,223 @@ def test_transformer_forward_on_card_matches_cpu(cuda):
         on_cpu = sims["cpu"](g.to("cpu"))[2]
     assert (csr_softmax_spmm.launches, csr_segment_sum.launches) == (before[0] + 3, before[1])
     torch.testing.assert_close(on_card, on_cpu, rtol=1e-4, atol=1e-4)
+
+
+def _poison_free_memory(device, mib=64):
+    """Leave NaN in the caching allocator's free blocks, so that output rows
+    a kernel fails to write show up instead of reading as stale zeros."""
+    junk = torch.full((mib * 2**18,), float("nan"), device=device)
+    del junk
+
+
+def _two_sorted_graphs(seed):
+    """Two receiver-sorted graphs concatenated: the first graph's padded
+    edges sit between real edges; the second has n_pad == n."""
+    from graphphysics_torch.core import concat_graphs
+
+    return concat_graphs([_layout(200, 900, seed, n_pad=256, e_pad=1280),
+                          _layout(256, 1000, seed + 1, n_pad=256, e_pad=1280)])
+
+
+@pytest.mark.parametrize(
+    "layout,h",
+    [("serving", 128), ("skewed", 128), ("two_graphs", 128), ("two_graphs", 6), ("serving", 1)],
+)
+def test_segment_sum_backward_kernel_matches_plain(cuda, layout, h):
+    from graphphysics_torch.ops.csr_segment import (
+        csr_segment_sum_backward,
+        csr_segment_sum_backward_reference,
+    )
+
+    g = {
+        "serving": lambda: _layout(2048, 11906, 0, n_pad=2048, e_pad=13696),  # n_pad == n
+        "skewed": lambda: _layout(1000, 4000, 1, hi=5, n_pad=1024, e_pad=4096),  # empty rows
+        "two_graphs": lambda: _two_sorted_graphs(2),
+    }[layout]()
+    recv = torch.from_numpy(g.receivers).to(cuda)
+    bounds = torch.from_numpy(g.row_bounds).to(cuda)
+    mask = torch.from_numpy(g.edge_mask).to(cuda)
+    mask[::7] = False
+    cot = torch.randn(g.num_nodes, h, device=cuda, generator=torch.Generator(device=cuda).manual_seed(3))
+    _poison_free_memory(cuda)
+    before = csr_segment_sum_backward.launches
+    got = csr_segment_sum_backward(cot, recv, bounds, mask)
+    torch.cuda.synchronize()
+    assert csr_segment_sum_backward.launches == before + 1
+    want = csr_segment_sum_backward_reference(cot, recv, bounds, mask)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)  # a gather: exact
+    assert torch.all(got[~mask] == 0)
+
+
+def test_segment_sum_autograd_on_card(cuda):
+    from graphphysics_torch.ops.csr_segment import (
+        csr_segment_sum,
+        csr_segment_sum_backward,
+        csr_segment_sum_reference,
+    )
+
+    g = _two_sorted_graphs(4)
+    recv = torch.from_numpy(g.receivers).to(cuda)
+    bounds = torch.from_numpy(g.row_bounds).to(cuda)
+    mask = torch.from_numpy(g.edge_mask).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    data = torch.randn(g.num_edges, 64, device=cuda, generator=gen)
+    cot = torch.randn(g.num_nodes, 64, device=cuda, generator=gen)
+    before = (csr_segment_sum.launches, csr_segment_sum_backward.launches)
+    d = data.clone().requires_grad_(True)
+    (got,) = torch.autograd.grad(csr_segment_sum(d, recv, bounds, mask), d, cot)
+    assert (csr_segment_sum.launches, csr_segment_sum_backward.launches) == (before[0] + 1, before[1] + 1)
+    d = data.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(csr_segment_sum_reference(d, recv, g.num_nodes, mask), d, cot)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _two_csr_graphs(seed, d, h):
+    """Two sender-sorted graphs concatenated (padding between real edges),
+    the second with empty rows, and inputs for them."""
+    from graphphysics_torch.core import concat_graphs, pad_graph_csr_np
+
+    r = np.random.default_rng(seed)
+    graphs = []
+    for n, e, hi in ((200, 900, None), (256, 1000, 100)):
+        graphs.append(pad_graph_csr_np(
+            np.zeros((n, 1), np.float32), np.zeros((n, 2), np.float32),
+            r.integers(0, n if hi is None else hi, e).astype(np.int32),
+            r.integers(0, n, e).astype(np.int32), 256, 1280,
+        ))
+    g = concat_graphs(graphs)
+    gen = torch.Generator().manual_seed(seed)
+    scores = 3 * torch.randn(g.num_edges, h, generator=gen)
+    values = torch.randn(g.num_edges, d, generator=gen)
+    mask = torch.from_numpy(g.edge_mask).clone()
+    mask[::5] = False
+    return g, scores, values, mask
+
+
+@pytest.mark.parametrize(
+    "case,d,h",
+    [("serving", 128, 4), ("skewed", 128, 4), ("two_graphs", 128, 4), ("two_graphs", 64, 4),
+     ("two_graphs", 96, 4), ("two_graphs", 512, 8), ("two_graphs", 32, 1)],
+)
+def test_softmax_spmm_backward_kernel_matches_plain(cuda, case, d, h):
+    from graphphysics_torch.ops.csr_attention import (
+        csr_softmax_spmm,
+        csr_softmax_spmm_backward,
+        csr_softmax_spmm_backward_reference,
+    )
+
+    if case == "two_graphs":
+        g, scores, values, mask = _two_csr_graphs(7, d, h)
+    elif case == "serving":  # n_pad == n: padded edges on the real last node
+        g, scores, values, mask = _csr_case(2048, 11906, d, h, seed=8, n_pad=2048, e_pad=13696)
+    else:  # every edge from the first 5 nodes: long rows, most rows empty
+        g, scores, values, mask = _csr_case(1000, 4000, d, h, seed=9, hi=5, n_pad=1024, e_pad=4096)
+    seg = torch.from_numpy(g.senders).to(cuda)
+    bounds = torch.from_numpy(g.sender_bounds).to(cuda)
+    s, v, m = scores.to(cuda), values.to(cuda), mask.to(cuda)
+    with torch.no_grad():
+        out, ml = csr_softmax_spmm(s, v, seg, bounds, m)
+    cot = torch.randn(g.num_nodes, d, device=cuda, generator=torch.Generator(device=cuda).manual_seed(1))
+    _poison_free_memory(cuda)
+    before = csr_softmax_spmm_backward.launches
+    got = csr_softmax_spmm_backward(s, v, seg, bounds, ml, out, cot, m)
+    torch.cuda.synchronize()
+    assert csr_softmax_spmm_backward.launches == before + 1
+    want = csr_softmax_spmm_backward_reference(s, v, seg, ml, out, cot, m)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        # expf on the card, exp here; per-head sums in another order
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        assert torch.all(a[~m] == 0)
+
+
+def test_softmax_spmm_and_attention_autograd_on_card(cuda):
+    from graphphysics_torch.ops.csr_attention import (
+        csr_softmax_spmm,
+        csr_softmax_spmm_backward,
+        csr_sparse_attention,
+    )
+
+    g, scores, values, mask = _two_csr_graphs(11, 128, 4)
+    args = (torch.from_numpy(g.senders), torch.from_numpy(g.sender_bounds), mask)
+    cot = torch.randn(g.num_nodes, 128, generator=torch.Generator().manual_seed(2))
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        s = scores.to(dev).requires_grad_(True)
+        v = values.to(dev).requires_grad_(True)
+        before = (csr_softmax_spmm.launches, csr_softmax_spmm_backward.launches)
+        out, _ = csr_softmax_spmm(s, v, *(a.to(dev) for a in args))
+        grads[dev] = torch.autograd.grad(out, (s, v), cot.to(dev))
+        step = int(dev == "cuda")
+        assert (csr_softmax_spmm.launches, csr_softmax_spmm_backward.launches) == (
+            before[0] + step, before[1] + step)
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+
+    n = g.num_nodes
+    qkv = torch.randn(3, n, 4, 32, generator=torch.Generator().manual_seed(3))
+    cot = torch.randn(n, 4, 32, generator=torch.Generator().manual_seed(4))
+    for dev in ("cpu", "cuda"):
+        ts = [t.to(dev).requires_grad_(True) for t in qkv]
+        out = csr_sparse_attention(*ts, torch.from_numpy(g.senders).to(dev),
+                                   torch.from_numpy(g.receivers).to(dev),
+                                   torch.from_numpy(g.sender_bounds).to(dev),
+                                   edge_mask=mask.to(dev), scale=0.5)
+        grads[dev] = torch.autograd.grad(out, ts, cot.to(dev))
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        # dk and dv sum per-edge terms with index_add_ atomics on the card
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+def _train_param(kind):
+    model = {"type": kind, "message_passing_num": 3, "hidden_size": 64, "node_input_size": 2,
+             "output_size": 2, "edge_input_size": 3 if kind == "epd" else 0, "num_heads": 4}
+    return {"model": model, "index": {"feature_index_start": 0, "feature_index_end": 2,
+                                      "output_index_start": 0, "output_index_end": 2,
+                                      "node_type_index": 2}}
+
+
+def _train_batch(kind, seed):
+    from graphphysics_torch.core import concat_graphs, pad_graph_csr_np, pad_graph_sorted_np
+
+    r = np.random.default_rng(seed)
+    graphs = []
+    for n, e in ((500, 3000), (512, 3100)):
+        x = r.normal(size=(n, 4)).astype(np.float32)
+        x[:, 2] = r.integers(0, 7, n)
+        pad = pad_graph_sorted_np if kind == "epd" else pad_graph_csr_np
+        graphs.append(pad(
+            x, r.normal(size=(n, 2)).astype(np.float32), r.integers(0, n, e).astype(np.int32),
+            r.integers(0, n, e).astype(np.int32), 512, 3200,
+            edge_attr=r.normal(size=(e, 3)).astype(np.float32) if kind == "epd" else None,
+            y=r.normal(size=(n, 2)).astype(np.float32), node_type_index=2,
+        ))
+    return concat_graphs(graphs)
+
+
+@pytest.mark.parametrize("kind", ["epd", "transformer"])
+def test_two_train_steps_on_card_match_cpu(cuda, kind):
+    from graphphysics_torch.ops.csr_attention import csr_softmax_spmm, csr_softmax_spmm_backward
+    from graphphysics_torch.ops.csr_segment import csr_segment_sum, csr_segment_sum_backward
+    from graphphysics_torch.training import Trainer
+
+    kernels = (csr_segment_sum, csr_segment_sum_backward, csr_softmax_spmm, csr_softmax_spmm_backward)
+    batches = [_train_batch(kind, seed) for seed in (0, 1)]
+    losses, params = {}, {}
+    for dev in ("cpu", "cuda"):
+        trainer = Trainer(_train_param(kind), learning_rate=1e-3, warmup=2, device=dev)
+        trainer.init_state(10)
+        before = [k.launches for k in kernels]
+        losses[dev] = [trainer.train_step(b).item() for b in batches]
+        launched = [k.launches - b for k, b in zip(kernels, before)]
+        params[dev] = {k: v.detach().cpu() for k, v in trainer.sim.state_dict().items()}
+    per_run = 3 * len(batches)  # one launch per block and step
+    want = [per_run, per_run, 0, 0] if kind == "epd" else [0, 0, per_run, per_run]
+    assert launched == want
+    # f32 without TF32 on both; sums in another order, atomics on the card
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+    for key, value in params["cpu"].items():
+        # the key bias's gradient is 0 in exact arithmetic: Adam turns
+        # round-off into +-lr steps on both devices
+        atol = 2 * 2 * 1e-3 if key.endswith("k_proj.bias") else 1e-5
+        torch.testing.assert_close(params["cuda"][key], value, rtol=1e-5, atol=atol, msg=key)

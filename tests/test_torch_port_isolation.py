@@ -1,5 +1,5 @@
-"""The port stands alone: ``graphphysics_torch`` and ``chip_smoke.py`` import
-no JAX, flax, optax or ``graphphysics_tpu``, build no kernel on import, and
+"""The port stands alone: ``graphphysics_torch``, ``chip_smoke.py`` and
+``chip_smoke_mutants.py`` import no JAX, flax, optax or ``graphphysics_tpu``, build no kernel on import, and
 their entry points run on CUDA by default, raising where there is none."""
 
 import ast
@@ -19,7 +19,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "graphphysics_tpu")
 
 
 def _port_sources():
-    return sorted((ROOT / "graphphysics_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    scripts = [ROOT / "chip_smoke.py", ROOT / "chip_smoke_mutants.py"]
+    return sorted((ROOT / "graphphysics_torch").rglob("*.py")) + scripts
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -46,6 +47,9 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "import graphphysics_torch.utils.reference_weights\n"
         "import graphphysics_torch.ops.attention, graphphysics_torch.ops.csr_attention\n"
         "import graphphysics_torch.training.parse_parameters\n"
+        "import graphphysics_torch.training.trainer, graphphysics_torch.training.losses\n"
+        "import graphphysics_torch.training.schedule, graphphysics_torch.dataset.loader\n"
+        "import graphphysics_torch.dataset.dataset, graphphysics_torch.dataset.h5_dataset\n"
         "from graphphysics_torch.ops import _native\n"
         "print(json.dumps({'new': sorted(set(sys.modules) - before),\n"
         "                  'loaded': sorted(_native._loaded)}))\n"
@@ -86,6 +90,14 @@ def test_default_device_entry_points_raise_without_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         rollout(sim, stack_graphs([g]))
+    from graphphysics_torch.training import Trainer
+
+    param = {"model": {"type": "epd", "message_passing_num": 1, "hidden_size": 8,
+                       "node_input_size": 2, "output_size": 2, "edge_input_size": 3},
+             "index": {"feature_index_start": 0, "feature_index_end": 2,
+                       "output_index_start": 0, "output_index_end": 2, "node_type_index": 2}}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(param)
     # the CPU path works when asked for, and never touches the kernel
     before = csr_segment_sum.launches
     preds, _ = rollout(sim, stack_graphs([g]), device="cpu")

@@ -260,8 +260,9 @@ def test_unported_model_keys_raise(key, value, match):
 
 def test_preprocessing_for_prediction():
     param = _panels()
-    with pytest.raises(NotImplementedError, match="noise"):
-        get_preprocessing(param)
+    # training keeps the config's noise after FaceToEdge; prediction drops it
+    train = get_preprocessing(param, use_edge_feature=False)
+    assert [getattr(s, "func", s).__name__ for s in train.steps] == ["apply_face_to_edge", "add_noise"]
     pre = get_preprocessing(param, use_edge_feature=False, remove_noise=True)
     assert [s.__name__ for s in pre.steps] == ["apply_face_to_edge"]
     param["transformations"]["world_pos_parameters"]["use"] = True
