@@ -38,7 +38,16 @@ and the CUDA toolkit. Phases, each of which raises on failure:
    a ``torch.profiler`` breakdown of 3 steps;
 9. training pipeline: synthetic trajectories through ``BaseDataset``,
    ``GraphLoader`` and ``Trainer.fit`` with rollout validation, for both
-   models, launches checked.
+   models, launches checked;
+10. checkpoints (``epd_checkpoint``, ``transformer_checkpoint``): on the
+    same kind of in-memory trajectories, per model, ``fit`` for 2 epochs
+    saving every step (run A), the same interrupted after batch 2 (run B)
+    and resumed from its checkpoint (run C), held against A (step,
+    learning rate and batch stream exactly, parameters within
+    ``RESUME_MEDIAN_RTOL`` and a per-model worst limit); the final checkpoint reloaded into a fresh
+    ``Trainer`` on the card bitwise; ``predict`` from it on the card with
+    its launches checked, against the trained model's and the CPU's; the
+    checkpoint's bytes, save and load seconds and predict's ms per frame.
 
 Every line but the last is a JSON object (one per phase), apart from the
 card's ``nvidia-smi`` line; the ``{"kernels": [...]}`` line comes just before
@@ -51,8 +60,10 @@ comparison is float32.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -105,6 +116,28 @@ TRANSFORMER_GRAD_RTOL = 1e-4
 # below STEP_ROUNDOFF_SHARE on each device instead (2.6e-10 read).
 ROUNDOFF_LEAVES = ("k_proj.bias",)
 STEP_ROUNDOFF_SHARE = 1e-6
+# the resumed run (C) against the uninterrupted one (A) on the card, per
+# parameter ||C - A|| / ||A - start||: the gathers' backward sums with
+# index_add_ atomics, so two runs differ in round-off, which Adam's
+# normalized steps carry into the weights. The median over the parameters
+# and the worst one are held to limits. Sound runs on an H100 (C, and a
+# rerun A' of A, two runs with the mutants' reruns) read medians of
+# 8.9e-4-1.2e-3 (EPD) and 3.2e-4-4.3e-4 (transformer), worst 0.0099-0.037
+# (EPD) and 7.9e-5-1.7e-3 (transformer); the same check with a fault
+# planted in the restore (chip_smoke_mutants.py) read medians of 0.62 /
+# 0.51 (AdamW state not restored) and 0.023 / 0.020 (normalizer statistics
+# zeroed), worst 0.83 / 0.61 and 0.080 / 0.053 (EPD / transformer). The
+# median's limit sits between the two for both faults; the worst one's
+# limits, 5x and 12x the largest sound reading, catch only gross faults.
+RESUME_MEDIAN_RTOL = 5e-3
+EPD_RESUME_WORST_RTOL = 0.2
+TRANSFORMER_RESUME_WORST_RTOL = 2e-2
+# the most one AdamW step moves a leaf, in units of its learning rate
+# (|m_hat / sqrt(v_hat)| <= 1.17 with beta1**2 < beta2, plus the decay): a
+# round-off-only leaf of C and A can differ by twice the summed rates
+ADAM_STEP_MAX = 1.2
+# in-memory trajectories of the checkpoint phases: 32 items, 4 batches of 8
+CKPT_TRAJECTORIES = 4
 # graphs of the two training batches: nodes and real edges of each, padded
 # to 2,048 / 12,288. Graph 0 has n_pad == n with padded edges on its real
 # last node, graph 4 no padding at all; the others pad both.
@@ -841,42 +874,57 @@ def train(name, param, batch, counts, expected, seed, grad_rtol):
     }
 
 
-def pipeline(name, param, make_traj, counts, expected, seed):
-    """Synthetic trajectories on ``triangulated_grid(64, 32)`` (2,048 nodes)
-    through a ``BaseDataset`` with the config's training preprocessing (its
-    noise included), ``GraphLoader`` batches of 8 frames and
-    ``Trainer.fit`` for 2 epochs with rollout validation on the card.
-    ``expected`` gives (launches per step, launches per validated frame)."""
-    import tempfile
-
-    from graphphysics_torch.dataset import BaseDataset, GraphLoader, frame_to_sample
-    from graphphysics_torch.training import Trainer, edge_layout, get_preprocessing
+def memory_datasets(param, make_traj, seed, directory, n_traj):
+    """Training and validation ``BaseDataset``s over ``n_traj`` synthetic
+    trajectories on ``triangulated_grid(64, 32)`` (2,048 nodes, 8 frames
+    each) held in memory, with the config's training preprocessing (noise
+    included) and its validation one; the meta file goes to ``directory``."""
+    from graphphysics_torch.dataset import BaseDataset, frame_to_sample
+    from graphphysics_torch.training import edge_layout, get_preprocessing
 
     edges = param["model"]["edge_input_size"] > 0
-    trajs = [make_traj(steps=9, nx=64, ny=32, phase0=0.15 * k)[0] for k in range(2)]
+    trajs = [make_traj(steps=9, nx=64, ny=32, phase0=0.15 * k)[0] for k in range(n_traj)]
     meta = make_traj(steps=9, nx=2, ny=2)[1]
 
     class Trajectories(BaseDataset):
         """The in-memory trajectories as a dataset."""
 
         size_dataset = len(trajs)
+        dt = meta["dt"]
 
         def _load(self, index):
             traj, frame = self.get_traj_frame(index)
-            return frame_to_sample(trajs[traj], frame, self.meta, frame_target=frame + 1)
+            sample = frame_to_sample(trajs[traj], frame, self.meta, frame_target=frame + 1)
+            sample.traj_index = traj
+            return sample
+
+    meta_path = f"{directory}/meta.json"
+    with open(meta_path, "w") as fp:
+        json.dump(meta, fp)
+    common = dict(add_edge_features=edges, edge_layout=edge_layout(param),
+                  node_type_index=param["index"]["node_type_index"], seed=seed)
+    train_ds = Trajectories(meta_path, preprocessing=get_preprocessing(param, use_edge_feature=edges),
+                            **common)
+    val_ds = Trajectories(meta_path, preprocessing=get_preprocessing(
+        param, use_edge_feature=edges, remove_noise=True), **common)
+    return train_ds, val_ds
+
+
+def pipeline(name, param, make_traj, counts, expected, seed):
+    """Two synthetic trajectories (``memory_datasets``) through
+    ``GraphLoader`` batches of 8 frames and ``Trainer.fit`` for 2 epochs
+    with rollout validation on the card. ``expected`` gives (launches per
+    step, launches per validated frame)."""
+    import tempfile
+
+    from graphphysics_torch.dataset import GraphLoader
+    from graphphysics_torch.training import Trainer
 
     with tempfile.TemporaryDirectory() as tmp:
-        meta_path = f"{tmp}/meta.json"
-        with open(meta_path, "w") as fp:
-            json.dump(meta, fp)
-        common = dict(add_edge_features=edges, edge_layout=edge_layout(param),
-                      node_type_index=param["index"]["node_type_index"], seed=seed)
-        train_ds = Trajectories(meta_path, preprocessing=get_preprocessing(param, use_edge_feature=edges),
-                                **common)
-        val_ds = Trajectories(meta_path, preprocessing=get_preprocessing(
-            param, use_edge_feature=edges, remove_noise=True), **common)
+        train_ds, val_ds = memory_datasets(param, make_traj, seed, tmp, n_traj=2)
         loader = GraphLoader(train_ds, batch_size=8, shuffle=True, seed=seed)
-        trainer = Trainer(param, learning_rate=1e-4, warmup=2, seed=seed, device="cuda")
+        trainer = Trainer(param, learning_rate=1e-4, warmup=2, seed=seed, device="cuda",
+                          checkpoint_dir=tmp, metrics_path=None, rollout_dir=None)
         for fn in counts.values():
             fn.launches = 0
         t0 = time.perf_counter()
@@ -906,6 +954,258 @@ def pipeline(name, param, make_traj, counts, expected, seed):
         "val_rmse": history["val_rmse"],
         "launches": launches,
         "fit_s": seconds,
+    }
+
+
+class RecordingLoader:
+    """A ``GraphLoader`` that records a digest of each batch it yields and,
+    given a trainer, asks it to stop after batch ``stop_after``."""
+
+    def __init__(self, loader, trainer=None, stop_after=None):
+        self.loader, self.trainer, self.stop_after = loader, trainer, stop_after
+        self.digests = []
+
+    def __len__(self):
+        return len(self.loader)
+
+    def set_epoch(self, epoch):
+        self.loader.set_epoch(epoch)
+
+    def set_start_batch(self, batch):
+        self.loader.set_start_batch(batch)
+
+    def __iter__(self):
+        for batch in self.loader:
+            self.digests.append(hashlib.sha1(np.ascontiguousarray(batch.x).tobytes()).hexdigest())
+            if self.trainer is not None and len(self.digests) == self.stop_after:
+                self.trainer.request_interrupt()
+            yield batch
+
+
+def update_rel_errs(params, params_a, start):
+    """Per parameter, ||P - A|| / ||A - start||: how far ``params`` are
+    from run A's over how far A moved them. The round-off-only leaves
+    (``ROUNDOFF_LEAVES``) are left out and their largest absolute
+    difference returned apart. Returns (rel by name, that difference)."""
+    rel, roundoff = {}, 0.0
+    for name, a in params_a.items():
+        p, a, s0 = params[name].double(), a.double(), start[name].double()
+        if name.endswith(ROUNDOFF_LEAVES):
+            roundoff = max(roundoff, (p - a).abs().max().item())
+        else:
+            rel[name] = ((p - a).norm() / (a - s0).norm()).item()
+    return rel, roundoff
+
+
+def resume_runs(name, param, train_ds, val_ds, counts, expected, seed, tmp, worst_rtol):
+    """Steps 1-2 of ``checkpoint_roundtrip`` in ``tmp``: runs A, A' (A again,
+    the card's round-off floor), B (interrupted after batch 2) and C (B
+    resumed). Returns (readings, run C, its checkpoint's path)."""
+    from graphphysics_torch.dataset import GraphLoader
+    from graphphysics_torch.training import Trainer, load_metadata
+
+    def trainer(run):
+        return Trainer(param, learning_rate=1e-4, warmup=2, seed=seed, device="cuda",
+                       checkpoint_dir=f"{tmp}/{run}", metrics_path=f"{tmp}/{run}.csv",
+                       rollout_dir=None, save_every_n_steps=1)
+
+    def loader():
+        return GraphLoader(train_ds, batch_size=8, shuffle=True, seed=seed)
+
+    fit = dict(val_dataset=val_ds, num_epochs=2, val_trajectories=1)
+    for fn in counts.values():
+        fn.launches = 0
+    run_a = trainer("a")
+    loader_a = RecordingLoader(loader())
+    total_steps = 2 * len(loader_a)
+    run_a.init_state(total_steps)
+    start = {k: v.detach().clone() for k, v in run_a.sim.named_parameters()}
+    t0 = time.perf_counter()
+    history_a = run_a.fit(loader_a, **fit)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    rerun = trainer("a2")
+    rerun.fit(RecordingLoader(loader()), **fit)
+
+    run_b = trainer("b")
+    loader_b = RecordingLoader(loader(), trainer=run_b, stop_after=2)
+    if not run_b.fit(loader_b, **fit)["interrupted"]:
+        raise AssertionError(f"{name}: run B was not interrupted")
+    ckpt = f"{tmp}/b/state.pt"
+    meta = load_metadata(ckpt)
+    if (meta["epoch"], meta["batch_offset"], meta["step"]) != (0, 2, 2):
+        raise AssertionError(f"{name}: interrupted checkpoint metadata {meta}")
+    run_c = trainer("b")
+    loader_c = RecordingLoader(loader())
+    history_c = run_c.fit(loader_c, resume_from=ckpt, **fit)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counts.items()}
+    steps = 2 * run_a.step + run_b.step + run_c.step - 2  # A, A', B, C
+    frames = 6 * val_ds.frames_per_trajectory  # validations: A 2, A' 2, B 0, C 2
+    want = {k: expected.get(k, (0, 0))[0] * steps + expected.get(k, (0, 0))[1] * frames
+            for k in counts}
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, expected {want}")
+
+    lr_a, lr_c = (t.optimizer.param_groups[0]["lr"] for t in (run_a, run_c))
+    exact = {
+        "step": run_c.step == run_a.step == total_steps,
+        "scheduler_position": run_c.scheduler.last_epoch == run_a.scheduler.last_epoch,
+        "lr": lr_c == lr_a,
+        "batch_stream": (loader_b.digests + loader_c.digests == loader_a.digests
+                         and len(loader_a.digests) == total_steps),
+    }
+    if not all(exact.values()):
+        raise AssertionError(f"{name}: the resumed run differs from run A: {exact}, "
+                             f"steps {run_c.step} / {run_a.step}, lr {lr_c} / {lr_a}")
+    params_a = {k: v.detach() for k, v in run_a.sim.named_parameters()}
+    rel, roundoff = update_rel_errs(
+        {k: v.detach() for k, v in run_c.sim.named_parameters()}, params_a, start)
+    rel_rerun, roundoff_rerun = update_rel_errs(
+        {k: v.detach() for k, v in rerun.sim.named_parameters()}, params_a, start)
+    roundoff_atol = 2 * ADAM_STEP_MAX * sum(run_a.schedule(i) for i in range(total_steps))
+    worst = max(rel, key=rel.get)
+    median = float(np.median(list(rel.values())))
+    if not (median <= RESUME_MEDIAN_RTOL and rel[worst] <= worst_rtol and roundoff <= roundoff_atol):
+        raise AssertionError(
+            f"{name}: resumed parameters off by {median} relative (median), {rel[worst]} ({worst}),"
+            f" round-off leaves by {roundoff} (limits {RESUME_MEDIAN_RTOL}, {worst_rtol}, "
+            f"{roundoff_atol})")
+    history = history_a["train_loss"] + history_a["val_rmse"] + history_c["val_rmse"]
+    if not all(math.isfinite(v) for v in history):
+        raise AssertionError(f"{name}: non-finite history {history_a} {history_c}")
+    readings = {
+        "dataset_items": len(train_ds),
+        "steps_per_run": {"a": run_a.step, "b": run_b.step, "c": run_c.step},
+        "resume_exact": exact,
+        "final_step": run_c.step,
+        "final_lr": lr_c,
+        "resume_param_rel_err_worst": rel[worst],
+        "resume_worst_param": worst,
+        "resume_param_rel_err_median": median,
+        "resume_roundoff_leaf_max_abs_diff": roundoff,
+        "rerun_param_rel_err_worst": max(rel_rerun.values()),
+        "rerun_worst_param": max(rel_rerun, key=rel_rerun.get),
+        "rerun_param_rel_err_median": float(np.median(list(rel_rerun.values()))),
+        "rerun_roundoff_leaf_max_abs_diff": roundoff_rerun,
+        "resume_tolerance": {"median_rtol": RESUME_MEDIAN_RTOL, "worst_rtol": worst_rtol,
+                             "roundoff_leaf_atol": roundoff_atol},
+        "launches": launches,
+        "train_loss": history_a["train_loss"],
+        "val_rmse": history_a["val_rmse"],
+        "fit_s": fit_s,
+    }
+    return readings, run_c, ckpt
+
+
+def checkpoint_roundtrip(name, param, make_traj, counts, expected, frame_kernel, seed, worst_rtol):
+    """Checkpoints, resume and ``predict`` on the card, on in-memory
+    trajectories (``memory_datasets``, ``CKPT_TRAJECTORIES`` of them,
+    batches of 8 frames):
+
+    1. run A: ``Trainer.fit`` for 2 epochs with rollout validation, saving
+       every step, and run A' the same again;
+    2. run B: the same, ``request_interrupt()`` after batch 2, then run C:
+       ``fit(resume_from=)`` B's checkpoint. C's step counter, learning rate
+       and batch stream equal A's exactly; its parameters' distances from
+       A's, relative to how far A moved them, within ``RESUME_MEDIAN_RTOL``
+       (median) and ``worst_rtol`` (worst; A' against A is reported beside
+       them); ``expected`` gives (launches per
+       step, launches per validated frame) over A, A', B and C together;
+    3. the final checkpoint loaded into a fresh ``Trainer`` on the card:
+       parameters and normalizer statistics equal the file's and C's;
+    4. ``predict(save_dir=None)`` from it on the card: ``BLOCKS`` launches of
+       ``frame_kernel`` per frame, equal to C's own predictions, and within
+       ``ROLLOUT_ATOL``/``ROLLOUT_RTOL`` of ``predict`` on the CPU from the
+       same file over ``CPU_FRAMES``;
+    5. the checkpoint's bytes, save and load seconds, predict's ms per
+       frame."""
+    import tempfile
+
+    from graphphysics_torch.core import stack_graphs
+    from graphphysics_torch.training import Trainer, load_checkpoint
+
+    blocks = param["model"]["message_passing_num"]
+    with tempfile.TemporaryDirectory() as tmp:
+        train_ds, val_ds = memory_datasets(param, make_traj, seed, tmp, n_traj=CKPT_TRAJECTORIES)
+        readings, run_c, final = resume_runs(name, param, train_ds, val_ds, counts, expected, seed,
+                                             tmp, worst_rtol)
+
+        # 3. save, then load into a fresh trainer on the card
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_c.save(1)
+        save_s = time.perf_counter() - t0
+        fresh = Trainer(param, seed=seed + 1, device="cuda", metrics_path=None, rollout_dir=None)
+        fresh.init_state(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        load_checkpoint(final, fresh)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        torch.load(final, map_location="cpu", weights_only=True)
+        file_load_s = time.perf_counter() - t0
+        saved = torch.load(final, map_location="cpu", weights_only=True)["model"]
+        live = run_c.sim.state_dict()
+        loaded = fresh.sim.state_dict()
+        if saved.keys() != loaded.keys():
+            raise AssertionError(f"{name}: checkpoint keys differ from the model's")
+        for key, value in loaded.items():
+            if not (torch.equal(value.cpu(), saved[key]) and torch.equal(value, live[key])):
+                raise AssertionError(f"{name}: reloaded {key} differs from the saved one")
+        buffers = sum(1 for k in loaded if "_normalizer." in k)
+
+        # 4. predict on the card from the loaded checkpoint
+        n_frames = val_ds.frames_per_trajectory
+        t0 = time.perf_counter()
+        stack_graphs([val_ds[i] for i in val_ds.trajectory_indices(0)])
+        host_s = time.perf_counter() - t0
+        fresh.predict(val_ds, save_dir=None, max_trajectories=1)  # warm-up
+        torch.cuda.synchronize()
+        for fn in counts.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        preds = fresh.predict(val_ds, save_dir=None, max_trajectories=1)[0]
+        torch.cuda.synchronize()
+        predict_s = time.perf_counter() - t0
+        predict_launches = {k: fn.launches for k, fn in counts.items()}
+        want = {k: (blocks * n_frames if k == frame_kernel else 0) for k in counts}
+        if predict_launches != want:
+            raise AssertionError(f"{name}: predict launches {predict_launches}, expected {want}")
+        width = param["index"]["output_index_end"] - param["index"]["output_index_start"]
+        if preds.shape != (n_frames, val_ds.node_budget, width) or not np.isfinite(preds).all():
+            raise AssertionError(f"{name}: bad predictions {preds.shape}")
+        in_memory = run_c.predict(val_ds, save_dir=None, max_trajectories=1)[0]
+        memory_diff = float(np.abs(preds - in_memory).max())
+        if memory_diff != 0.0:
+            raise AssertionError(f"{name}: loaded model predicts {memory_diff} off the trained one")
+        cpu = Trainer(param, seed=seed + 1, device="cpu", metrics_path=None, rollout_dir=None)
+        cpu.init_state(1)
+        load_checkpoint(final, cpu.sim)
+        preds_cpu = cpu.predict(val_ds, save_dir=None, max_trajectories=1)[0][:CPU_FRAMES]
+        cpu_err = float(np.abs(preds[:CPU_FRAMES] - preds_cpu).max())
+        if not np.allclose(preds[:CPU_FRAMES], preds_cpu, rtol=ROLLOUT_RTOL, atol=ROLLOUT_ATOL):
+            raise AssertionError(f"{name}: card vs CPU predict max_abs_err {cpu_err}")
+        size = os.path.getsize(final)
+    return {
+        **readings,
+        "checkpoint_bytes": size,
+        "save_s": save_s,
+        "load_s": load_s,
+        "load_file_s": file_load_s,
+        "reload_bitwise": True,
+        "reloaded_tensors": len(loaded),
+        "reloaded_normalizer_buffers": buffers,
+        "predict_frames": n_frames,
+        "predict_launches": predict_launches,
+        "predict_ms_per_frame": predict_s / n_frames * 1e3,
+        "host_frames_ms_per_frame": host_s / n_frames * 1e3,
+        "predict_vs_in_memory_max_abs_diff": memory_diff,
+        "cpu_frames_checked": CPU_FRAMES,
+        "cpu_max_abs_err": cpu_err,
+        "cpu_rtol": ROLLOUT_RTOL,
+        "cpu_atol": ROLLOUT_ATOL,
     }
 
 
@@ -1045,6 +1345,16 @@ def main() -> int:
         "transformer_pipeline", panels, panels_trajectory, counts,
         {"csr_softmax_spmm": (blocks, blocks), "csr_softmax_spmm_backward": (blocks, 0)},
         args.seed)})
+
+    # 10. checkpoints, resume and predict on the card ------------------------------
+    emit({"phase": "epd_checkpoint", **checkpoint_roundtrip(
+        "epd_checkpoint", cylinder, cylinder_trajectory, counts,
+        {"csr_segment_sum": (epd_blocks, epd_blocks), "csr_segment_sum_backward": (epd_blocks, 0)},
+        "csr_segment_sum", args.seed, EPD_RESUME_WORST_RTOL)})
+    emit({"phase": "transformer_checkpoint", **checkpoint_roundtrip(
+        "transformer_checkpoint", panels, panels_trajectory, counts,
+        {"csr_softmax_spmm": (blocks, blocks), "csr_softmax_spmm_backward": (blocks, 0)},
+        "csr_softmax_spmm", args.seed, TRANSFORMER_RESUME_WORST_RTOL)})
 
     def entry(name, source, replaces, launches, shapes, tolerance):
         main = shapes[1]  # the 8 x 2,048 batch: the training path's shape

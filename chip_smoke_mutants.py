@@ -1,15 +1,22 @@
-"""How far a planted fault in K1b or K3 moves ``chip_smoke.first_step``, the
-check of the first train step on the card against the CPU: the readings
-that its per-model gradient limits (``EPD_GRAD_RTOL``,
-``TRANSFORMER_GRAD_RTOL``) must sit below.
+"""How far a planted fault moves two checks of ``chip_smoke.py``: a fault in
+K1b or K3 moves ``first_step``, the check of the first train step on the
+card against the CPU (the readings its per-model gradient limits
+``EPD_GRAD_RTOL``, ``TRANSFORMER_GRAD_RTOL`` must sit below); a fault in
+the checkpoint restore moves ``resume_runs``, the check of a resumed run
+against an uninterrupted one (the readings ``RESUME_MEDIAN_RTOL`` and the
+per-model worst limits must sit below).
 
 For each fault the tree is copied to a temporary directory, one line of a
-kernel's source is replaced there, the kernels are built from the copy and
-``first_step`` runs on the flagship batch (K1b faults, EPD 15 x 128) or the
-panels batch (K3 faults, transformer 15 x 128) with its limits lifted. One
-JSON line per fault. The repo itself is never changed. Needs one CUDA card:
+source is replaced there, the kernels are built from the copy and the check
+runs with its limits lifted: ``first_step`` on the flagship batch (K1b
+faults, EPD 15 x 128) or the panels batch (K3 faults, transformer 15 x
+128); ``resume_runs`` on the in-memory trajectories of the checkpoint
+phases. One JSON line per fault. The repo itself is never changed. Needs
+one CUDA card:
 
-    python3 chip_smoke_mutants.py
+    python3 chip_smoke_mutants.py [name prefix]
+
+A name prefix (``k1b``, ``k3``, ``resume``) runs those faults only.
 """
 
 import json
@@ -25,6 +32,11 @@ K1 = "graphphysics_torch/csrc/csr_segment_sum.cu"
 K3 = "graphphysics_torch/csrc/csr_softmax_spmm_bwd.cu"
 K1B_LIVE = "if (live) live = bounds[r] <= e && e < bounds[num_rows + r];"
 K3_DSCORES = "live ? attn * (dot - delta) : 0.0f"
+CKPT = "graphphysics_torch/training/checkpoint.py"
+OPT_LOAD = '    trainer.optimizer.load_state_dict(ckpt["optimizer"])'
+WEIGHTS_LOAD = "    load_reference_checkpoint(sim, ckpt)"
+ZERO_NORMALIZERS = (WEIGHTS_LOAD + "\n    for n, b in sim.named_buffers():\n"
+                    "        if \"_normalizer.\" in n:\n            b.zero_()")
 # name -> (model, source, line, faulty line); graph 5 of the panels batch is
 # the one with empty softmax rows
 FAULTS = {
@@ -34,11 +46,37 @@ FAULTS = {
     "k3_dscores_x1.01": ("transformer", K3, K3_DSCORES, "live ? 1.01f * attn * (dot - delta) : 0.0f"),
     "k3_dscores_zero_graph5": ("transformer", K3, K3_DSCORES,
                                "(live && row / 2048 != 5) ? attn * (dot - delta) : 0.0f"),
+    # the resumed run starts with fresh AdamW moments and step counts
+    "resume_fresh_optimizer_epd": ("epd", CKPT, OPT_LOAD, "    pass"),
+    "resume_fresh_optimizer_transformer": ("transformer", CKPT, OPT_LOAD, "    pass"),
+    # the resumed run starts with zero normalizer statistics
+    "resume_zero_normalizers_epd": ("epd", CKPT, WEIGHTS_LOAD, ZERO_NORMALIZERS),
+    "resume_zero_normalizers_transformer": ("transformer", CKPT, WEIGHTS_LOAD, ZERO_NORMALIZERS),
 }
 
 
+def read_resume_fault(model: str, name: str) -> dict:
+    """``resume_runs`` with lifted limits."""
+    import chip_smoke as cs
+    from graphphysics_torch.utils.synthetic import cylinder_trajectory, panels_trajectory
+
+    cs.RESUME_MEDIAN_RTOL = cs.ADAM_STEP_MAX = math.inf
+    if model == "epd":
+        param, make_traj = cs.load_config(cs.CYLINDER_CONFIG), cylinder_trajectory
+    else:
+        param, make_traj = cs.load_config(cs.PANELS_CONFIG), panels_trajectory
+    with tempfile.TemporaryDirectory() as tmp:
+        train_ds, val_ds = cs.memory_datasets(param, make_traj, 0, tmp, cs.CKPT_TRAJECTORIES)
+        readings = cs.resume_runs(name, param, train_ds, val_ds, {}, {}, 0, tmp, math.inf)[0]
+    keep = ("resume_param_rel_err_worst", "resume_worst_param", "resume_param_rel_err_median",
+            "resume_roundoff_leaf_max_abs_diff", "rerun_param_rel_err_worst",
+            "rerun_param_rel_err_median", "rerun_roundoff_leaf_max_abs_diff")
+    return {"fault": name, **{k: readings[k] for k in keep}}
+
+
 def read_fault(model: str, name: str) -> dict:
-    """``first_step`` with lifted limits, in the tree of the working directory."""
+    """The fault's check with lifted limits, in the tree of the working
+    directory."""
     import torch
 
     import chip_smoke as cs
@@ -47,6 +85,8 @@ def read_fault(model: str, name: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _native.build()
+    if name.startswith("resume"):
+        return read_resume_fault(model, name)
     cs.STEP_LOSS_RTOL = cs.STEP_ROUNDOFF_SHARE = math.inf
     if model == "epd":
         param, batch = cs.load_config(cs.CYLINDER_CONFIG), cs.flagship_batch(0)
@@ -60,8 +100,11 @@ def main() -> int:
     if len(sys.argv) == 3:  # the child: one fault, in its copy
         print("RESULT " + json.dumps(read_fault(*sys.argv[1:])), flush=True)
         return 0
+    prefix = sys.argv[1] if len(sys.argv) == 2 else ""
     failed = 0
     for name, (model, source, line, faulty) in FAULTS.items():
+        if not name.startswith(prefix):
+            continue
         with tempfile.TemporaryDirectory() as tmp:
             copy = os.path.join(tmp, "tree")
             shutil.copytree(ROOT, copy, ignore=shutil.ignore_patterns(".git", "build", "chiprun_out"))

@@ -1,0 +1,176 @@
+"""Training CLI (counterpart of ``graphphysics_tpu/cli/train.py``):
+
+    python -m graphphysics_torch.cli.train --training_parameters_path=cfg.json \\
+        --num_epochs 10 --batch_size 2 --init_lr 1e-3 --warmup 1000 [--device cpu]
+
+The JAX CLI's JSON config and flag names, plus ``--device`` (``cuda`` unless
+named). CSV metrics are always written, W&B only with ``--project_name`` and
+wandb installed. A flag whose feature the port does not have yet exits with
+an error naming its ROADMAP item when given anything but its default.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from typing import Sequence, Tuple
+
+from graphphysics_torch.dataset import GraphLoader
+from graphphysics_torch.training.parse_parameters import get_dataset, get_preprocessing
+from graphphysics_torch.training.trainer import Trainer
+from graphphysics_torch.utils.metrics import WandbLogger
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Train a graphphysics_torch model")
+    p.add_argument("--training_parameters_path", required=True)
+    p.add_argument("--project_name", default=None, help="W&B project (optional)")
+    p.add_argument("--num_epochs", type=int, default=10)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--init_lr", type=float, default=0.001)
+    p.add_argument("--batch_size", type=int, default=2)
+    p.add_argument("--warmup", type=int, default=1000)
+    p.add_argument("--prefetch_factor", type=int, default=2)
+    p.add_argument("--num_workers", type=int, default=0,
+                   help="worker processes for item building (0 = in-process)")
+    p.add_argument("--model_save_name", default="state.pt")
+    p.add_argument("--model_path", default=None, help="checkpoint to resume from")
+    p.add_argument("--resume_training", action="store_true")
+    p.add_argument("--use_previous_data", action="store_true")
+    p.add_argument("--previous_data_start", type=int, default=4)
+    p.add_argument("--previous_data_end", type=int, default=7)
+    p.add_argument("--no_edge_feature", action="store_true")
+    p.add_argument("--masking_ratio", type=float, default=None)
+    p.add_argument("--val_trajectories", type=int, default=None)
+    p.add_argument("--checkpoint_dir", default="checkpoints")
+    p.add_argument("--metrics_path", default="metrics.csv")
+    p.add_argument("--data_parallel", action="store_true")
+    p.add_argument("--gradient_accumulation", action="store_true")
+    p.add_argument("--graph_partition", type=int, default=0)
+    p.add_argument("--partition_mode", default="halo", choices=["halo", "gather"])
+    p.add_argument("--partition_edge_headroom", type=float, default=1.25)
+    p.add_argument("--no_partition_budget_growth", action="store_true")
+    p.add_argument("--partition_reorder", default=None, choices=["rcm", "bfs", "hilbert", "none"])
+    p.add_argument("--no_partition_overlap_attention", action="store_true")
+    p.add_argument("--halo_dtype", default=None, choices=["bf16", "f16", "none"])
+    p.add_argument("--partitioned_validation", action="store_true")
+    p.add_argument("--save_every_n_steps", type=int, default=None,
+                   help="also checkpoint mid-epoch every N steps (SIGTERM/SIGINT always "
+                        "checkpoint before exit)")
+    p.add_argument("--checkpoint_backend", default="torch", choices=["torch", "orbax", "orbax-async"],
+                   help="torch: one torch.save file in the reference format")
+    p.add_argument("--profile_dir", default=None)
+    p.add_argument("--profile_start_step", type=int, default=10)
+    p.add_argument("--profile_num_steps", type=int, default=3)
+    p.add_argument("--progress", default="auto", choices=["auto", "on", "off"],
+                   help="in-place per-epoch progress line (auto: TTY only)")
+    p.add_argument("--compilation_cache_dir", default=None)
+    p.add_argument("--external_features", default=None, choices=[None, "aneurysm", "bezier"])
+    p.add_argument("--device", default="cuda", help="torch device (cuda unless named)")
+    return p
+
+
+# (flag, default, ROADMAP.md section 1 item): flags of features not ported yet
+NOT_PORTED: Tuple[Tuple[str, object, int], ...] = (
+    ("prefetch_factor", 2, 3),
+    ("num_workers", 0, 3),
+    ("use_previous_data", False, 3),
+    ("masking_ratio", None, 3),
+    ("data_parallel", False, 13),
+    ("gradient_accumulation", False, 11),
+    ("graph_partition", 0, 14),
+    ("partition_mode", "halo", 14),
+    ("partition_edge_headroom", 1.25, 14),
+    ("no_partition_budget_growth", False, 14),
+    ("partition_reorder", None, 14),
+    ("no_partition_overlap_attention", False, 14),
+    ("halo_dtype", None, 14),
+    ("partitioned_validation", False, 14),
+    ("checkpoint_backend", "torch", 4),
+    ("profile_dir", None, 12),
+    ("compilation_cache_dir", None, 12),
+    ("external_features", None, 10),
+)
+
+
+def refuse_not_ported(parser: argparse.ArgumentParser, args: argparse.Namespace,
+                      table: Sequence[Tuple[str, object, int]]) -> None:
+    """Exit through ``parser.error`` on the first flag of ``table`` that is
+    not at its default."""
+    for dest, default, item in table:
+        if getattr(args, dest) != default:
+            parser.error(f"--{dest} is not ported yet (ROADMAP.md section 1, item {item})")
+
+
+def main(argv=None) -> int:
+    parser = build_argparser()
+    args = parser.parse_args(argv)
+    refuse_not_ported(parser, args, NOT_PORTED)
+    with open(args.training_parameters_path) as fp:
+        parameters = json.load(fp)
+
+    use_edge_feature = not args.no_edge_feature
+    train_ds = get_dataset(
+        parameters, get_preprocessing(parameters, use_edge_feature=use_edge_feature),
+        use_edge_feature=use_edge_feature,
+    )
+    val_ds = get_dataset(
+        parameters,
+        get_preprocessing(parameters, use_edge_feature=use_edge_feature, remove_noise=True),
+        use_edge_feature=use_edge_feature, switch_to_val=True, edge_layout=train_ds.edge_layout,
+    )
+    # one padded shape for both splits (a val trajectory may be larger than
+    # every train one): the budgets derive at the first item, then take the
+    # larger of each
+    _ = train_ds[0], val_ds[0]
+    train_ds.node_budget = val_ds.node_budget = max(train_ds.node_budget, val_ds.node_budget)
+    train_ds.edge_budget = val_ds.edge_budget = max(train_ds.edge_budget, val_ds.edge_budget)
+    loader = GraphLoader(train_ds, batch_size=args.batch_size, shuffle=True, seed=args.seed)
+
+    extra_logger = None
+    if args.project_name:
+        run_id = None
+        if args.resume_training and args.model_path:
+            from graphphysics_torch.training.checkpoint import load_metadata
+
+            # advisory, before the trainer's own read of the checkpoint
+            run_id = load_metadata(args.model_path, prefer_sidecar=True).get("wandb_run_id")
+        extra_logger = WandbLogger(
+            run_id=run_id,
+            project=args.project_name,
+            config={
+                "architecture": parameters["model"]["type"],
+                "#_layers": parameters["model"]["message_passing_num"],
+                "#_neurons": parameters["model"]["hidden_size"],
+                "#_hops": parameters["dataset"].get("khop", 1),
+                "max_lr": args.init_lr,
+                "batch_size": args.batch_size,
+            },
+        )
+
+    trainer = Trainer(
+        parameters,
+        learning_rate=args.init_lr,
+        warmup=args.warmup,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_name=args.model_save_name,
+        metrics_path=args.metrics_path,
+        seed=args.seed,
+        extra_logger=extra_logger,
+        save_every_n_steps=args.save_every_n_steps,
+        progress={"auto": None, "on": True, "off": False}[args.progress],
+        device=args.device,
+    )
+    trainer.fit(
+        loader,
+        val_dataset=val_ds,
+        num_epochs=args.num_epochs,
+        resume_from=args.model_path if args.resume_training else None,
+        val_trajectories=args.val_trajectories,
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

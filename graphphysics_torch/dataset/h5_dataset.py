@@ -122,6 +122,7 @@ class H5Dataset(BaseDataset):
             if i >= 0:
                 h5_path = h5_path[:i] + "test" + h5_path[i + 5 :]
         self.h5_path = h5_path
+        self.dt = self.meta.get("dt", 1) or 1
         self._file = None
         self._traj_cache: OrderedDict = OrderedDict()
         with open_h5(h5_path) as f:
@@ -167,7 +168,10 @@ class H5Dataset(BaseDataset):
 
     def _load(self, index: int) -> RawSample:
         traj_index, frame = self.get_traj_frame(index)
-        return frame_to_sample(self._trajectory(traj_index), frame, self.meta, frame_target=frame + 1)
+        sample = frame_to_sample(self._trajectory(traj_index), frame, self.meta, frame_target=frame + 1)
+        # h5 trajectories have no mesh name: ``id`` stays None
+        sample.traj_index = traj_index
+        return sample
 
     def close(self) -> None:
         """Close the h5 handle (reopened at the next read)."""

@@ -22,6 +22,8 @@ class RawSample:
     receivers: Optional[np.ndarray] = None
     edge_attr: Optional[np.ndarray] = None  # [E, Fe]
     y: Optional[np.ndarray] = None  # [N, Fo]
+    traj_index: int = 0  # the trajectory the frame comes from
+    id: Optional[str] = None  # the mesh's name, where the format has one (XDMF)
 
     @property
     def num_nodes(self) -> int:
@@ -47,6 +49,7 @@ def meshdata_to_sample(
     point_data: Optional[Dict[str, np.ndarray]],
     time: Union[int, float] = 1,
     target: Optional[Dict[str, np.ndarray]] = None,
+    id: Optional[str] = None,
 ) -> RawSample:
     """Build a RawSample from triangle-mesh arrays (tetrahedral cells come
     with a later slice of the port)."""
@@ -70,4 +73,5 @@ def meshdata_to_sample(
         pos=points.astype(np.float32),
         faces=cells.astype(np.int64),
         y=y,
+        id=id,
     )

@@ -1,3 +1,10 @@
+from graphphysics_torch.training.checkpoint import (
+    is_torch_checkpoint,
+    load_checkpoint,
+    load_checkpoint_with_metadata,
+    load_metadata,
+    save_checkpoint,
+)
 from graphphysics_torch.training.losses import (
     l1_smooth_loss,
     l2_loss,
@@ -31,11 +38,16 @@ __all__ = [
     "get_preprocessing",
     "get_simulator",
     "get_simulator_config",
+    "is_torch_checkpoint",
     "l1_smooth_loss",
     "l2_loss",
+    "load_checkpoint",
+    "load_checkpoint_with_metadata",
+    "load_metadata",
     "make_local_loss",
     "node_type_mask",
     "rollout",
     "rollout_rmse",
+    "save_checkpoint",
     "stacked_trajectory",
 ]

@@ -9,7 +9,7 @@ decoder, h5 datasets. A key that asks for more raises
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 from torch import nn
 
@@ -101,17 +101,20 @@ def get_simulator(param: Dict[str, Any], device: DeviceLike = None) -> Simulator
 MODEL_EDGE_LAYOUTS = {"epd": "sorted", "transformer": "csr"}
 
 
-def edge_layout(param: Dict[str, Any]) -> str:
+def edge_layout(param: Dict[str, Any], wanted: Optional[str] = None) -> str:
     """The dataset edge layout for ``param``: receiver-sorted (``"sorted"``)
     for EncodeProcessDecode, sender-sorted (``"csr"``) for
     EncodeTransformDecode, as ``stacked_trajectory`` lays them out. The
-    config's ``dataset.edge_layout`` "auto", "coo" (the JAX default, the same
-    edges unsorted) or absent resolves to that; "csr" is taken by the
-    transformer only, whose kernel it is; "ell" is not ported yet."""
+    layout asked for (``wanted``, else the config's ``dataset.edge_layout``)
+    "auto", "coo" (the JAX default, the same edges unsorted) or absent
+    resolves to that; "csr" is taken by the transformer only, whose kernel it
+    is; "ell" is not ported yet."""
     model_type = param["model"].get("type")
     if model_type not in MODEL_EDGE_LAYOUTS:
         raise ValueError(f"Model type {model_type!r} not supported.")
-    wanted = param.get("dataset", {}).get("edge_layout") or "auto"
+    if wanted is None:
+        wanted = param.get("dataset", {}).get("edge_layout")
+    wanted = wanted or "auto"
     layout = MODEL_EDGE_LAYOUTS[model_type]
     if wanted == "ell":
         raise _waits("the ELL edge layout", "item 11, training features")
@@ -123,17 +126,30 @@ def edge_layout(param: Dict[str, Any]) -> str:
     )
 
 
+# get_dataset's keyword of the same name shadows it there
+_edge_layout = edge_layout
+
+
 def get_dataset(
     param: Dict[str, Any],
     preprocessing,
+    masking_ratio: Optional[float] = None,
     use_edge_feature: bool = True,
+    use_previous_data: bool = False,
     switch_to_val: bool = False,
+    edge_layout: Optional[str] = None,
     **budget_kwargs,
 ) -> H5Dataset:
     """The dataset of ``param["dataset"]`` (``extension`` "h5"), in the
-    model's edge layout (``edge_layout``), with the config's
-    ``bucket_multiple`` and ``edge_headroom``; ``budget_kwargs`` override
-    them and may give ``node_budget``, ``edge_budget`` and ``seed``."""
+    model's edge layout (``edge_layout``, which a layout asked for here must
+    resolve to), with the config's ``bucket_multiple`` and
+    ``edge_headroom``; ``budget_kwargs`` override them and may give
+    ``node_budget``, ``edge_budget`` and ``seed``. Node masking and
+    ``use_previous_data`` are not ported yet."""
+    if masking_ratio is not None:
+        raise _waits("node masking (masking_ratio)", "item 3, host data")
+    if use_previous_data:
+        raise _waits("use_previous_data", "item 3, host data")
     dataset_params = param.get("dataset", {})
     extension = dataset_params.get("extension", "")
     if extension == "xdmf":
@@ -152,6 +168,6 @@ def get_dataset(
         new_edges_ratio=dataset_params.get("new_edges_ratio", 0),
         add_edge_features=use_edge_feature,
         node_type_index=param["index"]["node_type_index"],
-        edge_layout=edge_layout(param),
+        edge_layout=_edge_layout(param, edge_layout),
         **budget_kwargs,
     )

@@ -1,7 +1,8 @@
 """Single-device training (counterpart of the single-device part of
 ``graphphysics_tpu/training/trainer.py``): the Simulator of a training
 config, AdamW with the cosine-warmup schedule, the train step, ``fit`` over a
-``GraphLoader`` and rollout validation.
+``GraphLoader`` with checkpoints, preemption and resume, rollout validation
+with its XDMF export, and ``predict``.
 
 The optimizer is ``torch.optim.AdamW`` with betas (0.9, 0.95), eps 1e-8 and
 weight decay 1e-4 on every parameter, biases and RMSNorm scales included, as
@@ -14,70 +15,82 @@ stepped after each optimizer step, sets the rate, so the first update uses
 attention, forward and backward, are the hand-written kernels of
 ``graphphysics_torch/csrc``.
 
-Data parallelism, graph partitioning, gradient accumulation, profiling,
-checkpoints, resume and ``predict`` come with later slices: asking for one
-raises ``NotImplementedError``.
+Checkpoints are ``training/checkpoint.py`` files. ``fit`` saves after every
+epoch, every ``save_every_n_steps`` steps when asked, and at the next step
+boundary after a SIGTERM or SIGINT (a second signal aborts at once); the
+mid-epoch saves record the batch offset, and ``fit(resume_from=)`` replays
+the loader's deterministic stream from there, so a resumed run ends where
+the uninterrupted one does. A mid-epoch save also records the epoch's loss
+sum so far, so the resumed epoch reports the mean over all its batches.
+
+Data parallelism, graph partitioning, gradient accumulation, the profiler
+and ``use_previous_data`` come with later slices: asking for one raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
-import json
 import os
+import signal
 import time
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from graphphysics_torch.core.device import DeviceLike, resolve_device
 from graphphysics_torch.core.graph import Graph, stack_graphs
 from graphphysics_torch.core.nodetype import NodeType
 from graphphysics_torch.models.layers import reset_parameters
+from graphphysics_torch.training.checkpoint import load_checkpoint_with_metadata, save_checkpoint
 from graphphysics_torch.training.losses import l2_loss
 from graphphysics_torch.training.parse_parameters import get_simulator
 from graphphysics_torch.training.rollout import rollout, rollout_rmse
 from graphphysics_torch.training.schedule import cosine_warmup_schedule
+from graphphysics_torch.utils.metrics import CSVMetricsLogger
+from graphphysics_torch.utils.progress import ProgressReporter
+from graphphysics_torch.utils.xdmf import XdmfTimeSeriesWriter
 
 BETAS = (0.9, 0.95)
 EPS = 1e-8
 WEIGHT_DECAY = 1e-4
 
-# options of the JAX Trainer that the port does not have yet, with the value
-# that leaves them off
+# options of the JAX Trainer that the port does not have yet: the value
+# that leaves each off, and the ROADMAP.md section 1 item that brings it
 _NOT_PORTED = {
-    "use_previous_data": False,
-    "previous_data_start": None,
-    "previous_data_end": None,
-    "checkpoint_dir": None,
-    "checkpoint_name": None,
-    "rollout_dir": None,
-    "extra_logger": None,
-    "plot_callback": None,
-    "data_parallel": False,
-    "gradient_accumulation": False,
-    "graph_partition": 0,
-    "partition_mode": None,
-    "partition_edge_headroom": None,
-    "partition_budget_growth": None,
-    "partition_reorder": None,
-    "partition_overlap_attention": None,
-    "halo_dtype": None,
-    "partitioned_validation": False,
-    "num_devices": None,
-    "save_every_n_steps": None,
-    "checkpoint_backend": None,
-    "profile_dir": None,
-    "profile_start_step": None,
-    "profile_num_steps": None,
-    "parallel_validation": None,
-    "progress": None,
+    "use_previous_data": (False, 3),
+    "previous_data_start": (None, 3),
+    "previous_data_end": (None, 3),
+    "data_parallel": (False, 13),
+    "gradient_accumulation": (False, 11),
+    "graph_partition": (0, 14),
+    "partition_mode": (None, 14),
+    "partition_edge_headroom": (None, 14),
+    "partition_budget_growth": (None, 14),
+    "partition_reorder": (None, 14),
+    "partition_overlap_attention": (None, 14),
+    "halo_dtype": (None, 14),
+    "partitioned_validation": (False, 14),
+    "num_devices": (None, 13),
+    "checkpoint_backend": ("torch", 4),  # the orbax backends
+    "plot_callback": (None, 12),
+    "profile_dir": (None, 12),
+    "profile_start_step": (None, 12),
+    "profile_num_steps": (None, 12),
+    "parallel_validation": (None, 13),
 }
 
 
 class Trainer:
     """Trains the Simulator of ``parameters`` (a training config) on one
     device. ``masks`` are the node types the loss covers, ``seed`` draws the
-    initial weights, ``log_every`` steps write ``train_loss`` and ``lr`` to
-    ``metrics_path`` (JSON lines; nothing is written without it)."""
+    initial weights. Every ``log_every`` steps ``train_loss`` and ``lr``,
+    and after each validation ``train_loss_epoch``,
+    ``val_all_rollout_rmse`` and ``val_loss``, go to the CSV file
+    ``metrics_path`` and to ``extra_logger`` (``.log(metrics, step=)``),
+    where given. Checkpoints go to ``checkpoint_dir/checkpoint_name``, the
+    XDMF rollout of validation trajectory 0 under ``rollout_dir`` (none
+    without it)."""
 
     def __init__(
         self,
@@ -86,33 +99,48 @@ class Trainer:
         warmup: int = 1000,
         num_steps: Optional[int] = None,
         masks: Sequence[int] = (NodeType.NORMAL, NodeType.OUTFLOW),
+        checkpoint_dir: str = "checkpoints",
+        checkpoint_name: str = "state.pt",
+        metrics_path: Optional[str] = "metrics.csv",
+        rollout_dir: Optional[str] = "meshes",
         seed: int = 42,
         log_every: int = 100,
-        metrics_path: Optional[str] = None,
+        extra_logger=None,
+        save_every_n_steps: Optional[int] = None,
+        progress: Optional[bool] = None,
         device: DeviceLike = None,
         **options: Any,
     ):
         for name, value in options.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"Trainer got an unexpected argument {name!r}")
-            if value != _NOT_PORTED[name]:
+            off, item = _NOT_PORTED[name]
+            if value != off:
                 raise NotImplementedError(
-                    f"Trainer option {name!r} is not ported yet (ROADMAP.md section 1)"
+                    f"Trainer option {name!r} is not ported yet (ROADMAP.md section 1, item {item})"
                 )
+        self.device = resolve_device(device)
         self.param = parameters
         self.learning_rate = learning_rate
         self.warmup = warmup
         self.num_steps = num_steps
         self.masks = [int(m) for m in masks]
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_name = checkpoint_name
+        self.metrics = CSVMetricsLogger(metrics_path) if metrics_path else None
+        self.rollout_dir = rollout_dir
         self.seed = seed
         self.log_every = log_every
-        self.metrics_path = metrics_path
-        self.device = resolve_device(device)
+        self.extra_logger = extra_logger
+        self.save_every_n_steps = save_every_n_steps
+        self.progress = progress
         self.sim = None
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.scheduler = None
         self.schedule = None
         self.step = 0
+        self.last_val_loss: Optional[float] = None
+        self._interrupt_requested = False
 
     def init_state(self, num_steps: int) -> None:
         """The Simulator of the config with weights drawn from
@@ -148,59 +176,244 @@ class Trainer:
         self.step += 1
         return loss.detach()
 
+    # ------------------------------------------------------------- training
+
     def fit(self, train_loader, val_dataset=None, num_epochs: int = 1,
+            resume_from: Optional[str] = None,
             val_trajectories: Optional[int] = None) -> Dict[str, Any]:
         """``num_epochs`` epochs over ``train_loader``, each followed by a
-        rollout validation on ``val_dataset`` when one is given. Returns
-        ``{"train_loss": [per-epoch mean], "val_rmse": [per epoch]}``."""
+        rollout validation on ``val_dataset`` when one is given and a save.
+        ``resume_from`` (an existing checkpoint) restores the state and
+        continues at its epoch and batch offset. Returns
+        ``{"train_loss": [per-epoch mean], "val_rmse": [per epoch],
+        "interrupted": bool}``."""
+        num_steps = self.num_steps or num_epochs * len(train_loader)
         if self.optimizer is None:
-            self.init_state(self.num_steps or num_epochs * len(train_loader))
-        history: Dict[str, Any] = {"train_loss": [], "val_rmse": []}
-        for epoch in range(num_epochs):
-            train_loader.set_epoch(epoch)
-            t0, nsteps, loss_sum = time.time(), 0, None
-            for batch in train_loader:
-                loss = self.train_step(batch)
-                nsteps += 1
-                loss_sum = loss if loss_sum is None else loss_sum + loss
-                if self.step % self.log_every == 0:
-                    self._log(epoch, {"train_loss": float(loss), "lr": self.schedule(self.step)})
-            train_loss = float(loss_sum) / nsteps if nsteps else 0.0
-            history["train_loss"].append(train_loss)
-            msg = (
-                f"[trainer] epoch {epoch}: train_loss={train_loss:.5f} "
-                f"({nsteps} steps, {nsteps / max(time.time() - t0, 1e-9):.2f} it/s)"
-            )
-            if val_dataset is not None:
-                val_rmse = self.validate(val_dataset, val_trajectories)
-                history["val_rmse"].append(val_rmse)
-                msg += f" val_all_rollout_rmse={val_rmse:.5f}"
-                self._log(epoch, {"train_loss_epoch": train_loss, "val_all_rollout_rmse": val_rmse})
-            print(msg)
-        return history
+            self.init_state(num_steps)
+        start_epoch, resume_offset, resumed_loss = 0, 0, None
+        if resume_from and os.path.exists(resume_from):
+            _, meta = load_checkpoint_with_metadata(resume_from, self)
+            start_epoch = int(meta.get("epoch", 0))
+            resume_offset = int(meta.get("batch_offset", 0))
+            if resume_offset and "epoch_loss_sum" in meta:
+                resumed_loss = (meta["epoch_loss_sum"], int(meta["epoch_steps"]))
+            print(f"[trainer] resumed from {resume_from} at epoch {start_epoch}"
+                  + (f" batch {resume_offset}" if resume_offset else ""))
 
-    def validate(self, val_dataset, max_trajectories: Optional[int] = None) -> float:
-        """The all-rollout RMSE of autoregressive rollouts over the first
-        ``max_trajectories`` trajectories of ``val_dataset`` (all by
-        default): one RMSE over every step of every trajectory."""
+        prev_handlers = self._install_signal_handlers()
+        history: Dict[str, Any] = {"train_loss": [], "val_rmse": [], "interrupted": False}
+        try:
+            for epoch in range(start_epoch, num_epochs):
+                train_loader.set_epoch(epoch)
+                offset = resume_offset if epoch == start_epoch else 0
+                if offset:
+                    # the loader's per-(seed, epoch, index) determinism makes
+                    # the resumed stream the uninterrupted one's
+                    train_loader.set_start_batch(offset)
+                t0, nsteps = time.time(), 0
+                # the epoch's loss sum stays on the device: no per-step sync
+                loss_sum, steps_before = None, 0
+                if offset and resumed_loss is not None:
+                    loss_sum = torch.tensor(resumed_loss[0], dtype=torch.float32, device=self.device)
+                    steps_before = resumed_loss[1]
+                prog = ProgressReporter(len(train_loader) - offset, prefix=f"epoch {epoch}",
+                                        enable=self.progress)
+                for batch in train_loader:
+                    loss = self.train_step(batch)
+                    nsteps += 1
+                    loss_sum = loss if loss_sum is None else loss_sum + loss
+                    if self.step % self.log_every == 0:
+                        host_loss = float(loss)
+                        self._log(epoch, self.step,
+                                  {"train_loss": host_loss, "lr": self.schedule(self.step)})
+                        prog.update(nsteps, loss=host_loss)
+                    else:
+                        prog.update(nsteps)
+                    # read the flag once: a signal between a "save?" and a
+                    # "stop?" read must not return without the checkpoint
+                    stop = self._interrupt_requested
+                    if stop or (self.save_every_n_steps and self.step % self.save_every_n_steps == 0):
+                        self.save(epoch, batch_offset=offset + nsteps,
+                                  epoch_loss=(loss_sum, steps_before + nsteps))
+                    if stop:
+                        prog.close()
+                        print(f"[trainer] interrupted at epoch {epoch} batch {offset + nsteps}; "
+                              f"checkpoint saved - resume with the same data order via "
+                              f"--resume_training")
+                        history["interrupted"] = True
+                        return history
+                prog.close()
+                total = steps_before + nsteps
+                train_loss = float(loss_sum) / total if total else 0.0
+                history["train_loss"].append(train_loss)
+                msg = (f"[trainer] epoch {epoch}: train_loss={train_loss:.5f} "
+                       f"({nsteps} steps, {nsteps / max(time.time() - t0, 1e-9):.2f} it/s)")
+                if val_dataset is not None:
+                    val_rmse = self.validate(val_dataset, epoch, val_trajectories)
+                    history["val_rmse"].append(val_rmse)
+                    msg += f" val_all_rollout_rmse={val_rmse:.5f}"
+                    metrics = {"train_loss_epoch": train_loss, "val_all_rollout_rmse": val_rmse}
+                    if self.last_val_loss is not None:
+                        metrics["val_loss"] = self.last_val_loss
+                        msg += f" val_loss={self.last_val_loss:.5f}"
+                    self._log(epoch, self.step, metrics)
+                print(msg)
+                self.save(epoch)
+            return history
+        finally:
+            self._restore_signal_handlers(prev_handlers)
+
+    def request_interrupt(self) -> None:
+        """Ask ``fit`` to checkpoint and stop at the next step boundary (what
+        the SIGTERM and SIGINT handlers call)."""
+        self._interrupt_requested = True
+
+    def _install_signal_handlers(self):
+        prev = {}
+
+        def handler(signum, frame):
+            if self._interrupt_requested:
+                # a second signal: stop waiting for a step boundary
+                self._restore_signal_handlers(prev)
+                raise KeyboardInterrupt(f"second signal {signum} during fit(); checkpoint may be stale")
+            self.request_interrupt()
+            print(f"[trainer] caught signal {signum}: will checkpoint and stop at the next step "
+                  f"boundary (signal again to abort now)")
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                prev[sig] = signal.signal(sig, handler)
+            except ValueError:  # not the main thread: no handlers
+                pass
+        return prev
+
+    def _restore_signal_handlers(self, prev) -> None:
+        self._interrupt_requested = False
+        for sig, handler in prev.items():
+            try:
+                signal.signal(sig, handler)
+            except ValueError:
+                pass
+
+    # ----------------------------------------------------------- validation
+
+    def _rollout_trajectory(self, dataset, traj: int):
+        frames = stack_graphs([dataset[i] for i in dataset.trajectory_indices(traj)]).to(self.device)
+        preds, targets = rollout(self.sim, frames, device=self.device)
+        return frames, preds, targets
+
+    def validate(self, val_dataset, epoch: int = 0, max_trajectories: Optional[int] = None,
+                 save_rollout: bool = True) -> float:
+        """Autoregressive rollouts of the first ``max_trajectories``
+        trajectories of ``val_dataset`` (all by default). Returns the
+        all-rollout RMSE (one RMSE over every step of every trajectory) and
+        sets ``last_val_loss``, the mean over all steps of the masked L2 of
+        each step's denormalized prediction. Trajectory 0's rollout is
+        written under ``rollout_dir`` when ``save_rollout``."""
         n_traj = val_dataset.size_dataset
         if max_trajectories is not None:
             n_traj = min(n_traj, max_trajectories)
         self.sim.eval()
-        total_se, total_cnt = 0.0, 0.0
+        nti = self.sim.config.node_type_index
+        total_se, total_cnt, vloss_sum, vloss_cnt = 0.0, 0.0, 0.0, 0
+        prog = ProgressReporter(n_traj, prefix=f"validate epoch {epoch}", enable=self.progress)
         for traj in range(n_traj):
-            frames = stack_graphs([val_dataset[i] for i in val_dataset.trajectory_indices(traj)])
-            node_mask = torch.as_tensor(frames.node_mask[0]).to(self.device)
-            preds, targets = rollout(self.sim, frames, device=self.device)
-            rmse = float(rollout_rmse(preds, targets, node_mask))
+            frames, preds, targets = self._rollout_trajectory(val_dataset, traj)
+            node_mask = frames.node_mask[0]
+            node_type = frames.x[0, :, nti].to(torch.int64)
+            with torch.inference_mode():
+                rmse = rollout_rmse(preds, targets, node_mask)
+                step_losses = torch.stack([
+                    l2_loss(y, p, node_type, self.masks, node_valid=node_mask)
+                    for p, y in zip(preds, targets)
+                ])
             cnt = float(node_mask.sum()) * preds.shape[0] * preds.shape[-1]
-            total_se += rmse**2 * cnt
+            total_se += float(rmse) ** 2 * cnt
             total_cnt += cnt
+            vloss_sum += float(step_losses.sum())
+            vloss_cnt += step_losses.shape[0]
+            if traj == 0 and save_rollout and self.rollout_dir:
+                self._save_rollout_xdmf(val_dataset, 0, preds.cpu().numpy(), epoch)
+            prog.update(traj + 1)
+        prog.close()
+        self.last_val_loss = vloss_sum / vloss_cnt if vloss_cnt else None
         return float((total_se / max(total_cnt, 1.0)) ** 0.5)
 
-    def _log(self, epoch: int, metrics: Dict[str, float]) -> None:
-        if self.metrics_path is None:
-            return
-        os.makedirs(os.path.dirname(os.path.abspath(self.metrics_path)), exist_ok=True)
-        with open(self.metrics_path, "a") as fp:
-            fp.write(json.dumps({"epoch": epoch, "step": self.step, **metrics}) + "\n")
+    def _write_rollout_series(self, dataset, traj: int, preds: np.ndarray,
+                              make_path: Callable[[str], str]) -> None:
+        """Write a predicted trajectory as an XDMF time series on its raw
+        mesh; ``make_path(name)`` maps the mesh's id (the trajectory number
+        where the format has none) to the file."""
+        raw = dataset._load(dataset.trajectory_indices(traj)[0])
+        name = raw.id if raw.id else str(traj)
+        dt = getattr(dataset, "dt", 1.0) or 1.0
+        with XdmfTimeSeriesWriter(make_path(name)) as w:
+            w.write_points_cells(raw.pos, raw.faces)
+            t = dt
+            for k in range(preds.shape[0]):
+                w.write_data(t, {"prediction": preds[k, : raw.num_nodes]})
+                t += dt
+
+    def _save_rollout_xdmf(self, val_dataset, traj: int, preds: np.ndarray, epoch: int) -> None:
+        try:
+            save_dir = os.path.join(self.rollout_dir, f"epoch_{epoch}")
+            os.makedirs(save_dir, exist_ok=True)
+            self._write_rollout_series(
+                val_dataset, traj, preds,
+                lambda name: os.path.join(save_dir, f"graph_epoch_{epoch}_{name}.xdmf"),
+            )
+        except Exception as e:  # the export must never stop training
+            print(f"[trainer] rollout export failed: {e}")
+
+    # ------------------------------------------------------------- predict
+
+    def predict(self, dataset, save_dir: Optional[str] = "predictions",
+                max_trajectories: Optional[int] = None) -> List[np.ndarray]:
+        """Roll out each of the first ``max_trajectories`` trajectories of
+        ``dataset`` (all by default) and write each as
+        ``save_dir/graph_{id}.xdmf``; ``save_dir=None`` writes nothing.
+        Returns the ``[T, N, d]`` predictions on the host."""
+        if self.sim is None:
+            raise RuntimeError("call init_state and load a checkpoint before predict")
+        n_traj = dataset.size_dataset
+        if max_trajectories is not None:
+            n_traj = min(n_traj, max_trajectories)
+        self.sim.eval()
+        if save_dir is not None:
+            os.makedirs(save_dir, exist_ok=True)
+        out = []
+        for traj in range(n_traj):
+            preds = self._rollout_trajectory(dataset, traj)[1].cpu().numpy()
+            out.append(preds)
+            if save_dir is not None:
+                self._write_rollout_series(
+                    dataset, traj, preds, lambda name: os.path.join(save_dir, f"graph_{name}.xdmf")
+                )
+        return out
+
+    # ---------------------------------------------------------------- misc
+
+    def save(self, epoch: int, batch_offset: Optional[int] = None, epoch_loss=None) -> None:
+        """End-of-epoch save (``batch_offset=None``: resume at epoch + 1), or
+        a mid-epoch save (resume at this epoch, skipping the first
+        ``batch_offset`` batches of its stream). ``epoch_loss``, the
+        epoch's ``(loss sum tensor, steps)`` so far, rides along with a
+        mid-epoch save."""
+        metadata = {
+            "epoch": epoch + 1 if batch_offset is None else epoch,
+            "step": int(self.step),
+            "wandb_run_id": getattr(self.extra_logger, "run_id", None),
+        }
+        if batch_offset is not None:
+            metadata["batch_offset"] = int(batch_offset)
+            if epoch_loss is not None and epoch_loss[0] is not None:
+                metadata["epoch_loss_sum"] = float(epoch_loss[0])
+                metadata["epoch_steps"] = int(epoch_loss[1])
+        save_checkpoint(os.path.join(self.checkpoint_dir, self.checkpoint_name), self,
+                        metadata=metadata)
+
+    def _log(self, epoch: int, step: int, metrics: Dict[str, float]) -> None:
+        if self.metrics is not None:
+            self.metrics.log(epoch, step, metrics)
+        if self.extra_logger is not None:
+            self.extra_logger.log(metrics, step=step)

@@ -72,3 +72,55 @@ def simulator_pair(blocks: int, hidden: int):
         device="cpu",
     )
     return jax_sim, port_sim
+
+
+def write_cylinder_split(directory) -> tuple:
+    """The small cylinder fixture of the checkpoint, resume, predict and CLI
+    tests: ``write_cylinder_h5`` (2 trajectories of 6 frames on an 8 x 6
+    grid, 5 items each) as ``train.h5``, copied to ``test.h5`` for the
+    validation split. ``directory``'s own name must not contain "train"."""
+    import shutil
+
+    from graphphysics_tpu.utils.synthetic import write_cylinder_h5
+
+    h5_path, meta_path = write_cylinder_h5(str(directory), num_traj=2, steps=6, nx=8, ny=6)
+    shutil.copy(h5_path, str(directory / "test.h5"))
+    return h5_path, meta_path
+
+
+def cylinder_param(h5_path: str, meta_path: str, kind: str, blocks: int = 2, hidden: int = 16) -> dict:
+    """A training config on the cylinder fixture: EncodeProcessDecode, or
+    EncodeTransformDecode with 4 heads and no edge features."""
+    model = {"type": "epd", "message_passing_num": blocks, "hidden_size": hidden,
+             "node_input_size": 2, "output_size": 2, "edge_input_size": 3}
+    if kind == "transformer":
+        model = {"type": "transformer", "message_passing_num": blocks, "hidden_size": hidden,
+                 "node_input_size": 2, "output_size": 2, "edge_input_size": 0, "num_heads": 4}
+    return {
+        "dataset": {"extension": "h5", "h5_path": h5_path, "meta_path": meta_path, "khop": 1},
+        "model": model,
+        "index": {"feature_index_start": 0, "feature_index_end": 2, "output_index_start": 0,
+                  "output_index_end": 2, "node_type_index": 2},
+        "transformations": {
+            "preprocessing": {"noise": 0.02, "noise_index_start": [0], "noise_index_end": [2],
+                              "masking": 0},
+            "world_pos_parameters": {"use": False},
+        },
+    }
+
+
+def port_trainer(param: dict, directory, **kw):
+    """(Trainer on the CPU writing under ``directory``, shuffled loader of
+    2-frame batches, validation split) for ``param``."""
+    from graphphysics_torch.dataset import GraphLoader
+    from graphphysics_torch.training import Trainer, get_dataset, get_preprocessing
+
+    edges = param["model"]["edge_input_size"] > 0
+    train_ds = get_dataset(param, get_preprocessing(param, use_edge_feature=edges),
+                           use_edge_feature=edges)
+    val_ds = get_dataset(param, get_preprocessing(param, use_edge_feature=edges, remove_noise=True),
+                         use_edge_feature=edges, switch_to_val=True)
+    kw = {"learning_rate": 1e-3, "warmup": 5, "log_every": 1,
+          "checkpoint_dir": str(directory / "ckpt"), "metrics_path": str(directory / "metrics.csv"),
+          "rollout_dir": str(directory / "meshes"), "device": "cpu", **kw}
+    return Trainer(param, **kw), GraphLoader(train_ds, batch_size=2, shuffle=True), val_ds

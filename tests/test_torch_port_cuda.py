@@ -447,3 +447,46 @@ def test_two_train_steps_on_card_match_cpu(cuda, kind):
         # round-off into +-lr steps on both devices
         atol = 2 * 2 * 1e-3 if key.endswith("k_proj.bias") else 1e-5
         torch.testing.assert_close(params["cuda"][key], value, rtol=1e-5, atol=atol, msg=key)
+
+
+@pytest.mark.parametrize("kind", ["epd", "transformer"])
+def test_checkpoint_saved_on_card_loads_on_cpu(cuda, kind, tmp_path):
+    """A checkpoint of a trainer on the card holds CPU tensors only and
+    restores its weights, normalizers, optimizer state and step on the CPU
+    exactly; one more step from it on each device agrees."""
+    from graphphysics_torch.training import Trainer, load_checkpoint
+
+    kw = dict(learning_rate=1e-3, warmup=2, checkpoint_dir=str(tmp_path), metrics_path=None,
+              rollout_dir=None)
+    card = Trainer(_train_param(kind), device=cuda, **kw)
+    card.init_state(10)
+    batches = [_train_batch(kind, seed) for seed in (0, 1, 2)]
+    for b in batches[:2]:
+        card.train_step(b)
+    card.save(0)
+    path = tmp_path / "state.pt"
+    raw = torch.load(path, weights_only=True)
+
+    def devices(obj):
+        if isinstance(obj, torch.Tensor):
+            return {obj.device.type}
+        if isinstance(obj, dict):
+            return set().union(*map(devices, obj.values())) if obj else set()
+        if isinstance(obj, (list, tuple)):
+            return set().union(*map(devices, obj)) if obj else set()
+        return set()
+
+    assert devices(raw) == {"cpu"}
+    cpu = Trainer(_train_param(kind), device="cpu", **kw)
+    cpu.init_state(10)
+    load_checkpoint(str(path), cpu)
+    assert cpu.step == card.step == 2
+    for key, value in card.sim.state_dict().items():
+        assert torch.equal(cpu.sim.state_dict()[key], value.cpu()), key
+    card_opt, cpu_opt = card.optimizer.state_dict()["state"], cpu.optimizer.state_dict()["state"]
+    for i, state in card_opt.items():
+        for name, value in state.items():
+            assert torch.equal(cpu_opt[i][name], value.cpu()), (i, name)
+    assert cpu.optimizer.param_groups[0]["lr"] == card.optimizer.param_groups[0]["lr"]
+    losses = [t.train_step(batches[2]).item() for t in (card, cpu)]
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)

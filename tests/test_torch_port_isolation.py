@@ -50,6 +50,10 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "import graphphysics_torch.training.trainer, graphphysics_torch.training.losses\n"
         "import graphphysics_torch.training.schedule, graphphysics_torch.dataset.loader\n"
         "import graphphysics_torch.dataset.dataset, graphphysics_torch.dataset.h5_dataset\n"
+        "import graphphysics_torch.training.checkpoint, graphphysics_torch.utils\n"
+        "import graphphysics_torch.utils.xdmf, graphphysics_torch.utils.metrics\n"
+        "import graphphysics_torch.cli.train, graphphysics_torch.cli.predict\n"
+        "import graphphysics_torch.cli.__main__\n"
         "from graphphysics_torch.ops import _native\n"
         "print(json.dumps({'new': sorted(set(sys.modules) - before),\n"
         "                  'loaded': sorted(_native._loaded)}))\n"

@@ -10,7 +10,7 @@ interpret mode). Also a ``fit`` run on the fixture. Everything runs on the
 CPU."""
 
 import contextlib
-import json
+import csv
 
 import jax
 import jax.numpy as jnp
@@ -301,18 +301,19 @@ def test_fit_lowers_the_loss_and_validates(cylinder, tmp_path):
     ds = get_dataset(param, get_preprocessing(param, remove_noise=True))
     val = get_dataset(param, get_preprocessing(param, remove_noise=True))
     loader = GraphLoader(ds, batch_size=2, shuffle=True)
-    metrics = tmp_path / "metrics.jsonl"
+    metrics = tmp_path / "metrics.csv"
     trainer = Trainer(param, learning_rate=1e-2, warmup=3, log_every=5, metrics_path=str(metrics),
-                      device="cpu")
+                      checkpoint_dir=str(tmp_path / "ckpt"), rollout_dir=None, device="cpu")
     before = _launches()
     history = trainer.fit(loader, val_dataset=val, num_epochs=2, val_trajectories=1)
     assert _launches() == before  # the CPU takes the plain versions
     assert len(history["train_loss"]) == 2 and trainer.step == 2 * len(loader)
     assert history["train_loss"][1] < history["train_loss"][0]
     assert all(np.isfinite(v) and v > 0 for v in history["val_rmse"])
-    rows = [json.loads(line) for line in metrics.read_text().splitlines()]
-    assert [r["step"] for r in rows if "train_loss" in r] == [5, 10]
-    assert rows[-1]["val_all_rollout_rmse"] == history["val_rmse"][-1]
+    with open(metrics, newline="") as f:
+        rows = list(csv.DictReader(f))
+    assert [int(r["step"]) for r in rows if r["train_loss"]] == [5, 10]
+    assert float(rows[-1]["val_all_rollout_rmse"]) == history["val_rmse"][-1]
 
 
 def test_trainer_refuses_what_is_not_ported(cylinder):
