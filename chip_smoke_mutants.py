@@ -1,5 +1,5 @@
 """How far a planted fault moves two checks of ``chip_smoke.py``: a fault in
-K1b or K3 moves ``first_step``, the check of the first train step on the
+K1b or in the fused attention backward moves ``first_step``, the check of the first train step on the
 card against the CPU (the readings its per-model gradient limits
 ``EPD_GRAD_RTOL``, ``TRANSFORMER_GRAD_RTOL`` must sit below); a fault in
 the checkpoint restore moves ``resume_runs``, the check of a resumed run
@@ -9,14 +9,16 @@ per-model worst limits must sit below).
 For each fault the tree is copied to a temporary directory, one line of a
 source is replaced there, the kernels are built from the copy and the check
 runs with its limits lifted: ``first_step`` on the flagship batch (K1b
-faults, EPD 15 x 128) or the panels batch (K3 faults, transformer 15 x
-128); ``resume_runs`` on the in-memory trajectories of the checkpoint
+faults, EPD 15 x 128) or the panels batch (faults in
+``csrc/csr_attention_bwd.cu``, transformer 15 x 128); ``resume_runs`` on the in-memory trajectories of the checkpoint
 phases. One JSON line per fault. The repo itself is never changed. Needs
 one CUDA card:
 
     python3 chip_smoke_mutants.py [name prefix]
 
-A name prefix (``k1b``, ``k3``, ``resume``) runs those faults only.
+A name prefix (``k1b``, ``attn``, ``resume``) runs those faults only. K2's
+and K3's faults are caught by their kernel phases against their plain
+versions: no path of the models runs them.
 """
 
 import json
@@ -29,9 +31,11 @@ import tempfile
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 K1 = "graphphysics_torch/csrc/csr_segment_sum.cu"
-K3 = "graphphysics_torch/csrc/csr_softmax_spmm_bwd.cu"
+ATTN = "graphphysics_torch/csrc/csr_attention_bwd.cu"
 K1B_LIVE = "if (live) live = bounds[r] <= e && e < bounds[num_rows + r];"
-K3_DSCORES = "live ? attn * (dot - delta) : 0.0f"
+ATTN_DS = "ds[p] = attn[p] * (vg[p] - delta[p]);"
+ATTN_DK = "add_cols<V>(dk + static_cast<int64_t>(j) * width + r.col0, dkr);"
+ATTN_DQ = "for (int i = 0; i < V; ++i) dqa[i] += ds[i % NP] * scale * kc[i];"
 CKPT = "graphphysics_torch/training/checkpoint.py"
 OPT_LOAD = '    trainer.optimizer.load_state_dict(ckpt["optimizer"])'
 WEIGHTS_LOAD = "    load_reference_checkpoint(sim, ckpt)"
@@ -42,10 +46,13 @@ ZERO_NORMALIZERS = (WEIGHTS_LOAD + "\n    for n, b in sim.named_buffers():\n"
 FAULTS = {
     "k1b_zero_graph5": ("epd", K1, K1B_LIVE, K1B_LIVE[:-1] + " && r / 2048 != 5;"),
     "k1b_drop_last_edge": ("epd", K1, K1B_LIVE, K1B_LIVE.replace("e < bounds", "e + 1 < bounds")),
-    "k3_dscores_x1.001": ("transformer", K3, K3_DSCORES, "live ? 1.001f * attn * (dot - delta) : 0.0f"),
-    "k3_dscores_x1.01": ("transformer", K3, K3_DSCORES, "live ? 1.01f * attn * (dot - delta) : 0.0f"),
-    "k3_dscores_zero_graph5": ("transformer", K3, K3_DSCORES,
-                               "(live && row / 2048 != 5) ? attn * (dot - delta) : 0.0f"),
+    "attn_ds_x1.001": ("transformer", ATTN, ATTN_DS, ATTN_DS.replace("= attn", "= 1.001f * attn")),
+    "attn_ds_x1.01": ("transformer", ATTN, ATTN_DS, ATTN_DS.replace("= attn", "= 1.01f * attn")),
+    # graph 5's senders add nothing to dk
+    "attn_dk_zero_graph5": ("transformer", ATTN, ATTN_DK, "if (r.row / 2048 != 5) " + ATTN_DK),
+    # each row's last edge adds nothing to dq
+    "attn_dq_drop_last_edge": ("transformer", ATTN, ATTN_DQ, ATTN_DQ.replace(
+        "+= ds[i % NP] * scale * kc[i];", "+= first + t + 1 < r.len ? ds[i % NP] * scale * kc[i] : 0.0f;")),
     # the resumed run starts with fresh AdamW moments and step counts
     "resume_fresh_optimizer_epd": ("epd", CKPT, OPT_LOAD, "    pass"),
     "resume_fresh_optimizer_transformer": ("transformer", CKPT, OPT_LOAD, "    pass"),

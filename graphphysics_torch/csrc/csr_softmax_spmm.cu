@@ -35,10 +35,11 @@
 // D*4-byte span. The warp walks its row's edges once with the online
 // softmax: per edge, m' = max(m, s), acc = acc*exp(m - m') + exp(s - m')*v,
 // l = l*exp(m - m') + exp(s - m'). Masked edges are skipped. The first lane
-// of each head writes that head's m and l. What this simple version leaves
-// for later: several rows per warp at small degree, prefetching the next
-// edge's row, TMA staging, and fusing the q/k/v gathers and the per-edge
-// dot products (computed by PyTorch ops before the launch) into the loop.
+// of each head writes that head's m and l. The models' attention does not
+// run this kernel: csr_attention.cu fuses the q/k/v gathers and the
+// per-edge dot products into the same loop, with several rows per warp and
+// the next edge's rows prefetched. This one stays for callers that hand in
+// their own scores, as split-edge partitioned attention will.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -43,9 +43,9 @@
 // row up to E, row 0 also [0, start_0)). That covers every edge once
 // because the ranges ascend and do not overlap, as the padding
 // (graphphysics_torch/core/graph.py) and concat_graphs lay them out; the
-// wrapper trusts that layout as the forward does. What this simple version
-// leaves for later: several rows per warp at small degree, prefetching the
-// next edge's values, and fusing the q/k/v gathers' backward.
+// wrapper trusts that layout as the forward does. The models' attention
+// does not run this kernel: csr_attention_bwd.cu fuses the backward of the
+// q/k/v gathers and the per-edge dot products into the same loop.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

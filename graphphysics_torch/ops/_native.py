@@ -8,7 +8,8 @@ library at its first call, and ``build()`` builds every source at once, one
 ``NVCC_TIMEOUT_S``: a compiler that has not finished by then is killed and
 the build raises with its output. Libraries are named by a hash of their
 source, so an edited source is rebuilt and an unchanged one is reused; the
-build directory is listed in ``.gitignore``.
+build directory is listed in ``.gitignore``. A source may include the
+``csrc/*.cuh`` headers; they are part of every library's hash.
 """
 
 from __future__ import annotations
@@ -24,7 +25,10 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("csr_segment_sum.cu", "csr_softmax_spmm.cu", "csr_softmax_spmm_bwd.cu")
+SOURCES = (
+    "csr_segment_sum.cu", "csr_softmax_spmm.cu", "csr_softmax_spmm_bwd.cu",
+    "csr_attention.cu", "csr_attention_bwd.cu",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -50,7 +54,12 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
-    digest = hashlib.sha256((CSRC / source).read_bytes()).hexdigest()[:12]
+    """The library of ``source``, named by a hash of the source and of every
+    header in ``csrc/`` (which it may include)."""
+    h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{Path(source).stem}-{digest}.so"
 
 

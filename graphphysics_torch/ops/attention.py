@@ -6,9 +6,9 @@ As in the reference, node ``i`` takes a softmax over its out-edges
 ``senders`` and keys/values are gathered at ``receivers``.
 
 Two branches are ported. With ``sender_bounds`` (a sender-sorted graph from
-``pad_graph_csr_np``) the softmax + SpMM goes through
-``ops.csr_attention.csr_sparse_attention``, which on CUDA is the Hopper
-kernel. Without it, the plain COO branch: ``segment_softmax`` and a masked
+``pad_graph_csr_np``) the attention goes through
+``ops.csr_attention.csr_sparse_attention``, which on CUDA is one fused
+Hopper kernel forward and one backward. Without it, the plain COO branch: ``segment_softmax`` and a masked
 segment sum, on the CPU only; a CUDA tensor without ``sender_bounds``
 raises, and nothing falls back to another path. The partitioned, halo,
 split-edge and ELL branches of the JAX package come with later slices.
@@ -41,8 +41,9 @@ def sparse_graph_attention(
     the scores and ``sender_bounds`` (``[2, N]``, ``Graph.sender_bounds``)
     selects the CSR branch. Returns ``[N, H, Dh]``.
 
-    Edge-sized intermediates stay 2-D ``[E, H*Dh]`` with head-blocked
-    columns, and the per-head dot accumulates in f32, as in the JAX package."""
+    The per-head dot accumulates in f32, as in the JAX package. In the COO
+    branch edge-sized intermediates stay 2-D ``[E, H*Dh]`` with head-blocked
+    columns; the CSR branch on CUDA has none."""
     if sender_bounds is not None:
         return csr_sparse_attention(
             q, k, v, senders, receivers, sender_bounds, edge_mask=edge_mask, scale=scale

@@ -22,6 +22,7 @@ import jax
 import numpy as np
 import torch
 
+from graphphysics_torch.core.graph import concat_graphs, pad_graph_sorted_np
 from graphphysics_tpu.utils.torch_import import export_reference_state_dict
 
 TORCH_THREADS = 2
@@ -124,3 +125,38 @@ def port_trainer(param: dict, directory, **kw):
           "checkpoint_dir": str(directory / "ckpt"), "metrics_path": str(directory / "metrics.csv"),
           "rollout_dir": str(directory / "meshes"), "device": "cpu", **kw}
     return Trainer(param, **kw), GraphLoader(train_ds, batch_size=2, shuffle=True), val_ds
+
+
+# edge layouts of the kernel parity tests (``layout_graphs``)
+LAYOUTS = ["n_pad_eq_n", "empty_rows", "two_graphs"]
+
+
+def layout_graphs(pad, layout, seed, n_pad, size=None):
+    """Graphs of one of ``LAYOUTS`` padded with ``pad``: n_pad == n with
+    padding edges on the real last node; every edge into the first few
+    nodes (most rows empty); or two graphs of other sizes concatenated.
+    ``size`` (default ``n_pad``) scales the real nodes and edges of the
+    last, for the small graphs of the gradient checks."""
+    r = np.random.default_rng(seed)
+    size = n_pad if size is None else size
+
+    def one(n, e, hi=None):
+        ends = r.integers(0, n if hi is None else hi, e).astype(np.int32)
+        other = r.integers(0, n, e).astype(np.int32)
+        s, recv = (other, ends) if pad is pad_graph_sorted_np else (ends, other)
+        return pad(np.zeros((n, 1), np.float32), np.zeros((n, 2), np.float32), s, recv,
+                   n_pad, 6 * size)
+
+    if layout == "n_pad_eq_n":
+        return one(n_pad, 5 * size)
+    if layout == "empty_rows":
+        return one(n_pad - n_pad // 6, 4 * size, hi=9)
+    return concat_graphs([one(size - size // 8, 5 * size), one(3 * size // 4, 4 * size)])
+
+
+def mask_some_edges(g):
+    """``g``'s edge mask with every 7th edge masked too: masked edges inside
+    the ranges."""
+    mask = g.edge_mask.copy()
+    mask[::7] = False
+    return mask

@@ -19,7 +19,7 @@ from jax.experimental.pallas import tpu as pltpu
 from graphphysics_tpu.ops import pallas_attention as jax_pa
 from graphphysics_tpu.ops import pallas_segment as jax_ps
 from graphphysics_tpu.ops import segment as jax_seg
-from graphphysics_torch.core.graph import concat_graphs, pad_graph_csr_np, pad_graph_sorted_np
+from graphphysics_torch.core.graph import pad_graph_csr_np, pad_graph_sorted_np
 from graphphysics_torch.ops.csr_attention import (
     csr_softmax_spmm,
     csr_softmax_spmm_backward,
@@ -34,52 +34,20 @@ from graphphysics_torch.ops.csr_segment import (
     csr_segment_sum_reference,
 )
 from graphphysics_torch.ops.segment import masked_segment_sum, segment_softmax, take_rows
-from tests import _torch_port_common  # noqa: F401  (caps torch's threads)
+from tests._torch_port_common import LAYOUTS, layout_graphs, mask_some_edges
 
 # f32 sums of the same terms in another order (XLA / the Pallas kernel vs
 # ATen), as the forward tests
 RTOL, ATOL = 1e-5, 1e-5
 SUM_ATOL = 1e-4  # segment sums of ~10 N(0,1) rows
 
-LAYOUTS = ["n_pad_eq_n", "empty_rows", "two_graphs"]
-
-
-def _graphs(pad, layout, seed, n_pad, size=None):
-    """Graphs of one of ``LAYOUTS`` padded with ``pad``: n_pad == n with
-    padding edges on the real last node; every edge into the first few
-    nodes (most rows empty); or two graphs of other sizes concatenated.
-    ``size`` (default ``n_pad``) scales the real nodes and edges of the
-    last, for the small graphs of the gradient checks."""
-    r = np.random.default_rng(seed)
-    size = n_pad if size is None else size
-
-    def one(n, e, hi=None):
-        ends = r.integers(0, n if hi is None else hi, e).astype(np.int32)
-        other = r.integers(0, n, e).astype(np.int32)
-        s, recv = (other, ends) if pad is pad_graph_sorted_np else (ends, other)
-        return pad(np.zeros((n, 1), np.float32), np.zeros((n, 2), np.float32), s, recv,
-                   n_pad, 6 * size)
-
-    if layout == "n_pad_eq_n":
-        return one(n_pad, 5 * size)
-    if layout == "empty_rows":
-        return one(n_pad - n_pad // 6, 4 * size, hi=9)
-    return concat_graphs([one(size - size // 8, 5 * size), one(3 * size // 4, 4 * size)])
-
-
-def _mask(g):
-    mask = g.edge_mask.copy()
-    mask[::7] = False  # masked edges inside the ranges too
-    return mask
-
-
 # ---------------------------------------------------------------- K1 and K1b
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_csr_segment_sum_gradient_matches_jax(layout):
-    g = _graphs(pad_graph_sorted_np, layout, seed=1, n_pad=48)
-    mask = _mask(g)
+    g = layout_graphs(pad_graph_sorted_np, layout, seed=1, n_pad=48)
+    mask = mask_some_edges(g)
     n, h = g.num_nodes, 16
     r = np.random.default_rng(2)
     data = r.normal(size=(g.num_edges, h)).astype(np.float32)
@@ -114,8 +82,8 @@ def test_csr_segment_sum_gradient_matches_jax(layout):
 
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_segment_sum_backward_reference_is_autograd_of_the_plain_forward(layout):
-    g = _graphs(pad_graph_sorted_np, layout, seed=3, n_pad=40)
-    mask = torch.from_numpy(_mask(g))
+    g = layout_graphs(pad_graph_sorted_np, layout, seed=3, n_pad=40)
+    mask = torch.from_numpy(mask_some_edges(g))
     recv, bounds = torch.from_numpy(g.receivers), torch.from_numpy(g.row_bounds)
     gen = torch.Generator().manual_seed(0)
     data = torch.randn(g.num_edges, 8, generator=gen, requires_grad=True)
@@ -139,9 +107,9 @@ def test_segment_sum_backward_zeroes_edges_outside_every_range():
 
 
 def test_segment_sum_gradcheck_f64():
-    g = _graphs(pad_graph_sorted_np, "two_graphs", seed=4, n_pad=24)
+    g = layout_graphs(pad_graph_sorted_np, "two_graphs", seed=4, n_pad=24)
     args = (torch.from_numpy(g.receivers), torch.from_numpy(g.row_bounds),
-            torch.from_numpy(_mask(g)))
+            torch.from_numpy(mask_some_edges(g)))
     data = torch.randn(g.num_edges, 3, dtype=torch.float64, generator=torch.Generator().manual_seed(1))
     assert torch.autograd.gradcheck(lambda d: csr_segment_sum(d, *args), (data.requires_grad_(),))
 
@@ -150,12 +118,12 @@ def test_segment_sum_gradcheck_f64():
 
 
 def _attention_inputs(layout, seed, h=4, dh=8, size=None):
-    g = _graphs(pad_graph_csr_np, layout, seed=seed, n_pad=128, size=size)
+    g = layout_graphs(pad_graph_csr_np, layout, seed=seed, n_pad=128, size=size)
     r = np.random.default_rng(seed + 1)
     scores = (3 * r.normal(size=(g.num_edges, h))).astype(np.float32)
     values = r.normal(size=(g.num_edges, h * dh)).astype(np.float32)
     cot = r.normal(size=(g.num_nodes, h * dh)).astype(np.float32)
-    return g, _mask(g), scores, values, cot
+    return g, mask_some_edges(g), scores, values, cot
 
 
 def _jax_softmax_spmm(g, mask, n):
@@ -225,8 +193,8 @@ def test_softmax_spmm_gradcheck_f64():
 
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_csr_sparse_attention_gradient_matches_jax(layout):
-    g = _graphs(pad_graph_csr_np, layout, seed=11, n_pad=128)
-    mask = _mask(g)
+    g = layout_graphs(pad_graph_csr_np, layout, seed=11, n_pad=128)
+    mask = mask_some_edges(g)
     n, h, dh = g.num_nodes, 4, 8
     r = np.random.default_rng(12)
     q, k, v = (r.normal(size=(n, h, dh)).astype(np.float32) for _ in range(3))
@@ -255,13 +223,13 @@ def test_csr_sparse_attention_gradient_matches_jax(layout):
 
 
 def test_csr_sparse_attention_gradcheck_f64():
-    g = _graphs(pad_graph_csr_np, "two_graphs", seed=13, n_pad=128, size=16)
+    g = layout_graphs(pad_graph_csr_np, "two_graphs", seed=13, n_pad=128, size=16)
     gen = torch.Generator().manual_seed(3)
     q, k, v = (torch.randn(g.num_nodes, 2, 2, dtype=torch.float64, generator=gen).requires_grad_()
                for _ in range(3))
     args = (torch.from_numpy(g.senders), torch.from_numpy(g.receivers),
             torch.from_numpy(g.sender_bounds))
-    mask = torch.from_numpy(_mask(g))
+    mask = torch.from_numpy(mask_some_edges(g))
 
     def fn(q, k, v):
         return csr_sparse_attention(q, k, v, *args, edge_mask=mask, scale=0.7)

@@ -1,8 +1,9 @@
-"""Card tests of the port's CUDA kernels: ``csr_segment_sum`` and
-``csr_softmax_spmm`` and their backward kernels against their plain versions
-on edge cases, autograd through both wrappers, the EPD and transformer
-forwards on the card against the CPU, and two train steps of each model on
-the card against the CPU. Marked ``cuda``; they skip without a card. This file imports no JAX, so on a machine without it
+"""Card tests of the port's CUDA kernels: ``csr_segment_sum``,
+``csr_softmax_spmm`` and the fused ``csr_attention`` and their backward
+kernels against their plain versions on edge cases, autograd through the
+wrappers, a TransformerBlock and the EPD and transformer forwards on the
+card against the CPU, and two train steps of each model on the card against
+the CPU. Marked ``cuda``; they skip without a card. This file imports no JAX, so on a machine without it
 run them with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py
@@ -203,7 +204,7 @@ def test_transformer_forward_on_card_matches_cpu(cuda):
     from graphphysics_torch.models import (
         EncodeTransformDecode, Simulator, SimulatorConfig, reset_parameters,
     )
-    from graphphysics_torch.ops.csr_attention import csr_softmax_spmm
+    from graphphysics_torch.ops.csr_attention import csr_attention
     from graphphysics_torch.ops.csr_segment import csr_segment_sum
 
     cfg = SimulatorConfig(11, 0, 3, 0, 2, 0, 3, 3)
@@ -221,11 +222,11 @@ def test_transformer_forward_on_card_matches_cpu(cuda):
         model = reset_parameters(EncodeTransformDecode(3, 11, 3, 64, 4), torch.Generator().manual_seed(0))
         sims[dev] = Simulator(cfg, model, device=dev)
         sims[dev].accumulate_stats(g.to(dev))
-    before = (csr_softmax_spmm.launches, csr_segment_sum.launches)
+    before = (csr_attention.launches, csr_segment_sum.launches)
     with torch.inference_mode():
         on_card = sims["cuda"](g.to("cuda"))[2].cpu()
         on_cpu = sims["cpu"](g.to("cpu"))[2]
-    assert (csr_softmax_spmm.launches, csr_segment_sum.launches) == (before[0] + 3, before[1])
+    assert (csr_attention.launches, csr_segment_sum.launches) == (before[0] + 3, before[1])
     torch.testing.assert_close(on_card, on_cpu, rtol=1e-4, atol=1e-4)
 
 
@@ -391,8 +392,130 @@ def test_softmax_spmm_and_attention_autograd_on_card(cuda):
                                    edge_mask=mask.to(dev), scale=0.5)
         grads[dev] = torch.autograd.grad(out, ts, cot.to(dev))
     for a, b in zip(grads["cuda"], grads["cpu"]):
-        # dk and dv sum per-edge terms with index_add_ atomics on the card
+        # dk and dv sum per-edge terms with atomics on the card
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+def _fused_case(layout, d, h, seed):
+    """A sender-sorted layout with q, k, v (as contiguous [N, H, Dh]
+    tensors) and an output gradient for the fused attention kernels."""
+    if layout == "two_graphs":
+        g, _, _, mask = _two_csr_graphs(seed, d, h)
+    elif layout == "serving":  # n_pad == n: padded edges on the real last node
+        g, _, _, mask = _csr_case(2048, 11906, d, h, seed=seed, n_pad=2048, e_pad=13696)
+    else:  # every edge from the first 5 nodes: long rows, most rows empty
+        g, _, _, mask = _csr_case(1000, 4000, d, h, seed=seed, hi=5, n_pad=1024, e_pad=4096)
+    gen = torch.Generator().manual_seed(seed)
+    qkv = [torch.randn(g.num_nodes, h, d // h, generator=gen) for _ in range(3)]
+    cot = torch.randn(g.num_nodes, h, d // h, generator=gen)
+    return g, mask, qkv, cot
+
+
+def _model_view(t):
+    """``t`` ([N, H, Dh]) laid out as the model's Attention passes it: the
+    transpose of a contiguous (N, Dh, H) tensor."""
+    return t.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+@pytest.mark.parametrize(
+    "layout,d,h,view",
+    [("serving", 128, 4, "model"), ("serving", 128, 4, "contiguous"), ("skewed", 128, 4, "model"),
+     ("two_graphs", 64, 4, "model"), ("two_graphs", 64, 4, "contiguous"), ("two_graphs", 96, 4, "model"),
+     ("two_graphs", 96, 4, "contiguous"), ("two_graphs", 512, 8, "model"), ("two_graphs", 32, 4, "model"),
+     ("two_graphs", 32, 1, "contiguous")],
+)
+def test_fused_attention_kernels_match_plain(cuda, layout, d, h, view):
+    """Both fused kernels against their plain versions, at every lane count
+    the geometry allows."""
+    from graphphysics_torch.ops import csr_attention as ca
+
+    g, mask, qkv, cot = _fused_case(layout, d, h, seed=d + h)
+    seg, gather = torch.from_numpy(g.senders).to(cuda), torch.from_numpy(g.receivers).to(cuda)
+    bounds, m = torch.from_numpy(g.sender_bounds).to(cuda), mask.to(cuda)
+    q, k, v, g_out = ((_model_view(t) if view == "model" else t).to(cuda) for t in (*qkv, cot))
+    interleaved = view == "model" and h > 1
+    want_out, want_ml = ca.csr_attention_reference(q, k, v, seg, gather, g.num_nodes, m, 0.5)
+    want = ca.csr_attention_backward_reference(q, k, v, seg, gather, want_ml, want_out, g_out, m, 0.5)
+    lanes = [n for n in ca.FORWARD_LANES if ca._geometry_ok(n, d, h, interleaved)]
+    assert lanes
+    for n in lanes:
+        _poison_free_memory(cuda)
+        before = (ca.csr_attention.launches, ca.csr_attention_backward.launches)
+        out, ml = ca._launch_attention(q, k, v, gather, bounds, m, 0.5, interleaved, lanes=n)
+        grads = ca._launch_attention_backward(q, k, v, gather, bounds, m, ml, out, g_out, 0.5,
+                                              interleaved, lanes=n)
+        torch.cuda.synchronize()
+        assert (ca.csr_attention.launches, ca.csr_attention_backward.launches) == (
+            before[0] + 1, before[1] + 1)
+        assert ca._is_interleaved(out) is interleaved or h == 1
+        # online vs two-pass softmax in f32, as csr_softmax_spmm
+        torch.testing.assert_close(out, want_out, rtol=1e-5, atol=1e-5, msg=f"out, {n} lanes")
+        torch.testing.assert_close(ml, want_ml, rtol=1e-5, atol=1e-5, msg=f"ml, {n} lanes")
+        for a, b, name in zip(grads, want, "qkv"):
+            assert torch.isfinite(a).all()
+            # atomics and per-head sums in another order than index_add_
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=f"d{name}, {n} lanes")
+
+
+def test_fused_attention_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from graphphysics_torch.ops.csr_attention import csr_attention
+
+    g, mask, qkv, _ = _fused_case("two_graphs", 64, 4, seed=0)
+    seg, gather = torch.from_numpy(g.senders).to(cuda), torch.from_numpy(g.receivers).to(cuda)
+    bounds = torch.from_numpy(g.sender_bounds).to(cuda)
+    q, k, v = (t.to(cuda) for t in qkv)
+    with pytest.raises(ValueError, match="float32"):
+        csr_attention(q.double(), k, v, seg, gather, bounds)
+    with pytest.raises(ValueError, match="strides"):
+        x = torch.zeros(4, q.shape[0], 16, device=cuda).transpose(0, 1)  # [N, H, Dh], heads outermost
+        csr_attention(x, x, x, seg, gather, bounds)
+    with pytest.raises(ValueError, match="one layout"):
+        csr_attention(_model_view(q), k, v, seg, gather, bounds)
+    with pytest.raises(ValueError, match="positive multiple of 32"):
+        x = torch.zeros(q.shape[0], 4, 12, device=cuda)
+        csr_attention(x, x, x, seg, gather, bounds)
+    with pytest.raises(ValueError, match="int32"):
+        csr_attention(q, k, v, seg, gather.long(), bounds)
+    with pytest.raises(ValueError, match="int32"):
+        csr_attention(q, k, v, seg, gather, bounds.long())
+    with pytest.raises(ValueError, match="sender_bounds"):
+        csr_attention(q, k, v, seg, gather, bounds[:, :10].contiguous())
+    out, ml = csr_attention(q.clone().requires_grad_(True), k, v, seg, gather, bounds, mask.to(cuda))
+    assert out.requires_grad and not ml.requires_grad
+
+
+def test_transformer_block_on_card_matches_cpu(cuda):
+    """One TransformerBlock forward and backward at the model's width on the
+    card (the fused kernels, q, k, v in the Attention's own layout) against
+    the CPU from equal weights."""
+    from graphphysics_torch.models import TransformerBlock, reset_parameters
+    from graphphysics_torch.ops.csr_attention import (
+        csr_attention,
+        csr_attention_backward,
+        csr_softmax_spmm,
+        csr_softmax_spmm_backward,
+    )
+
+    g, mask, _, _ = _fused_case("two_graphs", 128, 4, seed=3)
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(g.num_nodes, 128, generator=gen)
+    cot = torch.randn(g.num_nodes, 128, generator=gen)
+    results = {}
+    for dev in ("cpu", "cuda"):
+        block = reset_parameters(TransformerBlock(128, 4), torch.Generator().manual_seed(5)).to(dev)
+        xs = x.to(dev, copy=True).requires_grad_(True)
+        counters = (csr_attention, csr_attention_backward, csr_softmax_spmm, csr_softmax_spmm_backward)
+        before = [c.launches for c in counters]
+        y = block(xs, torch.from_numpy(g.senders).to(dev), torch.from_numpy(g.receivers).to(dev),
+                  mask.to(dev), torch.from_numpy(g.sender_bounds).to(dev))
+        y.backward(cot.to(dev))
+        step = int(dev == "cuda")
+        assert [c.launches - b for c, b in zip(counters, before)] == [step, step, 0, 0]
+        results[dev] = [y.detach().cpu(), xs.grad.cpu()] + [
+            p.grad.cpu() for _, p in sorted(block.named_parameters())]
+    for a, b in zip(results["cuda"], results["cpu"]):
+        # f32 without TF32; atomics and sums in another order on the card
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
 def _train_param(kind):
@@ -423,11 +546,17 @@ def _train_batch(kind, seed):
 
 @pytest.mark.parametrize("kind", ["epd", "transformer"])
 def test_two_train_steps_on_card_match_cpu(cuda, kind):
-    from graphphysics_torch.ops.csr_attention import csr_softmax_spmm, csr_softmax_spmm_backward
+    from graphphysics_torch.ops.csr_attention import (
+        csr_attention,
+        csr_attention_backward,
+        csr_softmax_spmm,
+        csr_softmax_spmm_backward,
+    )
     from graphphysics_torch.ops.csr_segment import csr_segment_sum, csr_segment_sum_backward
     from graphphysics_torch.training import Trainer
 
-    kernels = (csr_segment_sum, csr_segment_sum_backward, csr_softmax_spmm, csr_softmax_spmm_backward)
+    kernels = (csr_segment_sum, csr_segment_sum_backward, csr_attention, csr_attention_backward,
+               csr_softmax_spmm, csr_softmax_spmm_backward)
     batches = [_train_batch(kind, seed) for seed in (0, 1)]
     losses, params = {}, {}
     for dev in ("cpu", "cuda"):
@@ -438,7 +567,7 @@ def test_two_train_steps_on_card_match_cpu(cuda, kind):
         launched = [k.launches - b for k, b in zip(kernels, before)]
         params[dev] = {k: v.detach().cpu() for k, v in trainer.sim.state_dict().items()}
     per_run = 3 * len(batches)  # one launch per block and step
-    want = [per_run, per_run, 0, 0] if kind == "epd" else [0, 0, per_run, per_run]
+    want = [per_run, per_run, 0, 0, 0, 0] if kind == "epd" else [0, 0, per_run, per_run, 0, 0]
     assert launched == want
     # f32 without TF32 on both; sums in another order, atomics on the card
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
