@@ -53,7 +53,29 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     ``RESUME_MEDIAN_RTOL`` and a per-model worst limit); the final checkpoint reloaded into a fresh
     ``Trainer`` on the card bitwise; ``predict`` from it on the card with
     its launches checked, against the trained model's and the CPU's; the
-    checkpoint's bytes, save and load seconds and predict's ms per frame.
+    checkpoint's bytes, save and load seconds and predict's ms per frame;
+11. fused attention widths: both fused kernels against their plain versions
+    at (D, H) = (48, 4), (96, 3) and (40, 8), in the model's (N, Dh, H) view
+    and in contiguous [N, H, Dh], on the panels_csr batch (the general lane
+    geometry: a masked column tail and per-head sums in shared memory), and
+    the first train step of the panels transformer at ``hidden_size`` 48
+    against the CPU;
+12. ``gmm_training``: ``Trainer`` on ``training_config/c-a-gmm.json``
+    (EncodeTransformDecode 10 x 64, 4 heads, K = 3 diagonal GMM head) on one
+    sender-sorted aneurysm-scale graph (66,000 real nodes and 520,000 real
+    edges padded to 66,560 / 524,288, 14 features and the node type): the
+    first step against the CPU (also with the full-covariance head), 3
+    warm-up and 20 timed steps with 10 fused forward and 10 fused backward
+    launches per step checked, and a profile;
+13. ``gmm_serving``: a 50-frame sampled rollout of that model on a synthetic
+    14-feature trajectory at that scale, with its launches checked; two card
+    rollouts of one generator seed bitwise equal; the first 3 frames on the
+    card against the CPU's with the draws of one CPU generator; the card
+    sampler's statistics over 2^20 draws of a fixed mixture;
+14. ``gmm_pipeline``: ``panels.json`` with a K = 3 head through
+    ``BaseDataset``, ``GraphLoader``, ``Trainer.fit`` with validation
+    (``val_loss`` None), a save, a reload and ``predict`` twice, bitwise
+    equal.
 
 Every line but the last is a JSON object (one per phase), apart from the
 card's ``nvidia-smi`` line; the ``{"kernels": [...]}`` line comes just before
@@ -102,6 +124,22 @@ ROLLOUT_RTOL = 1e-4
 CPU_FRAMES = 3
 PANELS_CONFIG = "training_config/panels.json"
 CYLINDER_CONFIG = "training_config/cylinder.json"
+GMM_CONFIG = "training_config/c-a-gmm.json"
+# the aneurysm workload scale: real nodes and edges, and their padding
+ANEURYSM = (66000, 520000, 66560, 524288)
+# (width, heads) of the fused kernels' general geometry phases
+GENERAL_WIDTHS = ((48, 4), (96, 3), (40, 8))
+# the card sampler's statistics: draws of a fixed mixture, and the most
+# standard errors any frequency, mean or std may lie from the mixture's own
+GMM_SAMPLER_DRAWS = 2**20
+GMM_SIGMAS = 5.0
+# the card-vs-CPU rollout under shared draws: a node whose two best
+# (logit + Gumbel) scores on the CPU lie closer than the card's logits
+# differ from the CPU's (f32 round-off) may pick another component on the
+# card; seeds are tried in turn until every sampled node's gap is at least
+# GMM_TIE_FACTOR times that difference in the checked frames
+GMM_TIE_FACTOR = 4.0
+GMM_SEED_TRIES = 12
 WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS = 3, 20, 3
 # first training step on the card vs the CPU from equal weights: f32
 # without TF32, 15 blocks deep, sums in another order and atomics in the
@@ -301,15 +339,16 @@ def random_graph(n, e, n_pad, e_pad, seed):
     )
 
 
-def random_csr_graph(n, e, n_pad, e_pad, seed, senders_below=None):
+def random_csr_graph(n, e, n_pad, e_pad, seed, senders_below=None, columns=5, node_type_index=3):
     """A sender-sorted (CSR) padded graph with the panels feature layout
-    ``[vel(3), node_type, time]``, no edge features and random topology;
+    ``[vel(3), node_type, time]`` (or ``columns`` features with the node type
+    at ``node_type_index``), 3 outputs, no edge features and random topology;
     senders are drawn below ``senders_below`` (default: every node)."""
     from graphphysics_torch.core import pad_graph_csr_np
 
     r = np.random.default_rng(seed)
-    x = r.normal(size=(n, 5)).astype(np.float32)
-    x[:, 3] = r.integers(0, 7, size=n)
+    x = r.normal(size=(n, columns)).astype(np.float32)
+    x[:, node_type_index] = r.integers(0, 7, size=n)
     return pad_graph_csr_np(
         x,
         r.normal(size=(n, 2)).astype(np.float32),
@@ -318,8 +357,31 @@ def random_csr_graph(n, e, n_pad, e_pad, seed, senders_below=None):
         n_pad,
         e_pad,
         y=r.normal(size=(n, 3)).astype(np.float32),
-        node_type_index=3,
+        node_type_index=node_type_index,
     )
+
+
+def aneurysm_gmm_graph(seed):
+    """One sender-sorted graph at the aneurysm scale with the c-a-gmm
+    layout: 14 features, the node type at index 14, 3 outputs."""
+    return random_csr_graph(*ANEURYSM, seed, columns=15, node_type_index=14)
+
+
+def gmm_trajectory(seed, frames):
+    """``frames`` stacked frames of one aneurysm-scale graph
+    (``aneurysm_gmm_graph``) whose 14 features drift by a fixed random step
+    a frame, each frame's target the next frame's first 3 features."""
+    from graphphysics_torch.core import stack_graphs
+
+    base = aneurysm_gmm_graph(seed)
+    step = np.random.default_rng(seed + 1).normal(scale=0.05, size=(base.num_nodes, 14))
+    step = (step * base.node_mask[:, None]).astype(np.float32)
+    xs = []
+    for t in range(frames + 1):
+        x = base.x.copy()
+        x[:, :14] += t * step
+        xs.append(x)
+    return stack_graphs([base.replace(x=xs[t], y=xs[t + 1][:, :3].copy()) for t in range(frames)])
 
 
 def flagship_batch(seed):
@@ -666,34 +728,40 @@ def dense_adjacency(seg, gather, mask, n):
     return adj, (per_row == adj.sum(dim=1)) & (per_row > 0)
 
 
-def attention_inputs(graph, width, seed):
-    """q, k, v and an output gradient at ``width`` with 4 heads, in the
-    layout the model's Attention passes ((N, Dh, H) memory), and the
-    graph's device tensors."""
+def attention_inputs(graph, width, seed, heads=HEADS, view="model"):
+    """q, k, v and an output gradient at ``width`` with ``heads`` heads, in
+    the layout the model's Attention passes ((N, Dh, H) memory) or, with
+    ``view="contiguous"``, as contiguous [N, H, Dh], and the graph's device
+    tensors."""
     dev = torch.device("cuda")
     seg = torch.as_tensor(graph.senders).to(dev)
     gather = torch.as_tensor(graph.receivers).to(dev)
     bounds = torch.as_tensor(graph.sender_bounds).to(dev)
     mask = torch.as_tensor(graph.edge_mask).to(dev)
-    n, h = bounds.shape[1], HEADS
+    n, h = bounds.shape[1], heads
     gen = torch.Generator(device=dev).manual_seed(seed)
-    qkvg = [torch.randn((n, width // h, h), generator=gen, device=dev).transpose(1, 2)
-            for _ in range(4)]
+    if view == "model":
+        qkvg = [torch.randn((n, width // h, h), generator=gen, device=dev).transpose(1, 2)
+                for _ in range(4)]
+    else:
+        qkvg = [torch.randn((n, h, width // h), generator=gen, device=dev) for _ in range(4)]
     return seg, gather, bounds, mask, qkvg
 
 
-def fused_case(name, graph, width, seed, library=True):
+def fused_case(name, graph, width, seed, library=True, heads=HEADS, view="model", replaced=True):
     """Hold both fused attention kernels (``csr_attention`` and
     ``csr_attention_backward``) against their plain versions on one
-    sender-sorted layout at ``width`` with 4 heads in the model's layout, and
-    time each beside its bound, its plain version, the PyTorch path it
-    replaced (gathers + SDDMM + K2; autograd through them with K3 and
-    ``index_add_``) and, with ``library``, SDPA with the dense adjacency as
-    its mask. Returns (forward record, backward record)."""
+    sender-sorted layout at ``width`` with ``heads`` heads in the model's
+    layout (or ``view="contiguous"``), and time each beside its bound, its
+    plain version, at every lane count whose geometry the kernels take, with
+    ``replaced`` the PyTorch path it replaced (gathers + SDDMM + K2;
+    autograd through them with K3 and ``index_add_``; K2 takes widths that
+    are multiples of 32 only) and, with ``library``, SDPA with the dense
+    adjacency as its mask. Returns (forward record, backward record)."""
     from graphphysics_torch.ops import csr_attention as ca
 
-    seg, gather, bounds, mask, (q, k, v, g) = attention_inputs(graph, width, seed)
-    n, h = bounds.shape[1], HEADS
+    seg, gather, bounds, mask, (q, k, v, g) = attention_inputs(graph, width, seed, heads, view)
+    n, h = bounds.shape[1], heads
     scale = h ** -0.5
     interleaved = ca._is_interleaved(q)
     with torch.no_grad():
@@ -733,7 +801,7 @@ def fused_case(name, graph, width, seed, library=True):
     with torch.no_grad():
         for q_, k_, v_, _ in sets:
             saved.append(ca.csr_attention(q_, k_, v_, seg, gather, bounds, mask, scale))
-    lanes = [x for x in ca.FORWARD_LANES if ca._geometry_ok(x, width, h, interleaved)]
+    lanes = [x for x in ca.FORWARD_LANES if ca.geometry_kind(x, width, h, interleaved)]
     fwd_by_lanes, bwd_by_lanes = {}, {}
     with torch.no_grad():
         fwd_t = device_ms(lambda a, b, c, _: ca.csr_attention(a, b, c, seg, gather, bounds, mask, scale),
@@ -752,8 +820,9 @@ def fused_case(name, graph, width, seed, library=True):
         bwd_plain = device_ms(
             lambda a, b, c, g_, o_, ml_: ca.csr_attention_backward_reference(
                 a, b, c, seg, gather, ml_, o_, g_, mask, scale), bwd_inputs)
-        fwd_replaced = device_ms(lambda a, b, c, _: replaced_attention(a, b, c, seg, gather, bounds, mask,
-                                                                       scale), sets)
+        fwd_replaced = device_ms(
+            lambda a, b, c, _: replaced_attention(a, b, c, seg, gather, bounds, mask, scale),
+            sets) if replaced else None
 
     def fwd_bwd(forward):
         def run(a, b, c, g_):
@@ -763,8 +832,9 @@ def fused_case(name, graph, width, seed, library=True):
 
     fused_fb = device_ms(fwd_bwd(lambda a, b, c: ca.csr_sparse_attention(a, b, c, seg, gather, bounds, mask,
                                                                          scale)), sets)
-    replaced_fb = device_ms(fwd_bwd(lambda a, b, c: replaced_attention(a, b, c, seg, gather, bounds, mask,
-                                                                       scale)), sets)
+    replaced_fb = device_ms(fwd_bwd(
+        lambda a, b, c: replaced_attention(a, b, c, seg, gather, bounds, mask, scale)),
+        sets) if replaced else None
     lib = {"library_ms": None, "library_fwd_bwd_ms": None,
            "library_note": (f"n/a: SDPA needs a dense [{n}, {n}] mask ({n * n / 1e9:.1f} GB as bool) "
                             f"and materializes f32 scores of {4 * h * n * n / 1e9:.0f} GB")}
@@ -787,10 +857,14 @@ def fused_case(name, graph, width, seed, library=True):
                "library_note": ("torch.nn.functional.scaled_dot_product_attention, dense boolean "
                                 "adjacency mask, compared on rows with edges and no repeated edge "
                                 "(SDPA counts a repeated edge once, and gives NaN on a row without one)")}
+    fwd_lanes = ca.lanes_per_row(width, h, interleaved)
+    bwd_lanes = ca.lanes_per_row(width, h, interleaved, backward=True)
     common = {"shape": name, "nodes": n, "edges": seg.shape[0], "real_edges": real_edges,
-              "empty_rows": empty_rows, "width": width, "heads": h, "layout": "(N, Dh, H) view",
-              "lanes_per_row": {"forward": ca.lanes_per_row(width, h, interleaved),
-                                "backward": ca.lanes_per_row(width, h, interleaved, backward=True)},
+              "empty_rows": empty_rows, "width": width, "heads": h,
+              "layout": "(N, Dh, H) view" if view == "model" else "contiguous [N, H, Dh]",
+              "lanes_per_row": {"forward": fwd_lanes, "backward": bwd_lanes},
+              "geometry": {"forward": ca.geometry_kind(fwd_lanes, width, h, interleaved),
+                           "backward": ca.geometry_kind(bwd_lanes, width, h, interleaved)},
               "input_copies": copies,
               "fused_fwd_bwd_ms": fused_fb, "replaced_fwd_bwd_ms": replaced_fb}
     fwd_bound, fwd_ops_bound = fwd_bytes / H100_BYTES_PER_S * 1e3, fwd_ops / H100_F32_OPS_PER_S * 1e3
@@ -822,7 +896,7 @@ def fused_case(name, graph, width, seed, library=True):
         "ms": bwd_t,
         "ms_by_lanes": bwd_by_lanes,
         "plain_ms": bwd_plain,
-        "replaced_ms": replaced_fb - fwd_replaced,
+        "replaced_ms": (replaced_fb - fwd_replaced) if replaced else None,
         "replaced_note": ("autograd through the replaced forward (K3, the dot's backward, index_add_ "
                           "scatters) less that forward's time"),
         "library_ms": lib_bwd,
@@ -1024,12 +1098,12 @@ def first_step(name, param, batch, seed, total_steps, grad_rtol):
     return result
 
 
-def train(name, param, batch, counts, expected, seed, grad_rtol):
-    """``Trainer`` on one concatenated batch on the card: the first step
-    against the CPU (``first_step``), then on a fresh trainer 3 warm-up
-    steps and 20 timed ones with every launch count zeroed just before them
-    and checked just after against ``expected`` (kernel name -> launches per
-    step), then a profile of 3 steps."""
+def train(name, param, batch, counts, expected, seed, grad_rtol, graphs=len(BATCH_NODES)):
+    """``Trainer`` on one concatenated batch (of ``graphs`` graphs) on the
+    card: the first step against the CPU (``first_step``), then on a fresh
+    trainer 3 warm-up steps and 20 timed ones with every launch count zeroed
+    just before them and checked just after against ``expected`` (kernel
+    name -> launches per step), then a profile of 3 steps."""
     from graphphysics_torch.training import Trainer
 
     total_steps = 1 + WARMUP_STEPS + TIMED_STEPS + PROFILED_STEPS
@@ -1062,7 +1136,7 @@ def train(name, param, batch, counts, expected, seed, grad_rtol):
     )
     real_edges = int(np.asarray(batch.edge_mask).sum())
     return {
-        "graphs": len(BATCH_NODES),
+        "graphs": graphs,
         "nodes": batch.num_nodes,
         "edges": batch.num_edges,
         "real_edges": real_edges,
@@ -1164,6 +1238,248 @@ def pipeline(name, param, make_traj, counts, expected, seed):
         "val_rmse": history["val_rmse"],
         "launches": launches,
         "fit_s": seconds,
+    }
+
+
+def sampler_statistics(seed):
+    """The card's GMM sampler over ``GMM_SAMPLER_DRAWS`` draws of one fixed
+    diagonal mixture (K = 3, d = 3) with a CUDA generator: the component
+    frequencies against softmax(logits), and each component's mean and std
+    against its own, in standard errors; the worst must lie within
+    ``GMM_SIGMAS``. The component ids come from the same draws
+    (``draw_gmm`` on a generator of the same seed)."""
+    from graphphysics_torch.models.gmm import components, draw_gmm, sample_gmm_diagonal
+
+    dev = torch.device("cuda")
+    n, K, d = GMM_SAMPLER_DRAWS, 3, 3
+    logits = torch.tensor([0.3, -0.4, 1.1], device=dev)
+    means = torch.tensor([[-3.0, 1.0, 0.5], [0.0, 4.0, -1.0], [3.0, -2.0, 2.0]], device=dev)
+    stds = torch.tensor([[0.5, 1.0, 0.2], [0.3, 0.2, 2.0], [1.5, 0.7, 0.4]], device=dev)
+    row = torch.cat([logits[:, None], means, stds.log()], dim=1).reshape(1, -1)
+    net = row.expand(n, -1).contiguous()
+    gumbel, _ = draw_gmm(n, K, d, torch.Generator(device=dev).manual_seed(seed))
+    ids = components(logits.expand(n, K), gumbel)
+    out = sample_gmm_diagonal(net, d, K, 1.0, torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    if out.device.type != "cuda" or not torch.isfinite(out).all():
+        raise AssertionError("card sampler: output not finite on the card")
+    alpha = torch.softmax(logits.double(), 0)
+    freq = torch.bincount(ids, minlength=K).double() / n
+    freq_sigma = ((freq - alpha).abs() / (alpha * (1 - alpha) / n).sqrt()).tolist()
+    mean_sigma, std_sigma = [], []
+    for k in range(K):
+        rows = out[ids == k].double()
+        m = rows.shape[0]
+        sd = stds[k].double()
+        mean_sigma.append(((rows.mean(0) - means[k]).abs() / (sd / math.sqrt(m))).max().item())
+        std_sigma.append(((rows.std(0) - sd).abs() / (sd / math.sqrt(2 * m))).max().item())
+    worst = max(freq_sigma + mean_sigma + std_sigma)
+    result = {"draws": n, "components": K, "d": d, "frequencies": freq.tolist(),
+              "mixture_weights": alpha.tolist(), "frequency_sigmas": freq_sigma,
+              "mean_sigmas_worst_dim": mean_sigma, "std_sigmas_worst_dim": std_sigma,
+              "worst_sigmas": worst, "limit_sigmas": GMM_SIGMAS}
+    if not worst <= GMM_SIGMAS:
+        raise AssertionError(f"card sampler statistics off: {result}")
+    return result
+
+
+def shared_draws(name, param, sim, frames, seed):
+    """The first ``CPU_FRAMES`` frames of the sampled rollout on the card
+    against the CPU's, both drawing from a CPU generator of one seed, on
+    the real nodes. Each node draws its component as the best of its
+    (logit + Gumbel) scores; where the two best lie closer on the CPU than
+    the card's logits differ from the CPU's, the card may choose another
+    component. So for each seed tried, each checked frame's input of the CPU
+    rollout is run on both devices (the logits' largest difference, d) and
+    the generator's draws replayed (the smallest gap of a sampled node: real
+    and not clamped to its target); a seed is taken once that gap is at
+    least ``GMM_TIE_FACTOR`` times d, and seeds are tried in turn."""
+    from graphphysics_torch.models.gmm import draw_gmm
+    from graphphysics_torch.training import build_mask, rollout
+
+    cfg = sim.config
+    os_, oe = cfg.output_index_start, cfg.output_index_end
+    K, d = sim.model.K, sim.model.d
+    sim_cpu = build_transformer(param, seed, "cpu")
+    sim_cpu.load_state_dict({k: v.cpu() for k, v in sim.state_dict().items()})
+    host = frames[:CPU_FRAMES].to("cpu")
+    real = host.node_mask[0].bool()
+    sampled = real & ~build_mask(host.x[0, :, cfg.node_type_index].long())
+    n = host.x.shape[1]
+
+    def logits(model, g):
+        with torch.inference_mode():
+            out = model(g, generator=torch.Generator().manual_seed(0))[0]
+        return out.reshape(n, K, -1)[..., 0].cpu()
+
+    tries = []
+    for attempt in range(GMM_SEED_TRIES):
+        draw_seed = seed + 1000 + attempt
+        cpu_preds, _ = rollout(sim_cpu, host, device="cpu",
+                               generator=torch.Generator().manual_seed(draw_seed))
+        draws = torch.Generator().manual_seed(draw_seed)
+        gap, logit_diff = math.inf, 0.0
+        for t in range(CPU_FRAMES):
+            g = host[t]
+            if t:
+                x = g.x.clone()
+                x[:, os_:oe] = cpu_preds[t - 1]
+                g = g.replace(x=x)
+            cpu_logits = logits(sim_cpu, g)
+            logit_diff = max(logit_diff, (logits(sim, g.to("cuda")) - cpu_logits).abs().max().item())
+            gumbel, _ = draw_gmm(n, K, d, draws)
+            top = (cpu_logits + gumbel).topk(2, dim=-1).values
+            gap = min(gap, (top[:, 0] - top[:, 1])[sampled].min().item())
+        tries.append({"seed": draw_seed, "min_gap": gap, "logit_max_abs_diff": logit_diff})
+        if gap >= GMM_TIE_FACTOR * logit_diff:
+            break
+    else:
+        raise AssertionError(f"{name}: every seed tried has a near tie: {tries}")
+    card_preds, _ = rollout(sim, host.to("cuda"), device="cuda",
+                            generator=torch.Generator().manual_seed(draw_seed))
+    got, want = card_preds.cpu()[:, real], cpu_preds[:, real]
+    err = (got - want).abs().max().item()
+    result = {"shared_draw_frames": CPU_FRAMES, "shared_draw_seed_tries": tries,
+              "shared_draw_max_abs_err": err, "cpu_rtol": ROLLOUT_RTOL, "cpu_atol": ROLLOUT_ATOL,
+              "tie_factor": GMM_TIE_FACTOR}
+    if not torch.allclose(got, want, rtol=ROLLOUT_RTOL, atol=ROLLOUT_ATOL):
+        raise AssertionError(f"{name}: card vs CPU sampled rollout under shared draws: {result}")
+    return result
+
+
+def gmm_serving(name, param, frames, counts, seed):
+    """A sampled rollout of ``frames`` on the card by the GMM transformer of
+    ``param`` (random weights from the seed, statistics from the frames),
+    drawing from a CUDA generator: launches checked (one fused forward per
+    block and frame), the same rollout again from an equal seed bitwise
+    equal, then ``shared_draws`` against the CPU, ``sampler_statistics`` and
+    a profile of 5 frames."""
+    from graphphysics_torch.training import rollout, rollout_rmse
+
+    blocks = param["model"]["message_passing_num"]
+    sim = build_transformer(param, seed, "cuda")
+    frames_dev = frames.to("cuda")
+    n_frames = frames_dev.x.shape[0]
+    for t in range(n_frames):
+        sim.accumulate_stats(frames_dev[t])
+
+    def generator():
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    rollout(sim, frames_dev[:2], device="cuda", generator=generator())  # warm-up
+    torch.cuda.synchronize()
+    for fn in counts.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    preds, targets = rollout(sim, frames_dev, device="cuda", generator=generator())
+    torch.cuda.synchronize()
+    rollout_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counts.items()}
+    want = {k: (blocks * n_frames if k == "csr_attention" else 0) for k in counts}
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, expected {want}")
+    out_width = sim.config.output_index_end - sim.config.output_index_start
+    if preds.shape != (n_frames, frames.num_nodes, out_width) or not torch.isfinite(preds).all():
+        raise AssertionError(f"{name}: bad predictions {tuple(preds.shape)}")
+    again, _ = rollout(sim, frames_dev, device="cuda", generator=generator())
+    if not torch.equal(again, preds):
+        raise AssertionError(f"{name}: two rollouts of one generator seed differ by "
+                             f"{(again - preds).abs().max().item()}")
+    other, _ = rollout(sim, frames_dev[:2], device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(seed + 1))
+    if torch.equal(other, preds[:2]):
+        raise AssertionError(f"{name}: another generator seed gave the same frames")
+    shared = shared_draws(name, param, sim, frames, seed)
+    stats = sampler_statistics(seed)
+    rmse = rollout_rmse(preds, targets, frames_dev.node_mask[0]).item()
+    profiled = 5
+    breakdown = device_breakdown(
+        lambda: rollout(sim, frames_dev[:profiled], device="cuda", generator=generator()), profiled)
+    ms_per_frame = rollout_s / n_frames * 1e3
+    return {
+        "frames": n_frames,
+        "nodes": frames.num_nodes,
+        "edges": frames.num_edges,
+        "real_edges": int(np.asarray(frames.edge_mask[0]).sum()),
+        "output_width": out_width,
+        "ms_per_frame": ms_per_frame,
+        "rollout_s": rollout_s,
+        "launches": launches,
+        "launches_per_frame": {k: v / n_frames for k, v in launches.items()},
+        "repeat_bitwise_equal": True,
+        "rollout_rmse": rmse,
+        **shared,
+        "sampler_statistics": stats,
+        "frames_profiled": profiled,
+        "breakdown": breakdown if breakdown is not None else "not measured",
+        "device_idle_share": (
+            None if breakdown is None else 1.0 - breakdown["device_ms_per_frame"] / ms_per_frame
+        ),
+    }
+
+
+def gmm_pipeline(name, param, make_traj, counts, seed):
+    """A GMM head through the training pipeline on the card: two synthetic
+    trajectories (``memory_datasets``) through ``GraphLoader`` batches of 8
+    frames and ``Trainer.fit`` for 2 epochs with sampled rollout validation
+    (``val_loss`` None), the checkpoint reloaded into a fresh ``Trainer``
+    and ``predict`` run twice from it: bitwise equal frames (the draws come
+    from ``(seed, trajectory)``). Launches checked on each."""
+    import tempfile
+
+    from graphphysics_torch.dataset import GraphLoader
+    from graphphysics_torch.training import Trainer, load_checkpoint
+
+    blocks = param["model"]["message_passing_num"]
+    with tempfile.TemporaryDirectory() as tmp:
+        train_ds, val_ds = memory_datasets(param, make_traj, seed, tmp, n_traj=2)
+        loader = GraphLoader(train_ds, batch_size=8, shuffle=True, seed=seed)
+        trainer = Trainer(param, learning_rate=1e-4, warmup=2, seed=seed, device="cuda",
+                          checkpoint_dir=tmp, metrics_path=None, rollout_dir=None)
+        for fn in counts.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        history = trainer.fit(loader, val_dataset=val_ds, num_epochs=2, val_trajectories=1)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counts.items()}
+        steps = 2 * len(loader)
+        frames = 2 * val_ds.frames_per_trajectory
+        want = {k: 0 for k in counts}
+        want["csr_attention"] = blocks * (steps + frames)
+        want["csr_attention_backward"] = blocks * steps
+        if launches != want:
+            raise AssertionError(f"{name}: fit launches {launches}, expected {want}")
+        values = history["train_loss"] + history["val_rmse"]
+        if not all(math.isfinite(v) for v in values) or trainer.last_val_loss is not None:
+            raise AssertionError(f"{name}: history {history}, val_loss {trainer.last_val_loss}")
+        fresh = Trainer(param, seed=seed + 1, device="cuda", metrics_path=None, rollout_dir=None)
+        fresh.init_state(1)
+        load_checkpoint(f"{tmp}/state.pt", fresh)
+        for fn in counts.values():
+            fn.launches = 0
+        first = fresh.predict(val_ds, save_dir=None, max_trajectories=1)[0]
+        second = fresh.predict(val_ds, save_dir=None, max_trajectories=1)[0]
+        predict_launches = {k: fn.launches for k, fn in counts.items()}
+    n_frames = val_ds.frames_per_trajectory
+    want = {k: (2 * blocks * n_frames if k == "csr_attention" else 0) for k in counts}
+    if predict_launches != want:
+        raise AssertionError(f"{name}: predict launches {predict_launches}, expected {want}")
+    if not (np.isfinite(first).all() and np.array_equal(first, second)):
+        raise AssertionError(f"{name}: predict from the reloaded checkpoint does not repeat: "
+                             f"{np.abs(first - second).max()}")
+    return {
+        "dataset_items": len(train_ds),
+        "steps": steps,
+        "validated_frames": frames,
+        "train_loss": history["train_loss"],
+        "val_rmse": history["val_rmse"],
+        "val_loss": trainer.last_val_loss,
+        "launches": launches,
+        "predict_frames": n_frames,
+        "predict_launches_two_runs": predict_launches,
+        "predict_repeat_bitwise_equal": True,
+        "fit_s": fit_s,
     }
 
 
@@ -1481,8 +1797,8 @@ def main() -> int:
     )
     cyl_batch = flagship_batch(args.seed)
     tf_batch = panels_batch(args.seed + 200)
-    aneurysm_epd = random_graph(66000, 520000, 66560, 524288, args.seed + 100)
-    aneurysm_csr = random_csr_graph(66000, 520000, 66560, 524288, args.seed + 300)
+    aneurysm_epd = random_graph(*ANEURYSM, args.seed + 100)
+    aneurysm_csr = random_csr_graph(*ANEURYSM, args.seed + 300)
 
     # 2, 7. kernels, forward and backward -------------------------------------------
     k1_shapes = [
@@ -1529,6 +1845,18 @@ def main() -> int:
     for s in fused_bwd_shapes:
         emit({"phase": "kernel", "name": "csr_attention_backward", **s})
     del aneurysm_epd, aneurysm_csr
+    # 11. the general geometry: widths without a power-of-two head split
+    widths = [
+        fused_case(f"panels_csr_batch_8x2048_d{d}_h{h}_{view}", tf_batch, d, args.seed + 15 + i,
+                   library=False, heads=h, view=view, replaced=False)
+        for i, ((d, h), view) in enumerate((w, v) for w in GENERAL_WIDTHS for v in ("model", "contiguous"))
+    ]
+    for s, _ in widths:
+        emit({"phase": "kernel_width", "name": "csr_attention", **s})
+    for _, s in widths:
+        emit({"phase": "kernel_width", "name": "csr_attention_backward", **s})
+    fused_shapes += [f for f, _ in widths]
+    fused_bwd_shapes += [b for _, b in widths]
 
     # 3-4. EPD: serving rollout and batched forward --------------------------------
     epd, result, profile_line = serve(
@@ -1588,6 +1916,45 @@ def main() -> int:
         {"csr_attention": (blocks, blocks), "csr_attention_backward": (blocks, 0)},
         "csr_attention", args.seed, TRANSFORMER_RESUME_WORST_RTOL)})
 
+    # 11. the first train step of the panels transformer at a width of the
+    # general geometry, against the CPU
+    total_steps = 1 + WARMUP_STEPS + TIMED_STEPS + PROFILED_STEPS
+    panels48 = load_config(PANELS_CONFIG)
+    panels48["model"]["hidden_size"] = 48
+    emit({"phase": "width_first_step",
+          "model": f"EncodeTransformDecode {blocks}x48, {panels['model']['num_heads']} heads, "
+                   f"{PANELS_CONFIG} with hidden_size 48",
+          **first_step("width_first_step", panels48, tf_batch, args.seed, total_steps,
+                       TRANSFORMER_GRAD_RTOL)})
+
+    # 12. GMM training: c-a-gmm at the aneurysm scale --------------------------------
+    gmm = load_config(GMM_CONFIG)
+    gmm_blocks = gmm["model"]["message_passing_num"]
+    gmm_model = (f"EncodeTransformDecode {gmm_blocks}x{gmm['model']['hidden_size']}, "
+                 f"{gmm['model']['num_heads']} heads, K={gmm['model']['num_mixture_components']} "
+                 f"diagonal GMM head, {GMM_CONFIG}")
+    gmm_graph = aneurysm_gmm_graph(args.seed + 400)
+    gmm_train = train("gmm_training", gmm, gmm_graph, counts,
+                      {"csr_attention": gmm_blocks, "csr_attention_backward": gmm_blocks}, args.seed,
+                      TRANSFORMER_GRAD_RTOL, graphs=1)
+    full = dict(gmm, model=dict(gmm["model"], use_diagonal=False))
+    gmm_train["full_covariance"] = first_step("gmm_training_full_covariance", full, gmm_graph, args.seed,
+                                              total_steps, TRANSFORMER_GRAD_RTOL)
+    emit({"phase": "gmm_training", "model": gmm_model, **gmm_train})
+    del gmm_graph
+
+    # 13. GMM serving: a sampled rollout at the aneurysm scale ------------------------
+    gmm_frames = gmm_trajectory(args.seed + 500, args.frames)
+    emit({"phase": "gmm_serving", "model": gmm_model,
+          **gmm_serving("gmm_serving", gmm, gmm_frames, counts, args.seed)})
+    del gmm_frames
+
+    # 14. GMM pipeline: panels with a K = 3 head, fit, reload, predict ---------------
+    panels_gmm = load_config(PANELS_CONFIG)
+    panels_gmm["model"]["num_mixture_components"] = 3
+    emit({"phase": "gmm_pipeline", "model": f"{PANELS_CONFIG} with num_mixture_components 3",
+          **gmm_pipeline("gmm_pipeline", panels_gmm, panels_trajectory, counts, args.seed)})
+
     def entry(name, source, replaces, launches, shapes, tolerance, **extra):
         main = shapes[1]  # the 8 x 2,048 batch: the training path's shape
         return {
@@ -1608,16 +1975,19 @@ def main() -> int:
             "shapes": shapes,
         }
 
-    launched = {k: v for r in (epd_train, tf_train) for k, v in r["launches"].items() if v}
+    # launches of the training paths, each counted from 0 over its timed steps
+    paths = {"epd_training": epd_train, "transformer_training": tf_train, "gmm_training": gmm_train}
+    launched = {k: sum(r["launches"][k] for r in paths.values()) for k in counts}
+    by_path = {k: {p: r["launches"][k] for p, r in paths.items() if r["launches"][k]} for k in counts}
     off_path = {"main_path_launches": 0,
                 "launches_from": "its kernel phases: no transformer path runs it (the fused kernels do)"}
     kernels = {"kernels": [
         entry("csr_segment_sum", "graphphysics_torch/csrc/csr_segment_sum.cu",
               "graphphysics_tpu/ops/pallas_segment.py:148", launched["csr_segment_sum"], k1_shapes,
-              KERNEL_ATOL),
+              KERNEL_ATOL, launches_by_path=by_path["csr_segment_sum"]),
         entry("csr_segment_sum_backward", "graphphysics_torch/csrc/csr_segment_sum.cu",
               "graphphysics_tpu/ops/pallas_segment.py:228", launched["csr_segment_sum_backward"],
-              k1b_shapes, GATHER_ATOL),
+              k1b_shapes, GATHER_ATOL, launches_by_path=by_path["csr_segment_sum_backward"]),
         entry("csr_softmax_spmm", "graphphysics_torch/csrc/csr_softmax_spmm.cu",
               "graphphysics_tpu/ops/pallas_attention.py:255", phase_launches["csr_softmax_spmm"],
               k2_shapes, {"rtol": SOFTMAX_RTOL, "atol": SOFTMAX_ATOL}, **off_path),
@@ -1627,12 +1997,14 @@ def main() -> int:
         entry("csr_attention", "graphphysics_torch/csrc/csr_attention.cu",
               "graphphysics_tpu/ops/pallas_attention.py:255", launched["csr_attention"], fused_shapes,
               {"rtol": SOFTMAX_RTOL, "atol": SOFTMAX_ATOL}, replaced_ms=fused_shapes[1]["replaced_ms"],
+              launches_by_path=by_path["csr_attention"],
               also_replaces="graphphysics_tpu/ops/pallas_attention.py:556 (csr_sparse_attention's "
                             "gathers and SDDMM)"),
         entry("csr_attention_backward", "graphphysics_torch/csrc/csr_attention_bwd.cu",
               "graphphysics_tpu/ops/pallas_attention.py:398", launched["csr_attention_backward"],
               fused_bwd_shapes, {"rtol": K3_GRAD_RTOL, "atol": K3_GRAD_ATOL},
               replaced_ms=fused_bwd_shapes[1]["replaced_ms"],
+              launches_by_path=by_path["csr_attention_backward"],
               also_replaces="the backward of csr_sparse_attention's gathers and SDDMM "
                             "(graphphysics_tpu/ops/pallas_attention.py:556)"),
     ]}

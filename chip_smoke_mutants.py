@@ -1,7 +1,8 @@
 """How far a planted fault moves two checks of ``chip_smoke.py``: a fault in
 K1b or in the fused attention backward moves ``first_step``, the check of the first train step on the
 card against the CPU (the readings its per-model gradient limits
-``EPD_GRAD_RTOL``, ``TRANSFORMER_GRAD_RTOL`` must sit below); a fault in
+``EPD_GRAD_RTOL``, ``TRANSFORMER_GRAD_RTOL`` must sit below), as does a
+fault in the general lane geometry of ``csrc/csr_attention.cuh``; a fault in
 the checkpoint restore moves ``resume_runs``, the check of a resumed run
 against an uninterrupted one (the readings ``RESUME_MEDIAN_RTOL`` and the
 per-model worst limits must sit below).
@@ -10,13 +11,16 @@ For each fault the tree is copied to a temporary directory, one line of a
 source is replaced there, the kernels are built from the copy and the check
 runs with its limits lifted: ``first_step`` on the flagship batch (K1b
 faults, EPD 15 x 128) or the panels batch (faults in
-``csrc/csr_attention_bwd.cu``, transformer 15 x 128); ``resume_runs`` on the in-memory trajectories of the checkpoint
+``csrc/csr_attention_bwd.cu``, transformer 15 x 128; faults in the general
+geometry, the same transformer at ``hidden_size`` 40, whose 4 heads of 10
+in the (N, Dh, H) view take it with 16 lanes of 3 columns, columns 32-39
+the tail); ``resume_runs`` on the in-memory trajectories of the checkpoint
 phases. One JSON line per fault. The repo itself is never changed. Needs
 one CUDA card:
 
     python3 chip_smoke_mutants.py [name prefix]
 
-A name prefix (``k1b``, ``attn``, ``resume``) runs those faults only. K2's
+A name prefix (``k1b``, ``attn``, ``width``, ``resume``) runs those faults only. K2's
 and K3's faults are caught by their kernel phases against their plain
 versions: no path of the models runs them.
 """
@@ -34,8 +38,10 @@ K1 = "graphphysics_torch/csrc/csr_segment_sum.cu"
 ATTN = "graphphysics_torch/csrc/csr_attention_bwd.cu"
 K1B_LIVE = "if (live) live = bounds[r] <= e && e < bounds[num_rows + r];"
 ATTN_DS = "ds[p] = attn[p] * (vg[p] - delta[p]);"
-ATTN_DK = "add_cols<V>(dk + static_cast<int64_t>(j) * width + r.col0, dkr);"
+ATTN_DK = "add_row<V, GEN>(dk, j, geo, r, dkr);"
 ATTN_DQ = "for (int i = 0; i < V; ++i) dqa[i] += ds[i % NP] * scale * kc[i];"
+HEADER = "graphphysics_torch/csrc/csr_attention.cuh"
+GENERAL_LOAD = "v[i] = c < geo.width ? row[c] : 0.0f;"
 CKPT = "graphphysics_torch/training/checkpoint.py"
 OPT_LOAD = '    trainer.optimizer.load_state_dict(ckpt["optimizer"])'
 WEIGHTS_LOAD = "    load_reference_checkpoint(sim, ckpt)"
@@ -53,6 +59,11 @@ FAULTS = {
     # each row's last edge adds nothing to dq
     "attn_dq_drop_last_edge": ("transformer", ATTN, ATTN_DQ, ATTN_DQ.replace(
         "+= ds[i % NP] * scale * kc[i];", "+= first + t + 1 < r.len ? ds[i % NP] * scale * kc[i] : 0.0f;")),
+    # the general geometry reads no column past the lanes' last full round
+    # (width 40 with 16 lanes: the tail columns 32-39 read as 0, in both
+    # kernels)
+    "width_drop_tail_columns": ("width40", HEADER, GENERAL_LOAD, GENERAL_LOAD.replace(
+        "c < geo.width ?", "c < geo.width / geo.lanes * geo.lanes ?")),
     # the resumed run starts with fresh AdamW moments and step counts
     "resume_fresh_optimizer_epd": ("epd", CKPT, OPT_LOAD, "    pass"),
     "resume_fresh_optimizer_transformer": ("transformer", CKPT, OPT_LOAD, "    pass"),
@@ -99,6 +110,8 @@ def read_fault(model: str, name: str) -> dict:
         param, batch = cs.load_config(cs.CYLINDER_CONFIG), cs.flagship_batch(0)
     else:
         param, batch = cs.load_config(cs.PANELS_CONFIG), cs.panels_batch(200)
+    if model.startswith("width"):
+        param["model"]["hidden_size"] = int(model[len("width"):])
     total_steps = 1 + cs.WARMUP_STEPS + cs.TIMED_STEPS + cs.PROFILED_STEPS
     return {"fault": name, **cs.first_step(name, param, batch, 0, total_steps, math.inf)}
 

@@ -46,7 +46,11 @@
 //   barrier for data that each lane alone consumes);
 // - G = 32, 16 or 8 lanes by width (ops/csr_attention.py chooses): fewer
 //   lanes a row give each lane more columns, fewer butterfly levels per head
-//   and more rows per warp.
+//   and more rows per warp;
+// - a width or head split that no lane count divides into power-of-two head
+//   partials takes the general geometry (csr_attention.cuh): strided columns
+//   with a masked tail, and per-head sums through shared memory, one lane a
+//   head; each lane keeps the softmax state of each of its columns' heads.
 // Tensor cores do not apply: the per-row dots are 32-wide heads against ~6
 // rows, far below a wgmma tile, and the bound is bytes.
 
@@ -56,17 +60,17 @@ namespace {
 
 using namespace csr_attention;
 
-template <int V, int NP>
+template <int V, int NP, bool GEN>
 __global__ void __launch_bounds__(kThreads)
 csr_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const int32_t* __restrict__ gather_idx,
                      const int32_t* __restrict__ bounds, const uint8_t* __restrict__ mask,
                      float* __restrict__ out, float* __restrict__ ml, int64_t num_rows,
                      int64_t num_edges, Geometry geo, float scale) {
-  const RowSlot r = row_slot<V>(geo, bounds, num_rows, num_edges);
-  const int width = geo.width;
+  const RowSlot r = row_slot<V, GEN>(geo, bounds, num_rows, num_edges);
+  float* scratch = row_scratch<GEN>(geo);
   float qr[V];
-  load_row<V>(q, r.has_row ? static_cast<int32_t>(r.row) : -1, width, r.col0, qr);
+  load_row<V, GEN>(q, r.has_row ? static_cast<int32_t>(r.row) : -1, geo, r, qr);
 
   float m[NP], l[NP], acc[V];
 #pragma unroll
@@ -82,15 +86,15 @@ csr_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int32_t count = min(geo.lanes, trips - first);
     int32_t j = __shfl_sync(0xffffffffu, mine, 0, geo.lanes);
     float kc[V], vc[V];
-    load_row<V>(k, j, width, r.col0, kc);
-    load_row<V>(v, j, width, r.col0, vc);
+    load_row<V, GEN>(k, j, geo, r, kc);
+    load_row<V, GEN>(v, j, geo, r, vc);
     for (int32_t t = 0; t < count; ++t) {
       const int32_t jn = t + 1 < count ? __shfl_sync(0xffffffffu, mine, t + 1, geo.lanes) : -1;
       float kn[V], vn[V];
-      load_row<V>(k, jn, width, r.col0, kn);
-      load_row<V>(v, jn, width, r.col0, vn);
+      load_row<V, GEN>(k, jn, geo, r, kn);
+      load_row<V, GEN>(v, jn, geo, r, vn);
       float s[NP];
-      edge_scores<V, NP>(geo, qr, kc, scale, s);
+      edge_scores<V, NP, GEN>(geo, r, qr, kc, scale, s, scratch);
       if (j >= 0) {  // uniform across the row's lanes
         float alpha[NP], pe[NP];
 #pragma unroll
@@ -116,24 +120,24 @@ csr_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float o[V];
 #pragma unroll
   for (int i = 0; i < V; ++i) o[i] = acc[i] / (l[i % NP] + kEps);
-  store_cols<V>(out + r.row * width + r.col0, o);
-  if (writes_heads(geo, r.sub)) {
+  store_row<V, GEN>(out, r.row, geo, r, o);
 #pragma unroll
-    for (int p = 0; p < NP; ++p) {
-      const int h = head_of(geo, r.col0, p);
+  for (int p = 0; p < NP; ++p) {
+    if (writes_head<V, GEN>(geo, r, p)) {
+      const int h = head_of<V, GEN>(geo, r, p);
       ml[h * num_rows + r.row] = m[p];
       ml[(geo.heads + h) * num_rows + r.row] = l[p];
     }
   }
 }
 
-template <int V, int NP>
+template <int V, int NP, bool GEN>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* gather_idx,
                    const void* bounds, const void* mask, void* out, void* ml, long long num_rows,
                    long long num_edges, const Geometry& geo, float scale, cudaStream_t stream) {
   const long long threads = num_rows * geo.lanes;
   const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) / kThreads));
-  csr_attention_kernel<V, NP><<<grid, kThreads, 0, stream>>>(
+  csr_attention_kernel<V, NP, GEN><<<grid, kThreads, shared_bytes(geo), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const int32_t*>(gather_idx), static_cast<const int32_t*>(bounds),
       static_cast<const uint8_t*>(mask), static_cast<float*>(out), static_cast<float*>(ml),
@@ -148,7 +152,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* gath
 // int32; mask [E] bool (or null); out [N, D] f32 in the same layout; ml
 // [2H, N] f32; all device pointers, contiguous. `lanes` (8, 16 or 32) lanes
 // serve a row; the geometry must pass make_geometry (the wrapper checks;
-// other shapes return cudaErrorInvalidValue). Launches on `stream` and
+// other shapes return cudaErrorInvalidValue), which takes every D <= 16 *
+// lanes with D % H == 0. Launches on `stream` and
 // returns cudaGetLastError() (0 when the launch was accepted).
 extern "C" int csr_attention_f32(const void* q, const void* k, const void* v, const void* gather_idx,
                                  const void* bounds, const void* mask, void* out, void* ml,
@@ -160,14 +165,18 @@ extern "C" int csr_attention_f32(const void* q, const void* k, const void* v, co
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int key = (width / lanes) * 32 + partials(geo);
 #define CASE(V, NP)      \
   case (V) * 32 + (NP): \
-    return static_cast<int>(launch<V, NP>(q, k, v, gather_idx, bounds, mask, out, ml, num_rows, num_edges, geo, scale, s));
-  switch (key) {
+    return static_cast<int>(launch<V, NP, false>(q, k, v, gather_idx, bounds, mask, out, ml, num_rows, num_edges, geo, scale, s));
+#define GENERAL_CASE(V) \
+  case 1024 + (V):      \
+    return static_cast<int>(launch<V, V, true>(q, k, v, gather_idx, bounds, mask, out, ml, num_rows, num_edges, geo, scale, s));
+  switch (case_key(geo)) {
     CSR_ATTENTION_CASES(CASE)
+    CSR_ATTENTION_GENERAL_CASES(GENERAL_CASE)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef CASE
+#undef GENERAL_CASE
 }

@@ -20,7 +20,19 @@
 // column i feeding partial i % NP, and a head's sum is the butterfly of
 // that partial over the lanes whose xor offsets lie in [lo, hi) (blocked:
 // lo = 1, hi = Dh/V; interleaved: lo = max(1, H/V), hi = G). A butterfly
-// leaves the same bits in every lane of the set.
+// leaves the same bits in every lane of the set. These are the fast
+// geometries; they need D % G == 0 and a power-of-two head split.
+//
+// The general geometry takes every other width D <= 16 G with D % H == 0:
+// lane `sub` holds the V = ceil(D/G) strided columns sub + G i (so a group's
+// loads stay coalesced as scalars), the columns past D are masked (the tail),
+// and each column is its own partial (NP = V). A head's sum goes through the
+// row's slice of shared memory: every lane writes its columns' products,
+// the lanes sub, sub + G, ... sum one head each over its Dh columns and
+// write the head's total back, and every lane reads the totals of its
+// columns' heads, so a head is reduced over exactly the lanes that hold its
+// columns whatever H and D are. It is the same kernel, instantiated with
+// GEN = true.
 
 #pragma once
 
@@ -41,10 +53,15 @@ struct Geometry {
   int32_t head_dim;     // Dh
   int32_t interleaved;  // 1: [Dh, H] rows, 0: [H, Dh] rows
   int32_t lo, hi;       // xor offsets of a head's butterfly: lo, 2lo, ... < hi
+  int32_t general;      // 1: the general geometry (strided columns, shared-memory head sums)
 };
 
+// The general geometry's shared memory: per row, D products and H head sums.
+extern __shared__ float csr_attention_smem[];
+
 // Lane `sub`'s row, its [start, end) edge range clamped to the edge array
-// (empty past the last row), and its first column.
+// (empty past the last row), and its first column (its column i is col0 + i,
+// or col0 + G i in the general geometry).
 struct RowSlot {
   int64_t row;
   int64_t start;
@@ -54,14 +71,14 @@ struct RowSlot {
   bool has_row;
 };
 
-template <int V>
+template <int V, bool GEN>
 __device__ __forceinline__ RowSlot row_slot(const Geometry& geo, const int32_t* __restrict__ bounds,
                                             int64_t num_rows, int64_t num_edges) {
   RowSlot r;
   const int64_t thread = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   r.row = thread / geo.lanes;
   r.sub = static_cast<int32_t>(thread % geo.lanes);
-  r.col0 = r.sub * V;
+  r.col0 = GEN ? r.sub : r.sub * V;
   r.has_row = r.row < num_rows;
   r.start = 0;
   r.len = 0;
@@ -76,15 +93,53 @@ __device__ __forceinline__ RowSlot row_slot(const Geometry& geo, const int32_t* 
   return r;
 }
 
-// The head of partial p of the lane whose first column is col0.
-__device__ __forceinline__ int head_of(const Geometry& geo, int col0, int p) {
-  return geo.interleaved ? (col0 + p) % geo.heads : col0 / geo.head_dim;
+// Column i of the lane (general geometry: may lie past D, in the tail).
+template <int V, bool GEN>
+__device__ __forceinline__ int column(const Geometry& geo, const RowSlot& r, int i) {
+  return GEN ? r.col0 + geo.lanes * i : r.col0 + i;
 }
 
-// Whether this lane writes the per-head statistics of its partials: the
-// first lane of each butterfly set.
-__device__ __forceinline__ bool writes_heads(const Geometry& geo, int sub) {
-  return (sub & (geo.hi - 1)) < geo.lo;
+// The head of memory column c.
+__device__ __forceinline__ int head_of_column(const Geometry& geo, int c) {
+  return geo.interleaved ? c % geo.heads : c / geo.head_dim;
+}
+
+// The head of partial p of the lane (fast: partial p takes the columns
+// i % NP == p; general: partial p is column p, which must be live).
+template <int V, bool GEN>
+__device__ __forceinline__ int head_of(const Geometry& geo, const RowSlot& r, int p) {
+  return GEN ? head_of_column(geo, column<V, GEN>(geo, r, p))
+             : (geo.interleaved ? (r.col0 + p) % geo.heads : r.col0 / geo.head_dim);
+}
+
+// Whether partial p of the lane holds a column of the row (false only for
+// the general geometry's tail).
+template <int V, bool GEN>
+__device__ __forceinline__ bool partial_live(const Geometry& geo, const RowSlot& r, int p) {
+  return !GEN || column<V, GEN>(geo, r, p) < geo.width;
+}
+
+// Whether the lane writes the per-head statistics of partial p: the first
+// lane of each butterfly set, or (general) the lane holding the head's
+// first column.
+template <int V, bool GEN>
+__device__ __forceinline__ bool writes_head(const Geometry& geo, const RowSlot& r, int p) {
+  if constexpr (GEN) {
+    const int c = column<V, GEN>(geo, r, p);
+    return c < geo.width && (geo.interleaved ? c < geo.heads : c % geo.head_dim == 0);
+  } else {
+    return (r.sub & (geo.hi - 1)) < geo.lo;
+  }
+}
+
+// The row's slice of shared memory (general geometry), else null.
+template <bool GEN>
+__device__ __forceinline__ float* row_scratch(const Geometry& geo) {
+  if constexpr (GEN) {
+    return csr_attention_smem + (threadIdx.x / geo.lanes) * (geo.width + geo.heads);
+  } else {
+    return nullptr;
+  }
 }
 
 template <int V>
@@ -133,37 +188,91 @@ __device__ __forceinline__ void store_cols(float* __restrict__ p, const float (&
   }
 }
 
-// Node row j's columns of this lane, or zeros for j < 0 (no edge).
-template <int V>
-__device__ __forceinline__ void load_row(const float* __restrict__ base, int32_t j, int width, int col0,
-                                         float (&v)[V]) {
-  if (j >= 0) {
-    load_cols<V>(base + static_cast<int64_t>(j) * width + col0, v);
-  } else {
+// Node row j's columns of this lane, or zeros for j < 0 (no edge) and for
+// the general geometry's tail.
+template <int V, bool GEN>
+__device__ __forceinline__ void load_row(const float* __restrict__ base, int32_t j, const Geometry& geo,
+                                         const RowSlot& r, float (&v)[V]) {
+  if (j < 0) {
     zero_cols<V>(v);
+    return;
+  }
+  const float* row = base + static_cast<int64_t>(j) * geo.width;
+  if constexpr (GEN) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int c = column<V, GEN>(geo, r, i);
+      v[i] = c < geo.width ? row[c] : 0.0f;
+    }
+  } else {
+    load_cols<V>(row + r.col0, v);
   }
 }
 
-// Per-head sums of a[i] * b[i] over the lane's butterfly set, into part[NP];
-// every lane of the warp must call it.
-template <int V, int NP>
-__device__ __forceinline__ void head_dots(const Geometry& geo, const float (&a)[V], const float (&b)[V],
-                                          float (&part)[NP]) {
+// Stores the lane's columns of node row n (the tail left out).
+template <int V, bool GEN>
+__device__ __forceinline__ void store_row(float* __restrict__ base, int64_t n, const Geometry& geo,
+                                          const RowSlot& r, const float (&v)[V]) {
+  float* row = base + n * geo.width;
+  if constexpr (GEN) {
 #pragma unroll
-  for (int p = 0; p < NP; ++p) part[p] = 0.0f;
+    for (int i = 0; i < V; ++i) {
+      const int c = column<V, GEN>(geo, r, i);
+      if (c < geo.width) row[c] = v[i];
+    }
+  } else {
+    store_cols<V>(row + r.col0, v);
+  }
+}
+
+// Per-head sums of a[i] * b[i] into part[NP]: each partial gets the sum over
+// its head's columns of the row. Fast geometry: a butterfly over the lane's
+// set. General: through the row's shared memory `scratch` (D products, then
+// H sums), each head summed by one lane in column order; a tail partial
+// gets 0. Every lane of the warp must call it. No barrier is needed after
+// the last read: the next call's first barrier orders its writes after it.
+template <int V, int NP, bool GEN>
+__device__ __forceinline__ void head_dots(const Geometry& geo, const RowSlot& r, const float (&a)[V],
+                                          const float (&b)[V], float (&part)[NP], float* scratch) {
+  if constexpr (GEN) {
+    static_assert(NP == V, "the general geometry keeps one partial per column");
 #pragma unroll
-  for (int i = 0; i < V; ++i) part[i % NP] += a[i] * b[i];
-  for (int offset = geo.lo; offset < geo.hi; offset <<= 1) {
+    for (int i = 0; i < V; ++i) {
+      const int c = column<V, GEN>(geo, r, i);
+      if (c < geo.width) scratch[c] = a[i] * b[i];
+    }
+    __syncwarp();
+    for (int h = r.sub; h < geo.heads; h += geo.lanes) {
+      float sum = 0.0f;
+      for (int t = 0; t < geo.head_dim; ++t) {
+        sum += scratch[geo.interleaved ? t * geo.heads + h : h * geo.head_dim + t];
+      }
+      scratch[geo.width + h] = sum;
+    }
+    __syncwarp();
 #pragma unroll
-    for (int p = 0; p < NP; ++p) part[p] += __shfl_xor_sync(0xffffffffu, part[p], offset);
+    for (int i = 0; i < V; ++i) {
+      const int c = column<V, GEN>(geo, r, i);
+      part[i] = c < geo.width ? scratch[geo.width + head_of_column(geo, c)] : 0.0f;
+    }
+  } else {
+#pragma unroll
+    for (int p = 0; p < NP; ++p) part[p] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < V; ++i) part[i % NP] += a[i] * b[i];
+    for (int offset = geo.lo; offset < geo.hi; offset <<= 1) {
+#pragma unroll
+      for (int p = 0; p < NP; ++p) part[p] += __shfl_xor_sync(0xffffffffu, part[p], offset);
+    }
   }
 }
 
 // The scores of one edge per head: scale * <q[n, h, :], k[j, h, :]>.
-template <int V, int NP>
-__device__ __forceinline__ void edge_scores(const Geometry& geo, const float (&q)[V], const float (&k)[V],
-                                            float scale, float (&s)[NP]) {
-  head_dots<V, NP>(geo, q, k, s);
+template <int V, int NP, bool GEN>
+__device__ __forceinline__ void edge_scores(const Geometry& geo, const RowSlot& r, const float (&q)[V],
+                                            const float (&k)[V], float scale, float (&s)[NP],
+                                            float* scratch) {
+  head_dots<V, NP, GEN>(geo, r, q, k, s, scratch);
 #pragma unroll
   for (int p = 0; p < NP; ++p) s[p] *= scale;
 }
@@ -191,50 +300,76 @@ __device__ __forceinline__ int32_t chunk_index(const int32_t* __restrict__ gathe
 }
 
 // Validates a geometry on the host; returns false for one the kernels do
-// not take.
+// not take. A fast geometry where the width and head split allow one, else
+// the general one (D <= max_cols * G).
 inline bool make_geometry(int lanes, int width, int heads, int interleaved, int max_cols, Geometry* geo) {
   auto pow2 = [](int x) { return x > 0 && (x & (x - 1)) == 0; };
   if (!(lanes == 8 || lanes == 16 || lanes == 32) || heads <= 0 || width <= 0) return false;
-  if (width % lanes || width % heads) return false;
-  const int v = width / lanes;
+  if (width % heads) return false;
   const int dh = width / heads;
-  if (v > max_cols) return false;
   geo->lanes = lanes;
   geo->width = width;
   geo->heads = heads;
   geo->head_dim = dh;
   geo->interleaved = interleaved;
-  if (!interleaved) {
-    if (dh % v || !pow2(dh / v)) return false;
-    geo->lo = 1;
-    geo->hi = dh / v;
-  } else if (v % heads == 0) {
-    if (!pow2(heads)) return false;
-    geo->lo = 1;
-    geo->hi = lanes;
-  } else if (heads % v == 0) {
-    if (!pow2(v) || !pow2(heads / v) || heads / v > lanes) return false;
-    geo->lo = heads / v;
-    geo->hi = lanes;
-  } else {
-    return false;
+  geo->general = 0;
+  geo->lo = 1;
+  geo->hi = 1;
+  bool fast = width % lanes == 0 && width / lanes <= max_cols;
+  if (fast) {
+    const int v = width / lanes;
+    if (!interleaved) {
+      fast = dh % v == 0 && pow2(dh / v);
+      geo->hi = fast ? dh / v : 1;
+    } else if (v % heads == 0) {
+      fast = pow2(heads);
+      geo->hi = lanes;
+    } else if (heads % v == 0) {
+      fast = pow2(v) && pow2(heads / v) && heads / v <= lanes;
+      geo->lo = heads / v;
+      geo->hi = lanes;
+    } else {
+      fast = false;
+    }
   }
-  return true;
+  if (fast) return true;
+  geo->lo = 1;
+  geo->hi = 1;
+  geo->general = 1;
+  return (width + lanes - 1) / lanes <= max_cols;
 }
+
+// V (columns a lane) of a valid geometry.
+inline int columns(const Geometry& geo) { return (geo.width + geo.lanes - 1) / geo.lanes; }
 
 // NP of a valid geometry.
 inline int partials(const Geometry& geo) {
-  const int v = geo.width / geo.lanes;
+  const int v = columns(geo);
+  if (geo.general) return v;
   return geo.interleaved ? (v < geo.heads ? v : geo.heads) : 1;
 }
 
-// The (V, NP) pairs a valid geometry can give: V in 1..16 and NP a power
-// of two dividing V, one kernel instantiation each.
+// The kernel instantiation of a valid geometry: a key of the cases below.
+inline int case_key(const Geometry& geo) {
+  return geo.general ? 1024 + columns(geo) : columns(geo) * 32 + partials(geo);
+}
+
+// Dynamic shared memory of a launch: the general geometry's per-row scratch.
+inline size_t shared_bytes(const Geometry& geo) {
+  return geo.general ? sizeof(float) * (kThreads / geo.lanes) * (geo.width + geo.heads) : 0;
+}
+
+// The (V, NP) pairs a fast geometry can give: V in 1..16 and NP a power of
+// two dividing V, one kernel instantiation each; then the general
+// geometry's V in 1..16 (NP = V).
 #define CSR_ATTENTION_CASES(CASE)                                                   \
   CASE(1, 1) CASE(2, 1) CASE(2, 2) CASE(3, 1) CASE(4, 1) CASE(4, 2) CASE(4, 4)      \
   CASE(5, 1) CASE(6, 1) CASE(6, 2) CASE(7, 1) CASE(8, 1) CASE(8, 2) CASE(8, 4)      \
   CASE(8, 8) CASE(9, 1) CASE(10, 1) CASE(10, 2) CASE(11, 1) CASE(12, 1) CASE(12, 2) \
   CASE(12, 4) CASE(13, 1) CASE(14, 1) CASE(14, 2) CASE(15, 1) CASE(16, 1)           \
   CASE(16, 2) CASE(16, 4) CASE(16, 8) CASE(16, 16)
+#define CSR_ATTENTION_GENERAL_CASES(CASE)                                           \
+  CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8) CASE(9) CASE(10)  \
+  CASE(11) CASE(12) CASE(13) CASE(14) CASE(15) CASE(16)
 
 }  // namespace csr_attention

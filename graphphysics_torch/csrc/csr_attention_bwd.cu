@@ -37,7 +37,9 @@
 //
 // Design: the forward's (csr_attention.cu): a group of G lanes a row,
 // coalesced index loads broadcast by shuffles, the next edge's k and v rows
-// loaded while the current edge computes. dq needs no atomics: one group
+// loaded while the current edge computes, and the same two geometries (the
+// general one sums each head through shared memory and adds its strided
+// columns with scalar atomics, the tail left out). dq needs no atomics: one group
 // owns the row. dk and dv are sums over the edges that gather a node, which
 // lie in other rows; they go by Hopper's 16-byte vector atomicAdd on global
 // memory (float4; float2 or scalar where V is not a multiple of 4), so
@@ -66,7 +68,23 @@ __device__ __forceinline__ void add_cols(float* __restrict__ p, const float (&x)
   }
 }
 
-template <int V, int NP>
+// Adds the lane's columns into node row j (the tail left out).
+template <int V, bool GEN>
+__device__ __forceinline__ void add_row(float* __restrict__ base, int32_t j, const Geometry& geo,
+                                        const RowSlot& r, const float (&x)[V]) {
+  float* row = base + static_cast<int64_t>(j) * geo.width;
+  if constexpr (GEN) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int c = column<V, GEN>(geo, r, i);
+      if (c < geo.width) atomicAdd(row + c, x[i]);
+    }
+  } else {
+    add_cols<V>(row + r.col0, x);
+  }
+}
+
+template <int V, int NP, bool GEN>
 __global__ void __launch_bounds__(kThreads)
 csr_attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const int32_t* __restrict__ gather_idx,
@@ -75,25 +93,27 @@ csr_attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ 
                          const float* __restrict__ g, float* __restrict__ dq, float* __restrict__ dk,
                          float* __restrict__ dv, int64_t num_rows, int64_t num_edges, Geometry geo,
                          float scale) {
-  const RowSlot r = row_slot<V>(geo, bounds, num_rows, num_edges);
-  const int width = geo.width;
+  const RowSlot r = row_slot<V, GEN>(geo, bounds, num_rows, num_edges);
+  float* scratch = row_scratch<GEN>(geo);
   const int32_t self = r.has_row ? static_cast<int32_t>(r.row) : -1;
   float qr[V], gr[V];
-  load_row<V>(q, self, width, r.col0, qr);
-  load_row<V>(g, self, width, r.col0, gr);
+  load_row<V, GEN>(q, self, geo, r, qr);
+  load_row<V, GEN>(g, self, geo, r, gr);
   float delta[NP];
   {
     float o[V];
-    load_row<V>(out, self, width, r.col0, o);
-    head_dots<V, NP>(geo, o, gr, delta);
+    load_row<V, GEN>(out, self, geo, r, o);
+    head_dots<V, NP, GEN>(geo, r, o, gr, delta, scratch);
   }
   float m[NP], l[NP];
 #pragma unroll
   for (int p = 0; p < NP; ++p) {
     m[p] = kNeg;
     l[p] = 0.0f;
-    if (r.has_row) {
-      const int h = head_of(geo, r.col0, p);
+    if (!partial_live<V, GEN>(geo, r, p)) {
+      m[p] = 0.0f;  // a tail column: its unused terms stay finite
+    } else if (r.has_row) {
+      const int h = head_of<V, GEN>(geo, r, p);
       m[p] = ml[h * num_rows + r.row];
       l[p] = ml[(geo.heads + h) * num_rows + r.row];
     }
@@ -107,16 +127,16 @@ csr_attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ 
     const int32_t count = min(geo.lanes, trips - first);
     int32_t j = __shfl_sync(0xffffffffu, mine, 0, geo.lanes);
     float kc[V], vc[V];
-    load_row<V>(k, j, width, r.col0, kc);
-    load_row<V>(v, j, width, r.col0, vc);
+    load_row<V, GEN>(k, j, geo, r, kc);
+    load_row<V, GEN>(v, j, geo, r, vc);
     for (int32_t t = 0; t < count; ++t) {
       const int32_t jn = t + 1 < count ? __shfl_sync(0xffffffffu, mine, t + 1, geo.lanes) : -1;
       float kn[V], vn[V];
-      load_row<V>(k, jn, width, r.col0, kn);
-      load_row<V>(v, jn, width, r.col0, vn);
+      load_row<V, GEN>(k, jn, geo, r, kn);
+      load_row<V, GEN>(v, jn, geo, r, vn);
       float s[NP], vg[NP];
-      edge_scores<V, NP>(geo, qr, kc, scale, s);
-      head_dots<V, NP>(geo, vc, gr, vg);
+      edge_scores<V, NP, GEN>(geo, r, qr, kc, scale, s, scratch);
+      head_dots<V, NP, GEN>(geo, r, vc, gr, vg, scratch);
       if (j >= 0) {  // uniform across the row's lanes
         float attn[NP], ds[NP];
 #pragma unroll
@@ -132,8 +152,8 @@ csr_attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ 
         }
 #pragma unroll
         for (int i = 0; i < V; ++i) dqa[i] += ds[i % NP] * scale * kc[i];
-        add_cols<V>(dk + static_cast<int64_t>(j) * width + r.col0, dkr);
-        add_cols<V>(dv + static_cast<int64_t>(j) * width + r.col0, dvr);
+        add_row<V, GEN>(dk, j, geo, r, dkr);
+        add_row<V, GEN>(dv, j, geo, r, dvr);
       }
       j = jn;
 #pragma unroll
@@ -143,17 +163,17 @@ csr_attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ 
       }
     }
   }
-  if (r.has_row) store_cols<V>(dq + r.row * width + r.col0, dqa);
+  if (r.has_row) store_row<V, GEN>(dq, r.row, geo, r, dqa);
 }
 
-template <int V, int NP>
+template <int V, int NP, bool GEN>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* gather_idx,
                    const void* bounds, const void* mask, const void* ml, const void* out,
                    const void* g, void* dq, void* dk, void* dv, long long num_rows,
                    long long num_edges, const Geometry& geo, float scale, cudaStream_t stream) {
   const long long threads = num_rows * geo.lanes;
   const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) / kThreads));
-  csr_attention_bwd_kernel<V, NP><<<grid, kThreads, 0, stream>>>(
+  csr_attention_bwd_kernel<V, NP, GEN><<<grid, kThreads, shared_bytes(geo), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const int32_t*>(gather_idx), static_cast<const int32_t*>(bounds),
       static_cast<const uint8_t*>(mask), static_cast<const float*>(ml),
@@ -183,14 +203,18 @@ extern "C" int csr_attention_bwd_f32(const void* q, const void* k, const void* v
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int key = (width / lanes) * 32 + partials(geo);
 #define CASE(V, NP)      \
   case (V) * 32 + (NP): \
-    return static_cast<int>(launch<V, NP>(q, k, v, gather_idx, bounds, mask, ml, out, g, dq, dk, dv, num_rows, num_edges, geo, scale, s));
-  switch (key) {
+    return static_cast<int>(launch<V, NP, false>(q, k, v, gather_idx, bounds, mask, ml, out, g, dq, dk, dv, num_rows, num_edges, geo, scale, s));
+#define GENERAL_CASE(V) \
+  case 1024 + (V):      \
+    return static_cast<int>(launch<V, V, true>(q, k, v, gather_idx, bounds, mask, ml, out, g, dq, dk, dv, num_rows, num_edges, geo, scale, s));
+  switch (case_key(geo)) {
     CSR_ATTENTION_CASES(CASE)
+    CSR_ATTENTION_GENERAL_CASES(GENERAL_CASE)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef CASE
+#undef GENERAL_CASE
 }

@@ -107,6 +107,33 @@ class GatedMLPBlock(nn.Sequential):
         )
 
 
+class GMMHead(nn.Module):
+    """Full-covariance GMM head: ``pre_proj`` (hidden -> hidden), then
+    ``proj`` into ``K * (1 + d + d(d+1)/2)`` parameters per node (logit,
+    mean, Cholesky lower triangle), the final projection in f32."""
+
+    def __init__(self, hidden_size: int, d: int, num_components: int):
+        super().__init__()
+        self.pre_proj = nn.Linear(hidden_size, hidden_size)
+        self.proj = nn.Linear(hidden_size, num_components * self.per_component(d))
+
+    @staticmethod
+    def per_component(d: int) -> int:
+        return 1 + d + d * (d + 1) // 2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.proj(self.pre_proj(x).to(torch.float32))
+
+
+class DiagonalGMMHead(GMMHead):
+    """Diagonal-covariance GMM head: ``2d + 1`` parameters per component
+    (logit, mean, log std)."""
+
+    @staticmethod
+    def per_component(d: int) -> int:
+        return 2 * d + 1
+
+
 class Attention(nn.Module):
     """Multi-head adjacency-masked attention with the reference's quirks:
     q/k/v are read in the ``(N, head_dim, num_heads)`` layout, so head h

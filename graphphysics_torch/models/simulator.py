@@ -7,8 +7,10 @@ whose statistics are buffers named as in the reference ``state_dict``
 (``core.graph.concat_graphs``), so the simulator always sees one flat graph.
 ``forward`` has the training branch (the batch is folded into the
 normalizers, then normalized with the updated statistics, in the same call,
-as flax's mutable collection does) and the eval branch of the plain
-(K = 0) decoder. A model without
+as flax's mutable collection does) and the eval branch: the plain (K = 0)
+decoder's output denormalized, or for a GMM head (K > 0) a sample of the
+mixture drawn from the ``torch.Generator`` the caller passes, then
+denormalized. A model without
 edge features (``edge_input_size == 0``, the transformer) has no edge
 normalizer, as in the JAX package.
 """
@@ -26,6 +28,7 @@ from graphphysics_torch.core import normalizer as norm
 from graphphysics_torch.core.device import DeviceLike, resolve_device
 from graphphysics_torch.core.graph import Graph
 from graphphysics_torch.core.nodetype import NodeType
+from graphphysics_torch.models.gmm import sample_gmm, sample_gmm_diagonal
 
 
 class Normalizer(nn.Module):
@@ -117,7 +120,11 @@ class Simulator(nn.Module):
             self._edge_normalizer.accumulate(graph.edge_attr, mask=graph.edge_mask)
 
     def forward(
-        self, graph: Graph, is_training: bool = False, accumulate_stats: Optional[bool] = None
+        self,
+        graph: Graph,
+        is_training: bool = False,
+        accumulate_stats: Optional[bool] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
         """``(network_output, target_delta_normalized, outputs)``.
 
@@ -125,7 +132,11 @@ class Simulator(nn.Module):
         graph's real rows into the three normalizers, so this batch is
         normalized with statistics that include it. Training returns
         ``outputs = None``; eval returns the denormalized prediction
-        ``pre_target + output_normalizer.inverse(network_output)``."""
+        ``pre_target + output_normalizer.inverse(update)``, where ``update``
+        is the network output (K = 0) or, for a GMM head, a sample of the
+        model's mixture at its temperature (None reads as 1.0, 0.0 gives the
+        chosen component's mean) drawn from ``generator``, which eval with
+        K > 0 requires."""
         if accumulate_stats is None:
             accumulate_stats = is_training
         if accumulate_stats:
@@ -143,5 +154,13 @@ class Simulator(nn.Module):
         network_output = self.model(model_graph)
         if is_training:
             return network_output, target_delta_normalized, None
-        outputs = pre_target + self._output_normalizer.inverse(network_output)
+        update = network_output
+        if self.model.K > 0:
+            if generator is None:
+                raise ValueError("eval of a GMM head (num_mixture_components > 0) samples: pass a "
+                                 "torch.Generator as generator=")
+            temperature = 1.0 if self.model.temperature is None else self.model.temperature
+            sampler = sample_gmm_diagonal if self.model.use_diagonal else sample_gmm
+            update = sampler(network_output, self.model.d, self.model.K, temperature, generator)
+        outputs = pre_target + self._output_normalizer.inverse(update)
         return network_output, target_delta_normalized, outputs

@@ -11,8 +11,13 @@ For CUDA tensors the two launch the hand-written Hopper kernels
 ``nvcc`` at first use): the gathers, the per-edge scores, the softmax and
 the weighted sum in one pass, reading q, k and v as node rows, with no
 edge-sized intermediate; the backward adds into ``dk`` and ``dv`` with
-atomics. For CPU tensors they take ``csr_attention_reference`` (the gathers
-and per-head dot as PyTorch ops, then ``csr_softmax_spmm_reference``) and
+atomics. They take every width ``D <= MAX_WIDTH`` and head count ``H``
+dividing it: the widths a lane count splits into power-of-two head partials
+take the fast lane geometries, every other one the general geometry (a
+masked column tail and per-head sums through shared memory), another
+instantiation of the same kernels. For CPU tensors they take
+``csr_attention_reference`` (the gathers and per-head dot as PyTorch ops,
+then ``csr_softmax_spmm_reference``) and
 ``csr_attention_backward_reference``. The kernels take q, k and v either as
 contiguous ``[N, H, Dh]`` or as the ``(N, Dh, H)`` views the model's
 ``Attention`` passes (strides ``(D, 1, H)``), and give out and the
@@ -62,14 +67,22 @@ SOURCE = "csr_softmax_spmm.cu"
 BACKWARD_SOURCE = "csr_softmax_spmm_bwd.cu"
 ATTENTION_SOURCE = "csr_attention.cu"
 ATTENTION_BACKWARD_SOURCE = "csr_attention_bwd.cu"
-# lanes serving one sender row in the fused kernels, in order of preference:
-# the first whose geometry the kernels take for a width, head count and
-# layout is used. On an H100 at the model's shapes (chip_smoke.py, PERF.md)
-# the forward ran fastest with 8 or 16 lanes a row (fewer butterfly levels,
-# and fewer lanes computing each head's exponentials), the backward with 32
-# (its float4 atomics and registers grow with the columns a lane holds).
+# lanes serving one sender row in the fused kernels' fast geometries, in
+# order of preference: the first whose fast geometry the kernels take for a
+# width, head count and layout is used. On an H100 at the model's shapes
+# (chip_smoke.py, PERF.md) the forward ran fastest with 8 or 16 lanes a row
+# (fewer butterfly levels, and fewer lanes computing each head's
+# exponentials), the backward with 32 (its float4 atomics and registers grow
+# with the columns a lane holds).
 FORWARD_LANES = (8, 16, 32)
 BACKWARD_LANES = (32, 16, 8)
+MAX_COLUMNS = 16  # the most columns a lane holds (csrc/csr_attention.cuh)
+# a width without a fast geometry takes the fewest lanes that give each at
+# most this many columns (32 lanes past 96 wide). On an H100 at the panels
+# batch both general kernels ran fastest with 3 columns a lane: each column
+# is a shared-memory write per edge and its own exponentials (chip_smoke.py
+# kernel-width phases, PERF.md).
+GENERAL_COLUMNS = 3
 EPS = 1e-16  # the epsilon of the forward's normalization
 NEG = -1e30  # finite -inf stand-in, as the TPU kernel
 MAX_WIDTH = 512  # the widest D the TPU kernel's defaults were tuned for
@@ -469,15 +482,16 @@ def _as_heads(flat: torch.Tensor, h: int, interleaved: bool) -> torch.Tensor:
 
 
 def _geometry_ok(lanes: int, width: int, heads: int, interleaved: bool) -> bool:
-    """Whether the fused kernels take ``lanes`` lanes a row for this width,
-    head count and layout: ``make_geometry`` in ``csrc/csr_attention.cuh``."""
+    """Whether ``lanes`` lanes a row give the fused kernels a fast geometry
+    for this width, head count and layout: a butterfly of power-of-two head
+    partials (``make_geometry`` in ``csrc/csr_attention.cuh``)."""
     def pow2(x):
         return x > 0 and x & (x - 1) == 0
 
     if width % lanes or width % heads:
         return False
     cols, head_dim = width // lanes, width // heads
-    if cols > 16:
+    if cols > MAX_COLUMNS:
         return False
     if not interleaved:
         return head_dim % cols == 0 and pow2(head_dim // cols)
@@ -488,12 +502,30 @@ def _geometry_ok(lanes: int, width: int, heads: int, interleaved: bool) -> bool:
     return False
 
 
+def geometry_kind(lanes: int, width: int, heads: int, interleaved: bool) -> Optional[str]:
+    """The geometry the fused kernels take with ``lanes`` lanes a row:
+    "fast", else "general" (``ceil(D / lanes)`` strided columns a lane with a
+    masked tail, per-head sums through shared memory), None if neither."""
+    if width <= 0 or heads <= 0 or width % heads:
+        return None
+    if _geometry_ok(lanes, width, heads, interleaved):
+        return "fast"
+    return "general" if -(-width // lanes) <= MAX_COLUMNS else None
+
+
 def lanes_per_row(width: int, heads: int, interleaved: bool, backward: bool = False) -> Optional[int]:
     """The lanes a sender row gets in the fused forward (or ``backward``)
-    kernel: the first of ``FORWARD_LANES`` (``BACKWARD_LANES``) whose
-    geometry it takes, None if none is."""
+    kernel: the first of ``FORWARD_LANES`` (``BACKWARD_LANES``) with a fast
+    geometry, else the general geometry's fewest lanes with at most
+    ``GENERAL_COLUMNS`` columns each (32 for wider rows); None where the
+    kernels take neither (past ``MAX_WIDTH``, or H not dividing D)."""
+    if not 0 < width <= MAX_WIDTH or heads <= 0 or width % heads:
+        return None
     order = BACKWARD_LANES if backward else FORWARD_LANES
-    return next((g for g in order if _geometry_ok(g, width, heads, interleaved)), None)
+    fast = next((g for g in order if _geometry_ok(g, width, heads, interleaved)), None)
+    if fast is not None:
+        return fast
+    return next((g for g in (8, 16) if -(-width // g) <= GENERAL_COLUMNS), 32)
 
 
 def _check_attention_args(op, q, k, v, gather_idx, bounds, mask) -> bool:
@@ -523,13 +555,9 @@ def _check_attention_args(op, q, k, v, gather_idx, bounds, mask) -> bool:
             fail(f"{name} must be 16-byte aligned")
     if len(layouts) != 1:
         fail("q, k and v must share one layout")
-    if d == 0 or d % 32 or d > MAX_WIDTH:
-        fail(f"width D={d} must be a positive multiple of 32, at most {MAX_WIDTH}")
-    if dh % (d // 32):
-        fail(f"head_dim D/H = {d}/{h} must be a multiple of D/32 = {d // 32}")
+    if d == 0 or d > MAX_WIDTH:
+        fail(f"width D={d} must be positive and at most {MAX_WIDTH}")
     interleaved = layouts.pop()
-    if lanes_per_row(d, h, interleaved) is None:
-        fail(f"no lane geometry takes {h} heads of {dh} in this layout")
     e = gather_idx.shape[0]
     if gather_idx.dim() != 1 or gather_idx.dtype != torch.int32 or not gather_idx.is_contiguous():
         fail("gather_idx must be a contiguous int32 [E] tensor")
@@ -642,8 +670,8 @@ def csr_attention(
     A CUDA tensor launches the Hopper kernel and adds one to
     ``csr_attention.launches``: float32 q, k, v of one layout (contiguous
     ``[N, H, Dh]``, or the transpose of a contiguous ``(N, Dh, H)``; out
-    comes in the same layout), D a multiple of 32 up to 512 with a head_dim
-    that is a multiple of D/32, 16-byte aligned, int32 ``gather_idx`` and
+    comes in the same layout), any width D = H * Dh up to ``MAX_WIDTH``,
+    16-byte aligned, int32 ``gather_idx`` and
     ``sender_bounds``; it raises on anything else and trusts the edge layout
     (every unmasked edge in its sender's range, gather indices in
     ``[0, N)``: build graphs with ``pad_graph_csr_np``). The segment ids are

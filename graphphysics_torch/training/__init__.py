@@ -6,6 +6,10 @@ from graphphysics_torch.training.checkpoint import (
     save_checkpoint,
 )
 from graphphysics_torch.training.losses import (
+    diagonal_gmm_nll_loss,
+    diagonal_gmm_nll_per_row,
+    gmm_nll_loss,
+    gmm_nll_per_row,
     l1_smooth_loss,
     l2_loss,
     make_local_loss,
@@ -18,6 +22,7 @@ from graphphysics_torch.training.parse_parameters import (
     get_preprocessing,
     get_simulator,
     get_simulator_config,
+    gmm_options,
 )
 from graphphysics_torch.training.rollout import (
     build_mask,
@@ -32,12 +37,17 @@ __all__ = [
     "Trainer",
     "build_mask",
     "cosine_warmup_schedule",
+    "diagonal_gmm_nll_loss",
+    "diagonal_gmm_nll_per_row",
     "edge_layout",
     "get_dataset",
     "get_model",
     "get_preprocessing",
     "get_simulator",
     "get_simulator_config",
+    "gmm_nll_loss",
+    "gmm_nll_per_row",
+    "gmm_options",
     "is_torch_checkpoint",
     "l1_smooth_loss",
     "l2_loss",

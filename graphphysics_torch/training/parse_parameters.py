@@ -3,7 +3,7 @@
 ``get_preprocessing``, ``get_model``, ``get_simulator_config``,
 ``get_simulator``, ``edge_layout`` and ``get_dataset`` for the
 configurations the port trains and serves today: float32, the plain (K = 0)
-decoder, h5 datasets. A key that asks for more raises
+decoder or a GMM head, h5 datasets. A key that asks for more raises
 ``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 
@@ -47,12 +47,25 @@ def get_preprocessing(
     return build_preprocessing(noise_parameters=noise_parameters, add_edges_features=use_edge_feature)
 
 
+def gmm_options(param: Dict[str, Any]) -> Dict[str, Any]:
+    """The decoder's GMM keys of ``param["model"]``:
+    ``num_mixture_components`` (0: the plain decoder), ``temperature`` (kept
+    as given; None reads as 1.0 where it is used, and 0.0 is valid) and
+    ``use_diagonal`` (default true; false takes the full-covariance head and
+    NLL)."""
+    model = param["model"]
+    return {
+        "num_mixture_components": int(model.get("num_mixture_components", 0)),
+        "temperature": model.get("temperature"),
+        "use_diagonal": bool(model.get("use_diagonal", True)),
+    }
+
+
 def get_model(param: Dict[str, Any]) -> nn.Module:
     """The processor of ``param["model"]``: ``"epd"`` or ``"transformer"``,
-    with the NodeType one-hot width added to ``node_input_size``."""
+    with the NodeType one-hot width added to ``node_input_size`` and the
+    decoder of ``gmm_options``."""
     model = param["model"]
-    if model.get("num_mixture_components", 0):
-        raise _waits("the GMM heads (num_mixture_components > 0)", "item 9, GMM")
     if model.get("precision", "f32") not in ("f32", "float32"):
         raise _waits(f"precision {model['precision']!r}", "item 11, training features")
     for knob in ("remat", "scan_blocks"):
@@ -66,6 +79,7 @@ def get_model(param: Dict[str, Any]) -> nn.Module:
             model["edge_input_size"],
             model["output_size"],
             model["hidden_size"],
+            **gmm_options(param),
         )
     if model.get("type") == "transformer":
         return EncodeTransformDecode(
@@ -74,6 +88,7 @@ def get_model(param: Dict[str, Any]) -> nn.Module:
             model["output_size"],
             model["hidden_size"],
             model["num_heads"],
+            **gmm_options(param),
         )
     raise ValueError(f"Model type {model.get('type')!r} not supported.")
 

@@ -15,7 +15,7 @@ sender-sorted (CSR) for EncodeTransformDecode.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -80,13 +80,14 @@ def stacked_trajectory(
 
 
 def rollout(
-    sim, frames: Graph, device: DeviceLike = None
+    sim, frames: Graph, device: DeviceLike = None, generator: Optional[torch.Generator] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Autoregressive rollout of ``sim`` over stacked trajectory frames
     (leaves ``[T, ...]``), on ``device`` (``cuda`` unless named). Every
     output column ``output_index_start:output_index_end`` is fed back, also
     those the model does not read as features (panels: outputs 0:3,
-    features 0:2).
+    features 0:2). A GMM head samples each frame from ``generator``, in
+    frame order (required for K > 0; its device may differ from ``device``).
 
     Returns ``(predictions [T, N, d], targets [T, N, d])`` on the device,
     with boundary-clamped predictions."""
@@ -107,7 +108,7 @@ def rollout(
                 x[:, os_:oe] = predicted
                 g = g.replace(x=x)
             mask = build_mask(g.x[:, cfg.node_type_index].to(torch.int64))
-            _, _, predicted = sim(g)
+            _, _, predicted = sim(g, generator=generator)
             predicted = torch.where(mask[:, None], g.y, predicted)
             predictions.append(predicted)
             targets.append(g.y)

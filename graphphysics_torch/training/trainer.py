@@ -15,6 +15,14 @@ stepped after each optimizer step, sets the rate, so the first update uses
 attention, forward and backward, are the hand-written kernels of
 ``graphphysics_torch/csrc``.
 
+A GMM head (``num_mixture_components`` K > 0 in the model config) trains
+on its negative log-likelihood, diagonal or, with ``"use_diagonal": false``,
+full covariance, at the config's temperature. Its rollouts sample: each
+trajectory draws from its own ``torch.Generator`` on the device, seeded from
+``(seed + epoch, trajectory)`` in ``validate`` and ``(seed, trajectory)`` in
+``predict`` (``trajectory_generator``), so a trajectory's draws do not
+depend on which others are rolled out, and ``val_loss`` is None.
+
 Checkpoints are ``training/checkpoint.py`` files. ``fit`` saves after every
 epoch, every ``save_every_n_steps`` steps when asked, and at the next step
 boundary after a SIGTERM or SIGINT (a second signal aborts at once); the
@@ -43,8 +51,8 @@ from graphphysics_torch.core.graph import Graph, stack_graphs
 from graphphysics_torch.core.nodetype import NodeType
 from graphphysics_torch.models.layers import reset_parameters
 from graphphysics_torch.training.checkpoint import load_checkpoint_with_metadata, save_checkpoint
-from graphphysics_torch.training.losses import l2_loss
-from graphphysics_torch.training.parse_parameters import get_simulator
+from graphphysics_torch.training.losses import diagonal_gmm_nll_loss, gmm_nll_loss, l2_loss
+from graphphysics_torch.training.parse_parameters import get_simulator, gmm_options
 from graphphysics_torch.training.rollout import rollout, rollout_rmse
 from graphphysics_torch.training.schedule import cosine_warmup_schedule
 from graphphysics_torch.utils.metrics import CSVMetricsLogger
@@ -79,6 +87,14 @@ _NOT_PORTED = {
     "profile_num_steps": (None, 12),
     "parallel_validation": (None, 13),
 }
+
+
+def trajectory_generator(seed: int, trajectory: int, device: DeviceLike = None) -> torch.Generator:
+    """The generator of one trajectory's sampled rollout on ``device``
+    (``cuda`` unless named): seeded from ``SeedSequence([seed, trajectory])``,
+    a function of the two numbers only."""
+    hi, lo = np.random.SeedSequence([seed, trajectory]).generate_state(2, np.uint32)
+    return torch.Generator(device=resolve_device(device)).manual_seed(int(hi) << 32 | int(lo))
 
 
 class Trainer:
@@ -130,6 +146,11 @@ class Trainer:
         self.metrics = CSVMetricsLogger(metrics_path) if metrics_path else None
         self.rollout_dir = rollout_dir
         self.seed = seed
+        gmm = gmm_options(parameters)
+        self.K = gmm["num_mixture_components"]
+        self.d = parameters["model"]["output_size"]
+        self.temperature = 1.0 if gmm["temperature"] is None else gmm["temperature"]
+        self.use_diagonal = gmm["use_diagonal"]
         self.log_every = log_every
         self.extra_logger = extra_logger
         self.save_every_n_steps = save_every_n_steps
@@ -165,16 +186,24 @@ class Trainer:
         graph = graph.to(self.device)
         # the training forward folds the batch into the normalizers first
         out, target, _ = self.sim(graph, is_training=True)
-        loss = l2_loss(
-            target, out, self.sim.node_type(graph), self.masks,
-            node_valid=graph.node_mask, exclude_mask=graph.exclude_mask,
-        )
+        loss = self.loss(target, out, graph)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()
         self.scheduler.step()
         self.step += 1
         return loss.detach()
+
+    def loss(self, target: torch.Tensor, out: torch.Tensor, graph: Graph) -> torch.Tensor:
+        """The training loss of one batch: the masked L2 for the plain
+        decoder, the masked GMM NLL (diagonal or full) for a GMM head."""
+        kw = dict(node_valid=graph.node_mask, exclude_mask=graph.exclude_mask)
+        node_type = self.sim.node_type(graph)
+        if self.K == 0:
+            return l2_loss(target, out, node_type, self.masks, **kw)
+        nll = diagonal_gmm_nll_loss if self.use_diagonal else gmm_nll_loss
+        return nll(target, out, node_type, self.masks, d=self.d, K=self.K,
+                   temperature=self.temperature, **kw)
 
     # ------------------------------------------------------------- training
 
@@ -297,9 +326,12 @@ class Trainer:
 
     # ----------------------------------------------------------- validation
 
-    def _rollout_trajectory(self, dataset, traj: int):
+    def _rollout_trajectory(self, dataset, traj: int, seed: int):
+        """Trajectory ``traj`` rolled out; a GMM head samples from
+        ``trajectory_generator(seed, traj)``."""
         frames = stack_graphs([dataset[i] for i in dataset.trajectory_indices(traj)]).to(self.device)
-        preds, targets = rollout(self.sim, frames, device=self.device)
+        gen = trajectory_generator(seed, traj, self.device) if self.K else None
+        preds, targets = rollout(self.sim, frames, device=self.device, generator=gen)
         return frames, preds, targets
 
     def validate(self, val_dataset, epoch: int = 0, max_trajectories: Optional[int] = None,
@@ -308,8 +340,10 @@ class Trainer:
         trajectories of ``val_dataset`` (all by default). Returns the
         all-rollout RMSE (one RMSE over every step of every trajectory) and
         sets ``last_val_loss``, the mean over all steps of the masked L2 of
-        each step's denormalized prediction. Trajectory 0's rollout is
-        written under ``rollout_dir`` when ``save_rollout``."""
+        each step's denormalized prediction (None for a GMM head, whose
+        rollouts sample from ``trajectory_generator(seed + epoch, traj)``).
+        Trajectory 0's rollout is written under ``rollout_dir`` when
+        ``save_rollout``."""
         n_traj = val_dataset.size_dataset
         if max_trajectories is not None:
             n_traj = min(n_traj, max_trajectories)
@@ -318,20 +352,22 @@ class Trainer:
         total_se, total_cnt, vloss_sum, vloss_cnt = 0.0, 0.0, 0.0, 0
         prog = ProgressReporter(n_traj, prefix=f"validate epoch {epoch}", enable=self.progress)
         for traj in range(n_traj):
-            frames, preds, targets = self._rollout_trajectory(val_dataset, traj)
+            frames, preds, targets = self._rollout_trajectory(val_dataset, traj, self.seed + epoch)
             node_mask = frames.node_mask[0]
             node_type = frames.x[0, :, nti].to(torch.int64)
             with torch.inference_mode():
                 rmse = rollout_rmse(preds, targets, node_mask)
-                step_losses = torch.stack([
-                    l2_loss(y, p, node_type, self.masks, node_valid=node_mask)
-                    for p, y in zip(preds, targets)
-                ])
             cnt = float(node_mask.sum()) * preds.shape[0] * preds.shape[-1]
             total_se += float(rmse) ** 2 * cnt
             total_cnt += cnt
-            vloss_sum += float(step_losses.sum())
-            vloss_cnt += step_losses.shape[0]
+            if self.K == 0:
+                with torch.inference_mode():
+                    step_losses = torch.stack([
+                        l2_loss(y, p, node_type, self.masks, node_valid=node_mask)
+                        for p, y in zip(preds, targets)
+                    ])
+                vloss_sum += float(step_losses.sum())
+                vloss_cnt += step_losses.shape[0]
             if traj == 0 and save_rollout and self.rollout_dir:
                 self._save_rollout_xdmf(val_dataset, 0, preds.cpu().numpy(), epoch)
             prog.update(traj + 1)
@@ -371,7 +407,8 @@ class Trainer:
                 max_trajectories: Optional[int] = None) -> List[np.ndarray]:
         """Roll out each of the first ``max_trajectories`` trajectories of
         ``dataset`` (all by default) and write each as
-        ``save_dir/graph_{id}.xdmf``; ``save_dir=None`` writes nothing.
+        ``save_dir/graph_{id}.xdmf``; ``save_dir=None`` writes nothing. A GMM
+        head samples trajectory ``t`` from ``trajectory_generator(seed, t)``.
         Returns the ``[T, N, d]`` predictions on the host."""
         if self.sim is None:
             raise RuntimeError("call init_state and load a checkpoint before predict")
@@ -383,7 +420,7 @@ class Trainer:
             os.makedirs(save_dir, exist_ok=True)
         out = []
         for traj in range(n_traj):
-            preds = self._rollout_trajectory(dataset, traj)[1].cpu().numpy()
+            preds = self._rollout_trajectory(dataset, traj, self.seed)[1].cpu().numpy()
             out.append(preds)
             if save_dir is not None:
                 self._write_rollout_series(

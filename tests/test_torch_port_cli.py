@@ -126,6 +126,42 @@ def test_train_predict_retrain_flow_and_jax_metrics_header(config, tmp_path, mon
     assert _header(jax_work / "metrics.csv") == _header(work / "metrics.csv")
 
 
+def test_gmm_config_through_train_predict_resume(cylinder, tmp_path, monkeypatch):
+    """A GMM config (the fixture's EPD with ``"num_mixture_components": 2``)
+    passes through both CLIs with no flag of its own: train 1 epoch, predict
+    twice from the checkpoint (the sampled frames repeat exactly: the draws
+    come from ``(seed, trajectory)``), resume to 2 epochs."""
+    from graphphysics_torch.utils.xdmf import XdmfTimeSeriesReader
+
+    param = cylinder_param(*cylinder, "epd")
+    param["model"]["num_mixture_components"] = 2
+    cfg = tmp_path / "gmm.json"
+    cfg.write_text(json.dumps(param))
+    work = tmp_path / "work"
+    work.mkdir()
+    monkeypatch.chdir(work)
+    flags = ["--training_parameters_path", str(cfg), *TRAIN_FLAGS, "--model_save_name", "gmm.pt",
+             "--device", "cpu"]
+    assert train_cli.main([*flags, "--num_epochs", "1"]) == 0
+    ckpt = str(work / "checkpoints" / "gmm.pt")
+    assert torch.load(ckpt, weights_only=True)["model"]["model.decode_module.proj.weight"].shape[0] == 10
+    frames = []
+    for out in ("p1", "p2"):
+        assert predict_cli.main(["--training_parameters_path", str(cfg), "--model_path", ckpt,
+                                 "--save_dir", out, "--max_trajectories", "1", "--device", "cpu"]) == 0
+        with XdmfTimeSeriesReader(str(work / out / "graph_0.xdmf")) as reader:
+            frames.append([reader.read_data(k)[1]["prediction"] for k in range(reader.num_steps)])
+    assert len(frames[0]) > 0 and all(np.isfinite(f).all() for f in frames[0])
+    for a, b in zip(*frames):
+        np.testing.assert_array_equal(a, b)
+    steps = load_metadata(ckpt)["step"]
+    assert train_cli.main([*flags, "--num_epochs", "2", "--resume_training", "--model_path", ckpt]) == 0
+    meta = load_metadata(ckpt)
+    assert meta["epoch"] == 2 and meta["step"] == 2 * steps
+    rows = list(csv.DictReader(open(work / "metrics.csv")))
+    assert [r["epoch"] for r in rows] == ["0", "1"] and not any(r.get("val_loss") for r in rows)
+
+
 @pytest.mark.parametrize("cli,flag,item", [
     *[(train_cli, f, i) for f, _, i in train_cli.NOT_PORTED],
     *[(predict_cli, f, i) for f, _, i in predict_cli.NOT_PORTED],

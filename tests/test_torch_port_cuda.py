@@ -422,11 +422,15 @@ def _model_view(t):
     [("serving", 128, 4, "model"), ("serving", 128, 4, "contiguous"), ("skewed", 128, 4, "model"),
      ("two_graphs", 64, 4, "model"), ("two_graphs", 64, 4, "contiguous"), ("two_graphs", 96, 4, "model"),
      ("two_graphs", 96, 4, "contiguous"), ("two_graphs", 512, 8, "model"), ("two_graphs", 32, 4, "model"),
-     ("two_graphs", 32, 1, "contiguous")],
+     ("two_graphs", 32, 1, "contiguous"),
+     # widths without a power-of-two head split: the general geometry
+     ("two_graphs", 48, 4, "model"), ("two_graphs", 48, 4, "contiguous"), ("two_graphs", 96, 3, "model"),
+     ("two_graphs", 96, 3, "contiguous"), ("two_graphs", 40, 8, "model"), ("two_graphs", 40, 8, "contiguous"),
+     ("skewed", 48, 4, "model"), ("serving", 96, 3, "model"), ("two_graphs", 500, 5, "model")],
 )
 def test_fused_attention_kernels_match_plain(cuda, layout, d, h, view):
     """Both fused kernels against their plain versions, at every lane count
-    the geometry allows."""
+    whose geometry (fast or general) the kernels take."""
     from graphphysics_torch.ops import csr_attention as ca
 
     g, mask, qkv, cot = _fused_case(layout, d, h, seed=d + h)
@@ -436,8 +440,8 @@ def test_fused_attention_kernels_match_plain(cuda, layout, d, h, view):
     interleaved = view == "model" and h > 1
     want_out, want_ml = ca.csr_attention_reference(q, k, v, seg, gather, g.num_nodes, m, 0.5)
     want = ca.csr_attention_backward_reference(q, k, v, seg, gather, want_ml, want_out, g_out, m, 0.5)
-    lanes = [n for n in ca.FORWARD_LANES if ca._geometry_ok(n, d, h, interleaved)]
-    assert lanes
+    lanes = [n for n in ca.FORWARD_LANES if ca.geometry_kind(n, d, h, interleaved)]
+    assert lanes and ca.lanes_per_row(d, h, interleaved) in lanes
     for n in lanes:
         _poison_free_memory(cuda)
         before = (ca.csr_attention.launches, ca.csr_attention_backward.launches)
@@ -471,8 +475,8 @@ def test_fused_attention_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         csr_attention(x, x, x, seg, gather, bounds)
     with pytest.raises(ValueError, match="one layout"):
         csr_attention(_model_view(q), k, v, seg, gather, bounds)
-    with pytest.raises(ValueError, match="positive multiple of 32"):
-        x = torch.zeros(q.shape[0], 4, 12, device=cuda)
+    with pytest.raises(ValueError, match="at most 512"):
+        x = torch.zeros(q.shape[0], 4, 160, device=cuda)
         csr_attention(x, x, x, seg, gather, bounds)
     with pytest.raises(ValueError, match="int32"):
         csr_attention(q, k, v, seg, gather.long(), bounds)

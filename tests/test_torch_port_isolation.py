@@ -1,5 +1,5 @@
-"""The port stands alone: ``graphphysics_torch``, ``chip_smoke.py`` and
-``chip_smoke_mutants.py`` import no JAX, flax, optax or ``graphphysics_tpu``, build no kernel on import, and
+"""The port stands alone: ``graphphysics_torch``, ``chip_smoke.py``,
+``chip_smoke_mutants.py`` and ``chip_compare.py`` import no JAX, flax, optax or ``graphphysics_tpu``, build no kernel on import, and
 their entry points run on CUDA by default, raising where there is none."""
 
 import ast
@@ -19,7 +19,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "graphphysics_tpu")
 
 
 def _port_sources():
-    scripts = [ROOT / "chip_smoke.py", ROOT / "chip_smoke_mutants.py"]
+    scripts = [ROOT / "chip_smoke.py", ROOT / "chip_smoke_mutants.py", ROOT / "chip_compare.py"]
     return sorted((ROOT / "graphphysics_torch").rglob("*.py")) + scripts
 
 

@@ -130,8 +130,9 @@ def test_losses_match_jax(empty):
     want = jax_losses.make_local_loss(masks, "l2")(j[0], j[1], j[2], j[3], j[4])
     for a, b in zip(local, want):
         np.testing.assert_allclose(a.item(), float(b), rtol=LOSS_RTOL)
-    with pytest.raises(NotImplementedError, match="GMM"):
-        make_local_loss(masks, "diag_gmm")
+    # the GMM kinds are held against JAX in tests/test_torch_port_gmm.py
+    with pytest.raises(ValueError, match="nope"):
+        make_local_loss(masks, "nope")
 
 
 @pytest.mark.parametrize("warmup,max_iters", [(5, 20), (0, 7), (30, 10)])

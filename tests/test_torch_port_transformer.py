@@ -246,7 +246,7 @@ def test_get_simulator_builds_the_jax_shapes_for_panels():
     "key,value,match",
     [
         ("precision", "bf16", "precision"),
-        ("num_mixture_components", 3, "GMM"),
+        ("precision", "bfloat16", "precision"),
         ("remat", True, "remat"),
         ("scan_blocks", True, "scan_blocks"),
     ],
