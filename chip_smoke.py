@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one CUDA card and check it.
 
-    python3 chip_smoke.py [--seed 0] [--frames 50]
+    python3 chip_smoke.py [--seed 0] [--frames 50] [--aneurysm-grid 32]
 
 Run from the root of the repository on a machine with an NVIDIA Hopper card
 and the CUDA toolkit. Phases, each of which raises on failure:
@@ -75,7 +75,27 @@ and the CUDA toolkit. Phases, each of which raises on failure:
 14. ``gmm_pipeline``: ``panels.json`` with a K = 3 head through
     ``BaseDataset``, ``GraphLoader``, ``Trainer.fit`` with validation
     (``val_loss`` None), a save, a reload and ``predict`` twice, bitwise
-    equal.
+    equal;
+15. ``aneurysm_xdmf_pipeline``, once per config, for
+    ``training_config/coarse-aneurysm.json`` and ``c-a-gmm.json`` at their
+    full width and depth: synthetic aneurysm trajectories on
+    ``tet_grid(32)`` (32,768 nodes, 178,746 tetrahedra, 434,558 directed
+    edges; ``--aneurysm-grid 40``: 64,000 nodes, 858,078 edges; 2 training
+    and 1 held-out of 6 frames) written as XDMF with the
+    heavy data inline (``chip_fidelity.write_aneurysm_inline``), read by
+    ``get_dataset`` (``XDMFDataset``, previous-frame data, the aneurysm
+    features of ``external.build_features``, sender-sorted graphs): the
+    XDMF read and the preprocessing timed apart; ``Trainer.fit`` for one
+    epoch with rollout validation; the first train step against the CPU
+    (from the epoch's normalizer statistics), 3 warm-up and 20 timed steps
+    with 10 fused forward and 10 fused backward launches per step, a
+    profile; a reload and ``predict`` over the held-out trajectory
+    (launches checked); its first 3 frames with the
+    previous-data slice fed back against the CPU (the GMM head under shared
+    CPU draws);
+16. ``aneurysm_fidelity_short``: 2 epochs of ``chip_fidelity.run`` (the
+    aneurysm fidelity run, 10 x 64 on ``tet_grid(6)``): the training loss
+    and the held-out rollout RMSE fall.
 
 Every line but the last is a JSON object (one per phase), apart from the
 card's ``nvidia-smi`` line; the ``{"kernels": [...]}`` line comes just before
@@ -127,6 +147,21 @@ CYLINDER_CONFIG = "training_config/cylinder.json"
 GMM_CONFIG = "training_config/c-a-gmm.json"
 # the aneurysm workload scale: real nodes and edges, and their padding
 ANEURYSM = (66000, 520000, 66560, 524288)
+# the aneurysm XDMF pipeline: both aneurysm configs on tet_grid(32) (32,768
+# nodes, 178,746 tetrahedra, 434,558 directed edges), 2 training
+# trajectories and 1 held-out one of 6 frames, their heavy data inline in
+# the XML (the card's machine has no h5py); previous-frame data fed back
+# into the acceleration columns 5:8 of the aneurysm features. At
+# tet_grid(40) (64,000 nodes, 858,078 edges; --aneurysm-grid 40) each
+# config's phase took 75-85 s on the card's host, over the ~60 s it is
+# given, most of it reading the XML (0.83-0.91 s a sample) and building
+# the edges (0.53-0.91 s a sample).
+ANEURYSM_CONFIGS = ("training_config/coarse-aneurysm.json", "training_config/c-a-gmm.json")
+ANEURYSM_GRID, ANEURYSM_FRAMES = 32, 6
+ANEURYSM_TRAJECTORIES, ANEURYSM_HELD_OUT = 2, 1
+ANEURYSM_PREVIOUS = {"use_previous_data": True, "previous_data_start": 5, "previous_data_end": 8}
+HOST_SAMPLES = 2  # items timed apart: the XDMF read, then the preprocessing
+FIDELITY_SHORT_EPOCHS = 2
 # (width, heads) of the fused kernels' general geometry phases
 GENERAL_WIDTHS = ((48, 4), (96, 3), (40, 8))
 # the card sampler's statistics: draws of a fixed mixture, and the most
@@ -1057,16 +1092,20 @@ def load_config(path, blocks=None):
     return param
 
 
-def first_step(name, param, batch, seed, total_steps, grad_rtol):
+def first_step(name, param, batch, seed, total_steps, grad_rtol, stats=None):
     """The first ``Trainer`` step on the card against the same step on the
-    CPU from equal weights (seeded ``init_state``): the loss, and each
-    parameter's gradient within ``grad_rtol``, with the worst one named."""
+    CPU from equal weights (seeded ``init_state``) and, where ``stats`` (a
+    state dict of normalizer buffers) is given, equal normalizer
+    statistics: the loss, and each parameter's gradient within
+    ``grad_rtol``, with the worst one named."""
     from graphphysics_torch.training import Trainer
 
     loss, grads = {}, {}
     for dev in ("cpu", "cuda"):
         trainer = Trainer(param, learning_rate=1e-4, warmup=10, seed=seed, device=dev)
         trainer.init_state(total_steps)
+        if stats is not None:
+            trainer.sim.load_state_dict(stats, strict=False)
         loss[dev] = trainer.train_step(batch).item()
         grads[dev] = {n: p.grad.detach().cpu() for n, p in trainer.sim.named_parameters()}
         del trainer
@@ -1093,24 +1132,28 @@ def first_step(name, param, batch, seed, total_steps, grad_rtol):
                                  "roundoff_share": STEP_ROUNDOFF_SHARE},
     }
     if not (math.isfinite(loss["cuda"]) and loss_err <= STEP_LOSS_RTOL
-            and rel[worst] <= grad_rtol and share <= STEP_ROUNDOFF_SHARE):
+                      and rel[worst] <= grad_rtol and share <= STEP_ROUNDOFF_SHARE):
         raise AssertionError(f"{name}: first step card vs CPU out of tolerance: {result}")
     return result
 
 
-def train(name, param, batch, counts, expected, seed, grad_rtol, graphs=len(BATCH_NODES)):
+def train(name, param, batch, counts, expected, seed, grad_rtol, graphs=len(BATCH_NODES),
+          stats=None):
     """``Trainer`` on one concatenated batch (of ``graphs`` graphs) on the
-    card: the first step against the CPU (``first_step``), then on a fresh
-    trainer 3 warm-up steps and 20 timed ones with every launch count zeroed
-    just before them and checked just after against ``expected`` (kernel
-    name -> launches per step), then a profile of 3 steps."""
+    card: the first step against the CPU (``first_step``, from the
+    normalizer statistics ``stats`` where given), then on a fresh trainer
+    3 warm-up steps and 20 timed ones with every launch count zeroed just
+    before them and checked just after against ``expected`` (kernel name
+    -> launches per step), then a profile of 3 steps."""
     from graphphysics_torch.training import Trainer
 
     total_steps = 1 + WARMUP_STEPS + TIMED_STEPS + PROFILED_STEPS
-    first = first_step(name, param, batch, seed, total_steps, grad_rtol)
+    first = first_step(name, param, batch, seed, total_steps, grad_rtol, stats=stats)
 
     trainer = Trainer(param, learning_rate=1e-4, warmup=10, seed=seed, device="cuda")
     trainer.init_state(total_steps)
+    if stats is not None:
+        trainer.sim.load_state_dict(stats, strict=False)
     dev_batch = batch.to("cuda")
     for _ in range(WARMUP_STEPS):
         trainer.train_step(dev_batch)
@@ -1283,7 +1326,7 @@ def sampler_statistics(seed):
     return result
 
 
-def shared_draws(name, param, sim, frames, seed):
+def shared_draws(name, param, sim, frames, seed, previous=None):
     """The first ``CPU_FRAMES`` frames of the sampled rollout on the card
     against the CPU's, both drawing from a CPU generator of one seed, on
     the real nodes. Each node draws its component as the best of its
@@ -1293,10 +1336,13 @@ def shared_draws(name, param, sim, frames, seed):
     rollout is run on both devices (the logits' largest difference, d) and
     the generator's draws replayed (the smallest gap of a sampled node: real
     and not clamped to its target); a seed is taken once that gap is at
-    least ``GMM_TIE_FACTOR`` times d, and seeds are tried in turn."""
+    least ``GMM_TIE_FACTOR`` times d, and seeds are tried in turn.
+    ``previous`` (the rollout's previous-data options) feeds the
+    previous-data slice too."""
     from graphphysics_torch.models.gmm import draw_gmm
     from graphphysics_torch.training import build_mask, rollout
 
+    previous = previous or {}
     cfg = sim.config
     os_, oe = cfg.output_index_start, cfg.output_index_end
     K, d = sim.model.K, sim.model.d
@@ -1316,15 +1362,19 @@ def shared_draws(name, param, sim, frames, seed):
     for attempt in range(GMM_SEED_TRIES):
         draw_seed = seed + 1000 + attempt
         cpu_preds, _ = rollout(sim_cpu, host, device="cpu",
-                               generator=torch.Generator().manual_seed(draw_seed))
+                               generator=torch.Generator().manual_seed(draw_seed), **previous)
         draws = torch.Generator().manual_seed(draw_seed)
-        gap, logit_diff = math.inf, 0.0
+        gap, logit_diff, fed = math.inf, 0.0, None
         for t in range(CPU_FRAMES):
             g = host[t]
             if t:
                 x = g.x.clone()
                 x[:, os_:oe] = cpu_preds[t - 1]
+                if previous:
+                    x[:, previous["previous_data_start"]:previous["previous_data_end"]] = \
+                        cpu_preds[t - 1] - fed
                 g = g.replace(x=x)
+            fed = g.x[:, os_:oe]
             cpu_logits = logits(sim_cpu, g)
             logit_diff = max(logit_diff, (logits(sim, g.to("cuda")) - cpu_logits).abs().max().item())
             gumbel, _ = draw_gmm(n, K, d, draws)
@@ -1336,7 +1386,7 @@ def shared_draws(name, param, sim, frames, seed):
     else:
         raise AssertionError(f"{name}: every seed tried has a near tie: {tries}")
     card_preds, _ = rollout(sim, host.to("cuda"), device="cuda",
-                            generator=torch.Generator().manual_seed(draw_seed))
+                            generator=torch.Generator().manual_seed(draw_seed), **previous)
     got, want = card_preds.cpu()[:, real], cpu_preds[:, real]
     err = (got - want).abs().max().item()
     result = {"shared_draw_frames": CPU_FRAMES, "shared_draw_seed_tries": tries,
@@ -1481,6 +1531,217 @@ def gmm_pipeline(name, param, make_traj, counts, seed):
         "predict_repeat_bitwise_equal": True,
         "fit_s": fit_s,
     }
+
+
+def aneurysm_folders(directory, grid):
+    """The aneurysm XDMF folders of ``aneurysm_xdmf_pipeline`` under
+    ``directory``, heavy data inline (``chip_fidelity.write_aneurysm_inline``):
+    ``ANEURYSM_TRAJECTORIES`` training trajectories (seed 0) and
+    ``ANEURYSM_HELD_OUT`` held-out ones (seed 12345) on ``tet_grid(grid)``.
+    Returns ((train, held-out, meta path), seconds)."""
+    import chip_fidelity
+
+    t0 = time.perf_counter()
+    train_dir, meta_path = chip_fidelity.write_aneurysm_inline(
+        f"{directory}/train", ANEURYSM_TRAJECTORIES, ANEURYSM_FRAMES, grid, seed=0)
+    held_out, _ = chip_fidelity.write_aneurysm_inline(
+        f"{directory}/held_out", ANEURYSM_HELD_OUT, ANEURYSM_FRAMES, grid, seed=12345)
+    return (train_dir, held_out, meta_path), time.perf_counter() - t0
+
+
+def previous_rollout_check(name, param, sim, frames, seed):
+    """The first ``CPU_FRAMES`` frames of the rollout with the previous-data
+    slice fed back, on the card against the CPU (equal weights), on the real
+    nodes; and the card's rollout without the feeding differs, so the slice
+    was fed."""
+    from graphphysics_torch.training import rollout
+
+    sim_cpu = build_transformer(param, seed, "cpu")
+    sim_cpu.load_state_dict({k: v.cpu() for k, v in sim.state_dict().items()})
+    host = frames[:CPU_FRAMES].to("cpu")
+    real = host.node_mask[0].bool()
+    want, _ = rollout(sim_cpu, host, device="cpu", **ANEURYSM_PREVIOUS)
+    got, _ = rollout(sim, host.to("cuda"), device="cuda", **ANEURYSM_PREVIOUS)
+    unfed, _ = rollout(sim, host.to("cuda"), device="cuda")
+    got, want, unfed = got.cpu()[:, real], want[:, real], unfed.cpu()[:, real]
+    err = (got - want).abs().max().item()
+    fed_effect = (got - unfed).abs().max().item()
+    result = {"cpu_frames_checked": CPU_FRAMES, "cpu_max_abs_err": err, "cpu_rtol": ROLLOUT_RTOL,
+              "cpu_atol": ROLLOUT_ATOL, "previous_data_feedback_max_abs_effect": fed_effect}
+    if not torch.allclose(got, want, rtol=ROLLOUT_RTOL, atol=ROLLOUT_ATOL):
+        raise AssertionError(f"{name}: card vs CPU rollout with previous data: {result}")
+    if not fed_effect > ROLLOUT_ATOL:
+        raise AssertionError(f"{name}: the previous-data slice changed nothing: {result}")
+    return result
+
+
+def aneurysm_pipeline(name, param, folders, counts, seed):
+    """An aneurysm config through the XDMF path on the card: ``get_dataset``
+    over the inline-XML folders (previous data, the aneurysm features, CSR
+    layout), both splits padded alike; the XDMF read and the preprocessing
+    of ``HOST_SAMPLES`` items timed apart; ``Trainer.fit`` for one epoch
+    with rollout validation; ``train`` on the loader's first batch (the
+    first step against the CPU from the epoch's normalizer statistics,
+    timed steps, launches, profile); the checkpoint reloaded into a fresh
+    ``Trainer`` and ``predict`` over the held-out trajectory; its first
+    frames against the CPU (the GMM head under shared draws). Launch counts
+    are zeroed before and checked after each of fit, the timed steps and
+    predict."""
+    import tempfile
+
+    import chip_fidelity
+    from graphphysics_torch.core import stack_graphs
+    from graphphysics_torch.dataset import GraphLoader
+    from graphphysics_torch.external import build_features
+    from graphphysics_torch.training import (
+        Trainer,
+        get_dataset,
+        get_preprocessing,
+        load_checkpoint,
+        rollout,
+    )
+
+    train_dir, held_out, meta_path = folders
+    blocks = param["model"]["message_passing_num"]
+    K = int(param["model"].get("num_mixture_components", 0))
+    param = json.loads(json.dumps(param))
+    param["dataset"].update(xdmf_folder=train_dir, meta_path=meta_path)
+    val_param = json.loads(json.dumps(param))
+    val_param["dataset"]["xdmf_folder"] = held_out
+
+    def dataset(p, val):
+        pre = get_preprocessing(p, use_edge_feature=False, remove_noise=val,
+                                extra_node_features=build_features)
+        return get_dataset(p, pre, use_edge_feature=False, use_previous_data=True, seed=seed)
+
+    train_ds, val_ds = dataset(param, False), dataset(val_param, True)
+    t0 = time.perf_counter()
+    chip_fidelity.unify_budgets(train_ds, val_ds)
+    budgets_s = time.perf_counter() - t0
+    read_s, pre_s = [], []
+    for i in range(HOST_SAMPLES):
+        t0 = time.perf_counter()
+        raw = train_ds._load(i)
+        t1 = time.perf_counter()
+        train_ds.preprocessing(raw, np.random.default_rng(i))
+        read_s.append(t1 - t0)
+        pre_s.append(time.perf_counter() - t1)
+    loader = GraphLoader(train_ds, batch_size=1, shuffle=True, seed=seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(param, learning_rate=1e-4, warmup=2, seed=seed, device="cuda",
+                          checkpoint_dir=tmp, metrics_path=None, rollout_dir=None,
+                          **ANEURYSM_PREVIOUS)
+        for fn in counts.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        history = trainer.fit(loader, val_dataset=val_ds, num_epochs=1)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_launches = {k: fn.launches for k, fn in counts.items()}
+        fit_steps = len(loader)
+        frames = val_ds.size_dataset * val_ds.frames_per_trajectory
+        want = {k: 0 for k in counts}
+        want["csr_attention"] = blocks * (fit_steps + frames)
+        want["csr_attention_backward"] = blocks * fit_steps
+        if fit_launches != want:
+            raise AssertionError(f"{name}: fit launches {fit_launches}, expected {want}")
+        values = history["train_loss"] + history["val_rmse"]
+        val_loss_ok = (trainer.last_val_loss is None) if K else math.isfinite(trainer.last_val_loss)
+        if not all(math.isfinite(v) for v in values) or not val_loss_ok:
+            raise AssertionError(f"{name}: history {history}, val_loss {trainer.last_val_loss}")
+        fresh = Trainer(param, seed=seed + 1, device="cuda", metrics_path=None, rollout_dir=None,
+                        **ANEURYSM_PREVIOUS)
+        fresh.init_state(1)
+        load_checkpoint(f"{tmp}/state.pt", fresh)
+
+    # a batch of one frame holds the time and the inflow statistics (x
+    # columns 4 and 11-13) constant: the normalizer's f32 variance of such a
+    # column, E[x^2] - E[x]^2, is round-off, and the normalized column
+    # differs from device to device (ROADMAP, faults of the port). The
+    # compared step starts from the statistics the epoch above accumulated
+    # over every training item, copied to both devices.
+    stats = {k: v.cpu() for k, v in trainer.sim.state_dict().items() if "_normalizer." in k}
+    batch = loader.peek()
+    steps = train(name, param, batch, counts,
+                  {"csr_attention": blocks, "csr_attention_backward": blocks}, seed,
+                  TRANSFORMER_GRAD_RTOL, graphs=1, stats=stats)
+
+    for fn in counts.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    preds = fresh.predict(val_ds, save_dir=None)
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    predict_launches = {k: fn.launches for k, fn in counts.items()}
+    want = {k: (blocks * frames if k == "csr_attention" else 0) for k in counts}
+    if predict_launches != want:
+        raise AssertionError(f"{name}: predict launches {predict_launches}, expected {want}")
+    shape = (val_ds.frames_per_trajectory, val_ds.node_budget, 3)
+    if not all(p.shape == shape and np.isfinite(p).all() for p in preds):
+        raise AssertionError(f"{name}: predictions {[p.shape for p in preds]}, expected {shape}")
+
+    held = stack_graphs([val_ds[i] for i in val_ds.trajectory_indices(0)])
+    held_dev = held.to("cuda")
+    generator = torch.Generator(device="cuda").manual_seed(seed) if K else None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rollout(fresh.sim, held_dev, device="cuda", generator=generator, **ANEURYSM_PREVIOUS)
+    torch.cuda.synchronize()
+    rollout_ms_per_frame = (time.perf_counter() - t0) / held.x.shape[0] * 1e3
+    if K:
+        cpu_check = shared_draws(name, param, fresh.sim, held, seed, previous=ANEURYSM_PREVIOUS)
+    else:
+        cpu_check = previous_rollout_check(name, param, fresh.sim, held, seed)
+    launches = {k: steps["launches"][k] + fit_launches[k] + predict_launches[k] for k in counts}
+    return {
+        "nodes": int(batch.node_mask.sum()),
+        "real_edges": steps["real_edges"],
+        "node_budget": train_ds.node_budget,
+        "edge_budget": train_ds.edge_budget,
+        "train_items": len(train_ds),
+        "held_out_frames": frames,
+        "budgets_s": budgets_s,
+        "host_read_ms_per_sample": float(np.mean(read_s)) * 1e3,
+        "host_preprocessing_ms_per_sample": float(np.mean(pre_s)) * 1e3,
+        "host_samples_timed": HOST_SAMPLES,
+        **{f"step_{k}": v for k, v in steps.items() if k not in ("graphs", "launches")},
+        "step_launches": steps["launches"],
+        "first_step_statistics": f"the {len(train_ds)} training items of the fit's epoch",
+        "fit_steps": fit_steps,
+        "fit_s": fit_s,
+        "fit_launches": fit_launches,
+        "train_loss": history["train_loss"],
+        "val_rmse": history["val_rmse"],
+        "val_loss": trainer.last_val_loss,
+        "predict_frames": frames,
+        "predict_ms_per_frame": predict_s / frames * 1e3,
+        "predict_launches": predict_launches,
+        "rollout_ms_per_frame": rollout_ms_per_frame,
+        **cpu_check,
+        "launches": launches,
+    }
+
+
+def fidelity_short(name, counts, seed):
+    """``FIDELITY_SHORT_EPOCHS`` epochs of ``chip_fidelity.run`` (the
+    aneurysm fidelity run, plain head) on the card: the training loss and
+    the held-out rollout RMSE fall, the RMSE finite."""
+    import tempfile
+
+    import chip_fidelity
+
+    for fn in counts.values():
+        fn.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        out = chip_fidelity.run(tmp, epochs=FIDELITY_SHORT_EPOCHS, device="cuda")
+    launches = {k: fn.launches for k, fn in counts.items()}
+    losses, rmse = out["train_loss_by_epoch"], out["val_all_rollout_rmse_by_epoch"]
+    if not (all(math.isfinite(v) for v in losses + rmse) and losses[-1] < losses[0]
+            and rmse[-1] < rmse[0]):
+        raise AssertionError(f"{name}: the loss or the rollout RMSE did not fall: {out}")
+    if launches["csr_attention"] == 0 or launches["csr_attention_backward"] == 0:
+        raise AssertionError(f"{name}: the fused kernels did not run: {launches}")
+    return {**out, "launches": launches}
 
 
 class RecordingLoader:
@@ -1739,6 +2000,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--frames", type=int, default=50)
+    parser.add_argument("--aneurysm-grid", type=int, default=ANEURYSM_GRID,
+                        help="tet_grid resolution of the XDMF phases: GRID^3 nodes (40 gives "
+                             "the 64,000-node mesh the default was cut from)")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -1955,6 +2219,37 @@ def main() -> int:
     emit({"phase": "gmm_pipeline", "model": f"{PANELS_CONFIG} with num_mixture_components 3",
           **gmm_pipeline("gmm_pipeline", panels_gmm, panels_trajectory, counts, args.seed)})
 
+    # 15. the XDMF path: both aneurysm configs from their own inline files ----------
+    import tempfile
+
+    from graphphysics_torch.topology import cells_to_edges
+    from graphphysics_torch.utils.synthetic import tet_grid
+
+    aneurysm_paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        grid = args.aneurysm_grid
+        folders, write_s = aneurysm_folders(tmp, grid)
+        tets = tet_grid(grid)[1]
+        sizes = {"grid": grid, "nodes": grid ** 3, "tetrahedra": len(tets),
+                 "directed_edges": len(cells_to_edges(tets)[0]), "frames": ANEURYSM_FRAMES,
+                 "train_trajectories": ANEURYSM_TRAJECTORIES,
+                 "held_out_trajectories": ANEURYSM_HELD_OUT, "inline_write_s": write_s}
+        for path in ANEURYSM_CONFIGS:
+            param = load_config(path)
+            label = f"aneurysm_xdmf_pipeline:{os.path.basename(path)}"
+            t0 = time.perf_counter()
+            result = aneurysm_pipeline(label, param, folders, counts, args.seed)
+            if (result["nodes"], result["real_edges"]) != (sizes["nodes"], sizes["directed_edges"]):
+                raise AssertionError(f"{label}: graph of {result['nodes']} nodes and "
+                                     f"{result['real_edges']} edges, expected {sizes}")
+            aneurysm_paths[label] = result
+            emit({"phase": "aneurysm_xdmf_pipeline", "config": path, **sizes, **result,
+                  "phase_s": time.perf_counter() - t0})
+
+    # 16. two epochs of the aneurysm fidelity run -------------------------------------
+    emit({"phase": "aneurysm_fidelity_short",
+          **fidelity_short("aneurysm_fidelity_short", counts, args.seed)})
+
     def entry(name, source, replaces, launches, shapes, tolerance, **extra):
         main = shapes[1]  # the 8 x 2,048 batch: the training path's shape
         return {
@@ -1975,8 +2270,11 @@ def main() -> int:
             "shapes": shapes,
         }
 
-    # launches of the training paths, each counted from 0 over its timed steps
-    paths = {"epd_training": epd_train, "transformer_training": tf_train, "gmm_training": gmm_train}
+    # launches of the training paths, each counted from 0 over its timed
+    # steps, and of the XDMF pipelines (timed steps, fit and predict, each
+    # counted from 0)
+    paths = {"epd_training": epd_train, "transformer_training": tf_train, "gmm_training": gmm_train,
+             **aneurysm_paths}
     launched = {k: sum(r["launches"][k] for r in paths.values()) for k in counts}
     by_path = {k: {p: r["launches"][k] for p, r in paths.items() if r["launches"][k]} for k in counts}
     off_path = {"main_path_launches": 0,

@@ -16,7 +16,8 @@ import argparse
 import json
 import sys
 
-from graphphysics_torch.cli.train import refuse_not_ported
+from graphphysics_torch.cli.train import previous_data_options, refuse_not_ported
+from graphphysics_torch.external import EXTERNAL_FEATURES
 from graphphysics_torch.training.checkpoint import load_checkpoint
 from graphphysics_torch.training.parse_parameters import get_dataset, get_preprocessing
 from graphphysics_torch.training.trainer import Trainer
@@ -32,7 +33,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--previous_data_end", type=int, default=7)
     p.add_argument("--no_edge_feature", action="store_true")
     p.add_argument("--max_trajectories", type=int, default=None)
-    p.add_argument("--external_features", default=None, choices=[None, "aneurysm", "bezier"])
+    p.add_argument("--external_features", default=None, choices=[None, *EXTERNAL_FEATURES],
+                   help="dataset-specific node-feature hook (graphphysics_torch/external)")
     p.add_argument("--graph_partition", type=int, default=0)
     p.add_argument("--partition_mode", default="halo", choices=["halo", "gather"])
     p.add_argument("--partition_reorder", default=None, choices=["rcm", "bfs", "hilbert", "none"])
@@ -42,8 +44,6 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 NOT_PORTED = (
-    ("use_previous_data", False, 3),
-    ("external_features", None, 10),
     ("graph_partition", 0, 14),
     ("partition_mode", "halo", 14),
     ("partition_reorder", None, 14),
@@ -61,11 +61,14 @@ def main(argv=None) -> int:
     use_edge_feature = not args.no_edge_feature
     ds = get_dataset(
         parameters,
-        get_preprocessing(parameters, use_edge_feature=use_edge_feature, remove_noise=True),
+        get_preprocessing(parameters, use_edge_feature=use_edge_feature, remove_noise=True,
+                          extra_node_features=EXTERNAL_FEATURES.get(args.external_features)),
         use_edge_feature=use_edge_feature,
+        use_previous_data=args.use_previous_data,
         switch_to_val=True,
     )
-    trainer = Trainer(parameters, metrics_path=None, rollout_dir=None, device=args.device)
+    trainer = Trainer(parameters, metrics_path=None, rollout_dir=None, device=args.device,
+                      **previous_data_options(args))
     trainer.init_state(num_steps=1)
     load_checkpoint(args.model_path, trainer.sim)
     trainer.predict(ds, save_dir=args.save_dir, max_trajectories=args.max_trajectories)

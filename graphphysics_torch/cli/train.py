@@ -17,6 +17,7 @@ import sys
 from typing import Sequence, Tuple
 
 from graphphysics_torch.dataset import GraphLoader
+from graphphysics_torch.external import EXTERNAL_FEATURES
 from graphphysics_torch.training.parse_parameters import get_dataset, get_preprocessing
 from graphphysics_torch.training.trainer import Trainer
 from graphphysics_torch.utils.metrics import WandbLogger
@@ -66,7 +67,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--progress", default="auto", choices=["auto", "on", "off"],
                    help="in-place per-epoch progress line (auto: TTY only)")
     p.add_argument("--compilation_cache_dir", default=None)
-    p.add_argument("--external_features", default=None, choices=[None, "aneurysm", "bezier"])
+    p.add_argument("--external_features", default=None, choices=[None, *EXTERNAL_FEATURES],
+                   help="dataset-specific node-feature hook (graphphysics_torch/external)")
     p.add_argument("--device", default="cuda", help="torch device (cuda unless named)")
     return p
 
@@ -75,7 +77,6 @@ def build_argparser() -> argparse.ArgumentParser:
 NOT_PORTED: Tuple[Tuple[str, object, int], ...] = (
     ("prefetch_factor", 2, 3),
     ("num_workers", 0, 3),
-    ("use_previous_data", False, 3),
     ("masking_ratio", None, 3),
     ("data_parallel", False, 13),
     ("gradient_accumulation", False, 11),
@@ -90,7 +91,6 @@ NOT_PORTED: Tuple[Tuple[str, object, int], ...] = (
     ("checkpoint_backend", "torch", 4),
     ("profile_dir", None, 12),
     ("compilation_cache_dir", None, 12),
-    ("external_features", None, 10),
 )
 
 
@@ -103,6 +103,15 @@ def refuse_not_ported(parser: argparse.ArgumentParser, args: argparse.Namespace,
             parser.error(f"--{dest} is not ported yet (ROADMAP.md section 1, item {item})")
 
 
+def previous_data_options(args: argparse.Namespace) -> dict:
+    """The Trainer's previous-data options of ``--use_previous_data``,
+    ``--previous_data_start`` and ``--previous_data_end``."""
+    if not args.use_previous_data:
+        return {}
+    return {"use_previous_data": True, "previous_data_start": args.previous_data_start,
+            "previous_data_end": args.previous_data_end}
+
+
 def main(argv=None) -> int:
     parser = build_argparser()
     args = parser.parse_args(argv)
@@ -111,14 +120,18 @@ def main(argv=None) -> int:
         parameters = json.load(fp)
 
     use_edge_feature = not args.no_edge_feature
+    extra = EXTERNAL_FEATURES.get(args.external_features)
     train_ds = get_dataset(
-        parameters, get_preprocessing(parameters, use_edge_feature=use_edge_feature),
-        use_edge_feature=use_edge_feature,
+        parameters,
+        get_preprocessing(parameters, use_edge_feature=use_edge_feature, extra_node_features=extra),
+        use_edge_feature=use_edge_feature, use_previous_data=args.use_previous_data,
     )
     val_ds = get_dataset(
         parameters,
-        get_preprocessing(parameters, use_edge_feature=use_edge_feature, remove_noise=True),
-        use_edge_feature=use_edge_feature, switch_to_val=True, edge_layout=train_ds.edge_layout,
+        get_preprocessing(parameters, use_edge_feature=use_edge_feature, remove_noise=True,
+                          extra_node_features=extra),
+        use_edge_feature=use_edge_feature, use_previous_data=args.use_previous_data,
+        switch_to_val=True, edge_layout=train_ds.edge_layout,
     )
     # one padded shape for both splits (a val trajectory may be larger than
     # every train one): the budgets derive at the first item, then take the
@@ -161,6 +174,7 @@ def main(argv=None) -> int:
         save_every_n_steps=args.save_every_n_steps,
         progress={"auto": None, "on": True, "off": False}[args.progress],
         device=args.device,
+        **previous_data_options(args),
     )
     trainer.fit(
         loader,

@@ -8,6 +8,7 @@ from graphphysics_torch.dataset.h5_dataset import (
 from graphphysics_torch.dataset.loader import GraphLoader
 from graphphysics_torch.dataset.preprocessing import Pipeline, add_noise, build_preprocessing
 from graphphysics_torch.dataset.sample import RawSample, meshdata_to_sample
+from graphphysics_torch.dataset.xdmf_dataset import XDMFDataset
 
 __all__ = [
     "EDGE_LAYOUTS",
@@ -16,6 +17,7 @@ __all__ = [
     "H5Dataset",
     "Pipeline",
     "RawSample",
+    "XDMFDataset",
     "add_noise",
     "build_preprocessing",
     "frame_to_sample",

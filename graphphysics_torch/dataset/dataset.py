@@ -8,7 +8,9 @@ one shape and independent processes derive the same one. Edges are laid out
 for the model's kernel: ``"sorted"`` sorts them by receiver and attaches
 ``row_bounds`` (EncodeProcessDecode, the segment-sum kernel), ``"csr"`` sorts
 them by sender and attaches ``sender_bounds`` (EncodeTransformDecode, the
-attention kernel). k-hop edges, random edges, node masking, size buckets and
+attention kernel). With ``use_previous_data`` every item also carries the
+frame before it (``RawSample.previous_data``), so a trajectory's first
+frame is not an item. k-hop edges, random edges, node masking, size buckets and
 the ELL layout raise ``NotImplementedError``: they come with later slices.
 """
 
@@ -55,6 +57,7 @@ class BaseDataset(abc.ABC):
         khop: int = 1,
         new_edges_ratio: float = 0.0,
         add_edge_features: bool = True,
+        use_previous_data: bool = False,
         node_type_index: Optional[int] = None,
         node_budget: Optional[int] = None,
         edge_budget: Optional[int] = None,
@@ -85,6 +88,7 @@ class BaseDataset(abc.ABC):
         self.trajectory_length: int = self.meta["trajectory_length"]
         self.preprocessing = preprocessing
         self.add_edge_features = add_edge_features
+        self.use_previous_data = use_previous_data
         self.node_type_index = node_type_index
         self.node_budget = node_budget
         self.edge_budget = edge_budget
@@ -120,16 +124,18 @@ class BaseDataset(abc.ABC):
 
     @property
     def frames_per_trajectory(self) -> int:
-        """Usable frames per trajectory: T - 1 (each needs the next as target)."""
-        return self.trajectory_length - 1
+        """Usable frames per trajectory: T - 1 (each needs the next as
+        target), one fewer with previous data (frame 0 has none before it)."""
+        return self.trajectory_length - 1 - int(self.use_previous_data)
 
     def __len__(self) -> int:
         return self.size_dataset * self.frames_per_trajectory
 
     def get_traj_frame(self, index: int) -> Tuple[int, int]:
-        """Flat index -> (trajectory, frame)."""
+        """Flat index -> (trajectory, frame); with previous data the usable
+        frames start at frame 1."""
         per = self.frames_per_trajectory
-        return index // per, index % per
+        return index // per, index % per + int(self.use_previous_data)
 
     def trajectory_indices(self, traj_index: int) -> List[int]:
         per = self.frames_per_trajectory

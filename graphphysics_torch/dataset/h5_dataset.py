@@ -168,7 +168,10 @@ class H5Dataset(BaseDataset):
 
     def _load(self, index: int) -> RawSample:
         traj_index, frame = self.get_traj_frame(index)
-        sample = frame_to_sample(self._trajectory(traj_index), frame, self.meta, frame_target=frame + 1)
+        traj = self._trajectory(traj_index)
+        sample = frame_to_sample(traj, frame, self.meta, frame_target=frame + 1)
+        if self.use_previous_data:
+            sample.previous_data = frame_to_sample(traj, frame - 1, self.meta).x
         # h5 trajectories have no mesh name: ``id`` stays None
         sample.traj_index = traj_index
         return sample

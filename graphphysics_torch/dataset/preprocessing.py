@@ -1,7 +1,8 @@
 """Host-side preprocessing pipeline (counterpart of
 ``graphphysics_tpu/dataset/preprocessing.py``) for the steps that training
 and prediction run on a mesh dataset: FaceToEdge, the Cartesian + Distance
-edge features and the training noise. World-position features and the other
+edge features, the training noise and the hooks of dataset-specific
+features (``graphphysics_torch/external``). World-position features and the other
 transforms come with later slices. Randomness comes from the
 ``numpy.random.Generator`` each step is handed, drawn in the JAX package's
 order, so the same generator gives the same noise."""
@@ -70,14 +71,20 @@ def add_noise(
 
 
 def build_preprocessing(
-    noise_parameters: Optional[dict] = None, add_edges_features: bool = True
+    noise_parameters: Optional[dict] = None,
+    add_edges_features: bool = True,
+    extra_node_features: Optional[Union[Transform, List[Transform]]] = None,
 ) -> "Pipeline":
-    """FaceToEdge, then the edge features unless ``add_edges_features`` is
-    false (a model without edge inputs): the pipeline of a dataset without
-    world-position parameters. ``noise_parameters`` (``noise_index_start``,
-    ``noise_index_end``, ``noise_scale``, ``node_type_index``) inserts
-    ``add_noise`` at position 1, after FaceToEdge, as the JAX package does."""
-    steps: List[Transform] = [apply_face_to_edge]
+    """The pipeline of a dataset without world-position parameters, in the
+    JAX package's order: the ``extra_node_features`` hooks (one transform
+    or a list), FaceToEdge, then the edge features unless
+    ``add_edges_features`` is false (a model without edge inputs).
+    ``noise_parameters`` (``noise_index_start``, ``noise_index_end``,
+    ``noise_scale``, ``node_type_index``) inserts ``add_noise`` at position
+    1, after the first step."""
+    hooks = extra_node_features if extra_node_features is not None else []
+    steps: List[Transform] = list(hooks) if isinstance(hooks, list) else [hooks]
+    steps.append(apply_face_to_edge)
     if add_edges_features:
         steps.append(add_edge_features)
     if noise_parameters is not None:

@@ -6,9 +6,11 @@ a ``core.graph.Graph``."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Union
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
+
+from graphphysics_torch.topology import tetra_to_faces
 
 
 @dataclasses.dataclass
@@ -18,12 +20,17 @@ class RawSample:
     x: np.ndarray  # [N, F] node features
     pos: np.ndarray  # [N, D]
     faces: Optional[np.ndarray] = None  # [F, 3] triangles
+    tetra: Optional[np.ndarray] = None  # [T, 4]
     senders: Optional[np.ndarray] = None  # [E]
     receivers: Optional[np.ndarray] = None
     edge_attr: Optional[np.ndarray] = None  # [E, Fe]
     y: Optional[np.ndarray] = None  # [N, Fo]
+    # the previous frame: its x ([N, F], h5) or its dynamic fields (XDMF)
+    previous_data: Optional[Any] = None
     traj_index: int = 0  # the trajectory the frame comes from
     id: Optional[str] = None  # the mesh's name, where the format has one (XDMF)
+    target_dt: Optional[float] = None  # time to the target frame (XDMF)
+    previous_dt: Optional[float] = None  # time to the previous frame, negative (XDMF)
 
     @property
     def num_nodes(self) -> int:
@@ -51,8 +58,8 @@ def meshdata_to_sample(
     target: Optional[Dict[str, np.ndarray]] = None,
     id: Optional[str] = None,
 ) -> RawSample:
-    """Build a RawSample from triangle-mesh arrays (tetrahedral cells come
-    with a later slice of the port)."""
+    """Build a RawSample from mesh arrays; tetrahedral cells are kept as
+    ``tetra`` and expanded to their triangle faces."""
     points = np.asarray(points)
     n = len(points)
     x = (
@@ -66,12 +73,15 @@ def meshdata_to_sample(
             np.float32
         )
     cells = np.asarray(cells)
-    if cells.ndim != 2 or cells.shape[-1] != 3:
-        raise ValueError(f"cells must be [F, 3] triangles, got {cells.shape}")
+    if cells.ndim != 2 or cells.shape[-1] not in (3, 4):
+        raise ValueError(f"cells must be [F, 3] triangles or [T, 4] tetrahedra, got {cells.shape}")
+    tetra = cells if cells.shape[-1] == 4 else None
+    faces = cells if tetra is None else tetra_to_faces(tetra)
     return RawSample(
         x=x,
         pos=points.astype(np.float32),
-        faces=cells.astype(np.int64),
+        faces=faces.astype(np.int64),
+        tetra=None if tetra is None else tetra.astype(np.int64),
         y=y,
         id=id,
     )

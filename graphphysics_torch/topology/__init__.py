@@ -2,6 +2,7 @@ from graphphysics_torch.topology.build import (
     cartesian_distance_features,
     cells_to_edges,
     face_to_edge,
+    tetra_to_faces,
     to_undirected,
 )
 
@@ -9,5 +10,6 @@ __all__ = [
     "cartesian_distance_features",
     "cells_to_edges",
     "face_to_edge",
+    "tetra_to_faces",
     "to_undirected",
 ]

@@ -1,7 +1,8 @@
 """Host-side mesh-topology construction (numpy), the counterpart of
-``graphphysics_tpu/topology/build.py`` for triangle meshes:
+``graphphysics_tpu/topology/build.py`` for triangle and tetrahedral meshes:
 
 - PyG ``T.FaceToEdge`` (undirected, deduplicated edges of each triangle);
+- the expansion of tetrahedra into their four triangle faces;
 - PyG ``T.Cartesian(norm=False) + T.Distance(norm=False)`` edge features.
 """
 
@@ -16,12 +17,19 @@ def to_undirected(
     senders: np.ndarray, receivers: np.ndarray
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Union of both edge directions, without self loops, deduplicated and
-    sorted by (sender, receiver)."""
-    s = np.concatenate([senders, receivers])
-    r = np.concatenate([receivers, senders])
+    sorted by (sender, receiver). The pairs are deduplicated as one int64
+    key ``sender * n + receiver`` each, whose ascending order is the
+    lexicographic order of the pairs: the result of ``np.unique(pairs,
+    axis=0)`` without its row sort."""
+    s = np.concatenate([senders, receivers]).astype(np.int64)
+    r = np.concatenate([receivers, senders]).astype(np.int64)
     keep = s != r
-    pairs = np.unique(np.stack([s[keep], r[keep]], axis=1), axis=0)
-    return pairs[:, 0].astype(np.int32), pairs[:, 1].astype(np.int32)
+    s, r = s[keep], r[keep]
+    if not len(s):
+        return s.astype(np.int32), r.astype(np.int32)
+    n = int(max(s.max(), r.max())) + 1
+    key = np.unique(s * n + r)
+    return (key // n).astype(np.int32), (key % n).astype(np.int32)
 
 
 def face_to_edge(faces: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -35,12 +43,22 @@ def face_to_edge(faces: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return to_undirected(s, r)
 
 
+def tetra_to_faces(tetra: np.ndarray) -> np.ndarray:
+    """Tetrahedra ``[T, 4]`` -> their 4 triangle faces, ``[4T, 3]``: the
+    faces (0,1,2) of every tetrahedron, then (1,2,3), (2,3,0) and (3,0,1)."""
+    t = np.asarray(tetra)
+    if t.ndim != 2 or t.shape[-1] != 4:
+        raise ValueError(f"expected [T, 4] tetrahedra, got {t.shape}")
+    return np.concatenate(
+        [t[:, [0, 1, 2]], t[:, [1, 2, 3]], t[:, [2, 3, 0]], t[:, [3, 0, 1]]], axis=0
+    )
+
+
 def cells_to_edges(cells: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """Triangle cells -> undirected mesh edge list (tetrahedra come with a
-    later slice of the port)."""
+    """Triangle or tetrahedron cells -> undirected mesh edge list."""
     cells = np.asarray(cells)
-    if cells.shape[-1] != 3:
-        raise ValueError(f"only triangle cells are supported, got {cells.shape}")
+    if cells.shape[-1] == 4:
+        cells = tetra_to_faces(cells)
     return face_to_edge(cells)
 
 

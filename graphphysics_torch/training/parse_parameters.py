@@ -3,20 +3,23 @@
 ``get_preprocessing``, ``get_model``, ``get_simulator_config``,
 ``get_simulator``, ``edge_layout`` and ``get_dataset`` for the
 configurations the port trains and serves today: float32, the plain (K = 0)
-decoder or a GMM head, h5 datasets. A key that asks for more raises
+decoder or a GMM head, h5 and XDMF datasets, previous-frame data and the
+dataset-specific feature hooks. A key that asks for more raises
 ``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Union
 
 from torch import nn
 
 from graphphysics_torch.core.device import DeviceLike
 from graphphysics_torch.core.nodetype import NodeType
+from graphphysics_torch.dataset.dataset import BaseDataset
 from graphphysics_torch.dataset.h5_dataset import H5Dataset
 from graphphysics_torch.dataset.preprocessing import Pipeline, build_preprocessing
+from graphphysics_torch.dataset.xdmf_dataset import XDMFDataset
 from graphphysics_torch.models.processors import EncodeProcessDecode, EncodeTransformDecode
 from graphphysics_torch.models.simulator import Simulator, SimulatorConfig
 
@@ -26,10 +29,14 @@ def _waits(what: str, item: str) -> NotImplementedError:
 
 
 def get_preprocessing(
-    param: Dict[str, Any], use_edge_feature: bool = True, remove_noise: bool = False
+    param: Dict[str, Any],
+    use_edge_feature: bool = True,
+    remove_noise: bool = False,
+    extra_node_features: Optional[Union[Callable, List[Callable]]] = None,
 ) -> Pipeline:
-    """The preprocessing pipeline of ``param``: FaceToEdge, plus the edge
-    features when ``use_edge_feature``, plus the training noise of
+    """The preprocessing pipeline of ``param``: the ``extra_node_features``
+    hooks (``graphphysics_torch.external``), FaceToEdge, the edge features
+    when ``use_edge_feature``, and the training noise of
     ``transformations.preprocessing`` unless ``remove_noise`` (prediction
     and validation) or its scale is 0. World-position edges wait."""
     pre = param.get("transformations", {}).get("preprocessing", {})
@@ -44,7 +51,11 @@ def get_preprocessing(
             "noise_scale": noise_scale,
             "node_type_index": param["index"]["node_type_index"],
         }
-    return build_preprocessing(noise_parameters=noise_parameters, add_edges_features=use_edge_feature)
+    return build_preprocessing(
+        noise_parameters=noise_parameters,
+        add_edges_features=use_edge_feature,
+        extra_node_features=extra_node_features,
+    )
 
 
 def gmm_options(param: Dict[str, Any]) -> Dict[str, Any]:
@@ -154,35 +165,42 @@ def get_dataset(
     switch_to_val: bool = False,
     edge_layout: Optional[str] = None,
     **budget_kwargs,
-) -> H5Dataset:
-    """The dataset of ``param["dataset"]`` (``extension`` "h5"), in the
-    model's edge layout (``edge_layout``, which a layout asked for here must
-    resolve to), with the config's ``bucket_multiple`` and
+) -> BaseDataset:
+    """The dataset of ``param["dataset"]``: an ``H5Dataset`` (``extension``
+    "h5", ``h5_path``) or an ``XDMFDataset`` ("xdmf", ``xdmf_folder`` with
+    the config's ``random_prev``, ``random_next`` and ``dt_features``), in
+    the model's edge layout (``edge_layout``, which a layout asked for here
+    must resolve to), with the config's ``bucket_multiple`` and
     ``edge_headroom``; ``budget_kwargs`` override them and may give
-    ``node_budget``, ``edge_budget`` and ``seed``. Node masking and
-    ``use_previous_data`` are not ported yet."""
+    ``node_budget``, ``edge_budget`` and ``seed``. ``use_previous_data``
+    gives every item the frame before it. Node masking is not ported yet."""
     if masking_ratio is not None:
         raise _waits("node masking (masking_ratio)", "item 3, host data")
-    if use_previous_data:
-        raise _waits("use_previous_data", "item 3, host data")
     dataset_params = param.get("dataset", {})
     extension = dataset_params.get("extension", "")
-    if extension == "xdmf":
-        raise _waits("the XDMF datasets", "item 10, XDMF path")
-    if extension != "h5":
+    if extension not in ("h5", "xdmf"):
         raise ValueError(f"Dataset extension {extension!r} not supported.")
     for k in ("bucket_multiple", "edge_headroom", "num_buckets"):
         if k not in budget_kwargs and dataset_params.get(k) is not None:
             budget_kwargs[k] = dataset_params[k]
-    return H5Dataset(
-        h5_path=dataset_params["h5_path"],
+    common = dict(
         meta_path=dataset_params["meta_path"],
         switch_to_val=switch_to_val,
         preprocessing=preprocessing,
         khop=dataset_params.get("khop", 1),
         new_edges_ratio=dataset_params.get("new_edges_ratio", 0),
         add_edge_features=use_edge_feature,
+        use_previous_data=use_previous_data,
         node_type_index=param["index"]["node_type_index"],
         edge_layout=_edge_layout(param, edge_layout),
         **budget_kwargs,
+    )
+    if extension == "h5":
+        return H5Dataset(h5_path=dataset_params["h5_path"], **common)
+    return XDMFDataset(
+        xdmf_folder=dataset_params["xdmf_folder"],
+        random_next=dataset_params.get("random_next", 1),
+        random_prev=dataset_params.get("random_prev", 1),
+        dt_features=dataset_params.get("dt_features", False),
+        **common,
     )

@@ -3,7 +3,9 @@
 Python loop over frames that stay on the device:
 
 - the first frame is fed its own input, every later frame the previous
-  prediction in ``x[:, output_index_start:output_index_end]``;
+  prediction in ``x[:, output_index_start:output_index_end]``, and with
+  previous data the difference ``predicted - current_output`` of the frame
+  before in ``x[:, previous_data_start:previous_data_end]``;
 - boundary clamping ``predicted[mask] = y[mask]`` with
   ``mask = NOT(NORMAL | OUTFLOW)``.
 
@@ -80,14 +82,24 @@ def stacked_trajectory(
 
 
 def rollout(
-    sim, frames: Graph, device: DeviceLike = None, generator: Optional[torch.Generator] = None
+    sim,
+    frames: Graph,
+    device: DeviceLike = None,
+    generator: Optional[torch.Generator] = None,
+    use_previous_data: bool = False,
+    previous_data_start: Optional[int] = None,
+    previous_data_end: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Autoregressive rollout of ``sim`` over stacked trajectory frames
     (leaves ``[T, ...]``), on ``device`` (``cuda`` unless named). Every
     output column ``output_index_start:output_index_end`` is fed back, also
     those the model does not read as features (panels: outputs 0:3,
-    features 0:2). A GMM head samples each frame from ``generator``, in
-    frame order (required for K > 0; its device may differ from ``device``).
+    features 0:2). With ``use_previous_data`` the columns
+    ``previous_data_start:previous_data_end`` (as wide as the output) are
+    fed too: their own value on the first frame, then the last prediction
+    minus the output columns it was predicted from. A GMM head samples each
+    frame from ``generator``, in frame order (required for K > 0; its
+    device may differ from ``device``).
 
     Returns ``(predictions [T, N, d], targets [T, N, d])`` on the device,
     with boundary-clamped predictions."""
@@ -97,19 +109,30 @@ def rollout(
         raise ValueError(f"simulator is on {param.device}, rollout asked for {dev}")
     cfg = sim.config
     os_, oe = cfg.output_index_start, cfg.output_index_end
+    ps, pe = previous_data_start, previous_data_end
+    if use_previous_data and (ps is None or pe is None or pe - ps != oe - os_):
+        raise ValueError(
+            f"previous_data_start:previous_data_end ({ps}:{pe}) must be as wide as the "
+            f"output ({os_}:{oe})"
+        )
     frames = frames.to(dev)
     predictions, targets = [], []
-    predicted = None
+    predicted = previous = None
     with torch.inference_mode():
         for t in range(frames.x.shape[0]):
             g = frames[t]
             if predicted is not None:
                 x = g.x.clone()
                 x[:, os_:oe] = predicted
+                if use_previous_data:
+                    x[:, ps:pe] = previous
                 g = g.replace(x=x)
             mask = build_mask(g.x[:, cfg.node_type_index].to(torch.int64))
+            current_output = g.x[:, os_:oe]
             _, _, predicted = sim(g, generator=generator)
             predicted = torch.where(mask[:, None], g.y, predicted)
+            if use_previous_data:
+                previous = predicted - current_output
             predictions.append(predicted)
             targets.append(g.y)
     return torch.stack(predictions), torch.stack(targets)

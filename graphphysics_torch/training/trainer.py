@@ -31,8 +31,13 @@ the loader's deterministic stream from there, so a resumed run ends where
 the uninterrupted one does. A mid-epoch save also records the epoch's loss
 sum so far, so the resumed epoch reports the mean over all its batches.
 
-Data parallelism, graph partitioning, gradient accumulation, the profiler
-and ``use_previous_data`` come with later slices: asking for one raises
+With ``use_previous_data`` the rollouts of ``validate`` and ``predict``
+feed ``x[:, previous_data_start:previous_data_end]`` (``rollout``), and the
+written rollout series start at ``2 * dt``: the first frame with a frame
+before it.
+
+Data parallelism, graph partitioning, gradient accumulation and the profiler
+come with later slices: asking for one raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 
@@ -66,9 +71,6 @@ WEIGHT_DECAY = 1e-4
 # options of the JAX Trainer that the port does not have yet: the value
 # that leaves each off, and the ROADMAP.md section 1 item that brings it
 _NOT_PORTED = {
-    "use_previous_data": (False, 3),
-    "previous_data_start": (None, 3),
-    "previous_data_end": (None, 3),
     "data_parallel": (False, 13),
     "gradient_accumulation": (False, 11),
     "graph_partition": (0, 14),
@@ -115,6 +117,9 @@ class Trainer:
         warmup: int = 1000,
         num_steps: Optional[int] = None,
         masks: Sequence[int] = (NodeType.NORMAL, NodeType.OUTFLOW),
+        use_previous_data: bool = False,
+        previous_data_start: Optional[int] = None,
+        previous_data_end: Optional[int] = None,
         checkpoint_dir: str = "checkpoints",
         checkpoint_name: str = "state.pt",
         metrics_path: Optional[str] = "metrics.csv",
@@ -141,6 +146,9 @@ class Trainer:
         self.warmup = warmup
         self.num_steps = num_steps
         self.masks = [int(m) for m in masks]
+        self.use_previous_data = use_previous_data
+        self.previous_data_start = previous_data_start
+        self.previous_data_end = previous_data_end
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_name = checkpoint_name
         self.metrics = CSVMetricsLogger(metrics_path) if metrics_path else None
@@ -331,7 +339,10 @@ class Trainer:
         ``trajectory_generator(seed, traj)``."""
         frames = stack_graphs([dataset[i] for i in dataset.trajectory_indices(traj)]).to(self.device)
         gen = trajectory_generator(seed, traj, self.device) if self.K else None
-        preds, targets = rollout(self.sim, frames, device=self.device, generator=gen)
+        preds, targets = rollout(self.sim, frames, device=self.device, generator=gen,
+                                 use_previous_data=self.use_previous_data,
+                                 previous_data_start=self.previous_data_start,
+                                 previous_data_end=self.previous_data_end)
         return frames, preds, targets
 
     def validate(self, val_dataset, epoch: int = 0, max_trajectories: Optional[int] = None,
@@ -378,14 +389,17 @@ class Trainer:
     def _write_rollout_series(self, dataset, traj: int, preds: np.ndarray,
                               make_path: Callable[[str], str]) -> None:
         """Write a predicted trajectory as an XDMF time series on its raw
-        mesh; ``make_path(name)`` maps the mesh's id (the trajectory number
-        where the format has none) to the file."""
+        mesh (its tetrahedra where it has them, else its triangles), the
+        first frame at ``dt`` (``2 * dt`` with previous data) and one every
+        ``dt`` of the dataset; ``make_path(name)`` maps the mesh's id (the
+        trajectory number where the format has none) to the file."""
         raw = dataset._load(dataset.trajectory_indices(traj)[0])
+        cells = raw.tetra if raw.tetra is not None else raw.faces
         name = raw.id if raw.id else str(traj)
         dt = getattr(dataset, "dt", 1.0) or 1.0
         with XdmfTimeSeriesWriter(make_path(name)) as w:
-            w.write_points_cells(raw.pos, raw.faces)
-            t = dt
+            w.write_points_cells(raw.pos, cells)
+            t = 2 * dt if self.use_previous_data else dt
             for k in range(preds.shape[0]):
                 w.write_data(t, {"prediction": preds[k, : raw.num_nodes]})
                 t += dt

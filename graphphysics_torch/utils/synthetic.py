@@ -1,11 +1,16 @@
-"""Synthetic trajectories with the CylinderFlow and panels schemas
-(counterpart of part of ``graphphysics_tpu/utils/synthetic.py``), built in
-memory: the trajectory dict and meta that ``write_cylinder_h5`` and
-``write_panels_xdmf`` would give a reader, without the files."""
+"""Synthetic trajectories with the CylinderFlow, panels and aneurysm schemas
+(counterpart of part of ``graphphysics_tpu/utils/synthetic.py``). The array
+builders work in memory: each gives the trajectory dict and meta that a
+reader of the JAX package's ``write_cylinder_h5``, ``write_panels_xdmf`` or
+``write_aneurysm_xdmf`` files would see. ``write_panels_xdmf`` and
+``write_aneurysm_xdmf`` write those files (XDMF with HDF5 heavy data, which
+needs ``h5py``) exactly as the JAX package does."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import json
+import os
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -94,15 +99,15 @@ def panels_meta(steps: int) -> Dict[str, Any]:
 
 
 def panels_trajectory(
-    steps: int = 12, nx: int = 12, ny: int = 8, phase0: float = 0.0
+    steps: int = 12, nx: int = 12, ny: int = 8, phase0: float = 0.0, amp: float = 1.0
 ) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
     """One panels trajectory in memory: ``(traj, meta)`` with ``cells``,
     ``mesh_pos``, ``VitesseCoarse [T,N,3]`` (the third component zero) and a
     static ``NodeTypeCoarse [T,N,1]`` holding a square WALL panel inside the
     flow, where the velocity is zero. These are the arrays, in meta order,
     that ``write_panels_xdmf`` writes for a trajectory of phase ``phase0``
-    and amplitude 1 (its trajectory ``k`` without a seed has phase
-    ``0.15 * k``)."""
+    and amplitude ``amp`` (its trajectory ``k`` without a seed has phase
+    ``0.15 * k`` and amplitude 1)."""
     points, tris = triangulated_grid(nx, ny)
     nt = cylinder_node_types(points)
     panel = (np.abs(points[:, 0] - 0.4) < 0.12) & (np.abs(points[:, 1] - 0.5) < 0.15)
@@ -110,7 +115,7 @@ def panels_trajectory(
     damp = (1.0 - (nt == int(NodeType.WALL_BOUNDARY)))[:, None]
     zero = np.zeros((len(points), 1), np.float32)
     vit = [
-        (np.concatenate([synth_velocity(points, 0.05 * t + phase0), zero], axis=1) * damp)
+        (np.concatenate([amp * synth_velocity(points, 0.05 * t + phase0), zero], axis=1) * damp)
         for t in range(steps)
     ]
     traj = {
@@ -120,3 +125,145 @@ def panels_trajectory(
         "NodeTypeCoarse": np.repeat(nt[None, :, None], steps, axis=0),
     }
     return traj, panels_meta(steps)
+
+
+def panels_conditions(num_traj: int, seed: Optional[int] = None) -> List[Tuple[float, float]]:
+    """The ``(phase0, amp)`` of each trajectory of ``write_panels_xdmf``:
+    ``(0.15 * k, 1)`` without a seed, else drawn from
+    ``default_rng(seed)`` in trajectory order."""
+    if seed is None:
+        return [(0.15 * k, 1.0) for k in range(num_traj)]
+    rng = np.random.default_rng(seed)
+    return [(float(rng.uniform(0.0, 1.0)), float(rng.uniform(0.8, 1.2))) for _ in range(num_traj)]
+
+
+def write_json(path: str, obj: Dict[str, Any]) -> str:
+    with open(path, "w") as fp:
+        json.dump(obj, fp)
+    return path
+
+
+def write_panels_xdmf(dirpath: str, num_traj: int = 2, steps: int = 12, nx: int = 12, ny: int = 8,
+                      seed: Optional[int] = None) -> Tuple[str, str]:
+    """A panels XDMF folder: ``panel_{k}.xdmf`` (and its ``.h5``) for each
+    trajectory of ``panels_conditions``, the frame ``t`` at time
+    ``0.05 * t``, and ``meta.json``; returns ``(dirpath, meta_path)``."""
+    from graphphysics_torch.utils.xdmf import XdmfTimeSeriesWriter
+
+    os.makedirs(dirpath, exist_ok=True)
+    for k, (phase0, amp) in enumerate(panels_conditions(num_traj, seed)):
+        traj, _ = panels_trajectory(steps, nx, ny, phase0=phase0, amp=amp)
+        with XdmfTimeSeriesWriter(os.path.join(dirpath, f"panel_{k}.xdmf")) as w:
+            w.write_points_cells(traj["mesh_pos"][0].astype(np.float64), traj["cells"][0],
+                                 cell_type="triangle")
+            for t in range(steps):
+                w.write_data(0.05 * t, {"VitesseCoarse": traj["VitesseCoarse"][t],
+                                        "NodeTypeCoarse": traj["NodeTypeCoarse"][t, :, 0]})
+    return dirpath, write_json(os.path.join(dirpath, "meta.json"), panels_meta(steps))
+
+
+def tet_grid(n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Structured tetrahedral mesh on [0,1]^3: ``(points [n^3, 3],
+    tets [6 (n-1)^3, 4])``, each cube of the grid cut into 6 tetrahedra
+    around its diagonal, cubes in row-major order."""
+    xs, ys, zs = np.meshgrid(*([np.linspace(0, 1, n)] * 3), indexing="ij")
+    points = np.stack([xs.ravel(), ys.ravel(), zs.ravel()], axis=1).astype(np.float32)
+    i, j, k = (a.ravel() for a in np.meshgrid(*([np.arange(n - 1)] * 3), indexing="ij"))
+    # the cube's corners, (a, b, c) in {0, 1}^3 in row-major order
+    corners = np.stack(
+        [((i + a) * n + j + b) * n + k + c for a in (0, 1) for b in (0, 1) for c in (0, 1)], axis=1
+    )
+    split = np.array([[0, 1, 3, 7], [0, 1, 5, 7], [0, 4, 5, 7],
+                      [0, 2, 3, 7], [0, 2, 6, 7], [0, 4, 6, 7]])
+    return points, corners[:, split].reshape(-1, 4).astype(np.int32)
+
+
+def aneurysm_meta(steps: int) -> Dict[str, Any]:
+    """The aneurysm meta; its feature order fixes the x layout
+    ``[Vitesse(3), wall_mask(1), time(1)]`` before the features of
+    ``external.aneurysm.build_features``."""
+    return {
+        "dt": 0.01,
+        "features": {
+            "cells": {"type": "static", "shape": [steps, -1, 3], "dtype": "int32"},
+            "mesh_pos": {"type": "static", "shape": [steps, -1, 3], "dtype": "float32"},
+            "Vitesse": {"type": "dynamic", "shape": [steps, -1, 3], "dtype": "float32"},
+            "wall_mask": {"type": "static", "shape": [steps, -1, 1], "dtype": "float32"},
+        },
+        "field_names": ["cells", "mesh_pos", "Vitesse", "wall_mask"],
+        "trajectory_length": steps,
+    }
+
+
+DEFAULT_ANEURYSM_AMP = (1.0, 0.3, 0.1)
+
+
+def aneurysm_conditions(num_traj: int, seed: Optional[int] = None) -> List[Tuple[float, np.ndarray]]:
+    """The ``(phase0, amp [3])`` of each trajectory of
+    ``write_aneurysm_xdmf``: ``(0.1 * k, (1, 0.3, 0.1))`` without a seed,
+    else a phase and three amplitude factors in [0.8, 1.2) drawn from
+    ``default_rng(seed)`` in trajectory order."""
+    base = np.array(DEFAULT_ANEURYSM_AMP, np.float32)
+    if seed is None:
+        return [(0.1 * k, base) for k in range(num_traj)]
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(num_traj):
+        phase0 = float(rng.uniform(0.0, 1.0))
+        out.append((phase0, base * rng.uniform(0.8, 1.2, size=3).astype(np.float32)))
+    return out
+
+
+def aneurysm_trajectory(
+    steps: int = 9, n: int = 4, phase0: float = 0.0, amp: Optional[Sequence[float]] = None
+) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
+    """One aneurysm trajectory in memory on ``tet_grid(n)`` shifted to
+    x in [-0.5, 0.5] (so the inflow/outflow plane y == 0 exists):
+    ``(traj, meta)`` with ``cells [C,4]``, ``mesh_pos [N,3]`` (float32),
+    ``Vitesse [T,N,3]`` (a travelling wave of phase ``phase0`` and component
+    amplitudes ``amp``, zero on the wall) and ``wall_mask [N]``, the
+    x- and z-extreme faces. These are the arrays ``write_aneurysm_xdmf``
+    writes for the trajectory."""
+    amp = np.asarray(DEFAULT_ANEURYSM_AMP if amp is None else amp, np.float32)
+    points, tets = tet_grid(n)
+    points = points - np.array([0.5, 0.0, 0.0], np.float32)
+    wall = (
+        (points[:, 0] == points[:, 0].min())
+        | (points[:, 0] == points[:, 0].max())
+        | (points[:, 2] == points[:, 2].min())
+        | (points[:, 2] == points[:, 2].max())
+    ).astype(np.float32)
+    vit = []
+    for t in range(steps):
+        phase = 0.05 * t + phase0
+        vit.append(np.stack(
+            [
+                amp[0] * np.sin(2 * np.pi * (points[:, 0] - phase)),
+                amp[1] * np.cos(2 * np.pi * (points[:, 1] - phase)),
+                amp[2] * np.sin(2 * np.pi * (points[:, 2] + phase)),
+            ],
+            axis=1,
+        ).astype(np.float32) * (1.0 - wall[:, None]))
+    traj = {"cells": tets, "mesh_pos": points, "Vitesse": np.stack(vit), "wall_mask": wall}
+    return traj, aneurysm_meta(steps)
+
+
+def write_aneurysm_xdmf(dirpath: str, num_traj: int = 2, steps: int = 9, n: int = 4,
+                        sizes: Optional[Sequence[int]] = None,
+                        seed: Optional[int] = None) -> Tuple[str, str]:
+    """An aneurysm XDMF folder: ``mesh_{k}.xdmf`` (and its ``.h5``) for each
+    trajectory of ``aneurysm_conditions`` (on ``tet_grid(sizes[k])`` where
+    ``sizes`` is given, else ``tet_grid(n)``), the frame ``t`` at time
+    ``0.01 * t``, and ``meta.json``; returns ``(dirpath, meta_path)``."""
+    from graphphysics_torch.utils.xdmf import XdmfTimeSeriesWriter
+
+    os.makedirs(dirpath, exist_ok=True)
+    sizes = list(sizes) if sizes is not None else [n] * num_traj
+    for k, (nn, (phase0, amp)) in enumerate(zip(sizes, aneurysm_conditions(len(sizes), seed))):
+        traj, _ = aneurysm_trajectory(steps, nn, phase0=phase0, amp=amp)
+        with XdmfTimeSeriesWriter(os.path.join(dirpath, f"mesh_{k}.xdmf")) as w:
+            w.write_points_cells(traj["mesh_pos"].astype(np.float64), traj["cells"],
+                                 cell_type="tetra")
+            for t in range(steps):
+                w.write_data(0.01 * t, {"Vitesse": traj["Vitesse"][t], "wall_mask": traj["wall_mask"]})
+    return dirpath, write_json(os.path.join(dirpath, "meta.json"), aneurysm_meta(steps))

@@ -3,8 +3,9 @@ CPU (``--device cpu``): ``fit`` writes its checkpoint, CSV metrics and XDMF
 rollouts; the train CLI, the combined ``grph-torch`` dispatcher, and the
 train -> predict -> retrain flow of ``train.sh``, ``predict.sh`` and
 ``retrain.sh``, whose ``metrics.csv`` header is the JAX CLI's on the same
-config; every flag of a feature not ported yet exits naming its ROADMAP
-item."""
+config; the XDMF configurations (coarse-aneurysm and c-a-gmm with the
+aneurysm hook and previous data, panels) through train and predict; every
+flag of a feature not ported yet exits naming its ROADMAP item."""
 
 import csv
 import json
@@ -188,8 +189,10 @@ def test_get_dataset_refuses_what_is_not_ported(cylinder):
     pre = get_preprocessing(param)
     with pytest.raises(NotImplementedError, match="item 3"):
         get_dataset(param, pre, masking_ratio=0.5)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        get_dataset(param, pre, use_previous_data=True)
+    # previous-frame data is ported: every item carries the frame before it
+    ds = get_dataset(param, pre, use_previous_data=True)
+    assert ds.use_previous_data and len(ds) == 2 * 4 and ds.get_traj_frame(0) == (0, 1)
+    assert ds._load(0).previous_data.shape == (48, 4)  # frame 0's x: velocity, node type, time
     with pytest.raises(ValueError, match="does not fit"):
         get_dataset(param, pre, edge_layout="csr")
     assert get_dataset(param, pre, edge_layout="coo").edge_layout == "sorted"
@@ -204,3 +207,56 @@ def test_clis_run_on_cuda_unless_asked(config):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         predict_cli.main(["--training_parameters_path", cfg, "--model_path", "none.pt"])
     assert os.listdir(work) == []
+
+
+XDMF_CONFIGS = {
+    "coarse-aneurysm": ["--external_features", "aneurysm", "--use_previous_data",
+                        "--previous_data_start", "5", "--previous_data_end", "8"],
+    "c-a-gmm": ["--external_features", "aneurysm", "--use_previous_data",
+                "--previous_data_start", "5", "--previous_data_end", "8"],
+    "panels": [],
+}
+
+
+@pytest.mark.parametrize("name", sorted(XDMF_CONFIGS))
+def test_xdmf_configs_train_then_predict(name, tmp_path, monkeypatch):
+    """``training_config/{name}.json`` (cut to 2 blocks of width 16) on a
+    tiny XDMF folder of its schema: ``train`` with its flags (the aneurysm
+    hook and previous data for the aneurysm configs), then ``predict`` from
+    the checkpoint with the same flags: one file per held-out mesh, on the
+    tetrahedra for the aneurysm, the first frame at ``2 * dt`` with previous
+    data."""
+    from graphphysics_torch.utils import synthetic
+    from graphphysics_torch.utils.xdmf import XdmfTimeSeriesReader
+
+    aneurysm = name != "panels"
+    write = synthetic.write_aneurysm_xdmf if aneurysm else synthetic.write_panels_xdmf
+    size = {"n": 3} if aneurysm else {"nx": 6, "ny": 5}
+    folder, meta_path = write(str(tmp_path / "data" / "train"), num_traj=2, steps=5, **size)
+    write(str(tmp_path / "data" / "test"), num_traj=1, steps=5, seed=1, **size)
+    param = json.loads(open(f"training_config/{name}.json").read())
+    param["dataset"].update(xdmf_folder=folder, meta_path=meta_path)
+    param["model"].update(message_passing_num=2, hidden_size=16)
+    cfg = tmp_path / f"{name}.json"
+    cfg.write_text(json.dumps(param))
+    work = tmp_path / "work"
+    work.mkdir()
+    monkeypatch.chdir(work)
+    flags = ["--training_parameters_path", str(cfg), "--device", "cpu", *XDMF_CONFIGS[name]]
+    assert train_cli.main([*flags, "--num_epochs", "1", "--batch_size", "2", "--warmup", "2"]) == 0
+    ckpt = str(work / "checkpoints" / "state.pt")
+    previous = bool(XDMF_CONFIGS[name])
+    assert load_metadata(ckpt)["step"] == 2 * (5 - 1 - int(previous)) // 2
+    assert predict_cli.main([*flags, "--model_path", ckpt, "--save_dir", "predictions"]) == 0
+    # named by the mesh id, the file name's part after its last "_"
+    assert sorted(os.listdir(work / "predictions")) == ["graph_0.h5", "graph_0.xdmf"]
+    with XdmfTimeSeriesReader(str(work / "predictions" / "graph_0.xdmf")) as r:
+        (cell_type, cells), = r.read_points_cells()[1]
+        assert cell_type == ("tetra" if aneurysm else "triangle")
+        assert r.num_steps == 5 - 1 - int(previous)
+        times = [r.read_data(k)[0] for k in range(r.num_steps)]
+        frames = [r.read_data(k)[1]["prediction"] for k in range(r.num_steps)]
+        nodes = r.num_points()
+    dt = json.loads(open(meta_path).read())["dt"]
+    assert times[0] == pytest.approx((2 if previous else 1) * dt)
+    assert all(f.shape == (nodes, 3) and np.isfinite(f).all() for f in frames)

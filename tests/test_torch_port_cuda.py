@@ -2,8 +2,8 @@
 ``csr_softmax_spmm`` and the fused ``csr_attention`` and their backward
 kernels against their plain versions on edge cases, autograd through the
 wrappers, a TransformerBlock and the EPD and transformer forwards on the
-card against the CPU, and two train steps of each model on the card against
-the CPU. Marked ``cuda``; they skip without a card. This file imports no JAX, so on a machine without it
+card against the CPU, two train steps of each model on the card against
+the CPU, and the aneurysm XDMF path's launches. Marked ``cuda``; they skip without a card. This file imports no JAX, so on a machine without it
 run them with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py
@@ -623,3 +623,59 @@ def test_checkpoint_saved_on_card_loads_on_cpu(cuda, kind, tmp_path):
     assert cpu.optimizer.param_groups[0]["lr"] == card.optimizer.param_groups[0]["lr"]
     losses = [t.train_step(batches[2]).item() for t in (card, cpu)]
     np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+
+
+@pytest.mark.parametrize("config", ["coarse-aneurysm", "c-a-gmm"])
+def test_aneurysm_xdmf_path_launches_the_fused_kernels(cuda, config, tmp_path):
+    """The XDMF path on the card: an inline-XML aneurysm folder (the card's
+    format, ``chip_fidelity.write_aneurysm_inline``) through ``get_dataset``
+    with previous data and the aneurysm features, two train steps on each
+    device from equal weights (one fused forward and one fused backward per
+    block and step on the card, none on the CPU), then a rollout with the
+    previous-data slice fed back: one fused forward per block and frame, and
+    the plain head's frames against the CPU's."""
+    import json
+    import pathlib
+    import sys
+
+    from graphphysics_torch.core import concat_graphs, stack_graphs
+    from graphphysics_torch.external import build_features
+    from graphphysics_torch.ops.csr_attention import csr_attention, csr_attention_backward
+    from graphphysics_torch.training import Trainer, get_dataset, get_preprocessing, rollout
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    import chip_fidelity
+
+    folder, meta_path = chip_fidelity.write_aneurysm_inline(str(tmp_path / "data"), 2, 5, 5, seed=0)
+    with open(root / "training_config" / f"{config}.json") as fp:
+        param = json.load(fp)
+    param["dataset"].update(xdmf_folder=folder, meta_path=meta_path)
+    param["model"].update(message_passing_num=3, hidden_size=32)
+    previous = {"use_previous_data": True, "previous_data_start": 5, "previous_data_end": 8}
+    ds = get_dataset(param, get_preprocessing(param, use_edge_feature=False,
+                                              extra_node_features=build_features),
+                     use_edge_feature=False, use_previous_data=True)
+    batches = [concat_graphs([ds[0], ds[4]]), concat_graphs([ds[1], ds[5]])]
+    losses, sims = {}, {}
+    for dev in ("cpu", "cuda"):
+        trainer = Trainer(param, learning_rate=1e-3, warmup=2, device=dev, **previous)
+        trainer.init_state(10)
+        before = (csr_attention.launches, csr_attention_backward.launches)
+        losses[dev] = [trainer.train_step(b).item() for b in batches]
+        launched = (csr_attention.launches - before[0], csr_attention_backward.launches - before[1])
+        assert launched == ((3 * len(batches),) * 2 if dev == "cuda" else (0, 0))
+        sims[dev] = trainer.sim.eval()
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+    frames = stack_graphs([ds[i] for i in ds.trajectory_indices(0)])
+    K = param["model"].get("num_mixture_components", 0)
+    gens = {dev: torch.Generator(device=dev).manual_seed(0) if K else None for dev in sims}
+    before = csr_attention.launches
+    preds = {dev: rollout(sims[dev], frames, device=dev, generator=gens[dev], **previous)[0].cpu()
+             for dev in ("cuda", "cpu")}
+    assert csr_attention.launches - before == 3 * frames.x.shape[0]
+    assert torch.isfinite(preds["cuda"]).all()
+    if not K:
+        real = torch.as_tensor(frames.node_mask[0])
+        torch.testing.assert_close(preds["cuda"][:, real], preds["cpu"][:, real], rtol=1e-4,
+                                   atol=1e-4)

@@ -1,7 +1,8 @@
 """Port parity, host data for training: ``add_noise`` and the noise step of
 the preprocessing, the config's edge layout, and the port's ``H5Dataset`` and
 ``GraphLoader`` against the JAX ones on the h5 fixture written by
-``write_cylinder_h5``: index math, budgets, item features (equal), edges
+``write_cylinder_h5``: index math, budgets, item features (equal), the
+previous-frame data, edges
 (equal as sets against the JAX unsorted layout, equal as arrays against its
 CSR layout) and the loader's batches."""
 
@@ -9,6 +10,7 @@ import numpy as np
 import pytest
 
 from graphphysics_tpu.dataset import GraphLoader as JaxLoader
+from graphphysics_tpu.dataset import H5Dataset as JaxH5Dataset
 from graphphysics_tpu.dataset import preprocessing as jax_pre
 from graphphysics_tpu.dataset.sample import RawSample as JaxRawSample
 from graphphysics_tpu.training import parse_parameters as jax_pp
@@ -160,6 +162,23 @@ def test_items_match_jax(cylinder, kind):
                 assert g.row_bounds is not None and g.sender_bounds is None
     assert (ds.node_budget, ds.edge_budget) == (jax_ds.node_budget, jax_ds.edge_budget)
     assert ds.node_budget == 128  # 63 nodes rounded up to bucket_multiple
+
+
+def test_previous_data_items_match_jax(cylinder):
+    """``use_previous_data`` on the h5 path: one frame fewer per trajectory,
+    frames offset by one, and each raw sample carrying the previous frame's
+    ``x``, equal to the JAX ``H5Dataset``'s on the same file."""
+    ds, jax_ds = H5Dataset(*cylinder, use_previous_data=True), JaxH5Dataset(*cylinder,
+                                                                              use_previous_data=True)
+    assert len(ds) == len(jax_ds) == 2 * 3
+    for i in range(len(ds)):
+        assert ds.get_traj_frame(i) == jax_ds.get_traj_frame(i) == (i // 3, i % 3 + 1)
+        raw, jraw = ds._load(i), jax_ds._load(i)
+        for f in ("x", "y", "previous_data"):
+            assert np.array_equal(getattr(raw, f), getattr(jraw, f)), f
+        # the previous frame is the item before it in the trajectory
+        before = H5Dataset(*cylinder)._load(i + i // 3)
+        assert np.array_equal(raw.previous_data, before.x)
 
 
 def test_noise_differs_by_epoch_and_item(cylinder):

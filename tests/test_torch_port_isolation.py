@@ -1,6 +1,8 @@
 """The port stands alone: ``graphphysics_torch``, ``chip_smoke.py``,
-``chip_smoke_mutants.py`` and ``chip_compare.py`` import no JAX, flax, optax or ``graphphysics_tpu``, build no kernel on import, and
-their entry points run on CUDA by default, raising where there is none."""
+``chip_smoke_mutants.py``, ``chip_compare.py`` and ``chip_fidelity.py``
+import no JAX, flax, optax or ``graphphysics_tpu``, build no kernel on
+import, and their entry points run on CUDA by default, raising where there
+is none."""
 
 import ast
 import json
@@ -19,7 +21,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "graphphysics_tpu")
 
 
 def _port_sources():
-    scripts = [ROOT / "chip_smoke.py", ROOT / "chip_smoke_mutants.py", ROOT / "chip_compare.py"]
+    scripts = [ROOT / "chip_smoke.py", ROOT / "chip_smoke_mutants.py", ROOT / "chip_compare.py",
+               ROOT / "chip_fidelity.py"]
     return sorted((ROOT / "graphphysics_torch").rglob("*.py")) + scripts
 
 
@@ -53,7 +56,8 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "import graphphysics_torch.training.checkpoint, graphphysics_torch.utils\n"
         "import graphphysics_torch.utils.xdmf, graphphysics_torch.utils.metrics\n"
         "import graphphysics_torch.cli.train, graphphysics_torch.cli.predict\n"
-        "import graphphysics_torch.cli.__main__\n"
+        "import graphphysics_torch.cli.__main__, graphphysics_torch.external\n"
+        "import graphphysics_torch.dataset.xdmf_dataset, chip_fidelity\n"
         "from graphphysics_torch.ops import _native\n"
         "print(json.dumps({'new': sorted(set(sys.modules) - before),\n"
         "                  'loaded': sorted(_native._loaded)}))\n"
@@ -119,3 +123,18 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
         )
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_chip_fidelity_refuses_without_cuda(tmp_path):
+    """The fidelity runner's default device is the card: without one it
+    exits non-zero with no result and writes no data."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "chip_fidelity.py"), "--epochs", "1", "--workdir",
+         str(tmp_path / "work")],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode != 0
+    assert "val_all_rollout_rmse" not in out.stdout
+    assert not (tmp_path / "work").exists()
