@@ -93,12 +93,37 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     (launches checked); its first 3 frames with the
     previous-data slice fed back against the CPU (the GMM head under shared
     CPU draws);
-16. ``aneurysm_fidelity_short``: 2 epochs of ``chip_fidelity.run`` (the
-    aneurysm fidelity run, 10 x 64 on ``tet_grid(6)``): the training loss
-    and the held-out rollout RMSE fall.
+16. ``plate_pipeline``: ``training_config/plate.json`` as published
+    (EncodeTransformDecode 10 x 64, 4 heads, no edge inputs; world edges at
+    the default radius 0.03; noise 0.003 on columns 0:3) on synthetic press
+    trajectories held in memory (``synthetic.plate_press_trajectory`` on
+    ``tet_box(48, 48, 8)`` and the punch: 18,450 nodes, about 234,000
+    directed edges; 2 training trajectories and 1 held-out one of 12
+    frames, one frame a batch, sender-sorted graphs): the host's
+    milliseconds per sample (the load, the world edges, the rest of the
+    preprocessing, the padding) and the world edges of each frame (more
+    than 0 once the punch touches); ``Trainer.fit`` for one epoch with
+    rollout validation twice, its loader building the items in-process and
+    then in ``PLATE_WORKERS`` worker processes (prefetch 2), the two
+    epochs' batches bit-equal, each fit's wall time and the card's idle
+    share (the device time traced over the first); the started workers'
+    items per second over a second epoch against the host's one sample at
+    a time; ``train`` on the epoch's first batch (the first step against
+    the CPU from the fit's normalizer statistics, 10 fused forward and 10
+    fused backward launches per step); ``predict`` over the held-out
+    trajectory from the reloaded checkpoint, and its first 3 frames against
+    the CPU;
+17. ``cylinder_fidelity_short``, ``panels_fidelity_short``,
+    ``plate_fidelity_short`` and ``aneurysm_fidelity_short``: 2 epochs of
+    ``chip_fidelity.run`` for each config (the fidelity runs at full width
+    and depth on their own data): the training loss and the held-out
+    rollout RMSE fall.
 
-Every line but the last is a JSON object (one per phase), apart from the
-card's ``nvidia-smi`` line; the ``{"kernels": [...]}`` line comes just before
+The K1 phase also times a one-element PyTorch elementwise kernel under the
+same CUDA-graph replay (``launch_floor_ms``): the floor under any kernel's
+time there. Every line but the last is a JSON object (one per phase, with
+the seconds since the line before it as ``phase_s``), apart from the card's
+``nvidia-smi`` line; the ``{"kernels": [...]}`` line comes just before
 the last line, ``{"ok": true, "device": {...}}``. Exits non-zero, printing
 no result, without a CUDA card or outside the repository. float32 matmuls run
 without TF32 (``allow_tf32 = False`` for matmul and cuDNN): the CPU
@@ -108,6 +133,7 @@ comparison is float32.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import math
@@ -161,7 +187,24 @@ ANEURYSM_GRID, ANEURYSM_FRAMES = 32, 6
 ANEURYSM_TRAJECTORIES, ANEURYSM_HELD_OUT = 2, 1
 ANEURYSM_PREVIOUS = {"use_previous_data": True, "previous_data_start": 5, "previous_data_end": 8}
 HOST_SAMPLES = 2  # items timed apart: the XDMF read, then the preprocessing
+# the plate pipeline: plate.json on 2 training and 1 held-out press
+# trajectories of 12 frames on tet_box(48, 48, 8) and the punch (18,450
+# nodes), held in memory (the card's machine has no h5py). Cut from 20
+# frames, at which the phase took 92 s of the ~60 s it is given, most of
+# it the host building samples (0.22-0.28 s each).
+PLATE_CONFIG = "training_config/plate.json"
+PLATE_GRID, PLATE_FRAMES = (48, 8), 12
+PLATE_TRAJECTORIES, PLATE_HELD_OUT = 2, 1
+# the worker loader's processes: one core is the training thread's
+PLATE_WORKERS = min(8, (os.cpu_count() or 2) - 1)
 FIDELITY_SHORT_EPOCHS = 2
+# the kernels each fidelity run's model launches
+FIDELITY_KERNELS = {
+    "cylinder": ("csr_segment_sum", "csr_segment_sum_backward"),
+    "panels": ("csr_attention", "csr_attention_backward"),
+    "plate": ("csr_attention", "csr_attention_backward"),
+    "aneurysm": ("csr_attention", "csr_attention_backward"),
+}
 # (width, heads) of the fused kernels' general geometry phases
 GENERAL_WIDTHS = ((48, 4), (96, 3), (40, 8))
 # the card sampler's statistics: draws of a fixed mixture, and the most
@@ -233,6 +276,18 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+class PhaseClock:
+    """Prints each phase's line with the seconds since the line before it."""
+
+    def __init__(self):
+        self.last = time.perf_counter()
+
+    def emit(self, obj) -> None:
+        now = time.perf_counter()
+        emit({**obj, "phase_s": now - self.last})
+        self.last = now
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -265,6 +320,13 @@ def device_ms(fn, inputs, min_reps=20, replays=5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (replays * reps)
+
+
+def launch_floor_ms() -> float:
+    """``device_ms`` of a one-element PyTorch elementwise kernel: the least
+    time any kernel takes under that CUDA-graph replay."""
+    one = torch.zeros(1, device="cuda")
+    return device_ms(lambda t: t.add_(1.0), [(one,)])
 
 
 def call_ms(fn, iters=20) -> float:
@@ -314,14 +376,17 @@ def _category(kernel: str) -> str:
     return "elementwise_other"
 
 
-def device_breakdown(fn, frames: int, unit: str = "frame"):
+def device_breakdown(fn, frames: int, unit: str = "frame", host_ops: bool = True):
     """Device time of ``fn`` (a rollout of ``frames`` frames, or ``frames``
     train steps with ``unit="step"``) by kernel, from torch.profiler's CUDA
-    activity; None where the profiler saw no kernel."""
+    activity; None where the profiler saw no kernel. ``host_ops=False``
+    traces the card's activity only, which costs the host less over a long
+    ``fn``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if host_ops else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     # user-annotated ranges (the optimizer's step) span kernels counted on
@@ -1092,23 +1157,43 @@ def load_config(path, blocks=None):
     return param
 
 
+def relu_sign_hooks(model, signs):
+    """Forward hooks on every ``nn.ReLU`` of ``model`` that record which of
+    its inputs are positive, packed to bits on the host, into the list
+    ``signs`` in call order. Returns the hooks' handles."""
+
+    def record(module, inputs, output):
+        signs.append(np.packbits((inputs[0] > 0).cpu().numpy()))
+
+    return [m.register_forward_hook(record) for m in model.modules()
+            if isinstance(m, torch.nn.ReLU)]
+
+
 def first_step(name, param, batch, seed, total_steps, grad_rtol, stats=None):
     """The first ``Trainer`` step on the card against the same step on the
     CPU from equal weights (seeded ``init_state``) and, where ``stats`` (a
     state dict of normalizer buffers) is given, equal normalizer
     statistics: the loss, and each parameter's gradient within
-    ``grad_rtol``, with the worst one named."""
+    ``grad_rtol``, with the worst one named. Beside them the number of ReLU
+    inputs whose sign differs between the devices: an input within
+    round-off of zero switches its unit's gradient on or off, which moves
+    every gradient upstream of it without a fault in any kernel."""
     from graphphysics_torch.training import Trainer
 
-    loss, grads = {}, {}
+    loss, grads, signs = {}, {}, {}
     for dev in ("cpu", "cuda"):
         trainer = Trainer(param, learning_rate=1e-4, warmup=10, seed=seed, device=dev)
         trainer.init_state(total_steps)
         if stats is not None:
             trainer.sim.load_state_dict(stats, strict=False)
+        signs[dev] = []
+        hooks = relu_sign_hooks(trainer.sim, signs[dev])
         loss[dev] = trainer.train_step(batch).item()
+        for hook in hooks:
+            hook.remove()
         grads[dev] = {n: p.grad.detach().cpu() for n, p in trainer.sim.named_parameters()}
         del trainer
+    relu_flips = sum(int(np.unpackbits(a ^ b).sum()) for a, b in zip(signs["cpu"], signs["cuda"]))
     loss_err = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
     roundoff = [n for n in grads["cpu"] if n.endswith(ROUNDOFF_LEAVES)]
     rel = {n: ((grads["cuda"][n] - g).norm() / g.norm()).item()
@@ -1126,6 +1211,8 @@ def first_step(name, param, batch, seed, total_steps, grad_rtol, stats=None):
         "first_step_grad_worst_param": worst,
         "first_step_grad_rel_err_median": float(np.median(list(rel.values()))),
         "first_step_params_compared": len(rel),
+        "first_step_relu_inputs": sum(8 * len(a) for a in signs["cpu"]),
+        "first_step_relu_sign_flips": relu_flips,
         "first_step_roundoff_params": len(roundoff),
         "first_step_roundoff_share": share,
         "first_step_tolerance": {"loss_rtol": STEP_LOSS_RTOL, "grad_rtol_per_param": grad_rtol,
@@ -1202,39 +1289,17 @@ def train(name, param, batch, counts, expected, seed, grad_rtol, graphs=len(BATC
 
 
 def memory_datasets(param, make_traj, seed, directory, n_traj):
-    """Training and validation ``BaseDataset``s over ``n_traj`` synthetic
+    """Training and validation ``MemoryDataset``s over ``n_traj`` synthetic
     trajectories on ``triangulated_grid(64, 32)`` (2,048 nodes, 8 frames
     each) held in memory, with the config's training preprocessing (noise
     included) and its validation one; the meta file goes to ``directory``."""
-    from graphphysics_torch.dataset import BaseDataset, frame_to_sample
-    from graphphysics_torch.training import edge_layout, get_preprocessing
+    import chip_fidelity
+    from graphphysics_torch.utils.synthetic import write_json
 
-    edges = param["model"]["edge_input_size"] > 0
     trajs = [make_traj(steps=9, nx=64, ny=32, phase0=0.15 * k)[0] for k in range(n_traj)]
-    meta = make_traj(steps=9, nx=2, ny=2)[1]
-
-    class Trajectories(BaseDataset):
-        """The in-memory trajectories as a dataset."""
-
-        size_dataset = len(trajs)
-        dt = meta["dt"]
-
-        def _load(self, index):
-            traj, frame = self.get_traj_frame(index)
-            sample = frame_to_sample(trajs[traj], frame, self.meta, frame_target=frame + 1)
-            sample.traj_index = traj
-            return sample
-
-    meta_path = f"{directory}/meta.json"
-    with open(meta_path, "w") as fp:
-        json.dump(meta, fp)
-    common = dict(add_edge_features=edges, edge_layout=edge_layout(param),
-                  node_type_index=param["index"]["node_type_index"], seed=seed)
-    train_ds = Trajectories(meta_path, preprocessing=get_preprocessing(param, use_edge_feature=edges),
-                            **common)
-    val_ds = Trajectories(meta_path, preprocessing=get_preprocessing(
-        param, use_edge_feature=edges, remove_noise=True), **common)
-    return train_ds, val_ds
+    meta_path = write_json(f"{directory}/meta.json", make_traj(steps=9, nx=2, ny=2)[1])
+    return (chip_fidelity.memory_split(param, trajs, meta_path, val=False, seed=seed),
+            chip_fidelity.memory_split(param, trajs, meta_path, val=True, seed=seed))
 
 
 def pipeline(name, param, make_traj, counts, expected, seed):
@@ -1549,29 +1614,31 @@ def aneurysm_folders(directory, grid):
     return (train_dir, held_out, meta_path), time.perf_counter() - t0
 
 
-def previous_rollout_check(name, param, sim, frames, seed):
-    """The first ``CPU_FRAMES`` frames of the rollout with the previous-data
-    slice fed back, on the card against the CPU (equal weights), on the real
-    nodes; and the card's rollout without the feeding differs, so the slice
-    was fed."""
+def rollout_against_cpu(name, param, sim, frames, seed, previous=None):
+    """The first ``CPU_FRAMES`` frames of the rollout on the card against
+    the CPU (equal weights), on the real nodes. With ``previous`` (the
+    previous-data options) the slice is fed back, and the card's rollout
+    without the feeding must differ, so the slice was fed."""
     from graphphysics_torch.training import rollout
 
+    previous = previous or {}
     sim_cpu = build_transformer(param, seed, "cpu")
     sim_cpu.load_state_dict({k: v.cpu() for k, v in sim.state_dict().items()})
     host = frames[:CPU_FRAMES].to("cpu")
     real = host.node_mask[0].bool()
-    want, _ = rollout(sim_cpu, host, device="cpu", **ANEURYSM_PREVIOUS)
-    got, _ = rollout(sim, host.to("cuda"), device="cuda", **ANEURYSM_PREVIOUS)
-    unfed, _ = rollout(sim, host.to("cuda"), device="cuda")
-    got, want, unfed = got.cpu()[:, real], want[:, real], unfed.cpu()[:, real]
+    want, _ = rollout(sim_cpu, host, device="cpu", **previous)
+    got, _ = rollout(sim, host.to("cuda"), device="cuda", **previous)
+    got, want = got.cpu()[:, real], want[:, real]
     err = (got - want).abs().max().item()
-    fed_effect = (got - unfed).abs().max().item()
     result = {"cpu_frames_checked": CPU_FRAMES, "cpu_max_abs_err": err, "cpu_rtol": ROLLOUT_RTOL,
-              "cpu_atol": ROLLOUT_ATOL, "previous_data_feedback_max_abs_effect": fed_effect}
+              "cpu_atol": ROLLOUT_ATOL}
     if not torch.allclose(got, want, rtol=ROLLOUT_RTOL, atol=ROLLOUT_ATOL):
-        raise AssertionError(f"{name}: card vs CPU rollout with previous data: {result}")
-    if not fed_effect > ROLLOUT_ATOL:
-        raise AssertionError(f"{name}: the previous-data slice changed nothing: {result}")
+        raise AssertionError(f"{name}: card vs CPU rollout: {result}")
+    if previous:
+        unfed, _ = rollout(sim, host.to("cuda"), device="cuda")
+        result["previous_data_feedback_max_abs_effect"] = (got - unfed.cpu()[:, real]).abs().max().item()
+        if not result["previous_data_feedback_max_abs_effect"] > ROLLOUT_ATOL:
+            raise AssertionError(f"{name}: the previous-data slice changed nothing: {result}")
     return result
 
 
@@ -1691,7 +1758,7 @@ def aneurysm_pipeline(name, param, folders, counts, seed):
     if K:
         cpu_check = shared_draws(name, param, fresh.sim, held, seed, previous=ANEURYSM_PREVIOUS)
     else:
-        cpu_check = previous_rollout_check(name, param, fresh.sim, held, seed)
+        cpu_check = rollout_against_cpu(name, param, fresh.sim, held, seed, previous=ANEURYSM_PREVIOUS)
     launches = {k: steps["launches"][k] + fit_launches[k] + predict_launches[k] for k in counts}
     return {
         "nodes": int(batch.node_mask.sum()),
@@ -1722,10 +1789,219 @@ def aneurysm_pipeline(name, param, folders, counts, seed):
     }
 
 
-def fidelity_short(name, counts, seed):
-    """``FIDELITY_SHORT_EPOCHS`` epochs of ``chip_fidelity.run`` (the
-    aneurysm fidelity run, plain head) on the card: the training loss and
-    the held-out rollout RMSE fall, the RMSE finite."""
+def plate_pipeline(name, param, counts, seed, workers):
+    """``param`` (``plate.json``) on the card, from in-memory press
+    trajectories: the host's time per sample; the world edges of each
+    frame; ``Trainer.fit`` for one epoch with rollout validation from an
+    in-process loader and again from a loader of ``workers`` processes, the
+    batches of both bit-equal, the first under the profiler for the card's
+    idle share; the started workers' items per second over the next epoch;
+    ``train``
+    on the first batch (the first step against the CPU from the first fit's
+    normalizer statistics, timed steps, launches, profile); ``predict``
+    over the held-out trajectory from the reloaded checkpoint and its first
+    frames against the CPU. Launch counts are zeroed before and checked
+    after each fit, the timed steps and predict."""
+    import tempfile
+
+    import chip_fidelity
+    from graphphysics_torch.core import NodeType, stack_graphs
+    from graphphysics_torch.dataset import GraphLoader
+    from graphphysics_torch.topology import world_edges
+    from graphphysics_torch.training import Trainer, load_checkpoint
+    from graphphysics_torch.utils import synthetic
+
+    blocks = param["model"]["message_passing_num"]
+    wpp = param["transformations"]["world_pos_parameters"]
+    radius = wpp.get("radius", 0.03)
+    wps, wpe = wpp["world_pos_index_start"], wpp["world_pos_index_end"]
+    # the node type's column before add_obstacles_next_pos inserts its 3
+    node_type_raw = param["index"]["node_type_index"] - (wpe - wps)
+    nx, nz = PLATE_GRID
+
+    def trajectories(n, traj_seed):
+        return [synthetic.plate_press_trajectory(PLATE_FRAMES, nx, nz, *c)[0]
+                for c in synthetic.plate_press_conditions(n, traj_seed)]
+
+    t0 = time.perf_counter()
+    train_trajs, held_trajs = trajectories(PLATE_TRAJECTORIES, 0), trajectories(PLATE_HELD_OUT, 12345)
+    data_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        meta_path = synthetic.write_json(f"{tmp}/meta.json", synthetic.plate_press_meta(PLATE_FRAMES))
+        train_ds = chip_fidelity.memory_split(param, train_trajs, meta_path, val=False, seed=seed)
+        val_ds = chip_fidelity.memory_split(param, held_trajs, meta_path, val=True, seed=seed)
+        t0 = time.perf_counter()
+        chip_fidelity.unify_budgets(train_ds, val_ds)
+        budgets_s = time.perf_counter() - t0
+
+        # the host's work per sample, step by step
+        host = {"load": [], "world_edges": [], "rest_of_preprocessing": [], "pad": []}
+        for i in range(HOST_SAMPLES):
+            rng = np.random.default_rng(i)
+            t0 = time.perf_counter()
+            raw = train_ds._load(i)
+            host["load"].append(time.perf_counter() - t0)
+            spent = {"world_edges": 0.0, "rest_of_preprocessing": 0.0}
+            for step in train_ds.preprocessing.steps:
+                t0 = time.perf_counter()
+                raw = step(raw, rng)
+                world = getattr(step, "func", step).__name__ == "add_world_edges"
+                spent["world_edges" if world else "rest_of_preprocessing"] += time.perf_counter() - t0
+            for k, v in spent.items():
+                host[k].append(v)
+            raw.edge_attr = None  # the model takes no edge features
+            t0 = time.perf_counter()
+            train_ds._pad(raw)
+            host["pad"].append(time.perf_counter() - t0)
+        host_ms = {f"host_{k}_ms_per_sample": float(np.mean(v)) * 1e3 for k, v in host.items()}
+
+        # the world edges of each frame of the first training trajectory
+        per_frame = []
+        for i in train_ds.trajectory_indices(0):
+            x = train_ds._load(i).x
+            ws, _ = world_edges(x[:, wps:wpe], x[:, node_type_raw], radius,
+                                int(NodeType.OBSTACLE), int(NodeType.NORMAL))
+            per_frame.append(2 * len(ws))  # both directions
+        if not per_frame[-1] > 0:
+            raise AssertionError(f"{name}: no world edges on the contact frame: {per_frame}")
+
+        steps_per_epoch = len(train_ds)
+        frames = val_ds.size_dataset * val_ds.frames_per_trajectory
+        fits = {}
+        loaders = {
+            "in_process": GraphLoader(train_ds, batch_size=1, shuffle=True, seed=seed, prefetch=0),
+            "workers": GraphLoader(train_ds, batch_size=1, shuffle=True, seed=seed, prefetch=2,
+                                   num_workers=workers),
+        }
+        try:
+            for tag, loader in loaders.items():
+                trainer = Trainer(param, learning_rate=1e-4, warmup=2, seed=seed, device="cuda",
+                                  checkpoint_dir=f"{tmp}/{tag}", metrics_path=None,
+                                  rollout_dir=None)
+                recorder = RecordingLoader(loader)
+                history, span = [], []
+
+                def fit():
+                    span.append(time.perf_counter())
+                    history.append(trainer.fit(recorder, val_dataset=val_ds, num_epochs=1))
+                    torch.cuda.synchronize()
+                    span.append(time.perf_counter())
+
+                for fn in counts.values():
+                    fn.launches = 0
+                torch.cuda.synchronize()
+                # the card runs the same kernels in both fits: one trace
+                # gives the epoch's device time
+                if tag == "in_process":
+                    breakdown = device_breakdown(fit, 1, unit="epoch", host_ops=False)
+                    device_ms_epoch = None if breakdown is None else breakdown["device_ms_per_epoch"]
+                else:
+                    fit()
+                fit_s = span[1] - span[0]
+                launches = {k: fn.launches for k, fn in counts.items()}
+                want = {k: 0 for k in counts}
+                want["csr_attention"] = blocks * (steps_per_epoch + frames)
+                want["csr_attention_backward"] = blocks * steps_per_epoch
+                if launches != want:
+                    raise AssertionError(f"{name} ({tag}): fit launches {launches}, expected {want}")
+                values = history[0]["train_loss"] + history[0]["val_rmse"]
+                if not all(math.isfinite(v) for v in values):
+                    raise AssertionError(f"{name} ({tag}): history {history[0]}")
+                fits[tag] = {
+                    "trainer": trainer, "digests": recorder.digests, "launches": launches,
+                    "fit_s": fit_s, "first_batch_s": recorder.times[0] - span[0],
+                    "items_per_s": steps_per_epoch / fit_s,
+                    "device_ms": device_ms_epoch,
+                    "device_idle_share": (None if device_ms_epoch is None
+                                          else 1.0 - device_ms_epoch / (fit_s * 1e3)),
+                    "train_loss": history[0]["train_loss"], "val_rmse": history[0]["val_rmse"],
+                }
+            if fits["workers"]["digests"] != fits["in_process"]["digests"]:
+                raise AssertionError(f"{name}: the workers' batches differ from the in-process ones")
+            # the workers alone over the next epoch, started: their items per
+            # second against the host's one sample at a time
+            workers_loader = loaders["workers"]
+            workers_loader.set_epoch(1)
+            t0 = time.perf_counter()
+            passed = sum(1 for _ in workers_loader)
+            workers_items_per_s = passed / (time.perf_counter() - t0)
+        finally:
+            loaders["workers"].close()
+
+        trainer = fits["in_process"]["trainer"]
+        # the step's batch: the first of the fit's epoch (the workers' pass
+        # moved the shared dataset to epoch 1)
+        loaders["in_process"].set_epoch(0)
+        # equal normalizer statistics on both devices for the first step:
+        # a frame's obstacle displacement (x columns 3:6) is one value over
+        # its nodes, whose f32 variance from one frame would be round-off
+        # (ROADMAP, faults of the port); the fit accumulated every item
+        stats = {k: v.cpu() for k, v in trainer.sim.state_dict().items() if "_normalizer." in k}
+        batch = loaders["in_process"].peek()
+        steps = train(name, param, batch, counts,
+                      {"csr_attention": blocks, "csr_attention_backward": blocks}, seed,
+                      TRANSFORMER_GRAD_RTOL, graphs=1, stats=stats)
+
+        fresh = Trainer(param, seed=seed + 1, device="cuda", metrics_path=None, rollout_dir=None)
+        fresh.init_state(1)
+        load_checkpoint(f"{tmp}/in_process/state.pt", fresh)
+    for fn in counts.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    preds = fresh.predict(val_ds, save_dir=None)
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    predict_launches = {k: fn.launches for k, fn in counts.items()}
+    want = {k: (blocks * frames if k == "csr_attention" else 0) for k in counts}
+    if predict_launches != want:
+        raise AssertionError(f"{name}: predict launches {predict_launches}, expected {want}")
+    shape = (val_ds.frames_per_trajectory, val_ds.node_budget, 3)
+    if not all(p.shape == shape and np.isfinite(p).all() for p in preds):
+        raise AssertionError(f"{name}: predictions {[p.shape for p in preds]}, expected {shape}")
+    held = stack_graphs([val_ds[i] for i in val_ds.trajectory_indices(0)[:CPU_FRAMES]])
+    cpu_check = rollout_against_cpu(name, param, fresh.sim, held, seed)
+
+    launches = {k: steps["launches"][k] + predict_launches[k]
+                + sum(f["launches"][k] for f in fits.values()) for k in counts}
+    return {
+        "nodes": int(batch.node_mask.sum()),
+        "real_edges": steps["real_edges"],
+        "node_budget": train_ds.node_budget,
+        "edge_budget": train_ds.edge_budget,
+        "frames": PLATE_FRAMES,
+        "train_items": len(train_ds),
+        "held_out_frames": frames,
+        "world_edge_radius": radius,
+        "world_edges_per_frame": per_frame,
+        "data_s": data_s,
+        "budgets_s": budgets_s,
+        **host_ms,
+        "host_ms_per_sample": sum(host_ms.values()),
+        "host_samples_timed": HOST_SAMPLES,
+        **{f"step_{k}": v for k, v in steps.items() if k not in ("graphs", "launches")},
+        "step_launches": steps["launches"],
+        "first_step_statistics": f"the {len(train_ds)} training items of the in-process fit's epoch",
+        "loader_workers": workers,
+        "fit_steps": steps_per_epoch,
+        **{f"fit_{tag}_{k}": v for tag, f in fits.items() for k, v in f.items()
+           if k not in ("trainer", "digests")},
+        "fit_speedup_workers": fits["in_process"]["fit_s"] / fits["workers"]["fit_s"],
+        "fit_batches_bit_equal": True,
+        "host_items_per_s": 1e3 / sum(host_ms.values()),
+        "loader_workers_items_per_s": workers_items_per_s,
+        "predict_frames": frames,
+        "predict_ms_per_frame": predict_s / frames * 1e3,
+        "predict_launches": predict_launches,
+        **cpu_check,
+        "launches": launches,
+    }
+
+
+def fidelity_short(name, counts, config):
+    """``FIDELITY_SHORT_EPOCHS`` epochs of ``chip_fidelity.run`` for
+    ``config`` (plain head) on the card, launch counts zeroed just before:
+    the training loss and the held-out rollout RMSE fall, and the run's
+    kernels ran."""
     import tempfile
 
     import chip_fidelity
@@ -1733,24 +2009,36 @@ def fidelity_short(name, counts, seed):
     for fn in counts.values():
         fn.launches = 0
     with tempfile.TemporaryDirectory() as tmp:
-        out = chip_fidelity.run(tmp, epochs=FIDELITY_SHORT_EPOCHS, device="cuda")
+        out = chip_fidelity.run(tmp, epochs=FIDELITY_SHORT_EPOCHS, device="cuda", config=config)
     launches = {k: fn.launches for k, fn in counts.items()}
     losses, rmse = out["train_loss_by_epoch"], out["val_all_rollout_rmse_by_epoch"]
     if not (all(math.isfinite(v) for v in losses + rmse) and losses[-1] < losses[0]
             and rmse[-1] < rmse[0]):
         raise AssertionError(f"{name}: the loss or the rollout RMSE did not fall: {out}")
-    if launches["csr_attention"] == 0 or launches["csr_attention_backward"] == 0:
-        raise AssertionError(f"{name}: the fused kernels did not run: {launches}")
+    if any(launches[k] == 0 for k in FIDELITY_KERNELS[config]):
+        raise AssertionError(f"{name}: the kernels of the run did not run: {launches}")
     return {**out, "launches": launches}
 
 
+def batch_digest(batch) -> str:
+    """A digest of every field of a batch."""
+    h = hashlib.sha1()
+    for field in dataclasses.fields(batch):
+        value = getattr(batch, field.name)
+        if value is not None:
+            h.update(field.name.encode())
+            h.update(np.ascontiguousarray(value).tobytes())
+    return h.hexdigest()
+
+
 class RecordingLoader:
-    """A ``GraphLoader`` that records a digest of each batch it yields and,
-    given a trainer, asks it to stop after batch ``stop_after``."""
+    """A ``GraphLoader`` that records a digest of each batch it yields
+    (``batch_digest``) and when it yielded it, and, given a trainer, asks
+    it to stop after batch ``stop_after``."""
 
     def __init__(self, loader, trainer=None, stop_after=None):
         self.loader, self.trainer, self.stop_after = loader, trainer, stop_after
-        self.digests = []
+        self.digests, self.times = [], []
 
     def __len__(self):
         return len(self.loader)
@@ -1763,7 +2051,8 @@ class RecordingLoader:
 
     def __iter__(self):
         for batch in self.loader:
-            self.digests.append(hashlib.sha1(np.ascontiguousarray(batch.x).tobytes()).hexdigest())
+            self.digests.append(batch_digest(batch))
+            self.times.append(time.perf_counter())
             if self.trainer is not None and len(self.digests) == self.stop_after:
                 self.trainer.request_interrupt()
             yield batch
@@ -2024,6 +2313,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
+    clock = PhaseClock()
     counts = {
         "csr_segment_sum": csr_segment_sum,
         "csr_segment_sum_backward": csr_segment_sum_backward,
@@ -2036,7 +2326,7 @@ def main() -> int:
     # 1. environment and build ---------------------------------------------------
     t0 = time.perf_counter()
     build_s = _native.build()
-    emit({
+    clock.emit({
         "phase": "build",
         "nvidia_smi": smi,
         "device_name": torch.cuda.get_device_name(0),
@@ -2070,8 +2360,12 @@ def main() -> int:
         k1_case("flagship_batch_8x2048", cyl_batch, args.seed + 1),
         k1_case("aneurysm_epd_66560x524288", aneurysm_epd, args.seed + 2),
     ]
+    floor = launch_floor_ms()
     for s in k1_shapes:
-        emit({"phase": "kernel", "name": "csr_segment_sum", **s})
+        s["launch_floor_ms"] = floor
+        s["bound_share"] = s["bound_ms"] / s["ms"]
+        s["bound_share_above_floor"] = s["bound_ms"] / max(s["ms"] - floor, 1e-9)
+        clock.emit({"phase": "kernel", "name": "csr_segment_sum", **s})
     for fn in counts.values():
         fn.launches = 0
     k2_shapes = [
@@ -2080,21 +2374,21 @@ def main() -> int:
         k2_case("aneurysm_csr_66560x524288", aneurysm_csr, 64, args.seed + 5),
     ]
     for s in k2_shapes:
-        emit({"phase": "kernel", "name": "csr_softmax_spmm", **s})
+        clock.emit({"phase": "kernel", "name": "csr_softmax_spmm", **s})
     k1b_shapes = [
         k1b_case("serving_frame", epd_frames[0], args.seed + 6),
         k1b_case("flagship_batch_8x2048", cyl_batch, args.seed + 7),
         k1b_case("aneurysm_epd_66560x524288", aneurysm_epd, args.seed + 8),
     ]
     for s in k1b_shapes:
-        emit({"phase": "kernel", "name": "csr_segment_sum_backward", **s})
+        clock.emit({"phase": "kernel", "name": "csr_segment_sum_backward", **s})
     k3_shapes = [
         k3_case("transformer_serving_frame", tf_frames[0], HIDDEN, args.seed + 9),
         k3_case("panels_csr_batch_8x2048", tf_batch, HIDDEN, args.seed + 10),
         k3_case("aneurysm_csr_66560x524288", aneurysm_csr, 64, args.seed + 11),
     ]
     for s in k3_shapes:
-        emit({"phase": "kernel", "name": "csr_softmax_spmm_backward", **s})
+        clock.emit({"phase": "kernel", "name": "csr_softmax_spmm_backward", **s})
     # K2 and K3 run on no transformer path now: their launches are their
     # kernel phases' (the checks, and each captured call of a timing)
     phase_launches = {k: counts[k].launches for k in ("csr_softmax_spmm", "csr_softmax_spmm_backward")}
@@ -2105,9 +2399,9 @@ def main() -> int:
     ]
     fused_shapes, fused_bwd_shapes = [f for f, _ in fused], [b for _, b in fused]
     for s in fused_shapes:
-        emit({"phase": "kernel", "name": "csr_attention", **s})
+        clock.emit({"phase": "kernel", "name": "csr_attention", **s})
     for s in fused_bwd_shapes:
-        emit({"phase": "kernel", "name": "csr_attention_backward", **s})
+        clock.emit({"phase": "kernel", "name": "csr_attention_backward", **s})
     del aneurysm_epd, aneurysm_csr
     # 11. the general geometry: widths without a power-of-two head split
     widths = [
@@ -2116,9 +2410,9 @@ def main() -> int:
         for i, ((d, h), view) in enumerate((w, v) for w in GENERAL_WIDTHS for v in ("model", "contiguous"))
     ]
     for s, _ in widths:
-        emit({"phase": "kernel_width", "name": "csr_attention", **s})
+        clock.emit({"phase": "kernel_width", "name": "csr_attention", **s})
     for _, s in widths:
-        emit({"phase": "kernel_width", "name": "csr_attention_backward", **s})
+        clock.emit({"phase": "kernel_width", "name": "csr_attention_backward", **s})
     fused_shapes += [f for f, _ in widths]
     fused_bwd_shapes += [b for _, b in widths]
 
@@ -2126,10 +2420,10 @@ def main() -> int:
     epd, result, profile_line = serve(
         "epd_serving", build_epd, epd_frames, counts, {"csr_segment_sum": BLOCKS}, args.seed
     )
-    emit({"phase": "serving", "model": f"EncodeProcessDecode {BLOCKS}x{HIDDEN}, cylinder",
+    clock.emit({"phase": "serving", "model": f"EncodeProcessDecode {BLOCKS}x{HIDDEN}, cylinder",
           **epd_sizes, **result})
-    emit({"phase": "serving_profile", "model": "EncodeProcessDecode", **profile_line})
-    emit({"phase": "batched", "model": "EncodeProcessDecode", **batched_forward(
+    clock.emit({"phase": "serving_profile", "model": "EncodeProcessDecode", **profile_line})
+    clock.emit({"phase": "batched", "model": "EncodeProcessDecode", **batched_forward(
         "epd_batched", epd, cyl_batch.to("cuda"), counts, {"csr_segment_sum": BLOCKS})})
     del epd
 
@@ -2141,9 +2435,9 @@ def main() -> int:
         "transformer_serving", lambda seed, dev: build_transformer(panels, seed, dev),
         tf_frames, counts, {"csr_attention": blocks}, args.seed,
     )
-    emit({"phase": "transformer_serving", "model": tf_model, **tf_sizes, **result})
-    emit({"phase": "transformer_serving_profile", "model": "EncodeTransformDecode", **profile_line})
-    emit({"phase": "transformer_batched", "model": "EncodeTransformDecode", **batched_forward(
+    clock.emit({"phase": "transformer_serving", "model": tf_model, **tf_sizes, **result})
+    clock.emit({"phase": "transformer_serving_profile", "model": "EncodeTransformDecode", **profile_line})
+    clock.emit({"phase": "transformer_batched", "model": "EncodeTransformDecode", **batched_forward(
         "transformer_batched", tf, tf_batch.to("cuda"), counts, {"csr_attention": blocks})})
     del tf
 
@@ -2152,30 +2446,30 @@ def main() -> int:
     epd_train = train("epd_training", cylinder, cyl_batch, counts,
                       {"csr_segment_sum": epd_blocks, "csr_segment_sum_backward": epd_blocks},
                       args.seed, EPD_GRAD_RTOL)
-    emit({"phase": "epd_training",
+    clock.emit({"phase": "epd_training",
           "model": f"EncodeProcessDecode {epd_blocks}x{cylinder['model']['hidden_size']}, "
                    f"{CYLINDER_CONFIG}", **epd_train})
     tf_train = train("transformer_training", panels, tf_batch, counts,
                      {"csr_attention": blocks, "csr_attention_backward": blocks}, args.seed,
                      TRANSFORMER_GRAD_RTOL)
-    emit({"phase": "transformer_training", "model": tf_model, **tf_train})
+    clock.emit({"phase": "transformer_training", "model": tf_model, **tf_train})
 
     # 9. training pipeline: dataset, loader, fit with validation --------------------
-    emit({"phase": "epd_pipeline", **pipeline(
+    clock.emit({"phase": "epd_pipeline", **pipeline(
         "epd_pipeline", cylinder, cylinder_trajectory, counts,
         {"csr_segment_sum": (epd_blocks, epd_blocks), "csr_segment_sum_backward": (epd_blocks, 0)},
         args.seed)})
-    emit({"phase": "transformer_pipeline", **pipeline(
+    clock.emit({"phase": "transformer_pipeline", **pipeline(
         "transformer_pipeline", panels, panels_trajectory, counts,
         {"csr_attention": (blocks, blocks), "csr_attention_backward": (blocks, 0)},
         args.seed)})
 
     # 10. checkpoints, resume and predict on the card ------------------------------
-    emit({"phase": "epd_checkpoint", **checkpoint_roundtrip(
+    clock.emit({"phase": "epd_checkpoint", **checkpoint_roundtrip(
         "epd_checkpoint", cylinder, cylinder_trajectory, counts,
         {"csr_segment_sum": (epd_blocks, epd_blocks), "csr_segment_sum_backward": (epd_blocks, 0)},
         "csr_segment_sum", args.seed, EPD_RESUME_WORST_RTOL)})
-    emit({"phase": "transformer_checkpoint", **checkpoint_roundtrip(
+    clock.emit({"phase": "transformer_checkpoint", **checkpoint_roundtrip(
         "transformer_checkpoint", panels, panels_trajectory, counts,
         {"csr_attention": (blocks, blocks), "csr_attention_backward": (blocks, 0)},
         "csr_attention", args.seed, TRANSFORMER_RESUME_WORST_RTOL)})
@@ -2185,7 +2479,7 @@ def main() -> int:
     total_steps = 1 + WARMUP_STEPS + TIMED_STEPS + PROFILED_STEPS
     panels48 = load_config(PANELS_CONFIG)
     panels48["model"]["hidden_size"] = 48
-    emit({"phase": "width_first_step",
+    clock.emit({"phase": "width_first_step",
           "model": f"EncodeTransformDecode {blocks}x48, {panels['model']['num_heads']} heads, "
                    f"{PANELS_CONFIG} with hidden_size 48",
           **first_step("width_first_step", panels48, tf_batch, args.seed, total_steps,
@@ -2204,19 +2498,19 @@ def main() -> int:
     full = dict(gmm, model=dict(gmm["model"], use_diagonal=False))
     gmm_train["full_covariance"] = first_step("gmm_training_full_covariance", full, gmm_graph, args.seed,
                                               total_steps, TRANSFORMER_GRAD_RTOL)
-    emit({"phase": "gmm_training", "model": gmm_model, **gmm_train})
+    clock.emit({"phase": "gmm_training", "model": gmm_model, **gmm_train})
     del gmm_graph
 
     # 13. GMM serving: a sampled rollout at the aneurysm scale ------------------------
     gmm_frames = gmm_trajectory(args.seed + 500, args.frames)
-    emit({"phase": "gmm_serving", "model": gmm_model,
+    clock.emit({"phase": "gmm_serving", "model": gmm_model,
           **gmm_serving("gmm_serving", gmm, gmm_frames, counts, args.seed)})
     del gmm_frames
 
     # 14. GMM pipeline: panels with a K = 3 head, fit, reload, predict ---------------
     panels_gmm = load_config(PANELS_CONFIG)
     panels_gmm["model"]["num_mixture_components"] = 3
-    emit({"phase": "gmm_pipeline", "model": f"{PANELS_CONFIG} with num_mixture_components 3",
+    clock.emit({"phase": "gmm_pipeline", "model": f"{PANELS_CONFIG} with num_mixture_components 3",
           **gmm_pipeline("gmm_pipeline", panels_gmm, panels_trajectory, counts, args.seed)})
 
     # 15. the XDMF path: both aneurysm configs from their own inline files ----------
@@ -2237,18 +2531,29 @@ def main() -> int:
         for path in ANEURYSM_CONFIGS:
             param = load_config(path)
             label = f"aneurysm_xdmf_pipeline:{os.path.basename(path)}"
-            t0 = time.perf_counter()
             result = aneurysm_pipeline(label, param, folders, counts, args.seed)
             if (result["nodes"], result["real_edges"]) != (sizes["nodes"], sizes["directed_edges"]):
                 raise AssertionError(f"{label}: graph of {result['nodes']} nodes and "
                                      f"{result['real_edges']} edges, expected {sizes}")
             aneurysm_paths[label] = result
-            emit({"phase": "aneurysm_xdmf_pipeline", "config": path, **sizes, **result,
-                  "phase_s": time.perf_counter() - t0})
+            clock.emit({"phase": "aneurysm_xdmf_pipeline", "config": path, **sizes, **result})
 
-    # 16. two epochs of the aneurysm fidelity run -------------------------------------
-    emit({"phase": "aneurysm_fidelity_short",
-          **fidelity_short("aneurysm_fidelity_short", counts, args.seed)})
+    # 16. the plate pipeline: plate.json, world edges, the worker loader -----------
+    plate = load_config(PLATE_CONFIG)
+    plate_blocks = plate["model"]["message_passing_num"]
+    plate_model = (f"EncodeTransformDecode {plate_blocks}x{plate['model']['hidden_size']}, "
+                   f"{plate['model']['num_heads']} heads, {PLATE_CONFIG}")
+    plate_result = plate_pipeline("plate_pipeline", plate, counts, args.seed, PLATE_WORKERS)
+    clock.emit({"phase": "plate_pipeline", "model": plate_model,
+                "mesh": f"tet_box({PLATE_GRID[0]}, {PLATE_GRID[0]}, {PLATE_GRID[1]}) and the punch",
+                **plate_result})
+
+    # 17. two epochs of each fidelity run ---------------------------------------------
+    fidelity = {}
+    for config in ("cylinder", "panels", "plate", "aneurysm"):
+        label = f"{config}_fidelity_short"
+        fidelity[label] = fidelity_short(label, counts, config)
+        clock.emit({"phase": label, **fidelity[label]})
 
     def entry(name, source, replaces, launches, shapes, tolerance, **extra):
         main = shapes[1]  # the 8 x 2,048 batch: the training path's shape
@@ -2271,10 +2576,10 @@ def main() -> int:
         }
 
     # launches of the training paths, each counted from 0 over its timed
-    # steps, and of the XDMF pipelines (timed steps, fit and predict, each
-    # counted from 0)
+    # steps, of the XDMF and plate pipelines (timed steps, fits and predict,
+    # each counted from 0) and of the short fidelity runs
     paths = {"epd_training": epd_train, "transformer_training": tf_train, "gmm_training": gmm_train,
-             **aneurysm_paths}
+             **aneurysm_paths, "plate_pipeline": plate_result, **fidelity}
     launched = {k: sum(r["launches"][k] for r in paths.values()) for k in counts}
     by_path = {k: {p: r["launches"][k] for p, r in paths.items() if r["launches"][k]} for k in counts}
     off_path = {"main_path_launches": 0,
@@ -2282,7 +2587,7 @@ def main() -> int:
     kernels = {"kernels": [
         entry("csr_segment_sum", "graphphysics_torch/csrc/csr_segment_sum.cu",
               "graphphysics_tpu/ops/pallas_segment.py:148", launched["csr_segment_sum"], k1_shapes,
-              KERNEL_ATOL, launches_by_path=by_path["csr_segment_sum"]),
+              KERNEL_ATOL, launches_by_path=by_path["csr_segment_sum"], launch_floor_ms=floor),
         entry("csr_segment_sum_backward", "graphphysics_torch/csrc/csr_segment_sum.cu",
               "graphphysics_tpu/ops/pallas_segment.py:228", launched["csr_segment_sum_backward"],
               k1b_shapes, GATHER_ATOL, launches_by_path=by_path["csr_segment_sum_backward"]),

@@ -32,7 +32,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--init_lr", type=float, default=0.001)
     p.add_argument("--batch_size", type=int, default=2)
     p.add_argument("--warmup", type=int, default=1000)
-    p.add_argument("--prefetch_factor", type=int, default=2)
+    p.add_argument("--prefetch_factor", type=int, default=2,
+                   help="batches built ahead of the step (by a thread, or per worker)")
     p.add_argument("--num_workers", type=int, default=0,
                    help="worker processes for item building (0 = in-process)")
     p.add_argument("--model_save_name", default="state.pt")
@@ -42,7 +43,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--previous_data_start", type=int, default=4)
     p.add_argument("--previous_data_end", type=int, default=7)
     p.add_argument("--no_edge_feature", action="store_true")
-    p.add_argument("--masking_ratio", type=float, default=None)
+    p.add_argument("--masking_ratio", type=float, default=None,
+                   help="node masking: int((1 - ratio) * N) nodes per item marked exclude_mask")
     p.add_argument("--val_trajectories", type=int, default=None)
     p.add_argument("--checkpoint_dir", default="checkpoints")
     p.add_argument("--metrics_path", default="metrics.csv")
@@ -75,9 +77,6 @@ def build_argparser() -> argparse.ArgumentParser:
 
 # (flag, default, ROADMAP.md section 1 item): flags of features not ported yet
 NOT_PORTED: Tuple[Tuple[str, object, int], ...] = (
-    ("prefetch_factor", 2, 3),
-    ("num_workers", 0, 3),
-    ("masking_ratio", None, 3),
     ("data_parallel", False, 13),
     ("gradient_accumulation", False, 11),
     ("graph_partition", 0, 14),
@@ -124,7 +123,8 @@ def main(argv=None) -> int:
     train_ds = get_dataset(
         parameters,
         get_preprocessing(parameters, use_edge_feature=use_edge_feature, extra_node_features=extra),
-        use_edge_feature=use_edge_feature, use_previous_data=args.use_previous_data,
+        masking_ratio=args.masking_ratio, use_edge_feature=use_edge_feature,
+        use_previous_data=args.use_previous_data,
     )
     val_ds = get_dataset(
         parameters,
@@ -139,7 +139,8 @@ def main(argv=None) -> int:
     _ = train_ds[0], val_ds[0]
     train_ds.node_budget = val_ds.node_budget = max(train_ds.node_budget, val_ds.node_budget)
     train_ds.edge_budget = val_ds.edge_budget = max(train_ds.edge_budget, val_ds.edge_budget)
-    loader = GraphLoader(train_ds, batch_size=args.batch_size, shuffle=True, seed=args.seed)
+    loader = GraphLoader(train_ds, batch_size=args.batch_size, shuffle=True, seed=args.seed,
+                         prefetch=args.prefetch_factor, num_workers=args.num_workers)
 
     extra_logger = None
     if args.project_name:
@@ -176,13 +177,16 @@ def main(argv=None) -> int:
         device=args.device,
         **previous_data_options(args),
     )
-    trainer.fit(
-        loader,
-        val_dataset=val_ds,
-        num_epochs=args.num_epochs,
-        resume_from=args.model_path if args.resume_training else None,
-        val_trajectories=args.val_trajectories,
-    )
+    try:
+        trainer.fit(
+            loader,
+            val_dataset=val_ds,
+            num_epochs=args.num_epochs,
+            resume_from=args.model_path if args.resume_training else None,
+            val_trajectories=args.val_trajectories,
+        )
+    finally:
+        loader.close()
     return 0
 
 

@@ -10,8 +10,10 @@ for the model's kernel: ``"sorted"`` sorts them by receiver and attaches
 them by sender and attaches ``sender_bounds`` (EncodeTransformDecode, the
 attention kernel). With ``use_previous_data`` every item also carries the
 frame before it (``RawSample.previous_data``), so a trajectory's first
-frame is not an item. k-hop edges, random edges, node masking, size buckets and
-the ELL layout raise ``NotImplementedError``: they come with later slices.
+frame is not an item. ``khop > 1`` replaces the mesh edges by the k-hop
+adjacency (cached per trajectory), ``new_edges_ratio`` adds random edges,
+``masking_ratio`` gives each item an ``exclude_mask``. Size buckets and the
+ELL layout raise ``NotImplementedError``: they come with a later slice.
 """
 
 from __future__ import annotations
@@ -31,23 +33,32 @@ from graphphysics_torch.core.graph import (
 from graphphysics_torch.dataset.preprocessing import apply_face_to_edge
 from graphphysics_torch.dataset.sample import RawSample
 from graphphysics_torch.ops.csr_attention import BLOCK_NODES
+from graphphysics_torch.topology import (
+    add_random_edges,
+    cartesian_distance_features,
+    k_hop_edges,
+    world_pos_features,
+)
 
 # edge layouts of a dataset: each names its padding
 EDGE_LAYOUTS = {"sorted": pad_graph_sorted_np, "csr": pad_graph_csr_np}
 
 
 def _waits(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md section 1, item 3, host data)")
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md section 1, item 11, training features)"
+    )
 
 
 class BaseDataset(abc.ABC):
     """The per-item pipeline ``load -> preprocessing -> FaceToEdge (when the
-    preprocessing built no edges) -> drop edge features (when the model takes
-    none) -> pad to static budgets``.
+    preprocessing built no edges) -> k-hop edges -> drop edge features (when
+    the model takes none) -> random edges -> node masking -> pad to static
+    budgets``.
 
     Items are deterministic per ``(seed, epoch, index)``: ``__getitem__``
-    draws its randomness (the training noise) from
-    ``SeedSequence([seed, epoch, index])``."""
+    draws its randomness (the training noise, the random edges, the mask)
+    from ``SeedSequence([seed, epoch, index])``."""
 
     def __init__(
         self,
@@ -58,6 +69,7 @@ class BaseDataset(abc.ABC):
         new_edges_ratio: float = 0.0,
         add_edge_features: bool = True,
         use_previous_data: bool = False,
+        world_pos_parameters: Optional[dict] = None,
         node_type_index: Optional[int] = None,
         node_budget: Optional[int] = None,
         edge_budget: Optional[int] = None,
@@ -67,12 +79,6 @@ class BaseDataset(abc.ABC):
         edge_layout: str = "sorted",
         num_buckets: int = 1,
     ):
-        if khop != 1:
-            raise _waits(f"khop={khop}")
-        if new_edges_ratio:
-            raise _waits("random edges (new_edges_ratio)")
-        if masking_ratio is not None:
-            raise _waits("node masking (masking_ratio)")
         if num_buckets != 1:
             raise _waits("size buckets (num_buckets)")
         if edge_layout == "ell":
@@ -87,6 +93,9 @@ class BaseDataset(abc.ABC):
             self.meta: Dict[str, Any] = json.load(fp)
         self.trajectory_length: int = self.meta["trajectory_length"]
         self.preprocessing = preprocessing
+        self.masking_ratio = masking_ratio
+        self.khop = khop
+        self.new_edges_ratio = new_edges_ratio
         self.add_edge_features = add_edge_features
         self.use_previous_data = use_previous_data
         self.node_type_index = node_type_index
@@ -99,6 +108,14 @@ class BaseDataset(abc.ABC):
         self._canonical_sample_cache: Optional[RawSample] = None
         self._node_counts_cache: Any = False  # False: not scanned yet (None is a result)
         self._epoch = 0
+        # the world position of the k-hop edge features, where given
+        self.world_pos_index_start = self.world_pos_index_end = None
+        if world_pos_parameters is not None:
+            self.world_pos_index_start = world_pos_parameters.get("world_pos_index_start")
+            self.world_pos_index_end = world_pos_parameters.get("world_pos_index_end")
+        # k-hop edges and their features, per trajectory
+        self._khop_edges_cache: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        self._khop_attr_cache: Dict[int, np.ndarray] = {}
 
     # ------------------------------------------------------------------ API
 
@@ -142,32 +159,92 @@ class BaseDataset(abc.ABC):
         return list(range(traj_index * per, (traj_index + 1) * per))
 
     def set_epoch(self, epoch: int) -> None:
-        """Reseed the per-item randomness (the training noise)."""
+        """Reseed the per-item randomness (noise, random edges, masking)."""
         self._epoch = epoch
 
     def __getitem__(self, index: int) -> Graph:
         rng = np.random.default_rng(np.random.SeedSequence([self.seed, self._epoch, index]))
-        sample = self._build_sample(index, rng)
+        sample, exclude = self._build_sample(index, rng)
         if index == 0 and self._epoch == 0 and self._canonical_sample_cache is None:
             # this is the canonical sample (same seed derivation): keep it
             # so the budgets below do not build item 0 a second time
             self._canonical_sample_cache = sample
-        graph = self._pad(sample)
+        graph = self._pad(sample, exclude)
         if self.node_budget is not None and self.edge_budget is not None:
             self._canonical_sample_cache = None
         return graph
 
     # ------------------------------------------------------------ pipeline
 
-    def _build_sample(self, index: int, rng: np.random.Generator) -> RawSample:
+    def _build_sample(
+        self, index: int, rng: np.random.Generator
+    ) -> Tuple[RawSample, Optional[np.ndarray]]:
+        """The item before padding, and its exclude mask (None without
+        masking)."""
         sample = self._load(index)
+        traj_index = sample.traj_index
         if self.preprocessing is not None:
             sample = self.preprocessing(sample, rng)
         if sample.senders is None:
             sample = apply_face_to_edge(sample, rng)
+        sample = self._apply_k_hop(sample, traj_index)
         if not self.add_edge_features:
             sample.edge_attr = None
+        sample = self._add_random_edges(sample, rng)
+        return sample, self._masked_indexes(sample, rng)
+
+    def _apply_k_hop(self, sample: RawSample, traj_index: int) -> RawSample:
+        """With ``khop > 1``, the k-hop edges in place of the mesh edges,
+        with their edge features computed anew (Cartesian + Distance on
+        ``pos``, then the world-position ones where the dataset has world
+        positions), both cached per trajectory: the first item of a
+        trajectory built in this process fixes them, and every later one
+        reuses them, frame-varying inputs (world edges, world positions)
+        included, as the reference's cache does."""
+        if self.khop <= 1:
+            return sample
+        if traj_index in self._khop_edges_cache:
+            sample.senders, sample.receivers = self._khop_edges_cache[traj_index]
+            if self.add_edge_features:
+                sample.edge_attr = self._khop_attr_cache[traj_index]
+            return sample
+        s, r = k_hop_edges(sample.senders, sample.receivers, sample.num_nodes, self.khop)
+        sample.senders, sample.receivers = s, r
+        self._khop_edges_cache[traj_index] = (s, r)
+        if self.add_edge_features:
+            attr = cartesian_distance_features(sample.pos, s, r)
+            if self.world_pos_index_start is not None and self.world_pos_index_end is not None:
+                wp = sample.x[:, self.world_pos_index_start:self.world_pos_index_end]
+                attr = world_pos_features(wp, s, r, attr)
+            sample.edge_attr = attr
+            self._khop_attr_cache[traj_index] = attr
         return sample
+
+    def _add_random_edges(self, sample: RawSample, rng: np.random.Generator) -> RawSample:
+        """With ``0 < new_edges_ratio <= 1``, random edges added
+        (``topology.add_random_edges``) and the edge features recomputed as
+        Cartesian + Distance on ``pos`` alone, as the reference does."""
+        if self.new_edges_ratio <= 0.0 or self.new_edges_ratio > 1.0:
+            return sample
+        s, r = add_random_edges(sample.senders, sample.receivers, sample.num_nodes,
+                                self.new_edges_ratio, rng)
+        sample.senders, sample.receivers = s, r
+        if self.add_edge_features:
+            sample.edge_attr = cartesian_distance_features(sample.pos, s, r)
+        return sample
+
+    def _masked_indexes(self, sample: RawSample, rng: np.random.Generator) -> Optional[np.ndarray]:
+        """The MeshMask selection of the reference: ``int((1 - ratio) * N)``
+        nodes of a random permutation are marked True, and the losses leave
+        the True nodes out. So the *kept* share is excluded, as in the
+        reference and the JAX package."""
+        if self.masking_ratio is None:
+            return None
+        n = sample.num_nodes
+        keep = rng.permutation(n)[: int((1.0 - self.masking_ratio) * n)]
+        mask = np.zeros(n, dtype=bool)
+        mask[keep] = True
+        return mask
 
     def _canonical_sample(self) -> RawSample:
         """The processed sample of item 0 at epoch 0: the one source of every
@@ -176,7 +253,7 @@ class BaseDataset(abc.ABC):
             rng = np.random.default_rng(np.random.SeedSequence([self.seed, 0, 0]))
             saved, self._epoch = self._epoch, 0
             try:
-                self._canonical_sample_cache = self._build_sample(0, rng)
+                self._canonical_sample_cache = self._build_sample(0, rng)[0]
             finally:
                 self._epoch = saved
         return self._canonical_sample_cache
@@ -207,7 +284,9 @@ class BaseDataset(abc.ABC):
             canon_e = self._canonical_sample().num_edges
             self.edge_budget = round_up(int(canon_e * self.edge_headroom), self.bucket_multiple)
 
-    def _pad(self, sample: RawSample) -> Graph:
+    def _pad(self, sample: RawSample, exclude: Optional[np.ndarray] = None) -> Graph:
+        """``sample`` padded to the budgets in the dataset's edge layout, with
+        ``exclude`` padded by False to the node budget where given."""
         self._derive_budgets()
         n, e = sample.num_nodes, sample.num_edges
         if n > self.node_budget:
@@ -220,7 +299,7 @@ class BaseDataset(abc.ABC):
                 f"sample exceeds edge budget: {e}>{self.edge_budget}; raise "
                 f"edge_budget or edge_headroom"
             )
-        return EDGE_LAYOUTS[self.edge_layout](
+        graph = EDGE_LAYOUTS[self.edge_layout](
             sample.x,
             sample.pos,
             sample.senders,
@@ -231,3 +310,8 @@ class BaseDataset(abc.ABC):
             y=sample.y,
             node_type_index=self.node_type_index,
         )
+        if exclude is not None:
+            padded = np.zeros(self.node_budget, dtype=bool)
+            padded[: len(exclude)] = exclude
+            graph = graph.replace(exclude_mask=padded)
+        return graph

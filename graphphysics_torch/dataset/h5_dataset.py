@@ -1,12 +1,13 @@
 """H5 trajectories (counterpart of ``graphphysics_tpu/dataset/h5_dataset.py``):
 read one trajectory per the meta schema, turn a frame into a ``RawSample``,
-and ``H5Dataset``, the training dataset over an h5 file of trajectories.
-``h5py`` is imported only by the function that opens a file."""
+``H5Dataset``, the training dataset over an h5 file of trajectories, and
+``MemoryDataset``, the same over trajectories held in memory. ``h5py`` is
+imported only by the function that opens a file."""
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -101,6 +102,24 @@ def frame_to_sample(
     )
 
 
+def frame_item(
+    traj: Dict[str, np.ndarray],
+    frame: int,
+    meta: Dict[str, Any],
+    traj_index: int,
+    use_previous_data: bool = False,
+) -> RawSample:
+    """The raw item of ``frame`` of trajectory ``traj_index``: its sample
+    with the next frame as target and, with ``use_previous_data``, the
+    previous frame's ``x``. h5 trajectories have no mesh name: ``id`` stays
+    None."""
+    sample = frame_to_sample(traj, frame, meta, frame_target=frame + 1)
+    if use_previous_data:
+        sample.previous_data = frame_to_sample(traj, frame - 1, meta).x
+    sample.traj_index = traj_index
+    return sample
+
+
 class H5Dataset(BaseDataset):
     """Frames of the trajectories of one h5 file, one group per trajectory,
     laid out per the meta (``BaseDataset`` for the item pipeline). The file
@@ -168,16 +187,45 @@ class H5Dataset(BaseDataset):
 
     def _load(self, index: int) -> RawSample:
         traj_index, frame = self.get_traj_frame(index)
-        traj = self._trajectory(traj_index)
-        sample = frame_to_sample(traj, frame, self.meta, frame_target=frame + 1)
-        if self.use_previous_data:
-            sample.previous_data = frame_to_sample(traj, frame - 1, self.meta).x
-        # h5 trajectories have no mesh name: ``id`` stays None
-        sample.traj_index = traj_index
-        return sample
+        return frame_item(self._trajectory(traj_index), frame, self.meta, traj_index,
+                          self.use_previous_data)
 
     def close(self) -> None:
         """Close the h5 handle (reopened at the next read)."""
         if self._file is not None:
             self._file.close()
             self._file = None
+
+    def __getstate__(self):
+        """The dataset without its open handle and trajectory cache: a
+        loader worker unpickles its own copy and opens the file itself (an
+        HDF5 handle cannot be shared across processes)."""
+        state = dict(self.__dict__)
+        state["_file"] = None
+        state["_traj_cache"] = OrderedDict()
+        return state
+
+
+class MemoryDataset(BaseDataset):
+    """Frames of trajectories held in memory: each a dict of arrays as
+    ``load_meta_trajectory`` reads one from an h5 file (static fields may
+    lie untiled, without the time axis), laid out per the meta at
+    ``meta_path``. The h5 dataset without the file, for a machine without
+    ``h5py`` or data made at run time."""
+
+    def __init__(self, trajectories: Sequence[Dict[str, np.ndarray]], meta_path: str, **kwargs):
+        super().__init__(meta_path=meta_path, **kwargs)
+        self.trajectories = list(trajectories)
+        self.dt = self.meta.get("dt", 1) or 1
+
+    @property
+    def size_dataset(self) -> int:
+        return len(self.trajectories)
+
+    def scan_node_counts(self) -> List[int]:
+        return [int(t["mesh_pos"].shape[-2]) for t in self.trajectories]
+
+    def _load(self, index: int) -> RawSample:
+        traj_index, frame = self.get_traj_frame(index)
+        return frame_item(self.trajectories[traj_index], frame, self.meta, traj_index,
+                          self.use_previous_data)

@@ -1,24 +1,113 @@
-"""Batching loader (counterpart of ``graphphysics_tpu/dataset/loader.py``),
-single process: items are padded Graphs of one shape, so a batch is their
-concatenation with index offsets (``concat_graphs``), one flat graph that
-the model sees whole. The order is deterministic per ``(seed, epoch)``, and
-with the items' own per-``(seed, epoch, index)`` randomness an epoch's
-stream can be replayed from any batch (``set_start_batch``). Worker
-processes and size buckets come with later slices."""
+"""Batching loader (counterpart of ``graphphysics_tpu/dataset/loader.py``):
+items are padded Graphs of one shape, so a batch is their concatenation with
+index offsets (``concat_graphs``), one flat graph that the model sees whole.
+The order is deterministic per ``(seed, epoch)``, and with the items' own
+per-``(seed, epoch, index)`` randomness an epoch's stream can be replayed
+from any batch (``set_start_batch``).
+
+Batches are built on the host while the card trains: by a background thread
+(``prefetch`` batches ahead) or, with ``num_workers > 0``, by worker
+processes of a ``torch.utils.data.DataLoader`` (spawned, persistent across
+epochs), which give the same batches bit for bit. Size buckets come with a
+later slice."""
 
 from __future__ import annotations
 
-from typing import Iterator, List
+import os
+import pickle
+import queue
+import tempfile
+import threading
+import weakref
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from graphphysics_torch.core.graph import Graph, concat_graphs
+
+# seconds the parent waits for one batch from the workers before it raises
+# (the first batch includes the workers' start: a fresh interpreter each)
+WORKER_TIMEOUT_S = 300.0
+# seconds a consumer that abandons an epoch waits for the prefetch thread
+PREFETCH_JOIN_S = 60.0
+
+
+class EpochItems(torch.utils.data.Dataset):
+    """The dataset as the loader's workers see it. It travels as the path
+    of a file that holds the pickled dataset, which each worker reads at its
+    first item: a spawned worker's start writes its arguments through a pipe
+    that blocks the parent until the child has read them, so a dataset of
+    megabytes in the arguments would start the workers one after another.
+    An item is asked for as ``(index, epoch)``, because a persistent
+    worker's copy of the dataset never sees the parent's ``set_epoch``; the
+    copy follows the epoch of each task."""
+
+    def __init__(self, path: str, length: int):
+        self.path, self.length = path, length
+        self.dataset = None
+        self._epoch: Optional[int] = None
+
+    def __len__(self) -> int:
+        return self.length
+
+    def __getstate__(self):
+        return {**self.__dict__, "dataset": None, "_epoch": None}
+
+    def __getitem__(self, task: Tuple[int, int]) -> Graph:
+        if self.dataset is None:
+            with open(self.path, "rb") as fp:
+                self.dataset = pickle.load(fp)  # written by this loader's parent
+        index, epoch = task
+        if epoch != self._epoch and hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
+        self._epoch = epoch
+        return self.dataset[index]
+
+
+class EpochBatches(torch.utils.data.Sampler):
+    """The batch sampler of the workers' ``DataLoader``: the tasks of the
+    batches the parent assigned for the next iteration."""
+
+    def __init__(self):
+        self.batches: List[List[Tuple[int, int]]] = []
+
+    def __iter__(self):
+        return iter(self.batches)
+
+    def __len__(self) -> int:
+        return len(self.batches)
+
+
+def init_worker(worker_id: int) -> None:
+    """A loader worker builds items on the host only: one torch thread, and
+    no card visible to it."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    torch.set_num_threads(1)
+
+
+def materialize_static_shapes(dataset, first_index: int) -> None:
+    """Build one item where a padding budget is still unset, so the workers
+    inherit the parent's budgets through the pickle instead of each
+    deriving its own."""
+    if getattr(dataset, "node_budget", 1) is None or getattr(dataset, "edge_budget", 1) is None:
+        dataset[int(first_index)]
 
 
 class GraphLoader:
     """Batches of ``batch_size`` dataset items, concatenated. ``shuffle``
     permutes the items with ``SeedSequence([seed, epoch])``. A last partial
-    batch is dropped, so every batch keeps one shape."""
+    batch is dropped, so every batch keeps one shape.
+
+    ``num_workers == 0``: with ``prefetch > 0`` a background thread builds
+    up to ``prefetch`` batches ahead of the consumer (stopped and joined when
+    the consumer abandons the epoch), with ``prefetch == 0`` the consumer's
+    thread builds each batch when it asks for it. ``num_workers > 0``: that
+    many spawned worker processes build and concatenate the batches, each
+    keeping up to ``prefetch`` (at least 1) ahead; they persist across
+    epochs until ``close``. A worker's exception reaches the caller, and
+    waiting more than ``timeout`` seconds for a batch raises. The dataset
+    must pickle (``H5Dataset`` drops its file handle)."""
 
     def __init__(
         self,
@@ -26,15 +115,26 @@ class GraphLoader:
         batch_size: int = 1,
         shuffle: bool = False,
         seed: int = 0,
+        prefetch: int = 2,
+        num_workers: int = 0,
+        timeout: float = WORKER_TIMEOUT_S,
     ):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        if prefetch < 0 or num_workers < 0:
+            raise ValueError(f"prefetch and num_workers must be >= 0, got {prefetch}, {num_workers}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
+        self.prefetch = prefetch
+        self.num_workers = num_workers
+        self.timeout = timeout
         self._epoch = 0
         self._start_batch = 0
+        self._workers: Optional[torch.utils.data.DataLoader] = None
+        self._tasks = EpochBatches()
+        self._dataset_file = None  # removes the workers' copy of the dataset
 
     def set_epoch(self, epoch: int) -> None:
         """The epoch of the next iteration (order and item randomness)."""
@@ -71,5 +171,87 @@ class GraphLoader:
     def __iter__(self) -> Iterator[Graph]:
         chunks = self._chunks()
         start, self._start_batch = self._start_batch, 0  # one-shot
-        for b in range(start, len(chunks)):
-            yield concat_graphs([self.dataset[int(i)] for i in chunks[b]])
+        chunks = chunks[start:]
+        if self.num_workers > 0:
+            return self._from_workers(chunks)
+        if self.prefetch > 0:
+            return self._prefetched(chunks)
+        return self._in_process(chunks)
+
+    def _in_process(self, chunks: Sequence[np.ndarray]) -> Iterator[Graph]:
+        for idx in chunks:
+            yield concat_graphs([self.dataset[int(i)] for i in idx])
+
+    def _prefetched(self, chunks: Sequence[np.ndarray]) -> Iterator[Graph]:
+        """``_in_process`` on a background thread, up to ``prefetch``
+        batches ahead; its exception is raised here, in order."""
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+        done = object()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.5)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce():
+            try:
+                for batch in self._in_process(chunks):
+                    if not put(batch):
+                        return
+                put(done)
+            except BaseException as err:  # relayed to the consumer, which raises it
+                put(err)
+
+        thread = threading.Thread(target=produce, name="GraphLoader-prefetch", daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is done:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            thread.join(timeout=PREFETCH_JOIN_S)
+
+    def _from_workers(self, chunks: Sequence[np.ndarray]) -> Iterator[Graph]:
+        if self._workers is None:
+            first = chunks[0][0] if chunks else 0
+            materialize_static_shapes(self.dataset, first)
+            fd, path = tempfile.mkstemp(prefix="graphloader-", suffix=".pkl")
+            self._dataset_file = weakref.finalize(self, os.remove, path)
+            with os.fdopen(fd, "wb") as fp:
+                pickle.dump(self.dataset, fp, protocol=pickle.HIGHEST_PROTOCOL)
+            self._workers = torch.utils.data.DataLoader(
+                EpochItems(path, len(self.dataset)),
+                batch_sampler=self._tasks,
+                num_workers=self.num_workers,
+                collate_fn=concat_graphs,
+                persistent_workers=True,
+                multiprocessing_context="spawn",
+                prefetch_factor=max(self.prefetch, 1),
+                timeout=self.timeout,
+                worker_init_fn=init_worker,
+            )
+        # the tasks are read when the iterator starts (below), before the
+        # next epoch can assign its own
+        self._tasks.batches = [[(int(i), self._epoch) for i in idx] for idx in chunks]
+        return iter(self._workers)
+
+    def close(self) -> None:
+        """Stop the worker processes and remove their copy of the dataset
+        (idempotent); the next iteration with workers starts new ones."""
+        workers, self._workers = self._workers, None
+        it = getattr(workers, "_iterator", None)
+        if it is not None:
+            it._shutdown_workers()
+        if self._dataset_file is not None:
+            self._dataset_file()
+            self._dataset_file = None

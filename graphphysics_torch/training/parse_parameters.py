@@ -3,8 +3,9 @@
 ``get_preprocessing``, ``get_model``, ``get_simulator_config``,
 ``get_simulator``, ``edge_layout`` and ``get_dataset`` for the
 configurations the port trains and serves today: float32, the plain (K = 0)
-decoder or a GMM head, h5 and XDMF datasets, previous-frame data and the
-dataset-specific feature hooks. A key that asks for more raises
+decoder or a GMM head, h5 and XDMF datasets, previous-frame data, the
+dataset-specific feature hooks, world-position edges, k-hop and random
+edges and node masking. A key that asks for more raises
 ``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 
@@ -34,14 +35,14 @@ def get_preprocessing(
     remove_noise: bool = False,
     extra_node_features: Optional[Union[Callable, List[Callable]]] = None,
 ) -> Pipeline:
-    """The preprocessing pipeline of ``param``: the ``extra_node_features``
-    hooks (``graphphysics_torch.external``), FaceToEdge, the edge features
-    when ``use_edge_feature``, and the training noise of
+    """The preprocessing pipeline of ``param`` (``build_preprocessing``):
+    the ``extra_node_features`` hooks (``graphphysics_torch.external``);
+    with ``transformations.world_pos_parameters.use`` the world-position
+    steps (its ``radius`` where the config gives one), else FaceToEdge and
+    the edge features when ``use_edge_feature``; the training noise of
     ``transformations.preprocessing`` unless ``remove_noise`` (prediction
-    and validation) or its scale is 0. World-position edges wait."""
+    and validation) or its scale is 0."""
     pre = param.get("transformations", {}).get("preprocessing", {})
-    if param.get("transformations", {}).get("world_pos_parameters", {}).get("use", False):
-        raise _waits("world-position edges", "item 3, host data")
     noise_scale = pre.get("noise", 0)
     noise_parameters = None
     if noise_scale != 0 and not remove_noise:
@@ -51,8 +52,19 @@ def get_preprocessing(
             "noise_scale": noise_scale,
             "node_type_index": param["index"]["node_type_index"],
         }
+    world_pos = param.get("transformations", {}).get("world_pos_parameters", {})
+    world_pos_parameters = None
+    if world_pos.get("use", False):
+        world_pos_parameters = {
+            "world_pos_index_start": world_pos.get("world_pos_index_start"),
+            "world_pos_index_end": world_pos.get("world_pos_index_end"),
+            "node_type_index": param["index"]["node_type_index"],
+        }
+        if "radius" in world_pos:
+            world_pos_parameters["radius"] = world_pos["radius"]
     return build_preprocessing(
         noise_parameters=noise_parameters,
+        world_pos_parameters=world_pos_parameters,
         add_edges_features=use_edge_feature,
         extra_node_features=extra_node_features,
     )
@@ -173,9 +185,11 @@ def get_dataset(
     must resolve to), with the config's ``bucket_multiple`` and
     ``edge_headroom``; ``budget_kwargs`` override them and may give
     ``node_budget``, ``edge_budget`` and ``seed``. ``use_previous_data``
-    gives every item the frame before it. Node masking is not ported yet."""
-    if masking_ratio is not None:
-        raise _waits("node masking (masking_ratio)", "item 3, host data")
+    gives every item the frame before it; ``masking_ratio`` marks that share
+    of each item's nodes ``exclude_mask``. The config's ``khop`` and
+    ``new_edges_ratio`` reach the dataset, and its world-position
+    parameters reach an h5 dataset with ``khop > 1`` (whose k-hop edge
+    features include them); the XDMF dataset never takes them."""
     dataset_params = param.get("dataset", {})
     extension = dataset_params.get("extension", "")
     if extension not in ("h5", "xdmf"):
@@ -183,11 +197,13 @@ def get_dataset(
     for k in ("bucket_multiple", "edge_headroom", "num_buckets"):
         if k not in budget_kwargs and dataset_params.get(k) is not None:
             budget_kwargs[k] = dataset_params[k]
+    khop = dataset_params.get("khop", 1)
     common = dict(
         meta_path=dataset_params["meta_path"],
         switch_to_val=switch_to_val,
         preprocessing=preprocessing,
-        khop=dataset_params.get("khop", 1),
+        masking_ratio=masking_ratio,
+        khop=khop,
         new_edges_ratio=dataset_params.get("new_edges_ratio", 0),
         add_edge_features=use_edge_feature,
         use_previous_data=use_previous_data,
@@ -196,7 +212,10 @@ def get_dataset(
         **budget_kwargs,
     )
     if extension == "h5":
-        return H5Dataset(h5_path=dataset_params["h5_path"], **common)
+        world_pos = param.get("transformations", {}).get("world_pos_parameters", {})
+        world_pos_parameters = world_pos if khop > 1 and world_pos.get("use", False) else None
+        return H5Dataset(h5_path=dataset_params["h5_path"],
+                         world_pos_parameters=world_pos_parameters, **common)
     return XDMFDataset(
         xdmf_folder=dataset_params["xdmf_folder"],
         random_next=dataset_params.get("random_next", 1),

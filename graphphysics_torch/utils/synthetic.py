@@ -1,8 +1,10 @@
-"""Synthetic trajectories with the CylinderFlow, panels and aneurysm schemas
-(counterpart of part of ``graphphysics_tpu/utils/synthetic.py``). The array
-builders work in memory: each gives the trajectory dict and meta that a
-reader of the JAX package's ``write_cylinder_h5``, ``write_panels_xdmf`` or
-``write_aneurysm_xdmf`` files would see. ``write_panels_xdmf`` and
+"""Synthetic trajectories with the CylinderFlow, panels, DeformingPlate
+(press) and aneurysm schemas (counterpart of part of
+``graphphysics_tpu/utils/synthetic.py``). The array builders work in memory:
+each gives the trajectory dict and meta that a reader of the JAX package's
+``write_cylinder_h5``, ``write_panels_xdmf``, ``write_plate_press_h5`` or
+``write_aneurysm_xdmf`` files would see, and the ``*_conditions`` functions
+give each trajectory's draws as those writers make them. ``write_panels_xdmf`` and
 ``write_aneurysm_xdmf`` write those files (XDMF with HDF5 heavy data, which
 needs ``h5py``) exactly as the JAX package does."""
 
@@ -79,6 +81,16 @@ def cylinder_trajectory(
         ),
     }
     return traj, cylinder_meta(steps)
+
+
+def cylinder_conditions(num_traj: int, seed: Optional[int] = None) -> List[float]:
+    """The ``phase0`` of each trajectory of ``write_cylinder_h5``:
+    ``0.15 * k`` without a seed, else drawn from ``default_rng(seed)`` in
+    [0, 3) in trajectory order."""
+    if seed is None:
+        return [0.15 * k for k in range(num_traj)]
+    rng = np.random.default_rng(seed)
+    return [float(rng.uniform(0.0, 3.0)) for _ in range(num_traj)]
 
 
 def panels_meta(steps: int) -> Dict[str, Any]:
@@ -162,20 +174,107 @@ def write_panels_xdmf(dirpath: str, num_traj: int = 2, steps: int = 12, nx: int 
     return dirpath, write_json(os.path.join(dirpath, "meta.json"), panels_meta(steps))
 
 
-def tet_grid(n: int) -> Tuple[np.ndarray, np.ndarray]:
-    """Structured tetrahedral mesh on [0,1]^3: ``(points [n^3, 3],
-    tets [6 (n-1)^3, 4])``, each cube of the grid cut into 6 tetrahedra
-    around its diagonal, cubes in row-major order."""
-    xs, ys, zs = np.meshgrid(*([np.linspace(0, 1, n)] * 3), indexing="ij")
+def tet_box(
+    nx: int, ny: int, nz: int, extent: Tuple[float, float, float] = (1.0, 1.0, 1.0)
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Structured tetrahedral mesh on [0, ex] x [0, ey] x [0, ez] with
+    ``nx * ny * nz`` nodes (x slowest, z fastest): ``(points [N, 3] float32,
+    tets [6 (nx-1)(ny-1)(nz-1), 4] int32)``, each cube of the grid cut into
+    6 tetrahedra around its diagonal, cubes in row-major order."""
+    ex, ey, ez = extent
+    xs, ys, zs = np.meshgrid(np.linspace(0, ex, nx), np.linspace(0, ey, ny),
+                             np.linspace(0, ez, nz), indexing="ij")
     points = np.stack([xs.ravel(), ys.ravel(), zs.ravel()], axis=1).astype(np.float32)
-    i, j, k = (a.ravel() for a in np.meshgrid(*([np.arange(n - 1)] * 3), indexing="ij"))
+    i, j, k = (a.ravel() for a in np.meshgrid(np.arange(nx - 1), np.arange(ny - 1),
+                                              np.arange(nz - 1), indexing="ij"))
     # the cube's corners, (a, b, c) in {0, 1}^3 in row-major order
     corners = np.stack(
-        [((i + a) * n + j + b) * n + k + c for a in (0, 1) for b in (0, 1) for c in (0, 1)], axis=1
+        [((i + a) * ny + j + b) * nz + k + c for a in (0, 1) for b in (0, 1) for c in (0, 1)], axis=1
     )
     split = np.array([[0, 1, 3, 7], [0, 1, 5, 7], [0, 4, 5, 7],
                       [0, 2, 3, 7], [0, 2, 6, 7], [0, 4, 6, 7]])
     return points, corners[:, split].reshape(-1, 4).astype(np.int32)
+
+
+def tet_grid(n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """``tet_box(n, n, n)``: the unit cube with ``n^3`` nodes."""
+    return tet_box(n, n, n)
+
+
+PLATE_Z_TOP = 0.2  # the slab's thickness
+PLATE_SIGMA = 0.18  # the width of the press's Gaussian indentation
+
+
+def plate_press_meta(steps: int) -> Dict[str, Any]:
+    """The DeformingPlate meta: world position the one input field and the
+    target (``target_features``), so x is ``[world_pos(3), node_type(1),
+    time(1)]`` before ``add_obstacles_next_pos``."""
+    return {
+        "dt": 0,
+        "features": {
+            "cells": {"type": "static", "shape": [steps, -1, 4], "dtype": "int32"},
+            "node_type": {"type": "static", "shape": [steps, -1, 1], "dtype": "int32"},
+            "mesh_pos": {"type": "static", "shape": [steps, -1, 3], "dtype": "float32"},
+            "world_pos": {"type": "dynamic", "shape": [steps, -1, 3], "dtype": "float32"},
+        },
+        "target_features": ["world_pos"],
+        "field_names": ["cells", "node_type", "mesh_pos", "world_pos"],
+        "trajectory_length": steps,
+    }
+
+
+def plate_press_conditions(num_traj: int, seed: int = 0) -> List[Tuple[float, float, float]]:
+    """The ``(cx, cy, speed)`` of each trajectory of
+    ``write_plate_press_h5``: the punch's centre in [0.3, 0.7)^2 and its
+    descent per frame in [0.0025, 0.004), drawn from ``default_rng(seed)``
+    in trajectory order."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(num_traj):
+        cx, cy = rng.uniform(0.3, 0.7, size=2)
+        out.append((cx, cy, rng.uniform(0.0025, 0.004)))
+    return out
+
+
+def plate_press_trajectory(
+    steps: int = 40, nx: int = 10, nz: int = 3, cx: float = 0.5, cy: float = 0.5,
+    speed: float = 0.003,
+) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
+    """One press trajectory in memory: a rigid punch (``tet_box(3, 3, 2)``,
+    OBSTACLE nodes, centred at ``(cx, cy)``) descends by ``speed`` a frame
+    into a slab (``tet_box(nx, nx, nz)`` of thickness ``PLATE_Z_TOP``,
+    HANDLE nodes on its fixed bottom face), which deforms by a Gaussian
+    indentation growing with the contact depth; contact begins a quarter
+    into the trajectory. ``(traj, meta)`` with the static ``cells [C, 4]``,
+    ``mesh_pos [N, 3]`` and ``node_type [N, 1]`` untiled and
+    ``world_pos [T, N, 3]``: the arrays of a ``write_plate_press_h5``
+    trajectory drawn with ``(cx, cy, speed)``, without the time axis on the
+    static fields."""
+    plate_pts, plate_tets = tet_box(nx, nx, nz, extent=(1.0, 1.0, PLATE_Z_TOP))
+    punch_pts0, punch_tets = tet_box(3, 3, 2, extent=(0.16, 0.16, 0.05))
+    n_plate = len(plate_pts)
+    points = np.concatenate([plate_pts, punch_pts0], axis=0)
+    tets = np.concatenate([plate_tets, punch_tets + n_plate], axis=0)
+    nt = np.full(len(points), int(NodeType.NORMAL), np.int32)
+    nt[:n_plate][plate_pts[:, 2] == 0.0] = int(NodeType.HANDLE)
+    nt[n_plate:] = int(NodeType.OBSTACLE)
+
+    z0 = PLATE_Z_TOP + 0.25 * speed * steps
+    punch = punch_pts0 + np.array([cx - 0.08, cy - 0.08, z0], np.float32)
+    r2 = (plate_pts[:, 0] - cx) ** 2 + (plate_pts[:, 1] - cy) ** 2
+    bump = np.exp(-r2 / (2 * PLATE_SIGMA**2)) * (plate_pts[:, 2] / PLATE_Z_TOP)
+    frames = []
+    for t in range(steps):
+        descent = speed * t
+        depth = max(0.0, descent - (z0 - PLATE_Z_TOP))  # contact depth
+        frames.append(np.concatenate(
+            [plate_pts - np.outer(depth * bump, np.array([0, 0, 1.0])),
+             punch - np.array([0, 0, descent])],
+            axis=0,
+        ).astype(np.float32))
+    traj = {"cells": tets, "node_type": nt[:, None], "mesh_pos": points,
+            "world_pos": np.stack(frames)}
+    return traj, plate_press_meta(steps)
 
 
 def aneurysm_meta(steps: int) -> Dict[str, Any]:

@@ -187,8 +187,11 @@ def test_flags_not_ported_exit_naming_their_item(cli, flag, item, config, capsys
 def test_get_dataset_refuses_what_is_not_ported(cylinder):
     param = cylinder_param(*cylinder, "epd")
     pre = get_preprocessing(param)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        get_dataset(param, pre, masking_ratio=0.5)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        get_dataset(param, pre, num_buckets=2)
+    # node masking is ported: each item marks int((1 - ratio) * N) nodes
+    g = get_dataset(param, pre, masking_ratio=0.5)[0]
+    assert int(g.exclude_mask.sum()) == int(0.5 * int(g.node_mask.sum()))
     # previous-frame data is ported: every item carries the frame before it
     ds = get_dataset(param, pre, use_previous_data=True)
     assert ds.use_previous_data and len(ds) == 2 * 4 and ds.get_traj_frame(0) == (0, 1)

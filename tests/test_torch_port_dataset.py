@@ -101,9 +101,7 @@ def test_edge_layouts_the_port_has_not_raise(cylinder):
 
 @pytest.mark.parametrize(
     "kwargs,match",
-    [({"khop": 2}, "khop"), ({"new_edges_ratio": 0.1}, "random edges"),
-     ({"masking_ratio": 0.2}, "masking"), ({"num_buckets": 2}, "buckets"),
-     ({"edge_layout": "ell"}, "ELL")],
+    [({"num_buckets": 2}, "buckets .* item 11"), ({"edge_layout": "ell"}, "ELL .* item 11")],
 )
 def test_unported_dataset_options_raise(cylinder, kwargs, match):
     h5_path, meta_path = cylinder

@@ -1,6 +1,8 @@
 """The port stands alone: ``graphphysics_torch``, ``chip_smoke.py``,
-``chip_smoke_mutants.py``, ``chip_compare.py`` and ``chip_fidelity.py``
-import no JAX, flax, optax or ``graphphysics_tpu``, build no kernel on
+``chip_smoke_mutants.py``, ``chip_compare.py``, ``chip_fidelity.py`` and the
+loader-worker cases that spawned workers import
+(``tests/_torch_port_loader_cases.py``) import no JAX, flax, optax or
+``graphphysics_tpu``, build no kernel and start no thread or process on
 import, and their entry points run on CUDA by default, raising where there
 is none."""
 
@@ -22,7 +24,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "graphphysics_tpu")
 
 def _port_sources():
     scripts = [ROOT / "chip_smoke.py", ROOT / "chip_smoke_mutants.py", ROOT / "chip_compare.py",
-               ROOT / "chip_fidelity.py"]
+               ROOT / "chip_fidelity.py", ROOT / "tests" / "_torch_port_loader_cases.py"]
     return sorted((ROOT / "graphphysics_torch").rglob("*.py")) + scripts
 
 
@@ -58,9 +60,14 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "import graphphysics_torch.cli.train, graphphysics_torch.cli.predict\n"
         "import graphphysics_torch.cli.__main__, graphphysics_torch.external\n"
         "import graphphysics_torch.dataset.xdmf_dataset, chip_fidelity\n"
+        "import graphphysics_torch.topology.build, graphphysics_torch.dataset.preprocessing\n"
+        "import graphphysics_torch.utils.synthetic, tests._torch_port_loader_cases\n"
+        "import threading, multiprocessing\n"
         "from graphphysics_torch.ops import _native\n"
         "print(json.dumps({'new': sorted(set(sys.modules) - before),\n"
-        "                  'loaded': sorted(_native._loaded)}))\n"
+        "                  'loaded': sorted(_native._loaded),\n"
+        "                  'threads': threading.active_count(),\n"
+        "                  'children': len(multiprocessing.active_children())}))\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
@@ -70,6 +77,7 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
     leaked = [m for m in result["new"] if m.split(".")[0] in FORBIDDEN or m == "h5py"]
     assert leaked == []
     assert result["loaded"] == []
+    assert result["threads"] == 1 and result["children"] == 0
 
 
 def test_default_device_entry_points_raise_without_cuda():

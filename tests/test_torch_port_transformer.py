@@ -265,6 +265,11 @@ def test_preprocessing_for_prediction():
     assert [getattr(s, "func", s).__name__ for s in train.steps] == ["apply_face_to_edge", "add_noise"]
     pre = get_preprocessing(param, use_edge_feature=False, remove_noise=True)
     assert [s.__name__ for s in pre.steps] == ["apply_face_to_edge"]
-    param["transformations"]["world_pos_parameters"]["use"] = True
-    with pytest.raises(NotImplementedError, match="world-position"):
-        get_preprocessing(param, remove_noise=True)
+    # with world positions, the DeformingPlate steps (the default radius)
+    param["transformations"]["world_pos_parameters"].update(
+        use=True, world_pos_index_start=0, world_pos_index_end=3)
+    pre = get_preprocessing(param, remove_noise=True)
+    assert [getattr(s, "func", s).__name__ for s in pre.steps] == [
+        "add_obstacles_next_pos", "apply_face_to_edge", "add_world_edges", "add_edge_features",
+        "add_world_pos_features"]
+    assert pre.steps[2].keywords["radius"] == 0.03
