@@ -117,7 +117,34 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     ``plate_fidelity_short`` and ``aneurysm_fidelity_short``: 2 epochs of
     ``chip_fidelity.run`` for each config (the fidelity runs at full width
     and depth on their own data): the training loss and the held-out
-    rollout RMSE fall.
+    rollout RMSE fall;
+18. ``fused_bf16_kernels``: the fused attention's bf16 entries
+    (``csr_attention_bf16``, ``csr_attention_bwd_bf16``) against their plain
+    versions on the same bf16 inputs (within two bf16 ulps, and at most
+    ``BF16_MISMATCH_SHARE`` of the elements differing at all) at the
+    serving frame, the panels batch and the aneurysm scale (widths 128, 128,
+    64 in the model's (N, Dh, H) view) and on the panels batch at widths 64
+    and 48 (the general geometry), each timed beside its bound (2 bytes a
+    q, k, v, out, g, dq, dk and dv element), its plain version, the f32
+    entry on the same shapes and SDPA in bf16 (frame and batch);
+19. ``bf16_epd_training``, ``bf16_transformer_training``,
+    ``bf16_gmm_training``: ``train`` of ``cylinder.json``, ``panels.json``
+    (8 x 2,048 batches) and ``c-a-gmm.json`` (the 66,560-node graph) with
+    ``"precision": "bf16"``: 20 timed steps with the launches checked (the
+    EPD's K1 and K1b f32 entries, the transformers' bf16 attention entries),
+    the first step against the CPU in bf16 on one 2,048-node graph, a
+    profile, each beside the f32 phase's readings;
+20. ``bf16_serving``: 50-frame rollouts of both 15 x 128 families in bf16,
+    3 frames against the CPU, eager and CUDA-graph forwards;
+21. ``remat_training``: the panels transformer and the cylinder EPD with
+    ``"remat": true``: the first step's gradients against the plain blocks'
+    on the card, twice the forward launches, 5 timed steps and peak memory
+    each;
+22. ``large_mesh_training``: ``benchmarks/large_mesh_training.py``'s run
+    (the transformer 10 x 64, degree 8, a learnable target) with lever
+    ``bf16`` and ``none`` at 229,376 nodes and ``remat`` at 524,288: 3
+    warm-up and 10 timed steps, launches, peak memory, device time, the
+    loss falling.
 
 The K1 phase also times a one-element PyTorch elementwise kernel under the
 same CUDA-graph replay (``launch_floor_ms``): the floor under any kernel's
@@ -127,7 +154,8 @@ the seconds since the line before it as ``phase_s``), apart from the card's
 the last line, ``{"ok": true, "device": {...}}``. Exits non-zero, printing
 no result, without a CUDA card or outside the repository. float32 matmuls run
 without TF32 (``allow_tf32 = False`` for matmul and cuDNN): the CPU
-comparison is float32.
+comparison is float32; bf16 matmuls sum in f32
+(``allow_bf16_reduced_precision_reduction = False``), as on the CPU.
 """
 
 from __future__ import annotations
@@ -270,6 +298,51 @@ BATCH_EDGES = [11906, 12000, 11500, 11000, 12288, 10500, 10000, 9500]
 # in the panels batch graph 5 sends from its first 1,200 nodes only, so the
 # softmax rows of its other 600 real nodes are empty
 EMPTY_ROWS_GRAPH, EMPTY_ROWS_SENDERS = 5, 1200
+# the fused attention's bf16 entries against their plain versions: both
+# compute in f32 and round each output to bf16 once, so they differ where
+# f32 sums in another order round to neighbouring bf16 values: one bf16 ulp
+# (at most 2^-7 of the value). Where the backward's ds = attn * (vg - delta)
+# cancels, and in dv's per-edge roundings, f32 round-off can reach a bf16
+# ulp before the last rounding: two ulps (2^-6). Plus f32 round-off near
+# zero; and in dv, whose edge terms are rounded to bf16 before the sum (as
+# JAX's), one term that rounds the other way moves a sum by that term's
+# ulp: at most 2^-8 of max |g| (BF16_DV_TERM), which shows on sums that
+# cancel (an H100 read dv 1 ulp of a term apart where the f32 sums agreed
+# to 4e-6).
+BF16_KERNEL_RTOL, BF16_KERNEL_ATOL = 2.0 ** -6, 1e-4
+BF16_DV_TERM = 2.0 ** -8
+# the share of a bf16 output's elements that differ from the plain
+# version's at all: a rounding that falls the other way is rare (f32
+# round-off against a bf16 ulp), a fault that rounds more often (dk or dv
+# summed in bf16) moves most elements
+BF16_MISMATCH_SHARE = 1e-2
+# the first bf16 train step on the card against the CPU in bf16, on one
+# 2,048-node graph: both round at the same places, but a value that lands
+# within f32 round-off of a bf16 rounding boundary rounds the other way on
+# one device, and that ulp travels through every block after it (and flips
+# ReLU inputs near zero). Sound runs on an H100 read a worst
+# per-parameter gradient of 0.086-0.14 (EPD, transformer) and 0.036 (GMM),
+# medians 0.0017-0.071; 0.033 / 0.013 worst with the models cut to 2
+# blocks. Planted faults (chip_smoke_mutants.py): a bf16 row read
+# at the f32 stride read 434-458 (loss 1.9e-3 apart, round-off share
+# 0.10-0.11); dk and dv summed in bf16 read 0.079-0.117, inside the sound
+# spread at any depth: the kernel phase's mismatch share catches that one
+# (0.32-0.35 of dk's and dv's elements against a sound 1.8e-3 at most,
+# BF16_MISMATCH_SHARE). Sound losses read 1.9e-6-3.4e-5 apart, the
+# round-off-only key bias at 1.0e-5 of the largest gradient.
+BF16_STEP_LOSS_RTOL = 2e-4
+BF16_GRAD_RTOL = 0.5
+BF16_ROUNDOFF_SHARE = 1e-3
+# bf16 rollouts, card vs CPU, first frames (an H100 read 1.5e-4-5.1e-4)
+BF16_ROLLOUT_RTOL, BF16_ROLLOUT_ATOL = 5e-3, 5e-3
+# remat vs the plain blocks on the card, each parameter's gradient: the
+# same arithmetic, summed by atomics in another order
+REMAT_GRAD_RTOL = 1e-4
+REMAT_FORWARDS = ("csr_segment_sum", "csr_attention")  # launched again in the backward
+REMAT_STEPS = 5
+# benchmarks/large_mesh_training.py's levers and sizes: (lever, nodes), degree 8
+LARGE_MESH = (("bf16", 229376), ("none", 229376), ("remat", 524288))
+LARGE_MESH_DEGREE, LARGE_MESH_WARMUP, LARGE_MESH_STEPS, PROFILED_LARGE_MESH = 8, 3, 10, 2
 
 
 def emit(obj) -> None:
@@ -1010,7 +1083,7 @@ def fused_case(name, graph, width, seed, library=True, heads=HEADS, view="model"
     return forward, backward
 
 
-def build_epd(seed, device):
+def build_epd(seed, device, dtype=None):
     from graphphysics_torch.core import NodeType
     from graphphysics_torch.models import (
         EncodeProcessDecode,
@@ -1024,7 +1097,7 @@ def build_epd(seed, device):
         feature_index_start=0, feature_index_end=2,
         output_index_start=0, output_index_end=2, node_type_index=2,
     )
-    model = EncodeProcessDecode(BLOCKS, cfg.node_input_size, 3, 2, HIDDEN)
+    model = EncodeProcessDecode(BLOCKS, cfg.node_input_size, 3, 2, HIDDEN, dtype=dtype)
     reset_parameters(model, torch.Generator().manual_seed(seed))
     return Simulator(cfg, model, device=device)
 
@@ -1038,11 +1111,12 @@ def build_transformer(param, seed, device):
     return sim.to(device)
 
 
-def serve(name, make_sim, frames, counts, expected, seed):
+def serve(name, make_sim, frames, counts, expected, seed, rtol=ROLLOUT_RTOL, atol=ROLLOUT_ATOL):
     """Roll ``frames`` out on the card with a simulator from ``make_sim``:
     zero every launch count just before the rollout, check them just after
     against ``expected`` (kernel name -> launches), hold the first frames
-    against the CPU, and time the eager and CUDA-graph forwards."""
+    against the CPU (within ``rtol``, ``atol``), and time the eager and
+    CUDA-graph forwards."""
     from graphphysics_torch.training import rollout, rollout_rmse
 
     sim = make_sim(seed, "cuda")
@@ -1071,7 +1145,7 @@ def serve(name, make_sim, frames, counts, expected, seed):
     sim_cpu.load_state_dict({k: v.cpu() for k, v in sim.state_dict().items()})
     preds_cpu, _ = rollout(sim_cpu, frames[:CPU_FRAMES], device="cpu")
     cpu_err = (preds[:CPU_FRAMES].cpu() - preds_cpu).abs().max().item()
-    if not torch.allclose(preds[:CPU_FRAMES].cpu(), preds_cpu, rtol=ROLLOUT_RTOL, atol=ROLLOUT_ATOL):
+    if not torch.allclose(preds[:CPU_FRAMES].cpu(), preds_cpu, rtol=rtol, atol=atol):
         raise AssertionError(f"{name}: GPU vs CPU rollout max_abs_err {cpu_err}")
 
     with torch.inference_mode():
@@ -1091,8 +1165,8 @@ def serve(name, make_sim, frames, counts, expected, seed):
         "rollout_rmse": rmse,
         "cpu_frames_checked": CPU_FRAMES,
         "cpu_max_abs_err": cpu_err,
-        "cpu_rtol": ROLLOUT_RTOL,
-        "cpu_atol": ROLLOUT_ATOL,
+        "cpu_rtol": rtol,
+        "cpu_atol": atol,
     }
     profile_line = {
         "frames_profiled": profiled,
@@ -1169,7 +1243,8 @@ def relu_sign_hooks(model, signs):
             if isinstance(m, torch.nn.ReLU)]
 
 
-def first_step(name, param, batch, seed, total_steps, grad_rtol, stats=None):
+def first_step(name, param, batch, seed, total_steps, grad_rtol, stats=None,
+               loss_rtol=None, roundoff_share=None):
     """The first ``Trainer`` step on the card against the same step on the
     CPU from equal weights (seeded ``init_state``) and, where ``stats`` (a
     state dict of normalizer buffers) is given, equal normalizer
@@ -1177,9 +1252,13 @@ def first_step(name, param, batch, seed, total_steps, grad_rtol, stats=None):
     ``grad_rtol``, with the worst one named. Beside them the number of ReLU
     inputs whose sign differs between the devices: an input within
     round-off of zero switches its unit's gradient on or off, which moves
-    every gradient upstream of it without a fault in any kernel."""
+    every gradient upstream of it without a fault in any kernel.
+    ``loss_rtol`` and ``roundoff_share`` default to ``STEP_LOSS_RTOL`` and
+    ``STEP_ROUNDOFF_SHARE`` (f32)."""
     from graphphysics_torch.training import Trainer
 
+    loss_rtol = STEP_LOSS_RTOL if loss_rtol is None else loss_rtol
+    roundoff_share = STEP_ROUNDOFF_SHARE if roundoff_share is None else roundoff_share
     loss, grads, signs = {}, {}, {}
     for dev in ("cpu", "cuda"):
         trainer = Trainer(param, learning_rate=1e-4, warmup=10, seed=seed, device=dev)
@@ -1215,27 +1294,30 @@ def first_step(name, param, batch, seed, total_steps, grad_rtol, stats=None):
         "first_step_relu_sign_flips": relu_flips,
         "first_step_roundoff_params": len(roundoff),
         "first_step_roundoff_share": share,
-        "first_step_tolerance": {"loss_rtol": STEP_LOSS_RTOL, "grad_rtol_per_param": grad_rtol,
-                                 "roundoff_share": STEP_ROUNDOFF_SHARE},
+        "first_step_tolerance": {"loss_rtol": loss_rtol, "grad_rtol_per_param": grad_rtol,
+                                 "roundoff_share": roundoff_share},
     }
-    if not (math.isfinite(loss["cuda"]) and loss_err <= STEP_LOSS_RTOL
-                      and rel[worst] <= grad_rtol and share <= STEP_ROUNDOFF_SHARE):
+    if not (math.isfinite(loss["cuda"]) and loss_err <= loss_rtol
+                      and rel[worst] <= grad_rtol and share <= roundoff_share):
         raise AssertionError(f"{name}: first step card vs CPU out of tolerance: {result}")
     return result
 
 
 def train(name, param, batch, counts, expected, seed, grad_rtol, graphs=len(BATCH_NODES),
-          stats=None):
+          stats=None, check_batch=None, **limits):
     """``Trainer`` on one concatenated batch (of ``graphs`` graphs) on the
     card: the first step against the CPU (``first_step``, from the
     normalizer statistics ``stats`` where given), then on a fresh trainer
     3 warm-up steps and 20 timed ones with every launch count zeroed just
     before them and checked just after against ``expected`` (kernel name
-    -> launches per step), then a profile of 3 steps."""
+    -> launches per step), then a profile of 3 steps. ``check_batch``
+    (default ``batch``) is the first step's batch; ``limits`` reach
+    ``first_step``."""
     from graphphysics_torch.training import Trainer
 
     total_steps = 1 + WARMUP_STEPS + TIMED_STEPS + PROFILED_STEPS
-    first = first_step(name, param, batch, seed, total_steps, grad_rtol, stats=stats)
+    first = first_step(name, param, batch if check_batch is None else check_batch, seed, total_steps,
+                       grad_rtol, stats=stats, **limits)
 
     trainer = Trainer(param, learning_rate=1e-4, warmup=10, seed=seed, device="cuda")
     trainer.init_state(total_steps)
@@ -1997,6 +2079,366 @@ def plate_pipeline(name, param, counts, seed, workers):
     }
 
 
+# ---------------------------------------------------------------------------
+# bf16 compute, remat and the large mesh
+
+
+def fused_bf16_case(name, graph, width, seed, heads=HEADS, view="model", library=True):
+    """Hold the fused attention's bf16 entries (``csr_attention_bf16`` and
+    ``csr_attention_bwd_bf16``) against their plain versions on the same
+    bf16 inputs, and time each beside its bound (bytes at 2 per q, k, v,
+    out, g, dq, dk and dv element), its plain version, the f32 entry on the
+    f32 inputs the bf16 ones were rounded from and, with ``library``, SDPA
+    in bf16 with the dense adjacency as its mask. Returns (forward record,
+    backward record)."""
+    import torch.nn.functional as F
+
+    from graphphysics_torch.ops import csr_attention as ca
+
+    seg, gather, bounds, mask, f32s = attention_inputs(graph, width, seed, heads, view)
+    q, k, v, g = (t.to(torch.bfloat16) for t in f32s)  # in their layout: `to` keeps strides
+    n, h = bounds.shape[1], heads
+    scale = h ** -0.5
+    interleaved = ca._is_interleaved(q)
+    if interleaved is not (view == "model"):
+        raise AssertionError(f"{name}: the bf16 inputs lost their layout")
+    with torch.no_grad():
+        out, ml = ca.csr_attention(q, k, v, seg, gather, bounds, mask, scale)
+        want_out, want_ml = ca.csr_attention_reference(q, k, v, seg, gather, n, mask, scale)
+        grads = ca.csr_attention_backward(q, k, v, seg, gather, bounds, ml, out, g, mask, scale)
+        want_grads = ca.csr_attention_backward_reference(q, k, v, seg, gather, ml, out, g, mask, scale)
+    torch.cuda.synchronize()
+    if out.dtype != torch.bfloat16 or any(t.dtype != torch.bfloat16 for t in grads):
+        raise AssertionError(f"{name}: bf16 entries gave {out.dtype}, {[t.dtype for t in grads]}")
+    fwd_errs = [(out.float() - want_out.float()).abs().max().item(), (ml - want_ml).abs().max().item()]
+    if not (torch.isfinite(out.float()).all() and torch.allclose(
+            out.float(), want_out.float(), rtol=BF16_KERNEL_RTOL, atol=BF16_KERNEL_ATOL)
+            and torch.allclose(ml, want_ml, rtol=SOFTMAX_RTOL, atol=SOFTMAX_ATOL)):
+        raise AssertionError(f"{name}: bf16 forward vs plain out/ml max_abs_err {fwd_errs}")
+    bwd_errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(grads, want_grads)]
+    shares = [(a != b).float().mean().item() for a, b in ((out, want_out), *zip(grads, want_grads))]
+    if max(shares) > BF16_MISMATCH_SHARE:
+        raise AssertionError(f"{name}: bf16 out/dq/dk/dv differ from plain in shares {shares} of elements")
+    dv_atol = max(BF16_KERNEL_ATOL, BF16_DV_TERM * g.float().abs().max().item())
+    for a, b, atol in zip(grads, want_grads, (BF16_KERNEL_ATOL, BF16_KERNEL_ATOL, dv_atol)):
+        if not (torch.isfinite(a.float()).all() and torch.allclose(
+                a.float(), b.float(), rtol=BF16_KERNEL_RTOL, atol=atol)):
+            raise AssertionError(f"{name}: bf16 backward vs plain dq/dk/dv max_abs_err {bwd_errs}")
+    edges_read = int((bounds[1] - bounds[0]).clamp(min=0).sum().item())
+    real_edges = int(mask.sum().item())
+    row = 2 * width  # bytes of a bf16 node row
+    fwd_bytes = n * 3 * row + edges_read * 5 + n * 8 + n * row + n * 8 * h
+    bwd_bytes = n * 5 * row + edges_read * 5 + n * 8 + n * 8 * h + n * 3 * row
+    # f32 operations, as the f32 entry's (fused_case): the arithmetic is f32
+    fwd_ops = real_edges * (4 * width + 6 * h) + n * width
+    bwd_ops = real_edges * (11 * width + 6 * h) + n * 2 * width
+    copies = copies_past_l2(fwd_bytes)
+    sets = [(q, k, v, g)] + [tuple(t.clone() for t in (q, k, v, g)) for _ in range(copies - 1)]
+    sets32 = [tuple(f32s)] + [tuple(t.clone() for t in f32s) for _ in range(copies - 1)]
+    with torch.no_grad():
+        saved = [ca.csr_attention(a, b, c, seg, gather, bounds, mask, scale) for a, b, c, _ in sets]
+        saved32 = [ca.csr_attention(a, b, c, seg, gather, bounds, mask, scale) for a, b, c, _ in sets32]
+
+        def fwd(a, b, c, _):
+            return ca.csr_attention(a, b, c, seg, gather, bounds, mask, scale)
+
+        def bwd(a, b, c, g_, o_, ml_):
+            return ca.csr_attention_backward(a, b, c, seg, gather, bounds, ml_, o_, g_, mask, scale)
+
+        bwd_inputs = [(*st, *sv) for st, sv in zip(sets, saved)]
+        bwd_inputs32 = [(*st, *sv) for st, sv in zip(sets32, saved32)]
+        fwd_t, bwd_t = device_ms(fwd, sets), device_ms(bwd, bwd_inputs)
+        f32_fwd_t, f32_bwd_t = device_ms(fwd, sets32), device_ms(bwd, bwd_inputs32)
+        fwd_plain = device_ms(
+            lambda a, b, c, _: ca.csr_attention_reference(a, b, c, seg, gather, n, mask, scale), sets)
+        bwd_plain = device_ms(
+            lambda a, b, c, g_, o_, ml_: ca.csr_attention_backward_reference(
+                a, b, c, seg, gather, ml_, o_, g_, mask, scale), bwd_inputs)
+    lib_fwd = lib_bwd = None
+    lib_note = (f"n/a: SDPA needs a dense [{n}, {n}] mask ({n * n / 1e9:.1f} GB as bool) and "
+                f"materializes scores of {2 * h * n * n / 1e9:.0f} GB in bf16")
+    if library:
+        adj, _ = dense_adjacency(seg, gather, mask, n)
+
+        def sdpa(a, b, c):  # [N, H, Dh] -> [1, H, N, Dh]
+            return F.scaled_dot_product_attention(
+                a.transpose(0, 1)[None], b.transpose(0, 1)[None], c.transpose(0, 1)[None],
+                attn_mask=adj, scale=scale)[0].transpose(0, 1)
+
+        def sdpa_fwd_bwd(a, b, c, g_):
+            leaves = [t.detach().requires_grad_(True) for t in (a, b, c)]
+            return torch.autograd.grad(sdpa(*leaves), leaves, g_)
+
+        with torch.no_grad():
+            lib_fwd = device_ms(lambda a, b, c, _: sdpa(a, b, c), sets, min_reps=3)
+        lib_bwd = device_ms(sdpa_fwd_bwd, sets, min_reps=3) - lib_fwd
+        lib_note = "torch.nn.functional.scaled_dot_product_attention in bf16, dense boolean adjacency mask"
+    common = {"shape": name, "nodes": n, "edges": seg.shape[0], "real_edges": real_edges,
+              "width": width, "heads": h, "dtype": "bfloat16",
+              "layout": "(N, Dh, H) view" if view == "model" else "contiguous [N, H, Dh]",
+              "lanes_per_row": {"forward": ca.lanes_per_row(width, h, interleaved),
+                                "backward": ca.lanes_per_row(width, h, interleaved, backward=True)},
+              "geometry": {"forward": ca.geometry_kind(ca.lanes_per_row(width, h, interleaved), width, h,
+                                                       interleaved)},
+              "input_copies": copies, "library_note": lib_note,
+              "tolerance": {"rtol": BF16_KERNEL_RTOL, "atol": BF16_KERNEL_ATOL,
+                            "mismatch_share": BF16_MISMATCH_SHARE}}
+
+    def record(ms, plain, f32_ms, lib, bytes_, ops, errs, what):
+        by_bytes, by_ops = bytes_ / H100_BYTES_PER_S * 1e3, ops / H100_F32_OPS_PER_S * 1e3
+        return {**common, "max_abs_err": max(errs), what: errs, "ms": ms, "plain_ms": plain,
+                "f32_entry_ms": f32_ms, "library_ms": lib, "bound_ms": max(by_bytes, by_ops),
+                "bound_by": "bytes" if by_bytes >= by_ops else "operations", "bytes": bytes_,
+                "operations": ops}
+
+    forward = record(fwd_t, fwd_plain, f32_fwd_t, lib_fwd, fwd_bytes, fwd_ops, fwd_errs, "out_ml_max_abs_err")
+    forward["out_mismatch_share"] = shares[0]
+    backward = record(bwd_t, bwd_plain, f32_bwd_t, lib_bwd, bwd_bytes, bwd_ops, bwd_errs,
+                      "dq_dk_dv_max_abs_err")
+    backward["tolerance"] = {**common["tolerance"], "dv_atol": dv_atol}
+    backward["dq_dk_dv_mismatch_share"] = shares[1:]
+    return forward, backward
+
+
+def with_precision(param, precision=None, **model):
+    """A copy of ``param`` with ``"precision"`` and other model keys set."""
+    param = json.loads(json.dumps(param))
+    if precision is not None:
+        model["precision"] = precision
+    param["model"].update(model)
+    return param
+
+
+def f32_beside(result):
+    """The f32 phase's readings a bf16 phase's line carries beside its own."""
+    keys = ("ms_per_step", "peak_memory_gb", "launches_per_step", "first_loss", "last_loss")
+    out = {k: result[k] for k in keys if k in result}
+    breakdown = result.get("breakdown")
+    if isinstance(breakdown, dict):
+        out["device_ms_per_step"] = breakdown["device_ms_per_step"]
+        out["kernels_per_step"] = breakdown["kernels_per_step"]
+        out["device_ms_by_category"] = {k: v["ms_per_step"] for k, v in breakdown["by_category"].items()}
+    return out
+
+
+def bf16_train(name, param, batch, check_batch, counts, expected, seed, f32_result, graphs=len(BATCH_NODES)):
+    """``train`` of ``param`` in bf16 on ``batch``, its first step against
+    the CPU in bf16 on ``check_batch`` (one 2,048-node graph: a 15-block
+    bf16 step on the host's CPU at 8 x 2,048 would take minutes), with the
+    f32 phase's readings beside."""
+    result = train(name, with_precision(param, "bf16"), batch, counts, expected, seed, BF16_GRAD_RTOL,
+                   graphs=graphs, check_batch=check_batch, loss_rtol=BF16_STEP_LOSS_RTOL,
+                   roundoff_share=BF16_ROUNDOFF_SHARE)
+    result["first_step_batch"] = {"graphs": 1, "nodes": check_batch.num_nodes,
+                                  "edges": check_batch.num_edges,
+                                  "why": "the CPU side of a bf16 step at the timed batch is too slow"}
+    result["f32_phase"] = f32_beside(f32_result)
+    return result
+
+
+def remat_training(name, param, batch, counts, expected, seed):
+    """The same first ``Trainer`` step with and without ``remat`` on the
+    card from equal weights: each parameter's gradient within the atomics'
+    round-off, the launches of each (``expected`` gives the plain run's per
+    step; remat adds one forward launch a block, its recompute), then 5
+    steps each timed with their peak memory."""
+    from graphphysics_torch.training import Trainer
+
+    runs, grads = {}, {}
+    dev_batch = batch.to("cuda")
+    for remat in (False, True):
+        trainer = Trainer(with_precision(param, remat=remat), learning_rate=1e-4, warmup=10, seed=seed,
+                          device="cuda")
+        trainer.init_state(1 + REMAT_STEPS)
+        for fn in counts.values():
+            fn.launches = 0
+        trainer.train_step(dev_batch)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counts.items()}
+        want = {k: (2 * v if remat and k in REMAT_FORWARDS else v) for k, v in expected.items()}
+        if launches != {k: want.get(k, 0) for k in counts}:
+            raise AssertionError(f"{name}: remat={remat} launches {launches}, expected {want}")
+        grads[remat] = {n: p.grad.detach().clone() for n, p in trainer.sim.named_parameters()}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = [trainer.train_step(dev_batch) for _ in range(REMAT_STEPS)]
+        torch.cuda.synchronize()
+        runs[remat] = {"ms_per_step": (time.perf_counter() - t0) / REMAT_STEPS * 1e3,
+                       "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+                       "launches_first_step": launches,
+                       "last_loss": losses[-1].item()}
+        del trainer
+    rel = {n: ((grads[True][n] - g).norm() / g.norm()).item()
+           for n, g in grads[False].items() if not n.endswith(ROUNDOFF_LEAVES)}
+    worst = max(rel, key=rel.get)
+    if not rel[worst] <= REMAT_GRAD_RTOL:
+        raise AssertionError(f"{name}: remat gradient off by {rel[worst]} ({worst})")
+    return {"nodes": batch.num_nodes, "edges": batch.num_edges, "steps_timed": REMAT_STEPS,
+            "grad_rel_err_worst": rel[worst], "grad_worst_param": worst,
+            "grad_rtol": REMAT_GRAD_RTOL, "plain": runs[False], "remat": runs[True],
+            "peak_memory_ratio": runs[True]["peak_memory_gb"] / runs[False]["peak_memory_gb"],
+            "launches": runs[True]["launches_first_step"]}
+
+
+def learnable_graph(n, degree, out_dim, seed):
+    """The large-mesh run's graph (``benchmarks/large_mesh_training.py``'s
+    ``make_learnable_graph``, sender-sorted): ``degree * n`` random edges,
+    positions uniform in [-1, 1]^3, ``out_dim`` random fields as features
+    and a learnable target, a smooth map of position (the same for every
+    seed) plus a little of the fields."""
+    from graphphysics_torch.core import pad_graph_csr_np
+
+    e = degree * n
+    r = np.random.default_rng(seed)
+    pos = r.uniform(-1, 1, size=(n, 3)).astype(np.float32)
+    fields = r.normal(size=(n, out_dim)).astype(np.float32)
+    rt = np.random.default_rng(7)
+    w = rt.normal(size=(3, out_dim)).astype(np.float32)
+    b = rt.normal(size=(out_dim,)).astype(np.float32)
+    y = np.sin(pos @ w * 2.0 + b) * 0.1 + 0.05 * fields
+    x = np.zeros((n, out_dim + 2), np.float32)
+    x[:, :out_dim] = fields
+    return pad_graph_csr_np(x, pos, r.integers(0, n, e).astype(np.int32),
+                            r.integers(0, n, e).astype(np.int32), n, e,
+                            y=y.astype(np.float32), node_type_index=out_dim)
+
+
+def large_mesh_training(lever, nodes, counts, seed):
+    """The transformer 10 x 64 (4 heads, 2 outputs) trained on one learnable
+    graph of ``nodes`` nodes and degree 8 with ``lever`` ("bf16", "remat" or
+    "none"): 3 warm-up and 10 timed steps with the launches checked, the
+    peak memory, the device time of 2 profiled steps, and the loss falling
+    over the steps."""
+    from graphphysics_torch.training import Trainer
+
+    blocks = 10
+    param = {"model": {"type": "transformer", "message_passing_num": blocks, "hidden_size": 64,
+                       "node_input_size": 2, "output_size": 2, "edge_input_size": 0, "num_heads": 4,
+                       "precision": "bf16" if lever == "bf16" else "f32", "remat": lever == "remat"},
+             "index": {"feature_index_start": 0, "feature_index_end": 2, "output_index_start": 0,
+                       "output_index_end": 2, "node_type_index": 2}}
+    t0 = time.perf_counter()
+    graph = learnable_graph(nodes, LARGE_MESH_DEGREE, 2, seed).to("cuda")
+    host_s = time.perf_counter() - t0
+    trainer = Trainer(param, learning_rate=1e-3, warmup=LARGE_MESH_WARMUP, seed=seed, device="cuda")
+    total = LARGE_MESH_WARMUP + LARGE_MESH_STEPS + PROFILED_LARGE_MESH
+    trainer.init_state(total)
+    losses = [trainer.train_step(graph) for _ in range(LARGE_MESH_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counts.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    losses += [trainer.train_step(graph) for _ in range(LARGE_MESH_STEPS)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counts.items()}
+    fwd, bwd = (("csr_attention_bf16", "csr_attention_backward_bf16") if lever == "bf16"
+                else ("csr_attention", "csr_attention_backward"))
+    per_step = {fwd: blocks * (2 if lever == "remat" else 1), bwd: blocks}
+    want = {k: per_step.get(k, 0) * LARGE_MESH_STEPS for k in counts}
+    if launches != want:
+        raise AssertionError(f"large_mesh_training {lever}: launches {launches}, expected {want}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [x.item() for x in losses]
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    if not (all(math.isfinite(x) for x in losses) and last < first):
+        raise AssertionError(f"large_mesh_training {lever}: the loss did not fall: {losses}")
+    ms_per_step = seconds / LARGE_MESH_STEPS * 1e3
+    breakdown = device_breakdown(lambda: [trainer.train_step(graph) for _ in range(PROFILED_LARGE_MESH)],
+                                 PROFILED_LARGE_MESH, unit="step", host_ops=False)
+    return {
+        "lever": lever, "nodes": nodes, "edges": graph.num_edges,
+        "model": f"EncodeTransformDecode {blocks}x64, 4 heads, 2 outputs",
+        "host_graph_s": host_s, "warmup_steps": LARGE_MESH_WARMUP, "steps_timed": LARGE_MESH_STEPS,
+        "ms_per_step": ms_per_step, "edges_per_s": graph.num_edges / (ms_per_step / 1e3),
+        "peak_memory_gb": peak, "losses": losses,
+        "loss_first3_mean": first, "loss_last3_mean": last,
+        "launches": launches, "launches_per_step": {k: v / LARGE_MESH_STEPS for k, v in launches.items()},
+        "device_ms_per_step": None if breakdown is None else breakdown["device_ms_per_step"],
+        "device_ms_by_category": None if breakdown is None else
+        {k: v["ms_per_step"] for k, v in breakdown["by_category"].items()},
+        "device_idle_share": None if breakdown is None else
+        1.0 - breakdown["device_ms_per_step"] / ms_per_step,
+    }
+
+
+def bf16_phases(clock, counts, seed, frames, tf_frames, tf_batch, cyl_batch, aneurysm_csr, panels, cylinder,
+                epd_train, tf_train, gmm_train):
+    """This slice's phases: the bf16 kernels, bf16 training of both
+    families and the GMM head, bf16 serving, remat, and the large mesh.
+    Returns (kernel records, path results by name)."""
+    bf16_kernels = [
+        fused_bf16_case("transformer_serving_frame", tf_frames[0], HIDDEN, seed + 40),
+        fused_bf16_case("panels_csr_batch_8x2048", tf_batch, HIDDEN, seed + 41),
+        fused_bf16_case("aneurysm_csr_66560x524288", aneurysm_csr, 64, seed + 42, library=False),
+        fused_bf16_case("panels_csr_batch_8x2048_d64_h4", tf_batch, 64, seed + 43),
+        fused_bf16_case("panels_csr_batch_8x2048_d48_h4", tf_batch, 48, seed + 44, library=False),
+    ]
+    for f, b in bf16_kernels:
+        clock.emit({"phase": "fused_bf16_kernels", "name": "csr_attention_bf16", **f})
+        clock.emit({"phase": "fused_bf16_kernels", "name": "csr_attention_backward_bf16", **b})
+
+    paths = {}
+    blocks = panels["model"]["message_passing_num"]
+    epd_blocks = cylinder["model"]["message_passing_num"]
+    check_epd = random_graph(BATCH_NODES[1], BATCH_EDGES[1], 2048, 12288, seed + 50)
+    check_csr = random_csr_graph(BATCH_NODES[1], BATCH_EDGES[1], 2048, 12288, seed + 51)
+    paths["bf16_epd_training"] = bf16_train(
+        "bf16_epd_training", cylinder, cyl_batch, check_epd, counts,
+        {"csr_segment_sum": epd_blocks, "csr_segment_sum_backward": epd_blocks}, seed, epd_train)
+    clock.emit({"phase": "bf16_epd_training", "model": f"EncodeProcessDecode {epd_blocks}x128 bf16, "
+                f"{CYLINDER_CONFIG}", **paths["bf16_epd_training"]})
+    paths["bf16_transformer_training"] = bf16_train(
+        "bf16_transformer_training", panels, tf_batch, check_csr, counts,
+        {"csr_attention_bf16": blocks, "csr_attention_backward_bf16": blocks}, seed, tf_train)
+    clock.emit({"phase": "bf16_transformer_training", "model": f"EncodeTransformDecode {blocks}x128, 4 heads, "
+                f"bf16, {PANELS_CONFIG}", **paths["bf16_transformer_training"]})
+    gmm = load_config(GMM_CONFIG)
+    gmm_blocks = gmm["model"]["message_passing_num"]
+    check_gmm = random_csr_graph(BATCH_NODES[1], BATCH_EDGES[1], 2048, 12288, seed + 52, columns=15,
+                                 node_type_index=14)
+    paths["bf16_gmm_training"] = bf16_train(
+        "bf16_gmm_training", gmm, aneurysm_gmm_graph(seed + 400), check_gmm, counts,
+        {"csr_attention_bf16": gmm_blocks, "csr_attention_backward_bf16": gmm_blocks}, seed, gmm_train,
+        graphs=1)
+    clock.emit({"phase": "bf16_gmm_training", "model": f"EncodeTransformDecode {gmm_blocks}x64, K=3, bf16, "
+                f"{GMM_CONFIG}", **paths["bf16_gmm_training"]})
+
+    # bf16 serving: 50-frame rollouts of both families, CUDA-graph replays
+    _, result, profile_line = serve(
+        "bf16_epd_serving", lambda s, dev: build_epd(s, dev, torch.bfloat16), frames, counts,
+        {"csr_segment_sum": BLOCKS}, seed, rtol=BF16_ROLLOUT_RTOL, atol=BF16_ROLLOUT_ATOL)
+    clock.emit({"phase": "bf16_serving", "model": f"EncodeProcessDecode {BLOCKS}x{HIDDEN} bf16",
+                **result, **profile_line})
+    _, result, profile_line = serve(
+        "bf16_transformer_serving", lambda s, dev: build_transformer(with_precision(panels, "bf16"), s, dev),
+        tf_frames, counts, {"csr_attention_bf16": blocks}, seed,
+        rtol=BF16_ROLLOUT_RTOL, atol=BF16_ROLLOUT_ATOL)
+    clock.emit({"phase": "bf16_serving", "model": f"EncodeTransformDecode {blocks}x128 bf16, {PANELS_CONFIG}",
+                **result, **profile_line})
+
+    # remat: the same steps with each block recomputed in the backward
+    paths["remat_transformer_training"] = remat_training(
+        "remat_transformer_training", panels, tf_batch, counts,
+        {"csr_attention": blocks, "csr_attention_backward": blocks}, seed)
+    clock.emit({"phase": "remat_training", "model": f"EncodeTransformDecode {blocks}x128, {PANELS_CONFIG}",
+                **paths["remat_transformer_training"]})
+    paths["remat_epd_training"] = remat_training(
+        "remat_epd_training", cylinder, cyl_batch, counts,
+        {"csr_segment_sum": epd_blocks, "csr_segment_sum_backward": epd_blocks}, seed)
+    clock.emit({"phase": "remat_training", "model": f"EncodeProcessDecode {epd_blocks}x128, {CYLINDER_CONFIG}",
+                **paths["remat_epd_training"]})
+
+    # the large mesh: the three levers of benchmarks/large_mesh_training.py
+    for lever, nodes in LARGE_MESH:
+        label = f"large_mesh_training:{lever}"
+        paths[label] = large_mesh_training(lever, nodes, counts, seed)
+        clock.emit({"phase": "large_mesh_training", **paths[label]})
+        torch.cuda.empty_cache()
+    return bf16_kernels, paths
+
+
 def fidelity_short(name, counts, config):
     """``FIDELITY_SHORT_EPOCHS`` epochs of ``chip_fidelity.run`` for
     ``config`` (plain head) on the card, launch counts zeroed just before:
@@ -2312,6 +2754,8 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products sum in f32, as on the CPU and in XLA
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     smi = nvidia_smi_line()
     clock = PhaseClock()
     counts = {
@@ -2321,6 +2765,8 @@ def main() -> int:
         "csr_softmax_spmm_backward": csr_softmax_spmm_backward,
         "csr_attention": csr_attention,
         "csr_attention_backward": csr_attention_backward,
+        "csr_attention_bf16": csr_attention.bf16,
+        "csr_attention_backward_bf16": csr_attention_backward.bf16,
     }
 
     # 1. environment and build ---------------------------------------------------
@@ -2402,7 +2848,7 @@ def main() -> int:
         clock.emit({"phase": "kernel", "name": "csr_attention", **s})
     for s in fused_bwd_shapes:
         clock.emit({"phase": "kernel", "name": "csr_attention_backward", **s})
-    del aneurysm_epd, aneurysm_csr
+    del aneurysm_epd
     # 11. the general geometry: widths without a power-of-two head split
     widths = [
         fused_case(f"panels_csr_batch_8x2048_d{d}_h{h}_{view}", tf_batch, d, args.seed + 15 + i,
@@ -2555,6 +3001,12 @@ def main() -> int:
         fidelity[label] = fidelity_short(label, counts, config)
         clock.emit({"phase": label, **fidelity[label]})
 
+    # 18-22. bf16 kernels and training, bf16 serving, remat, the large mesh ------------
+    bf16_kernels, bf16_paths = bf16_phases(
+        clock, counts, args.seed, epd_frames, tf_frames, tf_batch, cyl_batch, aneurysm_csr, panels,
+        cylinder, epd_train, tf_train, gmm_train)
+    del aneurysm_csr
+
     def entry(name, source, replaces, launches, shapes, tolerance, **extra):
         main = shapes[1]  # the 8 x 2,048 batch: the training path's shape
         return {
@@ -2579,7 +3031,7 @@ def main() -> int:
     # steps, of the XDMF and plate pipelines (timed steps, fits and predict,
     # each counted from 0) and of the short fidelity runs
     paths = {"epd_training": epd_train, "transformer_training": tf_train, "gmm_training": gmm_train,
-             **aneurysm_paths, "plate_pipeline": plate_result, **fidelity}
+             **aneurysm_paths, "plate_pipeline": plate_result, **fidelity, **bf16_paths}
     launched = {k: sum(r["launches"][k] for r in paths.values()) for k in counts}
     by_path = {k: {p: r["launches"][k] for p, r in paths.items() if r["launches"][k]} for k in counts}
     off_path = {"main_path_launches": 0,
@@ -2610,6 +3062,18 @@ def main() -> int:
               launches_by_path=by_path["csr_attention_backward"],
               also_replaces="the backward of csr_sparse_attention's gathers and SDDMM "
                             "(graphphysics_tpu/ops/pallas_attention.py:556)"),
+        entry("csr_attention_bf16", "graphphysics_torch/csrc/csr_attention.cu",
+              "graphphysics_tpu/ops/pallas_attention.py:255", launched["csr_attention_bf16"],
+              [f for f, _ in bf16_kernels], {"rtol": BF16_KERNEL_RTOL, "atol": BF16_KERNEL_ATOL},
+              f32_entry_ms=bf16_kernels[1][0]["f32_entry_ms"], launches_by_path=by_path["csr_attention_bf16"],
+              also_replaces="graphphysics_tpu/ops/pallas_attention.py:556 (csr_sparse_attention's "
+                            "gathers and SDDMM) on bf16 q, k, v"),
+        entry("csr_attention_backward_bf16", "graphphysics_torch/csrc/csr_attention_bwd.cu",
+              "graphphysics_tpu/ops/pallas_attention.py:398", launched["csr_attention_backward_bf16"],
+              [b for _, b in bf16_kernels], {"rtol": BF16_KERNEL_RTOL, "atol": BF16_KERNEL_ATOL},
+              f32_entry_ms=bf16_kernels[1][1]["f32_entry_ms"],
+              launches_by_path=by_path["csr_attention_backward_bf16"],
+              also_replaces="the backward of csr_sparse_attention's gathers and SDDMM on bf16 q, k, v"),
     ]}
     print(smi, flush=True)
     print(json.dumps(kernels), flush=True)

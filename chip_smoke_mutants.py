@@ -5,7 +5,12 @@ card against the CPU (the readings its per-model gradient limits
 fault in the general lane geometry of ``csrc/csr_attention.cuh``; a fault in
 the checkpoint restore moves ``resume_runs``, the check of a resumed run
 against an uninterrupted one (the readings ``RESUME_MEDIAN_RTOL`` and the
-per-model worst limits must sit below).
+per-model worst limits must sit below); a fault in the fused attention's
+bf16 entries moves the bf16 ``first_step`` (the panels transformer in bf16
+on one 2,048-node graph, card and CPU both in bf16: the reading
+``BF16_GRAD_RTOL`` must sit below) and the bf16 kernel phase's check
+against the plain versions (the share of elements that differ:
+``BF16_MISMATCH_SHARE``).
 
 For each fault the tree is copied to a temporary directory, one line of a
 source is replaced there, the kernels are built from the copy and the check
@@ -20,7 +25,7 @@ one CUDA card:
 
     python3 chip_smoke_mutants.py [name prefix]
 
-A name prefix (``k1b``, ``attn``, ``width``, ``resume``) runs those faults only. K2's
+A name prefix (``k1b``, ``attn``, ``width``, ``resume``, ``bf16``) runs those faults only. K2's
 and K3's faults are caught by their kernel phases against their plain
 versions: no path of the models runs them.
 """
@@ -41,14 +46,23 @@ ATTN_DS = "ds[p] = attn[p] * (vg[p] - delta[p]);"
 ATTN_DK = "add_row<V, GEN>(dk, j, geo, r, dkr);"
 ATTN_DQ = "for (int i = 0; i < V; ++i) dqa[i] += ds[i % NP] * scale * kc[i];"
 HEADER = "graphphysics_torch/csrc/csr_attention.cuh"
-GENERAL_LOAD = "v[i] = c < geo.width ? row[c] : 0.0f;"
+GENERAL_LOAD = "v[i] = c < geo.width ? to_float(row[c]) : 0.0f;"
+ATTN_DV = "add_row<V, GEN>(dv, j, geo, r, dvr);"
+VECTOR_LOAD = "for (int i = 0; i < V / 4; ++i) load4(p + 4 * i, v + 4 * i);"
+# dk or dv summed in bf16: every partial sum rounded to bf16 (a CAS loop on
+# the f32 buffer) in place of the f32 atomics
+BF16_SUM = ("for (int i = 0; i < V; ++i) { const int c = column<V, GEN>(geo, r, i); if (c < geo.width) { "
+            "unsigned int* a = reinterpret_cast<unsigned int*>(BUF + static_cast<int64_t>(j) * geo.width + c); "
+            "unsigned int o = *a, prev; do { prev = o; o = atomicCAS(a, prev, __float_as_uint("
+            "__bfloat162float(__float2bfloat16_rn(__uint_as_float(prev) + TERMS[i])))); } while (o != prev); } }")
 CKPT = "graphphysics_torch/training/checkpoint.py"
 OPT_LOAD = '    trainer.optimizer.load_state_dict(ckpt["optimizer"])'
 WEIGHTS_LOAD = "    load_reference_checkpoint(sim, ckpt)"
 ZERO_NORMALIZERS = (WEIGHTS_LOAD + "\n    for n, b in sim.named_buffers():\n"
                     "        if \"_normalizer.\" in n:\n            b.zero_()")
-# name -> (model, source, line, faulty line); graph 5 of the panels batch is
-# the one with empty softmax rows
+# name -> (model, source, line, faulty line), or (model, source, lines,
+# faulty lines) with tuples; graph 5 of the panels batch is the one with
+# empty softmax rows
 FAULTS = {
     "k1b_zero_graph5": ("epd", K1, K1B_LIVE, K1B_LIVE[:-1] + " && r / 2048 != 5;"),
     "k1b_drop_last_edge": ("epd", K1, K1B_LIVE, K1B_LIVE.replace("e < bounds", "e + 1 < bounds")),
@@ -64,6 +78,13 @@ FAULTS = {
     # kernels)
     "width_drop_tail_columns": ("width40", HEADER, GENERAL_LOAD, GENERAL_LOAD.replace(
         "c < geo.width ?", "c < geo.width / geo.lanes * geo.lanes ?")),
+    # the bf16 backward sums dk and dv in bf16 instead of f32
+    "bf16_dkdv_summed_in_bf16": ("bf16transformer+kernel", ATTN, (ATTN_DK, ATTN_DV), (
+        BF16_SUM.replace("BUF", "dk").replace("TERMS", "dkr"),
+        BF16_SUM.replace("BUF", "dv").replace("TERMS", "dvr"))),
+    # a bf16 row's groups of 4 columns read at the f32 rows' 16-byte stride
+    "bf16_row_read_with_f32_stride": ("bf16transformer", HEADER, VECTOR_LOAD, VECTOR_LOAD.replace(
+        "load4(p + 4 * i,", "load4(p + 4 * i * (sizeof(float) / sizeof(T)),")),
     # the resumed run starts with fresh AdamW moments and step counts
     "resume_fresh_optimizer_epd": ("epd", CKPT, OPT_LOAD, "    pass"),
     "resume_fresh_optimizer_transformer": ("transformer", CKPT, OPT_LOAD, "    pass"),
@@ -106,13 +127,31 @@ def read_fault(model: str, name: str) -> dict:
     if name.startswith("resume"):
         return read_resume_fault(model, name)
     cs.STEP_LOSS_RTOL = cs.STEP_ROUNDOFF_SHARE = math.inf
+    total_steps = 1 + cs.WARMUP_STEPS + cs.TIMED_STEPS + cs.PROFILED_STEPS
+    if model.startswith("bf16transformer"):
+        param = cs.with_precision(cs.load_config(cs.PANELS_CONFIG), "bf16")
+        batch = cs.random_csr_graph(cs.BATCH_NODES[1], cs.BATCH_EDGES[1], 2048, 12288, 51)
+        step = cs.first_step(name, param, batch, 0, total_steps, math.inf, loss_rtol=math.inf,
+                             roundoff_share=math.inf)
+        if not model.endswith("+kernel"):
+            return {"fault": name, **step}
+        # and the bf16 kernel phase's check on the panels batch (not for a
+        # fault that reads past a row: the phase's timed copies would read
+        # past their allocation)
+        cs.BF16_KERNEL_RTOL = cs.BF16_KERNEL_ATOL = cs.SOFTMAX_RTOL = cs.SOFTMAX_ATOL = 1e30
+        cs.BF16_MISMATCH_SHARE = math.inf
+        fwd, bwd = cs.fused_bf16_case("panels_csr_batch_8x2048", cs.panels_batch(200), cs.HIDDEN, 41)
+        kernel = {"kernel_out_mismatch_share": fwd["out_mismatch_share"],
+                  "kernel_dq_dk_dv_mismatch_share": bwd["dq_dk_dv_mismatch_share"],
+                  "kernel_out_ml_max_abs_err": fwd["out_ml_max_abs_err"],
+                  "kernel_dq_dk_dv_max_abs_err": bwd["dq_dk_dv_max_abs_err"]}
+        return {"fault": name, **step, **kernel}
     if model == "epd":
         param, batch = cs.load_config(cs.CYLINDER_CONFIG), cs.flagship_batch(0)
     else:
         param, batch = cs.load_config(cs.PANELS_CONFIG), cs.panels_batch(200)
     if model.startswith("width"):
         param["model"]["hidden_size"] = int(model[len("width"):])
-    total_steps = 1 + cs.WARMUP_STEPS + cs.TIMED_STEPS + cs.PROFILED_STEPS
     return {"fault": name, **cs.first_step(name, param, batch, 0, total_steps, math.inf)}
 
 
@@ -131,10 +170,13 @@ def main() -> int:
             path = os.path.join(copy, source)
             with open(path) as fp:
                 text = fp.read()
-            if text.count(line) != 1:
-                raise SystemExit(f"{name}: the line to replace is not in {source} once")
+            lines, faulties = ((line, faulty) if isinstance(line, tuple) else ((line,), (faulty,)))
+            for old, new in zip(lines, faulties):
+                if text.count(old) != 1:
+                    raise SystemExit(f"{name}: the line to replace is not in {source} once")
+                text = text.replace(old, new)
             with open(path, "w") as fp:
-                fp.write(text.replace(line, faulty))
+                fp.write(text)
             script = os.path.join(copy, os.path.basename(__file__))
             proc = subprocess.run([sys.executable, script, model, name], cwd=copy,
                                   capture_output=True, text=True, timeout=600)

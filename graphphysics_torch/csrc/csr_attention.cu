@@ -53,6 +53,14 @@
 //   head; each lane keeps the softmax state of each of its columns' heads.
 // Tensor cores do not apply: the per-row dots are 32-wide heads against ~6
 // rows, far below a wgmma tile, and the bound is bytes.
+//
+// Two entries, one kernel: csr_attention_f32 (q, k, v, out float) and
+// csr_attention_bf16 (q, k, v, out bf16; the bf16 model's projections give
+// them). The bf16 entry upcasts every loaded element to f32 before any
+// product, computes the scores, the online max and sum and the weighted sum
+// in f32, and rounds out to bf16 once, as the JAX package's K2 does
+// (`out.astype(values.dtype)`); ml stays f32. Its q, k, v and out bytes are
+// half the f32 entry's (N*2D*3 + N*2D of the sum above).
 
 #include "csr_attention.cuh"
 
@@ -60,12 +68,12 @@ namespace {
 
 using namespace csr_attention;
 
-template <int V, int NP, bool GEN>
+template <typename T, int V, int NP, bool GEN>
 __global__ void __launch_bounds__(kThreads)
-csr_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const int32_t* __restrict__ gather_idx,
+csr_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const int32_t* __restrict__ gather_idx,
                      const int32_t* __restrict__ bounds, const uint8_t* __restrict__ mask,
-                     float* __restrict__ out, float* __restrict__ ml, int64_t num_rows,
+                     T* __restrict__ out, float* __restrict__ ml, int64_t num_rows,
                      int64_t num_edges, Geometry geo, float scale) {
   const RowSlot r = row_slot<V, GEN>(geo, bounds, num_rows, num_edges);
   float* scratch = row_scratch<GEN>(geo);
@@ -131,18 +139,45 @@ csr_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int V, int NP, bool GEN>
+template <typename T, int V, int NP, bool GEN>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* gather_idx,
                    const void* bounds, const void* mask, void* out, void* ml, long long num_rows,
                    long long num_edges, const Geometry& geo, float scale, cudaStream_t stream) {
   const long long threads = num_rows * geo.lanes;
   const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) / kThreads));
-  csr_attention_kernel<V, NP, GEN><<<grid, kThreads, shared_bytes(geo), stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+  csr_attention_kernel<T, V, NP, GEN><<<grid, kThreads, shared_bytes(geo), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int32_t*>(gather_idx), static_cast<const int32_t*>(bounds),
-      static_cast<const uint8_t*>(mask), static_cast<float*>(out), static_cast<float*>(ml),
+      static_cast<const uint8_t*>(mask), static_cast<T*>(out), static_cast<float*>(ml),
       num_rows, num_edges, geo, scale);
   return cudaGetLastError();
+}
+
+// The instantiation of the geometry's case for element type T.
+template <typename T>
+int run(const void* q, const void* k, const void* v, const void* gather_idx, const void* bounds,
+        const void* mask, void* out, void* ml, long long num_rows, long long num_edges,
+        int num_heads, int width, int interleaved, int lanes, float scale, void* stream) {
+  if (num_rows <= 0) return 0;
+  Geometry geo;
+  if (!make_geometry(lanes, width, num_heads, interleaved, 16, &geo)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CASE(V, NP)      \
+  case (V) * 32 + (NP): \
+    return static_cast<int>(launch<T, V, NP, false>(q, k, v, gather_idx, bounds, mask, out, ml, num_rows, num_edges, geo, scale, s));
+#define GENERAL_CASE(V) \
+  case 1024 + (V):      \
+    return static_cast<int>(launch<T, V, V, true>(q, k, v, gather_idx, bounds, mask, out, ml, num_rows, num_edges, geo, scale, s));
+  switch (case_key(geo)) {
+    CSR_ATTENTION_CASES(CASE)
+    CSR_ATTENTION_GENERAL_CASES(GENERAL_CASE)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef CASE
+#undef GENERAL_CASE
 }
 
 }  // namespace
@@ -159,24 +194,16 @@ extern "C" int csr_attention_f32(const void* q, const void* k, const void* v, co
                                  const void* bounds, const void* mask, void* out, void* ml,
                                  long long num_rows, long long num_edges, int num_heads, int width,
                                  int interleaved, int lanes, float scale, void* stream) {
-  if (num_rows <= 0) return 0;
-  Geometry geo;
-  if (!make_geometry(lanes, width, num_heads, interleaved, 16, &geo)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CASE(V, NP)      \
-  case (V) * 32 + (NP): \
-    return static_cast<int>(launch<V, NP, false>(q, k, v, gather_idx, bounds, mask, out, ml, num_rows, num_edges, geo, scale, s));
-#define GENERAL_CASE(V) \
-  case 1024 + (V):      \
-    return static_cast<int>(launch<V, V, true>(q, k, v, gather_idx, bounds, mask, out, ml, num_rows, num_edges, geo, scale, s));
-  switch (case_key(geo)) {
-    CSR_ATTENTION_CASES(CASE)
-    CSR_ATTENTION_GENERAL_CASES(GENERAL_CASE)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef CASE
-#undef GENERAL_CASE
+  return run<float>(q, k, v, gather_idx, bounds, mask, out, ml, num_rows, num_edges, num_heads,
+                    width, interleaved, lanes, scale, stream);
+}
+
+// As csr_attention_f32 with q, k, v and out bf16 [N, D] node rows, 8-byte
+// aligned, D % 4 == 0 (the wrapper checks); ml f32.
+extern "C" int csr_attention_bf16(const void* q, const void* k, const void* v, const void* gather_idx,
+                                  const void* bounds, const void* mask, void* out, void* ml,
+                                  long long num_rows, long long num_edges, int num_heads, int width,
+                                  int interleaved, int lanes, float scale, void* stream) {
+  return run<__nv_bfloat16>(q, k, v, gather_idx, bounds, mask, out, ml, num_rows, num_edges,
+                            num_heads, width, interleaved, lanes, scale, stream);
 }

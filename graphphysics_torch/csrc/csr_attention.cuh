@@ -33,9 +33,19 @@
 // columns' heads, so a head is reduced over exactly the lanes that hold its
 // columns whatever H and D are. It is the same kernel, instantiated with
 // GEN = true.
+//
+// Element types. Node rows (q, k, v, out, g, dq) are float or bf16
+// (__nv_bfloat16), the kernels' template parameter T; every loaded element
+// becomes f32 in registers before any product, and all arithmetic is f32.
+// A lane's columns keep their geometry in both types: where the f32 rows
+// load V columns as 16-byte float4s, bf16 rows load them as 8-byte groups
+// of 4 (two __nv_bfloat162), so a bf16 row moves half the bytes. Stores
+// round each f32 value to bf16 once (round to nearest even). ml, and the
+// backward's dk and dv sums, stay f32 in both.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -148,77 +158,139 @@ __device__ __forceinline__ void zero_cols(float (&v)[V]) {
   for (int i = 0; i < V; ++i) v[i] = 0.0f;
 }
 
-template <int V>
-__device__ __forceinline__ void load_cols(const float* __restrict__ p, float (&v)[V]) {
-  if constexpr (V % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < V / 4; ++i) {
-      const float4 t = reinterpret_cast<const float4*>(p)[i];
-      v[4 * i] = t.x;
-      v[4 * i + 1] = t.y;
-      v[4 * i + 2] = t.z;
-      v[4 * i + 3] = t.w;
-    }
-  } else if constexpr (V % 2 == 0) {
-#pragma unroll
-    for (int i = 0; i < V / 2; ++i) {
-      const float2 t = reinterpret_cast<const float2*>(p)[i];
-      v[2 * i] = t.x;
-      v[2 * i + 1] = t.y;
-    }
+// x rounded to the element type T and back (identity for float).
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  if constexpr (sizeof(T) == 2) {
+    return __bfloat162float(__float2bfloat16_rn(x));
   } else {
-#pragma unroll
-    for (int i = 0; i < V; ++i) v[i] = p[i];
+    return x;
   }
 }
 
-template <int V>
-__device__ __forceinline__ void store_cols(float* __restrict__ p, const float (&v)[V]) {
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x) {
+  if constexpr (sizeof(T) == 2) {
+    return __float2bfloat16_rn(x);
+  } else {
+    return x;
+  }
+}
+
+// 4 bf16 columns from one 8-byte load (two __nv_bfloat162), as f32.
+__device__ __forceinline__ void load4(const __nv_bfloat16* __restrict__ p, float* v) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
+}
+
+__device__ __forceinline__ void load4(const float* __restrict__ p, float* v) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+
+__device__ __forceinline__ void load2(const __nv_bfloat16* __restrict__ p, float* v) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  v[0] = a.x;
+  v[1] = a.y;
+}
+
+__device__ __forceinline__ void load2(const float* __restrict__ p, float* v) {
+  const float2 t = *reinterpret_cast<const float2*>(p);
+  v[0] = t.x;
+  v[1] = t.y;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* __restrict__ p, const float* v) {
+  uint2 t;
+  *reinterpret_cast<__nv_bfloat162*>(&t.x) = __floats2bfloat162_rn(v[0], v[1]);
+  *reinterpret_cast<__nv_bfloat162*>(&t.y) = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) = t;
+}
+
+__device__ __forceinline__ void store4(float* __restrict__ p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* __restrict__ p, const float* v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
+}
+
+__device__ __forceinline__ void store2(float* __restrict__ p, const float* v) {
+  *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+}
+
+// The lane's V consecutive columns at p (16- or 8-byte vectors for f32,
+// 8- or 4-byte ones for bf16, where V allows), as f32.
+template <int V, typename T>
+__device__ __forceinline__ void load_cols(const T* __restrict__ p, float (&v)[V]) {
   if constexpr (V % 4 == 0) {
 #pragma unroll
-    for (int i = 0; i < V / 4; ++i) {
-      reinterpret_cast<float4*>(p)[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
-    }
+    for (int i = 0; i < V / 4; ++i) load4(p + 4 * i, v + 4 * i);
   } else if constexpr (V % 2 == 0) {
 #pragma unroll
-    for (int i = 0; i < V / 2; ++i) reinterpret_cast<float2*>(p)[i] = make_float2(v[2 * i], v[2 * i + 1]);
+    for (int i = 0; i < V / 2; ++i) load2(p + 2 * i, v + 2 * i);
   } else {
 #pragma unroll
-    for (int i = 0; i < V; ++i) p[i] = v[i];
+    for (int i = 0; i < V; ++i) v[i] = to_float(p[i]);
+  }
+}
+
+template <int V, typename T>
+__device__ __forceinline__ void store_cols(T* __restrict__ p, const float (&v)[V]) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < V / 4; ++i) store4(p + 4 * i, v + 4 * i);
+  } else if constexpr (V % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < V / 2; ++i) store2(p + 2 * i, v + 2 * i);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) p[i] = from_float<T>(v[i]);
   }
 }
 
 // Node row j's columns of this lane, or zeros for j < 0 (no edge) and for
 // the general geometry's tail.
-template <int V, bool GEN>
-__device__ __forceinline__ void load_row(const float* __restrict__ base, int32_t j, const Geometry& geo,
+template <int V, bool GEN, typename T>
+__device__ __forceinline__ void load_row(const T* __restrict__ base, int32_t j, const Geometry& geo,
                                          const RowSlot& r, float (&v)[V]) {
   if (j < 0) {
     zero_cols<V>(v);
     return;
   }
-  const float* row = base + static_cast<int64_t>(j) * geo.width;
+  const T* row = base + static_cast<int64_t>(j) * geo.width;
   if constexpr (GEN) {
 #pragma unroll
     for (int i = 0; i < V; ++i) {
       const int c = column<V, GEN>(geo, r, i);
-      v[i] = c < geo.width ? row[c] : 0.0f;
+      v[i] = c < geo.width ? to_float(row[c]) : 0.0f;
     }
   } else {
     load_cols<V>(row + r.col0, v);
   }
 }
 
-// Stores the lane's columns of node row n (the tail left out).
-template <int V, bool GEN>
-__device__ __forceinline__ void store_row(float* __restrict__ base, int64_t n, const Geometry& geo,
+// Stores the lane's columns of node row n (the tail left out), rounded to T.
+template <int V, bool GEN, typename T>
+__device__ __forceinline__ void store_row(T* __restrict__ base, int64_t n, const Geometry& geo,
                                           const RowSlot& r, const float (&v)[V]) {
-  float* row = base + n * geo.width;
+  T* row = base + n * geo.width;
   if constexpr (GEN) {
 #pragma unroll
     for (int i = 0; i < V; ++i) {
       const int c = column<V, GEN>(geo, r, i);
-      if (c < geo.width) row[c] = v[i];
+      if (c < geo.width) row[c] = from_float<T>(v[i]);
     }
   } else {
     store_cols<V>(row + r.col0, v);

@@ -45,6 +45,16 @@
 // memory (float4; float2 or scalar where V is not a multiple of 4), so
 // their order of summation changes from run to run, as the index_add_
 // scatters' did. A deterministic pass over a transposed CSR is later work.
+//
+// Two entries, one kernel: csr_attention_bwd_f32 and csr_attention_bwd_bf16
+// (q, k, v, out, g and dq bf16). The bf16 entry upcasts every loaded
+// element to f32, computes in f32, sums dq in f32 registers and stores it
+// rounded to bf16 once. Each edge's dv term is rounded to bf16 first, as the
+// JAX backward rounds its per-edge dvalues to the values' dtype
+// (pallas_attention.py `_edge_grads`). dk and dv are summed with the same
+// f32 atomics into f32 buffers in both entries; the wrapper casts them to
+// bf16 in one pass. bf16 atomics (atomicAdd on __nv_bfloat162) would round
+// every partial sum, less accurate than both JAX paths.
 
 #include "csr_attention.cuh"
 
@@ -84,13 +94,13 @@ __device__ __forceinline__ void add_row(float* __restrict__ base, int32_t j, con
   }
 }
 
-template <int V, int NP, bool GEN>
+template <typename T, int V, int NP, bool GEN>
 __global__ void __launch_bounds__(kThreads)
-csr_attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const int32_t* __restrict__ gather_idx,
+csr_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const int32_t* __restrict__ gather_idx,
                          const int32_t* __restrict__ bounds, const uint8_t* __restrict__ mask,
-                         const float* __restrict__ ml, const float* __restrict__ out,
-                         const float* __restrict__ g, float* __restrict__ dq, float* __restrict__ dk,
+                         const float* __restrict__ ml, const T* __restrict__ out,
+                         const T* __restrict__ g, T* __restrict__ dq, float* __restrict__ dk,
                          float* __restrict__ dv, int64_t num_rows, int64_t num_edges, Geometry geo,
                          float scale) {
   const RowSlot r = row_slot<V, GEN>(geo, bounds, num_rows, num_edges);
@@ -148,7 +158,7 @@ csr_attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ 
 #pragma unroll
         for (int i = 0; i < V; ++i) {
           dkr[i] = ds[i % NP] * scale * qr[i];
-          dvr[i] = attn[i % NP] * gr[i];
+          dvr[i] = round_to<T>(attn[i % NP] * gr[i]);
         }
 #pragma unroll
         for (int i = 0; i < V; ++i) dqa[i] += ds[i % NP] * scale * kc[i];
@@ -166,20 +176,48 @@ csr_attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ 
   if (r.has_row) store_row<V, GEN>(dq, r.row, geo, r, dqa);
 }
 
-template <int V, int NP, bool GEN>
+template <typename T, int V, int NP, bool GEN>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* gather_idx,
                    const void* bounds, const void* mask, const void* ml, const void* out,
                    const void* g, void* dq, void* dk, void* dv, long long num_rows,
                    long long num_edges, const Geometry& geo, float scale, cudaStream_t stream) {
   const long long threads = num_rows * geo.lanes;
   const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) / kThreads));
-  csr_attention_bwd_kernel<V, NP, GEN><<<grid, kThreads, shared_bytes(geo), stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+  csr_attention_bwd_kernel<T, V, NP, GEN><<<grid, kThreads, shared_bytes(geo), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int32_t*>(gather_idx), static_cast<const int32_t*>(bounds),
       static_cast<const uint8_t*>(mask), static_cast<const float*>(ml),
-      static_cast<const float*>(out), static_cast<const float*>(g), static_cast<float*>(dq),
+      static_cast<const T*>(out), static_cast<const T*>(g), static_cast<T*>(dq),
       static_cast<float*>(dk), static_cast<float*>(dv), num_rows, num_edges, geo, scale);
   return cudaGetLastError();
+}
+
+// The instantiation of the geometry's case for element type T.
+template <typename T>
+int run(const void* q, const void* k, const void* v, const void* gather_idx, const void* bounds,
+        const void* mask, const void* ml, const void* out, const void* g, void* dq, void* dk,
+        void* dv, long long num_rows, long long num_edges, int num_heads, int width,
+        int interleaved, int lanes, float scale, void* stream) {
+  if (num_rows <= 0) return 0;
+  Geometry geo;
+  if (!make_geometry(lanes, width, num_heads, interleaved, 16, &geo)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CASE(V, NP)      \
+  case (V) * 32 + (NP): \
+    return static_cast<int>(launch<T, V, NP, false>(q, k, v, gather_idx, bounds, mask, ml, out, g, dq, dk, dv, num_rows, num_edges, geo, scale, s));
+#define GENERAL_CASE(V) \
+  case 1024 + (V):      \
+    return static_cast<int>(launch<T, V, V, true>(q, k, v, gather_idx, bounds, mask, ml, out, g, dq, dk, dv, num_rows, num_edges, geo, scale, s));
+  switch (case_key(geo)) {
+    CSR_ATTENTION_CASES(CASE)
+    CSR_ATTENTION_GENERAL_CASES(GENERAL_CASE)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef CASE
+#undef GENERAL_CASE
 }
 
 }  // namespace
@@ -197,24 +235,19 @@ extern "C" int csr_attention_bwd_f32(const void* q, const void* k, const void* v
                                      void* dk, void* dv, long long num_rows, long long num_edges,
                                      int num_heads, int width, int interleaved, int lanes,
                                      float scale, void* stream) {
-  if (num_rows <= 0) return 0;
-  Geometry geo;
-  if (!make_geometry(lanes, width, num_heads, interleaved, 16, &geo)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CASE(V, NP)      \
-  case (V) * 32 + (NP): \
-    return static_cast<int>(launch<V, NP, false>(q, k, v, gather_idx, bounds, mask, ml, out, g, dq, dk, dv, num_rows, num_edges, geo, scale, s));
-#define GENERAL_CASE(V) \
-  case 1024 + (V):      \
-    return static_cast<int>(launch<V, V, true>(q, k, v, gather_idx, bounds, mask, ml, out, g, dq, dk, dv, num_rows, num_edges, geo, scale, s));
-  switch (case_key(geo)) {
-    CSR_ATTENTION_CASES(CASE)
-    CSR_ATTENTION_GENERAL_CASES(GENERAL_CASE)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef CASE
-#undef GENERAL_CASE
+  return run<float>(q, k, v, gather_idx, bounds, mask, ml, out, g, dq, dk, dv, num_rows,
+                    num_edges, num_heads, width, interleaved, lanes, scale, stream);
+}
+
+// As csr_attention_bwd_f32 with q, k, v, out, g and dq bf16 [N, D] node
+// rows, 8-byte aligned, D % 4 == 0 (the wrapper checks); ml, dk and dv f32,
+// dk and dv zeroed, 16-byte aligned.
+extern "C" int csr_attention_bwd_bf16(const void* q, const void* k, const void* v,
+                                      const void* gather_idx, const void* bounds, const void* mask,
+                                      const void* ml, const void* out, const void* g, void* dq,
+                                      void* dk, void* dv, long long num_rows, long long num_edges,
+                                      int num_heads, int width, int interleaved, int lanes,
+                                      float scale, void* stream) {
+  return run<__nv_bfloat16>(q, k, v, gather_idx, bounds, mask, ml, out, g, dq, dk, dv, num_rows,
+                            num_edges, num_heads, width, interleaved, lanes, scale, stream);
 }

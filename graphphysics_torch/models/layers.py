@@ -3,6 +3,15 @@
 Module and parameter names follow the reference PyTorch ``state_dict``
 (``build_mlp`` is a Sequential: Linear layers at even indices, the RMSNorm
 last), so reference-format weights load with ``load_state_dict(strict=True)``.
+
+Every layer takes a compute ``dtype`` (None: float32), as the flax layers do.
+A ``Linear`` with a dtype computes as flax's ``nn.Dense(dtype=)``: it casts
+its input, weight and bias to the dtype and returns the dtype; parameters
+stay float32, so state_dicts and checkpoints do not change. The casts are
+explicit rather than ``torch.autocast``'s, whose per-device op lists would
+round in other places on the card than on the CPU. ``RMSNorm`` computes in
+its input's dtype and its f32 ``scale`` promotes the result to f32, as in
+the JAX package, so the residual streams stay f32.
 """
 
 from __future__ import annotations
@@ -17,10 +26,29 @@ from graphphysics_torch.ops.attention import sparse_graph_attention
 from graphphysics_torch.ops.segment import masked_segment_sum, take_rows
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in ``compute_dtype`` (None: as given), the
+    counterpart of flax's ``nn.Dense(dtype=)``: input, weight and bias cast
+    to it, the result in it. As XLA, it rounds the product to the dtype and
+    then the sum with the bias; ``F.linear`` with a bias would round once."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+
+
 class RMSNorm(nn.Module):
     """``scale * x / (sqrt(max(sum(x^2), 1e-24)) * d^-0.5 + eps)``: the
     reference formula, not ``torch.nn.RMSNorm``. The ``1e-24`` floor gives an
-    all-zero row (reachable through ReLU) a zero, not NaN, gradient."""
+    all-zero row (reachable through ReLU) a zero, not NaN, gradient. It
+    computes in the input's dtype, ``d^-0.5`` rounded to it first as JAX
+    rounds a Python constant; the f32 ``scale`` makes the result f32."""
 
     EPS = 1e-8
 
@@ -31,19 +59,20 @@ class RMSNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         sq = (x * x).sum(dim=-1, keepdim=True)
-        rms_x = torch.sqrt(torch.clamp(sq, min=1e-24)) * self.dim ** (-0.5)
+        rms_x = torch.sqrt(torch.clamp(sq, min=1e-24)) * torch.tensor(self.dim ** -0.5, dtype=x.dtype)
         return self.scale * (x / (rms_x + self.EPS))
 
 
 class MLP(nn.Sequential):
     """Reference ``build_mlp`` with its 4 linear layers: (Linear+ReLU) x 3,
-    Linear, optional RMSNorm output."""
+    Linear, optional RMSNorm output (which returns f32)."""
 
-    def __init__(self, in_size: int, hidden_size: int, out_size: int, layer_norm: bool = True):
-        layers = [nn.Linear(in_size, hidden_size), nn.ReLU()]
+    def __init__(self, in_size: int, hidden_size: int, out_size: int, layer_norm: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        layers = [Linear(in_size, hidden_size, dtype), nn.ReLU()]
         for _ in range(2):
-            layers += [nn.Linear(hidden_size, hidden_size), nn.ReLU()]
-        layers.append(nn.Linear(hidden_size, out_size))
+            layers += [Linear(hidden_size, hidden_size, dtype), nn.ReLU()]
+        layers.append(Linear(hidden_size, out_size, dtype))
         if layer_norm:
             layers.append(RMSNorm(out_size))
         super().__init__(*layers)
@@ -54,12 +83,13 @@ class GraphNetBlock(nn.Module):
 
     Edge update: MLP on ``[edge_attr, x[receivers], x[senders]]``. Node
     update: MLP on ``[x, sum of incoming edge messages]``, the messages summed
-    into their receivers. Residuals on both."""
+    into their receivers. Residuals on both, in the streams' dtype (f32: the
+    MLPs end in RMSNorm, so the messages reach the sum in f32)."""
 
-    def __init__(self, hidden_size: int):
+    def __init__(self, hidden_size: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.edge_block = MLP(3 * hidden_size, hidden_size, hidden_size)
-        self.node_block = MLP(2 * hidden_size, hidden_size, hidden_size)
+        self.edge_block = MLP(3 * hidden_size, hidden_size, hidden_size, dtype=dtype)
+        self.node_block = MLP(2 * hidden_size, hidden_size, hidden_size, dtype=dtype)
 
     def forward(
         self,
@@ -78,43 +108,56 @@ class GraphNetBlock(nn.Module):
             edge_update, receivers, x.shape[0], mask=edge_mask, row_bounds=row_bounds
         )
         node_update = self.node_block(torch.cat([x, aggr], dim=-1))
-        return x + node_update, edge_attr + edge_update
+        return x + node_update.to(x.dtype), edge_attr + edge_update.to(edge_attr.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The exact (erf) GELU. A 16-bit ``x`` goes op by op through
+    ``jax.nn.gelu``'s ``0.5 * x * erfc(-x * sqrt(1/2))`` in its dtype, so it
+    rounds where the JAX package does; ``F.gelu`` would round once."""
+    if x.dtype in (torch.float16, torch.bfloat16):
+        return 0.5 * x * torch.special.erfc(-x * torch.tensor(0.5 ** 0.5, dtype=x.dtype))
+    return F.gelu(x, approximate="none")
 
 
 class GatedMLP(nn.Module):
     """GEGLU: ``gelu(linear1(x)) * linear2(x)`` with the exact (erf) GELU,
     both ``expansion_factor * hidden_size`` wide."""
 
-    def __init__(self, in_size: int, hidden_size: int, expansion_factor: int = 3):
+    def __init__(self, in_size: int, hidden_size: int, expansion_factor: int = 3,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         width = expansion_factor * hidden_size
-        self.linear1 = nn.Linear(in_size, width)
-        self.linear2 = nn.Linear(in_size, width)
+        self.linear1 = Linear(in_size, width, dtype)
+        self.linear2 = Linear(in_size, width, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.gelu(self.linear1(x), approximate="none") * self.linear2(x)
+        return gelu(self.linear1(x)) * self.linear2(x)
 
 
 class GatedMLPBlock(nn.Sequential):
     """RMSNorm, GEGLU, Linear: the reference ``build_gated_mlp`` Sequential
     (``0.scale``, ``1.linear1|linear2``, ``2``)."""
 
-    def __init__(self, in_size: int, hidden_size: int, out_size: int, expansion_factor: int = 3):
+    def __init__(self, in_size: int, hidden_size: int, out_size: int, expansion_factor: int = 3,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__(
             RMSNorm(in_size),
-            GatedMLP(in_size, hidden_size, expansion_factor),
-            nn.Linear(expansion_factor * hidden_size, out_size),
+            GatedMLP(in_size, hidden_size, expansion_factor, dtype),
+            Linear(expansion_factor * hidden_size, out_size, dtype),
         )
 
 
 class GMMHead(nn.Module):
     """Full-covariance GMM head: ``pre_proj`` (hidden -> hidden), then
     ``proj`` into ``K * (1 + d + d(d+1)/2)`` parameters per node (logit,
-    mean, Cholesky lower triangle), the final projection in f32."""
+    mean, Cholesky lower triangle); ``pre_proj`` computes in ``dtype``, the
+    final projection in f32."""
 
-    def __init__(self, hidden_size: int, d: int, num_components: int):
+    def __init__(self, hidden_size: int, d: int, num_components: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.pre_proj = nn.Linear(hidden_size, hidden_size)
+        self.pre_proj = Linear(hidden_size, hidden_size, dtype)
         self.proj = nn.Linear(hidden_size, num_components * self.per_component(d))
 
     @staticmethod
@@ -144,17 +187,18 @@ class Attention(nn.Module):
     ``q_proj``, ``k_proj`` and ``v_proj`` are separate Linear layers; a
     reference model that shares the q weight (``use_separate_proj_weight``
     false) loads as three equal weights with their own biases, which is what
-    ``export_reference_state_dict`` writes."""
+    ``export_reference_state_dict`` writes. With a ``dtype`` the projections
+    return it, so q, k and v reach the attention kernels in it."""
 
-    def __init__(self, output_dim: int, num_heads: int = 4):
+    def __init__(self, output_dim: int, num_heads: int = 4, dtype: Optional[torch.dtype] = None):
         super().__init__()
         if output_dim % num_heads:
             raise ValueError(f"output_dim {output_dim} is not a multiple of {num_heads} heads")
         self.num_heads = num_heads
-        self.q_proj = nn.Linear(output_dim, output_dim)
-        self.k_proj = nn.Linear(output_dim, output_dim)
-        self.v_proj = nn.Linear(output_dim, output_dim)
-        self.proj = nn.Linear(output_dim, output_dim)
+        self.q_proj = Linear(output_dim, output_dim, dtype)
+        self.k_proj = Linear(output_dim, output_dim, dtype)
+        self.v_proj = Linear(output_dim, output_dim, dtype)
+        self.proj = Linear(output_dim, output_dim, dtype)
 
     def forward(
         self,
@@ -187,14 +231,15 @@ class Attention(nn.Module):
 
 class TransformerBlock(nn.Module):
     """Pre-norm transformer block: ``x + attention(norm1(x))``, then
-    ``x + gated_mlp(norm2(x))``."""
+    ``x + gated_mlp(norm2(x))``, each branch cast back to the residual
+    stream's dtype."""
 
-    def __init__(self, output_dim: int, num_heads: int = 4):
+    def __init__(self, output_dim: int, num_heads: int = 4, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.attention = Attention(output_dim, num_heads)
+        self.attention = Attention(output_dim, num_heads, dtype)
         self.norm1 = RMSNorm(output_dim)
         self.norm2 = RMSNorm(output_dim)
-        self.gated_mlp = GatedMLPBlock(output_dim, output_dim, output_dim)
+        self.gated_mlp = GatedMLPBlock(output_dim, output_dim, output_dim, dtype=dtype)
 
     def forward(
         self,
@@ -204,8 +249,8 @@ class TransformerBlock(nn.Module):
         edge_mask: Optional[torch.Tensor] = None,
         sender_bounds: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        x = x + self.attention(self.norm1(x), senders, receivers, edge_mask, sender_bounds)
-        return x + self.gated_mlp(self.norm2(x))
+        x = x + self.attention(self.norm1(x), senders, receivers, edge_mask, sender_bounds).to(x.dtype)
+        return x + self.gated_mlp(self.norm2(x)).to(x.dtype)
 
 
 def reset_parameters(module: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -3,7 +3,18 @@
 EncodeTransformDecode, unrolled, with the plain MLP decoder or, with
 ``num_mixture_components`` K > 0, a GMM head (diagonal unless
 ``use_diagonal`` is false) whose output the Simulator samples at eval with
-``temperature`` (None reads as 1.0; 0.0 gives the chosen component's mean)."""
+``temperature`` (None reads as 1.0; 0.0 gives the chosen component's mean).
+
+Both take the JAX models' precision and memory knobs. ``dtype`` (None:
+float32; ``torch.bfloat16``) is the layers' compute dtype; parameters and
+predictions stay float32. ``remat`` recomputes each block's activations in
+the backward (``torch.utils.checkpoint``, the counterpart of ``nn.remat``)
+instead of keeping them. ``scan_blocks`` is accepted and runs the same
+unrolled loop: in the JAX package it scans one block body to keep compile
+time flat in depth, "same math as the unrolled loop"; PyTorch runs eagerly
+and has no such compile time, so the knob changes nothing here. A JAX
+``scan_blocks`` model's weights load after
+``utils.reference_weights.unstack_scanned_blocks``."""
 
 from __future__ import annotations
 
@@ -11,6 +22,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from graphphysics_torch.core.graph import Graph
 from graphphysics_torch.models.layers import (
@@ -23,27 +35,43 @@ from graphphysics_torch.models.layers import (
 
 
 def _decoder(hidden_size: int, output_size: int, num_mixture_components: int,
-             use_diagonal: bool) -> nn.Module:
-    """The MLP decoder (no output norm) for K = 0, else a GMM head."""
+             use_diagonal: bool, dtype: Optional[torch.dtype]) -> nn.Module:
+    """The MLP decoder (no output norm) for K = 0, else a GMM head, computing
+    in ``dtype`` (the caller casts its output to f32)."""
     if num_mixture_components == 0:
-        return MLP(hidden_size, hidden_size, output_size, layer_norm=False)
+        return MLP(hidden_size, hidden_size, output_size, layer_norm=False, dtype=dtype)
     head = DiagonalGMMHead if use_diagonal else GMMHead
-    return head(hidden_size, output_size, num_mixture_components)
+    return head(hidden_size, output_size, num_mixture_components, dtype)
 
 
 class _GMMOptions:
-    """The decoder's GMM settings, as the JAX models carry them."""
+    """The decoder's GMM settings and the precision and memory knobs, as the
+    JAX models carry them."""
 
     num_mixture_components: int
     temperature: Optional[float]
     use_diagonal: bool
     output_size: int
+    dtype: Optional[torch.dtype]
+    remat: bool
+    scan_blocks: bool
 
     def _set_gmm(self, output_size, num_mixture_components, temperature, use_diagonal):
         self.output_size = output_size
         self.num_mixture_components = num_mixture_components
         self.temperature = temperature
         self.use_diagonal = use_diagonal
+
+    def _set_knobs(self, dtype, remat, scan_blocks):
+        self.dtype = dtype
+        self.remat = bool(remat)
+        self.scan_blocks = bool(scan_blocks)
+
+    def _block(self, block: nn.Module, *args):
+        """``block(*args)``, rematerialized in the backward with ``remat``."""
+        if self.remat:
+            return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False)
+        return block(*args)
 
     @property
     def d(self) -> int:
@@ -57,7 +85,9 @@ class _GMMOptions:
 class EncodeProcessDecode(_GMMOptions, nn.Module):
     """MeshGraphNet-style EPD: MLP encoders for nodes and edges,
     ``message_passing_num`` GraphNetBlocks, MLP decoder (no output norm) or
-    GMM head. Emits float32 predictions."""
+    GMM head. Emits float32 predictions; with a bf16 ``dtype`` the node and
+    edge residual streams stay f32 (every MLP but the decoder ends in
+    RMSNorm), so the segment sum reads f32 messages."""
 
     def __init__(
         self,
@@ -69,21 +99,27 @@ class EncodeProcessDecode(_GMMOptions, nn.Module):
         num_mixture_components: int = 0,
         temperature: Optional[float] = None,
         use_diagonal: bool = True,
+        dtype: Optional[torch.dtype] = None,
+        remat: bool = False,
+        scan_blocks: bool = False,
     ):
         super().__init__()
         self._set_gmm(output_size, num_mixture_components, temperature, use_diagonal)
-        self.nodes_encoder = MLP(node_input_size, hidden_size, hidden_size)
-        self.edges_encoder = MLP(edge_input_size, hidden_size, hidden_size)
+        self._set_knobs(dtype, remat, scan_blocks)
+        self.nodes_encoder = MLP(node_input_size, hidden_size, hidden_size, dtype=dtype)
+        self.edges_encoder = MLP(edge_input_size, hidden_size, hidden_size, dtype=dtype)
         self.processor_list = nn.ModuleList(
-            GraphNetBlock(hidden_size) for _ in range(message_passing_num)
+            GraphNetBlock(hidden_size, dtype) for _ in range(message_passing_num)
         )
-        self.decode_module = _decoder(hidden_size, output_size, num_mixture_components, use_diagonal)
+        self.decode_module = _decoder(hidden_size, output_size, num_mixture_components,
+                                      use_diagonal, dtype)
 
     def forward(self, graph: Graph) -> torch.Tensor:
         x = self.nodes_encoder(graph.x)
         edge_attr = self.edges_encoder(graph.edge_attr)
         for block in self.processor_list:
-            x, edge_attr = block(
+            x, edge_attr = self._block(
+                block,
                 x,
                 edge_attr,
                 graph.senders,
@@ -100,7 +136,8 @@ class EncodeTransformDecode(_GMMOptions, nn.Module):
     mesh adjacency, MLP decoder (no output norm) or GMM head. Edge features
     are not used. On CUDA the graph must carry ``sender_bounds``
     (``pad_graph_csr_np``): attention then runs the fused Hopper attention
-    kernel once per block. Emits float32 predictions."""
+    kernel once per block (on its bf16 entry with a bf16 ``dtype``: the
+    projections give q, k and v in it). Emits float32 predictions."""
 
     def __init__(
         self,
@@ -112,17 +149,23 @@ class EncodeTransformDecode(_GMMOptions, nn.Module):
         num_mixture_components: int = 0,
         temperature: Optional[float] = None,
         use_diagonal: bool = True,
+        dtype: Optional[torch.dtype] = None,
+        remat: bool = False,
+        scan_blocks: bool = False,
     ):
         super().__init__()
         self._set_gmm(output_size, num_mixture_components, temperature, use_diagonal)
-        self.nodes_encoder = MLP(node_input_size, hidden_size, hidden_size)
+        self._set_knobs(dtype, remat, scan_blocks)
+        self.nodes_encoder = MLP(node_input_size, hidden_size, hidden_size, dtype=dtype)
         self.processor_list = nn.ModuleList(
-            TransformerBlock(hidden_size, num_heads) for _ in range(message_passing_num)
+            TransformerBlock(hidden_size, num_heads, dtype) for _ in range(message_passing_num)
         )
-        self.decode_module = _decoder(hidden_size, output_size, num_mixture_components, use_diagonal)
+        self.decode_module = _decoder(hidden_size, output_size, num_mixture_components,
+                                      use_diagonal, dtype)
 
     def forward(self, graph: Graph) -> torch.Tensor:
         x = self.nodes_encoder(graph.x)
         for block in self.processor_list:
-            x = block(x, graph.senders, graph.receivers, graph.edge_mask, graph.sender_bounds)
+            x = self._block(block, x, graph.senders, graph.receivers, graph.edge_mask,
+                            graph.sender_bounds)
         return self.decode_module(x).to(torch.float32)

@@ -21,7 +21,12 @@ then ``csr_softmax_spmm_reference``) and
 ``csr_attention_backward_reference``. The kernels take q, k and v either as
 contiguous ``[N, H, Dh]`` or as the ``(N, Dh, H)`` views the model's
 ``Attention`` passes (strides ``(D, 1, H)``), and give out and the
-gradients in the same layout.
+gradients in the same layout. They take q, k and v all float32 (the entries
+``csr_attention_f32``, ``csr_attention_bwd_f32``) or all bfloat16
+(``csr_attention_bf16``, ``csr_attention_bwd_bf16``: the bf16 model's);
+bf16 rows are read as bf16, computed on in f32 and the outputs rounded to
+bf16 once, with ``ml`` and the backward's ``dk``/``dv`` sums in f32. The
+plain versions round at the same places, which are the JAX package's.
 
 ``csr_softmax_spmm`` is the TPU kernel's own function, the softmax + SpMM
 of given per-edge ``scores [E, H]`` and ``values [E, D]``, plus the
@@ -398,8 +403,10 @@ def csr_attention_reference(
     """Plain PyTorch version of ``csr_attention``: q gathered at
     ``segments``, k and v at ``gather_idx``, the per-head dot times ``scale``
     in f32 (f64 for f64 inputs), masked edges at score ``-1e30``, then
-    ``csr_softmax_spmm_reference``. Returns ``(out [N, H, Dh] contiguous in
-    q's dtype, ml [2H, N])``. Differentiable by autograd in q, k and v."""
+    ``csr_softmax_spmm_reference`` on the values in f32. Returns ``(out
+    [N, H, Dh] contiguous in q's dtype, rounded once, as the JAX K2 rounds
+    to the values' dtype; ml [2H, N] in f32)``. Differentiable by autograd
+    in q, k and v."""
     n, h, dh = q.shape
     d = h * dh
     acc = accumulation_dtype(q.dtype)
@@ -452,7 +459,8 @@ def csr_attention_backward_reference(
     zeros = torch.zeros((n, h, dh), dtype=acc, device=q.device)
     dq = zeros.clone().index_add_(0, seg, ds[:, :, None] * scale * k_e)
     dk = zeros.clone().index_add_(0, idx, ds[:, :, None] * scale * q_e)
-    dv = zeros.index_add_(0, idx, attn[:, :, None] * g_e)
+    dv_e = (attn[:, :, None] * g_e).to(q.dtype).to(acc)
+    dv = zeros.index_add_(0, idx, dv_e)
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
@@ -528,6 +536,12 @@ def lanes_per_row(width: int, heads: int, interleaved: bool, backward: bool = Fa
     return next((g for g in (8, 16) if -(-width // g) <= GENERAL_COLUMNS), 32)
 
 
+# the fused kernels' entries by element type, and the byte alignment each
+# needs of a row base (float4 loads for f32; groups of 4 bf16, 8 bytes)
+ENTRIES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+ALIGNMENT = {torch.float32: 16, torch.bfloat16: 8}
+
+
 def _check_attention_args(op, q, k, v, gather_idx, bounds, mask) -> bool:
     """Raise on what the fused kernels do not take; returns the layout
     (True: interleaved)."""
@@ -538,10 +552,15 @@ def _check_attention_args(op, q, k, v, gather_idx, bounds, mask) -> bool:
         fail(f"q must be [N, H, Dh], got {tuple(q.shape)}")
     n, h, dh = q.shape
     d = h * dh
+    if q.dtype not in ENTRIES:
+        fail(f"the CUDA kernels take float32 or bfloat16 q, k, v, got {q.dtype}")
+    if q.dtype == torch.bfloat16 and d % 4:
+        fail(f"bfloat16 rows are read in groups of 4: width D={d} must be a multiple of 4")
+    align = ALIGNMENT[q.dtype]
     layouts = set()
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.float32:
-            fail(f"the CUDA kernel takes float32 {name}, got {t.dtype}")
+        if t.dtype != q.dtype:
+            fail(f"q, k and v must share one dtype: {name} is {t.dtype}, q {q.dtype}")
         if t.shape != q.shape:
             fail(f"{name} is {tuple(t.shape)}, q {tuple(q.shape)}")
         if t.device != q.device:
@@ -551,8 +570,8 @@ def _check_attention_args(op, q, k, v, gather_idx, bounds, mask) -> bool:
             fail(f"{name} must be a contiguous [N, H, Dh] tensor or the [N, H, Dh] transpose of a "
                  f"contiguous (N, Dh, H) one, got strides {t.stride()}")
         layouts.add(layout)
-        if t.data_ptr() % 16:
-            fail(f"{name} must be 16-byte aligned")
+        if t.data_ptr() % align:
+            fail(f"{name} must be {align}-byte aligned")
     if len(layouts) != 1:
         fail("q, k and v must share one layout")
     if d == 0 or d > MAX_WIDTH:
@@ -576,13 +595,14 @@ def _check_attention_args(op, q, k, v, gather_idx, bounds, mask) -> bool:
 
 
 def _launch_attention(q, k, v, gather_idx, bounds, mask, scale, interleaved, lanes=None):
-    fn = _native.function(ATTENTION_SOURCE, "csr_attention_f32", 8,
+    entry = ENTRIES[q.dtype]
+    fn = _native.function(ATTENTION_SOURCE, f"csr_attention_{entry}", 8,
                           (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, ctypes.c_int, ctypes.c_float))
     n, h, dh = q.shape
     d = h * dh
     lanes = lanes_per_row(d, h, interleaved) if lanes is None else lanes
-    out = _as_heads(torch.empty((n, d), dtype=torch.float32, device=q.device), h, interleaved)
+    out = _as_heads(torch.empty((n, d), dtype=q.dtype, device=q.device), h, interleaved)
     ml = torch.empty((2 * h, n), dtype=torch.float32, device=q.device)
     if n == 0:
         return out, ml
@@ -594,36 +614,41 @@ def _launch_attention(q, k, v, gather_idx, bounds, mask, scale, interleaved, lan
             n, gather_idx.shape[0], h, d, int(interleaved), lanes, scale, stream,
         )
     if err != 0:
-        raise RuntimeError(f"csr_attention kernel launch failed: CUDA error {err}")
-    csr_attention.launches += 1
+        raise RuntimeError(f"csr_attention_{entry} kernel launch failed: CUDA error {err}")
+    LAUNCHES[f"csr_attention_{entry}"].launches += 1
     return out, ml
 
 
 def _launch_attention_backward(q, k, v, gather_idx, bounds, mask, ml, out, g, scale, interleaved,
                                lanes=None):
-    fn = _native.function(ATTENTION_BACKWARD_SOURCE, "csr_attention_bwd_f32", 12,
+    entry = ENTRIES[q.dtype]
+    fn = _native.function(ATTENTION_BACKWARD_SOURCE, f"csr_attention_bwd_{entry}", 12,
                           (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, ctypes.c_int, ctypes.c_float))
     n, h, dh = q.shape
     d = h * dh
     lanes = lanes_per_row(d, h, interleaved, backward=True) if lanes is None else lanes
-    dq = _as_heads(torch.empty((n, d), dtype=torch.float32, device=q.device), h, interleaved)
-    dkv = torch.zeros((2, n, d), dtype=torch.float32, device=q.device)  # one memset for both
-    dk, dv = (_as_heads(t, h, interleaved) for t in dkv.unbind(0))
+    dq = _as_heads(torch.empty((n, d), dtype=q.dtype, device=q.device), h, interleaved)
+    # dk and dv are summed in f32 in both entries (one memset for both)
+    dkv = torch.zeros((2, n, d), dtype=torch.float32, device=q.device)
+
+    def heads(sums):  # the f32 sums in q's dtype (one rounding pass), as [N, H, Dh] views
+        return tuple(_as_heads(t, h, interleaved) for t in sums.to(q.dtype).unbind(0))
+
     if n == 0:
-        return dq, dk, dv
+        return (dq, *heads(dkv))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), gather_idx.data_ptr(), bounds.data_ptr(),
             None if mask is None else mask.data_ptr(), ml.data_ptr(), out.data_ptr(), g.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dq.data_ptr(), dkv[0].data_ptr(), dkv[1].data_ptr(),
             n, gather_idx.shape[0], h, d, int(interleaved), lanes, scale, stream,
         )
     if err != 0:
-        raise RuntimeError(f"csr_attention backward kernel launch failed: CUDA error {err}")
-    csr_attention_backward.launches += 1
-    return dq, dk, dv
+        raise RuntimeError(f"csr_attention_bwd_{entry} kernel launch failed: CUDA error {err}")
+    LAUNCHES[f"csr_attention_bwd_{entry}"].launches += 1
+    return (dq, *heads(dkv))
 
 
 class _CsrAttention(torch.autograd.Function):
@@ -668,10 +693,12 @@ def csr_attention(
     ``csr_attention_backward``.
 
     A CUDA tensor launches the Hopper kernel and adds one to
-    ``csr_attention.launches``: float32 q, k, v of one layout (contiguous
-    ``[N, H, Dh]``, or the transpose of a contiguous ``(N, Dh, H)``; out
-    comes in the same layout), any width D = H * Dh up to ``MAX_WIDTH``,
-    16-byte aligned, int32 ``gather_idx`` and
+    ``csr_attention.launches`` (the float32 entry) or
+    ``csr_attention.bf16.launches`` (the bfloat16 one): q, k, v all float32
+    or all bfloat16, of one layout (contiguous ``[N, H, Dh]``, or the
+    transpose of a contiguous ``(N, Dh, H)``; out comes in the same layout
+    and dtype), any width D = H * Dh up to ``MAX_WIDTH`` (bf16: a multiple
+    of 4), 16-byte aligned (bf16: 8-byte), int32 ``gather_idx`` and
     ``sender_bounds``; it raises on anything else and trusts the edge layout
     (every unmasked edge in its sender's range, gather indices in
     ``[0, N)``: build graphs with ``pad_graph_csr_np``). The segment ids are
@@ -711,13 +738,14 @@ def csr_attention_backward(
     op = "csr_attention_backward"
     interleaved = _check_attention_args(op, q, k, v, gather_idx, sender_bounds, mask)
     n, h, _ = q.shape
-    g = _in_layout(g, interleaved)
+    g = _in_layout(g.to(q.dtype), interleaved)
+    align = ALIGNMENT[q.dtype]
     for name, t in (("out", out), ("g", g)):
-        if t.shape != q.shape or t.dtype != torch.float32 or _is_interleaved(t) is not interleaved:
-            raise ValueError(f"{op}: {name} must be float32 {tuple(q.shape)} in q's layout, got "
+        if t.shape != q.shape or t.dtype != q.dtype or _is_interleaved(t) is not interleaved:
+            raise ValueError(f"{op}: {name} must be {q.dtype} {tuple(q.shape)} in q's layout, got "
                              f"{t.dtype} {tuple(t.shape)} strides {t.stride()}")
-        if t.device != q.device or t.data_ptr() % 16:
-            raise ValueError(f"{op}: {name} must be 16-byte aligned on {q.device}")
+        if t.device != q.device or t.data_ptr() % align:
+            raise ValueError(f"{op}: {name} must be {align}-byte aligned on {q.device}")
     if ml.shape != (2 * h, n) or ml.dtype != torch.float32 or not ml.is_contiguous():
         raise ValueError(f"{op}: ml must be a contiguous float32 {(2 * h, n)}")
     return _launch_attention_backward(q, k, v, gather_idx, sender_bounds, mask, ml, out, g,
@@ -725,6 +753,24 @@ def csr_attention_backward(
 
 
 csr_attention_backward.launches = 0
+
+
+class LaunchCount:
+    """The launch count of one kernel entry (``.launches``)."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+# the bf16 entries count apart from the f32 ones, so a run shows which ran
+csr_attention.bf16 = LaunchCount()
+csr_attention_backward.bf16 = LaunchCount()
+LAUNCHES = {
+    "csr_attention_f32": csr_attention,
+    "csr_attention_bf16": csr_attention.bf16,
+    "csr_attention_bwd_f32": csr_attention_backward,
+    "csr_attention_bwd_bf16": csr_attention_backward.bf16,
+}
 
 
 def csr_sparse_attention(

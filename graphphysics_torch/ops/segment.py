@@ -14,9 +14,32 @@ _NEG_INF = -1e30
 _16BIT = (torch.float16, torch.bfloat16)
 
 
+class _TakeRows16(torch.autograd.Function):
+    """``x[idx]`` of a 16-bit ``[N, F]`` tensor whose backward sums the
+    rows' gradients in f32 and rounds once, as the JAX ``take_rows``'s
+    custom VJP does (a bare ``index_select`` would add in 16 bits)."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.num_rows = x.shape[0]
+        return x.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        gx = torch.zeros((ctx.num_rows, g.shape[1]), dtype=torch.float32, device=g.device)
+        return gx.index_add_(0, idx, g.to(torch.float32)).to(g.dtype), None
+
+
 def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Rows ``x[idx]`` (the JAX package's 16-bit packing was a TPU gather
-    workaround and has no counterpart here)."""
+    """Rows ``x[idx]``. A 16-bit ``[N, F]`` tensor of even width (the JAX
+    package's packed path) gets a backward that accumulates in f32 and
+    rounds once; any other takes ``index_select``, as the JAX function
+    takes ``jnp.take``. (The JAX package's 16-bit packing itself was a TPU
+    gather workaround and has no counterpart here.)"""
+    if x.dim() == 2 and x.dtype in _16BIT and x.shape[1] % 2 == 0:
+        return _TakeRows16.apply(x, idx)
     return x.index_select(0, idx)
 
 

@@ -23,6 +23,7 @@ from graphphysics_torch.training.parse_parameters import (
     get_simulator,
     get_simulator_config,
     gmm_options,
+    model_options,
 )
 from graphphysics_torch.training.rollout import (
     build_mask,
@@ -48,6 +49,7 @@ __all__ = [
     "gmm_nll_loss",
     "gmm_nll_per_row",
     "gmm_options",
+    "model_options",
     "is_torch_checkpoint",
     "l1_smooth_loss",
     "l2_loss",

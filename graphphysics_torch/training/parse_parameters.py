@@ -2,17 +2,19 @@
 (counterpart of ``graphphysics_tpu/training/parse_parameters.py``):
 ``get_preprocessing``, ``get_model``, ``get_simulator_config``,
 ``get_simulator``, ``edge_layout`` and ``get_dataset`` for the
-configurations the port trains and serves today: float32, the plain (K = 0)
-decoder or a GMM head, h5 and XDMF datasets, previous-frame data, the
-dataset-specific feature hooks, world-position edges, k-hop and random
-edges and node masking. A key that asks for more raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+configurations the port trains and serves today: float32 or bfloat16
+compute, rematerialized and scanned blocks, the plain (K = 0) decoder or a
+GMM head, h5 and XDMF datasets, previous-frame data, the dataset-specific
+feature hooks, world-position edges, k-hop and random edges and node
+masking. A key that asks for more raises ``NotImplementedError`` naming the
+ROADMAP item that brings it.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional, Union
 
+import torch
 from torch import nn
 
 from graphphysics_torch.core.device import DeviceLike
@@ -84,16 +86,29 @@ def gmm_options(param: Dict[str, Any]) -> Dict[str, Any]:
     }
 
 
+# the compute dtype of each "precision" (None: float32), as the JAX get_model
+PRECISIONS = {"f32": None, "float32": None, "bf16": torch.bfloat16, "bfloat16": torch.bfloat16}
+
+
+def model_options(param: Dict[str, Any]) -> Dict[str, Any]:
+    """The model's precision and memory keys of ``param["model"]``:
+    ``precision`` (default "f32") as the compute ``dtype``, an unknown one
+    raising ``KeyError`` as the JAX dict lookup does; ``remat`` and
+    ``scan_blocks`` (default false)."""
+    model = param["model"]
+    return {
+        "dtype": PRECISIONS[model.get("precision", "f32")],
+        "remat": bool(model.get("remat", False)),
+        "scan_blocks": bool(model.get("scan_blocks", False)),
+    }
+
+
 def get_model(param: Dict[str, Any]) -> nn.Module:
     """The processor of ``param["model"]``: ``"epd"`` or ``"transformer"``,
-    with the NodeType one-hot width added to ``node_input_size`` and the
-    decoder of ``gmm_options``."""
+    with the NodeType one-hot width added to ``node_input_size``, the
+    decoder of ``gmm_options`` and the knobs of ``model_options``."""
     model = param["model"]
-    if model.get("precision", "f32") not in ("f32", "float32"):
-        raise _waits(f"precision {model['precision']!r}", "item 11, training features")
-    for knob in ("remat", "scan_blocks"):
-        if model.get(knob, False):
-            raise _waits(f"{knob!r}", "item 11, training features")
+    knobs = model_options(param)
     node_input_size = model["node_input_size"] + int(NodeType.SIZE)
     if model.get("type") == "epd":
         return EncodeProcessDecode(
@@ -103,6 +118,7 @@ def get_model(param: Dict[str, Any]) -> nn.Module:
             model["output_size"],
             model["hidden_size"],
             **gmm_options(param),
+            **knobs,
         )
     if model.get("type") == "transformer":
         return EncodeTransformDecode(
@@ -112,6 +128,7 @@ def get_model(param: Dict[str, Any]) -> nn.Module:
             model["hidden_size"],
             model["num_heads"],
             **gmm_options(param),
+            **knobs,
         )
     raise ValueError(f"Model type {model.get('type')!r} not supported.")
 

@@ -15,7 +15,15 @@ load with ``load_state_dict(strict=True)``: EncodeProcessDecode's
 ``processor_list.{i}.edge_block|node_block`` keys as well as
 EncodeTransformDecode's ``processor_list.{i}.attention|norm1|norm2|gated_mlp``
 ones. A model without edge features has no edge normalizer, and its
-checkpoint carries ``"_edge_normalizer": None``.
+checkpoint carries ``"_edge_normalizer": None``. Reference tensors in a
+16-bit dtype load as float32: the port's parameters are float32 whatever
+the model's compute precision.
+
+The JAX package's ``scan_blocks`` models keep their blocks' parameters
+stacked (``blocks/block/...`` with a leading ``[L]`` axis);
+``unstack_scanned_blocks`` turns such a parameter tree into the unrolled
+``block_{i}`` one, which the JAX ``export_reference_state_dict`` maps onto
+``processor_list.{i}``.
 """
 
 from __future__ import annotations
@@ -36,6 +44,33 @@ def _tensor(value: Any) -> torch.Tensor:
     if isinstance(value, torch.Tensor):
         return value.detach().to("cpu", torch.float32)
     return torch.tensor(np.asarray(value, dtype=np.float32))
+
+
+def unstack_scanned_blocks(params: Mapping[str, Any]) -> Dict[str, Any]:
+    """A flax parameter tree with a scanned block stack (``blocks`` ->
+    ``block`` -> leaves with a leading ``[L]`` axis), at its top or under
+    ``model``, as the unrolled tree (``block_0`` ... ``block_{L-1}``, each
+    leaf its slice as a numpy array); other entries pass through and a tree
+    without ``blocks`` comes back as it is. Numpy only."""
+    params = dict(params)
+    if "model" in params and "blocks" not in params:
+        params["model"] = unstack_scanned_blocks(params["model"])
+        return params
+    if "blocks" not in params:
+        return params
+    stacked = params.pop("blocks")["block"]
+
+    def depth(tree):
+        return depth(next(iter(tree.values()))) if isinstance(tree, Mapping) else np.shape(tree)[0]
+
+    def take(tree, i):
+        if isinstance(tree, Mapping):
+            return {k: take(v, i) for k, v in tree.items()}
+        return np.asarray(tree)[i]
+
+    for i in range(depth(stacked)):
+        params[f"block_{i}"] = take(stacked, i)
+    return params
 
 
 def load_reference_checkpoint(

@@ -263,3 +263,61 @@ def test_xdmf_configs_train_then_predict(name, tmp_path, monkeypatch):
     dt = json.loads(open(meta_path).read())["dt"]
     assert times[0] == pytest.approx((2 if previous else 1) * dt)
     assert all(f.shape == (nodes, 3) and np.isfinite(f).all() for f in frames)
+
+
+def test_bf16_remat_panels_config_train_predict_resume(tmp_path, monkeypatch):
+    """``training_config/panels.json`` with ``"precision": "bf16"`` and
+    ``"remat": true`` (cut to 2 blocks of width 16) on a tiny panels XDMF
+    folder: ``grph-torch train`` one epoch, ``predict`` from the checkpoint,
+    ``train --resume_training`` to 2 epochs. The checkpoint holds f32
+    weights: it loads into the f32 model of the same config, and back."""
+    from graphphysics_torch.training import Trainer, load_checkpoint_with_metadata
+    from graphphysics_torch.utils import synthetic
+    from graphphysics_torch.utils.xdmf import XdmfTimeSeriesReader
+
+    folder, meta_path = synthetic.write_panels_xdmf(str(tmp_path / "data" / "train"), num_traj=2,
+                                                    steps=5, nx=6, ny=5)
+    synthetic.write_panels_xdmf(str(tmp_path / "data" / "test"), num_traj=1, steps=5, seed=1, nx=6, ny=5)
+    param = json.loads(open("training_config/panels.json").read())
+    param["dataset"].update(xdmf_folder=folder, meta_path=meta_path)
+    param["model"].update(message_passing_num=2, hidden_size=16, precision="bf16", remat=True)
+    cfg = tmp_path / "panels_bf16.json"
+    cfg.write_text(json.dumps(param))
+    work = tmp_path / "work"
+    work.mkdir()
+    monkeypatch.chdir(work)
+    flags = ["--training_parameters_path", str(cfg), "--device", "cpu", "--batch_size", "2",
+             "--warmup", "2"]
+    assert grph_torch(["train", *flags, "--num_epochs", "1"]) == 0
+    ckpt = str(work / "checkpoints" / "state.pt")
+    saved = torch.load(ckpt, weights_only=True)["model"]
+    assert all(v.dtype == torch.float32 for k, v in saved.items() if "_normalizer." not in k)
+    steps = load_metadata(ckpt)["step"]
+    assert grph_torch(["predict", "--training_parameters_path", str(cfg), "--device", "cpu",
+                       "--model_path", ckpt, "--save_dir", "predictions"]) == 0
+    with XdmfTimeSeriesReader(str(work / "predictions" / "graph_0.xdmf")) as r:
+        frames = [r.read_data(k)[1]["prediction"] for k in range(r.num_steps)]
+    assert len(frames) == 4 and all(np.isfinite(f).all() for f in frames)
+    assert grph_torch(["train", *flags, "--num_epochs", "2", "--resume_training",
+                       "--model_path", ckpt]) == 0
+    meta = load_metadata(ckpt)
+    assert meta["epoch"] == 2 and meta["step"] == 2 * steps
+    # the bf16 run's checkpoint in the f32 model, and that model's back in bf16
+    f32 = json.loads(json.dumps(param))
+    f32["model"].update(precision="f32", remat=False)
+    trainer = Trainer(f32, metrics_path=None, rollout_dir=None, device="cpu")
+    trainer.init_state(10)
+    load_checkpoint_with_metadata(ckpt, trainer)
+    assert trainer.sim.model.dtype is None
+    sd = trainer.sim.state_dict()
+    after = torch.load(ckpt, weights_only=True)["model"]
+    for key, value in after.items():
+        assert torch.equal(sd[key], value.reshape(sd[key].shape)), key
+    trainer.checkpoint_dir = str(work / "f32")
+    trainer.save(epoch=2)
+    back = Trainer(param, metrics_path=None, rollout_dir=None, device="cpu")
+    back.init_state(10)
+    load_checkpoint_with_metadata(str(work / "f32" / trainer.checkpoint_name), back)
+    assert back.sim.model.dtype == torch.bfloat16
+    for key, value in back.sim.state_dict().items():
+        assert torch.equal(value, sd[key]), key

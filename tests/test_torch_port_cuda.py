@@ -679,3 +679,105 @@ def test_aneurysm_xdmf_path_launches_the_fused_kernels(cuda, config, tmp_path):
         real = torch.as_tensor(frames.node_mask[0])
         torch.testing.assert_close(preds["cuda"][:, real], preds["cpu"][:, real], rtol=1e-4,
                                    atol=1e-4)
+
+
+# bf16 entries against their plain versions: both compute in f32 and round
+# each output to bf16 once, so they differ where f32 sums in another order
+# round to neighbouring bf16 values: one bf16 ulp (2^-7 of the value at
+# most), two where a cancelling difference (the backward's ds) or dv's
+# per-edge roundings carry f32 round-off past one; plus f32 round-off near
+# zero, and for dv one edge term rounded the other way (2^-8 of max |g|)
+BF16_RTOL, BF16_ATOL, BF16_DV_TERM = 2.0 ** -6, 1e-4, 2.0 ** -8
+
+
+@pytest.mark.parametrize(
+    "layout,d,h,view",
+    [("serving", 128, 4, "model"), ("skewed", 128, 4, "model"), ("two_graphs", 64, 4, "model"),
+     ("two_graphs", 64, 4, "contiguous"), ("two_graphs", 48, 4, "model"),
+     ("two_graphs", 48, 4, "contiguous"), ("two_graphs", 96, 3, "model"), ("two_graphs", 40, 8, "model")],
+)
+def test_fused_attention_bf16_kernels_match_plain(cuda, layout, d, h, view):
+    """``csr_attention_bf16`` and ``csr_attention_bwd_bf16`` against the
+    plain versions on the same bf16 inputs, at every lane count the
+    geometry takes; the launches count on the bf16 entries only, and every
+    output is bf16 in q's layout."""
+    from graphphysics_torch.ops import csr_attention as ca
+
+    g, mask, qkv, cot = _fused_case(layout, d, h, seed=d + h + 1)
+    seg, gather = torch.from_numpy(g.senders).to(cuda), torch.from_numpy(g.receivers).to(cuda)
+    bounds, m = torch.from_numpy(g.sender_bounds).to(cuda), mask.to(cuda)
+    q, k, v, g_out = ((_model_view(t) if view == "model" else t).to(cuda, torch.bfloat16)
+                      for t in (*qkv, cot))
+    interleaved = view == "model" and h > 1
+    want_out, want_ml = ca.csr_attention_reference(q, k, v, seg, gather, g.num_nodes, m, 0.5)
+    lanes = [n for n in ca.FORWARD_LANES if ca.geometry_kind(n, d, h, interleaved)]
+    for n in lanes:
+        _poison_free_memory(cuda)
+        before = {name: c.launches for name, c in ca.LAUNCHES.items()}
+        out, ml = ca._launch_attention(q, k, v, gather, bounds, m, 0.5, interleaved, lanes=n)
+        want = ca.csr_attention_backward_reference(q, k, v, seg, gather, ml, out, g_out, m, 0.5)
+        grads = ca._launch_attention_backward(q, k, v, gather, bounds, m, ml, out, g_out, 0.5,
+                                              interleaved, lanes=n)
+        torch.cuda.synchronize()
+        after = {name: c.launches - before[name] for name, c in ca.LAUNCHES.items()}
+        assert after == {"csr_attention_f32": 0, "csr_attention_bf16": 1, "csr_attention_bwd_f32": 0,
+                         "csr_attention_bwd_bf16": 1}
+        assert out.dtype == torch.bfloat16 and ml.dtype == torch.float32
+        assert ca._is_interleaved(out) is interleaved or h == 1
+        torch.testing.assert_close(out.float(), want_out.float(), rtol=BF16_RTOL, atol=BF16_ATOL,
+                                   msg=f"out, {n} lanes")
+        torch.testing.assert_close(ml, want_ml, rtol=1e-5, atol=1e-5, msg=f"ml, {n} lanes")
+        dv_atol = max(BF16_ATOL, BF16_DV_TERM * g_out.float().abs().max().item())
+        for a, b, name in zip(grads, want, "qkv"):
+            assert a.dtype == torch.bfloat16 and torch.isfinite(a.float()).all()
+            torch.testing.assert_close(a.float(), b.float(), rtol=BF16_RTOL,
+                                       atol=dv_atol if name == "v" else BF16_ATOL,
+                                       msg=f"d{name}, {n} lanes")
+
+
+def test_fused_attention_bf16_refusals(cuda):
+    """bf16 q, k, v launch the bf16 entries or raise: mixed dtypes, a width
+    that is not a multiple of 4, a row base that is not 8-byte aligned."""
+    from graphphysics_torch.ops.csr_attention import csr_attention
+
+    g, mask, qkv, _ = _fused_case("two_graphs", 64, 4, seed=0)
+    seg, gather = torch.from_numpy(g.senders).to(cuda), torch.from_numpy(g.receivers).to(cuda)
+    bounds = torch.from_numpy(g.sender_bounds).to(cuda)
+    q, k, v = (t.to(cuda, torch.bfloat16) for t in qkv)
+    n = q.shape[0]
+    with pytest.raises(ValueError, match="share one dtype"):
+        csr_attention(q, k.float(), v, seg, gather, bounds)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        x = torch.zeros(n, 2, 3, device=cuda, dtype=torch.bfloat16)
+        csr_attention(x, x, x, seg, gather, bounds)
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        x = torch.zeros(n * 64 + 2, device=cuda, dtype=torch.bfloat16)[2:].view(n, 4, 16)
+        csr_attention(x, x, x, seg, gather, bounds)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        csr_attention(q.half(), k.half(), v.half(), seg, gather, bounds)
+
+
+def test_bf16_train_steps_on_card_launch_the_bf16_entries(cuda):
+    """Two train steps of the bf16 transformer on the card against the CPU
+    in bf16: the fused attention runs its bf16 entries (3 blocks, one
+    launch each a step), the f32 ones never."""
+    from graphphysics_torch.ops import csr_attention as ca
+    from graphphysics_torch.training import Trainer
+
+    batches = [_train_batch("transformer", seed) for seed in (0, 1)]
+    param = _train_param("transformer")
+    param["model"]["precision"] = "bf16"
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        trainer = Trainer(param, learning_rate=1e-3, warmup=2, device=dev)
+        trainer.init_state(10)
+        before = {name: c.launches for name, c in ca.LAUNCHES.items()}
+        losses[dev] = [trainer.train_step(b).item() for b in batches]
+        launched = {name: c.launches - before[name] for name, c in ca.LAUNCHES.items()}
+        assert all(p.dtype == torch.float32 for p in trainer.sim.parameters())
+    per_run = 3 * len(batches)
+    assert launched == {"csr_attention_f32": 0, "csr_attention_bf16": per_run,
+                        "csr_attention_bwd_f32": 0, "csr_attention_bwd_bf16": per_run}
+    # bf16 on both devices: roundings that fall the other way where f32
+    # sums differ in order
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-2)

@@ -433,7 +433,8 @@ def test_gmm_head_output_size_and_names(kind):
 def test_get_model_reads_the_gmm_keys():
     """Twin of ``test_get_model_gmm_and_precision``: the GMM keys are read
     (temperature None stays None and reads as 1.0 where it is used; 0.0 is
-    kept); bf16 still waits for its item."""
+    kept); with ``"precision": "bf16"`` the GMM head computes its
+    ``pre_proj`` in bf16 and returns f32."""
     param = {"model": {"type": "epd", "message_passing_num": 2, "hidden_size": 16,
                        "node_input_size": 2, "output_size": 2, "edge_input_size": 3,
                        "num_mixture_components": 3, "temperature": 1.0}}
@@ -447,8 +448,13 @@ def test_get_model_reads_the_gmm_keys():
     p["model"].pop("temperature")
     assert get_model(p).temperature is None
     p["model"]["precision"] = "bf16"
-    with pytest.raises(NotImplementedError, match="item 11"):
-        get_model(p)
+    model = get_model(p)
+    head = model.decode_module
+    assert model.dtype == torch.bfloat16 and head.pre_proj.compute_dtype == torch.bfloat16
+    x = torch.randn(5, 16)
+    assert head.pre_proj(x).dtype == torch.bfloat16
+    out = head(x)
+    assert out.dtype == torch.float32 and out.shape == (5, 3 * GMMHead.per_component(2))
 
 
 def test_jax_gmm_weights_load_with_strict_names():

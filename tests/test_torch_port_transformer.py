@@ -245,17 +245,34 @@ def test_get_simulator_builds_the_jax_shapes_for_panels():
 @pytest.mark.parametrize(
     "key,value,match",
     [
-        ("precision", "bf16", "precision"),
-        ("precision", "bfloat16", "precision"),
-        ("remat", True, "remat"),
-        ("scan_blocks", True, "scan_blocks"),
+        ("precision", "bf16", None),
+        ("precision", "bfloat16", None),
+        ("remat", True, None),
+        ("scan_blocks", True, None),
+        ("precision", "fp8", "fp8"),
     ],
 )
 def test_unported_model_keys_raise(key, value, match):
+    """The model keys the port once refused build the model the JAX
+    ``get_model`` builds: the compute dtype, ``remat``, ``scan_blocks``
+    (the same unrolled block count); an unknown precision raises as the
+    JAX dict lookup does."""
     param = _panels()
     param["model"][key] = value
-    with pytest.raises(NotImplementedError, match=match):
-        get_model(param)
+    if match is not None:
+        with pytest.raises(KeyError, match=match):
+            jax_pp.get_model(param)
+        with pytest.raises(KeyError, match=match):
+            get_model(param)
+        return
+    want = jax_pp.get_model(param)
+    model = get_model(param)
+    assert model.dtype == (torch.bfloat16 if want.dtype == jnp.bfloat16 else None)
+    assert (model.remat, model.scan_blocks) == (want.remat, want.scan_blocks)
+    assert len(model.processor_list) == want.message_passing_num == 15
+    block = model.processor_list[0]
+    assert block.attention.q_proj.compute_dtype == model.dtype
+    assert block.gated_mlp[2].compute_dtype == model.dtype
 
 
 def test_preprocessing_for_prediction():
