@@ -144,7 +144,35 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     (the transformer 10 x 64, degree 8, a learnable target) with lever
     ``bf16`` and ``none`` at 229,376 nodes and ``remat`` at 524,288: 3
     warm-up and 10 timed steps, launches, peak memory, device time, the
-    loss falling.
+    loss falling; and lever ``microbatch``: 4 microbatches of the f32
+    229,376-node graph (one topology, 4 seeded feature and target sets) a
+    gradient-accumulation step, its peak memory within
+    ``LARGE_MESH_MICRO_PEAK`` of the one-graph f32 step's;
+23. ``grad_accum_epd`` and ``grad_accum_transformer``: ``cylinder.json``
+    and ``panels.json`` (15 x 128) on their training batches' 8 graphs as
+    the M = 8 microbatches of one ``Trainer(gradient_accumulation=True)``
+    step against the concat step from equal weights (loss, each
+    parameter's gradient, the normalizer counters at exactly 1), 20 timed
+    steps of each with the launches checked (one forward and one backward
+    launch a block and microbatch), peak memory under
+    ``ACCUM_PEAK_SHARE`` of the concat step's;
+24. ``ell_pipeline``: ``cylinder.json`` and ``panels.json`` with
+    ``"edge_layout": "ell"`` on the synthetic 2,048-node trajectories:
+    ``Trainer.fit`` for one epoch with validation, a reload and
+    ``predict`` over 3 frames against the CPU, no kernel launched (the
+    count asserted), the first ELL step against the CPU and against the
+    model's own layout on the same frames, 20 timed steps of both
+    layouts;
+25. ``bucketed_pipeline``: the cylinder EPD on trajectories of three mesh
+    sizes (512, 1,536 and 2,048 nodes; the smallest with fewer items than
+    a batch) in 2 size buckets, batches of 4: a one-epoch fit with
+    validation in-process, with 2 loader workers (batches bit-equal) and
+    with one bucket; every batch padded to a bucket budget, the small
+    bucket's batch filled with a masked copy, which changes nothing in a
+    step on the card;
+26. ``project_before_gather``: one 128-wide ``GraphNetBlock`` with the
+    knob against the plain block on the flagship batch, forward and
+    backward, each timed.
 
 The K1 phase also times a one-element PyTorch elementwise kernel under the
 same CUDA-graph replay (``launch_floor_ms``): the floor under any kernel's
@@ -341,8 +369,31 @@ REMAT_GRAD_RTOL = 1e-4
 REMAT_FORWARDS = ("csr_segment_sum", "csr_attention")  # launched again in the backward
 REMAT_STEPS = 5
 # benchmarks/large_mesh_training.py's levers and sizes: (lever, nodes), degree 8
-LARGE_MESH = (("bf16", 229376), ("none", 229376), ("remat", 524288))
+LARGE_MESH = (("bf16", 229376), ("none", 229376), ("microbatch", 229376), ("remat", 524288))
 LARGE_MESH_DEGREE, LARGE_MESH_WARMUP, LARGE_MESH_STEPS, PROFILED_LARGE_MESH = 8, 3, 10, 2
+# the large mesh's microbatch lever: LARGE_MESH_MICRO microbatches of the
+# f32 graph a step; its peak memory within LARGE_MESH_MICRO_PEAK of the
+# one-graph f32 step's (their concatenation would need about 4x)
+LARGE_MESH_MICRO, LARGE_MESH_MICRO_PEAK = 4, 1.25
+# gradient accumulation (grad_accum_*): the 8 graphs of a training batch as
+# the microbatches of one step, against the concat step from equal weights
+# (the loss and gradient limits of first_step). Its peak memory must stay
+# under ACCUM_PEAK_SHARE of the concat step's: at or above it, more than
+# one microbatch's activations are alive.
+ACCUM_PEAK_SHARE = 0.5
+# the ELL pipeline: the synthetic trajectories of memory_datasets, and a
+# held-out one of PREDICT_FRAMES + 1 frames for predict
+PREDICT_FRAMES = 3
+# the bucketed pipeline: synthetic cylinder trajectories of three mesh sizes
+# (nx, ny, training trajectories), BUCKET_FRAMES frames each, one held out
+# of each size; 2 buckets, batches of 4. The 512-node size has fewer items
+# (3) than one batch, so its bucket's batch is filled with a masked copy.
+BUCKET_SIZES = ((32, 16, 1), (48, 32, 4), (64, 32, 4))
+BUCKET_FRAMES, BUCKET_BATCH, BUCKET_WORKERS = 4, 4, 2
+# project_before_gather: the split block's backward against an f64 plain
+# block on the CPU may err at most this many times the plain f32 block's
+# own error, per gradient (the error below 1e-7 counts as 1e-7)
+PBG_ERROR_FACTOR = 4.0
 
 
 def emit(obj) -> None:
@@ -557,26 +608,32 @@ def gmm_trajectory(seed, frames):
     return stack_graphs([base.replace(x=xs[t], y=xs[t + 1][:, :3].copy()) for t in range(frames)])
 
 
+def flagship_graphs(seed):
+    """The cylinder workload batch's 8 receiver-sorted graphs."""
+    return [random_graph(n, e, 2048, 12288, seed + i)
+            for i, (n, e) in enumerate(zip(BATCH_NODES, BATCH_EDGES))]
+
+
 def flagship_batch(seed):
-    """The cylinder workload batch: 8 receiver-sorted graphs concatenated."""
+    """The cylinder workload batch: its 8 graphs concatenated."""
     from graphphysics_torch.core import concat_graphs
 
-    return concat_graphs(
-        [random_graph(n, e, 2048, 12288, seed + i)
-         for i, (n, e) in enumerate(zip(BATCH_NODES, BATCH_EDGES))]
-    )
+    return concat_graphs(flagship_graphs(seed))
+
+
+def panels_graphs(seed):
+    """The panels_csr workload batch's 8 sender-sorted graphs, one of them
+    with empty softmax rows."""
+    return [random_csr_graph(n, e, 2048, 12288, seed + i,
+                             senders_below=EMPTY_ROWS_SENDERS if i == EMPTY_ROWS_GRAPH else None)
+            for i, (n, e) in enumerate(zip(BATCH_NODES, BATCH_EDGES))]
 
 
 def panels_batch(seed):
-    """The panels_csr workload batch: 8 sender-sorted graphs concatenated,
-    one of them with empty softmax rows."""
+    """The panels_csr workload batch: its 8 graphs concatenated."""
     from graphphysics_torch.core import concat_graphs
 
-    return concat_graphs([
-        random_csr_graph(n, e, 2048, 12288, seed + i,
-                         senders_below=EMPTY_ROWS_SENDERS if i == EMPTY_ROWS_GRAPH else None)
-        for i, (n, e) in enumerate(zip(BATCH_NODES, BATCH_EDGES))
-    ])
+    return concat_graphs(panels_graphs(seed))
 
 
 def k1_case(name, graph, seed):
@@ -2280,35 +2337,56 @@ def remat_training(name, param, batch, counts, expected, seed):
             "launches": runs[True]["launches_first_step"]}
 
 
+def learnable_target(pos, fields):
+    """The large-mesh run's target: a smooth map of position (the same for
+    every seed) plus a little of the fields."""
+    rt = np.random.default_rng(7)
+    w = rt.normal(size=(3, fields.shape[1])).astype(np.float32)
+    b = rt.normal(size=(fields.shape[1],)).astype(np.float32)
+    return (np.sin(pos @ w * 2.0 + b) * 0.1 + 0.05 * fields).astype(np.float32)
+
+
 def learnable_graph(n, degree, out_dim, seed):
     """The large-mesh run's graph (``benchmarks/large_mesh_training.py``'s
     ``make_learnable_graph``, sender-sorted): ``degree * n`` random edges,
     positions uniform in [-1, 1]^3, ``out_dim`` random fields as features
-    and a learnable target, a smooth map of position (the same for every
-    seed) plus a little of the fields."""
+    and a learnable target (``learnable_target``)."""
     from graphphysics_torch.core import pad_graph_csr_np
 
     e = degree * n
     r = np.random.default_rng(seed)
     pos = r.uniform(-1, 1, size=(n, 3)).astype(np.float32)
     fields = r.normal(size=(n, out_dim)).astype(np.float32)
-    rt = np.random.default_rng(7)
-    w = rt.normal(size=(3, out_dim)).astype(np.float32)
-    b = rt.normal(size=(out_dim,)).astype(np.float32)
-    y = np.sin(pos @ w * 2.0 + b) * 0.1 + 0.05 * fields
     x = np.zeros((n, out_dim + 2), np.float32)
     x[:, :out_dim] = fields
     return pad_graph_csr_np(x, pos, r.integers(0, n, e).astype(np.int32),
                             r.integers(0, n, e).astype(np.int32), n, e,
-                            y=y.astype(np.float32), node_type_index=out_dim)
+                            y=learnable_target(pos, fields), node_type_index=out_dim)
+
+
+def learnable_microbatches(n, degree, out_dim, seed, count):
+    """``count`` microbatches, stacked, on one topology (``learnable_graph``
+    of ``seed``, so the host builds the mesh once), each with its own
+    fields drawn from ``default_rng([seed, k])`` and their target."""
+    from graphphysics_torch.core import stack_graphs
+
+    base = learnable_graph(n, degree, out_dim, seed)
+    graphs = []
+    for k in range(count):
+        fields = np.random.default_rng([seed, k]).normal(size=(n, out_dim)).astype(np.float32)
+        x = base.x.copy()
+        x[:, :out_dim] = fields
+        graphs.append(base.replace(x=x, y=learnable_target(base.pos, fields)))
+    return stack_graphs(graphs)
 
 
 def large_mesh_training(lever, nodes, counts, seed):
     """The transformer 10 x 64 (4 heads, 2 outputs) trained on one learnable
     graph of ``nodes`` nodes and degree 8 with ``lever`` ("bf16", "remat" or
-    "none"): 3 warm-up and 10 timed steps with the launches checked, the
-    peak memory, the device time of 2 profiled steps, and the loss falling
-    over the steps."""
+    "none"), or ("microbatch", f32) on ``LARGE_MESH_MICRO`` such graphs as
+    the microbatches of one gradient-accumulation step: 3 warm-up and 10
+    timed steps with the launches checked, the peak memory, the device time
+    of 2 profiled steps, and the loss falling over the steps."""
     from graphphysics_torch.training import Trainer
 
     blocks = 10
@@ -2317,10 +2395,15 @@ def large_mesh_training(lever, nodes, counts, seed):
                        "precision": "bf16" if lever == "bf16" else "f32", "remat": lever == "remat"},
              "index": {"feature_index_start": 0, "feature_index_end": 2, "output_index_start": 0,
                        "output_index_end": 2, "node_type_index": 2}}
+    micro = LARGE_MESH_MICRO if lever == "microbatch" else 1
     t0 = time.perf_counter()
-    graph = learnable_graph(nodes, LARGE_MESH_DEGREE, 2, seed).to("cuda")
+    if micro > 1:
+        graph = learnable_microbatches(nodes, LARGE_MESH_DEGREE, 2, seed, micro).to("cuda")
+    else:
+        graph = learnable_graph(nodes, LARGE_MESH_DEGREE, 2, seed).to("cuda")
     host_s = time.perf_counter() - t0
-    trainer = Trainer(param, learning_rate=1e-3, warmup=LARGE_MESH_WARMUP, seed=seed, device="cuda")
+    trainer = Trainer(param, learning_rate=1e-3, warmup=LARGE_MESH_WARMUP, seed=seed, device="cuda",
+                      gradient_accumulation=micro > 1)
     total = LARGE_MESH_WARMUP + LARGE_MESH_STEPS + PROFILED_LARGE_MESH
     trainer.init_state(total)
     losses = [trainer.train_step(graph) for _ in range(LARGE_MESH_WARMUP)]
@@ -2335,7 +2418,7 @@ def large_mesh_training(lever, nodes, counts, seed):
     launches = {k: fn.launches for k, fn in counts.items()}
     fwd, bwd = (("csr_attention_bf16", "csr_attention_backward_bf16") if lever == "bf16"
                 else ("csr_attention", "csr_attention_backward"))
-    per_step = {fwd: blocks * (2 if lever == "remat" else 1), bwd: blocks}
+    per_step = {fwd: blocks * micro * (2 if lever == "remat" else 1), bwd: blocks * micro}
     want = {k: per_step.get(k, 0) * LARGE_MESH_STEPS for k in counts}
     if launches != want:
         raise AssertionError(f"large_mesh_training {lever}: launches {launches}, expected {want}")
@@ -2348,10 +2431,10 @@ def large_mesh_training(lever, nodes, counts, seed):
     breakdown = device_breakdown(lambda: [trainer.train_step(graph) for _ in range(PROFILED_LARGE_MESH)],
                                  PROFILED_LARGE_MESH, unit="step", host_ops=False)
     return {
-        "lever": lever, "nodes": nodes, "edges": graph.num_edges,
+        "lever": lever, "nodes": nodes, "edges": graph.num_edges, "microbatches": micro,
         "model": f"EncodeTransformDecode {blocks}x64, 4 heads, 2 outputs",
         "host_graph_s": host_s, "warmup_steps": LARGE_MESH_WARMUP, "steps_timed": LARGE_MESH_STEPS,
-        "ms_per_step": ms_per_step, "edges_per_s": graph.num_edges / (ms_per_step / 1e3),
+        "ms_per_step": ms_per_step, "edges_per_s": micro * graph.num_edges / (ms_per_step / 1e3),
         "peak_memory_gb": peak, "losses": losses,
         "loss_first3_mean": first, "loss_last3_mean": last,
         "launches": launches, "launches_per_step": {k: v / LARGE_MESH_STEPS for k, v in launches.items()},
@@ -2430,13 +2513,485 @@ def bf16_phases(clock, counts, seed, frames, tf_frames, tf_batch, cyl_batch, ane
     clock.emit({"phase": "remat_training", "model": f"EncodeProcessDecode {epd_blocks}x128, {CYLINDER_CONFIG}",
                 **paths["remat_epd_training"]})
 
-    # the large mesh: the three levers of benchmarks/large_mesh_training.py
+    # the large mesh: the three levers of benchmarks/large_mesh_training.py,
+    # and microbatches of the f32 graph as a fourth
     for lever, nodes in LARGE_MESH:
         label = f"large_mesh_training:{lever}"
         paths[label] = large_mesh_training(lever, nodes, counts, seed)
+        if lever == "microbatch":
+            one = paths["large_mesh_training:none"]["peak_memory_gb"]
+            paths[label]["one_graph_peak_memory_gb"] = one
+            paths[label]["peak_memory_ratio"] = paths[label]["peak_memory_gb"] / one
+            paths[label]["peak_memory_ratio_limit"] = LARGE_MESH_MICRO_PEAK
+            if not paths[label]["peak_memory_ratio"] <= LARGE_MESH_MICRO_PEAK:
+                raise AssertionError(f"{label}: peak memory {paths[label]['peak_memory_gb']} GB against "
+                                     f"the one-graph step's {one} GB")
         clock.emit({"phase": "large_mesh_training", **paths[label]})
         torch.cuda.empty_cache()
     return bf16_kernels, paths
+
+
+def grad_accum(name, param, graphs, counts, expected, seed, grad_rtol):
+    """One ``Trainer`` step over ``graphs`` as the microbatches of a
+    gradient-accumulation step (stacked) against the plain step on their
+    concatenation, on the card from equal weights: the loss within
+    ``STEP_LOSS_RTOL``, each parameter's gradient within ``grad_rtol``
+    (the round-off-only key biases held apart, ReLU inputs of another sign
+    counted, as ``first_step``), every normalizer's counter at exactly 1.
+    Then each trainer's 3 warm-up and 20 timed steps, launches counted
+    (``expected``: per block and graph batch; the microbatch step launches
+    it once per microbatch) and peak memory above what the card held when
+    the phase began; the microbatch step's peak must stay under
+    ``ACCUM_PEAK_SHARE`` of the concat step's."""
+    from graphphysics_torch.core import concat_graphs, stack_graphs
+    from graphphysics_torch.models.simulator import Normalizer
+    from graphphysics_torch.training import Trainer
+
+    m = len(graphs)
+    # what earlier phases still hold is not this phase's: peaks are taken
+    # above it
+    floor = torch.cuda.memory_allocated()
+    batches = {False: concat_graphs(graphs).to("cuda"), True: stack_graphs(graphs).to("cuda")}
+    runs = {}
+    for accumulate in (False, True):
+        trainer = Trainer(param, learning_rate=1e-4, warmup=10, seed=seed, device="cuda",
+                          gradient_accumulation=accumulate)
+        trainer.init_state(1 + WARMUP_STEPS + TIMED_STEPS)
+        batch, signs = batches[accumulate], []
+        hooks = relu_sign_hooks(trainer.sim, signs)
+        loss = trainer.train_step(batch).item()
+        for hook in hooks:
+            hook.remove()
+        grads = {n: p.grad.detach().cpu() for n, p in trainer.sim.named_parameters()}
+        counters = [b._num_accumulations.item() for b in trainer.sim.modules() if isinstance(b, Normalizer)]
+        for _ in range(WARMUP_STEPS):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counts.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        losses = [trainer.train_step(batch) for _ in range(TIMED_STEPS)]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counts.items()}
+        per = m if accumulate else 1
+        want = {k: expected.get(k, 0) * per * TIMED_STEPS for k in counts}
+        if launches != want:
+            raise AssertionError(f"{name}: accumulate={accumulate} launches {launches}, expected {want}")
+        losses = [x.item() for x in losses]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{name}: non-finite loss {losses}")
+        runs[accumulate] = {"loss": loss, "grads": grads, "signs": signs, "counters": counters,
+                            "ms_per_step": seconds / TIMED_STEPS * 1e3,
+                            "peak_memory_gb": (torch.cuda.max_memory_allocated() - floor) / 2**30,
+                            "launches": launches, "first_loss": losses[0], "last_loss": losses[-1]}
+        del trainer
+    concat, micro = runs[False], runs[True]
+    # ReLU inputs in the concat's order: block by block, each the
+    # microbatches' rows in turn (every input's width is a multiple of 8)
+    layers = len(concat["signs"])
+    reordered = [np.concatenate([micro["signs"][k * layers + i] for k in range(m)]) for i in range(layers)]
+    flips = sum(int(np.unpackbits(a ^ b).sum()) for a, b in zip(concat["signs"], reordered))
+    roundoff = [n for n in concat["grads"] if n.endswith(ROUNDOFF_LEAVES)]
+    rel = {n: ((micro["grads"][n] - g).norm() / g.norm()).item()
+           for n, g in concat["grads"].items() if n not in roundoff}
+    worst = max(rel, key=rel.get)
+    share = 0.0
+    for run in (concat, micro):
+        top = max(g.abs().max().item() for n, g in run["grads"].items() if n not in roundoff)
+        share = max([share] + [run["grads"][n].abs().max().item() / top for n in roundoff])
+    loss_err = abs(micro["loss"] - concat["loss"]) / abs(concat["loss"])
+    ratio = micro["peak_memory_gb"] / concat["peak_memory_gb"]
+    result = {
+        "microbatches": m, "nodes_per_microbatch": graphs[0].num_nodes,
+        "edges_per_microbatch": graphs[0].num_edges,
+        "real_nodes": [int(np.asarray(g.node_mask).sum()) for g in graphs],
+        "concat_loss": concat["loss"], "microbatch_loss": micro["loss"], "loss_rel_err": loss_err,
+        "grad_rel_err_worst": rel[worst], "grad_worst_param": worst,
+        "grad_rel_err_median": float(np.median(list(rel.values()))),
+        "relu_inputs": sum(8 * len(a) for a in concat["signs"]), "relu_sign_flips": flips,
+        "roundoff_share": share, "normalizer_counters": micro["counters"],
+        "tolerance": {"loss_rtol": STEP_LOSS_RTOL, "grad_rtol_per_param": grad_rtol,
+                      "roundoff_share": STEP_ROUNDOFF_SHARE, "peak_share": ACCUM_PEAK_SHARE},
+        "ms_per_step": micro["ms_per_step"], "concat_ms_per_step": concat["ms_per_step"],
+        "peak_memory_gb": micro["peak_memory_gb"], "concat_peak_memory_gb": concat["peak_memory_gb"],
+        "peak_memory_ratio": ratio, "held_before_gb": floor / 2**30, "steps_timed": TIMED_STEPS,
+        "launches": micro["launches"],
+        "launches_per_step": {k: v / TIMED_STEPS for k, v in micro["launches"].items()},
+        "concat_launches_per_step": {k: v / TIMED_STEPS for k, v in concat["launches"].items()},
+        "first_loss": micro["first_loss"], "last_loss": micro["last_loss"],
+    }
+    if not (math.isfinite(micro["loss"]) and loss_err <= STEP_LOSS_RTOL and rel[worst] <= grad_rtol
+            and share <= STEP_ROUNDOFF_SHARE):
+        raise AssertionError(f"{name}: the microbatch step is not the concat step: {result}")
+    if micro["counters"] != [1.0] * len(micro["counters"]):
+        raise AssertionError(f"{name}: normalizer counters {micro['counters']} after one step")
+    if not ratio < ACCUM_PEAK_SHARE:
+        raise AssertionError(f"{name}: microbatch peak {ratio} of the concat step's: more than one "
+                             f"microbatch's activations alive")
+    return result
+
+
+def with_dataset(param, **dataset):
+    """A copy of ``param`` with dataset keys set."""
+    param = json.loads(json.dumps(param))
+    param.setdefault("dataset", {}).update(dataset)
+    return param
+
+
+def timed_steps(name, param, batch, counts, expected, seed, stats):
+    """``WARMUP_STEPS`` then ``TIMED_STEPS`` ``Trainer`` steps of ``param``
+    on ``batch`` on the card (normalizer statistics ``stats``), launches
+    counted from 0 and checked against ``expected`` per step. Returns the
+    ms per step and the launches."""
+    from graphphysics_torch.training import Trainer
+
+    trainer = Trainer(param, learning_rate=1e-4, warmup=10, seed=seed, device="cuda")
+    trainer.init_state(WARMUP_STEPS + TIMED_STEPS)
+    trainer.sim.load_state_dict(stats, strict=False)
+    dev_batch = batch.to("cuda")
+    for _ in range(WARMUP_STEPS):
+        trainer.train_step(dev_batch)
+    torch.cuda.synchronize()
+    for fn in counts.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    losses = [trainer.train_step(dev_batch) for _ in range(TIMED_STEPS)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+    launches = {k: fn.launches for k, fn in counts.items()}
+    want = {k: expected.get(k, 0) * TIMED_STEPS for k in counts}
+    if launches != want or not all(math.isfinite(x.item()) for x in losses):
+        raise AssertionError(f"{name}: launches {launches} (expected {want}), losses {losses}")
+    return ms, launches
+
+
+def compare_steps(name, what, step_a, step_b, seed, grad_rtol, stats=None):
+    """The first ``Trainer`` step of ``step_a`` against that of ``step_b``
+    (each a ``(param, batch)``: the same function on the same frames in
+    another form), on the card from equal weights and, where given, equal
+    normalizer statistics ``stats``: the loss within ``STEP_LOSS_RTOL``,
+    each parameter's gradient within ``grad_rtol`` (the round-off-only key
+    biases apart), the normalizer statistics within 1e-6 of the largest
+    and their counts exactly. Readings are keyed ``{what}_*``."""
+    from graphphysics_torch.training import Trainer
+
+    out = []
+    for param, batch in (step_a, step_b):
+        trainer = Trainer(param, learning_rate=1e-4, warmup=10, seed=seed, device="cuda")
+        trainer.init_state(1)
+        if stats is not None:
+            trainer.sim.load_state_dict(stats, strict=False)
+        loss = trainer.train_step(batch).item()
+        out.append((loss, {n: p.grad.detach().cpu() for n, p in trainer.sim.named_parameters()},
+                    {k: v.cpu() for k, v in trainer.sim.state_dict().items() if "_normalizer." in k}))
+        del trainer
+    (loss_a, grads_a, stats_a), (loss_b, grads_b, stats_b) = out
+    rel = {n: ((grads_a[n] - g).norm() / g.norm()).item()
+           for n, g in grads_b.items() if not n.endswith(ROUNDOFF_LEAVES)}
+    worst = max(rel, key=rel.get)
+    stats_err = max((stats_a[k] - v).abs().max().item() / max(v.abs().max().item(), 1.0)
+                    for k, v in stats_b.items())
+    counts_equal = all(torch.equal(stats_a[k], v) for k, v in stats_b.items()
+                       if k.endswith(("_acc_count", "_num_accumulations")))
+    result = {f"{what}_loss": loss_a, f"{what}_reference_loss": loss_b,
+              f"{what}_loss_rel_err": abs(loss_a - loss_b) / abs(loss_b),
+              f"{what}_grad_rel_err_worst": rel[worst], f"{what}_grad_worst_param": worst,
+              f"{what}_grad_rel_err_median": float(np.median(list(rel.values()))),
+              f"{what}_stats_rel_err": stats_err, f"{what}_counts_equal": counts_equal,
+              f"{what}_tolerance": {"loss_rtol": STEP_LOSS_RTOL, "grad_rtol_per_param": grad_rtol}}
+    if not (result[f"{what}_loss_rel_err"] <= STEP_LOSS_RTOL and rel[worst] <= grad_rtol
+            and stats_err <= 1e-6 and counts_equal):
+        raise AssertionError(f"{name}: {what} check out of tolerance: {result}")
+    return result
+
+
+def ell_pipeline(name, param, make_traj, counts, own_expected, seed, grad_rtol):
+    """``param`` with ``"edge_layout": "ell"`` on two synthetic
+    trajectories (``memory_datasets``, 2,048 nodes): ``Trainer.fit`` for one
+    epoch with rollout validation, a reload and ``predict`` over a held-out
+    trajectory of ``PREDICT_FRAMES`` frames, its frames against the CPU's,
+    and not one kernel launch on any of it (the ELL layout's ops are
+    dense PyTorch ops on every device). Then the first ELL step on the card
+    against the CPU (``first_step``, from the fit's normalizer statistics),
+    the same step against the model's own layout (sorted or CSR, its
+    kernels) on the same frames (``compare_steps``), and ``TIMED_STEPS`` steps of each layout
+    timed (``own_expected``: the kernels' launches per step)."""
+    import tempfile
+
+    import chip_fidelity
+    from graphphysics_torch.core import stack_graphs
+    from graphphysics_torch.dataset import GraphLoader
+    from graphphysics_torch.training import Trainer, load_checkpoint
+    from graphphysics_torch.utils.synthetic import write_json
+
+    ell = with_dataset(param, edge_layout="ell")
+    with tempfile.TemporaryDirectory() as tmp:
+        train_ds, val_ds = memory_datasets(ell, make_traj, seed, tmp, n_traj=2)
+        own_ds, _ = memory_datasets(param, make_traj, seed, tmp, n_traj=2)
+        short_meta = write_json(f"{tmp}/meta_short.json", make_traj(steps=PREDICT_FRAMES + 1, nx=2, ny=2)[1])
+        held_out = chip_fidelity.memory_split(
+            ell, [make_traj(steps=PREDICT_FRAMES + 1, nx=64, ny=32, phase0=0.7)[0]], short_meta, val=True,
+            seed=seed)
+        loader = GraphLoader(train_ds, batch_size=8, shuffle=True, seed=seed)
+        trainer = Trainer(ell, learning_rate=1e-4, warmup=2, seed=seed, device="cuda", checkpoint_dir=tmp,
+                          metrics_path=None, rollout_dir=None)
+        for fn in counts.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        history = trainer.fit(loader, val_dataset=val_ds, num_epochs=1, val_trajectories=1)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        reloaded = Trainer(ell, seed=seed, device="cuda", metrics_path=None, rollout_dir=None)
+        reloaded.init_state(1)
+        load_checkpoint(f"{tmp}/state.pt", reloaded.sim)
+        t0 = time.perf_counter()
+        preds = reloaded.predict(held_out, save_dir=None)
+        predict_ms = (time.perf_counter() - t0) / PREDICT_FRAMES * 1e3
+        frames = stack_graphs([held_out[i] for i in held_out.trajectory_indices(0)])
+        check = rollout_against_cpu(name, ell, reloaded.sim, frames, seed)
+        launches = {k: fn.launches for k, fn in counts.items()}
+        if any(launches.values()):
+            raise AssertionError(f"{name}: the ELL path launched kernels: {launches}")
+        values = history["train_loss"] + history["val_rmse"] + [float(np.abs(preds[0]).max())]
+        if not all(math.isfinite(v) for v in values) or preds[0].shape[0] != PREDICT_FRAMES:
+            raise AssertionError(f"{name}: fit {history}, predict {[p.shape for p in preds]}")
+        stats = {k: v.cpu() for k, v in trainer.sim.state_dict().items() if "_normalizer." in k}
+        batch = loader.peek()
+        own_batch = GraphLoader(own_ds, batch_size=8, shuffle=True, seed=seed).peek()
+        first = first_step(name, ell, batch, seed, 1, grad_rtol, stats=stats)
+        layout = compare_steps(name, "layout", (ell, batch), (param, own_batch), seed, grad_rtol, stats)
+        ell_ms, ell_launches = timed_steps(name, ell, batch, counts, {}, seed, stats)
+        own_ms, _ = timed_steps(name, param, own_batch, counts, own_expected, seed, stats)
+    return {
+        "items": len(train_ds), "nodes": batch.num_nodes, "edges": batch.num_edges,
+        "ell_degree": train_ds.ell_degree, "own_layout": own_ds.edge_layout,
+        "own_layout_edges": own_batch.num_edges, "real_edges": int(np.asarray(batch.edge_mask).sum()),
+        "fit_s": fit_s, "train_loss": history["train_loss"], "val_rmse": history["val_rmse"],
+        "predict_frames": PREDICT_FRAMES, "predict_ms_per_frame": predict_ms, **check, **first, **layout,
+        "launches": launches, "timed_launches": ell_launches,
+        "ms_per_step": ell_ms, "own_layout_ms_per_step": own_ms, "steps_timed": TIMED_STEPS,
+    }
+
+
+def bucket_datasets(param, seed, directory, num_buckets):
+    """Training and held-out ``MemoryDataset``s of synthetic cylinder
+    trajectories of ``BUCKET_SIZES`` (the h5 layout in memory: the card's
+    machine has no h5py), ``num_buckets`` size buckets."""
+    from graphphysics_torch.dataset import MemoryDataset
+    from graphphysics_torch.training import get_preprocessing
+    from graphphysics_torch.utils.synthetic import cylinder_trajectory, write_json
+
+    meta = write_json(f"{directory}/meta.json", cylinder_trajectory(steps=BUCKET_FRAMES, nx=2, ny=2)[1])
+    train, held_out = [], []
+    for nx, ny, count in BUCKET_SIZES:
+        train += [cylinder_trajectory(BUCKET_FRAMES, nx, ny, phase0=0.15 * k)[0] for k in range(count)]
+        held_out.append(cylinder_trajectory(BUCKET_FRAMES, nx, ny, phase0=1.1)[0])
+    common = dict(add_edge_features=True, node_type_index=param["index"]["node_type_index"], seed=seed,
+                  num_buckets=num_buckets)
+    return (MemoryDataset(train, meta, preprocessing=get_preprocessing(param), **common),
+            MemoryDataset(held_out, meta, preprocessing=get_preprocessing(param, remove_noise=True),
+                          **common))
+
+
+def bucketed_pipeline(name, param, counts, expected, seed):
+    """``param`` (the cylinder EPD) on trajectories of three mesh sizes in 2
+    size buckets (``bucket_datasets``), batches of ``BUCKET_BATCH``:
+    ``Trainer.fit`` for one epoch with rollout validation, in-process and
+    with ``BUCKET_WORKERS`` loader workers (the batches bit-equal), and
+    with one bucket for comparison. Checked: every batch's graphs padded to
+    one of the bucket budgets, the small bucket's batch present and filled
+    with a masked copy, the launches (``expected``: per step and validated
+    frame), and on the card the filled batch's step against its real graphs
+    alone (``compare_steps``)."""
+    import tempfile
+
+    from graphphysics_torch.core import concat_graphs, masked_filler
+    from graphphysics_torch.dataset import GraphLoader
+    from graphphysics_torch.training import Trainer
+
+    fits = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, buckets, workers in (("buckets", 2, 0), ("buckets_workers", 2, BUCKET_WORKERS),
+                                        ("one_bucket", 1, 0)):
+            train_ds, val_ds = bucket_datasets(param, seed, tmp, buckets)
+            loader = GraphLoader(train_ds, batch_size=BUCKET_BATCH, shuffle=True, seed=seed,
+                                 num_workers=workers)
+            recorder = RecordingLoader(loader)
+            trainer = Trainer(param, learning_rate=1e-4, warmup=2, seed=seed, device="cuda",
+                              checkpoint_dir=tmp, metrics_path=None, rollout_dir=None)
+            for fn in counts.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            try:
+                history = trainer.fit(recorder, val_dataset=val_ds, num_epochs=1)
+            finally:
+                loader.close()
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in counts.items()}
+            frames = val_ds.size_dataset * val_ds.frames_per_trajectory
+            want = {k: expected.get(k, (0, 0))[0] * len(loader) + expected.get(k, (0, 0))[1] * frames
+                    for k in counts}
+            if launches != want:
+                raise AssertionError(f"{name} {label}: launches {launches}, expected {want}")
+            if not all(math.isfinite(v) for v in history["train_loss"] + history["val_rmse"]):
+                raise AssertionError(f"{name} {label}: non-finite history {history}")
+            fits[label] = {"fit_s": fit_s, "batches": len(loader), "digests": recorder.digests,
+                           "shapes": recorder.shapes, "fillers": recorder.fillers,
+                           "real_node_rows": recorder.real_rows, "history": history,
+                           "launches": launches, "budgets": train_ds._bucket_node_budgets,
+                           "node_budget": train_ds.node_budget}
+        bucketed = fits["buckets"]
+        if fits["buckets_workers"]["digests"] != bucketed["digests"]:
+            raise AssertionError(f"{name}: the workers' batches differ from the in-process ones")
+        budgets = bucketed["budgets"]
+        per_graph = [n // BUCKET_BATCH for n, _ in bucketed["shapes"]]
+        if not set(per_graph) <= set(budgets) or len(set(per_graph)) != len(budgets):
+            raise AssertionError(f"{name}: batch node counts {per_graph}, bucket budgets {budgets}")
+        small = [i for i, n in enumerate(per_graph) if n == budgets[0]]
+        if len(small) != 1 or bucketed["fillers"][small[0]] != BUCKET_BATCH - BUCKET_SIZES[0][2] * (
+                BUCKET_FRAMES - 1):
+            raise AssertionError(f"{name}: the small bucket's batches {small}, fillers {bucketed['fillers']}")
+        # the filled batch against its real graphs alone, on the card
+        train_ds, _ = bucket_datasets(param, seed, tmp, 2)
+        real = [train_ds[i] for i in range(BUCKET_SIZES[0][2] * (BUCKET_FRAMES - 1))]
+        filled = real + [masked_filler(real[-1])] * (BUCKET_BATCH - len(real))
+        filler = {"filler_graphs": len(filled) - len(real),
+                  **compare_steps(name, "filler", (param, concat_graphs(filled)), (param, concat_graphs(real)),
+                                  seed, EPD_GRAD_RTOL)}
+
+    def padded_share(fit):
+        rows = sum(n for n, _ in fit["shapes"])
+        return 1.0 - sum(fit["real_node_rows"]) / rows
+
+    return {
+        "sizes": [{"nodes": nx * ny, "trajectories": k} for nx, ny, k in BUCKET_SIZES],
+        "frames": BUCKET_FRAMES, "batch_size": BUCKET_BATCH, "workers": BUCKET_WORKERS,
+        "bucket_node_budgets": budgets, "batch_nodes_per_graph": per_graph,
+        "fillers_per_batch": bucketed["fillers"],
+        "fit_s": bucketed["fit_s"], "fit_workers_s": fits["buckets_workers"]["fit_s"],
+        "one_bucket_fit_s": fits["one_bucket"]["fit_s"],
+        "batches": bucketed["batches"], "one_bucket_batches": fits["one_bucket"]["batches"],
+        "padded_node_share": padded_share(bucketed),
+        "one_bucket_padded_node_share": padded_share(fits["one_bucket"]),
+        "one_bucket_node_budget": fits["one_bucket"]["node_budget"],
+        "train_loss": bucketed["history"]["train_loss"], "val_rmse": bucketed["history"]["val_rmse"],
+        "workers_batches_equal": True, **filler, "launches": bucketed["launches"],
+    }
+
+
+def project_before_gather_phase(graph, seed):
+    """One 128-wide ``GraphNetBlock`` with ``project_before_gather`` against
+    the plain block with the same weights on ``graph`` (the flagship batch,
+    receiver-sorted: K1 and K1b run in both) on the card: the outputs within
+    ``KERNEL_ATOL`` of each other; the backward of each (the gradients of x,
+    edge_attr and every parameter) held against the plain block in f64 on
+    the CPU, the split block's error within ``PBG_ERROR_FACTOR`` times the
+    plain block's own f32 error (gradients summed over 98,304 edges cancel,
+    so neither is near ``KERNEL_ATOL`` there); then each block's forward,
+    and forward with backward, timed in turns (plain, split, split, plain),
+    eager, with their device time."""
+    from graphphysics_torch.models.layers import GraphNetBlock, reset_parameters
+
+    gen = torch.Generator().manual_seed(seed)
+    plain = reset_parameters(GraphNetBlock(HIDDEN), gen)
+    reference = GraphNetBlock(HIDDEN).double()
+    reference.load_state_dict(plain.state_dict(), strict=True)
+    plain = plain.to("cuda")
+    split = GraphNetBlock(HIDDEN, project_before_gather=True).to("cuda")
+    split.load_state_dict(plain.state_dict(), strict=True)
+    host = graph.to("cpu")
+    inputs = [torch.randn(n, HIDDEN, generator=gen) for n in (host.num_nodes, host.num_edges) * 2]
+
+    def forward_backward(block, x, ea, gx, ge, g):
+        xi, ei = x.clone().requires_grad_(True), ea.clone().requires_grad_(True)
+        out = block(xi, ei, g.senders, g.receivers, g.edge_mask, g.row_bounds)
+        return out, torch.autograd.grad(out, [xi, ei] + list(block.parameters()), (gx, ge))
+
+    want_out, want_grads = forward_backward(reference, *[t.double() for t in inputs], host)
+    dev = graph.to("cuda")
+    card = [t.to("cuda") for t in inputs]
+    names = ["x", "edge_attr"] + [f"param:{n}" for n, _ in plain.named_parameters()]
+    outs, errors = {}, {}
+    for label, block in (("plain", plain), ("split", split)):
+        out, grads = forward_backward(block, *card, dev)
+        outs[label] = out
+        errors[label] = {n: ((a.double().cpu() - b).norm() / b.norm()).item()
+                         for n, a, b in zip(names, grads, want_grads)}
+    out_err = max((a - b).abs().max().item() for a, b in zip(outs["split"], outs["plain"]))
+    ratio = {n: errors["split"][n] / max(errors["plain"][n], 1e-7) for n in names}
+    worst = max(ratio, key=ratio.get)
+
+    def forward(block):
+        with torch.no_grad():
+            return block(card[0], card[1], dev.senders, dev.receivers, dev.edge_mask, dev.row_bounds)
+
+    times = {}
+    for label, block in (("plain", plain), ("split", split), ("split", split), ("plain", plain)):
+        times.setdefault(label, {"forward_ms": [], "forward_backward_ms": []})
+        times[label]["forward_ms"].append(call_ms(lambda: forward(block)))
+        times[label]["forward_backward_ms"].append(call_ms(lambda: forward_backward(block, *card, dev)))
+    device = {}
+    for label, block in (("plain", plain), ("split", split)):
+        breakdown = device_breakdown(lambda: [forward_backward(block, *card, dev) for _ in range(5)], 5,
+                                     unit="call", host_ops=False)
+        device[label] = None if breakdown is None else breakdown["device_ms_per_call"]
+    result = {
+        "nodes": dev.num_nodes, "edges": dev.num_edges, "width": HIDDEN,
+        "out_max_abs_err": out_err, "tolerance": KERNEL_ATOL,
+        "grad_rel_err_vs_f64_plain_worst": max(errors["plain"].values()),
+        "grad_rel_err_vs_f64_split_worst": max(errors["split"].values()),
+        "grad_err_ratio_worst": ratio[worst], "grad_err_ratio_worst_of": worst,
+        "grad_err_ratio_limit": PBG_ERROR_FACTOR,
+        "plain": {k: float(np.mean(v)) for k, v in times["plain"].items()},
+        "split": {k: float(np.mean(v)) for k, v in times["split"].items()},
+        "plain_device_ms_fwd_bwd": device["plain"], "split_device_ms_fwd_bwd": device["split"],
+    }
+    result["split_over_plain_forward_backward"] = (result["split"]["forward_backward_ms"]
+                                                   / result["plain"]["forward_backward_ms"])
+    if not (out_err <= KERNEL_ATOL and ratio[worst] <= PBG_ERROR_FACTOR):
+        raise AssertionError(f"project_before_gather: not the plain block: {result}")
+    return result
+
+
+def training_feature_phases(clock, counts, seed, cylinder, panels, cyl_graphs, tf_graphs):
+    """The training-feature phases: gradient accumulation of both families, the ELL
+    pipeline of both, the bucketed pipeline and project_before_gather
+    (the large mesh's microbatch lever runs with the other levers). Returns
+    the path results by name."""
+    from graphphysics_torch.core import concat_graphs
+    from graphphysics_torch.utils.synthetic import cylinder_trajectory, panels_trajectory
+
+    paths = {}
+    blocks = panels["model"]["message_passing_num"]
+    epd_blocks = cylinder["model"]["message_passing_num"]
+    epd_kernels = {"csr_segment_sum": epd_blocks, "csr_segment_sum_backward": epd_blocks}
+    tf_kernels = {"csr_attention": blocks, "csr_attention_backward": blocks}
+    paths["grad_accum_epd"] = grad_accum("grad_accum_epd", cylinder, cyl_graphs, counts, epd_kernels, seed,
+                                         EPD_GRAD_RTOL)
+    clock.emit({"phase": "grad_accum_epd", "model": f"EncodeProcessDecode {epd_blocks}x128, "
+                f"{CYLINDER_CONFIG}", **paths["grad_accum_epd"]})
+    torch.cuda.empty_cache()
+    paths["grad_accum_transformer"] = grad_accum("grad_accum_transformer", panels, tf_graphs, counts,
+                                                 tf_kernels, seed, TRANSFORMER_GRAD_RTOL)
+    clock.emit({"phase": "grad_accum_transformer", "model": f"EncodeTransformDecode {blocks}x128, "
+                f"{PANELS_CONFIG}", **paths["grad_accum_transformer"]})
+    torch.cuda.empty_cache()
+    for label, param, make_traj, kernels, rtol in (
+            ("ell_pipeline:cylinder", cylinder, cylinder_trajectory, epd_kernels, EPD_GRAD_RTOL),
+            ("ell_pipeline:panels", panels, panels_trajectory, tf_kernels, TRANSFORMER_GRAD_RTOL)):
+        paths[label] = ell_pipeline(label, param, make_traj, counts, kernels, seed, rtol)
+        clock.emit({"phase": "ell_pipeline", "config": label.split(":")[1], **paths[label]})
+    paths["bucketed_pipeline"] = bucketed_pipeline(
+        "bucketed_pipeline", cylinder, counts,
+        {"csr_segment_sum": (epd_blocks, epd_blocks), "csr_segment_sum_backward": (epd_blocks, 0)}, seed)
+    clock.emit({"phase": "bucketed_pipeline", "model": f"EncodeProcessDecode {epd_blocks}x128, "
+                f"{CYLINDER_CONFIG}", **paths["bucketed_pipeline"]})
+    clock.emit({"phase": "project_before_gather",
+                **project_before_gather_phase(concat_graphs(cyl_graphs), seed)})
+    return paths
 
 
 def fidelity_short(name, counts, config):
@@ -2475,12 +3030,13 @@ def batch_digest(batch) -> str:
 
 class RecordingLoader:
     """A ``GraphLoader`` that records a digest of each batch it yields
-    (``batch_digest``) and when it yielded it, and, given a trainer, asks
-    it to stop after batch ``stop_after``."""
+    (``batch_digest``), when it yielded it, its (nodes, edges), its real
+    node rows and its fully masked graphs (fillers), and, given a trainer,
+    asks it to stop after batch ``stop_after``."""
 
     def __init__(self, loader, trainer=None, stop_after=None):
         self.loader, self.trainer, self.stop_after = loader, trainer, stop_after
-        self.digests, self.times = [], []
+        self.digests, self.times, self.shapes, self.real_rows, self.fillers = [], [], [], [], []
 
     def __len__(self):
         return len(self.loader)
@@ -2495,6 +3051,10 @@ class RecordingLoader:
         for batch in self.loader:
             self.digests.append(batch_digest(batch))
             self.times.append(time.perf_counter())
+            mask = np.asarray(batch.node_mask)
+            self.shapes.append((batch.num_nodes, batch.num_edges))
+            self.real_rows.append(int(mask.sum()))
+            self.fillers.append(int((mask.reshape(self.loader.batch_size, -1).sum(axis=1) == 0).sum()))
             if self.trainer is not None and len(self.digests) == self.stop_after:
                 self.trainer.request_interrupt()
             yield batch
@@ -2740,6 +3300,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; no result", file=sys.stderr)
         return 2
 
+    from graphphysics_torch.core import concat_graphs
     from graphphysics_torch.dataset import build_preprocessing
     from graphphysics_torch.ops import _native
     from graphphysics_torch.ops.csr_attention import (
@@ -2795,8 +3356,8 @@ def main() -> int:
         panels_trajectory, args.frames, panels["index"]["node_type_index"],
         get_preprocessing(panels, use_edge_feature=False, remove_noise=True), "csr",
     )
-    cyl_batch = flagship_batch(args.seed)
-    tf_batch = panels_batch(args.seed + 200)
+    cyl_graphs, tf_graphs = flagship_graphs(args.seed), panels_graphs(args.seed + 200)
+    cyl_batch, tf_batch = concat_graphs(cyl_graphs), concat_graphs(tf_graphs)
     aneurysm_epd = random_graph(*ANEURYSM, args.seed + 100)
     aneurysm_csr = random_csr_graph(*ANEURYSM, args.seed + 300)
 
@@ -3006,6 +3567,10 @@ def main() -> int:
         clock, counts, args.seed, epd_frames, tf_frames, tf_batch, cyl_batch, aneurysm_csr, panels,
         cylinder, epd_train, tf_train, gmm_train)
     del aneurysm_csr
+    torch.cuda.empty_cache()
+
+    # 23-26. gradient accumulation, the ELL layout, size buckets, project_before_gather
+    feature_paths = training_feature_phases(clock, counts, args.seed, cylinder, panels, cyl_graphs, tf_graphs)
 
     def entry(name, source, replaces, launches, shapes, tolerance, **extra):
         main = shapes[1]  # the 8 x 2,048 batch: the training path's shape
@@ -3031,7 +3596,7 @@ def main() -> int:
     # steps, of the XDMF and plate pipelines (timed steps, fits and predict,
     # each counted from 0) and of the short fidelity runs
     paths = {"epd_training": epd_train, "transformer_training": tf_train, "gmm_training": gmm_train,
-             **aneurysm_paths, "plate_pipeline": plate_result, **fidelity, **bf16_paths}
+             **aneurysm_paths, "plate_pipeline": plate_result, **fidelity, **bf16_paths, **feature_paths}
     launched = {k: sum(r["launches"][k] for r in paths.values()) for k in counts}
     by_path = {k: {p: r["launches"][k] for p, r in paths.items() if r["launches"][k]} for k in counts}
     off_path = {"main_path_launches": 0,

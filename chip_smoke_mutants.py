@@ -10,7 +10,13 @@ bf16 entries moves the bf16 ``first_step`` (the panels transformer in bf16
 on one 2,048-node graph, card and CPU both in bf16: the reading
 ``BF16_GRAD_RTOL`` must sit below) and the bf16 kernel phase's check
 against the plain versions (the share of elements that differ:
-``BF16_MISMATCH_SHARE``).
+``BF16_MISMATCH_SHARE``); a fault in the gradient-accumulation step moves
+``grad_accum``, the check of the microbatch step against the concat step
+(each microbatch's gradient divided by its own count, a mean of means: the
+gradient limits; the normalizer counters opened and closed no more, so
+they advance once per microbatch: the counter check); a fault in the ELL
+gather's backward moves ``compare_steps``, the check of the first ELL step
+against the same step in the model's own layout (the gradient limits).
 
 For each fault the tree is copied to a temporary directory, one line of a
 source is replaced there, the kernels are built from the copy and the check
@@ -25,7 +31,8 @@ one CUDA card:
 
     python3 chip_smoke_mutants.py [name prefix]
 
-A name prefix (``k1b``, ``attn``, ``width``, ``resume``, ``bf16``) runs those faults only. K2's
+A name prefix (``k1b``, ``attn``, ``width``, ``resume``, ``bf16``,
+``microbatch``, ``ell``) runs those faults only. K2's
 and K3's faults are caught by their kernel phases against their plain
 versions: no path of the models runs them.
 """
@@ -55,6 +62,13 @@ BF16_SUM = ("for (int i = 0; i < V; ++i) { const int c = column<V, GEN>(geo, r, 
             "unsigned int* a = reinterpret_cast<unsigned int*>(BUF + static_cast<int64_t>(j) * geo.width + c); "
             "unsigned int o = *a, prev; do { prev = o; o = atomicCAS(a, prev, __float_as_uint("
             "__bfloat162float(__float2bfloat16_rn(__uint_as_float(prev) + TERMS[i])))); } while (o != prev); } }")
+MICRO = "graphphysics_torch/training/microbatch.py"
+MICRO_BACKWARD = "        ls.backward()  # frees this microbatch's graph before the next forward"
+MICRO_DIVIDE = "                p.grad.div_(denom)"
+MICRO_OPEN = "    old = open_counters(sim)"
+MICRO_CLOSE = "    close_counters(sim, old)"
+ELL = "graphphysics_torch/ops/ell_ops.py"
+ELL_TWIN = "ell_segment_sum(g.index_select(0, twin_perm), ctx.ell_degree)"
 CKPT = "graphphysics_torch/training/checkpoint.py"
 OPT_LOAD = '    trainer.optimizer.load_state_dict(ckpt["optimizer"])'
 WEIGHTS_LOAD = "    load_reference_checkpoint(sim, ckpt)"
@@ -85,6 +99,17 @@ FAULTS = {
     # a bf16 row's groups of 4 columns read at the f32 rows' 16-byte stride
     "bf16_row_read_with_f32_stride": ("bf16transformer", HEADER, VECTOR_LOAD, VECTOR_LOAD.replace(
         "load4(p + 4 * i,", "load4(p + 4 * i * (sizeof(float) / sizeof(T)),")),
+    # each microbatch's gradient divided by its own count, then averaged
+    "microbatch_mean_of_means_epd": ("accum_epd", MICRO, (MICRO_BACKWARD, MICRO_DIVIDE), (
+        "        (ls / torch.clamp(c, min=1.0) / len(micro)).backward()", "                pass")),
+    "microbatch_mean_of_means_transformer": ("accum_transformer", MICRO, (MICRO_BACKWARD, MICRO_DIVIDE), (
+        "        (ls / torch.clamp(c, min=1.0) / len(micro)).backward()", "                pass")),
+    # the counters not opened and closed: every microbatch's fold counts
+    "microbatch_counter_per_microbatch": ("accum_epd", MICRO, (MICRO_OPEN, MICRO_CLOSE),
+                                          ("    old = None", "    del old")),
+    # the ELL gather's backward sums g over the owner's own slots, without
+    # the twin permutation
+    "ell_twin_identity": ("ell", ELL, ELL_TWIN, "ell_segment_sum(g, ctx.ell_degree)"),
     # the resumed run starts with fresh AdamW moments and step counts
     "resume_fresh_optimizer_epd": ("epd", CKPT, OPT_LOAD, "    pass"),
     "resume_fresh_optimizer_transformer": ("transformer", CKPT, OPT_LOAD, "    pass"),
@@ -113,6 +138,54 @@ def read_resume_fault(model: str, name: str) -> dict:
     return {"fault": name, **{k: readings[k] for k in keep}}
 
 
+def read_accum_fault(model: str, name: str) -> dict:
+    """``grad_accum`` with its gradient, loss and memory limits lifted; the
+    counter check stays, and a fault it catches is reported by its
+    message."""
+    import chip_smoke as cs
+
+    cs.STEP_LOSS_RTOL = cs.STEP_ROUNDOFF_SHARE = cs.ACCUM_PEAK_SHARE = math.inf
+    if model == "accum_epd":
+        param, graphs = cs.load_config(cs.CYLINDER_CONFIG), cs.flagship_graphs(0)
+    else:
+        param, graphs = cs.load_config(cs.PANELS_CONFIG), cs.panels_graphs(200)
+    try:
+        result = cs.grad_accum(name, param, graphs, {}, {}, 0, math.inf)
+    except AssertionError as err:
+        return {"fault": name, "caught_by": str(err)[:400]}
+    keep = ("loss_rel_err", "grad_rel_err_worst", "grad_worst_param", "grad_rel_err_median",
+            "relu_sign_flips", "normalizer_counters")
+    return {"fault": name, **{k: result[k] for k in keep}}
+
+
+def read_ell_fault(name: str) -> dict:
+    """``compare_steps`` with its limits lifted: the first ELL step against
+    the own layout's on the ELL pipeline's first batch, for both
+    families."""
+    import tempfile
+
+    import chip_smoke as cs
+    from graphphysics_torch.dataset import GraphLoader
+    from graphphysics_torch.utils.synthetic import cylinder_trajectory, panels_trajectory
+
+    cs.STEP_LOSS_RTOL = math.inf
+    out = {"fault": name}
+    for label, config, make_traj in (("epd", cs.CYLINDER_CONFIG, cylinder_trajectory),
+                                     ("transformer", cs.PANELS_CONFIG, panels_trajectory)):
+        param = cs.load_config(config)
+        ell = cs.with_dataset(param, edge_layout="ell")
+        with tempfile.TemporaryDirectory() as tmp:
+            ell_ds, _ = cs.memory_datasets(ell, make_traj, 0, tmp, n_traj=2)
+            own_ds, _ = cs.memory_datasets(param, make_traj, 0, tmp, n_traj=2)
+            batches = [GraphLoader(ds, batch_size=8, shuffle=True, seed=0).peek() for ds in (ell_ds, own_ds)]
+        try:
+            step = cs.compare_steps(name, "layout", (ell, batches[0]), (param, batches[1]), 0, math.inf)
+        except AssertionError as err:  # the statistics check stays
+            step = {"caught_by": str(err)[:400]}
+        out.update({f"{label}_{k}": v for k, v in step.items() if k != "layout_tolerance"})
+    return out
+
+
 def read_fault(model: str, name: str) -> dict:
     """The fault's check with lifted limits, in the tree of the working
     directory."""
@@ -126,6 +199,10 @@ def read_fault(model: str, name: str) -> dict:
     _native.build()
     if name.startswith("resume"):
         return read_resume_fault(model, name)
+    if model.startswith("accum"):
+        return read_accum_fault(model, name)
+    if model == "ell":
+        return read_ell_fault(name)
     cs.STEP_LOSS_RTOL = cs.STEP_ROUNDOFF_SHARE = math.inf
     total_steps = 1 + cs.WARMUP_STEPS + cs.TIMED_STEPS + cs.PROFILED_STEPS
     if model.startswith("bf16transformer"):

@@ -5,8 +5,12 @@
 
 The JAX CLI's JSON config and flag names, plus ``--device`` (``cuda`` unless
 named). CSV metrics are always written, W&B only with ``--project_name`` and
-wandb installed. A flag whose feature the port does not have yet exits with
-an error naming its ROADMAP item when given anything but its default.
+wandb installed. ``--gradient_accumulation`` makes each batch of
+``batch_size`` items one optimizer step over that many microbatches (the
+loader stacks them). The config's ``dataset.num_buckets`` and
+``dataset.edge_layout`` (``"ell"`` for the ELL layout) reach the datasets.
+A flag whose feature the port does not have yet exits with an error naming
+its ROADMAP item when given anything but its default.
 """
 
 from __future__ import annotations
@@ -49,7 +53,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint_dir", default="checkpoints")
     p.add_argument("--metrics_path", default="metrics.csv")
     p.add_argument("--data_parallel", action="store_true")
-    p.add_argument("--gradient_accumulation", action="store_true")
+    p.add_argument("--gradient_accumulation", action="store_true",
+                   help="one optimizer step per batch of batch_size microbatches, run in "
+                        "turn (the activation memory of one microbatch)")
     p.add_argument("--graph_partition", type=int, default=0)
     p.add_argument("--partition_mode", default="halo", choices=["halo", "gather"])
     p.add_argument("--partition_edge_headroom", type=float, default=1.25)
@@ -78,7 +84,6 @@ def build_argparser() -> argparse.ArgumentParser:
 # (flag, default, ROADMAP.md section 1 item): flags of features not ported yet
 NOT_PORTED: Tuple[Tuple[str, object, int], ...] = (
     ("data_parallel", False, 13),
-    ("gradient_accumulation", False, 11),
     ("graph_partition", 0, 14),
     ("partition_mode", "halo", 14),
     ("partition_edge_headroom", 1.25, 14),
@@ -111,6 +116,24 @@ def previous_data_options(args: argparse.Namespace) -> dict:
             "previous_data_end": args.previous_data_end}
 
 
+def unify_budgets(train_ds, val_ds) -> None:
+    """One padded shape for both splits (a val trajectory may be larger
+    than every train one): the budgets derive at the first item, then each
+    split takes the larger of each budget and ELL degree. Size-bucketed
+    datasets are left alone: every trajectory pads to its own bucket, so
+    no split outgrows a budget."""
+    _ = train_ds[0], val_ds[0]
+    if train_ds.num_buckets > 1 or val_ds.num_buckets > 1:
+        return
+    train_ds.node_budget = val_ds.node_budget = max(train_ds.node_budget, val_ds.node_budget)
+    if train_ds.edge_budget or val_ds.edge_budget:
+        eb = max(train_ds.edge_budget or 0, val_ds.edge_budget or 0)
+        train_ds.edge_budget = val_ds.edge_budget = eb
+    if train_ds.ell_degree or val_ds.ell_degree:
+        degree = max(train_ds.ell_degree or 0, val_ds.ell_degree or 0)
+        train_ds.ell_degree = val_ds.ell_degree = degree
+
+
 def main(argv=None) -> int:
     parser = build_argparser()
     args = parser.parse_args(argv)
@@ -133,14 +156,10 @@ def main(argv=None) -> int:
         use_edge_feature=use_edge_feature, use_previous_data=args.use_previous_data,
         switch_to_val=True, edge_layout=train_ds.edge_layout,
     )
-    # one padded shape for both splits (a val trajectory may be larger than
-    # every train one): the budgets derive at the first item, then take the
-    # larger of each
-    _ = train_ds[0], val_ds[0]
-    train_ds.node_budget = val_ds.node_budget = max(train_ds.node_budget, val_ds.node_budget)
-    train_ds.edge_budget = val_ds.edge_budget = max(train_ds.edge_budget, val_ds.edge_budget)
+    unify_budgets(train_ds, val_ds)
     loader = GraphLoader(train_ds, batch_size=args.batch_size, shuffle=True, seed=args.seed,
-                         prefetch=args.prefetch_factor, num_workers=args.num_workers)
+                         prefetch=args.prefetch_factor, num_workers=args.num_workers,
+                         collate="stack" if args.gradient_accumulation else "concat")
 
     extra_logger = None
     if args.project_name:
@@ -175,6 +194,7 @@ def main(argv=None) -> int:
         save_every_n_steps=args.save_every_n_steps,
         progress={"auto": None, "on": True, "off": False}[args.progress],
         device=args.device,
+        gradient_accumulation=args.gradient_accumulation,
         **previous_data_options(args),
     )
     try:

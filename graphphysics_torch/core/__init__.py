@@ -3,7 +3,9 @@ from graphphysics_torch.core.graph import (
     Graph,
     bucket_size,
     concat_graphs,
+    masked_filler,
     pad_graph_csr_np,
+    pad_graph_ell_np,
     pad_graph_np,
     pad_graph_sorted_np,
     round_up,
@@ -17,7 +19,9 @@ __all__ = [
     "NodeType",
     "bucket_size",
     "concat_graphs",
+    "masked_filler",
     "pad_graph_csr_np",
+    "pad_graph_ell_np",
     "pad_graph_np",
     "pad_graph_sorted_np",
     "resolve_device",

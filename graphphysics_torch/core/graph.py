@@ -12,7 +12,11 @@ stably sorted by receiver and ``row_bounds`` holds each node's ``[start, end)``
 range of real edges, which is what the CUDA segment-sum kernel reads
 (``ops.csr_segment``). The sender-sorted padding of the attention kernel
 (``pad_graph_csr_np``, ``ops.csr_attention``) keeps its ranges apart, in
-``sender_bounds``, so neither kernel can read the other's layout.
+``sender_bounds``, so neither kernel can read the other's layout. The
+fixed-degree ELL layout (``pad_graph_ell_np``, ``topology.ell``) groups the
+edges by receiver into ``ell_degree`` slots per node and carries each slot's
+reversed twin (``twin_perm``); its ops (``ops.ell_ops``) are dense reshapes
+and gathers on every device.
 """
 
 from __future__ import annotations
@@ -51,6 +55,12 @@ class Graph:
         sender_bounds: ``[2, N]`` int32 or None. The same per-node ranges
             for edges sorted by sender (``pad_graph_csr_np``), read by the
             attention kernel.
+        twin_perm: ``[E]`` int32 or None (ELL layout): the slot of each
+            slot's reversed edge (a padding slot's is itself).
+        ell_degree: int or None, not an array: with it the edges are in the
+            fixed-degree ELL layout, slot ``e`` owned by node
+            ``e // ell_degree`` (``receivers[e] == e // ell_degree``). It
+            stays an int through ``to``, stacking and indexing.
     """
 
     x: Any
@@ -64,6 +74,8 @@ class Graph:
     exclude_mask: Any = None
     row_bounds: Any = None
     sender_bounds: Any = None
+    twin_perm: Any = None
+    ell_degree: Optional[int] = None
 
     @property
     def num_nodes(self) -> int:
@@ -77,11 +89,14 @@ class Graph:
         return dataclasses.replace(self, **kw)
 
     def _map(self, fn) -> "Graph":
+        """``fn`` applied to every array field; ``ell_degree`` is kept."""
         return Graph(
             **{
                 f.name: (None if getattr(self, f.name) is None else fn(getattr(self, f.name)))
                 for f in dataclasses.fields(self)
-            }
+                if f.name not in META_FIELDS
+            },
+            ell_degree=self.ell_degree,
         )
 
     def to(self, device: DeviceLike = None) -> "Graph":
@@ -102,6 +117,20 @@ class Graph:
     def __getitem__(self, i) -> "Graph":
         """Index the leading (time or batch) axis of a stacked graph."""
         return self._map(lambda a: a[i])
+
+
+# fields that are not arrays: carried as they are, equal across a batch
+META_FIELDS = ("ell_degree",)
+
+
+def masked_filler(graph: Graph) -> Graph:
+    """A copy of ``graph`` with every node and edge masked out: the loader's
+    filler for a partial batch. Its masked edges add nothing to any segment
+    sum or attention (the kernels and the plain versions skip masked
+    edges), its masked nodes nothing to the loss or the normalizers."""
+    return graph.replace(
+        node_mask=np.zeros_like(graph.node_mask), edge_mask=np.zeros_like(graph.edge_mask)
+    )
 
 
 def round_up(n: int, multiple: int) -> int:
@@ -243,9 +272,58 @@ def pad_graph_csr_np(
     )
 
 
+def pad_graph_ell_np(
+    x: np.ndarray,
+    pos: np.ndarray,
+    senders: np.ndarray,
+    receivers: np.ndarray,
+    n_pad: int,
+    degree: int,
+    edge_attr: Optional[np.ndarray] = None,
+    y: Optional[np.ndarray] = None,
+    node_type_index: Optional[int] = None,
+    padding_node_type: int = 8,
+) -> Graph:
+    """Padding into the fixed-degree ELL layout (``topology.ell``): nodes
+    padded to ``n_pad``, edges grouped by receiver into ``degree`` slots per
+    node (``n_pad * degree`` edge rows), with ``twin_perm`` and
+    ``ell_degree`` set, as the JAX package's ``pad_graph_ell_np``. The edge
+    list must be symmetric."""
+    from graphphysics_torch.topology.ell import build_ell
+
+    n = x.shape[0]
+    if n_pad < n:
+        raise ValueError(f"pad size too small: nodes {n}->{n_pad}")
+    ell = build_ell(senders, receivers, n_pad, degree=degree)
+    x_p = _pad_rows(x.astype(np.float32), n_pad)
+    if node_type_index is not None and n_pad > n:
+        x_p[n:, node_type_index] = padding_node_type
+    ea_p = None
+    if edge_attr is not None:
+        ea_p = np.zeros((n_pad * degree, edge_attr.shape[1]), np.float32)
+        ea_p[ell.edge_mask] = edge_attr[ell.edge_perm[ell.edge_mask]]
+    node_mask = np.zeros((n_pad,), dtype=bool)
+    node_mask[:n] = True
+    return Graph(
+        x=x_p,
+        pos=_pad_rows(pos.astype(np.float32), n_pad),
+        senders=ell.senders,
+        receivers=ell.receivers,
+        edge_attr=ea_p,
+        node_mask=node_mask,
+        edge_mask=ell.edge_mask,
+        y=_pad_rows(None if y is None else y.astype(np.float32), n_pad),
+        twin_perm=ell.twin_perm,
+        ell_degree=int(degree),
+    )
+
+
 def stack_graphs(graphs: List[Graph]) -> Graph:
-    """Stack same-shape host Graphs along a new leading (time or batch) axis."""
+    """Stack same-shape host Graphs along a new leading (time or batch) axis;
+    ``ell_degree`` must be equal and stays one int."""
     first = graphs[0]
+    if len({g.ell_degree for g in graphs}) != 1:
+        raise ValueError("stack_graphs: the graphs differ in ell_degree")
     return Graph(
         **{
             f.name: (
@@ -254,15 +332,20 @@ def stack_graphs(graphs: List[Graph]) -> Graph:
                 else np.stack([np.asarray(getattr(g, f.name)) for g in graphs], axis=0)
             )
             for f in dataclasses.fields(first)
-        }
+            if f.name not in META_FIELDS
+        },
+        ell_degree=first.ell_degree,
     )
 
 
 def concat_graphs(graphs: List[Graph]) -> Graph:
     """Batch same-shape padded host Graphs into one flat graph, offsetting
-    edge indices by each graph's node count and row or sender bounds by its
-    edge count. Edges never cross graph boundaries, so one segment sum covers
-    the batch, and sorted members stay sorted."""
+    edge indices by each graph's node count and row or sender bounds and
+    ELL twin slots by its edge count. Edges never cross graph boundaries, so
+    one segment sum covers the batch, sorted members stay sorted, and ELL
+    members stay ELL (slot ``e`` of the batch is owned by ``e // degree``).
+    Graphs of different layouts, or ELL graphs of different degrees, are
+    refused."""
     if len(graphs) == 1:
         return graphs[0]
     n = graphs[0].num_nodes
@@ -270,9 +353,11 @@ def concat_graphs(graphs: List[Graph]) -> Graph:
     for g in graphs:
         if g.num_nodes != n or g.num_edges != e:
             raise ValueError("concat_graphs requires identical padded shapes")
-    for field in ("row_bounds", "sender_bounds"):
+    for field in ("row_bounds", "sender_bounds", "twin_perm"):
         if len({getattr(g, field) is None for g in graphs}) != 1:
             raise ValueError(f"concat_graphs: some graphs have {field}, some not")
+    if len({g.ell_degree for g in graphs}) != 1:
+        raise ValueError("concat_graphs: the graphs differ in ell_degree")
 
     def cat(field):
         vals = [getattr(g, field) for g in graphs]
@@ -302,4 +387,6 @@ def concat_graphs(graphs: List[Graph]) -> Graph:
         sender_bounds=(
             None if graphs[0].sender_bounds is None else offset("sender_bounds", e, axis=1)
         ),
+        twin_perm=None if graphs[0].twin_perm is None else offset("twin_perm", e),
+        ell_degree=graphs[0].ell_degree,
     )

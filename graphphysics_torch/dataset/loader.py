@@ -1,15 +1,24 @@
 """Batching loader (counterpart of ``graphphysics_tpu/dataset/loader.py``):
 items are padded Graphs of one shape, so a batch is their concatenation with
-index offsets (``concat_graphs``), one flat graph that the model sees whole.
-The order is deterministic per ``(seed, epoch)``, and with the items' own
-per-``(seed, epoch, index)`` randomness an epoch's stream can be replayed
-from any batch (``set_start_batch``).
+index offsets (``concat_graphs``), one flat graph that the model sees whole,
+or, with ``collate="stack"``, their stack along a leading ``[B]`` axis (the
+microbatches of a gradient-accumulation step). The order is deterministic
+per ``(seed, epoch)``, and with the items' own per-``(seed, epoch, index)``
+randomness an epoch's stream can be replayed from any batch
+(``set_start_batch``).
+
+A size-bucketed dataset (``num_buckets > 1``) gets bucket-pure batches, so
+every batch has one shape, in an order shuffled per epoch
+(``compute_batch_chunks``). A partial batch (a bucket smaller than one
+batch, always kept, or the last one with ``drop_last=False``) is filled up
+to ``batch_size`` with masked copies of its last graph
+(``core.graph.masked_filler``), which add nothing to the loss, the
+gradients or the normalizers.
 
 Batches are built on the host while the card trains: by a background thread
 (``prefetch`` batches ahead) or, with ``num_workers > 0``, by worker
 processes of a ``torch.utils.data.DataLoader`` (spawned, persistent across
-epochs), which give the same batches bit for bit. Size buckets come with a
-later slice."""
+epochs), which give the same batches bit for bit."""
 
 from __future__ import annotations
 
@@ -24,7 +33,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from graphphysics_torch.core.graph import Graph, concat_graphs
+from graphphysics_torch.core.graph import Graph, concat_graphs, masked_filler, stack_graphs
 
 # seconds the parent waits for one batch from the workers before it raises
 # (the first batch includes the workers' start: a fresh interpreter each)
@@ -87,17 +96,86 @@ def init_worker(worker_id: int) -> None:
 
 
 def materialize_static_shapes(dataset, first_index: int) -> None:
-    """Build one item where a padding budget is still unset, so the workers
-    inherit the parent's budgets through the pickle instead of each
-    deriving its own."""
-    if getattr(dataset, "node_budget", 1) is None or getattr(dataset, "edge_budget", 1) is None:
+    """Build one item where a padding budget is still unset (the node and
+    edge budgets, the ELL degree, or with buckets the bucket budgets), so
+    the workers inherit the parent's budgets through the pickle instead of
+    each deriving its own."""
+    done = getattr(dataset, "_budgets_done", None)
+    if done is not None and not done():
         dataset[int(first_index)]
 
 
+class Collate:
+    """A batch from its items: up to ``batch_size`` graphs, filled with
+    masked copies of the last (``masked_filler``) where fewer, then
+    concatenated (``"concat"``) or stacked (``"stack"``). Picklable, so the
+    loader's worker processes collate as the parent does."""
+
+    def __init__(self, batch_size: int, mode: str = "concat"):
+        if mode not in ("concat", "stack"):
+            raise ValueError(f"unknown collate {mode!r}")
+        self.batch_size, self.mode = batch_size, mode
+
+    def __call__(self, graphs: Sequence[Graph]) -> Graph:
+        graphs = list(graphs)
+        if len(graphs) < self.batch_size:
+            graphs += [masked_filler(graphs[-1])] * (self.batch_size - len(graphs))
+        return stack_graphs(graphs) if self.mode == "stack" else concat_graphs(graphs)
+
+
+def compute_batch_chunks(
+    total: int,
+    batch_size: int,
+    *,
+    seed: int,
+    epoch: int,
+    shuffle: bool,
+    bucket_ids: Optional[np.ndarray],
+    chunks_for_count,
+) -> List[np.ndarray]:
+    """The item indices of each batch of an epoch, as the JAX package's
+    ``compute_batch_chunks``: the items shuffled with
+    ``SeedSequence([seed, epoch])``; with ``bucket_ids`` grouped bucket by
+    bucket (every chunk one shape) and the chunks' order shuffled with
+    ``SeedSequence([seed, epoch, 1])``. ``chunks_for_count(count,
+    whole_bucket=False)`` is the number of batches of ``count`` items."""
+    order = np.arange(total)
+    if shuffle:
+        np.random.default_rng(np.random.SeedSequence([seed, epoch])).shuffle(order)
+    bs = batch_size
+    if bucket_ids is None:
+        return [order[b * bs : (b + 1) * bs] for b in range(chunks_for_count(total))]
+    oid = bucket_ids[order]
+    chunks = []
+    for b in np.unique(oid):
+        sel = order[oid == b]
+        chunks += [sel[j * bs : (j + 1) * bs]
+                   for j in range(chunks_for_count(len(sel), whole_bucket=True))]
+    if shuffle:
+        rng = np.random.default_rng(np.random.SeedSequence([seed, epoch, 1]))
+        chunks = [chunks[int(p)] for p in rng.permutation(len(chunks))]
+    return chunks
+
+
+def dataset_bucket_ids(dataset) -> Optional[np.ndarray]:
+    """The bucket of every item of a size-bucketed dataset, or None when it
+    has no buckets (or they collapsed to one)."""
+    if getattr(dataset, "num_buckets", 1) <= 1:
+        return None
+    if len(dataset):
+        dataset.bucket_of_index(0)  # materializes the buckets (they may collapse)
+    if dataset.num_buckets <= 1:
+        return None
+    return np.repeat(dataset._traj_bucket, dataset.frames_per_trajectory)[: len(dataset)]
+
+
 class GraphLoader:
-    """Batches of ``batch_size`` dataset items, concatenated. ``shuffle``
-    permutes the items with ``SeedSequence([seed, epoch])``. A last partial
-    batch is dropped, so every batch keeps one shape.
+    """Batches of ``batch_size`` dataset items, concatenated (``collate``
+    "concat") or stacked ("stack"). ``shuffle`` permutes the items with
+    ``SeedSequence([seed, epoch])``. With ``drop_last`` (the default) a
+    last partial batch is dropped, else filled with masked copies, so every
+    batch keeps one shape; a size bucket smaller than one batch is never
+    dropped.
 
     ``num_workers == 0``: with ``prefetch > 0`` a background thread builds
     up to ``prefetch`` batches ahead of the consumer (stopped and joined when
@@ -118,6 +196,8 @@ class GraphLoader:
         prefetch: int = 2,
         num_workers: int = 0,
         timeout: float = WORKER_TIMEOUT_S,
+        drop_last: bool = True,
+        collate: str = "concat",
     ):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
@@ -130,6 +210,9 @@ class GraphLoader:
         self.prefetch = prefetch
         self.num_workers = num_workers
         self.timeout = timeout
+        self.drop_last = drop_last
+        self._collate = Collate(batch_size, collate)
+        self._bucket_ids_cache: Optional[np.ndarray] = None
         self._epoch = 0
         self._start_batch = 0
         self._workers: Optional[torch.utils.data.DataLoader] = None
@@ -146,8 +229,27 @@ class GraphLoader:
         """Skip the first ``batch`` batches of the next iteration only."""
         self._start_batch = int(batch)
 
+    def _bucket_ids(self) -> Optional[np.ndarray]:
+        """Each item's bucket for a size-bucketed dataset, else None;
+        computed once (the assignment does not change)."""
+        if self._bucket_ids_cache is None:
+            self._bucket_ids_cache = dataset_bucket_ids(self.dataset)
+        return self._bucket_ids_cache
+
+    def _num_chunks(self, count: int, whole_bucket: bool = False) -> int:
+        """Batches of ``count`` items. ``whole_bucket``: a bucket smaller
+        than one batch still gives its partial batch, since dropping it
+        would leave a mesh size out of every epoch."""
+        if self.drop_last:
+            n = count // self.batch_size
+            return 1 if whole_bucket and n == 0 and count > 0 else n
+        return (count + self.batch_size - 1) // self.batch_size
+
     def __len__(self) -> int:
-        return len(self.dataset) // self.batch_size
+        ids = self._bucket_ids()
+        if ids is None:
+            return self._num_chunks(len(self.dataset))
+        return sum(self._num_chunks(int((ids == b).sum()), whole_bucket=True) for b in np.unique(ids))
 
     def _order(self) -> np.ndarray:
         idx = np.arange(len(self.dataset))
@@ -157,16 +259,17 @@ class GraphLoader:
         return idx
 
     def _chunks(self) -> List[np.ndarray]:
-        order = self._order()
-        bs = self.batch_size
-        return [order[b * bs : (b + 1) * bs] for b in range(len(self))]
+        return compute_batch_chunks(
+            len(self.dataset), self.batch_size, seed=self.seed, epoch=self._epoch,
+            shuffle=self.shuffle, bucket_ids=self._bucket_ids(), chunks_for_count=self._num_chunks,
+        )
 
     def peek(self) -> Graph:
         """The first batch of the current epoch, built now (for shapes and
         initialization), without advancing anything."""
         chunks = self._chunks()
         idx = chunks[0] if chunks else self._order()[: self.batch_size]
-        return concat_graphs([self.dataset[int(i)] for i in idx])
+        return self._collate([self.dataset[int(i)] for i in idx])
 
     def __iter__(self) -> Iterator[Graph]:
         chunks = self._chunks()
@@ -180,7 +283,7 @@ class GraphLoader:
 
     def _in_process(self, chunks: Sequence[np.ndarray]) -> Iterator[Graph]:
         for idx in chunks:
-            yield concat_graphs([self.dataset[int(i)] for i in idx])
+            yield self._collate([self.dataset[int(i)] for i in idx])
 
     def _prefetched(self, chunks: Sequence[np.ndarray]) -> Iterator[Graph]:
         """``_in_process`` on a background thread, up to ``prefetch``
@@ -233,7 +336,7 @@ class GraphLoader:
                 EpochItems(path, len(self.dataset)),
                 batch_sampler=self._tasks,
                 num_workers=self.num_workers,
-                collate_fn=concat_graphs,
+                collate_fn=self._collate,
                 persistent_workers=True,
                 multiprocessing_context="spawn",
                 prefetch_factor=max(self.prefetch, 1),

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from graphphysics_torch.ops.attention import sparse_graph_attention
+from graphphysics_torch.ops.ell_ops import ell_gather, ell_repeat, ell_segment_sum
 from graphphysics_torch.ops.segment import masked_segment_sum, take_rows
 
 
@@ -32,15 +33,43 @@ class Linear(nn.Linear):
     to it, the result in it. As XLA, it rounds the product to the dtype and
     then the sum with the bias; ``F.linear`` with a bias would round once."""
 
-    def __init__(self, in_features: int, out_features: int, dtype: Optional[torch.dtype] = None):
-        super().__init__(in_features, out_features)
+    def __init__(self, in_features: int, out_features: int, dtype: Optional[torch.dtype] = None,
+                 bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         if dt is None:
             return super().forward(x)
-        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+class SplitDense(Linear):
+    """A ``Linear`` over a conceptual concatenation of ``parts`` (widths
+    ``in_sizes``), applied as one product per part with its slice of the
+    one weight, so its parameters are those of the ``Linear`` on the
+    concatenation (JAX ``SplitDense``). ``posts[i]``, where not None, maps
+    part ``i``'s product before the sum: an edge gather, so that the
+    product runs on node rows. Each product, then the sum with the bias,
+    in the compute dtype."""
+
+    def __init__(self, in_sizes: Tuple[int, ...], out_features: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(sum(in_sizes), out_features, dtype)
+        self.in_sizes = tuple(in_sizes)
+
+    def forward(self, parts, posts) -> torch.Tensor:
+        dt = self.compute_dtype or self.weight.dtype
+        out, off = None, 0
+        for part, size, post in zip(parts, self.in_sizes, posts):
+            term = F.linear(part.to(dt), self.weight[:, off:off + size].to(dt))
+            if post is not None:
+                term = post(term)
+            out = term if out is None else out + term
+            off += size
+        return out + self.bias.to(dt)
 
 
 class RMSNorm(nn.Module):
@@ -78,17 +107,52 @@ class MLP(nn.Sequential):
         super().__init__(*layers)
 
 
+class _FusedEdgeMLP(MLP):
+    """The edge ``MLP`` with its first layer a ``SplitDense`` over
+    ``[edge_attr, x_receivers, x_senders]`` (JAX ``_FusedEdgeMLP``): the
+    same modules and ``state_dict`` as the ``MLP`` on the concatenation."""
+
+    def __init__(self, in_sizes: Tuple[int, ...], hidden_size: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(sum(in_sizes), hidden_size, hidden_size, dtype=dtype)
+        self[0] = SplitDense(in_sizes, hidden_size, dtype)
+
+    def forward(self, parts, posts) -> torch.Tensor:
+        y = self[0](parts, posts)
+        for layer in list(self)[1:]:
+            y = layer(y)
+        return y
+
+
 class GraphNetBlock(nn.Module):
-    """Message-passing block, plain COO branch.
+    """Message-passing block.
 
     Edge update: MLP on ``[edge_attr, x[receivers], x[senders]]``. Node
     update: MLP on ``[x, sum of incoming edge messages]``, the messages summed
     into their receivers. Residuals on both, in the streams' dtype (f32: the
-    MLPs end in RMSNorm, so the messages reach the sum in f32)."""
+    MLPs end in RMSNorm, so the messages reach the sum in f32).
 
-    def __init__(self, hidden_size: int, dtype: Optional[torch.dtype] = None):
+    On an ELL graph (``ell_degree`` and ``twin_perm`` given) the gathers are
+    ``ell_repeat`` and ``ell_gather`` and the sum is ``ell_segment_sum``,
+    dense ops on every device; otherwise ``take_rows`` and
+    ``masked_segment_sum``, which on CUDA is the segment-sum kernel and
+    needs ``row_bounds``.
+
+    ``project_before_gather`` (JAX ``GraphNetBlock``'s knob, default off):
+    the edge MLP's first layer is linear, so its node terms are projected
+    at node granularity and gathered after,
+    ``ea @ W_e + (x @ W_r)[receivers] + (x @ W_s)[senders]``: the same
+    function and the same ``state_dict``, with two of the three products on
+    N rows instead of E."""
+
+    def __init__(self, hidden_size: int, dtype: Optional[torch.dtype] = None,
+                 project_before_gather: bool = False):
         super().__init__()
-        self.edge_block = MLP(3 * hidden_size, hidden_size, hidden_size, dtype=dtype)
+        self.project_before_gather = project_before_gather
+        if project_before_gather:
+            self.edge_block = _FusedEdgeMLP((hidden_size,) * 3, hidden_size, dtype)
+        else:
+            self.edge_block = MLP(3 * hidden_size, hidden_size, hidden_size, dtype=dtype)
         self.node_block = MLP(2 * hidden_size, hidden_size, hidden_size, dtype=dtype)
 
     def forward(
@@ -99,14 +163,34 @@ class GraphNetBlock(nn.Module):
         receivers: torch.Tensor,
         edge_mask: Optional[torch.Tensor] = None,
         row_bounds: Optional[torch.Tensor] = None,
+        ell_degree: Optional[int] = None,
+        twin_perm: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        edge_in = torch.cat(
-            [edge_attr, take_rows(x, receivers), take_rows(x, senders)], dim=-1
-        )
-        edge_update = self.edge_block(edge_in)
-        aggr = masked_segment_sum(
-            edge_update, receivers, x.shape[0], mask=edge_mask, row_bounds=row_bounds
-        )
+        if ell_degree is not None:
+            def gather_recv(p):
+                return ell_repeat(p, ell_degree)
+
+            def gather_send(p):
+                return ell_gather(p, senders, twin_perm, ell_degree)
+        else:
+            def gather_recv(p):
+                return take_rows(p, receivers)
+
+            def gather_send(p):
+                return take_rows(p, senders)
+
+        if self.project_before_gather:
+            edge_update = self.edge_block((edge_attr, x, x), (None, gather_recv, gather_send))
+        else:
+            edge_update = self.edge_block(
+                torch.cat([edge_attr, gather_recv(x), gather_send(x)], dim=-1)
+            )
+        if ell_degree is not None:
+            aggr = ell_segment_sum(edge_update, ell_degree, edge_mask)
+        else:
+            aggr = masked_segment_sum(
+                edge_update, receivers, x.shape[0], mask=edge_mask, row_bounds=row_bounds
+            )
         node_update = self.node_block(torch.cat([x, aggr], dim=-1))
         return x + node_update.to(x.dtype), edge_attr + edge_update.to(edge_attr.dtype)
 
@@ -188,17 +272,20 @@ class Attention(nn.Module):
     reference model that shares the q weight (``use_separate_proj_weight``
     false) loads as three equal weights with their own biases, which is what
     ``export_reference_state_dict`` writes. With a ``dtype`` the projections
-    return it, so q, k and v reach the attention kernels in it."""
+    return it, so q, k and v reach the attention kernels in it. With
+    ``use_proj_bias`` false the q, k, v and output projections have no
+    bias, as the JAX ``Attention(use_proj_bias=False)``."""
 
-    def __init__(self, output_dim: int, num_heads: int = 4, dtype: Optional[torch.dtype] = None):
+    def __init__(self, output_dim: int, num_heads: int = 4, dtype: Optional[torch.dtype] = None,
+                 use_proj_bias: bool = True):
         super().__init__()
         if output_dim % num_heads:
             raise ValueError(f"output_dim {output_dim} is not a multiple of {num_heads} heads")
         self.num_heads = num_heads
-        self.q_proj = Linear(output_dim, output_dim, dtype)
-        self.k_proj = Linear(output_dim, output_dim, dtype)
-        self.v_proj = Linear(output_dim, output_dim, dtype)
-        self.proj = Linear(output_dim, output_dim, dtype)
+        self.q_proj = Linear(output_dim, output_dim, dtype, bias=use_proj_bias)
+        self.k_proj = Linear(output_dim, output_dim, dtype, bias=use_proj_bias)
+        self.v_proj = Linear(output_dim, output_dim, dtype, bias=use_proj_bias)
+        self.proj = Linear(output_dim, output_dim, dtype, bias=use_proj_bias)
 
     def forward(
         self,
@@ -207,6 +294,8 @@ class Attention(nn.Module):
         receivers: torch.Tensor,
         edge_mask: Optional[torch.Tensor] = None,
         sender_bounds: Optional[torch.Tensor] = None,
+        ell_degree: Optional[int] = None,
+        twin_perm: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         n, d = x.shape
         h = self.num_heads
@@ -224,6 +313,8 @@ class Attention(nn.Module):
             edge_mask=edge_mask,
             scale=h ** -0.5,
             sender_bounds=sender_bounds,
+            ell_degree=ell_degree,
+            twin_perm=twin_perm,
         )
         # back to the flat layout: [N, H, Dh] -> (N, Dh, H) -> [N, D]
         return self.proj(y.transpose(1, 2).reshape(n, d))
@@ -234,9 +325,10 @@ class TransformerBlock(nn.Module):
     ``x + gated_mlp(norm2(x))``, each branch cast back to the residual
     stream's dtype."""
 
-    def __init__(self, output_dim: int, num_heads: int = 4, dtype: Optional[torch.dtype] = None):
+    def __init__(self, output_dim: int, num_heads: int = 4, dtype: Optional[torch.dtype] = None,
+                 use_proj_bias: bool = True):
         super().__init__()
-        self.attention = Attention(output_dim, num_heads, dtype)
+        self.attention = Attention(output_dim, num_heads, dtype, use_proj_bias)
         self.norm1 = RMSNorm(output_dim)
         self.norm2 = RMSNorm(output_dim)
         self.gated_mlp = GatedMLPBlock(output_dim, output_dim, output_dim, dtype=dtype)
@@ -248,8 +340,11 @@ class TransformerBlock(nn.Module):
         receivers: torch.Tensor,
         edge_mask: Optional[torch.Tensor] = None,
         sender_bounds: Optional[torch.Tensor] = None,
+        ell_degree: Optional[int] = None,
+        twin_perm: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        x = x + self.attention(self.norm1(x), senders, receivers, edge_mask, sender_bounds).to(x.dtype)
+        x = x + self.attention(self.norm1(x), senders, receivers, edge_mask, sender_bounds,
+                               ell_degree, twin_perm).to(x.dtype)
         return x + self.gated_mlp(self.norm2(x)).to(x.dtype)
 
 

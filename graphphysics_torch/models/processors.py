@@ -14,7 +14,13 @@ unrolled loop: in the JAX package it scans one block body to keep compile
 time flat in depth, "same math as the unrolled loop"; PyTorch runs eagerly
 and has no such compile time, so the knob changes nothing here. A JAX
 ``scan_blocks`` model's weights load after
-``utils.reference_weights.unstack_scanned_blocks``."""
+``utils.reference_weights.unstack_scanned_blocks``.
+
+Both families read the graph's edge layout: ``row_bounds`` (EPD) or
+``sender_bounds`` (transformer) for the kernels, or ``ell_degree`` and
+``twin_perm`` for the ELL ops. The transformer takes ``use_proj_bias`` as
+the JAX one does; the EPD takes GraphNetBlock's ``project_before_gather``,
+which the JAX EncodeProcessDecode leaves at its default (off)."""
 
 from __future__ import annotations
 
@@ -102,6 +108,7 @@ class EncodeProcessDecode(_GMMOptions, nn.Module):
         dtype: Optional[torch.dtype] = None,
         remat: bool = False,
         scan_blocks: bool = False,
+        project_before_gather: bool = False,
     ):
         super().__init__()
         self._set_gmm(output_size, num_mixture_components, temperature, use_diagonal)
@@ -109,7 +116,8 @@ class EncodeProcessDecode(_GMMOptions, nn.Module):
         self.nodes_encoder = MLP(node_input_size, hidden_size, hidden_size, dtype=dtype)
         self.edges_encoder = MLP(edge_input_size, hidden_size, hidden_size, dtype=dtype)
         self.processor_list = nn.ModuleList(
-            GraphNetBlock(hidden_size, dtype) for _ in range(message_passing_num)
+            GraphNetBlock(hidden_size, dtype, project_before_gather)
+            for _ in range(message_passing_num)
         )
         self.decode_module = _decoder(hidden_size, output_size, num_mixture_components,
                                       use_diagonal, dtype)
@@ -126,6 +134,8 @@ class EncodeProcessDecode(_GMMOptions, nn.Module):
                 graph.receivers,
                 graph.edge_mask,
                 graph.row_bounds,
+                graph.ell_degree,
+                graph.twin_perm,
             )
         return self.decode_module(x).to(torch.float32)
 
@@ -137,7 +147,8 @@ class EncodeTransformDecode(_GMMOptions, nn.Module):
     are not used. On CUDA the graph must carry ``sender_bounds``
     (``pad_graph_csr_np``): attention then runs the fused Hopper attention
     kernel once per block (on its bf16 entry with a bf16 ``dtype``: the
-    projections give q, k and v in it). Emits float32 predictions."""
+    projections give q, k and v in it); or be an ELL graph, whose attention
+    is the dense ELL ops. Emits float32 predictions."""
 
     def __init__(
         self,
@@ -152,13 +163,15 @@ class EncodeTransformDecode(_GMMOptions, nn.Module):
         dtype: Optional[torch.dtype] = None,
         remat: bool = False,
         scan_blocks: bool = False,
+        use_proj_bias: bool = True,
     ):
         super().__init__()
         self._set_gmm(output_size, num_mixture_components, temperature, use_diagonal)
         self._set_knobs(dtype, remat, scan_blocks)
         self.nodes_encoder = MLP(node_input_size, hidden_size, hidden_size, dtype=dtype)
         self.processor_list = nn.ModuleList(
-            TransformerBlock(hidden_size, num_heads, dtype) for _ in range(message_passing_num)
+            TransformerBlock(hidden_size, num_heads, dtype, use_proj_bias)
+            for _ in range(message_passing_num)
         )
         self.decode_module = _decoder(hidden_size, output_size, num_mixture_components,
                                       use_diagonal, dtype)
@@ -167,5 +180,5 @@ class EncodeTransformDecode(_GMMOptions, nn.Module):
         x = self.nodes_encoder(graph.x)
         for block in self.processor_list:
             x = self._block(block, x, graph.senders, graph.receivers, graph.edge_mask,
-                            graph.sender_bounds)
+                            graph.sender_bounds, graph.ell_degree, graph.twin_perm)
         return self.decode_module(x).to(torch.float32)

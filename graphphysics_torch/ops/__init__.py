@@ -13,6 +13,7 @@ from graphphysics_torch.ops.csr_segment import (
     csr_segment_sum_backward_reference,
     csr_segment_sum_reference,
 )
+from graphphysics_torch.ops.ell_ops import ell_gather, ell_repeat, ell_segment_sum, ell_softmax
 from graphphysics_torch.ops.segment import masked_segment_sum, segment_softmax, take_rows
 
 __all__ = [
@@ -26,6 +27,10 @@ __all__ = [
     "csr_softmax_spmm_backward_reference",
     "csr_softmax_spmm_reference",
     "csr_sparse_attention",
+    "ell_gather",
+    "ell_repeat",
+    "ell_segment_sum",
+    "ell_softmax",
     "masked_segment_sum",
     "segment_softmax",
     "sparse_graph_attention",

@@ -5,9 +5,9 @@
 configurations the port trains and serves today: float32 or bfloat16
 compute, rematerialized and scanned blocks, the plain (K = 0) decoder or a
 GMM head, h5 and XDMF datasets, previous-frame data, the dataset-specific
-feature hooks, world-position edges, k-hop and random edges and node
-masking. A key that asks for more raises ``NotImplementedError`` naming the
-ROADMAP item that brings it.
+feature hooks, world-position edges, k-hop and random edges, node
+masking, size buckets (``num_buckets``, ``bucket_multiple``) and the
+model's sorted, CSR or ELL edge layout.
 """
 
 from __future__ import annotations
@@ -25,10 +25,6 @@ from graphphysics_torch.dataset.preprocessing import Pipeline, build_preprocessi
 from graphphysics_torch.dataset.xdmf_dataset import XDMFDataset
 from graphphysics_torch.models.processors import EncodeProcessDecode, EncodeTransformDecode
 from graphphysics_torch.models.simulator import Simulator, SimulatorConfig
-
-
-def _waits(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md section 1, {item})")
 
 
 def get_preprocessing(
@@ -106,7 +102,10 @@ def model_options(param: Dict[str, Any]) -> Dict[str, Any]:
 def get_model(param: Dict[str, Any]) -> nn.Module:
     """The processor of ``param["model"]``: ``"epd"`` or ``"transformer"``,
     with the NodeType one-hot width added to ``node_input_size``, the
-    decoder of ``gmm_options`` and the knobs of ``model_options``."""
+    decoder of ``gmm_options`` and the knobs of ``model_options``. Two keys
+    reach layer knobs the JAX ``get_model`` leaves at their defaults:
+    ``"project_before_gather"`` (EPD, default false) and
+    ``"use_proj_bias"`` (transformer, default true)."""
     model = param["model"]
     knobs = model_options(param)
     node_input_size = model["node_input_size"] + int(NodeType.SIZE)
@@ -119,6 +118,7 @@ def get_model(param: Dict[str, Any]) -> nn.Module:
             model["hidden_size"],
             **gmm_options(param),
             **knobs,
+            project_before_gather=bool(model.get("project_before_gather", False)),
         )
     if model.get("type") == "transformer":
         return EncodeTransformDecode(
@@ -129,6 +129,7 @@ def get_model(param: Dict[str, Any]) -> nn.Module:
             model["num_heads"],
             **gmm_options(param),
             **knobs,
+            use_proj_bias=bool(model.get("use_proj_bias", True)),
         )
     raise ValueError(f"Model type {model.get('type')!r} not supported.")
 
@@ -163,7 +164,7 @@ def edge_layout(param: Dict[str, Any], wanted: Optional[str] = None) -> str:
     layout asked for (``wanted``, else the config's ``dataset.edge_layout``)
     "auto", "coo" (the JAX default, the same edges unsorted) or absent
     resolves to that; "csr" is taken by the transformer only, whose kernel it
-    is; "ell" is not ported yet."""
+    is; "ell" is taken by both families (the dense ELL ops)."""
     model_type = param["model"].get("type")
     if model_type not in MODEL_EDGE_LAYOUTS:
         raise ValueError(f"Model type {model_type!r} not supported.")
@@ -172,7 +173,7 @@ def edge_layout(param: Dict[str, Any], wanted: Optional[str] = None) -> str:
     wanted = wanted or "auto"
     layout = MODEL_EDGE_LAYOUTS[model_type]
     if wanted == "ell":
-        raise _waits("the ELL edge layout", "item 11, training features")
+        return "ell"
     if wanted in ("auto", "coo") or wanted == layout:
         return layout
     raise ValueError(
@@ -199,9 +200,11 @@ def get_dataset(
     "h5", ``h5_path``) or an ``XDMFDataset`` ("xdmf", ``xdmf_folder`` with
     the config's ``random_prev``, ``random_next`` and ``dt_features``), in
     the model's edge layout (``edge_layout``, which a layout asked for here
-    must resolve to), with the config's ``bucket_multiple`` and
-    ``edge_headroom``; ``budget_kwargs`` override them and may give
-    ``node_budget``, ``edge_budget`` and ``seed``. ``use_previous_data``
+    must resolve to), with the config's ``num_buckets``, ``bucket_multiple``
+    and ``edge_headroom`` (each passed on unless absent or null, so a 0
+    reaches the dataset's check, as in the JAX package); ``budget_kwargs``
+    override them and may give ``node_budget``, ``edge_budget``,
+    ``ell_degree`` and ``seed``. ``use_previous_data``
     gives every item the frame before it; ``masking_ratio`` marks that share
     of each item's nodes ``exclude_mask``. The config's ``khop`` and
     ``new_edges_ratio`` reach the dataset, and its world-position
@@ -211,7 +214,7 @@ def get_dataset(
     extension = dataset_params.get("extension", "")
     if extension not in ("h5", "xdmf"):
         raise ValueError(f"Dataset extension {extension!r} not supported.")
-    for k in ("bucket_multiple", "edge_headroom", "num_buckets"):
+    for k in ("num_buckets", "bucket_multiple", "edge_headroom"):
         if k not in budget_kwargs and dataset_params.get(k) is not None:
             budget_kwargs[k] = dataset_params[k]
     khop = dataset_params.get("khop", 1)

@@ -36,8 +36,15 @@ feed ``x[:, previous_data_start:previous_data_end]`` (``rollout``), and the
 written rollout series start at ``2 * dt``: the first frame with a frame
 before it.
 
-Data parallelism, graph partitioning, gradient accumulation and the profiler
-come with later slices: asking for one raises
+With ``gradient_accumulation`` each batch is a stacked ``[M, ...]`` Graph
+(``GraphLoader(collate="stack")``) whose M microbatches make one optimizer
+step (``training/microbatch.py``): one microbatch's activations alive at a
+time, the statistics and the loss those of the concatenation.
+
+Batches and trajectories come in the dataset's layout: sorted, CSR or ELL,
+padded to one budget or, with size buckets, each to its bucket's (a
+trajectory's frames share one). Data parallelism, graph partitioning and
+the profiler are not ported yet: asking for one raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 
@@ -56,7 +63,13 @@ from graphphysics_torch.core.graph import Graph, stack_graphs
 from graphphysics_torch.core.nodetype import NodeType
 from graphphysics_torch.models.layers import reset_parameters
 from graphphysics_torch.training.checkpoint import load_checkpoint_with_metadata, save_checkpoint
-from graphphysics_torch.training.losses import diagonal_gmm_nll_loss, gmm_nll_loss, l2_loss
+from graphphysics_torch.training.losses import (
+    diagonal_gmm_nll_loss,
+    gmm_nll_loss,
+    l2_loss,
+    make_local_loss,
+)
+from graphphysics_torch.training.microbatch import gmm_kwargs, loss_kind, microbatch_step
 from graphphysics_torch.training.parse_parameters import get_simulator, gmm_options
 from graphphysics_torch.training.rollout import rollout, rollout_rmse
 from graphphysics_torch.training.schedule import cosine_warmup_schedule
@@ -72,7 +85,6 @@ WEIGHT_DECAY = 1e-4
 # that leaves each off, and the ROADMAP.md section 1 item that brings it
 _NOT_PORTED = {
     "data_parallel": (False, 13),
-    "gradient_accumulation": (False, 11),
     "graph_partition": (0, 14),
     "partition_mode": (None, 14),
     "partition_edge_headroom": (None, 14),
@@ -108,7 +120,8 @@ class Trainer:
     ``metrics_path`` and to ``extra_logger`` (``.log(metrics, step=)``),
     where given. Checkpoints go to ``checkpoint_dir/checkpoint_name``, the
     XDMF rollout of validation trajectory 0 under ``rollout_dir`` (none
-    without it)."""
+    without it). ``gradient_accumulation`` takes stacked batches, one
+    optimizer step over their microbatches."""
 
     def __init__(
         self,
@@ -130,6 +143,7 @@ class Trainer:
         save_every_n_steps: Optional[int] = None,
         progress: Optional[bool] = None,
         device: DeviceLike = None,
+        gradient_accumulation: bool = False,
         **options: Any,
     ):
         for name, value in options.items():
@@ -163,6 +177,10 @@ class Trainer:
         self.extra_logger = extra_logger
         self.save_every_n_steps = save_every_n_steps
         self.progress = progress
+        self.gradient_accumulation = bool(gradient_accumulation)
+        self._local_loss = make_local_loss(
+            self.masks, loss_kind(self.K, self.use_diagonal), gmm_kwargs(self.K, self.d, self.temperature)
+        )
         self.sim = None
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.scheduler = None
@@ -186,18 +204,28 @@ class Trainer:
         self.step = 0
 
     def train_step(self, graph: Graph) -> torch.Tensor:
-        """One optimizer step on ``graph`` (host or device); returns the
-        step's loss as a 0-d tensor on the device, not synchronized."""
+        """One optimizer step on ``graph`` (host or device): a flat batch,
+        or with ``gradient_accumulation`` a stacked one, each of its
+        microbatches in turn. Returns the step's loss as a 0-d tensor on the
+        device, not synchronized."""
         if self.optimizer is None:
             raise RuntimeError("call init_state (or fit) before train_step")
         self.sim.train()
         graph = graph.to(self.device)
-        # the training forward folds the batch into the normalizers first
-        out, target, _ = self.sim(graph, is_training=True)
-        loss = self.loss(target, out, graph)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        self.optimizer.step()
+        if self.gradient_accumulation:
+            if graph.x.dim() != 3:
+                raise ValueError(
+                    "gradient_accumulation takes stacked [M, N, F] batches: "
+                    "GraphLoader(collate='stack')"
+                )
+            loss = microbatch_step(self.sim, self.optimizer, graph, self._local_loss)
+        else:
+            # the training forward folds the batch into the normalizers first
+            out, target, _ = self.sim(graph, is_training=True)
+            loss = self.loss(target, out, graph)
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            self.optimizer.step()
         self.scheduler.step()
         self.step += 1
         return loss.detach()

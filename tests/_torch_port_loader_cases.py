@@ -163,10 +163,41 @@ def case_timeout(h5_path, meta_path):
     assert time.time() - t0 < 60
 
 
+def case_buckets(h5_path, meta_path):
+    """A size-bucketed dataset of mixed mesh sizes (``test_torch_port_buckets``
+    writes it) through the workers, stacked, with partial buckets filled by
+    masked copies (``drop_last=False``): the workers' batches equal the
+    in-process ones over two epochs, every batch bucket-pure."""
+    def loader(workers):
+        ds = dataset(h5_path, meta_path, num_buckets=2, bucket_multiple=64, masking_ratio=None,
+                     new_edges_ratio=0.0)
+        return GraphLoader(ds, batch_size=4, shuffle=True, seed=5, prefetch=1,
+                           num_workers=workers, timeout=TIMEOUT_S, collate="stack",
+                           drop_last=False)
+
+    ref, par = loader(0), loader(WORKERS)
+    try:
+        for epoch in range(2):
+            ref.set_epoch(epoch)
+            par.set_epoch(epoch)
+            want, got = list(ref), list(par)
+            assert_batches_equal(got, want)
+            assert {b.x.shape[1] for b in got} == {64, 192}
+            # 10 items a bucket in batches of 4: each bucket's last batch
+            # holds 2 real graphs and 2 masked copies
+            filled = [b for b in got if not b.node_mask[-1].any()]
+            assert len(got) == 6 and len(filled) == 2
+            assert all(b.node_mask[1].any() and not b.edge_mask[2:].any() for b in filled)
+    finally:
+        par.close()
+
+
 CASES = {"match": case_match, "abandoned": case_abandoned, "exception": case_exception,
          "timeout": case_timeout}
+# cases run by other test files, on their own data
+OTHER_CASES = {"buckets": case_buckets}
 
 
 if __name__ == "__main__":
-    CASES[sys.argv[1]](*sys.argv[2:4])
+    {**CASES, **OTHER_CASES}[sys.argv[1]](*sys.argv[2:4])
     print("ok", flush=True)

@@ -187,8 +187,9 @@ def test_flags_not_ported_exit_naming_their_item(cli, flag, item, config, capsys
 def test_get_dataset_refuses_what_is_not_ported(cylinder):
     param = cylinder_param(*cylinder, "epd")
     pre = get_preprocessing(param)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        get_dataset(param, pre, num_buckets=2)
+    # size buckets are ported: the fixture's one mesh size collapses them
+    ds = get_dataset(param, pre, num_buckets=2)
+    assert ds[0].x.shape[0] == ds.node_budget and ds.num_buckets == 1
     # node masking is ported: each item marks int((1 - ratio) * N) nodes
     g = get_dataset(param, pre, masking_ratio=0.5)[0]
     assert int(g.exclude_mask.sum()) == int(0.5 * int(g.node_mask.sum()))
@@ -321,3 +322,52 @@ def test_bf16_remat_panels_config_train_predict_resume(tmp_path, monkeypatch):
     assert back.sim.model.dtype == torch.bfloat16
     for key, value in back.sim.state_dict().items():
         assert torch.equal(value, sd[key]), key
+
+
+@pytest.mark.parametrize("case", ["ell_epd", "ell_transformer", "buckets", "gradient_accumulation",
+                                  "project_before_gather", "no_proj_bias"])
+def test_training_features_through_train_predict_resume(cylinder, tmp_path, monkeypatch, case):
+    """The ELL layout for both families, size buckets (on a file of two mesh
+    sizes), ``--gradient_accumulation`` and the two layer knobs through the
+    flow of ``train.sh``, ``predict.sh`` and ``retrain.sh``: train 1 epoch,
+    predict every test trajectory, resume to 2 epochs."""
+    import shutil
+
+    from graphphysics_tpu.utils.synthetic import write_cylinder_h5
+
+    kind = "transformer" if case in ("ell_transformer", "no_proj_bias") else "epd"
+    data = cylinder
+    if case == "buckets":
+        data = write_cylinder_h5(str(tmp_path / "mixed"), steps=4, grids=[(6, 5), (14, 10)])
+        shutil.copy(data[0], tmp_path / "mixed" / "test.h5")
+    param = cylinder_param(*data, kind)
+    param["dataset"].update({"ell_epd": {"edge_layout": "ell"}, "ell_transformer": {"edge_layout": "ell"},
+                             "buckets": {"num_buckets": 2, "bucket_multiple": 64}}.get(case, {}))
+    param["model"].update({"project_before_gather": {"project_before_gather": True},
+                           "no_proj_bias": {"use_proj_bias": False}}.get(case, {}))
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text(json.dumps(param))
+    work = tmp_path / "work"
+    work.mkdir()
+    monkeypatch.chdir(work)
+    flags = ["--training_parameters_path", str(cfg), *TRAIN_FLAGS, "--device", "cpu",
+             *(["--gradient_accumulation"] if case == "gradient_accumulation" else [])]
+    assert train_cli.main([*flags, "--num_epochs", "1"]) == 0
+    ckpt = str(work / "checkpoints" / "state.pt")
+    steps = load_metadata(ckpt)["step"]
+    assert steps > 0
+    state = torch.load(ckpt, weights_only=True)["model"]
+    assert ("model.processor_list.0.attention.q_proj.bias" in state) == (
+        kind == "transformer" and case != "no_proj_bias")
+    assert predict_cli.main(["--training_parameters_path", str(cfg), "--model_path", ckpt,
+                             "--save_dir", "predictions", "--device", "cpu"]) == 0
+    test_ds = get_dataset(param, get_preprocessing(param, remove_noise=True, use_edge_feature=kind == "epd"),
+                          use_edge_feature=kind == "epd", switch_to_val=True)
+    assert test_ds.edge_layout == ("ell" if case.startswith("ell") else
+                                   {"epd": "sorted", "transformer": "csr"}[kind])
+    assert test_ds.num_buckets == (2 if case == "buckets" else 1)
+    xdmf = sorted(f for f in os.listdir(work / "predictions") if f.endswith(".xdmf"))
+    assert xdmf == [f"graph_{t}.xdmf" for t in range(test_ds.size_dataset)]
+    assert train_cli.main([*flags, "--num_epochs", "2", "--resume_training", "--model_path", ckpt]) == 0
+    meta = load_metadata(ckpt)
+    assert meta["epoch"] == 2 and meta["step"] == 2 * steps

@@ -3,7 +3,9 @@
 kernels against their plain versions on edge cases, autograd through the
 wrappers, a TransformerBlock and the EPD and transformer forwards on the
 card against the CPU, two train steps of each model on the card against
-the CPU, and the aneurysm XDMF path's launches. Marked ``cuda``; they skip without a card. This file imports no JAX, so on a machine without it
+the CPU, the aneurysm XDMF path's launches, the ELL layout's train steps
+(no kernel), a gradient-accumulation step against the concat step and a
+masked filler adding nothing. Marked ``cuda``; they skip without a card. This file imports no JAX, so on a machine without it
 run them with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py
@@ -781,3 +783,135 @@ def test_bf16_train_steps_on_card_launch_the_bf16_entries(cuda):
     # bf16 on both devices: roundings that fall the other way where f32
     # sums differ in order
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-2)
+
+
+def _kernel_launches():
+    from graphphysics_torch.ops.csr_attention import csr_attention, csr_attention_backward
+    from graphphysics_torch.ops.csr_segment import csr_segment_sum, csr_segment_sum_backward
+
+    return [k.launches for k in (csr_segment_sum, csr_segment_sum_backward, csr_attention,
+                                 csr_attention_backward)]
+
+
+def _ell_batch(kind, seed):
+    from graphphysics_torch.core import concat_graphs, pad_graph_ell_np
+    from graphphysics_torch.topology import to_undirected
+
+    r = np.random.default_rng(seed)
+    graphs = []
+    for n in (500, 512):
+        s, t = to_undirected(r.integers(0, n, 3 * n).astype(np.int32),
+                             r.integers(0, n, 3 * n).astype(np.int32))
+        x = r.normal(size=(n, 4)).astype(np.float32)
+        x[:, 2] = r.integers(0, 7, n)
+        graphs.append(pad_graph_ell_np(
+            x, r.normal(size=(n, 2)).astype(np.float32), s, t, 512, 20,
+            edge_attr=r.normal(size=(len(s), 3)).astype(np.float32) if kind == "epd" else None,
+            y=r.normal(size=(n, 2)).astype(np.float32), node_type_index=2))
+    return concat_graphs(graphs)
+
+
+@pytest.mark.parametrize("kind", ["epd", "transformer"])
+def test_ell_train_steps_on_card_match_cpu_without_kernels(cuda, kind):
+    """The ELL layout on the card: the dense ELL ops, no kernel launched,
+    two steps within the f32 limits of the sorted and CSR layouts'."""
+    from graphphysics_torch.training import Trainer
+
+    batches = [_ell_batch(kind, seed) for seed in (0, 1)]
+    losses, params = {}, {}
+    for dev in ("cpu", "cuda"):
+        trainer = Trainer(_train_param(kind), learning_rate=1e-3, warmup=2, device=dev)
+        trainer.init_state(10)
+        before = _kernel_launches()
+        losses[dev] = [trainer.train_step(b).item() for b in batches]
+        assert _kernel_launches() == before
+        params[dev] = {k: v.detach().cpu() for k, v in trainer.sim.state_dict().items()}
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+    for key, value in params["cpu"].items():
+        atol = 2 * 2 * 1e-3 if key.endswith("k_proj.bias") else 1e-5
+        torch.testing.assert_close(params["cuda"][key], value, rtol=1e-5, atol=atol, msg=key)
+
+
+@pytest.mark.parametrize("kind", ["epd", "transformer"])
+def test_accumulation_step_on_card_matches_the_concat_step(cuda, kind):
+    """One gradient-accumulation step over the batch's 2 graphs as
+    microbatches against the concat step, on the card: the loss and the
+    parameters within the step limits, the counters advanced once, and one
+    forward and one backward launch a block and microbatch."""
+    from graphphysics_torch.core import stack_graphs
+    from graphphysics_torch.training import Trainer
+
+    parts = _train_graphs(kind, 0)  # 500 and 400 real nodes: a mean of means would differ
+    results = {}
+    for accumulate in (False, True):
+        trainer = Trainer(_train_param(kind), learning_rate=1e-3, warmup=2, device="cuda",
+                          gradient_accumulation=accumulate)
+        trainer.init_state(10)
+        before = _kernel_launches()
+        g = stack_graphs(parts) if accumulate else concat_graphs_of(parts)
+        loss = trainer.train_step(g).item()
+        launched = [a - b for a, b in zip(_kernel_launches(), before)]
+        counts = [m._num_accumulations.item() for m in trainer.sim.modules()
+                  if type(m).__name__ == "Normalizer"]
+        results[accumulate] = (loss, {k: v.detach().cpu() for k, v in trainer.sim.state_dict().items()},
+                               launched, counts)
+    (loss_c, sd_c, launched_c, counts_c), (loss_m, sd_m, launched_m, counts_m) = results[False], results[True]
+    np.testing.assert_allclose(loss_m, loss_c, rtol=1e-5)
+    assert counts_m == counts_c and all(c == 1.0 for c in counts_m)
+    per = 3  # blocks
+    assert launched_c == ([per, per, 0, 0] if kind == "epd" else [0, 0, per, per])
+    assert launched_m == [2 * v for v in launched_c]
+    for key, value in sd_c.items():
+        atol = 2 * 2 * 1e-3 if key.endswith("k_proj.bias") else 1e-5
+        torch.testing.assert_close(sd_m[key], value, rtol=2e-4, atol=atol, msg=key)
+
+
+def _train_graphs(kind, seed):
+    from graphphysics_torch.core import pad_graph_csr_np, pad_graph_sorted_np
+
+    r = np.random.default_rng(seed)
+    graphs = []
+    for n, e in ((500, 3000), (400, 2500)):
+        x = r.normal(size=(n, 4)).astype(np.float32)
+        x[:, 2] = r.integers(0, 7, n)
+        pad = pad_graph_sorted_np if kind == "epd" else pad_graph_csr_np
+        graphs.append(pad(
+            x, r.normal(size=(n, 2)).astype(np.float32), r.integers(0, n, e).astype(np.int32),
+            r.integers(0, n, e).astype(np.int32), 512, 3200,
+            edge_attr=r.normal(size=(e, 3)).astype(np.float32) if kind == "epd" else None,
+            y=r.normal(size=(n, 2)).astype(np.float32), node_type_index=2,
+        ))
+    return graphs
+
+
+def concat_graphs_of(graphs):
+    from graphphysics_torch.core import concat_graphs
+
+    return concat_graphs(graphs)
+
+
+@pytest.mark.parametrize("kind", ["epd", "transformer"])
+def test_masked_filler_adds_nothing_on_card(cuda, kind):
+    """A batch with a masked copy of its last graph against the real graphs
+    alone, on the card: the kernels skip the filler's masked edges, so the
+    loss, the gradients and the normalizer statistics are equal."""
+    from graphphysics_torch.core import masked_filler
+    from graphphysics_torch.training import Trainer
+
+    real = _train_graphs(kind, 1)
+    results = []
+    for graphs in (real, real + [masked_filler(real[-1])]):
+        trainer = Trainer(_train_param(kind), learning_rate=1e-3, warmup=2, device="cuda")
+        trainer.init_state(1)
+        batch = concat_graphs_of(graphs).to("cuda")
+        out, target, _ = trainer.sim(batch, is_training=True)
+        loss = trainer.loss(target, out, batch)
+        loss.backward()
+        results.append((loss.item(), {n: p.grad.cpu() for n, p in trainer.sim.named_parameters()},
+                        {k: v.cpu() for k, v in trainer.sim.state_dict().items() if "normalizer" in k}))
+    (la, ga, sa), (lb, gb, sb) = results
+    np.testing.assert_allclose(lb, la, rtol=1e-6)
+    for name, g in ga.items():
+        torch.testing.assert_close(gb[name], g, rtol=1e-5, atol=1e-7, msg=name)
+    for key, v in sa.items():
+        torch.testing.assert_close(sb[key], v, rtol=1e-6, atol=1e-6, msg=key)

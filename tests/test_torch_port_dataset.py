@@ -93,20 +93,32 @@ def test_edge_layout_follows_the_model(cylinder, kind, config, want):
 
 
 def test_edge_layouts_the_port_has_not_raise(cylinder):
+    """A layout that is not the model's kernel's raises; the ELL layout,
+    dense ops on every device, is taken by both families."""
     with pytest.raises(ValueError, match="does not fit"):
         edge_layout(_param(*cylinder, "epd", edge_layout="csr"))
-    with pytest.raises(NotImplementedError, match="ELL"):
-        edge_layout(_param(*cylinder, "epd", edge_layout="ell"))
+    for kind in ("epd", "transformer"):
+        assert edge_layout(_param(*cylinder, kind, edge_layout="ell")) == "ell"
 
 
-@pytest.mark.parametrize(
-    "kwargs,match",
-    [({"num_buckets": 2}, "buckets .* item 11"), ({"edge_layout": "ell"}, "ELL .* item 11")],
-)
-def test_unported_dataset_options_raise(cylinder, kwargs, match):
+@pytest.mark.parametrize("kwargs", [{"num_buckets": 2, "bucket_multiple": 16}, {"edge_layout": "ell"}])
+def test_unported_dataset_options_raise(cylinder, kwargs):
+    """Size buckets and the ELL layout (refused until they were ported) give
+    the JAX dataset's padded shapes and edges."""
     h5_path, meta_path = cylinder
-    with pytest.raises(NotImplementedError, match=match):
-        H5Dataset(h5_path, meta_path, **kwargs)
+    ours = H5Dataset(h5_path, meta_path, node_type_index=2, **kwargs)
+    theirs = JaxH5Dataset(h5_path, meta_path, node_type_index=2, **kwargs)
+    last = ours.trajectory_indices(1)[0]
+    for i in (0, last):
+        a, b = ours[i], theirs[i]
+        assert a.x.shape == b.x.shape and a.senders.shape == b.senders.shape
+        np.testing.assert_array_equal(a.x, b.x)
+    if "num_buckets" in kwargs:
+        assert ours.num_buckets == theirs.num_buckets == 2
+        assert ours[0].x.shape[0] < ours[last].x.shape[0]
+    else:
+        assert ours.ell_degree == theirs.ell_degree and ours[0].ell_degree == ours.ell_degree
+        np.testing.assert_array_equal(ours[0].twin_perm, theirs[0].twin_perm)
 
 
 def _datasets(cylinder, kind, noise=True):

@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from graphphysics_tpu.models import layers as jax_layers
-from graphphysics_torch.core.graph import pad_graph_sorted_np
+from graphphysics_torch.core.graph import pad_graph_csr_np, pad_graph_sorted_np
 from graphphysics_torch.models.layers import MLP, GraphNetBlock, RMSNorm, reset_parameters
 from tests._torch_port_common import state_dict_under
 
@@ -131,3 +131,81 @@ def test_reset_parameters_is_seeded():
         assert torch.equal(va, vb), k
         if k.endswith("weight"):
             assert not torch.equal(va, vc), k
+
+
+def test_graphnet_block_project_before_gather_matches_flax():
+    """Twin of ``test_layers.py::test_graphnet_block_project_before_gather_parity``:
+    the split first layer is the same function with the same parameters
+    (the concat block's ``state_dict`` loads strictly), against the flax
+    block with the knob on and the port's plain block, outputs and
+    gradients."""
+    x, ea, s, rcv, n, n_pad, e_pad = _block_case(seed=4)
+    h = x.shape[1]
+    s_p = np.full(e_pad, n_pad - 1, np.int32)
+    r_p = s_p.copy()
+    s_p[: len(s)], r_p[: len(rcv)] = s, rcv
+    mask = np.arange(e_pad) < len(s)
+    args = [jnp.asarray(a) for a in (s_p, r_p, mask)]
+    fused = jax_layers.GraphNetBlock(hidden_size=h, project_before_gather=True)
+    params = fused.init(jax.random.key(3), jnp.asarray(x), jnp.asarray(ea), *args)["params"]
+
+    def jloss(p, xv):
+        a, b = fused.apply({"params": p}, xv, jnp.asarray(ea), *args)
+        return (a ** 2).sum() + (b ** 2).sum(), (a, b)
+
+    (_, (want_x, want_e)), (gp, gx) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
+        params, jnp.asarray(x))
+    sd = state_dict_under("processor_list.0", {"block_0": params})
+    targs = [torch.from_numpy(a) for a in (s_p, r_p, mask)]
+    results = []
+    for knob in (True, False):
+        ours = GraphNetBlock(h, project_before_gather=knob)
+        ours.load_state_dict(sd, strict=True)
+        xt = torch.from_numpy(x).requires_grad_(True)
+        got_x, got_e = ours(xt, torch.from_numpy(ea), *targs)
+        ((got_x ** 2).sum() + (got_e ** 2).sum()).backward()
+        results.append((got_x.detach(), got_e.detach(), xt.grad,
+                        {k: p.grad for k, p in ours.named_parameters()}))
+    want_gp = state_dict_under("processor_list.0", {"block_0": gp})
+    for got_x, got_e, got_gx, got_gp in results:
+        np.testing.assert_allclose(got_x.numpy(), np.asarray(want_x), rtol=2e-5, atol=1e-5)
+        np.testing.assert_allclose(got_e.numpy(), np.asarray(want_e), rtol=2e-5, atol=1e-5)
+        # flax's own twin test holds its gradients at 5e-4 relative
+        np.testing.assert_allclose(got_gx.numpy(), np.asarray(gx), rtol=5e-4, atol=1e-5)
+        for name, g in got_gp.items():
+            np.testing.assert_allclose(g.numpy(), want_gp[name].numpy(), rtol=5e-4, atol=1e-5,
+                                       err_msg=name)
+
+
+def test_transformer_without_projection_biases_matches_flax():
+    """``use_proj_bias=False``: the JAX model's parameter tree has no q, k,
+    v or output projection biases; its exported state_dict loads strictly
+    into the port's model, which gives the JAX output."""
+    from graphphysics_tpu.core import graph as jax_graph
+    from graphphysics_tpu.models.processors import EncodeTransformDecode as JaxETD
+    from graphphysics_tpu.utils.torch_import import export_reference_state_dict
+    from graphphysics_torch.models import EncodeTransformDecode
+
+    r = np.random.default_rng(5)
+    n, e = 100, 500
+    x = r.normal(size=(n, 11)).astype(np.float32)
+    s, t = r.integers(0, n, e).astype(np.int32), r.integers(0, n, e).astype(np.int32)
+    jg = jax_graph.pad_graph_np(x, np.zeros((n, 2), np.float32), s, t, 128, 640)
+    jg = jax.tree_util.tree_map(lambda a: jnp.asarray(a) if isinstance(a, np.ndarray) else a, jg)
+    jmodel = JaxETD(message_passing_num=2, node_input_size=11, output_size=2, hidden_size=16,
+                    num_heads=4, use_proj_bias=False)
+    params = jmodel.init(jax.random.key(0), jg)["params"]
+    want = np.asarray(jmodel.apply({"params": params}, jg))
+    state = {k[len("model."):]: torch.from_numpy(np.array(v, np.float32))
+             for k, v in export_reference_state_dict({"model": params}).items()}
+    assert not any(k.endswith(("q_proj.bias", "k_proj.bias", "v_proj.bias", "attention.proj.bias"))
+                   for k in state)
+    ours = EncodeTransformDecode(2, 11, 2, 16, 4, use_proj_bias=False)
+    ours.load_state_dict(state, strict=True)
+    with pytest.raises(RuntimeError, match="Unexpected"):
+        EncodeTransformDecode(2, 11, 2, 16, 4, use_proj_bias=False).load_state_dict(
+            {**state, "processor_list.0.attention.q_proj.bias": torch.zeros(16)}, strict=True)
+    g = pad_graph_csr_np(x, np.zeros((n, 2), np.float32), s, t, 128, 640).to("cpu")
+    with torch.no_grad():
+        got = ours(g).numpy()
+    np.testing.assert_allclose(got[:n], want[:n], rtol=RTOL, atol=ATOL)
