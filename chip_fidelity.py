@@ -5,6 +5,7 @@ each epoch:
 
     python3 chip_fidelity.py [--config aneurysm|cylinder|panels|plate] [--gmm]
                              [--epochs N] [--device cuda] [--workdir DIR]
+                             [--graph_partition P [--halo_dtype bf16]]
 
 Each run is a JAX benchmark script with its defaults, through the port's
 ``Trainer`` (AdamW at 1e-3 with 200 warm-up steps, batches of 2, the
@@ -33,6 +34,14 @@ the writer's default and held-out ones from seed 12345):
 It prints the persistence baseline (the field frozen at each trajectory's
 first frame) and, as its last line, one JSON object with the training loss
 and the RMSE of every epoch.
+
+``--graph_partition P`` trains edge-partitioned, as the JAX benchmark
+scripts' flag does: P ranks (``parallel.mesh.launch``; on one card they
+share it over gloo), each with its own copy of the data under
+``workdir/rank{r}``, every training batch cut into P parts in halo mode
+(the transformer's split-edge layout by default), ``--halo_dtype bf16``
+shipping the halo rows in 16 bits; validation rolls the whole graph out
+unpartitioned. Rank 0's result is printed.
 
 XDMF trajectories are written with their heavy data inline in the XML
 (``write_inline_xdmf``) and the others held in memory: nothing needs
@@ -360,17 +369,37 @@ def persistence_rmse(val_ds, field_slice: Tuple[int, int], node_type_col: int) -
 
 
 def run(workdir: str, epochs: int = None, gmm: bool = False, device: str = "cuda",
-        config: str = "aneurysm") -> dict:
+        config: str = "aneurysm", graph_partition: int = 0, halo_dtype: str = None) -> dict:
     """The fidelity run of ``config``: writes the data under ``workdir``,
     trains ``epochs`` epochs (the config's own by default) with a
     validation rollout of the held-out split after each, and returns the
     per-epoch training loss and RMSE, the persistence baseline and the
-    seconds."""
+    seconds. ``graph_partition`` P runs it on P ranks (rank 0's result)."""
+    if gmm and config != "aneurysm":
+        raise ValueError("--gmm is the aneurysm run's c-a-gmm head")
+    if graph_partition:
+        from graphphysics_torch.parallel.mesh import launch
+
+        return launch(_run_rank, graph_partition, device, timeout=None,
+                      args=(workdir, epochs, gmm, device, config, graph_partition, halo_dtype))[0]
+    return _run(workdir, epochs, gmm, device, config)
+
+
+def _run_rank(rank: int, workdir: str, epochs, gmm, device, config, parts, halo_dtype) -> dict:
+    if device == "cuda":
+        import torch
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    partition = {"graph_partition": parts, "halo_dtype": halo_dtype}
+    return {**_run(os.path.join(workdir, f"rank{rank}"), epochs, gmm, device, config, partition),
+            **partition}
+
+
+def _run(workdir: str, epochs, gmm, device, config, partition=None) -> dict:
     from graphphysics_torch.dataset import GraphLoader
     from graphphysics_torch.training import Trainer
 
-    if gmm and config != "aneurysm":
-        raise ValueError("--gmm is the aneurysm run's c-a-gmm head")
     epochs = EPOCHS[config] if epochs is None else epochs
     t0 = time.perf_counter()
     run_setup = setup(workdir, config, gmm)
@@ -380,7 +409,8 @@ def run(workdir: str, epochs: int = None, gmm: bool = False, device: str = "cuda
     trainer = Trainer(param, learning_rate=LEARNING_RATE, warmup=WARMUP,
                       checkpoint_dir=os.path.join(workdir, "ckpt"),
                       metrics_path=os.path.join(workdir, "metrics.csv"), rollout_dir=None,
-                      log_every=50, progress=False, device=device, **run_setup["options"])
+                      log_every=50, progress=False, device=device, **run_setup["options"],
+                      **(partition or {}))
     baseline = persistence_rmse(val_ds, run_setup["field"], run_setup["node_type"])
     print(f"{config}: persistence (frozen-field) rollout RMSE: {baseline}", flush=True)
     t0 = time.perf_counter()
@@ -403,6 +433,7 @@ def run(workdir: str, epochs: int = None, gmm: bool = False, device: str = "cuda
         "persistence_rmse": baseline,
         "write_s": write_s,
         "fit_s": fit_s,
+        "host_ms_per_step": float(np.mean(trainer.host_ms)) if trainer.host_ms else None,
     }
 
 
@@ -416,7 +447,13 @@ def main(argv: List[str] = None) -> int:
     p.add_argument("--device", default="cuda", help="torch device (cuda unless named)")
     p.add_argument("--workdir", default=None, help="where the data and checkpoints go "
                    "(a temporary directory, removed at the end, unless named)")
+    p.add_argument("--graph_partition", type=int, default=0,
+                   help="train edge-partitioned over P ranks (halo mode)")
+    p.add_argument("--halo_dtype", default=None, choices=["bf16", "f16"],
+                   help="16-bit halo wire (with --graph_partition)")
     args = p.parse_args(argv)
+    if args.halo_dtype and not args.graph_partition:
+        p.error("--halo_dtype requires --graph_partition")
     if args.gmm and args.config != "aneurysm":
         p.error("--gmm is the aneurysm run's c-a-gmm head")
     card = {}
@@ -436,9 +473,11 @@ def main(argv: List[str] = None) -> int:
                 "nvidia_smi": smi.stdout.strip().splitlines()[0]}
     if args.workdir is None:
         with tempfile.TemporaryDirectory(prefix=f"{args.config}_fidelity_") as workdir:
-            out = run(workdir, args.epochs, args.gmm, args.device, args.config)
+            out = run(workdir, args.epochs, args.gmm, args.device, args.config,
+                      args.graph_partition, args.halo_dtype)
     else:
-        out = run(args.workdir, args.epochs, args.gmm, args.device, args.config)
+        out = run(args.workdir, args.epochs, args.gmm, args.device, args.config,
+                  args.graph_partition, args.halo_dtype)
     print(json.dumps({**out, **card}), flush=True)
     return 0
 

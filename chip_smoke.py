@@ -172,7 +172,15 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     step on the card;
 26. ``project_before_gather``: one 128-wide ``GraphNetBlock`` with the
     knob against the plain block on the flagship batch, forward and
-    backward, each timed.
+    backward, each timed;
+27-31. edge partitioning (``chip_partition.py``): ``k5_pair`` (K5 forward
+    and backward against their plain versions at three parts of a 4-way
+    split), ``partitioned_epd_training`` and
+    ``partitioned_transformer_training`` (4 ranks sharing the card over
+    gloo, the first step against the unpartitioned card step, 20 timed
+    steps with the launches checked), ``partitioned_rollout`` (10 frames
+    of each family against the unpartitioned card rollout) and
+    ``partitioned_fit`` (``grph-torch train|predict --graph_partition 4``).
 
 The K1 phase also times a one-element PyTorch elementwise kernel under the
 same CUDA-graph replay (``launch_floor_ms``): the floor under any kernel's
@@ -3308,6 +3316,8 @@ def main() -> int:
         csr_attention_backward,
         csr_softmax_spmm,
         csr_softmax_spmm_backward,
+        csr_softmax_spmm_pair,
+        csr_softmax_spmm_pair_backward,
     )
     from graphphysics_torch.ops.csr_segment import csr_segment_sum, csr_segment_sum_backward
     from graphphysics_torch.training import get_preprocessing
@@ -3328,6 +3338,8 @@ def main() -> int:
         "csr_attention_backward": csr_attention_backward,
         "csr_attention_bf16": csr_attention.bf16,
         "csr_attention_backward_bf16": csr_attention_backward.bf16,
+        "csr_softmax_spmm_pair": csr_softmax_spmm_pair,
+        "csr_softmax_spmm_pair_backward": csr_softmax_spmm_pair_backward,
     }
 
     # 1. environment and build ---------------------------------------------------
@@ -3566,6 +3578,14 @@ def main() -> int:
     bf16_kernels, bf16_paths = bf16_phases(
         clock, counts, args.seed, epd_frames, tf_frames, tf_batch, cyl_batch, aneurysm_csr, panels,
         cylinder, epd_train, tf_train, gmm_train)
+    torch.cuda.empty_cache()
+
+    # 27-31. edge partitioning: K5, partitioned training and rollouts on 4
+    # ranks sharing the card, the CLI's partitioned fit and predict
+    from chip_partition import partition_phases
+
+    k5_shapes, k5_bwd_shapes, partition_paths = partition_phases(
+        clock, args.seed, cylinder, panels, epd_frames, tf_frames, aneurysm_csr, floor)
     del aneurysm_csr
     torch.cuda.empty_cache()
 
@@ -3596,11 +3616,14 @@ def main() -> int:
     # steps, of the XDMF and plate pipelines (timed steps, fits and predict,
     # each counted from 0) and of the short fidelity runs
     paths = {"epd_training": epd_train, "transformer_training": tf_train, "gmm_training": gmm_train,
-             **aneurysm_paths, "plate_pipeline": plate_result, **fidelity, **bf16_paths, **feature_paths}
-    launched = {k: sum(r["launches"][k] for r in paths.values()) for k in counts}
-    by_path = {k: {p: r["launches"][k] for p, r in paths.items() if r["launches"][k]} for k in counts}
-    off_path = {"main_path_launches": 0,
-                "launches_from": "its kernel phases: no transformer path runs it (the fused kernels do)"}
+             **aneurysm_paths, "plate_pipeline": plate_result, **fidelity, **bf16_paths, **feature_paths,
+             **{p: {"launches": launches} for p, launches in partition_paths.items()}}
+    launched = {k: sum(r["launches"].get(k, 0) for r in paths.values()) for k in counts}
+    by_path = {k: {p: r["launches"].get(k, 0) for p, r in paths.items() if r["launches"].get(k, 0)}
+               for k in counts}
+    partitioned = {"launches_from": "the unsplit partitioned transformer's timed steps, 4 ranks "
+                                    "(partitioned_transformer_training); the unpartitioned "
+                                    "models run the fused kernels"}
     kernels = {"kernels": [
         entry("csr_segment_sum", "graphphysics_torch/csrc/csr_segment_sum.cu",
               "graphphysics_tpu/ops/pallas_segment.py:148", launched["csr_segment_sum"], k1_shapes,
@@ -3609,11 +3632,29 @@ def main() -> int:
               "graphphysics_tpu/ops/pallas_segment.py:228", launched["csr_segment_sum_backward"],
               k1b_shapes, GATHER_ATOL, launches_by_path=by_path["csr_segment_sum_backward"]),
         entry("csr_softmax_spmm", "graphphysics_torch/csrc/csr_softmax_spmm.cu",
-              "graphphysics_tpu/ops/pallas_attention.py:255", phase_launches["csr_softmax_spmm"],
-              k2_shapes, {"rtol": SOFTMAX_RTOL, "atol": SOFTMAX_ATOL}, **off_path),
+              "graphphysics_tpu/ops/pallas_attention.py:255", launched["csr_softmax_spmm"],
+              k2_shapes, {"rtol": SOFTMAX_RTOL, "atol": SOFTMAX_ATOL}, **partitioned,
+              launches_by_path=by_path["csr_softmax_spmm"], kernel_phase_launches=phase_launches[
+                  "csr_softmax_spmm"]),
         entry("csr_softmax_spmm_backward", "graphphysics_torch/csrc/csr_softmax_spmm_bwd.cu",
-              "graphphysics_tpu/ops/pallas_attention.py:398", phase_launches["csr_softmax_spmm_backward"],
-              k3_shapes, {"rtol": K3_RTOL, "atol": K3_ATOL}, **off_path),
+              "graphphysics_tpu/ops/pallas_attention.py:398", launched["csr_softmax_spmm_backward"],
+              k3_shapes, {"rtol": K3_RTOL, "atol": K3_ATOL}, **partitioned,
+              launches_by_path=by_path["csr_softmax_spmm_backward"],
+              kernel_phase_launches=phase_launches["csr_softmax_spmm_backward"]),
+        entry("csr_softmax_spmm_pair", "graphphysics_torch/csrc/csr_softmax_spmm_pair.cu",
+              "graphphysics_tpu/ops/pallas_attention.py:495", launched["csr_softmax_spmm_pair"],
+              k5_shapes, {"rtol": SOFTMAX_RTOL, "atol": SOFTMAX_ATOL},
+              replaced_ms=k5_shapes[1]["replaced_ms"], launch_floor_ms=floor,
+              launches_by_path=by_path["csr_softmax_spmm_pair"],
+              also_replaces="graphphysics_tpu/ops/pallas_attention.py:460 (_pair_impl) and :255 "
+                            "(_softmax_spmm_impl, launched twice by it)"),
+        entry("csr_softmax_spmm_pair_backward", "graphphysics_torch/csrc/csr_softmax_spmm_pair.cu",
+              "graphphysics_tpu/ops/pallas_attention.py:544", launched["csr_softmax_spmm_pair_backward"],
+              k5_bwd_shapes, {"rtol": K3_GRAD_RTOL, "atol": K3_GRAD_ATOL},
+              replaced_ms=k5_bwd_shapes[1]["replaced_ms"], launch_floor_ms=floor,
+              launches_by_path=by_path["csr_softmax_spmm_pair_backward"],
+              also_replaces="_pack_node_side and _edge_grads (graphphysics_tpu/ops/pallas_attention.py"
+                            ":418, :433) of _pair_bwd"),
         entry("csr_attention", "graphphysics_torch/csrc/csr_attention.cu",
               "graphphysics_tpu/ops/pallas_attention.py:255", launched["csr_attention"], fused_shapes,
               {"rtol": SOFTMAX_RTOL, "atol": SOFTMAX_ATOL}, replaced_ms=fused_shapes[1]["replaced_ms"],

@@ -6,8 +6,11 @@ series:
         --model_path checkpoints/state.pt --save_dir predictions [--device cpu]
 
 The checkpoint is a port file or a reference-format one (the JAX package's
-``export_reference_checkpoint``). Flags of features not ported yet exit with
-an error naming their ROADMAP item when given anything but their default.
+``export_reference_checkpoint``). ``--graph_partition P`` rolls each
+trajectory out edge-partitioned over P ranks (``partitioned_rollout``; the
+command starts them, or joins ``torchrun``'s), rank 0 writing. Flags of
+features not ported yet exit with an error naming their ROADMAP item when
+given anything but their default.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import argparse
 import json
 import sys
 
-from graphphysics_torch.cli.train import previous_data_options, refuse_not_ported
+from graphphysics_torch.cli.train import previous_data_options, refuse_not_ported, run_partitioned
 from graphphysics_torch.external import EXTERNAL_FEATURES
 from graphphysics_torch.training.checkpoint import load_checkpoint
 from graphphysics_torch.training.parse_parameters import get_dataset, get_preprocessing
@@ -44,17 +47,29 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 NOT_PORTED = (
-    ("graph_partition", 0, 14),
-    ("partition_mode", "halo", 14),
-    ("partition_reorder", None, 14),
     ("compilation_cache_dir", None, 12),
 )
 
 
+def _rank_main(rank: int, argv) -> int:
+    return predict(build_argparser().parse_args(argv))
+
+
 def main(argv=None) -> int:
     parser = build_argparser()
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
     refuse_not_ported(parser, args, NOT_PORTED)
+    if args.graph_partition:
+        return run_partitioned(_rank_main, argv, args)
+    if args.partition_mode != "halo" or args.partition_reorder:
+        # ignoring them would let the user believe the rollout ran partitioned
+        parser.error("--partition_mode/--partition_reorder require --graph_partition")
+    return predict(args)
+
+
+def predict(args: argparse.Namespace) -> int:
+    """The prediction run of the parsed flags (one rank's, partitioned)."""
     with open(args.training_parameters_path) as fp:
         parameters = json.load(fp)
 
@@ -67,8 +82,12 @@ def main(argv=None) -> int:
         use_previous_data=args.use_previous_data,
         switch_to_val=True,
     )
+    partition = {}
+    if args.graph_partition:
+        partition = dict(graph_partition=args.graph_partition, partition_mode=args.partition_mode,
+                         partition_reorder=args.partition_reorder, partitioned_validation=True)
     trainer = Trainer(parameters, metrics_path=None, rollout_dir=None, device=args.device,
-                      **previous_data_options(args))
+                      **previous_data_options(args), **partition)
     trainer.init_state(num_steps=1)
     load_checkpoint(args.model_path, trainer.sim)
     trainer.predict(ds, save_dir=args.save_dir, max_trajectories=args.max_trajectories)

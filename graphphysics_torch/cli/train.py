@@ -9,8 +9,12 @@ wandb installed. ``--gradient_accumulation`` makes each batch of
 ``batch_size`` items one optimizer step over that many microbatches (the
 loader stacks them). The config's ``dataset.num_buckets`` and
 ``dataset.edge_layout`` (``"ell"`` for the ELL layout) reach the datasets.
-A flag whose feature the port does not have yet exits with an error naming
-its ROADMAP item when given anything but its default.
+``--graph_partition P`` trains edge-partitioned over P ranks: the command
+starts them (``parallel.mesh.launch``; on one card they share it over
+gloo), or under ``torchrun`` with ``WORLD_SIZE == P`` joins its ranks;
+rank 0 writes the checkpoints and ``metrics.csv``. A flag whose feature the
+port does not have yet exits with an error naming its ROADMAP item when
+given anything but its default.
 """
 
 from __future__ import annotations
@@ -81,17 +85,10 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-# (flag, default, ROADMAP.md section 1 item): flags of features not ported yet
+# (flag, default, ROADMAP.md section 1 item): flags of features not ported
+# yet (data_parallel, alone or with graph_partition, is item 13)
 NOT_PORTED: Tuple[Tuple[str, object, int], ...] = (
     ("data_parallel", False, 13),
-    ("graph_partition", 0, 14),
-    ("partition_mode", "halo", 14),
-    ("partition_edge_headroom", 1.25, 14),
-    ("no_partition_budget_growth", False, 14),
-    ("partition_reorder", None, 14),
-    ("no_partition_overlap_attention", False, 14),
-    ("halo_dtype", None, 14),
-    ("partitioned_validation", False, 14),
     ("checkpoint_backend", "torch", 4),
     ("profile_dir", None, 12),
     ("compilation_cache_dir", None, 12),
@@ -134,10 +131,56 @@ def unify_budgets(train_ds, val_ds) -> None:
         train_ds.ell_degree = val_ds.ell_degree = degree
 
 
+def run_partitioned(rank_main, argv, args) -> int:
+    """Run ``rank_main(rank, argv)`` on ``args.graph_partition`` ranks:
+    join ``torchrun``'s when it started that many, else start them."""
+    from graphphysics_torch.parallel import mesh
+
+    parts = args.graph_partition
+    if mesh.under_torchrun(parts):
+        rank = mesh.init_from_env(parts, args.device)
+        try:
+            return rank_main(rank, argv)
+        finally:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+    mesh.launch(rank_main, parts, args.device, args=(list(argv),), timeout=None)
+    return 0
+
+
+def partition_options(args: argparse.Namespace) -> dict:
+    """The Trainer's graph-partition options of the flags."""
+    if not args.graph_partition:
+        return {}
+    return {
+        "graph_partition": args.graph_partition,
+        "partition_mode": args.partition_mode,
+        "partition_edge_headroom": args.partition_edge_headroom,
+        "partition_budget_growth": not args.no_partition_budget_growth,
+        "partition_reorder": args.partition_reorder,
+        "partition_overlap_attention": not args.no_partition_overlap_attention,
+        "halo_dtype": args.halo_dtype,
+        "partitioned_validation": args.partitioned_validation,
+    }
+
+
+def _rank_main(rank: int, argv) -> int:
+    return train(build_argparser().parse_args(argv))
+
+
 def main(argv=None) -> int:
     parser = build_argparser()
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
     refuse_not_ported(parser, args, NOT_PORTED)
+    if args.graph_partition:
+        return run_partitioned(_rank_main, argv, args)
+    return train(args)
+
+
+def train(args: argparse.Namespace) -> int:
+    """The training run of the parsed flags (one rank's, partitioned)."""
     with open(args.training_parameters_path) as fp:
         parameters = json.load(fp)
 
@@ -196,6 +239,7 @@ def main(argv=None) -> int:
         device=args.device,
         gradient_accumulation=args.gradient_accumulation,
         **previous_data_options(args),
+        **partition_options(args),
     )
     try:
         trainer.fit(

@@ -17,6 +17,13 @@ fixed-degree ELL layout (``pad_graph_ell_np``, ``topology.ell``) groups the
 edges by receiver into ``ell_degree`` slots per node and carries each slot's
 reversed twin (``twin_perm``); its ops (``ops.ell_ops``) are dense reshapes
 and gathers on every device.
+
+An edge-partitioned graph (``parallel.graph_partition``) names its process
+group in ``partition_axis``; its parts are stacked ``[P, ...]`` on the host
+and each rank holds one (``graph[p]``). A part's edges are sorted by its
+local receivers, with ``row_bounds`` over them, for both model families;
+in the split-edge layout (``num_local_edges``) the local slice and the halo
+slice are each sorted, with ``row_bounds`` and ``halo_row_bounds``.
 """
 
 from __future__ import annotations
@@ -61,6 +68,20 @@ class Graph:
             fixed-degree ELL layout, slot ``e`` owned by node
             ``e // ell_degree`` (``receivers[e] == e // ell_degree``). It
             stays an int through ``to``, stacking and indexing.
+        halo_send_idx: ``[P, B]`` int32 or None (halo mode of an
+            edge-partitioned part): the local rows this rank sends to each
+            peer, so senders index the exchange table ``[local rows | the
+            P*B received rows]`` (``ops.halo``). Without it a partitioned
+            part's senders are global ids into the all-gathered table.
+        halo_row_bounds: ``[2, N]`` int32 or None: in the split-edge layout,
+            each local row's range of the halo slice's edges, counted from
+            the slice's start ``num_local_edges``.
+        partition_axis: str or None, not an array: the name of the process
+            group of an edge-partitioned graph (``parallel.mesh``).
+        halo_dtype: "bf16", "f16" or None: the wire dtype of the halo
+            exchange.
+        num_local_edges: int or None: the split-edge layout's local slice,
+            edge slots ``[0, num_local_edges)``; the halo slice follows.
     """
 
     x: Any
@@ -76,6 +97,11 @@ class Graph:
     sender_bounds: Any = None
     twin_perm: Any = None
     ell_degree: Optional[int] = None
+    halo_send_idx: Any = None
+    halo_row_bounds: Any = None
+    partition_axis: Optional[str] = None
+    halo_dtype: Optional[str] = None
+    num_local_edges: Optional[int] = None
 
     @property
     def num_nodes(self) -> int:
@@ -89,15 +115,20 @@ class Graph:
         return dataclasses.replace(self, **kw)
 
     def _map(self, fn) -> "Graph":
-        """``fn`` applied to every array field; ``ell_degree`` is kept."""
+        """``fn`` applied to every array field; the fields that are not
+        arrays (``META_FIELDS``) are kept."""
         return Graph(
             **{
                 f.name: (None if getattr(self, f.name) is None else fn(getattr(self, f.name)))
                 for f in dataclasses.fields(self)
                 if f.name not in META_FIELDS
             },
-            ell_degree=self.ell_degree,
+            **self.meta(),
         )
+
+    def meta(self) -> dict:
+        """The fields that are not arrays, by name."""
+        return {name: getattr(self, name) for name in META_FIELDS}
 
     def to(self, device: DeviceLike = None) -> "Graph":
         """Move every field to ``device`` (``cuda`` unless named) as a tensor:
@@ -120,7 +151,7 @@ class Graph:
 
 
 # fields that are not arrays: carried as they are, equal across a batch
-META_FIELDS = ("ell_degree",)
+META_FIELDS = ("ell_degree", "partition_axis", "halo_dtype", "num_local_edges")
 
 
 def masked_filler(graph: Graph) -> Graph:
@@ -319,11 +350,13 @@ def pad_graph_ell_np(
 
 
 def stack_graphs(graphs: List[Graph]) -> Graph:
-    """Stack same-shape host Graphs along a new leading (time or batch) axis;
-    ``ell_degree`` must be equal and stays one int."""
+    """Stack same-shape host Graphs along a new leading (time, batch or
+    part) axis; the fields that are not arrays must be equal and stay as
+    they are."""
     first = graphs[0]
-    if len({g.ell_degree for g in graphs}) != 1:
-        raise ValueError("stack_graphs: the graphs differ in ell_degree")
+    for name in META_FIELDS:
+        if len({getattr(g, name) for g in graphs}) != 1:
+            raise ValueError(f"stack_graphs: the graphs differ in {name}")
     return Graph(
         **{
             f.name: (
@@ -334,7 +367,7 @@ def stack_graphs(graphs: List[Graph]) -> Graph:
             for f in dataclasses.fields(first)
             if f.name not in META_FIELDS
         },
-        ell_degree=first.ell_degree,
+        **first.meta(),
     )
 
 
@@ -348,6 +381,8 @@ def concat_graphs(graphs: List[Graph]) -> Graph:
     refused."""
     if len(graphs) == 1:
         return graphs[0]
+    if any(g.partition_axis is not None for g in graphs):
+        raise ValueError("concat_graphs: partitioned graphs have part-local index spaces")
     n = graphs[0].num_nodes
     e = graphs[0].num_edges
     for g in graphs:

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from graphphysics_torch.ops import halo
 from graphphysics_torch.ops.attention import sparse_graph_attention
 from graphphysics_torch.ops.ell_ops import ell_gather, ell_repeat, ell_segment_sum
 from graphphysics_torch.ops.segment import masked_segment_sum, take_rows
@@ -143,12 +144,21 @@ class GraphNetBlock(nn.Module):
     at node granularity and gathered after,
     ``ea @ W_e + (x @ W_r)[receivers] + (x @ W_s)[senders]``: the same
     function and the same ``state_dict``, with two of the three products on
-    N rows instead of E."""
+    N rows instead of E.
+
+    On an edge-partitioned part (``partition_axis``) the receivers are local
+    and the sender rows come through the exchange (``ops.halo``: the halo
+    rows, or the all-gathered table). With ``overlap_exchange`` (default
+    on, as in JAX) only the sender term of the first edge layer is split
+    off: ``x @ W_s`` is projected at node granularity and shipped, and the
+    ``[edge_attr, x_receivers] @ W`` product runs while the halo exchange
+    is in flight; the same ``state_dict``."""
 
     def __init__(self, hidden_size: int, dtype: Optional[torch.dtype] = None,
-                 project_before_gather: bool = False):
+                 project_before_gather: bool = False, overlap_exchange: bool = True):
         super().__init__()
         self.project_before_gather = project_before_gather
+        self.overlap_exchange = overlap_exchange
         if project_before_gather:
             self.edge_block = _FusedEdgeMLP((hidden_size,) * 3, hidden_size, dtype)
         else:
@@ -165,8 +175,17 @@ class GraphNetBlock(nn.Module):
         row_bounds: Optional[torch.Tensor] = None,
         ell_degree: Optional[int] = None,
         twin_perm: Optional[torch.Tensor] = None,
+        partition_axis: Optional[str] = None,
+        halo_send_idx: Optional[torch.Tensor] = None,
+        halo_dtype: Optional[str] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        if ell_degree is not None:
+        if partition_axis is not None:
+            def gather_recv(p):
+                return take_rows(p, receivers)
+
+            def gather_send(p):
+                return halo.partitioned_gather(p, senders, partition_axis, halo_send_idx, halo_dtype)
+        elif ell_degree is not None:
             def gather_recv(p):
                 return ell_repeat(p, ell_degree)
 
@@ -181,6 +200,9 @@ class GraphNetBlock(nn.Module):
 
         if self.project_before_gather:
             edge_update = self.edge_block((edge_attr, x, x), (None, gather_recv, gather_send))
+        elif partition_axis is not None and self.overlap_exchange:
+            edge_update = self._overlapped_edge_update(
+                edge_attr, x, gather_recv, senders, partition_axis, halo_send_idx, halo_dtype)
         else:
             edge_update = self.edge_block(
                 torch.cat([edge_attr, gather_recv(x), gather_send(x)], dim=-1)
@@ -193,6 +215,31 @@ class GraphNetBlock(nn.Module):
             )
         node_update = self.node_block(torch.cat([x, aggr], dim=-1))
         return x + node_update.to(x.dtype), edge_attr + edge_update.to(edge_attr.dtype)
+
+    def _overlapped_edge_update(self, edge_attr, x, gather_recv, senders, partition_axis,
+                                halo_send_idx, halo_dtype) -> torch.Tensor:
+        """The edge MLP with its first layer split as JAX's
+        ``_FusedEdgeMLP((local, x), (None, gather_send))``:
+        ``[edge_attr, x_r] @ W_l + (x @ W_s)[senders] + b``, each product in
+        the compute dtype, summed in that order. The sender projection is
+        shipped first (asynchronously in halo mode) and the local product
+        computed before the received rows are needed."""
+        first = self.edge_block[0]
+        dt = first.compute_dtype or first.weight.dtype
+        split = edge_attr.shape[-1] + x.shape[-1]
+        proj = F.linear(x.to(dt), first.weight[:, split:].to(dt))  # node rows
+        if halo_send_idx is not None:
+            pending = halo.halo_recv(proj, halo_send_idx, partition_axis, halo_dtype, async_op=True)
+        else:
+            table = halo.all_gather_table(proj, partition_axis)
+        local = torch.cat([edge_attr, gather_recv(x)], dim=-1)
+        y = F.linear(local.to(dt), first.weight[:, :split].to(dt))
+        if halo_send_idx is not None:
+            table = torch.cat([proj, pending.wait()], dim=0)
+        y = (y + take_rows(table, senders)) + first.bias.to(dt)
+        for layer in list(self.edge_block)[1:]:
+            y = layer(y)
+        return y
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -296,7 +343,11 @@ class Attention(nn.Module):
         sender_bounds: Optional[torch.Tensor] = None,
         ell_degree: Optional[int] = None,
         twin_perm: Optional[torch.Tensor] = None,
+        *partition,
     ) -> torch.Tensor:
+        """``partition``: a partitioned part's ``row_bounds``,
+        ``partition_axis``, ``halo_send_idx``, ``halo_dtype``,
+        ``halo_row_bounds`` and ``num_local_edges`` (``partition_fields``)."""
         n, d = x.shape
         h = self.num_heads
 
@@ -315,6 +366,7 @@ class Attention(nn.Module):
             sender_bounds=sender_bounds,
             ell_degree=ell_degree,
             twin_perm=twin_perm,
+            **dict(zip(PARTITION_FIELDS, partition)),
         )
         # back to the flat layout: [N, H, Dh] -> (N, Dh, H) -> [N, D]
         return self.proj(y.transpose(1, 2).reshape(n, d))
@@ -342,10 +394,24 @@ class TransformerBlock(nn.Module):
         sender_bounds: Optional[torch.Tensor] = None,
         ell_degree: Optional[int] = None,
         twin_perm: Optional[torch.Tensor] = None,
+        *partition,
     ) -> torch.Tensor:
         x = x + self.attention(self.norm1(x), senders, receivers, edge_mask, sender_bounds,
-                               ell_degree, twin_perm).to(x.dtype)
+                               ell_degree, twin_perm, *partition).to(x.dtype)
         return x + self.gated_mlp(self.norm2(x)).to(x.dtype)
+
+
+# a partitioned part's fields that reach the attention, in order
+PARTITION_FIELDS = ("row_bounds", "partition_axis", "halo_send_idx", "halo_dtype",
+                    "halo_row_bounds", "num_local_edges")
+
+
+def partition_fields(graph) -> tuple:
+    """The ``PARTITION_FIELDS`` of ``graph``; all None unless it is a
+    partitioned part."""
+    if graph.partition_axis is None:
+        return (None,) * len(PARTITION_FIELDS)
+    return tuple(getattr(graph, f) for f in PARTITION_FIELDS)
 
 
 def reset_parameters(module: nn.Module, generator: torch.Generator) -> nn.Module:

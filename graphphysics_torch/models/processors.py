@@ -18,7 +18,11 @@ and has no such compile time, so the knob changes nothing here. A JAX
 
 Both families read the graph's edge layout: ``row_bounds`` (EPD) or
 ``sender_bounds`` (transformer) for the kernels, or ``ell_degree`` and
-``twin_perm`` for the ELL ops. The transformer takes ``use_proj_bias`` as
+``twin_perm`` for the ELL ops. On an edge-partitioned part (one rank's
+part, ``Graph.partition_axis`` set; ``parallel``) both pass its partition
+fields to every block, remat or not: the exchanges run inside the blocks
+(``ops.halo``), the EPD's sums and the transformer's softmaxes over the
+part's receiver ranges. The transformer takes ``use_proj_bias`` as
 the JAX one does; the EPD takes GraphNetBlock's ``project_before_gather``,
 which the JAX EncodeProcessDecode leaves at its default (off)."""
 
@@ -37,6 +41,7 @@ from graphphysics_torch.models.layers import (
     GMMHead,
     GraphNetBlock,
     TransformerBlock,
+    partition_fields,
 )
 
 
@@ -136,6 +141,9 @@ class EncodeProcessDecode(_GMMOptions, nn.Module):
                 graph.row_bounds,
                 graph.ell_degree,
                 graph.twin_perm,
+                graph.partition_axis,
+                graph.halo_send_idx,
+                graph.halo_dtype,
             )
         return self.decode_module(x).to(torch.float32)
 
@@ -180,5 +188,6 @@ class EncodeTransformDecode(_GMMOptions, nn.Module):
         x = self.nodes_encoder(graph.x)
         for block in self.processor_list:
             x = self._block(block, x, graph.senders, graph.receivers, graph.edge_mask,
-                            graph.sender_bounds, graph.ell_degree, graph.twin_perm)
+                            graph.sender_bounds, graph.ell_degree, graph.twin_perm,
+                            *partition_fields(graph))
         return self.decode_module(x).to(torch.float32)

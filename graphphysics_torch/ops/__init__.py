@@ -3,6 +3,10 @@ from graphphysics_torch.ops.csr_attention import (
     csr_softmax_spmm,
     csr_softmax_spmm_backward,
     csr_softmax_spmm_backward_reference,
+    csr_softmax_spmm_pair,
+    csr_softmax_spmm_pair_backward,
+    csr_softmax_spmm_pair_backward_reference,
+    csr_softmax_spmm_pair_reference,
     csr_softmax_spmm_reference,
     csr_sparse_attention,
 )
@@ -25,6 +29,10 @@ __all__ = [
     "csr_softmax_spmm",
     "csr_softmax_spmm_backward",
     "csr_softmax_spmm_backward_reference",
+    "csr_softmax_spmm_pair",
+    "csr_softmax_spmm_pair_backward",
+    "csr_softmax_spmm_pair_backward_reference",
+    "csr_softmax_spmm_pair_reference",
     "csr_softmax_spmm_reference",
     "csr_sparse_attention",
     "ell_gather",

@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = (
     "csr_segment_sum.cu", "csr_softmax_spmm.cu", "csr_softmax_spmm_bwd.cu",
-    "csr_attention.cu", "csr_attention_bwd.cu",
+    "csr_attention.cu", "csr_attention_bwd.cu", "csr_softmax_spmm_pair.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

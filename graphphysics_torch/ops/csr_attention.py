@@ -36,13 +36,22 @@ flash-attention ``delta = <out, g>`` per head, then per-edge math against
 the saved ``(m, l)``). On CUDA they launch ``csrc/csr_softmax_spmm.cu`` and
 ``csrc/csr_softmax_spmm_bwd.cu``; on the CPU they take
 ``csr_softmax_spmm_reference`` and ``csr_softmax_spmm_backward_reference``.
-No attention path of the models runs them: they are kept for split-edge
-partitioned attention, whose scores span a local and a halo edge set.
-Nothing but a tensor's device selects between a kernel and its plain
-version.
+The unsplit partitioned attention runs them, segmenting by receivers
+(``ops.attention``). ``csr_softmax_spmm_pair`` (K5) is the same function
+over the union of two edge sets that share the rows, each with its own
+ranges: split-edge partitioned attention's local and halo edges. On CUDA
+it is one hand-written kernel forward and one backward
+(``csrc/csr_softmax_spmm_pair.cu``), which walk each row's two ranges in
+turn; on the CPU ``csr_softmax_spmm_pair_reference`` and
+``csr_softmax_spmm_pair_backward_reference``, line by line the JAX
+``_pair_impl`` (two softmax + SpMM partials and the merge of their
+``(m, l)``) and ``_pair_bwd``. Nothing but a tensor's device selects
+between a kernel and its plain version.
 
 The kernels read per-node ``[start, end)`` ranges of real edges
-(``Graph.sender_bounds``, ``compute_row_bounds`` of the sorted senders)
+(``compute_row_bounds`` of the sorted segment ids: ``Graph.sender_bounds``
+for the models' attention, a partitioned part's ``row_bounds`` and
+``halo_row_bounds`` for the partitioned one)
 instead of the TPU kernel's per-128-node block ranges;
 ``compute_block_bounds`` and ``compute_max_chunks_bounds`` are kept so tests
 can hold the host helpers against the JAX ones.
@@ -70,6 +79,7 @@ BLOCK_NODES = 128
 BLOCK_EDGES = 512
 SOURCE = "csr_softmax_spmm.cu"
 BACKWARD_SOURCE = "csr_softmax_spmm_bwd.cu"
+PAIR_SOURCE = "csr_softmax_spmm_pair.cu"
 ATTENTION_SOURCE = "csr_attention.cu"
 ATTENTION_BACKWARD_SOURCE = "csr_attention_bwd.cu"
 # lanes serving one sender row in the fused kernels' fast geometries, in
@@ -216,14 +226,14 @@ def _check_cuda_args(op, scores, values, segments, bounds, mask) -> None:
     if segments.shape != (e,):
         fail(f"segments must be [{e}], got {tuple(segments.shape)}")
     if bounds.dim() != 2 or bounds.shape[0] != 2:
-        fail(f"sender_bounds must be [2, N], got {tuple(bounds.shape)}")
+        fail(f"bounds must be [2, N], got {tuple(bounds.shape)}")
     if bounds.dtype != torch.int32 or not bounds.is_contiguous():
-        fail("sender_bounds must be contiguous int32")
+        fail("bounds must be contiguous int32")
     if mask is not None and (
         mask.shape != (e,) or mask.dtype != torch.bool or not mask.is_contiguous()
     ):
         fail(f"mask must be a contiguous bool [{e}] tensor")
-    for name, t in (("values", values), ("segments", segments), ("sender_bounds", bounds), ("mask", mask)):
+    for name, t in (("values", values), ("segments", segments), ("bounds", bounds), ("mask", mask)):
         if t is not None and t.device != scores.device:
             fail(f"{name} is on {t.device}, scores on {scores.device}")
 
@@ -299,22 +309,22 @@ class _SoftmaxSpmm(torch.autograd.Function):
     """K2 forward, K3 backward (CUDA) or their plain versions (CPU)."""
 
     @staticmethod
-    def forward(ctx, scores, values, segments, sender_bounds, mask):
+    def forward(ctx, scores, values, segments, bounds, mask):
         if scores.is_cuda:
-            out, ml = _launch(scores, values, sender_bounds, mask)
+            out, ml = _launch(scores, values, bounds, mask)
         else:
             out, ml = csr_softmax_spmm_reference(
-                scores, values, segments, sender_bounds.shape[1], mask
+                scores, values, segments, bounds.shape[1], mask
             )
         ctx.mark_non_differentiable(ml)
-        ctx.save_for_backward(scores, values, segments, sender_bounds, mask, ml, out)
+        ctx.save_for_backward(scores, values, segments, bounds, mask, ml, out)
         return out, ml
 
     @staticmethod
     def backward(ctx, g, _g_ml):
-        scores, values, segments, sender_bounds, mask, ml, out = ctx.saved_tensors
+        scores, values, segments, bounds, mask, ml, out = ctx.saved_tensors
         dscores, dvalues = csr_softmax_spmm_backward(
-            scores, values, segments, sender_bounds, ml, out, g, mask
+            scores, values, segments, bounds, ml, out, g, mask
         )
         return dscores, dvalues, None, None, None
 
@@ -323,12 +333,12 @@ def csr_softmax_spmm(
     scores: torch.Tensor,
     values: torch.Tensor,
     segments: torch.Tensor,
-    sender_bounds: torch.Tensor,
+    bounds: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Segment softmax of ``scores`` ([E, H]) and the weighted segment sum of
     the head-blocked ``values`` ([E, D], column c in head ``c // (D/H)``) by
-    sender-sorted ``segments``, over ``N = sender_bounds.shape[1]`` rows;
+    sorted ``segments``, over ``N = bounds.shape[1]`` rows;
     ``mask`` ([E] bool) drops edges anywhere. Returns
     ``(out [N, D], ml [2H, N])`` with ``ml = [m; l]``, the per-head running
     max and sum of exponentials (``-1e30`` and 0 for a row without edges,
@@ -336,18 +346,20 @@ def csr_softmax_spmm(
     ``out`` (``ml`` is not differentiable): the backward is
     ``csr_softmax_spmm_backward``.
 
-    The kernels read only the row ranges ``sender_bounds`` (per node,
-    ``compute_row_bounds`` of the senders; ``Graph.sender_bounds``), so every
-    unmasked edge must lie in its segment's range. A CUDA tensor launches the
+    The kernels read only the row ranges ``bounds`` (per node,
+    ``compute_row_bounds`` of the sorted ``segments``: the senders'
+    ``Graph.sender_bounds``, or a partitioned part's receiver-sorted
+    ``row_bounds``), so every unmasked edge must lie in its segment's
+    range. A CUDA tensor launches the
     Hopper kernel (float32, D a multiple of 32 up to 512 with a head_dim that
     is a multiple of D/32) and adds one to ``csr_softmax_spmm.launches``; it
     trusts the layout (build graphs with ``pad_graph_csr_np``). A CPU tensor
     checks that precondition and takes ``csr_softmax_spmm_reference``."""
     if scores.is_cuda:
-        _check_cuda_args("csr_softmax_spmm", scores, values, segments, sender_bounds, mask)
+        _check_cuda_args("csr_softmax_spmm", scores, values, segments, bounds, mask)
     else:
-        check_in_range("csr_softmax_spmm", "sender", segments, sender_bounds, mask)
-    return _SoftmaxSpmm.apply(scores, values, segments, sender_bounds, mask)
+        check_in_range("csr_softmax_spmm", "sender", segments, bounds, mask)
+    return _SoftmaxSpmm.apply(scores, values, segments, bounds, mask)
 
 
 csr_softmax_spmm.launches = 0
@@ -357,7 +369,7 @@ def csr_softmax_spmm_backward(
     scores: torch.Tensor,
     values: torch.Tensor,
     segments: torch.Tensor,
-    sender_bounds: torch.Tensor,
+    bounds: torch.Tensor,
     ml: torch.Tensor,
     out: torch.Tensor,
     g: torch.Tensor,
@@ -375,19 +387,240 @@ def csr_softmax_spmm_backward(
     if not scores.is_cuda:
         return csr_softmax_spmm_backward_reference(scores, values, segments, ml, out, g, mask)
     op = "csr_softmax_spmm_backward"
-    _check_cuda_args(op, scores, values, segments, sender_bounds, mask)
+    _check_cuda_args(op, scores, values, segments, bounds, mask)
     g = g.contiguous()
-    n, h, d = sender_bounds.shape[1], scores.shape[1], values.shape[1]
+    n, h, d = bounds.shape[1], scores.shape[1], values.shape[1]
     for name, t, shape in (("out", out, (n, d)), ("g", g, (n, d)), ("ml", ml, (2 * h, n))):
         if t.shape != shape or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{op}: {name} must be a contiguous float32 {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
         if t.device != scores.device or t.data_ptr() % 16:
             raise ValueError(f"{op}: {name} must be 16-byte aligned on {scores.device}")
-    return _launch_backward(scores, values, sender_bounds, mask, ml, out, g)
+    return _launch_backward(scores, values, bounds, mask, ml, out, g)
 
 
 csr_softmax_spmm_backward.launches = 0
+
+
+def _merge_partials(out_a, ml_a, out_b, ml_b, h):
+    """The online-softmax merge of two partials' ``(out, ml)``, the JAX
+    ``_pair_impl``'s: ``m = max(m_a, m_b)``, each side's weight
+    ``w = exp(m_side - m)``, ``l = w_a l_a + w_b l_b`` and
+    ``out = (w_a (l_a + eps) out_a + w_b (l_b + eps) out_b) / (l + eps)``
+    with each node statistic repeated over its head's columns. A side's
+    empty rows (``m = -1e30``, ``l = 0``) drop out; a row empty on both
+    gives 0."""
+    dh = out_a.shape[1] // h
+    m_a, l_a, m_b, l_b = ml_a[:h], ml_a[h:], ml_b[:h], ml_b[h:]
+
+    def heads(a):  # [H, N] -> [N, H*dh] head-blocked columns
+        return a.t().repeat_interleave(dh, dim=1)
+
+    m = torch.maximum(m_a, m_b)
+    wa, wb = torch.exp(m_a - m), torch.exp(m_b - m)
+    l = wa * l_a + wb * l_b
+    acc = heads(wa * (l_a + EPS)) * out_a.to(m.dtype) + heads(wb * (l_b + EPS)) * out_b.to(m.dtype)
+    return acc / (heads(l) + EPS), torch.cat([m, l], dim=0)
+
+
+def csr_softmax_spmm_pair_reference(
+    scores_a: torch.Tensor,
+    values_a: torch.Tensor,
+    seg_a: torch.Tensor,
+    scores_b: torch.Tensor,
+    values_b: torch.Tensor,
+    seg_b: torch.Tensor,
+    num_nodes: int,
+    mask_a: Optional[torch.Tensor] = None,
+    mask_b: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``csr_softmax_spmm_pair``, line by line the
+    JAX ``_pair_impl``: ``csr_softmax_spmm_reference`` of each set, then
+    the merge of their ``(m, l)`` (``_merge_partials``). Returns ``(out
+    [N, D] in values_a's dtype, ml [2H, N])``, the merged statistics."""
+    h = scores_a.shape[1]
+    out_a, ml_a = csr_softmax_spmm_reference(scores_a, values_a, seg_a, num_nodes, mask_a)
+    out_b, ml_b = csr_softmax_spmm_reference(scores_b, values_b, seg_b, num_nodes, mask_b)
+    out, ml = _merge_partials(out_a, ml_a, out_b, ml_b, h)
+    return out.to(values_a.dtype), ml
+
+
+def csr_softmax_spmm_pair_backward_reference(
+    scores_a, values_a, seg_a, scores_b, values_b, seg_b, ml, out, g, mask_a=None, mask_b=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``csr_softmax_spmm_pair``'s backward, the
+    JAX ``_pair_bwd``: ``_pack_node_side`` and ``_edge_grads`` of each set
+    against the merged ``ml`` and ``out``
+    (``csr_softmax_spmm_backward_reference``). Returns ``(dscores_a,
+    dvalues_a, dscores_b, dvalues_b)``."""
+    dsa, dva = csr_softmax_spmm_backward_reference(scores_a, values_a, seg_a, ml, out, g, mask_a)
+    dsb, dvb = csr_softmax_spmm_backward_reference(scores_b, values_b, seg_b, ml, out, g, mask_b)
+    return dsa, dva, dsb, dvb
+
+
+def _check_pair_args(op, scores, values, segments, bounds, mask, n, h, d) -> None:
+    def fail(msg):
+        raise ValueError(f"{op}: {msg}")
+
+    for name, t in (("scores", scores), ("values", values)):
+        if t.dtype != torch.float32 or t.dim() != 2 or not t.is_contiguous():
+            fail(f"the CUDA kernel takes contiguous 2-D float32 {name}, got {t.dtype} "
+                 f"{tuple(t.shape)}")
+    e = scores.shape[0]
+    if scores.shape[1] != h or values.shape != (e, d):
+        fail(f"scores {tuple(scores.shape)} and values {tuple(values.shape)} must be [E, {h}] "
+             f"and [E, {d}]")
+    if segments.shape != (e,):
+        fail(f"segments must be [{e}], got {tuple(segments.shape)}")
+    if bounds.shape != (2, n) or bounds.dtype != torch.int32 or not bounds.is_contiguous():
+        fail(f"bounds must be contiguous int32 [2, {n}], got {bounds.dtype} {tuple(bounds.shape)}")
+    if mask is not None and (mask.shape != (e,) or mask.dtype != torch.bool
+                             or not mask.is_contiguous()):
+        fail(f"mask must be a contiguous bool [{e}] tensor")
+    for name, t in (("values", values), ("segments", segments), ("bounds", bounds), ("mask", mask)):
+        if t is not None and t.device != scores.device:
+            fail(f"{name} is on {t.device}, scores on {scores.device}")
+
+
+def _check_pair(op, sa, va, ga, ba, ma, sb, vb, gb, bb, mb) -> Tuple[int, int, int]:
+    n, h, d = ba.shape[-1], sa.shape[1], va.shape[1]
+    if h == 0 or d == 0 or d > MAX_WIDTH or d % h:
+        raise ValueError(f"{op}: width D={d} must be at most {MAX_WIDTH} and a multiple of H={h}")
+    _check_pair_args(op, sa, va, ga, ba, ma, n, h, d)
+    _check_pair_args(op, sb, vb, gb, bb, mb, n, h, d)
+    return n, h, d
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_pair(sa, va, ba, ma, sb, vb, bb, mb) -> Tuple[torch.Tensor, torch.Tensor]:
+    fn = _native.function(PAIR_SOURCE, "csr_softmax_spmm_pair_f32", 10,
+                          (ctypes.c_longlong,) * 3 + (ctypes.c_int,) * 2)
+    n, h, d = ba.shape[1], sa.shape[1], va.shape[1]
+    out = torch.empty((n, d), dtype=torch.float32, device=sa.device)
+    ml = torch.empty((2 * h, n), dtype=torch.float32, device=sa.device)
+    if n == 0:
+        return out, ml
+    with torch.cuda.device(sa.device):
+        stream = torch.cuda.current_stream(sa.device).cuda_stream
+        err = fn(sa.data_ptr(), va.data_ptr(), ba.data_ptr(), _ptr(ma), sb.data_ptr(),
+                 vb.data_ptr(), bb.data_ptr(), _ptr(mb), out.data_ptr(), ml.data_ptr(),
+                 n, sa.shape[0], sb.shape[0], h, d, stream)
+    if err != 0:
+        raise RuntimeError(f"csr_softmax_spmm_pair kernel launch failed: CUDA error {err}")
+    csr_softmax_spmm_pair.launches += 1
+    return out, ml
+
+
+def _launch_pair_backward(sa, va, ba, ma, sb, vb, bb, mb, ml, out, g):
+    fn = _native.function(PAIR_SOURCE, "csr_softmax_spmm_pair_bwd_f32", 15,
+                          (ctypes.c_longlong,) * 3 + (ctypes.c_int,) * 2)
+    n, h, d = ba.shape[1], sa.shape[1], va.shape[1]
+    # zeroed: masked edges and edges outside every range keep 0
+    grads = [torch.zeros_like(sa), torch.zeros_like(va), torch.zeros_like(sb), torch.zeros_like(vb)]
+    if n == 0:
+        return tuple(grads)
+    with torch.cuda.device(sa.device):
+        stream = torch.cuda.current_stream(sa.device).cuda_stream
+        err = fn(sa.data_ptr(), va.data_ptr(), ba.data_ptr(), _ptr(ma), sb.data_ptr(),
+                 vb.data_ptr(), bb.data_ptr(), _ptr(mb), ml.data_ptr(), out.data_ptr(),
+                 g.data_ptr(), *(t.data_ptr() for t in grads), n, sa.shape[0], sb.shape[0], h,
+                 d, stream)
+    if err != 0:
+        raise RuntimeError(f"csr_softmax_spmm_pair backward kernel launch failed: CUDA error {err}")
+    csr_softmax_spmm_pair_backward.launches += 1
+    return tuple(grads)
+
+
+class _SoftmaxSpmmPair(torch.autograd.Function):
+    """K5 forward and backward (CUDA) or their plain versions (CPU)."""
+
+    @staticmethod
+    def forward(ctx, sa, va, ga, ba, ma, sb, vb, gb, bb, mb):
+        if sa.is_cuda:
+            out, ml = _launch_pair(sa, va, ba, ma, sb, vb, bb, mb)
+        else:
+            out, ml = csr_softmax_spmm_pair_reference(sa, va, ga, sb, vb, gb, ba.shape[1], ma, mb)
+        ctx.mark_non_differentiable(ml)
+        ctx.save_for_backward(sa, va, ga, ba, ma, sb, vb, gb, bb, mb, ml, out)
+        return out, ml
+
+    @staticmethod
+    def backward(ctx, g, _g_ml):
+        sa, va, ga, ba, ma, sb, vb, gb, bb, mb, ml, out = ctx.saved_tensors
+        dsa, dva, dsb, dvb = csr_softmax_spmm_pair_backward(
+            sa, va, ga, ba, sb, vb, gb, bb, ml, out, g, ma, mb)
+        return dsa, dva, None, None, None, dsb, dvb, None, None, None
+
+
+def csr_softmax_spmm_pair(
+    scores_a: torch.Tensor,
+    values_a: torch.Tensor,
+    seg_a: torch.Tensor,
+    bounds_a: torch.Tensor,
+    scores_b: torch.Tensor,
+    values_b: torch.Tensor,
+    seg_b: torch.Tensor,
+    bounds_b: torch.Tensor,
+    mask_a: Optional[torch.Tensor] = None,
+    mask_b: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``csr_softmax_spmm`` over the union of two edge sets ``a`` and ``b``
+    that share the ``N = bounds_a.shape[1]`` rows: each set's scores
+    ``[E_s, H]``, head-blocked values ``[E_s, D]``, sorted segment ids,
+    per-row ranges ``[2, N]`` and optional mask. Returns ``(out [N, D],
+    ml [2H, N])``, ``ml`` the merged statistics (not differentiable); the
+    backward (``csr_softmax_spmm_pair_backward``) gives both sets' score
+    and value gradients against them.
+
+    A CUDA tensor launches the Hopper kernel (float32, any D <= 512 with
+    D % H == 0) and adds one to ``csr_softmax_spmm_pair.launches``; it
+    trusts that every unmasked edge lies in its row's range of its set. A
+    CPU tensor checks that and takes ``csr_softmax_spmm_pair_reference``."""
+    op = "csr_softmax_spmm_pair"
+    if scores_a.is_cuda:
+        _check_pair(op, scores_a, values_a, seg_a, bounds_a, mask_a,
+                    scores_b, values_b, seg_b, bounds_b, mask_b)
+    else:
+        check_in_range(op, "receiver", seg_a, bounds_a, mask_a)
+        check_in_range(op, "receiver", seg_b, bounds_b, mask_b)
+    return _SoftmaxSpmmPair.apply(scores_a, values_a, seg_a, bounds_a, mask_a,
+                                  scores_b, values_b, seg_b, bounds_b, mask_b)
+
+
+csr_softmax_spmm_pair.launches = 0
+
+
+def csr_softmax_spmm_pair_backward(
+    scores_a, values_a, seg_a, bounds_a, scores_b, values_b, seg_b, bounds_b, ml, out, g,
+    mask_a=None, mask_b=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients ``(dscores_a, dvalues_a, dscores_b, dvalues_b)`` of
+    ``csr_softmax_spmm_pair``'s ``out`` from its merged ``ml``, ``out`` and
+    the gradient ``g`` ([N, D]) of ``out``. Masked edges and edges outside
+    every range get exactly 0. A CUDA tensor launches the Hopper kernel
+    (each edge written by its own row's warp only: no atomics, the same
+    result every run) and adds one to
+    ``csr_softmax_spmm_pair_backward.launches``; a CPU tensor takes
+    ``csr_softmax_spmm_pair_backward_reference``."""
+    if not scores_a.is_cuda:
+        return csr_softmax_spmm_pair_backward_reference(
+            scores_a, values_a, seg_a, scores_b, values_b, seg_b, ml, out, g, mask_a, mask_b)
+    op = "csr_softmax_spmm_pair_backward"
+    n, h, d = _check_pair(op, scores_a, values_a, seg_a, bounds_a, mask_a,
+                          scores_b, values_b, seg_b, bounds_b, mask_b)
+    g = g.contiguous()
+    for name, t, shape in (("out", out, (n, d)), ("g", g, (n, d)), ("ml", ml, (2 * h, n))):
+        if t.shape != shape or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{op}: {name} must be a contiguous float32 {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    return _launch_pair_backward(scores_a, values_a, bounds_a, mask_a, scores_b, values_b,
+                                 bounds_b, mask_b, ml, out, g)
+
+
+csr_softmax_spmm_pair_backward.launches = 0
 
 
 def csr_attention_reference(

@@ -43,25 +43,46 @@ time, the statistics and the loss those of the concatenation.
 
 Batches and trajectories come in the dataset's layout: sorted, CSR or ELL,
 padded to one budget or, with size buckets, each to its bucket's (a
-trajectory's frames share one). Data parallelism, graph partitioning and
-the profiler are not ported yet: asking for one raises
-``NotImplementedError`` naming its ROADMAP item.
+trajectory's frames share one). Data parallelism and the profiler are not
+ported yet: asking for one raises ``NotImplementedError`` naming its
+ROADMAP item.
+
+With ``graph_partition`` P the Trainer is one rank of a P-rank graph group
+(``parallel.mesh.launch`` starts them; the CLI does): every rank builds the
+same model from the seed and the same batches from the loader's seed, cuts
+each batch into P parts host-side (``parallel.graph_partition``: the halo
+exchange or, ``partition_mode="gather"``, the all-gather; with
+``partition_reorder`` after a locality reordering) with static per-part
+budgets derived once per batch shape from the dataset's first item times
+``partition_edge_headroom`` (grown, with a message, when a batch exceeds
+them and ``partition_budget_growth``), checks that every rank holds the
+same batch and budgets (a digest all-gathered each step), and takes its own
+part to the step of ``parallel.dp``. Halo-mode transformers take the
+split-edge layout unless ``partition_overlap_attention`` is off;
+``halo_dtype`` ships the halo rows in 16 bits. Validation and ``predict``
+roll the whole graph through the unpartitioned model on every rank, or with
+``partitioned_validation`` one partitioned rollout per trajectory over the
+ranks. Rank 0 alone writes checkpoints, metrics and rollout files.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import signal
 import time
+from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from graphphysics_torch.core.device import DeviceLike, resolve_device
 from graphphysics_torch.core.graph import Graph, stack_graphs
 from graphphysics_torch.core.nodetype import NodeType
 from graphphysics_torch.models.layers import reset_parameters
+from graphphysics_torch.parallel.mesh import GRAPH_AXIS, graph_group, graph_rank, graph_size
 from graphphysics_torch.training.checkpoint import load_checkpoint_with_metadata, save_checkpoint
 from graphphysics_torch.training.losses import (
     diagonal_gmm_nll_loss,
@@ -83,16 +104,9 @@ WEIGHT_DECAY = 1e-4
 
 # options of the JAX Trainer that the port does not have yet: the value
 # that leaves each off, and the ROADMAP.md section 1 item that brings it
+# (data_parallel with graph_partition, the 2-D data x graph step, is item 13)
 _NOT_PORTED = {
     "data_parallel": (False, 13),
-    "graph_partition": (0, 14),
-    "partition_mode": (None, 14),
-    "partition_edge_headroom": (None, 14),
-    "partition_budget_growth": (None, 14),
-    "partition_reorder": (None, 14),
-    "partition_overlap_attention": (None, 14),
-    "halo_dtype": (None, 14),
-    "partitioned_validation": (False, 14),
     "num_devices": (None, 13),
     "checkpoint_backend": ("torch", 4),  # the orbax backends
     "plot_callback": (None, 12),
@@ -103,11 +117,17 @@ _NOT_PORTED = {
 }
 
 
-def trajectory_generator(seed: int, trajectory: int, device: DeviceLike = None) -> torch.Generator:
+_REORDER_CACHE_MAX = 8  # locality permutations kept (one per topology)
+
+
+def trajectory_generator(seed: int, trajectory: int, device: DeviceLike = None,
+                         rank: Optional[int] = None) -> torch.Generator:
     """The generator of one trajectory's sampled rollout on ``device``
-    (``cuda`` unless named): seeded from ``SeedSequence([seed, trajectory])``,
-    a function of the two numbers only."""
-    hi, lo = np.random.SeedSequence([seed, trajectory]).generate_state(2, np.uint32)
+    (``cuda`` unless named): seeded from ``SeedSequence([seed, trajectory])``
+    (with ``rank``, a partitioned rollout's rank: ``[seed, trajectory,
+    rank]``), a function of the numbers only."""
+    key = [seed, trajectory] if rank is None else [seed, trajectory, rank]
+    hi, lo = np.random.SeedSequence(key).generate_state(2, np.uint32)
     return torch.Generator(device=resolve_device(device)).manual_seed(int(hi) << 32 | int(lo))
 
 
@@ -144,6 +164,14 @@ class Trainer:
         progress: Optional[bool] = None,
         device: DeviceLike = None,
         gradient_accumulation: bool = False,
+        graph_partition: int = 0,
+        partition_mode: str = "halo",
+        partition_edge_headroom: float = 1.25,
+        partition_budget_growth: bool = True,
+        partition_reorder: Optional[str] = None,
+        partition_overlap_attention: bool = True,
+        halo_dtype: Optional[str] = None,
+        partitioned_validation: bool = False,
         **options: Any,
     ):
         for name, value in options.items():
@@ -155,6 +183,10 @@ class Trainer:
                     f"Trainer option {name!r} is not ported yet (ROADMAP.md section 1, item {item})"
                 )
         self.device = resolve_device(device)
+        self._init_partition(graph_partition, partition_mode, partition_edge_headroom,
+                             partition_budget_growth, partition_reorder,
+                             partition_overlap_attention, halo_dtype, partitioned_validation,
+                             gradient_accumulation)
         self.param = parameters
         self.learning_rate = learning_rate
         self.warmup = warmup
@@ -165,8 +197,8 @@ class Trainer:
         self.previous_data_end = previous_data_end
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_name = checkpoint_name
-        self.metrics = CSVMetricsLogger(metrics_path) if metrics_path else None
-        self.rollout_dir = rollout_dir
+        self.metrics = CSVMetricsLogger(metrics_path) if metrics_path and self.is_writer else None
+        self.rollout_dir = rollout_dir if self.is_writer else None
         self.seed = seed
         gmm = gmm_options(parameters)
         self.K = gmm["num_mixture_components"]
@@ -174,7 +206,7 @@ class Trainer:
         self.temperature = 1.0 if gmm["temperature"] is None else gmm["temperature"]
         self.use_diagonal = gmm["use_diagonal"]
         self.log_every = log_every
-        self.extra_logger = extra_logger
+        self.extra_logger = extra_logger if self.is_writer else None
         self.save_every_n_steps = save_every_n_steps
         self.progress = progress
         self.gradient_accumulation = bool(gradient_accumulation)
@@ -202,6 +234,205 @@ class Trainer:
         )
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(self.optimizer, self.schedule)
         self.step = 0
+        if self.graph_partition:
+            from graphphysics_torch.parallel.dp import make_graph_parallel_train_step
+
+            self._check_same_on_ranks("weights", [p.detach() for p in self.sim.parameters()])
+            self._partition_step = make_graph_parallel_train_step(
+                self.sim, self.optimizer, self.masks, loss_kind=loss_kind(self.K, self.use_diagonal),
+                gmm_kwargs=gmm_kwargs(self.K, self.d, self.temperature))
+
+    # ------------------------------------------------------ graph partition
+
+    def _init_partition(self, graph_partition, partition_mode, partition_edge_headroom,
+                        partition_budget_growth, partition_reorder, partition_overlap_attention,
+                        halo_dtype, partitioned_validation, gradient_accumulation) -> None:
+        """The partition options, checked as the JAX Trainer checks them,
+        and this process's rank (0 without partitioning)."""
+        self.graph_partition = int(graph_partition)
+        if partition_mode not in ("halo", "gather"):
+            raise ValueError(f"unknown partition_mode {partition_mode!r}")
+        self.partition_mode = partition_mode
+        self.partition_edge_headroom = float(partition_edge_headroom)
+        self.partition_budget_growth = bool(partition_budget_growth)
+        if partition_reorder in ("none", ""):
+            partition_reorder = None
+        if partition_reorder not in (None, "rcm", "bfs", "hilbert"):
+            raise ValueError(f"unknown partition_reorder {partition_reorder!r} (rcm | bfs | hilbert)")
+        self.partition_reorder = partition_reorder
+        self.partition_overlap_attention = bool(partition_overlap_attention)
+        if halo_dtype in ("none", ""):
+            halo_dtype = None
+        if halo_dtype not in (None, "bf16", "f16"):
+            raise ValueError(f"unknown halo_dtype {halo_dtype!r} (bf16 | f16 | None)")
+        if halo_dtype is not None and partition_mode != "halo":
+            raise ValueError('halo_dtype requires partition_mode="halo" (the gather mode ships '
+                             "the whole node table)")
+        self.halo_dtype = halo_dtype
+        if self.graph_partition and gradient_accumulation:
+            raise ValueError("graph_partition does not combine with gradient_accumulation "
+                             "(partition the graph OR microbatch the batch)")
+        self.partitioned_validation = bool(partitioned_validation)
+        if self.partitioned_validation and not self.graph_partition:
+            raise ValueError("partitioned_validation requires graph_partition")
+        self._part_budgets: Dict[tuple, tuple] = {}
+        self._reorder_cache: "OrderedDict[tuple, np.ndarray]" = OrderedDict()
+        self.host_ms: List[float] = []  # host milliseconds per partitioned batch
+        self.rank = 0
+        if self.graph_partition:
+            size = graph_size(GRAPH_AXIS)
+            if size != self.graph_partition:
+                raise ValueError(f"graph_partition {self.graph_partition} != the graph group's "
+                                 f"{size} ranks")
+            self.rank = graph_rank(GRAPH_AXIS)
+
+    @property
+    def is_writer(self) -> bool:
+        """True on the rank that writes files (rank 0; the only one
+        without partitioning)."""
+        return self.rank == 0
+
+    def _check_same_on_ranks(self, what: str, arrays) -> None:
+        """Raise unless every rank's ``arrays`` hash alike (a digest
+        all-gathered over the graph group)."""
+        h = hashlib.blake2b(digest_size=8)
+        for a in arrays:
+            a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+            h.update(str((a.shape, a.dtype)).encode())
+            h.update(np.ascontiguousarray(a).tobytes())
+        mine = torch.tensor([int.from_bytes(h.digest(), "little", signed=True)], device=self.device)
+        group = graph_group(GRAPH_AXIS)
+        every = [torch.empty_like(mine) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(every, mine, group=group)
+        if any(int(t) != int(mine) for t in every):
+            raise RuntimeError(f"graph_partition: the ranks hold different {what}")
+
+    def _split_attention(self) -> bool:
+        """The split-edge ``[local | halo]`` layout: halo mode, the
+        transformer, ``partition_overlap_attention`` on (as JAX)."""
+        from graphphysics_torch.models.processors import EncodeTransformDecode
+
+        return (self.partition_overlap_attention and self.partition_mode == "halo"
+                and isinstance(self.sim.model, EncodeTransformDecode))
+
+    def _trial_budgets(self, g: Graph):
+        """``(edge budget, halo budget)`` from a trial partition of ``g``
+        times ``partition_edge_headroom`` (a ``(local, halo)`` pair of edge
+        budgets in the split layout)."""
+        from graphphysics_torch.core.graph import round_up
+        from graphphysics_torch.parallel.graph_partition import (
+            partition_graph_halo_np,
+            partition_graph_np,
+        )
+
+        parts, h = self.graph_partition, self.partition_edge_headroom
+        halo, split = self.partition_mode == "halo", self._split_attention()
+        trial = (partition_graph_halo_np(g, parts, split_local=split) if halo
+                 else partition_graph_np(g, parts))
+        if split:
+            el = trial.num_local_edges
+            eb = (round_up(int(el * h), 128), round_up(int((trial.senders.shape[1] - el) * h), 128))
+        else:
+            eb = round_up(int(trial.senders.shape[1] * h), 128)
+        hb = round_up(int(trial.halo_send_idx.shape[2] * h), 8) if halo else None
+        return eb, hb
+
+    def _maybe_reorder(self, g: Graph):
+        """``(graph, perm)``: ``g`` reordered by ``partition_reorder`` (the
+        permutation cached by a digest of the edge list), or ``(g, None)``."""
+        if not self.partition_reorder:
+            return g, None
+        from graphphysics_torch.parallel.reorder import locality_permutation, permute_graph_np
+
+        h = hashlib.blake2b(digest_size=16)
+        h.update(np.int64(g.num_nodes).tobytes())
+        for a in (g.senders, g.receivers, g.edge_mask):
+            h.update(np.ascontiguousarray(np.asarray(a)).tobytes())
+        key = (self.partition_reorder, h.hexdigest())
+        perm = self._reorder_cache.get(key)
+        if perm is None:
+            perm = locality_permutation(g.senders, g.receivers, g.num_nodes, edge_mask=g.edge_mask,
+                                        pos=g.pos, method=self.partition_reorder)
+            self._reorder_cache[key] = perm
+            while len(self._reorder_cache) > _REORDER_CACHE_MAX:
+                self._reorder_cache.popitem(last=False)
+        else:
+            self._reorder_cache.move_to_end(key)
+        return permute_graph_np(g, perm), perm
+
+    def _derive_partition_budgets(self, train_loader) -> None:
+        """The static per-part budgets from the dataset's first item times
+        the batch size, so the padded shapes do not depend on which batch
+        comes first."""
+        from graphphysics_torch.core.graph import concat_graphs
+
+        ds = getattr(train_loader, "dataset", None)
+        if ds is None:
+            return
+        if hasattr(ds, "set_epoch"):
+            ds.set_epoch(0)
+        probe = concat_graphs([ds[0]] * max(int(getattr(train_loader, "batch_size", 1)), 1))
+        key = (int(probe.num_nodes), int(probe.num_edges))
+        if key not in self._part_budgets:
+            self._part_budgets[key] = self._trial_budgets(self._maybe_reorder(probe)[0])
+
+    def partition_graph(self, g: Graph) -> Graph:
+        """Every part of one host Graph, stacked ``[P, ...]``, with the
+        static budgets of its shape (derived from ``g`` at the first batch
+        of a shape without ``fit``); grown when ``g`` exceeds them and
+        ``partition_budget_growth`` is on."""
+        from graphphysics_torch.parallel.graph_partition import (
+            partition_graph_halo_np,
+            partition_graph_np,
+        )
+
+        parts, halo, split = self.graph_partition, self.partition_mode == "halo", self._split_attention()
+        g, _ = self._maybe_reorder(g)
+        key = (int(g.num_nodes), int(g.num_edges))
+        if key not in self._part_budgets:
+            self._part_budgets[key] = self._trial_budgets(g)
+        eb, hb = self._part_budgets[key]
+
+        def attempt(eb, hb):
+            if halo:
+                part = partition_graph_halo_np(g, parts, edge_budget_local=eb, halo_budget=hb,
+                                               split_local=split)
+                return part.replace(halo_dtype=self.halo_dtype)
+            return partition_graph_np(g, parts, edge_budget_local=eb)
+
+        try:
+            return attempt(eb, hb)
+        except ValueError as e:
+            if self.partition_budget_growth:
+                neb, nhb = self._trial_budgets(g)
+                grown = (tuple(max(a, b) for a, b in zip(eb, neb)) if isinstance(eb, tuple)
+                         else max(eb, neb),
+                         None if hb is None else max(hb, nhb))
+                if grown != (eb, hb):
+                    self._part_budgets[key] = grown
+                    print(f"[trainer] batch exceeded the partition budgets (edge {eb}, halo {hb}); "
+                          f"grown to {grown}: padded shapes change")
+                    return attempt(*grown)
+            raise ValueError(
+                f"graph partitioning exceeded the static budgets (edge {eb}, halo {hb}); raise "
+                f"Trainer(partition_edge_headroom=...) above {self.partition_edge_headroom}: {e}"
+            ) from e
+
+    def _my_part(self, graph: Graph) -> Graph:
+        """This rank's part of a batch, on the device; every rank checks
+        that all hold the same batch and budgets. Its host milliseconds go
+        to ``host_ms``."""
+        t0 = time.perf_counter()
+        if isinstance(graph.x, torch.Tensor):
+            graph = graph._map(lambda a: a.cpu().numpy())
+        stacked = self.partition_graph(graph)
+        key = (int(graph.num_nodes), int(graph.num_edges))
+        self._check_same_on_ranks("batches or budgets", [
+            np.frombuffer(repr(self._part_budgets[key]).encode(), np.uint8),
+            graph.x, graph.senders, graph.receivers, graph.edge_mask])
+        part = stacked[self.rank].to(self.device)
+        self.host_ms.append((time.perf_counter() - t0) * 1e3)
+        return part
 
     def train_step(self, graph: Graph) -> torch.Tensor:
         """One optimizer step on ``graph`` (host or device): a flat batch,
@@ -211,6 +442,11 @@ class Trainer:
         if self.optimizer is None:
             raise RuntimeError("call init_state (or fit) before train_step")
         self.sim.train()
+        if self.graph_partition:
+            loss = self._partition_step(self._my_part(graph))
+            self.scheduler.step()
+            self.step += 1
+            return loss.detach()
         graph = graph.to(self.device)
         if self.gradient_accumulation:
             if graph.x.dim() != 3:
@@ -255,6 +491,8 @@ class Trainer:
         num_steps = self.num_steps or num_epochs * len(train_loader)
         if self.optimizer is None:
             self.init_state(num_steps)
+        if self.graph_partition:
+            self._derive_partition_budgets(train_loader)
         start_epoch, resume_offset, resumed_loss = 0, 0, None
         if resume_from and os.path.exists(resume_from):
             _, meta = load_checkpoint_with_metadata(resume_from, self)
@@ -295,8 +533,9 @@ class Trainer:
                     else:
                         prog.update(nsteps)
                     # read the flag once: a signal between a "save?" and a
-                    # "stop?" read must not return without the checkpoint
-                    stop = self._interrupt_requested
+                    # "stop?" read must not return without the checkpoint;
+                    # partitioned ranks stop together
+                    stop = self._interrupt_everywhere()
                     if stop or (self.save_every_n_steps and self.step % self.save_every_n_steps == 0):
                         self.save(epoch, batch_offset=offset + nsteps,
                                   epoch_loss=(loss_sum, steps_before + nsteps))
@@ -313,6 +552,9 @@ class Trainer:
                 history["train_loss"].append(train_loss)
                 msg = (f"[trainer] epoch {epoch}: train_loss={train_loss:.5f} "
                        f"({nsteps} steps, {nsteps / max(time.time() - t0, 1e-9):.2f} it/s)")
+                if self.graph_partition and self.host_ms:
+                    tail = self.host_ms[-max(nsteps, 1):]
+                    msg += f" host_ms_per_step={sum(tail) / len(tail):.2f} (rank {self.rank})"
                 if val_dataset is not None:
                     val_rmse = self.validate(val_dataset, epoch, val_trajectories)
                     history["val_rmse"].append(val_rmse)
@@ -327,6 +569,14 @@ class Trainer:
             return history
         finally:
             self._restore_signal_handlers(prev_handlers)
+
+    def _interrupt_everywhere(self) -> bool:
+        """The interrupt flag; partitioned, True when any rank's is set."""
+        if not self.graph_partition:
+            return self._interrupt_requested
+        flag = torch.tensor([float(self._interrupt_requested)], device=self.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=graph_group(GRAPH_AXIS))
+        return bool(flag.item())
 
     def request_interrupt(self) -> None:
         """Ask ``fit`` to checkpoint and stop at the next step boundary (what
@@ -373,6 +623,43 @@ class Trainer:
                                  previous_data_end=self.previous_data_end)
         return frames, preds, targets
 
+    def _rollout_trajectory_partitioned(self, dataset, traj: int, seed: int):
+        """Trajectory ``traj`` rolled out edge-partitioned over the ranks
+        (``parallel.dp.partitioned_rollout``): the frames share one node
+        split and budgets (``partition_frames_np``; with
+        ``partition_reorder`` one permutation from the first frame, the
+        outputs mapped back). A GMM head samples each rank's rows from
+        ``trajectory_generator(seed, traj, rank=rank)``."""
+        from graphphysics_torch.parallel.dp import partitioned_rollout
+        from graphphysics_torch.parallel.graph_partition import part_of, partition_frames_np
+        from graphphysics_torch.parallel.reorder import inverse_permutation, permute_graph_np
+
+        stacked = stack_graphs([dataset[i] for i in dataset.trajectory_indices(traj)])
+        frames = [stacked[t] for t in range(stacked.x.shape[0])]
+        _, perm = self._maybe_reorder(frames[0])
+        if perm is not None:
+            frames = [permute_graph_np(f, perm) for f in frames]
+        halo = self.partition_mode == "halo"
+        parts = partition_frames_np(frames, self.graph_partition, halo=halo,
+                                    split_local=self._split_attention())
+        if halo:
+            parts = parts.replace(halo_dtype=self.halo_dtype)
+        mine = part_of(parts, self.rank, axis=1).to(self.device)
+        gen = trajectory_generator(seed, traj, self.device, rank=self.rank) if self.K else None
+        preds, targets = partitioned_rollout(
+            self.sim, mine, device=self.device, generator=gen,
+            use_previous_data=self.use_previous_data,
+            previous_data_start=self.previous_data_start, previous_data_end=self.previous_data_end)
+        if perm is not None:
+            inv = torch.as_tensor(inverse_permutation(perm), device=self.device)
+            preds, targets = preds[:, inv], targets[:, inv]
+        return stacked[0:1].to(self.device), preds, targets
+
+    def _roll(self, dataset, traj: int, seed: int):
+        if self.graph_partition and self.partitioned_validation:
+            return self._rollout_trajectory_partitioned(dataset, traj, seed)
+        return self._rollout_trajectory(dataset, traj, seed)
+
     def validate(self, val_dataset, epoch: int = 0, max_trajectories: Optional[int] = None,
                  save_rollout: bool = True) -> float:
         """Autoregressive rollouts of the first ``max_trajectories``
@@ -382,7 +669,10 @@ class Trainer:
         each step's denormalized prediction (None for a GMM head, whose
         rollouts sample from ``trajectory_generator(seed + epoch, traj)``).
         Trajectory 0's rollout is written under ``rollout_dir`` when
-        ``save_rollout``."""
+        ``save_rollout``. With ``graph_partition`` every rank computes the
+        same numbers: each rolls the whole graph out through the
+        unpartitioned model, or with ``partitioned_validation`` all take
+        part in one partitioned rollout per trajectory."""
         n_traj = val_dataset.size_dataset
         if max_trajectories is not None:
             n_traj = min(n_traj, max_trajectories)
@@ -391,7 +681,7 @@ class Trainer:
         total_se, total_cnt, vloss_sum, vloss_cnt = 0.0, 0.0, 0.0, 0
         prog = ProgressReporter(n_traj, prefix=f"validate epoch {epoch}", enable=self.progress)
         for traj in range(n_traj):
-            frames, preds, targets = self._rollout_trajectory(val_dataset, traj, self.seed + epoch)
+            frames, preds, targets = self._roll(val_dataset, traj, self.seed + epoch)
             node_mask = frames.node_mask[0]
             node_type = frames.x[0, :, nti].to(torch.int64)
             with torch.inference_mode():
@@ -451,18 +741,22 @@ class Trainer:
         ``dataset`` (all by default) and write each as
         ``save_dir/graph_{id}.xdmf``; ``save_dir=None`` writes nothing. A GMM
         head samples trajectory ``t`` from ``trajectory_generator(seed, t)``.
-        Returns the ``[T, N, d]`` predictions on the host."""
+        Returns the ``[T, N, d]`` predictions on the host. With
+        ``graph_partition`` every rank returns them (partitioned with
+        ``partitioned_validation``) and rank 0 alone writes."""
         if self.sim is None:
             raise RuntimeError("call init_state and load a checkpoint before predict")
         n_traj = dataset.size_dataset
         if max_trajectories is not None:
             n_traj = min(n_traj, max_trajectories)
         self.sim.eval()
+        if not self.is_writer:
+            save_dir = None
         if save_dir is not None:
             os.makedirs(save_dir, exist_ok=True)
         out = []
         for traj in range(n_traj):
-            preds = self._rollout_trajectory(dataset, traj, self.seed)[1].cpu().numpy()
+            preds = self._roll(dataset, traj, self.seed)[1].cpu().numpy()
             out.append(preds)
             if save_dir is not None:
                 self._write_rollout_series(
@@ -477,7 +771,16 @@ class Trainer:
         a mid-epoch save (resume at this epoch, skipping the first
         ``batch_offset`` batches of its stream). ``epoch_loss``, the
         epoch's ``(loss sum tensor, steps)`` so far, rides along with a
-        mid-epoch save."""
+        mid-epoch save. Partitioned, rank 0 writes and every rank waits
+        for it."""
+        if self.graph_partition:
+            if self.is_writer:
+                self._save(epoch, batch_offset, epoch_loss)
+            dist.barrier(group=graph_group(GRAPH_AXIS))
+            return
+        self._save(epoch, batch_offset, epoch_loss)
+
+    def _save(self, epoch: int, batch_offset: Optional[int], epoch_loss) -> None:
         metadata = {
             "epoch": epoch + 1 if batch_offset is None else epoch,
             "step": int(self.step),

@@ -1,7 +1,11 @@
 """The port stands alone: ``graphphysics_torch``, ``chip_smoke.py``,
-``chip_smoke_mutants.py``, ``chip_compare.py``, ``chip_fidelity.py`` and the
+``chip_smoke_mutants.py``, ``chip_compare.py``, ``chip_fidelity.py``,
+``chip_partition.py``, the
 loader-worker cases that spawned workers import
-(``tests/_torch_port_loader_cases.py``) import no JAX, flax, optax or
+(``tests/_torch_port_loader_cases.py``) and the partition cases that
+spawned graph ranks import (``tests/_torch_port_partition_cases.py``; the
+partition modules ``graphphysics_torch/parallel/*`` and ``ops/halo.py``
+among the package's) import no JAX, flax, optax or
 ``graphphysics_tpu``, build no kernel and start no thread or process on
 import, and their entry points run on CUDA by default, raising where there
 is none."""
@@ -24,7 +28,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "graphphysics_tpu")
 
 def _port_sources():
     scripts = [ROOT / "chip_smoke.py", ROOT / "chip_smoke_mutants.py", ROOT / "chip_compare.py",
-               ROOT / "chip_fidelity.py", ROOT / "tests" / "_torch_port_loader_cases.py"]
+               ROOT / "chip_partition.py",
+               ROOT / "chip_fidelity.py", ROOT / "tests" / "_torch_port_loader_cases.py",
+               ROOT / "tests" / "_torch_port_partition_cases.py"]
     return sorted((ROOT / "graphphysics_torch").rglob("*.py")) + scripts
 
 
@@ -62,6 +68,10 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "import graphphysics_torch.dataset.xdmf_dataset, chip_fidelity\n"
         "import graphphysics_torch.topology.build, graphphysics_torch.dataset.preprocessing\n"
         "import graphphysics_torch.utils.synthetic, tests._torch_port_loader_cases\n"
+        "import graphphysics_torch.parallel, graphphysics_torch.parallel.mesh\n"
+        "import graphphysics_torch.parallel.dp, graphphysics_torch.parallel.graph_partition\n"
+        "import graphphysics_torch.parallel.reorder, graphphysics_torch.ops.halo\n"
+        "import tests._torch_port_partition_cases, chip_partition\n"
         "import threading, multiprocessing\n"
         "from graphphysics_torch.ops import _native\n"
         "print(json.dumps({'new': sorted(set(sys.modules) - before),\n"
