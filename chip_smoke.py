@@ -118,22 +118,29 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     ``chip_fidelity.run`` for each config (the fidelity runs at full width
     and depth on their own data): the training loss and the held-out
     rollout RMSE fall;
-18. ``fused_bf16_kernels``: the fused attention's bf16 entries
-    (``csr_attention_bf16``, ``csr_attention_bwd_bf16``) against their plain
-    versions on the same bf16 inputs (within two bf16 ulps, and at most
-    ``BF16_MISMATCH_SHARE`` of the elements differing at all) at the
-    serving frame, the panels batch and the aneurysm scale (widths 128, 128,
-    64 in the model's (N, Dh, H) view) and on the panels batch at widths 64
-    and 48 (the general geometry), each timed beside its bound (2 bytes a
-    q, k, v, out, g, dq, dk and dv element), its plain version, the f32
-    entry on the same shapes and SDPA in bf16 (frame and batch);
+18. ``fused_bf16_kernels``: the fused attention's bf16 kernels
+    (``csr_attention_bf16.cu``, ``csr_attention_bwd_bf16.cu``: 16-byte
+    lanes, a backward by sender rows and then by gather rows over the
+    graph's transposed CSR, ``gather_csr``) against their plain versions on
+    the same bf16 inputs (within two bf16 ulps, and at most
+    ``BF16_MISMATCH_SHARE`` of the elements differing at all), the backward
+    bit-equal on a second call, at the serving frame, the panels batch and
+    the aneurysm scale (widths 128, 128, 64 in the model's (N, Dh, H) view)
+    and on the panels batch at widths 64 and 48 (the general geometry),
+    each timed beside its bound (2 bytes a q, k, v, out, g, dq, dk and dv
+    element), its plain version, the f32 entry on the same shapes and SDPA
+    in bf16 (frame and batch), the transposition timed on its own
+    (``transpose_ms``);
 19. ``bf16_epd_training``, ``bf16_transformer_training``,
     ``bf16_gmm_training``: ``train`` of ``cylinder.json``, ``panels.json``
     (8 x 2,048 batches) and ``c-a-gmm.json`` (the 66,560-node graph) with
     ``"precision": "bf16"``: 20 timed steps with the launches checked (the
-    EPD's K1 and K1b f32 entries, the transformers' bf16 attention entries),
-    the first step against the CPU in bf16 on one 2,048-node graph, a
-    profile, each beside the f32 phase's readings;
+    EPD's K1 and K1b f32 entries; the transformers' bf16 attention kernels
+    and one transposed CSR a step), the first step against the CPU in bf16
+    on one 2,048-node graph, a profile, each beside the f32 phase's
+    readings; for the panels transformer, whether two bf16 steps (and two
+    f32 steps) from one seeded state give the same bits (reported, not
+    checked);
 20. ``bf16_serving``: 50-frame rollouts of both 15 x 128 families in bf16,
     3 frames against the CPU, eager and CUDA-graph forwards;
 21. ``remat_training``: the panels transformer and the cylinder EPD with
@@ -2148,14 +2155,35 @@ def plate_pipeline(name, param, counts, seed, workers):
 # bf16 compute, remat and the large mesh
 
 
+def open_variant_bounds(epd_batch, csr_batch):
+    """The memory bounds of the two dtype variants of ported TPU kernels
+    that no model path runs and the port has not ported (``PERF.md`` §6), at
+    the training batches, by K1's and K2's byte counts with 2 bytes a
+    streamed element: K1's 16-bit stream (``pallas_segment.py:161,193``;
+    bf16 messages in, bf16 rows out) on the cylinder batch, and K2's
+    ``stream_dtype="bf16"`` (``pallas_attention.py:275-302``; bf16 scores
+    and values in, f32 out and ml) on the panels batch, width 128."""
+    k1_edges = int(np.asarray(epd_batch.edge_mask).sum())
+    k2_edges = int(np.asarray(csr_batch.edge_mask).sum())
+    n1, n2, h = epd_batch.num_nodes, csr_batch.num_nodes, HEADS
+    k1 = k1_edges * (HIDDEN * 2 + 1) + n1 * (8 + HIDDEN * 2)
+    k2 = k2_edges * (2 * h + 2 * HIDDEN + 1) + n2 * (4 * HIDDEN + 8 * h + 8)
+    return {"k1_16bit_stream": {"real_edges": k1_edges, "nodes": n1, "width": HIDDEN, "bytes": k1,
+                                "bound_ms": k1 / H100_BYTES_PER_S * 1e3},
+            "k2_bf16_stream": {"real_edges": k2_edges, "nodes": n2, "width": HIDDEN, "heads": h,
+                               "bytes": k2, "bound_ms": k2 / H100_BYTES_PER_S * 1e3}}
+
+
 def fused_bf16_case(name, graph, width, seed, heads=HEADS, view="model", library=True):
     """Hold the fused attention's bf16 entries (``csr_attention_bf16`` and
     ``csr_attention_bwd_bf16``) against their plain versions on the same
-    bf16 inputs, and time each beside its bound (bytes at 2 per q, k, v,
-    out, g, dq, dk and dv element), its plain version, the f32 entry on the
-    f32 inputs the bf16 ones were rounded from and, with ``library``, SDPA
-    in bf16 with the dense adjacency as its mask. Returns (forward record,
-    backward record)."""
+    bf16 inputs, the backward over the graph's transposed CSR
+    (``gather_csr``, built once and timed on its own as ``transpose_ms``)
+    and bit-equal on a second call, and time each beside its bound (bytes
+    at 2 per q, k, v, out, g, dq, dk and dv element), its plain version, the
+    f32 entry on the f32 inputs the bf16 ones were rounded from and, with
+    ``library``, SDPA in bf16 with the dense adjacency as its mask. Returns
+    (forward record, backward record)."""
     import torch.nn.functional as F
 
     from graphphysics_torch.ops import csr_attention as ca
@@ -2168,13 +2196,18 @@ def fused_bf16_case(name, graph, width, seed, heads=HEADS, view="model", library
     if interleaved is not (view == "model"):
         raise AssertionError(f"{name}: the bf16 inputs lost their layout")
     with torch.no_grad():
+        tc = ca.gather_csr(seg, gather, bounds, mask)
         out, ml = ca.csr_attention(q, k, v, seg, gather, bounds, mask, scale)
         want_out, want_ml = ca.csr_attention_reference(q, k, v, seg, gather, n, mask, scale)
-        grads = ca.csr_attention_backward(q, k, v, seg, gather, bounds, ml, out, g, mask, scale)
+        grads = ca.csr_attention_backward(q, k, v, seg, gather, bounds, ml, out, g, mask, scale, tc)
+        again = ca.csr_attention_backward(q, k, v, seg, gather, bounds, ml, out, g, mask, scale, tc)
         want_grads = ca.csr_attention_backward_reference(q, k, v, seg, gather, ml, out, g, mask, scale)
     torch.cuda.synchronize()
     if out.dtype != torch.bfloat16 or any(t.dtype != torch.bfloat16 for t in grads):
         raise AssertionError(f"{name}: bf16 entries gave {out.dtype}, {[t.dtype for t in grads]}")
+    unequal = [f"d{x}" for x, a, b in zip("qkv", grads, again) if not torch.equal(a, b)]
+    if unequal:
+        raise AssertionError(f"{name}: the bf16 backward gave other bits on a second call in {unequal}")
     fwd_errs = [(out.float() - want_out.float()).abs().max().item(), (ml - want_ml).abs().max().item()]
     if not (torch.isfinite(out.float()).all() and torch.allclose(
             out.float(), want_out.float(), rtol=BF16_KERNEL_RTOL, atol=BF16_KERNEL_ATOL)
@@ -2208,12 +2241,13 @@ def fused_bf16_case(name, graph, width, seed, heads=HEADS, view="model", library
             return ca.csr_attention(a, b, c, seg, gather, bounds, mask, scale)
 
         def bwd(a, b, c, g_, o_, ml_):
-            return ca.csr_attention_backward(a, b, c, seg, gather, bounds, ml_, o_, g_, mask, scale)
+            return ca.csr_attention_backward(a, b, c, seg, gather, bounds, ml_, o_, g_, mask, scale, tc)
 
         bwd_inputs = [(*st, *sv) for st, sv in zip(sets, saved)]
         bwd_inputs32 = [(*st, *sv) for st, sv in zip(sets32, saved32)]
         fwd_t, bwd_t = device_ms(fwd, sets), device_ms(bwd, bwd_inputs)
         f32_fwd_t, f32_bwd_t = device_ms(fwd, sets32), device_ms(bwd, bwd_inputs32)
+        transpose_t = device_ms(lambda *_: ca.gather_csr(seg, gather, bounds, mask), sets)
         fwd_plain = device_ms(
             lambda a, b, c, _: ca.csr_attention_reference(a, b, c, seg, gather, n, mask, scale), sets)
         bwd_plain = device_ms(
@@ -2238,13 +2272,15 @@ def fused_bf16_case(name, graph, width, seed, heads=HEADS, view="model", library
             lib_fwd = device_ms(lambda a, b, c, _: sdpa(a, b, c), sets, min_reps=3)
         lib_bwd = device_ms(sdpa_fwd_bwd, sets, min_reps=3) - lib_fwd
         lib_note = "torch.nn.functional.scaled_dot_product_attention in bf16, dense boolean adjacency mask"
+    geometry = {x: ca.bf16_geometry(width, h, interleaved, ca._aligned(q, k, v, g), backward=x == "backward")
+                for x in ("forward", "backward")}
     common = {"shape": name, "nodes": n, "edges": seg.shape[0], "real_edges": real_edges,
               "width": width, "heads": h, "dtype": "bfloat16",
               "layout": "(N, Dh, H) view" if view == "model" else "contiguous [N, H, Dh]",
-              "lanes_per_row": {"forward": ca.lanes_per_row(width, h, interleaved),
-                                "backward": ca.lanes_per_row(width, h, interleaved, backward=True)},
-              "geometry": {"forward": ca.geometry_kind(ca.lanes_per_row(width, h, interleaved), width, h,
-                                                       interleaved)},
+              "lanes_per_row": {x: lanes for x, (lanes, _) in geometry.items()},
+              "geometry": {x: "general" if general else "16-byte lanes" for x, (_, general) in geometry.items()},
+              "f32_entry_lanes_per_row": {"forward": ca.lanes_per_row(width, h, interleaved),
+                                          "backward": ca.lanes_per_row(width, h, interleaved, backward=True)},
               "input_copies": copies, "library_note": lib_note,
               "tolerance": {"rtol": BF16_KERNEL_RTOL, "atol": BF16_KERNEL_ATOL,
                             "mismatch_share": BF16_MISMATCH_SHARE}}
@@ -2262,6 +2298,8 @@ def fused_bf16_case(name, graph, width, seed, heads=HEADS, view="model", library
                       "dq_dk_dv_max_abs_err")
     backward["tolerance"] = {**common["tolerance"], "dv_atol": dv_atol}
     backward["dq_dk_dv_mismatch_share"] = shares[1:]
+    backward["bit_equal_twice"] = True
+    backward["transpose_ms"] = transpose_t  # gather_csr, once a step on the training path
     return forward, backward
 
 
@@ -2299,6 +2337,26 @@ def bf16_train(name, param, batch, check_batch, counts, expected, seed, f32_resu
                                   "why": "the CPU side of a bf16 step at the timed batch is too slow"}
     result["f32_phase"] = f32_beside(f32_result)
     return result
+
+
+def replay_bitwise(param, batch, seed, steps=2):
+    """Whether two ``Trainer``s from one seeded state take ``steps`` steps
+    on ``batch`` to the same bits (every loss and parameter), with the
+    largest parameter difference: reported, not gated."""
+    from graphphysics_torch.training import Trainer
+
+    dev_batch = batch.to("cuda")
+    runs = []
+    for _ in range(2):
+        trainer = Trainer(param, learning_rate=1e-4, warmup=10, seed=seed, device="cuda")
+        trainer.init_state(steps + 1)
+        losses = [trainer.train_step(dev_batch).item() for _ in range(steps)]
+        runs.append((losses, {n: p.detach().clone() for n, p in trainer.sim.named_parameters()}))
+        del trainer
+    (loss_a, par_a), (loss_b, par_b) = runs
+    return {"steps": steps, "bitwise": loss_a == loss_b and all(torch.equal(par_a[n], par_b[n]) for n in par_a),
+            "losses_equal": loss_a == loss_b,
+            "param_max_abs_diff": max((par_a[n] - par_b[n]).abs().max().item() for n in par_a)}
 
 
 def remat_training(name, param, batch, counts, expected, seed):
@@ -2426,7 +2484,8 @@ def large_mesh_training(lever, nodes, counts, seed):
     launches = {k: fn.launches for k, fn in counts.items()}
     fwd, bwd = (("csr_attention_bf16", "csr_attention_backward_bf16") if lever == "bf16"
                 else ("csr_attention", "csr_attention_backward"))
-    per_step = {fwd: blocks * micro * (2 if lever == "remat" else 1), bwd: blocks * micro}
+    per_step = {fwd: blocks * micro * (2 if lever == "remat" else 1), bwd: blocks * micro,
+                "gather_csr": micro if lever == "bf16" else 0}
     want = {k: per_step.get(k, 0) * LARGE_MESH_STEPS for k in counts}
     if launches != want:
         raise AssertionError(f"large_mesh_training {lever}: launches {launches}, expected {want}")
@@ -2482,7 +2541,11 @@ def bf16_phases(clock, counts, seed, frames, tf_frames, tf_batch, cyl_batch, ane
                 f"{CYLINDER_CONFIG}", **paths["bf16_epd_training"]})
     paths["bf16_transformer_training"] = bf16_train(
         "bf16_transformer_training", panels, tf_batch, check_csr, counts,
-        {"csr_attention_bf16": blocks, "csr_attention_backward_bf16": blocks}, seed, tf_train)
+        {"csr_attention_bf16": blocks, "csr_attention_backward_bf16": blocks, "gather_csr": 1}, seed,
+        tf_train)
+    paths["bf16_transformer_training"]["replay"] = {
+        "bf16": replay_bitwise(with_precision(panels, "bf16"), tf_batch, seed),
+        "f32": replay_bitwise(panels, tf_batch, seed)}
     clock.emit({"phase": "bf16_transformer_training", "model": f"EncodeTransformDecode {blocks}x128, 4 heads, "
                 f"bf16, {PANELS_CONFIG}", **paths["bf16_transformer_training"]})
     gmm = load_config(GMM_CONFIG)
@@ -2491,8 +2554,8 @@ def bf16_phases(clock, counts, seed, frames, tf_frames, tf_batch, cyl_batch, ane
                                  node_type_index=14)
     paths["bf16_gmm_training"] = bf16_train(
         "bf16_gmm_training", gmm, aneurysm_gmm_graph(seed + 400), check_gmm, counts,
-        {"csr_attention_bf16": gmm_blocks, "csr_attention_backward_bf16": gmm_blocks}, seed, gmm_train,
-        graphs=1)
+        {"csr_attention_bf16": gmm_blocks, "csr_attention_backward_bf16": gmm_blocks, "gather_csr": 1},
+        seed, gmm_train, graphs=1)
     clock.emit({"phase": "bf16_gmm_training", "model": f"EncodeTransformDecode {gmm_blocks}x64, K=3, bf16, "
                 f"{GMM_CONFIG}", **paths["bf16_gmm_training"]})
 
@@ -3318,6 +3381,7 @@ def main() -> int:
         csr_softmax_spmm_backward,
         csr_softmax_spmm_pair,
         csr_softmax_spmm_pair_backward,
+        gather_csr,
     )
     from graphphysics_torch.ops.csr_segment import csr_segment_sum, csr_segment_sum_backward
     from graphphysics_torch.training import get_preprocessing
@@ -3340,6 +3404,9 @@ def main() -> int:
         "csr_attention_backward_bf16": csr_attention_backward.bf16,
         "csr_softmax_spmm_pair": csr_softmax_spmm_pair,
         "csr_softmax_spmm_pair_backward": csr_softmax_spmm_pair_backward,
+        # not a kernel: the transposed CSR of the bf16 backward, built by
+        # PyTorch ops once per bf16 training forward on the card
+        "gather_csr": gather_csr,
     }
 
     # 1. environment and build ---------------------------------------------------
@@ -3401,6 +3468,7 @@ def main() -> int:
     ]
     for s in k1b_shapes:
         clock.emit({"phase": "kernel", "name": "csr_segment_sum_backward", **s})
+    clock.emit({"phase": "open_variants", **open_variant_bounds(cyl_batch, tf_batch)})
     k3_shapes = [
         k3_case("transformer_serving_frame", tf_frames[0], HIDDEN, args.seed + 9),
         k3_case("panels_csr_batch_8x2048", tf_batch, HIDDEN, args.seed + 10),
@@ -3668,16 +3736,17 @@ def main() -> int:
               launches_by_path=by_path["csr_attention_backward"],
               also_replaces="the backward of csr_sparse_attention's gathers and SDDMM "
                             "(graphphysics_tpu/ops/pallas_attention.py:556)"),
-        entry("csr_attention_bf16", "graphphysics_torch/csrc/csr_attention.cu",
+        entry("csr_attention_bf16", "graphphysics_torch/csrc/csr_attention_bf16.cu",
               "graphphysics_tpu/ops/pallas_attention.py:255", launched["csr_attention_bf16"],
               [f for f, _ in bf16_kernels], {"rtol": BF16_KERNEL_RTOL, "atol": BF16_KERNEL_ATOL},
               f32_entry_ms=bf16_kernels[1][0]["f32_entry_ms"], launches_by_path=by_path["csr_attention_bf16"],
               also_replaces="graphphysics_tpu/ops/pallas_attention.py:556 (csr_sparse_attention's "
                             "gathers and SDDMM) on bf16 q, k, v"),
-        entry("csr_attention_backward_bf16", "graphphysics_torch/csrc/csr_attention_bwd.cu",
+        entry("csr_attention_backward_bf16", "graphphysics_torch/csrc/csr_attention_bwd_bf16.cu",
               "graphphysics_tpu/ops/pallas_attention.py:398", launched["csr_attention_backward_bf16"],
               [b for _, b in bf16_kernels], {"rtol": BF16_KERNEL_RTOL, "atol": BF16_KERNEL_ATOL},
               f32_entry_ms=bf16_kernels[1][1]["f32_entry_ms"],
+              transpose_ms=bf16_kernels[1][1]["transpose_ms"], transpose_builds=launched["gather_csr"],
               launches_by_path=by_path["csr_attention_backward_bf16"],
               also_replaces="the backward of csr_sparse_attention's gathers and SDDMM on bf16 q, k, v"),
     ]}

@@ -6,8 +6,10 @@ fault in the general lane geometry of ``csrc/csr_attention.cuh``; a fault in
 the checkpoint restore moves ``resume_runs``, the check of a resumed run
 against an uninterrupted one (the readings ``RESUME_MEDIAN_RTOL`` and the
 per-model worst limits must sit below); a fault in the fused attention's
-bf16 entries moves the bf16 ``first_step`` (the panels transformer in bf16
-on one 2,048-node graph, card and CPU both in bf16: the reading
+bf16 kernels (``csrc/csr_attention_bf16.cuh``'s 16-byte lanes, the
+backward's part B over the transposed CSR in ``csr_attention_bwd_bf16.cu``)
+moves the bf16 ``first_step`` (the panels transformer in bf16 on one
+2,048-node graph, card and CPU both in bf16: the reading
 ``BF16_GRAD_RTOL`` must sit below) and the bf16 kernel phase's check
 against the plain versions (the share of elements that differ:
 ``BF16_MISMATCH_SHARE``); a fault in the gradient-accumulation step moves
@@ -54,14 +56,12 @@ ATTN_DK = "add_row<V, GEN>(dk, j, geo, r, dkr);"
 ATTN_DQ = "for (int i = 0; i < V; ++i) dqa[i] += ds[i % NP] * scale * kc[i];"
 HEADER = "graphphysics_torch/csrc/csr_attention.cuh"
 GENERAL_LOAD = "v[i] = c < geo.width ? to_float(row[c]) : 0.0f;"
-ATTN_DV = "add_row<V, GEN>(dv, j, geo, r, dvr);"
-VECTOR_LOAD = "for (int i = 0; i < V / 4; ++i) load4(p + 4 * i, v + 4 * i);"
-# dk or dv summed in bf16: every partial sum rounded to bf16 (a CAS loop on
-# the f32 buffer) in place of the f32 atomics
-BF16_SUM = ("for (int i = 0; i < V; ++i) { const int c = column<V, GEN>(geo, r, i); if (c < geo.width) { "
-            "unsigned int* a = reinterpret_cast<unsigned int*>(BUF + static_cast<int64_t>(j) * geo.width + c); "
-            "unsigned int o = *a, prev; do { prev = o; o = atomicCAS(a, prev, __float_as_uint("
-            "__bfloat162float(__float2bfloat16_rn(__uint_as_float(prev) + TERMS[i])))); } while (o != prev); } }")
+BF16_BWD = "graphphysics_torch/csrc/csr_attention_bwd_bf16.cu"
+BF16_HEADER = "graphphysics_torch/csrc/csr_attention_bf16.cuh"
+BF16_DK = "dka[i] += d[u][i % NP] * scale * qr[i];"
+BF16_DV = "dva[i] += round_to<__nv_bfloat16>(a[u][i % NP] * gr[i]);"
+BF16_ROW = "reinterpret_cast<const uint4*>(base + static_cast<int64_t>(j) * geo.width + r.col0);"
+BF16_SLOT = "const bool live = t < r.len;"
 MICRO = "graphphysics_torch/training/microbatch.py"
 MICRO_BACKWARD = "        ls.backward()  # frees this microbatch's graph before the next forward"
 MICRO_DIVIDE = "                p.grad.div_(denom)"
@@ -92,13 +92,18 @@ FAULTS = {
     # kernels)
     "width_drop_tail_columns": ("width40", HEADER, GENERAL_LOAD, GENERAL_LOAD.replace(
         "c < geo.width ?", "c < geo.width / geo.lanes * geo.lanes ?")),
-    # the bf16 backward sums dk and dv in bf16 instead of f32
-    "bf16_dkdv_summed_in_bf16": ("bf16transformer+kernel", ATTN, (ATTN_DK, ATTN_DV), (
-        BF16_SUM.replace("BUF", "dk").replace("TERMS", "dkr"),
-        BF16_SUM.replace("BUF", "dv").replace("TERMS", "dvr"))),
-    # a bf16 row's groups of 4 columns read at the f32 rows' 16-byte stride
-    "bf16_row_read_with_f32_stride": ("bf16transformer", HEADER, VECTOR_LOAD, VECTOR_LOAD.replace(
-        "load4(p + 4 * i,", "load4(p + 4 * i * (sizeof(float) / sizeof(T)),")),
+    # the bf16 backward sums dk and dv in bf16 instead of f32: every partial
+    # sum of a gather row rounded to bf16
+    "bf16_dkdv_summed_in_bf16": ("bf16transformer+kernel", BF16_BWD, (BF16_DK, BF16_DV), (
+        "dka[i] = round_to<__nv_bfloat16>(dka[i] + d[u][i % NP] * scale * qr[i]);",
+        "dva[i] = round_to<__nv_bfloat16>(dva[i] + round_to<__nv_bfloat16>(a[u][i % NP] * gr[i]));")),
+    # a 16-byte lane reads its neighbour's 8 columns of each gathered row
+    "bf16_row_read_from_neighbour_lane": ("bf16transformer+kernel", BF16_HEADER, BF16_ROW,
+                                          BF16_ROW.replace("r.col0)", "(r.col0 ^ V))")),
+    # part B walks each gather row's slots of the transposed CSR one short:
+    # every node's last gathering edge adds nothing to its dk and dv
+    "bf16_gather_rows_drop_last_slot": ("bf16transformer+kernel", BF16_BWD, BF16_SLOT,
+                                        BF16_SLOT.replace("t < r.len", "t + 1 < r.len")),
     # each microbatch's gradient divided by its own count, then averaged
     "microbatch_mean_of_means_epd": ("accum_epd", MICRO, (MICRO_BACKWARD, MICRO_DIVIDE), (
         "        (ls / torch.clamp(c, min=1.0) / len(micro)).backward()", "                pass")),

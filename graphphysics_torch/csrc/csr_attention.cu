@@ -54,13 +54,8 @@
 // Tensor cores do not apply: the per-row dots are 32-wide heads against ~6
 // rows, far below a wgmma tile, and the bound is bytes.
 //
-// Two entries, one kernel: csr_attention_f32 (q, k, v, out float) and
-// csr_attention_bf16 (q, k, v, out bf16; the bf16 model's projections give
-// them). The bf16 entry upcasts every loaded element to f32 before any
-// product, computes the scores, the online max and sum and the weighted sum
-// in f32, and rounds out to bf16 once, as the JAX package's K2 does
-// (`out.astype(values.dtype)`); ml stays f32. Its q, k, v and out bytes are
-// half the f32 entry's (N*2D*3 + N*2D of the sum above).
+// The entry is csr_attention_f32 (q, k, v, out float). The bf16 entry is
+// csr_attention_bf16.cu, a kernel of its own with 16-byte bf16 lanes.
 
 #include "csr_attention.cuh"
 
@@ -196,14 +191,4 @@ extern "C" int csr_attention_f32(const void* q, const void* k, const void* v, co
                                  int interleaved, int lanes, float scale, void* stream) {
   return run<float>(q, k, v, gather_idx, bounds, mask, out, ml, num_rows, num_edges, num_heads,
                     width, interleaved, lanes, scale, stream);
-}
-
-// As csr_attention_f32 with q, k, v and out bf16 [N, D] node rows, 8-byte
-// aligned, D % 4 == 0 (the wrapper checks); ml f32.
-extern "C" int csr_attention_bf16(const void* q, const void* k, const void* v, const void* gather_idx,
-                                  const void* bounds, const void* mask, void* out, void* ml,
-                                  long long num_rows, long long num_edges, int num_heads, int width,
-                                  int interleaved, int lanes, float scale, void* stream) {
-  return run<__nv_bfloat16>(q, k, v, gather_idx, bounds, mask, out, ml, num_rows, num_edges,
-                            num_heads, width, interleaved, lanes, scale, stream);
 }

@@ -34,14 +34,13 @@
 // columns whatever H and D are. It is the same kernel, instantiated with
 // GEN = true.
 //
-// Element types. Node rows (q, k, v, out, g, dq) are float or bf16
-// (__nv_bfloat16), the kernels' template parameter T; every loaded element
-// becomes f32 in registers before any product, and all arithmetic is f32.
-// A lane's columns keep their geometry in both types: where the f32 rows
-// load V columns as 16-byte float4s, bf16 rows load them as 8-byte groups
-// of 4 (two __nv_bfloat162), so a bf16 row moves half the bytes. Stores
-// round each f32 value to bf16 once (round to nearest even). ml, and the
-// backward's dk and dv sums, stay f32 in both.
+// Element types. Node rows (q, k, v, out, g, dq) are float, the kernels'
+// template parameter T, loaded as 16-byte float4s where V allows; all
+// arithmetic is f32. The bf16 kernels (csr_attention_bf16.cu,
+// csr_attention_bwd_bf16.cu) take this file's row slots, index chunks and
+// general geometry with T = __nv_bfloat16 (scalar loads converted to f32,
+// stores rounded to bf16 once) and their own 16-byte lanes
+// (csr_attention_bf16.cuh).
 
 #pragma once
 
@@ -180,17 +179,6 @@ __device__ __forceinline__ T from_float(float x) {
   }
 }
 
-// 4 bf16 columns from one 8-byte load (two __nv_bfloat162), as f32.
-__device__ __forceinline__ void load4(const __nv_bfloat16* __restrict__ p, float* v) {
-  const uint2 t = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
-  v[0] = a.x;
-  v[1] = a.y;
-  v[2] = b.x;
-  v[3] = b.y;
-}
-
 __device__ __forceinline__ void load4(const float* __restrict__ p, float* v) {
   const float4 t = *reinterpret_cast<const float4*>(p);
   v[0] = t.x;
@@ -199,39 +187,22 @@ __device__ __forceinline__ void load4(const float* __restrict__ p, float* v) {
   v[3] = t.w;
 }
 
-__device__ __forceinline__ void load2(const __nv_bfloat16* __restrict__ p, float* v) {
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  v[0] = a.x;
-  v[1] = a.y;
-}
-
 __device__ __forceinline__ void load2(const float* __restrict__ p, float* v) {
   const float2 t = *reinterpret_cast<const float2*>(p);
   v[0] = t.x;
   v[1] = t.y;
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* __restrict__ p, const float* v) {
-  uint2 t;
-  *reinterpret_cast<__nv_bfloat162*>(&t.x) = __floats2bfloat162_rn(v[0], v[1]);
-  *reinterpret_cast<__nv_bfloat162*>(&t.y) = __floats2bfloat162_rn(v[2], v[3]);
-  *reinterpret_cast<uint2*>(p) = t;
-}
-
 __device__ __forceinline__ void store4(float* __restrict__ p, const float* v) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* __restrict__ p, const float* v) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
 }
 
 __device__ __forceinline__ void store2(float* __restrict__ p, const float* v) {
   *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
 }
 
-// The lane's V consecutive columns at p (16- or 8-byte vectors for f32,
-// 8- or 4-byte ones for bf16, where V allows), as f32.
+// The lane's V consecutive columns at p (16- or 8-byte vectors where V
+// allows), as f32.
 template <int V, typename T>
 __device__ __forceinline__ void load_cols(const T* __restrict__ p, float (&v)[V]) {
   if constexpr (V % 4 == 0) {

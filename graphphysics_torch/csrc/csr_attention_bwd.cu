@@ -46,15 +46,9 @@
 // their order of summation changes from run to run, as the index_add_
 // scatters' did. A deterministic pass over a transposed CSR is later work.
 //
-// Two entries, one kernel: csr_attention_bwd_f32 and csr_attention_bwd_bf16
-// (q, k, v, out, g and dq bf16). The bf16 entry upcasts every loaded
-// element to f32, computes in f32, sums dq in f32 registers and stores it
-// rounded to bf16 once. Each edge's dv term is rounded to bf16 first, as the
-// JAX backward rounds its per-edge dvalues to the values' dtype
-// (pallas_attention.py `_edge_grads`). dk and dv are summed with the same
-// f32 atomics into f32 buffers in both entries; the wrapper casts them to
-// bf16 in one pass. bf16 atomics (atomicAdd on __nv_bfloat162) would round
-// every partial sum, less accurate than both JAX paths.
+// The entry is csr_attention_bwd_f32. The bf16 backward is
+// csr_attention_bwd_bf16.cu: no atomics, dk and dv summed by gather rows
+// over a transposed CSR.
 
 #include "csr_attention.cuh"
 
@@ -237,17 +231,4 @@ extern "C" int csr_attention_bwd_f32(const void* q, const void* k, const void* v
                                      float scale, void* stream) {
   return run<float>(q, k, v, gather_idx, bounds, mask, ml, out, g, dq, dk, dv, num_rows,
                     num_edges, num_heads, width, interleaved, lanes, scale, stream);
-}
-
-// As csr_attention_bwd_f32 with q, k, v, out, g and dq bf16 [N, D] node
-// rows, 8-byte aligned, D % 4 == 0 (the wrapper checks); ml, dk and dv f32,
-// dk and dv zeroed, 16-byte aligned.
-extern "C" int csr_attention_bwd_bf16(const void* q, const void* k, const void* v,
-                                      const void* gather_idx, const void* bounds, const void* mask,
-                                      const void* ml, const void* out, const void* g, void* dq,
-                                      void* dk, void* dv, long long num_rows, long long num_edges,
-                                      int num_heads, int width, int interleaved, int lanes,
-                                      float scale, void* stream) {
-  return run<__nv_bfloat16>(q, k, v, gather_idx, bounds, mask, ml, out, g, dq, dk, dv, num_rows,
-                            num_edges, num_heads, width, interleaved, lanes, scale, stream);
 }

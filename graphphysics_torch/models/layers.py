@@ -344,10 +344,13 @@ class Attention(nn.Module):
         ell_degree: Optional[int] = None,
         twin_perm: Optional[torch.Tensor] = None,
         *partition,
+        gather_csr=None,
     ) -> torch.Tensor:
         """``partition``: a partitioned part's ``row_bounds``,
         ``partition_axis``, ``halo_send_idx``, ``halo_dtype``,
-        ``halo_row_bounds`` and ``num_local_edges`` (``partition_fields``)."""
+        ``halo_row_bounds`` and ``num_local_edges`` (``partition_fields``);
+        ``gather_csr``: the graph's transposed CSR, for the bf16 backward on
+        CUDA (``ops.csr_attention.gather_csr``)."""
         n, d = x.shape
         h = self.num_heads
 
@@ -366,6 +369,7 @@ class Attention(nn.Module):
             sender_bounds=sender_bounds,
             ell_degree=ell_degree,
             twin_perm=twin_perm,
+            gather_csr=gather_csr,
             **dict(zip(PARTITION_FIELDS, partition)),
         )
         # back to the flat layout: [N, H, Dh] -> (N, Dh, H) -> [N, D]
@@ -395,9 +399,10 @@ class TransformerBlock(nn.Module):
         ell_degree: Optional[int] = None,
         twin_perm: Optional[torch.Tensor] = None,
         *partition,
+        gather_csr=None,
     ) -> torch.Tensor:
         x = x + self.attention(self.norm1(x), senders, receivers, edge_mask, sender_bounds,
-                               ell_degree, twin_perm, *partition).to(x.dtype)
+                               ell_degree, twin_perm, *partition, gather_csr=gather_csr).to(x.dtype)
         return x + self.gated_mlp(self.norm2(x)).to(x.dtype)
 
 

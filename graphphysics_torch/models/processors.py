@@ -43,6 +43,7 @@ from graphphysics_torch.models.layers import (
     TransformerBlock,
     partition_fields,
 )
+from graphphysics_torch.ops.csr_attention import gather_csr
 
 
 def _decoder(hidden_size: int, output_size: int, num_mixture_components: int,
@@ -78,11 +79,12 @@ class _GMMOptions:
         self.remat = bool(remat)
         self.scan_blocks = bool(scan_blocks)
 
-    def _block(self, block: nn.Module, *args):
-        """``block(*args)``, rematerialized in the backward with ``remat``."""
+    def _block(self, block: nn.Module, *args, **kwargs):
+        """``block(*args, **kwargs)``, rematerialized in the backward with
+        ``remat``."""
         if self.remat:
-            return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False)
-        return block(*args)
+            return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False, **kwargs)
+        return block(*args, **kwargs)
 
     @property
     def d(self) -> int:
@@ -155,8 +157,10 @@ class EncodeTransformDecode(_GMMOptions, nn.Module):
     are not used. On CUDA the graph must carry ``sender_bounds``
     (``pad_graph_csr_np``): attention then runs the fused Hopper attention
     kernel once per block (on its bf16 entry with a bf16 ``dtype``: the
-    projections give q, k and v in it); or be an ELL graph, whose attention
-    is the dense ELL ops. Emits float32 predictions."""
+    projections give q, k and v in it; with grad on, the forward then
+    builds the graph's transposed CSR once for every block's bf16
+    backward); or be an ELL graph, whose attention is the dense ELL ops.
+    Emits float32 predictions."""
 
     def __init__(
         self,
@@ -186,8 +190,19 @@ class EncodeTransformDecode(_GMMOptions, nn.Module):
 
     def forward(self, graph: Graph) -> torch.Tensor:
         x = self.nodes_encoder(graph.x)
+        transposed = self._gather_csr(graph, x)
         for block in self.processor_list:
             x = self._block(block, x, graph.senders, graph.receivers, graph.edge_mask,
                             graph.sender_bounds, graph.ell_degree, graph.twin_perm,
-                            *partition_fields(graph))
+                            *partition_fields(graph), gather_csr=transposed)
         return self.decode_module(x).to(torch.float32)
+
+    def _gather_csr(self, graph: Graph, x: torch.Tensor):
+        """The graph's transposed CSR (``ops.csr_attention.gather_csr``),
+        built once per forward for every block, where the bf16 attention's
+        backward on CUDA sums over it: a CSR graph on the card, bf16, grad
+        on. None elsewhere."""
+        if (graph.sender_bounds is None or not x.is_cuda or self.dtype != torch.bfloat16
+                or not torch.is_grad_enabled()):
+            return None
+        return gather_csr(graph.senders, graph.receivers, graph.sender_bounds, graph.edge_mask)

@@ -65,6 +65,7 @@ def sparse_graph_attention(
     halo_dtype: Optional[str] = None,
     halo_row_bounds: Optional[torch.Tensor] = None,
     num_local_edges: Optional[int] = None,
+    gather_csr=None,
 ) -> torch.Tensor:
     """Adjacency-masked attention. ``q``, ``k``, ``v`` are ``[N, H, Dh]``
     per-head projections, ``senders``/``receivers`` the ``[E]`` edge list,
@@ -74,7 +75,9 @@ def sparse_graph_attention(
     ``partition_axis`` the partitioned ones (with the part's
     ``row_bounds``, ``halo_send_idx``, ``halo_dtype`` and, split,
     ``halo_row_bounds`` and ``num_local_edges``; ``Graph``'s fields).
-    Returns ``[N, H, Dh]``.
+    ``gather_csr`` (``ops.csr_attention.gather_csr`` of the graph) is what
+    the CSR branch's bf16 backward on CUDA sums dk and dv over. Returns
+    ``[N, H, Dh]``.
 
     The per-head dot accumulates in f32, as in the JAX package. In the COO
     branch edge-sized intermediates stay 2-D ``[E, H*Dh]`` with head-blocked
@@ -85,7 +88,8 @@ def sparse_graph_attention(
             halo_send_idx, halo_dtype, halo_row_bounds, num_local_edges)
     if sender_bounds is not None:
         return csr_sparse_attention(
-            q, k, v, senders, receivers, sender_bounds, edge_mask=edge_mask, scale=scale
+            q, k, v, senders, receivers, sender_bounds, edge_mask=edge_mask, scale=scale,
+            gather=gather_csr,
         )
     n, h, dh = q.shape
     d = h * dh

@@ -6,27 +6,33 @@ counterpart of ``graphphysics_tpu/ops/pallas_attention.py``.
 softmax of ``scale * <q[n, h], k[j, h]>`` (``j = gather_idx[e]``) and its
 weighted sum of ``v[j, h]``. It goes through ``csr_attention``, a
 ``torch.autograd.Function`` whose backward is ``csr_attention_backward``.
-For CUDA tensors the two launch the hand-written Hopper kernels
-``csrc/csr_attention.cu`` and ``csrc/csr_attention_bwd.cu`` (built with
+For CUDA tensors the two launch hand-written Hopper kernels (built with
 ``nvcc`` at first use): the gathers, the per-edge scores, the softmax and
 the weighted sum in one pass, reading q, k and v as node rows, with no
-edge-sized intermediate; the backward adds into ``dk`` and ``dv`` with
-atomics. They take every width ``D <= MAX_WIDTH`` and head count ``H``
+edge-sized intermediate. float32 q, k, v take ``csrc/csr_attention.cu`` and
+``csrc/csr_attention_bwd.cu`` (entries ``csr_attention_f32``,
+``csr_attention_bwd_f32``; the backward adds into ``dk`` and ``dv`` with
+atomics). They take every width ``D <= MAX_WIDTH`` and head count ``H``
 dividing it: the widths a lane count splits into power-of-two head partials
 take the fast lane geometries, every other one the general geometry (a
 masked column tail and per-head sums through shared memory), another
-instantiation of the same kernels. For CPU tensors they take
-``csr_attention_reference`` (the gathers and per-head dot as PyTorch ops,
-then ``csr_softmax_spmm_reference``) and
-``csr_attention_backward_reference``. The kernels take q, k and v either as
-contiguous ``[N, H, Dh]`` or as the ``(N, Dh, H)`` views the model's
-``Attention`` passes (strides ``(D, 1, H)``), and give out and the
-gradients in the same layout. They take q, k and v all float32 (the entries
-``csr_attention_f32``, ``csr_attention_bwd_f32``) or all bfloat16
-(``csr_attention_bf16``, ``csr_attention_bwd_bf16``: the bf16 model's);
-bf16 rows are read as bf16, computed on in f32 and the outputs rounded to
-bf16 once, with ``ml`` and the backward's ``dk``/``dv`` sums in f32. The
-plain versions round at the same places, which are the JAX package's.
+instantiation of the same kernels. bfloat16 q, k, v (the bf16 model's) take
+``csrc/csr_attention_bf16.cu`` and ``csrc/csr_attention_bwd_bf16.cu``
+(``csr_attention_bf16``, ``csr_attention_bwd_bf16``), kernels of their own:
+16-byte lanes of 8 bf16 columns where the width and alignment allow
+(``bf16_geometry``), the general geometry elsewhere, and a backward
+without atomics in two parts, by sender rows (dq and each edge's softmax
+weight and score gradient) and by gather rows over the transposed CSR of
+``gather_csr`` (dk and dv summed in a fixed order: the same bits every
+run). bf16 rows are read as bf16, computed on in f32 and the outputs
+rounded to bf16 once, each dv term rounded to bf16 before it is summed;
+``ml`` stays f32. For CPU tensors they take ``csr_attention_reference``
+(the gathers and per-head dot as PyTorch ops, then
+``csr_softmax_spmm_reference``) and ``csr_attention_backward_reference``,
+which round at the same places, the JAX package's. The kernels take q, k
+and v either as contiguous ``[N, H, Dh]`` or as the ``(N, Dh, H)`` views
+the model's ``Attention`` passes (strides ``(D, 1, H)``), and give out and
+the gradients in the same layout.
 
 ``csr_softmax_spmm`` is the TPU kernel's own function, the softmax + SpMM
 of given per-edge ``scores [E, H]`` and ``values [E, D]``, plus the
@@ -60,7 +66,7 @@ can hold the host helpers against the JAX ones.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -82,6 +88,8 @@ BACKWARD_SOURCE = "csr_softmax_spmm_bwd.cu"
 PAIR_SOURCE = "csr_softmax_spmm_pair.cu"
 ATTENTION_SOURCE = "csr_attention.cu"
 ATTENTION_BACKWARD_SOURCE = "csr_attention_bwd.cu"
+BF16_ATTENTION_SOURCE = "csr_attention_bf16.cu"
+BF16_ATTENTION_BACKWARD_SOURCE = "csr_attention_bwd_bf16.cu"
 # lanes serving one sender row in the fused kernels' fast geometries, in
 # order of preference: the first whose fast geometry the kernels take for a
 # width, head count and layout is used. On an H100 at the model's shapes
@@ -98,6 +106,16 @@ MAX_COLUMNS = 16  # the most columns a lane holds (csrc/csr_attention.cuh)
 # is a shared-memory write per edge and its own exponentials (chip_smoke.py
 # kernel-width phases, PERF.md).
 GENERAL_COLUMNS = 3
+# the bf16 kernels' 16-byte geometry: bf16 columns a lane (one or two
+# 16-byte loads a row), in order of preference, and the lane counts it
+# takes. The forward prefers 8 columns a lane (16 lanes a row at D = 128),
+# the backward 16 (8 lanes): its parts do more per edge, and half the
+# lanes a row halve the threads the rows take (chosen from trial builds on
+# an H100).
+BF16_COLUMNS = (8, 16)
+BF16_BACKWARD_COLUMNS = (16, 8)
+BF16_LANES = (4, 8, 16, 32)
+VECTOR_ALIGNMENT = 16  # bytes of a row base the 16-byte geometry needs
 EPS = 1e-16  # the epsilon of the forward's normalization
 NEG = -1e30  # finite -inf stand-in, as the TPU kernel
 MAX_WIDTH = 512  # the widest D the TPU kernel's defaults were tuned for
@@ -769,10 +787,87 @@ def lanes_per_row(width: int, heads: int, interleaved: bool, backward: bool = Fa
     return next((g for g in (8, 16) if -(-width // g) <= GENERAL_COLUMNS), 32)
 
 
+def bf16_geometries(width: int, heads: int, interleaved: bool, aligned: bool = True,
+                    backward: bool = False) -> list:
+    """The ``(lanes, general)`` geometries the bf16 kernels take for a width,
+    head count and layout, the preferred first: the 16-byte geometry
+    (``lanes = D / c`` for ``c`` in ``BF16_COLUMNS``, or with ``backward``
+    ``BF16_BACKWARD_COLUMNS``; lanes in ``BF16_LANES``, a power-of-two head
+    split; only with ``aligned`` row bases, ``VECTOR_ALIGNMENT`` bytes),
+    then the general one with ``lanes_per_row``'s lanes; empty where
+    neither (past ``MAX_WIDTH``, H not dividing D)."""
+    if not 0 < width <= MAX_WIDTH or heads <= 0 or width % heads:
+        return []
+    fast = [(width // c, False) for c in (BF16_BACKWARD_COLUMNS if backward else BF16_COLUMNS)
+            if aligned and width % c == 0 and width // c in BF16_LANES
+            and _geometry_ok(width // c, width, heads, interleaved)]
+    return fast + [(next((g for g in (8, 16) if -(-width // g) <= GENERAL_COLUMNS), 32), True)]
+
+
+def bf16_geometry(width: int, heads: int, interleaved: bool, aligned: bool = True,
+                  backward: bool = False):
+    """The ``(lanes, general)`` geometry the bf16 forward (or ``backward``)
+    runs a width, head count and layout with (the first of
+    ``bf16_geometries``), or None."""
+    found = bf16_geometries(width, heads, interleaved, aligned, backward)
+    return found[0] if found else None
+
+
 # the fused kernels' entries by element type, and the byte alignment each
-# needs of a row base (float4 loads for f32; groups of 4 bf16, 8 bytes)
+# needs of a row base (float4 loads for f32; bf16: 8 bytes, and
+# VECTOR_ALIGNMENT for the 16-byte geometry, chosen where every row base
+# has it)
 ENTRIES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 ALIGNMENT = {torch.float32: 16, torch.bfloat16: 8}
+
+
+class GatherCsr(NamedTuple):
+    """The transposed CSR of a sender-sorted graph's real unmasked edges, by
+    gather row (``gather_csr``): node ``j``'s slots ``[bounds[0, j],
+    bounds[1, j])`` hold the edges with ``gather_idx[e] == j`` in ascending
+    edge id (``order``) and their sender rows (``senders``); the slots past
+    the last end are unused. All int32, on the graph's device."""
+
+    bounds: torch.Tensor  # [2, N]
+    order: torch.Tensor  # [E]
+    senders: torch.Tensor  # [E]
+
+
+def gather_csr(
+    segments: torch.Tensor,
+    gather_idx: torch.Tensor,
+    sender_bounds: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> GatherCsr:
+    """The transposed CSR the bf16 backward sums dk and dv over: the real
+    edges (``e`` in its sender's range of ``sender_bounds``) that ``mask``
+    keeps, stably sorted by ``gather_idx``, with per-node ranges from their
+    counts. It depends only on the graph: the transformer builds it once per
+    forward with grad on a CUDA bf16 CSR graph and hands it to every block.
+    Index preparation in PyTorch ops (a stable sort and a binary search
+    for the ranges), deterministic on either device and without a host
+    sync; adds one to ``gather_csr.launches``."""
+    n, e = sender_bounds.shape[1], gather_idx.shape[0]
+    dev = gather_idx.device
+    seg = segments.to(torch.int64)
+    ids = torch.arange(e, device=dev)
+    row = seg.clamp(0, max(n - 1, 0))
+    starts, ends = sender_bounds.to(torch.int64).unbind(0)
+    valid = (seg >= 0) & (seg < n)
+    if n:
+        valid &= (ids >= starts[row]) & (ids < ends[row])
+    if mask is not None:
+        valid &= mask
+    key = torch.where(valid, gather_idx.to(torch.int32), torch.full((), n, dtype=torch.int32, device=dev))
+    ordered, order = torch.sort(key, stable=True)  # 32-bit keys: half the radix passes of 64
+    firsts = torch.searchsorted(ordered, torch.arange(n + 1, dtype=torch.int32, device=dev),
+                                out_int32=True)
+    gather_csr.launches += 1
+    return GatherCsr(torch.stack([firsts[:-1], firsts[1:]]), order.to(torch.int32),
+                     segments.index_select(0, order).to(torch.int32))
+
+
+gather_csr.launches = 0
 
 
 def _check_attention_args(op, q, k, v, gather_idx, bounds, mask) -> bool:
@@ -827,16 +922,41 @@ def _check_attention_args(op, q, k, v, gather_idx, bounds, mask) -> bool:
     return interleaved
 
 
-def _launch_attention(q, k, v, gather_idx, bounds, mask, scale, interleaved, lanes=None):
+def _aligned(*tensors) -> bool:
+    """Whether every row base of ``tensors`` has ``VECTOR_ALIGNMENT`` bytes
+    (the 16-byte bf16 geometry)."""
+    return all(t.data_ptr() % VECTOR_ALIGNMENT == 0 for t in tensors)
+
+
+def _bf16_geometry(q, others, interleaved, lanes, general, backward=False):
+    """The bf16 launch's ``(lanes, general)``: the given one, else
+    ``bf16_geometry`` of the shape and of the rows' alignment."""
+    n, h, dh = q.shape
+    if lanes is None:
+        lanes, general = bf16_geometry(h * dh, h, interleaved, _aligned(q, *others), backward)
+    return lanes, bool(general)
+
+
+def _launch_attention(q, k, v, gather_idx, bounds, mask, scale, interleaved, lanes=None,
+                      general=None):
+    bf16 = q.dtype == torch.bfloat16
     entry = ENTRIES[q.dtype]
-    fn = _native.function(ATTENTION_SOURCE, f"csr_attention_{entry}", 8,
-                          (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_float))
     n, h, dh = q.shape
     d = h * dh
-    lanes = lanes_per_row(d, h, interleaved) if lanes is None else lanes
     out = _as_heads(torch.empty((n, d), dtype=q.dtype, device=q.device), h, interleaved)
     ml = torch.empty((2 * h, n), dtype=torch.float32, device=q.device)
+    if bf16:
+        lanes, general = _bf16_geometry(q, (k, v, out), interleaved, lanes, general)
+        fn = _native.function(BF16_ATTENTION_SOURCE, "csr_attention_bf16", 8,
+                              (ctypes.c_longlong, ctypes.c_longlong) + (ctypes.c_int,) * 5
+                              + (ctypes.c_float,))
+        tail = (int(general), scale)
+    else:
+        lanes = lanes_per_row(d, h, interleaved) if lanes is None else lanes
+        fn = _native.function(ATTENTION_SOURCE, "csr_attention_f32", 8,
+                              (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_int, ctypes.c_int, ctypes.c_float))
+        tail = (scale,)
     if n == 0:
         return out, ml
     with torch.cuda.device(q.device):
@@ -844,7 +964,7 @@ def _launch_attention(q, k, v, gather_idx, bounds, mask, scale, interleaved, lan
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), gather_idx.data_ptr(), bounds.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(), ml.data_ptr(),
-            n, gather_idx.shape[0], h, d, int(interleaved), lanes, scale, stream,
+            n, gather_idx.shape[0], h, d, int(interleaved), lanes, *tail, stream,
         )
     if err != 0:
         raise RuntimeError(f"csr_attention_{entry} kernel launch failed: CUDA error {err}")
@@ -853,23 +973,22 @@ def _launch_attention(q, k, v, gather_idx, bounds, mask, scale, interleaved, lan
 
 
 def _launch_attention_backward(q, k, v, gather_idx, bounds, mask, ml, out, g, scale, interleaved,
-                               lanes=None):
-    entry = ENTRIES[q.dtype]
-    fn = _native.function(ATTENTION_BACKWARD_SOURCE, f"csr_attention_bwd_{entry}", 12,
+                               lanes=None, general=None, gather=None):
+    if q.dtype == torch.bfloat16:
+        return _launch_bf16_backward(q, k, v, gather_idx, bounds, mask, ml, out, g, scale,
+                                     interleaved, lanes, general, gather)
+    fn = _native.function(ATTENTION_BACKWARD_SOURCE, "csr_attention_bwd_f32", 12,
                           (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, ctypes.c_int, ctypes.c_float))
     n, h, dh = q.shape
     d = h * dh
     lanes = lanes_per_row(d, h, interleaved, backward=True) if lanes is None else lanes
     dq = _as_heads(torch.empty((n, d), dtype=q.dtype, device=q.device), h, interleaved)
-    # dk and dv are summed in f32 in both entries (one memset for both)
+    # dk and dv summed by atomics into zeroed rows (one memset for both)
     dkv = torch.zeros((2, n, d), dtype=torch.float32, device=q.device)
-
-    def heads(sums):  # the f32 sums in q's dtype (one rounding pass), as [N, H, Dh] views
-        return tuple(_as_heads(t, h, interleaved) for t in sums.to(q.dtype).unbind(0))
-
+    grads = (dq, *(_as_heads(t, h, interleaved) for t in dkv.unbind(0)))
     if n == 0:
-        return (dq, *heads(dkv))
+        return grads
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
@@ -879,9 +998,39 @@ def _launch_attention_backward(q, k, v, gather_idx, bounds, mask, ml, out, g, sc
             n, gather_idx.shape[0], h, d, int(interleaved), lanes, scale, stream,
         )
     if err != 0:
-        raise RuntimeError(f"csr_attention_bwd_{entry} kernel launch failed: CUDA error {err}")
-    LAUNCHES[f"csr_attention_bwd_{entry}"].launches += 1
-    return (dq, *heads(dkv))
+        raise RuntimeError(f"csr_attention_bwd_f32 kernel launch failed: CUDA error {err}")
+    csr_attention_backward.launches += 1
+    return grads
+
+
+def _launch_bf16_backward(q, k, v, gather_idx, bounds, mask, ml, out, g, scale, interleaved, lanes,
+                          general, gather):
+    """The bf16 backward: part A by sender rows, part B by gather rows over
+    ``gather`` (a ``GatherCsr``), both kernels of one entry; dq, dk and dv
+    written in bf16, every row, without a zeroed buffer or a cast."""
+    n, h, dh = q.shape
+    d, e = h * dh, gather_idx.shape[0]
+    grads = tuple(_as_heads(torch.empty((n, d), dtype=q.dtype, device=q.device), h, interleaved)
+                  for _ in range(3))
+    lanes, general = _bf16_geometry(q, (k, v, out, g), interleaved, lanes, general, backward=True)
+    fn = _native.function(BF16_ATTENTION_BACKWARD_SOURCE, "csr_attention_bwd_bf16", 16,
+                          (ctypes.c_longlong, ctypes.c_longlong) + (ctypes.c_int,) * 5
+                          + (ctypes.c_float,))
+    attn_ds = torch.empty((e, h, 2), dtype=torch.float32, device=q.device)  # part A -> part B
+    if n == 0:
+        return grads
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), gather_idx.data_ptr(), bounds.data_ptr(),
+            None if mask is None else mask.data_ptr(), ml.data_ptr(), out.data_ptr(), g.data_ptr(),
+            *(t.data_ptr() for t in gather), attn_ds.data_ptr(), *(t.data_ptr() for t in grads),
+            n, e, h, d, int(interleaved), lanes, int(general), scale, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"csr_attention_bwd_bf16 kernel launch failed: CUDA error {err}")
+    csr_attention_backward.bf16.launches += 1
+    return grads
 
 
 class _CsrAttention(torch.autograd.Function):
@@ -889,7 +1038,7 @@ class _CsrAttention(torch.autograd.Function):
     plain versions (CPU)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, segments, gather_idx, sender_bounds, mask, scale):
+    def forward(ctx, q, k, v, segments, gather_idx, sender_bounds, mask, scale, gather):
         if q.is_cuda:
             interleaved = _check_attention_args("csr_attention", q, k, v, gather_idx, sender_bounds, mask)
             out, ml = _launch_attention(q, k, v, gather_idx, sender_bounds, mask, scale, interleaved)
@@ -899,14 +1048,15 @@ class _CsrAttention(torch.autograd.Function):
         ctx.mark_non_differentiable(ml)
         ctx.save_for_backward(q, k, v, segments, gather_idx, sender_bounds, mask, ml, out)
         ctx.scale = scale
+        ctx.gather = gather
         return out, ml
 
     @staticmethod
     def backward(ctx, g, _g_ml):
         q, k, v, segments, gather_idx, sender_bounds, mask, ml, out = ctx.saved_tensors
         grads = csr_attention_backward(q, k, v, segments, gather_idx, sender_bounds, ml, out, g,
-                                       mask, ctx.scale)
-        return (*grads, None, None, None, None, None)
+                                       mask, ctx.scale, ctx.gather)
+        return (*grads, None, None, None, None, None, None)
 
 
 def csr_attention(
@@ -918,12 +1068,14 @@ def csr_attention(
     sender_bounds: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
     scale: float = 1.0,
+    gather: Optional[GatherCsr] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused sparse attention of ``csr_sparse_attention``, also returning the
     online-softmax statistics: ``(out [N, H, Dh], ml [2H, N])`` with ``ml =
     [m; l]`` per head (``-1e30`` and 0 for a row without edges, whose output
     is 0). Differentiable in q, k and v through ``out``; the backward is
-    ``csr_attention_backward``.
+    ``csr_attention_backward``, which on CUDA bf16 needs ``gather``, the
+    graph's ``gather_csr``.
 
     A CUDA tensor launches the Hopper kernel and adds one to
     ``csr_attention.launches`` (the float32 entry) or
@@ -931,18 +1083,32 @@ def csr_attention(
     or all bfloat16, of one layout (contiguous ``[N, H, Dh]``, or the
     transpose of a contiguous ``(N, Dh, H)``; out comes in the same layout
     and dtype), any width D = H * Dh up to ``MAX_WIDTH`` (bf16: a multiple
-    of 4), 16-byte aligned (bf16: 8-byte), int32 ``gather_idx`` and
-    ``sender_bounds``; it raises on anything else and trusts the edge layout
-    (every unmasked edge in its sender's range, gather indices in
-    ``[0, N)``: build graphs with ``pad_graph_csr_np``). The segment ids are
-    not read on the card: the ranges carry them. A CPU tensor checks the
-    layout and takes ``csr_attention_reference``."""
+    of 4), 16-byte aligned (bf16: 8-byte; the 16-byte geometry where the
+    width and every row base allow, ``bf16_geometry``), int32
+    ``gather_idx`` and ``sender_bounds``; it raises on anything else and
+    trusts the edge layout (every unmasked edge in its sender's range,
+    gather indices in ``[0, N)``: build graphs with ``pad_graph_csr_np``).
+    The segment ids are not read on the card: the ranges carry them. A CPU
+    tensor checks the layout and takes ``csr_attention_reference``."""
     if not q.is_cuda:
         check_in_range("csr_attention", "sender", segments, sender_bounds, mask)
-    return _CsrAttention.apply(q, k, v, segments, gather_idx, sender_bounds, mask, float(scale))
+    return _CsrAttention.apply(q, k, v, segments, gather_idx, sender_bounds, mask, float(scale),
+                               gather)
 
 
 csr_attention.launches = 0
+
+
+def _check_gather(op, gather, n, e, device) -> None:
+    if gather is None:
+        raise ValueError(f"{op}: the bf16 backward on CUDA sums dk and dv by gather rows: pass "
+                         f"the graph's transposed CSR (gather_csr)")
+    for name, t, shape in (("bounds", gather.bounds, (2, n)), ("order", gather.order, (e,)),
+                           ("senders", gather.senders, (e,))):
+        if (t.shape != shape or t.dtype != torch.int32 or not t.is_contiguous()
+                or t.device != device):
+            raise ValueError(f"{op}: gather_csr {name} must be a contiguous int32 {shape} on "
+                             f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def csr_attention_backward(
@@ -957,20 +1123,25 @@ def csr_attention_backward(
     g: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
     scale: float = 1.0,
+    gather: Optional[GatherCsr] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradients ``(dq, dk, dv)`` of ``csr_attention``'s ``out`` from
     the forward's ``ml`` and ``out`` and the gradient ``g`` of ``out``.
     Masked edges and rows without edges add nothing. A CUDA tensor launches
     the Hopper kernel (the forward's arguments; ``g`` is brought into their
-    layout, ``dk`` and ``dv`` are summed with atomics, so their order of
-    summation varies from run to run) and adds one to
-    ``csr_attention_backward.launches``; a CPU tensor takes
+    layout) and adds one to ``csr_attention_backward.launches`` (float32:
+    ``dk`` and ``dv`` summed with atomics, in an order that varies from run
+    to run) or ``csr_attention_backward.bf16.launches`` (bfloat16: sender
+    rows, then gather rows over ``gather``, the graph's ``gather_csr``,
+    which it needs; no atomics, the same bits every run); a CPU tensor takes
     ``csr_attention_backward_reference``."""
     if not q.is_cuda:
         return csr_attention_backward_reference(q, k, v, segments, gather_idx, ml, out, g, mask, scale)
     op = "csr_attention_backward"
     interleaved = _check_attention_args(op, q, k, v, gather_idx, sender_bounds, mask)
     n, h, _ = q.shape
+    if q.dtype == torch.bfloat16:
+        _check_gather(op, gather, n, gather_idx.shape[0], q.device)
     g = _in_layout(g.to(q.dtype), interleaved)
     align = ALIGNMENT[q.dtype]
     for name, t in (("out", out), ("g", g)):
@@ -982,7 +1153,7 @@ def csr_attention_backward(
     if ml.shape != (2 * h, n) or ml.dtype != torch.float32 or not ml.is_contiguous():
         raise ValueError(f"{op}: ml must be a contiguous float32 {(2 * h, n)}")
     return _launch_attention_backward(q, k, v, gather_idx, sender_bounds, mask, ml, out, g,
-                                      float(scale), interleaved)
+                                      float(scale), interleaved, gather=gather)
 
 
 csr_attention_backward.launches = 0
@@ -1015,6 +1186,7 @@ def csr_sparse_attention(
     sender_bounds: torch.Tensor,
     edge_mask: Optional[torch.Tensor] = None,
     scale: float = 1.0,
+    gather: Optional[GatherCsr] = None,
 ) -> torch.Tensor:
     """Sparse graph attention on a CSR edge list: queries at ``segments``
     (ascending; the softmax side), keys and values at ``gather_idx``. With
@@ -1025,6 +1197,7 @@ def csr_sparse_attention(
     weighted sum are ``csr_attention``: on CUDA one fused kernel forward and
     one backward, reading q, k and v in the layout given (contiguous, or the
     ``(N, Dh, H)`` views of the model's ``Attention``; out comes in the same
-    one). Masked edges drop out. Differentiable in q, k and v."""
-    out, _ = csr_attention(q, k, v, segments, gather_idx, sender_bounds, edge_mask, scale)
+    one). Masked edges drop out. Differentiable in q, k and v; the bf16
+    backward on CUDA needs ``gather``, the graph's ``gather_csr``."""
+    out, _ = csr_attention(q, k, v, segments, gather_idx, sender_bounds, edge_mask, scale, gather)
     return out

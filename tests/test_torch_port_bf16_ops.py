@@ -159,7 +159,9 @@ def test_attention_checks_take_bf16_and_refuse_the_rest():
     and v all bf16 in either layout, and refuse mixed dtypes, other 16-bit
     types, a bf16 width that is not a multiple of 4 and a bf16 row base
     that is not 8-byte aligned; the entry and the launch count follow the
-    dtype."""
+    dtype. A bf16 width of 16-byte lanes takes them where every row base is
+    16-byte aligned, and the general geometry where one is only 8-byte
+    aligned."""
     from graphphysics_torch.ops import csr_attention as ca
 
     n = 128
@@ -182,6 +184,13 @@ def test_attention_checks_take_bf16_and_refuse_the_rest():
     with pytest.raises(ValueError, match="8-byte aligned"):
         shifted = torch.zeros(n * 48 + 2, dtype=BF16)[2:].view(n, 4, 12)
         ca._check_attention_args("t", shifted, shifted, shifted, gather, bounds, None)
+    wide = torch.zeros(n, 4, 16, dtype=BF16)
+    assert ca._check_attention_args("t", wide, wide, wide, gather, bounds, None) is False
+    assert ca._bf16_geometry(wide, (wide, wide), False, None, None) == (8, False)
+    eight = torch.zeros(n * 64 + 4, dtype=BF16)[4:].view(n, 4, 16)  # 8-byte, not 16-byte, aligned
+    assert ca._check_attention_args("t", eight, eight, eight, gather, bounds, None) is False
+    assert ca._bf16_geometry(eight, (eight, eight), False, None, None) == (32, True)
+    assert ca._bf16_geometry(wide, (wide, eight), False, None, None) == (32, True)
     assert ca.ENTRIES[torch.bfloat16] == "bf16" and ca.ENTRIES[torch.float32] == "f32"
     assert ca.LAUNCHES["csr_attention_bf16"] is ca.csr_attention.bf16
     assert ca.LAUNCHES["csr_attention_bwd_f32"] is ca.csr_attention_backward

@@ -696,13 +696,16 @@ BF16_RTOL, BF16_ATOL, BF16_DV_TERM = 2.0 ** -6, 1e-4, 2.0 ** -8
     "layout,d,h,view",
     [("serving", 128, 4, "model"), ("skewed", 128, 4, "model"), ("two_graphs", 64, 4, "model"),
      ("two_graphs", 64, 4, "contiguous"), ("two_graphs", 48, 4, "model"),
-     ("two_graphs", 48, 4, "contiguous"), ("two_graphs", 96, 3, "model"), ("two_graphs", 40, 8, "model")],
+     ("two_graphs", 48, 4, "contiguous"), ("two_graphs", 96, 3, "model"), ("two_graphs", 40, 8, "model"),
+     ("two_graphs", 512, 8, "model"), ("two_graphs", 32, 1, "contiguous"), ("serving", 128, 16, "model")],
 )
 def test_fused_attention_bf16_kernels_match_plain(cuda, layout, d, h, view):
     """``csr_attention_bf16`` and ``csr_attention_bwd_bf16`` against the
-    plain versions on the same bf16 inputs, at every lane count the
-    geometry takes; the launches count on the bf16 entries only, and every
-    output is bf16 in q's layout."""
+    plain versions on the same bf16 inputs, at every geometry the bf16
+    kernels take for the shape (16-byte lanes of 8 or 16 columns, the
+    general one); the launches count on the bf16 entries only, every output
+    is bf16 in q's layout, and the backward gives the same bits on a second
+    call (no atomics)."""
     from graphphysics_torch.ops import csr_attention as ca
 
     g, mask, qkv, cot = _fused_case(layout, d, h, seed=d + h + 1)
@@ -711,35 +714,43 @@ def test_fused_attention_bf16_kernels_match_plain(cuda, layout, d, h, view):
     q, k, v, g_out = ((_model_view(t) if view == "model" else t).to(cuda, torch.bfloat16)
                       for t in (*qkv, cot))
     interleaved = view == "model" and h > 1
+    tc = ca.gather_csr(seg, gather, bounds, m)
     want_out, want_ml = ca.csr_attention_reference(q, k, v, seg, gather, g.num_nodes, m, 0.5)
-    lanes = [n for n in ca.FORWARD_LANES if ca.geometry_kind(n, d, h, interleaved)]
-    for n in lanes:
+    geometries = ca.bf16_geometries(d, h, interleaved)
+    assert geometries[-1][1] and (len(geometries) > 1) is (d in (32, 64, 128, 512))  # 16-byte lanes
+    for n, general in geometries:
         _poison_free_memory(cuda)
         before = {name: c.launches for name, c in ca.LAUNCHES.items()}
-        out, ml = ca._launch_attention(q, k, v, gather, bounds, m, 0.5, interleaved, lanes=n)
+        out, ml = ca._launch_attention(q, k, v, gather, bounds, m, 0.5, interleaved, lanes=n,
+                                       general=general)
         want = ca.csr_attention_backward_reference(q, k, v, seg, gather, ml, out, g_out, m, 0.5)
-        grads = ca._launch_attention_backward(q, k, v, gather, bounds, m, ml, out, g_out, 0.5,
-                                              interleaved, lanes=n)
+        grads, again = (ca._launch_attention_backward(q, k, v, gather, bounds, m, ml, out, g_out, 0.5,
+                                                      interleaved, lanes=n, general=general, gather=tc)
+                        for _ in range(2))
         torch.cuda.synchronize()
         after = {name: c.launches - before[name] for name, c in ca.LAUNCHES.items()}
         assert after == {"csr_attention_f32": 0, "csr_attention_bf16": 1, "csr_attention_bwd_f32": 0,
-                         "csr_attention_bwd_bf16": 1}
+                         "csr_attention_bwd_bf16": 2}
         assert out.dtype == torch.bfloat16 and ml.dtype == torch.float32
         assert ca._is_interleaved(out) is interleaved or h == 1
+        where = f"{n} lanes, general={general}"
         torch.testing.assert_close(out.float(), want_out.float(), rtol=BF16_RTOL, atol=BF16_ATOL,
-                                   msg=f"out, {n} lanes")
-        torch.testing.assert_close(ml, want_ml, rtol=1e-5, atol=1e-5, msg=f"ml, {n} lanes")
+                                   msg=f"out, {where}")
+        torch.testing.assert_close(ml, want_ml, rtol=1e-5, atol=1e-5, msg=f"ml, {where}")
         dv_atol = max(BF16_ATOL, BF16_DV_TERM * g_out.float().abs().max().item())
-        for a, b, name in zip(grads, want, "qkv"):
+        for a, b, c, name in zip(grads, want, again, "qkv"):
             assert a.dtype == torch.bfloat16 and torch.isfinite(a.float()).all()
+            assert ca._is_interleaved(a) is interleaved or h == 1
             torch.testing.assert_close(a.float(), b.float(), rtol=BF16_RTOL,
                                        atol=dv_atol if name == "v" else BF16_ATOL,
-                                       msg=f"d{name}, {n} lanes")
+                                       msg=f"d{name}, {where}")
+            assert torch.equal(a, c), f"d{name} differs between two calls, {where}"
 
 
 def test_fused_attention_bf16_refusals(cuda):
     """bf16 q, k, v launch the bf16 entries or raise: mixed dtypes, a width
-    that is not a multiple of 4, a row base that is not 8-byte aligned."""
+    that is not a multiple of 4, a row base that is not 8-byte aligned, a
+    backward without the graph's transposed CSR."""
     from graphphysics_torch.ops.csr_attention import csr_attention
 
     g, mask, qkv, _ = _fused_case("two_graphs", 64, 4, seed=0)
@@ -757,12 +768,17 @@ def test_fused_attention_bf16_refusals(cuda):
         csr_attention(x, x, x, seg, gather, bounds)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         csr_attention(q.half(), k.half(), v.half(), seg, gather, bounds)
+    with pytest.raises(ValueError, match="gather_csr"):  # no atomic path to fall back to
+        q.requires_grad_(True)
+        out, _ = csr_attention(q, k, v, seg, gather, bounds)
+        out.float().sum().backward()
 
 
 def test_bf16_train_steps_on_card_launch_the_bf16_entries(cuda):
     """Two train steps of the bf16 transformer on the card against the CPU
     in bf16: the fused attention runs its bf16 entries (3 blocks, one
-    launch each a step), the f32 ones never."""
+    launch each a step), the f32 ones never, and the transposed CSR is
+    built once a step on the card, never on the CPU."""
     from graphphysics_torch.ops import csr_attention as ca
     from graphphysics_torch.training import Trainer
 
@@ -774,8 +790,10 @@ def test_bf16_train_steps_on_card_launch_the_bf16_entries(cuda):
         trainer = Trainer(param, learning_rate=1e-3, warmup=2, device=dev)
         trainer.init_state(10)
         before = {name: c.launches for name, c in ca.LAUNCHES.items()}
+        builds = ca.gather_csr.launches
         losses[dev] = [trainer.train_step(b).item() for b in batches]
         launched = {name: c.launches - before[name] for name, c in ca.LAUNCHES.items()}
+        assert ca.gather_csr.launches - builds == (len(batches) if dev == "cuda" else 0)
         assert all(p.dtype == torch.float32 for p in trainer.sim.parameters())
     per_run = 3 * len(batches)
     assert launched == {"csr_attention_f32": 0, "csr_attention_bf16": per_run,
