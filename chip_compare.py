@@ -1,18 +1,61 @@
 #!/usr/bin/env python3
-"""Time the fused attention kernels of one checkout of this repository, to
-compare two commits on one card in one call:
+"""Time the fused attention kernels and the main path of one checkout of
+this repository, to compare two commits on one card in one call:
 
     python3 chip_compare.py <checkout root> [label]
 
 Runs ``chip_smoke.fused_case`` of that checkout (its own kernels, built from
 its own ``graphphysics_torch/csrc``) on the panels batch at widths 128 and 64
-with 4 heads in the model's layout, and prints one line ``COMPARE {json}``
-with each kernel's device ms. Run it in turns on the two checkouts
-(parent, change, change, parent). Needs one CUDA card.
+with 4 heads in the model's layout, then the main path as ``chip_smoke.py``
+times it: 20 ``Trainer`` steps (after 3 warm-up) of ``cylinder.json`` and
+``panels.json`` on their 8 x 2,048 batches, wall and device ms a step, and
+the eager eval forward of the 15 x 128 EPD and panels transformer on a
+2,048-node frame. Prints one line ``COMPARE {json}``. Run it in turns on
+the two checkouts (parent, change, change, parent). Needs one CUDA card.
 """
 import json
 import os
 import sys
+import time
+
+
+def main_path(cs, torch) -> dict:
+    """ms a train step (wall, device) of both families on their batches and
+    ms an eager serving forward on a frame."""
+    from graphphysics_torch.dataset import build_preprocessing
+    from graphphysics_torch.training import Trainer, get_preprocessing
+    from graphphysics_torch.utils.synthetic import cylinder_trajectory, panels_trajectory
+
+    cylinder, panels = cs.load_config(cs.CYLINDER_CONFIG), cs.load_config(cs.PANELS_CONFIG)
+    out = {}
+    for label, param, batch in (("epd", cylinder, cs.flagship_batch(0)),
+                                ("transformer", panels, cs.panels_batch(200))):
+        trainer = Trainer(param, learning_rate=1e-4, warmup=10, seed=0, device="cuda",
+                          metrics_path=None, rollout_dir=None)
+        trainer.init_state(1 + cs.WARMUP_STEPS + cs.TIMED_STEPS + cs.PROFILED_STEPS)
+        dev_batch = batch.to("cuda")
+        for _ in range(cs.WARMUP_STEPS):
+            trainer.train_step(dev_batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(cs.TIMED_STEPS):
+            trainer.train_step(dev_batch)
+        torch.cuda.synchronize()
+        out[f"{label}_ms_per_step"] = (time.perf_counter() - t0) / cs.TIMED_STEPS * 1e3
+        breakdown = cs.device_breakdown(
+            lambda: [trainer.train_step(dev_batch) for _ in range(cs.PROFILED_STEPS)],
+            cs.PROFILED_STEPS, unit="step")
+        out[f"{label}_device_ms_per_step"] = breakdown and breakdown["device_ms_per_step"]
+    epd_frames, _ = cs.trajectory_frames(cylinder_trajectory, 2, 2, build_preprocessing(), "sorted")
+    tf_frames, _ = cs.trajectory_frames(
+        panels_trajectory, 2, panels["index"]["node_type_index"],
+        get_preprocessing(panels, use_edge_feature=False, remove_noise=True), "csr")
+    for label, sim, frame in (("epd", cs.build_epd(0, "cuda"), epd_frames[0].to("cuda")),
+                              ("transformer", cs.build_transformer(panels, 0, "cuda"),
+                               tf_frames[0].to("cuda"))):
+        with torch.inference_mode():
+            out[f"{label}_forward_eager_ms"] = cs.call_ms(lambda: sim(frame))
+    return out
 
 
 def main() -> int:
@@ -27,14 +70,16 @@ def main() -> int:
     if not _native.CSRC.is_relative_to(root):
         raise SystemExit(f"kernels would come from {_native.CSRC}, not {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
-    _native.build(("csr_attention.cu", "csr_attention_bwd.cu", "csr_softmax_spmm.cu",
-                   "csr_softmax_spmm_bwd.cu"))
+    torch.backends.cudnn.allow_tf32 = False
+    _native.build(("csr_segment_sum.cu", "csr_attention.cu", "csr_attention_bwd.cu",
+                   "csr_softmax_spmm.cu", "csr_softmax_spmm_bwd.cu"))
     batch = cs.panels_batch(200)
     out = {"tree": sys.argv[2] if len(sys.argv) > 2 else root}
     for d in (128, 64):
         f, b = cs.fused_case(f"d{d}", batch, d, 13, library=False)
         out[f"fwd_ms_{d}"] = f["ms"]
         out[f"bwd_ms_{d}"] = b["ms"]
+    out.update(main_path(cs, torch))
     print("COMPARE " + json.dumps(out), flush=True)
     return 0
 

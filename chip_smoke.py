@@ -187,7 +187,20 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     gloo, the first step against the unpartitioned card step, 20 timed
     steps with the launches checked), ``partitioned_rollout`` (10 frames
     of each family against the unpartitioned card rollout) and
-    ``partitioned_fit`` (``grph-torch train|predict --graph_partition 4``).
+    ``partitioned_fit`` (``grph-torch train|predict --graph_partition 4``);
+32-37. the serving artifacts, the directory checkpoints and the utilities
+    (``chip_utilities.py``; every kernel is a ``torch.library`` op, which
+    ``torch.export`` traces): ``export_serving`` (the 15 x 128 EPD, the
+    panels transformer and that transformer in bf16, their eval steps
+    exported, saved, loaded and run on the card, 15 launches of K1, the
+    fused f32 or the fused bf16 kernel a frame, within 1e-6 of the live
+    step, ms per frame exported and eager; a 10-frame exported EPD rollout
+    against the live one), ``checkpoint_backends`` (``orbax`` and
+    ``orbax-async`` directories reloaded bit for bit, a resumed step),
+    ``determinism`` (only the bf16 transformer step must replay bit for
+    bit), ``profiler`` (3 ``fit`` steps traced with ``profile_dir``, the
+    trace naming K1, K1b and the fused pair), ``compilation_cache`` and
+    ``doctor`` (``grph-torch doctor`` exits 0; its probes).
 
 The K1 phase also times a one-element PyTorch elementwise kernel under the
 same CUDA-graph replay (``launch_floor_ms``): the floor under any kernel's
@@ -3660,6 +3673,13 @@ def main() -> int:
     # 23-26. gradient accumulation, the ELL layout, size buckets, project_before_gather
     feature_paths = training_feature_phases(clock, counts, args.seed, cylinder, panels, cyl_graphs, tf_graphs)
 
+    # 32-37. the serving artifacts (torch.export of the kernels' ops), the
+    # directory checkpoints, determinism, the profiler, the build cache, the doctor
+    from chip_utilities import utility_phases
+
+    export_paths = utility_phases(clock, counts, args.seed, epd_frames, tf_frames, cyl_batch, tf_batch,
+                                  cylinder, panels)
+
     def entry(name, source, replaces, launches, shapes, tolerance, **extra):
         main = shapes[1]  # the 8 x 2,048 batch: the training path's shape
         return {
@@ -3685,7 +3705,7 @@ def main() -> int:
     # each counted from 0) and of the short fidelity runs
     paths = {"epd_training": epd_train, "transformer_training": tf_train, "gmm_training": gmm_train,
              **aneurysm_paths, "plate_pipeline": plate_result, **fidelity, **bf16_paths, **feature_paths,
-             **{p: {"launches": launches} for p, launches in partition_paths.items()}}
+             **{p: {"launches": launches} for p, launches in partition_paths.items()}, **export_paths}
     launched = {k: sum(r["launches"].get(k, 0) for r in paths.values()) for k in counts}
     by_path = {k: {p: r["launches"].get(k, 0) for p, r in paths.items() if r["launches"].get(k, 0)}
                for k in counts}

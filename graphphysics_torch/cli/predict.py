@@ -8,9 +8,8 @@ series:
 The checkpoint is a port file or a reference-format one (the JAX package's
 ``export_reference_checkpoint``). ``--graph_partition P`` rolls each
 trajectory out edge-partitioned over P ranks (``partitioned_rollout``; the
-command starts them, or joins ``torchrun``'s), rank 0 writing. Flags of
-features not ported yet exit with an error naming their ROADMAP item when
-given anything but their default.
+command starts them, or joins ``torchrun``'s), rank 0 writing.
+``--compilation_cache_dir`` keeps the kernels' libraries there.
 """
 
 from __future__ import annotations
@@ -19,7 +18,7 @@ import argparse
 import json
 import sys
 
-from graphphysics_torch.cli.train import previous_data_options, refuse_not_ported, run_partitioned
+from graphphysics_torch.cli.train import enable_cache, previous_data_options, run_partitioned
 from graphphysics_torch.external import EXTERNAL_FEATURES
 from graphphysics_torch.training.checkpoint import load_checkpoint
 from graphphysics_torch.training.parse_parameters import get_dataset, get_preprocessing
@@ -41,14 +40,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--graph_partition", type=int, default=0)
     p.add_argument("--partition_mode", default="halo", choices=["halo", "gather"])
     p.add_argument("--partition_reorder", default=None, choices=["rcm", "bfs", "hilbert", "none"])
-    p.add_argument("--compilation_cache_dir", default=None)
+    p.add_argument("--compilation_cache_dir", default=None,
+                   help="build and reuse the CUDA kernels' libraries here")
     p.add_argument("--device", default="cuda", help="torch device (cuda unless named)")
     return p
-
-
-NOT_PORTED = (
-    ("compilation_cache_dir", None, 12),
-)
 
 
 def _rank_main(rank: int, argv) -> int:
@@ -59,7 +54,6 @@ def main(argv=None) -> int:
     parser = build_argparser()
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
-    refuse_not_ported(parser, args, NOT_PORTED)
     if args.graph_partition:
         return run_partitioned(_rank_main, argv, args)
     if args.partition_mode != "halo" or args.partition_reorder:
@@ -70,6 +64,7 @@ def main(argv=None) -> int:
 
 def predict(args: argparse.Namespace) -> int:
     """The prediction run of the parsed flags (one rank's, partitioned)."""
+    enable_cache(args)
     with open(args.training_parameters_path) as fp:
         parameters = json.load(fp)
 

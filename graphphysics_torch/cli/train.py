@@ -12,8 +12,12 @@ loader stacks them). The config's ``dataset.num_buckets`` and
 ``--graph_partition P`` trains edge-partitioned over P ranks: the command
 starts them (``parallel.mesh.launch``; on one card they share it over
 gloo), or under ``torchrun`` with ``WORLD_SIZE == P`` joins its ranks;
-rank 0 writes the checkpoints and ``metrics.csv``. A flag whose feature the
-port does not have yet exits with an error naming its ROADMAP item when
+rank 0 writes the checkpoints and ``metrics.csv``. ``--checkpoint_backend
+orbax|orbax-async`` writes directory checkpoints, ``--profile_dir`` a
+``torch.profiler`` trace of ``--profile_num_steps`` steps from
+``--profile_start_step``, ``--compilation_cache_dir`` keeps the kernels'
+libraries there. A flag whose feature the port does not have yet
+(``--data_parallel``) exits with an error naming its ROADMAP item when
 given anything but its default.
 """
 
@@ -72,13 +76,16 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="also checkpoint mid-epoch every N steps (SIGTERM/SIGINT always "
                         "checkpoint before exit)")
     p.add_argument("--checkpoint_backend", default="torch", choices=["torch", "orbax", "orbax-async"],
-                   help="torch: one torch.save file in the reference format")
-    p.add_argument("--profile_dir", default=None)
+                   help="torch: one torch.save file in the reference format; orbax, orbax-async: "
+                        "a torch.distributed.checkpoint directory (async: written in the background)")
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler Chrome trace of a few train steps here")
     p.add_argument("--profile_start_step", type=int, default=10)
     p.add_argument("--profile_num_steps", type=int, default=3)
     p.add_argument("--progress", default="auto", choices=["auto", "on", "off"],
                    help="in-place per-epoch progress line (auto: TTY only)")
-    p.add_argument("--compilation_cache_dir", default=None)
+    p.add_argument("--compilation_cache_dir", default=None,
+                   help="build and reuse the CUDA kernels' libraries here")
     p.add_argument("--external_features", default=None, choices=[None, *EXTERNAL_FEATURES],
                    help="dataset-specific node-feature hook (graphphysics_torch/external)")
     p.add_argument("--device", default="cuda", help="torch device (cuda unless named)")
@@ -89,9 +96,6 @@ def build_argparser() -> argparse.ArgumentParser:
 # yet (data_parallel, alone or with graph_partition, is item 13)
 NOT_PORTED: Tuple[Tuple[str, object, int], ...] = (
     ("data_parallel", False, 13),
-    ("checkpoint_backend", "torch", 4),
-    ("profile_dir", None, 12),
-    ("compilation_cache_dir", None, 12),
 )
 
 
@@ -179,8 +183,18 @@ def main(argv=None) -> int:
     return train(args)
 
 
+def enable_cache(args: argparse.Namespace) -> None:
+    """``--compilation_cache_dir``: the kernels' libraries built and reused
+    there (``utils.compilation_cache``)."""
+    if args.compilation_cache_dir:
+        from graphphysics_torch.utils.compilation_cache import enable_compilation_cache
+
+        enable_compilation_cache(args.compilation_cache_dir)
+
+
 def train(args: argparse.Namespace) -> int:
     """The training run of the parsed flags (one rank's, partitioned)."""
+    enable_cache(args)
     with open(args.training_parameters_path) as fp:
         parameters = json.load(fp)
 
@@ -238,6 +252,10 @@ def train(args: argparse.Namespace) -> int:
         progress={"auto": None, "on": True, "off": False}[args.progress],
         device=args.device,
         gradient_accumulation=args.gradient_accumulation,
+        checkpoint_backend=args.checkpoint_backend,
+        profile_dir=args.profile_dir,
+        profile_start_step=args.profile_start_step,
+        profile_num_steps=args.profile_num_steps,
         **previous_data_options(args),
         **partition_options(args),
     )

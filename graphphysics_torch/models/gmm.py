@@ -8,7 +8,8 @@ Each sampler is split in two:
   (``gmm_diagonal_from_draws``, ``gmm_full_from_draws``), which the tests
   hold against the JAX samplers fed the same draws;
 - the sampler (``sample_gmm_diagonal``, ``sample_gmm``), which makes those
-  draws from an explicit ``torch.Generator`` and calls the pure function.
+  draws from an explicit ``torch.Generator`` and calls the pure function;
+  ``sample_from_draws`` takes the Gumbel and normal draws themselves.
 
 The draws are made on the generator's device, in a fixed order per call:
 ``[N, K]`` uniforms for the component choice, then ``[N, d]`` normals. The
@@ -132,3 +133,22 @@ def sample_gmm(
     """Per-node ``[N, d]`` samples from a full-covariance GMM output, with the
     draws of ``draw_gmm`` from ``generator``."""
     return _sample(gmm_full_from_draws, network_output, d, K, temperature, generator)
+
+
+def sample_from_draws(
+    network_output: torch.Tensor,
+    d: int,
+    K: int,
+    temperature: float,
+    draws: Tuple[torch.Tensor, torch.Tensor],
+    diagonal: bool = True,
+) -> torch.Tensor:
+    """Per-node ``[N, d]`` samples from a diagonal (or full-covariance) GMM
+    output with given draws, ``(gumbel [N, K], z [N, d])`` as ``draw_gmm``
+    returns them: what an exported eval step takes in place of a
+    generator."""
+    n = network_output.shape[0]
+    logit = network_output.reshape(n, K, network_output.shape[1] // K)[..., 0]
+    gumbel, z = draws
+    from_draws = gmm_diagonal_from_draws if diagonal else gmm_full_from_draws
+    return from_draws(network_output, components(logit, gumbel), z, d, K, temperature)

@@ -28,7 +28,7 @@ from graphphysics_torch.core import normalizer as norm
 from graphphysics_torch.core.device import DeviceLike, resolve_device
 from graphphysics_torch.core.graph import Graph
 from graphphysics_torch.core.nodetype import NodeType
-from graphphysics_torch.models.gmm import sample_gmm, sample_gmm_diagonal
+from graphphysics_torch.models.gmm import sample_from_draws, sample_gmm, sample_gmm_diagonal
 
 
 class Normalizer(nn.Module):
@@ -125,6 +125,7 @@ class Simulator(nn.Module):
         is_training: bool = False,
         accumulate_stats: Optional[bool] = None,
         generator: Optional[torch.Generator] = None,
+        draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
         """``(network_output, target_delta_normalized, outputs)``.
 
@@ -135,8 +136,10 @@ class Simulator(nn.Module):
         ``pre_target + output_normalizer.inverse(update)``, where ``update``
         is the network output (K = 0) or, for a GMM head, a sample of the
         model's mixture at its temperature (None reads as 1.0, 0.0 gives the
-        chosen component's mean) drawn from ``generator``, which eval with
-        K > 0 requires."""
+        chosen component's mean) drawn from ``generator``, or made from
+        ``draws`` (``models.gmm.draw_gmm``'s ``(gumbel [N, K], z [N, d])``:
+        what an exported eval step takes in place of a generator); eval
+        with K > 0 requires one of the two."""
         if accumulate_stats is None:
             accumulate_stats = is_training
         if accumulate_stats:
@@ -156,11 +159,15 @@ class Simulator(nn.Module):
             return network_output, target_delta_normalized, None
         update = network_output
         if self.model.K > 0:
-            if generator is None:
-                raise ValueError("eval of a GMM head (num_mixture_components > 0) samples: pass a "
-                                 "torch.Generator as generator=")
             temperature = 1.0 if self.model.temperature is None else self.model.temperature
-            sampler = sample_gmm_diagonal if self.model.use_diagonal else sample_gmm
-            update = sampler(network_output, self.model.d, self.model.K, temperature, generator)
+            if draws is not None:
+                update = sample_from_draws(network_output, self.model.d, self.model.K, temperature,
+                                           draws, self.model.use_diagonal)
+            elif generator is not None:
+                sampler = sample_gmm_diagonal if self.model.use_diagonal else sample_gmm
+                update = sampler(network_output, self.model.d, self.model.K, temperature, generator)
+            else:
+                raise ValueError("eval of a GMM head (num_mixture_components > 0) samples: pass a "
+                                 "torch.Generator as generator= (or the draws as draws=)")
         outputs = pre_target + self._output_normalizer.inverse(update)
         return network_output, target_delta_normalized, outputs

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build, load and register the port's CUDA kernels.
 
 Each ``csrc/*.cu`` file has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into its own shared library, loaded with ``ctypes``.
@@ -8,8 +8,18 @@ library at its first call, and ``build()`` builds every source at once, one
 ``NVCC_TIMEOUT_S``: a compiler that has not finished by then is killed and
 the build raises with its output. Libraries are named by a hash of their
 source, so an edited source is rebuilt and an unchanged one is reused; the
-build directory is listed in ``.gitignore``. A source may include the
-``csrc/*.cuh`` headers; they are part of every library's hash.
+build directory (``csrc/build`` in the checkout, listed in ``.gitignore``,
+or the one ``set_build_dir`` names: ``utils.compilation_cache``) keeps
+them across processes. A source may include the ``csrc/*.cuh`` headers;
+they are part of every library's hash.
+
+``register_op`` makes a kernel entry a ``torch.library`` operator of the
+``graphphysics_torch`` namespace (``OPS``): its CUDA implementation
+launches the kernel, its CPU implementation is the plain version, its fake
+implementation gives shapes and dtypes (what ``torch.export`` traces). The
+functions are registered as they are, each called by the dispatcher for
+its device; the callers' ``torch.autograd.Function``s call the forward and
+backward operators.
 """
 
 from __future__ import annotations
@@ -21,10 +31,12 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Callable, Dict, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = CSRC / "build"
+OPS = "graphphysics_torch"  # the torch.library namespace of the kernels' operators
 SOURCES = (
     "csr_segment_sum.cu", "csr_softmax_spmm.cu", "csr_softmax_spmm_bwd.cu",
     "csr_attention.cu", "csr_attention_bwd.cu", "csr_attention_bf16.cu",
@@ -37,7 +49,18 @@ NVCC_FLAGS = (
 # a plain-C source builds in seconds; minutes mean a stuck compiler
 NVCC_TIMEOUT_S = 300.0
 
+BUILD_DIR = CSRC / "build"  # where the libraries are built and looked for (set_build_dir)
+
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def set_build_dir(path) -> Path:
+    """Build and look for the libraries under ``path`` from now on (made if
+    missing); a library already loaded stays loaded. Returns the directory."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path).resolve()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return BUILD_DIR
 
 
 def nvcc_path() -> str:
@@ -147,3 +170,16 @@ def function(source: str, name: str, pointers: int, ints: Sequence) -> ctypes._C
     fn.argtypes = [ctypes.c_void_p] * pointers + list(ints) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def register_op(name: str, schema: str, cpu: Callable, cuda: Callable,
+                fake: Callable) -> torch._ops.OpOverload:
+    """Define the operator ``graphphysics_torch::name`` with ``schema`` and
+    its CPU, CUDA and fake implementations; returns the operator. No other
+    device has an implementation."""
+    qualname = f"{OPS}::{name}"
+    torch.library.define(qualname, schema)
+    torch.library.impl(qualname, "cpu", cpu)
+    torch.library.impl(qualname, "cuda", cuda)
+    torch.library.register_fake(qualname, fake)
+    return getattr(getattr(torch.ops, OPS), name).default

@@ -4,8 +4,14 @@ counterpart of ``graphphysics_tpu/ops/pallas_attention.py``.
 ``csr_sparse_attention`` (the JAX function of that name) is, per sender row
 ``n`` and head ``h`` over the real unmasked edges of ``n``'s range, the
 softmax of ``scale * <q[n, h], k[j, h]>`` (``j = gather_idx[e]``) and its
-weighted sum of ``v[j, h]``. It goes through ``csr_attention``, a
-``torch.autograd.Function`` whose backward is ``csr_attention_backward``.
+weighted sum of ``v[j, h]``. It goes through ``csr_attention``, whose
+backward is ``csr_attention_backward``. Every kernel entry of this module
+is a ``torch.library`` op of the ``graphphysics_torch`` namespace
+(``torch.ops.graphphysics_torch.csr_attention`` and so on) with a CUDA
+implementation (the kernel), a CPU one (the plain version) and a fake one
+(shapes and dtypes, which ``torch.export`` traces through); a
+``torch.autograd.Function`` calls each forward op and, for its gradient,
+the backward op.
 For CUDA tensors the two launch hand-written Hopper kernels (built with
 ``nvcc`` at first use): the gathers, the per-edge scores, the softmax and
 the weighted sum in one pass, reading q, k and v as node rows, with no
@@ -323,17 +329,61 @@ def _launch_backward(scores, values, bounds, mask, ml, out, g) -> Tuple[torch.Te
     return dscores, dvalues
 
 
+def _softmax_spmm_cpu(scores, values, segments, bounds, mask):
+    check_in_range("csr_softmax_spmm", "sender", segments, bounds, mask)
+    return csr_softmax_spmm_reference(scores, values, segments, bounds.shape[1], mask)
+
+
+def _softmax_spmm_cuda(scores, values, segments, bounds, mask):
+    _check_cuda_args("csr_softmax_spmm", scores, values, segments, bounds, mask)
+    return _launch(scores, values, bounds, mask)
+
+
+def _softmax_spmm_fake(scores, values, segments, bounds, mask):
+    n, h = bounds.shape[1], scores.shape[1]
+    return (values.new_empty((n, values.shape[1])),
+            scores.new_empty((2 * h, n), dtype=accumulation_dtype(scores.dtype)))
+
+
+def _softmax_spmm_backward_cpu(scores, values, segments, bounds, ml, out, g, mask):
+    return csr_softmax_spmm_backward_reference(scores, values, segments, ml, out, g, mask)
+
+
+def _softmax_spmm_backward_cuda(scores, values, segments, bounds, ml, out, g, mask):
+    op = "csr_softmax_spmm_backward"
+    _check_cuda_args(op, scores, values, segments, bounds, mask)
+    g = g.contiguous()
+    n, h, d = bounds.shape[1], scores.shape[1], values.shape[1]
+    for name, t, shape in (("out", out, (n, d)), ("g", g, (n, d)), ("ml", ml, (2 * h, n))):
+        if t.shape != shape or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{op}: {name} must be a contiguous float32 {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != scores.device or t.data_ptr() % 16:
+            raise ValueError(f"{op}: {name} must be 16-byte aligned on {scores.device}")
+    return _launch_backward(scores, values, bounds, mask, ml, out, g)
+
+
+def _softmax_spmm_backward_fake(scores, values, segments, bounds, ml, out, g, mask):
+    return torch.empty_like(scores), torch.empty_like(values)
+
+
+_softmax_spmm_op = _native.register_op(
+    "csr_softmax_spmm",
+    "(Tensor scores, Tensor values, Tensor segments, Tensor bounds, Tensor? mask) -> (Tensor, Tensor)",
+    _softmax_spmm_cpu, _softmax_spmm_cuda, _softmax_spmm_fake)
+_softmax_spmm_backward_op = _native.register_op(
+    "csr_softmax_spmm_backward",
+    "(Tensor scores, Tensor values, Tensor segments, Tensor bounds, Tensor ml, Tensor out, Tensor g, "
+    "Tensor? mask) -> (Tensor, Tensor)",
+    _softmax_spmm_backward_cpu, _softmax_spmm_backward_cuda, _softmax_spmm_backward_fake)
+
+
 class _SoftmaxSpmm(torch.autograd.Function):
-    """K2 forward, K3 backward (CUDA) or their plain versions (CPU)."""
+    """K2 forward, K3 backward, through their operators."""
 
     @staticmethod
     def forward(ctx, scores, values, segments, bounds, mask):
-        if scores.is_cuda:
-            out, ml = _launch(scores, values, bounds, mask)
-        else:
-            out, ml = csr_softmax_spmm_reference(
-                scores, values, segments, bounds.shape[1], mask
-            )
+        out, ml = _softmax_spmm_op(scores, values, segments, bounds, mask)
         ctx.mark_non_differentiable(ml)
         ctx.save_for_backward(scores, values, segments, bounds, mask, ml, out)
         return out, ml
@@ -341,9 +391,7 @@ class _SoftmaxSpmm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, _g_ml):
         scores, values, segments, bounds, mask, ml, out = ctx.saved_tensors
-        dscores, dvalues = csr_softmax_spmm_backward(
-            scores, values, segments, bounds, ml, out, g, mask
-        )
+        dscores, dvalues = csr_softmax_spmm_backward(scores, values, segments, bounds, ml, out, g, mask)
         return dscores, dvalues, None, None, None
 
 
@@ -362,7 +410,8 @@ def csr_softmax_spmm(
     max and sum of exponentials (``-1e30`` and 0 for a row without edges,
     whose output is 0). Differentiable in ``scores`` and ``values`` through
     ``out`` (``ml`` is not differentiable): the backward is
-    ``csr_softmax_spmm_backward``.
+    ``csr_softmax_spmm_backward``. The op
+    ``torch.ops.graphphysics_torch.csr_softmax_spmm``.
 
     The kernels read only the row ranges ``bounds`` (per node,
     ``compute_row_bounds`` of the sorted ``segments``: the senders'
@@ -373,10 +422,6 @@ def csr_softmax_spmm(
     is a multiple of D/32) and adds one to ``csr_softmax_spmm.launches``; it
     trusts the layout (build graphs with ``pad_graph_csr_np``). A CPU tensor
     checks that precondition and takes ``csr_softmax_spmm_reference``."""
-    if scores.is_cuda:
-        _check_cuda_args("csr_softmax_spmm", scores, values, segments, bounds, mask)
-    else:
-        check_in_range("csr_softmax_spmm", "sender", segments, bounds, mask)
     return _SoftmaxSpmm.apply(scores, values, segments, bounds, mask)
 
 
@@ -397,24 +442,14 @@ def csr_softmax_spmm_backward(
     ``csr_softmax_spmm``'s ``out`` with respect to its scores and values,
     from the forward's ``ml`` and ``out`` and the gradient ``g`` ([N, D]) of
     ``out``. Masked edges, edges outside every range and the edges of empty
-    rows get exactly 0. A CUDA tensor launches the Hopper kernel (float32,
-    the forward's widths; every edge row is written, which needs the ranges
-    ascending and disjoint, as the padding lays them out) and adds one to
+    rows get exactly 0. The op
+    ``torch.ops.graphphysics_torch.csr_softmax_spmm_backward``: a CUDA
+    tensor launches the Hopper kernel (float32, the forward's widths; every
+    edge row is written, which needs the ranges ascending and disjoint, as
+    the padding lays them out) and adds one to
     ``csr_softmax_spmm_backward.launches``; a CPU tensor takes
     ``csr_softmax_spmm_backward_reference``."""
-    if not scores.is_cuda:
-        return csr_softmax_spmm_backward_reference(scores, values, segments, ml, out, g, mask)
-    op = "csr_softmax_spmm_backward"
-    _check_cuda_args(op, scores, values, segments, bounds, mask)
-    g = g.contiguous()
-    n, h, d = bounds.shape[1], scores.shape[1], values.shape[1]
-    for name, t, shape in (("out", out, (n, d)), ("g", g, (n, d)), ("ml", ml, (2 * h, n))):
-        if t.shape != shape or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{op}: {name} must be a contiguous float32 {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if t.device != scores.device or t.data_ptr() % 16:
-            raise ValueError(f"{op}: {name} must be 16-byte aligned on {scores.device}")
-    return _launch_backward(scores, values, bounds, mask, ml, out, g)
+    return _softmax_spmm_backward_op(scores, values, segments, bounds, ml, out, g, mask)
 
 
 csr_softmax_spmm_backward.launches = 0
@@ -552,15 +587,61 @@ def _launch_pair_backward(sa, va, ba, ma, sb, vb, bb, mb, ml, out, g):
     return tuple(grads)
 
 
+def _pair_cpu(sa, va, ga, ba, ma, sb, vb, gb, bb, mb):
+    check_in_range("csr_softmax_spmm_pair", "receiver", ga, ba, ma)
+    check_in_range("csr_softmax_spmm_pair", "receiver", gb, bb, mb)
+    return csr_softmax_spmm_pair_reference(sa, va, ga, sb, vb, gb, ba.shape[1], ma, mb)
+
+
+def _pair_cuda(sa, va, ga, ba, ma, sb, vb, gb, bb, mb):
+    _check_pair("csr_softmax_spmm_pair", sa, va, ga, ba, ma, sb, vb, gb, bb, mb)
+    return _launch_pair(sa, va, ba, ma, sb, vb, bb, mb)
+
+
+def _pair_fake(sa, va, ga, ba, ma, sb, vb, gb, bb, mb):
+    n, h = ba.shape[1], sa.shape[1]
+    return (va.new_empty((n, va.shape[1])),
+            sa.new_empty((2 * h, n), dtype=accumulation_dtype(sa.dtype)))
+
+
+def _pair_backward_cpu(sa, va, ga, ba, sb, vb, gb, bb, ml, out, g, ma, mb):
+    return csr_softmax_spmm_pair_backward_reference(sa, va, ga, sb, vb, gb, ml, out, g, ma, mb)
+
+
+def _pair_backward_cuda(sa, va, ga, ba, sb, vb, gb, bb, ml, out, g, ma, mb):
+    op = "csr_softmax_spmm_pair_backward"
+    n, h, d = _check_pair(op, sa, va, ga, ba, ma, sb, vb, gb, bb, mb)
+    g = g.contiguous()
+    for name, t, shape in (("out", out, (n, d)), ("g", g, (n, d)), ("ml", ml, (2 * h, n))):
+        if t.shape != shape or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{op}: {name} must be a contiguous float32 {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    return _launch_pair_backward(sa, va, ba, ma, sb, vb, bb, mb, ml, out, g)
+
+
+def _pair_backward_fake(sa, va, ga, ba, sb, vb, gb, bb, ml, out, g, ma, mb):
+    return tuple(torch.empty_like(t) for t in (sa, va, sb, vb))
+
+
+_pair_op = _native.register_op(
+    "csr_softmax_spmm_pair",
+    "(Tensor scores_a, Tensor values_a, Tensor seg_a, Tensor bounds_a, Tensor? mask_a, Tensor scores_b, "
+    "Tensor values_b, Tensor seg_b, Tensor bounds_b, Tensor? mask_b) -> (Tensor, Tensor)",
+    _pair_cpu, _pair_cuda, _pair_fake)
+_pair_backward_op = _native.register_op(
+    "csr_softmax_spmm_pair_backward",
+    "(Tensor scores_a, Tensor values_a, Tensor seg_a, Tensor bounds_a, Tensor scores_b, Tensor values_b, "
+    "Tensor seg_b, Tensor bounds_b, Tensor ml, Tensor out, Tensor g, Tensor? mask_a, Tensor? mask_b) "
+    "-> (Tensor, Tensor, Tensor, Tensor)",
+    _pair_backward_cpu, _pair_backward_cuda, _pair_backward_fake)
+
+
 class _SoftmaxSpmmPair(torch.autograd.Function):
-    """K5 forward and backward (CUDA) or their plain versions (CPU)."""
+    """K5 forward and backward, through their operators."""
 
     @staticmethod
     def forward(ctx, sa, va, ga, ba, ma, sb, vb, gb, bb, mb):
-        if sa.is_cuda:
-            out, ml = _launch_pair(sa, va, ba, ma, sb, vb, bb, mb)
-        else:
-            out, ml = csr_softmax_spmm_pair_reference(sa, va, ga, sb, vb, gb, ba.shape[1], ma, mb)
+        out, ml = _pair_op(sa, va, ga, ba, ma, sb, vb, gb, bb, mb)
         ctx.mark_non_differentiable(ml)
         ctx.save_for_backward(sa, va, ga, ba, ma, sb, vb, gb, bb, mb, ml, out)
         return out, ml
@@ -591,19 +672,13 @@ def csr_softmax_spmm_pair(
     per-row ranges ``[2, N]`` and optional mask. Returns ``(out [N, D],
     ml [2H, N])``, ``ml`` the merged statistics (not differentiable); the
     backward (``csr_softmax_spmm_pair_backward``) gives both sets' score
-    and value gradients against them.
+    and value gradients against them. The op
+    ``torch.ops.graphphysics_torch.csr_softmax_spmm_pair``.
 
     A CUDA tensor launches the Hopper kernel (float32, any D <= 512 with
     D % H == 0) and adds one to ``csr_softmax_spmm_pair.launches``; it
     trusts that every unmasked edge lies in its row's range of its set. A
     CPU tensor checks that and takes ``csr_softmax_spmm_pair_reference``."""
-    op = "csr_softmax_spmm_pair"
-    if scores_a.is_cuda:
-        _check_pair(op, scores_a, values_a, seg_a, bounds_a, mask_a,
-                    scores_b, values_b, seg_b, bounds_b, mask_b)
-    else:
-        check_in_range(op, "receiver", seg_a, bounds_a, mask_a)
-        check_in_range(op, "receiver", seg_b, bounds_b, mask_b)
     return _SoftmaxSpmmPair.apply(scores_a, values_a, seg_a, bounds_a, mask_a,
                                   scores_b, values_b, seg_b, bounds_b, mask_b)
 
@@ -618,24 +693,14 @@ def csr_softmax_spmm_pair_backward(
     """The gradients ``(dscores_a, dvalues_a, dscores_b, dvalues_b)`` of
     ``csr_softmax_spmm_pair``'s ``out`` from its merged ``ml``, ``out`` and
     the gradient ``g`` ([N, D]) of ``out``. Masked edges and edges outside
-    every range get exactly 0. A CUDA tensor launches the Hopper kernel
-    (each edge written by its own row's warp only: no atomics, the same
-    result every run) and adds one to
+    every range get exactly 0. The op
+    ``torch.ops.graphphysics_torch.csr_softmax_spmm_pair_backward``: a CUDA
+    tensor launches the Hopper kernel (each edge written by its own row's
+    warp only: no atomics, the same result every run) and adds one to
     ``csr_softmax_spmm_pair_backward.launches``; a CPU tensor takes
     ``csr_softmax_spmm_pair_backward_reference``."""
-    if not scores_a.is_cuda:
-        return csr_softmax_spmm_pair_backward_reference(
-            scores_a, values_a, seg_a, scores_b, values_b, seg_b, ml, out, g, mask_a, mask_b)
-    op = "csr_softmax_spmm_pair_backward"
-    n, h, d = _check_pair(op, scores_a, values_a, seg_a, bounds_a, mask_a,
-                          scores_b, values_b, seg_b, bounds_b, mask_b)
-    g = g.contiguous()
-    for name, t, shape in (("out", out, (n, d)), ("g", g, (n, d)), ("ml", ml, (2 * h, n))):
-        if t.shape != shape or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{op}: {name} must be a contiguous float32 {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-    return _launch_pair_backward(scores_a, values_a, bounds_a, mask_a, scores_b, values_b,
-                                 bounds_b, mask_b, ml, out, g)
+    return _pair_backward_op(scores_a, values_a, seg_a, bounds_a, scores_b, values_b, seg_b,
+                             bounds_b, ml, out, g, mask_a, mask_b)
 
 
 csr_softmax_spmm_pair_backward.launches = 0
@@ -937,6 +1002,19 @@ def _bf16_geometry(q, others, interleaved, lanes, general, backward=False):
     return lanes, bool(general)
 
 
+def _as_pair_heads(flat: torch.Tensor, h: int, interleaved: bool) -> torch.Tensor:
+    """``[2, N, D]`` node rows (dk and dv in one buffer) as ``[2, N, H, Dh]``
+    in the kernels' layout."""
+    _, n, d = flat.shape
+    return flat.view(2, n, d // h, h).transpose(2, 3) if interleaved else flat.view(2, n, h, d // h)
+
+
+def _layout_of(q: torch.Tensor) -> bool:
+    """The layout the ops give their outputs in: q's when the kernels take
+    it (True: interleaved), else contiguous (a CPU tensor of any strides)."""
+    return bool(_is_interleaved(q))
+
+
 def _launch_attention(q, k, v, gather_idx, bounds, mask, scale, interleaved, lanes=None,
                       general=None):
     bf16 = q.dtype == torch.bfloat16
@@ -986,7 +1064,7 @@ def _launch_attention_backward(q, k, v, gather_idx, bounds, mask, ml, out, g, sc
     dq = _as_heads(torch.empty((n, d), dtype=q.dtype, device=q.device), h, interleaved)
     # dk and dv summed by atomics into zeroed rows (one memset for both)
     dkv = torch.zeros((2, n, d), dtype=torch.float32, device=q.device)
-    grads = (dq, *(_as_heads(t, h, interleaved) for t in dkv.unbind(0)))
+    grads = (dq, _as_pair_heads(dkv, h, interleaved))
     if n == 0:
         return grads
     with torch.cuda.device(q.device):
@@ -1007,18 +1085,21 @@ def _launch_bf16_backward(q, k, v, gather_idx, bounds, mask, ml, out, g, scale, 
                           general, gather):
     """The bf16 backward: part A by sender rows, part B by gather rows over
     ``gather`` (a ``GatherCsr``), both kernels of one entry; dq, dk and dv
-    written in bf16, every row, without a zeroed buffer or a cast."""
+    written in bf16, every row, without a zeroed buffer or a cast. Returns
+    ``(dq, dkv)`` as ``_launch_attention_backward``."""
     n, h, dh = q.shape
     d, e = h * dh, gather_idx.shape[0]
-    grads = tuple(_as_heads(torch.empty((n, d), dtype=q.dtype, device=q.device), h, interleaved)
-                  for _ in range(3))
+    dq = _as_heads(torch.empty((n, d), dtype=q.dtype, device=q.device), h, interleaved)
+    dkv = torch.empty((2, n, d), dtype=q.dtype, device=q.device)
+    grads = (dq, *(_as_heads(t, h, interleaved) for t in dkv.unbind(0)))
     lanes, general = _bf16_geometry(q, (k, v, out, g), interleaved, lanes, general, backward=True)
     fn = _native.function(BF16_ATTENTION_BACKWARD_SOURCE, "csr_attention_bwd_bf16", 16,
                           (ctypes.c_longlong, ctypes.c_longlong) + (ctypes.c_int,) * 5
                           + (ctypes.c_float,))
     attn_ds = torch.empty((e, h, 2), dtype=torch.float32, device=q.device)  # part A -> part B
+    result = (dq, _as_pair_heads(dkv, h, interleaved))
     if n == 0:
-        return grads
+        return result
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
@@ -1030,33 +1111,106 @@ def _launch_bf16_backward(q, k, v, gather_idx, bounds, mask, ml, out, g, scale, 
     if err != 0:
         raise RuntimeError(f"csr_attention_bwd_bf16 kernel launch failed: CUDA error {err}")
     csr_attention_backward.bf16.launches += 1
-    return grads
+    return result
+
+
+def _attention_cpu(q, k, v, segments, gather_idx, sender_bounds, mask, scale, gather_bounds,
+                   gather_order, gather_senders):
+    # the transposed CSR rides along for the backward only (the autograd
+    # formula saves it); the forward reads none of it
+    check_in_range("csr_attention", "sender", segments, sender_bounds, mask)
+    out, ml = csr_attention_reference(q, k, v, segments, gather_idx, sender_bounds.shape[1], mask,
+                                      scale)
+    return _in_layout(out, _layout_of(q)), ml
+
+
+def _attention_cuda(q, k, v, segments, gather_idx, sender_bounds, mask, scale, gather_bounds,
+                    gather_order, gather_senders):
+    interleaved = _check_attention_args("csr_attention", q, k, v, gather_idx, sender_bounds, mask)
+    return _launch_attention(q, k, v, gather_idx, sender_bounds, mask, scale, interleaved)
+
+
+def _attention_fake(q, k, v, segments, gather_idx, sender_bounds, mask, scale, gather_bounds,
+                    gather_order, gather_senders):
+    n, h, dh = q.shape
+    return (_as_heads(q.new_empty((n, h * dh)), h, _layout_of(q)),
+            q.new_empty((2 * h, n), dtype=accumulation_dtype(q.dtype)))
+
+
+def _attention_backward_cpu(q, k, v, segments, gather_idx, sender_bounds, ml, out, g, mask, scale,
+                            gather_bounds, gather_order, gather_senders):
+    dq, dk, dv = csr_attention_backward_reference(q, k, v, segments, gather_idx, ml, out, g, mask,
+                                                  scale)
+    interleaved = _layout_of(q)
+    n, h, dh = q.shape
+    dkv = _as_pair_heads(q.new_empty((2, n, h * dh)), h, interleaved)
+    dkv[0].copy_(dk)
+    dkv[1].copy_(dv)
+    return _in_layout(dq, interleaved), dkv
+
+
+def _attention_backward_cuda(q, k, v, segments, gather_idx, sender_bounds, ml, out, g, mask, scale,
+                             gather_bounds, gather_order, gather_senders):
+    op = "csr_attention_backward"
+    interleaved = _check_attention_args(op, q, k, v, gather_idx, sender_bounds, mask)
+    n, h, _ = q.shape
+    gather = None
+    if q.dtype == torch.bfloat16:
+        if gather_bounds is not None:
+            gather = GatherCsr(gather_bounds, gather_order, gather_senders)
+        _check_gather(op, gather, n, gather_idx.shape[0], q.device)
+    g = _in_layout(g.to(q.dtype), interleaved)
+    align = ALIGNMENT[q.dtype]
+    for name, t in (("out", out), ("g", g)):
+        if t.shape != q.shape or t.dtype != q.dtype or _is_interleaved(t) is not interleaved:
+            raise ValueError(f"{op}: {name} must be {q.dtype} {tuple(q.shape)} in q's layout, got "
+                             f"{t.dtype} {tuple(t.shape)} strides {t.stride()}")
+        if t.device != q.device or t.data_ptr() % align:
+            raise ValueError(f"{op}: {name} must be {align}-byte aligned on {q.device}")
+    if ml.shape != (2 * h, n) or ml.dtype != torch.float32 or not ml.is_contiguous():
+        raise ValueError(f"{op}: ml must be a contiguous float32 {(2 * h, n)}")
+    return _launch_attention_backward(q, k, v, gather_idx, sender_bounds, mask, ml, out, g,
+                                      float(scale), interleaved, gather=gather)
+
+
+def _attention_backward_fake(q, k, v, segments, gather_idx, sender_bounds, ml, out, g, mask, scale,
+                             gather_bounds, gather_order, gather_senders):
+    n, h, dh = q.shape
+    interleaved = _layout_of(q)
+    return (_as_heads(q.new_empty((n, h * dh)), h, interleaved),
+            _as_pair_heads(q.new_empty((2, n, h * dh)), h, interleaved))
+
+
+_attention_op = _native.register_op(
+    "csr_attention",
+    "(Tensor q, Tensor k, Tensor v, Tensor segments, Tensor gather_idx, Tensor sender_bounds, Tensor? mask, "
+    "float scale, Tensor? gather_bounds, Tensor? gather_order, Tensor? gather_senders) -> (Tensor, Tensor)",
+    _attention_cpu, _attention_cuda, _attention_fake)
+_attention_backward_op = _native.register_op(
+    "csr_attention_backward",
+    "(Tensor q, Tensor k, Tensor v, Tensor segments, Tensor gather_idx, Tensor sender_bounds, Tensor ml, "
+    "Tensor out, Tensor g, Tensor? mask, float scale, Tensor? gather_bounds, Tensor? gather_order, "
+    "Tensor? gather_senders) -> (Tensor, Tensor)",
+    _attention_backward_cpu, _attention_backward_cuda, _attention_backward_fake)
 
 
 class _CsrAttention(torch.autograd.Function):
-    """The fused attention forward and backward kernels (CUDA) or their
-    plain versions (CPU)."""
+    """The fused attention forward and backward, through their operators."""
 
     @staticmethod
-    def forward(ctx, q, k, v, segments, gather_idx, sender_bounds, mask, scale, gather):
-        if q.is_cuda:
-            interleaved = _check_attention_args("csr_attention", q, k, v, gather_idx, sender_bounds, mask)
-            out, ml = _launch_attention(q, k, v, gather_idx, sender_bounds, mask, scale, interleaved)
-        else:
-            out, ml = csr_attention_reference(q, k, v, segments, gather_idx, sender_bounds.shape[1],
-                                              mask, scale)
+    def forward(ctx, q, k, v, segments, gather_idx, sender_bounds, mask, scale, *gather):
+        out, ml = _attention_op(q, k, v, segments, gather_idx, sender_bounds, mask, scale, *gather)
         ctx.mark_non_differentiable(ml)
-        ctx.save_for_backward(q, k, v, segments, gather_idx, sender_bounds, mask, ml, out)
+        ctx.save_for_backward(q, k, v, segments, gather_idx, sender_bounds, mask, ml, out, *gather)
         ctx.scale = scale
-        ctx.gather = gather
         return out, ml
 
     @staticmethod
     def backward(ctx, g, _g_ml):
-        q, k, v, segments, gather_idx, sender_bounds, mask, ml, out = ctx.saved_tensors
-        grads = csr_attention_backward(q, k, v, segments, gather_idx, sender_bounds, ml, out, g,
-                                       mask, ctx.scale, ctx.gather)
-        return (*grads, None, None, None, None, None, None)
+        q, k, v, segments, gather_idx, sender_bounds, mask, ml, out, *gather = ctx.saved_tensors
+        dq, dkv = _attention_backward_op(q, k, v, segments, gather_idx, sender_bounds, ml, out, g,
+                                         mask, ctx.scale, *gather)
+        return (dq, *dkv.unbind(0)) + (None,) * 8
 
 
 def csr_attention(
@@ -1075,7 +1229,8 @@ def csr_attention(
     [m; l]`` per head (``-1e30`` and 0 for a row without edges, whose output
     is 0). Differentiable in q, k and v through ``out``; the backward is
     ``csr_attention_backward``, which on CUDA bf16 needs ``gather``, the
-    graph's ``gather_csr``.
+    graph's ``gather_csr``. The op ``torch.ops.graphphysics_torch.csr_attention``
+    (``gather`` rides along as three optional tensors, for the backward).
 
     A CUDA tensor launches the Hopper kernel and adds one to
     ``csr_attention.launches`` (the float32 entry) or
@@ -1089,14 +1244,18 @@ def csr_attention(
     trusts the edge layout (every unmasked edge in its sender's range,
     gather indices in ``[0, N)``: build graphs with ``pad_graph_csr_np``).
     The segment ids are not read on the card: the ranges carry them. A CPU
-    tensor checks the layout and takes ``csr_attention_reference``."""
-    if not q.is_cuda:
-        check_in_range("csr_attention", "sender", segments, sender_bounds, mask)
+    tensor checks the layout and takes ``csr_attention_reference``; out
+    comes in q's layout there too (contiguous for any other strides)."""
     return _CsrAttention.apply(q, k, v, segments, gather_idx, sender_bounds, mask, float(scale),
-                               gather)
+                               *_gather_args(gather))
 
 
 csr_attention.launches = 0
+
+
+def _gather_args(gather: Optional[GatherCsr]) -> tuple:
+    """A ``GatherCsr`` as the ops' three optional tensor arguments."""
+    return (None, None, None) if gather is None else tuple(gather)
 
 
 def _check_gather(op, gather, n, e, device) -> None:
@@ -1127,7 +1286,10 @@ def csr_attention_backward(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradients ``(dq, dk, dv)`` of ``csr_attention``'s ``out`` from
     the forward's ``ml`` and ``out`` and the gradient ``g`` of ``out``.
-    Masked edges and rows without edges add nothing. A CUDA tensor launches
+    Masked edges and rows without edges add nothing. The op
+    ``torch.ops.graphphysics_torch.csr_attention_backward``, which returns
+    ``(dq, dkv)`` with dk and dv in one ``[2, N, H, Dh]`` buffer (an op's
+    outputs may not alias). A CUDA tensor launches
     the Hopper kernel (the forward's arguments; ``g`` is brought into their
     layout) and adds one to ``csr_attention_backward.launches`` (float32:
     ``dk`` and ``dv`` summed with atomics, in an order that varies from run
@@ -1135,25 +1297,9 @@ def csr_attention_backward(
     rows, then gather rows over ``gather``, the graph's ``gather_csr``,
     which it needs; no atomics, the same bits every run); a CPU tensor takes
     ``csr_attention_backward_reference``."""
-    if not q.is_cuda:
-        return csr_attention_backward_reference(q, k, v, segments, gather_idx, ml, out, g, mask, scale)
-    op = "csr_attention_backward"
-    interleaved = _check_attention_args(op, q, k, v, gather_idx, sender_bounds, mask)
-    n, h, _ = q.shape
-    if q.dtype == torch.bfloat16:
-        _check_gather(op, gather, n, gather_idx.shape[0], q.device)
-    g = _in_layout(g.to(q.dtype), interleaved)
-    align = ALIGNMENT[q.dtype]
-    for name, t in (("out", out), ("g", g)):
-        if t.shape != q.shape or t.dtype != q.dtype or _is_interleaved(t) is not interleaved:
-            raise ValueError(f"{op}: {name} must be {q.dtype} {tuple(q.shape)} in q's layout, got "
-                             f"{t.dtype} {tuple(t.shape)} strides {t.stride()}")
-        if t.device != q.device or t.data_ptr() % align:
-            raise ValueError(f"{op}: {name} must be {align}-byte aligned on {q.device}")
-    if ml.shape != (2 * h, n) or ml.dtype != torch.float32 or not ml.is_contiguous():
-        raise ValueError(f"{op}: ml must be a contiguous float32 {(2 * h, n)}")
-    return _launch_attention_backward(q, k, v, gather_idx, sender_bounds, mask, ml, out, g,
-                                      float(scale), interleaved, gather=gather)
+    dq, dkv = _attention_backward_op(q, k, v, segments, gather_idx, sender_bounds, ml, out, g, mask,
+                                     float(scale), *_gather_args(gather))
+    return (dq, *dkv.unbind(0))
 
 
 csr_attention_backward.launches = 0

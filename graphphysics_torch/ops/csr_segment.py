@@ -2,13 +2,17 @@
 ``graphphysics_tpu/ops/pallas_segment.py``.
 
 ``csr_segment_sum`` computes ``out[n] = sum of data[e] over the real edges e
-with receivers[e] == n``, as a ``torch.autograd.Function`` whose backward is
-``csr_segment_sum_backward``: ``ddata[e] = g[receivers[e]]`` on the real
-unmasked edges and 0 elsewhere. For CUDA tensors both launch hand-written
-Hopper kernels of ``csrc/csr_segment_sum.cu`` (built with ``nvcc`` at first
-use) or raise; for CPU tensors they take ``csr_segment_sum_reference`` and
-``csr_segment_sum_backward_reference``, the plain PyTorch versions. Nothing
-else selects between the two.
+with receivers[e] == n``, and ``csr_segment_sum_backward`` its gradient:
+``ddata[e] = g[receivers[e]]`` on the real unmasked edges and 0 elsewhere.
+Each is a ``torch.library`` op of the ``graphphysics_torch`` namespace
+(``torch.ops.graphphysics_torch.csr_segment_sum``), so ``torch.export``
+traces through them; a ``torch.autograd.Function`` calls the forward op
+and, for its gradient, the backward op. The ops' CUDA implementations
+launch hand-written Hopper kernels of ``csrc/csr_segment_sum.cu`` (built
+with ``nvcc`` at first use) or raise; their CPU implementations are
+``csr_segment_sum_reference`` and ``csr_segment_sum_backward_reference``,
+the plain PyTorch versions; their fake implementations give shapes and
+dtypes only. Nothing but the tensors' device selects between the two.
 
 The kernel reads per-node ``[start, end)`` ranges of real edges
 (``compute_row_bounds``, built on the host with the padding) instead of the
@@ -217,15 +221,54 @@ def _launch_backward(g, receivers, row_bounds, mask) -> torch.Tensor:
     return ddata
 
 
+# K1 and K1b as torch.library operators (_native.register_op): the CPU
+# implementation is the plain version, the CUDA one the kernel
+def _segment_sum_cpu(data, receivers, row_bounds, mask):
+    check_in_range("csr_segment_sum", "receiver", receivers, row_bounds, mask)
+    return csr_segment_sum_reference(data, receivers, row_bounds.shape[1], mask)
+
+
+def _segment_sum_cuda(data, receivers, row_bounds, mask):
+    _check_cuda_args("csr_segment_sum", data, data.shape[0], receivers, row_bounds, mask)
+    return _launch(data, row_bounds, mask)
+
+
+def _segment_sum_fake(data, receivers, row_bounds, mask):
+    return data.new_empty((row_bounds.shape[1], data.shape[1]))
+
+
+def _segment_sum_backward_cpu(g, receivers, row_bounds, mask):
+    return csr_segment_sum_backward_reference(g, receivers, row_bounds, mask)
+
+
+def _segment_sum_backward_cuda(g, receivers, row_bounds, mask):
+    op = "csr_segment_sum_backward"
+    g = g.contiguous()
+    _check_cuda_args(op, g, receivers.shape[0], receivers, row_bounds, mask)
+    if row_bounds.shape[1] != g.shape[0]:
+        raise ValueError(f"{op}: row_bounds covers {row_bounds.shape[1]} rows, g has {g.shape[0]}")
+    return _launch_backward(g, receivers, row_bounds, mask)
+
+
+def _segment_sum_backward_fake(g, receivers, row_bounds, mask):
+    return g.new_empty((receivers.shape[0], g.shape[1]))
+
+
+_segment_sum_op = _native.register_op(
+    "csr_segment_sum", "(Tensor data, Tensor receivers, Tensor row_bounds, Tensor? mask) -> Tensor",
+    _segment_sum_cpu, _segment_sum_cuda, _segment_sum_fake)
+_segment_sum_backward_op = _native.register_op(
+    "csr_segment_sum_backward", "(Tensor g, Tensor receivers, Tensor row_bounds, Tensor? mask) -> Tensor",
+    _segment_sum_backward_cpu, _segment_sum_backward_cuda, _segment_sum_backward_fake)
+
+
 class _SegmentSum(torch.autograd.Function):
-    """K1 forward, K1b backward (CUDA) or their plain versions (CPU)."""
+    """K1 forward, K1b backward, through their operators."""
 
     @staticmethod
     def forward(ctx, data, receivers, row_bounds, mask):
         ctx.save_for_backward(receivers, row_bounds, mask)
-        if data.is_cuda:
-            return _launch(data, row_bounds, mask)
-        return csr_segment_sum_reference(data, receivers, row_bounds.shape[1], mask)
+        return _segment_sum_op(data, receivers, row_bounds, mask)
 
     @staticmethod
     def backward(ctx, g):
@@ -243,6 +286,7 @@ def csr_segment_sum(
     receiver-sorted ``receivers``; ``row_bounds`` is ``compute_row_bounds``
     of those receivers and ``mask`` ([E] bool) drops edges anywhere.
     Differentiable in ``data``: the gradient is ``csr_segment_sum_backward``.
+    The op ``torch.ops.graphphysics_torch.csr_segment_sum``.
 
     The kernel reads only the row ranges, so every unmasked edge must lie in
     its receiver's range. A CUDA tensor launches the Hopper kernel (float32)
@@ -251,10 +295,6 @@ def csr_segment_sum(
     give wrong sums without an error there (build graphs with
     ``pad_graph_sorted_np``, which keeps the two together). A CPU tensor
     checks that precondition and takes ``csr_segment_sum_reference``."""
-    if data.is_cuda:
-        _check_cuda_args("csr_segment_sum", data, data.shape[0], receivers, row_bounds, mask)
-    else:
-        check_in_range("csr_segment_sum", "receiver", receivers, row_bounds, mask)
     return _SegmentSum.apply(data, receivers, row_bounds, mask)
 
 
@@ -270,17 +310,11 @@ def csr_segment_sum_backward(
     """The gradient of ``csr_segment_sum`` with respect to its data, from
     the output's gradient ``g`` ([N, H]): ``[E, H]`` with ``g[receivers[e]]``
     on each unmasked edge inside its receiver's range and 0 on every other
-    edge. A CUDA tensor launches the Hopper kernel (float32; every edge row
-    is written) and adds one to ``csr_segment_sum_backward.launches``; a CPU
+    edge. The op ``torch.ops.graphphysics_torch.csr_segment_sum_backward``:
+    a CUDA tensor launches the Hopper kernel (float32; every edge row is
+    written) and adds one to ``csr_segment_sum_backward.launches``; a CPU
     tensor takes ``csr_segment_sum_backward_reference``."""
-    if not g.is_cuda:
-        return csr_segment_sum_backward_reference(g, receivers, row_bounds, mask)
-    op = "csr_segment_sum_backward"
-    g = g.contiguous()
-    _check_cuda_args(op, g, receivers.shape[0], receivers, row_bounds, mask)
-    if row_bounds.shape[1] != g.shape[0]:
-        raise ValueError(f"{op}: row_bounds covers {row_bounds.shape[1]} rows, g has {g.shape[0]}")
-    return _launch_backward(g, receivers, row_bounds, mask)
+    return _segment_sum_backward_op(g, receivers, row_bounds, mask)
 
 
 csr_segment_sum_backward.launches = 0

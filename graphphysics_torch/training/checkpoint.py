@@ -20,36 +20,64 @@ numbers, strings, lists, tuples, dicts and None, so it loads under
 whole; the metadata rides inside the file (committed with the state by the
 same replace) and in an advisory ``.meta.json`` sidecar.
 
-``load_checkpoint`` restores a port file whole into a ``Trainer`` (weights,
-normalizers, optimizer, schedule position, step) or its weights and
-normalizers into a ``Simulator``. A plain reference file (the JAX package's
-``export_reference_checkpoint``) restores weights and normalizers and leaves
-the optimizer fresh, as the JAX package does with one. The JAX package's
-msgpack and orbax checkpoints cross over through
-``export_reference_checkpoint``; the orbax backends themselves are not
-ported.
+The backends keep the JAX package's names: ``"torch"`` (the port's
+default, the file above; JAX's is ``"msgpack"``) and the directory backends
+``"orbax"`` and ``"orbax-async"``, so configs and CLIs carry over. In the
+port those write the same dict as a ``torch.distributed.checkpoint`` (DCP)
+directory in one process (no process group: ``no_dist``), staged into
+``path + ".next"`` and swapped into place (``_swap_into_place``), so a crash
+never leaves the live checkpoint half written. ``"orbax-async"`` returns as
+soon as DCP has staged the state in host memory and writes in the
+background; ``wait_for_async_saves`` (which ``load_checkpoint`` and the end
+of ``Trainer.fit`` call) waits for every pending save and swaps it in. A
+stage that finished but was not swapped, or a live directory renamed to
+``.old`` by a crash between the two renames, is found by
+``_resolve_orbax_dir``. The metadata rides inside the directory and in the
+same ``.meta.json`` sidecar.
+
+``load_checkpoint`` restores a port file or directory whole into a
+``Trainer`` (weights, normalizers, optimizer, schedule position, step) or
+its weights and normalizers into a ``Simulator``. A plain reference file
+(the JAX package's ``export_reference_checkpoint``) restores weights and
+normalizers and leaves the optimizer fresh, as the JAX package does with
+one. The JAX package's msgpack files and orbax directories cross over
+through ``export_reference_checkpoint``: the port reads neither format (a
+port directory is told from an orbax one by DCP's ``.metadata`` file).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
-from typing import Any, Dict, Optional, Tuple
+import shutil
+import warnings
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from graphphysics_torch.models.simulator import Simulator
 from graphphysics_torch.utils.reference_weights import load_reference_checkpoint
 
+BACKENDS = ("torch", "orbax", "orbax-async")
+DIRECTORY_BACKENDS = ("orbax", "orbax-async")
+_DCP_METADATA = ".metadata"  # DCP writes it last: a directory with it is complete
 _NORMALIZERS = ("_output_normalizer", "_node_normalizer", "_edge_normalizer")
+# in-flight "orbax-async" saves: (future, staged directory, final path,
+# metadata), swapped in by wait_for_async_saves; module-level as the JAX
+# package's, since saves from any Trainer of the process share the disk
+_PENDING: List[tuple] = []
 # the normalizer constants of the reference format (core/normalizer.py)
 _MAX_ACCUMULATIONS = 10**5
 _STD_EPSILON = 1e-8
 
 
 def _cpu(obj: Any) -> Any:
+    """A copy on the CPU: a save in the background must not see the
+    training that goes on (``.cpu()`` alone would return a CPU tensor
+    itself)."""
     if isinstance(obj, torch.Tensor):
-        return obj.detach().cpu()
+        return obj.detach().to("cpu", copy=True)
     if isinstance(obj, dict):
         return type(obj)((k, _cpu(v)) for k, v in obj.items())
     if isinstance(obj, (list, tuple)):
@@ -90,22 +118,96 @@ def _checkpoint_dict(target: Any, metadata: Optional[dict]) -> Dict[str, Any]:
     return ckpt
 
 
-def save_checkpoint(path: str, target: Any, metadata: Optional[dict] = None) -> None:
+def require_backend(backend: str) -> None:
+    """Raise unless ``backend`` is one of ``BACKENDS`` (the Trainer checks
+    at start-up, not after the first epoch)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown checkpoint backend {backend!r}; expected one of {BACKENDS}")
+
+
+def _write_sidecar(path: str, metadata: Optional[dict]) -> None:
+    if metadata is None:
+        return
+    # advisory: the embedded copy wins, the sidecar may lag one save behind
+    # after a crash between the two replaces
+    tmp_meta = path + ".meta.json.tmp"
+    with open(tmp_meta, "w") as f:
+        json.dump(metadata, f)
+    os.replace(tmp_meta, path + ".meta.json")
+
+
+def _swap_into_place(staged: str, final: str) -> None:
+    """Promote a complete staged directory to the live path. The one
+    window where ``final`` is missing leaves a complete ``staged`` or
+    ``.old`` directory behind, which ``_resolve_orbax_dir`` finds."""
+    old = final + ".old"
+    if os.path.exists(old):
+        shutil.rmtree(old)
+    if os.path.exists(final):
+        os.rename(final, old)
+    os.rename(staged, final)
+    if os.path.exists(old):
+        shutil.rmtree(old)
+
+
+def wait_for_async_saves() -> None:
+    """Wait for every in-flight ``orbax-async`` save, swap each staged
+    directory live and write its sidecar (``Trainer.fit`` calls this when
+    it ends, ``load_checkpoint`` before it reads)."""
+    while _PENDING:
+        future, staged, final, metadata = _PENDING.pop(0)
+        future.result()
+        _swap_into_place(staged, final)
+        _write_sidecar(final, metadata)
+
+
+@contextlib.contextmanager
+def _one_process():
+    """DCP in this one process: its calls warn that no process group is
+    initialized, which is what ``no_dist`` asks for."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="torch.distributed is disabled")
+        yield
+
+
+def _save_directory(ckpt: Dict[str, Any], path: str, metadata: Optional[dict], backend: str) -> None:
+    import torch.distributed.checkpoint as dcp
+
+    final = os.path.abspath(path)
+    staged = final + ".next"
+    if backend == "orbax-async":
+        wait_for_async_saves()  # the previous save owns the stage until it is swapped in
+    if os.path.exists(staged):
+        shutil.rmtree(staged)  # a stale stage of a crashed run
+    os.makedirs(os.path.dirname(final), exist_ok=True)
+    if backend == "orbax-async":
+        with _one_process():
+            future = dcp.async_save(ckpt, checkpoint_id=staged, no_dist=True)
+        _PENDING.append((future, staged, final, metadata))
+        return
+    with _one_process():
+        dcp.save(ckpt, checkpoint_id=staged, no_dist=True)
+    _swap_into_place(staged, final)
+    _write_sidecar(final, metadata)
+
+
+def save_checkpoint(path: str, target: Any, metadata: Optional[dict] = None,
+                    backend: str = "torch") -> None:
     """Write the checkpoint of ``target`` (a ``Trainer`` or a
     ``Simulator``) to ``path`` atomically, with ``metadata`` inside it and
-    in ``path + ".meta.json"``."""
+    in ``path + ".meta.json"``: one ``torch.save`` file (``"torch"``) or a
+    DCP directory (``"orbax"``; ``"orbax-async"`` writes in the background,
+    see ``wait_for_async_saves``)."""
+    require_backend(backend)
     ckpt = _checkpoint_dict(target, metadata)
+    if backend in DIRECTORY_BACKENDS:
+        _save_directory(ckpt, path, metadata, backend)
+        return
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = path + ".tmp"
     torch.save(ckpt, tmp)
     os.replace(tmp, path)
-    if metadata is not None:
-        # advisory: the embedded copy wins, the sidecar may lag one save
-        # behind after a crash between the two replaces
-        tmp_meta = path + ".meta.json.tmp"
-        with open(tmp_meta, "w") as f:
-            json.dump(metadata, f)
-        os.replace(tmp_meta, path + ".meta.json")
+    _write_sidecar(path, metadata)
 
 
 def is_torch_checkpoint(path: str) -> bool:
@@ -116,14 +218,52 @@ def is_torch_checkpoint(path: str) -> bool:
     return magic == b"PK" or (len(magic) == 2 and magic[0] == 0x80 and magic[1] < 0x10)
 
 
+def _is_port_directory(path: str) -> bool:
+    return os.path.isfile(os.path.join(path, _DCP_METADATA))
+
+
+def _resolve_orbax_dir(path: str) -> Optional[str]:
+    """The newest complete checkpoint directory of ``path``, or None if
+    there is none: a ``.next`` stage that DCP finished (it is newer than
+    the live one; without its ``.metadata`` it is a crashed partial and is
+    passed over), then the live path, then a ``.old`` left by a crash
+    between the two renames of the swap."""
+    for cand in (path + ".next", path, path + ".old"):
+        if os.path.isdir(cand) and (_is_port_directory(cand) or cand != path + ".next"):
+            return cand
+    return None
+
+
+def _read_directory(directory: str) -> Dict[str, Any]:
+    """The checkpoint dict of a port directory, read without a template
+    (as DCP's own ``format_utils.dcp_to_torch_save`` reads one): the
+    optimizer's per-parameter state comes back keyed by the parameter's
+    index as a string, and is keyed by the int again."""
+    from torch.distributed.checkpoint import FileSystemReader
+    from torch.distributed.checkpoint.default_planner import _EmptyStateDictLoadPlanner
+    from torch.distributed.checkpoint.state_dict_loader import _load_state_dict
+
+    ckpt: Dict[str, Any] = {}
+    with _one_process():
+        _load_state_dict(ckpt, storage_reader=FileSystemReader(directory),
+                         planner=_EmptyStateDictLoadPlanner(), no_dist=True)
+    if ckpt.get("optimizer") is not None:
+        state = ckpt["optimizer"].get("state", {})
+        ckpt["optimizer"]["state"] = {int(k): v for k, v in state.items()}
+    return ckpt
+
+
 def _read(path: str) -> Dict[str, Any]:
-    for cand in (path, path + ".next", path + ".old"):
-        if os.path.isdir(cand):
-            raise NotImplementedError(
-                f"{path} is an orbax checkpoint directory of the JAX package: the orbax "
-                f"backends are not ported (ROADMAP.md section 1, item 4); write a reference "
-                f"file from JAX with graphphysics_tpu.utils.torch_import.export_reference_checkpoint"
+    wait_for_async_saves()  # an in-flight save may be this path
+    directory = _resolve_orbax_dir(path)
+    if directory is not None:
+        if not _is_port_directory(directory):
+            raise ValueError(
+                f"{directory} is a checkpoint directory of the JAX package (orbax), not a "
+                f"torch.distributed.checkpoint one; write a reference file from JAX with "
+                f"graphphysics_tpu.utils.torch_import.export_reference_checkpoint"
             )
+        return _read_directory(directory)
     if not is_torch_checkpoint(path):
         raise ValueError(
             f"{path} is not a torch.save file (a JAX msgpack checkpoint?); write a reference "
@@ -174,13 +314,17 @@ def load_checkpoint_with_metadata(path: str, target: Any) -> Tuple[Any, dict]:
 
 def load_metadata(path: str, prefer_sidecar: bool = False) -> dict:
     """The checkpoint's metadata. ``prefer_sidecar`` reads the
-    ``.meta.json`` sidecar without loading the state file (for advisory
-    reads, such as a W&B run id); otherwise the embedded copy, committed
-    with the state, wins, and the sidecar serves files without one."""
+    ``.meta.json`` sidecar without loading the state (for advisory reads,
+    such as a W&B run id); otherwise the embedded copy, committed with the
+    state, wins, and the sidecar serves checkpoints without one."""
+    wait_for_async_saves()
     if prefer_sidecar and os.path.exists(path + ".meta.json"):
         return _sidecar(path)
-    if os.path.exists(path) and not os.path.isdir(path) and is_torch_checkpoint(path):
+    directory = _resolve_orbax_dir(path)
+    if directory is not None and _is_port_directory(directory):
+        metadata = _read_directory(directory).get("metadata")
+    elif os.path.isfile(path) and is_torch_checkpoint(path):
         metadata = torch.load(path, map_location="cpu", weights_only=True).get("metadata")
-        if metadata is not None:
-            return metadata
-    return _sidecar(path)
+    else:
+        metadata = None
+    return metadata if metadata is not None else _sidecar(path)

@@ -115,26 +115,48 @@ def rollout(
             f"previous_data_start:previous_data_end ({ps}:{pe}) must be as wide as the "
             f"output ({os_}:{oe})"
         )
-    frames = frames.to(dev)
+    with torch.inference_mode():
+        return rollout_frames(sim, frames.to(dev), generator=generator,
+                              use_previous_data=use_previous_data,
+                              previous_data_start=ps, previous_data_end=pe)
+
+
+def rollout_frames(
+    sim,
+    frames: Graph,
+    generator: Optional[torch.Generator] = None,
+    draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    use_previous_data: bool = False,
+    previous_data_start: Optional[int] = None,
+    previous_data_end: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The loop of ``rollout`` over frames already on the simulator's
+    device, unchecked and under the caller's grad mode (what
+    ``utils.export.export_rollout`` traces, unrolled). A GMM head samples
+    frame ``t`` from ``generator`` or from ``draws`` (``(gumbel [T, N, K],
+    z [T, N, d])``, frame ``t`` taking row ``t``)."""
+    cfg = sim.config
+    os_, oe = cfg.output_index_start, cfg.output_index_end
+    ps, pe = previous_data_start, previous_data_end
     predictions, targets = [], []
     predicted = previous = None
-    with torch.inference_mode():
-        for t in range(frames.x.shape[0]):
-            g = frames[t]
-            if predicted is not None:
-                x = g.x.clone()
-                x[:, os_:oe] = predicted
-                if use_previous_data:
-                    x[:, ps:pe] = previous
-                g = g.replace(x=x)
-            mask = build_mask(g.x[:, cfg.node_type_index].to(torch.int64))
-            current_output = g.x[:, os_:oe]
-            _, _, predicted = sim(g, generator=generator)
-            predicted = torch.where(mask[:, None], g.y, predicted)
+    for t in range(frames.x.shape[0]):
+        g = frames[t]
+        if predicted is not None:
+            x = g.x.clone()
+            x[:, os_:oe] = predicted
             if use_previous_data:
-                previous = predicted - current_output
-            predictions.append(predicted)
-            targets.append(g.y)
+                x[:, ps:pe] = previous
+            g = g.replace(x=x)
+        mask = build_mask(g.x[:, cfg.node_type_index].to(torch.int64))
+        current_output = g.x[:, os_:oe]
+        frame_draws = None if draws is None else (draws[0][t], draws[1][t])
+        _, _, predicted = sim(g, generator=generator, draws=frame_draws)
+        predicted = torch.where(mask[:, None], g.y, predicted)
+        if use_previous_data:
+            previous = predicted - current_output
+        predictions.append(predicted)
+        targets.append(g.y)
     return torch.stack(predictions), torch.stack(targets)
 
 

@@ -43,9 +43,17 @@ time, the statistics and the loss those of the concatenation.
 
 Batches and trajectories come in the dataset's layout: sorted, CSR or ELL,
 padded to one budget or, with size buckets, each to its bucket's (a
-trajectory's frames share one). Data parallelism and the profiler are not
-ported yet: asking for one raises ``NotImplementedError`` naming its
-ROADMAP item.
+trajectory's frames share one). Data parallelism is not ported yet: asking
+for it raises ``NotImplementedError`` naming its ROADMAP item.
+
+``checkpoint_backend`` "orbax" or "orbax-async" writes the checkpoints as
+``torch.distributed.checkpoint`` directories (``training/checkpoint.py``;
+the default name becomes ``state.orbax``), the asynchronous ones awaited
+when ``fit`` ends. ``profile_dir`` traces ``profile_num_steps`` steps from
+``profile_start_step`` (counted from 1) with ``torch.profiler`` into a
+Chrome trace there (``utils/profiling.py``). ``plot_callback(trainer,
+val_dataset, epoch, predictions)`` gets each validation's rollout of
+trajectory 0 (``utils/visualization.PredictionPlotCallback``).
 
 With ``graph_partition`` P the Trainer is one rank of a P-rank graph group
 (``parallel.mesh.launch`` starts them; the CLI does): every rank builds the
@@ -83,7 +91,12 @@ from graphphysics_torch.core.graph import Graph, stack_graphs
 from graphphysics_torch.core.nodetype import NodeType
 from graphphysics_torch.models.layers import reset_parameters
 from graphphysics_torch.parallel.mesh import GRAPH_AXIS, graph_group, graph_rank, graph_size
-from graphphysics_torch.training.checkpoint import load_checkpoint_with_metadata, save_checkpoint
+from graphphysics_torch.training.checkpoint import (
+    load_checkpoint_with_metadata,
+    require_backend,
+    save_checkpoint,
+    wait_for_async_saves,
+)
 from graphphysics_torch.training.losses import (
     diagonal_gmm_nll_loss,
     gmm_nll_loss,
@@ -108,11 +121,6 @@ WEIGHT_DECAY = 1e-4
 _NOT_PORTED = {
     "data_parallel": (False, 13),
     "num_devices": (None, 13),
-    "checkpoint_backend": ("torch", 4),  # the orbax backends
-    "plot_callback": (None, 12),
-    "profile_dir": (None, 12),
-    "profile_start_step": (None, 12),
-    "profile_num_steps": (None, 12),
     "parallel_validation": (None, 13),
 }
 
@@ -172,6 +180,11 @@ class Trainer:
         partition_overlap_attention: bool = True,
         halo_dtype: Optional[str] = None,
         partitioned_validation: bool = False,
+        checkpoint_backend: str = "torch",
+        profile_dir: Optional[str] = None,
+        profile_start_step: int = 10,
+        profile_num_steps: int = 3,
+        plot_callback: Optional[Callable] = None,
         **options: Any,
     ):
         for name, value in options.items():
@@ -195,8 +208,19 @@ class Trainer:
         self.use_previous_data = use_previous_data
         self.previous_data_start = previous_data_start
         self.previous_data_end = previous_data_end
+        require_backend(checkpoint_backend)
+        self.checkpoint_backend = checkpoint_backend
+        if checkpoint_backend != "torch" and checkpoint_name == "state.pt":
+            checkpoint_name = "state.orbax"  # a directory, not a torch.save file
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_name = checkpoint_name
+        self.profile_dir = profile_dir
+        self.profile_start_step = profile_start_step
+        self.profile_num_steps = profile_num_steps
+        self._profiler = None
+        self._trace_started_at = 0
+        self._trace_done = False
+        self.plot_callback = plot_callback
         self.metrics = CSVMetricsLogger(metrics_path) if metrics_path and self.is_writer else None
         self.rollout_dir = rollout_dir if self.is_writer else None
         self.seed = seed
@@ -522,6 +546,7 @@ class Trainer:
                 prog = ProgressReporter(len(train_loader) - offset, prefix=f"epoch {epoch}",
                                         enable=self.progress)
                 for batch in train_loader:
+                    self._maybe_profile(self.step + 1)
                     loss = self.train_step(batch)
                     nsteps += 1
                     loss_sum = loss if loss_sum is None else loss_sum + loss
@@ -568,7 +593,35 @@ class Trainer:
                 self.save(epoch)
             return history
         finally:
+            self._stop_profile()
             self._restore_signal_handlers(prev_handlers)
+            wait_for_async_saves()
+
+    def _maybe_profile(self, step: int) -> None:
+        """Start or stop the ``torch.profiler`` window around the configured
+        steps (called just before running ``step``, counted from 1): it
+        covers the ``profile_num_steps`` steps from the first at or past
+        ``profile_start_step`` (a resumed run starts past it)."""
+        if not self.profile_dir or self._trace_done:
+            return
+        if self._profiler is None and step >= self.profile_start_step:
+            from graphphysics_torch.utils.profiling import start_trace
+
+            self._profiler = start_trace(self.device)
+            self._trace_started_at = step
+        elif self._profiler is not None and step >= self._trace_started_at + self.profile_num_steps:
+            self._stop_profile()
+
+    def _stop_profile(self) -> None:
+        if self._profiler is None:
+            return
+        from graphphysics_torch.utils.profiling import stop_trace
+
+        path = stop_trace(self._profiler, self.profile_dir, self.device,
+                          name=f"trace_rank{self.rank}.json" if self.graph_partition else "trace.json")
+        self._profiler = None
+        self._trace_done = True
+        print(f"[trainer] profiler trace written to {path}")
 
     def _interrupt_everywhere(self) -> bool:
         """The interrupt flag; partitioned, True when any rank's is set."""
@@ -699,6 +752,8 @@ class Trainer:
                 vloss_cnt += step_losses.shape[0]
             if traj == 0 and save_rollout and self.rollout_dir:
                 self._save_rollout_xdmf(val_dataset, 0, preds.cpu().numpy(), epoch)
+            if traj == 0 and self.plot_callback is not None and self.is_writer:
+                self.plot_callback(self, val_dataset, epoch, preds.cpu().numpy())
             prog.update(traj + 1)
         prog.close()
         self.last_val_loss = vloss_sum / vloss_cnt if vloss_cnt else None
@@ -792,7 +847,7 @@ class Trainer:
                 metadata["epoch_loss_sum"] = float(epoch_loss[0])
                 metadata["epoch_steps"] = int(epoch_loss[1])
         save_checkpoint(os.path.join(self.checkpoint_dir, self.checkpoint_name), self,
-                        metadata=metadata)
+                        metadata=metadata, backend=self.checkpoint_backend)
 
     def _log(self, epoch: int, step: int, metrics: Dict[str, float]) -> None:
         if self.metrics is not None:

@@ -193,9 +193,87 @@ def test_refuses_jax_msgpack_and_orbax(cylinder, tmp_path):
     sim = get_simulator(param, device="cpu")
     with pytest.raises(ValueError, match="export_reference_checkpoint"):
         load_checkpoint(msgpack, sim)
-    os.makedirs(tmp_path / "state.orbax")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        load_checkpoint(str(tmp_path / "state.orbax"), sim)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        Trainer(param, checkpoint_backend="orbax-async", device="cpu")
-    Trainer(param, checkpoint_backend="torch", metrics_path=None, device="cpu")  # the one format
+    orbax = str(tmp_path / "state.orbax")
+    jax_checkpoint.save_checkpoint(orbax, jax_trainer.state, metadata={"epoch": 1}, backend="orbax")
+    with pytest.raises(ValueError, match="export_reference_checkpoint"):
+        load_checkpoint(orbax, sim)
+    # the port's own directory backend round-trips (it reads no orbax format)
+    trainer, _, _ = port_trainer(param, tmp_path / "port", checkpoint_backend="orbax-async")
+    trainer.init_state(10)
+    trainer.save(0)
+    restored = load_checkpoint(str(tmp_path / "port" / "ckpt" / "state.orbax"),
+                               get_simulator(param, device="cpu"))
+    for key, value in trainer.sim.state_dict().items():
+        assert torch.equal(restored.state_dict()[key], value), key
+    with pytest.raises(ValueError, match="unknown checkpoint backend"):
+        Trainer(param, checkpoint_backend="msgpack", device="cpu")
+
+
+@pytest.mark.parametrize("backend", ["orbax", "orbax-async"])
+def test_orbax_checkpoint_backend_roundtrip(cylinder, tmp_path, backend):
+    """Twin of the JAX test of that name: the directory backends (a
+    ``torch.distributed.checkpoint`` directory in the port) through ``fit``,
+    with the resume metadata, restored whole into a fresh Trainer."""
+    from graphphysics_torch.training.checkpoint import wait_for_async_saves
+
+    param = cylinder_param(*cylinder, "epd")
+    trainer, loader, _ = port_trainer(param, tmp_path / backend, checkpoint_backend=backend)
+    assert trainer.checkpoint_name == "state.orbax"
+    trainer.fit(loader, num_epochs=1)
+    wait_for_async_saves()
+    ckpt = str(tmp_path / backend / "ckpt" / "state.orbax")
+    assert os.path.isdir(ckpt) and os.path.isfile(os.path.join(ckpt, ".metadata"))
+    assert load_metadata(ckpt)["epoch"] == 1
+    assert load_metadata(ckpt, prefer_sidecar=True)["epoch"] == 1
+
+    fresh, _, _ = port_trainer(param, tmp_path / f"{backend}_fresh", seed=7)
+    fresh.init_state(10)
+    _, meta = load_checkpoint_with_metadata(ckpt, fresh)
+    assert meta["epoch"] == 1 and fresh.step == trainer.step
+    for key, value in trainer.sim.state_dict().items():
+        assert torch.equal(fresh.sim.state_dict()[key], value), key
+    # the optimizer's slots and the schedule's position (its rate is the
+    # current run's schedule at that position, as with the file backend)
+    ours, theirs = fresh.optimizer.state_dict()["state"], trainer.optimizer.state_dict()["state"]
+    assert ours.keys() == theirs.keys()
+    for i, slots in theirs.items():
+        for name, value in slots.items():
+            assert torch.equal(ours[i][name], value), (i, name)
+    assert fresh.scheduler.last_epoch == trainer.scheduler.last_epoch == trainer.step
+
+
+def test_orbax_staged_save_never_clobbers_live_checkpoint(cylinder, tmp_path):
+    """The directory backends stage into ``path.next`` and swap: a second
+    save never removes the live checkpoint before the new one is whole, a
+    finished but unswapped stage is the newest, and a crash between the two
+    renames of the swap (the live path missing, ``.old`` left) still
+    resolves to a whole checkpoint. An unfinished stage (no ``.metadata``)
+    is passed over."""
+    import shutil
+
+    param = cylinder_param(*cylinder, "epd")
+    trainer, _, _ = port_trainer(param, tmp_path / "stage")
+    trainer.init_state(10)
+    ckpt = str(tmp_path / "stage" / "state.orbax")
+    save_checkpoint(ckpt, trainer, metadata={"epoch": 1}, backend="orbax")
+    save_checkpoint(ckpt, trainer, metadata={"epoch": 2}, backend="orbax")
+    assert os.path.isdir(ckpt)
+    assert not os.path.exists(ckpt + ".next") and not os.path.exists(ckpt + ".old")
+    assert load_metadata(ckpt)["epoch"] == 2
+
+    # finished but not swapped (a crash before the swap): the newest wins
+    os.rename(ckpt, ckpt + ".next")
+    assert load_metadata(ckpt)["epoch"] == 2
+    _, meta = load_checkpoint_with_metadata(ckpt, trainer)
+    assert meta["epoch"] == 2
+    os.rename(ckpt + ".next", ckpt)
+
+    # a crash between rename(live -> .old) and rename(.next -> live)
+    os.rename(ckpt, ckpt + ".old")
+    assert load_metadata(ckpt)["epoch"] == 2
+    os.rename(ckpt + ".old", ckpt)
+
+    # an unfinished stage is passed over for the live checkpoint
+    os.makedirs(ckpt + ".next")
+    assert load_metadata(ckpt)["epoch"] == 2
+    shutil.rmtree(ckpt + ".next")

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from graphphysics_torch.cli import export as export_cli
 from graphphysics_torch.cli import predict as predict_cli
 from graphphysics_torch.cli import train as train_cli
 from graphphysics_torch.cli.__main__ import main as grph_torch
@@ -74,7 +75,8 @@ def test_cli_train_smoke(config):
 
 def test_grph_combined_cli_dispatch(config):
     """``grph-torch train ...`` (and bare flags) reach the train CLI,
-    ``grph-torch predict`` the predict CLI."""
+    ``grph-torch predict`` the predict CLI, ``grph-torch export`` and
+    ``grph-torch doctor`` theirs."""
     cfg, work = config
     assert grph_torch(["train", "--training_parameters_path", cfg, "--num_epochs", "1",
                        *TRAIN_FLAGS, "--device", "cpu"]) == 0
@@ -87,9 +89,10 @@ def test_grph_combined_cli_dispatch(config):
                        "--save_dir", str(work / "preds"), "--max_trajectories", "1",
                        "--device", "cpu"]) == 0
     assert sorted(os.listdir(work / "preds")) == ["graph_0.h5", "graph_0.xdmf"]
-    for command in ("doctor", "export"):
-        with pytest.raises(SystemExit, match="item 12"):
-            grph_torch([command])
+    assert grph_torch(["export", "--training_parameters_path", cfg, "--model_path", ckpt,
+                       "--output_dir", str(work / "exported"), "--device", "cpu"]) == 0
+    assert os.listdir(work / "exported") == ["eval_step.pt2"]
+    assert grph_torch(["doctor", "--device", "cpu", "--skip-probes", "--skip-determinism"]) == 0
 
 
 def test_train_predict_retrain_flow_and_jax_metrics_header(config, tmp_path, monkeypatch):
@@ -165,7 +168,7 @@ def test_gmm_config_through_train_predict_resume(cylinder, tmp_path, monkeypatch
 
 @pytest.mark.parametrize("cli,flag,item", [
     *[(train_cli, f, i) for f, _, i in train_cli.NOT_PORTED],
-    *[(predict_cli, f, i) for f, _, i in predict_cli.NOT_PORTED],
+    *[(export_cli, f, i) for f, _, i in export_cli.NOT_PORTED],
 ])
 def test_flags_not_ported_exit_naming_their_item(cli, flag, item, config, capsys):
     cfg, _ = config
@@ -176,7 +179,7 @@ def test_flags_not_ported_exit_naming_their_item(cli, flag, item, config, capsys
         "compilation_cache_dir": "cache", "external_features": "bezier",
     }.get(flag)
     argv = ["--training_parameters_path", cfg, f"--{flag}", *([value] if value else [])]
-    if cli is predict_cli:
+    if cli is export_cli:
         argv += ["--model_path", "none.pt"]
     with pytest.raises(SystemExit) as exc:
         cli.main(argv + ["--device", "cpu"])

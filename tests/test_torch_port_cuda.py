@@ -4,8 +4,9 @@ kernels against their plain versions on edge cases, autograd through the
 wrappers, a TransformerBlock and the EPD and transformer forwards on the
 card against the CPU, two train steps of each model on the card against
 the CPU, the aneurysm XDMF path's launches, the ELL layout's train steps
-(no kernel), a gradient-accumulation step against the concat step and a
-masked filler adding nothing. Marked ``cuda``; they skip without a card. This file imports no JAX, so on a machine without it
+(no kernel), a gradient-accumulation step against the concat step, a
+masked filler adding nothing, eval steps exported on the card launching
+the kernels, and the ops' fake implementations against the kernels. Marked ``cuda``; they skip without a card. This file imports no JAX, so on a machine without it
 run them with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py
@@ -448,8 +449,9 @@ def test_fused_attention_kernels_match_plain(cuda, layout, d, h, view):
         _poison_free_memory(cuda)
         before = (ca.csr_attention.launches, ca.csr_attention_backward.launches)
         out, ml = ca._launch_attention(q, k, v, gather, bounds, m, 0.5, interleaved, lanes=n)
-        grads = ca._launch_attention_backward(q, k, v, gather, bounds, m, ml, out, g_out, 0.5,
-                                              interleaved, lanes=n)
+        dq, dkv = ca._launch_attention_backward(q, k, v, gather, bounds, m, ml, out, g_out, 0.5,
+                                                interleaved, lanes=n)
+        grads = (dq, *dkv.unbind(0))  # the op's outputs: dk and dv share one buffer
         torch.cuda.synchronize()
         assert (ca.csr_attention.launches, ca.csr_attention_backward.launches) == (
             before[0] + 1, before[1] + 1)
@@ -724,9 +726,10 @@ def test_fused_attention_bf16_kernels_match_plain(cuda, layout, d, h, view):
         out, ml = ca._launch_attention(q, k, v, gather, bounds, m, 0.5, interleaved, lanes=n,
                                        general=general)
         want = ca.csr_attention_backward_reference(q, k, v, seg, gather, ml, out, g_out, m, 0.5)
-        grads, again = (ca._launch_attention_backward(q, k, v, gather, bounds, m, ml, out, g_out, 0.5,
-                                                      interleaved, lanes=n, general=general, gather=tc)
-                        for _ in range(2))
+        grads, again = ((dq, *dkv.unbind(0)) for dq, dkv in (
+            ca._launch_attention_backward(q, k, v, gather, bounds, m, ml, out, g_out, 0.5,
+                                          interleaved, lanes=n, general=general, gather=tc)
+            for _ in range(2)))
         torch.cuda.synchronize()
         after = {name: c.launches - before[name] for name, c in ca.LAUNCHES.items()}
         assert after == {"csr_attention_f32": 0, "csr_attention_bf16": 1, "csr_attention_bwd_f32": 0,
@@ -933,3 +936,107 @@ def test_masked_filler_adds_nothing_on_card(cuda, kind):
         torch.testing.assert_close(gb[name], g, rtol=1e-5, atol=1e-7, msg=name)
     for key, v in sa.items():
         torch.testing.assert_close(sb[key], v, rtol=1e-6, atol=1e-6, msg=key)
+
+
+def _export_sim(kind, precision=None):
+    from graphphysics_torch.core import pad_graph_csr_np, pad_graph_sorted_np
+    from graphphysics_torch.training import get_simulator
+
+    model = {"type": kind, "message_passing_num": 2, "hidden_size": 32, "node_input_size": 2,
+             "output_size": 2, "edge_input_size": 3 if kind == "epd" else 0}
+    if kind == "transformer":
+        model["num_heads"] = 4
+    if precision:
+        model["precision"] = precision
+    param = {"model": model, "index": {"feature_index_start": 0, "feature_index_end": 2,
+                                       "output_index_start": 0, "output_index_end": 2,
+                                       "node_type_index": 2}}
+    r = np.random.default_rng(3)
+    n, e = 500, 2500
+    x = r.normal(size=(n, 4)).astype(np.float32)
+    x[:, 2] = r.integers(0, 7, n)
+    pad = pad_graph_sorted_np if kind == "epd" else pad_graph_csr_np
+    g = pad(x, r.normal(size=(n, 2)).astype(np.float32), r.integers(0, n, e).astype(np.int32),
+            r.integers(0, n, e).astype(np.int32), 512, 2560,
+            edge_attr=r.normal(size=(e, 3)).astype(np.float32) if kind == "epd" else None,
+            y=r.normal(size=(n, 2)).astype(np.float32), node_type_index=2).to("cuda")
+    sim = get_simulator(param, device="cuda")
+    sim.accumulate_stats(g)
+    return sim.eval(), g
+
+
+@pytest.mark.parametrize("kind,precision,counter", [
+    ("epd", None, "csr_segment_sum"), ("transformer", None, "csr_attention"),
+    ("transformer", "bf16", "csr_attention_bf16")])
+def test_exported_eval_step_on_card_launches_the_kernels(cuda, kind, precision, counter):
+    """An eval step exported on the card, loaded back, launches the
+    hand-written kernel of each block (by the counters) and gives the live
+    step's output."""
+    from graphphysics_torch.ops import csr_attention as ca
+    from graphphysics_torch.ops import csr_segment as cs
+    from graphphysics_torch.utils.export import export_eval_step, load_eval_step
+
+    counters = {"csr_segment_sum": cs.csr_segment_sum, "csr_attention": ca.csr_attention,
+                "csr_attention_bf16": ca.csr_attention.bf16}
+    sim, g = _export_sim(kind, precision)
+    step = load_eval_step(export_eval_step(sim, g))
+    before = {k: c.launches for k, c in counters.items()}
+    got = step(g)
+    torch.cuda.synchronize()
+    after = {k: c.launches - before[k] for k, c in counters.items()}
+    assert after == {k: (2 if k == counter else 0) for k in counters}
+    with torch.inference_mode():
+        want = sim(g)[2]
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_fake_implementations_give_the_kernels_shapes_and_strides(cuda):
+    """Each op's fake implementation against its CUDA implementation (the
+    kernel) on card tensors: shapes, dtypes and strides, so a program traced
+    on the card lays its tensors out as the kernels do."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from graphphysics_torch.ops import csr_attention as ca
+    from graphphysics_torch.ops import csr_segment as cs
+
+    g = _layout(600, 3000, 5, n_pad=640, e_pad=3072)
+    rec, rb, em = (torch.from_numpy(a).to(cuda) for a in (g.receivers, g.row_bounds, g.edge_mask))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    data = torch.randn(g.num_edges, 64, device=cuda, generator=gen)
+    scores, values = torch.randn(g.num_edges, 4, device=cuda, generator=gen), data
+    out, ml = ca.csr_softmax_spmm(scores, values, rec, rb, em)
+    cases = [(cs._segment_sum_op, (data, rec, rb, em)),
+             (cs._segment_sum_backward_op, (torch.randn(640, 64, device=cuda), rec, rb, em)),
+             (ca._softmax_spmm_op, (scores, values, rec, rb, em)),
+             (ca._softmax_spmm_backward_op, (scores, values, rec, rb, ml, out, torch.ones_like(out), em))]
+    empty = (scores[:8].contiguous(), values[:8].contiguous(), rec[:8].contiguous(),
+             torch.zeros_like(rb), torch.zeros(8, dtype=torch.bool, device=cuda))
+    out, ml = ca.csr_softmax_spmm_pair(scores, values, rec, rb, *empty[:4], em, empty[4])
+    cases += [(ca._pair_op, (scores, values, rec, rb, em, *empty)),
+              (ca._pair_backward_op, (scores, values, rec, rb, *empty[:4], ml, out,
+                                      torch.ones_like(out), em, empty[4]))]
+    from graphphysics_torch.core import pad_graph_csr_np
+
+    r = np.random.default_rng(7)
+    tg = pad_graph_csr_np(np.zeros((600, 1), np.float32), np.zeros((600, 2), np.float32),
+                          r.integers(0, 600, 3000).astype(np.int32),
+                          r.integers(0, 600, 3000).astype(np.int32), 640, 3072)
+    seg, gather, bounds, mask = (torch.from_numpy(a).to(cuda) for a in
+                                 (tg.senders, tg.receivers, tg.sender_bounds, tg.edge_mask))
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(640, 32, 4, device=cuda, generator=gen).to(dtype).transpose(1, 2)
+                   for _ in range(3))  # the model's (N, Dh, H) views
+        tc = ca._gather_args(ca.gather_csr(seg, gather, bounds, mask))
+        out, ml = ca.csr_attention(q, k, v, seg, gather, bounds, mask, 0.5)
+        cases += [(ca._attention_op, (q, k, v, seg, gather, bounds, mask, 0.5, *tc)),
+                  (ca._attention_backward_op, (q, k, v, seg, gather, bounds, ml, out,
+                                               torch.ones_like(out), mask, 0.5, *tc))]
+    for op, args in cases:
+        real = op(*args)
+        with FakeTensorMode() as mode:
+            fake = op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in args))
+        real = real if isinstance(real, tuple) else (real,)
+        fake = fake if isinstance(fake, tuple) else (fake,)
+        for r, f in zip(real, fake, strict=True):
+            assert (tuple(f.shape), f.dtype, f.stride(), f.device) == (
+                tuple(r.shape), r.dtype, r.stride(), r.device), op

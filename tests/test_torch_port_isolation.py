@@ -1,6 +1,6 @@
 """The port stands alone: ``graphphysics_torch``, ``chip_smoke.py``,
 ``chip_smoke_mutants.py``, ``chip_compare.py``, ``chip_fidelity.py``,
-``chip_partition.py``, the
+``chip_partition.py``, ``chip_utilities.py``, the
 loader-worker cases that spawned workers import
 (``tests/_torch_port_loader_cases.py``) and the partition cases that
 spawned graph ranks import (``tests/_torch_port_partition_cases.py``; the
@@ -23,12 +23,12 @@ import torch
 from tests import _torch_port_common  # noqa: F401  (caps torch's threads)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "graphphysics_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "graphphysics_tpu")
 
 
 def _port_sources():
     scripts = [ROOT / "chip_smoke.py", ROOT / "chip_smoke_mutants.py", ROOT / "chip_compare.py",
-               ROOT / "chip_partition.py",
+               ROOT / "chip_partition.py", ROOT / "chip_utilities.py",
                ROOT / "chip_fidelity.py", ROOT / "tests" / "_torch_port_loader_cases.py",
                ROOT / "tests" / "_torch_port_partition_cases.py"]
     return sorted((ROOT / "graphphysics_torch").rglob("*.py")) + scripts
@@ -72,6 +72,11 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "import graphphysics_torch.parallel.dp, graphphysics_torch.parallel.graph_partition\n"
         "import graphphysics_torch.parallel.reorder, graphphysics_torch.ops.halo\n"
         "import tests._torch_port_partition_cases, chip_partition\n"
+        "import graphphysics_torch.utils.export, graphphysics_torch.utils.determinism\n"
+        "import graphphysics_torch.utils.profiling, graphphysics_torch.utils.compilation_cache\n"
+        "import graphphysics_torch.utils.meshmask, graphphysics_torch.utils.mesh_export\n"
+        "import graphphysics_torch.utils.visualization, graphphysics_torch.cli.export\n"
+        "import graphphysics_torch.cli.doctor, chip_utilities\n"
         "import threading, multiprocessing\n"
         "from graphphysics_torch.ops import _native\n"
         "print(json.dumps({'new': sorted(set(sys.modules) - before),\n"
@@ -84,7 +89,8 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         check=True,
     )
     result = json.loads(out.stdout.strip().splitlines()[-1])
-    leaked = [m for m in result["new"] if m.split(".")[0] in FORBIDDEN or m == "h5py"]
+    leaked = [m for m in result["new"]
+              if m.split(".")[0] in FORBIDDEN or m in ("h5py", "matplotlib")]
     assert leaked == []
     assert result["loaded"] == []
     assert result["threads"] == 1 and result["children"] == 0

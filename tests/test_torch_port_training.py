@@ -321,8 +321,8 @@ def test_trainer_refuses_what_is_not_ported(cylinder):
     param = _param(*cylinder, "epd")
     with pytest.raises(NotImplementedError, match="data_parallel"):
         Trainer(param, data_parallel=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="profile_dir"):
-        Trainer(param, profile_dir="trace", device="cpu")
+    with pytest.raises(NotImplementedError, match="parallel_validation"):
+        Trainer(param, parallel_validation=True, device="cpu")
     with pytest.raises(TypeError, match="no_such_option"):
         Trainer(param, no_such_option=1, device="cpu")
     Trainer(param, data_parallel=False, graph_partition=0, device="cpu")  # off is fine
