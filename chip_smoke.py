@@ -197,10 +197,11 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     step, ms per frame exported and eager; a 10-frame exported EPD rollout
     against the live one), ``checkpoint_backends`` (``orbax`` and
     ``orbax-async`` directories reloaded bit for bit, a resumed step),
-    ``determinism`` (only the bf16 transformer step must replay bit for
-    bit), ``profiler`` (3 ``fit`` steps traced with ``profile_dir``, the
-    trace naming K1, K1b and the fused pair), ``compilation_cache`` and
-    ``doctor`` (``grph-torch doctor`` exits 0; its probes).
+    ``profiler`` (3 ``fit`` steps traced with ``profile_dir``, the trace
+    naming K1, K1b and the fused pair), ``determinism`` (on the trainers
+    of the two phases before it; only the bf16 transformer step must
+    replay bit for bit), ``compilation_cache`` and ``doctor``
+    (``grph-torch doctor`` returns 0 in this process; its probes).
 
 The K1 phase also times a one-element PyTorch elementwise kernel under the
 same CUDA-graph replay (``launch_floor_ms``): the floor under any kernel's

@@ -10,28 +10,28 @@ checkpoints and the utilities (run from it, on one card):
   launches a frame), its outputs against the live eval step's (relative
   to their largest magnitude), its ms per frame beside the eager
   forward's; and a 10-frame ``export_rollout`` of the EPD against the live
-  ``rollout``;
+  ``rollout`` (its export and save, and its load, timed apart);
 - ``checkpoint_backends``: the cylinder 15 x 128 trainer's state after two
   steps on the 8 x 2,048 batch saved with ``"orbax"`` and
   ``"orbax-async"`` (``torch.distributed.checkpoint`` directories),
   reloaded into a fresh trainer bit for bit, and one step resumed from it
   against the uninterrupted run's next step under ``chip_smoke``'s resume
   limits; the save and load seconds and the bytes;
-- ``determinism``: ``check_item_determinism`` on the noisy cylinder
-  dataset, ``check_step_determinism`` of the EPD f32 step and the
-  transformer f32 and bf16 steps on the batches: only the bf16
-  transformer has to replay bit for bit (its backward has no atomics);
-  the f32 steps report the leaves that differ;
 - ``profiler``: 3 ``Trainer.fit`` steps of each family with ``profile_dir``
-  set; the Chrome trace must name K1 and K1b (EPD) and the fused pair
-  (transformer), 15 launches a step each;
+  set, on one noisy 2,048-node trajectory of each; the Chrome trace must
+  name K1 and K1b (EPD) and the fused pair (transformer), 15 launches a
+  step each;
+- ``determinism``: ``check_item_determinism`` on the profiler's noisy
+  cylinder dataset, ``check_step_determinism`` on the batches of the EPD
+  f32 step (the checkpoint phase's trainer), the transformer f32 step (the
+  profiler's) and the bf16 one: only the bf16 transformer has to replay
+  bit for bit (its backward has no atomics); the f32 steps report the
+  leaves that differ;
 - ``compilation_cache``: ``enable_compilation_cache`` (what
   ``--compilation_cache_dir`` calls) on a fresh directory, one source
   built there and then reused, with both seconds;
-- ``doctor``: ``python -m graphphysics_torch.cli doctor`` exits 0, its
-  lines (its probes among them) in the phase's line; and with
-  ``--compilation_cache_dir`` on that directory it reports the library
-  built there.
+- ``doctor``: ``grph-torch doctor`` through the CLI's entry point in this
+  process returns 0, its lines (its probes among them) in the phase's line.
 """
 
 from __future__ import annotations
@@ -39,14 +39,11 @@ from __future__ import annotations
 import json
 import os
 import re
-import subprocess
-import sys
 import tempfile
 import time
 
 import torch
 
-ROOT = os.path.dirname(os.path.abspath(__file__))
 EXPORT_RTOL = 1e-6  # the artifact's output against the live step's
 ROLLOUT_TOL = 1e-4  # the exported rollout against the live one
 EXPORT_ROLLOUT_FRAMES = 10
@@ -120,8 +117,11 @@ def export_serving(name, sim, frames, counts, expected, rollout_frames=0) -> dic
     if rollout_frames:
         part = frames_dev[:rollout_frames]
         t0 = time.perf_counter()
-        run = load_rollout(export_rollout(sim, part))
-        result["rollout_export_s"] = time.perf_counter() - t0
+        blob = export_rollout(sim, part)
+        t1 = time.perf_counter()
+        run = load_rollout(blob)
+        result.update(rollout_export_s=t1 - t0, rollout_load_s=time.perf_counter() - t1,
+                      rollout_artifact_bytes=len(blob))
         for fn in counts.values():
             fn.launches = 0
         preds, targets = run(part)
@@ -149,10 +149,20 @@ def _params(trainer) -> dict:
     return {k: p.detach().clone() for k, p in trainer.sim.named_parameters()}
 
 
-def checkpoint_backends(param, batch, seed) -> dict:
-    """The trainer state saved with each directory backend, reloaded bit for
-    bit, one step resumed from it against the uninterrupted run."""
+def trainer(param, seed):
+    """A cylinder or panels Trainer on the card with fresh state."""
     from graphphysics_torch.training import Trainer
+
+    tr = Trainer(param, learning_rate=1e-4, warmup=2, seed=seed, device="cuda", metrics_path=None,
+                 rollout_dir=None)
+    tr.init_state(10)
+    return tr
+
+
+def checkpoint_backends(run, param, dev_batch, seed) -> dict:
+    """The state of ``run`` (a trainer that has stepped on ``dev_batch``)
+    saved with each directory backend, reloaded bit for bit into a fresh
+    trainer, one step resumed from it against the uninterrupted run's."""
     from graphphysics_torch.training.checkpoint import (
         load_checkpoint_with_metadata,
         save_checkpoint,
@@ -160,18 +170,6 @@ def checkpoint_backends(param, batch, seed) -> dict:
     )
 
     cs = _cs()
-    dev_batch = batch.to("cuda")
-
-    def trainer(s):
-        tr = Trainer(param, learning_rate=1e-4, warmup=2, seed=s, device="cuda", metrics_path=None,
-                     rollout_dir=None)
-        tr.init_state(10)
-        return tr
-
-    run = trainer(seed)
-    for _ in range(2):
-        run.train_step(dev_batch)
-    torch.cuda.synchronize()
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         for backend in ("orbax", "orbax-async"):
@@ -183,7 +181,7 @@ def checkpoint_backends(param, batch, seed) -> dict:
             call_s = time.perf_counter() - t0
             wait_for_async_saves()
             save_s = time.perf_counter() - t0
-            fresh = trainer(seed + 1)
+            fresh = trainer(param, seed + 1)
             t0 = time.perf_counter()
             _, meta = load_checkpoint_with_metadata(path, fresh)
             load_s = time.perf_counter() - t0
@@ -210,33 +208,23 @@ def checkpoint_backends(param, batch, seed) -> dict:
     return out
 
 
-def determinism(cylinder, panels, cyl_batch, tf_batch, seed) -> dict:
-    """The item check on the noisy cylinder data and the step check of the
-    three steps; only the bf16 transformer must replay bit for bit."""
-    from graphphysics_torch.training import Trainer
+def determinism(item_ds, steps) -> dict:
+    """The item check on the noisy cylinder dataset ``item_ds`` and the step
+    check of each ``(label, trainer, batch on the card, must replay)`` of
+    ``steps`` (trainers that have stepped, so their optimizer slots exist);
+    only the bf16 transformer must replay bit for bit."""
     from graphphysics_torch.utils.determinism import (
         check_item_determinism,
         check_step_determinism,
         trainer_state,
         trainer_step,
     )
-    from graphphysics_torch.utils.synthetic import cylinder_trajectory
 
-    cs = _cs()
-    with tempfile.TemporaryDirectory() as tmp:
-        train_ds, _ = cs.memory_datasets(cylinder, cylinder_trajectory, seed, tmp, n_traj=1)
-        item = check_item_determinism(train_ds, 1)
+    item = check_item_determinism(item_ds, 1)
     if not item["deterministic"]:
         raise AssertionError(f"determinism: a dataset item differs when rebuilt: {item['mismatches']}")
     out = {"item": item}
-    for label, param, batch, must in (
-            ("epd_f32", cylinder, cyl_batch, False), ("transformer_f32", panels, tf_batch, False),
-            ("transformer_bf16", cs.with_precision(panels, "bf16"), tf_batch, True)):
-        tr = Trainer(param, learning_rate=1e-4, warmup=2, seed=seed, device="cuda", metrics_path=None,
-                     rollout_dir=None)
-        tr.init_state(10)
-        dev_batch = batch.to("cuda")
-        tr.train_step(dev_batch)
+    for label, tr, dev_batch, must in steps:
         report = check_step_determinism(trainer_step(tr), trainer_state(tr), dev_batch, runs=2)
         if must and not report["deterministic"]:
             raise AssertionError(f"determinism:{label}: the step does not replay bit for bit: "
@@ -250,44 +238,43 @@ def determinism(cylinder, panels, cyl_batch, tf_batch, seed) -> dict:
     return out
 
 
-def profiler(cylinder, panels, seed) -> dict:
-    """``PROFILED_FIT_STEPS`` steps of ``Trainer.fit`` per family with
-    ``profile_dir`` set; the kernels the trace names, counted."""
+def profiler(families, seed, directory) -> tuple:
+    """``PROFILED_FIT_STEPS`` steps of ``Trainer.fit`` for each ``label ->
+    (param, training dataset)`` of ``families`` with ``profile_dir`` set
+    under ``directory``; the kernels the trace names, counted. Returns the
+    phase's result and the trainers, by label."""
     from graphphysics_torch.dataset import GraphLoader
     from graphphysics_torch.training import Trainer
-    from graphphysics_torch.utils.synthetic import cylinder_trajectory, panels_trajectory
 
-    cs = _cs()
-    out = {}
-    for label, param, make_traj, kernels in (
-            ("epd", cylinder, cylinder_trajectory, ("csr_segment_sum_kernel", "csr_segment_sum_bwd_kernel")),
-            ("transformer", panels, panels_trajectory, ("csr_attention_kernel", "csr_attention_bwd_kernel"))):
+    kernels = {"epd": ("csr_segment_sum_kernel", "csr_segment_sum_bwd_kernel"),
+               "transformer": ("csr_attention_kernel", "csr_attention_bwd_kernel")}
+    out, trainers = {}, {}
+    for label, (param, train_ds) in families.items():
         blocks = param["model"]["message_passing_num"]
-        with tempfile.TemporaryDirectory() as tmp:
-            train_ds, _ = cs.memory_datasets(param, make_traj, seed, tmp, n_traj=1)
-            loader = GraphLoader(train_ds, batch_size=2, shuffle=False, prefetch=0)
-            tr = Trainer(param, learning_rate=1e-4, warmup=2, seed=seed, device="cuda",
-                         metrics_path=None, rollout_dir=None, checkpoint_dir=f"{tmp}/ckpt",
-                         profile_dir=f"{tmp}/prof", profile_start_step=1,
-                         profile_num_steps=PROFILED_FIT_STEPS)
-            t0 = time.perf_counter()
-            tr.fit(loader, num_epochs=1)
-            fit_s = time.perf_counter() - t0
-            path = f"{tmp}/prof/trace.json"
-            with open(path) as f:
-                events = json.load(f)["traceEvents"]
-            trace_bytes = os.path.getsize(path)
+        loader = GraphLoader(train_ds, batch_size=2, shuffle=False, prefetch=0)
+        tr = trainers[label] = Trainer(
+            param, learning_rate=1e-4, warmup=2, seed=seed, device="cuda", metrics_path=None,
+            rollout_dir=None, checkpoint_dir=f"{directory}/{label}_ckpt",
+            profile_dir=f"{directory}/{label}_prof", profile_start_step=1,
+            profile_num_steps=PROFILED_FIT_STEPS)
+        t0 = time.perf_counter()
+        tr.fit(loader, num_epochs=1)
+        fit_s = time.perf_counter() - t0
+        path = f"{directory}/{label}_prof/trace.json"
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
         device = [e for e in events if e.get("cat") == "kernel"]
-        found = {k: sum(k in e["name"] for e in device) for k in kernels}
-        want = {k: blocks * PROFILED_FIT_STEPS for k in kernels}
+        found = {k: sum(k in e["name"] for e in device) for k in kernels[label]}
+        want = {k: blocks * PROFILED_FIT_STEPS for k in kernels[label]}
         if found != want:
             raise AssertionError(f"profiler:{label}: the trace names {found}, expected {want}")
-        mine = sum(e.get("dur", 0) for e in device if any(k in e["name"] for k in kernels))
+        mine = sum(e.get("dur", 0) for e in device if any(k in e["name"] for k in kernels[label]))
         total = sum(e.get("dur", 0) for e in device)
         out[label] = {"steps_traced": PROFILED_FIT_STEPS, "fit_steps": len(loader), "fit_s": fit_s,
-                      "trace_bytes": trace_bytes, "kernel_events": len(device), "named": found,
-                      "device_ms_traced": total / 1e3, "hand_written_share": mine / max(total, 1)}
-    return out
+                      "trace_bytes": os.path.getsize(path), "kernel_events": len(device),
+                      "named": found, "device_ms_traced": total / 1e3,
+                      "hand_written_share": mine / max(total, 1)}
+    return out, trainers
 
 
 def compilation_cache(directory) -> dict:
@@ -313,43 +300,35 @@ def compilation_cache(directory) -> dict:
             "reuse_s": reuse_wall, "directory": built}
 
 
-def doctor(cache_dir) -> dict:
-    """``grph-torch doctor`` in its own process, every check, the kernels
-    from the checkout's build directory (exit 0 required); then its
-    ``--compilation_cache_dir`` report on the cache phase's directory, in
-    this process, which must name that phase's library built there."""
+def doctor() -> dict:
+    """``grph-torch doctor`` with every check, through the CLI's entry
+    point in this process (the kernels from the checkout's build
+    directory); it must return 0."""
     import contextlib
     import io
 
-    from graphphysics_torch.cli import doctor as doctor_cli
-    from graphphysics_torch.ops import _native
+    from graphphysics_torch.cli.__main__ import main as grph_torch
 
+    out = io.StringIO()
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "graphphysics_torch.cli", "doctor"],
-                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    with contextlib.redirect_stdout(out):
+        rc = grph_torch(["doctor"])
     wall_s = time.perf_counter() - t0
-    lines = proc.stdout.strip().splitlines()
-    if proc.returncode != 0:
-        raise AssertionError(f"doctor: exit {proc.returncode}\n{proc.stdout}\n{proc.stderr[-4000:]}")
-    before, out = _native.BUILD_DIR, io.StringIO()
-    try:
-        with contextlib.redirect_stdout(out):
-            rc = doctor_cli.main(["--skip-probes", "--skip-determinism",
-                                  "--compilation_cache_dir", cache_dir])
-    finally:
-        _native.set_build_dir(before)
-    libraries = next(line for line in out.getvalue().splitlines() if "kernel libraries" in line)
-    if rc != 0 or f"{CACHE_SOURCE} built" not in libraries or cache_dir not in libraries:
-        raise AssertionError(f"doctor --compilation_cache_dir: rc {rc}, {libraries}")
+    lines = out.getvalue().strip().splitlines()
+    if rc != 0:
+        raise AssertionError(f"doctor: exit {rc}\n{out.getvalue()}")
     probes = next((json.loads(m.group(0)) for line in lines
                    for m in [re.search(r"\{.*\}", line)] if "throughput probes" in line and m), None)
-    return {"rc": proc.returncode, "wall_s": wall_s, "probes": probes, "lines": lines,
-            "cache_dir_libraries": libraries}
+    return {"rc": rc, "wall_s": wall_s, "probes": probes, "lines": lines}
 
 
 def utility_phases(clock, counts, seed, epd_frames, tf_frames, cyl_batch, tf_batch, cylinder, panels):
     """Every phase above, each line through ``clock``; returns the launches
-    of the exported serving paths, by path, for the kernels' line."""
+    of the exported serving paths, by path, for the kernels' line. The
+    checkpoint, profiler and determinism phases share their trainers and
+    datasets."""
+    from graphphysics_torch.utils.synthetic import cylinder_trajectory, panels_trajectory
+
     cs = _cs()
     blocks = panels["model"]["message_passing_num"]
     paths = {}
@@ -365,13 +344,29 @@ def utility_phases(clock, counts, seed, epd_frames, tf_frames, cyl_batch, tf_bat
         paths[f"export_serving:{label}"] = result
         clock.emit({"phase": "export_serving", "model": label, **result})
         torch.cuda.empty_cache()
+    cyl_dev, tf_dev = cyl_batch.to("cuda"), tf_batch.to("cuda")
+    run = trainer(cylinder, seed)
+    for _ in range(2):
+        run.train_step(cyl_dev)
+    torch.cuda.synchronize()
     clock.emit({"phase": "checkpoint_backends",
                 "model": f"EncodeProcessDecode, {cs.CYLINDER_CONFIG}, 8 x 2,048 batch",
-                **checkpoint_backends(cylinder, cyl_batch, seed)})
-    clock.emit({"phase": "determinism", **determinism(cylinder, panels, cyl_batch, tf_batch, seed)})
-    clock.emit({"phase": "profiler", **profiler(cylinder, panels, seed)})
+                **checkpoint_backends(run, cylinder, cyl_dev, seed)})
     with tempfile.TemporaryDirectory() as tmp:
-        cache_dir = f"{tmp}/kernel_cache"
-        clock.emit({"phase": "compilation_cache", **compilation_cache(cache_dir)})
-        clock.emit({"phase": "doctor", **doctor(cache_dir)})
+        families = {}
+        for label, param, make_traj in (("epd", cylinder, cylinder_trajectory),
+                                        ("transformer", panels, panels_trajectory)):
+            os.makedirs(f"{tmp}/{label}")
+            families[label] = (param, cs.memory_datasets(param, make_traj, seed, f"{tmp}/{label}",
+                                                         n_traj=1)[0])
+        profiled, fitted = profiler(families, seed, tmp)
+        clock.emit({"phase": "profiler", **profiled})
+        bf16 = trainer(cs.with_precision(panels, "bf16"), seed)
+        bf16.train_step(tf_dev)
+        clock.emit({"phase": "determinism", **determinism(families["epd"][1], (
+            ("epd_f32", run, cyl_dev, False), ("transformer_f32", fitted["transformer"], tf_dev, False),
+            ("transformer_bf16", bf16, tf_dev, True)))})
+    with tempfile.TemporaryDirectory() as tmp:
+        clock.emit({"phase": "compilation_cache", **compilation_cache(f"{tmp}/kernel_cache")})
+    clock.emit({"phase": "doctor", **doctor()})
     return paths

@@ -2,11 +2,11 @@
 ``graphphysics_tpu/cli/doctor.py``).
 
     grph-torch doctor [--device cuda] [--skip-probes] [--skip-determinism]
-                      [--compilation_cache_dir DIR]
 
 It reports the device (on a card its name and power limit, as
 ``nvidia-smi`` reads them, since a card set below its maximum power runs
-slower), which of the kernels' libraries are built and where, the device's
+slower), which of the kernels' libraries are built and where (the build
+directory, as the JAX doctor reports its compilation cache), the device's
 matrix-product rate in float32 (TF32 off) and bfloat16 and its memory copy
 rate right now, whether a noisy dataset item replays bit for bit, and
 whether a train step of the EncodeProcessDecode and of the transformer
@@ -38,8 +38,6 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="skip the matrix-product and memory probes")
     p.add_argument("--skip-determinism", action="store_true",
                    help="skip the item and step replay checks")
-    p.add_argument("--compilation_cache_dir", default=None,
-                   help="the kernels' build directory to report on (as the CLIs' flag sets it)")
     return p
 
 
@@ -147,10 +145,6 @@ def main(argv=None) -> int:
     _check("device", devices, results)
 
     def libraries():
-        if args.compilation_cache_dir:
-            from graphphysics_torch.utils.compilation_cache import enable_compilation_cache
-
-            enable_compilation_cache(args.compilation_cache_dir)
         built = {s: _native.library_path(s).exists() for s in _native.SOURCES}
         names = ", ".join(f"{s} {'built' if ok else 'not built'}" for s, ok in built.items())
         return f"build directory {_native.BUILD_DIR}: {names}"

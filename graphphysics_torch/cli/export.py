@@ -22,7 +22,7 @@ import json
 import os
 import sys
 
-from graphphysics_torch.cli.train import enable_cache, previous_data_options, refuse_not_ported
+from graphphysics_torch.cli.train import previous_data_options, refuse_not_ported
 from graphphysics_torch.external import EXTERNAL_FEATURES
 
 NOT_PORTED = (("graph_partition", 0, 13),)
@@ -43,8 +43,6 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="also export the whole rollout of validation trajectory 0 (one artifact "
                         "per trajectory length)")
     p.add_argument("--graph_partition", type=int, default=0)
-    p.add_argument("--compilation_cache_dir", default=None,
-                   help="build and reuse the CUDA kernels' libraries here")
     p.add_argument("--device", default="cuda", help="torch device (cuda unless named)")
     return p
 
@@ -53,7 +51,6 @@ def main(argv=None) -> int:
     parser = build_argparser()
     args = parser.parse_args(argv)
     refuse_not_ported(parser, args, NOT_PORTED)
-    enable_cache(args)
     with open(args.training_parameters_path) as fp:
         parameters = json.load(fp)
 

@@ -103,12 +103,9 @@ def gmm_full_from_draws(
     return chosen_means + torch.einsum("nij,nj->ni", chosen_l, zz)
 
 
-def _sample(from_draws, network_output, d, K, temperature, generator):
-    n = network_output.shape[0]
-    per_comp = network_output.shape[1] // K
-    logit = network_output.reshape(n, K, per_comp)[..., 0]
-    gumbel, z = draw_gmm(n, K, d, generator, network_output.dtype)
-    return from_draws(network_output, components(logit, gumbel), z, d, K, temperature)
+def _sample(network_output, d, K, temperature, generator, diagonal):
+    gumbel, z = draw_gmm(network_output.shape[0], K, d, generator, network_output.dtype)
+    return sample_from_draws(network_output, d, K, temperature, (gumbel, z), diagonal)
 
 
 def sample_gmm_diagonal(
@@ -120,7 +117,7 @@ def sample_gmm_diagonal(
 ) -> torch.Tensor:
     """Per-node ``[N, d]`` samples from a diagonal GMM output, with the draws
     of ``draw_gmm`` from ``generator``."""
-    return _sample(gmm_diagonal_from_draws, network_output, d, K, temperature, generator)
+    return _sample(network_output, d, K, temperature, generator, diagonal=True)
 
 
 def sample_gmm(
@@ -132,7 +129,7 @@ def sample_gmm(
 ) -> torch.Tensor:
     """Per-node ``[N, d]`` samples from a full-covariance GMM output, with the
     draws of ``draw_gmm`` from ``generator``."""
-    return _sample(gmm_full_from_draws, network_output, d, K, temperature, generator)
+    return _sample(network_output, d, K, temperature, generator, diagonal=False)
 
 
 def sample_from_draws(

@@ -28,7 +28,7 @@ from graphphysics_torch.core import normalizer as norm
 from graphphysics_torch.core.device import DeviceLike, resolve_device
 from graphphysics_torch.core.graph import Graph
 from graphphysics_torch.core.nodetype import NodeType
-from graphphysics_torch.models.gmm import sample_from_draws, sample_gmm, sample_gmm_diagonal
+from graphphysics_torch.models.gmm import draw_gmm, sample_from_draws
 
 
 class Normalizer(nn.Module):
@@ -160,14 +160,13 @@ class Simulator(nn.Module):
         update = network_output
         if self.model.K > 0:
             temperature = 1.0 if self.model.temperature is None else self.model.temperature
-            if draws is not None:
-                update = sample_from_draws(network_output, self.model.d, self.model.K, temperature,
-                                           draws, self.model.use_diagonal)
-            elif generator is not None:
-                sampler = sample_gmm_diagonal if self.model.use_diagonal else sample_gmm
-                update = sampler(network_output, self.model.d, self.model.K, temperature, generator)
-            else:
-                raise ValueError("eval of a GMM head (num_mixture_components > 0) samples: pass a "
-                                 "torch.Generator as generator= (or the draws as draws=)")
+            if draws is None:
+                if generator is None:
+                    raise ValueError("eval of a GMM head (num_mixture_components > 0) samples: pass "
+                                     "a torch.Generator as generator= (or the draws as draws=)")
+                draws = draw_gmm(network_output.shape[0], self.model.K, self.model.d, generator,
+                                 network_output.dtype)
+            update = sample_from_draws(network_output, self.model.d, self.model.K, temperature,
+                                       draws, self.model.use_diagonal)
         outputs = pre_target + self._output_normalizer.inverse(update)
         return network_output, target_delta_normalized, outputs

@@ -236,17 +236,17 @@ def _resolve_orbax_dir(path: str) -> Optional[str]:
 
 def _read_directory(directory: str) -> Dict[str, Any]:
     """The checkpoint dict of a port directory, read without a template
-    (as DCP's own ``format_utils.dcp_to_torch_save`` reads one): the
-    optimizer's per-parameter state comes back keyed by the parameter's
-    index as a string, and is keyed by the int again."""
-    from torch.distributed.checkpoint import FileSystemReader
-    from torch.distributed.checkpoint.default_planner import _EmptyStateDictLoadPlanner
-    from torch.distributed.checkpoint.state_dict_loader import _load_state_dict
+    through DCP's ``format_utils.dcp_to_torch_save`` (into a temporary
+    file): the optimizer's per-parameter state comes back keyed by the
+    parameter's index as a string, and is keyed by the int again."""
+    import tempfile
 
-    ckpt: Dict[str, Any] = {}
-    with _one_process():
-        _load_state_dict(ckpt, storage_reader=FileSystemReader(directory),
-                         planner=_EmptyStateDictLoadPlanner(), no_dist=True)
+    from torch.distributed.checkpoint.format_utils import dcp_to_torch_save
+
+    with tempfile.TemporaryDirectory(prefix="grph_torch_dcp_") as tmp:
+        with _one_process():
+            dcp_to_torch_save(directory, os.path.join(tmp, "state.pt"))
+        ckpt = torch.load(os.path.join(tmp, "state.pt"), map_location="cpu", weights_only=True)
     if ckpt.get("optimizer") is not None:
         state = ckpt["optimizer"].get("state", {})
         ckpt["optimizer"]["state"] = {int(k): v for k, v in state.items()}

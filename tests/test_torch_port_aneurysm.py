@@ -38,7 +38,6 @@ from graphphysics_tpu.utils.xdmf import XdmfTimeSeriesReader as JaxReader
 from graphphysics_torch.core.graph import stack_graphs
 from graphphysics_torch.dataset import GraphLoader, RawSample
 from graphphysics_torch.external import add_bezier_node_type, build_features
-from graphphysics_torch.models import gmm_diagonal_from_draws
 from graphphysics_torch.models import simulator as port_simulator
 from graphphysics_torch.topology import tetra_to_faces
 from graphphysics_torch.training import Trainer, get_dataset, get_preprocessing, load_checkpoint, rollout
@@ -265,7 +264,8 @@ def test_previous_data_rollout_matches_jax(aneurysm, monkeypatch, K):
     port's ``rollout`` against the JAX one, both clamped, within
     ``ROLLOUT_ATOL``. With K = 3 the JAX sampler runs eagerly and records
     its draws (component ids and normals, its own split), which the port's
-    sampler is then fed in frame order."""
+    sampler is then fed in frame order (as Gumbel draws that pick the JAX
+    component)."""
     param = _param(*aneurysm, K=K)
     ds, jax_ds = _datasets(param, val=True)
     frames = stack_graphs([ds[i] for i in ds.trajectory_indices(0)])
@@ -293,11 +293,14 @@ def test_previous_data_rollout_matches_jax(aneurysm, monkeypatch, K):
                                                     **_options())
         fed = iter(list(draws))
 
-        def shared(net, d, K, temperature, generator):
+        def shared(n_rows, K, d, generator, dtype):
+            # Gumbel draws of -inf but at the JAX component: argmax takes it
             comp, z = next(fed)
-            return gmm_diagonal_from_draws(net, comp, z, d, K, temperature)
+            gumbel = torch.full((n_rows, K), -torch.inf, dtype=dtype)
+            gumbel[torch.arange(n_rows), comp.long()] = 0.0
+            return gumbel, z
 
-        monkeypatch.setattr(port_simulator, "sample_gmm_diagonal", shared)
+        monkeypatch.setattr(port_simulator, "draw_gmm", shared)
     else:
         want, targets = jax_rollout_mod.jitted_rollout(jax_sim, variables, jframes,
                                                        jax.random.key(5), **_options())
