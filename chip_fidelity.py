@@ -6,6 +6,7 @@ each epoch:
     python3 chip_fidelity.py [--config aneurysm|cylinder|panels|plate] [--gmm]
                              [--epochs N] [--device cuda] [--workdir DIR]
                              [--graph_partition P [--halo_dtype bf16]]
+                             [--data_parallel R]
 
 Each run is a JAX benchmark script with its defaults, through the port's
 ``Trainer`` (AdamW at 1e-3 with 200 warm-up steps, batches of 2, the
@@ -43,6 +44,15 @@ share it over gloo), each with its own copy of the data under
 shipping the halo rows in 16 bits; validation rolls the whole graph out
 unpartitioned. Rank 0's result is printed.
 
+``--data_parallel R`` trains data-parallel, as the JAX package's
+``benchmarks/fidelity_multihost.py`` does with R processes: R ranks
+(``parallel.mesh.launch``; on one card they share it over gloo), each with
+its own copy of the data, each building its ``BATCH / R`` rows of every
+global batch of ``BATCH`` with ``MultihostGraphLoader`` (that script's
+loader seed, 42), the validation trajectories split over the ranks
+(``parallel_validation``); rank 0's result is printed, the ranks' RMSEs
+checked equal.
+
 XDMF trajectories are written with their heavy data inline in the XML
 (``write_inline_xdmf``) and the others held in memory: nothing needs
 ``h5py``. The same writers give ``chip_smoke.py`` its data. Runs on the
@@ -71,6 +81,7 @@ GRID = 6  # tet_grid resolution: GRID^3 nodes
 BLOCKS, HIDDEN, HEADS = 10, 64, 4
 BATCH = 2
 LEARNING_RATE, WARMUP = 1e-3, 200
+DP_LOADER_SEED = 42  # benchmarks/fidelity_multihost.py's MultihostGraphLoader seed
 PREVIOUS_DATA = (5, 8)  # the acceleration columns of the aneurysm features
 VELOCITY = (0, 3)
 NODE_TYPE_INDEX = 14
@@ -369,14 +380,26 @@ def persistence_rmse(val_ds, field_slice: Tuple[int, int], node_type_col: int) -
 
 
 def run(workdir: str, epochs: int = None, gmm: bool = False, device: str = "cuda",
-        config: str = "aneurysm", graph_partition: int = 0, halo_dtype: str = None) -> dict:
+        config: str = "aneurysm", graph_partition: int = 0, halo_dtype: str = None,
+        data_parallel: int = 0) -> dict:
     """The fidelity run of ``config``: writes the data under ``workdir``,
     trains ``epochs`` epochs (the config's own by default) with a
     validation rollout of the held-out split after each, and returns the
     per-epoch training loss and RMSE, the persistence baseline and the
-    seconds. ``graph_partition`` P runs it on P ranks (rank 0's result)."""
+    seconds. ``graph_partition`` P runs it on P ranks, ``data_parallel`` R
+    on R data-parallel ranks (rank 0's result)."""
     if gmm and config != "aneurysm":
         raise ValueError("--gmm is the aneurysm run's c-a-gmm head")
+    if data_parallel:
+        from graphphysics_torch.parallel.mesh import launch
+
+        results = launch(_run_dp_rank, data_parallel, device, timeout=None,
+                         layout=(data_parallel, 1), args=(workdir, epochs, gmm, device, config))
+        for r, res in enumerate(results):
+            if res["val_all_rollout_rmse_by_epoch"] != results[0]["val_all_rollout_rmse_by_epoch"]:
+                raise AssertionError(f"rank {r} validated {res['val_all_rollout_rmse_by_epoch']}, "
+                                     f"rank 0 {results[0]['val_all_rollout_rmse_by_epoch']}")
+        return results[0]
     if graph_partition:
         from graphphysics_torch.parallel.mesh import launch
 
@@ -396,8 +419,23 @@ def _run_rank(rank: int, workdir: str, epochs, gmm, device, config, parts, halo_
             **partition}
 
 
+def _run_dp_rank(rank: int, workdir: str, epochs, gmm, device, config) -> dict:
+    import torch.distributed as dist
+
+    if device == "cuda":
+        import torch
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    ranks = dist.get_world_size()
+    return {**_run(os.path.join(workdir, f"rank{rank}"), epochs, gmm, device, config,
+                   {"data_parallel": True, "num_devices": ranks}),
+            "data_parallel": ranks, "batch_per_rank": BATCH // ranks}
+
+
 def _run(workdir: str, epochs, gmm, device, config, partition=None) -> dict:
     from graphphysics_torch.dataset import GraphLoader
+    from graphphysics_torch.parallel.multihost import MultihostGraphLoader
     from graphphysics_torch.training import Trainer
 
     epochs = EPOCHS[config] if epochs is None else epochs
@@ -405,7 +443,11 @@ def _run(workdir: str, epochs, gmm, device, config, partition=None) -> dict:
     run_setup = setup(workdir, config, gmm)
     write_s = time.perf_counter() - t0
     param, train_ds, val_ds = run_setup["param"], run_setup["train"], run_setup["val"]
-    loader = GraphLoader(train_ds, batch_size=BATCH, shuffle=True)
+    if (partition or {}).get("data_parallel"):
+        loader = MultihostGraphLoader(train_ds, per_host_batch=BATCH // partition["num_devices"],
+                                      shuffle=True, seed=DP_LOADER_SEED)
+    else:
+        loader = GraphLoader(train_ds, batch_size=BATCH, shuffle=True)
     trainer = Trainer(param, learning_rate=LEARNING_RATE, warmup=WARMUP,
                       checkpoint_dir=os.path.join(workdir, "ckpt"),
                       metrics_path=os.path.join(workdir, "metrics.csv"), rollout_dir=None,
@@ -451,7 +493,11 @@ def main(argv: List[str] = None) -> int:
                    help="train edge-partitioned over P ranks (halo mode)")
     p.add_argument("--halo_dtype", default=None, choices=["bf16", "f16"],
                    help="16-bit halo wire (with --graph_partition)")
+    p.add_argument("--data_parallel", type=int, default=0,
+                   help=f"train data-parallel over R ranks, {BATCH} // R rows of each batch a rank")
     args = p.parse_args(argv)
+    if args.data_parallel and (args.graph_partition or BATCH % args.data_parallel):
+        p.error(f"--data_parallel R: R must divide the batch of {BATCH}, without --graph_partition")
     if args.halo_dtype and not args.graph_partition:
         p.error("--halo_dtype requires --graph_partition")
     if args.gmm and args.config != "aneurysm":
@@ -474,10 +520,10 @@ def main(argv: List[str] = None) -> int:
     if args.workdir is None:
         with tempfile.TemporaryDirectory(prefix=f"{args.config}_fidelity_") as workdir:
             out = run(workdir, args.epochs, args.gmm, args.device, args.config,
-                      args.graph_partition, args.halo_dtype)
+                      args.graph_partition, args.halo_dtype, args.data_parallel)
     else:
         out = run(args.workdir, args.epochs, args.gmm, args.device, args.config,
-                  args.graph_partition, args.halo_dtype)
+                  args.graph_partition, args.halo_dtype, args.data_parallel)
     print(json.dumps({**out, **card}), flush=True)
     return 0
 

@@ -194,14 +194,23 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     panels transformer and that transformer in bf16, their eval steps
     exported, saved, loaded and run on the card, 15 launches of K1, the
     fused f32 or the fused bf16 kernel a frame, within 1e-6 of the live
-    step, ms per frame exported and eager; a 10-frame exported EPD rollout
+    step, ms per frame exported and eager; a 4-frame exported EPD rollout
     against the live one), ``checkpoint_backends`` (``orbax`` and
     ``orbax-async`` directories reloaded bit for bit, a resumed step),
     ``profiler`` (3 ``fit`` steps traced with ``profile_dir``, the trace
     naming K1, K1b and the fused pair), ``determinism`` (on the trainers
     of the two phases before it; only the bf16 transformer step must
     replay bit for bit), ``compilation_cache`` and ``doctor``
-    (``grph-torch doctor`` returns 0 in this process; its probes).
+    (``grph-torch doctor`` returns 0 in this process; its probes);
+38-41. data parallelism (``chip_parallel.py``): ``dp_epd_training`` and
+    ``dp_transformer_training`` (the 8 x 2,048 batches stacked, 2 ranks of
+    ``Trainer(data_parallel=True)`` sharing the card over gloo, 4 graphs a
+    rank, the first step against the single-process step, 10 timed steps
+    with the launches checked), ``dp_2d_training`` (4 ranks, 2 data rows of
+    2 parts: the EPD in halo mode, the aneurysm transformer split-edge,
+    each first step against the 1-D data-parallel step on the
+    unpartitioned graphs) and ``dp_validation`` (``parallel_validation``
+    against the sequential validation on 2 ranks).
 
 The K1 phase also times a one-element PyTorch elementwise kernel under the
 same CUDA-graph replay (``launch_floor_ms``): the floor under any kernel's
@@ -3671,6 +3680,13 @@ def main() -> int:
     del aneurysm_csr
     torch.cuda.empty_cache()
 
+    # 38-41. data parallelism: the 1-D data step on 2 ranks sharing the card,
+    # the 2-D data x graph step on 4, parallel validation
+    from chip_parallel import parallel_phases
+
+    dp_paths = parallel_phases(clock, args.seed, cylinder, panels)
+    torch.cuda.empty_cache()
+
     # 23-26. gradient accumulation, the ELL layout, size buckets, project_before_gather
     feature_paths = training_feature_phases(clock, counts, args.seed, cylinder, panels, cyl_graphs, tf_graphs)
 
@@ -3706,7 +3722,8 @@ def main() -> int:
     # each counted from 0) and of the short fidelity runs
     paths = {"epd_training": epd_train, "transformer_training": tf_train, "gmm_training": gmm_train,
              **aneurysm_paths, "plate_pipeline": plate_result, **fidelity, **bf16_paths, **feature_paths,
-             **{p: {"launches": launches} for p, launches in partition_paths.items()}, **export_paths}
+             **{p: {"launches": launches} for p, launches in partition_paths.items()},
+             **{p: {"launches": launches} for p, launches in dp_paths.items()}, **export_paths}
     launched = {k: sum(r["launches"].get(k, 0) for r in paths.values()) for k in counts}
     by_path = {k: {p: r["launches"].get(k, 0) for p, r in paths.items() if r["launches"].get(k, 0)}
                for k in counts}

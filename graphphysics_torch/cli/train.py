@@ -9,16 +9,20 @@ wandb installed. ``--gradient_accumulation`` makes each batch of
 ``batch_size`` items one optimizer step over that many microbatches (the
 loader stacks them). The config's ``dataset.num_buckets`` and
 ``dataset.edge_layout`` (``"ell"`` for the ELL layout) reach the datasets.
-``--graph_partition P`` trains edge-partitioned over P ranks: the command
-starts them (``parallel.mesh.launch``; on one card they share it over
-gloo), or under ``torchrun`` with ``WORLD_SIZE == P`` joins its ranks;
-rank 0 writes the checkpoints and ``metrics.csv``. ``--checkpoint_backend
+``--graph_partition P`` trains edge-partitioned over P ranks, and
+``--data_parallel`` data-parallel over R ranks (``--num_devices``: under
+``torchrun`` its ``WORLD_SIZE``, else one rank a card, as JAX takes every
+local device; one on the CPU unless named), each building its own rows
+of every batch (``parallel.multihost.MultihostGraphLoader``, ``batch_size
+/ R`` a rank); both together train the 2-D ``R / P`` x ``P`` layout, one
+graph of ``batch_size`` (= R / P) a data row. The command starts the
+ranks (``parallel.mesh.launch``; ranks that share a card use gloo), or
+under ``torchrun`` joins its ranks; world rank 0 writes the checkpoints
+and ``metrics.csv``. ``--checkpoint_backend
 orbax|orbax-async`` writes directory checkpoints, ``--profile_dir`` a
 ``torch.profiler`` trace of ``--profile_num_steps`` steps from
 ``--profile_start_step``, ``--compilation_cache_dir`` keeps the kernels'
-libraries there. A flag whose feature the port does not have yet
-(``--data_parallel``) exits with an error naming its ROADMAP item when
-given anything but its default.
+libraries there.
 """
 
 from __future__ import annotations
@@ -60,7 +64,11 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--val_trajectories", type=int, default=None)
     p.add_argument("--checkpoint_dir", default="checkpoints")
     p.add_argument("--metrics_path", default="metrics.csv")
-    p.add_argument("--data_parallel", action="store_true")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="data-parallel over --num_devices ranks, each building its own rows")
+    p.add_argument("--num_devices", type=int, default=None,
+                   help="ranks of --data_parallel (default: torchrun's WORLD_SIZE, else the "
+                        "cards, else 1 on the CPU)")
     p.add_argument("--gradient_accumulation", action="store_true",
                    help="one optimizer step per batch of batch_size microbatches, run in "
                         "turn (the activation memory of one microbatch)")
@@ -90,13 +98,6 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="dataset-specific node-feature hook (graphphysics_torch/external)")
     p.add_argument("--device", default="cuda", help="torch device (cuda unless named)")
     return p
-
-
-# (flag, default, ROADMAP.md section 1 item): flags of features not ported
-# yet (data_parallel, alone or with graph_partition, is item 13)
-NOT_PORTED: Tuple[Tuple[str, object, int], ...] = (
-    ("data_parallel", False, 13),
-)
 
 
 def refuse_not_ported(parser: argparse.ArgumentParser, args: argparse.Namespace,
@@ -135,21 +136,45 @@ def unify_budgets(train_ds, val_ds) -> None:
         train_ds.ell_degree = val_ds.ell_degree = degree
 
 
+def data_parallel_ranks(args: argparse.Namespace) -> int:
+    """The ranks of ``--data_parallel``: ``--num_devices``, else
+    ``torchrun``'s ``WORLD_SIZE``, else the cards (1 on the CPU)."""
+    import os
+
+    import torch
+
+    if args.num_devices:
+        return args.num_devices
+    if "WORLD_SIZE" in os.environ and "RANK" in os.environ:
+        return int(os.environ["WORLD_SIZE"])
+    return torch.cuda.device_count() if args.device.startswith("cuda") else 1
+
+
 def run_partitioned(rank_main, argv, args) -> int:
-    """Run ``rank_main(rank, argv)`` on ``args.graph_partition`` ranks:
-    join ``torchrun``'s when it started that many, else start them."""
+    """Run ``rank_main(rank, argv)`` on the ranks of the flags
+    (``args.graph_partition`` ranks, or with ``--data_parallel`` the ``D x
+    P`` layout of ``data_parallel_ranks``): join ``torchrun``'s when it
+    started that many, else start them."""
     from graphphysics_torch.parallel import mesh
 
     parts = args.graph_partition
-    if mesh.under_torchrun(parts):
-        rank = mesh.init_from_env(parts, args.device)
+    layout = None
+    world = parts
+    if getattr(args, "data_parallel", False):  # the predict CLI starts graph groups only
+        world = data_parallel_ranks(args)
+        if world % max(parts, 1):
+            raise SystemExit(f"--graph_partition {parts} must divide the {world} ranks of "
+                             f"--data_parallel")
+        layout = (world // max(parts, 1), max(parts, 1))
+    if mesh.under_torchrun(world):
+        rank = mesh.init_from_env(world, args.device, layout=layout)
         try:
             return rank_main(rank, argv)
         finally:
             import torch.distributed as dist
 
             dist.destroy_process_group()
-    mesh.launch(rank_main, parts, args.device, args=(list(argv),), timeout=None)
+    mesh.launch(rank_main, world, args.device, args=(list(argv),), timeout=None, layout=layout)
     return 0
 
 
@@ -177,8 +202,9 @@ def main(argv=None) -> int:
     parser = build_argparser()
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
-    refuse_not_ported(parser, args, NOT_PORTED)
-    if args.graph_partition:
+    if args.data_parallel and args.gradient_accumulation:
+        parser.error("--data_parallel and --gradient_accumulation are separate batch layouts")
+    if args.graph_partition or args.data_parallel:
         return run_partitioned(_rank_main, argv, args)
     return train(args)
 
@@ -214,9 +240,19 @@ def train(args: argparse.Namespace) -> int:
         switch_to_val=True, edge_layout=train_ds.edge_layout,
     )
     unify_budgets(train_ds, val_ds)
-    loader = GraphLoader(train_ds, batch_size=args.batch_size, shuffle=True, seed=args.seed,
-                         prefetch=args.prefetch_factor, num_workers=args.num_workers,
-                         collate="stack" if args.gradient_accumulation else "concat")
+    if args.data_parallel:
+        from graphphysics_torch.parallel.multihost import MultihostGraphLoader, data_ranks
+
+        rows = data_ranks()[1]  # the data group: the world's ranks over the graph partition
+        if args.batch_size % rows:
+            raise SystemExit(f"--batch_size {args.batch_size} does not split over {rows} data ranks")
+        loader = MultihostGraphLoader(train_ds, per_host_batch=args.batch_size // rows, shuffle=True,
+                                      seed=args.seed, num_workers=args.num_workers,
+                                      prefetch=args.prefetch_factor)
+    else:
+        loader = GraphLoader(train_ds, batch_size=args.batch_size, shuffle=True, seed=args.seed,
+                             prefetch=args.prefetch_factor, num_workers=args.num_workers,
+                             collate="stack" if args.gradient_accumulation else "concat")
 
     extra_logger = None
     if args.project_name:
@@ -258,6 +294,7 @@ def train(args: argparse.Namespace) -> int:
         profile_num_steps=args.profile_num_steps,
         **previous_data_options(args),
         **partition_options(args),
+        **({"data_parallel": True, "num_devices": args.num_devices} if args.data_parallel else {}),
     )
     try:
         trainer.fit(

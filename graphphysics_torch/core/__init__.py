@@ -3,6 +3,7 @@ from graphphysics_torch.core.graph import (
     Graph,
     bucket_size,
     concat_graphs,
+    flatten_batched_graph,
     masked_filler,
     pad_graph_csr_np,
     pad_graph_ell_np,
@@ -19,6 +20,7 @@ __all__ = [
     "NodeType",
     "bucket_size",
     "concat_graphs",
+    "flatten_batched_graph",
     "masked_filler",
     "pad_graph_csr_np",
     "pad_graph_ell_np",

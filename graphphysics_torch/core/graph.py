@@ -425,3 +425,56 @@ def concat_graphs(graphs: List[Graph]) -> Graph:
         twin_perm=None if graphs[0].twin_perm is None else offset("twin_perm", e),
         ell_degree=graphs[0].ell_degree,
     )
+
+
+def flatten_batched_graph(g: Graph) -> Graph:
+    """A stacked ``[B, N, ...]`` batch as one concat graph ``[B*N, ...]``,
+    host arrays or tensors on any device (the counterpart of JAX
+    ``flatten_batched_graph``, which a data-parallel device runs on its own
+    rows): graph ``i``'s senders and receivers move by ``i * N``, its row or
+    sender bounds and ELL twin slots by ``i * E``, as ``concat_graphs``
+    moves them, whose result it equals bit for bit. A partitioned graph
+    (halo or gather) has part-local index spaces and is refused."""
+    if g.halo_send_idx is not None or g.partition_axis is not None:
+        raise ValueError(
+            "flatten_batched_graph: partitioned graphs (halo_send_idx or partition_axis set) "
+            "use part-local senders and cannot be flattened; feed them to the "
+            "graph-parallel step instead"
+        )
+    b, n, e = g.x.shape[0], g.x.shape[1], g.senders.shape[1]
+    on_device = isinstance(g.x, torch.Tensor)
+
+    def flat(a):
+        return None if a is None else a.reshape((b * a.shape[1],) + tuple(a.shape[2:]))
+
+    def shifted(a, step):
+        """``a[i] + i * step``, int32 as ``concat_graphs`` gives it."""
+        if a is None:
+            return None
+        shape = (b,) + (1,) * (a.ndim - 1)
+        if on_device:
+            return a + (torch.arange(b, device=a.device, dtype=a.dtype) * step).reshape(shape)
+        return (np.asarray(a) + np.arange(b, dtype=np.int64).reshape(shape) * step).astype(np.int32)
+
+    def bounds(a):
+        """``[B, 2, N]`` ranges shifted by ``i * E``, as ``[2, B*N]``."""
+        if a is None:
+            return None
+        a = shifted(a, e)
+        return (a.permute(1, 0, 2) if on_device else a.transpose(1, 0, 2)).reshape(2, b * n)
+
+    return Graph(
+        x=flat(g.x),
+        pos=flat(g.pos),
+        senders=flat(shifted(g.senders, n)),
+        receivers=flat(shifted(g.receivers, n)),
+        edge_attr=flat(g.edge_attr),
+        node_mask=flat(g.node_mask),
+        edge_mask=flat(g.edge_mask),
+        y=flat(g.y),
+        exclude_mask=flat(g.exclude_mask),
+        row_bounds=bounds(g.row_bounds),
+        sender_bounds=bounds(g.sender_bounds),
+        twin_perm=flat(shifted(g.twin_perm, e)),
+        ell_degree=g.ell_degree,
+    )

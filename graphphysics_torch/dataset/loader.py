@@ -42,6 +42,21 @@ WORKER_TIMEOUT_S = 300.0
 PREFETCH_JOIN_S = 60.0
 
 
+def filler_index(index: int) -> int:
+    """The task of a fully masked copy of item ``index``
+    (``core.graph.masked_filler``): ``-1 - index``. A rank's empty slice of a
+    partial global batch (``parallel.multihost.MultihostGraphLoader``) asks
+    for one, which the collate repeats."""
+    return -1 - index
+
+
+def build_item(dataset, task: int) -> Graph:
+    """Item ``task`` of ``dataset``, or the masked copy a negative task
+    (``filler_index``) names."""
+    task = int(task)
+    return dataset[task] if task >= 0 else masked_filler(dataset[-1 - task])
+
+
 class EpochItems(torch.utils.data.Dataset):
     """The dataset as the loader's workers see it. It travels as the path
     of a file that holds the pickled dataset, which each worker reads at its
@@ -71,7 +86,7 @@ class EpochItems(torch.utils.data.Dataset):
         if epoch != self._epoch and hasattr(self.dataset, "set_epoch"):
             self.dataset.set_epoch(epoch)
         self._epoch = epoch
-        return self.dataset[index]
+        return build_item(self.dataset, index)
 
 
 class EpochBatches(torch.utils.data.Sampler):
@@ -269,7 +284,7 @@ class GraphLoader:
         initialization), without advancing anything."""
         chunks = self._chunks()
         idx = chunks[0] if chunks else self._order()[: self.batch_size]
-        return self._collate([self.dataset[int(i)] for i in idx])
+        return self._collate([build_item(self.dataset, i) for i in idx])
 
     def __iter__(self) -> Iterator[Graph]:
         chunks = self._chunks()
@@ -283,7 +298,7 @@ class GraphLoader:
 
     def _in_process(self, chunks: Sequence[np.ndarray]) -> Iterator[Graph]:
         for idx in chunks:
-            yield self._collate([self.dataset[int(i)] for i in idx])
+            yield self._collate([build_item(self.dataset, i) for i in idx])
 
     def _prefetched(self, chunks: Sequence[np.ndarray]) -> Iterator[Graph]:
         """``_in_process`` on a background thread, up to ``prefetch``
@@ -326,8 +341,8 @@ class GraphLoader:
 
     def _from_workers(self, chunks: Sequence[np.ndarray]) -> Iterator[Graph]:
         if self._workers is None:
-            first = chunks[0][0] if chunks else 0
-            materialize_static_shapes(self.dataset, first)
+            first = int(chunks[0][0]) if chunks else 0
+            materialize_static_shapes(self.dataset, first if first >= 0 else -1 - first)
             fd, path = tempfile.mkstemp(prefix="graphloader-", suffix=".pkl")
             self._dataset_file = weakref.finalize(self, os.remove, path)
             with os.fdopen(fd, "wb") as fp:

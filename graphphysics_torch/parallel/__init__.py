@@ -1,11 +1,15 @@
-"""Edge-partitioned graph parallelism (counterpart of the graph-axis part
-of ``graphphysics_tpu/parallel``): ``P`` ranks of one graph process group
-(``mesh``), one part of the partitioned graph each (``graph_partition``,
-``reorder``), the train step, forward and rollout over them (``dp``)."""
+"""Data parallelism and edge-partitioned graph parallelism (counterpart of
+``graphphysics_tpu/parallel``, less TP and PP): the data and graph process
+groups and their 2-D layout (``mesh``), the data-parallel, graph-parallel
+and 2-D train steps, the partitioned forward and rollout (``dp``), the
+parts of a partitioned graph (``graph_partition``, ``reorder``) and the
+ranks' loader and shares (``multihost``)."""
 
 from graphphysics_torch.parallel.dp import (
     gather_rows,
     graph_parallel_forward,
+    make_dp_graph_parallel_train_step,
+    make_dp_train_step,
     make_graph_parallel_train_step,
     merge_normalizer_states,
     partitioned_rollout,
@@ -19,14 +23,25 @@ from graphphysics_torch.parallel.graph_partition import (
     unpartition_rows,
 )
 from graphphysics_torch.parallel.mesh import (
+    DATA_AXIS,
     GRAPH_AXIS,
+    axis_group,
     backend_for,
+    data_rank,
+    data_size,
     graph_group,
     graph_rank,
     graph_size,
     init_from_env,
     init_graph_group,
+    init_layout,
     launch,
+)
+from graphphysics_torch.parallel.multihost import (
+    MultihostGraphLoader,
+    global_batch_from_local,
+    initialize_distributed,
+    process_local_indices,
 )
 from graphphysics_torch.parallel.reorder import (
     halo_volume,
@@ -36,9 +51,15 @@ from graphphysics_torch.parallel.reorder import (
 )
 
 __all__ = [
+    "DATA_AXIS",
     "GRAPH_AXIS",
+    "MultihostGraphLoader",
+    "axis_group",
     "backend_for",
+    "data_rank",
+    "data_size",
     "gather_rows",
+    "global_batch_from_local",
     "graph_group",
     "graph_parallel_forward",
     "graph_rank",
@@ -47,9 +68,13 @@ __all__ = [
     "halo_volume",
     "init_from_env",
     "init_graph_group",
+    "init_layout",
+    "initialize_distributed",
     "inverse_permutation",
     "launch",
     "locality_permutation",
+    "make_dp_graph_parallel_train_step",
+    "make_dp_train_step",
     "make_graph_parallel_train_step",
     "merge_normalizer_states",
     "part_of",
@@ -58,5 +83,6 @@ __all__ = [
     "partition_graph_np",
     "partitioned_rollout",
     "permute_graph_np",
+    "process_local_indices",
     "unpartition_rows",
 ]

@@ -1,6 +1,5 @@
-"""Single-device training (counterpart of the single-device part of
-``graphphysics_tpu/training/trainer.py``): the Simulator of a training
-config, AdamW with the cosine-warmup schedule, the train step, ``fit`` over a
+"""Training (counterpart of ``graphphysics_tpu/training/trainer.py``): the
+Simulator of a training config, AdamW with the cosine-warmup schedule, the train step, ``fit`` over a
 ``GraphLoader`` with checkpoints, preemption and resume, rollout validation
 with its XDMF export, and ``predict``.
 
@@ -43,8 +42,7 @@ time, the statistics and the loss those of the concatenation.
 
 Batches and trajectories come in the dataset's layout: sorted, CSR or ELL,
 padded to one budget or, with size buckets, each to its bucket's (a
-trajectory's frames share one). Data parallelism is not ported yet: asking
-for it raises ``NotImplementedError`` naming its ROADMAP item.
+trajectory's frames share one).
 
 ``checkpoint_backend`` "orbax" or "orbax-async" writes the checkpoints as
 ``torch.distributed.checkpoint`` directories (``training/checkpoint.py``;
@@ -71,10 +69,29 @@ split-edge layout unless ``partition_overlap_attention`` is off;
 roll the whole graph through the unpartitioned model on every rank, or with
 ``partitioned_validation`` one partitioned rollout per trajectory over the
 ranks. Rank 0 alone writes checkpoints, metrics and rollout files.
+
+With ``data_parallel`` the Trainer is one rank of an ``R``-rank data group
+(``num_devices``, the world's size unless named; ``parallel.mesh.launch``
+starts the ranks, the CLI does): every rank builds the same model, takes
+its own rows of each stacked batch, ``[B / R, ...]``, and the step of
+``parallel.dp`` sums the statistics, loss and gradients over the ranks.
+The rows come from a ``parallel.multihost.MultihostGraphLoader``, which
+builds only the rank's own (the ranks check once an epoch that they
+derive the same global schedule), or from a ``GraphLoader(collate=
+"stack")`` whose global batch every rank builds (checked each step).
+With ``graph_partition`` P as well the ``R = D x P`` ranks form the 2-D
+layout (``parallel.mesh.init_layout``): each of the ``D`` data rows takes
+one graph of the batch (``batch_size`` must be D) and cuts it into its P
+parts, each rank stepping on its part. ``parallel_validation`` (the
+default) rolls each rank's interleaved share of the validation
+trajectories out (with ``partitioned_validation``, each data row's share,
+partitioned over the row) and all-reduces the sums in float64, so every
+rank returns the sequential RMSE and ``val_loss``. World rank 0 writes.
 """
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import os
 import signal
@@ -90,7 +107,15 @@ from graphphysics_torch.core.device import DeviceLike, resolve_device
 from graphphysics_torch.core.graph import Graph, stack_graphs
 from graphphysics_torch.core.nodetype import NodeType
 from graphphysics_torch.models.layers import reset_parameters
-from graphphysics_torch.parallel.mesh import GRAPH_AXIS, graph_group, graph_rank, graph_size
+from graphphysics_torch.parallel.mesh import (
+    DATA_AXIS,
+    GRAPH_AXIS,
+    data_rank,
+    ensure_layout,
+    graph_group,
+    graph_rank,
+    graph_size,
+)
 from graphphysics_torch.training.checkpoint import (
     load_checkpoint_with_metadata,
     require_backend,
@@ -114,16 +139,6 @@ from graphphysics_torch.utils.xdmf import XdmfTimeSeriesWriter
 BETAS = (0.9, 0.95)
 EPS = 1e-8
 WEIGHT_DECAY = 1e-4
-
-# options of the JAX Trainer that the port does not have yet: the value
-# that leaves each off, and the ROADMAP.md section 1 item that brings it
-# (data_parallel with graph_partition, the 2-D data x graph step, is item 13)
-_NOT_PORTED = {
-    "data_parallel": (False, 13),
-    "num_devices": (None, 13),
-    "parallel_validation": (None, 13),
-}
-
 
 _REORDER_CACHE_MAX = 8  # locality permutations kept (one per topology)
 
@@ -149,7 +164,8 @@ class Trainer:
     where given. Checkpoints go to ``checkpoint_dir/checkpoint_name``, the
     XDMF rollout of validation trajectory 0 under ``rollout_dir`` (none
     without it). ``gradient_accumulation`` takes stacked batches, one
-    optimizer step over their microbatches."""
+    optimizer step over their microbatches; ``data_parallel`` stacked
+    batches whose rows the ranks share (module docstring)."""
 
     def __init__(
         self,
@@ -185,21 +201,21 @@ class Trainer:
         profile_start_step: int = 10,
         profile_num_steps: int = 3,
         plot_callback: Optional[Callable] = None,
-        **options: Any,
+        data_parallel: bool = False,
+        num_devices: Optional[int] = None,
+        parallel_validation: bool = True,
     ):
-        for name, value in options.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(f"Trainer got an unexpected argument {name!r}")
-            off, item = _NOT_PORTED[name]
-            if value != off:
-                raise NotImplementedError(
-                    f"Trainer option {name!r} is not ported yet (ROADMAP.md section 1, item {item})"
-                )
         self.device = resolve_device(device)
+        self.data_parallel = bool(data_parallel)
+        if self.data_parallel and gradient_accumulation:
+            raise ValueError("data_parallel and gradient_accumulation are separate batch layouts; "
+                             "combine them by raising the per-device batch instead (see "
+                             "docs/scaling.md)")
+        self.parallel_validation = bool(parallel_validation)
         self._init_partition(graph_partition, partition_mode, partition_edge_headroom,
                              partition_budget_growth, partition_reorder,
                              partition_overlap_attention, halo_dtype, partitioned_validation,
-                             gradient_accumulation)
+                             gradient_accumulation, num_devices)
         self.param = parameters
         self.learning_rate = learning_rate
         self.warmup = warmup
@@ -258,21 +274,31 @@ class Trainer:
         )
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(self.optimizer, self.schedule)
         self.step = 0
-        if self.graph_partition:
-            from graphphysics_torch.parallel.dp import make_graph_parallel_train_step
+        if self.data_parallel or self.graph_partition:
+            from graphphysics_torch.parallel import dp
 
-            self._check_same_on_ranks("weights", [p.detach() for p in self.sim.parameters()])
-            self._partition_step = make_graph_parallel_train_step(
-                self.sim, self.optimizer, self.masks, loss_kind=loss_kind(self.K, self.use_diagonal),
-                gmm_kwargs=gmm_kwargs(self.K, self.d, self.temperature))
+            self._check_same_on_ranks("weights", [p.detach() for p in self.sim.parameters()],
+                                      self._sync_group())
+            kw = dict(loss_kind=loss_kind(self.K, self.use_diagonal),
+                      gmm_kwargs=gmm_kwargs(self.K, self.d, self.temperature))
+            if self.data_parallel and self.graph_partition:
+                make = dp.make_dp_graph_parallel_train_step
+            elif self.data_parallel:
+                make = functools.partial(dp.make_dp_train_step, local_rows=True)
+            else:
+                make = dp.make_graph_parallel_train_step
+            self._parallel_step = make(self.sim, self.optimizer, self.masks, **kw)
 
     # ------------------------------------------------------ graph partition
 
     def _init_partition(self, graph_partition, partition_mode, partition_edge_headroom,
                         partition_budget_growth, partition_reorder, partition_overlap_attention,
-                        halo_dtype, partitioned_validation, gradient_accumulation) -> None:
-        """The partition options, checked as the JAX Trainer checks them,
-        and this process's rank (0 without partitioning)."""
+                        halo_dtype, partitioned_validation, gradient_accumulation,
+                        num_devices) -> None:
+        """The partition and data-parallel options, checked as the JAX
+        Trainer checks them, and this process's places: ``rank`` its part
+        (its place in the graph group), ``data_rank`` its data row,
+        ``world_rank`` its place in the world (all 0 on one device)."""
         self.graph_partition = int(graph_partition)
         if partition_mode not in ("halo", "gather"):
             raise ValueError(f"unknown partition_mode {partition_mode!r}")
@@ -302,34 +328,66 @@ class Trainer:
         self._part_budgets: Dict[tuple, tuple] = {}
         self._reorder_cache: "OrderedDict[tuple, np.ndarray]" = OrderedDict()
         self.host_ms: List[float] = []  # host milliseconds per partitioned batch
-        self.rank = 0
-        if self.graph_partition:
+        self.rank = self.data_rank = self.world_rank = 0
+        self.num_devices = num_devices
+        if self.data_parallel:
+            self._init_data_parallel(num_devices)
+        elif self.graph_partition:
             size = graph_size(GRAPH_AXIS)
             if size != self.graph_partition:
                 raise ValueError(f"graph_partition {self.graph_partition} != the graph group's "
                                  f"{size} ranks")
-            self.rank = graph_rank(GRAPH_AXIS)
+            self.rank = self.world_rank = graph_rank(GRAPH_AXIS)
+
+    def _init_data_parallel(self, num_devices: Optional[int]) -> None:
+        """This rank's places in the ``D x P`` layout of ``num_devices``
+        (the world's size unless named) ranks, ``P`` the graph partition
+        (1 without), the layout's groups made unless registered."""
+        parts = self.graph_partition or 1
+        if num_devices is not None and num_devices % parts:
+            raise ValueError(f"graph_partition {parts} must divide the device count {num_devices} "
+                             f"(data axis = devices / partitions)")
+        if not dist.is_initialized():
+            raise RuntimeError("no process group for data_parallel: start the ranks with "
+                               "parallel.mesh.launch, or join with init_graph_group / init_from_env")
+        world = dist.get_world_size()
+        total = world if num_devices is None else int(num_devices)
+        if total != world:
+            raise ValueError(f"num_devices {total} != the world's {world} ranks")
+        if total % parts:
+            raise ValueError(f"graph_partition {parts} must divide the device count {total} "
+                             f"(data axis = devices / partitions)")
+        ensure_layout(total // parts, parts)
+        self.num_devices = total
+        self.rank, self.data_rank = graph_rank(GRAPH_AXIS), data_rank(DATA_AXIS)
+        self.world_rank = dist.get_rank()
 
     @property
     def is_writer(self) -> bool:
-        """True on the rank that writes files (rank 0; the only one
-        without partitioning)."""
-        return self.rank == 0
+        """True on the rank that writes files (world rank 0; the only one
+        on one device)."""
+        return self.world_rank == 0
 
-    def _check_same_on_ranks(self, what: str, arrays) -> None:
+    def _sync_group(self):
+        """The group every rank of this run joins: the world under
+        ``data_parallel``, the graph group when partitioned alone."""
+        return dist.group.WORLD if self.data_parallel else graph_group(GRAPH_AXIS)
+
+    def _check_same_on_ranks(self, what: str, arrays, group=None) -> None:
         """Raise unless every rank's ``arrays`` hash alike (a digest
-        all-gathered over the graph group)."""
+        all-gathered over ``group``, the graph group unless named)."""
         h = hashlib.blake2b(digest_size=8)
         for a in arrays:
             a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
             h.update(str((a.shape, a.dtype)).encode())
             h.update(np.ascontiguousarray(a).tobytes())
         mine = torch.tensor([int.from_bytes(h.digest(), "little", signed=True)], device=self.device)
-        group = graph_group(GRAPH_AXIS)
+        group = graph_group(GRAPH_AXIS) if group is None else group
         every = [torch.empty_like(mine) for _ in range(dist.get_world_size(group))]
         dist.all_gather(every, mine, group=group)
         if any(int(t) != int(mine) for t in every):
-            raise RuntimeError(f"graph_partition: the ranks hold different {what}")
+            raise RuntimeError(f"{'data_parallel' if self.data_parallel else 'graph_partition'}: "
+                               f"the ranks hold different {what}")
 
     def _split_attention(self) -> bool:
         """The split-edge ``[local | halo]`` layout: halo mode, the
@@ -386,7 +444,8 @@ class Trainer:
 
     def _derive_partition_budgets(self, train_loader) -> None:
         """The static per-part budgets from the dataset's first item times
-        the batch size, so the padded shapes do not depend on which batch
+        the batch size (one item under ``data_parallel``, whose ranks cut
+        one graph each), so the padded shapes do not depend on which batch
         comes first."""
         from graphphysics_torch.core.graph import concat_graphs
 
@@ -395,7 +454,8 @@ class Trainer:
             return
         if hasattr(ds, "set_epoch"):
             ds.set_epoch(0)
-        probe = concat_graphs([ds[0]] * max(int(getattr(train_loader, "batch_size", 1)), 1))
+        bsz = 1 if self.data_parallel else max(int(getattr(train_loader, "batch_size", 1)), 1)
+        probe = concat_graphs([ds[0]] * bsz)
         key = (int(probe.num_nodes), int(probe.num_edges))
         if key not in self._part_budgets:
             self._part_budgets[key] = self._trial_budgets(self._maybe_reorder(probe)[0])
@@ -458,16 +518,39 @@ class Trainer:
         self.host_ms.append((time.perf_counter() - t0) * 1e3)
         return part
 
-    def train_step(self, graph: Graph) -> torch.Tensor:
+    def _data_parallel_shard(self, graph: Graph, local_rows: bool) -> Graph:
+        """This rank's shard of a stacked batch: its rows (``local_rows``:
+        the batch is them already; else every rank must hold the same
+        global batch, which is checked), or in the 2-D layout its row's one
+        graph cut into parts, as the ``[1, 1, ...]`` shard of its part."""
+        from graphphysics_torch.parallel.dp import check_2d_shard, rank_rows
+
+        if len(graph.x.shape) != 3:
+            raise ValueError("data_parallel takes stacked [B, N, F] batches: "
+                             "GraphLoader(collate='stack') or parallel.multihost.MultihostGraphLoader")
+        if not local_rows:
+            self._check_same_on_ranks("batches", [graph.x, graph.senders, graph.receivers,
+                                                  graph.edge_mask], dist.group.WORLD)
+            graph = rank_rows(graph, DATA_AXIS)
+        if not self.graph_partition:
+            return graph
+        check_2d_shard((graph.x.shape[0], 1))
+        return self._my_part(graph[0])._map(lambda a: a[None, None])
+
+    def train_step(self, graph: Graph, local_rows: bool = False) -> torch.Tensor:
         """One optimizer step on ``graph`` (host or device): a flat batch,
         or with ``gradient_accumulation`` a stacked one, each of its
-        microbatches in turn. Returns the step's loss as a 0-d tensor on the
-        device, not synchronized."""
+        microbatches in turn, or with ``data_parallel`` a stacked one whose
+        rows the ranks share (``local_rows``: this rank's rows alone).
+        Returns the step's loss as a 0-d tensor on the device, not
+        synchronized."""
         if self.optimizer is None:
             raise RuntimeError("call init_state (or fit) before train_step")
         self.sim.train()
-        if self.graph_partition:
-            loss = self._partition_step(self._my_part(graph))
+        if self.data_parallel or self.graph_partition:
+            shard = (self._data_parallel_shard(graph, local_rows) if self.data_parallel
+                     else self._my_part(graph))
+            loss = self._parallel_step(shard)
             self.scheduler.step()
             self.step += 1
             return loss.detach()
@@ -517,6 +600,7 @@ class Trainer:
             self.init_state(num_steps)
         if self.graph_partition:
             self._derive_partition_budgets(train_loader)
+        local_rows = self.data_parallel and bool(getattr(train_loader, "rank_local", False))
         start_epoch, resume_offset, resumed_loss = 0, 0, None
         if resume_from and os.path.exists(resume_from):
             _, meta = load_checkpoint_with_metadata(resume_from, self)
@@ -532,6 +616,8 @@ class Trainer:
         try:
             for epoch in range(start_epoch, num_epochs):
                 train_loader.set_epoch(epoch)
+                if local_rows:
+                    self._check_schedule(train_loader)
                 offset = resume_offset if epoch == start_epoch else 0
                 if offset:
                     # the loader's per-(seed, epoch, index) determinism makes
@@ -547,7 +633,7 @@ class Trainer:
                                         enable=self.progress)
                 for batch in train_loader:
                     self._maybe_profile(self.step + 1)
-                    loss = self.train_step(batch)
+                    loss = self.train_step(batch, local_rows=local_rows)
                     nsteps += 1
                     loss_sum = loss if loss_sum is None else loss_sum + loss
                     if self.step % self.log_every == 0:
@@ -579,7 +665,7 @@ class Trainer:
                        f"({nsteps} steps, {nsteps / max(time.time() - t0, 1e-9):.2f} it/s)")
                 if self.graph_partition and self.host_ms:
                     tail = self.host_ms[-max(nsteps, 1):]
-                    msg += f" host_ms_per_step={sum(tail) / len(tail):.2f} (rank {self.rank})"
+                    msg += f" host_ms_per_step={sum(tail) / len(tail):.2f} (rank {self.world_rank})"
                 if val_dataset is not None:
                     val_rmse = self.validate(val_dataset, epoch, val_trajectories)
                     history["val_rmse"].append(val_rmse)
@@ -596,6 +682,16 @@ class Trainer:
             self._stop_profile()
             self._restore_signal_handlers(prev_handlers)
             wait_for_async_saves()
+
+    def _check_schedule(self, loader) -> None:
+        """Raise unless every rank derives the same global schedule of the
+        epoch (a loader of the rank's own rows: ``schedule()``, every
+        global batch's item indices)."""
+        sched = loader.schedule()
+        flat = np.concatenate(sched) if sched else np.zeros(0, np.int64)
+        sizes = np.array([len(c) for c in sched] + [len(loader)], np.int64)
+        self._check_same_on_ranks("batch schedules", [flat.astype(np.int64), sizes],
+                                  dist.group.WORLD)
 
     def _maybe_profile(self, step: int) -> None:
         """Start or stop the ``torch.profiler`` window around the configured
@@ -618,17 +714,19 @@ class Trainer:
         from graphphysics_torch.utils.profiling import stop_trace
 
         path = stop_trace(self._profiler, self.profile_dir, self.device,
-                          name=f"trace_rank{self.rank}.json" if self.graph_partition else "trace.json")
+                          name=(f"trace_rank{self.world_rank}.json"
+                                if self.graph_partition or self.data_parallel else "trace.json"))
         self._profiler = None
         self._trace_done = True
         print(f"[trainer] profiler trace written to {path}")
 
     def _interrupt_everywhere(self) -> bool:
-        """The interrupt flag; partitioned, True when any rank's is set."""
-        if not self.graph_partition:
+        """The interrupt flag; over several ranks, True when any rank's is
+        set."""
+        if not (self.graph_partition or self.data_parallel):
             return self._interrupt_requested
         flag = torch.tensor([float(self._interrupt_requested)], device=self.device)
-        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=graph_group(GRAPH_AXIS))
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self._sync_group())
         return bool(flag.item())
 
     def request_interrupt(self) -> None:
@@ -725,15 +823,27 @@ class Trainer:
         ``save_rollout``. With ``graph_partition`` every rank computes the
         same numbers: each rolls the whole graph out through the
         unpartitioned model, or with ``partitioned_validation`` all take
-        part in one partitioned rollout per trajectory."""
+        part in one partitioned rollout per trajectory. With
+        ``data_parallel`` and ``parallel_validation`` each rank (each data
+        row, with ``partitioned_validation``) rolls out its interleaved
+        share (``process_local_indices``) and the sums are all-reduced in
+        float64: every rank returns the same numbers, which equal the
+        sequential ones up to the order of the float64 sums."""
         n_traj = val_dataset.size_dataset
         if max_trajectories is not None:
             n_traj = min(n_traj, max_trajectories)
         self.sim.eval()
         nti = self.sim.config.node_type_index
         total_se, total_cnt, vloss_sum, vloss_cnt = 0.0, 0.0, 0.0, 0
-        prog = ProgressReporter(n_traj, prefix=f"validate epoch {epoch}", enable=self.progress)
-        for traj in range(n_traj):
+        share = self._validation_share()
+        trajectories = list(range(n_traj))
+        if share is not None:
+            from graphphysics_torch.parallel.multihost import process_local_indices
+
+            trajectories = process_local_indices(n_traj, *share[:2]).tolist()
+        prog = ProgressReporter(len(trajectories), prefix=f"validate epoch {epoch}",
+                                enable=self.progress)
+        for done, traj in enumerate(trajectories):
             frames, preds, targets = self._roll(val_dataset, traj, self.seed + epoch)
             node_mask = frames.node_mask[0]
             node_type = frames.x[0, :, nti].to(torch.int64)
@@ -754,10 +864,30 @@ class Trainer:
                 self._save_rollout_xdmf(val_dataset, 0, preds.cpu().numpy(), epoch)
             if traj == 0 and self.plot_callback is not None and self.is_writer:
                 self.plot_callback(self, val_dataset, epoch, preds.cpu().numpy())
-            prog.update(traj + 1)
+            prog.update(done + 1)
         prog.close()
+        if share is not None:
+            # order-free sums; float64 travels as it is (no bit trick needed)
+            sums = torch.tensor([total_se, total_cnt, vloss_sum, float(vloss_cnt)],
+                                dtype=torch.float64, device=self.device)
+            dist.all_reduce(sums, group=share[2])
+            total_se, total_cnt, vloss_sum, vloss_count = sums.tolist()
+            vloss_cnt = int(vloss_count)
         self.last_val_loss = vloss_sum / vloss_cnt if vloss_cnt else None
         return float((total_se / max(total_cnt, 1.0)) ** 0.5)
+
+    def _validation_share(self):
+        """``(rank, ranks, group)`` of the ranks that split the validation
+        trajectories (``data_parallel`` with ``parallel_validation``): the
+        world, or the data group when each data row rolls its trajectories
+        out partitioned over its graph group; None when one rank rolls out
+        every trajectory."""
+        if not (self.data_parallel and self.parallel_validation):
+            return None
+        part_val = self.graph_partition and self.partitioned_validation
+        group = graph_group(DATA_AXIS) if part_val else dist.group.WORLD
+        size = dist.get_world_size(group)
+        return None if size == 1 else (dist.get_rank(group), size, group)
 
     def _write_rollout_series(self, dataset, traj: int, preds: np.ndarray,
                               make_path: Callable[[str], str]) -> None:
@@ -826,12 +956,12 @@ class Trainer:
         a mid-epoch save (resume at this epoch, skipping the first
         ``batch_offset`` batches of its stream). ``epoch_loss``, the
         epoch's ``(loss sum tensor, steps)`` so far, rides along with a
-        mid-epoch save. Partitioned, rank 0 writes and every rank waits
-        for it."""
-        if self.graph_partition:
+        mid-epoch save. Over several ranks, rank 0 writes and every rank
+        waits for it."""
+        if self.graph_partition or self.data_parallel:
             if self.is_writer:
                 self._save(epoch, batch_offset, epoch_loss)
-            dist.barrier(group=graph_group(GRAPH_AXIS))
+            dist.barrier(group=self._sync_group())
             return
         self._save(epoch, batch_offset, epoch_loss)
 

@@ -167,7 +167,6 @@ def test_gmm_config_through_train_predict_resume(cylinder, tmp_path, monkeypatch
 
 
 @pytest.mark.parametrize("cli,flag,item", [
-    *[(train_cli, f, i) for f, _, i in train_cli.NOT_PORTED],
     *[(export_cli, f, i) for f, _, i in export_cli.NOT_PORTED],
 ])
 def test_flags_not_ported_exit_naming_their_item(cli, flag, item, config, capsys):

@@ -6,7 +6,9 @@ card against the CPU, two train steps of each model on the card against
 the CPU, the aneurysm XDMF path's launches, the ELL layout's train steps
 (no kernel), a gradient-accumulation step against the concat step, a
 masked filler adding nothing, eval steps exported on the card launching
-the kernels, and the ops' fake implementations against the kernels. Marked ``cuda``; they skip without a card. This file imports no JAX, so on a machine without it
+the kernels, the ops' fake implementations against the kernels,
+``flatten_batched_graph`` on CUDA tensors and the data-parallel step on a
+1-rank data group against the plain step. Marked ``cuda``; they skip without a card. This file imports no JAX, so on a machine without it
 run them with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py
@@ -1040,3 +1042,69 @@ def test_fake_implementations_give_the_kernels_shapes_and_strides(cuda):
         for r, f in zip(real, fake, strict=True):
             assert (tuple(f.shape), f.dtype, f.stride(), f.device) == (
                 tuple(r.shape), r.dtype, r.stride(), r.device), op
+
+
+@pytest.mark.parametrize("kind", ["epd", "transformer"])
+def test_flatten_batched_graph_on_card_equals_concat(cuda, kind):
+    """``flatten_batched_graph`` of a stacked batch of CUDA tensors equals
+    ``concat_graphs`` of its host graphs bit for bit (row and sender bounds
+    moved by a graph's edge count)."""
+    import dataclasses
+
+    from graphphysics_torch.core import concat_graphs, flatten_batched_graph, stack_graphs
+
+    graphs = _train_graphs(kind, 1)
+    got = flatten_batched_graph(stack_graphs(graphs).to("cuda"))
+    want = concat_graphs(graphs)
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if b is None or not hasattr(b, "shape"):
+            assert a == b, f.name
+            continue
+        assert a.is_cuda, f.name
+        np.testing.assert_array_equal(a.cpu().numpy(), b, err_msg=f.name)
+
+
+@pytest.mark.parametrize("kind", ["epd", "transformer"])
+def test_dp_step_on_one_rank_equals_the_plain_step(cuda, kind, tmp_path):
+    """``make_dp_train_step`` over a 1-rank data group on the card (one gloo
+    rank, the batch stacked) equals the Trainer's plain step on the concat
+    batch: loss, counters and parameters within the step limits, the same
+    kernel launches."""
+    import torch.distributed as dist
+
+    from graphphysics_torch.core import concat_graphs, stack_graphs
+    from graphphysics_torch.parallel import make_dp_train_step
+    from graphphysics_torch.parallel.mesh import DATA_AXIS, _GROUPS, register_group
+    from graphphysics_torch.training import Trainer
+
+    graphs = _train_graphs(kind, 2)
+    results = {}
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        register_group(None, DATA_AXIS)
+        for dp in (False, True):
+            trainer = Trainer(_train_param(kind), learning_rate=1e-3, warmup=2, device="cuda")
+            trainer.init_state(10)
+            before = _kernel_launches()
+            if dp:
+                step = make_dp_train_step(trainer.sim, trainer.optimizer, trainer.masks)
+                loss = step(stack_graphs(graphs)).item()
+            else:
+                loss = trainer.train_step(concat_graphs(graphs)).item()
+            launched = [a - b for a, b in zip(_kernel_launches(), before)]
+            counts = [m._num_accumulations.item() for m in trainer.sim.modules()
+                      if type(m).__name__ == "Normalizer"]
+            results[dp] = (loss, {k: v.detach().cpu() for k, v in trainer.sim.state_dict().items()},
+                           launched, counts)
+    finally:
+        dist.destroy_process_group()
+        _GROUPS.clear()
+    (loss_p, sd_p, launched_p, counts_p), (loss_d, sd_d, launched_d, counts_d) = results[False], results[True]
+    np.testing.assert_allclose(loss_d, loss_p, rtol=1e-5)
+    assert counts_d == counts_p and all(c == 1.0 for c in counts_d)
+    assert launched_d == launched_p == ([3, 3, 0, 0] if kind == "epd" else [0, 0, 3, 3])
+    for key, value in sd_p.items():
+        atol = 2 * 2 * 1e-3 if key.endswith("k_proj.bias") else 1e-5
+        torch.testing.assert_close(sd_d[key], value, rtol=2e-4, atol=atol, msg=key)

@@ -14,16 +14,30 @@ rtol 1e-5, the merged normalizer ``acc_sum`` rtol 1e-4, parameters rtol
 5e-3, atol 5e-5 of ``make_graph_parallel_train_step``; 3-frame
 ``partitioned_rollout`` within rtol 2e-4, atol 2e-5 of JAX's; a 2-epoch
 ``Trainer.fit(graph_partition=4)`` of the split layout within rtol 5e-3 of
-the unsplit one."""
+the unsplit one.
+
+The same 4-rank spawn runs the 2-D (data x graph) cases, each laying the
+world out as 2 data rows of 2 parts for itself (twins of
+``tests/test_parallel.py::test_dp_graph_parallel_2d_step_matches_dp``,
+``test_attention_overlap.py::test_split_2d_dp_graph_step_matches_unsplit``
+and ``test_trainer.py``'s 2-D fit and budget growth): a batch of 2
+graphs of 256 nodes, each cut into 2, two steps; the first step's loss
+within rtol 1e-5 of JAX's 2-D step on a ``(2, 2)`` mesh and 2e-5 of the
+data-parallel step on the unpartitioned graphs, the second 5e-3 (as the
+JAX test: fp reassociation across parts flips near-zero gradients' signs),
+the merged ``acc_sum`` rtol 1e-4, the parameters after the first step
+rtol 5e-3, atol 5e-5 of JAX's 2-D step."""
 
 import functools
 import pickle
+import shutil
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
+from jax.sharding import NamedSharding, PartitionSpec
 
 from graphphysics_tpu.core.graph import pad_graph_np as jax_pad_graph_np
 from graphphysics_tpu.core.graph import stack_graphs as jax_stack_graphs
@@ -33,6 +47,8 @@ from graphphysics_tpu.models.simulator import Simulator, SimulatorConfig
 from graphphysics_tpu.parallel import make_mesh, shard_batch
 from graphphysics_tpu.parallel.dp import (
     graph_parallel_forward,
+    make_dp_graph_parallel_train_step,
+    make_dp_train_step,
     make_graph_parallel_train_step,
     partitioned_rollout,
 )
@@ -42,13 +58,13 @@ from graphphysics_tpu.parallel.graph_partition import (
     partition_graph_np,
     unpartition_rows,
 )
-from graphphysics_tpu.parallel.mesh import GRAPH_AXIS
+from graphphysics_tpu.parallel.mesh import DATA_AXIS, GRAPH_AXIS
 from graphphysics_tpu.training.losses import l2_loss
 from graphphysics_tpu.training.rollout import rollout
 from graphphysics_tpu.utils.torch_import import export_reference_state_dict
 
 from tests import _torch_port_common  # noqa: F401  (thread cap, sync dispatch)
-from tests._torch_port_partition_cases import raw_graph, run_cases
+from tests._torch_port_partition_cases import probe_graph_raw, raw_graph, run_cases
 
 LAUNCH_TIMEOUT_S = 300
 FWD_TOL = {"epd": dict(rtol=2e-4, atol=1e-5), "transformer": dict(rtol=2e-4, atol=2e-5)}
@@ -134,6 +150,13 @@ ROLLOUTS = {  # name: (family, mode, split)
     "transformer_split": ("transformer", "halo", True),
 }
 TWO_RANKS = ("transformer_split", "epd_halo")
+DP2D = {  # name: (family, mode, split)
+    "epd_halo": ("epd", "halo", False),
+    "epd_gather": ("epd", "gather", False),
+    "transformer_split": ("transformer", "halo", True),
+    "transformer_unsplit": ("transformer", "halo", False),
+}
+ROUNDOFF_LEAVES = ("k_proj.bias",)
 
 
 def forward_case(name):
@@ -185,6 +208,22 @@ def four_ranks(tmp_path_factory):
         cases[f"rollout:{name}"] = dict(kind="rollout", frames=rollout_frames(raw), mode=mode,
                                         split=split, model=spec)
     cases["fit"] = dict(kind="fit", param=fit_param(directory), dir=str(directory))
+    for name, (family, mode, split) in DP2D.items():
+        _, _, raws, spec = dp2d_setup(family)
+        cases[f"dp2d:{name}"] = dict(kind="dp2d_step", graphs=raws, model=spec, layout=(2, 2),
+                                     mode=mode, split=split, steps=2)
+    (directory / "dp2d").mkdir()
+    dp2d_param = fit_param(directory / "dp2d")
+    shutil.copy(dp2d_param["dataset"]["h5_path"], directory / "dp2d" / "test.h5")  # the val split
+    cases["dp2d_fit"] = dict(kind="dp_fit", param=dp2d_param, graph_partition=2,
+                             batch_size=2, epochs=2, loader="multihost", val=True, gmm=False,
+                             trainer=dict(partitioned_validation=True), dir=str(directory / "dp2d"))
+    probe = dict(cylinder_param_like(), model=dict(type="epd", message_passing_num=1,
+                                                   hidden_size=8, node_input_size=2, output_size=2,
+                                                   edge_input_size=3))
+    balanced, skewed = (probe_graph_raw(256, 256, skew) for skew in (False, True))
+    cases["dp2d_growth"] = dict(kind="dp2d_growth", param=probe, dir=str(directory / "growth"),
+                                batches=[[balanced, balanced], [balanced, skewed], [balanced, skewed]])
     return spawn(directory, 4, cases)
 
 
@@ -192,6 +231,87 @@ def four_ranks(tmp_path_factory):
 def two_ranks(tmp_path_factory):
     directory = tmp_path_factory.mktemp("two_ranks")
     return spawn(directory, 2, {f"forward:{n}": forward_case(n) for n in TWO_RANKS})
+
+
+def cylinder_param_like():
+    """The training-config keys the Trainer reads without a dataset."""
+    return {"model": {}, "index": dict(CFG)}
+
+
+@functools.lru_cache(maxsize=None)
+def dp2d_setup(family):
+    """(JAX Simulator, variables, 2 raw graphs of 256 nodes padded to 1,664
+    edges, the port spec): the JAX 2-D test's graphs and model, 2 blocks,
+    width 16 as the partition cases."""
+    raws = [raw_graph(seed=s, e_pad=1664) for s in (10, 11)]
+    edge_in = 3 if family == "epd" else 0
+    if not edge_in:
+        raws = [dict(r, edge_attr=None) for r in raws]
+    node_in = 2 + NodeType.SIZE
+    cfg = SimulatorConfig(node_input_size=node_in, edge_input_size=edge_in, output_size=2, **CFG)
+    sim = Simulator(config=cfg, model=jax_model(family, 2, 16, node_in))
+    variables = sim.init({"params": jax.random.key(0)}, _jnp(jax_pad_graph_np(**raws[0])))
+    spec = dict(family=family, blocks=2, hidden=16, edge_in=edge_in,
+                state=port_state(variables["params"]["model"]))
+    return sim, variables, raws, spec
+
+
+def jax_uniform_parts(graphs, num_parts, mode, split):
+    """JAX's parts of each graph with one set of budgets, stacked
+    ``[B, P, ...]`` (as ``_torch_port_partition_cases.uniform_parts``)."""
+    if mode == "gather":
+        eb = max(partition_graph_np(g, num_parts).senders.shape[1] for g in graphs)
+        return jax_stack_graphs([partition_graph_np(g, num_parts, edge_budget_local=eb)
+                                 for g in graphs])
+    trials = [partition_graph_halo_np(g, num_parts, split_local=split) for g in graphs]
+    if split:
+        eb = (max(t.num_local_edges for t in trials),
+              max(t.senders.shape[1] - t.num_local_edges for t in trials))
+    else:
+        eb = max(t.senders.shape[1] for t in trials)
+    hb = max(t.halo_send_idx.shape[2] for t in trials)
+    return jax_stack_graphs([partition_graph_halo_np(g, num_parts, edge_budget_local=eb,
+                                                     halo_budget=hb, split_local=split)
+                             for g in graphs])
+
+
+@functools.lru_cache(maxsize=None)
+def jax_dp2d(name):
+    """JAX's two 2-D steps on a (2, 2) mesh and two data-parallel steps on
+    the unpartitioned graphs: (2-D losses, DP losses, 2-D parameters and
+    normalizer state after the first step)."""
+    family, mode, split = DP2D[name]
+    sim, variables, raws, _ = dp2d_setup(family)
+    tx = optax.adamw(1e-3, b1=0.9, b2=0.95, weight_decay=1e-4)
+
+    def fresh():
+        v = jax.tree_util.tree_map(jnp.array, variables)  # the steps donate their state
+        return {"params": v["params"], "normalizer": v["normalizer"],
+                "opt_state": tx.init(v["params"]), "step": jnp.zeros((), jnp.int32)}
+
+    graphs = [jax_pad_graph_np(**r) for r in raws]
+    mesh_dp = make_mesh(2, (DATA_AXIS,))
+    dp_step = make_dp_train_step(sim, tx, MASKS, mesh_dp)
+    dp_batch = shard_batch(_jnp(jax_stack_graphs(graphs)), mesh_dp, DATA_AXIS)
+    state, dp_losses = fresh(), []
+    for _ in range(2):
+        state, loss = dp_step(state, dp_batch)
+        dp_losses.append(float(loss))
+    mesh2d = make_mesh(4, (DATA_AXIS, GRAPH_AXIS), shape=(2, 2))
+    step2d = make_dp_graph_parallel_train_step(sim, tx, MASKS, mesh2d)
+    sharding = NamedSharding(mesh2d, PartitionSpec(DATA_AXIS, GRAPH_AXIS))
+    batch = jax.tree_util.tree_map(lambda a: jax.device_put(jnp.asarray(a), sharding),
+                                   jax_uniform_parts(graphs, 2, mode, split))
+    state, losses, first = fresh(), [], None
+    for _ in range(2):
+        state, loss = step2d(state, batch)
+        losses.append(float(loss))
+        if first is None:  # copied: the next step donates the state
+            norm = state["normalizer"]["node_normalizer"]["state"]
+            first = (port_state(state["params"]["model"]),
+                     {k: np.array(getattr(norm, k)) for k in ("acc_count", "num_accumulations",
+                                                              "acc_sum")})
+    return losses, dp_losses, first
 
 
 @functools.lru_cache(maxsize=None)
@@ -332,7 +452,8 @@ def test_cli_train_and_predict_on_two_ranks(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("options,error,match", [
-    (dict(data_parallel=True, graph_partition=2), NotImplementedError, "item 13"),
+    (dict(data_parallel=True, graph_partition=2, num_devices=6, gradient_accumulation=True),
+     ValueError, "data_parallel and gradient_accumulation"),
     (dict(graph_partition=2, partition_mode="gather", halo_dtype="bf16"), ValueError,
      "requires partition_mode"),
     (dict(partitioned_validation=True), ValueError, "requires graph_partition"),
@@ -347,10 +468,74 @@ def test_trainer_partition_options_are_checked(options, error, match):
         Trainer(param, device="cpu", metrics_path=None, **options)
 
 
-def test_cli_data_parallel_with_graph_partition_names_item_13(tmp_path, capsys):
+def test_cli_data_parallel_graph_partition_must_divide_the_ranks(tmp_path):
     from graphphysics_torch.cli import train as train_cli
 
-    with pytest.raises(SystemExit):
+    with pytest.raises(SystemExit, match="--graph_partition 2 must divide the 3 ranks"):
         train_cli.main(["--training_parameters_path", str(tmp_path / "none.json"), "--device", "cpu",
-                        "--graph_partition", "2", "--data_parallel"])
-    assert "--data_parallel is not ported yet (ROADMAP.md section 1, item 13)" in capsys.readouterr().err
+                        "--graph_partition", "2", "--data_parallel", "--num_devices", "3"])
+
+
+@pytest.mark.parametrize("name", list(DP2D))
+def test_dp_graph_parallel_2d_step_matches_jax(four_ranks, name):
+    """The 2-D step on 2 x 2 ranks against JAX's on a (2, 2) mesh and against
+    the data-parallel step on the unpartitioned graphs; a [1, P, ...] shard
+    is refused with JAX's message."""
+    losses, dp_losses, (want_params, norm) = jax_dp2d(name)
+    for r in four_ranks:
+        got = r[f"dp2d:{name}"]
+        np.testing.assert_allclose(got["losses"][0], losses[0], rtol=1e-5)
+        np.testing.assert_allclose(got["losses"][0], dp_losses[0], rtol=2e-5)
+        np.testing.assert_allclose(got["losses"][1], dp_losses[1], rtol=5e-3)
+        assert got["losses"] == four_ranks[0][f"dp2d:{name}"]["losses"]
+        assert got["acc_count"] == float(norm["acc_count"])
+        assert got["num_accumulations"] == float(norm["num_accumulations"]) == 1.0
+        np.testing.assert_allclose(got["acc_sum"], norm["acc_sum"], rtol=1e-4, atol=1e-5)
+        for k, v in want_params.items():
+            if k.endswith(ROUNDOFF_LEAVES):
+                # a gradient 0 in exact arithmetic: moved by round-off's
+                # sign, at most one learning rate (AdamW's first step)
+                start = dp2d_setup(DP2D[name][0])[3]["state"][k]
+                assert np.abs(got["params"][k] - start).max() <= 1e-3 * (1 + 1e-4), k
+                continue
+            np.testing.assert_allclose(got["params"][k], v, rtol=5e-3, atol=5e-5, err_msg=k)
+        assert "expected a [1, 1, ...] local shard" in got["refused"]
+
+
+def test_split_2d_step_matches_unsplit(four_ranks):
+    """Twin of ``test_split_2d_dp_graph_step_matches_unsplit``: the 2-D
+    transformer step in the split-edge layout equals the unsplit one."""
+    for r in four_ranks:
+        np.testing.assert_allclose(r["dp2d:transformer_split"]["losses"][0],
+                                   r["dp2d:transformer_unsplit"]["losses"][0], rtol=1e-5)
+
+
+def test_fit_dp_graph_partition_2d(four_ranks):
+    """Twin of ``test_fit_dp_graph_partition_2d``: ``Trainer(data_parallel,
+    graph_partition=2, num_devices=4)`` trains 2 epochs from a
+    ``MultihostGraphLoader``, every rank the same losses; each data row
+    validates its share of the trajectories partitioned over its parts,
+    equal to the sequential validation."""
+    fits = [r["dp2d_fit"] for r in four_ranks]
+    assert [f["places"] for f in fits] == [(0, 0, 0), (1, 0, 1), (2, 1, 0), (3, 1, 1)]
+    assert [f["is_writer"] for f in fits] == [True, False, False, False]
+    losses = fits[0]["history"]["train_loss"]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert all(f["history"]["train_loss"] == losses for f in fits)
+    assert all(len(f["host_ms"]) > 0 for f in fits)
+    for f in fits:
+        (seq, vseq), (par, vpar) = f[("validate", False)], f[("validate", True)]
+        assert par == pytest.approx(seq, rel=1e-12) and vpar == pytest.approx(vseq, rel=1e-12)
+
+
+def test_partition_budget_growth_per_data_row(four_ranks):
+    """Twin of ``test_partition_budget_growth_dp_mid_batch``: each data row
+    cuts its own graph, so when row 1's graph outgrows the budgets only
+    row 1 grows them (both its ranks alike), once; every step runs."""
+    runs = [r["dp2d_growth"] for r in four_ranks]
+    assert all(np.isfinite(r["losses"]).all() for r in runs)
+    assert all(r["losses"] == runs[0]["losses"] for r in runs)
+    row0, row1 = runs[0]["edge_slots"], runs[2]["edge_slots"]
+    assert runs[1]["edge_slots"] == row0 and runs[3]["edge_slots"] == row1
+    assert row0[0] == row0[1] == row0[2] == row1[0]
+    assert row1[1] == row1[2] != row1[0]

@@ -319,10 +319,10 @@ def test_fit_lowers_the_loss_and_validates(cylinder, tmp_path):
 
 def test_trainer_refuses_what_is_not_ported(cylinder):
     param = _param(*cylinder, "epd")
-    with pytest.raises(NotImplementedError, match="data_parallel"):
+    # data parallelism is ported: it needs the ranks of a process group
+    with pytest.raises(RuntimeError, match="no process group for data_parallel"):
         Trainer(param, data_parallel=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel_validation"):
-        Trainer(param, parallel_validation=True, device="cpu")
+    assert Trainer(param, parallel_validation=True, device="cpu").parallel_validation
     with pytest.raises(TypeError, match="no_such_option"):
         Trainer(param, no_such_option=1, device="cpu")
     Trainer(param, data_parallel=False, graph_partition=0, device="cpu")  # off is fine
