@@ -7,9 +7,9 @@ card; this module starts nothing on import):
   (gloo), 4 graphs a rank: the first step (loss, and rank 0's summed
   gradients) against the single-process step on the 8 graphs concatenated
   from the same weights (``chip_partition.compare_step``, limits
-  ``chip_smoke.STEP_LOSS_RTOL`` and ``EPD_GRAD_RTOL``), then 3 warm-up and
-  10 timed steps with every launch count zeroed just before them (K1 and
-  K1b, 15 each a step and rank), and a profile of 3 steps on rank 0 (its
+  ``chip_smoke.STEP_LOSS_RTOL`` and ``EPD_GRAD_RTOL``), then 2 warm-up and
+  5 timed steps with every launch count zeroed just before them (K1 and
+  K1b, 15 each a step and rank), and a profile of 2 steps on rank 0 (its
   device ms, and the host ms of the collectives, the gradients'
   all-reduce among them);
 - ``dp_transformer_training``: ``panels.json`` (15 x 128, 4 heads) on the
@@ -23,8 +23,10 @@ card; this module starts nothing on import):
   (``tet_grid(32)``, 434,558 edges each, 15 features) in the split-edge
   layout, K5 forward and backward 10 each; each first step against the
   1-D data-parallel step on the unpartitioned meshes (one a rank of the
-  2-rank spawn), with ``chip_partition``'s partitioned limits; 3 warm-up
-  and 10 timed steps;
+  2-rank spawn), with ``chip_partition``'s partitioned limits; 2 warm-up
+  and 5 timed steps; the 4 ranks laid out by ``make_hybrid_layout`` (the
+  data axis across 2 emulated hosts, each graph group inside one), the
+  rank grid in the phase's line;
 - ``dp_validation``: on the 2-rank spawn, the EPD Trainer's ``validate``
   over two 8-frame 2,048-node trajectories with ``parallel_validation``
   off and on: the RMSE and ``val_loss`` equal to 1e-12 relative on every
@@ -47,8 +49,9 @@ import time
 import numpy as np
 import torch
 
-WARMUP, TIMED, PROFILED = 3, 10, 3
+WARMUP, TIMED, PROFILED = 2, 5, 2
 RANKS, LAYOUT_2D = 2, (2, 2)
+HYBRID_DCN, HYBRID_ICI = (2, 1), (1, 2)  # LAYOUT_2D as make_hybrid_layout factors it
 ANEURYSM_CONFIG = "training_config/coarse-aneurysm.json"
 ANEURYSM_GRID = 32  # tet_grid(32): 32,768 nodes
 RANKS_TIMEOUT_S = 600
@@ -98,22 +101,22 @@ def _trainer(param, seed, total_steps, **kw):
     return tr
 
 
-def _profile(step, device) -> dict:
-    """Where a rank's step goes over PROFILED steps: the card's time and the
-    host time of the collectives (``c10d::`` calls: the statistics', loss
-    counts' and gradients' all-reduces; in the 2-D layout the halo
+def _profile(step, device, steps=PROFILED) -> dict:
+    """Where a rank's step goes over ``steps`` steps: the card's time and
+    the host time of the collectives (``c10d::`` calls: the statistics',
+    loss counts' and gradients' all-reduces; in the 2-D layout the halo
     exchanges too)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILED):
+        for _ in range(steps):
             step()
         torch.cuda.synchronize(device)
-    wall = (time.perf_counter() - t0) / PROFILED * 1e3
+    wall = (time.perf_counter() - t0) / steps * 1e3
     rows = prof.key_averages()
-    collective = {r.key: r.cpu_time_total / 1e3 / PROFILED for r in rows
+    collective = {r.key: r.cpu_time_total / 1e3 / steps for r in rows
                   if r.key.startswith("c10d::") or r.key == "halo.wait"}
     device_rows = [r for r in rows if r.device_type == DeviceType.CUDA
                    and not getattr(r, "is_user_annotation", False)]
@@ -122,12 +125,12 @@ def _profile(step, device) -> dict:
         return getattr(r, "self_device_time_total", None) or getattr(r, "self_cuda_time_total", 0.0)
 
     return {
-        "profiled_steps": PROFILED,
+        "profiled_steps": steps,
         "wall_ms_per_step": wall,
         "collective_host_ms_per_step": sum(collective.values()),
         "allreduce_host_ms_per_step": sum(v for k, v in collective.items() if "allreduce" in k),
         "collectives": collective,
-        "device_ms_per_step": (sum(us(r) for r in device_rows) / 1e3 / PROFILED
+        "device_ms_per_step": (sum(us(r) for r in device_rows) / 1e3 / steps
                                if device_rows else "not measured"),
     }
 
@@ -217,21 +220,28 @@ def rank_main(rank, spec_path):
             out[f"{name}:validation"] = _validation(tr, spec["val"])
         del tr
         torch.cuda.empty_cache()
+    if spec.get("model_parallel"):  # chip_model_parallel's 2-rank phases
+        from chip_model_parallel import run_cases
+
+        out["model_parallel"] = run_cases(rank, **spec["model_parallel"])
     path = f"{spec_path}.rank{rank}"
     with open(path, "wb") as f:
         pickle.dump(out, f)
     return path
 
 
-def _spawn(spec, num_ranks, layout, tmp, label):
+def _spawn(spec, num_ranks, layout, tmp, label, target=None):
+    """Run ``target`` (this module's ``rank_main`` unless named) in
+    ``num_ranks`` ranks on the card with ``spec`` pickled under ``tmp``;
+    returns each rank's results and the seconds the spawn took."""
     from graphphysics_torch.parallel.mesh import launch
 
     spec_path = os.path.join(tmp, f"{label}.pkl")
     with open(spec_path, "wb") as f:
         pickle.dump(spec, f)
     t0 = time.perf_counter()
-    paths = launch(rank_main, num_ranks, "cuda", args=(spec_path,), timeout=RANKS_TIMEOUT_S,
-                   layout=layout)
+    paths = launch(target or rank_main, num_ranks, "cuda", args=(spec_path,),
+                   timeout=RANKS_TIMEOUT_S, layout=layout)
     seconds = time.perf_counter() - t0
     ranks = []
     for path in paths:
@@ -240,13 +250,13 @@ def _spawn(spec, num_ranks, layout, tmp, label):
     return ranks, seconds
 
 
-def _summary(name, ranks, expected, num_ranks):
-    """Every rank's timed steps: launches per step and rank against
+def _summary(name, ranks, expected, num_ranks, timed=TIMED):
+    """Every rank's ``timed`` steps: launches per step and rank against
     ``expected``, finite losses equal on every rank, the times."""
-    want = {k: expected.get(k, 0) * TIMED for k in ranks[0]["launches"]}
+    want = {k: expected.get(k, 0) * timed for k in ranks[0]["launches"]}
     for r, res in enumerate(ranks):
         if res["launches"] != want:
-            raise AssertionError(f"{name}: rank {r} launched {res['launches']} in {TIMED} steps, "
+            raise AssertionError(f"{name}: rank {r} launched {res['launches']} in {timed} steps, "
                                  f"expected {want}")
         if res["losses"] != ranks[0]["losses"] or not all(map(math.isfinite, res["losses"])):
             raise AssertionError(f"{name}: rank {r} losses {res['losses'][:3]}... differ or not "
@@ -254,25 +264,33 @@ def _summary(name, ranks, expected, num_ranks):
     return {
         "ranks": num_ranks,
         "ms_per_step_per_rank": [res["ms_per_step"] for res in ranks],
-        "host_partition_ms_per_step_per_rank": [res["host_ms_per_step"] for res in ranks],
+        "host_partition_ms_per_step_per_rank": [res.get("host_ms_per_step") for res in ranks],
         "peak_memory_gb_per_rank": [res["peak_memory_gb"] for res in ranks],
-        "launches_per_step_per_rank": {k: v / TIMED for k, v in ranks[0]["launches"].items() if v},
+        "launches_per_step_per_rank": {k: v / timed for k, v in ranks[0]["launches"].items() if v},
         "launches": {k: sum(res["launches"][k] for res in ranks) for k in ranks[0]["launches"]},
         "first_loss": ranks[0]["first_loss"], "last_loss": ranks[0]["losses"][-1],
         "rank0_breakdown": ranks[0]["breakdown"],
     }
 
 
-def parallel_phases(clock, seed, cylinder, panels):
-    """Every data-parallel phase; returns ``{path: launches}`` for the
-    kernels line."""
+def parallel_phases(clock, seed, cylinder, panels, model_parallel=None):
+    """Every data-parallel phase, the 2-rank spawn running
+    ``model_parallel`` (``chip_model_parallel.prepare``'s 2-rank cases)
+    after its own; returns ``{path: launches}`` for the kernels line and
+    each rank's results of ``model_parallel``."""
     import json
 
     from graphphysics_torch.core import concat_graphs
     from graphphysics_torch.utils.synthetic import cylinder_trajectory
 
+    from graphphysics_torch.parallel.mesh import DATA_AXIS, GRAPH_AXIS, make_hybrid_layout
+
     cs, cp = _cs(), _cp()
     total = 1 + WARMUP + TIMED + PROFILED
+    # the 2-D layout across hosts: the data axis over two (emulated) hosts,
+    # each graph group inside one
+    hybrid = make_hybrid_layout((DATA_AXIS, GRAPH_AXIS), dcn_shape=HYBRID_DCN, ici_shape=HYBRID_ICI,
+                                world_size=LAYOUT_2D[0] * LAYOUT_2D[1])
     with open(ANEURYSM_CONFIG) as f:
         aneurysm = json.load(f)
     cyl_graphs, tf_graphs = cs.flagship_graphs(seed), cs.panels_graphs(seed + 200)
@@ -292,7 +310,7 @@ def parallel_phases(clock, seed, cylinder, panels):
             "transformer": dict(param=panels, graphs=tf_graphs),
             "epd_2d_reference": dict(param=cylinder, graphs=epd_meshes, reference=True),
             "transformer_2d_reference": dict(param=aneurysm, graphs=tet_meshes, reference=True),
-        }}
+        }, "model_parallel": model_parallel}
         ranks, ranks_s = _spawn(spec, RANKS, (RANKS, 1), tmp, "dp")
         spec2d = {"seed": seed, "cases": {
             "epd_2d": dict(param=cylinder, graphs=epd_meshes,
@@ -300,7 +318,7 @@ def parallel_phases(clock, seed, cylinder, panels):
             "transformer_2d": dict(param=aneurysm, graphs=tet_meshes,
                                    trainer=dict(graph_partition=LAYOUT_2D[1], num_devices=4)),
         }}
-        ranks2d, ranks2d_s = _spawn(spec2d, 4, LAYOUT_2D, tmp, "dp2d")
+        ranks2d, ranks2d_s = _spawn(spec2d, 4, hybrid, tmp, "dp2d")
 
     paths = {}
     backend = ranks[0]["backend"]
@@ -341,6 +359,8 @@ def parallel_phases(clock, seed, cylinder, panels):
                                    f"{int(tet_meshes[0].edge_mask.sum())} edges"),
                          "layout": "halo" if fam == "epd" else "split-edge halo", **summary}
     clock.emit({"phase": "dp_2d_training", "data_rows": LAYOUT_2D[0], "parts": LAYOUT_2D[1],
+                "layout": {"make_hybrid_layout": {"dcn_shape": HYBRID_DCN, "ici_shape": HYBRID_ICI},
+                           "rank_grid": hybrid.grid.tolist()},
                 "backend": ranks2d[0]["backend"], "ranks_share_one_card": True,
                 "ranks_s": ranks2d_s, "reference": "the 1-D data-parallel step on the "
                 "unpartitioned graphs, 2 ranks", **result2d})
@@ -361,4 +381,4 @@ def parallel_phases(clock, seed, cylinder, panels):
                 "bitwise": all(v[True]["rmse"] == v[False]["rmse"]
                                and v[True]["val_loss"] == v[False]["val_loss"] for v in validation),
                 "tolerance": {"rtol": VALIDATION_RTOL}})
-    return paths
+    return paths, [r.get("model_parallel") for r in ranks]

@@ -14,7 +14,7 @@ CUDA card; this module starts nothing on import):
   batch's own 8 graphs fall into whole parts at P = 4 and would exchange
   nothing), ``Trainer(graph_partition=4)`` in 4 ranks sharing the card
   (gloo), halo mode with the f32 and the bf16 wire: each rank's first step
-  against the unpartitioned card step on the same mesh, then 20 timed
+  against the unpartitioned card step on the same mesh, then 5 timed
   steps with K1 and K1b counted (15 each a step and rank), ms per step
   beside the unpartitioned step's, peak memory, host ms and halo bytes
   per layer;
@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 PARTS = 4
-WARMUP, TIMED, PROFILED = 3, 20, 3
+WARMUP, TIMED, PROFILED = 2, 5, 2
 ROLLOUT_FRAMES = 10
 # the bf16 wire rounds every halo row and its cotangent once: its first step
 # is held to the JAX package's bf16-halo forward limit (rtol 0.05,
@@ -71,7 +71,7 @@ BF16_WIRE_GRAD_RTOL = 5e-2
 # step (K5) against the unsplit one (K2, K3), which share everything else.
 PARTITIONED_TRANSFORMER_GRAD_RTOL = 1e-2
 FIT_NODES = (64, 32)  # panels grid of the fit phase: 2,048 nodes
-FIT_FRAMES, FIT_TRAJECTORIES = 4, 2
+FIT_FRAMES, FIT_TRAJECTORIES = 3, 2
 SUBPROCESS_TIMEOUT_S = 600
 RANKS_TIMEOUT_S = 900
 

@@ -184,7 +184,7 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     and backward against their plain versions at three parts of a 4-way
     split), ``partitioned_epd_training`` and
     ``partitioned_transformer_training`` (4 ranks sharing the card over
-    gloo, the first step against the unpartitioned card step, 20 timed
+    gloo, the first step against the unpartitioned card step, 5 timed
     steps with the launches checked), ``partitioned_rollout`` (10 frames
     of each family against the unpartitioned card rollout) and
     ``partitioned_fit`` (``grph-torch train|predict --graph_partition 4``);
@@ -205,12 +205,27 @@ and the CUDA toolkit. Phases, each of which raises on failure:
 38-41. data parallelism (``chip_parallel.py``): ``dp_epd_training`` and
     ``dp_transformer_training`` (the 8 x 2,048 batches stacked, 2 ranks of
     ``Trainer(data_parallel=True)`` sharing the card over gloo, 4 graphs a
-    rank, the first step against the single-process step, 10 timed steps
+    rank, the first step against the single-process step, 5 timed steps
     with the launches checked), ``dp_2d_training`` (4 ranks, 2 data rows of
     2 parts: the EPD in halo mode, the aneurysm transformer split-edge,
     each first step against the 1-D data-parallel step on the
     unpartitioned graphs) and ``dp_validation`` (``parallel_validation``
-    against the sequential validation on 2 ranks).
+    against the sequential validation on 2 ranks); the 2-D layout is made
+    by ``make_hybrid_layout`` (data across two emulated hosts, the graph
+    axis inside one) and its rank grid printed;
+42-47. tensor and pipeline parallelism and the partitioned serving export
+    (``chip_model_parallel.py``): ``tp_epd_training`` and
+    ``tp_transformer_training`` (2 ranks of the model axis on the 8 x
+    2,048 batches; the transformer's ranks hold 2 heads, 64 wide),
+    ``pp_epd_training`` and ``pp_transformer_training`` (3 stages, the
+    batches' 8 graphs as microbatches), ``pp_gmm_training`` (``c-a-gmm``
+    on 2 stages, 4 microbatches of 16,640 nodes), each first step against
+    the single-process step, timed steps with the launches checked; and
+    ``export_partitioned_serving`` (the EPD's partitioned eval step on a
+    16,384-node mesh exported, saved, loaded on 2 ranks, 10 frames, against
+    the live partitioned forward and the unpartitioned eval); the kernel
+    widths of phase 11 gain the tensor-parallel ranks' local widths,
+    (D, H) = (64, 2) and (32, 1), f32 and bf16.
 
 The K1 phase also times a one-element PyTorch elementwise kernel under the
 same CUDA-graph replay (``launch_floor_ms``): the floor under any kernel's
@@ -301,6 +316,8 @@ FIDELITY_KERNELS = {
 }
 # (width, heads) of the fused kernels' general geometry phases
 GENERAL_WIDTHS = ((48, 4), (96, 3), (40, 8))
+# the local widths of panels' 128 wide x 4 heads on 2 and 4 tensor-parallel ranks
+TP_LOCAL_WIDTHS = ((64, 2), (32, 1))
 # the card sampler's statistics: draws of a fixed mixture, and the most
 # standard errors any frequency, mean or std may lie from the mixture's own
 GMM_SAMPLER_DRAWS = 2**20
@@ -2216,7 +2233,8 @@ def fused_bf16_case(name, graph, width, seed, heads=HEADS, view="model", library
     n, h = bounds.shape[1], heads
     scale = h ** -0.5
     interleaved = ca._is_interleaved(q)
-    if interleaved is not (view == "model"):
+    # with one head the model's (N, Dh, 1) layout is the contiguous one
+    if heads > 1 and interleaved is not (view == "model"):
         raise AssertionError(f"{name}: the bf16 inputs lost their layout")
     with torch.no_grad():
         tc = ca.gather_csr(seg, gather, bounds, mask)
@@ -3525,6 +3543,20 @@ def main() -> int:
         clock.emit({"phase": "kernel_width", "name": "csr_attention_backward", **s})
     fused_shapes += [f for f, _ in widths]
     fused_bwd_shapes += [b for _, b in widths]
+    # 47. the tensor-parallel ranks' local widths, interleaved, f32 and bf16
+    tp_widths = [fused_case(f"panels_csr_batch_8x2048_d{d}_h{h}_tp_local", tf_batch, d,
+                            args.seed + 60 + i, library=False, heads=h, replaced=False)
+                 for i, (d, h) in enumerate(TP_LOCAL_WIDTHS)]
+    tp_bf16_widths = [fused_bf16_case(f"panels_csr_batch_8x2048_d{d}_h{h}_tp_local", tf_batch, d,
+                                      args.seed + 62 + i, heads=h, library=False)
+                      for i, (d, h) in enumerate(TP_LOCAL_WIDTHS)]
+    for name, cases in (("csr_attention", tp_widths), ("csr_attention_bf16", tp_bf16_widths)):
+        for f, b in cases:
+            clock.emit({"phase": "kernel_width", "name": name, "tensor_parallel_local": True, **f})
+            clock.emit({"phase": "kernel_width", "name": name.replace("attention", "attention_backward"),
+                        "tensor_parallel_local": True, **b})
+    fused_shapes += [f for f, _ in tp_widths]
+    fused_bwd_shapes += [b for _, b in tp_widths]
 
     # 3-4. EPD: serving rollout and batched forward --------------------------------
     epd, result, profile_line = serve(
@@ -3682,9 +3714,19 @@ def main() -> int:
 
     # 38-41. data parallelism: the 1-D data step on 2 ranks sharing the card,
     # the 2-D data x graph step on 4, parallel validation
+    # 42-46. tensor and pipeline parallelism on 2 and 3 ranks sharing the
+    # card, the partitioned serving export on 2: the 2-rank phases run in
+    # the data-parallel phases' 2-rank spawn
+    import tempfile
+
+    from chip_model_parallel import model_parallel_phases, prepare
     from chip_parallel import parallel_phases
 
-    dp_paths = parallel_phases(clock, args.seed, cylinder, panels)
+    with tempfile.TemporaryDirectory(prefix="model_parallel_") as mp_tmp:
+        mp = prepare(args.seed, cylinder, panels, mp_tmp)
+        dp_paths, mp_ranks = parallel_phases(clock, args.seed, cylinder, panels, mp["two_rank"])
+        torch.cuda.empty_cache()
+        mp_paths = model_parallel_phases(clock, mp, mp_ranks, mp_tmp)
     torch.cuda.empty_cache()
 
     # 23-26. gradient accumulation, the ELL layout, size buckets, project_before_gather
@@ -3723,7 +3765,8 @@ def main() -> int:
     paths = {"epd_training": epd_train, "transformer_training": tf_train, "gmm_training": gmm_train,
              **aneurysm_paths, "plate_pipeline": plate_result, **fidelity, **bf16_paths, **feature_paths,
              **{p: {"launches": launches} for p, launches in partition_paths.items()},
-             **{p: {"launches": launches} for p, launches in dp_paths.items()}, **export_paths}
+             **{p: {"launches": launches} for p, launches in dp_paths.items()},
+             **{p: {"launches": launches} for p, launches in mp_paths.items()}, **export_paths}
     launched = {k: sum(r["launches"].get(k, 0) for r in paths.values()) for k in counts}
     by_path = {k: {p: r["launches"].get(k, 0) for p, r in paths.items() if r["launches"].get(k, 0)}
                for k in counts}
@@ -3776,13 +3819,13 @@ def main() -> int:
                             "(graphphysics_tpu/ops/pallas_attention.py:556)"),
         entry("csr_attention_bf16", "graphphysics_torch/csrc/csr_attention_bf16.cu",
               "graphphysics_tpu/ops/pallas_attention.py:255", launched["csr_attention_bf16"],
-              [f for f, _ in bf16_kernels], {"rtol": BF16_KERNEL_RTOL, "atol": BF16_KERNEL_ATOL},
+              [f for f, _ in bf16_kernels + tp_bf16_widths], {"rtol": BF16_KERNEL_RTOL, "atol": BF16_KERNEL_ATOL},
               f32_entry_ms=bf16_kernels[1][0]["f32_entry_ms"], launches_by_path=by_path["csr_attention_bf16"],
               also_replaces="graphphysics_tpu/ops/pallas_attention.py:556 (csr_sparse_attention's "
                             "gathers and SDDMM) on bf16 q, k, v"),
         entry("csr_attention_backward_bf16", "graphphysics_torch/csrc/csr_attention_bwd_bf16.cu",
               "graphphysics_tpu/ops/pallas_attention.py:398", launched["csr_attention_backward_bf16"],
-              [b for _, b in bf16_kernels], {"rtol": BF16_KERNEL_RTOL, "atol": BF16_KERNEL_ATOL},
+              [b for _, b in bf16_kernels + tp_bf16_widths], {"rtol": BF16_KERNEL_RTOL, "atol": BF16_KERNEL_ATOL},
               f32_entry_ms=bf16_kernels[1][1]["f32_entry_ms"],
               transpose_ms=bf16_kernels[1][1]["transpose_ms"], transpose_builds=launched["gather_csr"],
               launches_by_path=by_path["csr_attention_backward_bf16"],

@@ -11,8 +11,15 @@ padded shape of the config's first validation item, and run there: one
 artifact per padded shape (and trajectory length). Load them with
 ``utils.export.load_eval_step_file`` and ``load_rollout``. The JAX CLI's
 ``--platforms`` has no counterpart (an artifact runs on the device it was
-traced on); ``--graph_partition`` (the partitioned eval step) is not
-ported yet and exits naming its ROADMAP item.
+traced on).
+
+``--graph_partition P`` also writes ``eval_step_p{P}.pt2``, the
+edge-partitioned eval step (``utils.export.export_partitioned_eval_step``)
+of that item cut into ``P`` parts as the Trainer's defaults cut it (halo
+mode; the split-edge layout for a transformer; budgets from a trial cut
+with the default headroom). One process traces it; it serves a group of
+``P`` ranks, each loading it with ``load_partitioned_eval_step`` and
+calling it on its part.
 """
 
 from __future__ import annotations
@@ -22,10 +29,8 @@ import json
 import os
 import sys
 
-from graphphysics_torch.cli.train import previous_data_options, refuse_not_ported
+from graphphysics_torch.cli.train import previous_data_options
 from graphphysics_torch.external import EXTERNAL_FEATURES
-
-NOT_PORTED = (("graph_partition", 0, 13),)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -42,15 +47,41 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--rollout", action="store_true",
                    help="also export the whole rollout of validation trajectory 0 (one artifact "
                         "per trajectory length)")
-    p.add_argument("--graph_partition", type=int, default=0)
+    p.add_argument("--graph_partition", type=int, default=0,
+                   help="also export the eval step edge-partitioned into this many parts")
     p.add_argument("--device", default="cuda", help="torch device (cuda unless named)")
     return p
+
+
+def partition_example(sim, example, parts: int):
+    """The host Graph ``example`` cut into ``parts``, stacked ``[P, ...]``,
+    as ``Trainer(graph_partition=parts)`` cuts it by default: halo mode,
+    the split-edge layout for a transformer, budgets from a trial cut with
+    the default headroom."""
+    from graphphysics_torch.models.processors import EncodeTransformDecode
+    from graphphysics_torch.parallel.graph_partition import partition_graph_halo_np
+    from graphphysics_torch.training.trainer import DEFAULT_EDGE_HEADROOM, partition_budgets
+
+    split = isinstance(sim.model, EncodeTransformDecode)
+    eb, hb = partition_budgets(example, parts, True, split, DEFAULT_EDGE_HEADROOM)
+    return partition_graph_halo_np(example, parts, edge_budget_local=eb, halo_budget=hb,
+                                   split_local=split)
+
+
+def export_partitioned(sim, example, parts: int) -> bytes:
+    """The partitioned eval step of ``sim`` on ``example``'s parts
+    (``partition_example``), traced on part 0."""
+    from graphphysics_torch.parallel.graph_partition import part_of
+    from graphphysics_torch.utils.export import export_partitioned_eval_step
+
+    device = next(sim.parameters()).device
+    stacked = partition_example(sim, example, parts)
+    return export_partitioned_eval_step(sim, part_of(stacked, 0).to(device), parts)
 
 
 def main(argv=None) -> int:
     parser = build_argparser()
     args = parser.parse_args(argv)
-    refuse_not_ported(parser, args, NOT_PORTED)
     with open(args.training_parameters_path) as fp:
         parameters = json.load(fp)
 
@@ -81,6 +112,14 @@ def main(argv=None) -> int:
         fp.write(blob)
     print(f"[export] eval step -> {eval_path} ({len(blob)} bytes, {example.num_nodes} nodes / "
           f"{example.num_edges} edges)")
+
+    if args.graph_partition:
+        part_path = os.path.join(args.output_dir, f"eval_step_p{args.graph_partition}.pt2")
+        blob = export_partitioned(trainer.sim, ds[0], args.graph_partition)
+        with open(part_path, "wb") as fp:
+            fp.write(blob)
+        print(f"[export] partitioned eval (P={args.graph_partition}) -> {part_path} "
+              f"({len(blob)} bytes)")
 
     if args.rollout:
         frames = stack_graphs([ds[i] for i in ds.trajectory_indices(0)]).to(trainer.device)

@@ -30,7 +30,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-from typing import Sequence, Tuple
 
 from graphphysics_torch.dataset import GraphLoader
 from graphphysics_torch.external import EXTERNAL_FEATURES
@@ -98,15 +97,6 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="dataset-specific node-feature hook (graphphysics_torch/external)")
     p.add_argument("--device", default="cuda", help="torch device (cuda unless named)")
     return p
-
-
-def refuse_not_ported(parser: argparse.ArgumentParser, args: argparse.Namespace,
-                      table: Sequence[Tuple[str, object, int]]) -> None:
-    """Exit through ``parser.error`` on the first flag of ``table`` that is
-    not at its default."""
-    for dest, default, item in table:
-        if getattr(args, dest) != default:
-            parser.error(f"--{dest} is not ported yet (ROADMAP.md section 1, item {item})")
 
 
 def previous_data_options(args: argparse.Namespace) -> dict:

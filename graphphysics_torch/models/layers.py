@@ -159,6 +159,11 @@ class GraphNetBlock(nn.Module):
         super().__init__()
         self.project_before_gather = project_before_gather
         self.overlap_exchange = overlap_exchange
+        # what the edge MLP's node and edge inputs pass through before the
+        # gathers: nothing, or under tensor parallelism (``parallel.tp``)
+        # the all-reduce of their gradients, on N node rows rather than on
+        # the E gathered ones
+        self.input_copy = None
         if project_before_gather:
             self.edge_block = _FusedEdgeMLP((hidden_size,) * 3, hidden_size, dtype)
         else:
@@ -204,9 +209,11 @@ class GraphNetBlock(nn.Module):
             edge_update = self._overlapped_edge_update(
                 edge_attr, x, gather_recv, senders, partition_axis, halo_send_idx, halo_dtype)
         else:
-            edge_update = self.edge_block(
-                torch.cat([edge_attr, gather_recv(x), gather_send(x)], dim=-1)
-            )
+            # only the edge MLP's input passes the copy: the residuals and
+            # the node MLP take x and edge_attr as they are
+            ea, xe = ((edge_attr, x) if self.input_copy is None
+                      else (self.input_copy(edge_attr), self.input_copy(x)))
+            edge_update = self.edge_block(torch.cat([ea, gather_recv(xe), gather_send(xe)], dim=-1))
         if ell_degree is not None:
             aggr = ell_segment_sum(edge_update, ell_degree, edge_mask)
         else:
@@ -329,6 +336,9 @@ class Attention(nn.Module):
         if output_dim % num_heads:
             raise ValueError(f"output_dim {output_dim} is not a multiple of {num_heads} heads")
         self.num_heads = num_heads
+        # the scores' scale: the model's head count, which stays when a
+        # tensor-parallel rank keeps only some heads (parallel.tp)
+        self.scale = num_heads ** -0.5
         self.q_proj = Linear(output_dim, output_dim, dtype, bias=use_proj_bias)
         self.k_proj = Linear(output_dim, output_dim, dtype, bias=use_proj_bias)
         self.v_proj = Linear(output_dim, output_dim, dtype, bias=use_proj_bias)
@@ -351,11 +361,11 @@ class Attention(nn.Module):
         ``halo_row_bounds`` and ``num_local_edges`` (``partition_fields``);
         ``gather_csr``: the graph's transposed CSR, for the bf16 backward on
         CUDA (``ops.csr_attention.gather_csr``)."""
-        n, d = x.shape
+        n = x.shape[0]
         h = self.num_heads
 
         def to_heads(t):  # (N, head_dim, H) layout, then [N, H, head_dim]
-            return t.reshape(n, d // h, h).transpose(1, 2)
+            return t.reshape(n, -1, h).transpose(1, 2)
 
         y = sparse_graph_attention(
             to_heads(self.q_proj(x)),
@@ -365,7 +375,7 @@ class Attention(nn.Module):
             receivers,
             num_nodes=n,
             edge_mask=edge_mask,
-            scale=h ** -0.5,
+            scale=self.scale,
             sender_bounds=sender_bounds,
             ell_degree=ell_degree,
             twin_perm=twin_perm,
@@ -373,7 +383,7 @@ class Attention(nn.Module):
             **dict(zip(PARTITION_FIELDS, partition)),
         )
         # back to the flat layout: [N, H, Dh] -> (N, Dh, H) -> [N, D]
-        return self.proj(y.transpose(1, 2).reshape(n, d))
+        return self.proj(y.transpose(1, 2).reshape(n, -1))
 
 
 class TransformerBlock(nn.Module):

@@ -130,9 +130,14 @@ class EncodeProcessDecode(_GMMOptions, nn.Module):
                                       use_diagonal, dtype)
 
     def forward(self, graph: Graph) -> torch.Tensor:
-        x = self.nodes_encoder(graph.x)
-        edge_attr = self.edges_encoder(graph.edge_attr)
-        for block in self.processor_list:
+        x, _ = self.process(self.nodes_encoder(graph.x), self.edges_encoder(graph.edge_attr), graph)
+        return self.decode_module(x).to(torch.float32)
+
+    def process(self, x: torch.Tensor, edge_attr: torch.Tensor, graph: Graph, blocks=None):
+        """The encoded node and edge tables through ``blocks`` (default:
+        every block of ``processor_list``; a pipeline stage passes its
+        own) on ``graph``'s edges."""
+        for block in self.processor_list if blocks is None else blocks:
             x, edge_attr = self._block(
                 block,
                 x,
@@ -147,7 +152,7 @@ class EncodeProcessDecode(_GMMOptions, nn.Module):
                 graph.halo_send_idx,
                 graph.halo_dtype,
             )
-        return self.decode_module(x).to(torch.float32)
+        return x, edge_attr
 
 
 class EncodeTransformDecode(_GMMOptions, nn.Module):
@@ -189,13 +194,20 @@ class EncodeTransformDecode(_GMMOptions, nn.Module):
                                       use_diagonal, dtype)
 
     def forward(self, graph: Graph) -> torch.Tensor:
-        x = self.nodes_encoder(graph.x)
+        x, _ = self.process(self.nodes_encoder(graph.x), None, graph)
+        return self.decode_module(x).to(torch.float32)
+
+    def process(self, x: torch.Tensor, edge_attr, graph: Graph, blocks=None):
+        """The encoded node table through ``blocks`` (default: every block
+        of ``processor_list``; a pipeline stage passes its own) on
+        ``graph``'s edges; ``edge_attr`` passes through (the transformer
+        has no edge table)."""
         transposed = self._gather_csr(graph, x)
-        for block in self.processor_list:
+        for block in self.processor_list if blocks is None else blocks:
             x = self._block(block, x, graph.senders, graph.receivers, graph.edge_mask,
                             graph.sender_bounds, graph.ell_degree, graph.twin_perm,
                             *partition_fields(graph), gather_csr=transposed)
-        return self.decode_module(x).to(torch.float32)
+        return x, edge_attr
 
     def _gather_csr(self, graph: Graph, x: torch.Tensor):
         """The graph's transposed CSR (``ops.csr_attention.gather_csr``),

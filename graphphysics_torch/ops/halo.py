@@ -24,6 +24,15 @@ not need them (the local partial of split-edge attention, the local part
 of an edge MLP) before it waits, the counterpart of the JAX package
 leaving that overlap to XLA's scheduler.
 
+Under ``torch.export`` (``utils.export.export_partitioned_eval_step``)
+the exchanges trace as the operators ``graphphysics_torch::all_to_all_rows``
+and ``all_gather_rows``, which name the axis, not a process group: the
+loaded program reaches the group the loading ranks registered for that
+axis (``parallel.mesh``) when it runs, so an artifact binds to the group
+of whichever ranks load it. Their fake implementations give the shapes, so
+tracing exchanges nothing; run eagerly they are the collectives above,
+synchronous.
+
 Collectives on gloo: ranks that share a card run gloo, and the tensors go
 to it as they are, CUDA or CPU, f32 or bf16, as to NCCL, with no staging in
 this module: ``chip_smoke.py``'s partitioned phases run all_to_all_single
@@ -33,7 +42,8 @@ gather mode's reduce_scatter_tensor runs on the CPU's gloo in the tests.
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -49,6 +59,61 @@ def graph_group(axis_name: str):
     return group(axis_name)
 
 WIRE_DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16}
+
+
+# the group sizes of a trace made outside the ranks (``traced_group``)
+_TRACED_SIZES: Dict[str, int] = {}
+
+
+@contextlib.contextmanager
+def traced_group(axis_name: str, size: int):
+    """While ``torch.export`` traces a partitioned model: the exchanges of
+    ``axis_name`` are traced for a group of ``size`` ranks, whether or not
+    this process belongs to one."""
+    _TRACED_SIZES[axis_name] = size
+    try:
+        yield
+    finally:
+        del _TRACED_SIZES[axis_name]
+
+
+def traced_size(axis_name: str) -> int:
+    """The group size a trace of ``axis_name``'s exchanges takes: the
+    ``traced_group`` one, else the registered group's."""
+    size = _TRACED_SIZES.get(axis_name)
+    return dist.get_world_size(graph_group(axis_name)) if size is None else size
+
+
+@torch.library.custom_op("graphphysics_torch::all_to_all_rows", mutates_args=())
+def all_to_all_rows(send: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """``all_to_all_single`` of ``send``'s equal row blocks over the group
+    of ``axis_name``, synchronous: the exchange as a traceable operator."""
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send.contiguous(), group=graph_group(axis_name))
+    return recv
+
+
+@all_to_all_rows.register_fake
+def _all_to_all_rows_fake(send, axis_name):
+    return torch.empty_like(send)
+
+
+@torch.library.custom_op("graphphysics_torch::all_gather_rows", mutates_args=())
+def all_gather_rows(x: torch.Tensor, size: int, axis_name: str) -> torch.Tensor:
+    """Every rank's rows of ``x`` over the ``size`` ranks of ``axis_name``'s
+    group, rank-major: the all-gather as a traceable operator."""
+    group = graph_group(axis_name)
+    if dist.get_world_size(group) != size:
+        raise ValueError(f"all_gather_rows: traced for {size} ranks, the '{axis_name}' group has "
+                         f"{dist.get_world_size(group)}")
+    table = x.new_empty((size * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(table, x.contiguous(), group=group)
+    return table
+
+
+@all_gather_rows.register_fake
+def _all_gather_rows_fake(x, size, axis_name):
+    return x.new_empty((size * x.shape[0],) + tuple(x.shape[1:]))
 
 
 class Pending:
@@ -70,6 +135,8 @@ def all_to_all(send: torch.Tensor, axis_name: str, async_op: bool = False) -> Pe
     """``all_to_all_single`` over the graph group of ``axis_name``: the
     ``P`` equal row blocks of ``send`` go one to each rank, block ``q`` of
     the result came from rank ``q``."""
+    if torch.compiler.is_exporting():
+        return Pending(None, all_to_all_rows(send, axis_name))
     send = send.contiguous()
     recv = torch.empty_like(send)
     work = dist.all_to_all_single(recv, send, group=graph_group(axis_name), async_op=async_op)
@@ -142,8 +209,10 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, axis_name):
-        group = graph_group(axis_name)
         ctx.axis_name = axis_name
+        if torch.compiler.is_exporting():
+            return all_gather_rows(x, traced_size(axis_name), axis_name)
+        group = graph_group(axis_name)
         x = x.contiguous()
         table = x.new_empty((dist.get_world_size(group) * x.shape[0],) + tuple(x.shape[1:]))
         dist.all_gather_into_tensor(table, x, group=group)

@@ -141,6 +141,7 @@ EPS = 1e-8
 WEIGHT_DECAY = 1e-4
 
 _REORDER_CACHE_MAX = 8  # locality permutations kept (one per topology)
+DEFAULT_EDGE_HEADROOM = 1.25  # partition budgets over a trial cut
 
 
 def trajectory_generator(seed: int, trajectory: int, device: DeviceLike = None,
@@ -152,6 +153,29 @@ def trajectory_generator(seed: int, trajectory: int, device: DeviceLike = None,
     key = [seed, trajectory] if rank is None else [seed, trajectory, rank]
     hi, lo = np.random.SeedSequence(key).generate_state(2, np.uint32)
     return torch.Generator(device=resolve_device(device)).manual_seed(int(hi) << 32 | int(lo))
+
+
+def partition_budgets(g: Graph, parts: int, halo: bool, split: bool, headroom: float):
+    """``(edge budget, halo budget)`` of ``g`` cut into ``parts`` (halo or
+    gather mode, the split-edge layout with ``split``): a trial partition
+    times ``headroom``, the edge budget a ``(local, halo)`` pair in the
+    split layout, the halo budget None in gather mode."""
+    from graphphysics_torch.core.graph import round_up
+    from graphphysics_torch.parallel.graph_partition import (
+        partition_graph_halo_np,
+        partition_graph_np,
+    )
+
+    trial = (partition_graph_halo_np(g, parts, split_local=split) if halo
+             else partition_graph_np(g, parts))
+    if split:
+        el = trial.num_local_edges
+        eb = (round_up(int(el * headroom), 128),
+              round_up(int((trial.senders.shape[1] - el) * headroom), 128))
+    else:
+        eb = round_up(int(trial.senders.shape[1] * headroom), 128)
+    hb = round_up(int(trial.halo_send_idx.shape[2] * headroom), 8) if halo else None
+    return eb, hb
 
 
 class Trainer:
@@ -190,7 +214,7 @@ class Trainer:
         gradient_accumulation: bool = False,
         graph_partition: int = 0,
         partition_mode: str = "halo",
-        partition_edge_headroom: float = 1.25,
+        partition_edge_headroom: float = DEFAULT_EDGE_HEADROOM,
         partition_budget_growth: bool = True,
         partition_reorder: Optional[str] = None,
         partition_overlap_attention: bool = True,
@@ -398,26 +422,9 @@ class Trainer:
                 and isinstance(self.sim.model, EncodeTransformDecode))
 
     def _trial_budgets(self, g: Graph):
-        """``(edge budget, halo budget)`` from a trial partition of ``g``
-        times ``partition_edge_headroom`` (a ``(local, halo)`` pair of edge
-        budgets in the split layout)."""
-        from graphphysics_torch.core.graph import round_up
-        from graphphysics_torch.parallel.graph_partition import (
-            partition_graph_halo_np,
-            partition_graph_np,
-        )
-
-        parts, h = self.graph_partition, self.partition_edge_headroom
-        halo, split = self.partition_mode == "halo", self._split_attention()
-        trial = (partition_graph_halo_np(g, parts, split_local=split) if halo
-                 else partition_graph_np(g, parts))
-        if split:
-            el = trial.num_local_edges
-            eb = (round_up(int(el * h), 128), round_up(int((trial.senders.shape[1] - el) * h), 128))
-        else:
-            eb = round_up(int(trial.senders.shape[1] * h), 128)
-        hb = round_up(int(trial.halo_send_idx.shape[2] * h), 8) if halo else None
-        return eb, hb
+        """``partition_budgets`` of ``g`` with this Trainer's options."""
+        return partition_budgets(g, self.graph_partition, self.partition_mode == "halo",
+                                 self._split_attention(), self.partition_edge_headroom)
 
     def _maybe_reorder(self, g: Graph):
         """``(graph, perm)``: ``g`` reordered by ``partition_reorder`` (the

@@ -23,9 +23,18 @@ artifact's PRNG key, since a ``torch.Generator`` cannot cross
 so it samples what the live model samples from the same generator.
 
 ``export_rollout`` unrolls the T frames of ``training.rollout``: one
-artifact serves one (T, padded shape) pair, as in JAX. The partitioned eval
-step (JAX ``export_partitioned_eval_step``) needs the halo exchange as
-traceable collectives and is not ported (ROADMAP.md section 1, item 13).
+artifact serves one (T, padded shape) pair, as in JAX.
+
+``export_partitioned_eval_step`` exports the eval forward of one rank's
+part of an edge-partitioned graph (``parallel.dp.graph_parallel_forward``)
+with the per-layer exchanges inside, traced as the operators of
+``ops.halo`` (``all_to_all_rows`` in halo mode, ``all_gather_rows`` in
+gather mode). The parts of one graph share their shapes, so one program
+serves every rank; the artifact records the number of parts ``P`` and the
+axis, and the loaded step runs only on a rank of a group of ``P`` ranks
+registered for that axis (the JAX artifact's ``nr_devices``), every rank
+calling it at once with its own part. The trace itself exchanges nothing,
+so one process exports it.
 
 The program is traced on the device the simulator lives on, with the
 example's tensors there; it runs on that device.
@@ -45,6 +54,7 @@ from torch import nn
 import graphphysics_torch.ops  # noqa: F401  (registers the kernels' ops for load)
 from graphphysics_torch.core.graph import META_FIELDS, Graph
 from graphphysics_torch.models.gmm import draw_gmm
+from graphphysics_torch.ops import halo
 from graphphysics_torch.training.rollout import rollout_frames
 
 # the artifact's description, saved beside the program
@@ -216,3 +226,64 @@ def load_rollout(blob: bytes) -> Callable:
 
     run.description = description
     return run
+
+
+def export_partitioned_eval_step(sim, example_part: Graph, num_parts: int) -> bytes:
+    """The eval forward of one rank's part of a graph edge-partitioned into
+    ``num_parts`` parts, shaped as ``example_part`` (a part on the
+    simulator's device, halo or gather mode: ``partition_graph_halo_np`` /
+    ``partition_graph_np``, one rank's slice), the exchanges inside, as the
+    bytes of a ``torch.export`` artifact that returns this rank's
+    ``[Nl, output_size]`` predictions. A GMM head's artifact takes the
+    rank's draws. Traced in this process; no group is needed."""
+    axis = example_part.partition_axis
+    if axis is None:
+        raise ValueError("export_partitioned_eval_step: the example is not a partitioned part "
+                         "(partition_axis is None)")
+    if example_part.halo_send_idx is not None and example_part.halo_send_idx.shape[0] != num_parts:
+        raise ValueError(f"export_partitioned_eval_step: the part exchanges with "
+                         f"{example_part.halo_send_idx.shape[0]} ranks, not {num_parts}")
+    names = _array_fields(example_part)
+    draws = sim.model.K > 0
+    args = tuple(getattr(example_part, n) for n in names)
+    if draws:
+        args += _example_draws(sim, (example_part.num_nodes,), args[0].device)
+    description = {"kind": "partitioned_eval_step", "fields": names, "meta": example_part.meta(),
+                   "draws": draws, "K": sim.model.K, "d": sim.model.d, "parts": num_parts,
+                   "axis": axis}
+    with halo.traced_group(axis, num_parts):
+        return _export(_Program(sim, names, example_part.meta(), draws, _eval_step), args,
+                       description)
+
+
+def _check_group(description: dict) -> None:
+    from graphphysics_torch.parallel.mesh import graph_size
+
+    size = graph_size(description["axis"])
+    if size != description["parts"]:
+        raise ValueError(f"this artifact serves a group of {description['parts']} ranks on axis "
+                         f"'{description['axis']}', this rank's group has {size}")
+
+
+def load_partitioned_eval_step(blob: bytes) -> Callable:
+    """An ``export_partitioned_eval_step`` artifact as ``step(part,
+    generator=None) -> [Nl, d]``, this rank's predictions, under
+    ``torch.inference_mode``; every rank of the group calls it at once with
+    its own part (gather them with ``parallel.dp.gather_rows``). Refuses,
+    here and at each call, a group of another size than the artifact's
+    ``P`` (``step.num_parts``). A GMM artifact draws the rank's sample from
+    ``generator``, which should differ per rank, as for the live
+    ``parallel.dp.partitioned_rollout``."""
+    program, description = _load(blob)
+    _check_group(description)
+
+    def step(part: Graph, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        _check_group(description)
+        arrays = _arrays(part, description)
+        with torch.inference_mode():
+            return program(*arrays, *_draws(description, part.num_nodes, generator,
+                                            arrays[0].device))
+
+    step.description = description
+    step.num_parts = description["parts"]
+    return step

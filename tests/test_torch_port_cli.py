@@ -4,8 +4,9 @@ rollouts; the train CLI, the combined ``grph-torch`` dispatcher, and the
 train -> predict -> retrain flow of ``train.sh``, ``predict.sh`` and
 ``retrain.sh``, whose ``metrics.csv`` header is the JAX CLI's on the same
 config; the XDMF configurations (coarse-aneurysm and c-a-gmm with the
-aneurysm hook and previous data, panels) through train and predict; every
-flag of a feature not ported yet exits naming its ROADMAP item."""
+aneurysm hook and previous data, panels) through train and predict. The
+partitioned export (``grph-torch export --graph_partition``) is in
+``test_torch_port_export_partitioned.py``."""
 
 import csv
 import json
@@ -15,7 +16,6 @@ import numpy as np
 import pytest
 import torch
 
-from graphphysics_torch.cli import export as export_cli
 from graphphysics_torch.cli import predict as predict_cli
 from graphphysics_torch.cli import train as train_cli
 from graphphysics_torch.cli.__main__ import main as grph_torch
@@ -164,26 +164,6 @@ def test_gmm_config_through_train_predict_resume(cylinder, tmp_path, monkeypatch
     assert meta["epoch"] == 2 and meta["step"] == 2 * steps
     rows = list(csv.DictReader(open(work / "metrics.csv")))
     assert [r["epoch"] for r in rows] == ["0", "1"] and not any(r.get("val_loss") for r in rows)
-
-
-@pytest.mark.parametrize("cli,flag,item", [
-    *[(export_cli, f, i) for f, _, i in export_cli.NOT_PORTED],
-])
-def test_flags_not_ported_exit_naming_their_item(cli, flag, item, config, capsys):
-    cfg, _ = config
-    value = {
-        "prefetch_factor": "4", "num_workers": "2", "masking_ratio": "0.5", "graph_partition": "2",
-        "partition_mode": "gather", "partition_edge_headroom": "1.0", "partition_reorder": "rcm",
-        "halo_dtype": "bf16", "checkpoint_backend": "orbax", "profile_dir": "trace",
-        "compilation_cache_dir": "cache", "external_features": "bezier",
-    }.get(flag)
-    argv = ["--training_parameters_path", cfg, f"--{flag}", *([value] if value else [])]
-    if cli is export_cli:
-        argv += ["--model_path", "none.pt"]
-    with pytest.raises(SystemExit) as exc:
-        cli.main(argv + ["--device", "cpu"])
-    assert exc.value.code == 2
-    assert f"--{flag} is not ported yet (ROADMAP.md section 1, item {item})" in capsys.readouterr().err
 
 
 def test_get_dataset_refuses_what_is_not_ported(cylinder):

@@ -3,7 +3,8 @@ through ``torch.export``): the loaded artifact reproduces the live eval
 step and rollout; it agrees with the JAX package's eval step with the
 weights carried over; and every kernel op's fake implementation gives the
 shapes and dtypes of its CPU implementation. The partitioned artifact
-(``test_export_partitioned_roundtrip_matches_single_device``) is item 13."""
+(``test_export_partitioned_roundtrip_matches_single_device``) is in
+``test_torch_port_export_partitioned.py``."""
 
 import jax
 import jax.numpy as jnp
