@@ -18,6 +18,11 @@ CUDA card; this module starts nothing on import):
   steps with K1 and K1b counted (15 each a step and rank), ms per step
   beside the unpartitioned step's, peak memory, host ms and halo bytes
   per layer;
+- ``partitioned_no_exchange``: the f32-wire EPD ranks go on with 1
+  warm-up and 5 timed steps under ``ops.halo.stub_exchange_for_benchmark``
+  (the halo exchange the identity, values wrong): ms a step a rank with
+  and without the exchange, and its share; K1 and K1b counted (15 each a
+  step and rank), not the values;
 - ``partitioned_transformer_training``: ``panels.json`` (15 x 128) on the
   same mesh with the panels features (its adjacency symmetric, as the
   partitioned attention's receiver-side softmax needs to equal the
@@ -52,6 +57,8 @@ import torch
 
 PARTS = 4
 WARMUP, TIMED, PROFILED = 2, 5, 2
+# the partitioned EPD step with the halo exchange stubbed to the identity
+STUB_WARMUP, STUB_TIMED = 1, 5
 ROLLOUT_FRAMES = 10
 # the bf16 wire rounds every halo row and its cotangent once: its first step
 # is held to the JAX package's bf16-halo forward limit (rtol 0.05,
@@ -288,6 +295,7 @@ def _rank_step(rank, case, total_steps, workdir, device):
         for _ in range(PROFILED):
             tr.train_step(batch)
         _sync(device)
+    no_exchange = _stubbed_steps(tr, batch, device, counts) if case.get("stub") else None
     part = tr.partition_graph(batch)
     b = int(part.halo_send_idx.shape[-1]) if part.halo_send_idx is not None else None
     width = case["param"]["model"]["hidden_size"]
@@ -309,7 +317,34 @@ def _rank_step(rank, case, total_steps, workdir, device):
         "halo_budget": b,
         "halo_bytes_per_layer_each_way": None if b is None else (PARTS - 1) * b * columns * itemsize,
         "breakdown": breakdown,
+        "no_exchange": no_exchange,
     }
+
+
+def _stubbed_steps(tr, batch, device, counts) -> dict:
+    """STUB_WARMUP steps, then STUB_TIMED timed ones, with the halo
+    exchange the identity (``ops.halo.stub_exchange_for_benchmark``): the
+    step without its exchange, forward and backward, for its time only
+    (its values are wrong); the launches counted over the timed steps."""
+    import torch.distributed as dist
+
+    from graphphysics_torch.ops.halo import stub_exchange_for_benchmark
+    from graphphysics_torch.parallel.mesh import GRAPH_AXIS, graph_group
+
+    with stub_exchange_for_benchmark():
+        for _ in range(STUB_WARMUP):
+            tr.train_step(batch)
+        _sync(device)
+        dist.barrier(group=graph_group(GRAPH_AXIS))
+        for fn in counts.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(STUB_TIMED):
+            tr.train_step(batch)
+        _sync(device)
+        seconds = time.perf_counter() - t0
+    return {"ms_per_step": seconds / STUB_TIMED * 1e3,
+            "launches": {k: fn.launches for k, fn in counts.items()}}
 
 
 def _profiled_steps(tr, batch, device) -> dict:
@@ -505,6 +540,32 @@ def summarize(name, ranks, expected, unpartitioned_ms):
     }
 
 
+def no_exchange_summary(ranks, blocks) -> dict:
+    """Each rank's partitioned EPD step with and without the halo exchange
+    (``_stubbed_steps`` beside the timed steps): ms a step a rank, the
+    exchange's ms and share of the step; raises unless every rank launched
+    K1 and K1b ``blocks`` times a stubbed step and nothing else."""
+    want = {k: 0 for k in ranks[0]["no_exchange"]["launches"]}
+    want.update({"csr_segment_sum": blocks * STUB_TIMED,
+                 "csr_segment_sum_backward": blocks * STUB_TIMED})
+    for r, res in enumerate(ranks):
+        if res["no_exchange"]["launches"] != want:
+            raise AssertionError(f"partitioned_no_exchange: rank {r} launched "
+                                 f"{res['no_exchange']['launches']} in {STUB_TIMED} steps, "
+                                 f"expected {want}")
+    with_ms = [res["ms_per_step"] for res in ranks]
+    without_ms = [res["no_exchange"]["ms_per_step"] for res in ranks]
+    return {
+        "warmup_steps": STUB_WARMUP, "steps_timed": STUB_TIMED,
+        "ms_per_step_per_rank_with_exchange": with_ms,
+        "ms_per_step_per_rank_without_exchange": without_ms,
+        "exchange_ms_per_step_per_rank": [a - b for a, b in zip(with_ms, without_ms)],
+        "exchange_share_per_rank": [(a - b) / a for a, b in zip(with_ms, without_ms)],
+        "launches_per_step_per_rank": {k: v / STUB_TIMED for k, v in want.items() if v},
+        "launches": {k: v * len(ranks) for k, v in want.items()},
+    }
+
+
 def _predict_rank(rank, cfg, ckpt):
     """``predict --graph_partition 4``'s rank (``rank`` None: the
     unpartitioned predict): the held-out trajectory's predictions from the
@@ -611,7 +672,7 @@ def partition_phases(clock, seed, cylinder, panels, epd_frames, tf_frames, aneur
     spec = {
         "total_steps": total_steps,
         "steps": {
-            "epd_f32": dict(param=cylinder, batch=meshes["epd"], seed=seed),
+            "epd_f32": dict(param=cylinder, batch=meshes["epd"], seed=seed, stub=True),
             "epd_bf16": dict(param=cylinder, batch=meshes["epd"], seed=seed, wire="bf16"),
             "transformer_split": dict(param=panels, batch=meshes["transformer"], seed=seed,
                                       split=True),
@@ -653,6 +714,12 @@ def partition_phases(clock, seed, cylinder, panels, epd_frames, tf_frames, aneur
                 "graph": f"triangulated_grid{MESH}, {meshes['epd'].num_nodes} nodes, "
                          f"{int(meshes['epd'].edge_mask.sum())} edges", "backend": backend, "mode": "halo", "ranks_share_one_card": True,
                 "ranks_s": ranks_s, **epd})
+    no_exchange = no_exchange_summary([r["epd_f32"] for r in ranks], blocks)
+    paths_launched["partitioned_no_exchange"] = no_exchange["launches"]
+    clock.emit({"phase": "partitioned_no_exchange", "model": f"EncodeProcessDecode {blocks}x"
+                f"{cylinder['model']['hidden_size']}, {cs.CYLINDER_CONFIG}", "wire": "f32",
+                "graph": f"triangulated_grid{MESH}, {meshes['epd'].num_nodes} nodes",
+                "ranks_share_one_card": True, **no_exchange})
     tf = {}
     for key, split, expected in (
             ("transformer_split", True, {"csr_softmax_spmm_pair": tf_blocks,

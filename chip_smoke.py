@@ -8,7 +8,9 @@ and the CUDA toolkit. Phases, each of which raises on failure:
 
 1. environment and build: the card (``nvidia-smi``), torch and CUDA
    versions, and ``nvcc`` building every kernel of ``graphphysics_torch/csrc``
-   at once (one process per source), with each source's build seconds;
+   at once (one process per source), with each source's build seconds,
+   ``g++`` building the host C++ of ``graphphysics_torch/native`` beside
+   them (``host_build_s``);
 2. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, with device times, the memory bound and, where one exists, one
    PyTorch call as a yardstick. K1 (``csr_segment_sum``) at the EPD serving
@@ -226,6 +228,17 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     the live partitioned forward and the unpartitioned eval); the kernel
     widths of phase 11 gain the tensor-parallel ranks' local widths,
     (D, H) = (64, 2) and (32, 1), f32 and bf16.
+48. ``host_native`` (right after the build): the host C++ graph builders
+    that the data path's ``face_to_edge``, ``k_hop_edges`` and
+    ``build_ell`` run, each against its plain numpy / scipy version on the
+    host CPU (FaceToEdge on ``tet_grid(32)``'s faces, k-hop at k = 2 and 3
+    on the 16,384-node grid, the ELL grouping of 8 cylinder meshes as one
+    graph), best of 3, every output bit-equal;
+49. ``partitioned_no_exchange`` (in ``chip_partition.py``'s 4-rank spawn):
+    the partitioned EPD step with the f32 wire, 1 warm-up and 5 timed
+    steps under ``ops.halo.stub_exchange_for_benchmark`` (the halo
+    exchange the identity) beside its timed steps without it: ms a step a
+    rank with and without the exchange, its share, K1 and K1b counted.
 
 The K1 phase also times a one-element PyTorch elementwise kernel under the
 same CUDA-graph replay (``launch_floor_ms``): the floor under any kernel's
@@ -449,6 +462,16 @@ BUCKET_FRAMES, BUCKET_BATCH, BUCKET_WORKERS = 4, 4, 2
 # block on the CPU may err at most this many times the plain f32 block's
 # own error, per gradient (the error below 1e-7 counts as 1e-7)
 PBG_ERROR_FACTOR = 4.0
+# host_native: the host C++ graph builders against their plain versions on
+# the host CPU, best of HOST_REPEATS each: FaceToEdge on tet_grid(32)'s faces
+# (the XDMF phases' mesh), k-hop at HOST_HOPS on the 16,384-node grid
+# (chip_partition.MESH), the ELL grouping of the cylinder batch's graph
+# (HOST_ELL_GRAPHS meshes of triangulated_grid(64, 32) as one graph)
+HOST_REPEATS = 3
+HOST_TET_GRID = 32
+HOST_GRID = (128, 128)
+HOST_HOPS = (2, 3)
+HOST_ELL_MESH, HOST_ELL_GRAPHS = (64, 32), 8
 
 
 def emit(obj) -> None:
@@ -595,6 +618,74 @@ def device_breakdown(fn, frames: int, unit: str = "frame", host_ops: bool = True
             for r in top
         ],
     }
+
+
+def host_cpu() -> str:
+    """The host CPU: its model (``/proc/cpuinfo``, where it names one), its
+    architecture and its core count."""
+    import platform
+
+    model = "model not named"
+    try:
+        with open("/proc/cpuinfo") as f:
+            model = next((line.split(":", 1)[1].strip() for line in f
+                          if line.split(":", 1)[0].strip() in ("model name", "Model", "Hardware")),
+                         model)
+    except OSError:
+        pass
+    return f"{model}, {platform.machine()}, {os.cpu_count()} cores"
+
+
+def host_native() -> dict:
+    """The host C++ graph builders (``graphphysics_torch.native``) that the
+    data path's ``face_to_edge``, ``k_hop_edges`` and ``build_ell`` run,
+    each against its plain numpy / scipy version on the same input, on the
+    host CPU of the card's machine: wall ms, best of ``HOST_REPEATS``, and
+    the plain version's ms over the C++'s. Raises unless every output is
+    bit-equal (arrays and dtypes)."""
+    from graphphysics_torch.topology import build as topo
+    from graphphysics_torch.topology import ell
+    from graphphysics_torch.utils.synthetic import tet_grid, triangulated_grid
+
+    def best(fn, *args, **kwargs):
+        times, out = [], None
+        for _ in range(HOST_REPEATS):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return min(times), out
+
+    def compare(name, native_fn, plain_fn, *args, **kwargs):
+        cpp_ms, got = best(native_fn, *args, **kwargs)
+        plain_ms, want = best(plain_fn, *args, **kwargs)
+        same = len(got) == len(want) and all(
+            a.dtype == b.dtype and np.array_equal(a, b) if isinstance(a, np.ndarray) else a == b
+            for a, b in zip(got, want))
+        if not same:
+            raise AssertionError(f"host_native:{name}: the C++ output differs from the plain version's")
+        return {"cpp_ms": cpp_ms, "plain_ms": plain_ms, "plain_over_cpp": plain_ms / cpp_ms,
+                "bit_equal": True, "output_rows": int(len(got[0]))}
+
+    faces = topo.tetra_to_faces(tet_grid(HOST_TET_GRID)[1])
+    out = {"host_cpu": host_cpu(), "repeats": HOST_REPEATS,
+           "face_to_edge": {"input": f"tetra_to_faces(tet_grid({HOST_TET_GRID})), {len(faces)} faces",
+                            **compare("face_to_edge", topo.face_to_edge, topo.face_to_edge_reference,
+                                      faces)}}
+    s, r = topo.face_to_edge(triangulated_grid(*HOST_GRID)[1])
+    n = HOST_GRID[0] * HOST_GRID[1]
+    for k in HOST_HOPS:
+        out[f"k_hop_edges_k{k}"] = {
+            "input": f"triangulated_grid{HOST_GRID}, {n} nodes, {len(s)} edges",
+            **compare(f"k_hop_edges_k{k}", topo.k_hop_edges, topo.k_hop_edges_reference, s, r, n, k)}
+    s, r = topo.face_to_edge(triangulated_grid(*HOST_ELL_MESH)[1])
+    per = HOST_ELL_MESH[0] * HOST_ELL_MESH[1]
+    s = np.concatenate([s + i * per for i in range(HOST_ELL_GRAPHS)])
+    r = np.concatenate([r + i * per for i in range(HOST_ELL_GRAPHS)])
+    out["build_ell"] = {
+        "input": f"{HOST_ELL_GRAPHS} x triangulated_grid{HOST_ELL_MESH}, {HOST_ELL_GRAPHS * per} nodes, "
+                 f"{len(s)} edges",
+        **compare("build_ell", ell.build_ell, ell.build_ell_reference, s, r, HOST_ELL_GRAPHS * per)}
+    return out
 
 
 def random_graph(n, e, n_pad, e_pad, seed):
@@ -3450,9 +3541,16 @@ def main() -> int:
         "gather_csr": gather_csr,
     }
 
-    # 1. environment and build ---------------------------------------------------
+    # 1. environment and build: the kernels, and the host C++ beside them ----------
+    from concurrent.futures import ThreadPoolExecutor
+
+    from graphphysics_torch import native
+
     t0 = time.perf_counter()
-    build_s = _native.build()
+    with ThreadPoolExecutor(1) as pool:
+        host_build = pool.submit(native.build)
+        build_s = _native.build()
+        host_build_s = host_build.result()
     clock.emit({
         "phase": "build",
         "nvidia_smi": smi,
@@ -3463,8 +3561,12 @@ def main() -> int:
         "build_s": build_s,
         "build_wall_s": time.perf_counter() - t0,
         "libraries": [_native.library_path(s).name for s in _native.SOURCES],
+        "host_library": native.library_path().name,
+        "host_build_s": host_build_s,
         "tf32": False,
     })
+    # 48. the host C++ graph builders against their plain versions
+    clock.emit({"phase": "host_native", **host_native()})
 
     # host side of the two serving paths: trajectories of 2,048 nodes
     epd_frames, epd_sizes = trajectory_frames(

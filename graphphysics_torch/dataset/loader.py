@@ -22,6 +22,7 @@ epochs), which give the same batches bit for bit."""
 
 from __future__ import annotations
 
+import functools
 import os
 import pickle
 import queue
@@ -103,11 +104,17 @@ class EpochBatches(torch.utils.data.Sampler):
         return len(self.batches)
 
 
-def init_worker(worker_id: int) -> None:
+def init_worker(worker_id: int, build_dir: Optional[str] = None) -> None:
     """A loader worker builds items on the host only: one torch thread, and
-    no card visible to it."""
+    no card visible to it. It looks for the host C++ graph builders'
+    library (``graphphysics_torch.native``) in ``build_dir``, the parent's
+    build directory."""
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
     torch.set_num_threads(1)
+    if build_dir is not None:
+        from graphphysics_torch.ops import _native
+
+        _native.set_build_dir(build_dir)
 
 
 def materialize_static_shapes(dataset, first_index: int) -> None:
@@ -341,6 +348,8 @@ class GraphLoader:
 
     def _from_workers(self, chunks: Sequence[np.ndarray]) -> Iterator[Graph]:
         if self._workers is None:
+            from graphphysics_torch.ops import _native
+
             first = int(chunks[0][0]) if chunks else 0
             materialize_static_shapes(self.dataset, first if first >= 0 else -1 - first)
             fd, path = tempfile.mkstemp(prefix="graphloader-", suffix=".pkl")
@@ -356,7 +365,7 @@ class GraphLoader:
                 multiprocessing_context="spawn",
                 prefetch_factor=max(self.prefetch, 1),
                 timeout=self.timeout,
-                worker_init_fn=init_worker,
+                worker_init_fn=functools.partial(init_worker, build_dir=str(_native.BUILD_DIR)),
             )
         # the tasks are read when the iterator starts (below), before the
         # next epoch can assign its own

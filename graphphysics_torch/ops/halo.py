@@ -147,6 +147,30 @@ def all_to_all(send: torch.Tensor, axis_name: str, async_op: bool = False) -> Pe
 exchange = all_to_all
 
 
+def _identity_exchange(send: torch.Tensor, axis_name: str, async_op: bool = False) -> Pending:
+    return Pending(None, send)
+
+
+@contextlib.contextmanager
+def stub_exchange_for_benchmark():
+    """Make the halo exchange the identity while the context is open: each
+    rank gets back the ``[P * B, F]`` rows it sent, the same shape, and no
+    process group is touched, by the cotangent's exchange of a backward run
+    inside the context too (the all-gather mode is left as it is). Timing a partitioned
+    step under it and without it splits the step into compute and
+    exchange. The results are WRONG under the stub: use it for timing
+    only. The port runs eagerly, so the stub takes effect at the next
+    exchange, with nothing to retrace. Leaving the context, also by an
+    exception, restores the primitive that was in place."""
+    global exchange
+    previous = exchange
+    exchange = _identity_exchange
+    try:
+        yield
+    finally:
+        exchange = previous
+
+
 class _Exchange(torch.autograd.Function):
     """The received rows of an exchange started on ``send``: the forward
     waits for it, the backward exchanges the cotangent back."""

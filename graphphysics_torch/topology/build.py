@@ -1,4 +1,5 @@
-"""Host-side mesh-topology construction (numpy / scipy), the counterpart of
+"""Host-side mesh-topology construction (numpy / scipy, and the host C++ of
+``graphphysics_torch.native``), the counterpart of
 ``graphphysics_tpu/topology/build.py``:
 
 - PyG ``T.FaceToEdge`` (undirected, deduplicated edges of each triangle);
@@ -6,10 +7,16 @@
   boundary surface of a tetrahedral mesh;
 - PyG ``T.Cartesian(norm=False) + T.Distance(norm=False)`` edge features,
   and their world-position twin;
-- the k-hop adjacency (scipy sparse powers), the cKDTree world edges
+- the k-hop adjacency, the cKDTree world edges
   between obstacle and deformable nodes, and random long-range edges
   (PyG ``add_random_edge(force_undirected=True)``);
 - the distance of each node to the nearest node of a type.
+
+``face_to_edge`` and ``k_hop_edges`` run the host C++
+(``native.face_to_edge_native``, ``native.k_hop_native``);
+``face_to_edge_reference`` and ``k_hop_edges_reference`` are their plain
+numpy / scipy versions, which give the same arrays bit for bit and which
+the tests hold them to.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ from typing import Optional, Tuple
 import numpy as np
 import scipy.sparse as sp
 from scipy.spatial import cKDTree
+
+from graphphysics_torch.native import face_to_edge_native, k_hop_native
 
 
 def unique_pairs(
@@ -48,12 +57,27 @@ def to_undirected(
     return unique_pairs(s[keep], r[keep])
 
 
-def face_to_edge(faces: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """Triangles ``[F, 3]`` -> undirected deduplicated edge list: each
-    triangle contributes its three sides in both directions."""
+def _triangles(faces) -> np.ndarray:
     faces = np.asarray(faces)
     if faces.ndim != 2 or faces.shape[-1] != 3:
         raise ValueError(f"expected [F, 3] triangles, got {faces.shape}")
+    return faces
+
+
+def face_to_edge(faces: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Triangles ``[F, 3]`` -> undirected deduplicated edge list: each
+    triangle contributes its three sides in both directions, sorted by
+    (sender, receiver), int32. The host C++ builds it (no faces: the plain
+    version)."""
+    faces = _triangles(faces)
+    if not len(faces):
+        return face_to_edge_reference(faces)
+    return face_to_edge_native(faces, int(faces.max()) + 1)
+
+
+def face_to_edge_reference(faces: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The plain numpy version of ``face_to_edge``."""
+    faces = _triangles(faces)
     s = np.concatenate([faces[:, 0], faces[:, 1], faces[:, 0]])
     r = np.concatenate([faces[:, 1], faces[:, 2], faces[:, 2]])
     return to_undirected(s, r)
@@ -126,8 +150,21 @@ def k_hop_edges(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """The edges of the k-hop adjacency: every pair joined by a walk of at
     most ``num_hops`` edges, without self loops, sorted by (sender,
-    receiver). Boolean sparse powers ``A_k = A_k + A_k @ A``, the diagonal
-    dropped after each."""
+    receiver), int32; the edges as they are for ``num_hops <= 1``. The host
+    C++ builds it: a breadth-first search from each node."""
+    if num_hops <= 1:
+        return senders.astype(np.int32), receivers.astype(np.int32)
+    return k_hop_native(senders, receivers, num_nodes, num_hops)
+
+
+def k_hop_edges_reference(
+    senders: np.ndarray,
+    receivers: np.ndarray,
+    num_nodes: int,
+    num_hops: int,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The plain scipy version of ``k_hop_edges``: boolean sparse powers
+    ``A_k = A_k + A_k @ A``, the diagonal dropped after each."""
     if num_hops <= 1:
         return senders.astype(np.int32), receivers.astype(np.int32)
     adj = sp.coo_matrix(

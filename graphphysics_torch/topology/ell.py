@@ -1,5 +1,7 @@
 """The fixed-degree (ELL) edge layout (counterpart of
-``graphphysics_tpu/topology/ell.py``), numpy only.
+``graphphysics_tpu/topology/ell.py``). ``build_ell`` runs the host C++
+(``native.build_ell_native``); ``build_ell_reference`` is its plain numpy
+version, the same arrays bit for bit.
 
 Edges are grouped by receiver (their "owner") into ``degree`` slots per
 node, so that
@@ -19,6 +21,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import numpy as np
+
+from graphphysics_torch.native import build_ell_native
 
 
 class EllLayout(NamedTuple):
@@ -47,17 +51,50 @@ def build_ell(
     node (None: the largest in-degree rounded up to ``degree_multiple``).
     Within a node the slots keep the edges' order (a stable sort by
     receiver). Raises ``ValueError`` when a node's in-degree exceeds
-    ``degree`` or when an edge has no reversed twin."""
+    ``degree`` or when an edge has no reversed twin. The host C++ fills the
+    slots and finds the twins."""
     senders = np.asarray(senders, np.int64)
     receivers = np.asarray(receivers, np.int64)
-    e = len(senders)
-    counts = np.bincount(receivers, minlength=num_nodes)
-    dmax = int(counts.max()) if e else 0
+    degree = _checked_degree(np.bincount(receivers, minlength=num_nodes), degree, degree_multiple)
+    senders_ell, edge_mask, edge_perm, twin_perm = build_ell_native(
+        senders, receivers, num_nodes, degree)
+    return EllLayout(
+        senders=senders_ell,
+        receivers=np.repeat(np.arange(num_nodes, dtype=np.int32), degree),
+        edge_mask=edge_mask,
+        edge_perm=edge_perm,
+        twin_perm=twin_perm,
+        degree=degree,
+    )
+
+
+def _checked_degree(counts: np.ndarray, degree: Optional[int], degree_multiple: int) -> int:
+    """``degree``, or the largest in-degree (``counts``: each node's)
+    rounded up to ``degree_multiple`` when None; raises ``ValueError`` when
+    a node's in-degree exceeds it."""
+    dmax = int(counts.max()) if len(counts) else 0
     if degree is None:
         degree = max(((dmax + degree_multiple - 1) // degree_multiple) * degree_multiple,
                      degree_multiple)
     if dmax > degree:
         raise ValueError(f"max in-degree {dmax} exceeds ELL degree {degree}")
+    return int(degree)
+
+
+def build_ell_reference(
+    senders: np.ndarray,
+    receivers: np.ndarray,
+    num_nodes: int,
+    degree: Optional[int] = None,
+    degree_multiple: int = 4,
+) -> EllLayout:
+    """The plain numpy version of ``build_ell``: a stable argsort by
+    receiver, and the twins through a sorted table of every slot's key."""
+    senders = np.asarray(senders, np.int64)
+    receivers = np.asarray(receivers, np.int64)
+    e = len(senders)
+    counts = np.bincount(receivers, minlength=num_nodes)
+    degree = _checked_degree(counts, degree, degree_multiple)
 
     owners = np.repeat(np.arange(num_nodes, dtype=np.int64), degree)
     n_slots = num_nodes * degree

@@ -1,12 +1,14 @@
 """Synthetic trajectories with the CylinderFlow, panels, DeformingPlate
-(press) and aneurysm schemas (counterpart of part of
+(plain and press) and aneurysm schemas (counterpart of
 ``graphphysics_tpu/utils/synthetic.py``). The array builders work in memory:
-each gives the trajectory dict and meta that a reader of the JAX package's
+each gives the trajectory dict and meta that a reader of a
 ``write_cylinder_h5``, ``write_panels_xdmf``, ``write_plate_press_h5`` or
-``write_aneurysm_xdmf`` files would see, and the ``*_conditions`` functions
-give each trajectory's draws as those writers make them. ``write_panels_xdmf`` and
-``write_aneurysm_xdmf`` write those files (XDMF with HDF5 heavy data, which
-needs ``h5py``) exactly as the JAX package does."""
+``write_aneurysm_xdmf`` file sees, and the ``*_conditions`` functions
+give each trajectory's draws as those writers make them. The writers
+(``write_cylinder_h5``, ``write_plate_h5``, ``write_plate_press_h5``: an
+h5 and its ``meta.json``; ``write_panels_xdmf``, ``write_aneurysm_xdmf``:
+XDMF with HDF5 heavy data) write those files exactly as the JAX package
+does; they need ``h5py``, imported where a file opens."""
 
 from __future__ import annotations
 
@@ -91,6 +93,28 @@ def cylinder_conditions(num_traj: int, seed: Optional[int] = None) -> List[float
         return [0.15 * k for k in range(num_traj)]
     rng = np.random.default_rng(seed)
     return [float(rng.uniform(0.0, 3.0)) for _ in range(num_traj)]
+
+
+def write_cylinder_h5(dirpath: str, num_traj: int = 2, steps: int = 12, nx: int = 12, ny: int = 8,
+                      grids: Optional[Sequence[Tuple[int, int]]] = None,
+                      seed: Optional[int] = None) -> Tuple[str, str]:
+    """A CylinderFlow-schema ``train.h5``: group ``k`` holds trajectory
+    ``k`` of ``cylinder_conditions`` on ``triangulated_grid(*grids[k])``
+    where ``grids`` is given (mesh sizes that differ, the size-bucketing
+    regime), else on ``triangulated_grid(nx, ny)``; and ``meta.json``.
+    Returns ``(h5_path, meta_path)``."""
+    import h5py
+
+    os.makedirs(dirpath, exist_ok=True)
+    grids = list(grids) if grids is not None else [(nx, ny)] * num_traj
+    h5_path = os.path.join(dirpath, "train.h5")
+    with h5py.File(h5_path, "w") as f:
+        for k, ((gx, gy), phase0) in enumerate(zip(grids, cylinder_conditions(len(grids), seed))):
+            traj, _ = cylinder_trajectory(steps, gx, gy, phase0=phase0)
+            g = f.create_group(str(k))
+            for name, array in traj.items():
+                g[name] = array
+    return h5_path, write_json(os.path.join(dirpath, "meta.json"), cylinder_meta(steps))
 
 
 def panels_meta(steps: int) -> Dict[str, Any]:
@@ -223,6 +247,32 @@ def plate_press_meta(steps: int) -> Dict[str, Any]:
     }
 
 
+def write_plate_h5(dirpath: str, num_traj: int = 1, steps: int = 8, n: int = 5) -> Tuple[str, str]:
+    """A DeformingPlate-schema ``train.h5`` on ``tet_grid(n)``: HANDLE
+    nodes at z = 0, OBSTACLE nodes at z = 1, the world position the mesh
+    lifted by ``0.02 * t`` in z at frame ``t``, the same in every
+    trajectory; and ``meta.json`` (``plate_press_meta``). Returns
+    ``(h5_path, meta_path)``."""
+    import h5py
+
+    os.makedirs(dirpath, exist_ok=True)
+    points, tets = tet_grid(n)
+    nt = np.full(len(points), int(NodeType.NORMAL), np.int32)
+    nt[points[:, 2] == 0.0] = int(NodeType.HANDLE)
+    nt[points[:, 2] == 1.0] = int(NodeType.OBSTACLE)
+    lift = np.array([0, 0, 1], np.float32)
+    world_pos = np.stack([points + 0.02 * t * lift for t in range(steps)]).astype(np.float32)
+    h5_path = os.path.join(dirpath, "train.h5")
+    with h5py.File(h5_path, "w") as f:
+        for k in range(num_traj):
+            g = f.create_group(str(k))
+            g["cells"] = np.repeat(tets[None], steps, axis=0)
+            g["mesh_pos"] = np.repeat(points[None], steps, axis=0)
+            g["node_type"] = np.repeat(nt[None, :, None], steps, axis=0)
+            g["world_pos"] = world_pos
+    return h5_path, write_json(os.path.join(dirpath, "meta.json"), plate_press_meta(steps))
+
+
 def plate_press_conditions(num_traj: int, seed: int = 0) -> List[Tuple[float, float, float]]:
     """The ``(cx, cy, speed)`` of each trajectory of
     ``write_plate_press_h5``: the punch's centre in [0.3, 0.7)^2 and its
@@ -275,6 +325,26 @@ def plate_press_trajectory(
     traj = {"cells": tets, "node_type": nt[:, None], "mesh_pos": points,
             "world_pos": np.stack(frames)}
     return traj, plate_press_meta(steps)
+
+
+def write_plate_press_h5(dirpath: str, num_traj: int = 4, steps: int = 40, nx: int = 10, nz: int = 3,
+                         seed: int = 0) -> Tuple[str, str]:
+    """A press ``train.h5``: group ``k`` holds ``plate_press_trajectory``
+    drawn with trajectory ``k`` of ``plate_press_conditions(num_traj,
+    seed)``, its static fields tiled over the frames; and ``meta.json``.
+    Returns ``(h5_path, meta_path)``; use a world-edge radius >= 0.08."""
+    import h5py
+
+    os.makedirs(dirpath, exist_ok=True)
+    h5_path = os.path.join(dirpath, "train.h5")
+    with h5py.File(h5_path, "w") as f:
+        for k, (cx, cy, speed) in enumerate(plate_press_conditions(num_traj, seed)):
+            traj, _ = plate_press_trajectory(steps, nx, nz, cx=cx, cy=cy, speed=speed)
+            g = f.create_group(str(k))
+            for name in ("cells", "mesh_pos", "node_type"):
+                g[name] = np.repeat(traj[name][None], steps, axis=0)
+            g["world_pos"] = traj["world_pos"]
+    return h5_path, write_json(os.path.join(dirpath, "meta.json"), plate_press_meta(steps))
 
 
 def aneurysm_meta(steps: int) -> Dict[str, Any]:

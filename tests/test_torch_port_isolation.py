@@ -77,10 +77,12 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "import graphphysics_torch.utils.meshmask, graphphysics_torch.utils.mesh_export\n"
         "import graphphysics_torch.utils.visualization, graphphysics_torch.cli.export\n"
         "import graphphysics_torch.cli.doctor, chip_utilities\n"
+        "import graphphysics_torch.native\n"
         "import threading, multiprocessing\n"
         "from graphphysics_torch.ops import _native\n"
         "print(json.dumps({'new': sorted(set(sys.modules) - before),\n"
         "                  'loaded': sorted(_native._loaded),\n"
+        "                  'host_library': graphphysics_torch.native._lib is not None,\n"
         "                  'threads': threading.active_count(),\n"
         "                  'children': len(multiprocessing.active_children())}))\n"
     )
@@ -93,6 +95,7 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
               if m.split(".")[0] in FORBIDDEN or m in ("h5py", "matplotlib")]
     assert leaked == []
     assert result["loaded"] == []
+    assert result["host_library"] is False
     assert result["threads"] == 1 and result["children"] == 0
 
 
