@@ -89,25 +89,16 @@ def _cs():
     return chip_smoke
 
 
-def k5_case(name, graph, width, seed, floor):
-    """K5 forward and backward on part 0 of ``graph``'s 4-way split-edge
-    partition, against their plain versions on the card, timed beside
-    their bounds, the plain versions and the replaced path."""
-    from graphphysics_torch.ops.csr_attention import (
-        NEG,
-        _merge_partials,
-        csr_softmax_spmm,
-        csr_softmax_spmm_backward,
-        csr_softmax_spmm_pair,
-        csr_softmax_spmm_pair_backward,
-        csr_softmax_spmm_pair_backward_reference,
-        csr_softmax_spmm_pair_reference,
-    )
+def k5_inputs(graph, width, seed):
+    """K5's inputs on part 0 of ``graph``'s 4-way split-edge partition, on
+    the card: ``(n, local slots, (seg_a, seg_b), (mask_a, mask_b),
+    (bounds_a, bounds_b), (scores_a, scores_b), (values_a, values_b), g)``,
+    masked scores at -1e30 as ``csr_sparse_attention`` masks them."""
+    from graphphysics_torch.ops.csr_attention import NEG
     from graphphysics_torch.parallel.graph_partition import partition_graph_halo_np
 
-    cs = _cs()
     part = partition_graph_halo_np(graph, PARTS, split_local=True)[0]
-    dev, h = torch.device("cuda"), cs.HEADS
+    dev, h = torch.device("cuda"), _cs().HEADS
     el, n = part.num_local_edges, part.num_nodes
     recv = torch.as_tensor(part.receivers).to(dev)
     mask = torch.as_tensor(part.edge_mask).to(dev)
@@ -121,6 +112,26 @@ def k5_case(name, graph, width, seed, floor):
         scores.append(torch.where(m[:, None], s, torch.full((), NEG, device=dev)))
         values.append(torch.randn((m.shape[0], width), generator=gen, device=dev))
     g = torch.randn((n, width), generator=gen, device=dev)
+    return n, el, seg, masks, bounds, scores, values, g
+
+
+def k5_case(name, graph, width, seed, floor):
+    """K5 forward and backward on part 0 of ``graph``'s 4-way split-edge
+    partition, against their plain versions on the card, timed beside
+    their bounds, the plain versions and the replaced path."""
+    from graphphysics_torch.ops.csr_attention import (
+        _merge_partials,
+        csr_softmax_spmm,
+        csr_softmax_spmm_backward,
+        csr_softmax_spmm_pair,
+        csr_softmax_spmm_pair_backward,
+        csr_softmax_spmm_pair_backward_reference,
+        csr_softmax_spmm_pair_reference,
+    )
+
+    cs = _cs()
+    h = cs.HEADS
+    n, el, seg, masks, bounds, scores, values, g = k5_inputs(graph, width, seed)
 
     def pair(sa, va, sb, vb):
         return csr_softmax_spmm_pair(sa, va, seg[0], bounds[0], sb, vb, seg[1], bounds[1], *masks)

@@ -238,7 +238,20 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     the partitioned EPD step with the f32 wire, 1 warm-up and 5 timed
     steps under ``ops.halo.stub_exchange_for_benchmark`` (the halo
     exchange the identity) beside its timed steps without it: ms a step a
-    rank with and without the exchange, its share, K1 and K1b counted.
+    rank with and without the exchange, its share, K1 and K1b counted;
+50. ``stream_dtypes`` (``chip_stream.py``, after the K3 kernel phase): the
+    TPU kernels' two 16-bit stream modes. K1 and K1b on bf16 and f16 data
+    at K1's shapes (the forward within one ulp of the output dtype of its
+    plain version, the backward bit-equal, a hub row of 4,096 unit edges
+    reading exactly 4,096); the ``stream_dtype="bf16"`` entries of K2, K5
+    and the fused forward (f32 and bf16 q, k, v) at their kernels' shapes,
+    each against its plain version and each differing from the mode
+    without the stream by more than that tolerance; all timed beside their
+    bounds, plain versions, the entries without the stream and (K1) the
+    upcast path they replace and ``index_add_``. Then the slice's path:
+    ``masked_segment_sum`` on bf16 and f16 data and the three functions
+    with the stream, forward and backward, each new entry and each
+    backward entry they take counted once, nothing else.
 
 The K1 phase also times a one-element PyTorch elementwise kernel under the
 same CUDA-graph replay (``launch_floor_ms``): the floor under any kernel's
@@ -2286,25 +2299,6 @@ def plate_pipeline(name, param, counts, seed, workers):
 # bf16 compute, remat and the large mesh
 
 
-def open_variant_bounds(epd_batch, csr_batch):
-    """The memory bounds of the two dtype variants of ported TPU kernels
-    that no model path runs and the port has not ported (``PERF.md`` §6), at
-    the training batches, by K1's and K2's byte counts with 2 bytes a
-    streamed element: K1's 16-bit stream (``pallas_segment.py:161,193``;
-    bf16 messages in, bf16 rows out) on the cylinder batch, and K2's
-    ``stream_dtype="bf16"`` (``pallas_attention.py:275-302``; bf16 scores
-    and values in, f32 out and ml) on the panels batch, width 128."""
-    k1_edges = int(np.asarray(epd_batch.edge_mask).sum())
-    k2_edges = int(np.asarray(csr_batch.edge_mask).sum())
-    n1, n2, h = epd_batch.num_nodes, csr_batch.num_nodes, HEADS
-    k1 = k1_edges * (HIDDEN * 2 + 1) + n1 * (8 + HIDDEN * 2)
-    k2 = k2_edges * (2 * h + 2 * HIDDEN + 1) + n2 * (4 * HIDDEN + 8 * h + 8)
-    return {"k1_16bit_stream": {"real_edges": k1_edges, "nodes": n1, "width": HIDDEN, "bytes": k1,
-                                "bound_ms": k1 / H100_BYTES_PER_S * 1e3},
-            "k2_bf16_stream": {"real_edges": k2_edges, "nodes": n2, "width": HIDDEN, "heads": h,
-                               "bytes": k2, "bound_ms": k2 / H100_BYTES_PER_S * 1e3}}
-
-
 def fused_bf16_case(name, graph, width, seed, heads=HEADS, view="model", library=True):
     """Hold the fused attention's bf16 entries (``csr_attention_bf16`` and
     ``csr_attention_bwd_bf16``) against their plain versions on the same
@@ -3490,6 +3484,46 @@ def checkpoint_roundtrip(name, param, make_traj, counts, expected, frame_kernel,
     }
 
 
+def kernel_counters() -> dict:
+    """Every kernel entry's launch counter by name (each has ``.launches``),
+    and ``gather_csr``'s count of transposed CSRs built."""
+    from graphphysics_torch.ops.csr_attention import (
+        csr_attention,
+        csr_attention_backward,
+        csr_softmax_spmm,
+        csr_softmax_spmm_backward,
+        csr_softmax_spmm_pair,
+        csr_softmax_spmm_pair_backward,
+        gather_csr,
+    )
+    from graphphysics_torch.ops.csr_segment import csr_segment_sum, csr_segment_sum_backward
+
+    return {
+        "csr_segment_sum": csr_segment_sum,
+        "csr_segment_sum_backward": csr_segment_sum_backward,
+        "csr_softmax_spmm": csr_softmax_spmm,
+        "csr_softmax_spmm_backward": csr_softmax_spmm_backward,
+        "csr_attention": csr_attention,
+        "csr_attention_backward": csr_attention_backward,
+        "csr_attention_bf16": csr_attention.bf16,
+        "csr_attention_backward_bf16": csr_attention_backward.bf16,
+        "csr_softmax_spmm_pair": csr_softmax_spmm_pair,
+        "csr_softmax_spmm_pair_backward": csr_softmax_spmm_pair_backward,
+        # the 16-bit entries of K1 and K1b and the bf16 stream's entries
+        "csr_segment_sum_bf16": csr_segment_sum.bf16,
+        "csr_segment_sum_f16": csr_segment_sum.f16,
+        "csr_segment_sum_backward_bf16": csr_segment_sum_backward.bf16,
+        "csr_segment_sum_backward_f16": csr_segment_sum_backward.f16,
+        "csr_softmax_spmm_bf16_stream": csr_softmax_spmm.bf16_stream,
+        "csr_softmax_spmm_pair_bf16_stream": csr_softmax_spmm_pair.bf16_stream,
+        "csr_attention_f32_stream": csr_attention.f32_stream,
+        "csr_attention_bf16_stream": csr_attention.bf16_stream,
+        # not a kernel: the transposed CSR of the bf16 backward, built by
+        # PyTorch ops once per bf16 training forward on the card
+        "gather_csr": gather_csr,
+    }
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3506,16 +3540,6 @@ def main() -> int:
     from graphphysics_torch.core import concat_graphs
     from graphphysics_torch.dataset import build_preprocessing
     from graphphysics_torch.ops import _native
-    from graphphysics_torch.ops.csr_attention import (
-        csr_attention,
-        csr_attention_backward,
-        csr_softmax_spmm,
-        csr_softmax_spmm_backward,
-        csr_softmax_spmm_pair,
-        csr_softmax_spmm_pair_backward,
-        gather_csr,
-    )
-    from graphphysics_torch.ops.csr_segment import csr_segment_sum, csr_segment_sum_backward
     from graphphysics_torch.training import get_preprocessing
     from graphphysics_torch.utils.synthetic import cylinder_trajectory, panels_trajectory
 
@@ -3525,21 +3549,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     smi = nvidia_smi_line()
     clock = PhaseClock()
-    counts = {
-        "csr_segment_sum": csr_segment_sum,
-        "csr_segment_sum_backward": csr_segment_sum_backward,
-        "csr_softmax_spmm": csr_softmax_spmm,
-        "csr_softmax_spmm_backward": csr_softmax_spmm_backward,
-        "csr_attention": csr_attention,
-        "csr_attention_backward": csr_attention_backward,
-        "csr_attention_bf16": csr_attention.bf16,
-        "csr_attention_backward_bf16": csr_attention_backward.bf16,
-        "csr_softmax_spmm_pair": csr_softmax_spmm_pair,
-        "csr_softmax_spmm_pair_backward": csr_softmax_spmm_pair_backward,
-        # not a kernel: the transposed CSR of the bf16 backward, built by
-        # PyTorch ops once per bf16 training forward on the card
-        "gather_csr": gather_csr,
-    }
+    counts = kernel_counters()
 
     # 1. environment and build: the kernels, and the host C++ beside them ----------
     from concurrent.futures import ThreadPoolExecutor
@@ -3611,7 +3621,6 @@ def main() -> int:
     ]
     for s in k1b_shapes:
         clock.emit({"phase": "kernel", "name": "csr_segment_sum_backward", **s})
-    clock.emit({"phase": "open_variants", **open_variant_bounds(cyl_batch, tf_batch)})
     k3_shapes = [
         k3_case("transformer_serving_frame", tf_frames[0], HIDDEN, args.seed + 9),
         k3_case("panels_csr_batch_8x2048", tf_batch, HIDDEN, args.seed + 10),
@@ -3622,6 +3631,11 @@ def main() -> int:
     # K2 and K3 run on no transformer path now: their launches are their
     # kernel phases' (the checks, and each captured call of a timing)
     phase_launches = {k: counts[k].launches for k in ("csr_softmax_spmm", "csr_softmax_spmm_backward")}
+    # 50. the two 16-bit stream modes: their kernels, then their path
+    from chip_stream import stream_phase
+
+    streams, stream_path = stream_phase(clock, counts, args.seed + 70, epd_frames[0], cyl_batch, aneurysm_epd,
+                                        tf_frames[0], tf_batch, aneurysm_csr)
     fused = [
         fused_case("transformer_serving_frame", tf_frames[0], HIDDEN, args.seed + 12),
         fused_case("panels_csr_batch_8x2048", tf_batch, HIDDEN, args.seed + 13),
@@ -3868,7 +3882,8 @@ def main() -> int:
              **aneurysm_paths, "plate_pipeline": plate_result, **fidelity, **bf16_paths, **feature_paths,
              **{p: {"launches": launches} for p, launches in partition_paths.items()},
              **{p: {"launches": launches} for p, launches in dp_paths.items()},
-             **{p: {"launches": launches} for p, launches in mp_paths.items()}, **export_paths}
+             **{p: {"launches": launches} for p, launches in mp_paths.items()}, **export_paths,
+             "stream_dtypes": stream_path}
     launched = {k: sum(r["launches"].get(k, 0) for r in paths.values()) for k in counts}
     by_path = {k: {p: r["launches"].get(k, 0) for p, r in paths.items() if r["launches"].get(k, 0)}
                for k in counts}
@@ -3933,6 +3948,35 @@ def main() -> int:
               launches_by_path=by_path["csr_attention_backward_bf16"],
               also_replaces="the backward of csr_sparse_attention's gathers and SDDMM on bf16 q, k, v"),
     ]}
+    # the 16-bit stream modes' entries: launches from their path alone
+    for dt in ("bf16", "f16"):
+        shapes = streams[f"csr_segment_sum_{dt}"]
+        kernels["kernels"].append(entry(
+            f"csr_segment_sum_{dt}", "graphphysics_torch/csrc/csr_segment_sum.cu",
+            "graphphysics_tpu/ops/pallas_segment.py:148", launched[f"csr_segment_sum_{dt}"], shapes,
+            {"ulps": 1}, f32_entry_ms=shapes[1]["f32_entry_ms"], replaced_ms=shapes[1]["replaced_ms"],
+            launches_by_path=by_path[f"csr_segment_sum_{dt}"],
+            note=f"K1 on {dt} data (pallas_segment.py:161, :189-193): the sum in f32, rounded once"))
+        shapes = streams[f"csr_segment_sum_bwd_{dt}"]
+        kernels["kernels"].append(entry(
+            f"csr_segment_sum_backward_{dt}", "graphphysics_torch/csrc/csr_segment_sum.cu",
+            "graphphysics_tpu/ops/pallas_segment.py:228", launched[f"csr_segment_sum_backward_{dt}"],
+            shapes, 0.0, f32_entry_ms=shapes[1]["f32_entry_ms"], replaced_ms=shapes[1]["replaced_ms"],
+            launches_by_path=by_path[f"csr_segment_sum_backward_{dt}"]))
+    for name, source, replaces in (
+            ("csr_softmax_spmm_bf16_stream", "csr_softmax_spmm.cu", "graphphysics_tpu/ops/pallas_attention.py:255"),
+            ("csr_softmax_spmm_pair_bf16_stream", "csr_softmax_spmm_pair.cu",
+             "graphphysics_tpu/ops/pallas_attention.py:495"),
+            ("csr_attention_f32_stream", "csr_attention.cu", "graphphysics_tpu/ops/pallas_attention.py:255"),
+            ("csr_attention_bf16_stream", "csr_attention_bf16.cu",
+             "graphphysics_tpu/ops/pallas_attention.py:255")):
+        shapes = streams[name]
+        without = shapes[1].get("f32_entry_ms", shapes[1].get("without_stream_ms"))
+        kernels["kernels"].append(entry(
+            name, f"graphphysics_torch/csrc/{source}", replaces, launched[name], shapes,
+            shapes[1]["tolerance"], without_stream_ms=without, launches_by_path=by_path[name],
+            note="stream_dtype=\"bf16\" (pallas_attention.py:275-302): scores and values rounded to "
+                 "bf16, then f32"))
     print(smi, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({

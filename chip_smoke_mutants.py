@@ -18,7 +18,12 @@ against the plain versions (the share of elements that differ:
 gradient limits; the normalizer counters opened and closed no more, so
 they advance once per microbatch: the counter check); a fault in the ELL
 gather's backward moves ``compare_steps``, the check of the first ELL step
-against the same step in the model's own layout (the gradient limits).
+against the same step in the model's own layout (the gradient limits);
+a fault in the 16-bit stream modes (the 16-bit K1 summing in the data's
+dtype, the fused bf16 stream entry skipping its score rounding) moves the
+``stream_dtypes`` phase's checks (``chip_stream.py``): the hub row of 4,096
+unit edges and the one-ulp check against the plain version, and the check
+that a stream entry's output differs from the entry without the stream.
 
 For each fault the tree is copied to a temporary directory, one line of a
 source is replaced there, the kernels are built from the copy and the check
@@ -34,7 +39,7 @@ one CUDA card:
     python3 chip_smoke_mutants.py [name prefix]
 
 A name prefix (``k1b``, ``attn``, ``width``, ``resume``, ``bf16``,
-``microbatch``, ``ell``) runs those faults only. K2's
+``microbatch``, ``ell``, ``stream``) runs those faults only. K2's
 and K3's faults are caught by their kernel phases against their plain
 versions: no path of the models runs them.
 """
@@ -62,6 +67,9 @@ BF16_DK = "dka[i] += d[u][i % NP] * scale * qr[i];"
 BF16_DV = "dva[i] += round_to<__nv_bfloat16>(a[u][i % NP] * gr[i]);"
 BF16_ROW = "reinterpret_cast<const uint4*>(base + static_cast<int64_t>(j) * geo.width + r.col0);"
 BF16_SLOT = "const bool live = t < r.len;"
+K1_SUM = "for (int c = 0; c < C; ++c) acc[c] += x[c];"
+BF16_FWD = "graphphysics_torch/csrc/csr_attention_bf16.cu"
+BF16_SCORE_ROUND = "for (int p = 0; p < NPR; ++p) s[u][p] = round_to<__nv_bfloat16>(s[u][p]);"
 MICRO = "graphphysics_torch/training/microbatch.py"
 MICRO_BACKWARD = "        ls.backward()  # frees this microbatch's graph before the next forward"
 MICRO_DIVIDE = "                p.grad.div_(denom)"
@@ -104,6 +112,15 @@ FAULTS = {
     # every node's last gathering edge adds nothing to its dk and dv
     "bf16_gather_rows_drop_last_slot": ("bf16transformer+kernel", BF16_BWD, BF16_SLOT,
                                         BF16_SLOT.replace("t < r.len", "t + 1 < r.len")),
+    # the 16-bit K1 entries keep their sum in the data's dtype: every partial
+    # sum rounded to bf16 / f16 (the f32 entry is unchanged: the rounding is
+    # the identity there)
+    "stream_k1_sums_in_16bit": ("stream", K1, K1_SUM, K1_SUM.replace(
+        "acc[c] += x[c];", "acc[c] = to_f32(from_f32<T>(acc[c] + x[c]));")),
+    # the fused bf16 stream entry skips its score rounding: the bf16 entry's
+    # function again
+    "stream_fused_skips_score_rounding": ("stream", BF16_FWD, BF16_SCORE_ROUND, BF16_SCORE_ROUND.replace(
+        "round_to<__nv_bfloat16>(s[u][p])", "s[u][p]")),
     # each microbatch's gradient divided by its own count, then averaged
     "microbatch_mean_of_means_epd": ("accum_epd", MICRO, (MICRO_BACKWARD, MICRO_DIVIDE), (
         "        (ls / torch.clamp(c, min=1.0) / len(micro)).backward()", "                pass")),
@@ -191,6 +208,50 @@ def read_ell_fault(name: str) -> dict:
     return out
 
 
+def read_stream_fault(name: str) -> dict:
+    """The ``stream_dtypes`` phase's checks with their limits lifted: the
+    hub row and the 16-bit K1 against its plain version in ulps at the
+    cylinder batch, both dtypes; the fused bf16 stream entry against its
+    plain version and against the bf16 entry at the panels batch (the
+    "differs" check stays, and a fault it catches is reported by its
+    message)."""
+    import torch
+
+    import chip_smoke as cs
+    import chip_stream as st
+
+    out = {"fault": name}
+    if name.startswith("stream_k1"):
+        st.K1_ULPS = math.inf
+        for dt in (torch.bfloat16, torch.float16):
+            key = st.SHORT[dt]
+            try:
+                out[f"hub_row_{key}"] = st.hub_row(dt)["hub_row"]
+            except AssertionError as err:
+                out[f"hub_row_{key}_caught_by"] = str(err)[:300]
+            out[f"max_ulps_{key}"] = st.k1_16bit_case("flagship_batch_8x2048", cs.flagship_batch(0), dt,
+                                                      0)[0]["max_ulps"]
+        return out
+    from graphphysics_torch.ops import csr_attention as ca
+
+    seg, gather, bounds, mask, q, k, v, scale = st.fused_stream_inputs(cs.panels_batch(200), cs.HIDDEN, 17,
+                                                                       torch.bfloat16)
+    with torch.no_grad():
+        got, _ = ca.csr_attention(q, k, v, seg, gather, bounds, mask, scale, stream_dtype="bf16")
+        want, _ = ca.csr_attention_reference(q, k, v, seg, gather, bounds.shape[1], mask, scale,
+                                             stream_dtype="bf16")
+        base, _ = ca.csr_attention(q, k, v, seg, gather, bounds, mask, scale)
+    out.update({"plain_max_abs_err": (got.float() - want.float()).abs().max().item(),
+                "plain_mismatch_share": (got != want).float().mean().item(),
+                "plain_within_tolerance": torch.allclose(got.float(), want.float(), rtol=cs.BF16_KERNEL_RTOL,
+                                                         atol=cs.BF16_KERNEL_ATOL)})
+    try:
+        out.update(st._differs(name, got, base, rtol=cs.BF16_KERNEL_RTOL, atol=cs.BF16_KERNEL_ATOL))
+    except AssertionError as err:
+        out["differs_check_caught_by"] = str(err)[:300]
+    return out
+
+
 def read_fault(model: str, name: str) -> dict:
     """The fault's check with lifted limits, in the tree of the working
     directory."""
@@ -208,6 +269,8 @@ def read_fault(model: str, name: str) -> dict:
         return read_accum_fault(model, name)
     if model == "ell":
         return read_ell_fault(name)
+    if model == "stream":
+        return read_stream_fault(name)
     cs.STEP_LOSS_RTOL = cs.STEP_ROUNDOFF_SHARE = math.inf
     total_steps = 1 + cs.WARMUP_STEPS + cs.TIMED_STEPS + cs.PROFILED_STEPS
     if model.startswith("bf16transformer"):

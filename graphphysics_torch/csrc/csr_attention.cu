@@ -56,6 +56,17 @@
 //
 // The entry is csr_attention_f32 (q, k, v, out float). The bf16 entry is
 // csr_attention_bf16.cu, a kernel of its own with 16-byte bf16 lanes.
+//
+// stream_dtype="bf16" (entry csr_attention_f32_stream): the JAX caller
+// computes the f32 scores, then streams them and the gathered v rows to its
+// K2 rounded to bf16 (pallas_attention.py:598-619, :287-302), which
+// computes in f32 from the rounded values. Here neither ever reaches device
+// memory, so the mode is a compile-time flag of the same kernel (STREAM):
+// each edge's scores are rounded to bf16 (to nearest even) before they
+// enter the online softmax, and each gathered v element before it is
+// weighted. The bytes are the f32 entry's. The backward is the f32 one
+// (csr_attention_bwd.cu), which recomputes the unrounded scores, with this
+// pass's ml and out: JAX's gradient through `_bwd`.
 
 #include "csr_attention.cuh"
 
@@ -63,7 +74,7 @@ namespace {
 
 using namespace csr_attention;
 
-template <typename T, int V, int NP, bool GEN>
+template <typename T, int V, int NP, bool GEN, bool STREAM>
 __global__ void __launch_bounds__(kThreads)
 csr_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int32_t* __restrict__ gather_idx,
@@ -98,6 +109,10 @@ csr_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       load_row<V, GEN>(v, jn, geo, r, vn);
       float s[NP];
       edge_scores<V, NP, GEN>(geo, r, qr, kc, scale, s, scratch);
+      if constexpr (STREAM) {
+#pragma unroll
+        for (int p = 0; p < NP; ++p) s[p] = round_to<__nv_bfloat16>(s[p]);
+      }
       if (j >= 0) {  // uniform across the row's lanes
         float alpha[NP], pe[NP];
 #pragma unroll
@@ -109,7 +124,10 @@ csr_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
           m[p] = m_new;
         }
 #pragma unroll
-        for (int i = 0; i < V; ++i) acc[i] = acc[i] * alpha[i % NP] + pe[i % NP] * vc[i];
+        for (int i = 0; i < V; ++i) {
+          const float x = STREAM ? round_to<__nv_bfloat16>(vc[i]) : vc[i];
+          acc[i] = acc[i] * alpha[i % NP] + pe[i % NP] * x;
+        }
       }
       j = jn;
 #pragma unroll
@@ -134,13 +152,13 @@ csr_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int V, int NP, bool GEN>
+template <typename T, int V, int NP, bool GEN, bool STREAM>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* gather_idx,
                    const void* bounds, const void* mask, void* out, void* ml, long long num_rows,
                    long long num_edges, const Geometry& geo, float scale, cudaStream_t stream) {
   const long long threads = num_rows * geo.lanes;
   const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) / kThreads));
-  csr_attention_kernel<T, V, NP, GEN><<<grid, kThreads, shared_bytes(geo), stream>>>(
+  csr_attention_kernel<T, V, NP, GEN, STREAM><<<grid, kThreads, shared_bytes(geo), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int32_t*>(gather_idx), static_cast<const int32_t*>(bounds),
       static_cast<const uint8_t*>(mask), static_cast<T*>(out), static_cast<float*>(ml),
@@ -148,8 +166,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* gath
   return cudaGetLastError();
 }
 
-// The instantiation of the geometry's case for element type T.
-template <typename T>
+// The instantiation of the geometry's case for element type T, with the
+// bf16 stream's roundings or without.
+template <typename T, bool STREAM>
 int run(const void* q, const void* k, const void* v, const void* gather_idx, const void* bounds,
         const void* mask, void* out, void* ml, long long num_rows, long long num_edges,
         int num_heads, int width, int interleaved, int lanes, float scale, void* stream) {
@@ -161,10 +180,10 @@ int run(const void* q, const void* k, const void* v, const void* gather_idx, con
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define CASE(V, NP)      \
   case (V) * 32 + (NP): \
-    return static_cast<int>(launch<T, V, NP, false>(q, k, v, gather_idx, bounds, mask, out, ml, num_rows, num_edges, geo, scale, s));
+    return static_cast<int>(launch<T, V, NP, false, STREAM>(q, k, v, gather_idx, bounds, mask, out, ml, num_rows, num_edges, geo, scale, s));
 #define GENERAL_CASE(V) \
   case 1024 + (V):      \
-    return static_cast<int>(launch<T, V, V, true>(q, k, v, gather_idx, bounds, mask, out, ml, num_rows, num_edges, geo, scale, s));
+    return static_cast<int>(launch<T, V, V, true, STREAM>(q, k, v, gather_idx, bounds, mask, out, ml, num_rows, num_edges, geo, scale, s));
   switch (case_key(geo)) {
     CSR_ATTENTION_CASES(CASE)
     CSR_ATTENTION_GENERAL_CASES(GENERAL_CASE)
@@ -189,6 +208,17 @@ extern "C" int csr_attention_f32(const void* q, const void* k, const void* v, co
                                  const void* bounds, const void* mask, void* out, void* ml,
                                  long long num_rows, long long num_edges, int num_heads, int width,
                                  int interleaved, int lanes, float scale, void* stream) {
-  return run<float>(q, k, v, gather_idx, bounds, mask, out, ml, num_rows, num_edges, num_heads,
-                    width, interleaved, lanes, scale, stream);
+  return run<float, false>(q, k, v, gather_idx, bounds, mask, out, ml, num_rows, num_edges,
+                           num_heads, width, interleaved, lanes, scale, stream);
+}
+
+// The same with stream_dtype="bf16": each score and each gathered v
+// element rounded to bf16 before use.
+extern "C" int csr_attention_f32_stream(const void* q, const void* k, const void* v,
+                                        const void* gather_idx, const void* bounds,
+                                        const void* mask, void* out, void* ml, long long num_rows,
+                                        long long num_edges, int num_heads, int width,
+                                        int interleaved, int lanes, float scale, void* stream) {
+  return run<float, true>(q, k, v, gather_idx, bounds, mask, out, ml, num_rows, num_edges,
+                          num_heads, width, interleaved, lanes, scale, stream);
 }

@@ -42,6 +42,14 @@
 //   row base that is only 8-byte aligned. The host chooses by shape
 //   (ops/csr_attention.py, `bf16_geometry`).
 // Tensor cores do not apply: every edge dots a different k row.
+//
+// stream_dtype="bf16" (entry csr_attention_bf16_stream): JAX's caller
+// rounds the f32 scores to bf16 before its K2 (pallas_attention.py:287-302;
+// the v rows are bf16 already), so the mode is a compile-time flag of this
+// kernel (STREAM) that rounds each edge's scores to bf16 (to nearest even)
+// before they enter the online softmax. The bytes are the bf16 entry's. The
+// backward is the bf16 one (csr_attention_bwd_bf16.cu), which recomputes
+// the unrounded scores, with this pass's ml and out.
 
 #include "csr_attention_bf16.cuh"
 
@@ -49,7 +57,7 @@ namespace {
 
 using namespace csr_attention16;
 
-template <int V, int NP, int RS, bool GEN>
+template <int V, int NP, int RS, bool GEN, bool STREAM>
 __global__ void __launch_bounds__(kThreads)
 csr_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ gather_idx,
@@ -99,6 +107,10 @@ csr_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
         head_sums<V, NP, RS, GEN>(geo, r, qr, kr, s[u], scratch);
 #pragma unroll
         for (int p = 0; p < NPR; ++p) s[u][p] *= scale;
+        if constexpr (STREAM) {
+#pragma unroll
+          for (int p = 0; p < NPR; ++p) s[u][p] = round_to<__nv_bfloat16>(s[u][p]);
+        }
       }
       // one online-softmax step for the group: its max, one rescale
       float alpha[NPR];
@@ -150,18 +162,47 @@ csr_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
   }
 }
 
-template <int V, int NP, int RS, bool GEN>
+template <int V, int NP, int RS, bool GEN, bool STREAM>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* gather_idx,
                    const void* bounds, const void* mask, void* out, void* ml, long long num_rows,
                    long long num_edges, const Geometry& geo, float scale, cudaStream_t stream) {
   const long long threads = num_rows * geo.lanes;
   const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) / kThreads));
-  csr_attention_bf16_kernel<V, NP, RS, GEN><<<grid, kThreads, shared_bytes(geo), stream>>>(
+  csr_attention_bf16_kernel<V, NP, RS, GEN, STREAM><<<grid, kThreads, shared_bytes(geo), stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int32_t*>(gather_idx),
       static_cast<const int32_t*>(bounds), static_cast<const uint8_t*>(mask),
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(ml), num_rows, num_edges, geo, scale);
   return cudaGetLastError();
+}
+
+// The instantiation of the geometry's case, with the bf16 stream's score
+// rounding or without.
+template <bool STREAM>
+int run(const void* q, const void* k, const void* v, const void* gather_idx, const void* bounds,
+        const void* mask, void* out, void* ml, long long num_rows, long long num_edges,
+        int num_heads, int width, int interleaved, int lanes, int general, float scale,
+        void* stream) {
+  if (num_rows <= 0) return 0;
+  Geometry geo;
+  if (!make_geometry16(lanes, width, num_heads, interleaved, general, &geo)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CASE(V, NP, RS)                \
+  case (V) * 256 + (NP) * 8 + (RS): \
+    return static_cast<int>(launch<V, NP, RS, false, STREAM>(q, k, v, gather_idx, bounds, mask, out, ml, num_rows, num_edges, geo, scale, s));
+#define GENERAL_CASE(V) \
+  case 1024 + (V):      \
+    return static_cast<int>(launch<V, V, 0, true, STREAM>(q, k, v, gather_idx, bounds, mask, out, ml, num_rows, num_edges, geo, scale, s));
+  switch (case_key16(geo)) {
+    CSR_ATTENTION16_CASES(CASE)
+    CSR_ATTENTION_GENERAL_CASES(GENERAL_CASE)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef CASE
+#undef GENERAL_CASE
 }
 
 }  // namespace
@@ -179,24 +220,17 @@ extern "C" int csr_attention_bf16(const void* q, const void* k, const void* v, c
                                   const void* bounds, const void* mask, void* out, void* ml,
                                   long long num_rows, long long num_edges, int num_heads, int width,
                                   int interleaved, int lanes, int general, float scale, void* stream) {
-  if (num_rows <= 0) return 0;
-  Geometry geo;
-  if (!make_geometry16(lanes, width, num_heads, interleaved, general, &geo)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CASE(V, NP, RS)                \
-  case (V) * 256 + (NP) * 8 + (RS): \
-    return static_cast<int>(launch<V, NP, RS, false>(q, k, v, gather_idx, bounds, mask, out, ml, num_rows, num_edges, geo, scale, s));
-#define GENERAL_CASE(V) \
-  case 1024 + (V):      \
-    return static_cast<int>(launch<V, V, 0, true>(q, k, v, gather_idx, bounds, mask, out, ml, num_rows, num_edges, geo, scale, s));
-  switch (case_key16(geo)) {
-    CSR_ATTENTION16_CASES(CASE)
-    CSR_ATTENTION_GENERAL_CASES(GENERAL_CASE)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef CASE
-#undef GENERAL_CASE
+  return run<false>(q, k, v, gather_idx, bounds, mask, out, ml, num_rows, num_edges, num_heads,
+                    width, interleaved, lanes, general, scale, stream);
+}
+
+// The same with stream_dtype="bf16": each score rounded to bf16 before use.
+extern "C" int csr_attention_bf16_stream(const void* q, const void* k, const void* v,
+                                         const void* gather_idx, const void* bounds,
+                                         const void* mask, void* out, void* ml, long long num_rows,
+                                         long long num_edges, int num_heads, int width,
+                                         int interleaved, int lanes, int general, float scale,
+                                         void* stream) {
+  return run<true>(q, k, v, gather_idx, bounds, mask, out, ml, num_rows, num_edges, num_heads,
+                   width, interleaved, lanes, general, scale, stream);
 }

@@ -24,34 +24,108 @@
 // register, and store once. Edges whose mask byte is 0 add nothing; rows
 // with no edges store 0. What this simple version leaves for later:
 // 16-byte vector loads, TMA staging, and balancing long rows across warps.
+//
+// 16-bit data (entries csr_segment_sum_bf16, csr_segment_sum_f16). The
+// TPU kernel meant to take bf16 or f16 data as it is: it pads the data in
+// its own dtype, sums into an f32 buffer and casts the rows back
+// (pallas_segment.py:161, :189-193), the function of the JAX
+// masked_segment_sum on 16-bit input (sum in f32, round once). The same
+// kernel, instantiated on the element type: each element is widened to f32
+// as it is read, the sum stays in an f32 register, and the row is rounded
+// once (to nearest even) to the data's dtype when it is stored. A sum in 16
+// bits would be wrong, not slower: 4,096 ones summed in bf16 stop at 256.
+// Where the width is even and both arrays 4-byte aligned a lane takes two
+// adjacent columns in one 4-byte load, so a warp still reads one 128-byte
+// line of an edge row. The bytes are the f32 entry's with 2 bytes an
+// element: E*H*2 + 8*N + E + N*H*2.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kLanes = 32;        // columns per warp
+constexpr int kLanes = 32;        // lanes (column groups) per warp
 constexpr int kRowsPerBlock = 8;  // warps (rows) per block
 
-__global__ void csr_segment_sum_kernel(const float* __restrict__ data,
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+
+// x rounded once, to nearest even, to the element type T
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16_rn(x); }
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half_rn(x); }
+
+__device__ __forceinline__ float2 pair_f32(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 pair_f32(const __half* p) {
+  return __half22float2(*reinterpret_cast<const __half2*>(p));
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store_pair(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+}
+
+// The C (1, or 2 for a 16-bit pair in one 4-byte word) columns at p, as f32.
+template <typename T, int C>
+__device__ __forceinline__ void load_cols(const T* __restrict__ p, float (&x)[C]) {
+  if constexpr (C == 2) {
+    const float2 f = pair_f32(p);
+    x[0] = f.x;
+    x[1] = f.y;
+  } else {
+    x[0] = to_f32(p[0]);
+  }
+}
+
+template <typename T, int C>
+__device__ __forceinline__ void store_cols(T* __restrict__ p, const float (&x)[C]) {
+  if constexpr (C == 2) {
+    store_pair(p, x[0], x[1]);
+  } else {
+    p[0] = from_f32<T>(x[0]);
+  }
+}
+
+// Lane threadIdx.x of warp threadIdx.y sums columns [col, col + C) of one
+// row in f32 and stores them rounded to T once.
+template <typename T, int C>
+__global__ void csr_segment_sum_kernel(const T* __restrict__ data,
                                        const int32_t* __restrict__ bounds,
                                        const uint8_t* __restrict__ mask,
-                                       float* __restrict__ out,
+                                       T* __restrict__ out,
                                        int64_t num_rows, int64_t num_edges,
                                        int32_t width) {
   const int64_t row = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.y;
-  const int64_t col = static_cast<int64_t>(blockIdx.y) * kLanes + threadIdx.x;
+  const int64_t col = (static_cast<int64_t>(blockIdx.y) * kLanes + threadIdx.x) * C;
   if (row >= num_rows || col >= width) return;
   // bounds is [2, num_rows]: starts, then ends; clamp to the edge array
   int64_t start = bounds[row];
   int64_t end = bounds[num_rows + row];
   start = start < 0 ? 0 : start;
   end = end > num_edges ? num_edges : end;
-  float acc = 0.0f;
+  float acc[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) acc[c] = 0.0f;
   for (int64_t e = start; e < end; ++e) {
-    if (mask == nullptr || mask[e]) acc += data[e * width + col];
+    if (mask == nullptr || mask[e]) {
+      float x[C];
+      load_cols<T, C>(data + e * width + col, x);
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[c] += x[c];
+    }
   }
-  out[row * width + col] = acc;
+  store_cols<T, C>(out + row * width + col, acc);
 }
 
 // Backward of the segment sum (K1b):
@@ -69,92 +143,137 @@ __global__ void csr_segment_sum_kernel(const float* __restrict__ data,
 // Bound: memory. No arithmetic; the bytes that must move are
 //   E_pad*H*4 (ddata written) + E_pad*(4 + 1) (receivers, mask byte)
 //   + N*(H*4 + 8) (each node's g row and bounds, read once)
+// (2 bytes an element in place of 4 for the 16-bit entries)
 // with E_pad every edge, padding included: each one is written.
 //
 // Design. Edge-parallel, so each edge row, padding included, is written by
 // exactly one group of threads and no zero pass is needed: in a
 // concatenated batch a graph's padded edges sit between its real edges and
 // the next graph's, and a walk over the row ranges would miss them. A
-// thread moves 4 columns of one edge row (one 16-byte load and store) when
-// H % 4 == 0 and both rows are 16-byte aligned, one column otherwise;
-// neighbouring threads take neighbouring columns, so a warp at H = 128 reads
-// one g row and writes one ddata row, each 512 contiguous bytes.
+// thread moves one word W of one edge row: 16 bytes (4 f32 or 8 16-bit
+// columns) when the width allows it and both rows are 16-byte aligned, one
+// column otherwise. The 16-bit entries (csr_segment_sum_bwd_bf16, _f16)
+// copy g's bits as they are, since the gradient of a sum is a gather: JAX's
+// `jnp.take(g, receivers)` in g's dtype. Neighbouring threads take
+// neighbouring words, so a warp at H = 128 in f32 reads one g row and
+// writes one ddata row, each 512 contiguous bytes (two rows in 16 bits).
 // Consecutive receiver-sorted edges mostly share a receiver, so the g rows
 // come from L2 after their first read.
 
-template <int V>
-__global__ void csr_segment_sum_bwd_kernel(const float* __restrict__ g,
+template <typename W>
+__global__ void csr_segment_sum_bwd_kernel(const W* __restrict__ g,
                                            const int32_t* __restrict__ recv,
                                            const int32_t* __restrict__ bounds,
                                            const uint8_t* __restrict__ mask,
-                                           float* __restrict__ ddata,
+                                           W* __restrict__ ddata,
                                            int64_t num_rows, int64_t num_edges,
-                                           int32_t width) {
-  const int64_t vecs = width / V;  // V-column vectors per row
+                                           int64_t words) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= num_edges * vecs) return;
-  const int64_t e = i / vecs;
-  const int64_t col = (i - e * vecs) * V;
+  if (i >= num_edges * words) return;
+  const int64_t e = i / words;  // ddata[i] is word i - e * words of edge row e
   const int64_t r = recv[e];
   bool live = (mask == nullptr || mask[e]) && r >= 0 && r < num_rows;
   if (live) live = bounds[r] <= e && e < bounds[num_rows + r];
-  float* dst = ddata + e * width + col;
-  if constexpr (V == 4) {
-    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (live) v = *reinterpret_cast<const float4*>(g + r * width + col);
-    *reinterpret_cast<float4*>(dst) = v;
-  } else {
-    *dst = live ? g[r * width + col] : 0.0f;
-  }
+  W v{};  // zero bits: 0.0 in every element type
+  if (live) v = g[r * words + (i - e * words)];
+  ddata[i] = v;
 }
 
 constexpr int kBwdThreads = 256;
 
-}  // namespace
-
-// data [E, H] f32, bounds [2, N] int32, mask [E] bool (or null), out [N, H]
-// f32; all device pointers, contiguous. Launches on `stream` and returns
-// cudaGetLastError() (0 when the launch was accepted).
-extern "C" int csr_segment_sum_f32(const void* data, const void* bounds,
-                                   const void* mask, void* out,
-                                   long long num_rows, long long num_edges,
-                                   int width, void* stream) {
+template <typename T>
+int forward(const void* data, const void* bounds, const void* mask, void* out,
+            long long num_rows, long long num_edges, int width, void* stream) {
+  const bool pairs = sizeof(T) == 2 && width % 2 == 0 &&
+                     reinterpret_cast<uintptr_t>(data) % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(out) % 4 == 0;
+  const int cols = pairs ? 2 * kLanes : kLanes;  // columns a warp covers
   const dim3 block(kLanes, kRowsPerBlock);
   const dim3 grid(static_cast<unsigned>((num_rows + kRowsPerBlock - 1) / kRowsPerBlock),
-                  static_cast<unsigned>((width + kLanes - 1) / kLanes));
-  csr_segment_sum_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(data), static_cast<const int32_t*>(bounds),
-      static_cast<const uint8_t*>(mask), static_cast<float*>(out), num_rows,
-      num_edges, width);
+                  static_cast<unsigned>((width + cols - 1) / cols));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* dp = static_cast<const T*>(data);
+  const auto* bp = static_cast<const int32_t*>(bounds);
+  const auto* mp = static_cast<const uint8_t*>(mask);
+  auto* op = static_cast<T*>(out);
+  if constexpr (sizeof(T) == 2) {
+    if (pairs) {
+      csr_segment_sum_kernel<T, 2><<<grid, block, 0, s>>>(dp, bp, mp, op, num_rows, num_edges, width);
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
+  csr_segment_sum_kernel<T, 1><<<grid, block, 0, s>>>(dp, bp, mp, op, num_rows, num_edges, width);
   return static_cast<int>(cudaGetLastError());
 }
 
-// g [N, H] f32, recv [E] int32, bounds [2, N] int32, mask [E] bool (or
-// null), ddata [E, H] f32; all device pointers, contiguous. Writes every
-// row of ddata. Launches on `stream` and returns cudaGetLastError() (0 when
-// the launch was accepted).
-extern "C" int csr_segment_sum_bwd_f32(const void* g, const void* recv,
-                                       const void* bounds, const void* mask,
-                                       void* ddata, long long num_rows,
-                                       long long num_edges, int width,
-                                       void* stream) {
-  if (num_edges <= 0 || width <= 0) return 0;
-  const bool vec4 = width % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(ddata) % 16 == 0;
-  const long long threads = num_edges * (vec4 ? width / 4 : width);
+// The gather, `words` words W an edge row.
+template <typename W>
+int gather(const void* g, const void* recv, const void* bounds, const void* mask, void* ddata,
+           long long num_rows, long long num_edges, long long words, void* stream) {
+  const long long threads = num_edges * words;
   const dim3 grid(static_cast<unsigned>((threads + kBwdThreads - 1) / kBwdThreads));
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* gp = static_cast<const float*>(g);
-  const auto* rp = static_cast<const int32_t*>(recv);
-  const auto* bp = static_cast<const int32_t*>(bounds);
-  const auto* mp = static_cast<const uint8_t*>(mask);
-  auto* dp = static_cast<float*>(ddata);
-  if (vec4) {
-    csr_segment_sum_bwd_kernel<4><<<grid, kBwdThreads, 0, s>>>(gp, rp, bp, mp, dp, num_rows,
-                                                                num_edges, width);
-  } else {
-    csr_segment_sum_bwd_kernel<1><<<grid, kBwdThreads, 0, s>>>(gp, rp, bp, mp, dp, num_rows,
-                                                                num_edges, width);
-  }
+  csr_segment_sum_bwd_kernel<W><<<grid, kBwdThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const W*>(g), static_cast<const int32_t*>(recv),
+      static_cast<const int32_t*>(bounds), static_cast<const uint8_t*>(mask),
+      static_cast<W*>(ddata), num_rows, num_edges, words);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One 16-byte word a thread where the width fills whole words and both
+// arrays are 16-byte aligned, else one column (`Scalar`) a thread.
+template <typename Scalar, typename Word>
+int backward(const void* g, const void* recv, const void* bounds, const void* mask, void* ddata,
+             long long num_rows, long long num_edges, int width, void* stream) {
+  if (num_edges <= 0 || width <= 0) return 0;
+  constexpr int per = sizeof(Word) / sizeof(Scalar);  // columns a word
+  const bool vec = width % per == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(ddata) % 16 == 0;
+  if (vec) return gather<Word>(g, recv, bounds, mask, ddata, num_rows, num_edges, width / per, stream);
+  return gather<Scalar>(g, recv, bounds, mask, ddata, num_rows, num_edges, width, stream);
+}
+
+}  // namespace
+
+// data [E, H], bounds [2, N] int32, mask [E] bool (or null), out [N, H] in
+// data's element type (f32, bf16 or f16 by the entry); all device pointers,
+// contiguous. Launches on `stream` and returns cudaGetLastError() (0 when
+// the launch was accepted).
+extern "C" int csr_segment_sum_f32(const void* data, const void* bounds, const void* mask,
+                                   void* out, long long num_rows, long long num_edges, int width,
+                                   void* stream) {
+  return forward<float>(data, bounds, mask, out, num_rows, num_edges, width, stream);
+}
+
+extern "C" int csr_segment_sum_bf16(const void* data, const void* bounds, const void* mask,
+                                    void* out, long long num_rows, long long num_edges, int width,
+                                    void* stream) {
+  return forward<__nv_bfloat16>(data, bounds, mask, out, num_rows, num_edges, width, stream);
+}
+
+extern "C" int csr_segment_sum_f16(const void* data, const void* bounds, const void* mask,
+                                   void* out, long long num_rows, long long num_edges, int width,
+                                   void* stream) {
+  return forward<__half>(data, bounds, mask, out, num_rows, num_edges, width, stream);
+}
+
+// g [N, H], recv [E] int32, bounds [2, N] int32, mask [E] bool (or null),
+// ddata [E, H] in g's element type (f32, bf16 or f16 by the entry); all
+// device pointers, contiguous. Writes every row of ddata. Launches on
+// `stream` and returns cudaGetLastError() (0 when the launch was accepted).
+extern "C" int csr_segment_sum_bwd_f32(const void* g, const void* recv, const void* bounds,
+                                       const void* mask, void* ddata, long long num_rows,
+                                       long long num_edges, int width, void* stream) {
+  return backward<float, float4>(g, recv, bounds, mask, ddata, num_rows, num_edges, width, stream);
+}
+
+extern "C" int csr_segment_sum_bwd_bf16(const void* g, const void* recv, const void* bounds,
+                                        const void* mask, void* ddata, long long num_rows,
+                                        long long num_edges, int width, void* stream) {
+  return backward<uint16_t, uint4>(g, recv, bounds, mask, ddata, num_rows, num_edges, width, stream);
+}
+
+extern "C" int csr_segment_sum_bwd_f16(const void* g, const void* recv, const void* bounds,
+                                       const void* mask, void* ddata, long long num_rows,
+                                       long long num_edges, int width, void* stream) {
+  return backward<uint16_t, uint4>(g, recv, bounds, mask, ddata, num_rows, num_edges, width, stream);
 }

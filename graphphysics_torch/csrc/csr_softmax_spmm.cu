@@ -40,7 +40,21 @@
 // per-edge dot products into the same loop, with several rows per warp and
 // the next edge's rows prefetched. This one stays for callers that hand in
 // their own scores, as split-edge partitioned attention will.
+//
+// stream_dtype="bf16" (entry csr_softmax_spmm_bf16_stream). The TPU kernel's
+// second mode packs the scores and values in bf16 and computes in f32 from
+// the rounded values (pallas_attention.py:255-302): it halves the edge
+// bytes, and what changes in the result is the input rounding alone. The
+// wrapper rounds the f32 scores and values to bf16 (one PyTorch cast each,
+// as JAX's packing is XLA's), and this kernel, instantiated on the element
+// type, reads the bf16 rows (V/8 16-byte loads a lane where V allows),
+// widens each element to f32, and does every sum, exponential and the
+// online (m, l) in f32; out and ml stay f32. Its bytes are
+//   E*(2H + 2D + 1) + N*(4D + 8H + 8).
+// Its backward is the f32 one (csr_softmax_spmm_bwd.cu) on the unrounded
+// inputs with this pass's ml and out, as JAX's `_fwd` saves them.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -75,9 +89,52 @@ __device__ __forceinline__ void load_cols(const float* __restrict__ p, float (&v
   }
 }
 
+// V bf16 columns at p as f32: 16-, 8- or 4-byte loads where V allows
 template <int V>
-__global__ void csr_softmax_spmm_kernel(const float* __restrict__ scores,
-                                        const float* __restrict__ values,
+__device__ __forceinline__ void load_cols(const __nv_bfloat16* __restrict__ p, float (&v)[V]) {
+  if constexpr (V % 8 == 0) {
+#pragma unroll
+    for (int i = 0; i < V / 8; ++i) {
+      const uint4 w = reinterpret_cast<const uint4*>(p)[i];
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = __bfloat1622float2(h[j]);
+        v[8 * i + 2 * j] = f.x;
+        v[8 * i + 2 * j + 1] = f.y;
+      }
+    }
+  } else if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < V / 4; ++i) {
+      const uint2 w = reinterpret_cast<const uint2*>(p)[i];
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float2 f = __bfloat1622float2(h[j]);
+        v[4 * i + 2 * j] = f.x;
+        v[4 * i + 2 * j + 1] = f.y;
+      }
+    }
+  } else if constexpr (V % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < V / 2; ++i) {
+      const float2 f = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(p)[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = __bfloat162float(p[i]);
+  }
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <int V, typename T>
+__global__ void csr_softmax_spmm_kernel(const T* __restrict__ scores,
+                                        const T* __restrict__ values,
                                         const int32_t* __restrict__ bounds,
                                         const uint8_t* __restrict__ mask,
                                         float* __restrict__ out,
@@ -102,7 +159,7 @@ __global__ void csr_softmax_spmm_kernel(const float* __restrict__ scores,
   for (int c = 0; c < V; ++c) acc[c] = 0.0f;
   for (int64_t e = start; e < end; ++e) {
     if (mask != nullptr && !mask[e]) continue;
-    const float s = scores[e * num_heads + head];
+    const float s = to_f32(scores[e * num_heads + head]);
     float v[V];
     load_cols<V>(values + e * width + col0, v);
     const float m_new = fmaxf(m, s);
@@ -122,18 +179,41 @@ __global__ void csr_softmax_spmm_kernel(const float* __restrict__ scores,
   }
 }
 
-template <int V>
+template <int V, typename T>
 cudaError_t launch(const void* scores, const void* values, const void* bounds,
                    const void* mask, void* out, void* ml, long long num_rows,
                    long long num_edges, int num_heads, cudaStream_t stream) {
   const dim3 block(kLanes, kRowsPerBlock);
   const dim3 grid(static_cast<unsigned>((num_rows + kRowsPerBlock - 1) / kRowsPerBlock));
-  csr_softmax_spmm_kernel<V><<<grid, block, 0, stream>>>(
-      static_cast<const float*>(scores), static_cast<const float*>(values),
+  csr_softmax_spmm_kernel<V, T><<<grid, block, 0, stream>>>(
+      static_cast<const T*>(scores), static_cast<const T*>(values),
       static_cast<const int32_t*>(bounds), static_cast<const uint8_t*>(mask),
       static_cast<float*>(out), static_cast<float*>(ml), num_rows, num_edges,
       num_heads, (kLanes * V) / num_heads);
   return cudaGetLastError();
+}
+
+// The instantiation of width D = 32 V for element type T.
+template <typename T>
+int run(const void* scores, const void* values, const void* bounds, const void* mask, void* out,
+        void* ml, long long num_rows, long long num_edges, int num_heads, int width,
+        void* stream) {
+  if (num_rows <= 0) return 0;
+  if (num_heads <= 0 || width % kLanes != 0 || width % num_heads != 0 ||
+      ((width / num_heads) % (width / kLanes)) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CASE(V) \
+  case V:       \
+    return static_cast<int>(launch<V, T>(scores, values, bounds, mask, out, ml, num_rows, num_edges, num_heads, s));
+  switch (width / kLanes) {
+    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+    CASE(9) CASE(10) CASE(11) CASE(12) CASE(13) CASE(14) CASE(15) CASE(16)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef CASE
 }
 
 }  // namespace
@@ -149,20 +229,17 @@ extern "C" int csr_softmax_spmm_f32(const void* scores, const void* values,
                                     void* out, void* ml, long long num_rows,
                                     long long num_edges, int num_heads,
                                     int width, void* stream) {
-  if (num_rows <= 0) return 0;
-  if (num_heads <= 0 || width % kLanes != 0 || width % num_heads != 0 ||
-      ((width / num_heads) % (width / kLanes)) != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CASE(V) \
-  case V:       \
-    return static_cast<int>(launch<V>(scores, values, bounds, mask, out, ml, num_rows, num_edges, num_heads, s));
-  switch (width / kLanes) {
-    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
-    CASE(9) CASE(10) CASE(11) CASE(12) CASE(13) CASE(14) CASE(15) CASE(16)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef CASE
+  return run<float>(scores, values, bounds, mask, out, ml, num_rows, num_edges, num_heads, width,
+                    stream);
+}
+
+// The same with scores [E, H] and values [E, D] in bf16 (values 16-byte
+// aligned): stream_dtype="bf16". out and ml stay f32.
+extern "C" int csr_softmax_spmm_bf16_stream(const void* scores, const void* values,
+                                            const void* bounds, const void* mask,
+                                            void* out, void* ml, long long num_rows,
+                                            long long num_edges, int num_heads,
+                                            int width, void* stream) {
+  return run<__nv_bfloat16>(scores, values, bounds, mask, out, ml, num_rows, num_edges,
+                            num_heads, width, stream);
 }

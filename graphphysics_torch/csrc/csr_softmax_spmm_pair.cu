@@ -58,7 +58,20 @@
 // D = 32k with H | k, and every head width dividing 32), else they go
 // through shared memory; the lane of a head's first column writes its
 // dscores.
+//
+// stream_dtype="bf16" (entry csr_softmax_spmm_pair_bf16_stream): JAX's pair
+// runs both partials' K2 in its bf16 stream mode (pallas_attention.py:460,
+// :255-302), which computes in f32 from scores and values rounded to bf16.
+// The wrapper rounds them (one PyTorch cast each), and the forward of the
+// general geometry, instantiated on the element type, reads both sets' bf16
+// scores and values, widens each element to f32 and merges in f32 as the
+// f32 entry does; out and ml stay f32. One geometry serves every width: the
+// general one (a warp reads 64 contiguous bytes of an edge's bf16 row per
+// 32-column slot). Its bytes are E*(2H + 2D + 1) + N*16 + N*(4D + 8H). The
+// backward is the f32 one on the unrounded inputs with this pass's merged
+// ml and out: JAX's `_pair_bwd`.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -72,15 +85,21 @@ constexpr int kMaxWidth = 512;
 constexpr float kNeg = -1e30f;  // finite -inf stand-in, as the TPU kernel
 constexpr float kEps = 1e-16f;  // the epsilon of segment_softmax
 
-struct EdgeSet {
-  const float* scores;   // [E, H]
-  const float* values;   // [E, D]
+template <typename T>
+struct EdgeSetOf {
+  const T* scores;       // [E, H]
+  const T* values;       // [E, D]
   const int32_t* bounds; // [2, N]
   const uint8_t* mask;   // [E] or null
   int64_t num_edges;
 };
+using EdgeSet = EdgeSetOf<float>;
 
-__device__ __forceinline__ void row_range(const EdgeSet& s, int64_t row, int64_t num_rows,
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename S>
+__device__ __forceinline__ void row_range(const S& s, int64_t row, int64_t num_rows,
                                           int64_t& start, int64_t& end) {
   start = s.bounds[row];
   end = s.bounds[num_rows + row];
@@ -88,32 +107,32 @@ __device__ __forceinline__ void row_range(const EdgeSet& s, int64_t row, int64_t
   end = end > s.num_edges ? s.num_edges : end;
 }
 
-template <int NC>
-__device__ __forceinline__ void walk(const EdgeSet& s, int64_t start, int64_t end, int width,
+template <int NC, typename T>
+__device__ __forceinline__ void walk(const EdgeSetOf<T>& s, int64_t start, int64_t end, int width,
                                      int num_heads, const int (&head)[NC], float (&m)[NC],
                                      float (&l)[NC], float (&acc)[NC]) {
   for (int64_t e = start; e < end; ++e) {
     if (s.mask != nullptr && !s.mask[e]) continue;
-    const float* sc = s.scores + e * num_heads;
-    const float* v = s.values + e * width;
+    const T* sc = s.scores + e * num_heads;
+    const T* v = s.values + e * width;
 #pragma unroll
     for (int i = 0; i < NC; ++i) {
       const int c = threadIdx.x + i * kLanes;
       if (c < width) {
-        const float x = sc[head[i]];
+        const float x = to_f32(sc[head[i]]);
         const float m_new = fmaxf(m[i], x);
         const float alpha = expf(m[i] - m_new);
         const float p = expf(x - m_new);
         l[i] = l[i] * alpha + p;
-        acc[i] = acc[i] * alpha + p * v[c];
+        acc[i] = acc[i] * alpha + p * to_f32(v[c]);
         m[i] = m_new;
       }
     }
   }
 }
 
-template <int NC>
-__global__ void pair_forward_kernel(EdgeSet a, EdgeSet b, float* __restrict__ out,
+template <int NC, typename T>
+__global__ void pair_forward_kernel(EdgeSetOf<T> a, EdgeSetOf<T> b, float* __restrict__ out,
                                     float* __restrict__ ml, int64_t num_rows, int width,
                                     int num_heads) {
   const int64_t row = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.y;
@@ -452,11 +471,12 @@ bool valid(int width, int num_heads) {
   return num_heads > 0 && width > 0 && width <= kMaxWidth && width % num_heads == 0;
 }
 
-EdgeSet edge_set(const void* scores, const void* values, const void* bounds, const void* mask,
-                 long long num_edges) {
-  return EdgeSet{static_cast<const float*>(scores), static_cast<const float*>(values),
-                 static_cast<const int32_t*>(bounds), static_cast<const uint8_t*>(mask),
-                 num_edges};
+template <typename T = float>
+EdgeSetOf<T> edge_set(const void* scores, const void* values, const void* bounds,
+                      const void* mask, long long num_edges) {
+  return EdgeSetOf<T>{static_cast<const T*>(scores), static_cast<const T*>(values),
+                      static_cast<const int32_t*>(bounds), static_cast<const uint8_t*>(mask),
+                      num_edges};
 }
 
 }  // namespace
@@ -499,9 +519,39 @@ extern "C" int csr_softmax_spmm_pair_f32(const void* scores_a, const void* value
   }
 #define CASE(NC)                                                                              \
   case NC:                                                                                    \
-    pair_forward_kernel<NC><<<grid, block, 0, s>>>(a, b, static_cast<float*>(out),            \
+    pair_forward_kernel<NC, float><<<grid, block, 0, s>>>(a, b, static_cast<float*>(out),     \
                                                    static_cast<float*>(ml), num_rows, width,  \
                                                    num_heads);                                \
+    break;
+  switch ((width + kLanes - 1) / kLanes) {
+    PAIR_CASES(CASE)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef CASE
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same with both sets' scores and values in bf16 (stream_dtype="bf16"),
+// in the general geometry for every width; out and ml f32.
+extern "C" int csr_softmax_spmm_pair_bf16_stream(const void* scores_a, const void* values_a,
+                                                 const void* bounds_a, const void* mask_a,
+                                                 const void* scores_b, const void* values_b,
+                                                 const void* bounds_b, const void* mask_b,
+                                                 void* out, void* ml, long long num_rows,
+                                                 long long edges_a, long long edges_b,
+                                                 int num_heads, int width, void* stream) {
+  if (num_rows <= 0) return 0;
+  if (!valid(width, num_heads)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto a = edge_set<__nv_bfloat16>(scores_a, values_a, bounds_a, mask_a, edges_a);
+  const auto b = edge_set<__nv_bfloat16>(scores_b, values_b, bounds_b, mask_b, edges_b);
+  const dim3 block(kLanes, kRowsPerBlock);
+  const dim3 grid(static_cast<unsigned>((num_rows + kRowsPerBlock - 1) / kRowsPerBlock));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CASE(NC)                                                                              \
+  case NC:                                                                                    \
+    pair_forward_kernel<NC, __nv_bfloat16><<<grid, block, 0, s>>>(                            \
+        a, b, static_cast<float*>(out), static_cast<float*>(ml), num_rows, width, num_heads); \
     break;
   switch ((width + kLanes - 1) / kLanes) {
     PAIR_CASES(CASE)

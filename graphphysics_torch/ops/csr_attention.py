@@ -60,6 +60,15 @@ turn; on the CPU ``csr_softmax_spmm_pair_reference`` and
 ``(m, l)``) and ``_pair_bwd``. Nothing but a tensor's device selects
 between a kernel and its plain version.
 
+``csr_softmax_spmm``, ``csr_softmax_spmm_pair``, ``csr_attention`` and
+``csr_sparse_attention`` take JAX's ``stream_dtype``: ``"f32"`` (the
+default), or ``"bf16"``, the TPU kernel's bf16 stream, whose result is the
+f32 function of scores and values rounded to bf16 (``stream_round``). On
+CUDA each launches a stream entry of its kernel (``*_bf16_stream``,
+``csr_attention_{f32,bf16}_stream``) counted apart; the gradients are the
+existing backward entries' on the unrounded inputs with the stream pass's
+``ml`` and ``out``, which is JAX's.
+
 The kernels read per-node ``[start, end)`` ranges of real edges
 (``compute_row_bounds`` of the sorted segment ids: ``Graph.sender_bounds``
 for the models' attention, a partitioned part's ``row_bounds`` and
@@ -79,6 +88,7 @@ import torch
 
 from graphphysics_torch.ops import _native
 from graphphysics_torch.ops.csr_segment import (
+    LaunchCount,
     accumulation_dtype,
     check_in_range,
     csr_segment_sum_reference,
@@ -125,6 +135,23 @@ VECTOR_ALIGNMENT = 16  # bytes of a row base the 16-byte geometry needs
 EPS = 1e-16  # the epsilon of the forward's normalization
 NEG = -1e30  # finite -inf stand-in, as the TPU kernel
 MAX_WIDTH = 512  # the widest D the TPU kernel's defaults were tuned for
+# the TPU kernel's stream modes: "f32", or "bf16" (scores and values rounded
+# to bf16 before the softmax + SpMM, which computes in f32 from them)
+STREAM_DTYPES = ("f32", "bf16")
+
+
+def check_stream_dtype(stream_dtype: str) -> bool:
+    """Raise ``ValueError`` (JAX's message) on an unknown stream mode;
+    returns whether it is the bf16 stream."""
+    if stream_dtype not in STREAM_DTYPES:
+        raise ValueError(f"unknown stream_dtype {stream_dtype!r}")
+    return stream_dtype == "bf16"
+
+
+def stream_round(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (to nearest even) and back to its dtype: what
+    the bf16 stream's kernels read, as the plain versions see it."""
+    return t.to(torch.bfloat16).to(t.dtype)
 
 
 def compute_block_bounds(
@@ -263,7 +290,12 @@ def _check_cuda_args(op, scores, values, segments, bounds, mask) -> None:
 
 
 def _launch(scores, values, bounds, mask) -> Tuple[torch.Tensor, torch.Tensor]:
-    fn = _native.function(SOURCE, "csr_softmax_spmm_f32", 6,
+    """K2's entry of the inputs' dtype: float32, or bfloat16, the bf16
+    stream's entry (scores and values rounded by the caller)."""
+    bf16 = scores.dtype == torch.bfloat16
+    entry, counter = (("csr_softmax_spmm_bf16_stream", csr_softmax_spmm.bf16_stream) if bf16
+                      else ("csr_softmax_spmm_f32", csr_softmax_spmm))
+    fn = _native.function(SOURCE, entry, 6,
                           (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int))
     e, h = scores.shape
     d = values.shape[1]
@@ -288,8 +320,8 @@ def _launch(scores, values, bounds, mask) -> Tuple[torch.Tensor, torch.Tensor]:
             stream,
         )
     if err != 0:
-        raise RuntimeError(f"csr_softmax_spmm kernel launch failed: CUDA error {err}")
-    csr_softmax_spmm.launches += 1
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
+    counter.launches += 1
     return out, ml
 
 
@@ -329,17 +361,22 @@ def _launch_backward(scores, values, bounds, mask, ml, out, g) -> Tuple[torch.Te
     return dscores, dvalues
 
 
-def _softmax_spmm_cpu(scores, values, segments, bounds, mask):
+def _softmax_spmm_cpu(scores, values, segments, bounds, mask, stream_dtype="f32"):
+    if check_stream_dtype(stream_dtype):
+        scores, values = stream_round(scores), stream_round(values)
     check_in_range("csr_softmax_spmm", "sender", segments, bounds, mask)
     return csr_softmax_spmm_reference(scores, values, segments, bounds.shape[1], mask)
 
 
-def _softmax_spmm_cuda(scores, values, segments, bounds, mask):
+def _softmax_spmm_cuda(scores, values, segments, bounds, mask, stream_dtype="f32"):
+    bf16_stream = check_stream_dtype(stream_dtype)
     _check_cuda_args("csr_softmax_spmm", scores, values, segments, bounds, mask)
+    if bf16_stream:  # one cast each, as JAX's packing (pallas_attention.py:287-302)
+        scores, values = scores.to(torch.bfloat16), values.to(torch.bfloat16)
     return _launch(scores, values, bounds, mask)
 
 
-def _softmax_spmm_fake(scores, values, segments, bounds, mask):
+def _softmax_spmm_fake(scores, values, segments, bounds, mask, stream_dtype="f32"):
     n, h = bounds.shape[1], scores.shape[1]
     return (values.new_empty((n, values.shape[1])),
             scores.new_empty((2 * h, n), dtype=accumulation_dtype(scores.dtype)))
@@ -369,7 +406,8 @@ def _softmax_spmm_backward_fake(scores, values, segments, bounds, ml, out, g, ma
 
 _softmax_spmm_op = _native.register_op(
     "csr_softmax_spmm",
-    "(Tensor scores, Tensor values, Tensor segments, Tensor bounds, Tensor? mask) -> (Tensor, Tensor)",
+    "(Tensor scores, Tensor values, Tensor segments, Tensor bounds, Tensor? mask, "
+    "str stream_dtype=\"f32\") -> (Tensor, Tensor)",
     _softmax_spmm_cpu, _softmax_spmm_cuda, _softmax_spmm_fake)
 _softmax_spmm_backward_op = _native.register_op(
     "csr_softmax_spmm_backward",
@@ -382,9 +420,10 @@ class _SoftmaxSpmm(torch.autograd.Function):
     """K2 forward, K3 backward, through their operators."""
 
     @staticmethod
-    def forward(ctx, scores, values, segments, bounds, mask):
-        out, ml = _softmax_spmm_op(scores, values, segments, bounds, mask)
+    def forward(ctx, scores, values, segments, bounds, mask, stream_dtype):
+        out, ml = _softmax_spmm_op(scores, values, segments, bounds, mask, stream_dtype)
         ctx.mark_non_differentiable(ml)
+        # the unrounded inputs, with the stream pass's ml and out: JAX's _fwd
         ctx.save_for_backward(scores, values, segments, bounds, mask, ml, out)
         return out, ml
 
@@ -392,7 +431,7 @@ class _SoftmaxSpmm(torch.autograd.Function):
     def backward(ctx, g, _g_ml):
         scores, values, segments, bounds, mask, ml, out = ctx.saved_tensors
         dscores, dvalues = csr_softmax_spmm_backward(scores, values, segments, bounds, ml, out, g, mask)
-        return dscores, dvalues, None, None, None
+        return dscores, dvalues, None, None, None, None
 
 
 def csr_softmax_spmm(
@@ -401,6 +440,7 @@ def csr_softmax_spmm(
     segments: torch.Tensor,
     bounds: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
+    stream_dtype: str = "f32",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Segment softmax of ``scores`` ([E, H]) and the weighted segment sum of
     the head-blocked ``values`` ([E, D], column c in head ``c // (D/H)``) by
@@ -421,11 +461,22 @@ def csr_softmax_spmm(
     Hopper kernel (float32, D a multiple of 32 up to 512 with a head_dim that
     is a multiple of D/32) and adds one to ``csr_softmax_spmm.launches``; it
     trusts the layout (build graphs with ``pad_graph_csr_np``). A CPU tensor
-    checks that precondition and takes ``csr_softmax_spmm_reference``."""
-    return _SoftmaxSpmm.apply(scores, values, segments, bounds, mask)
+    checks that precondition and takes ``csr_softmax_spmm_reference``.
+
+    ``stream_dtype="bf16"`` is the TPU kernel's bf16 stream: the scores and
+    values are rounded to bf16 (one cast each) and the softmax + SpMM
+    computes in f32 from the rounded values; ``out`` keeps the values'
+    dtype and ``ml`` is f32. On CUDA it launches the stream entry (same
+    shapes, float32 inputs) and adds one to
+    ``csr_softmax_spmm.bf16_stream.launches``; on the CPU the plain version
+    takes the rounded inputs. The gradient is the f32 backward's on the
+    unrounded inputs with the stream pass's ``ml`` and ``out``, as JAX's.
+    Any other ``stream_dtype`` raises ``ValueError``."""
+    return _SoftmaxSpmm.apply(scores, values, segments, bounds, mask, stream_dtype)
 
 
 csr_softmax_spmm.launches = 0
+csr_softmax_spmm.bf16_stream = LaunchCount()
 
 
 def csr_softmax_spmm_backward(
@@ -549,8 +600,12 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _launch_pair(sa, va, ba, ma, sb, vb, bb, mb) -> Tuple[torch.Tensor, torch.Tensor]:
-    fn = _native.function(PAIR_SOURCE, "csr_softmax_spmm_pair_f32", 10,
-                          (ctypes.c_longlong,) * 3 + (ctypes.c_int,) * 2)
+    """K5's entry of the inputs' dtype: float32, or bfloat16, the bf16
+    stream's entry (both sets' scores and values rounded by the caller)."""
+    bf16 = sa.dtype == torch.bfloat16
+    entry, counter = (("csr_softmax_spmm_pair_bf16_stream", csr_softmax_spmm_pair.bf16_stream) if bf16
+                      else ("csr_softmax_spmm_pair_f32", csr_softmax_spmm_pair))
+    fn = _native.function(PAIR_SOURCE, entry, 10, (ctypes.c_longlong,) * 3 + (ctypes.c_int,) * 2)
     n, h, d = ba.shape[1], sa.shape[1], va.shape[1]
     out = torch.empty((n, d), dtype=torch.float32, device=sa.device)
     ml = torch.empty((2 * h, n), dtype=torch.float32, device=sa.device)
@@ -562,8 +617,8 @@ def _launch_pair(sa, va, ba, ma, sb, vb, bb, mb) -> Tuple[torch.Tensor, torch.Te
                  vb.data_ptr(), bb.data_ptr(), _ptr(mb), out.data_ptr(), ml.data_ptr(),
                  n, sa.shape[0], sb.shape[0], h, d, stream)
     if err != 0:
-        raise RuntimeError(f"csr_softmax_spmm_pair kernel launch failed: CUDA error {err}")
-    csr_softmax_spmm_pair.launches += 1
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
+    counter.launches += 1
     return out, ml
 
 
@@ -587,18 +642,23 @@ def _launch_pair_backward(sa, va, ba, ma, sb, vb, bb, mb, ml, out, g):
     return tuple(grads)
 
 
-def _pair_cpu(sa, va, ga, ba, ma, sb, vb, gb, bb, mb):
+def _pair_cpu(sa, va, ga, ba, ma, sb, vb, gb, bb, mb, stream_dtype="f32"):
+    if check_stream_dtype(stream_dtype):
+        sa, va, sb, vb = (stream_round(t) for t in (sa, va, sb, vb))
     check_in_range("csr_softmax_spmm_pair", "receiver", ga, ba, ma)
     check_in_range("csr_softmax_spmm_pair", "receiver", gb, bb, mb)
     return csr_softmax_spmm_pair_reference(sa, va, ga, sb, vb, gb, ba.shape[1], ma, mb)
 
 
-def _pair_cuda(sa, va, ga, ba, ma, sb, vb, gb, bb, mb):
+def _pair_cuda(sa, va, ga, ba, ma, sb, vb, gb, bb, mb, stream_dtype="f32"):
+    bf16_stream = check_stream_dtype(stream_dtype)
     _check_pair("csr_softmax_spmm_pair", sa, va, ga, ba, ma, sb, vb, gb, bb, mb)
+    if bf16_stream:  # one cast each
+        sa, va, sb, vb = (t.to(torch.bfloat16) for t in (sa, va, sb, vb))
     return _launch_pair(sa, va, ba, ma, sb, vb, bb, mb)
 
 
-def _pair_fake(sa, va, ga, ba, ma, sb, vb, gb, bb, mb):
+def _pair_fake(sa, va, ga, ba, ma, sb, vb, gb, bb, mb, stream_dtype="f32"):
     n, h = ba.shape[1], sa.shape[1]
     return (va.new_empty((n, va.shape[1])),
             sa.new_empty((2 * h, n), dtype=accumulation_dtype(sa.dtype)))
@@ -626,7 +686,8 @@ def _pair_backward_fake(sa, va, ga, ba, sb, vb, gb, bb, ml, out, g, ma, mb):
 _pair_op = _native.register_op(
     "csr_softmax_spmm_pair",
     "(Tensor scores_a, Tensor values_a, Tensor seg_a, Tensor bounds_a, Tensor? mask_a, Tensor scores_b, "
-    "Tensor values_b, Tensor seg_b, Tensor bounds_b, Tensor? mask_b) -> (Tensor, Tensor)",
+    "Tensor values_b, Tensor seg_b, Tensor bounds_b, Tensor? mask_b, str stream_dtype=\"f32\") "
+    "-> (Tensor, Tensor)",
     _pair_cpu, _pair_cuda, _pair_fake)
 _pair_backward_op = _native.register_op(
     "csr_softmax_spmm_pair_backward",
@@ -640,9 +701,10 @@ class _SoftmaxSpmmPair(torch.autograd.Function):
     """K5 forward and backward, through their operators."""
 
     @staticmethod
-    def forward(ctx, sa, va, ga, ba, ma, sb, vb, gb, bb, mb):
-        out, ml = _pair_op(sa, va, ga, ba, ma, sb, vb, gb, bb, mb)
+    def forward(ctx, sa, va, ga, ba, ma, sb, vb, gb, bb, mb, stream_dtype):
+        out, ml = _pair_op(sa, va, ga, ba, ma, sb, vb, gb, bb, mb, stream_dtype)
         ctx.mark_non_differentiable(ml)
+        # the unrounded inputs, with the merged ml and out: JAX's _pair_fwd
         ctx.save_for_backward(sa, va, ga, ba, ma, sb, vb, gb, bb, mb, ml, out)
         return out, ml
 
@@ -651,7 +713,7 @@ class _SoftmaxSpmmPair(torch.autograd.Function):
         sa, va, ga, ba, ma, sb, vb, gb, bb, mb, ml, out = ctx.saved_tensors
         dsa, dva, dsb, dvb = csr_softmax_spmm_pair_backward(
             sa, va, ga, ba, sb, vb, gb, bb, ml, out, g, ma, mb)
-        return dsa, dva, None, None, None, dsb, dvb, None, None, None
+        return dsa, dva, None, None, None, dsb, dvb, None, None, None, None
 
 
 def csr_softmax_spmm_pair(
@@ -665,6 +727,7 @@ def csr_softmax_spmm_pair(
     bounds_b: torch.Tensor,
     mask_a: Optional[torch.Tensor] = None,
     mask_b: Optional[torch.Tensor] = None,
+    stream_dtype: str = "f32",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``csr_softmax_spmm`` over the union of two edge sets ``a`` and ``b``
     that share the ``N = bounds_a.shape[1]`` rows: each set's scores
@@ -678,12 +741,17 @@ def csr_softmax_spmm_pair(
     A CUDA tensor launches the Hopper kernel (float32, any D <= 512 with
     D % H == 0) and adds one to ``csr_softmax_spmm_pair.launches``; it
     trusts that every unmasked edge lies in its row's range of its set. A
-    CPU tensor checks that and takes ``csr_softmax_spmm_pair_reference``."""
+    CPU tensor checks that and takes ``csr_softmax_spmm_pair_reference``.
+    ``stream_dtype="bf16"`` rounds both sets' scores and values to bf16
+    first, as ``csr_softmax_spmm``'s (on CUDA the stream entry, counted on
+    ``csr_softmax_spmm_pair.bf16_stream.launches``; the backward is the f32
+    one against the merged statistics)."""
     return _SoftmaxSpmmPair.apply(scores_a, values_a, seg_a, bounds_a, mask_a,
-                                  scores_b, values_b, seg_b, bounds_b, mask_b)
+                                  scores_b, values_b, seg_b, bounds_b, mask_b, stream_dtype)
 
 
 csr_softmax_spmm_pair.launches = 0
+csr_softmax_spmm_pair.bf16_stream = LaunchCount()
 
 
 def csr_softmax_spmm_pair_backward(
@@ -715,14 +783,18 @@ def csr_attention_reference(
     num_nodes: int,
     mask: Optional[torch.Tensor] = None,
     scale: float = 1.0,
+    stream_dtype: str = "f32",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of ``csr_attention``: q gathered at
     ``segments``, k and v at ``gather_idx``, the per-head dot times ``scale``
     in f32 (f64 for f64 inputs), masked edges at score ``-1e30``, then
-    ``csr_softmax_spmm_reference`` on the values in f32. Returns ``(out
-    [N, H, Dh] contiguous in q's dtype, rounded once, as the JAX K2 rounds
-    to the values' dtype; ml [2H, N] in f32)``. Differentiable by autograd
-    in q, k and v."""
+    ``csr_softmax_spmm_reference`` on the values in f32. With
+    ``stream_dtype="bf16"`` the scores and the gathered values are rounded
+    to bf16 first (``stream_round``), as JAX's ``csr_sparse_attention``
+    streams them. Returns ``(out [N, H, Dh] contiguous in q's dtype, rounded
+    once, as the JAX K2 rounds to the values' dtype; ml [2H, N] in f32)``.
+    Differentiable by autograd in q, k and v."""
+    bf16_stream = check_stream_dtype(stream_dtype)
     n, h, dh = q.shape
     d = h * dh
     acc = accumulation_dtype(q.dtype)
@@ -733,7 +805,10 @@ def csr_attention_reference(
     scores = (q_e.to(acc) * k_e.to(acc)).reshape(e, h, dh).sum(dim=-1) * scale
     if mask is not None:
         scores = torch.where(mask[:, None], scores, torch.full((), NEG, dtype=acc, device=scores.device))
-    out, ml = csr_softmax_spmm_reference(scores, v_e.to(acc), segments, num_nodes, mask)
+    v_e = v_e.to(acc)
+    if bf16_stream:
+        scores, v_e = stream_round(scores), stream_round(v_e)
+    out, ml = csr_softmax_spmm_reference(scores, v_e, segments, num_nodes, mask)
     return out.reshape(n, h, dh).to(q.dtype), ml
 
 
@@ -1016,22 +1091,25 @@ def _layout_of(q: torch.Tensor) -> bool:
 
 
 def _launch_attention(q, k, v, gather_idx, bounds, mask, scale, interleaved, lanes=None,
-                      general=None):
+                      general=None, bf16_stream=False):
+    """The fused forward entry of q's dtype, or with ``bf16_stream`` its
+    stream twin (the same arguments and geometry, every score, and in f32
+    every gathered v element, rounded to bf16 before use)."""
     bf16 = q.dtype == torch.bfloat16
-    entry = ENTRIES[q.dtype]
+    entry = ENTRIES[q.dtype] + ("_stream" if bf16_stream else "")
     n, h, dh = q.shape
     d = h * dh
     out = _as_heads(torch.empty((n, d), dtype=q.dtype, device=q.device), h, interleaved)
     ml = torch.empty((2 * h, n), dtype=torch.float32, device=q.device)
     if bf16:
         lanes, general = _bf16_geometry(q, (k, v, out), interleaved, lanes, general)
-        fn = _native.function(BF16_ATTENTION_SOURCE, "csr_attention_bf16", 8,
+        fn = _native.function(BF16_ATTENTION_SOURCE, f"csr_attention_{entry}", 8,
                               (ctypes.c_longlong, ctypes.c_longlong) + (ctypes.c_int,) * 5
                               + (ctypes.c_float,))
         tail = (int(general), scale)
     else:
         lanes = lanes_per_row(d, h, interleaved) if lanes is None else lanes
-        fn = _native.function(ATTENTION_SOURCE, "csr_attention_f32", 8,
+        fn = _native.function(ATTENTION_SOURCE, f"csr_attention_{entry}", 8,
                               (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                ctypes.c_int, ctypes.c_int, ctypes.c_float))
         tail = (scale,)
@@ -1115,23 +1193,25 @@ def _launch_bf16_backward(q, k, v, gather_idx, bounds, mask, ml, out, g, scale, 
 
 
 def _attention_cpu(q, k, v, segments, gather_idx, sender_bounds, mask, scale, gather_bounds,
-                   gather_order, gather_senders):
+                   gather_order, gather_senders, stream_dtype="f32"):
     # the transposed CSR rides along for the backward only (the autograd
     # formula saves it); the forward reads none of it
     check_in_range("csr_attention", "sender", segments, sender_bounds, mask)
     out, ml = csr_attention_reference(q, k, v, segments, gather_idx, sender_bounds.shape[1], mask,
-                                      scale)
+                                      scale, stream_dtype)
     return _in_layout(out, _layout_of(q)), ml
 
 
 def _attention_cuda(q, k, v, segments, gather_idx, sender_bounds, mask, scale, gather_bounds,
-                    gather_order, gather_senders):
+                    gather_order, gather_senders, stream_dtype="f32"):
+    bf16_stream = check_stream_dtype(stream_dtype)
     interleaved = _check_attention_args("csr_attention", q, k, v, gather_idx, sender_bounds, mask)
-    return _launch_attention(q, k, v, gather_idx, sender_bounds, mask, scale, interleaved)
+    return _launch_attention(q, k, v, gather_idx, sender_bounds, mask, scale, interleaved,
+                             bf16_stream=bf16_stream)
 
 
 def _attention_fake(q, k, v, segments, gather_idx, sender_bounds, mask, scale, gather_bounds,
-                    gather_order, gather_senders):
+                    gather_order, gather_senders, stream_dtype="f32"):
     n, h, dh = q.shape
     return (_as_heads(q.new_empty((n, h * dh)), h, _layout_of(q)),
             q.new_empty((2 * h, n), dtype=accumulation_dtype(q.dtype)))
@@ -1184,7 +1264,8 @@ def _attention_backward_fake(q, k, v, segments, gather_idx, sender_bounds, ml, o
 _attention_op = _native.register_op(
     "csr_attention",
     "(Tensor q, Tensor k, Tensor v, Tensor segments, Tensor gather_idx, Tensor sender_bounds, Tensor? mask, "
-    "float scale, Tensor? gather_bounds, Tensor? gather_order, Tensor? gather_senders) -> (Tensor, Tensor)",
+    "float scale, Tensor? gather_bounds, Tensor? gather_order, Tensor? gather_senders, "
+    "str stream_dtype=\"f32\") -> (Tensor, Tensor)",
     _attention_cpu, _attention_cuda, _attention_fake)
 _attention_backward_op = _native.register_op(
     "csr_attention_backward",
@@ -1198,8 +1279,9 @@ class _CsrAttention(torch.autograd.Function):
     """The fused attention forward and backward, through their operators."""
 
     @staticmethod
-    def forward(ctx, q, k, v, segments, gather_idx, sender_bounds, mask, scale, *gather):
-        out, ml = _attention_op(q, k, v, segments, gather_idx, sender_bounds, mask, scale, *gather)
+    def forward(ctx, q, k, v, segments, gather_idx, sender_bounds, mask, scale, stream_dtype, *gather):
+        out, ml = _attention_op(q, k, v, segments, gather_idx, sender_bounds, mask, scale, *gather,
+                                stream_dtype)
         ctx.mark_non_differentiable(ml)
         ctx.save_for_backward(q, k, v, segments, gather_idx, sender_bounds, mask, ml, out, *gather)
         ctx.scale = scale
@@ -1210,7 +1292,7 @@ class _CsrAttention(torch.autograd.Function):
         q, k, v, segments, gather_idx, sender_bounds, mask, ml, out, *gather = ctx.saved_tensors
         dq, dkv = _attention_backward_op(q, k, v, segments, gather_idx, sender_bounds, ml, out, g,
                                          mask, ctx.scale, *gather)
-        return (dq, *dkv.unbind(0)) + (None,) * 8
+        return (dq, *dkv.unbind(0)) + (None,) * 9
 
 
 def csr_attention(
@@ -1223,6 +1305,7 @@ def csr_attention(
     mask: Optional[torch.Tensor] = None,
     scale: float = 1.0,
     gather: Optional[GatherCsr] = None,
+    stream_dtype: str = "f32",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused sparse attention of ``csr_sparse_attention``, also returning the
     online-softmax statistics: ``(out [N, H, Dh], ml [2H, N])`` with ``ml =
@@ -1245,9 +1328,18 @@ def csr_attention(
     gather indices in ``[0, N)``: build graphs with ``pad_graph_csr_np``).
     The segment ids are not read on the card: the ranges carry them. A CPU
     tensor checks the layout and takes ``csr_attention_reference``; out
-    comes in q's layout there too (contiguous for any other strides)."""
+    comes in q's layout there too (contiguous for any other strides).
+
+    ``stream_dtype="bf16"`` (the op's argument too) is JAX's bf16 stream:
+    every edge's scores, and the gathered values, rounded to bf16 before
+    the softmax and the weighted sum, which stay f32. On CUDA it launches
+    the stream twin of the dtype's entry (``csr_attention.f32_stream`` /
+    ``csr_attention.bf16_stream`` count them); the backward is the
+    dtype's backward entry, which recomputes the unrounded scores, with the
+    stream pass's ``ml`` and ``out``, as JAX's. Any other value raises
+    ``ValueError``."""
     return _CsrAttention.apply(q, k, v, segments, gather_idx, sender_bounds, mask, float(scale),
-                               *_gather_args(gather))
+                               stream_dtype, *_gather_args(gather))
 
 
 csr_attention.launches = 0
@@ -1305,19 +1397,17 @@ def csr_attention_backward(
 csr_attention_backward.launches = 0
 
 
-class LaunchCount:
-    """The launch count of one kernel entry (``.launches``)."""
-
-    def __init__(self):
-        self.launches = 0
-
-
-# the bf16 entries count apart from the f32 ones, so a run shows which ran
+# the bf16 entries, and the bf16 stream's, count apart from the f32 ones,
+# so a run shows which ran
 csr_attention.bf16 = LaunchCount()
+csr_attention.f32_stream = LaunchCount()
+csr_attention.bf16_stream = LaunchCount()
 csr_attention_backward.bf16 = LaunchCount()
 LAUNCHES = {
     "csr_attention_f32": csr_attention,
     "csr_attention_bf16": csr_attention.bf16,
+    "csr_attention_f32_stream": csr_attention.f32_stream,
+    "csr_attention_bf16_stream": csr_attention.bf16_stream,
     "csr_attention_bwd_f32": csr_attention_backward,
     "csr_attention_bwd_bf16": csr_attention_backward.bf16,
 }
@@ -1333,6 +1423,7 @@ def csr_sparse_attention(
     edge_mask: Optional[torch.Tensor] = None,
     scale: float = 1.0,
     gather: Optional[GatherCsr] = None,
+    stream_dtype: str = "f32",
 ) -> torch.Tensor:
     """Sparse graph attention on a CSR edge list: queries at ``segments``
     (ascending; the softmax side), keys and values at ``gather_idx``. With
@@ -1344,6 +1435,10 @@ def csr_sparse_attention(
     one backward, reading q, k and v in the layout given (contiguous, or the
     ``(N, Dh, H)`` views of the model's ``Attention``; out comes in the same
     one). Masked edges drop out. Differentiable in q, k and v; the bf16
-    backward on CUDA needs ``gather``, the graph's ``gather_csr``."""
-    out, _ = csr_attention(q, k, v, segments, gather_idx, sender_bounds, edge_mask, scale, gather)
+    backward on CUDA needs ``gather``, the graph's ``gather_csr``.
+    ``stream_dtype`` is JAX's: ``"f32"``, or ``"bf16"`` with the scores and
+    values rounded to bf16 before the softmax and the weighted sum
+    (``csr_attention``)."""
+    out, _ = csr_attention(q, k, v, segments, gather_idx, sender_bounds, edge_mask, scale, gather,
+                           stream_dtype)
     return out

@@ -9,7 +9,9 @@ Each is a ``torch.library`` op of the ``graphphysics_torch`` namespace
 traces through them; a ``torch.autograd.Function`` calls the forward op
 and, for its gradient, the backward op. The ops' CUDA implementations
 launch hand-written Hopper kernels of ``csrc/csr_segment_sum.cu`` (built
-with ``nvcc`` at first use) or raise; their CPU implementations are
+with ``nvcc`` at first use; an entry per element type: float32, bfloat16
+and float16, the 16-bit ones summing in f32 and rounding once, counted
+apart on ``.bf16`` and ``.f16``) or raise; their CPU implementations are
 ``csr_segment_sum_reference`` and ``csr_segment_sum_backward_reference``,
 the plain PyTorch versions; their fake implementations give shapes and
 dtypes only. Nothing but the tensors' device selects between the two.
@@ -122,16 +124,20 @@ def csr_segment_sum_backward_reference(
     return torch.where(live[:, None], g.index_select(0, rc), torch.zeros((), dtype=g.dtype, device=g.device))
 
 
+# the kernels' entries by element type (csrc/csr_segment_sum.cu)
+ENTRIES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
+
+
 def _check_cuda_args(op, t, edges, receivers, row_bounds, mask) -> None:
     """Raise unless the kernels of ``op`` take these tensors: ``t`` (data
-    [E, H] or gradient [N, H]) float32 and contiguous, the edge layout of
-    ``edges`` edges on its device."""
+    [E, H] or gradient [N, H]) float32, bfloat16 or float16 and contiguous,
+    the edge layout of ``edges`` edges on its device."""
 
     def fail(msg):
         raise ValueError(f"{op}: {msg}")
 
-    if t.dtype != torch.float32:
-        fail(f"the CUDA kernel takes float32 data, got {t.dtype}")
+    if t.dtype not in ENTRIES:
+        fail(f"the CUDA kernels take float32, bfloat16 or float16 data, got {t.dtype}")
     if t.dim() != 2 or not t.is_contiguous():
         fail(f"data must be a contiguous 2-D tensor, got {tuple(t.shape)}")
     if receivers.shape != (edges,):
@@ -169,11 +175,12 @@ def check_in_range(op: str, side: str, segments, bounds, mask) -> None:
 
 
 def _launch(data, row_bounds, mask) -> torch.Tensor:
-    fn = _native.function(SOURCE, "csr_segment_sum_f32", 4,
+    entry = ENTRIES[data.dtype]
+    fn = _native.function(SOURCE, f"csr_segment_sum_{entry}", 4,
                           (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int))
     e, h = data.shape
     n = row_bounds.shape[1]
-    out = torch.empty((n, h), dtype=torch.float32, device=data.device)
+    out = torch.empty((n, h), dtype=data.dtype, device=data.device)
     if n == 0 or h == 0:
         return out
     with torch.cuda.device(data.device):
@@ -189,17 +196,18 @@ def _launch(data, row_bounds, mask) -> torch.Tensor:
             stream,
         )
     if err != 0:
-        raise RuntimeError(f"csr_segment_sum kernel launch failed: CUDA error {err}")
-    csr_segment_sum.launches += 1
+        raise RuntimeError(f"csr_segment_sum_{entry} kernel launch failed: CUDA error {err}")
+    LAUNCHES[f"csr_segment_sum_{entry}"].launches += 1
     return out
 
 
 def _launch_backward(g, receivers, row_bounds, mask) -> torch.Tensor:
-    fn = _native.function(SOURCE, "csr_segment_sum_bwd_f32", 5,
+    entry = ENTRIES[g.dtype]
+    fn = _native.function(SOURCE, f"csr_segment_sum_bwd_{entry}", 5,
                           (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int))
     n, h = g.shape
     e = receivers.shape[0]
-    ddata = torch.empty((e, h), dtype=torch.float32, device=g.device)
+    ddata = torch.empty((e, h), dtype=g.dtype, device=g.device)
     if e == 0 or h == 0:
         return ddata
     with torch.cuda.device(g.device):
@@ -216,8 +224,8 @@ def _launch_backward(g, receivers, row_bounds, mask) -> torch.Tensor:
             stream,
         )
     if err != 0:
-        raise RuntimeError(f"csr_segment_sum backward kernel launch failed: CUDA error {err}")
-    csr_segment_sum_backward.launches += 1
+        raise RuntimeError(f"csr_segment_sum_bwd_{entry} kernel launch failed: CUDA error {err}")
+    LAUNCHES[f"csr_segment_sum_bwd_{entry}"].launches += 1
     return ddata
 
 
@@ -289,8 +297,11 @@ def csr_segment_sum(
     The op ``torch.ops.graphphysics_torch.csr_segment_sum``.
 
     The kernel reads only the row ranges, so every unmasked edge must lie in
-    its receiver's range. A CUDA tensor launches the Hopper kernel (float32)
-    and adds one to ``csr_segment_sum.launches``; the CUDA path trusts the
+    its receiver's range. A CUDA tensor launches the Hopper kernel of its
+    dtype and adds one to ``csr_segment_sum.launches`` (float32),
+    ``csr_segment_sum.bf16.launches`` or ``csr_segment_sum.f16.launches``
+    (the 16-bit entries: the sum in f32, the rows rounded once to the
+    data's dtype, which the output keeps); the CUDA path trusts the
     layout and does not check it, so unsorted edges or stale ``row_bounds``
     give wrong sums without an error there (build graphs with
     ``pad_graph_sorted_np``, which keeps the two together). A CPU tensor
@@ -311,10 +322,34 @@ def csr_segment_sum_backward(
     the output's gradient ``g`` ([N, H]): ``[E, H]`` with ``g[receivers[e]]``
     on each unmasked edge inside its receiver's range and 0 on every other
     edge. The op ``torch.ops.graphphysics_torch.csr_segment_sum_backward``:
-    a CUDA tensor launches the Hopper kernel (float32; every edge row is
-    written) and adds one to ``csr_segment_sum_backward.launches``; a CPU
+    a CUDA tensor launches the Hopper kernel of its dtype (float32, bfloat16
+    or float16, in g's dtype; every edge row is written) and adds one to
+    ``csr_segment_sum_backward.launches`` (float32),
+    ``csr_segment_sum_backward.bf16.launches`` or ``.f16.launches``; a CPU
     tensor takes ``csr_segment_sum_backward_reference``."""
     return _segment_sum_backward_op(g, receivers, row_bounds, mask)
 
 
 csr_segment_sum_backward.launches = 0
+
+
+class LaunchCount:
+    """The launch count of one kernel entry (``.launches``)."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+# the 16-bit entries count apart from the f32 ones, so a run shows which ran
+csr_segment_sum.bf16 = LaunchCount()
+csr_segment_sum.f16 = LaunchCount()
+csr_segment_sum_backward.bf16 = LaunchCount()
+csr_segment_sum_backward.f16 = LaunchCount()
+LAUNCHES = {
+    "csr_segment_sum_f32": csr_segment_sum,
+    "csr_segment_sum_bf16": csr_segment_sum.bf16,
+    "csr_segment_sum_f16": csr_segment_sum.f16,
+    "csr_segment_sum_bwd_f32": csr_segment_sum_backward,
+    "csr_segment_sum_bwd_bf16": csr_segment_sum_backward.bf16,
+    "csr_segment_sum_bwd_f16": csr_segment_sum_backward.f16,
+}

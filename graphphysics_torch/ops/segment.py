@@ -55,26 +55,26 @@ def masked_segment_sum(
     f32 and return their own dtype.
 
     With ``row_bounds`` (edges sorted by receiver, ``Graph.row_bounds``) the
-    sum goes through ``csr_segment_sum``, which on CUDA is the Hopper kernel.
-    A CUDA tensor without ``row_bounds`` raises: the kernel needs the sorted
-    layout, and nothing falls back to another path."""
-    out_dtype = data.dtype
-    if out_dtype in _16BIT:
-        data = data.to(torch.float32)
+    sum goes through ``csr_segment_sum``, which on CUDA is the Hopper kernel
+    of the data's dtype (float32, or the bfloat16 and float16 entries, which
+    read the 16-bit rows as they are). A CUDA tensor without ``row_bounds``
+    raises: the kernel needs the sorted layout, and nothing falls back to
+    another path."""
     if row_bounds is not None:
         if row_bounds.shape[-1] != num_segments:
             raise ValueError(
                 f"row_bounds covers {row_bounds.shape[-1]} rows, expected {num_segments}"
             )
-        out = csr_segment_sum(data, segment_ids, row_bounds, mask)
-    elif data.is_cuda:
+        return csr_segment_sum(data, segment_ids, row_bounds, mask)
+    if data.is_cuda:
         raise ValueError(
             "masked_segment_sum on CUDA needs receiver-sorted edges with "
             "row_bounds (build the graph with pad_graph_sorted_np)"
         )
-    else:
-        out = csr_segment_sum_reference(data, segment_ids, num_segments, mask)
-    return out.to(out_dtype)
+    out_dtype = data.dtype
+    if out_dtype in _16BIT:
+        data = data.to(torch.float32)
+    return csr_segment_sum_reference(data, segment_ids, num_segments, mask).to(out_dtype)
 
 
 def segment_softmax(

@@ -8,7 +8,10 @@ the CPU, the aneurysm XDMF path's launches, the ELL layout's train steps
 masked filler adding nothing, eval steps exported on the card launching
 the kernels, the ops' fake implementations against the kernels,
 ``flatten_batched_graph`` on CUDA tensors and the data-parallel step on a
-1-rank data group against the plain step. Marked ``cuda``; they skip without a card. This file imports no JAX, so on a machine without it
+1-rank data group against the plain step, and the two 16-bit stream
+modes' entries (K1 and K1b on bf16 and f16 data; ``stream_dtype="bf16"``
+of K2, K5 and the fused forward) against their plain versions with their
+launch counts. Marked ``cuda``; they skip without a card. This file imports no JAX, so on a machine without it
 run them with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py
@@ -95,8 +98,13 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     assert csr_segment_sum(data.clone().requires_grad_(True), recv, bounds).requires_grad
     with pytest.raises(ValueError, match="row_bounds"):
         masked_segment_sum(data.detach(), recv, 32)
-    out16 = masked_segment_sum(data.detach().half(), recv, 32, row_bounds=bounds)
-    assert out16.dtype == torch.float16
+    # 16-bit data launches the entry of its dtype, with no f32 launch (no
+    # upcast), and keeps its dtype
+    for dtype, counter in ((torch.float16, csr_segment_sum.f16), (torch.bfloat16, csr_segment_sum.bf16)):
+        before, f32_before = counter.launches, csr_segment_sum.launches
+        out16 = masked_segment_sum(data.detach().to(dtype), recv, 32, row_bounds=bounds)
+        assert out16.dtype == dtype
+        assert (counter.launches, csr_segment_sum.launches) == (before + 1, f32_before)
 
 
 def test_epd_forward_on_card_matches_cpu(cuda):
@@ -734,7 +742,8 @@ def test_fused_attention_bf16_kernels_match_plain(cuda, layout, d, h, view):
             for _ in range(2)))
         torch.cuda.synchronize()
         after = {name: c.launches - before[name] for name, c in ca.LAUNCHES.items()}
-        assert after == {"csr_attention_f32": 0, "csr_attention_bf16": 1, "csr_attention_bwd_f32": 0,
+        assert after == {"csr_attention_f32": 0, "csr_attention_bf16": 1, "csr_attention_f32_stream": 0,
+                         "csr_attention_bf16_stream": 0, "csr_attention_bwd_f32": 0,
                          "csr_attention_bwd_bf16": 2}
         assert out.dtype == torch.bfloat16 and ml.dtype == torch.float32
         assert ca._is_interleaved(out) is interleaved or h == 1
@@ -801,8 +810,9 @@ def test_bf16_train_steps_on_card_launch_the_bf16_entries(cuda):
         assert ca.gather_csr.launches - builds == (len(batches) if dev == "cuda" else 0)
         assert all(p.dtype == torch.float32 for p in trainer.sim.parameters())
     per_run = 3 * len(batches)
-    assert launched == {"csr_attention_f32": 0, "csr_attention_bf16": per_run,
-                        "csr_attention_bwd_f32": 0, "csr_attention_bwd_bf16": per_run}
+    assert launched == {"csr_attention_f32": 0, "csr_attention_bf16": per_run, "csr_attention_f32_stream": 0,
+                        "csr_attention_bf16_stream": 0, "csr_attention_bwd_f32": 0,
+                        "csr_attention_bwd_bf16": per_run}
     # bf16 on both devices: roundings that fall the other way where f32
     # sums differ in order
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-2)
@@ -1033,6 +1043,19 @@ def test_fake_implementations_give_the_kernels_shapes_and_strides(cuda):
         cases += [(ca._attention_op, (q, k, v, seg, gather, bounds, mask, 0.5, *tc)),
                   (ca._attention_backward_op, (q, k, v, seg, gather, bounds, ml, out,
                                                torch.ones_like(out), mask, 0.5, *tc))]
+    # the 16-bit entries of K1 and K1b, and the bf16 stream's entries
+    for dtype in (torch.bfloat16, torch.float16):
+        cases += [(cs._segment_sum_op, (data.to(dtype), rec, rb, em)),
+                  (cs._segment_sum_backward_op, (torch.randn(640, 64, device=cuda).to(dtype), rec, rb, em))]
+    cases += [(ca._softmax_spmm_op, (scores, values, rec, rb, em, "bf16")),
+              (ca._pair_op, (scores, values, rec, rb, em, *empty, "bf16"))]
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(640, 32, 4, device=cuda, generator=gen).to(dtype).transpose(1, 2)
+                   for _ in range(3))
+        cases.append((ca._attention_op, (q, k, v, seg, gather, bounds, mask, 0.5, None, None, None, "bf16")))
+    for op in (ca._softmax_spmm_op, ca._pair_op, ca._attention_op):
+        arg = op._schema.arguments[-1]
+        assert (arg.name, arg.default_value) == ("stream_dtype", "f32"), op
     for op, args in cases:
         real = op(*args)
         with FakeTensorMode() as mode:
@@ -1108,3 +1131,203 @@ def test_dp_step_on_one_rank_equals_the_plain_step(cuda, kind, tmp_path):
     for key, value in sd_p.items():
         atol = 2 * 2 * 1e-3 if key.endswith("k_proj.bias") else 1e-5
         torch.testing.assert_close(sd_d[key], value, rtol=2e-4, atol=atol, msg=key)
+
+
+def _ulps(got, want):
+    """The largest gap between two tensors of one 16-bit dtype, in units in
+    the last place of ``want``'s values."""
+    dtype = want.dtype
+    mantissa = {torch.bfloat16: 7, torch.float16: 10}[dtype]
+    mag = want.float().abs().clamp_min(torch.finfo(dtype).tiny)
+    _, exp = torch.frexp(mag)
+    return ((got.float() - want.float()).abs() / torch.exp2((exp - 1 - mantissa).float())).max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize(
+    "n,e,h,hi,n_pad,e_pad",
+    [
+        (2048, 11906, 128, None, 2048, 13696),  # serving frame: pairs of columns, 16-byte gathers
+        (300, 2000, 48, None, 320, 2048),  # width 48
+        (1000, 4000, 128, 5, None, None),  # skewed: long rows, most rows empty
+        (64, 0, 16, None, 64, 128),  # only padding edges
+        (7, 30, 1, None, None, None),  # width 1: one column a lane, one a gather thread
+    ],
+)
+def test_segment_sum_16bit_kernels_match_plain(cuda, dtype, n, e, h, hi, n_pad, e_pad):
+    """K1's and K1b's 16-bit entries against their plain versions: the
+    forward within one unit in the last place of the dtype (both sum in f32
+    and round once), the gradient bit for bit; each launches its own entry
+    once and no f32 entry."""
+    from graphphysics_torch.ops.csr_segment import (
+        csr_segment_sum,
+        csr_segment_sum_backward,
+        csr_segment_sum_backward_reference,
+        csr_segment_sum_reference,
+    )
+
+    g = _layout(n, e, seed=n + e + 1, hi=hi, n_pad=n_pad, e_pad=e_pad)
+    recv, bounds, mask = (torch.from_numpy(a).to(cuda) for a in (g.receivers, g.row_bounds, g.edge_mask))
+    mask[::7] = False
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    data = torch.randn(g.num_edges, h, device=cuda, generator=gen).to(dtype)
+    g_out = torch.randn(g.num_nodes, h, device=cuda, generator=gen).to(dtype)
+    key = "bf16" if dtype == torch.bfloat16 else "f16"
+    counters = (getattr(csr_segment_sum, key), getattr(csr_segment_sum_backward, key), csr_segment_sum,
+                csr_segment_sum_backward)
+    before = [c.launches for c in counters]
+    d = data.clone().requires_grad_(True)
+    out = csr_segment_sum(d, recv, bounds, mask)
+    (grad,) = torch.autograd.grad(out, d, g_out)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 0, 0]
+    assert out.dtype == dtype and grad.dtype == dtype
+    assert _ulps(out, csr_segment_sum_reference(data, recv, g.num_nodes, mask)) <= 1
+    assert torch.equal(grad, csr_segment_sum_backward_reference(g_out, recv, bounds, mask))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+def test_segment_sum_16bit_hub_row_reads_4096(cuda, dtype):
+    """4,096 unit edges into one node read exactly 4,096 in the 16-bit
+    entry (a sum kept in bf16 stops at 256, in f16 at 2,048), with rows
+    whose base is 4-byte aligned (column pairs) and only 2-byte aligned
+    (single columns)."""
+    from graphphysics_torch.ops.csr_segment import compute_row_bounds, csr_segment_sum
+
+    n, hub = 64, 4096
+    recv_np = np.concatenate([np.zeros(hub, np.int32), np.arange(1, n, dtype=np.int32)])
+    recv = torch.from_numpy(recv_np).to(cuda)
+    bounds = torch.from_numpy(compute_row_bounds(recv_np, n)).to(cuda)
+    e, h = len(recv_np), 8
+    aligned = torch.ones(e, h, dtype=dtype, device=cuda)
+    shifted = torch.ones(e * h + 1, dtype=dtype, device=cuda)[1:].view(e, h)  # 2-byte aligned
+    for data in (aligned, shifted):
+        out = csr_segment_sum(data, recv, bounds)
+        assert out.dtype == dtype
+        assert bool((out[0].float() == hub).all()) and bool((out[1:].float() == 1).all())
+
+
+def _grid(t, interleaved):
+    """``t`` on a 1/16 grid in [-2, 2] in its layout: with a power-of-two
+    scale every f32 score is then exact in any summation order, so the
+    kernel and the plain version round the same score to bf16."""
+    from graphphysics_torch.ops.csr_attention import _in_layout
+
+    return _in_layout((t * 16).round().clamp(-32, 32) / 16, interleaved)
+
+
+@pytest.mark.parametrize("width", [128, 48])
+def test_stream_entries_match_plain_and_differ_from_f32(cuda, width):
+    """``stream_dtype="bf16"`` of K2 (width 128 only: K2 takes multiples of
+    32), K5 and the fused forward on f32 and bf16 q, k, v: each against its
+    plain version (the f32 function of the bf16-rounded inputs), each
+    farther than that tolerance from the mode without the stream, each
+    stream entry launched once and the gradients through the existing
+    backward entries, against their plain versions on the unrounded inputs
+    with the stream pass's ml and out."""
+    from graphphysics_torch.ops import csr_attention as ca
+
+    tol = dict(rtol=1e-5, atol=1e-5)
+    gtol = dict(rtol=1e-4, atol=1e-4)
+    h = 4
+    g, scores, values, mask = _csr_case(2000, 12000, width, h, seed=3, n_pad=2048, e_pad=12288)
+    seg, bounds = torch.from_numpy(g.senders).to(cuda), torch.from_numpy(g.sender_bounds).to(cuda)
+    s, v, m = scores.to(cuda), values.to(cuda), mask.to(cuda)
+    n = g.num_nodes
+    cot = torch.randn(n, width, device=cuda)
+
+    def counts(*counters):
+        return [c.launches for c in counters]
+
+    if width % 32 == 0:
+        leaves = [s.clone().requires_grad_(True), v.clone().requires_grad_(True)]
+        before = counts(ca.csr_softmax_spmm.bf16_stream, ca.csr_softmax_spmm, ca.csr_softmax_spmm_backward)
+        out, ml = ca.csr_softmax_spmm(*leaves, seg, bounds, m, stream_dtype="bf16")
+        grads = torch.autograd.grad(out, leaves, cot)
+        torch.cuda.synchronize()
+        assert [a - b for a, b in zip(counts(ca.csr_softmax_spmm.bf16_stream, ca.csr_softmax_spmm,
+                                             ca.csr_softmax_spmm_backward), before)] == [1, 0, 1]
+        want, want_ml = ca.csr_softmax_spmm_reference(ca.stream_round(s), ca.stream_round(v), seg, n, m)
+        torch.testing.assert_close(out, want, **tol)
+        torch.testing.assert_close(ml, want_ml, **tol)
+        for a, b in zip(grads, ca.csr_softmax_spmm_backward_reference(s, v, seg, ml, out, cot, m)):
+            torch.testing.assert_close(a, b, **gtol)
+        assert not torch.allclose(out, ca.csr_softmax_spmm(s, v, seg, bounds, m)[0], **tol)
+
+    # K5: the edges split in two sets at a row boundary, each with its ranges
+    half = int(bounds[0, n // 2].item())
+    sets = []
+    for lo, hi in ((0, half), (half, s.shape[0])):
+        b = bounds.clone()
+        b[0] = b[0].clamp(lo, hi) - lo
+        b[1] = b[1].clamp(lo, hi) - lo
+        sets.append((s[lo:hi].contiguous(), v[lo:hi].contiguous(), seg[lo:hi].contiguous(), b.contiguous(),
+                     m[lo:hi].contiguous()))
+    (sa, va, ga, ba, ma), (sb, vb, gb, bb, mb) = sets
+    leaves = [t.clone().requires_grad_(True) for t in (sa, va, sb, vb)]
+    pair_counters = (ca.csr_softmax_spmm_pair.bf16_stream, ca.csr_softmax_spmm_pair,
+                     ca.csr_softmax_spmm_pair_backward)
+    before = counts(*pair_counters)
+    out, ml = ca.csr_softmax_spmm_pair(leaves[0], leaves[1], ga, ba, leaves[2], leaves[3], gb, bb, ma, mb,
+                                       stream_dtype="bf16")
+    grads = torch.autograd.grad(out, leaves, cot)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(*pair_counters), before)] == [1, 0, 1]
+    r = [ca.stream_round(t) for t in (sa, va, sb, vb)]
+    want, want_ml = ca.csr_softmax_spmm_pair_reference(r[0], r[1], ga, r[2], r[3], gb, n, ma, mb)
+    torch.testing.assert_close(out, want, **tol)
+    torch.testing.assert_close(ml, want_ml, **tol)
+    want_grads = ca.csr_softmax_spmm_pair_backward_reference(sa, va, ga, sb, vb, gb, ml, out, cot, ma, mb)
+    for a, b in zip(grads, want_grads):
+        torch.testing.assert_close(a, b, **gtol)
+    f32, _ = ca.csr_softmax_spmm_pair(sa, va, ga, ba, sb, vb, gb, bb, ma, mb)
+    assert not torch.allclose(out, f32, **tol)
+
+    # the fused forward, f32 and bf16 q, k, v in the model's (N, Dh, H) view
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    qkv = [torch.randn(n, width // h, h, device=cuda, generator=gen).transpose(1, 2) for _ in range(3)]
+    qkv[0], qkv[1] = _grid(qkv[0], True), _grid(qkv[1], True)
+    g_out = torch.randn(n, width // h, h, device=cuda, generator=gen).transpose(1, 2)
+    gather = torch.from_numpy(g.receivers).to(cuda)
+    bf16_tol = dict(rtol=BF16_RTOL, atol=BF16_ATOL)
+    dv_tol = dict(rtol=BF16_RTOL, atol=max(BF16_ATOL, BF16_DV_TERM * g_out.abs().max().item()))
+    for dtype, stream_counter, fwd_counter, bwd_counter, ftol, btols in (
+            (torch.float32, ca.csr_attention.f32_stream, ca.csr_attention, ca.csr_attention_backward, tol,
+             (gtol,) * 3),
+            (torch.bfloat16, ca.csr_attention.bf16_stream, ca.csr_attention.bf16,
+             ca.csr_attention_backward.bf16, bf16_tol, (bf16_tol, bf16_tol, dv_tol))):
+        q, k, vv = (t.to(dtype) for t in qkv)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, vv)]
+        tc = ca.gather_csr(seg, gather, bounds, m)
+        before = counts(stream_counter, fwd_counter, bwd_counter)
+        out, ml = ca.csr_attention(*leaves, seg, gather, bounds, m, 0.5, tc, stream_dtype="bf16")
+        grads = torch.autograd.grad(out, leaves, g_out.to(dtype))
+        torch.cuda.synchronize()
+        assert [a - b for a, b in zip(counts(stream_counter, fwd_counter, bwd_counter), before)] == [1, 0, 1]
+        assert out.dtype == dtype
+        want, want_ml = ca.csr_attention_reference(q, k, vv, seg, gather, n, m, 0.5, stream_dtype="bf16")
+        torch.testing.assert_close(out.float(), want.float(), **ftol)
+        torch.testing.assert_close(ml, want_ml, **tol)
+        want_grads = ca.csr_attention_backward_reference(q, k, vv, seg, gather, ml, out.detach(),
+                                                         g_out.to(dtype), m, 0.5)
+        for a, b, btol in zip(grads, want_grads, btols):
+            torch.testing.assert_close(a.float(), b.float(), **btol)
+        base, _ = ca.csr_attention(q, k, vv, seg, gather, bounds, m, 0.5)
+        assert not torch.allclose(out.float(), base.float(), **ftol)
+
+
+def test_stream_refuses_what_no_entry_takes(cuda):
+    """The stream entries take what the entries without the stream take: an
+    unknown mode, float64 scores or a K2 width that is not a multiple of 32
+    raise on the card as on the CPU."""
+    from graphphysics_torch.ops import csr_attention as ca
+
+    g, scores, values, mask = _csr_case(128, 500, 64, 4, seed=0, n_pad=128, e_pad=512)
+    seg, bounds = torch.from_numpy(g.senders).to(cuda), torch.from_numpy(g.sender_bounds).to(cuda)
+    s, v = scores.to(cuda), values.to(cuda)
+    with pytest.raises(ValueError, match="unknown stream_dtype 'f16'"):
+        ca.csr_softmax_spmm(s, v, seg, bounds, stream_dtype="f16")
+    with pytest.raises(ValueError, match="float32"):
+        ca.csr_softmax_spmm(s.double(), v, seg, bounds, stream_dtype="bf16")
+    with pytest.raises(ValueError, match="positive multiple of 32"):
+        ca.csr_softmax_spmm(s, v[:, :48].contiguous(), seg, bounds, stream_dtype="bf16")

@@ -1,9 +1,11 @@
 """The port stands alone: ``graphphysics_torch``, ``chip_smoke.py``,
 ``chip_smoke_mutants.py``, ``chip_compare.py``, ``chip_fidelity.py``,
-``chip_partition.py``, ``chip_utilities.py``, the
+``chip_partition.py``, ``chip_utilities.py``, ``chip_parallel.py``,
+``chip_model_parallel.py``, ``chip_stream.py``, the
 loader-worker cases that spawned workers import
-(``tests/_torch_port_loader_cases.py``) and the partition cases that
-spawned graph ranks import (``tests/_torch_port_partition_cases.py``; the
+(``tests/_torch_port_loader_cases.py``) and the partition and model-parallel
+cases that spawned ranks import (``tests/_torch_port_partition_cases.py``,
+``tests/_torch_port_model_parallel_cases.py``; the
 partition modules ``graphphysics_torch/parallel/*`` and ``ops/halo.py``
 among the package's) import no JAX, flax, optax or
 ``graphphysics_tpu``, build no kernel and start no thread or process on
@@ -29,8 +31,11 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "graphphysics_tpu")
 def _port_sources():
     scripts = [ROOT / "chip_smoke.py", ROOT / "chip_smoke_mutants.py", ROOT / "chip_compare.py",
                ROOT / "chip_partition.py", ROOT / "chip_utilities.py",
-               ROOT / "chip_fidelity.py", ROOT / "tests" / "_torch_port_loader_cases.py",
-               ROOT / "tests" / "_torch_port_partition_cases.py"]
+               ROOT / "chip_fidelity.py", ROOT / "chip_parallel.py", ROOT / "chip_model_parallel.py",
+               ROOT / "chip_stream.py",
+               ROOT / "tests" / "_torch_port_loader_cases.py",
+               ROOT / "tests" / "_torch_port_partition_cases.py",
+               ROOT / "tests" / "_torch_port_model_parallel_cases.py"]
     return sorted((ROOT / "graphphysics_torch").rglob("*.py")) + scripts
 
 
@@ -76,7 +81,7 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "import graphphysics_torch.utils.profiling, graphphysics_torch.utils.compilation_cache\n"
         "import graphphysics_torch.utils.meshmask, graphphysics_torch.utils.mesh_export\n"
         "import graphphysics_torch.utils.visualization, graphphysics_torch.cli.export\n"
-        "import graphphysics_torch.cli.doctor, chip_utilities\n"
+        "import graphphysics_torch.cli.doctor, chip_utilities, chip_stream\n"
         "import graphphysics_torch.native\n"
         "import threading, multiprocessing\n"
         "from graphphysics_torch.ops import _native\n"
