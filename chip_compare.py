@@ -23,6 +23,16 @@ the host's us a call of K1's and the fused attention's Python entry
 (``csr_segment_sum``, ``csr_attention``) and of ``torch.add`` on a tiny
 graph (64 nodes, 256 edges), where the call, not the kernel, sets the
 time.
+
+    python3 chip_compare.py <checkout root> [label] --stream
+
+times instead that checkout's 16-bit K1 entries and K5's bf16 stream entry
+(its ``chip_stream.k1_16bit_case`` and ``k5_stream_case``, each with the
+f32 entry on the same values beside it) at their three shapes (seeds and
+graphs as ``chip_smoke.py`` makes them, the frames from 2-frame
+trajectories), with the seconds of the two sources' ``nvcc`` builds and a
+digest of each 16-bit K1 and K5 stream output on the cases' own seeded
+inputs, so two commits' bits can be compared.
 """
 import json
 import os
@@ -152,6 +162,62 @@ def forward_host(cs, torch, forwards=10) -> dict:
     return out
 
 
+STREAM_SOURCES = ("csr_segment_sum.cu", "csr_softmax_spmm_pair.cu")
+
+
+def _digest(torch, t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes()).hexdigest()[:16]
+
+
+def stream_kernels(cs, torch) -> dict:
+    """The 16-bit K1 (bf16, f16) and K5's bf16 stream at their three shapes:
+    ms, the f32 entry's ms, bound, error and a digest of each output."""
+    import chip_stream as st
+    from chip_partition import k5_inputs, mesh_graph
+    from graphphysics_torch.dataset import build_preprocessing
+    from graphphysics_torch.ops import csr_attention as ca
+    from graphphysics_torch.ops.csr_segment import csr_segment_sum
+    from graphphysics_torch.training import get_preprocessing
+    from graphphysics_torch.utils.synthetic import cylinder_trajectory, panels_trajectory
+
+    dev = torch.device("cuda")
+    panels = cs.load_config(cs.PANELS_CONFIG)
+    epd_frame = cs.trajectory_frames(cylinder_trajectory, 2, 2, build_preprocessing(), "sorted")[0][0]
+    tf_frame = cs.trajectory_frames(
+        panels_trajectory, 2, panels["index"]["node_type_index"],
+        get_preprocessing(panels, use_edge_feature=False, remove_noise=True), "csr")[0][0]
+    keep = ("ms", "f32_entry_ms", "bound_ms", "max_abs_err")
+    out = {}
+    k1 = (("serving_frame", epd_frame), ("flagship_batch_8x2048", cs.flagship_batch(0)),
+          ("aneurysm_epd_66560x524288", cs.random_graph(*cs.ANEURYSM, 100)))
+    for dt in (torch.bfloat16, torch.float16):
+        for i, (label, graph) in enumerate(k1):
+            seed = 70 + i
+            record = {k: v for k, v in st.k1_16bit_case(label, graph, dt, seed)[0].items() if k in keep}
+            # k1_16bit_case's data: the same generator, seed and draw
+            recv = torch.as_tensor(graph.receivers).to(dev)
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            data = torch.randn((recv.shape[0], cs.HIDDEN), generator=gen, device=dev).to(dt)
+            with torch.no_grad():
+                got = csr_segment_sum(data, recv, torch.as_tensor(graph.row_bounds).to(dev),
+                                      torch.as_tensor(graph.edge_mask).to(dev))
+            out[f"k1_{st.SHORT[dt]}_{label}"] = {**record, "digest": _digest(torch, got)}
+    k5 = (("serving_frame_2048_part0_of_4", tf_frame, cs.HIDDEN),
+          ("mesh_16384_part0_of_4", mesh_graph("csr", 671), cs.HIDDEN),
+          ("aneurysm_csr_66560x524288_part0_of_4", cs.random_csr_graph(*cs.ANEURYSM, 300), 64))
+    for i, (label, graph, width) in enumerate(k5):
+        seed = 83 + i
+        record = {k: v for k, v in st.k5_stream_case(label, graph, width, seed).items() if k in keep}
+        n, _, seg, masks, bounds, scores, values, _ = k5_inputs(graph, width, seed)
+        with torch.no_grad():
+            got, _ = ca.csr_softmax_spmm_pair(scores[0], values[0], seg[0], bounds[0], scores[1], values[1],
+                                              seg[1], bounds[1], *masks, stream_dtype="bf16")
+        out[f"k5_stream_{label}"] = {**record, "digest": _digest(torch, got)}
+    return out
+
+
 def main() -> int:
     root = os.path.abspath([a for a in sys.argv[1:] if not a.startswith("--")][0])
     sys.path.insert(0, root)
@@ -168,6 +234,11 @@ def main() -> int:
     host = "--forward-host" in sys.argv
     positional = [a for a in sys.argv[1:] if not a.startswith("--")]
     out = {"tree": positional[1] if len(positional) > 1 else root}
+    if "--stream" in sys.argv:
+        out["nvcc_s"] = _native.build(STREAM_SOURCES)
+        out.update(stream_kernels(cs, torch))
+        print("COMPARE " + json.dumps(out), flush=True)
+        return 0
     if host:
         _native.build(("csr_segment_sum.cu", "csr_attention.cu"))
         out.update(forward_host(cs, torch))

@@ -243,10 +243,14 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     TPU kernels' two 16-bit stream modes. K1 and K1b on bf16 and f16 data
     at K1's shapes (the forward within one ulp of the output dtype of its
     plain version, the backward bit-equal, a hub row of 4,096 unit edges
-    reading exactly 4,096); the ``stream_dtype="bf16"`` entries of K2, K5
-    and the fused forward (f32 and bf16 q, k, v) at their kernels' shapes,
-    each against its plain version and each differing from the mode
-    without the stream by more than that tolerance; all timed beside their
+    reading exactly 4,096 in each of the 16-bit K1's geometries); the
+    ``stream_dtype="bf16"`` entries of K2, K5 and the fused forward (f32
+    and bf16 q, k, v) at their kernels' shapes, each against its plain
+    version and each differing from the mode without the stream by more
+    than that tolerance; every geometry of the 16-bit K1 and of K5's
+    stream (by width, heads and alignment) against its plain version, each
+    entry's outputs bit-equal on a second run and K1's in every geometry
+    of a width, with their geometry and a digest of each output; all timed beside their
     bounds, plain versions, the entries without the stream and (K1) the
     upcast path they replace and ``index_add_``. Then the slice's path:
     ``masked_segment_sum`` on bf16 and f16 data and the three functions

@@ -19,11 +19,14 @@ gradient limits; the normalizer counters opened and closed no more, so
 they advance once per microbatch: the counter check); a fault in the ELL
 gather's backward moves ``compare_steps``, the check of the first ELL step
 against the same step in the model's own layout (the gradient limits);
-a fault in the 16-bit stream modes (the 16-bit K1 summing in the data's
-dtype, the fused bf16 stream entry skipping its score rounding) moves the
-``stream_dtypes`` phase's checks (``chip_stream.py``): the hub row of 4,096
-unit edges and the one-ulp check against the plain version, and the check
-that a stream entry's output differs from the entry without the stream.
+a fault in the 16-bit stream modes (the 16-bit K1's 16-byte geometry
+summing in the data's dtype, K5's bf16 word geometry reading a neighbour
+lane's word or dropping each row's last edge, the fused bf16 stream entry
+skipping its score rounding) moves the ``stream_dtypes`` phase's checks
+(``chip_stream.py``): the hub row of 4,096 unit edges and the one-ulp check
+against the plain version, K5's stream against its plain version at the
+phase's tolerance, and the check that a stream entry's output differs from
+the entry without the stream.
 
 For each fault the tree is copied to a temporary directory, one line of a
 source is replaced there, the kernels are built from the copy and the check
@@ -67,7 +70,10 @@ BF16_DK = "dka[i] += d[u][i % NP] * scale * qr[i];"
 BF16_DV = "dva[i] += round_to<__nv_bfloat16>(a[u][i % NP] * gr[i]);"
 BF16_ROW = "reinterpret_cast<const uint4*>(base + static_cast<int64_t>(j) * geo.width + r.col0);"
 BF16_SLOT = "const bool live = t < r.len;"
-K1_SUM = "for (int c = 0; c < C; ++c) acc[c] += x[c];"
+K1_WORD_SUM = ("acc[2 * i] += f.x;", "acc[2 * i + 1] += f.y;")
+K5 = "graphphysics_torch/csrc/csr_softmax_spmm_pair.cu"
+K5_WORD = "w[u] = *reinterpret_cast<const Word*>((in_a ? a.values : b.values) + e * width + col0);"
+K5_SLOT = "if (!live[u]) continue;"
 BF16_FWD = "graphphysics_torch/csrc/csr_attention_bf16.cu"
 BF16_SCORE_ROUND = "for (int p = 0; p < NPR; ++p) s[u][p] = round_to<__nv_bfloat16>(s[u][p]);"
 MICRO = "graphphysics_torch/training/microbatch.py"
@@ -112,11 +118,18 @@ FAULTS = {
     # every node's last gathering edge adds nothing to its dk and dv
     "bf16_gather_rows_drop_last_slot": ("bf16transformer+kernel", BF16_BWD, BF16_SLOT,
                                         BF16_SLOT.replace("t < r.len", "t + 1 < r.len")),
-    # the 16-bit K1 entries keep their sum in the data's dtype: every partial
-    # sum rounded to bf16 / f16 (the f32 entry is unchanged: the rounding is
-    # the identity there)
-    "stream_k1_sums_in_16bit": ("stream", K1, K1_SUM, K1_SUM.replace(
-        "acc[c] += x[c];", "acc[c] = to_f32(from_f32<T>(acc[c] + x[c]));")),
+    # the 16-bit K1's 16-byte geometry keeps its sum in the data's dtype:
+    # every partial sum rounded to bf16 / f16
+    "stream_k1_sums_in_16bit": ("stream", K1, K1_WORD_SUM, (
+        "acc[2 * i] = to_f32(from_f32<T>(acc[2 * i] + f.x));",
+        "acc[2 * i + 1] = to_f32(from_f32<T>(acc[2 * i + 1] + f.y));")),
+    # K5's bf16 stream, word geometries: a lane reads its neighbour lane's
+    # word of each edge's values
+    "stream_k5_reads_neighbour_word": ("stream", K5, K5_WORD, K5_WORD.replace("col0);", "(col0 ^ W));")),
+    # K5's bf16 stream, word geometries: each row's last edge slot (set b's
+    # last edge, or set a's where b has none) is dropped from the merge
+    "stream_k5_drops_last_slot": ("stream", K5, K5_SLOT,
+                                  "if (!live[u] || t0 + u + 1 == len) continue;"),
     # the fused bf16 stream entry skips its score rounding: the bf16 entry's
     # function again
     "stream_fused_skips_score_rounding": ("stream", BF16_FWD, BF16_SCORE_ROUND, BF16_SCORE_ROUND.replace(
@@ -221,6 +234,24 @@ def read_stream_fault(name: str) -> dict:
     import chip_stream as st
 
     out = {"fault": name}
+    if name.startswith("stream_k5"):
+        from chip_partition import k5_inputs, mesh_graph
+        from graphphysics_torch.ops import csr_attention as ca
+
+        n, _, seg, masks, bounds, scores, values, _ = k5_inputs(mesh_graph("csr", 601), cs.HIDDEN, 84)
+        args = (scores[0], values[0], seg[0], bounds[0], scores[1], values[1], seg[1], bounds[1], *masks)
+        with torch.no_grad():
+            got, got_ml = ca.csr_softmax_spmm_pair(*args, stream_dtype="bf16")
+            rounded = [ca.stream_round(t) for t in (scores[0], values[0], scores[1], values[1])]
+            want, want_ml = ca.csr_softmax_spmm_pair_reference(rounded[0], rounded[1], seg[0], rounded[2],
+                                                               rounded[3], seg[1], n, *masks)
+        tol = {"rtol": cs.SOFTMAX_RTOL, "atol": cs.SOFTMAX_ATOL}
+        out.update({"shape": "mesh_16384_part0_of_4", "plain_max_abs_err": (got - want).abs().max().item(),
+                    "plain_ml_max_abs_err": (got_ml - want_ml).abs().max().item(),
+                    "plain_share_outside_tolerance": (~torch.isclose(got, want, **tol)).float().mean().item(),
+                    "plain_within_tolerance": torch.allclose(got, want, **tol)
+                    and torch.allclose(got_ml, want_ml, **tol)})
+        return out
     if name.startswith("stream_k1"):
         st.K1_ULPS = math.inf
         for dt in (torch.bfloat16, torch.float16):

@@ -8,7 +8,10 @@
   backward bit-equal, and a hub row of 4,096 unit edges that must read
   exactly 4,096. Timed beside the bound, the plain version, the f32 entry
   on the f32 data, the path they replace (``masked_segment_sum``'s upcast,
-  the f32 K1 and the downcast) and ``index_add_`` into f32.
+  the f32 K1 and the downcast) and ``index_add_`` into f32. Each record
+  names the lane geometry that ran (``segment_sum_geometry``) and a digest
+  of each output, so a run of another commit on the same seed shows
+  whether the bits moved.
 - ``stream_dtype="bf16"``: the stream entries of K2 (K2's three shapes), K5
   (K5's three shapes) and the fused forward on f32 and on bf16 q, k, v (the
   fused entries' three shapes), each against its plain version at the
@@ -16,6 +19,11 @@
   without the stream by more than that tolerance (a kernel that skipped the
   rounding would pass the first check alone). Timed beside the bound, the
   plain version and the entry without the stream.
+- Every lane geometry of the 16-bit K1 and of K5's stream entry, by width,
+  heads and the data's alignment (``k1_geometry_cases``,
+  ``k5_geometry_cases``): each against its plain version at the limits
+  above, each output the same bits on a second run, and the 16-bit K1's
+  geometries of one width the same bits as each other.
 - The slice's path: ``masked_segment_sum`` on bf16 and f16 data and the
   three functions with ``stream_dtype="bf16"``, forward and backward,
   through the entry points a caller uses, with every counter set to 0
@@ -27,6 +35,7 @@
 Run through ``python3 chip_smoke.py``; ``stream_phase`` returns the records
 of the kernels line and the path's launches."""
 
+import hashlib
 import math
 import time
 
@@ -37,6 +46,14 @@ K1_ULPS = 1  # the 16-bit K1 against its plain version: both sum in f32, round o
 HUB_EDGES = 4096
 MANTISSA = {torch.bfloat16: 7, torch.float16: 10}  # explicit mantissa bits
 SHORT = {torch.bfloat16: "bf16", torch.float16: "f16"}  # the entries' suffixes
+# the geometry checks: data alignments in bytes (16-byte words where the
+# width allows, 4-byte pairs, single columns), K1's widths, and K5's
+# (width, heads, alignment of the bf16 values): 16-byte words at two and
+# four rows a warp, 8-byte words (a 12-wide head; an 8-byte aligned view),
+# and the general geometry (a 5-wide head; a 4-byte aligned view)
+ALIGNMENTS = (16, 4, 2)
+K1_WIDTHS = (128, 64, 48, 127)
+K5_GEOMETRY_CASES = ((128, 4, 16), (64, 4, 16), (48, 4, 16), (128, 4, 8), (40, 8, 16), (128, 4, 4))
 
 
 def _cs():
@@ -54,6 +71,27 @@ def ulps(got: torch.Tensor, want: torch.Tensor) -> float:
     _, exp = torch.frexp(mag)  # mag = m * 2^exp, 0.5 <= m < 1
     unit = torch.exp2((exp - 1 - MANTISSA[dtype]).float())
     return ((got.float() - want.float()).abs() / unit).max().item()
+
+
+def digest(t: torch.Tensor) -> str:
+    """The first 16 hex digits of the sha256 of ``t``'s bytes: outputs of
+    two runs or two commits on the same seed are bit-equal where these
+    agree."""
+    return hashlib.sha256(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes()).hexdigest()[:16]
+
+
+def view_at(t: torch.Tensor, aligned: int) -> torch.Tensor:
+    """A copy of ``t`` (contiguous) whose first element sits at an address
+    that is ``aligned`` bytes aligned and no more: the views the kernels'
+    narrower geometries take."""
+    from graphphysics_torch.ops.csr_segment import alignment
+
+    extra = 16 // t.element_size()
+    flat = torch.empty(t.numel() + 2 * extra, dtype=t.dtype, device=t.device)
+    offset = next(k for k in range(2 * extra) if alignment(flat[k:]) == aligned)
+    out = flat[offset:offset + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def _bound(bytes_, ops):
@@ -75,10 +113,12 @@ def k1_16bit_case(name, graph, dtype, seed):
     """K1's and K1b's 16-bit entries on one receiver-sorted layout. Returns
     (forward record, backward record)."""
     from graphphysics_torch.ops.csr_segment import (
+        alignment,
         csr_segment_sum,
         csr_segment_sum_backward,
         csr_segment_sum_backward_reference,
         csr_segment_sum_reference,
+        segment_sum_geometry,
     )
 
     cs = _cs()
@@ -92,10 +132,14 @@ def k1_16bit_case(name, graph, dtype, seed):
     g = torch.randn((n, hidden), generator=gen, device=dev).to(dtype)
     with torch.no_grad():
         got = csr_segment_sum(data, recv, bounds, mask)
+        again = csr_segment_sum(data, recv, bounds, mask)
         want = csr_segment_sum_reference(data, recv, n, mask)
         got_b = csr_segment_sum_backward(g, recv, bounds, mask)
+        again_b = csr_segment_sum_backward(g, recv, bounds, mask)
         want_b = csr_segment_sum_backward_reference(g, recv, bounds, mask)
         torch.cuda.synchronize()
+        if not (torch.equal(got, again) and torch.equal(got_b, again_b)):
+            raise AssertionError(f"{name}: {dtype} K1 / K1b not bit-equal on a second run")
         if got.dtype != dtype or got_b.dtype != dtype:
             raise AssertionError(f"{name}: the {dtype} entries gave {got.dtype}, {got_b.dtype}")
         err_ulps = ulps(got, want)
@@ -144,11 +188,15 @@ def k1_16bit_case(name, graph, dtype, seed):
                "library_ms": cs.device_ms(lambda x: x.index_select(0, recv), g16)}
     common = {"shape": name, "dtype": str(dtype).replace("torch.", ""), "nodes": n, "edges": e,
               "real_edges": real_edges, "hidden": hidden}
-    forward = {**common, "max_abs_err": err, "max_ulps": err_ulps, "tolerance": {"ulps": K1_ULPS}, **fwd,
+    forward = {**common, "max_abs_err": err, "max_ulps": err_ulps, "tolerance": {"ulps": K1_ULPS},
+               "geometry": segment_sum_geometry(hidden, dtype, alignment(data))._asdict(),
+               "digest": digest(got), "inputs": f"torch.randn on the card, seed {seed}, cast to {dtype}",
+               "bit_equal_twice": True, **fwd,
                "replaced_note": "masked_segment_sum's 16-bit path before: upcast to f32, the f32 K1, downcast",
                "library_note": "index_add_ into f32 of the masked f32 upcast (the cast outside the timing)",
                "input_copies": copies, **_bound(fwd_bytes, real_edges * hidden)}
-    backward = {**common, "max_abs_err": 0.0, "tolerance": 0.0, "bit_equal": True, **bwd,
+    backward = {**common, "max_abs_err": 0.0, "tolerance": 0.0, "bit_equal": True, "bit_equal_twice": True,
+                "digest": digest(got_b), **bwd,
                 "replaced_note": "the gradient of that path: g upcast, the f32 K1b, ddata downcast",
                 "library_note": "index_select(0, receivers) of the 16-bit g: the same gather without "
                                 "zeroing masked and padded edges",
@@ -158,21 +206,75 @@ def k1_16bit_case(name, graph, dtype, seed):
 
 def hub_row(dtype) -> dict:
     """4,096 unit edges into node 0 and one into each other node, through
-    the 16-bit K1: node 0 must read exactly 4,096 (a sum kept in bf16 stops
-    at 256, in f16 at 2,048), every other node 1."""
-    from graphphysics_torch.ops.csr_segment import compute_row_bounds, csr_segment_sum
+    the 16-bit K1 in each of its geometries (data 16-, 4- and 2-byte
+    aligned): node 0 must read exactly 4,096 (a sum kept in bf16 stops at
+    256, in f16 at 2,048), every other node 1."""
+    from graphphysics_torch.ops.csr_segment import alignment, compute_row_bounds, csr_segment_sum, segment_sum_geometry
 
-    dev, n = torch.device("cuda"), 64
+    dev, n, hidden = torch.device("cuda"), 64, _cs().HIDDEN
     recv_np = np.concatenate([np.zeros(HUB_EDGES, np.int32), np.arange(1, n, dtype=np.int32)])
     recv = torch.from_numpy(recv_np).to(dev)
     bounds = torch.from_numpy(compute_row_bounds(recv_np, n)).to(dev)
-    with torch.no_grad():
-        out = csr_segment_sum(torch.ones((len(recv_np), _cs().HIDDEN), dtype=dtype, device=dev), recv, bounds)
-    hub = out[0].float()
-    if not (bool((hub == HUB_EDGES).all()) and bool((out[1:] == 1).all())):
-        raise AssertionError(f"hub row in {dtype}: read {hub.min().item()}-{hub.max().item()}, "
-                             f"expected {HUB_EDGES}")
-    return {"dtype": str(dtype).replace("torch.", ""), "hub_edges": HUB_EDGES, "hub_row": hub.max().item()}
+    read, kinds = [], []
+    for aligned in ALIGNMENTS:
+        data = view_at(torch.ones((len(recv_np), hidden), dtype=dtype, device=dev), aligned)
+        with torch.no_grad():
+            out = csr_segment_sum(data, recv, bounds)
+        hub = out[0].float()
+        kinds.append(segment_sum_geometry(hidden, dtype, alignment(data)).kind)
+        if not (bool((hub == HUB_EDGES).all()) and bool((out[1:] == 1).all())):
+            raise AssertionError(f"hub row in {dtype}, {kinds[-1]}: read {hub.min().item()}-{hub.max().item()}, "
+                                 f"expected {HUB_EDGES}")
+        read.append(hub.max().item())
+    return {"dtype": str(dtype).replace("torch.", ""), "hub_edges": HUB_EDGES, "hub_row": min(read),
+            "geometries": kinds}
+
+
+def k1_geometry_cases(graph, seed) -> list:
+    """The 16-bit K1 in every geometry its rule gives at the cylinder
+    batch's layout: widths 128 and 64 (16-byte words, two and four rows a
+    warp), 48 (16-byte words, two idle lanes of 8) and 127 (odd: single
+    columns), each on data 16-, 4- and 2-byte aligned (words, pairs,
+    single columns). Each within ``K1_ULPS`` of its plain version, the same
+    bits twice, and the same bits in every geometry of a width (each adds
+    a row's edges in edge order in f32)."""
+    from graphphysics_torch.ops.csr_segment import (
+        alignment,
+        csr_segment_sum,
+        csr_segment_sum_reference,
+        segment_sum_geometry,
+    )
+
+    dev = torch.device("cuda")
+    recv = torch.as_tensor(graph.receivers).to(dev)
+    bounds = torch.as_tensor(graph.row_bounds).to(dev)
+    mask = torch.as_tensor(graph.edge_mask).to(dev)
+    n = bounds.shape[1]
+    records = []
+    for dtype in (torch.bfloat16, torch.float16):
+        for width in K1_WIDTHS:
+            gen = torch.Generator(device=dev).manual_seed(seed + width)
+            data = torch.randn((recv.shape[0], width), generator=gen, device=dev).to(dtype)
+            with torch.no_grad():
+                want = csr_segment_sum_reference(data, recv, n, mask)
+                outs, kinds, worst = [], [], 0.0
+                for aligned in ALIGNMENTS:
+                    d = view_at(data, aligned)
+                    got, again = (csr_segment_sum(d, recv, bounds, mask) for _ in range(2))
+                    torch.cuda.synchronize()
+                    kinds.append(segment_sum_geometry(width, dtype, alignment(d)).kind)
+                    worst = max(worst, ulps(got, want))
+                    if not torch.equal(got, again) or worst > K1_ULPS:
+                        raise AssertionError(f"{dtype} K1 at width {width}, {kinds[-1]}: {worst} ulps, "
+                                             f"bit-equal twice {torch.equal(got, again)}")
+                    outs.append(got)
+            if not all(torch.equal(o, outs[0]) for o in outs[1:]):
+                raise AssertionError(f"{dtype} K1 at width {width}: geometries {kinds} give different bits")
+            records.append({"entry": f"csr_segment_sum_{SHORT[dtype]}", "width": width, "aligned": ALIGNMENTS,
+                            "geometries": kinds, "max_ulps": worst, "tolerance": {"ulps": K1_ULPS},
+                            "bit_equal_twice": True, "bit_equal_across_geometries": True,
+                            "digest": digest(outs[0])})
+    return records
 
 
 # ---------------------------------------------------------------------------
@@ -242,10 +344,13 @@ def k2_stream_case(name, graph, width, seed):
 
 
 def k5_stream_case(name, graph, width, seed):
-    """K5's bf16 stream entry (``csr_softmax_spmm_pair_bf16_stream``, the
-    general geometry) on part 0 of ``graph``'s 4-way split-edge partition."""
+    """K5's bf16 stream entry (``csr_softmax_spmm_pair_bf16_stream``) on
+    part 0 of ``graph``'s 4-way split-edge partition, in the geometry its
+    rule (``pair_stream_geometry``) gives the width and the casts'
+    alignment."""
     from chip_partition import k5_inputs
     from graphphysics_torch.ops import csr_attention as ca
+    from graphphysics_torch.ops.csr_segment import alignment
 
     cs = _cs()
     h = cs.HEADS
@@ -263,9 +368,12 @@ def k5_stream_case(name, graph, width, seed):
     args = (scores[0], values[0], scores[1], values[1])
     with torch.no_grad():
         out, ml = pair(*args, stream_dtype="bf16")
+        again, again_ml = pair(*args, stream_dtype="bf16")
         want_out, want_ml = plain(*args)
         f32_out, _ = pair(*args)
         torch.cuda.synchronize()
+        if not (torch.equal(out, again) and torch.equal(ml, again_ml)):
+            raise AssertionError(f"{name}: K5 bf16 stream not bit-equal on a second run")
         errs = [(out - want_out).abs().max().item(), (ml - want_ml).abs().max().item()]
         if not (torch.isfinite(out).all() and torch.allclose(out, want_out, **tol)
                 and torch.allclose(ml, want_ml, **tol)):
@@ -278,19 +386,65 @@ def k5_stream_case(name, graph, width, seed):
         copies = cs.copies_past_l2(bytes_)
         f32s = _copies(args, copies)
         b16s = [tuple(t.to(torch.bfloat16) for t in x) for x in f32s]
+        geometry = ca.pair_stream_geometry(width, h, alignment(b16s[0][1], b16s[0][3]))._asdict()
         times = {"ms": cs.device_ms(lambda sa, va, sb, vb: ca._launch_pair(
                      sa, va, bounds[0], masks[0], sb, vb, bounds[1], masks[1]), b16s),
                  "with_casts_ms": cs.device_ms(lambda *a: pair(*a, stream_dtype="bf16"), f32s),
                  "plain_ms": cs.device_ms(plain, f32s), "f32_entry_ms": cs.device_ms(pair, f32s)}
     return {"shape": name, "rows": n, "local_slots": el, "halo_slots": int(masks[1].shape[0]),
             "local_edges": real[0], "halo_edges": real[1], "width": width, "heads": h,
-            "geometry": "general (columns j, j + 32, ... a lane), every width",
+            "geometry": geometry, "bit_equal_twice": True, "digest": digest(out),
             "max_abs_err": max(errs), "out_ml_max_abs_err": errs, "tolerance": tol, **gap, **times,
             "with_casts_note": "the public call: the four casts to bf16, then the kernel",
             "f32_entry_note": "the f32 entry's own geometry for the width (16-byte lanes at D = 32k)",
             "library_ms": None,
             "library_note": "no single PyTorch call computes a segment softmax + SpMM",
             "input_copies": copies, **_bound(bytes_, ops)}
+
+
+def k5_geometry_cases(graph, seed) -> list:
+    """K5's bf16 stream entry in every geometry its rule gives, on part 0
+    of ``graph``'s 4-way split-edge partition (``K5_GEOMETRY_CASES``: the
+    bf16 values placed at the case's alignment and the entry launched on
+    them): each against its plain version at the phase's tolerance, the
+    same bits twice, and farther than that tolerance from the f32 mode."""
+    from chip_partition import k5_inputs
+    from graphphysics_torch.ops import csr_attention as ca
+    from graphphysics_torch.ops.csr_segment import alignment
+
+    cs = _cs()
+    dev = torch.device("cuda")
+    tol = {"rtol": cs.SOFTMAX_RTOL, "atol": cs.SOFTMAX_ATOL}
+    records = []
+    for i, (width, heads, aligned) in enumerate(K5_GEOMETRY_CASES):
+        n, _, seg, masks, bounds, scores, values, _ = k5_inputs(graph, width, seed + i)
+        if heads != cs.HEADS:
+            gen = torch.Generator(device=dev).manual_seed(seed + 100 + i)
+            scores = [torch.where(m[:, None], 3 * torch.randn((m.shape[0], heads), generator=gen, device=dev),
+                                  torch.full((), ca.NEG, device=dev)) for m in masks]
+        sa, sb = (t.to(torch.bfloat16) for t in scores)
+        va, vb = (view_at(t.to(torch.bfloat16), aligned) for t in values)
+        with torch.no_grad():
+            out, ml = ca._launch_pair(sa, va, bounds[0], masks[0], sb, vb, bounds[1], masks[1])
+            again, again_ml = ca._launch_pair(sa, va, bounds[0], masks[0], sb, vb, bounds[1], masks[1])
+            want_out, want_ml = ca.csr_softmax_spmm_pair_reference(
+                sa.float(), va.float(), seg[0], sb.float(), vb.float(), seg[1], n, *masks)
+            f32_out, _ = ca.csr_softmax_spmm_pair(scores[0], values[0], seg[0], bounds[0], scores[1], values[1],
+                                                  seg[1], bounds[1], *masks)
+            torch.cuda.synchronize()
+        geometry = ca.pair_stream_geometry(width, heads, alignment(va, vb))
+        label = f"width {width}, {heads} heads, values {alignment(va, vb)}-byte aligned, {geometry.kind}"
+        errs = [(out - want_out).abs().max().item(), (ml - want_ml).abs().max().item()]
+        if not (torch.equal(out, again) and torch.equal(ml, again_ml)):
+            raise AssertionError(f"K5 bf16 stream at {label}: not bit-equal on a second run")
+        if not (torch.isfinite(out).all() and torch.allclose(out, want_out, **tol)
+                and torch.allclose(ml, want_ml, **tol)):
+            raise AssertionError(f"K5 bf16 stream at {label} vs plain out/ml max_abs_err {errs}")
+        records.append({"entry": "csr_softmax_spmm_pair_bf16_stream", "width": width, "heads": heads,
+                        "aligned": alignment(va, vb), "geometry": geometry._asdict(), "max_abs_err": max(errs),
+                        "out_ml_max_abs_err": errs, "tolerance": tol, "bit_equal_twice": True,
+                        **_differs(label, out, f32_out, **tol)})
+    return records
 
 
 def grid_qk(q, k, interleaved):
@@ -514,6 +668,8 @@ def stream_phase(clock, counts, seed, epd_frame, cyl_batch, aneurysm_epd, tf_fra
         records.setdefault(entry, []).append(record)
         clock.emit({"phase": "stream_dtypes", "name": entry, **record})
 
+    for record in k1_geometry_cases(cyl_batch, seed + 30):
+        clock.emit({"phase": "stream_dtypes", "name": "geometry", **record})
     for dt in (torch.bfloat16, torch.float16):
         key = SHORT[dt]
         hub = hub_row(dt)
@@ -531,6 +687,8 @@ def stream_phase(clock, counts, seed, epd_frame, cyl_batch, aneurysm_epd, tf_fra
                                                ("mesh_16384_part0_of_4", mesh, cs.HIDDEN),
                                                ("aneurysm_csr_66560x524288_part0_of_4", aneurysm_csr, 64))):
         emit("csr_softmax_spmm_pair_bf16_stream", k5_stream_case(label, graph, width, seed + 13 + i))
+    for record in k5_geometry_cases(mesh, seed + 40):
+        clock.emit({"phase": "stream_dtypes", "name": "geometry", **record})
     for dt, key in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         for i, (label, graph, width) in enumerate((("transformer_serving_frame", tf_frame, cs.HIDDEN),
                                                    ("panels_csr_batch_8x2048", tf_batch, cs.HIDDEN),

@@ -39,7 +39,8 @@
 //   forward   E*(4H + 4D + 1) + N*16 (four bounds) + N*(4D + 8H) written
 //   backward  E*(4H + 4D + 1) + N*(16 + 8D + 8H) read, E_pad*(4H + 4D) written.
 //
-// Design. One warp owns one row: no atomics, nothing shared between warps,
+// Design. One warp owns one row (one lane group in the bf16 stream's word
+// geometries, below): no atomics, nothing shared between warps or groups,
 // every sum in a fixed order, so two runs agree bit for bit (backward
 // included: each edge belongs to one row and is written by that row's warp
 // only). Two lane geometries. Where D % 32 == 0 and a head's columns split
@@ -62,18 +63,44 @@
 // stream_dtype="bf16" (entry csr_softmax_spmm_pair_bf16_stream): JAX's pair
 // runs both partials' K2 in its bf16 stream mode (pallas_attention.py:460,
 // :255-302), which computes in f32 from scores and values rounded to bf16.
-// The wrapper rounds them (one PyTorch cast each), and the forward of the
-// general geometry, instantiated on the element type, reads both sets' bf16
-// scores and values, widens each element to f32 and merges in f32 as the
-// f32 entry does; out and ml stay f32. One geometry serves every width: the
-// general one (a warp reads 64 contiguous bytes of an edge's bf16 row per
-// 32-column slot). Its bytes are E*(2H + 2D + 1) + N*16 + N*(4D + 8H). The
+// The wrapper rounds them (one PyTorch cast each); the kernel reads both
+// sets' bf16 scores and values, widens each element to f32 and merges in
+// f32 as the f32 entry does; out and ml stay f32. Its bytes are
+//   E*(2H + 2D + 1) + N*16 + N*(4D + 8H).
+// Three geometries, chosen before the launch by shape and alignment (the
+// rule of ops/csr_attention.py pair_stream_geometry):
+// - 16-byte words, where a head's width is a multiple of 8, D <= 256 and
+//   both sets' value arrays are 16-byte aligned: a lane owns 8 adjacent
+//   columns of one head, read as one 16-byte word, reads one bf16 score an
+//   edge and computes its exponentials once a head (not once a column). A
+//   row takes L = D / 8 lanes (rounded up to a power of two), so a warp
+//   serves 32 / L rows: two at D = 128, four at D = 64. A lane walks the
+//   two ranges as one sequence (set a's edges, then set b's) in windows of
+//   kEdgeGroup edges: it starts the loads of the window's mask bytes,
+//   scores and words together, then takes the window's maximum, rescales
+//   (m, l) and its sums once, and adds the live edges' weights and weighted
+//   values in edge order: one exponential a live edge and one a window,
+//   none of them waiting on the one before (an online softmax over the
+//   edges one at a time chains two exponentials an edge; chosen from trial
+//   builds on an H100). A warp at D = 128 keeps 2 x 16 x 8 words of 16
+//   bytes in flight where the general geometry kept one 64-byte span of
+//   one edge.
+// - 8-byte words, where a head's width is a multiple of 4, D <= 128 and the
+//   value arrays 8-byte aligned (D = 48 with 4 heads of 12): the same with
+//   4 columns a lane.
+// - the general geometry above for every other width and view (D = 40 with
+//   8 heads of 5; a value array only 2- or 4-byte aligned): lane j owns the
+//   columns j, j + 32, ..., each read as its own 2-byte load, and computes a
+//   column's head's two exponentials for every column it owns.
+// Each keeps the invariants above: one warp or lane group owns a row, no
+// atomics, every sum in edge order, two runs give the same bits. The
 // backward is the f32 one on the unrounded inputs with this pass's merged
 // ml and out: JAX's `_pair_bwd`.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <initializer_list>
 
@@ -84,6 +111,8 @@ constexpr int kRowsPerBlock = 4;  // warps (rows) per block
 constexpr int kMaxWidth = 512;
 constexpr float kNeg = -1e30f;  // finite -inf stand-in, as the TPU kernel
 constexpr float kEps = 1e-16f;  // the epsilon of segment_softmax
+constexpr int kEdgeGroup = 8;   // edges a lane has in flight (bf16 word geometries)
+constexpr int kWordWarps = 4;   // warps per block (bf16 word geometries)
 
 template <typename T>
 struct EdgeSetOf {
@@ -457,6 +486,126 @@ __global__ void pair_backward_fast(EdgeSet a, EdgeSet b, const float* __restrict
   edge_grads_fast<V>(b, ds_b, dv_b, start, end, col0, head, num_heads, group, m, l, delta, gr);
 }
 
+// ---- the bf16 stream's word geometries: W = 8 (16-byte words) or 4
+// (8-byte words) adjacent bf16 columns of one head a lane, `lanes` lanes a
+// row (a power of two), 32 / lanes rows a warp.
+
+template <int W>
+struct WordOf;
+template <>
+struct WordOf<8> {
+  using type = uint4;
+};
+template <>
+struct WordOf<4> {
+  using type = uint2;
+};
+
+// the W bf16 columns of a word (W / 2 pairs), as f32
+template <typename Word, int W>
+__device__ __forceinline__ void unpack_word(const Word& w, float (&v)[W]) {
+  static_assert(sizeof(Word) == 2 * W, "a word holds W bf16 columns");
+  uint32_t bits[W / 2];
+  memcpy(bits, &w, sizeof(bits));
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) {
+    __nv_bfloat162 h;
+    memcpy(&h, &bits[i], sizeof(h));
+    const float2 f = __bfloat1622float2(h);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+template <int W>
+__global__ void pair_forward_words(EdgeSetOf<__nv_bfloat16> a, EdgeSetOf<__nv_bfloat16> b,
+                                   float* __restrict__ out, float* __restrict__ ml, int64_t num_rows,
+                                   int width, int num_heads, int lanes) {
+  using Word = typename WordOf<W>::type;
+  const int slot = threadIdx.x / lanes;
+  const int sub = threadIdx.x % lanes;
+  const int64_t row = (static_cast<int64_t>(blockIdx.x) * kWordWarps + threadIdx.y) * (kLanes / lanes) + slot;
+  const int col0 = sub * W;
+  if (row >= num_rows || col0 >= width) return;  // no shuffles: a lane waits on no other
+  const int head_dim = width / num_heads;
+  const int head = col0 / head_dim;
+  int64_t start_a, end_a, start_b, end_b;
+  row_range(a, row, num_rows, start_a, end_a);
+  row_range(b, row, num_rows, start_b, end_b);
+  const int64_t len_a = end_a > start_a ? end_a - start_a : 0;
+  const int64_t len = len_a + (end_b > start_b ? end_b - start_b : 0);
+  float m = kNeg, l = 0.0f, acc[W];
+#pragma unroll
+  for (int c = 0; c < W; ++c) acc[c] = 0.0f;
+  // slot t of the row's sequence: edge start_a + t of set a, then start_b +
+  // t - len_a of set b
+  for (int64_t t0 = 0; t0 < len; t0 += kEdgeGroup) {
+    Word w[kEdgeGroup];
+    float x[kEdgeGroup];
+    bool live[kEdgeGroup];
+#pragma unroll
+    for (int u = 0; u < kEdgeGroup; ++u) {
+      const int64_t t = t0 + u;
+      live[u] = false;
+      x[u] = 0.0f;
+      w[u] = Word{};
+      if (t < len) {
+        const bool in_a = t < len_a;
+        const int64_t e = in_a ? start_a + t : start_b + (t - len_a);
+        const uint8_t* mask = in_a ? a.mask : b.mask;
+        live[u] = mask == nullptr || mask[e] != 0;
+        x[u] = __bfloat162float((in_a ? a.scores : b.scores)[e * num_heads + head]);
+        w[u] = *reinterpret_cast<const Word*>((in_a ? a.values : b.values) + e * width + col0);
+      }
+    }
+    float m_new = m;
+#pragma unroll
+    for (int u = 0; u < kEdgeGroup; ++u) {
+      if (live[u]) m_new = fmaxf(m_new, x[u]);
+    }
+    const float alpha = expf(m - m_new);
+    l *= alpha;
+#pragma unroll
+    for (int c = 0; c < W; ++c) acc[c] *= alpha;
+#pragma unroll
+    for (int u = 0; u < kEdgeGroup; ++u) {
+      if (!live[u]) continue;
+      float v[W];
+      unpack_word<Word, W>(w[u], v);
+      const float p = expf(x[u] - m_new);
+      l += p;
+#pragma unroll
+      for (int c = 0; c < W; ++c) acc[c] += p * v[c];
+    }
+    m = m_new;
+  }
+  float o[W];
+#pragma unroll
+  for (int c = 0; c < W; ++c) o[c] = acc[c] / (l + kEps);
+  store_cols<W>(out + row * width + col0, o);
+  if (col0 % head_dim == 0) {
+    ml[head * num_rows + row] = m;
+    ml[(num_heads + head) * num_rows + row] = l;
+  }
+}
+
+// The columns a lane owns in the bf16 stream's word geometries (8 or 4),
+// or 0 for the general geometry; `lanes` the lanes a row then takes (the
+// rule of ops/csr_attention.py pair_stream_geometry).
+int word_columns(int width, int num_heads, std::initializer_list<const void*> values, int& lanes) {
+  const int head_dim = width / num_heads;
+  for (int w : {8, 4}) {
+    if (head_dim % w != 0 || width > kLanes * w) continue;
+    bool aligned = true;
+    for (const void* p : values) aligned = aligned && reinterpret_cast<uintptr_t>(p) % (2 * w) == 0;
+    if (!aligned) continue;
+    lanes = 1;
+    while (lanes * w < width) lanes *= 2;
+    return w;
+  }
+  return 0;
+}
+
 // the contiguous geometry takes the width and head count, and its vector
 // accesses need every column array 16-byte aligned
 bool fast(int width, int num_heads, std::initializer_list<const void*> arrays) {
@@ -533,7 +682,8 @@ extern "C" int csr_softmax_spmm_pair_f32(const void* scores_a, const void* value
 }
 
 // The same with both sets' scores and values in bf16 (stream_dtype="bf16"),
-// in the general geometry for every width; out and ml f32.
+// in the 16-byte, 8-byte or general geometry by width, heads and
+// alignment; out and ml f32.
 extern "C" int csr_softmax_spmm_pair_bf16_stream(const void* scores_a, const void* values_a,
                                                  const void* bounds_a, const void* mask_a,
                                                  const void* scores_b, const void* values_b,
@@ -545,13 +695,30 @@ extern "C" int csr_softmax_spmm_pair_bf16_stream(const void* scores_a, const voi
   if (!valid(width, num_heads)) return static_cast<int>(cudaErrorInvalidValue);
   const auto a = edge_set<__nv_bfloat16>(scores_a, values_a, bounds_a, mask_a, edges_a);
   const auto b = edge_set<__nv_bfloat16>(scores_b, values_b, bounds_b, mask_b, edges_b);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* o = static_cast<float*>(out);
+  auto* st = static_cast<float*>(ml);
+  int lanes = 0;
+  const int w = reinterpret_cast<uintptr_t>(out) % 16 == 0
+                    ? word_columns(width, num_heads, {values_a, values_b}, lanes)
+                    : 0;
+  if (w > 0) {
+    const long long rows = static_cast<long long>(kWordWarps) * (kLanes / lanes);  // a block
+    const dim3 block(kLanes, kWordWarps);
+    const dim3 grid(static_cast<unsigned>((num_rows + rows - 1) / rows));
+    if (w == 8) {
+      pair_forward_words<8><<<grid, block, 0, s>>>(a, b, o, st, num_rows, width, num_heads, lanes);
+    } else {
+      pair_forward_words<4><<<grid, block, 0, s>>>(a, b, o, st, num_rows, width, num_heads, lanes);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
   const dim3 block(kLanes, kRowsPerBlock);
   const dim3 grid(static_cast<unsigned>((num_rows + kRowsPerBlock - 1) / kRowsPerBlock));
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define CASE(NC)                                                                              \
   case NC:                                                                                    \
-    pair_forward_kernel<NC, __nv_bfloat16><<<grid, block, 0, s>>>(                            \
-        a, b, static_cast<float*>(out), static_cast<float*>(ml), num_rows, width, num_heads); \
+    pair_forward_kernel<NC, __nv_bfloat16><<<grid, block, 0, s>>>(a, b, o, st, num_rows,      \
+                                                                  width, num_heads);          \
     break;
   switch ((width + kLanes - 1) / kLanes) {
     PAIR_CASES(CASE)

@@ -88,7 +88,10 @@ import torch
 
 from graphphysics_torch.ops import _native
 from graphphysics_torch.ops.csr_segment import (
+    EDGE_GROUP,
+    WARP,
     LaunchCount,
+    SumGeometry,
     accumulation_dtype,
     check_in_range,
     csr_segment_sum_reference,
@@ -951,6 +954,32 @@ def bf16_geometry(width: int, heads: int, interleaved: bool, aligned: bool = Tru
     ``bf16_geometries``), or None."""
     found = bf16_geometries(width, heads, interleaved, aligned, backward)
     return found[0] if found else None
+
+
+def pair_stream_geometry(width: int, heads: int, aligned: int) -> Optional[SumGeometry]:
+    """The geometry K5's bf16 stream entry (``csr_softmax_spmm_pair_bf16_stream``)
+    runs ``width`` columns in ``heads`` heads with, where both sets' value
+    arrays are ``aligned``-byte aligned (``csr_segment.alignment``; ``out``
+    is the wrapper's own, 16-byte aligned), as ``csrc/csr_softmax_spmm_pair.cu``
+    chooses it: "words16" (8 bf16 columns of one head a lane, one 16-byte
+    word) where the head width is a multiple of 8, D <= 256 and the values
+    16-byte aligned; else "words8" (4 columns, 8-byte words) where the head
+    width is a multiple of 4, D <= 128 and the values 8-byte aligned; a row
+    takes ``D / columns`` lanes rounded up to a power of two, 32 / lanes rows
+    a warp, 8 edges in flight. Else "general": lane j owns the columns j,
+    j + 32, ... (up to 16), a warp a row, one edge at a time. None where the
+    entry takes neither (past ``MAX_WIDTH``, H not dividing D)."""
+    if not 0 < width <= MAX_WIDTH or heads <= 0 or width % heads:
+        return None
+    head_dim = width // heads
+    for cols, kind in ((8, "words16"), (4, "words8")):
+        if head_dim % cols or width > WARP * cols or aligned % (2 * cols):
+            continue
+        lanes = 1
+        while lanes * cols < width:
+            lanes *= 2
+        return SumGeometry(kind, cols, lanes, WARP // lanes, EDGE_GROUP)
+    return SumGeometry("general", -(-width // WARP), WARP, 1, 1)
 
 
 # the fused kernels' entries by element type, and the byte alignment each

@@ -16,6 +16,10 @@ apart on ``.bf16`` and ``.f16``) or raise; their CPU implementations are
 the plain PyTorch versions; their fake implementations give shapes and
 dtypes only. Nothing but the tensors' device selects between the two.
 
+The 16-bit entries take one of three lane geometries, chosen before the
+launch by width and alignment; ``segment_sum_geometry`` is that rule, kept
+beside the kernels so the CPU tests and the card's records can read it.
+
 The kernel reads per-node ``[start, end)`` ranges of real edges
 (``compute_row_bounds``, built on the host with the padding) instead of the
 TPU kernel's per-256-row block offsets; ``compute_block_offsets`` and
@@ -26,7 +30,7 @@ the JAX ones.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -78,6 +82,62 @@ def compute_row_bounds(
             np.searchsorted(recv, nodes, side="right"),
         ]
     ).astype(np.int32)
+
+
+# the 16-bit entries' 16-byte geometry (csrc/csr_segment_sum.cu): columns a
+# lane (one 16-byte word), and the edges whose words a lane has in flight
+# (K5's bf16 stream words too, csrc/csr_softmax_spmm_pair.cu)
+WORD_COLUMNS = 8
+EDGE_GROUP = 8
+WARP = 32
+
+
+class SumGeometry(NamedTuple):
+    """A lane geometry of K1's kernels (``segment_sum_geometry``: "words16",
+    16-byte words; "pairs", 4-byte column pairs; "columns", one column a
+    lane) or of K5's bf16 stream (``csr_attention.pair_stream_geometry``:
+    "words16", "words8", "general"): its ``kind``, the adjacent
+    ``columns`` a lane owns, the ``lanes`` a row takes (a column block of
+    32 lanes past that), the ``rows_per_warp`` and the edges whose loads a
+    lane has in flight."""
+
+    kind: str
+    columns: int
+    lanes: int
+    rows_per_warp: int
+    edges_in_flight: int
+
+
+def alignment(*tensors: Optional[torch.Tensor]) -> int:
+    """The largest power of two, at most 16, that divides the address of
+    every tensor's first element (``None`` and empty tensors ignored): the
+    byte alignment the kernels' vector loads are chosen by."""
+    found = 16
+    for t in tensors:
+        if t is not None and t.numel():
+            ptr = t.data_ptr()
+            while ptr % found:
+                found //= 2
+    return found
+
+
+def segment_sum_geometry(width: int, dtype: torch.dtype, aligned: int) -> SumGeometry:
+    """The geometry K1's entry for ``dtype`` runs a ``width``-column row
+    with, where data and out are both ``aligned``-byte aligned
+    (``alignment``): the f32 entry one column a lane; the 16-bit entries
+    16-byte words of 8 columns where the width is a multiple of 8 and the
+    arrays 16-byte aligned (``width / 8`` lanes a row, rounded up to a
+    power of two and at most 32, so 32 / lanes rows a warp; 8 edges in
+    flight), else 4-byte pairs where the width is even and the arrays
+    4-byte aligned, else one column a lane."""
+    if dtype != torch.float32 and width > 0 and width % WORD_COLUMNS == 0 and aligned % 16 == 0:
+        lanes = 1
+        while lanes < WARP and lanes * WORD_COLUMNS < width:
+            lanes *= 2
+        return SumGeometry("words16", WORD_COLUMNS, lanes, WARP // lanes, EDGE_GROUP)
+    if dtype != torch.float32 and width % 2 == 0 and aligned % 4 == 0:
+        return SumGeometry("pairs", 2, WARP, 1, 1)
+    return SumGeometry("columns", 1, WARP, 1, 1)
 
 
 def accumulation_dtype(dtype: torch.dtype) -> torch.dtype:

@@ -11,8 +11,10 @@ the kernels, the ops' fake implementations against the kernels,
 1-rank data group against the plain step, and the two 16-bit stream
 modes' entries (K1 and K1b on bf16 and f16 data; ``stream_dtype="bf16"``
 of K2, K5 and the fused forward) against their plain versions with their
-launch counts. Marked ``cuda``; they skip without a card. This file imports no JAX, so on a machine without it
-run them with
+launch counts, and each lane geometry of the 16-bit K1 and of K5's stream
+entry (by width, heads and alignment). Marked ``cuda``; they skip without
+a card. This file imports no JAX, so on a machine without it run them
+with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py
 """
@@ -1205,6 +1207,99 @@ def test_segment_sum_16bit_hub_row_reads_4096(cuda, dtype):
         out = csr_segment_sum(data, recv, bounds)
         assert out.dtype == dtype
         assert bool((out[0].float() == hub).all()) and bool((out[1:].float() == 1).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("h", [128, 64, 48, 8, 512, 127])
+def test_segment_sum_16bit_geometries_give_the_same_bits(cuda, dtype, h):
+    """The 16-bit K1 in each geometry its rule gives a width, on data 16-,
+    4- and 2-byte aligned (16-byte words, 4-byte pairs, single columns; an
+    odd width single columns at every alignment): within one ulp of the
+    plain version, the same bits on a second run and in every geometry,
+    which all add a row's edges in edge order in f32. Rows of about 20
+    edges (several windows of the words geometry), masked edges inside the
+    ranges, most rows empty."""
+    from chip_stream import view_at
+    from graphphysics_torch.ops.csr_segment import (
+        alignment,
+        csr_segment_sum,
+        csr_segment_sum_reference,
+        segment_sum_geometry,
+    )
+
+    g = _layout(1000, 6000, seed=h, hi=300, n_pad=1024, e_pad=6144)
+    recv, bounds, mask = (torch.from_numpy(a).to(cuda) for a in (g.receivers, g.row_bounds, g.edge_mask))
+    mask[::7] = False
+    gen = torch.Generator(device=cuda).manual_seed(h)
+    data = torch.randn(g.num_edges, h, device=cuda, generator=gen).to(dtype)
+    want = csr_segment_sum_reference(data, recv, g.num_nodes, mask)
+    outs, kinds = [], []
+    for aligned in (16, 4, 2):
+        d = view_at(data, aligned)
+        kinds.append(segment_sum_geometry(h, dtype, alignment(d)).kind)
+        first, second = csr_segment_sum(d, recv, bounds, mask), csr_segment_sum(d, recv, bounds, mask)
+        assert torch.equal(first, second), kinds[-1]
+        assert _ulps(first, want) <= 1, kinds[-1]
+        outs.append(first)
+    assert kinds == (["words16", "pairs", "columns"] if h % 8 == 0 else ["columns"] * 3)
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+def _split_rows(bounds: np.ndarray):
+    """Each row's range of a sender-sorted layout cut in two: the first
+    half of its edges in set a, the rest in set b. Returns each set's edge
+    ids (into the layout) and per-row ranges ``[2, N]`` into its own array."""
+    sets = ([], [])
+    ranges = np.zeros((2, 2, bounds.shape[1]), np.int32)
+    for r, (lo, hi) in enumerate(bounds.T):
+        mid = lo + (hi - lo + 1) // 2
+        for k, (a, b) in enumerate(((lo, mid), (mid, hi))):
+            ranges[k, 0, r] = sum(len(x) for x in sets[k])
+            sets[k].append(np.arange(a, b))
+            ranges[k, 1, r] = ranges[k, 0, r] + (b - a)
+    return [np.concatenate(x).astype(np.int64) for x in sets], ranges
+
+
+@pytest.mark.parametrize(
+    "width,heads,aligned,kind",
+    [
+        (128, 4, 16, "words16"),  # 16 lanes a row, two rows a warp
+        (64, 4, 16, "words16"),  # 8 lanes, four rows
+        (256, 8, 16, "words16"),  # 32 lanes, one row
+        (48, 4, 16, "words8"),  # heads of 12: 8-byte words, 12 lanes of 16
+        (128, 4, 8, "words8"),  # 8-byte aligned values
+        (40, 8, 16, "general"),  # heads of 5
+        (128, 4, 4, "general"),  # 4-byte aligned values
+    ],
+)
+def test_pair_stream_geometries_match_plain(cuda, width, heads, aligned, kind):
+    """K5's bf16 stream entry in each geometry its rule gives (by width,
+    heads and the values' alignment), on rows whose edges are split over
+    both sets: against its plain version (the f32 function of the bf16
+    values) and the same bits on a second run."""
+    from chip_stream import view_at
+    from graphphysics_torch.ops import csr_attention as ca
+    from graphphysics_torch.ops.csr_segment import alignment
+
+    g, scores, values, mask = _csr_case(1000, 6000, width, heads, seed=width + heads, hi=300, n_pad=1024,
+                                        e_pad=6144)
+    (ia, ib), ranges = _split_rows(g.sender_bounds)
+    seg = torch.from_numpy(g.senders).long()
+    n = g.num_nodes
+    parts = []
+    for idx, rng in zip((ia, ib), ranges):
+        i = torch.from_numpy(idx)
+        parts.append((scores[i].to(cuda, torch.bfloat16), view_at(values[i].to(cuda, torch.bfloat16), aligned),
+                      seg[i].to(cuda, torch.int32), torch.from_numpy(rng).to(cuda), mask[i].to(cuda)))
+    (sa, va, ga, ba, ma), (sb, vb, gb, bb, mb) = parts
+    assert ca.pair_stream_geometry(width, heads, alignment(va, vb)).kind == kind
+    out, ml = ca._launch_pair(sa, va, ba, ma, sb, vb, bb, mb)
+    again, again_ml = ca._launch_pair(sa, va, ba, ma, sb, vb, bb, mb)
+    assert torch.equal(out, again) and torch.equal(ml, again_ml)
+    want, want_ml = ca.csr_softmax_spmm_pair_reference(sa.float(), va.float(), ga, sb.float(), vb.float(), gb, n,
+                                                       ma, mb)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ml, want_ml, rtol=1e-5, atol=1e-5)
 
 
 def _grid(t, interleaved):

@@ -15,6 +15,9 @@ kernels' plain versions) against the JAX package:
   functions with the stream on (K2 in TPU interpret mode): outputs, ``ml``,
   gradients, that the stream differs from the f32 mode, and the
   ``ValueError`` on an unknown mode.
+- The lane geometries the 16-bit K1 and K5's stream entry choose by width,
+  heads and alignment (``segment_sum_geometry``, ``pair_stream_geometry``,
+  the CUDA sources' rules mirrored in Python), and ``alignment``.
 
 Inputs come from numpy with a seed and go to both sides."""
 
@@ -402,6 +405,84 @@ def test_unknown_stream_dtype_raises_as_jax(fn):
                                   jnp.asarray(jb), 128, 2, 128, 512, 1, stream_dtype="fp8")
     for sd in ca.STREAM_DTYPES:  # the known modes run
         calls[fn](sd)
+
+
+# --------------------------------------------------------------------------
+# the lane geometries the 16-bit K1 and K5's stream entry choose by shape and
+# alignment (the kernels' rules, mirrored in Python for the card's records)
+
+
+@pytest.mark.parametrize("width,dtype,aligned,want", [
+    (128, torch.bfloat16, 16, ("words16", 8, 16, 2, 8)),  # the models' width: two rows a warp
+    (64, torch.float16, 16, ("words16", 8, 8, 4, 8)),  # four rows a warp
+    (48, torch.bfloat16, 16, ("words16", 8, 8, 4, 8)),  # 6 words: 8 lanes, two idle
+    (40, torch.float16, 16, ("words16", 8, 8, 4, 8)),  # 5 words
+    (512, torch.bfloat16, 16, ("words16", 8, 32, 1, 8)),  # 256-column blocks
+    (127, torch.bfloat16, 16, ("columns", 1, 32, 1, 1)),  # an odd width
+    (126, torch.float16, 16, ("pairs", 2, 32, 1, 1)),  # even, not a multiple of 8
+    (128, torch.bfloat16, 8, ("pairs", 2, 32, 1, 1)),  # a view 8-byte aligned
+    (128, torch.float16, 4, ("pairs", 2, 32, 1, 1)),  # 4-byte aligned
+    (128, torch.bfloat16, 2, ("columns", 1, 32, 1, 1)),  # 2-byte aligned
+    (128, torch.float32, 16, ("columns", 1, 32, 1, 1)),  # the f32 entry, as before
+])
+def test_segment_sum_geometry(width, dtype, aligned, want):
+    from graphphysics_torch.ops.csr_segment import segment_sum_geometry
+
+    assert tuple(segment_sum_geometry(width, dtype, aligned)) == want
+
+
+@pytest.mark.parametrize("width,heads,aligned,want", [
+    (128, 4, 16, ("words16", 8, 16, 2, 8)),  # the panels width: 16 lanes, two rows a warp
+    (64, 4, 16, ("words16", 8, 8, 4, 8)),  # the aneurysm width: four rows a warp
+    (48, 4, 16, ("words8", 4, 16, 2, 8)),  # heads of 12: 8-byte words, 12 lanes of 16
+    (40, 8, 16, ("general", 2, 32, 1, 1)),  # heads of 5
+    (96, 3, 16, ("words16", 8, 16, 2, 8)),  # 3 heads of 32: 12 lanes of 16
+    (256, 8, 16, ("words16", 8, 32, 1, 8)),  # 32 lanes
+    (512, 4, 16, ("general", 16, 32, 1, 1)),  # past 32 words
+    (128, 4, 8, ("words8", 4, 32, 1, 8)),  # values 8-byte aligned
+    (128, 4, 4, ("general", 4, 32, 1, 1)),  # values 4-byte aligned
+    (64, 4, 2, ("general", 2, 32, 1, 1)),
+])
+def test_pair_stream_geometry(width, heads, aligned, want):
+    assert tuple(ca.pair_stream_geometry(width, heads, aligned)) == want
+
+
+@pytest.mark.parametrize("width,heads", [(130, 4), (544, 4), (128, 0)])
+def test_pair_stream_geometry_refuses_what_the_entry_refuses(width, heads):
+    assert ca.pair_stream_geometry(width, heads, 16) is None
+
+
+def test_alignment_reads_each_view_offset():
+    """``alignment`` gives the byte alignment of a view's first element (at
+    most 16), the least over its tensors, ignoring None and empty ones; the
+    card checks' ``view_at`` places a copy at each alignment."""
+    import chip_stream
+    from graphphysics_torch.ops.csr_segment import alignment
+
+    flat = torch.zeros(64 * 8, dtype=torch.bfloat16)
+    assert [alignment(flat[k:]) for k in range(9)] == [16, 2, 4, 2, 8, 2, 4, 2, 16]
+    assert alignment(flat, flat[2:], None, flat[:0]) == 4
+    data = torch.randn(6, 8).to(torch.bfloat16)
+    for aligned in chip_stream.ALIGNMENTS:
+        view = chip_stream.view_at(data, aligned)
+        assert alignment(view) == aligned and torch.equal(view, data)
+
+
+def test_geometry_rules_follow_the_kernels_constants():
+    """The rules' words and windows are the CUDA sources' own constants."""
+    import re
+    from pathlib import Path
+
+    from graphphysics_torch.ops import csr_segment as cseg
+
+    csrc = Path(cseg.__file__).resolve().parent.parent / "csrc"
+
+    def constant(source, name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", (csrc / source).read_text()).group(1))
+
+    assert constant("csr_segment_sum.cu", "kWordCols") == cseg.WORD_COLUMNS
+    assert constant("csr_segment_sum.cu", "kEdgeGroup") == cseg.EDGE_GROUP
+    assert constant("csr_softmax_spmm_pair.cu", "kEdgeGroup") == cseg.EDGE_GROUP
 
 
 # --------------------------------------------------------------------------
