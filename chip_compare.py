@@ -26,13 +26,16 @@ time.
 
     python3 chip_compare.py <checkout root> [label] --stream
 
-times instead that checkout's 16-bit K1 entries and K5's bf16 stream entry
-(its ``chip_stream.k1_16bit_case`` and ``k5_stream_case``, each with the
-f32 entry on the same values beside it) at their three shapes (seeds and
-graphs as ``chip_smoke.py`` makes them, the frames from 2-frame
-trajectories), with the seconds of the two sources' ``nvcc`` builds and a
-digest of each 16-bit K1 and K5 stream output on the cases' own seeded
-inputs, so two commits' bits can be compared.
+times instead that checkout's f32 and 16-bit K1 entries and K2's and K5's
+bf16 stream entries (its ``chip_smoke.k1_case`` and ``chip_stream``'s
+``k1_16bit_case``, ``k2_stream_case`` and ``k5_stream_case``, the stream
+cases with the f32 entry on the same values beside them) at their three
+shapes (seeds and graphs as ``chip_smoke.py`` makes them, the frames from
+2-frame trajectories), with the seconds of the three sources' ``nvcc``
+builds and a digest of each output on the cases' own seeded inputs, so
+two commits' bits can be compared. It calls only functions that a parent
+checkout's scripts have too (``k1_case``, ``k1_16bit_case``,
+``k2_stream_case``, ``k5_stream_case``), so this script drives either.
 """
 import json
 import os
@@ -162,7 +165,7 @@ def forward_host(cs, torch, forwards=10) -> dict:
     return out
 
 
-STREAM_SOURCES = ("csr_segment_sum.cu", "csr_softmax_spmm_pair.cu")
+STREAM_SOURCES = ("csr_segment_sum.cu", "csr_softmax_spmm.cu", "csr_softmax_spmm_pair.cu")
 
 
 def _digest(torch, t) -> str:
@@ -172,8 +175,9 @@ def _digest(torch, t) -> str:
 
 
 def stream_kernels(cs, torch) -> dict:
-    """The 16-bit K1 (bf16, f16) and K5's bf16 stream at their three shapes:
-    ms, the f32 entry's ms, bound, error and a digest of each output."""
+    """The f32 and 16-bit K1 (bf16, f16) and K2's and K5's bf16 streams at
+    their three shapes: ms, the f32 entry's ms, bound, error and a digest
+    of each output."""
     import chip_stream as st
     from chip_partition import k5_inputs, mesh_graph
     from graphphysics_torch.dataset import build_preprocessing
@@ -192,6 +196,35 @@ def stream_kernels(cs, torch) -> dict:
     out = {}
     k1 = (("serving_frame", epd_frame), ("flagship_batch_8x2048", cs.flagship_batch(0)),
           ("aneurysm_epd_66560x524288", cs.random_graph(*cs.ANEURYSM, 100)))
+    for i, (label, graph) in enumerate(k1):
+        seed = i  # chip_smoke.py's K1 seeds
+        record = {k: v for k, v in cs.k1_case(label, graph, seed).items() if k in keep}
+        # k1_case's data: the same generator, seed and draw
+        recv = torch.as_tensor(graph.receivers).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        data = torch.randn((recv.shape[0], cs.HIDDEN), generator=gen, device=dev)
+        with torch.no_grad():
+            got = csr_segment_sum(data, recv, torch.as_tensor(graph.row_bounds).to(dev),
+                                  torch.as_tensor(graph.edge_mask).to(dev))
+        out[f"k1_f32_{label}"] = {**record, "digest": _digest(torch, got)}
+    aneurysm_csr = cs.random_csr_graph(*cs.ANEURYSM, 300)
+    k2 = (("transformer_serving_frame", tf_frame, cs.HIDDEN),
+          ("panels_csr_batch_8x2048", cs.panels_batch(200), cs.HIDDEN),
+          ("aneurysm_csr_66560x524288", aneurysm_csr, 64))
+    for i, (label, graph, width) in enumerate(k2):
+        seed = 80 + i
+        record = {k: v for k, v in st.k2_stream_case(label, graph, width, seed).items() if k in keep}
+        # k2_stream_case's inputs: the same generator, seed and draws
+        seg = torch.as_tensor(graph.senders).to(dev)
+        bounds = torch.as_tensor(graph.sender_bounds).to(dev)
+        mask = torch.as_tensor(graph.edge_mask).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        scores = 3 * torch.randn((seg.shape[0], cs.HEADS), generator=gen, device=dev)
+        scores = torch.where(mask[:, None], scores, torch.full((), ca.NEG, device=dev))
+        values = torch.randn((seg.shape[0], width), generator=gen, device=dev)
+        with torch.no_grad():
+            got, ml = ca.csr_softmax_spmm(scores, values, seg, bounds, mask, stream_dtype="bf16")
+        out[f"k2_stream_{label}"] = {**record, "digest": _digest(torch, got), "ml_digest": _digest(torch, ml)}
     for dt in (torch.bfloat16, torch.float16):
         for i, (label, graph) in enumerate(k1):
             seed = 70 + i
@@ -206,7 +239,7 @@ def stream_kernels(cs, torch) -> dict:
             out[f"k1_{st.SHORT[dt]}_{label}"] = {**record, "digest": _digest(torch, got)}
     k5 = (("serving_frame_2048_part0_of_4", tf_frame, cs.HIDDEN),
           ("mesh_16384_part0_of_4", mesh_graph("csr", 671), cs.HIDDEN),
-          ("aneurysm_csr_66560x524288_part0_of_4", cs.random_csr_graph(*cs.ANEURYSM, 300), 64))
+          ("aneurysm_csr_66560x524288_part0_of_4", aneurysm_csr, 64))
     for i, (label, graph, width) in enumerate(k5):
         seed = 83 + i
         record = {k: v for k, v in st.k5_stream_case(label, graph, width, seed).items() if k in keep}

@@ -23,10 +23,18 @@ and the CUDA toolkit. Phases, each of which raises on failure:
    layout, each beside its plain version, the PyTorch path it replaced
    (gathers + SDDMM around K2; autograd through them with K3) and SDPA with
    the dense adjacency as its mask (frame and batch), at every lane count
-   the width allows;
+   the width allows. K1's records name the lane geometry that ran and a
+   digest of the output (K1 bit-equal on a second run); then the f32 K1 in
+   each geometry (widths 128, 64, 48, 130 on data 16- and 4-byte aligned:
+   within ``KERNEL_ATOL`` of plain, the same bits twice and across
+   geometries) and a hub row of 4,096 unit edges reading exactly 4,096 in
+   both; K2 and K3 also at part 0 of the unsplit 4-way cut of the
+   16,384-node mesh, the shape their own path runs;
 3. EPD serving: a synthetic cylinder trajectory rolled out by the 15 x 128
    EncodeProcessDecode simulator (random weights from the seed) on the card,
-   checked against the same rollout on the CPU, with the launch counts;
+   checked against the same rollout on the CPU, with the launch counts
+   (and, here and in ``epd_training``, the f32 K1's launches by geometry:
+   all 16-byte words);
 4. EPD batched forward: one eval forward on the cylinder batch;
 5. transformer serving: a synthetic panels trajectory rolled out by the
    15 x 128, 4-head EncodeTransformDecode simulator built from
@@ -247,10 +255,11 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     ``stream_dtype="bf16"`` entries of K2, K5 and the fused forward (f32
     and bf16 q, k, v) at their kernels' shapes, each against its plain
     version and each differing from the mode without the stream by more
-    than that tolerance; every geometry of the 16-bit K1 and of K5's
-    stream (by width, heads and alignment) against its plain version, each
-    entry's outputs bit-equal on a second run and K1's in every geometry
-    of a width, with their geometry and a digest of each output; all timed beside their
+    than that tolerance; every geometry of the 16-bit K1 and of K2's and
+    K5's streams (by width, heads and alignment) against its plain version,
+    each entry's outputs bit-equal on a second run and K1's in every
+    geometry of a width, with their geometry and a digest of each output;
+    all timed beside their
     bounds, plain versions, the entries without the stream and (K1) the
     upcast path they replace and ``index_add_``. Then the slice's path:
     ``masked_segment_sum`` on bf16 and f16 data and the three functions
@@ -292,6 +301,10 @@ BLOCKS = 15
 HEADS = 4
 # f32 sums of ~10 N(0,1) terms per row in another order than index_add_
 KERNEL_ATOL = 1e-4
+# the f32 K1's geometry checks: widths (16-byte words at one, two and
+# four-idle-lane rows a warp; single columns) and data alignments
+K1_F32_WIDTHS = (128, 64, 48, 130)
+K1_F32_ALIGNMENTS = (16, 4)
 # K1b is a gather: exact
 GATHER_ATOL = 0.0
 # K3 vs its plain version: the same formula, expf and per-head sums in
@@ -800,8 +813,17 @@ def panels_batch(seed):
 
 
 def k1_case(name, graph, seed):
-    """Hold csr_segment_sum against its plain version on one edge layout."""
-    from graphphysics_torch.ops.csr_segment import csr_segment_sum, csr_segment_sum_reference
+    """Hold csr_segment_sum against its plain version on one edge layout;
+    the record names the lane geometry that ran and a digest of the
+    output, so a run of another commit on the same seed shows whether the
+    bits moved."""
+    from chip_stream import digest
+    from graphphysics_torch.ops.csr_segment import (
+        alignment,
+        csr_segment_sum,
+        csr_segment_sum_reference,
+        segment_sum_geometry,
+    )
 
     dev = torch.device("cuda")
     recv = torch.as_tensor(graph.receivers).to(dev)
@@ -813,8 +835,11 @@ def k1_case(name, graph, seed):
 
     with torch.no_grad():
         got = csr_segment_sum(data, recv, bounds, mask)
+        again = csr_segment_sum(data, recv, bounds, mask)
         want = csr_segment_sum_reference(data, recv, n, mask)
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name}: K1 not bit-equal on a second run")
         err = (got - want).abs().max().item()
         if not err <= KERNEL_ATOL:
             raise AssertionError(f"{name}: kernel vs plain max_abs_err {err} > {KERNEL_ATOL}")
@@ -849,6 +874,9 @@ def k1_case(name, graph, seed):
         "hidden": HIDDEN,
         "max_abs_err": err,
         "tolerance": KERNEL_ATOL,
+        "geometry": segment_sum_geometry(HIDDEN, data.dtype, alignment(data))._asdict(),
+        "digest": digest(got),
+        "bit_equal_twice": True,
         "library_max_abs_err": lib_err,
         "ms": kernel_t,
         "plain_ms": plain_t,
@@ -858,6 +886,73 @@ def k1_case(name, graph, seed):
         "bytes": bytes_moved,
         "input_copies": copies,
     }
+
+
+def k1_geometry_cases(graph, seed) -> list:
+    """The f32 K1 in each geometry its rule gives at the cylinder batch's
+    layout: widths 128 and 64 (16-byte words, one and two rows a warp), 48
+    (16-byte words, four idle lanes of 16) and 130 (not a multiple of 4:
+    single columns), each on data 16- and 4-byte aligned (words, single
+    columns). Each within ``KERNEL_ATOL`` of its plain version, the same
+    bits twice, and the same bits in both geometries of a width (each
+    adds a row's edges in edge order in f32). Then a hub row of 4,096 unit
+    edges in both geometries: exactly 4,096."""
+    from chip_stream import HUB_EDGES, digest, view_at
+    from graphphysics_torch.ops.csr_segment import (
+        alignment,
+        compute_row_bounds,
+        csr_segment_sum,
+        csr_segment_sum_reference,
+        segment_sum_geometry,
+    )
+
+    dev = torch.device("cuda")
+    recv = torch.as_tensor(graph.receivers).to(dev)
+    bounds = torch.as_tensor(graph.row_bounds).to(dev)
+    mask = torch.as_tensor(graph.edge_mask).to(dev)
+    n = bounds.shape[1]
+    records = []
+    for width in K1_F32_WIDTHS:
+        gen = torch.Generator(device=dev).manual_seed(seed + width)
+        data = torch.randn((recv.shape[0], width), generator=gen, device=dev)
+        with torch.no_grad():
+            want = csr_segment_sum_reference(data, recv, n, mask)
+            outs, kinds, worst = [], [], 0.0
+            for aligned in K1_F32_ALIGNMENTS:
+                d = view_at(data, aligned)
+                got, again = (csr_segment_sum(d, recv, bounds, mask) for _ in range(2))
+                torch.cuda.synchronize()
+                kinds.append(segment_sum_geometry(width, d.dtype, alignment(d)).kind)
+                worst = max(worst, (got - want).abs().max().item())
+                if not torch.equal(got, again) or not worst <= KERNEL_ATOL:
+                    raise AssertionError(f"f32 K1 at width {width}, {kinds[-1]}: max_abs_err {worst}, "
+                                         f"bit-equal twice {torch.equal(got, again)}")
+                outs.append(got)
+        if not all(torch.equal(o, outs[0]) for o in outs[1:]):
+            raise AssertionError(f"f32 K1 at width {width}: geometries {kinds} give different bits")
+        records.append({"entry": "csr_segment_sum_f32", "width": width, "aligned": K1_F32_ALIGNMENTS,
+                        "geometries": kinds, "max_abs_err": worst, "tolerance": KERNEL_ATOL,
+                        "bit_equal_twice": True, "bit_equal_across_geometries": True,
+                        "digest": digest(outs[0])})
+    hub_n = 64
+    recv_np = np.concatenate([np.zeros(HUB_EDGES, np.int32), np.arange(1, hub_n, dtype=np.int32)])
+    hub_recv = torch.from_numpy(recv_np).to(dev)
+    hub_bounds = torch.from_numpy(compute_row_bounds(recv_np, hub_n)).to(dev)
+    outs, kinds = [], []
+    for aligned in K1_F32_ALIGNMENTS:
+        ones = view_at(torch.ones((len(recv_np), HIDDEN), device=dev), aligned)
+        with torch.no_grad():
+            out = csr_segment_sum(ones, hub_recv, hub_bounds)
+        kinds.append(segment_sum_geometry(HIDDEN, ones.dtype, alignment(ones)).kind)
+        if not (bool((out[0] == HUB_EDGES).all()) and bool((out[1:] == 1).all())):
+            raise AssertionError(f"f32 hub row, {kinds[-1]}: read {out[0].min().item()}-{out[0].max().item()}, "
+                                 f"expected {HUB_EDGES}")
+        outs.append(out)
+    if not torch.equal(outs[0], outs[1]):
+        raise AssertionError(f"f32 hub row: geometries {kinds} give different bits")
+    records.append({"entry": "csr_segment_sum_f32", "width": HIDDEN, "hub_edges": HUB_EDGES,
+                    "hub_row": outs[0][0].min().item(), "geometries": kinds, "bit_equal_across_geometries": True})
+    return records
 
 
 def k2_case(name, graph, width, seed):
@@ -932,6 +1027,23 @@ def k2_case(name, graph, width, seed):
         "operations": ops,
         "input_copies": copies,
     }
+
+
+def unsplit_part0(seed):
+    """Part 0 of the 4-way unsplit halo partition of the 16,384-node mesh
+    (``chip_partition.mesh_graph``), as the unsplit partitioned
+    transformer hands it to K2 and K3: its edges segmented by their local
+    receivers over the part's row ranges. Named as ``k2_case`` and
+    ``k3_case`` read a layout (``senders``, ``sender_bounds``,
+    ``edge_mask``)."""
+    from types import SimpleNamespace
+
+    from chip_partition import PARTS, mesh_graph
+    from graphphysics_torch.parallel.graph_partition import partition_graph_halo_np
+
+    part = partition_graph_halo_np(mesh_graph("csr", seed), PARTS)[0]
+    return SimpleNamespace(senders=np.asarray(part.receivers), sender_bounds=np.asarray(part.row_bounds),
+                           edge_mask=np.asarray(part.edge_mask))
 
 
 def k1b_case(name, graph, seed):
@@ -1331,6 +1443,27 @@ def build_transformer(param, seed, device):
     return sim.to(device)
 
 
+def k1_geometries(reset=False) -> dict:
+    """The f32 K1's launches by the geometry that ran
+    (``csr_segment_sum.geometries``), read before ``reset`` sets them to 0."""
+    from graphphysics_torch.ops.csr_segment import csr_segment_sum
+
+    read = dict(csr_segment_sum.geometries)
+    if reset:
+        for kind in csr_segment_sum.geometries:
+            csr_segment_sum.geometries[kind] = 0
+    return read
+
+
+def check_k1_words(name, result) -> None:
+    """Every f32 K1 launch of a phase's counted run took the 16-byte
+    words (the models' width, 128, on aligned messages)."""
+    want = {"words16": result["launches"]["csr_segment_sum"], "columns": 0}
+    if result["k1_f32_launches_by_geometry"] != want:
+        raise AssertionError(f"{name}: f32 K1 launches by geometry {result['k1_f32_launches_by_geometry']}, "
+                             f"expected {want}")
+
+
 def serve(name, make_sim, frames, counts, expected, seed, rtol=ROLLOUT_RTOL, atol=ROLLOUT_ATOL):
     """Roll ``frames`` out on the card with a simulator from ``make_sim``:
     zero every launch count just before the rollout, check them just after
@@ -1349,11 +1482,13 @@ def serve(name, make_sim, frames, counts, expected, seed, rtol=ROLLOUT_RTOL, ato
 
     for fn in counts.values():
         fn.launches = 0
+    k1_geometries(reset=True)
     t0 = time.perf_counter()
     preds, targets = rollout(sim, frames_dev, device="cuda")
     torch.cuda.synchronize()
     rollout_s = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counts.items()}
+    by_geometry = k1_geometries()
     want = {k: expected.get(k, 0) * n_frames for k in counts}
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, expected {want}")
@@ -1382,6 +1517,7 @@ def serve(name, make_sim, frames, counts, expected, seed, rtol=ROLLOUT_RTOL, ato
         "forward_eager_ms": eager_forward,
         "forward_cuda_graph_ms": graph_forward,
         "launches": launches,
+        "k1_f32_launches_by_geometry": by_geometry,
         "rollout_rmse": rmse,
         "cpu_frames_checked": CPU_FRAMES,
         "cpu_max_abs_err": cpu_err,
@@ -1550,11 +1686,13 @@ def train(name, param, batch, counts, expected, seed, grad_rtol, graphs=len(BATC
     torch.cuda.reset_peak_memory_stats()
     for fn in counts.values():
         fn.launches = 0
+    k1_geometries(reset=True)
     t0 = time.perf_counter()
     losses = [trainer.train_step(dev_batch) for _ in range(TIMED_STEPS)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counts.items()}
+    by_geometry = k1_geometries()
     want = {k: expected.get(k, 0) * TIMED_STEPS for k in counts}
     if launches != want:
         raise AssertionError(f"{name}: launches {launches} in {TIMED_STEPS} steps, expected {want}")
@@ -1577,6 +1715,7 @@ def train(name, param, batch, counts, expected, seed, grad_rtol, graphs=len(BATC
         "real_edges_per_s": real_edges / (ms_per_step / 1e3),
         "steps_timed": TIMED_STEPS,
         "launches": launches,
+        "k1_f32_launches_by_geometry": by_geometry,
         "launches_per_step": {k: v / TIMED_STEPS for k, v in launches.items()},
         "first_loss": losses[0],
         "last_loss": losses[-1],
@@ -3609,12 +3748,18 @@ def main() -> int:
         s["bound_share"] = s["bound_ms"] / s["ms"]
         s["bound_share_above_floor"] = s["bound_ms"] / max(s["ms"] - floor, 1e-9)
         clock.emit({"phase": "kernel", "name": "csr_segment_sum", **s})
+    for record in k1_geometry_cases(cyl_batch, args.seed + 80):
+        clock.emit({"phase": "kernel", "name": "geometry", **record})
     for fn in counts.values():
         fn.launches = 0
+    # K2 and K3 at the shape their own path runs: part 0 of the unsplit
+    # partitioned transformer's 4-way cut of the 16,384-node mesh
+    mesh_part = unsplit_part0(args.seed + 601)
     k2_shapes = [
         k2_case("transformer_serving_frame", tf_frames[0], HIDDEN, args.seed + 3),
         k2_case("panels_csr_batch_8x2048", tf_batch, HIDDEN, args.seed + 4),
         k2_case("aneurysm_csr_66560x524288", aneurysm_csr, 64, args.seed + 5),
+        k2_case("mesh_16384_part0_of_4_unsplit", mesh_part, HIDDEN, args.seed + 81),
     ]
     for s in k2_shapes:
         clock.emit({"phase": "kernel", "name": "csr_softmax_spmm", **s})
@@ -3629,6 +3774,7 @@ def main() -> int:
         k3_case("transformer_serving_frame", tf_frames[0], HIDDEN, args.seed + 9),
         k3_case("panels_csr_batch_8x2048", tf_batch, HIDDEN, args.seed + 10),
         k3_case("aneurysm_csr_66560x524288", aneurysm_csr, 64, args.seed + 11),
+        k3_case("mesh_16384_part0_of_4_unsplit", mesh_part, HIDDEN, args.seed + 82),
     ]
     for s in k3_shapes:
         clock.emit({"phase": "kernel", "name": "csr_softmax_spmm_backward", **s})
@@ -3682,6 +3828,7 @@ def main() -> int:
     epd, result, profile_line = serve(
         "epd_serving", build_epd, epd_frames, counts, {"csr_segment_sum": BLOCKS}, args.seed
     )
+    check_k1_words("epd_serving", result)
     clock.emit({"phase": "serving", "model": f"EncodeProcessDecode {BLOCKS}x{HIDDEN}, cylinder",
           **epd_sizes, **result})
     clock.emit({"phase": "serving_profile", "model": "EncodeProcessDecode", **profile_line})
@@ -3708,6 +3855,7 @@ def main() -> int:
     epd_train = train("epd_training", cylinder, cyl_batch, counts,
                       {"csr_segment_sum": epd_blocks, "csr_segment_sum_backward": epd_blocks},
                       args.seed, EPD_GRAD_RTOL)
+    check_k1_words("epd_training", epd_train)
     clock.emit({"phase": "epd_training",
           "model": f"EncodeProcessDecode {epd_blocks}x{cylinder['model']['hidden_size']}, "
                    f"{CYLINDER_CONFIG}", **epd_train})

@@ -26,7 +26,13 @@ skipping its score rounding) moves the ``stream_dtypes`` phase's checks
 (``chip_stream.py``): the hub row of 4,096 unit edges and the one-ulp check
 against the plain version, K5's stream against its plain version at the
 phase's tolerance, and the check that a stream entry's output differs from
-the entry without the stream.
+the entry without the stream; a fault in K2's bf16 stream word geometries
+(a lane reading its neighbour's word, each row's last edge dropped) moves
+K2's stream against its plain version and its geometry cases; a fault in
+the f32 K1's 16-byte words (each window's last edge dropped, a lane reading
+its neighbour's word) moves the kernel phase's check against the plain
+version (``KERNEL_ATOL``) and the f32 geometry cases (the same bits in words
+and single columns, the 4,096-edge hub row).
 
 For each fault the tree is copied to a temporary directory, one line of a
 source is replaced there, the kernels are built from the copy and the check
@@ -41,8 +47,8 @@ one CUDA card:
 
     python3 chip_smoke_mutants.py [name prefix]
 
-A name prefix (``k1b``, ``attn``, ``width``, ``resume``, ``bf16``,
-``microbatch``, ``ell``, ``stream``) runs those faults only. K2's
+A name prefix (``k1b``, ``k1f32``, ``attn``, ``width``, ``resume``,
+``bf16``, ``microbatch``, ``ell``, ``stream``) runs those faults only. K2's
 and K3's faults are caught by their kernel phases against their plain
 versions: no path of the models runs them.
 """
@@ -71,6 +77,11 @@ BF16_DV = "dva[i] += round_to<__nv_bfloat16>(a[u][i % NP] * gr[i]);"
 BF16_ROW = "reinterpret_cast<const uint4*>(base + static_cast<int64_t>(j) * geo.width + r.col0);"
 BF16_SLOT = "const bool live = t < r.len;"
 K1_WORD_SUM = ("acc[2 * i] += f.x;", "acc[2 * i + 1] += f.y;")
+K1_F32_ADD = "if (live[u]) add_word<T>(w[u], acc);  // edge order: one edge at a time's additions"
+K1_F32_LOAD = "w[u] = *reinterpret_cast<const uint4*>(data + e * width + col);"
+K2 = "graphphysics_torch/csrc/csr_softmax_spmm.cu"
+K2_WORD = "w[u] = *reinterpret_cast<const Word*>(values + e * width + col0);"
+K2_SLOT = "if (!live[u]) continue;"
 K5 = "graphphysics_torch/csrc/csr_softmax_spmm_pair.cu"
 K5_WORD = "w[u] = *reinterpret_cast<const Word*>((in_a ? a.values : b.values) + e * width + col0);"
 K5_SLOT = "if (!live[u]) continue;"
@@ -130,6 +141,20 @@ FAULTS = {
     # last edge, or set a's where b has none) is dropped from the merge
     "stream_k5_drops_last_slot": ("stream", K5, K5_SLOT,
                                   "if (!live[u] || t0 + u + 1 == len) continue;"),
+    # the f32 K1's 16-byte words: each window's last edge adds nothing (the
+    # 16-bit entries keep it)
+    "k1f32_words_drop_window_last_edge": ("k1f32", K1, K1_F32_ADD, K1_F32_ADD.replace(
+        "if (live[u])", "if (live[u] && (sizeof(T) == 2 || u + 1 < kEdgeGroup))")),
+    # the f32 K1's 16-byte words: a lane reads its neighbour lane's word of
+    # each edge row
+    "k1f32_reads_neighbour_word": ("k1f32", K1, K1_F32_LOAD, K1_F32_LOAD.replace(
+        "+ col);", "+ (sizeof(T) == 4 ? col ^ kF32WordCols : col));")),
+    # K2's bf16 stream, word geometries: a lane reads its neighbour lane's
+    # word of each edge's values
+    "stream_k2_reads_neighbour_word": ("stream", K2, K2_WORD, K2_WORD.replace("col0);", "(col0 ^ W));")),
+    # K2's bf16 stream, word geometries: each row's last edge slot is
+    # dropped from the softmax
+    "stream_k2_drops_last_slot": ("stream", K2, K2_SLOT, "if (!live[u] || e0 + u + 1 == end) continue;"),
     # the fused bf16 stream entry skips its score rounding: the bf16 entry's
     # function again
     "stream_fused_skips_score_rounding": ("stream", BF16_FWD, BF16_SCORE_ROUND, BF16_SCORE_ROUND.replace(
@@ -221,6 +246,27 @@ def read_ell_fault(name: str) -> dict:
     return out
 
 
+def read_k1f32_fault(name: str) -> dict:
+    """The f32 K1's kernel-phase checks with ``KERNEL_ATOL`` lifted: the
+    error against the plain version at the cylinder batch and the aneurysm
+    EPD graph, then the geometry cases (widths 128, 64, 48, 130 in words
+    and single columns, the same bits in both; the 4,096-edge hub row), a
+    fault they catch reported by its message."""
+    import chip_smoke as cs
+
+    cs.KERNEL_ATOL = math.inf
+    out = {"fault": name}
+    for label, graph, seed in (("flagship_batch_8x2048", cs.flagship_batch(0), 1),
+                               ("aneurysm_epd_66560x524288", cs.random_graph(*cs.ANEURYSM, 100), 2)):
+        out[f"plain_max_abs_err_{label}"] = cs.k1_case(label, graph, seed)["max_abs_err"]
+    try:
+        cs.k1_geometry_cases(cs.flagship_batch(0), 80)
+        out["geometry_cases"] = "passed"
+    except AssertionError as err:
+        out["geometry_cases_caught_by"] = str(err)[:300]
+    return out
+
+
 def read_stream_fault(name: str) -> dict:
     """The ``stream_dtypes`` phase's checks with their limits lifted: the
     hub row and the 16-bit K1 against its plain version in ulps at the
@@ -234,6 +280,32 @@ def read_stream_fault(name: str) -> dict:
     import chip_stream as st
 
     out = {"fault": name}
+    if name.startswith("stream_k2"):
+        from graphphysics_torch.ops import csr_attention as ca
+
+        graph = cs.panels_batch(200)
+        seg, bounds, mask = (torch.as_tensor(a).to("cuda") for a in (graph.senders, graph.sender_bounds,
+                                                                     graph.edge_mask))
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        scores = torch.where(mask[:, None], 3 * torch.randn((seg.shape[0], cs.HEADS), generator=gen, device="cuda"),
+                             torch.full((), ca.NEG, device="cuda"))
+        values = torch.randn((seg.shape[0], cs.HIDDEN), generator=gen, device="cuda")
+        with torch.no_grad():
+            got, got_ml = ca.csr_softmax_spmm(scores, values, seg, bounds, mask, stream_dtype="bf16")
+            want, want_ml = ca.csr_softmax_spmm_reference(ca.stream_round(scores), ca.stream_round(values), seg,
+                                                          bounds.shape[1], mask)
+        tol = {"rtol": cs.SOFTMAX_RTOL, "atol": cs.SOFTMAX_ATOL}
+        out.update({"shape": "panels_csr_batch_8x2048", "plain_max_abs_err": (got - want).abs().max().item(),
+                    "plain_ml_max_abs_err": (got_ml - want_ml).abs().max().item(),
+                    "plain_share_outside_tolerance": (~torch.isclose(got, want, **tol)).float().mean().item(),
+                    "plain_within_tolerance": torch.allclose(got, want, **tol)
+                    and torch.allclose(got_ml, want_ml, **tol)})
+        try:
+            st.k2_geometry_cases(graph, 50)
+            out["geometry_cases"] = "passed"
+        except AssertionError as err:
+            out["geometry_cases_caught_by"] = str(err)[:300]
+        return out
     if name.startswith("stream_k5"):
         from chip_partition import k5_inputs, mesh_graph
         from graphphysics_torch.ops import csr_attention as ca
@@ -302,6 +374,8 @@ def read_fault(model: str, name: str) -> dict:
         return read_ell_fault(name)
     if model == "stream":
         return read_stream_fault(name)
+    if model == "k1f32":
+        return read_k1f32_fault(name)
     cs.STEP_LOSS_RTOL = cs.STEP_ROUNDOFF_SHARE = math.inf
     total_steps = 1 + cs.WARMUP_STEPS + cs.TIMED_STEPS + cs.PROFILED_STEPS
     if model.startswith("bf16transformer"):

@@ -19,11 +19,14 @@
   without the stream by more than that tolerance (a kernel that skipped the
   rounding would pass the first check alone). Timed beside the bound, the
   plain version and the entry without the stream.
-- Every lane geometry of the 16-bit K1 and of K5's stream entry, by width,
-  heads and the data's alignment (``k1_geometry_cases``,
-  ``k5_geometry_cases``): each against its plain version at the limits
-  above, each output the same bits on a second run, and the 16-bit K1's
-  geometries of one width the same bits as each other.
+- Every lane geometry of the 16-bit K1 and of K2's and K5's stream
+  entries, by width, heads and the data's alignment
+  (``k1_geometry_cases``, ``k2_geometry_cases``, ``k5_geometry_cases``):
+  each against its plain version at the limits above, each output the
+  same bits on a second run, the 16-bit K1's geometries of one width the
+  same bits as each other, and each stream farther than its tolerance
+  from the f32 mode. K2's stream records carry their geometry and a
+  digest too.
 - The slice's path: ``masked_segment_sum`` on bf16 and f16 data and the
   three functions with ``stream_dtype="bf16"``, forward and backward,
   through the entry points a caller uses, with every counter set to 0
@@ -54,6 +57,12 @@ SHORT = {torch.bfloat16: "bf16", torch.float16: "f16"}  # the entries' suffixes
 ALIGNMENTS = (16, 4, 2)
 K1_WIDTHS = (128, 64, 48, 127)
 K5_GEOMETRY_CASES = ((128, 4, 16), (64, 4, 16), (48, 4, 16), (128, 4, 8), (40, 8, 16), (128, 4, 4))
+# K2's stream (width, heads, alignment of the bf16 values): 16-byte words at
+# two, four and eight rows a warp, 8-byte words (heads of 4; an 8-byte
+# aligned view), and the kernel of V = D/32 columns a lane (a 4-byte aligned
+# view at D = 64, whose 4-byte loads it takes; D = 512)
+K2_GEOMETRY_CASES = ((128, 4, 16), (64, 4, 16), (32, 4, 16), (32, 8, 16), (128, 4, 8), (64, 4, 4),
+                     (512, 4, 16))
 
 
 def _cs():
@@ -296,8 +305,10 @@ def _differs(name, got, plain_f32, rtol, atol):
 def k2_stream_case(name, graph, width, seed):
     """K2's bf16 stream entry (``csr_softmax_spmm_bf16_stream``) on one
     sender-sorted layout, scores masked as ``csr_sparse_attention`` masks
-    them."""
+    them, in the geometry its rule (``stream_geometry``) gives the width
+    and the casts' alignment."""
     from graphphysics_torch.ops import csr_attention as ca
+    from graphphysics_torch.ops.csr_segment import alignment
 
     cs = _cs()
     dev, h = torch.device("cuda"), cs.HEADS
@@ -316,9 +327,12 @@ def k2_stream_case(name, graph, width, seed):
 
     with torch.no_grad():
         out, ml = ca.csr_softmax_spmm(scores, values, seg, bounds, mask, stream_dtype="bf16")
+        again, again_ml = ca.csr_softmax_spmm(scores, values, seg, bounds, mask, stream_dtype="bf16")
         want_out, want_ml = plain(scores, values)
         f32_out, _ = ca.csr_softmax_spmm(scores, values, seg, bounds, mask)
         torch.cuda.synchronize()
+        if not (torch.equal(out, again) and torch.equal(ml, again_ml)):
+            raise AssertionError(f"{name}: K2 bf16 stream not bit-equal on a second run")
         errs = [(out - want_out).abs().max().item(), (ml - want_ml).abs().max().item()]
         if not (torch.isfinite(out).all() and torch.allclose(out, want_out, **tol)
                 and torch.allclose(ml, want_ml, **tol)):
@@ -330,17 +344,63 @@ def k2_stream_case(name, graph, width, seed):
         copies = cs.copies_past_l2(bytes_)
         f32s = _copies((scores, values), copies)
         b16s = [tuple(t.to(torch.bfloat16) for t in x) for x in f32s]
+        geometry = ca.stream_geometry(width, h, alignment(b16s[0][1]), pair=False)._asdict()
         times = {"ms": cs.device_ms(lambda s, v: ca._launch(s, v, bounds, mask), b16s),
                  "with_casts_ms": cs.device_ms(
                      lambda s, v: ca.csr_softmax_spmm(s, v, seg, bounds, mask, stream_dtype="bf16"), f32s),
                  "plain_ms": cs.device_ms(plain, f32s),
                  "f32_entry_ms": cs.device_ms(lambda s, v: ca.csr_softmax_spmm(s, v, seg, bounds, mask), f32s)}
     return {"shape": name, "nodes": n, "edges": seg.shape[0], "real_edges": real_edges, "width": width,
-            "heads": h, "max_abs_err": max(errs), "out_ml_max_abs_err": errs, "tolerance": tol, **gap, **times,
-            "with_casts_note": "the public call: the two casts to bf16, then the kernel",
+            "heads": h, "geometry": geometry, "bit_equal_twice": True, "digest": digest(out),
+            "ml_digest": digest(ml), "max_abs_err": max(errs), "out_ml_max_abs_err": errs, "tolerance": tol,
+            **gap, **times, "with_casts_note": "the public call: the two casts to bf16, then the kernel",
             "library_ms": None,
             "library_note": "no single PyTorch call computes a segment softmax + SpMM",
             "input_copies": copies, **_bound(bytes_, ops)}
+
+
+def k2_geometry_cases(graph, seed) -> list:
+    """K2's bf16 stream entry in every geometry its rule gives, on one
+    sender-sorted layout (``K2_GEOMETRY_CASES``: the bf16 values placed at
+    the case's alignment and the entry launched on them): each against its
+    plain version at the phase's tolerance, the same bits twice, and
+    farther than that tolerance from the f32 mode."""
+    from graphphysics_torch.ops import csr_attention as ca
+    from graphphysics_torch.ops.csr_segment import alignment
+
+    cs = _cs()
+    dev = torch.device("cuda")
+    seg = torch.as_tensor(graph.senders).to(dev)
+    bounds = torch.as_tensor(graph.sender_bounds).to(dev)
+    mask = torch.as_tensor(graph.edge_mask).to(dev)
+    n, e = bounds.shape[1], seg.shape[0]
+    tol = {"rtol": cs.SOFTMAX_RTOL, "atol": cs.SOFTMAX_ATOL}
+    records = []
+    for i, (width, heads, aligned) in enumerate(K2_GEOMETRY_CASES):
+        gen = torch.Generator(device=dev).manual_seed(seed + i)
+        scores = torch.where(mask[:, None], 3 * torch.randn((e, heads), generator=gen, device=dev),
+                             torch.full((), ca.NEG, device=dev))
+        values = torch.randn((e, width), generator=gen, device=dev)
+        s16, v16 = scores.to(torch.bfloat16), view_at(values.to(torch.bfloat16), aligned)
+        with torch.no_grad():
+            out, ml = ca._launch(s16, v16, bounds, mask)
+            again, again_ml = ca._launch(s16, v16, bounds, mask)
+            want_out, want_ml = ca.csr_softmax_spmm_reference(s16.float(), v16.float(), seg, n, mask)
+            f32_out, _ = ca.csr_softmax_spmm(scores, values, seg, bounds, mask)
+            torch.cuda.synchronize()
+        geometry = ca.stream_geometry(width, heads, alignment(v16), pair=False)
+        label = f"width {width}, {heads} heads, values {alignment(v16)}-byte aligned, {geometry.kind}"
+        errs = [(out - want_out).abs().max().item(), (ml - want_ml).abs().max().item()]
+        if not (torch.equal(out, again) and torch.equal(ml, again_ml)):
+            raise AssertionError(f"K2 bf16 stream at {label}: not bit-equal on a second run")
+        if not (torch.isfinite(out).all() and torch.allclose(out, want_out, **tol)
+                and torch.allclose(ml, want_ml, **tol)):
+            raise AssertionError(f"K2 bf16 stream at {label} vs plain out/ml max_abs_err {errs}")
+        records.append({"entry": "csr_softmax_spmm_bf16_stream", "width": width, "heads": heads,
+                        "aligned": alignment(v16), "geometry": geometry._asdict(), "max_abs_err": max(errs),
+                        "out_ml_max_abs_err": errs, "tolerance": tol, "bit_equal_twice": True,
+                        "digest": digest(out), **_differs(label, out, f32_out, **tol)})
+    return records
 
 
 def k5_stream_case(name, graph, width, seed):
@@ -682,6 +742,8 @@ def stream_phase(clock, counts, seed, epd_frame, cyl_batch, aneurysm_epd, tf_fra
                                                ("panels_csr_batch_8x2048", tf_batch, cs.HIDDEN),
                                                ("aneurysm_csr_66560x524288", aneurysm_csr, 64))):
         emit("csr_softmax_spmm_bf16_stream", k2_stream_case(label, graph, width, seed + 10 + i))
+    for record in k2_geometry_cases(tf_batch, seed + 50):
+        clock.emit({"phase": "stream_dtypes", "name": "geometry", **record})
     mesh = mesh_graph("csr", seed + 601)
     for i, (label, graph, width) in enumerate((("serving_frame_2048_part0_of_4", tf_frame, cs.HIDDEN),
                                                ("mesh_16384_part0_of_4", mesh, cs.HIDDEN),

@@ -246,7 +246,8 @@ def profiler(families, seed, directory) -> tuple:
     from graphphysics_torch.dataset import GraphLoader
     from graphphysics_torch.training import Trainer
 
-    kernels = {"epd": ("csr_segment_sum_kernel", "csr_segment_sum_bwd_kernel"),
+    # K1's forward runs its 16-byte words at the models' width (128)
+    kernels = {"epd": ("csr_segment_sum_words", "csr_segment_sum_bwd_kernel"),
                "transformer": ("csr_attention_kernel", "csr_attention_bwd_kernel")}
     out, trainers = {}, {}
     for label, (param, train_ds) in families.items():

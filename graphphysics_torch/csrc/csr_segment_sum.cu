@@ -19,12 +19,32 @@
 // [start, end) range of real edges (graphphysics_torch/ops/csr_segment.py),
 // so every output row belongs to exactly one warp or lane group: no
 // atomics, each row is written once, and the sum runs in a fixed order
-// (deterministic). The f32 entry: a warp covers 32 consecutive columns of
-// one row; for each edge of the row its lanes read 32 neighbouring floats
-// (one 128-byte line), accumulate in an f32 register, and store once.
-// Edges whose mask byte is 0 add nothing; rows with no edges store 0. It is
-// at about half of its bound and stays as it is; TMA staging and balancing
-// long rows across warps are not tried.
+// (deterministic). Edges whose mask byte is 0 add nothing; rows with no
+// edges store 0. Time follows the row gathers a warp has in flight, not
+// the bytes, so every entry takes a geometry chosen before the launch by
+// width and alignment (the rule of ops/csr_segment.py
+// segment_sum_geometry):
+// - 16-byte words, where H is a multiple of a word's columns (4 f32, 8
+//   bf16 or f16) and data and out are 16-byte aligned: a lane owns the
+//   columns of one word, read as one 16-byte load; a row takes L = H / 4
+//   (f32) or H / 8 (16-bit) lanes, rounded up to a power of two, at most
+//   32 (a column block of 128 f32 or 256 16-bit columns a lane group past
+//   that), so a warp serves 32 / L rows: one at H = 128 in f32, two at
+//   H = 64 (16-bit: two at 128, four at 64). A lane walks its row's edges
+//   in windows of kEdgeGroup: it starts the window's mask-byte and word
+//   loads together (a masked edge's word is read and not added), then
+//   adds the live words in edge order. So each column's f32 sum is the
+//   same sequence of additions as one edge at a time, and the outputs are
+//   bit-equal to the one-column-a-lane geometry's (the build has no
+//   fast-math, so nothing reorders the additions). A warp at H = 128 keeps
+//   8 words of 16 bytes a lane (4 KB) in flight where one edge at a time
+//   kept one 128-byte line.
+// - single columns otherwise (f32 widths that are not a multiple of 4,
+//   views only 4- or 8-byte aligned): a warp covers 32 consecutive columns
+//   of one row, one edge at a time, its lanes reading 32 neighbouring
+//   elements (one 128-byte line in f32), the first design. The
+//   16-bit entries have a third geometry between the two, below.
+// TMA staging and balancing long rows across warps are not tried.
 //
 // 16-bit data (entries csr_segment_sum_bf16, csr_segment_sum_f16). The
 // TPU kernel meant to take bf16 or f16 data as it is: it pads the data in
@@ -35,25 +55,13 @@
 // the row is rounded once (to nearest even) to the data's dtype when it is
 // stored. A sum in 16 bits would be wrong, not slower: 4,096 ones summed in
 // bf16 stop at 256. The bytes are the f32 entry's with 2 bytes an element:
-// E*H*2 + 8*N + E + N*H*2. Time follows the row gathers in flight, not the
-// bytes, so the 16-bit entries have a geometry of their own, chosen before
-// the launch by width and alignment:
-// - 16-byte words, where H % 8 == 0 and data and out are 16-byte aligned: a
-//   lane owns 8 adjacent columns, read as one 16-byte word; a row takes
-//   L = H / 8 lanes (rounded up to a power of two, at most 32, a column
-//   block of 256 a lane group past that), so a warp serves 32 / L rows: two
-//   at H = 128, four at H = 64. A lane walks its row's edges in windows of
-//   kEdgeGroup: it starts the window's mask-byte and 16-byte-word loads
-//   together (a masked edge's word is read and not added), then adds the
-//   live words in edge order. So each row's f32 sum is the same sequence of
-//   additions as one edge at a time, and the outputs are bit-equal to the
-//   4-byte-pair path's. A warp at H = 128 keeps 2 x 16 x 8 words of 16
-//   bytes (4 KB) in flight where the pair path kept one 128-byte line.
-// - 4-byte pairs, where H is even and both arrays 4-byte aligned: K1's f32
-//   kernel on the element type, a lane taking two adjacent columns in one
-//   4-byte load (a warp reads one 128-byte line of an edge row), one edge
-//   at a time.
-// - single columns otherwise (odd widths, 2-byte aligned views).
+// E*H*2 + 8*N + E + N*H*2. Their geometries: the 16-byte words above,
+// where H % 8 == 0 and the arrays 16-byte aligned; else 4-byte
+// pairs, where H is even and both arrays 4-byte aligned: the single-column
+// kernel on the element type, a lane taking two adjacent columns in one
+// 4-byte load (a warp reads one 128-byte line of an edge row), one edge at
+// a time; else single columns (odd widths, 2-byte aligned views). All
+// three give the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -66,8 +74,15 @@ namespace {
 constexpr int kLanes = 32;        // lanes (column groups) per warp
 constexpr int kRowsPerBlock = 8;  // warps (rows) per block
 constexpr int kWordCols = 8;      // 16-bit columns in a 16-byte word
+constexpr int kF32WordCols = 4;   // f32 columns in a 16-byte word
 constexpr int kEdgeGroup = 8;     // edges whose words a lane has in flight (16-byte geometry)
 constexpr int kWordWarps = 8;     // warps per block (16-byte geometry)
+
+// the columns of element type T in a 16-byte word
+template <typename T>
+__host__ __device__ constexpr int word_cols() {
+  return sizeof(T) == 4 ? kF32WordCols : kWordCols;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -182,38 +197,59 @@ __device__ __forceinline__ uint32_t pair_bits<__half>(float a, float b) {
   return bits;
 }
 
-// adds the 8 columns of the word w, widened to f32, to acc
+// adds the columns of the word w (4 f32, or 8 16-bit ones widened to f32)
+// to acc
 template <typename T>
-__device__ __forceinline__ void add_word(const uint4& w, float (&acc)[kWordCols]) {
+__device__ __forceinline__ void add_word(const uint4& w, float (&acc)[word_cols<T>()]) {
   const uint32_t bits[4] = {w.x, w.y, w.z, w.w};
+  if constexpr (sizeof(T) == 4) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = bits_f32<T>(bits[i]);
-    acc[2 * i] += f.x;
-    acc[2 * i + 1] += f.y;
+    for (int i = 0; i < 4; ++i) acc[i] += __uint_as_float(bits[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = bits_f32<T>(bits[i]);
+      acc[2 * i] += f.x;
+      acc[2 * i + 1] += f.y;
+    }
+  }
+}
+
+// the f32 sums acc as one 16-byte word of T (16-bit: rounded once, to
+// nearest even)
+template <typename T>
+__device__ __forceinline__ uint4 word_of(const float (&acc)[word_cols<T>()]) {
+  if constexpr (sizeof(T) == 4) {
+    return make_uint4(__float_as_uint(acc[0]), __float_as_uint(acc[1]), __float_as_uint(acc[2]),
+                      __float_as_uint(acc[3]));
+  } else {
+    return make_uint4(pair_bits<T>(acc[0], acc[1]), pair_bits<T>(acc[2], acc[3]),
+                      pair_bits<T>(acc[4], acc[5]), pair_bits<T>(acc[6], acc[7]));
   }
 }
 
 // The 16-byte geometry: lane sub of row slot `slot` (lanes a row, 32 /
-// lanes slots a warp) sums columns [col, col + 8) of its row in f32, a
-// window of kEdgeGroup edges' words in flight, and stores them rounded to
-// T once. blockIdx.y is the 256-column block of rows wider than 256.
+// lanes slots a warp) sums the C = word_cols<T>() columns [col, col + C)
+// of its row in f32, a window of kEdgeGroup edges' words in flight, and
+// stores them (rounded to T once). blockIdx.y is the 32-word column block
+// of rows wider than 32 words.
 template <typename T>
 __global__ void csr_segment_sum_words(const T* __restrict__ data, const int32_t* __restrict__ bounds,
                                       const uint8_t* __restrict__ mask, T* __restrict__ out,
                                       int64_t num_rows, int64_t num_edges, int32_t width, int lanes) {
+  constexpr int C = word_cols<T>();
   const int slot = threadIdx.x / lanes;
   const int sub = threadIdx.x % lanes;
   const int64_t row = (static_cast<int64_t>(blockIdx.x) * kWordWarps + threadIdx.y) * (kLanes / lanes) + slot;
-  const int64_t col = (static_cast<int64_t>(blockIdx.y) * kLanes + sub) * kWordCols;
+  const int64_t col = (static_cast<int64_t>(blockIdx.y) * kLanes + sub) * C;
   if (row >= num_rows || col >= width) return;  // no lane waits on another
   int64_t start = bounds[row];
   int64_t end = bounds[num_rows + row];
   start = start < 0 ? 0 : start;
   end = end > num_edges ? num_edges : end;
-  float acc[kWordCols];
+  float acc[C];
 #pragma unroll
-  for (int c = 0; c < kWordCols; ++c) acc[c] = 0.0f;
+  for (int c = 0; c < C; ++c) acc[c] = 0.0f;
   for (int64_t e0 = start; e0 < end; e0 += kEdgeGroup) {
     uint4 w[kEdgeGroup];
     bool live[kEdgeGroup];
@@ -229,12 +265,10 @@ __global__ void csr_segment_sum_words(const T* __restrict__ data, const int32_t*
     }
 #pragma unroll
     for (int u = 0; u < kEdgeGroup; ++u) {
-      if (live[u]) add_word<T>(w[u], acc);  // edge order: the pair path's additions
+      if (live[u]) add_word<T>(w[u], acc);  // edge order: one edge at a time's additions
     }
   }
-  const uint4 o = make_uint4(pair_bits<T>(acc[0], acc[1]), pair_bits<T>(acc[2], acc[3]),
-                             pair_bits<T>(acc[4], acc[5]), pair_bits<T>(acc[6], acc[7]));
-  *reinterpret_cast<uint4*>(out + row * width + col) = o;
+  *reinterpret_cast<uint4*>(out + row * width + col) = word_of<T>(acc);
 }
 
 // Backward of the segment sum (K1b):
@@ -290,16 +324,17 @@ __global__ void csr_segment_sum_bwd_kernel(const W* __restrict__ g,
 
 constexpr int kBwdThreads = 256;
 
-// The lanes a row takes in the 16-byte geometry (H / 8 rounded up to a
-// power of two, at most 32), or 0 where it does not take the width or the
-// arrays' alignment (the rule of ops/csr_segment.py segment_sum_geometry).
-int word_lanes(int width, const void* data, const void* out) {
-  if (width <= 0 || width % kWordCols != 0 || reinterpret_cast<uintptr_t>(data) % 16 != 0 ||
+// The lanes a row takes in the 16-byte geometry (H / C rounded up to a
+// power of two, at most 32, with C a word's columns), or 0 where it does
+// not take the width or the arrays' alignment (the rule of
+// ops/csr_segment.py segment_sum_geometry).
+int word_lanes(int width, int cols, const void* data, const void* out) {
+  if (width <= 0 || width % cols != 0 || reinterpret_cast<uintptr_t>(data) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(out) % 16 != 0) {
     return 0;
   }
   int lanes = 1;
-  while (lanes < kLanes && lanes * kWordCols < width) lanes *= 2;
+  while (lanes < kLanes && lanes * cols < width) lanes *= 2;
   return lanes;
 }
 
@@ -311,25 +346,24 @@ int forward(const void* data, const void* bounds, const void* mask, void* out,
   const auto* bp = static_cast<const int32_t*>(bounds);
   const auto* mp = static_cast<const uint8_t*>(mask);
   auto* op = static_cast<T*>(out);
-  if constexpr (sizeof(T) == 2) {
-    const int lanes = word_lanes(width, data, out);
-    if (lanes > 0) {
-      const long long rows = static_cast<long long>(kWordWarps) * (kLanes / lanes);  // a block
-      const int words = width / kWordCols;
-      const dim3 grid(static_cast<unsigned>((num_rows + rows - 1) / rows),
-                      static_cast<unsigned>((words + kLanes - 1) / kLanes));
-      csr_segment_sum_words<T><<<grid, dim3(kLanes, kWordWarps), 0, s>>>(dp, bp, mp, op, num_rows, num_edges,
-                                                                        width, lanes);
-      return static_cast<int>(cudaGetLastError());
-    }
+  constexpr int cols = word_cols<T>();
+  const int lanes = word_lanes(width, cols, data, out);
+  if (lanes > 0) {
+    const long long rows = static_cast<long long>(kWordWarps) * (kLanes / lanes);  // a block
+    const int words = width / cols;
+    const dim3 grid(static_cast<unsigned>((num_rows + rows - 1) / rows),
+                    static_cast<unsigned>((words + kLanes - 1) / kLanes));
+    csr_segment_sum_words<T><<<grid, dim3(kLanes, kWordWarps), 0, s>>>(dp, bp, mp, op, num_rows, num_edges,
+                                                                      width, lanes);
+    return static_cast<int>(cudaGetLastError());
   }
   const bool pairs = sizeof(T) == 2 && width % 2 == 0 &&
                      reinterpret_cast<uintptr_t>(data) % 4 == 0 &&
                      reinterpret_cast<uintptr_t>(out) % 4 == 0;
-  const int cols = pairs ? 2 * kLanes : kLanes;  // columns a warp covers
+  const int cover = pairs ? 2 * kLanes : kLanes;  // columns a warp covers
   const dim3 block(kLanes, kRowsPerBlock);
   const dim3 grid(static_cast<unsigned>((num_rows + kRowsPerBlock - 1) / kRowsPerBlock),
-                  static_cast<unsigned>((width + cols - 1) / cols));
+                  static_cast<unsigned>((width + cover - 1) / cover));
   if constexpr (sizeof(T) == 2) {
     if (pairs) {
       csr_segment_sum_kernel<T, 2><<<grid, block, 0, s>>>(dp, bp, mp, op, num_rows, num_edges, width);

@@ -46,17 +46,50 @@
 // the rounded values (pallas_attention.py:255-302): it halves the edge
 // bytes, and what changes in the result is the input rounding alone. The
 // wrapper rounds the f32 scores and values to bf16 (one PyTorch cast each,
-// as JAX's packing is XLA's), and this kernel, instantiated on the element
-// type, reads the bf16 rows (V/8 16-byte loads a lane where V allows),
-// widens each element to f32, and does every sum, exponential and the
-// online (m, l) in f32; out and ml stay f32. Its bytes are
+// as JAX's packing is XLA's), and this entry reads the bf16 rows, widens
+// each element to f32, and does every sum, exponential and the (m, l) in
+// f32; out and ml stay f32. Its bytes are
 //   E*(2H + 2D + 1) + N*(4D + 8H + 8).
-// Its backward is the f32 one (csr_softmax_spmm_bwd.cu) on the unrounded
-// inputs with this pass's ml and out, as JAX's `_fwd` saves them.
+// A warp reading one row's edges one at a time keeps one 256-byte span in
+// flight and chains each edge's score load, exponentials and value load
+// on the edge before, so the entry takes K5's bf16 word geometries
+// (csr_softmax_spmm_pair.cu, pair_forward_words) on its one edge set,
+// chosen before the launch by width, heads and alignment (the rule of
+// ops/csr_attention.py stream_geometry):
+// - 16-byte words, where a head's width is a multiple of 8, D <= 256 and
+//   values and out are 16-byte aligned: a lane owns 8 adjacent columns of
+//   one head, read as one 16-byte word, and reads one bf16 score an edge.
+//   A row takes L = D / 8 lanes (rounded up to a power of two), so a warp
+//   serves 32 / L rows: two at D = 128, four at D = 64. A lane walks its
+//   row's range in windows of kEdgeGroup edges: it starts the loads of the
+//   window's mask bytes, scores and words together, without a branch (a
+//   slot past the row's end reads the row's last edge and adds nothing:
+//   2.6-10.6% faster than guarded loads in trial builds on an H100), then
+//   takes the window's maximum, rescales l and its sums once, and adds the
+//   live edges' weights and weighted values in edge order: one
+//   exponential a live edge and one a window, none waiting on the one
+//   before. A warp at D = 128 keeps 2 x 16 x 8 words of 16 bytes in
+//   flight.
+// - 8-byte words, where a head's width is a multiple of 4, D <= 128 and the
+//   values 8-byte aligned (D = 32 with 8 heads of 4): the same with 4
+//   columns a lane.
+// - the kernel above on bf16 rows for every other width and view (D = 512,
+//   heads narrower than 4, values only 4-byte aligned): V = D/32 columns a
+//   lane, V/8 16-byte loads where V allows, one edge at a time. Its vector
+//   loads need the values aligned to their size (2 min(8, V & -V) bytes):
+//   a view that is not returns cudaErrorMisalignedAddress.
+// Each keeps the invariants above: one warp or lane group owns a row, no
+// atomics, every sum in a fixed order, so two runs give the same bits; an
+// empty row keeps m = -1e30, l = 0 and out = 0. Its backward is the f32 one
+// (csr_softmax_spmm_bwd.cu) on the unrounded inputs with this pass's ml
+// and out, as JAX's `_fwd` saves them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include "bf16_words.cuh"
 
 namespace {
 
@@ -64,6 +97,8 @@ constexpr int kLanes = 32;
 constexpr int kRowsPerBlock = 4;  // warps (rows) per block
 constexpr float kNeg = -1e30f;    // finite -inf stand-in, as the TPU kernel
 constexpr float kEps = 1e-16f;    // the epsilon of segment_softmax
+constexpr int kEdgeGroup = 8;     // edges a lane has in flight (bf16 stream word geometries)
+constexpr int kWordWarps = 4;     // warps per block (bf16 stream word geometries)
 
 template <int V>
 __device__ __forceinline__ void load_cols(const float* __restrict__ p, float (&v)[V]) {
@@ -179,6 +214,94 @@ __global__ void csr_softmax_spmm_kernel(const T* __restrict__ scores,
   }
 }
 
+// ---- the bf16 stream's word geometries: W = 8 (16-byte words) or 4
+// (8-byte words) adjacent bf16 columns of one head a lane (WordOf,
+// unpack_word: bf16_words.cuh), `lanes` lanes a row (a power of two),
+// 32 / lanes rows a warp.
+
+template <int W>
+__global__ void stream_forward_words(const __nv_bfloat16* __restrict__ scores,
+                                     const __nv_bfloat16* __restrict__ values,
+                                     const int32_t* __restrict__ bounds,
+                                     const uint8_t* __restrict__ mask, float* __restrict__ out,
+                                     float* __restrict__ ml, int64_t num_rows, int64_t num_edges,
+                                     int width, int num_heads, int lanes) {
+  using Word = typename WordOf<W>::type;
+  const int slot = threadIdx.x / lanes;
+  const int sub = threadIdx.x % lanes;
+  const int64_t row = (static_cast<int64_t>(blockIdx.x) * kWordWarps + threadIdx.y) * (kLanes / lanes) + slot;
+  const int col0 = sub * W;
+  if (row >= num_rows || col0 >= width) return;  // no shuffles: a lane waits on no other
+  const int head_dim = width / num_heads;
+  const int head = col0 / head_dim;
+  int64_t start = bounds[row];
+  int64_t end = bounds[num_rows + row];
+  start = start < 0 ? 0 : start;
+  end = end > num_edges ? num_edges : end;
+  float m = kNeg, l = 0.0f, acc[W];
+#pragma unroll
+  for (int c = 0; c < W; ++c) acc[c] = 0.0f;
+  for (int64_t e0 = start; e0 < end; e0 += kEdgeGroup) {
+    Word w[kEdgeGroup];
+    float x[kEdgeGroup];
+    bool live[kEdgeGroup];
+#pragma unroll
+    for (int u = 0; u < kEdgeGroup; ++u) {
+      const int64_t e = e0 + u < end ? e0 + u : end - 1;  // past the row: its last edge, not added
+      live[u] = e0 + u < end && (mask == nullptr || mask[e] != 0);
+      x[u] = __bfloat162float(scores[e * num_heads + head]);
+      w[u] = *reinterpret_cast<const Word*>(values + e * width + col0);
+    }
+    float m_new = m;
+#pragma unroll
+    for (int u = 0; u < kEdgeGroup; ++u) {
+      if (live[u]) m_new = fmaxf(m_new, x[u]);
+    }
+    const float alpha = expf(m - m_new);
+    l *= alpha;
+#pragma unroll
+    for (int c = 0; c < W; ++c) acc[c] *= alpha;
+#pragma unroll
+    for (int u = 0; u < kEdgeGroup; ++u) {
+      if (!live[u]) continue;
+      float v[W];
+      unpack_word<Word, W>(w[u], v);
+      const float p = expf(x[u] - m_new);
+      l += p;
+#pragma unroll
+      for (int c = 0; c < W; ++c) acc[c] += p * v[c];
+    }
+    m = m_new;
+  }
+  float4* o = reinterpret_cast<float4*>(out + row * width + col0);
+#pragma unroll
+  for (int i = 0; i < W / 4; ++i) {
+    o[i] = make_float4(acc[4 * i] / (l + kEps), acc[4 * i + 1] / (l + kEps), acc[4 * i + 2] / (l + kEps),
+                       acc[4 * i + 3] / (l + kEps));
+  }
+  if (col0 % head_dim == 0) {
+    ml[head * num_rows + row] = m;
+    ml[(num_heads + head) * num_rows + row] = l;
+  }
+}
+
+// The columns a lane owns in the bf16 stream's word geometries (8 or 4),
+// or 0 for the kernel above; `lanes` the lanes a row then takes (the rule
+// of ops/csr_attention.py stream_geometry, K5's).
+int word_columns(int width, int num_heads, const void* values, const void* out, int& lanes) {
+  if (reinterpret_cast<uintptr_t>(out) % 16 != 0) return 0;
+  const int head_dim = width / num_heads;
+  for (int w : {8, 4}) {
+    if (head_dim % w != 0 || width > kLanes * w || reinterpret_cast<uintptr_t>(values) % (2 * w) != 0) {
+      continue;
+    }
+    lanes = 1;
+    while (lanes * w < width) lanes *= 2;
+    return w;
+  }
+  return 0;
+}
+
 template <int V, typename T>
 cudaError_t launch(const void* scores, const void* values, const void* bounds,
                    const void* mask, void* out, void* ml, long long num_rows,
@@ -193,7 +316,8 @@ cudaError_t launch(const void* scores, const void* values, const void* bounds,
   return cudaGetLastError();
 }
 
-// The instantiation of width D = 32 V for element type T.
+// The instantiation of width D = 32 V for element type T; bf16 (the
+// stream) takes its word geometries first.
 template <typename T>
 int run(const void* scores, const void* values, const void* bounds, const void* mask, void* out,
         void* ml, long long num_rows, long long num_edges, int num_heads, int width,
@@ -204,6 +328,34 @@ int run(const void* scores, const void* values, const void* bounds, const void* 
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (sizeof(T) == 2) {
+    int lanes = 0;
+    const int w = word_columns(width, num_heads, values, out, lanes);
+    if (w > 0) {
+      const long long rows = static_cast<long long>(kWordWarps) * (kLanes / lanes);  // a block
+      const dim3 block(kLanes, kWordWarps);
+      const dim3 grid(static_cast<unsigned>((num_rows + rows - 1) / rows));
+      const auto* sp = static_cast<const __nv_bfloat16*>(scores);
+      const auto* vp = static_cast<const __nv_bfloat16*>(values);
+      const auto* bp = static_cast<const int32_t*>(bounds);
+      const auto* mp = static_cast<const uint8_t*>(mask);
+      auto* op = static_cast<float*>(out);
+      auto* lp = static_cast<float*>(ml);
+      if (w == 8) {
+        stream_forward_words<8><<<grid, block, 0, s>>>(sp, vp, bp, mp, op, lp, num_rows, num_edges, width,
+                                                       num_heads, lanes);
+      } else {
+        stream_forward_words<4><<<grid, block, 0, s>>>(sp, vp, bp, mp, op, lp, num_rows, num_edges, width,
+                                                       num_heads, lanes);
+      }
+      return static_cast<int>(cudaGetLastError());
+    }
+    const int v = width / kLanes;
+    const int load = 2 * ((v & -v) < 8 ? (v & -v) : 8);  // bytes of the kernel's vector loads
+    if (reinterpret_cast<uintptr_t>(values) % load != 0) {
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    }
+  }
 #define CASE(V) \
   case V:       \
     return static_cast<int>(launch<V, T>(scores, values, bounds, mask, out, ml, num_rows, num_edges, num_heads, s));
@@ -233,8 +385,10 @@ extern "C" int csr_softmax_spmm_f32(const void* scores, const void* values,
                     stream);
 }
 
-// The same with scores [E, H] and values [E, D] in bf16 (values 16-byte
-// aligned): stream_dtype="bf16". out and ml stay f32.
+// The same with scores [E, H] and values [E, D] in bf16: stream_dtype="bf16",
+// in the 16-byte, 8-byte or V-column geometry by width, heads and
+// alignment (values aligned to the V-column kernel's loads where it runs,
+// else cudaErrorMisalignedAddress). out and ml stay f32.
 extern "C" int csr_softmax_spmm_bf16_stream(const void* scores, const void* values,
                                             const void* bounds, const void* mask,
                                             void* out, void* ml, long long num_rows,

@@ -102,6 +102,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "bf16_words.cuh"
+
 #include <initializer_list>
 
 namespace {
@@ -487,35 +489,9 @@ __global__ void pair_backward_fast(EdgeSet a, EdgeSet b, const float* __restrict
 }
 
 // ---- the bf16 stream's word geometries: W = 8 (16-byte words) or 4
-// (8-byte words) adjacent bf16 columns of one head a lane, `lanes` lanes a
-// row (a power of two), 32 / lanes rows a warp.
-
-template <int W>
-struct WordOf;
-template <>
-struct WordOf<8> {
-  using type = uint4;
-};
-template <>
-struct WordOf<4> {
-  using type = uint2;
-};
-
-// the W bf16 columns of a word (W / 2 pairs), as f32
-template <typename Word, int W>
-__device__ __forceinline__ void unpack_word(const Word& w, float (&v)[W]) {
-  static_assert(sizeof(Word) == 2 * W, "a word holds W bf16 columns");
-  uint32_t bits[W / 2];
-  memcpy(bits, &w, sizeof(bits));
-#pragma unroll
-  for (int i = 0; i < W / 2; ++i) {
-    __nv_bfloat162 h;
-    memcpy(&h, &bits[i], sizeof(h));
-    const float2 f = __bfloat1622float2(h);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
+// (8-byte words) adjacent bf16 columns of one head a lane (WordOf,
+// unpack_word: bf16_words.cuh), `lanes` lanes a row (a power of two),
+// 32 / lanes rows a warp.
 
 template <int W>
 __global__ void pair_forward_words(EdgeSetOf<__nv_bfloat16> a, EdgeSetOf<__nv_bfloat16> b,

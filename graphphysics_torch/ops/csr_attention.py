@@ -956,22 +956,30 @@ def bf16_geometry(width: int, heads: int, interleaved: bool, aligned: bool = Tru
     return found[0] if found else None
 
 
-def pair_stream_geometry(width: int, heads: int, aligned: int) -> Optional[SumGeometry]:
-    """The geometry K5's bf16 stream entry (``csr_softmax_spmm_pair_bf16_stream``)
-    runs ``width`` columns in ``heads`` heads with, where both sets' value
-    arrays are ``aligned``-byte aligned (``csr_segment.alignment``; ``out``
-    is the wrapper's own, 16-byte aligned), as ``csrc/csr_softmax_spmm_pair.cu``
-    chooses it: "words16" (8 bf16 columns of one head a lane, one 16-byte
-    word) where the head width is a multiple of 8, D <= 256 and the values
-    16-byte aligned; else "words8" (4 columns, 8-byte words) where the head
-    width is a multiple of 4, D <= 128 and the values 8-byte aligned; a row
-    takes ``D / columns`` lanes rounded up to a power of two, 32 / lanes rows
-    a warp, 8 edges in flight. Else "general": lane j owns the columns j,
-    j + 32, ... (up to 16), a warp a row, one edge at a time. None where the
-    entry takes neither (past ``MAX_WIDTH``, H not dividing D)."""
+def stream_geometry(width: int, heads: int, aligned: int, pair: bool = True) -> Optional[SumGeometry]:
+    """The geometry a bf16 stream entry runs ``width`` columns in ``heads``
+    heads with, where the bf16 value arrays are ``aligned``-byte aligned
+    (``csr_segment.alignment``; ``out`` is the wrapper's own, 16-byte
+    aligned): K5's (``csr_softmax_spmm_pair_bf16_stream``, ``pair``) or
+    K2's (``csr_softmax_spmm_bf16_stream``), as ``csrc/csr_softmax_spmm_pair.cu``
+    and ``csrc/csr_softmax_spmm.cu`` choose it. Both: "words16" (8 bf16
+    columns of one head a lane, one 16-byte word) where the head width is a
+    multiple of 8, D <= 256 and the values 16-byte aligned; else "words8"
+    (4 columns, 8-byte words) where the head width is a multiple of 4,
+    D <= 128 and the values 8-byte aligned; a row takes ``D / columns``
+    lanes rounded up to a power of two, 32 / lanes rows a warp, 8 edges in
+    flight. Else "general", a warp a row, one edge at a time, ``ceil(D /
+    32)`` columns a lane: K5's lane j the columns j, j + 32, ..., K2's
+    adjacent ones. None where the entry takes neither: past ``MAX_WIDTH``,
+    H not dividing D; for K2 also D not a multiple of 32 or a head not
+    whole ``D / 32``-column lanes (its kernel's instantiations), and a
+    general geometry whose vector loads (``2 min(8, V & -V)`` bytes,
+    ``V = D / 32``) the alignment does not take."""
     if not 0 < width <= MAX_WIDTH or heads <= 0 or width % heads:
         return None
     head_dim = width // heads
+    if not pair and (width % WARP or head_dim % (width // WARP)):
+        return None
     for cols, kind in ((8, "words16"), (4, "words8")):
         if head_dim % cols or width > WARP * cols or aligned % (2 * cols):
             continue
@@ -979,7 +987,15 @@ def pair_stream_geometry(width: int, heads: int, aligned: int) -> Optional[SumGe
         while lanes * cols < width:
             lanes *= 2
         return SumGeometry(kind, cols, lanes, WARP // lanes, EDGE_GROUP)
-    return SumGeometry("general", -(-width // WARP), WARP, 1, 1)
+    columns = -(-width // WARP)
+    if not pair and aligned % (2 * min(8, columns & -columns)):
+        return None
+    return SumGeometry("general", columns, WARP, 1, 1)
+
+
+def pair_stream_geometry(width: int, heads: int, aligned: int) -> Optional[SumGeometry]:
+    """K5's ``stream_geometry``."""
+    return stream_geometry(width, heads, aligned)
 
 
 # the fused kernels' entries by element type, and the byte alignment each

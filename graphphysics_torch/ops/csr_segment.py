@@ -16,9 +16,12 @@ apart on ``.bf16`` and ``.f16``) or raise; their CPU implementations are
 the plain PyTorch versions; their fake implementations give shapes and
 dtypes only. Nothing but the tensors' device selects between the two.
 
-The 16-bit entries take one of three lane geometries, chosen before the
-launch by width and alignment; ``segment_sum_geometry`` is that rule, kept
+Every entry takes a lane geometry chosen before the launch by width and
+alignment (16-byte words where they fit, else the 16-bit entries' column
+pairs, else single columns); ``segment_sum_geometry`` is that rule, kept
 beside the kernels so the CPU tests and the card's records can read it.
+The f32 entry counts its launches by geometry on
+``csr_segment_sum.geometries``, so a run can show which one its path took.
 
 The kernel reads per-node ``[start, end)`` ranges of real edges
 (``compute_row_bounds``, built on the host with the padding) instead of the
@@ -84,10 +87,12 @@ def compute_row_bounds(
     ).astype(np.int32)
 
 
-# the 16-bit entries' 16-byte geometry (csrc/csr_segment_sum.cu): columns a
-# lane (one 16-byte word), and the edges whose words a lane has in flight
-# (K5's bf16 stream words too, csrc/csr_softmax_spmm_pair.cu)
+# the 16-byte geometry (csrc/csr_segment_sum.cu): columns a lane (one
+# 16-byte word) of the 16-bit and the f32 entries, and the edges whose
+# words a lane has in flight (K2's and K5's bf16 stream words too,
+# csrc/csr_softmax_spmm.cu, csrc/csr_softmax_spmm_pair.cu)
 WORD_COLUMNS = 8
+F32_WORD_COLUMNS = 4
 EDGE_GROUP = 8
 WARP = 32
 
@@ -95,7 +100,7 @@ WARP = 32
 class SumGeometry(NamedTuple):
     """A lane geometry of K1's kernels (``segment_sum_geometry``: "words16",
     16-byte words; "pairs", 4-byte column pairs; "columns", one column a
-    lane) or of K5's bf16 stream (``csr_attention.pair_stream_geometry``:
+    lane) or of K2's and K5's bf16 stream (``csr_attention.stream_geometry``:
     "words16", "words8", "general"): its ``kind``, the adjacent
     ``columns`` a lane owns, the ``lanes`` a row takes (a column block of
     32 lanes past that), the ``rows_per_warp`` and the edges whose loads a
@@ -124,17 +129,18 @@ def alignment(*tensors: Optional[torch.Tensor]) -> int:
 def segment_sum_geometry(width: int, dtype: torch.dtype, aligned: int) -> SumGeometry:
     """The geometry K1's entry for ``dtype`` runs a ``width``-column row
     with, where data and out are both ``aligned``-byte aligned
-    (``alignment``): the f32 entry one column a lane; the 16-bit entries
-    16-byte words of 8 columns where the width is a multiple of 8 and the
-    arrays 16-byte aligned (``width / 8`` lanes a row, rounded up to a
-    power of two and at most 32, so 32 / lanes rows a warp; 8 edges in
-    flight), else 4-byte pairs where the width is even and the arrays
-    4-byte aligned, else one column a lane."""
-    if dtype != torch.float32 and width > 0 and width % WORD_COLUMNS == 0 and aligned % 16 == 0:
+    (``alignment``): 16-byte words (4 f32 or 8 16-bit columns a lane) where
+    the width is a multiple of a word's columns and the arrays 16-byte
+    aligned (``width / columns`` lanes a row, rounded up to a power of two
+    and at most 32, so 32 / lanes rows a warp; 8 edges in flight); else,
+    for the 16-bit entries, 4-byte pairs where the width is even and the
+    arrays 4-byte aligned; else one column a lane."""
+    cols = F32_WORD_COLUMNS if dtype == torch.float32 else WORD_COLUMNS
+    if width > 0 and width % cols == 0 and aligned % 16 == 0:
         lanes = 1
-        while lanes < WARP and lanes * WORD_COLUMNS < width:
+        while lanes < WARP and lanes * cols < width:
             lanes *= 2
-        return SumGeometry("words16", WORD_COLUMNS, lanes, WARP // lanes, EDGE_GROUP)
+        return SumGeometry("words16", cols, lanes, WARP // lanes, EDGE_GROUP)
     if dtype != torch.float32 and width % 2 == 0 and aligned % 4 == 0:
         return SumGeometry("pairs", 2, WARP, 1, 1)
     return SumGeometry("columns", 1, WARP, 1, 1)
@@ -258,6 +264,8 @@ def _launch(data, row_bounds, mask) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"csr_segment_sum_{entry} kernel launch failed: CUDA error {err}")
     LAUNCHES[f"csr_segment_sum_{entry}"].launches += 1
+    if data.dtype == torch.float32:
+        csr_segment_sum.geometries[segment_sum_geometry(h, data.dtype, alignment(data, out)).kind] += 1
     return out
 
 
@@ -358,7 +366,8 @@ def csr_segment_sum(
 
     The kernel reads only the row ranges, so every unmasked edge must lie in
     its receiver's range. A CUDA tensor launches the Hopper kernel of its
-    dtype and adds one to ``csr_segment_sum.launches`` (float32),
+    dtype and adds one to ``csr_segment_sum.launches`` (float32, and
+    to the geometry that ran on ``csr_segment_sum.geometries``),
     ``csr_segment_sum.bf16.launches`` or ``csr_segment_sum.f16.launches``
     (the 16-bit entries: the sum in f32, the rows rounded once to the
     data's dtype, which the output keeps); the CUDA path trusts the
@@ -370,6 +379,8 @@ def csr_segment_sum(
 
 
 csr_segment_sum.launches = 0
+# the f32 entry's launches by the geometry that ran (segment_sum_geometry)
+csr_segment_sum.geometries = {"words16": 0, "columns": 0}
 
 
 def csr_segment_sum_backward(

@@ -11,8 +11,8 @@ the kernels, the ops' fake implementations against the kernels,
 1-rank data group against the plain step, and the two 16-bit stream
 modes' entries (K1 and K1b on bf16 and f16 data; ``stream_dtype="bf16"``
 of K2, K5 and the fused forward) against their plain versions with their
-launch counts, and each lane geometry of the 16-bit K1 and of K5's stream
-entry (by width, heads and alignment). Marked ``cuda``; they skip without
+launch counts, and each lane geometry of K1 (f32 and 16-bit) and of K2's
+and K5's stream entries (by width, heads and alignment). Marked ``cuda``; they skip without
 a card. This file imports no JAX, so on a machine without it run them
 with
 
@@ -1245,6 +1245,66 @@ def test_segment_sum_16bit_geometries_give_the_same_bits(cuda, dtype, h):
     assert all(torch.equal(o, outs[0]) for o in outs[1:])
 
 
+@pytest.mark.parametrize("h", [128, 64, 48, 130])
+def test_segment_sum_f32_geometries_give_the_same_bits(cuda, h):
+    """The f32 K1 in each geometry its rule gives a width, on data 16- and
+    4-byte aligned (16-byte words of 4 columns, single columns; a width
+    that is not a multiple of 4 single columns at both): within
+    ``KERNEL_ATOL`` of the plain version, the same bits on a second run and
+    in both geometries, which add a row's edges in edge order in f32; each
+    launch counted on the geometry that ran. Rows of about 20 edges
+    (several windows of the words geometry), masked edges inside the
+    ranges, most rows empty."""
+    from chip_stream import view_at
+    from graphphysics_torch.ops.csr_segment import (
+        alignment,
+        csr_segment_sum,
+        csr_segment_sum_reference,
+        segment_sum_geometry,
+    )
+
+    g = _layout(1000, 6000, seed=h, hi=300, n_pad=1024, e_pad=6144)
+    recv, bounds, mask = (torch.from_numpy(a).to(cuda) for a in (g.receivers, g.row_bounds, g.edge_mask))
+    mask[::7] = False
+    gen = torch.Generator(device=cuda).manual_seed(h)
+    data = torch.randn(g.num_edges, h, device=cuda, generator=gen)
+    want = csr_segment_sum_reference(data, recv, g.num_nodes, mask)
+    outs, kinds = [], []
+    for aligned in (16, 4):
+        d = view_at(data, aligned)
+        kinds.append(segment_sum_geometry(h, d.dtype, alignment(d)).kind)
+        before = dict(csr_segment_sum.geometries)
+        first, second = csr_segment_sum(d, recv, bounds, mask), csr_segment_sum(d, recv, bounds, mask)
+        torch.cuda.synchronize()
+        assert csr_segment_sum.geometries[kinds[-1]] - before[kinds[-1]] == 2
+        assert torch.equal(first, second), kinds[-1]
+        assert (first - want).abs().max().item() <= 1e-4, kinds[-1]
+        outs.append(first)
+    assert kinds == (["words16", "columns"] if h % 4 == 0 else ["columns"] * 2)
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_segment_sum_f32_hub_row_reads_4096(cuda):
+    """4,096 unit edges into one node read exactly 4,096 in the f32 entry's
+    16-byte words and in single columns (a 4-byte aligned view), the same
+    bits in both."""
+    from chip_stream import view_at
+    from graphphysics_torch.ops.csr_segment import alignment, compute_row_bounds, csr_segment_sum
+
+    n, hub, h = 64, 4096, 128
+    recv_np = np.concatenate([np.zeros(hub, np.int32), np.arange(1, n, dtype=np.int32)])
+    recv = torch.from_numpy(recv_np).to(cuda)
+    bounds = torch.from_numpy(compute_row_bounds(recv_np, n)).to(cuda)
+    outs = []
+    for aligned in (16, 4):
+        data = view_at(torch.ones(len(recv_np), h, device=cuda), aligned)
+        assert alignment(data) == aligned
+        out = csr_segment_sum(data, recv, bounds)
+        assert bool((out[0] == hub).all()) and bool((out[1:] == 1).all())
+        outs.append(out)
+    assert torch.equal(outs[0], outs[1])
+
+
 def _split_rows(bounds: np.ndarray):
     """Each row's range of a sender-sorted layout cut in two: the first
     half of its edges in set a, the rest in set b. Returns each set's edge
@@ -1300,6 +1360,60 @@ def test_pair_stream_geometries_match_plain(cuda, width, heads, aligned, kind):
                                                        ma, mb)
     torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(ml, want_ml, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "width,heads,aligned,kind",
+    [
+        (128, 4, 16, "words16"),  # 16 lanes a row, two rows a warp
+        (64, 4, 16, "words16"),  # 8 lanes, four rows
+        (32, 4, 16, "words16"),  # 4 lanes, eight rows
+        (32, 8, 16, "words8"),  # heads of 4: 8-byte words
+        (128, 4, 8, "words8"),  # 8-byte aligned values
+        (64, 4, 4, "general"),  # 4-byte aligned values: 4-byte loads of 2 columns
+        (512, 4, 16, "general"),  # past 32 words
+    ],
+)
+def test_softmax_spmm_stream_geometries_match_plain(cuda, width, heads, aligned, kind):
+    """K2's bf16 stream entry in each geometry its rule gives (by width,
+    heads and the values' alignment), on rows of about 20 edges with
+    masked edges inside them and empty rows: against its plain version
+    (the f32 function of the bf16 values), the same bits on a second run,
+    and farther than that tolerance from the f32 mode."""
+    from chip_stream import view_at
+    from graphphysics_torch.ops import csr_attention as ca
+    from graphphysics_torch.ops.csr_segment import alignment
+
+    g, scores, values, mask = _csr_case(1000, 6000, width, heads, seed=width + heads, hi=300, n_pad=1024,
+                                        e_pad=6144)
+    seg, bounds, m = (torch.from_numpy(a).to(cuda) for a in (g.senders, g.sender_bounds, mask.numpy()))
+    s = torch.where(m[:, None], scores.to(cuda), torch.full((), ca.NEG, device=cuda))
+    v = values.to(cuda)
+    s16, v16 = s.to(torch.bfloat16), view_at(v.to(torch.bfloat16), aligned)
+    assert ca.stream_geometry(width, heads, alignment(v16), pair=False).kind == kind
+    out, ml = ca._launch(s16, v16, bounds, m)
+    again, again_ml = ca._launch(s16, v16, bounds, m)
+    assert torch.equal(out, again) and torch.equal(ml, again_ml)
+    want, want_ml = ca.csr_softmax_spmm_reference(s16.float(), v16.float(), seg, g.num_nodes, m)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ml, want_ml, rtol=1e-5, atol=1e-5)
+    f32, _ = ca.csr_softmax_spmm(s, v, seg, bounds, m)
+    assert not torch.allclose(out, f32, rtol=1e-5, atol=1e-5)
+
+
+def test_softmax_spmm_stream_refuses_a_view_its_loads_do_not_take(cuda):
+    """K2's bf16 stream entry returns an error, and the wrapper raises, for
+    values whose alignment neither the word geometries nor the V-column
+    kernel's vector loads take (D = 128, 4 heads, a 4-byte aligned view)."""
+    from chip_stream import view_at
+    from graphphysics_torch.ops import csr_attention as ca
+
+    g, scores, values, mask = _csr_case(128, 500, 128, 4, seed=0, n_pad=128, e_pad=512)
+    bounds = torch.from_numpy(g.sender_bounds).to(cuda)
+    v16 = view_at(values.to(cuda, torch.bfloat16), 4)
+    assert ca.stream_geometry(128, 4, 4, pair=False) is None
+    with pytest.raises(RuntimeError, match="csr_softmax_spmm_bf16_stream kernel launch failed"):
+        ca._launch(scores.to(cuda, torch.bfloat16), v16, bounds, mask.to(cuda))
 
 
 def _grid(t, interleaved):

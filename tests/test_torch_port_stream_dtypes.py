@@ -15,7 +15,7 @@ kernels' plain versions) against the JAX package:
   functions with the stream on (K2 in TPU interpret mode): outputs, ``ml``,
   gradients, that the stream differs from the f32 mode, and the
   ``ValueError`` on an unknown mode.
-- The lane geometries the 16-bit K1 and K5's stream entry choose by width,
+- The lane geometries K1's entries and K5's stream entry choose by width,
   heads and alignment (``segment_sum_geometry``, ``pair_stream_geometry``,
   the CUDA sources' rules mirrored in Python), and ``alignment``.
 
@@ -408,7 +408,7 @@ def test_unknown_stream_dtype_raises_as_jax(fn):
 
 
 # --------------------------------------------------------------------------
-# the lane geometries the 16-bit K1 and K5's stream entry choose by shape and
+# the lane geometries K1's entries and K5's stream entry choose by shape and
 # alignment (the kernels' rules, mirrored in Python for the card's records)
 
 
@@ -423,7 +423,13 @@ def test_unknown_stream_dtype_raises_as_jax(fn):
     (128, torch.bfloat16, 8, ("pairs", 2, 32, 1, 1)),  # a view 8-byte aligned
     (128, torch.float16, 4, ("pairs", 2, 32, 1, 1)),  # 4-byte aligned
     (128, torch.bfloat16, 2, ("columns", 1, 32, 1, 1)),  # 2-byte aligned
-    (128, torch.float32, 16, ("columns", 1, 32, 1, 1)),  # the f32 entry, as before
+    (128, torch.float32, 16, ("words16", 4, 32, 1, 8)),  # the f32 entry: 4 columns a word, a row a warp
+    (64, torch.float32, 16, ("words16", 4, 16, 2, 8)),  # two rows a warp
+    (48, torch.float32, 16, ("words16", 4, 16, 2, 8)),  # 12 words: 16 lanes, four idle
+    (130, torch.float32, 16, ("columns", 1, 32, 1, 1)),  # not a multiple of 4
+    (256, torch.float32, 16, ("words16", 4, 32, 1, 8)),  # 128-column blocks
+    (128, torch.float32, 4, ("columns", 1, 32, 1, 1)),  # a view 4-byte aligned
+    (128, torch.float32, 8, ("columns", 1, 32, 1, 1)),  # 8-byte aligned
 ])
 def test_segment_sum_geometry(width, dtype, aligned, want):
     from graphphysics_torch.ops.csr_segment import segment_sum_geometry
@@ -481,8 +487,10 @@ def test_geometry_rules_follow_the_kernels_constants():
         return int(re.search(rf"constexpr int {name} = (\d+);", (csrc / source).read_text()).group(1))
 
     assert constant("csr_segment_sum.cu", "kWordCols") == cseg.WORD_COLUMNS
+    assert constant("csr_segment_sum.cu", "kF32WordCols") == cseg.F32_WORD_COLUMNS
     assert constant("csr_segment_sum.cu", "kEdgeGroup") == cseg.EDGE_GROUP
     assert constant("csr_softmax_spmm_pair.cu", "kEdgeGroup") == cseg.EDGE_GROUP
+    assert constant("csr_softmax_spmm.cu", "kEdgeGroup") == cseg.EDGE_GROUP
 
 
 # --------------------------------------------------------------------------
