@@ -36,6 +36,18 @@ builds and a digest of each output on the cases' own seeded inputs, so
 two commits' bits can be compared. It calls only functions that a parent
 checkout's scripts have too (``k1_case``, ``k1_16bit_case``,
 ``k2_stream_case``, ``k5_stream_case``), so this script drives either.
+
+    python3 chip_compare.py <checkout root> [label] --k2
+
+times instead that checkout's f32 K2 (``csr_softmax_spmm``, its
+``chip_smoke.k2_case``) at its four shapes: the transformer serving frame
+(from a 2-frame trajectory), the panels batch, the aneurysm graph and part
+0 of the unsplit 4-way cut of the 16,384-node mesh (its
+``unsplit_part0``), seeds as ``chip_smoke.py`` makes them, with the
+seconds of ``csr_softmax_spmm.cu``'s ``nvcc`` build and a digest of each
+output and ``ml`` on the case's own seeded inputs. It calls only
+``k2_case`` and ``unsplit_part0``, which a parent checkout's scripts have
+too.
 """
 import json
 import os
@@ -251,6 +263,41 @@ def stream_kernels(cs, torch) -> dict:
     return out
 
 
+def k2_kernels(cs, torch) -> dict:
+    """The f32 K2 at its four shapes: ms, bound, error, and a digest of
+    each output and ``ml``."""
+    from graphphysics_torch.ops import csr_attention as ca
+    from graphphysics_torch.training import get_preprocessing
+    from graphphysics_torch.utils.synthetic import panels_trajectory
+
+    dev = torch.device("cuda")
+    panels = cs.load_config(cs.PANELS_CONFIG)
+    tf_frame = cs.trajectory_frames(
+        panels_trajectory, 2, panels["index"]["node_type_index"],
+        get_preprocessing(panels, use_edge_feature=False, remove_noise=True), "csr")[0][0]
+    keep = ("ms", "plain_ms", "bound_ms", "max_abs_err", "ml_max_abs_err", "geometry")
+    cases = (("transformer_serving_frame", tf_frame, cs.HIDDEN, 3),  # chip_smoke.py's K2 seeds
+             ("panels_csr_batch_8x2048", cs.panels_batch(200), cs.HIDDEN, 4),
+             ("aneurysm_csr_66560x524288", cs.random_csr_graph(*cs.ANEURYSM, 300), 64, 5),
+             ("mesh_16384_part0_of_4_unsplit", cs.unsplit_part0(601), cs.HIDDEN, 81))
+    out = {}
+    for label, graph, width, seed in cases:
+        record = {k: v for k, v in cs.k2_case(label, graph, width, seed).items() if k in keep}
+        # k2_case's inputs: the same generator, seed and draws
+        seg = torch.as_tensor(graph.senders).to(dev)
+        bounds = torch.as_tensor(graph.sender_bounds).to(dev)
+        mask = torch.as_tensor(graph.edge_mask).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        scores = 3 * torch.randn((seg.shape[0], cs.HEADS), generator=gen, device=dev)
+        scores = torch.where(mask[:, None], scores, torch.full((), ca.NEG, device=dev))
+        values = torch.randn((seg.shape[0], width), generator=gen, device=dev)
+        with torch.no_grad():
+            got, ml = ca.csr_softmax_spmm(scores, values, seg, bounds, mask)
+        out[f"k2_f32_{label}"] = {**record, "bound_share": record["bound_ms"] / record["ms"],
+                                  "digest": _digest(torch, got), "ml_digest": _digest(torch, ml)}
+    return out
+
+
 def main() -> int:
     root = os.path.abspath([a for a in sys.argv[1:] if not a.startswith("--")][0])
     sys.path.insert(0, root)
@@ -267,6 +314,11 @@ def main() -> int:
     host = "--forward-host" in sys.argv
     positional = [a for a in sys.argv[1:] if not a.startswith("--")]
     out = {"tree": positional[1] if len(positional) > 1 else root}
+    if "--k2" in sys.argv:
+        out["nvcc_s"] = _native.build(("csr_softmax_spmm.cu",))
+        out.update(k2_kernels(cs, torch))
+        print("COMPARE " + json.dumps(out), flush=True)
+        return 0
     if "--stream" in sys.argv:
         out["nvcc_s"] = _native.build(STREAM_SOURCES)
         out.update(stream_kernels(cs, torch))

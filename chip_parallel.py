@@ -8,7 +8,7 @@ card; this module starts nothing on import):
   gradients) against the single-process step on the 8 graphs concatenated
   from the same weights (``chip_partition.compare_step``, limits
   ``chip_smoke.STEP_LOSS_RTOL`` and ``EPD_GRAD_RTOL``), then 2 warm-up and
-  5 timed steps with every launch count zeroed just before them (K1 and
+  3 timed steps with every launch count zeroed just before them (K1 and
   K1b, 15 each a step and rank), and a profile of 2 steps on rank 0 (its
   device ms, and the host ms of the collectives, the gradients'
   all-reduce among them);
@@ -24,7 +24,7 @@ card; this module starts nothing on import):
   layout, K5 forward and backward 10 each; each first step against the
   1-D data-parallel step on the unpartitioned meshes (one a rank of the
   2-rank spawn), with ``chip_partition``'s partitioned limits; 2 warm-up
-  and 5 timed steps; the 4 ranks laid out by ``make_hybrid_layout`` (the
+  and 3 timed steps; the 4 ranks laid out by ``make_hybrid_layout`` (the
   data axis across 2 emulated hosts, each graph group inside one), the
   rank grid in the phase's line;
 - ``dp_validation``: on the 2-rank spawn, the EPD Trainer's ``validate``
@@ -49,7 +49,8 @@ import time
 import numpy as np
 import torch
 
-WARMUP, TIMED, PROFILED = 2, 5, 2
+# 3 timed steps, cut from 5 to keep chip_smoke.py inside its time limit
+WARMUP, TIMED, PROFILED = 2, 3, 2
 RANKS, LAYOUT_2D = 2, (2, 2)
 HYBRID_DCN, HYBRID_ICI = (2, 1), (1, 2)  # LAYOUT_2D as make_hybrid_layout factors it
 ANEURYSM_CONFIG = "training_config/coarse-aneurysm.json"

@@ -29,7 +29,12 @@ and the CUDA toolkit. Phases, each of which raises on failure:
    within ``KERNEL_ATOL`` of plain, the same bits twice and across
    geometries) and a hub row of 4,096 unit edges reading exactly 4,096 in
    both; K2 and K3 also at part 0 of the unsplit 4-way cut of the
-   16,384-node mesh, the shape their own path runs;
+   16,384-node mesh, the shape their own path runs. K2's records name the
+   geometry that ran (``softmax_spmm_geometry``), a digest of the output
+   (bit-equal on a second run), the launch floor and the share of the
+   bound; then the f32 K2 in each geometry (``K2_F32_GEOMETRY_CASES`` on
+   the panels batch: within ``SOFTMAX_RTOL``/``ATOL`` of plain, the same
+   bits twice, empty rows exact);
 3. EPD serving: a synthetic cylinder trajectory rolled out by the 15 x 128
    EncodeProcessDecode simulator (random weights from the seed) on the card,
    checked against the same rollout on the CPU, with the launch counts
@@ -169,17 +174,18 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     and ``panels.json`` (15 x 128) on their training batches' 8 graphs as
     the M = 8 microbatches of one ``Trainer(gradient_accumulation=True)``
     step against the concat step from equal weights (loss, each
-    parameter's gradient, the normalizer counters at exactly 1), 20 timed
-    steps of each with the launches checked (one forward and one backward
-    launch a block and microbatch), peak memory under
+    parameter's gradient, the normalizer counters at exactly 1),
+    ``ACCUM_TIMED_STEPS`` timed steps of each with the launches checked
+    (one forward and one backward launch a block and microbatch), peak
+    memory under
     ``ACCUM_PEAK_SHARE`` of the concat step's;
 24. ``ell_pipeline``: ``cylinder.json`` and ``panels.json`` with
     ``"edge_layout": "ell"`` on the synthetic 2,048-node trajectories:
     ``Trainer.fit`` for one epoch with validation, a reload and
     ``predict`` over 3 frames against the CPU, no kernel launched (the
     count asserted), the first ELL step against the CPU and against the
-    model's own layout on the same frames, 20 timed steps of both
-    layouts;
+    model's own layout on the same frames, ``ELL_TIMED_STEPS`` timed
+    steps of both layouts;
 25. ``bucketed_pipeline``: the cylinder EPD on trajectories of three mesh
     sizes (512, 1,536 and 2,048 nodes; the smallest with fewer items than
     a batch) in 2 size buckets, batches of 4: a one-epoch fit with
@@ -204,7 +210,7 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     panels transformer and that transformer in bf16, their eval steps
     exported, saved, loaded and run on the card, 15 launches of K1, the
     fused f32 or the fused bf16 kernel a frame, within 1e-6 of the live
-    step, ms per frame exported and eager; a 4-frame exported EPD rollout
+    step, ms per frame exported and eager; a 2-frame exported EPD rollout
     against the live one), ``checkpoint_backends`` (``orbax`` and
     ``orbax-async`` directories reloaded bit for bit, a resumed step),
     ``profiler`` (3 ``fit`` steps traced with ``profile_dir``, the trace
@@ -215,7 +221,7 @@ and the CUDA toolkit. Phases, each of which raises on failure:
 38-41. data parallelism (``chip_parallel.py``): ``dp_epd_training`` and
     ``dp_transformer_training`` (the 8 x 2,048 batches stacked, 2 ranks of
     ``Trainer(data_parallel=True)`` sharing the card over gloo, 4 graphs a
-    rank, the first step against the single-process step, 5 timed steps
+    rank, the first step against the single-process step, 3 timed steps
     with the launches checked), ``dp_2d_training`` (4 ranks, 2 data rows of
     2 parts: the EPD in halo mode, the aneurysm transformer split-edge,
     each first step against the 1-D data-parallel step on the
@@ -316,6 +322,10 @@ K3_GRAD_RTOL, K3_GRAD_ATOL = 1e-4, 1e-4
 # K2: online vs two-pass softmax in f32, a few ulps per edge of a row
 SOFTMAX_ATOL = 1e-5
 SOFTMAX_RTOL = 1e-5
+# the f32 K2's geometry checks (width, heads): 16-byte words at one, two
+# and four rows a warp (heads of 32, 16 and 4); D / 32 columns a lane
+# (heads of 2; past 128 wide)
+K2_F32_GEOMETRY_CASES = ((128, 4), (128, 8), (64, 4), (32, 8), (32, 16), (256, 4), (512, 8))
 # GPU vs CPU rollout, f32 without TF32, first frames
 ROLLOUT_ATOL = 1e-4
 ROLLOUT_RTOL = 1e-4
@@ -343,7 +353,9 @@ HOST_SAMPLES = 2  # items timed apart: the XDMF read, then the preprocessing
 # trajectories of 12 frames on tet_box(48, 48, 8) and the punch (18,450
 # nodes), held in memory (the card's machine has no h5py). Cut from 20
 # frames, at which the phase took 92 s of the ~60 s it is given, most of
-# it the host building samples (0.22-0.28 s each).
+# it the host building samples (0.22-0.28 s each); at 8 frames the first
+# step's check against the CPU read 1.9e-3 of a bias gradient (its
+# normalizer statistics from 14 items): 12 stay.
 PLATE_CONFIG = "training_config/plate.json"
 PLATE_GRID, PLATE_FRAMES = (48, 8), 12
 PLATE_TRAJECTORIES, PLATE_HELD_OUT = 2, 1
@@ -373,6 +385,10 @@ GMM_SIGMAS = 5.0
 GMM_TIE_FACTOR = 4.0
 GMM_SEED_TRIES = 12
 WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS = 3, 20, 3
+# timed steps of the gradient-accumulation phases (each microbatch step
+# about 5-8 training steps' time) and of the ELL phase's two layouts: fewer
+# than TIMED_STEPS, to keep the script inside its time limit
+ACCUM_TIMED_STEPS, ELL_TIMED_STEPS = 8, 8
 # first training step on the card vs the CPU from equal weights: f32
 # without TF32, 15 blocks deep, sums in another order and atomics in the
 # gathers' (EPD) and the fused attention's (transformer) backward
@@ -957,11 +973,15 @@ def k1_geometry_cases(graph, seed) -> list:
 
 def k2_case(name, graph, width, seed):
     """Hold csr_softmax_spmm against its plain version on one sender-sorted
-    layout, with scores masked as csr_sparse_attention masks them."""
+    layout, with scores masked as csr_sparse_attention masks them; the
+    record names the geometry that ran and a digest of the output (the
+    same bits on a second run)."""
+    from chip_stream import digest
     from graphphysics_torch.ops.csr_attention import (
         NEG,
         csr_softmax_spmm,
         csr_softmax_spmm_reference,
+        softmax_spmm_geometry,
     )
 
     dev = torch.device("cuda")
@@ -976,8 +996,11 @@ def k2_case(name, graph, width, seed):
 
     with torch.no_grad():
         out, ml = csr_softmax_spmm(scores, values, seg, bounds, mask)
+        again, again_ml = csr_softmax_spmm(scores, values, seg, bounds, mask)
         want_out, want_ml = csr_softmax_spmm_reference(scores, values, seg, n, mask)
         torch.cuda.synchronize()
+        if not (torch.equal(out, again) and torch.equal(ml, again_ml)):
+            raise AssertionError(f"{name}: K2 not bit-equal on a second run")
         err = (out - want_out).abs().max().item()
         ml_err = (ml - want_ml).abs().max().item()
         for got, want, what in ((out, want_out, "out"), (ml, want_ml, "ml")):
@@ -1017,6 +1040,10 @@ def k2_case(name, graph, width, seed):
         "max_abs_err": err,
         "ml_max_abs_err": ml_err,
         "tolerance": {"rtol": SOFTMAX_RTOL, "atol": SOFTMAX_ATOL},
+        "geometry": softmax_spmm_geometry(width, h)._asdict(),
+        "digest": digest(out),
+        "ml_digest": digest(ml),
+        "bit_equal_twice": True,
         "ms": kernel_t,
         "plain_ms": plain_t,
         "library_ms": None,
@@ -1027,6 +1054,51 @@ def k2_case(name, graph, width, seed):
         "operations": ops,
         "input_copies": copies,
     }
+
+
+def k2_f32_geometry_cases(graph, seed) -> list:
+    """The f32 K2 in each geometry its rule gives (``K2_F32_GEOMETRY_CASES``)
+    on one sender-sorted layout, scores masked as ``k2_case`` masks them:
+    each within ``SOFTMAX_RTOL``/``ATOL`` of its plain version, the same
+    bits twice, and its rows without a live edge exactly out = 0,
+    m = -1e30, l = 0."""
+    from chip_stream import digest
+    from graphphysics_torch.ops import csr_attention as ca
+
+    dev = torch.device("cuda")
+    seg = torch.as_tensor(graph.senders).to(dev)
+    bounds = torch.as_tensor(graph.sender_bounds).to(dev)
+    mask = torch.as_tensor(graph.edge_mask).to(dev)
+    n, e = bounds.shape[1], seg.shape[0]
+    tol = {"rtol": SOFTMAX_RTOL, "atol": SOFTMAX_ATOL}
+    records = []
+    for i, (width, heads) in enumerate(K2_F32_GEOMETRY_CASES):
+        gen = torch.Generator(device=dev).manual_seed(seed + i)
+        scores = torch.where(mask[:, None], 3 * torch.randn((e, heads), generator=gen, device=dev),
+                             torch.full((), ca.NEG, device=dev))
+        values = torch.randn((e, width), generator=gen, device=dev)
+        with torch.no_grad():
+            out, ml = ca.csr_softmax_spmm(scores, values, seg, bounds, mask)
+            again, again_ml = ca.csr_softmax_spmm(scores, values, seg, bounds, mask)
+            want_out, want_ml = ca.csr_softmax_spmm_reference(scores, values, seg, n, mask)
+            torch.cuda.synchronize()
+        geometry = ca.softmax_spmm_geometry(width, heads)
+        label = f"width {width}, {heads} heads, {geometry.kind}"
+        errs = [(out - want_out).abs().max().item(), (ml - want_ml).abs().max().item()]
+        if not (torch.equal(out, again) and torch.equal(ml, again_ml)):
+            raise AssertionError(f"f32 K2 at {label}: not bit-equal on a second run")
+        if not (torch.isfinite(out).all() and torch.allclose(out, want_out, **tol)
+                and torch.allclose(ml, want_ml, **tol)):
+            raise AssertionError(f"f32 K2 at {label} vs plain out/ml max_abs_err {errs}")
+        empty = (want_ml[heads:] == 0).all(dim=0)
+        if not (bool((out[empty] == 0).all()) and bool((ml[:heads, empty] == ca.NEG).all())
+                and bool((ml[heads:, empty] == 0).all())):
+            raise AssertionError(f"f32 K2 at {label}: a row without a live edge is not out 0, m -1e30, l 0")
+        records.append({"entry": "csr_softmax_spmm_f32", "width": width, "heads": heads,
+                        "geometry": geometry._asdict(), "max_abs_err": max(errs), "out_ml_max_abs_err": errs,
+                        "tolerance": tol, "bit_equal_twice": True, "empty_rows": int(empty.sum().item()),
+                        "digest": digest(out)})
+    return records
 
 
 def unsplit_part0(seed):
@@ -2878,11 +2950,11 @@ def grad_accum(name, param, graphs, counts, expected, seed, grad_rtol):
     ``STEP_LOSS_RTOL``, each parameter's gradient within ``grad_rtol``
     (the round-off-only key biases held apart, ReLU inputs of another sign
     counted, as ``first_step``), every normalizer's counter at exactly 1.
-    Then each trainer's 3 warm-up and 20 timed steps, launches counted
-    (``expected``: per block and graph batch; the microbatch step launches
-    it once per microbatch) and peak memory above what the card held when
-    the phase began; the microbatch step's peak must stay under
-    ``ACCUM_PEAK_SHARE`` of the concat step's."""
+    Then each trainer's 3 warm-up and ``ACCUM_TIMED_STEPS`` timed steps,
+    launches counted (``expected``: per block and graph batch; the
+    microbatch step launches it once per microbatch) and peak memory above
+    what the card held when the phase began; the microbatch step's peak
+    must stay under ``ACCUM_PEAK_SHARE`` of the concat step's."""
     from graphphysics_torch.core import concat_graphs, stack_graphs
     from graphphysics_torch.models.simulator import Normalizer
     from graphphysics_torch.training import Trainer
@@ -2896,7 +2968,7 @@ def grad_accum(name, param, graphs, counts, expected, seed, grad_rtol):
     for accumulate in (False, True):
         trainer = Trainer(param, learning_rate=1e-4, warmup=10, seed=seed, device="cuda",
                           gradient_accumulation=accumulate)
-        trainer.init_state(1 + WARMUP_STEPS + TIMED_STEPS)
+        trainer.init_state(1 + WARMUP_STEPS + ACCUM_TIMED_STEPS)
         batch, signs = batches[accumulate], []
         hooks = relu_sign_hooks(trainer.sim, signs)
         loss = trainer.train_step(batch).item()
@@ -2911,19 +2983,19 @@ def grad_accum(name, param, graphs, counts, expected, seed, grad_rtol):
         for fn in counts.values():
             fn.launches = 0
         t0 = time.perf_counter()
-        losses = [trainer.train_step(batch) for _ in range(TIMED_STEPS)]
+        losses = [trainer.train_step(batch) for _ in range(ACCUM_TIMED_STEPS)]
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in counts.items()}
         per = m if accumulate else 1
-        want = {k: expected.get(k, 0) * per * TIMED_STEPS for k in counts}
+        want = {k: expected.get(k, 0) * per * ACCUM_TIMED_STEPS for k in counts}
         if launches != want:
             raise AssertionError(f"{name}: accumulate={accumulate} launches {launches}, expected {want}")
         losses = [x.item() for x in losses]
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"{name}: non-finite loss {losses}")
         runs[accumulate] = {"loss": loss, "grads": grads, "signs": signs, "counters": counters,
-                            "ms_per_step": seconds / TIMED_STEPS * 1e3,
+                            "ms_per_step": seconds / ACCUM_TIMED_STEPS * 1e3,
                             "peak_memory_gb": (torch.cuda.max_memory_allocated() - floor) / 2**30,
                             "launches": launches, "first_loss": losses[0], "last_loss": losses[-1]}
         del trainer
@@ -2956,10 +3028,10 @@ def grad_accum(name, param, graphs, counts, expected, seed, grad_rtol):
                       "roundoff_share": STEP_ROUNDOFF_SHARE, "peak_share": ACCUM_PEAK_SHARE},
         "ms_per_step": micro["ms_per_step"], "concat_ms_per_step": concat["ms_per_step"],
         "peak_memory_gb": micro["peak_memory_gb"], "concat_peak_memory_gb": concat["peak_memory_gb"],
-        "peak_memory_ratio": ratio, "held_before_gb": floor / 2**30, "steps_timed": TIMED_STEPS,
+        "peak_memory_ratio": ratio, "held_before_gb": floor / 2**30, "steps_timed": ACCUM_TIMED_STEPS,
         "launches": micro["launches"],
-        "launches_per_step": {k: v / TIMED_STEPS for k, v in micro["launches"].items()},
-        "concat_launches_per_step": {k: v / TIMED_STEPS for k, v in concat["launches"].items()},
+        "launches_per_step": {k: v / ACCUM_TIMED_STEPS for k, v in micro["launches"].items()},
+        "concat_launches_per_step": {k: v / ACCUM_TIMED_STEPS for k, v in concat["launches"].items()},
         "first_loss": micro["first_loss"], "last_loss": micro["last_loss"],
     }
     if not (math.isfinite(micro["loss"]) and loss_err <= STEP_LOSS_RTOL and rel[worst] <= grad_rtol
@@ -2981,14 +3053,14 @@ def with_dataset(param, **dataset):
 
 
 def timed_steps(name, param, batch, counts, expected, seed, stats):
-    """``WARMUP_STEPS`` then ``TIMED_STEPS`` ``Trainer`` steps of ``param``
+    """``WARMUP_STEPS`` then ``ELL_TIMED_STEPS`` ``Trainer`` steps of ``param``
     on ``batch`` on the card (normalizer statistics ``stats``), launches
     counted from 0 and checked against ``expected`` per step. Returns the
     ms per step and the launches."""
     from graphphysics_torch.training import Trainer
 
     trainer = Trainer(param, learning_rate=1e-4, warmup=10, seed=seed, device="cuda")
-    trainer.init_state(WARMUP_STEPS + TIMED_STEPS)
+    trainer.init_state(WARMUP_STEPS + ELL_TIMED_STEPS)
     trainer.sim.load_state_dict(stats, strict=False)
     dev_batch = batch.to("cuda")
     for _ in range(WARMUP_STEPS):
@@ -2997,11 +3069,11 @@ def timed_steps(name, param, batch, counts, expected, seed, stats):
     for fn in counts.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    losses = [trainer.train_step(dev_batch) for _ in range(TIMED_STEPS)]
+    losses = [trainer.train_step(dev_batch) for _ in range(ELL_TIMED_STEPS)]
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+    ms = (time.perf_counter() - t0) / ELL_TIMED_STEPS * 1e3
     launches = {k: fn.launches for k, fn in counts.items()}
-    want = {k: expected.get(k, 0) * TIMED_STEPS for k in counts}
+    want = {k: expected.get(k, 0) * ELL_TIMED_STEPS for k in counts}
     if launches != want or not all(math.isfinite(x.item()) for x in losses):
         raise AssertionError(f"{name}: launches {launches} (expected {want}), losses {losses}")
     return ms, launches
@@ -3056,7 +3128,7 @@ def ell_pipeline(name, param, make_traj, counts, own_expected, seed, grad_rtol):
     dense PyTorch ops on every device). Then the first ELL step on the card
     against the CPU (``first_step``, from the fit's normalizer statistics),
     the same step against the model's own layout (sorted or CSR, its
-    kernels) on the same frames (``compare_steps``), and ``TIMED_STEPS`` steps of each layout
+    kernels) on the same frames (``compare_steps``), and ``ELL_TIMED_STEPS`` steps of each layout
     timed (``own_expected``: the kernels' launches per step)."""
     import tempfile
 
@@ -3111,7 +3183,7 @@ def ell_pipeline(name, param, make_traj, counts, own_expected, seed, grad_rtol):
         "fit_s": fit_s, "train_loss": history["train_loss"], "val_rmse": history["val_rmse"],
         "predict_frames": PREDICT_FRAMES, "predict_ms_per_frame": predict_ms, **check, **first, **layout,
         "launches": launches, "timed_launches": ell_launches,
-        "ms_per_step": ell_ms, "own_layout_ms_per_step": own_ms, "steps_timed": TIMED_STEPS,
+        "ms_per_step": ell_ms, "own_layout_ms_per_step": own_ms, "steps_timed": ELL_TIMED_STEPS,
     }
 
 
@@ -3762,7 +3834,12 @@ def main() -> int:
         k2_case("mesh_16384_part0_of_4_unsplit", mesh_part, HIDDEN, args.seed + 81),
     ]
     for s in k2_shapes:
+        s["launch_floor_ms"] = floor
+        s["bound_share"] = s["bound_ms"] / s["ms"]
+        s["bound_share_above_floor"] = s["bound_ms"] / max(s["ms"] - floor, 1e-9)
         clock.emit({"phase": "kernel", "name": "csr_softmax_spmm", **s})
+    for record in k2_f32_geometry_cases(tf_batch, args.seed + 83):
+        clock.emit({"phase": "kernel", "name": "geometry", **record})
     k1b_shapes = [
         k1b_case("serving_frame", epd_frames[0], args.seed + 6),
         k1b_case("flagship_batch_8x2048", cyl_batch, args.seed + 7),
@@ -4053,7 +4130,7 @@ def main() -> int:
               "graphphysics_tpu/ops/pallas_attention.py:255", launched["csr_softmax_spmm"],
               k2_shapes, {"rtol": SOFTMAX_RTOL, "atol": SOFTMAX_ATOL}, **partitioned,
               launches_by_path=by_path["csr_softmax_spmm"], kernel_phase_launches=phase_launches[
-                  "csr_softmax_spmm"]),
+                  "csr_softmax_spmm"], launch_floor_ms=floor),
         entry("csr_softmax_spmm_backward", "graphphysics_torch/csrc/csr_softmax_spmm_bwd.cu",
               "graphphysics_tpu/ops/pallas_attention.py:398", launched["csr_softmax_spmm_backward"],
               k3_shapes, {"rtol": K3_RTOL, "atol": K3_ATOL}, **partitioned,

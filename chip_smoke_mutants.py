@@ -32,7 +32,11 @@ K2's stream against its plain version and its geometry cases; a fault in
 the f32 K1's 16-byte words (each window's last edge dropped, a lane reading
 its neighbour's word) moves the kernel phase's check against the plain
 version (``KERNEL_ATOL``) and the f32 geometry cases (the same bits in words
-and single columns, the 4,096-edge hub row).
+and single columns, the 4,096-edge hub row); a fault in the f32 K2's
+16-byte words (a lane reading its neighbour's word, each window's last
+live edge dropped) moves K2's kernel-phase check against its plain version
+(``SOFTMAX_RTOL``/``ATOL``) at the panels batch and at part 0 of the
+unsplit mesh cut, and its geometry cases.
 
 For each fault the tree is copied to a temporary directory, one line of a
 source is replaced there, the kernels are built from the copy and the check
@@ -47,10 +51,11 @@ one CUDA card:
 
     python3 chip_smoke_mutants.py [name prefix]
 
-A name prefix (``k1b``, ``k1f32``, ``attn``, ``width``, ``resume``,
-``bf16``, ``microbatch``, ``ell``, ``stream``) runs those faults only. K2's
-and K3's faults are caught by their kernel phases against their plain
-versions: no path of the models runs them.
+A name prefix (``k1b``, ``k1f32``, ``k2f32``, ``attn``, ``width``,
+``resume``, ``bf16``, ``microbatch``, ``ell``, ``stream``) runs those
+faults only. K2's and K3's faults are caught by their kernel phases
+against their plain versions: no path of the unpartitioned models runs
+them.
 """
 
 import json
@@ -82,6 +87,7 @@ K1_F32_LOAD = "w[u] = *reinterpret_cast<const uint4*>(data + e * width + col);"
 K2 = "graphphysics_torch/csrc/csr_softmax_spmm.cu"
 K2_WORD = "w[u] = *reinterpret_cast<const Word*>(values + e * width + col0);"
 K2_SLOT = "if (!live[u]) continue;"
+K2_F32_STEP = "if (live[u]) {"
 K5 = "graphphysics_torch/csrc/csr_softmax_spmm_pair.cu"
 K5_WORD = "w[u] = *reinterpret_cast<const Word*>((in_a ? a.values : b.values) + e * width + col0);"
 K5_SLOT = "if (!live[u]) continue;"
@@ -153,8 +159,17 @@ FAULTS = {
     # word of each edge's values
     "stream_k2_reads_neighbour_word": ("stream", K2, K2_WORD, K2_WORD.replace("col0);", "(col0 ^ W));")),
     # K2's bf16 stream, word geometries: each row's last edge slot is
-    # dropped from the softmax
+    # dropped from the softmax (the f32 words keep it)
     "stream_k2_drops_last_slot": ("stream", K2, K2_SLOT, "if (!live[u] || e0 + u + 1 == end) continue;"),
+    # the f32 K2's 16-byte words: a lane reads its neighbour lane's word of
+    # each edge's values (the bf16 stream's words keep theirs)
+    "k2f32_reads_neighbour_word": ("k2f32", K2, K2_WORD, K2_WORD.replace(
+        "col0);", "(sizeof(T) == 4 ? col0 ^ W : col0));")),
+    # the f32 K2's 16-byte words: each window's last live edge takes no
+    # online step
+    "k2f32_drops_window_last_live_edge": ("k2f32", K2, K2_F32_STEP, (
+        "if (live[u] && [&] { for (int k = u + 1; k < kEdgeGroup; ++k) if (live[k]) return true; "
+        "return false; }()) {")),
     # the fused bf16 stream entry skips its score rounding: the bf16 entry's
     # function again
     "stream_fused_skips_score_rounding": ("stream", BF16_FWD, BF16_SCORE_ROUND, BF16_SCORE_ROUND.replace(
@@ -261,6 +276,47 @@ def read_k1f32_fault(name: str) -> dict:
         out[f"plain_max_abs_err_{label}"] = cs.k1_case(label, graph, seed)["max_abs_err"]
     try:
         cs.k1_geometry_cases(cs.flagship_batch(0), 80)
+        out["geometry_cases"] = "passed"
+    except AssertionError as err:
+        out["geometry_cases_caught_by"] = str(err)[:300]
+    return out
+
+
+def read_k2f32_fault(name: str) -> dict:
+    """The f32 K2's kernel-phase check with ``SOFTMAX_RTOL``/``ATOL``
+    lifted: the error against the plain version at the panels batch and at
+    part 0 of the unsplit mesh cut, and the share of outputs outside the
+    limits; then the geometry cases at the limits, a fault they catch
+    reported by its message."""
+    import torch
+
+    import chip_smoke as cs
+
+    tol = {"rtol": cs.SOFTMAX_RTOL, "atol": cs.SOFTMAX_ATOL}
+    cs.SOFTMAX_RTOL = cs.SOFTMAX_ATOL = math.inf
+    out = {"fault": name}
+    for label, graph, seed in (("panels_csr_batch_8x2048", cs.panels_batch(200), 4),
+                               ("mesh_16384_part0_of_4_unsplit", cs.unsplit_part0(601), 81)):
+        record = cs.k2_case(label, graph, cs.HIDDEN, seed)
+        out[f"plain_max_abs_err_{label}"] = record["max_abs_err"]
+        out[f"plain_ml_max_abs_err_{label}"] = record["ml_max_abs_err"]
+        out[f"geometry_{label}"] = record["geometry"]["kind"]
+        # the share of outputs outside the limits, on k2_case's inputs
+        from graphphysics_torch.ops import csr_attention as ca
+
+        seg, bounds, mask = (torch.as_tensor(a).to("cuda") for a in (graph.senders, graph.sender_bounds,
+                                                                     graph.edge_mask))
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        scores = torch.where(mask[:, None], 3 * torch.randn((seg.shape[0], cs.HEADS), generator=gen,
+                                                            device="cuda"), torch.full((), ca.NEG, device="cuda"))
+        values = torch.randn((seg.shape[0], cs.HIDDEN), generator=gen, device="cuda")
+        with torch.no_grad():
+            got, _ = ca.csr_softmax_spmm(scores, values, seg, bounds, mask)
+            want, _ = ca.csr_softmax_spmm_reference(scores, values, seg, bounds.shape[1], mask)
+        out[f"plain_share_outside_tolerance_{label}"] = (~torch.isclose(got, want, **tol)).float().mean().item()
+    cs.SOFTMAX_RTOL, cs.SOFTMAX_ATOL = tol["rtol"], tol["atol"]
+    try:
+        cs.k2_f32_geometry_cases(cs.panels_batch(200), 83)
         out["geometry_cases"] = "passed"
     except AssertionError as err:
         out["geometry_cases_caught_by"] = str(err)[:300]
@@ -376,6 +432,8 @@ def read_fault(model: str, name: str) -> dict:
         return read_stream_fault(name)
     if model == "k1f32":
         return read_k1f32_fault(name)
+    if model == "k2f32":
+        return read_k2f32_fault(name)
     cs.STEP_LOSS_RTOL = cs.STEP_ROUNDOFF_SHARE = math.inf
     total_steps = 1 + cs.WARMUP_STEPS + cs.TIMED_STEPS + cs.PROFILED_STEPS
     if model.startswith("bf16transformer"):

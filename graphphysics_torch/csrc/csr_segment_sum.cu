@@ -69,6 +69,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "words.cuh"
+
 namespace {
 
 constexpr int kLanes = 32;        // lanes (column groups) per warp
@@ -197,15 +199,17 @@ __device__ __forceinline__ uint32_t pair_bits<__half>(float a, float b) {
   return bits;
 }
 
-// adds the columns of the word w (4 f32, or 8 16-bit ones widened to f32)
-// to acc
+// adds the columns of the word w (4 f32, unpacked as K2's f32 words are:
+// words.cuh; or 8 16-bit ones widened to f32) to acc
 template <typename T>
 __device__ __forceinline__ void add_word(const uint4& w, float (&acc)[word_cols<T>()]) {
-  const uint32_t bits[4] = {w.x, w.y, w.z, w.w};
   if constexpr (sizeof(T) == 4) {
+    float v[kF32WordCols];
+    unpack_word<float, kF32WordCols>(w, v);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[i] += __uint_as_float(bits[i]);
+    for (int i = 0; i < kF32WordCols; ++i) acc[i] += v[i];
   } else {
+    const uint32_t bits[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float2 f = bits_f32<T>(bits[i]);

@@ -27,19 +27,46 @@
 //   + N*(4D + 8H + 8)  out, ml, the two bounds
 // (the per-edge segment ids are not read: the ranges carry them).
 //
-// Design. One warp owns one output row, so there are no atomics, nothing is
-// shared between warps, and the sum runs in a fixed order (deterministic).
-// Each lane owns V = D/32 contiguous columns, all inside one head (the
-// wrapper requires head_dim % V == 0), and loads them as one 16- or 8-byte
-// vector where V allows, so a warp reads each value row as one contiguous
-// D*4-byte span. The warp walks its row's edges once with the online
-// softmax: per edge, m' = max(m, s), acc = acc*exp(m - m') + exp(s - m')*v,
-// l = l*exp(m - m') + exp(s - m'). Masked edges are skipped. The first lane
-// of each head writes that head's m and l. The models' attention does not
-// run this kernel: csr_attention.cu fuses the q/k/v gathers and the
-// per-edge dot products into the same loop, with several rows per warp and
-// the next edge's rows prefetched. This one stays for callers that hand in
-// their own scores, as split-edge partitioned attention will.
+// Design. One warp or lane group owns one output row, so there are no
+// atomics, nothing is shared between rows, and every sum runs in a fixed
+// order (deterministic). Two geometries, chosen before the launch by width
+// and heads (the rule of ops/csr_attention.py softmax_spmm_geometry):
+// - 16-byte words, where a head's width is a multiple of 4 and D <= 128:
+//   a lane owns 4 adjacent f32 columns of one head, read as one 16-byte
+//   word an edge (words.cuh, as K1's f32 words), and reads its head's
+//   score once an edge (all lanes of a head the same address). A row takes
+//   L = D / 4 lanes (rounded up to a power of two), so a warp serves 32 / L
+//   rows: one at D = 128, two at 64, four at 32. A lane walks its row's
+//   range in windows of kEdgeGroup edges: it starts the loads of the
+//   window's mask bytes, scores and words together, without a branch (a
+//   slot past the row's end reads the row's last edge and adds nothing;
+//   guarded loads took 96 registers and were 5-7% slower on an H100),
+//   then takes each slot's online step in edge order and keeps the live
+//   slots' results, so no exponential waits on a branch, where the
+//   V-column kernel below chains each edge's score and value loads on the
+//   edge before. The step is the V-column kernel's (online_step), so each
+//   column's arithmetic and the outputs are the same bits as that
+//   kernel's. The bf16 stream's order (a window's maximum first, one
+//   exponential a live edge and one a window) rounds otherwise: with it,
+//   the unsplit partitioned transformer's first step read 6.5e-4 of a
+//   gradient against the split-edge step (K5, an online step an edge),
+//   over the 1e-4 it is held to, ReLU inputs within round-off of 0
+//   flipping. A 64-register cap (80 are used), so that part 0's 4,096
+//   row warps fit the card at once, spilled and was 16-21% slower.
+// - V columns, every other width (D = 256 and 512; heads whose width is not
+//   a multiple of 4, as D = 32 in 16 heads of 2): the first design, one
+//   warp a row, each lane V = D/32 contiguous columns inside one head (the
+//   wrapper requires head_dim % V == 0), loaded as one 16- or 8-byte vector
+//   where V allows, so a warp reads each value row as one contiguous
+//   D*4-byte span; the warp walks its row's edges once with the online
+//   softmax: per edge, m' = max(m, s), acc = acc*exp(m - m') + exp(s - m')*v,
+//   l = l*exp(m - m') + exp(s - m'). Masked edges are skipped.
+// The first lane of each head writes that head's m and l. The models'
+// attention does not run this entry: csr_attention.cu fuses the q/k/v
+// gathers and the per-edge dot products into the same loop. The unsplit
+// partitioned attention runs it, on each part's scores and values
+// segmented by the part's receivers (ops/attention.py); split-edge
+// partitioned attention runs K5 (csr_softmax_spmm_pair.cu).
 //
 // stream_dtype="bf16" (entry csr_softmax_spmm_bf16_stream). The TPU kernel's
 // second mode packs the scores and values in bf16 and computes in f32 from
@@ -50,38 +77,30 @@
 // each element to f32, and does every sum, exponential and the (m, l) in
 // f32; out and ml stay f32. Its bytes are
 //   E*(2H + 2D + 1) + N*(4D + 8H + 8).
-// A warp reading one row's edges one at a time keeps one 256-byte span in
-// flight and chains each edge's score load, exponentials and value load
-// on the edge before, so the entry takes K5's bf16 word geometries
-// (csr_softmax_spmm_pair.cu, pair_forward_words) on its one edge set,
-// chosen before the launch by width, heads and alignment (the rule of
-// ops/csr_attention.py stream_geometry):
+// It takes K5's bf16 word geometries (csr_softmax_spmm_pair.cu,
+// pair_forward_words) on its one edge set, the window loop above with
+// bf16 words, chosen before the launch by width, heads and alignment (the
+// rule of ops/csr_attention.py stream_geometry):
 // - 16-byte words, where a head's width is a multiple of 8, D <= 256 and
 //   values and out are 16-byte aligned: a lane owns 8 adjacent columns of
 //   one head, read as one 16-byte word, and reads one bf16 score an edge.
-//   A row takes L = D / 8 lanes (rounded up to a power of two), so a warp
-//   serves 32 / L rows: two at D = 128, four at D = 64. A lane walks its
-//   row's range in windows of kEdgeGroup edges: it starts the loads of the
-//   window's mask bytes, scores and words together, without a branch (a
-//   slot past the row's end reads the row's last edge and adds nothing:
-//   2.6-10.6% faster than guarded loads in trial builds on an H100), then
-//   takes the window's maximum, rescales l and its sums once, and adds the
-//   live edges' weights and weighted values in edge order: one
-//   exponential a live edge and one a window, none waiting on the one
-//   before. A warp at D = 128 keeps 2 x 16 x 8 words of 16 bytes in
-//   flight.
+//   A row takes L = D / 8 lanes (rounded up to a power of two): two rows a
+//   warp at D = 128, four at D = 64. Branch-free window loads were 2.6-10.6%
+//   faster than guarded ones in trial builds on an H100. A warp at
+//   D = 128 keeps 2 x 16 x 8 words of 16 bytes in flight.
 // - 8-byte words, where a head's width is a multiple of 4, D <= 128 and the
 //   values 8-byte aligned (D = 32 with 8 heads of 4): the same with 4
 //   columns a lane.
-// - the kernel above on bf16 rows for every other width and view (D = 512,
-//   heads narrower than 4, values only 4-byte aligned): V = D/32 columns a
-//   lane, V/8 16-byte loads where V allows, one edge at a time. Its vector
-//   loads need the values aligned to their size (2 min(8, V & -V) bytes):
-//   a view that is not returns cudaErrorMisalignedAddress.
+// - the V-column kernel on bf16 rows for every other width and view
+//   (D = 512, heads narrower than 4, values only 4-byte aligned): V/8
+//   16-byte loads where V allows, one edge at a time. Its vector loads need
+//   the values aligned to their size (2 min(8, V & -V) bytes): a view that
+//   is not returns cudaErrorMisalignedAddress.
 // Each keeps the invariants above: one warp or lane group owns a row, no
 // atomics, every sum in a fixed order, so two runs give the same bits; an
-// empty row keeps m = -1e30, l = 0 and out = 0. Its backward is the f32 one
-// (csr_softmax_spmm_bwd.cu) on the unrounded inputs with this pass's ml
+// empty row, or one whose edges are all masked, keeps m = -1e30, l = 0 and
+// out = 0. The backward of both entries is the f32 one
+// (csr_softmax_spmm_bwd.cu), on the unrounded inputs with this pass's ml
 // and out, as JAX's `_fwd` saves them.
 
 #include <cuda_bf16.h>
@@ -89,7 +108,7 @@
 #include <stdint.h>
 #include <string.h>
 
-#include "bf16_words.cuh"
+#include "words.cuh"
 
 namespace {
 
@@ -97,8 +116,9 @@ constexpr int kLanes = 32;
 constexpr int kRowsPerBlock = 4;  // warps (rows) per block
 constexpr float kNeg = -1e30f;    // finite -inf stand-in, as the TPU kernel
 constexpr float kEps = 1e-16f;    // the epsilon of segment_softmax
-constexpr int kEdgeGroup = 8;     // edges a lane has in flight (bf16 stream word geometries)
-constexpr int kWordWarps = 4;     // warps per block (bf16 stream word geometries)
+constexpr int kEdgeGroup = 8;     // edges a lane has in flight (word geometries)
+constexpr int kWordWarps = 4;     // warps per block (word geometries)
+constexpr int kF32WordCols = 4;   // f32 columns in a 16-byte word
 
 template <int V>
 __device__ __forceinline__ void load_cols(const float* __restrict__ p, float (&v)[V]) {
@@ -167,6 +187,20 @@ __device__ __forceinline__ void load_cols(const __nv_bfloat16* __restrict__ p, f
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
+// One edge of the online softmax, score s and the N columns v:
+// m' = max(m, s), l = l*exp(m - m') + exp(s - m'),
+// acc = acc*exp(m - m') + exp(s - m')*v.
+template <int N>
+__device__ __forceinline__ void online_step(float& m, float& l, float (&acc)[N], float s, const float (&v)[N]) {
+  const float m_new = fmaxf(m, s);
+  const float alpha = expf(m - m_new);
+  const float p = expf(s - m_new);
+  l = l * alpha + p;
+#pragma unroll
+  for (int c = 0; c < N; ++c) acc[c] = acc[c] * alpha + p * v[c];
+  m = m_new;
+}
+
 template <int V, typename T>
 __global__ void csr_softmax_spmm_kernel(const T* __restrict__ scores,
                                         const T* __restrict__ values,
@@ -197,13 +231,7 @@ __global__ void csr_softmax_spmm_kernel(const T* __restrict__ scores,
     const float s = to_f32(scores[e * num_heads + head]);
     float v[V];
     load_cols<V>(values + e * width + col0, v);
-    const float m_new = fmaxf(m, s);
-    const float alpha = expf(m - m_new);
-    const float p = expf(s - m_new);
-    l = l * alpha + p;
-#pragma unroll
-    for (int c = 0; c < V; ++c) acc[c] = acc[c] * alpha + p * v[c];
-    m = m_new;
+    online_step<V>(m, l, acc, s, v);
   }
   float* o = out + row * width + col0;
 #pragma unroll
@@ -214,19 +242,17 @@ __global__ void csr_softmax_spmm_kernel(const T* __restrict__ scores,
   }
 }
 
-// ---- the bf16 stream's word geometries: W = 8 (16-byte words) or 4
-// (8-byte words) adjacent bf16 columns of one head a lane (WordOf,
-// unpack_word: bf16_words.cuh), `lanes` lanes a row (a power of two),
-// 32 / lanes rows a warp.
+// ---- the word geometries: W adjacent columns of T of one head a lane, read
+// as one word (WordOf, unpack_word: words.cuh): f32 W = 4 (16-byte words),
+// bf16 W = 8 (16-byte) or 4 (8-byte words); `lanes` lanes a row (a power of
+// two), 32 / lanes rows a warp.
 
-template <int W>
-__global__ void stream_forward_words(const __nv_bfloat16* __restrict__ scores,
-                                     const __nv_bfloat16* __restrict__ values,
-                                     const int32_t* __restrict__ bounds,
-                                     const uint8_t* __restrict__ mask, float* __restrict__ out,
-                                     float* __restrict__ ml, int64_t num_rows, int64_t num_edges,
-                                     int width, int num_heads, int lanes) {
-  using Word = typename WordOf<W>::type;
+template <typename T, int W>
+__global__ void forward_words(const T* __restrict__ scores, const T* __restrict__ values,
+                              const int32_t* __restrict__ bounds, const uint8_t* __restrict__ mask,
+                              float* __restrict__ out, float* __restrict__ ml, int64_t num_rows,
+                              int64_t num_edges, int width, int num_heads, int lanes) {
+  using Word = typename WordOf<T, W>::type;
   const int slot = threadIdx.x / lanes;
   const int sub = threadIdx.x % lanes;
   const int64_t row = (static_cast<int64_t>(blockIdx.x) * kWordWarps + threadIdx.y) * (kLanes / lanes) + slot;
@@ -249,29 +275,50 @@ __global__ void stream_forward_words(const __nv_bfloat16* __restrict__ scores,
     for (int u = 0; u < kEdgeGroup; ++u) {
       const int64_t e = e0 + u < end ? e0 + u : end - 1;  // past the row: its last edge, not added
       live[u] = e0 + u < end && (mask == nullptr || mask[e] != 0);
-      x[u] = __bfloat162float(scores[e * num_heads + head]);
+      x[u] = to_f32(scores[e * num_heads + head]);
       w[u] = *reinterpret_cast<const Word*>(values + e * width + col0);
     }
-    float m_new = m;
+    if constexpr (sizeof(T) == 4) {
+      // f32: the online step an edge, in edge order, as the V-column kernel;
+      // taken for every slot and kept for the live ones, so no slot's
+      // exponentials wait on a branch
 #pragma unroll
-    for (int u = 0; u < kEdgeGroup; ++u) {
-      if (live[u]) m_new = fmaxf(m_new, x[u]);
+      for (int u = 0; u < kEdgeGroup; ++u) {
+        float v[W], m1 = m, l1 = l, a1[W];
+        unpack_word<T, W>(w[u], v);
+#pragma unroll
+        for (int c = 0; c < W; ++c) a1[c] = acc[c];
+        online_step<W>(m1, l1, a1, x[u], v);
+        if (live[u]) {
+          m = m1;
+          l = l1;
+#pragma unroll
+          for (int c = 0; c < W; ++c) acc[c] = a1[c];
+        }
+      }
+    } else {
+      // bf16 stream: the window's maximum first, one rescale a window
+      float m_new = m;
+#pragma unroll
+      for (int u = 0; u < kEdgeGroup; ++u) {
+        if (live[u]) m_new = fmaxf(m_new, x[u]);
+      }
+      const float alpha = expf(m - m_new);
+      l *= alpha;
+#pragma unroll
+      for (int c = 0; c < W; ++c) acc[c] *= alpha;
+#pragma unroll
+      for (int u = 0; u < kEdgeGroup; ++u) {
+        if (!live[u]) continue;
+        float v[W];
+        unpack_word<T, W>(w[u], v);
+        const float p = expf(x[u] - m_new);
+        l += p;
+#pragma unroll
+        for (int c = 0; c < W; ++c) acc[c] += p * v[c];
+      }
+      m = m_new;
     }
-    const float alpha = expf(m - m_new);
-    l *= alpha;
-#pragma unroll
-    for (int c = 0; c < W; ++c) acc[c] *= alpha;
-#pragma unroll
-    for (int u = 0; u < kEdgeGroup; ++u) {
-      if (!live[u]) continue;
-      float v[W];
-      unpack_word<Word, W>(w[u], v);
-      const float p = expf(x[u] - m_new);
-      l += p;
-#pragma unroll
-      for (int c = 0; c < W; ++c) acc[c] += p * v[c];
-    }
-    m = m_new;
   }
   float4* o = reinterpret_cast<float4*>(out + row * width + col0);
 #pragma unroll
@@ -285,14 +332,19 @@ __global__ void stream_forward_words(const __nv_bfloat16* __restrict__ scores,
   }
 }
 
-// The columns a lane owns in the bf16 stream's word geometries (8 or 4),
-// or 0 for the kernel above; `lanes` the lanes a row then takes (the rule
-// of ops/csr_attention.py stream_geometry, K5's).
+// The columns of T a lane owns in a word geometry, or 0 for the V-column
+// kernel; `lanes` the lanes a row then takes. f32: 4 (a 16-byte word)
+// where a head is 4k wide and D <= 128 (the rule of ops/csr_attention.py
+// softmax_spmm_geometry); bf16: 8 or 4 where the head width, D and the
+// alignment of values and out allow (stream_geometry, K5's rule).
+template <typename T>
 int word_columns(int width, int num_heads, const void* values, const void* out, int& lanes) {
-  if (reinterpret_cast<uintptr_t>(out) % 16 != 0) return 0;
   const int head_dim = width / num_heads;
   for (int w : {8, 4}) {
-    if (head_dim % w != 0 || width > kLanes * w || reinterpret_cast<uintptr_t>(values) % (2 * w) != 0) {
+    if (head_dim % w != 0 || width > kLanes * w) continue;
+    if constexpr (sizeof(T) == 4) {
+      if (w != kF32WordCols) continue;
+    } else if (reinterpret_cast<uintptr_t>(out) % 16 != 0 || reinterpret_cast<uintptr_t>(values) % (2 * w) != 0) {
       continue;
     }
     lanes = 1;
@@ -300,6 +352,20 @@ int word_columns(int width, int num_heads, const void* values, const void* out, 
     return w;
   }
   return 0;
+}
+
+template <typename T, int W>
+cudaError_t launch_words(const void* scores, const void* values, const void* bounds, const void* mask,
+                         void* out, void* ml, long long num_rows, long long num_edges, int num_heads,
+                         int width, int lanes, cudaStream_t stream) {
+  const long long rows = static_cast<long long>(kWordWarps) * (kLanes / lanes);  // a block
+  const dim3 block(kLanes, kWordWarps);
+  const dim3 grid(static_cast<unsigned>((num_rows + rows - 1) / rows));
+  forward_words<T, W><<<grid, block, 0, stream>>>(
+      static_cast<const T*>(scores), static_cast<const T*>(values), static_cast<const int32_t*>(bounds),
+      static_cast<const uint8_t*>(mask), static_cast<float*>(out), static_cast<float*>(ml), num_rows,
+      num_edges, width, num_heads, lanes);
+  return cudaGetLastError();
 }
 
 template <int V, typename T>
@@ -316,8 +382,10 @@ cudaError_t launch(const void* scores, const void* values, const void* bounds,
   return cudaGetLastError();
 }
 
-// The instantiation of width D = 32 V for element type T; bf16 (the
-// stream) takes its word geometries first.
+// The word geometry of width D, heads and alignment where one applies,
+// else the V-column kernel's instantiation of width D = 32 V for element
+// type T. The f32 entry takes values and out 16-byte aligned (the
+// wrapper's check), else cudaErrorMisalignedAddress.
 template <typename T>
 int run(const void* scores, const void* values, const void* bounds, const void* mask, void* out,
         void* ml, long long num_rows, long long num_edges, int num_heads, int width,
@@ -327,29 +395,25 @@ int run(const void* scores, const void* values, const void* bounds, const void* 
       ((width / num_heads) % (width / kLanes)) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if constexpr (sizeof(T) == 2) {
-    int lanes = 0;
-    const int w = word_columns(width, num_heads, values, out, lanes);
-    if (w > 0) {
-      const long long rows = static_cast<long long>(kWordWarps) * (kLanes / lanes);  // a block
-      const dim3 block(kLanes, kWordWarps);
-      const dim3 grid(static_cast<unsigned>((num_rows + rows - 1) / rows));
-      const auto* sp = static_cast<const __nv_bfloat16*>(scores);
-      const auto* vp = static_cast<const __nv_bfloat16*>(values);
-      const auto* bp = static_cast<const int32_t*>(bounds);
-      const auto* mp = static_cast<const uint8_t*>(mask);
-      auto* op = static_cast<float*>(out);
-      auto* lp = static_cast<float*>(ml);
-      if (w == 8) {
-        stream_forward_words<8><<<grid, block, 0, s>>>(sp, vp, bp, mp, op, lp, num_rows, num_edges, width,
-                                                       num_heads, lanes);
-      } else {
-        stream_forward_words<4><<<grid, block, 0, s>>>(sp, vp, bp, mp, op, lp, num_rows, num_edges, width,
-                                                       num_heads, lanes);
-      }
-      return static_cast<int>(cudaGetLastError());
+  if constexpr (sizeof(T) == 4) {
+    if (reinterpret_cast<uintptr_t>(values) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0) {
+      return static_cast<int>(cudaErrorMisalignedAddress);
     }
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int lanes = 0;
+  const int w = word_columns<T>(width, num_heads, values, out, lanes);
+  if constexpr (sizeof(T) == 2) {
+    if (w == 8) {
+      return static_cast<int>(launch_words<T, 8>(scores, values, bounds, mask, out, ml, num_rows, num_edges,
+                                                 num_heads, width, lanes, s));
+    }
+  }
+  if (w == 4) {
+    return static_cast<int>(launch_words<T, 4>(scores, values, bounds, mask, out, ml, num_rows, num_edges,
+                                               num_heads, width, lanes, s));
+  }
+  if constexpr (sizeof(T) == 2) {
     const int v = width / kLanes;
     const int load = 2 * ((v & -v) < 8 ? (v & -v) : 8);  // bytes of the kernel's vector loads
     if (reinterpret_cast<uintptr_t>(values) % load != 0) {
@@ -370,11 +434,13 @@ int run(const void* scores, const void* values, const void* bounds, const void* 
 
 }  // namespace
 
-// scores [E, H] f32, values [E, D] f32 (16-byte aligned), bounds [2, N]
-// int32, mask [E] bool (or null), out [N, D] f32, ml [2H, N] f32; all device
-// pointers, contiguous. D = 32*V for V in 1..16, D % H == 0 and
+// scores [E, H] f32, values [E, D] f32, bounds [2, N] int32, mask [E] bool
+// (or null), out [N, D] f32, ml [2H, N] f32; all device pointers,
+// contiguous, values and out 16-byte aligned (else
+// cudaErrorMisalignedAddress). D = 32*V for V in 1..16, D % H == 0 and
 // (D / H) % V == 0 (the wrapper checks; other shapes return
-// cudaErrorInvalidValue). Launches on `stream` and returns
+// cudaErrorInvalidValue); 16-byte words where a head is 4k wide and
+// D <= 128, else V columns a lane. Launches on `stream` and returns
 // cudaGetLastError() (0 when the launch was accepted).
 extern "C" int csr_softmax_spmm_f32(const void* scores, const void* values,
                                     const void* bounds, const void* mask,

@@ -102,7 +102,7 @@
 #include <stdint.h>
 #include <string.h>
 
-#include "bf16_words.cuh"
+#include "words.cuh"
 
 #include <initializer_list>
 
@@ -490,14 +490,14 @@ __global__ void pair_backward_fast(EdgeSet a, EdgeSet b, const float* __restrict
 
 // ---- the bf16 stream's word geometries: W = 8 (16-byte words) or 4
 // (8-byte words) adjacent bf16 columns of one head a lane (WordOf,
-// unpack_word: bf16_words.cuh), `lanes` lanes a row (a power of two),
+// unpack_word: words.cuh), `lanes` lanes a row (a power of two),
 // 32 / lanes rows a warp.
 
 template <int W>
 __global__ void pair_forward_words(EdgeSetOf<__nv_bfloat16> a, EdgeSetOf<__nv_bfloat16> b,
                                    float* __restrict__ out, float* __restrict__ ml, int64_t num_rows,
                                    int width, int num_heads, int lanes) {
-  using Word = typename WordOf<W>::type;
+  using Word = typename WordOf<__nv_bfloat16, W>::type;
   const int slot = threadIdx.x / lanes;
   const int sub = threadIdx.x % lanes;
   const int64_t row = (static_cast<int64_t>(blockIdx.x) * kWordWarps + threadIdx.y) * (kLanes / lanes) + slot;
@@ -547,7 +547,7 @@ __global__ void pair_forward_words(EdgeSetOf<__nv_bfloat16> a, EdgeSetOf<__nv_bf
     for (int u = 0; u < kEdgeGroup; ++u) {
       if (!live[u]) continue;
       float v[W];
-      unpack_word<Word, W>(w[u], v);
+      unpack_word<__nv_bfloat16, W>(w[u], v);
       const float p = expf(x[u] - m_new);
       l += p;
 #pragma unroll

@@ -45,8 +45,11 @@ of given per-edge ``scores [E, H]`` and ``values [E, D]``, plus the
 online-softmax statistics ``ml = [m; l]`` (``[2H, N]``). Its backward is
 ``csr_softmax_spmm_backward`` (the JAX ``_bwd``: per node the
 flash-attention ``delta = <out, g>`` per head, then per-edge math against
-the saved ``(m, l)``). On CUDA they launch ``csrc/csr_softmax_spmm.cu`` and
-``csrc/csr_softmax_spmm_bwd.cu``; on the CPU they take
+the saved ``(m, l)``). On CUDA they launch ``csrc/csr_softmax_spmm.cu``
+(in 16-byte words of 4 columns of one head a lane, 8 edges in flight,
+where a head is 4k wide and D <= 128; D/32 columns a lane otherwise:
+``softmax_spmm_geometry``) and ``csrc/csr_softmax_spmm_bwd.cu``; on the
+CPU they take
 ``csr_softmax_spmm_reference`` and ``csr_softmax_spmm_backward_reference``.
 The unsplit partitioned attention runs them, segmenting by receivers
 (``ops.attention``). ``csr_softmax_spmm_pair`` (K5) is the same function
@@ -89,6 +92,7 @@ import torch
 from graphphysics_torch.ops import _native
 from graphphysics_torch.ops.csr_segment import (
     EDGE_GROUP,
+    F32_WORD_COLUMNS,
     WARP,
     LaunchCount,
     SumGeometry,
@@ -462,8 +466,10 @@ def csr_softmax_spmm(
     ``row_bounds``), so every unmasked edge must lie in its segment's
     range. A CUDA tensor launches the
     Hopper kernel (float32, D a multiple of 32 up to 512 with a head_dim that
-    is a multiple of D/32) and adds one to ``csr_softmax_spmm.launches``; it
-    trusts the layout (build graphs with ``pad_graph_csr_np``). A CPU tensor
+    is a multiple of D/32, values 16-byte aligned; in the geometry
+    ``softmax_spmm_geometry`` gives) and adds one to
+    ``csr_softmax_spmm.launches``; it trusts the layout (build graphs with
+    ``pad_graph_csr_np``). A CPU tensor
     checks that precondition and takes ``csr_softmax_spmm_reference``.
 
     ``stream_dtype="bf16"`` is the TPU kernel's bf16 stream: the scores and
@@ -990,6 +996,32 @@ def stream_geometry(width: int, heads: int, aligned: int, pair: bool = True) -> 
     columns = -(-width // WARP)
     if not pair and aligned % (2 * min(8, columns & -columns)):
         return None
+    return SumGeometry("general", columns, WARP, 1, 1)
+
+
+def softmax_spmm_geometry(width: int, heads: int) -> Optional[SumGeometry]:
+    """The geometry K2's f32 entry (``csr_softmax_spmm_f32``) runs ``width``
+    columns in ``heads`` heads with, as ``csrc/csr_softmax_spmm.cu`` chooses
+    it: "words16" (4 f32 columns of one head a lane, one 16-byte word)
+    where the head width is a multiple of 4 and D <= 128, a row taking
+    ``D / 4`` lanes rounded up to a power of two, 32 / lanes rows a warp, 8
+    edges in flight; else "general", a warp a row, one edge at a time, the
+    ``D / 32`` adjacent columns of one head a lane. None where the entry
+    takes neither: D not a positive multiple of 32 up to ``MAX_WIDTH``, H
+    not dividing D, a head not whole ``D / 32``-column lanes. The wrapper
+    hands the kernel 16-byte aligned values and out, so alignment does not
+    enter the rule."""
+    if not 0 < width <= MAX_WIDTH or width % WARP or heads <= 0 or width % heads:
+        return None
+    head_dim = width // heads
+    columns = width // WARP
+    if head_dim % columns:
+        return None
+    if head_dim % F32_WORD_COLUMNS == 0 and width <= WARP * F32_WORD_COLUMNS:
+        lanes = 1
+        while lanes * F32_WORD_COLUMNS < width:
+            lanes *= 2
+        return SumGeometry("words16", F32_WORD_COLUMNS, lanes, WARP // lanes, EDGE_GROUP)
     return SumGeometry("general", columns, WARP, 1, 1)
 
 

@@ -100,11 +100,12 @@ WARP = 32
 class SumGeometry(NamedTuple):
     """A lane geometry of K1's kernels (``segment_sum_geometry``: "words16",
     16-byte words; "pairs", 4-byte column pairs; "columns", one column a
-    lane) or of K2's and K5's bf16 stream (``csr_attention.stream_geometry``:
-    "words16", "words8", "general"): its ``kind``, the adjacent
-    ``columns`` a lane owns, the ``lanes`` a row takes (a column block of
-    32 lanes past that), the ``rows_per_warp`` and the edges whose loads a
-    lane has in flight."""
+    lane), of K2's and K5's bf16 stream (``csr_attention.stream_geometry``:
+    "words16", "words8", "general") or of K2's f32 entry
+    (``csr_attention.softmax_spmm_geometry``: "words16", "general"): its
+    ``kind``, the adjacent ``columns`` a lane owns, the ``lanes`` a row
+    takes (a column block of 32 lanes past that), the ``rows_per_warp`` and
+    the edges whose loads a lane has in flight."""
 
     kind: str
     columns: int

@@ -11,9 +11,9 @@ the kernels, the ops' fake implementations against the kernels,
 1-rank data group against the plain step, and the two 16-bit stream
 modes' entries (K1 and K1b on bf16 and f16 data; ``stream_dtype="bf16"``
 of K2, K5 and the fused forward) against their plain versions with their
-launch counts, and each lane geometry of K1 (f32 and 16-bit) and of K2's
-and K5's stream entries (by width, heads and alignment). Marked ``cuda``; they skip without
-a card. This file imports no JAX, so on a machine without it run them
+launch counts, and each lane geometry of K1 (f32 and 16-bit), of K2's
+f32 entry (by width and heads) and of K2's and K5's stream entries (by
+width, heads and alignment). Marked ``cuda``; they skip without a card. This file imports no JAX, so on a machine without it run them
 with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py
@@ -1414,6 +1414,127 @@ def test_softmax_spmm_stream_refuses_a_view_its_loads_do_not_take(cuda):
     assert ca.stream_geometry(128, 4, 4, pair=False) is None
     with pytest.raises(RuntimeError, match="csr_softmax_spmm_bf16_stream kernel launch failed"):
         ca._launch(scores.to(cuda, torch.bfloat16), v16, bounds, mask.to(cuda))
+
+
+F32_GEOMETRY_CASES = [
+    (128, 4, "words16"),  # 32 lanes a row: the mesh part's, the frame's and the batch's width
+    (128, 8, "words16"),  # heads of 16
+    (64, 4, "words16"),  # 16 lanes, two rows a warp: the aneurysm width
+    (32, 8, "words16"),  # heads of 4: 8 lanes, four rows a warp
+    (32, 16, "general"),  # heads of 2: one column a lane
+    (256, 4, "general"),  # 8 columns a lane
+    (512, 8, "general"),  # 16 columns a lane
+]
+
+
+def _f32_rows_case(width, heads, cuda):
+    """``_csr_case`` rows of about 20 edges (a fifth masked) with empty rows,
+    scores masked as ``csr_sparse_attention`` masks them, and one row whose
+    edges are all masked; returns the layout's tensors on the card and
+    the rows that must read as empty."""
+    from graphphysics_torch.ops import csr_attention as ca
+
+    g, scores, values, mask = _csr_case(1000, 6000, width, heads, seed=width + heads, hi=300, n_pad=1024,
+                                        e_pad=6144)
+    lo, hi = (int(x) for x in g.sender_bounds[:, 7])
+    assert hi - lo > 8  # more than one window
+    mask[lo:hi] = False
+    seg, bounds, m = (torch.from_numpy(a).to(cuda) for a in (g.senders, g.sender_bounds, mask.numpy()))
+    s = torch.where(m[:, None], scores.to(cuda), torch.full((), ca.NEG, device=cuda))
+    empty = [r for r in range(g.num_nodes) if r == 7 or g.sender_bounds[0, r] == g.sender_bounds[1, r]]
+    assert len(empty) > 100
+    return seg, bounds, m, s, values.to(cuda), g.num_nodes, torch.tensor(empty, device=cuda)
+
+
+@pytest.mark.parametrize("width,heads,kind", F32_GEOMETRY_CASES)
+def test_softmax_spmm_f32_geometries_match_plain(cuda, width, heads, kind):
+    """K2's f32 entry in each geometry its rule gives (by width and heads):
+    against its plain version, the same bits on a second run, and empty
+    rows and a row of only masked edges exactly out = 0, m = -1e30, l = 0."""
+    from graphphysics_torch.ops import csr_attention as ca
+
+    seg, bounds, m, s, v, n, empty = _f32_rows_case(width, heads, cuda)
+    assert ca.softmax_spmm_geometry(width, heads).kind == kind
+    before = ca.csr_softmax_spmm.launches
+    out, ml = ca.csr_softmax_spmm(s, v, seg, bounds, m)
+    again, again_ml = ca.csr_softmax_spmm(s, v, seg, bounds, m)
+    torch.cuda.synchronize()
+    assert ca.csr_softmax_spmm.launches == before + 2
+    assert torch.equal(out, again) and torch.equal(ml, again_ml)
+    want, want_ml = ca.csr_softmax_spmm_reference(s, v, seg, n, m)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ml, want_ml, rtol=1e-5, atol=1e-5)
+    assert bool((out[empty] == 0).all())
+    assert bool((ml[:heads, empty] == ca.NEG).all()) and bool((ml[heads:, empty] == 0).all())
+
+
+@pytest.mark.parametrize("width", [128, 64])
+def test_softmax_spmm_f32_hub_row_matches_plain(cuda, width):
+    """A row of 4,096 edges (a tenth masked) beside 63 rows of one edge,
+    in 16-byte words: against the plain version, the same bits twice."""
+    from chip_stream import HUB_EDGES
+    from graphphysics_torch.ops import csr_attention as ca
+    from graphphysics_torch.ops.csr_segment import compute_row_bounds
+
+    n, heads = 64, 4
+    seg_np = np.concatenate([np.zeros(HUB_EDGES, np.int32), np.arange(1, n, dtype=np.int32)])
+    gen = torch.Generator(device=cuda).manual_seed(width)
+    e = len(seg_np)
+    m = torch.rand(e, generator=gen, device=cuda) >= 0.1
+    s = torch.where(m[:, None], 3 * torch.randn((e, heads), generator=gen, device=cuda),
+                    torch.full((), ca.NEG, device=cuda))
+    v = torch.randn((e, width), generator=gen, device=cuda)
+    seg = torch.from_numpy(seg_np).to(cuda)
+    bounds = torch.from_numpy(compute_row_bounds(seg_np, n)).to(cuda)
+    assert ca.softmax_spmm_geometry(width, heads).kind == "words16"
+    out, ml = ca.csr_softmax_spmm(s, v, seg, bounds, m)
+    again, _ = ca.csr_softmax_spmm(s, v, seg, bounds, m)
+    assert torch.equal(out, again)
+    want, want_ml = ca.csr_softmax_spmm_reference(s, v, seg, n, m)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ml, want_ml, rtol=1e-5, atol=1e-5)
+    assert float(ml[heads:, 0].min()) > 1.0
+
+
+def test_softmax_spmm_f32_refuses_a_view_not_16_byte_aligned(cuda):
+    """The f32 wrapper raises for values that are not 16-byte aligned, and
+    the entry itself returns an error for them (words and V columns)."""
+    from chip_stream import view_at
+    from graphphysics_torch.ops import csr_attention as ca
+
+    for width, heads in ((128, 4), (256, 4)):
+        g, scores, values, mask = _csr_case(128, 500, width, heads, seed=0, n_pad=128, e_pad=512)
+        seg, bounds = torch.from_numpy(g.senders).to(cuda), torch.from_numpy(g.sender_bounds).to(cuda)
+        s, v = scores.to(cuda), view_at(values.to(cuda), 8)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            ca.csr_softmax_spmm(s, v, seg, bounds, mask.to(cuda))
+        with pytest.raises(RuntimeError, match="csr_softmax_spmm_f32 kernel launch failed"):
+            ca._launch(s, v, bounds, mask.to(cuda))
+
+
+@pytest.mark.parametrize("width,heads", [(128, 4), (64, 4), (32, 16)])
+def test_softmax_spmm_f32_autograd_matches_plain(cuda, width, heads):
+    """Autograd through ``csr_softmax_spmm`` on the card (K2's f32 entry in
+    its geometry, then K3 on that pass's ``ml`` and ``out``) against
+    autograd through the plain version on the same card."""
+    from graphphysics_torch.ops import csr_attention as ca
+
+    seg, bounds, m, s, v, n, _ = _f32_rows_case(width, heads, cuda)
+    cot = torch.randn((n, width), generator=torch.Generator(device=cuda).manual_seed(5), device=cuda)
+    grads = []
+    for kernel in (True, False):
+        si, vi = s.clone().requires_grad_(True), v.clone().requires_grad_(True)
+        before = (ca.csr_softmax_spmm.launches, ca.csr_softmax_spmm_backward.launches)
+        if kernel:
+            out, _ = ca.csr_softmax_spmm(si, vi, seg, bounds, m)
+        else:
+            out, _ = ca.csr_softmax_spmm_reference(si, vi, seg, n, m)
+        grads.append(torch.autograd.grad(out, (si, vi), cot))
+        step = int(kernel)
+        assert (ca.csr_softmax_spmm.launches, ca.csr_softmax_spmm_backward.launches) == (
+            before[0] + step, before[1] + step)
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
 def _grid(t, interleaved):
