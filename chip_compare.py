@@ -44,10 +44,19 @@ times instead that checkout's f32 K2 (``csr_softmax_spmm``, its
 (from a 2-frame trajectory), the panels batch, the aneurysm graph and part
 0 of the unsplit 4-way cut of the 16,384-node mesh (its
 ``unsplit_part0``), seeds as ``chip_smoke.py`` makes them, with the
-seconds of ``csr_softmax_spmm.cu``'s ``nvcc`` build and a digest of each
-output and ``ml`` on the case's own seeded inputs. It calls only
-``k2_case`` and ``unsplit_part0``, which a parent checkout's scripts have
-too.
+seconds of the ``nvcc`` builds of K2's, K3's and K5's sources and a
+digest of each output and ``ml`` on the case's own seeded inputs; then a
+digest of K3's gradients (``csr_softmax_spmm_backward``) on each K2 case's
+inputs and outputs, and of K5's f32 forward and backward and bf16 stream
+forward (``csr_softmax_spmm_pair``) on part 0 of the 4-way split-edge cut
+of the mesh at D = 128 (its contiguous and 16-byte word geometries) and
+D = 40 in 4 heads (its general geometry in f32 and bf16); last, where the
+checkout's ``k2_case`` and ``k3_case`` take a head count, K2 and K3 at the
+widths of their general geometry (``chip_smoke.GENERAL_WIDTHS`` on the
+panels batch, 48 x 4 and 40 x 8 at part 0 of the unsplit mesh cut), with
+the geometry, ms, bound, plain ms and a digest of each output. The rest
+calls only ``k2_case``, ``unsplit_part0``, ``chip_partition.k5_inputs``
+and ``mesh_graph``, which a parent checkout's scripts have too.
 """
 import json
 import os
@@ -293,8 +302,60 @@ def k2_kernels(cs, torch) -> dict:
         values = torch.randn((seg.shape[0], width), generator=gen, device=dev)
         with torch.no_grad():
             got, ml = ca.csr_softmax_spmm(scores, values, seg, bounds, mask)
+            g = torch.randn((got.shape[0], width), generator=gen, device=dev)
+            ds, dv = ca.csr_softmax_spmm_backward(scores, values, seg, bounds, ml, got, g, mask)
         out[f"k2_f32_{label}"] = {**record, "bound_share": record["bound_ms"] / record["ms"],
-                                  "digest": _digest(torch, got), "ml_digest": _digest(torch, ml)}
+                                  "digest": _digest(torch, got), "ml_digest": _digest(torch, ml),
+                                  "k3_digests": [_digest(torch, ds), _digest(torch, dv)]}
+    out.update(k5_digests(cs, torch))
+    return out
+
+
+def k5_digests(cs, torch) -> dict:
+    """Digests of K5's f32 forward and backward and bf16 stream forward on
+    part 0 of the mesh's 4-way split-edge cut, at D = 128 and D = 40 (4
+    heads)."""
+    from chip_partition import k5_inputs, mesh_graph
+    from graphphysics_torch.ops import csr_attention as ca
+
+    graph = mesh_graph("csr", 601)
+    out = {}
+    for width in (128, 40):
+        n, _, seg, masks, bounds, scores, values, g = k5_inputs(graph, width, 85)
+        digests = {}
+        with torch.no_grad():
+            for stream in ("f32", "bf16"):
+                got, ml = ca.csr_softmax_spmm_pair(scores[0], values[0], seg[0], bounds[0], scores[1], values[1],
+                                                   seg[1], bounds[1], *masks, stream_dtype=stream)
+                digests[f"forward_{stream}"] = [_digest(torch, got), _digest(torch, ml)]
+                if stream == "f32":
+                    grads = ca.csr_softmax_spmm_pair_backward(scores[0], values[0], seg[0], bounds[0], scores[1],
+                                                              values[1], seg[1], bounds[1], ml, got, g, *masks)
+                    digests["backward_f32"] = [_digest(torch, t) for t in grads]
+        out[f"k5_mesh_16384_part0_of_4_d{width}"] = digests
+    return out
+
+
+def general_kernels(cs, torch) -> dict:
+    """K2 and K3 at the general geometry's widths: ``k2_case`` and
+    ``k3_case`` records (ms, bound, plain ms, geometry, digests); empty
+    where the checkout's cases take no head count (a tree before the
+    general geometry)."""
+    import inspect
+
+    if "heads" not in inspect.signature(cs.k2_case).parameters:
+        return {}
+    keep = ("ms", "plain_ms", "bound_ms", "max_abs_err", "geometry", "columns", "digest", "ml_digest")
+    batch, part = cs.panels_batch(200), cs.unsplit_part0(601)
+    cases = [(f"panels_csr_batch_8x2048_d{d}_h{h}", batch, d, h, 84 + i, 88 + i)
+             for i, (d, h) in enumerate(cs.GENERAL_WIDTHS)]
+    cases += [("mesh_16384_part0_of_4_unsplit_d48_h4", part, 48, 4, 87, 91),
+              ("mesh_16384_part0_of_4_unsplit_d40_h8", part, 40, 8, 92, 93)]
+    out = {}
+    for label, graph, width, heads, k2_seed, k3_seed in cases:  # chip_smoke.py's seeds
+        for name, case, seed in (("k2", cs.k2_case, k2_seed), ("k3", cs.k3_case, k3_seed)):
+            record = case(label, graph, width, seed, heads=heads)
+            out[f"{name}_{label}"] = {k: v for k, v in record.items() if k in keep}
     return out
 
 
@@ -315,8 +376,9 @@ def main() -> int:
     positional = [a for a in sys.argv[1:] if not a.startswith("--")]
     out = {"tree": positional[1] if len(positional) > 1 else root}
     if "--k2" in sys.argv:
-        out["nvcc_s"] = _native.build(("csr_softmax_spmm.cu",))
+        out["nvcc_s"] = _native.build(("csr_softmax_spmm.cu", "csr_softmax_spmm_bwd.cu", "csr_softmax_spmm_pair.cu"))
         out.update(k2_kernels(cs, torch))
+        out.update(general_kernels(cs, torch))
         print("COMPARE " + json.dumps(out), flush=True)
         return 0
     if "--stream" in sys.argv:

@@ -36,6 +36,11 @@ card; this module starts nothing on import):
 The ranks time-share one card: a rank's ms a step is 2 or 4 processes'
 wall time on one H100 plus gloo's all-reduce through the host, not a
 scaling figure.
+
+``start_multirank`` runs these phases, ``chip_partition``'s and
+``chip_model_parallel``'s, and the short fidelity runs in a second process
+beside ``chip_smoke.py``'s own phases (``finish_multirank`` prints its
+lines); the card and the host are shared with those too.
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ HYBRID_DCN, HYBRID_ICI = (2, 1), (1, 2)  # LAYOUT_2D as make_hybrid_layout facto
 ANEURYSM_CONFIG = "training_config/coarse-aneurysm.json"
 ANEURYSM_GRID = 32  # tet_grid(32): 32,768 nodes
 RANKS_TIMEOUT_S = 600
+MULTIRANK_TIMEOUT_S = 1100  # the second process of chip_smoke.py, every phase in it
 VALIDATION_RTOL = 1e-12
 VALIDATION_TRAJECTORIES = 2
 
@@ -383,3 +389,101 @@ def parallel_phases(clock, seed, cylinder, panels, model_parallel=None):
                                and v[True]["val_loss"] == v[False]["val_loss"] for v in validation),
                 "tolerance": {"rtol": VALIDATION_RTOL}})
     return paths, [r.get("model_parallel") for r in ranks]
+
+
+def _multirank_main(out_path, log_path, seed, cylinder, panels, epd_frames, tf_frames, fidelity_configs):
+    """The second process of ``chip_smoke.py``: the phases that start ranks
+    (``chip_partition.partition_phases``, then the data-, tensor- and
+    pipeline-parallel ones) and the short fidelity runs, with counters of
+    its own. Its standard output, its ranks' and its commands' go to
+    ``log_path``; its phase lines and launches, or its traceback, to
+    ``out_path``."""
+    import signal
+    import sys
+    import traceback
+
+    os.setsid()  # one process group with every process it starts, stopped together
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(1))  # the ranks' launch stops them
+    log = os.open(log_path, os.O_WRONLY | os.O_CREAT | os.O_APPEND)
+    os.dup2(log, 1)
+    cs = _cs()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    lines = []
+    clock = cs.PhaseClock(sink=lines.append)
+    out = {"lines": lines}
+    try:
+        from chip_model_parallel import model_parallel_phases, prepare
+        from chip_partition import partition_phases
+
+        counts = cs.kernel_counters()
+        fidelity = {}
+        for config in fidelity_configs:
+            label = f"{config}_fidelity_short"
+            fidelity[label] = cs.fidelity_short(label, counts, config)
+            clock.emit({"phase": label, **fidelity[label]})
+        partition_paths = partition_phases(clock, seed, cylinder, panels, epd_frames, tf_frames)
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="model_parallel_") as mp_tmp:
+            mp = prepare(seed, cylinder, panels, mp_tmp)
+            dp_paths, mp_ranks = parallel_phases(clock, seed, cylinder, panels, mp["two_rank"])
+            torch.cuda.empty_cache()
+            mp_paths = model_parallel_phases(clock, mp, mp_ranks, mp_tmp)
+        out["paths"] = {**fidelity, **{p: {"launches": launched} for p, launched in
+                                       {**partition_paths, **dp_paths, **mp_paths}.items()}}
+    except BaseException:
+        out["error"] = traceback.format_exc()
+    sys.stdout.flush()
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+
+
+def start_multirank(tmp, seed, cylinder, panels, epd_frames, tf_frames, fidelity_configs):
+    """Start ``_multirank_main`` in a process of its own, beside the
+    caller's phases; returns the handle ``finish_multirank`` and
+    ``stop_multirank`` take."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    out_path, log_path = os.path.join(tmp, "multirank.pkl"), os.path.join(tmp, "multirank.log")
+    proc = ctx.Process(target=_multirank_main, args=(out_path, log_path, seed, cylinder, panels,
+                                                     epd_frames, tf_frames, fidelity_configs))
+    proc.start()
+    return proc, out_path, log_path
+
+
+def finish_multirank(handle, timeout=MULTIRANK_TIMEOUT_S) -> dict:
+    """Wait for the second process, print its standard output and then its
+    phase lines (each with the seconds it took there), raise with its
+    traceback if it failed; returns its paths' results by name."""
+    import sys
+
+    proc, out_path, log_path = handle
+    proc.join(timeout)
+    if proc.is_alive():
+        raise TimeoutError(f"the multi-rank phases did not finish within {timeout} s")
+    if os.path.exists(log_path):
+        with open(log_path) as f:
+            sys.stdout.write(f.read())
+    if not os.path.exists(out_path):
+        raise RuntimeError(f"the multi-rank process exited with code {proc.exitcode} and no result")
+    with open(out_path, "rb") as f:
+        out = pickle.load(f)
+    for line in out["lines"]:
+        _cs().emit(line)
+    if "error" in out:
+        raise RuntimeError(f"the multi-rank phases failed:\n{out['error']}")
+    return out["paths"]
+
+
+def stop_multirank(handle) -> None:
+    """Stop every process of the second process's group that still runs
+    (after a failure on the caller's side; a no-op once it has ended)."""
+    import signal
+
+    proc = handle[0]
+    for sig, wait in ((signal.SIGTERM, 20), (signal.SIGKILL, 10)):
+        try:
+            os.killpg(proc.pid, sig)
+        except ProcessLookupError:
+            return
+        proc.join(wait)

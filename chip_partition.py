@@ -14,7 +14,7 @@ CUDA card; this module starts nothing on import):
   batch's own 8 graphs fall into whole parts at P = 4 and would exchange
   nothing), ``Trainer(graph_partition=4)`` in 4 ranks sharing the card
   (gloo), halo mode with the f32 and the bf16 wire: each rank's first step
-  against the unpartitioned card step on the same mesh, then 5 timed
+  against the unpartitioned card step on the same mesh, then 3 timed
   steps with K1 and K1b counted (15 each a step and rank), ms per step
   beside the unpartitioned step's, peak memory, host ms and halo bytes
   per layer;
@@ -27,7 +27,12 @@ CUDA card; this module starts nothing on import):
   same mesh with the panels features (its adjacency symmetric, as the
   partitioned attention's receiver-side softmax needs to equal the
   unpartitioned sender-side one), split-edge (K5 forward and backward, 15
-  each a step and rank) and unsplit (K2 and K3, 15 each);
+  each a step and rank) and unsplit (K2 and K3, 15 each); then at hidden
+  48 in 4 heads and 40 in 8 (``WIDTH_STEPS``: K3's general geometry,
+  and K2's at 40), each layout's first step and 2 counted steps, each
+  layout's first step against the unpartitioned card step at its width
+  (the fused attention) and the unsplit first step against the
+  split-edge one;
 - ``partitioned_rollout``: 10 frames of each family partitioned over the 4
   ranks against the unpartitioned card rollout;
 - ``partitioned_fit``: ``python -m graphphysics_torch.cli.train
@@ -56,7 +61,15 @@ import numpy as np
 import torch
 
 PARTS = 4
-WARMUP, TIMED, PROFILED = 2, 5, 2
+# 3 timed steps, cut from 5 to keep chip_smoke.py inside its time limit
+WARMUP, TIMED, PROFILED = 2, 3, 2
+# the transformer's steps at the widths only the general geometry of K2 and
+# K3 takes among the unsplit kernels (hidden 48 in 4 heads of 12: K2 in
+# 16-byte words, K3 strided; hidden 40 in 8 heads of 5: both strided), each
+# split-edge and unsplit: the first step, then LIGHT_TIMED steps counted
+# (no warm-up, no profile)
+WIDTH_STEPS = ((48, 4), (40, 8))
+LIGHT_TIMED = 2
 # the partitioned EPD step with the halo exchange stubbed to the identity
 STUB_WARMUP, STUB_TIMED = 1, 5
 ROLLOUT_FRAMES = 10
@@ -289,7 +302,9 @@ def _rank_step(rank, case, total_steps, workdir, device):
     first = tr.train_step(batch).item()
     grads = ({n: p.grad.detach().cpu().numpy() for n, p in tr.sim.named_parameters()}
              if rank == 0 else None)
-    for _ in range(WARMUP):
+    light = case.get("light", False)
+    timed = LIGHT_TIMED if light else TIMED
+    for _ in range(0 if light else WARMUP):
         tr.train_step(batch)
     _sync(device)
     _peak_gb(device, reset=True)
@@ -297,12 +312,12 @@ def _rank_step(rank, case, total_steps, workdir, device):
     for fn in counts.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    losses = [tr.train_step(batch) for _ in range(TIMED)]
+    losses = [tr.train_step(batch) for _ in range(timed)]
     _sync(device)
     seconds = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counts.items()}
-    breakdown = _profiled_steps(tr, batch, device) if rank == 0 else None
-    if rank != 0:
+    breakdown = _profiled_steps(tr, batch, device) if rank == 0 and not light else None
+    if rank != 0 and not light:
         for _ in range(PROFILED):
             tr.train_step(batch)
         _sync(device)
@@ -318,10 +333,11 @@ def _rank_step(rank, case, total_steps, workdir, device):
         "first_loss": first,
         "grads": grads,
         "losses": [x.item() for x in losses],
-        "ms_per_step": seconds / TIMED * 1e3,
+        "timed_steps": timed,
+        "ms_per_step": seconds / timed * 1e3,
         "launches": launches,
         "peak_memory_gb": _peak_gb(device),
-        "host_ms_per_step": float(np.mean(tr.host_ms[-TIMED:])),
+        "host_ms_per_step": float(np.mean(tr.host_ms[-timed:])),
         "part_nodes": int(part.num_nodes),
         "part_edge_slots": int(part.num_edges),
         "local_edge_slots": part.num_local_edges,
@@ -451,6 +467,67 @@ def rank_main(rank, spec_path):
 MESH = (128, 128)  # triangulated_grid: 16,384 nodes
 
 
+def width_cases(panels, mesh, seed) -> dict:
+    """The rank steps of the transformer at ``WIDTH_STEPS`` on ``mesh``,
+    split-edge and unsplit (``_rank_step`` cases, light)."""
+    return {f"transformer_{layout}_w{d}": dict(param=with_width(panels, d, h), batch=mesh, seed=seed,
+                                               split=layout == "split", light=True)
+            for d, h in WIDTH_STEPS for layout in ("split", "unsplit")}
+
+
+def width_references(panels, mesh, seed, total_steps) -> dict:
+    """The unpartitioned card steps at ``WIDTH_STEPS`` (the fused
+    attention, csr_attention.cu: code of its own that takes every width)
+    from the weights ``width_cases`` draw: ``{(D, H): (first loss,
+    gradients, None)}``."""
+    refs = {(d, h): unpartitioned_steps(with_width(panels, d, h), mesh, seed, total_steps, timed=False)
+            for d, h in WIDTH_STEPS}
+    torch.cuda.empty_cache()
+    return refs
+
+
+def width_checks(ranks, blocks, refs, loss_rtol, grad_rtol, unpartitioned_grad_rtol):
+    """``width_cases``' results: each layout's launches (``blocks`` of K5,
+    or of K2 and K3, forward and backward a step and rank); each layout's
+    first step against the unpartitioned one (``refs``, the fused
+    attention) within ``loss_rtol`` and ``unpartitioned_grad_rtol``, as
+    the 128-wide steps are held; and the unsplit first step (K2, K3)
+    against the split-edge one (K5) within ``loss_rtol`` and
+    ``grad_rtol``. The first two see a fault of code K2, K3 and K5 share
+    (``softmax_general.cuh``), which moves both sides of the third.
+    Returns ``({"hidden_D_heads_H": readings}, {path: launches})``."""
+    out, launched = {}, {}
+    for d, h in WIDTH_STEPS:
+        width = {}
+        for layout, expected in (("split", {"csr_softmax_spmm_pair": blocks,
+                                            "csr_softmax_spmm_pair_backward": blocks}),
+                                 ("unsplit", {"csr_softmax_spmm": blocks, "csr_softmax_spmm_backward": blocks})):
+            key = f"transformer_{layout}_w{d}"
+            summary = summarize(f"partitioned_transformer_training:{key}", [r[key] for r in ranks], expected,
+                                None)
+            width[layout] = {k: summary[k] for k in ("timed_steps", "ms_per_step_per_rank",
+                                                     "launches_per_step_per_rank", "launches", "first_loss")}
+            width[layout].update(compare_step(f"partitioned_transformer_training:{key}", refs[d, h], ranks[0][key],
+                                              loss_rtol, unpartitioned_grad_rtol))
+            launched[f"partitioned_transformer_training:{key}"] = summary["launches"]
+        unsplit = ranks[0][f"transformer_unsplit_w{d}"]
+        width["split_against_unsplit"] = compare_step(
+            f"partitioned_transformer_training:split_against_unsplit_w{d}",
+            (unsplit["first_loss"], unsplit["grads"]), ranks[0][f"transformer_split_w{d}"], loss_rtol, grad_rtol)
+        out[f"hidden_{d}_heads_{h}"] = width
+    return out, launched
+
+
+def with_width(param, hidden, heads):
+    """A copy of the config ``param`` with the model's ``hidden_size`` and
+    ``num_heads`` set."""
+    import copy
+
+    param = copy.deepcopy(param)
+    param["model"].update(hidden_size=hidden, num_heads=heads)
+    return param
+
+
 def mesh_graph(layout, seed):
     """One connected symmetric mesh of 16,384 nodes with random features:
     the cylinder layout ``[vel(2), node_type, time]`` with 3 edge features
@@ -474,10 +551,10 @@ def mesh_graph(layout, seed):
                y=r.normal(size=(n, outs)).astype(np.float32), node_type_index=nti)
 
 
-def unpartitioned_steps(param, graph, seed, total_steps):
+def unpartitioned_steps(param, graph, seed, total_steps, timed=True):
     """The unpartitioned card step on ``graph`` from the weights the
     partitioned Trainer draws: the first step's loss and gradients, then
-    WARMUP steps and the ms of TIMED ones."""
+    WARMUP steps and the ms of TIMED ones (None without ``timed``)."""
     from graphphysics_torch.training import Trainer
 
     tr = Trainer(param, learning_rate=1e-4, warmup=10, seed=seed, device="cuda",
@@ -486,6 +563,9 @@ def unpartitioned_steps(param, graph, seed, total_steps):
     dev_graph = graph.to("cuda")
     loss = tr.train_step(dev_graph).item()
     grads = {n: p.grad.detach().cpu().numpy() for n, p in tr.sim.named_parameters()}
+    if not timed:
+        del tr
+        return loss, grads, None
     for _ in range(WARMUP):
         tr.train_step(dev_graph)
     torch.cuda.synchronize()
@@ -528,10 +608,11 @@ def compare_step(name, ref, got, loss_rtol, grad_rtol):
 def summarize(name, ranks, expected, unpartitioned_ms):
     """Every rank's timed steps: the launches per step and rank against
     ``expected``, finite losses equal on every rank, the times."""
-    want = {k: expected.get(k, 0) * TIMED for k in ranks[0]["launches"]}
+    timed = ranks[0]["timed_steps"]
+    want = {k: expected.get(k, 0) * timed for k in ranks[0]["launches"]}
     for r, res in enumerate(ranks):
         if res["launches"] != want:
-            raise AssertionError(f"{name}: rank {r} launched {res['launches']} in {TIMED} steps, "
+            raise AssertionError(f"{name}: rank {r} launched {res['launches']} in {timed} steps, "
                                  f"expected {want}")
         if res["losses"] != ranks[0]["losses"] or not all(map(math.isfinite, res["losses"])):
             raise AssertionError(f"{name}: rank {r} losses {res['losses'][:3]}... differ or not "
@@ -542,7 +623,8 @@ def summarize(name, ranks, expected, unpartitioned_ms):
         "unpartitioned_ms_per_step": unpartitioned_ms,
         "host_ms_per_step_per_rank": [res["host_ms_per_step"] for res in ranks],
         "peak_memory_gb_per_rank": [res["peak_memory_gb"] for res in ranks],
-        "launches_per_step_per_rank": {k: v / TIMED for k, v in ranks[0]["launches"].items() if v},
+        "timed_steps": timed,
+        "launches_per_step_per_rank": {k: v / timed for k, v in ranks[0]["launches"].items() if v},
         "launches": {k: sum(res["launches"][k] for res in ranks) for k in ranks[0]["launches"]},
         "first_loss": ranks[0]["losses"][0], "last_loss": ranks[0]["losses"][-1],
         "rank0_breakdown": ranks[0]["breakdown"],
@@ -654,27 +736,32 @@ def partitioned_fit(seed):
             "tolerance": {"rtol": cs.ROLLOUT_RTOL, "atol": cs.ROLLOUT_ATOL}}
 
 
-def partition_phases(clock, seed, cylinder, panels, epd_frames, tf_frames, aneurysm_csr, floor):
-    """Every partitioned phase; returns ``(k5 forward shapes, k5 backward
-    shapes, {path: launches})`` for the kernels line."""
-    from graphphysics_torch.core import stack_graphs
-    from graphphysics_torch.parallel.mesh import launch
-
+def k5_phase(clock, seed, tf_frames, aneurysm_csr, floor):
+    """K5 on the card; returns ``(forward shapes, backward shapes)`` for the
+    kernels line, the training path's shape second, as it reads them."""
     cs = _cs()
-    # K5 on the card ------------------------------------------------------------
-    # the training path's shape second, as chip_smoke's kernels line reads it
-    meshes = {"epd": mesh_graph("sorted", seed + 600), "transformer": mesh_graph("csr", seed + 601)}
     shapes = [k5_case("serving_frame_2048_part0_of_4", tf_frames[0], cs.HIDDEN, seed + 1, floor),
-              k5_case("mesh_16384_part0_of_4", meshes["transformer"], cs.HIDDEN, seed, floor),
+              k5_case("mesh_16384_part0_of_4", mesh_graph("csr", seed + 601), cs.HIDDEN, seed, floor),
               k5_case("aneurysm_csr_66560x524288_part0_of_4", aneurysm_csr, 64, seed + 2, floor)]
     for f, b in shapes:
         clock.emit({"phase": "k5_pair", "name": "csr_softmax_spmm_pair", **f})
         clock.emit({"phase": "k5_pair", "name": "csr_softmax_spmm_pair_backward", **b})
+    return [f for f, _ in shapes], [b for _, b in shapes]
 
+
+def partition_phases(clock, seed, cylinder, panels, epd_frames, tf_frames):
+    """Every partitioned phase but ``k5_pair``; returns ``{path:
+    launches}`` for the kernels line."""
+    from graphphysics_torch.core import stack_graphs
+    from graphphysics_torch.parallel.mesh import launch
+
+    cs = _cs()
+    meshes = {"epd": mesh_graph("sorted", seed + 600), "transformer": mesh_graph("csr", seed + 601)}
     # the unpartitioned card steps the partitioned first steps are held to --
     total_steps = 1 + WARMUP + TIMED + PROFILED
     ref = {"epd": unpartitioned_steps(cylinder, meshes["epd"], seed, total_steps),
            "transformer": unpartitioned_steps(panels, meshes["transformer"], seed, total_steps)}
+    width_refs = width_references(panels, meshes["transformer"], seed, total_steps)
     roll = {"epd": stack_graphs([epd_frames[t] for t in range(ROLLOUT_FRAMES)]),
             "transformer": stack_graphs([tf_frames[t] for t in range(ROLLOUT_FRAMES)])}
     torch.cuda.empty_cache()
@@ -689,6 +776,7 @@ def partition_phases(clock, seed, cylinder, panels, epd_frames, tf_frames, aneur
                                       split=True),
             "transformer_unsplit": dict(param=panels, batch=meshes["transformer"], seed=seed,
                                         split=False),
+            **width_cases(panels, meshes["transformer"], seed),
         },
         "rollouts": {f"{fam}_rollout": dict(family=fam, param=panels, seed=seed, frames=roll[fam])
                      for fam in ("epd", "transformer")},
@@ -750,6 +838,10 @@ def partition_phases(clock, seed, cylinder, panels, epd_frames, tf_frames, aneur
         "partitioned_transformer_training:split_against_unsplit",
         (unsplit["first_loss"], unsplit["grads"]), ranks[0]["transformer_split"], cs.STEP_LOSS_RTOL,
         cs.TRANSFORMER_GRAD_RTOL)
+    widths, launched = width_checks(ranks, tf_blocks, width_refs, cs.STEP_LOSS_RTOL, cs.TRANSFORMER_GRAD_RTOL,
+                                    PARTITIONED_TRANSFORMER_GRAD_RTOL)
+    tf.update(widths)
+    paths_launched.update(launched)
     clock.emit({"phase": "partitioned_transformer_training", "model": f"EncodeTransformDecode "
                 f"{tf_blocks}x{panels['model']['hidden_size']}, {cs.PANELS_CONFIG}",
                 "graph": f"triangulated_grid{MESH}, {meshes['transformer'].num_nodes} nodes",
@@ -787,7 +879,7 @@ def partition_phases(clock, seed, cylinder, panels, epd_frames, tf_frames, aneur
     torch.cuda.empty_cache()
 
     clock.emit({"phase": "partitioned_fit", **partitioned_fit(seed)})
-    return [f for f, _ in shapes], [b for _, b in shapes], paths_launched
+    return paths_launched
 
 
 def _sync_exchange_rank(rank, spec_path):

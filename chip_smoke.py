@@ -29,12 +29,20 @@ and the CUDA toolkit. Phases, each of which raises on failure:
    within ``KERNEL_ATOL`` of plain, the same bits twice and across
    geometries) and a hub row of 4,096 unit edges reading exactly 4,096 in
    both; K2 and K3 also at part 0 of the unsplit 4-way cut of the
-   16,384-node mesh, the shape their own path runs. K2's records name the
-   geometry that ran (``softmax_spmm_geometry``), a digest of the output
+   16,384-node mesh, the shape their own path runs, and at the widths JAX
+   takes that only the general geometry opened to them (``GENERAL_WIDTHS``
+   at the batch, 48 x 4 and 40 x 8 at the mesh part; 40 x 8 there,
+   ``MESH_GENERAL_SHAPE``, is the shape the general geometry runs on its
+   path and the one its kernels-line entries report). K2's records name the
+   geometry that ran (``softmax_spmm_geometry``, and a general one's
+   columns, ``softmax_spmm_columns``), a digest of the output
    (bit-equal on a second run), the launch floor and the share of the
-   bound; then the f32 K2 in each geometry (``K2_F32_GEOMETRY_CASES`` on
-   the panels batch: within ``SOFTMAX_RTOL``/``ATOL`` of plain, the same
-   bits twice, empty rows exact);
+   bound; then the f32 K2 and K3 in each geometry
+   (``K2_F32_GEOMETRY_CASES`` on the panels batch, views 16- and 4-byte
+   aligned: within ``SOFTMAX_RTOL``/``ATOL`` or ``K3_RTOL``/``ATOL`` of
+   plain, the same bits twice, empty rows and masked edges exact; the
+   f32 K2's cases timed, so the V columns at 256 x 4, 512 x 8 and 32 x 16
+   stand beside the general geometry on 4-byte views of the same widths);
 3. EPD serving: a synthetic cylinder trajectory rolled out by the 15 x 128
    EncodeProcessDecode simulator (random weights from the seed) on the card,
    checked against the same rollout on the CPU, with the launch counts
@@ -54,7 +62,7 @@ and the CUDA toolkit. Phases, each of which raises on failure:
 8. training: ``Trainer`` steps of the 15 x 128 EncodeProcessDecode
    (``training_config/cylinder.json``) on the cylinder batch and of the
    15 x 128, 4-head EncodeTransformDecode (``panels.json``) on the panels_csr
-   batch: 3 warm-up steps, 20 timed ones with the launches per step checked,
+   batch: 3 warm-up steps, 12 timed ones with the launches per step checked,
    the first step against the same step on the CPU from equal weights, and
    a ``torch.profiler`` breakdown of 3 steps;
 9. training pipeline: synthetic trajectories through ``BaseDataset``,
@@ -80,7 +88,7 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     sender-sorted aneurysm-scale graph (66,000 real nodes and 520,000 real
     edges padded to 66,560 / 524,288, 14 features and the node type): the
     first step against the CPU (also with the full-covariance head), 3
-    warm-up and 20 timed steps with 10 fused forward and 10 fused backward
+    warm-up and 12 timed steps with 10 fused forward and 10 fused backward
     launches per step checked, and a profile;
 13. ``gmm_serving``: a 50-frame sampled rollout of that model on a synthetic
     14-feature trajectory at that scale, with its launches checked; two card
@@ -102,7 +110,7 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     features of ``external.build_features``, sender-sorted graphs): the
     XDMF read and the preprocessing timed apart; ``Trainer.fit`` for one
     epoch with rollout validation; the first train step against the CPU
-    (from the epoch's normalizer statistics), 3 warm-up and 20 timed steps
+    (from the epoch's normalizer statistics), 3 warm-up and 12 timed steps
     with 10 fused forward and 10 fused backward launches per step, a
     profile; a reload and ``predict`` over the held-out trajectory
     (launches checked); its first 3 frames with the
@@ -149,7 +157,7 @@ and the CUDA toolkit. Phases, each of which raises on failure:
 19. ``bf16_epd_training``, ``bf16_transformer_training``,
     ``bf16_gmm_training``: ``train`` of ``cylinder.json``, ``panels.json``
     (8 x 2,048 batches) and ``c-a-gmm.json`` (the 66,560-node graph) with
-    ``"precision": "bf16"``: 20 timed steps with the launches checked (the
+    ``"precision": "bf16"``: 12 timed steps with the launches checked (the
     EPD's K1 and K1b f32 entries; the transformers' bf16 attention kernels
     and one transposed CSR a step), the first step against the CPU in bf16
     on one 2,048-node graph, a profile, each beside the f32 phase's
@@ -200,8 +208,11 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     and backward against their plain versions at three parts of a 4-way
     split), ``partitioned_epd_training`` and
     ``partitioned_transformer_training`` (4 ranks sharing the card over
-    gloo, the first step against the unpartitioned card step, 5 timed
-    steps with the launches checked), ``partitioned_rollout`` (10 frames
+    gloo, the first step against the unpartitioned card step, 3 timed
+    steps with the launches checked; the transformer also at hidden 48 in
+    4 heads and 40 in 8, split-edge and unsplit, 2 counted steps each, each
+    first step against the unpartitioned card step at its width and the
+    unsplit first step against the split-edge one), ``partitioned_rollout`` (10 frames
     of each family against the unpartitioned card rollout) and
     ``partitioned_fit`` (``grph-torch train|predict --graph_partition 4``);
 32-37. the serving artifacts, the directory checkpoints and the utilities
@@ -272,10 +283,19 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     with the stream, forward and backward, each new entry and each
     backward entry they take counted once, nothing else.
 
+The kernels are timed first (the bf16 fused kernels and K5 right after the
+others), alone on the card. Then a second process (``chip_parallel.
+start_multirank``) runs phases 17, 27-31 and 38-47, every phase that starts
+ranks, with launch counters of its own, beside the phases that run in this
+one; its output and its phase lines are printed when it ends, before the
+kernels line, so its ranks' times and the times of the phases beside them
+are those of two processes sharing the card and the host.
+
 The K1 phase also times a one-element PyTorch elementwise kernel under the
 same CUDA-graph replay (``launch_floor_ms``): the floor under any kernel's
 time there. Every line but the last is a JSON object (one per phase, with
-the seconds since the line before it as ``phase_s``), apart from the card's
+the seconds since the line before it as ``phase_s``, in the process that
+ran it), apart from the card's
 ``nvidia-smi`` line; the ``{"kernels": [...]}`` line comes just before
 the last line, ``{"ok": true, "device": {...}}``. Exits non-zero, printing
 no result, without a CUDA card or outside the repository. float32 matmuls run
@@ -322,10 +342,16 @@ K3_GRAD_RTOL, K3_GRAD_ATOL = 1e-4, 1e-4
 # K2: online vs two-pass softmax in f32, a few ulps per edge of a row
 SOFTMAX_ATOL = 1e-5
 SOFTMAX_RTOL = 1e-5
-# the f32 K2's geometry checks (width, heads): 16-byte words at one, two
-# and four rows a warp (heads of 32, 16 and 4); D / 32 columns a lane
-# (heads of 2; past 128 wide)
-K2_F32_GEOMETRY_CASES = ((128, 4), (128, 8), (64, 4), (32, 8), (32, 16), (256, 4), (512, 8))
+# the f32 K2's and K3's geometry checks (width, heads, alignment of the
+# values): K2's 16-byte words at one, two and four rows a warp (heads of
+# 32, 16 and 4); D / 32 adjacent columns a lane (heads of 2; past 128 wide;
+# K3's at every multiple of 32 whose heads are whole lanes); the widths JAX
+# takes that needed the general geometry (heads of 4, 5, 12, 32 and 8: K2's
+# words where a head is 4k wide, K3's strided columns), and views only
+# 4-byte aligned (strided columns for both)
+K2_F32_GEOMETRY_CASES = ((128, 4, 16), (128, 8, 16), (64, 4, 16), (32, 8, 16), (32, 16, 16), (256, 4, 16),
+                         (512, 8, 16), (16, 4, 16), (40, 8, 16), (48, 4, 16), (96, 3, 16), (24, 3, 16),
+                         (128, 4, 4), (48, 4, 4), (256, 4, 4), (512, 8, 4))
 # GPU vs CPU rollout, f32 without TF32, first frames
 ROLLOUT_ATOL = 1e-4
 ROLLOUT_RTOL = 1e-4
@@ -360,8 +386,9 @@ PLATE_CONFIG = "training_config/plate.json"
 PLATE_GRID, PLATE_FRAMES = (48, 8), 12
 PLATE_TRAJECTORIES, PLATE_HELD_OUT = 2, 1
 # the worker loader's processes: one core is the training thread's
-PLATE_WORKERS = min(8, (os.cpu_count() or 2) - 1)
+PLATE_WORKERS = min(4, (os.cpu_count() or 2) - 1)  # the host also runs the ranks of the second process
 FIDELITY_SHORT_EPOCHS = 2
+FIDELITY_CONFIGS = ("cylinder", "panels", "plate", "aneurysm")
 # the kernels each fidelity run's model launches
 FIDELITY_KERNELS = {
     "cylinder": ("csr_segment_sum", "csr_segment_sum_backward"),
@@ -371,6 +398,9 @@ FIDELITY_KERNELS = {
 }
 # (width, heads) of the fused kernels' general geometry phases
 GENERAL_WIDTHS = ((48, 4), (96, 3), (40, 8))
+# K2's and K3's general geometry on its path: part 0 of the unsplit 4-way
+# mesh cut at hidden 40 in 8 heads (K2 and K3 strided), the kernels line's shape
+MESH_GENERAL_SHAPE = "mesh_16384_part0_of_4_unsplit_d40_h8"
 # the local widths of panels' 128 wide x 4 heads on 2 and 4 tensor-parallel ranks
 TP_LOCAL_WIDTHS = ((64, 2), (32, 1))
 # the card sampler's statistics: draws of a fixed mixture, and the most
@@ -384,7 +414,8 @@ GMM_SIGMAS = 5.0
 # GMM_TIE_FACTOR times that difference in the checked frames
 GMM_TIE_FACTOR = 4.0
 GMM_SEED_TRIES = 12
-WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS = 3, 20, 3
+# 12 timed steps, cut from 20 to keep the script inside its time limit
+WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS = 3, 12, 3
 # timed steps of the gradient-accumulation phases (each microbatch step
 # about 5-8 training steps' time) and of the ELL phase's two layouts: fewer
 # than TIMED_STEPS, to keep the script inside its time limit
@@ -525,14 +556,16 @@ def emit(obj) -> None:
 
 
 class PhaseClock:
-    """Prints each phase's line with the seconds since the line before it."""
+    """Prints each phase's line with the seconds since the line before it
+    (or hands it to ``sink``)."""
 
-    def __init__(self):
+    def __init__(self, sink=emit):
         self.last = time.perf_counter()
+        self.sink = sink
 
     def emit(self, obj) -> None:
         now = time.perf_counter()
-        emit({**obj, "phase_s": now - self.last})
+        self.sink({**obj, "phase_s": now - self.last})
         self.last = now
 
 
@@ -624,17 +657,16 @@ def _category(kernel: str) -> str:
     return "elementwise_other"
 
 
-def device_breakdown(fn, frames: int, unit: str = "frame", host_ops: bool = True):
+def device_breakdown(fn, frames: int, unit: str = "frame"):
     """Device time of ``fn`` (a rollout of ``frames`` frames, or ``frames``
     train steps with ``unit="step"``) by kernel, from torch.profiler's CUDA
-    activity; None where the profiler saw no kernel. ``host_ops=False``
-    traces the card's activity only, which costs the host less over a long
-    ``fn``."""
+    activity; None where the profiler saw no kernel. The host's operators
+    are not traced: nothing here reads them, and reading their trace back
+    took the host seconds a call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    activities = [ProfilerActivity.CPU] if host_ops else []
-    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     # user-annotated ranges (the optimizer's step) span kernels counted on
@@ -971,16 +1003,18 @@ def k1_geometry_cases(graph, seed) -> list:
     return records
 
 
-def k2_case(name, graph, width, seed):
+def k2_case(name, graph, width, seed, heads=HEADS):
     """Hold csr_softmax_spmm against its plain version on one sender-sorted
     layout, with scores masked as csr_sparse_attention masks them; the
-    record names the geometry that ran and a digest of the output (the
-    same bits on a second run)."""
+    record names the geometry that ran (for a general one, its adjacent or
+    strided columns) and a digest of the output (the same bits on a second
+    run)."""
     from chip_stream import digest
     from graphphysics_torch.ops.csr_attention import (
         NEG,
         csr_softmax_spmm,
         csr_softmax_spmm_reference,
+        softmax_spmm_columns,
         softmax_spmm_geometry,
     )
 
@@ -988,7 +1022,7 @@ def k2_case(name, graph, width, seed):
     seg = torch.as_tensor(graph.senders).to(dev)
     bounds = torch.as_tensor(graph.sender_bounds).to(dev)
     mask = torch.as_tensor(graph.edge_mask).to(dev)
-    e, n, h = seg.shape[0], bounds.shape[1], HEADS
+    e, n, h = seg.shape[0], bounds.shape[1], heads
     gen = torch.Generator(device=dev).manual_seed(seed)
     scores = 3 * torch.randn((e, h), generator=gen, device=dev)
     scores = torch.where(mask[:, None], scores, torch.full((), NEG, device=dev))
@@ -1041,6 +1075,8 @@ def k2_case(name, graph, width, seed):
         "ml_max_abs_err": ml_err,
         "tolerance": {"rtol": SOFTMAX_RTOL, "atol": SOFTMAX_ATOL},
         "geometry": softmax_spmm_geometry(width, h)._asdict(),
+        "columns": (softmax_spmm_columns(width, h, 16) if softmax_spmm_geometry(width, h).kind == "general"
+                    else None),
         "digest": digest(out),
         "ml_digest": digest(ml),
         "bit_equal_twice": True,
@@ -1056,34 +1092,61 @@ def k2_case(name, graph, width, seed):
     }
 
 
-def k2_f32_geometry_cases(graph, seed) -> list:
-    """The f32 K2 in each geometry its rule gives (``K2_F32_GEOMETRY_CASES``)
-    on one sender-sorted layout, scores masked as ``k2_case`` masks them:
-    each within ``SOFTMAX_RTOL``/``ATOL`` of its plain version, the same
-    bits twice, and its rows without a live edge exactly out = 0,
-    m = -1e30, l = 0."""
-    from chip_stream import digest
+def _geometry_case_inputs(graph, width, heads, aligned, seed):
+    """``k2_f32_geometry_cases``' inputs of one case on the card: the
+    layout, scores masked as ``k2_case`` masks them, the values at
+    ``aligned`` bytes."""
+    from chip_stream import view_at
     from graphphysics_torch.ops import csr_attention as ca
 
     dev = torch.device("cuda")
     seg = torch.as_tensor(graph.senders).to(dev)
     bounds = torch.as_tensor(graph.sender_bounds).to(dev)
     mask = torch.as_tensor(graph.edge_mask).to(dev)
-    n, e = bounds.shape[1], seg.shape[0]
+    e = seg.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    scores = torch.where(mask[:, None], 3 * torch.randn((e, heads), generator=gen, device=dev),
+                         torch.full((), ca.NEG, device=dev))
+    values = view_at(torch.randn((e, width), generator=gen, device=dev), aligned)
+    return seg, bounds, mask, scores, values
+
+
+def geometry_case_ms(fn, scores, values, aligned, bytes_moved) -> float:
+    """``device_ms`` of ``fn(scores, values)`` over copies past L2, each
+    copy's values placed at ``aligned`` bytes as the case's own are (a
+    clone would sit at the allocator's alignment and take another
+    geometry)."""
+    from chip_stream import view_at
+
+    copies = copies_past_l2(bytes_moved)
+    inputs = [(scores, values)] + [(scores.clone(), view_at(values, aligned)) for _ in range(copies - 1)]
+    with torch.no_grad():
+        return device_ms(fn, inputs)
+
+
+def k2_f32_geometry_cases(graph, seed) -> list:
+    """The f32 K2 in each geometry its rule gives (``K2_F32_GEOMETRY_CASES``)
+    on one sender-sorted layout, scores masked as ``k2_case`` masks them:
+    each within ``SOFTMAX_RTOL``/``ATOL`` of its plain version, the same
+    bits twice, and its rows without a live edge exactly out = 0,
+    m = -1e30, l = 0; each timed beside its bound (``k2_case``'s bytes),
+    so two geometries of one width stand side by side."""
+    from chip_stream import digest
+    from graphphysics_torch.ops import csr_attention as ca
+
     tol = {"rtol": SOFTMAX_RTOL, "atol": SOFTMAX_ATOL}
     records = []
-    for i, (width, heads) in enumerate(K2_F32_GEOMETRY_CASES):
-        gen = torch.Generator(device=dev).manual_seed(seed + i)
-        scores = torch.where(mask[:, None], 3 * torch.randn((e, heads), generator=gen, device=dev),
-                             torch.full((), ca.NEG, device=dev))
-        values = torch.randn((e, width), generator=gen, device=dev)
+    for i, (width, heads, aligned) in enumerate(K2_F32_GEOMETRY_CASES):
+        seg, bounds, mask, scores, values = _geometry_case_inputs(graph, width, heads, aligned, seed + i)
+        n = bounds.shape[1]
         with torch.no_grad():
             out, ml = ca.csr_softmax_spmm(scores, values, seg, bounds, mask)
             again, again_ml = ca.csr_softmax_spmm(scores, values, seg, bounds, mask)
             want_out, want_ml = ca.csr_softmax_spmm_reference(scores, values, seg, n, mask)
             torch.cuda.synchronize()
-        geometry = ca.softmax_spmm_geometry(width, heads)
-        label = f"width {width}, {heads} heads, {geometry.kind}"
+        geometry = ca.softmax_spmm_geometry(width, heads, aligned)
+        columns = ca.softmax_spmm_columns(width, heads, aligned) if geometry.kind == "general" else None
+        label = f"width {width}, {heads} heads, {aligned}-byte values, {geometry.kind} {columns or ''}"
         errs = [(out - want_out).abs().max().item(), (ml - want_ml).abs().max().item()]
         if not (torch.equal(out, again) and torch.equal(ml, again_ml)):
             raise AssertionError(f"f32 K2 at {label}: not bit-equal on a second run")
@@ -1094,10 +1157,58 @@ def k2_f32_geometry_cases(graph, seed) -> list:
         if not (bool((out[empty] == 0).all()) and bool((ml[:heads, empty] == ca.NEG).all())
                 and bool((ml[heads:, empty] == 0).all())):
             raise AssertionError(f"f32 K2 at {label}: a row without a live edge is not out 0, m -1e30, l 0")
-        records.append({"entry": "csr_softmax_spmm_f32", "width": width, "heads": heads,
-                        "geometry": geometry._asdict(), "max_abs_err": max(errs), "out_ml_max_abs_err": errs,
-                        "tolerance": tol, "bit_equal_twice": True, "empty_rows": int(empty.sum().item()),
-                        "digest": digest(out)})
+        real_edges = int(mask.sum().item())
+        bytes_moved = real_edges * (4 * heads + 4 * width + 1) + n * (4 * width + 8 * heads + 8)
+        ms = geometry_case_ms(lambda s, v: ca.csr_softmax_spmm(s, v, seg, bounds, mask), scores, values, aligned,
+                              bytes_moved)
+        records.append({"entry": "csr_softmax_spmm_f32", "width": width, "heads": heads, "aligned": aligned,
+                        "geometry": geometry._asdict(), "columns": columns, "max_abs_err": max(errs),
+                        "out_ml_max_abs_err": errs, "tolerance": tol, "bit_equal_twice": True,
+                        "empty_rows": int(empty.sum().item()), "digest": digest(out), "ms": ms,
+                        "bound_ms": bytes_moved / H100_BYTES_PER_S * 1e3})
+    return records
+
+
+def k3_f32_geometry_cases(graph, seed) -> list:
+    """K3 at each case of ``K2_F32_GEOMETRY_CASES`` (``k2_f32_geometry_cases``'
+    inputs, the forward's ml and out, a random gradient of out): within
+    ``K3_RTOL``/``ATOL`` of its plain version, the same bits twice, exactly
+    0 on masked and padded edges; each timed beside its bound (``k3_case``'s
+    bytes)."""
+    from chip_stream import digest
+    from graphphysics_torch.ops import csr_attention as ca
+
+    tol = {"rtol": K3_RTOL, "atol": K3_ATOL}
+    records = []
+    for i, (width, heads, aligned) in enumerate(K2_F32_GEOMETRY_CASES):
+        seg, bounds, mask, scores, values = _geometry_case_inputs(graph, width, heads, aligned, seed + i)
+        n = bounds.shape[1]
+        g = torch.randn((n, width), generator=torch.Generator(device="cuda").manual_seed(seed + 100 + i),
+                        device="cuda")
+        with torch.no_grad():
+            out, ml = ca.csr_softmax_spmm(scores, values, seg, bounds, mask)
+            got = ca.csr_softmax_spmm_backward(scores, values, seg, bounds, ml, out, g, mask)
+            again = ca.csr_softmax_spmm_backward(scores, values, seg, bounds, ml, out, g, mask)
+            want = ca.csr_softmax_spmm_backward_reference(scores, values, seg, ml, out, g, mask)
+            torch.cuda.synchronize()
+        columns = ca.softmax_spmm_columns(width, heads, aligned)
+        label = f"width {width}, {heads} heads, {aligned}-byte values, {columns} columns"
+        errs = [(a - b).abs().max().item() for a, b in zip(got, want)]
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"K3 at {label}: not bit-equal on a second run")
+        for a, b in zip(got, want):
+            if not (torch.isfinite(a).all() and bool((a[~mask] == 0).all()) and torch.allclose(a, b, **tol)):
+                raise AssertionError(f"K3 at {label} vs plain dscores/dvalues max_abs_err {errs}, or not 0 "
+                                     "on masked edges")
+        real_edges, e = int(mask.sum().item()), mask.shape[0]
+        bytes_moved = (real_edges * (4 * heads + 4 * width + 1) + n * (8 * width + 8 * heads + 8)
+                       + e * (4 * heads + 4 * width))
+        ms = geometry_case_ms(lambda s, v: ca.csr_softmax_spmm_backward(s, v, seg, bounds, ml, out, g, mask),
+                              scores, values, aligned, bytes_moved)
+        records.append({"entry": "csr_softmax_spmm_bwd_f32", "width": width, "heads": heads, "aligned": aligned,
+                        "columns": columns, "max_abs_err": max(errs), "dscores_dvalues_max_abs_err": errs,
+                        "tolerance": tol, "bit_equal_twice": True, "digest": [digest(t) for t in got], "ms": ms,
+                        "bound_ms": bytes_moved / H100_BYTES_PER_S * 1e3})
     return records
 
 
@@ -1182,24 +1293,28 @@ def k1b_case(name, graph, seed):
     }
 
 
-def k3_case(name, graph, width, seed):
+def k3_case(name, graph, width, seed, heads=HEADS):
     """Hold csr_softmax_spmm_backward against its plain version on one
     sender-sorted layout (scores masked as csr_sparse_attention masks
     them), and autograd through csr_softmax_spmm against autograd of the
-    plain forward."""
+    plain forward; the record names K3's columns (the V-column kernel's
+    adjacent ones, or the general geometry's strided ones) and a digest of
+    the gradients."""
+    from chip_stream import digest
     from graphphysics_torch.ops.csr_attention import (
         NEG,
         csr_softmax_spmm,
         csr_softmax_spmm_backward,
         csr_softmax_spmm_backward_reference,
         csr_softmax_spmm_reference,
+        softmax_spmm_columns,
     )
 
     dev = torch.device("cuda")
     seg = torch.as_tensor(graph.senders).to(dev)
     bounds = torch.as_tensor(graph.sender_bounds).to(dev)
     mask = torch.as_tensor(graph.edge_mask).to(dev)
-    e, n, h = seg.shape[0], bounds.shape[1], HEADS
+    e, n, h = seg.shape[0], bounds.shape[1], heads
     gen = torch.Generator(device=dev).manual_seed(seed)
     scores = 3 * torch.randn((e, h), generator=gen, device=dev)
     scores = torch.where(mask[:, None], scores, torch.full((), NEG, device=dev))
@@ -1263,6 +1378,8 @@ def k3_case(name, graph, width, seed):
         "max_abs_err": max(errs),
         "dscores_dvalues_max_abs_err": errs,
         "tolerance": {"rtol": K3_RTOL, "atol": K3_ATOL},
+        "columns": softmax_spmm_columns(width, h, 16),
+        "digest": [digest(t) for t in got],
         "autograd_max_abs_err": grad_errs,
         "autograd_tolerance": {"rtol": K3_GRAD_RTOL, "atol": K3_GRAD_ATOL},
         "ms": kernel_t,
@@ -1736,7 +1853,7 @@ def train(name, param, batch, counts, expected, seed, grad_rtol, graphs=len(BATC
     """``Trainer`` on one concatenated batch (of ``graphs`` graphs) on the
     card: the first step against the CPU (``first_step``, from the
     normalizer statistics ``stats`` where given), then on a fresh trainer
-    3 warm-up steps and 20 timed ones with every launch count zeroed just
+    3 warm-up steps and TIMED_STEPS timed ones with every launch count zeroed just
     before them and checked just after against ``expected`` (kernel name
     -> launches per step), then a profile of 3 steps. ``check_batch``
     (default ``batch``) is the first step's batch; ``limits`` reach
@@ -2406,7 +2523,7 @@ def plate_pipeline(name, param, counts, seed, workers):
                 # the card runs the same kernels in both fits: one trace
                 # gives the epoch's device time
                 if tag == "in_process":
-                    breakdown = device_breakdown(fit, 1, unit="epoch", host_ops=False)
+                    breakdown = device_breakdown(fit, 1, unit="epoch")
                     device_ms_epoch = None if breakdown is None else breakdown["device_ms_per_epoch"]
                 else:
                     fit()
@@ -2837,7 +2954,7 @@ def large_mesh_training(lever, nodes, counts, seed):
         raise AssertionError(f"large_mesh_training {lever}: the loss did not fall: {losses}")
     ms_per_step = seconds / LARGE_MESH_STEPS * 1e3
     breakdown = device_breakdown(lambda: [trainer.train_step(graph) for _ in range(PROFILED_LARGE_MESH)],
-                                 PROFILED_LARGE_MESH, unit="step", host_ops=False)
+                                 PROFILED_LARGE_MESH, unit="step")
     return {
         "lever": lever, "nodes": nodes, "edges": graph.num_edges, "microbatches": micro,
         "model": f"EncodeTransformDecode {blocks}x64, 4 heads, 2 outputs",
@@ -2854,11 +2971,9 @@ def large_mesh_training(lever, nodes, counts, seed):
     }
 
 
-def bf16_phases(clock, counts, seed, frames, tf_frames, tf_batch, cyl_batch, aneurysm_csr, panels, cylinder,
-                epd_train, tf_train, gmm_train):
-    """This slice's phases: the bf16 kernels, bf16 training of both
-    families and the GMM head, bf16 serving, remat, and the large mesh.
-    Returns (kernel records, path results by name)."""
+def bf16_kernel_cases(clock, seed, tf_frames, tf_batch, aneurysm_csr) -> list:
+    """The bf16 entries of the fused attention at their five shapes
+    (``fused_bf16_case``); returns (forward, backward) records."""
     bf16_kernels = [
         fused_bf16_case("transformer_serving_frame", tf_frames[0], HIDDEN, seed + 40),
         fused_bf16_case("panels_csr_batch_8x2048", tf_batch, HIDDEN, seed + 41),
@@ -2869,7 +2984,14 @@ def bf16_phases(clock, counts, seed, frames, tf_frames, tf_batch, cyl_batch, ane
     for f, b in bf16_kernels:
         clock.emit({"phase": "fused_bf16_kernels", "name": "csr_attention_bf16", **f})
         clock.emit({"phase": "fused_bf16_kernels", "name": "csr_attention_backward_bf16", **b})
+    return bf16_kernels
 
+
+def bf16_phases(clock, counts, seed, frames, tf_frames, tf_batch, cyl_batch, panels, cylinder,
+                epd_train, tf_train, gmm_train):
+    """This slice's phases: bf16 training of both families and the GMM
+    head, bf16 serving, remat, and the large mesh. Returns the path results
+    by name."""
     paths = {}
     blocks = panels["model"]["message_passing_num"]
     epd_blocks = cylinder["model"]["message_passing_num"]
@@ -2940,7 +3062,7 @@ def bf16_phases(clock, counts, seed, frames, tf_frames, tf_batch, cyl_batch, ane
                                      f"the one-graph step's {one} GB")
         clock.emit({"phase": "large_mesh_training", **paths[label]})
         torch.cuda.empty_cache()
-    return bf16_kernels, paths
+    return paths
 
 
 def grad_accum(name, param, graphs, counts, expected, seed, grad_rtol):
@@ -3348,7 +3470,7 @@ def project_before_gather_phase(graph, seed):
     device = {}
     for label, block in (("plain", plain), ("split", split)):
         breakdown = device_breakdown(lambda: [forward_backward(block, *card, dev) for _ in range(5)], 5,
-                                     unit="call", host_ops=False)
+                                     unit="call")
         device[label] = None if breakdown is None else breakdown["device_ms_per_call"]
     result = {
         "nodes": dev.num_nodes, "edges": dev.num_edges, "width": HIDDEN,
@@ -3832,6 +3954,14 @@ def main() -> int:
         k2_case("panels_csr_batch_8x2048", tf_batch, HIDDEN, args.seed + 4),
         k2_case("aneurysm_csr_66560x524288", aneurysm_csr, 64, args.seed + 5),
         k2_case("mesh_16384_part0_of_4_unsplit", mesh_part, HIDDEN, args.seed + 81),
+        # the widths JAX takes that needed the general geometry, at the batch
+        # and at the unsplit mesh part of the partitioned phases' hidden 48
+        *(k2_case(f"panels_csr_batch_8x2048_d{d}_h{h}", tf_batch, d, args.seed + 84 + i, heads=h)
+          for i, (d, h) in enumerate(GENERAL_WIDTHS)),
+        k2_case("mesh_16384_part0_of_4_unsplit_d48_h4", mesh_part, 48, args.seed + 87, heads=4),
+        # the shape K2's general geometry runs on its path: the unsplit
+        # partitioned transformer at hidden 40 in 8 heads, part 0
+        k2_case(MESH_GENERAL_SHAPE, mesh_part, 40, args.seed + 92, heads=8),
     ]
     for s in k2_shapes:
         s["launch_floor_ms"] = floor
@@ -3852,9 +3982,15 @@ def main() -> int:
         k3_case("panels_csr_batch_8x2048", tf_batch, HIDDEN, args.seed + 10),
         k3_case("aneurysm_csr_66560x524288", aneurysm_csr, 64, args.seed + 11),
         k3_case("mesh_16384_part0_of_4_unsplit", mesh_part, HIDDEN, args.seed + 82),
+        *(k3_case(f"panels_csr_batch_8x2048_d{d}_h{h}", tf_batch, d, args.seed + 88 + i, heads=h)
+          for i, (d, h) in enumerate(GENERAL_WIDTHS)),
+        k3_case("mesh_16384_part0_of_4_unsplit_d48_h4", mesh_part, 48, args.seed + 91, heads=4),
+        k3_case(MESH_GENERAL_SHAPE, mesh_part, 40, args.seed + 93, heads=8),
     ]
     for s in k3_shapes:
         clock.emit({"phase": "kernel", "name": "csr_softmax_spmm_backward", **s})
+    for record in k3_f32_geometry_cases(tf_batch, args.seed + 83):
+        clock.emit({"phase": "kernel", "name": "geometry", **record})
     # K2 and K3 run on no transformer path now: their launches are their
     # kernel phases' (the checks, and each captured call of a timing)
     phase_launches = {k: counts[k].launches for k in ("csr_softmax_spmm", "csr_softmax_spmm_backward")}
@@ -3900,6 +4036,30 @@ def main() -> int:
                         "tensor_parallel_local": True, **b})
     fused_shapes += [f for f, _ in tp_widths]
     fused_bwd_shapes += [b for _, b in tp_widths]
+    # 18, 27. the bf16 fused kernels and K5: the last kernels timed, before a
+    # second process shares the card
+    from chip_partition import k5_phase
+
+    bf16_kernels = bf16_kernel_cases(clock, args.seed, tf_frames, tf_batch, aneurysm_csr)
+    k5_shapes, k5_bwd_shapes = k5_phase(clock, args.seed, tf_frames, aneurysm_csr, floor)
+    del aneurysm_csr
+    torch.cuda.empty_cache()
+
+    # 17, 27-31, 38-46. the short fidelity runs and every phase that starts
+    # ranks, in a second process beside the phases below (its lines are
+    # printed when it ends, each with the seconds it took there): partitioned
+    # training, rollouts and the CLI's fit on 4 ranks sharing the card, the
+    # data-parallel steps on 2 and on 2 x 2, tensor and pipeline parallelism
+    # on 2 and 3, the partitioned serving export on 2
+    import atexit
+    import tempfile
+
+    from chip_parallel import finish_multirank, start_multirank, stop_multirank
+
+    multirank_tmp = tempfile.TemporaryDirectory(prefix="multirank_", ignore_cleanup_errors=True)
+    multirank = start_multirank(multirank_tmp.name, args.seed, cylinder, panels, epd_frames, tf_frames,
+                                FIDELITY_CONFIGS)
+    atexit.register(stop_multirank, multirank)  # after a failure here: stop it and its ranks
 
     # 3-4. EPD: serving rollout and batched forward --------------------------------
     epd, result, profile_line = serve(
@@ -4001,8 +4161,6 @@ def main() -> int:
           **gmm_pipeline("gmm_pipeline", panels_gmm, panels_trajectory, counts, args.seed)})
 
     # 15. the XDMF path: both aneurysm configs from their own inline files ----------
-    import tempfile
-
     from graphphysics_torch.topology import cells_to_edges
     from graphphysics_torch.utils.synthetic import tet_grid
 
@@ -4035,43 +4193,9 @@ def main() -> int:
                 "mesh": f"tet_box({PLATE_GRID[0]}, {PLATE_GRID[0]}, {PLATE_GRID[1]}) and the punch",
                 **plate_result})
 
-    # 17. two epochs of each fidelity run ---------------------------------------------
-    fidelity = {}
-    for config in ("cylinder", "panels", "plate", "aneurysm"):
-        label = f"{config}_fidelity_short"
-        fidelity[label] = fidelity_short(label, counts, config)
-        clock.emit({"phase": label, **fidelity[label]})
-
-    # 18-22. bf16 kernels and training, bf16 serving, remat, the large mesh ------------
-    bf16_kernels, bf16_paths = bf16_phases(
-        clock, counts, args.seed, epd_frames, tf_frames, tf_batch, cyl_batch, aneurysm_csr, panels,
-        cylinder, epd_train, tf_train, gmm_train)
-    torch.cuda.empty_cache()
-
-    # 27-31. edge partitioning: K5, partitioned training and rollouts on 4
-    # ranks sharing the card, the CLI's partitioned fit and predict
-    from chip_partition import partition_phases
-
-    k5_shapes, k5_bwd_shapes, partition_paths = partition_phases(
-        clock, args.seed, cylinder, panels, epd_frames, tf_frames, aneurysm_csr, floor)
-    del aneurysm_csr
-    torch.cuda.empty_cache()
-
-    # 38-41. data parallelism: the 1-D data step on 2 ranks sharing the card,
-    # the 2-D data x graph step on 4, parallel validation
-    # 42-46. tensor and pipeline parallelism on 2 and 3 ranks sharing the
-    # card, the partitioned serving export on 2: the 2-rank phases run in
-    # the data-parallel phases' 2-rank spawn
-    import tempfile
-
-    from chip_model_parallel import model_parallel_phases, prepare
-    from chip_parallel import parallel_phases
-
-    with tempfile.TemporaryDirectory(prefix="model_parallel_") as mp_tmp:
-        mp = prepare(args.seed, cylinder, panels, mp_tmp)
-        dp_paths, mp_ranks = parallel_phases(clock, args.seed, cylinder, panels, mp["two_rank"])
-        torch.cuda.empty_cache()
-        mp_paths = model_parallel_phases(clock, mp, mp_ranks, mp_tmp)
+    # 19-22. bf16 training, bf16 serving, remat, the large mesh ------------------------
+    bf16_paths = bf16_phases(clock, counts, args.seed, epd_frames, tf_frames, tf_batch, cyl_batch, panels,
+                             cylinder, epd_train, tf_train, gmm_train)
     torch.cuda.empty_cache()
 
     # 23-26. gradient accumulation, the ELL layout, size buckets, project_before_gather
@@ -4083,9 +4207,11 @@ def main() -> int:
 
     export_paths = utility_phases(clock, counts, args.seed, epd_frames, tf_frames, cyl_batch, tf_batch,
                                   cylinder, panels)
+    multirank_paths = finish_multirank(multirank)
+    multirank_tmp.cleanup()
 
-    def entry(name, source, replaces, launches, shapes, tolerance, **extra):
-        main = shapes[1]  # the 8 x 2,048 batch: the training path's shape
+    def entry(name, source, replaces, launches, shapes, tolerance, main_shape=1, **extra):
+        main = shapes[main_shape]  # the 8 x 2,048 batch: the training path's shape
         return {
             "name": name,
             "route": "cuda",
@@ -4108,11 +4234,8 @@ def main() -> int:
     # steps, of the XDMF and plate pipelines (timed steps, fits and predict,
     # each counted from 0) and of the short fidelity runs
     paths = {"epd_training": epd_train, "transformer_training": tf_train, "gmm_training": gmm_train,
-             **aneurysm_paths, "plate_pipeline": plate_result, **fidelity, **bf16_paths, **feature_paths,
-             **{p: {"launches": launches} for p, launches in partition_paths.items()},
-             **{p: {"launches": launches} for p, launches in dp_paths.items()},
-             **{p: {"launches": launches} for p, launches in mp_paths.items()}, **export_paths,
-             "stream_dtypes": stream_path}
+             **aneurysm_paths, "plate_pipeline": plate_result, **bf16_paths, **feature_paths,
+             **multirank_paths, **export_paths, "stream_dtypes": stream_path}
     launched = {k: sum(r["launches"].get(k, 0) for r in paths.values()) for k in counts}
     by_path = {k: {p: r["launches"].get(k, 0) for p, r in paths.items() if r["launches"].get(k, 0)}
                for k in counts}
@@ -4177,6 +4300,37 @@ def main() -> int:
               launches_by_path=by_path["csr_attention_backward_bf16"],
               also_replaces="the backward of csr_sparse_attention's gathers and SDDMM on bf16 q, k, v"),
     ]}
+    # the general geometry of K2 and K3 (softmax_general.cuh), its launches
+    # from the unsplit partitioned transformer at the widths that take it:
+    # K2's at hidden 40 in 8 heads of 5 (at 48 its 16-byte words run), K3's
+    # at 48 and at 40
+    unsplit = {d: f"partitioned_transformer_training:transformer_unsplit_w{d}" for d in (48, 40)}
+    general_launches = {"csr_softmax_spmm": by_path["csr_softmax_spmm"].get(unsplit[40], 0),
+                        "csr_softmax_spmm_backward": sum(by_path["csr_softmax_spmm_backward"].get(p, 0)
+                                                         for p in unsplit.values())}
+    k2_general = [r for r in k2_shapes if r["columns"] == "strided"]
+    k3_general = [r for r in k3_shapes if r["columns"] == "strided"]
+    # each entry's time, bound and error are those at the path's own shape
+    main = {k: next((i for i, r in enumerate(shapes) if r["shape"] == MESH_GENERAL_SHAPE), None)
+            for k, shapes in (("k2", k2_general), ("k3", k3_general))}
+    if not (all(general_launches.values()) and None not in main.values()):
+        raise AssertionError(f"the general geometry of K2 and K3: launches {general_launches} on the "
+                             f"unsplit partitioned paths, {MESH_GENERAL_SHAPE} among the timed shapes {main}")
+    kernels["kernels"] += [
+        entry("csr_softmax_spmm_general", "graphphysics_torch/csrc/softmax_general.cuh",
+              "graphphysics_tpu/ops/pallas_attention.py:255", general_launches["csr_softmax_spmm"], k2_general,
+              {"rtol": SOFTMAX_RTOL, "atol": SOFTMAX_ATOL}, main_shape=main["k2"],
+              launches_by_path={unsplit[40]: general_launches["csr_softmax_spmm"]},
+              entry_point="csr_softmax_spmm_f32 (csrc/csr_softmax_spmm.cu)",
+              note="K2's general geometry, K5's on one edge set: every D <= 512 with D % H == 0"),
+        entry("csr_softmax_spmm_backward_general", "graphphysics_torch/csrc/softmax_general.cuh",
+              "graphphysics_tpu/ops/pallas_attention.py:398", general_launches["csr_softmax_spmm_backward"],
+              k3_general, {"rtol": K3_RTOL, "atol": K3_ATOL}, main_shape=main["k3"],
+              launches_by_path={p: by_path["csr_softmax_spmm_backward"].get(p, 0) for p in unsplit.values()},
+              entry_point="csr_softmax_spmm_bwd_f32 (csrc/csr_softmax_spmm_bwd.cu)",
+              note="K3's general geometry: per-head sums over strided columns, zeros on masked and "
+                   "uncovered edges"),
+    ]
     # the 16-bit stream modes' entries: launches from their path alone
     for dt in ("bf16", "f16"):
         shapes = streams[f"csr_segment_sum_{dt}"]

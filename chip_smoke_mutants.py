@@ -36,7 +36,15 @@ and single columns, the 4,096-edge hub row); a fault in the f32 K2's
 16-byte words (a lane reading its neighbour's word, each window's last
 live edge dropped) moves K2's kernel-phase check against its plain version
 (``SOFTMAX_RTOL``/``ATOL``) at the panels batch and at part 0 of the
-unsplit mesh cut, and its geometry cases.
+unsplit mesh cut, and its geometry cases; a fault in the general geometry
+of K2 and K3 (``csrc/softmax_general.cuh``: K2's last column slot dropped,
+K3's dot reading a column one stride off, and the forward walk that K2 and
+K5 share reading a column one stride off) moves their geometry cases
+against the plain versions, the partitioned transformer's first steps at
+hidden 48 and 40 against the unpartitioned card step (the fused
+attention; ``STEP_LOSS_RTOL``, ``PARTITIONED_TRANSFORMER_GRAD_RTOL``) and
+its unsplit first step against the split-edge one (``STEP_LOSS_RTOL``,
+``TRANSFORMER_GRAD_RTOL``), which cannot see a fault in the shared walk.
 
 For each fault the tree is copied to a temporary directory, one line of a
 source is replaced there, the kernels are built from the copy and the check
@@ -51,10 +59,11 @@ one CUDA card:
 
     python3 chip_smoke_mutants.py [name prefix]
 
-A name prefix (``k1b``, ``k1f32``, ``k2f32``, ``attn``, ``width``,
-``resume``, ``bf16``, ``microbatch``, ``ell``, ``stream``) runs those
-faults only. K2's and K3's faults are caught by their kernel phases
-against their plain versions: no path of the unpartitioned models runs
+A name prefix (``k1b``, ``k1f32``, ``k2f32``, ``general``, ``attn``,
+``width``, ``resume``, ``bf16``, ``microbatch``, ``ell``, ``stream``) runs
+those faults only. K2's and K3's faults are caught by their kernel phases
+against their plain versions, and the general geometry's also by the
+partitioned transformer's checks: no path of the unpartitioned models runs
 them.
 """
 
@@ -89,6 +98,10 @@ K2_WORD = "w[u] = *reinterpret_cast<const Word*>(values + e * width + col0);"
 K2_SLOT = "if (!live[u]) continue;"
 K2_F32_STEP = "if (live[u]) {"
 K5 = "graphphysics_torch/csrc/csr_softmax_spmm_pair.cu"
+GENERAL = "graphphysics_torch/csrc/softmax_general.cuh"
+GENERAL_OUT = "out[row * width + c] = acc[i] / (l[i] + kEps);"
+GENERAL_DOT = "ve[i] = c < width ? v[c] : 0.0f;"
+GENERAL_WALK = "ve[i] = c < width ? to_f32(v[c]) : 0.0f;"
 K5_WORD = "w[u] = *reinterpret_cast<const Word*>((in_a ? a.values : b.values) + e * width + col0);"
 K5_SLOT = "if (!live[u]) continue;"
 BF16_FWD = "graphphysics_torch/csrc/csr_attention_bf16.cu"
@@ -170,6 +183,25 @@ FAULTS = {
     "k2f32_drops_window_last_live_edge": ("k2f32", K2, K2_F32_STEP, (
         "if (live[u] && [&] { for (int k = u + 1; k < kEdgeGroup; ++k) if (live[k]) return true; "
         "return false; }()) {")),
+    # K2's general geometry (one edge set; K5's two keep theirs): a lane's
+    # last column slot past the first 32 columns writes 0 (D = 40 in 8
+    # heads: columns 32-39)
+    "general_k2_drops_tail_columns": ("general", GENERAL, GENERAL_OUT,
+                                      "out[row * width + c] = NS == 1 && i > 0 && i + 1 == NC ? 0.0f : "
+                                      "acc[i] / (l[i] + kEps);"),
+    # the forward walk K2 and K5 share, unguarded: each edge's value of a
+    # column is read one stride (32 columns) off where one is there (D = 40:
+    # lanes 0-7 of the first slot read columns 32-39), in K2's general
+    # geometry and K5's alike
+    "general_walk_reads_column_one_stride_off": ("general", GENERAL, GENERAL_WALK,
+                                                 "ve[i] = c < width ? to_f32(v[c + kLanes < width ? c + kLanes : c])"
+                                                 " : 0.0f;"),
+    # K3's general geometry (K5's backward keeps its own): each edge's
+    # values . g dot reads a column one stride (32 columns) off where one is
+    # there (D = 48: lanes 0-15 of the first slot read columns 32-47)
+    "general_k3_reads_column_one_stride_off": ("general", GENERAL, GENERAL_DOT,
+                                               "ve[i] = c < width ? v[kZeroFill && c + kLanes < width ? "
+                                               "c + kLanes : c] : 0.0f;"),
     # the fused bf16 stream entry skips its score rounding: the bf16 entry's
     # function again
     "stream_fused_skips_score_rounding": ("stream", BF16_FWD, BF16_SCORE_ROUND, BF16_SCORE_ROUND.replace(
@@ -323,6 +355,77 @@ def read_k2f32_fault(name: str) -> dict:
     return out
 
 
+def read_general_fault(name: str) -> dict:
+    """The general geometry's checks: K2's and K3's geometry cases
+    (``K2_F32_GEOMETRY_CASES`` on the panels batch) with
+    ``SOFTMAX_RTOL``/``ATOL`` and ``K3_RTOL``/``ATOL`` lifted, each strided
+    case's error against its plain version, then the cases at their limits
+    (a fault they catch reported by its message); and the partitioned
+    transformer's first steps at ``chip_partition.WIDTH_STEPS`` (4 ranks
+    sharing the card) with their limits lifted: each layout's against the
+    unpartitioned card step (the fused attention; ``STEP_LOSS_RTOL`` and
+    ``PARTITIONED_TRANSFORMER_GRAD_RTOL``), and the unsplit step (K2, K3)
+    against the split-edge one (K5; ``STEP_LOSS_RTOL`` and
+    ``TRANSFORMER_GRAD_RTOL``), each also with ``STEP_ROUNDOFF_SHARE``
+    (the key bias's gradient against the largest): each reading and
+    whether its check catches the fault."""
+    import pickle
+
+    import chip_partition as cp
+    import chip_smoke as cs
+    from graphphysics_torch.parallel.mesh import launch
+
+    out = {"fault": name}
+    limits = (cs.SOFTMAX_RTOL, cs.SOFTMAX_ATOL, cs.K3_RTOL, cs.K3_ATOL)
+    batch = cs.panels_batch(200)
+    for label, cases in (("k2", cs.k2_f32_geometry_cases), ("k3", cs.k3_f32_geometry_cases)):
+        # 1e30, not inf: inf * 0 is NaN, and a plain zero would then fail
+        cs.SOFTMAX_RTOL = cs.SOFTMAX_ATOL = cs.K3_RTOL = cs.K3_ATOL = 1e30
+        try:
+            out[f"{label}_strided_max_abs_err"] = {
+                f"{r['width']}x{r['heads']}@{r['aligned']}B": r["max_abs_err"]
+                for r in cases(batch, 83) if r["columns"] == "strided"}
+        except AssertionError as err:  # bits twice, empty rows, masked zeros stay
+            out[f"{label}_lifted_caught_by"] = str(err)[:300]
+        cs.SOFTMAX_RTOL, cs.SOFTMAX_ATOL, cs.K3_RTOL, cs.K3_ATOL = limits
+        try:
+            cases(batch, 83)
+            out[f"{label}_geometry_cases"] = "passed"
+        except AssertionError as err:
+            out[f"{label}_geometry_cases_caught_by"] = str(err)[:300]
+    panels = cs.load_config(cs.PANELS_CONFIG)
+    mesh = cp.mesh_graph("csr", 601)
+    refs = cp.width_references(panels, mesh, 0, 1 + cp.LIGHT_TIMED)
+    spec = {"total_steps": 1 + cp.LIGHT_TIMED, "rollouts": {}, "steps": cp.width_cases(panels, mesh, 0)}
+    with tempfile.TemporaryDirectory(prefix="general_fault_") as tmp:
+        spec_path = os.path.join(tmp, "spec.pkl")
+        with open(spec_path, "wb") as f:
+            pickle.dump(spec, f)
+        ranks = []
+        for path in launch(cp.rank_main, cp.PARTS, "cuda", args=(spec_path,), timeout=cp.RANKS_TIMEOUT_S):
+            with open(path, "rb") as f:
+                ranks.append(pickle.load(f))
+    share = cs.STEP_ROUNDOFF_SHARE
+    cs.STEP_ROUNDOFF_SHARE = math.inf  # the key bias's gradient, round-off only when sound
+    widths, _ = cp.width_checks(ranks, panels["model"]["message_passing_num"], refs, math.inf, math.inf, math.inf)
+    cs.STEP_ROUNDOFF_SHARE = share
+    for key, width in widths.items():
+        for check, grad_rtol in (("split_against_unsplit", cs.TRANSFORMER_GRAD_RTOL),
+                                 ("split", cp.PARTITIONED_TRANSFORMER_GRAD_RTOL),
+                                 ("unsplit", cp.PARTITIONED_TRANSFORMER_GRAD_RTOL)):
+            step = width[check]
+            name = check if check == "split_against_unsplit" else f"{check}_against_unpartitioned"
+            out[f"{name}_{key}"] = {
+                "loss_rel_err": step["first_step_loss_rel_err"],
+                "grad_rel_err_worst": step["first_step_grad_rel_err_worst"],
+                "worst_param": step["first_step_grad_worst_param"],
+                "roundoff_share": step["first_step_roundoff_share"],
+                "caught": step["first_step_loss_rel_err"] > cs.STEP_LOSS_RTOL
+                or step["first_step_grad_rel_err_worst"] > grad_rtol
+                or step["first_step_roundoff_share"] > cs.STEP_ROUNDOFF_SHARE}
+    return out
+
+
 def read_stream_fault(name: str) -> dict:
     """The ``stream_dtypes`` phase's checks with their limits lifted: the
     hub row and the 16-bit K1 against its plain version in ulps at the
@@ -434,6 +537,8 @@ def read_fault(model: str, name: str) -> dict:
         return read_k1f32_fault(name)
     if model == "k2f32":
         return read_k2f32_fault(name)
+    if model == "general":
+        return read_general_fault(name)
     cs.STEP_LOSS_RTOL = cs.STEP_ROUNDOFF_SHARE = math.inf
     total_steps = 1 + cs.WARMUP_STEPS + cs.TIMED_STEPS + cs.PROFILED_STEPS
     if model.startswith("bf16transformer"):

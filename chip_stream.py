@@ -59,10 +59,13 @@ K1_WIDTHS = (128, 64, 48, 127)
 K5_GEOMETRY_CASES = ((128, 4, 16), (64, 4, 16), (48, 4, 16), (128, 4, 8), (40, 8, 16), (128, 4, 4))
 # K2's stream (width, heads, alignment of the bf16 values): 16-byte words at
 # two, four and eight rows a warp, 8-byte words (heads of 4; an 8-byte
-# aligned view), and the kernel of V = D/32 columns a lane (a 4-byte aligned
-# view at D = 64, whose 4-byte loads it takes; D = 512)
+# aligned view; heads of 12), the kernel of V = D/32 columns a lane (a
+# 4-byte aligned view at D = 64, whose 4-byte loads it takes; D = 512), and
+# the general geometry's strided columns (heads of 5; a 4-byte view at
+# D = 128, whose 8-byte loads the V columns would need; views of D = 512
+# and 64 narrower than the V columns' loads, timed beside those)
 K2_GEOMETRY_CASES = ((128, 4, 16), (64, 4, 16), (32, 4, 16), (32, 8, 16), (128, 4, 8), (64, 4, 4),
-                     (512, 4, 16))
+                     (512, 4, 16), (48, 4, 16), (40, 8, 16), (128, 4, 4), (512, 4, 4), (64, 4, 2))
 
 
 def _cs():
@@ -344,7 +347,7 @@ def k2_stream_case(name, graph, width, seed):
         copies = cs.copies_past_l2(bytes_)
         f32s = _copies((scores, values), copies)
         b16s = [tuple(t.to(torch.bfloat16) for t in x) for x in f32s]
-        geometry = ca.stream_geometry(width, h, alignment(b16s[0][1]), pair=False)._asdict()
+        geometry = ca.stream_geometry(width, h, alignment(b16s[0][1]))._asdict()
         times = {"ms": cs.device_ms(lambda s, v: ca._launch(s, v, bounds, mask), b16s),
                  "with_casts_ms": cs.device_ms(
                      lambda s, v: ca.csr_softmax_spmm(s, v, seg, bounds, mask, stream_dtype="bf16"), f32s),
@@ -364,7 +367,8 @@ def k2_geometry_cases(graph, seed) -> list:
     sender-sorted layout (``K2_GEOMETRY_CASES``: the bf16 values placed at
     the case's alignment and the entry launched on them): each against its
     plain version at the phase's tolerance, the same bits twice, and
-    farther than that tolerance from the f32 mode."""
+    farther than that tolerance from the f32 mode; each timed beside its
+    bound (``k2_stream_case``'s bytes)."""
     from graphphysics_torch.ops import csr_attention as ca
     from graphphysics_torch.ops.csr_segment import alignment
 
@@ -388,8 +392,9 @@ def k2_geometry_cases(graph, seed) -> list:
             want_out, want_ml = ca.csr_softmax_spmm_reference(s16.float(), v16.float(), seg, n, mask)
             f32_out, _ = ca.csr_softmax_spmm(scores, values, seg, bounds, mask)
             torch.cuda.synchronize()
-        geometry = ca.stream_geometry(width, heads, alignment(v16), pair=False)
+        geometry = ca.stream_geometry(width, heads, alignment(v16))
         label = f"width {width}, {heads} heads, values {alignment(v16)}-byte aligned, {geometry.kind}"
+        bytes_ = int(mask.sum().item()) * (2 * heads + 2 * width + 1) + n * (4 * width + 8 * heads + 8)
         errs = [(out - want_out).abs().max().item(), (ml - want_ml).abs().max().item()]
         if not (torch.equal(out, again) and torch.equal(ml, again_ml)):
             raise AssertionError(f"K2 bf16 stream at {label}: not bit-equal on a second run")
@@ -397,16 +402,22 @@ def k2_geometry_cases(graph, seed) -> list:
                 and torch.allclose(ml, want_ml, **tol)):
             raise AssertionError(f"K2 bf16 stream at {label} vs plain out/ml max_abs_err {errs}")
         records.append({"entry": "csr_softmax_spmm_bf16_stream", "width": width, "heads": heads,
-                        "aligned": alignment(v16), "geometry": geometry._asdict(), "max_abs_err": max(errs),
+                        "aligned": alignment(v16), "geometry": geometry._asdict(),
+                        "columns": (ca.softmax_spmm_columns(width, heads, alignment(v16), 2)
+                                    if geometry.kind == "general" else None),
+                        "max_abs_err": max(errs),
                         "out_ml_max_abs_err": errs, "tolerance": tol, "bit_equal_twice": True,
-                        "digest": digest(out), **_differs(label, out, f32_out, **tol)})
+                        "digest": digest(out), **_differs(label, out, f32_out, **tol),
+                        "ms": cs.geometry_case_ms(lambda s, v: ca._launch(s, v, bounds, mask), s16, v16, aligned,
+                                                  bytes_),
+                        "bound_ms": bytes_ / cs.H100_BYTES_PER_S * 1e3})
     return records
 
 
 def k5_stream_case(name, graph, width, seed):
     """K5's bf16 stream entry (``csr_softmax_spmm_pair_bf16_stream``) on
     part 0 of ``graph``'s 4-way split-edge partition, in the geometry its
-    rule (``pair_stream_geometry``) gives the width and the casts'
+    rule (``stream_geometry``) gives the width and the casts'
     alignment."""
     from chip_partition import k5_inputs
     from graphphysics_torch.ops import csr_attention as ca
@@ -446,7 +457,7 @@ def k5_stream_case(name, graph, width, seed):
         copies = cs.copies_past_l2(bytes_)
         f32s = _copies(args, copies)
         b16s = [tuple(t.to(torch.bfloat16) for t in x) for x in f32s]
-        geometry = ca.pair_stream_geometry(width, h, alignment(b16s[0][1], b16s[0][3]))._asdict()
+        geometry = ca.stream_geometry(width, h, alignment(b16s[0][1], b16s[0][3]))._asdict()
         times = {"ms": cs.device_ms(lambda sa, va, sb, vb: ca._launch_pair(
                      sa, va, bounds[0], masks[0], sb, vb, bounds[1], masks[1]), b16s),
                  "with_casts_ms": cs.device_ms(lambda *a: pair(*a, stream_dtype="bf16"), f32s),
@@ -492,7 +503,7 @@ def k5_geometry_cases(graph, seed) -> list:
             f32_out, _ = ca.csr_softmax_spmm_pair(scores[0], values[0], seg[0], bounds[0], scores[1], values[1],
                                                   seg[1], bounds[1], *masks)
             torch.cuda.synchronize()
-        geometry = ca.pair_stream_geometry(width, heads, alignment(va, vb))
+        geometry = ca.stream_geometry(width, heads, alignment(va, vb))
         label = f"width {width}, {heads} heads, values {alignment(va, vb)}-byte aligned, {geometry.kind}"
         errs = [(out - want_out).abs().max().item(), (ml - want_ml).abs().max().item()]
         if not (torch.equal(out, again) and torch.equal(ml, again_ml)):

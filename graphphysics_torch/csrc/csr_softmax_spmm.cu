@@ -29,9 +29,11 @@
 //
 // Design. One warp or lane group owns one output row, so there are no
 // atomics, nothing is shared between rows, and every sum runs in a fixed
-// order (deterministic). Two geometries, chosen before the launch by width
-// and heads (the rule of ops/csr_attention.py softmax_spmm_geometry):
-// - 16-byte words, where a head's width is a multiple of 4 and D <= 128:
+// order (deterministic). Three geometries, chosen before the launch by
+// width, heads and alignment (the rule of ops/csr_attention.py
+// softmax_spmm_geometry and softmax_spmm_columns):
+// - 16-byte words, where a head's width is a multiple of 4, D <= 128 and
+//   values and out 16-byte aligned:
 //   a lane owns 4 adjacent f32 columns of one head, read as one 16-byte
 //   word an edge (words.cuh, as K1's f32 words), and reads its head's
 //   score once an edge (all lanes of a head the same address). A row takes
@@ -53,14 +55,26 @@
 //   over the 1e-4 it is held to, ReLU inputs within round-off of 0
 //   flipping. A 64-register cap (80 are used), so that part 0's 4,096
 //   row warps fit the card at once, spilled and was 16-21% slower.
-// - V columns, every other width (D = 256 and 512; heads whose width is not
-//   a multiple of 4, as D = 32 in 16 heads of 2): the first design, one
-//   warp a row, each lane V = D/32 contiguous columns inside one head (the
-//   wrapper requires head_dim % V == 0), loaded as one 16- or 8-byte vector
-//   where V allows, so a warp reads each value row as one contiguous
-//   D*4-byte span; the warp walks its row's edges once with the online
-//   softmax: per edge, m' = max(m, s), acc = acc*exp(m - m') + exp(s - m')*v,
-//   l = l*exp(m - m') + exp(s - m'). Masked edges are skipped.
+// - V columns, where D = 32 V, a head's width is a multiple of V and the
+//   values aligned to the loads below (D = 256 and 512; D = 32 in 16 heads
+//   of 2): the first design, one warp a row, each lane V contiguous columns
+//   inside one head, loaded as one 16- or 8-byte vector where V allows
+//   (4 min(4, V & -V) bytes), so a warp reads each value row as one
+//   contiguous D*4-byte span; the warp walks its row's edges once with the
+//   online softmax: per edge, m' = max(m, s), acc = acc*exp(m - m') +
+//   exp(s - m')*v, l = l*exp(m - m') + exp(s - m'). Masked edges are
+//   skipped. It stays beside the general geometry, which takes these
+//   widths too, because it is faster there: on an H100 its f32 forward
+//   took 0.70 and 0.65 of the general geometry's time at D = 256 in 4 heads
+//   and 512 in 8, its bf16 stream 0.55 at 512 in 4 (chip_smoke.py's and
+//   chip_stream.py's geometry cases, the panels batch).
+// - the general geometry (softmax_general.cuh, K5's on one edge set) for
+//   every other width and view with D <= 512 and D % H == 0 (D = 40 in 8
+//   heads of 5; D = 160 in 5 heads of 32, past 128 wide and not whole
+//   5-column lanes; a values view only 4-byte aligned): lane j owns the
+//   columns j, j + 32, ..., one scalar load each, so a warp reads an edge's
+//   value row as 128-byte spans, and takes the same online step an edge
+//   for each of its columns.
 // The first lane of each head writes that head's m and l. The models'
 // attention does not run this entry: csr_attention.cu fuses the q/k/v
 // gathers and the per-edge dot products into the same loop. The unsplit
@@ -91,11 +105,13 @@
 // - 8-byte words, where a head's width is a multiple of 4, D <= 128 and the
 //   values 8-byte aligned (D = 32 with 8 heads of 4): the same with 4
 //   columns a lane.
-// - the V-column kernel on bf16 rows for every other width and view
-//   (D = 512, heads narrower than 4, values only 4-byte aligned): V/8
-//   16-byte loads where V allows, one edge at a time. Its vector loads need
-//   the values aligned to their size (2 min(8, V & -V) bytes): a view that
-//   is not returns cudaErrorMisalignedAddress.
+// - the V-column kernel on bf16 rows where it takes the shape and the
+//   values are aligned to its vector loads (2 min(8, V & -V) bytes; D = 512,
+//   heads narrower than 4): V/8 16-byte loads where V allows, one edge at a
+//   time.
+// - else the general geometry on bf16 rows (D = 40 in 8 heads of 5; values
+//   only 4- or 2-byte aligned), each element read as its own 2-byte load.
+//   With it K2's stream rule is K5's (stream_geometry, the rule of both).
 // Each keeps the invariants above: one warp or lane group owns a row, no
 // atomics, every sum in a fixed order, so two runs give the same bits; an
 // empty row, or one whose edges are all masked, keeps m = -1e30, l = 0 and
@@ -108,6 +124,7 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "softmax_general.cuh"
 #include "words.cuh"
 
 namespace {
@@ -332,19 +349,20 @@ __global__ void forward_words(const T* __restrict__ scores, const T* __restrict_
   }
 }
 
-// The columns of T a lane owns in a word geometry, or 0 for the V-column
-// kernel; `lanes` the lanes a row then takes. f32: 4 (a 16-byte word)
-// where a head is 4k wide and D <= 128 (the rule of ops/csr_attention.py
-// softmax_spmm_geometry); bf16: 8 or 4 where the head width, D and the
-// alignment of values and out allow (stream_geometry, K5's rule).
+// The columns of T a lane owns in a word geometry, or 0 for the others;
+// `lanes` the lanes a row then takes. f32: 4 (a 16-byte word) where a head
+// is 4k wide, D <= 128 and values and out 16-byte aligned (the rule of
+// ops/csr_attention.py softmax_spmm_geometry); bf16: 8 or 4 where the head
+// width, D and the alignment of values and out allow (stream_geometry,
+// K5's rule).
 template <typename T>
 int word_columns(int width, int num_heads, const void* values, const void* out, int& lanes) {
   const int head_dim = width / num_heads;
   for (int w : {8, 4}) {
     if (head_dim % w != 0 || width > kLanes * w) continue;
-    if constexpr (sizeof(T) == 4) {
-      if (w != kF32WordCols) continue;
-    } else if (reinterpret_cast<uintptr_t>(out) % 16 != 0 || reinterpret_cast<uintptr_t>(values) % (2 * w) != 0) {
+    if (sizeof(T) == 4 && w != kF32WordCols) continue;
+    if (reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(values) % (sizeof(T) * w) != 0) {
       continue;
     }
     lanes = 1;
@@ -384,22 +402,14 @@ cudaError_t launch(const void* scores, const void* values, const void* bounds,
 
 // The word geometry of width D, heads and alignment where one applies,
 // else the V-column kernel's instantiation of width D = 32 V for element
-// type T. The f32 entry takes values and out 16-byte aligned (the
-// wrapper's check), else cudaErrorMisalignedAddress.
+// type T where it takes the shape and alignment, else the general geometry
+// (softmax_general.cuh) on one edge set.
 template <typename T>
 int run(const void* scores, const void* values, const void* bounds, const void* mask, void* out,
         void* ml, long long num_rows, long long num_edges, int num_heads, int width,
         void* stream) {
   if (num_rows <= 0) return 0;
-  if (num_heads <= 0 || width % kLanes != 0 || width % num_heads != 0 ||
-      ((width / num_heads) % (width / kLanes)) != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if constexpr (sizeof(T) == 4) {
-    if (reinterpret_cast<uintptr_t>(values) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0) {
-      return static_cast<int>(cudaErrorMisalignedAddress);
-    }
-  }
+  if (!softmax_general::valid(width, num_heads)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int lanes = 0;
   const int w = word_columns<T>(width, num_heads, values, out, lanes);
@@ -413,35 +423,36 @@ int run(const void* scores, const void* values, const void* bounds, const void* 
     return static_cast<int>(launch_words<T, 4>(scores, values, bounds, mask, out, ml, num_rows, num_edges,
                                                num_heads, width, lanes, s));
   }
-  if constexpr (sizeof(T) == 2) {
-    const int v = width / kLanes;
-    const int load = 2 * ((v & -v) < 8 ? (v & -v) : 8);  // bytes of the kernel's vector loads
-    if (reinterpret_cast<uintptr_t>(values) % load != 0) {
-      return static_cast<int>(cudaErrorMisalignedAddress);
-    }
-  }
+  if (softmax_general::v_columns(width, num_heads, sizeof(T), {values})) {
 #define CASE(V) \
   case V:       \
     return static_cast<int>(launch<V, T>(scores, values, bounds, mask, out, ml, num_rows, num_edges, num_heads, s));
-  switch (width / kLanes) {
-    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
-    CASE(9) CASE(10) CASE(11) CASE(12) CASE(13) CASE(14) CASE(15) CASE(16)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+    switch (width / kLanes) {
+      CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+      CASE(9) CASE(10) CASE(11) CASE(12) CASE(13) CASE(14) CASE(15) CASE(16)
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
 #undef CASE
+  }
+  const softmax_general::EdgeSetOf<T> edges{static_cast<const T*>(scores), static_cast<const T*>(values),
+                                            static_cast<const int32_t*>(bounds),
+                                            static_cast<const uint8_t*>(mask), num_edges};
+  return static_cast<int>(softmax_general::launch_forward<1, T>(
+      softmax_general::EdgeSets<T, 1>{{edges}}, static_cast<float*>(out), static_cast<float*>(ml), num_rows,
+      width, num_heads, s));
 }
 
 }  // namespace
 
 // scores [E, H] f32, values [E, D] f32, bounds [2, N] int32, mask [E] bool
 // (or null), out [N, D] f32, ml [2H, N] f32; all device pointers,
-// contiguous, values and out 16-byte aligned (else
-// cudaErrorMisalignedAddress). D = 32*V for V in 1..16, D % H == 0 and
-// (D / H) % V == 0 (the wrapper checks; other shapes return
-// cudaErrorInvalidValue); 16-byte words where a head is 4k wide and
-// D <= 128, else V columns a lane. Launches on `stream` and returns
-// cudaGetLastError() (0 when the launch was accepted).
+// contiguous, of any element alignment. D <= 512 and D % H == 0 (the
+// wrapper checks; other shapes return cudaErrorInvalidValue): 16-byte words
+// where a head is 4k wide, D <= 128 and values and out 16-byte aligned; else
+// V = D/32 columns a lane where a head is whole V-column lanes and the
+// values aligned to their loads; else the general geometry. Launches on
+// `stream` and returns cudaGetLastError() (0 when the launch was accepted).
 extern "C" int csr_softmax_spmm_f32(const void* scores, const void* values,
                                     const void* bounds, const void* mask,
                                     void* out, void* ml, long long num_rows,
@@ -452,9 +463,8 @@ extern "C" int csr_softmax_spmm_f32(const void* scores, const void* values,
 }
 
 // The same with scores [E, H] and values [E, D] in bf16: stream_dtype="bf16",
-// in the 16-byte, 8-byte or V-column geometry by width, heads and
-// alignment (values aligned to the V-column kernel's loads where it runs,
-// else cudaErrorMisalignedAddress). out and ml stay f32.
+// in the 16-byte, 8-byte, V-column or general geometry by width, heads and
+// alignment. out and ml stay f32.
 extern "C" int csr_softmax_spmm_bf16_stream(const void* scores, const void* values,
                                             const void* bounds, const void* mask,
                                             void* out, void* ml, long long num_rows,

@@ -30,25 +30,40 @@
 //   writes  E_pad*(4H + 4D)        dscores and dvalues, padding included.
 //
 // Design. One warp owns one sender row, as in the forward
-// (csr_softmax_spmm.cu): no atomics, nothing shared between warps. Each lane
-// owns V = D/32 contiguous columns, all inside one head, so the 32/H lanes
-// of a head are an aligned group of a power-of-two size, and a head's sums
-// (delta, and per edge the values . g dot) are butterfly shuffles within
-// that group (xor offsets below the group size never leave it). The warp
-// loads the row's g and out once, reduces delta, reads m and l, then walks
-// the row's edges: per edge one 16- or 8-byte vector load of the value
-// columns and one store of dvalues, and the head's first lane stores
-// dscores. The edges no range covers are zeroed by the warp of the row
-// just before them: row r writes zeros to [end_r, start_{r+1}) (the last
-// row up to E, row 0 also [0, start_0)). That covers every edge once
-// because the ranges ascend and do not overlap, as the padding
-// (graphphysics_torch/core/graph.py) and concat_graphs lay them out; the
-// wrapper trusts that layout as the forward does. The models' attention
-// does not run this kernel: csr_attention_bwd.cu fuses the backward of the
-// q/k/v gathers and the per-edge dot products into the same loop.
+// (csr_softmax_spmm.cu): no atomics, nothing shared between warps. Two
+// geometries, chosen before the launch by width, heads and alignment (the
+// rule of ops/csr_attention.py softmax_spmm_columns):
+// - V columns, where D = 32 V, a head's width is a multiple of V and values,
+//   out, g and dvalues are aligned to the vector accesses of V columns
+//   (4 min(4, V & -V) bytes). Each lane owns V = D/32 contiguous columns,
+//   all inside one head, so the 32/H lanes of a head are an aligned group
+//   of a power-of-two size, and a head's sums (delta, and per edge the
+//   values . g dot) are butterfly shuffles within that group (xor offsets
+//   below the group size never leave it). The warp loads the row's g and
+//   out once, reduces delta, reads m and l, then walks the row's edges: per
+//   edge one 16- or 8-byte vector load of the value columns and one store
+//   of dvalues, and the head's first lane stores dscores. The edges no
+//   range covers are zeroed by the warp of the row just before them: row r
+//   writes zeros to [end_r, start_{r+1}) (the last row up to E, row 0 also
+//   [0, start_0)). That covers every edge once because the ranges ascend
+//   and do not overlap, as the padding (graphphysics_torch/core/graph.py)
+//   and concat_graphs lay them out; the wrapper trusts that layout as the
+//   forward does.
+// - The general geometry (softmax_general.cuh, K5's backward on one edge
+//   set) for every other width and view with D <= 512 and D % H == 0 (D =
+//   48 in 4 heads of 12, 96 in 3 of 32, 40 in 8 of 5; values only 4-byte
+//   aligned): lane j owns the columns j, j + 32, ..., a head's sums are
+//   butterflies over the warp or a lane group where its columns are whole
+//   32-column slots or aligned groups, else sums through shared memory; the
+//   same zeros on masked edges and on the edges no range covers.
+// The models' attention does not run this kernel: csr_attention_bwd.cu
+// fuses the backward of the q/k/v gathers and the per-edge dot products
+// into the same loop. The unsplit partitioned attention runs it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "softmax_general.cuh"
 
 namespace {
 
@@ -207,11 +222,13 @@ cudaError_t launch(const void* scores, const void* values, const void* bounds,
 
 // scores [E, H] f32, values [E, D] f32, bounds [2, N] int32, mask [E] bool
 // (or null), ml [2H, N] f32, out [N, D] f32, g [N, D] f32, dscores [E, H]
-// f32, dvalues [E, D] f32; all device pointers, contiguous, the [*, D] ones
-// 16-byte aligned. D = 32*V for V in 1..16, D % H == 0 and (D / H) % V == 0
-// (the wrapper checks; other shapes return cudaErrorInvalidValue). Writes
-// every row of dscores and dvalues when N > 0. Launches on `stream` and
-// returns cudaGetLastError() (0 when the launch was accepted).
+// f32, dvalues [E, D] f32; all device pointers, contiguous. D <= 512 and
+// D % H == 0 (the wrapper checks; other shapes return
+// cudaErrorInvalidValue): V = D/32 columns a lane where a head is whole
+// V-column lanes and the [*, D] arrays aligned to their vector accesses,
+// else the general geometry. Writes every row of dscores and dvalues when
+// N > 0. Launches on `stream` and returns cudaGetLastError() (0 when the
+// launch was accepted).
 extern "C" int csr_softmax_spmm_bwd_f32(const void* scores, const void* values,
                                         const void* bounds, const void* mask,
                                         const void* ml, const void* out, const void* g,
@@ -219,20 +236,27 @@ extern "C" int csr_softmax_spmm_bwd_f32(const void* scores, const void* values,
                                         long long num_edges, int num_heads, int width,
                                         void* stream) {
   if (num_rows <= 0 || num_edges <= 0) return 0;
-  if (num_heads <= 0 || width % kLanes != 0 || width % num_heads != 0 ||
-      ((width / num_heads) % (width / kLanes)) != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (!softmax_general::valid(width, num_heads)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (softmax_general::v_columns(width, num_heads, 4, {values, out, g, dvalues})) {
 #define CASE(V)                                                                        \
   case V:                                                                              \
     return static_cast<int>(launch<V>(scores, values, bounds, mask, ml, out, g, dscores, \
                                       dvalues, num_rows, num_edges, num_heads, s));
-  switch (width / kLanes) {
-    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
-    CASE(9) CASE(10) CASE(11) CASE(12) CASE(13) CASE(14) CASE(15) CASE(16)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+    switch (width / kLanes) {
+      CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+      CASE(9) CASE(10) CASE(11) CASE(12) CASE(13) CASE(14) CASE(15) CASE(16)
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
 #undef CASE
+  }
+  const softmax_general::EdgeSetOf<float> edges{
+      static_cast<const float*>(scores), static_cast<const float*>(values),
+      static_cast<const int32_t*>(bounds), static_cast<const uint8_t*>(mask), num_edges};
+  return static_cast<int>(softmax_general::launch_backward<1, true>(
+      softmax_general::EdgeSets<float, 1>{{edges}},
+      softmax_general::GradSets<1>{{static_cast<float*>(dscores)}, {static_cast<float*>(dvalues)}},
+      static_cast<const float*>(ml), static_cast<const float*>(out), static_cast<const float*>(g), num_rows,
+      width, num_heads, s));
 }

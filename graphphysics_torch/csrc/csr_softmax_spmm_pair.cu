@@ -48,17 +48,17 @@
 // widths) a lane owns D/32 adjacent columns of one head, as K2 and K3
 // (csr_softmax_spmm.cu, csr_softmax_spmm_bwd.cu) do: one score and two
 // exponentials a lane and edge, vector loads, a head's sums a butterfly
-// within its lane group. Every other width takes the general geometry:
-// lane j owns the columns j, j + 32, ... below D (up to 16 of them:
-// D <= 512), so a warp reads an edge's value row as coalesced 128-byte
-// spans, for every D with D % H == 0. Each column keeps its head's running
-// (m, l), which all columns of a head compute alike; the first column of a
-// head writes its m and l. The backward's per-head sums over columns
-// (delta, and per edge the values . g dot) are butterfly shuffles when a
-// head's columns are whole 32-column slots or aligned lane groups (every
-// D = 32k with H | k, and every head width dividing 32), else they go
-// through shared memory; the lane of a head's first column writes its
-// dscores.
+// within its lane group. Every other width takes the general geometry
+// (softmax_general.cuh, on two edge sets; K2 and K3 run it on one): lane j
+// owns the columns j, j + 32, ... below D (up to 16 of them: D <= 512), so
+// a warp reads an edge's value row as coalesced 128-byte spans, for every
+// D with D % H == 0. Each column keeps its head's running (m, l), which all
+// columns of a head compute alike; the first column of a head writes its m
+// and l. The backward's per-head sums over columns (delta, and per edge the
+// values . g dot) are butterfly shuffles when a head's columns are whole
+// 32-column slots or aligned lane groups (every D = 32k with H | k, and
+// every head width dividing 32), else they go through shared memory; the
+// lane of a head's first column writes its dscores.
 //
 // stream_dtype="bf16" (entry csr_softmax_spmm_pair_bf16_stream): JAX's pair
 // runs both partials' K2 in its bf16 stream mode (pallas_attention.py:460,
@@ -68,7 +68,7 @@
 // f32 as the f32 entry does; out and ml stay f32. Its bytes are
 //   E*(2H + 2D + 1) + N*16 + N*(4D + 8H).
 // Three geometries, chosen before the launch by shape and alignment (the
-// rule of ops/csr_attention.py pair_stream_geometry):
+// rule of ops/csr_attention.py stream_geometry, K2's too):
 // - 16-byte words, where a head's width is a multiple of 8, D <= 256 and
 //   both sets' value arrays are 16-byte aligned: a lane owns 8 adjacent
 //   columns of one head, read as one 16-byte word, reads one bf16 score an
@@ -102,236 +102,25 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "softmax_general.cuh"
 #include "words.cuh"
 
 #include <initializer_list>
 
 namespace {
 
-constexpr int kLanes = 32;
-constexpr int kRowsPerBlock = 4;  // warps (rows) per block
-constexpr int kMaxWidth = 512;
-constexpr float kNeg = -1e30f;  // finite -inf stand-in, as the TPU kernel
-constexpr float kEps = 1e-16f;  // the epsilon of segment_softmax
-constexpr int kEdgeGroup = 8;   // edges a lane has in flight (bf16 word geometries)
-constexpr int kWordWarps = 4;   // warps per block (bf16 word geometries)
+constexpr int kEdgeGroup = 8;  // edges a lane has in flight (bf16 word geometries)
+constexpr int kWordWarps = 4;  // warps per block (bf16 word geometries)
 
-template <typename T>
-struct EdgeSetOf {
-  const T* scores;       // [E, H]
-  const T* values;       // [E, D]
-  const int32_t* bounds; // [2, N]
-  const uint8_t* mask;   // [E] or null
-  int64_t num_edges;
-};
+using softmax_general::EdgeSetOf;
+using softmax_general::EdgeSets;
+using softmax_general::GradSets;
+using softmax_general::kEps;
+using softmax_general::kLanes;
+using softmax_general::kNeg;
+using softmax_general::kRowsPerBlock;
+using softmax_general::row_range;
 using EdgeSet = EdgeSetOf<float>;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename S>
-__device__ __forceinline__ void row_range(const S& s, int64_t row, int64_t num_rows,
-                                          int64_t& start, int64_t& end) {
-  start = s.bounds[row];
-  end = s.bounds[num_rows + row];
-  start = start < 0 ? 0 : start;
-  end = end > s.num_edges ? s.num_edges : end;
-}
-
-template <int NC, typename T>
-__device__ __forceinline__ void walk(const EdgeSetOf<T>& s, int64_t start, int64_t end, int width,
-                                     int num_heads, const int (&head)[NC], float (&m)[NC],
-                                     float (&l)[NC], float (&acc)[NC]) {
-  for (int64_t e = start; e < end; ++e) {
-    if (s.mask != nullptr && !s.mask[e]) continue;
-    const T* sc = s.scores + e * num_heads;
-    const T* v = s.values + e * width;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      const int c = threadIdx.x + i * kLanes;
-      if (c < width) {
-        const float x = to_f32(sc[head[i]]);
-        const float m_new = fmaxf(m[i], x);
-        const float alpha = expf(m[i] - m_new);
-        const float p = expf(x - m_new);
-        l[i] = l[i] * alpha + p;
-        acc[i] = acc[i] * alpha + p * to_f32(v[c]);
-        m[i] = m_new;
-      }
-    }
-  }
-}
-
-template <int NC, typename T>
-__global__ void pair_forward_kernel(EdgeSetOf<T> a, EdgeSetOf<T> b, float* __restrict__ out,
-                                    float* __restrict__ ml, int64_t num_rows, int width,
-                                    int num_heads) {
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.y;
-  if (row >= num_rows) return;
-  const int head_dim = width / num_heads;
-  int head[NC];
-  float m[NC], l[NC], acc[NC];
-#pragma unroll
-  for (int i = 0; i < NC; ++i) {
-    const int c = threadIdx.x + i * kLanes;
-    head[i] = c < width ? c / head_dim : 0;
-    m[i] = kNeg;
-    l[i] = 0.0f;
-    acc[i] = 0.0f;
-  }
-  int64_t start, end;
-  row_range(a, row, num_rows, start, end);
-  walk<NC>(a, start, end, width, num_heads, head, m, l, acc);
-  row_range(b, row, num_rows, start, end);
-  walk<NC>(b, start, end, width, num_heads, head, m, l, acc);
-#pragma unroll
-  for (int i = 0; i < NC; ++i) {
-    const int c = threadIdx.x + i * kLanes;
-    if (c < width) {
-      out[row * width + c] = acc[i] / (l[i] + kEps);
-      if (c % head_dim == 0) {
-        ml[head[i] * num_rows + row] = m[i];
-        ml[(num_heads + head[i]) * num_rows + row] = l[i];
-      }
-    }
-  }
-}
-
-// How a row's per-head sums over columns are formed: a head's columns are
-// whole 32-column slots (kWarp: butterfly over the warp, then the slots of
-// a head added in order), aligned lane groups within a slot (kGroup:
-// butterfly within the group), or neither (kShared: through shared memory,
-// each lane adding its columns' head in order).
-enum HeadSums { kWarp = 0, kGroup = 1, kShared = 2 };
-
-__host__ __device__ inline int head_sums_mode(int head_dim) {
-  if (head_dim % kLanes == 0) return kWarp;
-  if (kLanes % head_dim == 0) return kGroup;
-  return kShared;
-}
-
-// sums[i]: the sum of `p` over the head of this lane's column slot i
-// (column threadIdx.x + 32 i; p is 0 past the width), on every lane
-template <int NC>
-__device__ __forceinline__ void column_head_sums(const float (&p)[NC], int mode, int head_dim,
-                                                 int width, float* buf, float (&sums)[NC]) {
-  if (mode == kWarp) {
-    float t[NC];
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      float v = p[i];
-#pragma unroll
-      for (int off = kLanes / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-      t[i] = v;
-    }
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      float v = 0.0f;
-#pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        if ((kLanes * j) / head_dim == (kLanes * i) / head_dim) v += t[j];
-      }
-      sums[i] = v;
-    }
-  } else if (mode == kGroup) {
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      float v = p[i];
-      for (int off = head_dim / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-      sums[i] = v;
-    }
-  } else {
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      const int c = threadIdx.x + i * kLanes;
-      if (c < width) buf[c] = p[i];
-    }
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      const int c = threadIdx.x + i * kLanes;
-      float v = 0.0f;
-      if (c < width) {
-        const int first = (c / head_dim) * head_dim;
-        for (int j = 0; j < head_dim; ++j) v += buf[first + j];
-      }
-      sums[i] = v;
-    }
-  }
-}
-
-template <int NC>
-__device__ __forceinline__ void edge_grads(const EdgeSet& s, float* __restrict__ ds,
-                                           float* __restrict__ dv, int64_t start, int64_t end,
-                                           int width, int num_heads, int head_dim, int mode,
-                                           const int (&head)[NC], const float (&mc)[NC],
-                                           const float (&lc)[NC], const float (&gc)[NC],
-                                           const float (&delta)[NC], float* buf) {
-  for (int64_t e = start; e < end; ++e) {
-    if (s.mask != nullptr && !s.mask[e]) continue;  // its gradients stay 0
-    const float* sc = s.scores + e * num_heads;
-    const float* v = s.values + e * width;
-    float attn[NC], prod[NC];
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      const int c = threadIdx.x + i * kLanes;
-      attn[i] = 0.0f;
-      prod[i] = 0.0f;
-      if (c < width) {
-        attn[i] = expf(sc[head[i]] - mc[i]) / (lc[i] + kEps);
-        dv[e * width + c] = attn[i] * gc[i];
-        prod[i] = v[c] * gc[i];
-      }
-    }
-    float dattn[NC];
-    column_head_sums<NC>(prod, mode, head_dim, width, buf, dattn);
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      const int c = threadIdx.x + i * kLanes;
-      if (c < width && c % head_dim == 0) {
-        ds[e * num_heads + head[i]] = attn[i] * (dattn[i] - delta[i]);
-      }
-    }
-  }
-}
-
-template <int NC>
-__global__ void pair_backward_kernel(EdgeSet a, EdgeSet b, const float* __restrict__ ml,
-                                     const float* __restrict__ out, const float* __restrict__ g,
-                                     float* __restrict__ ds_a, float* __restrict__ dv_a,
-                                     float* __restrict__ ds_b, float* __restrict__ dv_b,
-                                     int64_t num_rows, int width, int num_heads) {
-  __shared__ float shared[kRowsPerBlock][kMaxWidth];
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.y;
-  if (row >= num_rows) return;  // whole warps leave together
-  float* buf = shared[threadIdx.y];
-  const int head_dim = width / num_heads;
-  const int mode = head_sums_mode(head_dim);
-  int head[NC];
-  float gc[NC], mc[NC], lc[NC], og[NC];
-#pragma unroll
-  for (int i = 0; i < NC; ++i) {
-    const int c = threadIdx.x + i * kLanes;
-    head[i] = c < width ? c / head_dim : 0;
-    gc[i] = mc[i] = lc[i] = og[i] = 0.0f;
-    if (c < width) {
-      gc[i] = g[row * width + c];
-      mc[i] = ml[head[i] * num_rows + row];
-      lc[i] = ml[(num_heads + head[i]) * num_rows + row];
-      og[i] = out[row * width + c] * gc[i];
-    }
-  }
-  float delta[NC];
-  column_head_sums<NC>(og, mode, head_dim, width, buf, delta);
-  int64_t start, end;
-  row_range(a, row, num_rows, start, end);
-  edge_grads<NC>(a, ds_a, dv_a, start, end, width, num_heads, head_dim, mode, head, mc, lc, gc,
-                 delta, buf);
-  row_range(b, row, num_rows, start, end);
-  edge_grads<NC>(b, ds_b, dv_b, start, end, width, num_heads, head_dim, mode, head, mc, lc, gc,
-                 delta, buf);
-}
 
 // ---- the contiguous geometry: V = D/32 adjacent columns a lane, all in
 // one head (D % 32 == 0 and (D/H) % V == 0, so H divides 32 and a head's
@@ -567,7 +356,7 @@ __global__ void pair_forward_words(EdgeSetOf<__nv_bfloat16> a, EdgeSetOf<__nv_bf
 
 // The columns a lane owns in the bf16 stream's word geometries (8 or 4),
 // or 0 for the general geometry; `lanes` the lanes a row then takes (the
-// rule of ops/csr_attention.py pair_stream_geometry).
+// rule of ops/csr_attention.py stream_geometry, K2's too).
 int word_columns(int width, int num_heads, std::initializer_list<const void*> values, int& lanes) {
   const int head_dim = width / num_heads;
   for (int w : {8, 4}) {
@@ -590,10 +379,6 @@ bool fast(int width, int num_heads, std::initializer_list<const void*> arrays) {
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
   }
   return true;
-}
-
-bool valid(int width, int num_heads) {
-  return num_heads > 0 && width > 0 && width <= kMaxWidth && width % num_heads == 0;
 }
 
 template <typename T = float>
@@ -622,7 +407,7 @@ extern "C" int csr_softmax_spmm_pair_f32(const void* scores_a, const void* value
                                          long long edges_b, int num_heads, int width,
                                          void* stream) {
   if (num_rows <= 0) return 0;
-  if (!valid(width, num_heads)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!softmax_general::valid(width, num_heads)) return static_cast<int>(cudaErrorInvalidValue);
   const EdgeSet a = edge_set(scores_a, values_a, bounds_a, mask_a, edges_a);
   const EdgeSet b = edge_set(scores_b, values_b, bounds_b, mask_b, edges_b);
   const dim3 block(kLanes, kRowsPerBlock);
@@ -642,19 +427,9 @@ extern "C" int csr_softmax_spmm_pair_f32(const void* scores_a, const void* value
 #undef FAST
     return static_cast<int>(cudaGetLastError());
   }
-#define CASE(NC)                                                                              \
-  case NC:                                                                                    \
-    pair_forward_kernel<NC, float><<<grid, block, 0, s>>>(a, b, static_cast<float*>(out),     \
-                                                   static_cast<float*>(ml), num_rows, width,  \
-                                                   num_heads);                                \
-    break;
-  switch ((width + kLanes - 1) / kLanes) {
-    PAIR_CASES(CASE)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef CASE
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(softmax_general::launch_forward<2, float>(
+      EdgeSets<float, 2>{{a, b}}, static_cast<float*>(out), static_cast<float*>(ml), num_rows, width,
+      num_heads, s));
 }
 
 // The same with both sets' scores and values in bf16 (stream_dtype="bf16"),
@@ -668,7 +443,7 @@ extern "C" int csr_softmax_spmm_pair_bf16_stream(const void* scores_a, const voi
                                                  long long edges_a, long long edges_b,
                                                  int num_heads, int width, void* stream) {
   if (num_rows <= 0) return 0;
-  if (!valid(width, num_heads)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!softmax_general::valid(width, num_heads)) return static_cast<int>(cudaErrorInvalidValue);
   const auto a = edge_set<__nv_bfloat16>(scores_a, values_a, bounds_a, mask_a, edges_a);
   const auto b = edge_set<__nv_bfloat16>(scores_b, values_b, bounds_b, mask_b, edges_b);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -689,20 +464,8 @@ extern "C" int csr_softmax_spmm_pair_bf16_stream(const void* scores_a, const voi
     }
     return static_cast<int>(cudaGetLastError());
   }
-  const dim3 block(kLanes, kRowsPerBlock);
-  const dim3 grid(static_cast<unsigned>((num_rows + kRowsPerBlock - 1) / kRowsPerBlock));
-#define CASE(NC)                                                                              \
-  case NC:                                                                                    \
-    pair_forward_kernel<NC, __nv_bfloat16><<<grid, block, 0, s>>>(a, b, o, st, num_rows,      \
-                                                                  width, num_heads);          \
-    break;
-  switch ((width + kLanes - 1) / kLanes) {
-    PAIR_CASES(CASE)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef CASE
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(softmax_general::launch_forward<2, __nv_bfloat16>(
+      EdgeSets<__nv_bfloat16, 2>{{a, b}}, o, st, num_rows, width, num_heads, s));
 }
 
 // The forward's inputs, its ml and out, and g [N, D] f32; ds_a [Ea, H],
@@ -714,7 +477,7 @@ extern "C" int csr_softmax_spmm_pair_bwd_f32(
     void* dv_b, long long num_rows, long long edges_a, long long edges_b, int num_heads,
     int width, void* stream) {
   if (num_rows <= 0) return 0;
-  if (!valid(width, num_heads)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!softmax_general::valid(width, num_heads)) return static_cast<int>(cudaErrorInvalidValue);
   const EdgeSet a = edge_set(scores_a, values_a, bounds_a, mask_a, edges_a);
   const EdgeSet b = edge_set(scores_b, values_b, bounds_b, mask_b, edges_b);
   const dim3 block(kLanes, kRowsPerBlock);
@@ -736,18 +499,10 @@ extern "C" int csr_softmax_spmm_pair_bwd_f32(
 #undef FAST
     return static_cast<int>(cudaGetLastError());
   }
-#define CASE(NC)                                                                              \
-  case NC:                                                                                    \
-    pair_backward_kernel<NC><<<grid, block, 0, s>>>(                                          \
-        a, b, static_cast<const float*>(ml), static_cast<const float*>(out),                  \
-        static_cast<const float*>(g), static_cast<float*>(ds_a), static_cast<float*>(dv_a),   \
-        static_cast<float*>(ds_b), static_cast<float*>(dv_b), num_rows, width, num_heads);    \
-    break;
-  switch ((width + kLanes - 1) / kLanes) {
-    PAIR_CASES(CASE)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef CASE
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(softmax_general::launch_backward<2, false>(
+      EdgeSets<float, 2>{{a, b}},
+      GradSets<2>{{static_cast<float*>(ds_a), static_cast<float*>(ds_b)},
+                  {static_cast<float*>(dv_a), static_cast<float*>(dv_b)}},
+      static_cast<const float*>(ml), static_cast<const float*>(out), static_cast<const float*>(g),
+      num_rows, width, num_heads, s));
 }

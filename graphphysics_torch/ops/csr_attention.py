@@ -46,10 +46,13 @@ online-softmax statistics ``ml = [m; l]`` (``[2H, N]``). Its backward is
 ``csr_softmax_spmm_backward`` (the JAX ``_bwd``: per node the
 flash-attention ``delta = <out, g>`` per head, then per-edge math against
 the saved ``(m, l)``). On CUDA they launch ``csrc/csr_softmax_spmm.cu``
-(in 16-byte words of 4 columns of one head a lane, 8 edges in flight,
-where a head is 4k wide and D <= 128; D/32 columns a lane otherwise:
-``softmax_spmm_geometry``) and ``csrc/csr_softmax_spmm_bwd.cu``; on the
-CPU they take
+and ``csrc/csr_softmax_spmm_bwd.cu`` at every ``D <= MAX_WIDTH`` with
+``D % H == 0``: the forward in 16-byte words of 4 columns of one head a
+lane, 8 edges in flight, where a head is 4k wide and D <= 128
+(``softmax_spmm_geometry``), else both in D/32 adjacent columns a lane
+where the width and alignment allow, else in the general geometry of
+``csrc/softmax_general.cuh``, K5's, lane j the columns j, j + 32, ...
+(``softmax_spmm_columns``); on the CPU they take
 ``csr_softmax_spmm_reference`` and ``csr_softmax_spmm_backward_reference``.
 The unsplit partitioned attention runs them, segmenting by receivers
 (``ops.attention``). ``csr_softmax_spmm_pair`` (K5) is the same function
@@ -275,12 +278,8 @@ def _check_cuda_args(op, scores, values, segments, bounds, mask) -> None:
     d = values.shape[1]
     if values.shape[0] != e:
         fail(f"values has {values.shape[0]} rows, scores {e}")
-    if d == 0 or d % 32 or d > MAX_WIDTH:
-        fail(f"width D={d} must be a positive multiple of 32, at most {MAX_WIDTH}")
-    if h == 0 or d % h or (d // h) % (d // 32):
-        fail(f"head_dim D/H = {d}/{h} must be a multiple of D/32 = {d // 32}")
-    if values.data_ptr() % 16:
-        fail("values must be 16-byte aligned")
+    if h == 0 or d == 0 or d > MAX_WIDTH or d % h:
+        fail(f"width D={d} must be at most {MAX_WIDTH} and a multiple of H={h}")
     if segments.shape != (e,):
         fail(f"segments must be [{e}], got {tuple(segments.shape)}")
     if bounds.dim() != 2 or bounds.shape[0] != 2:
@@ -465,9 +464,9 @@ def csr_softmax_spmm(
     ``Graph.sender_bounds``, or a partitioned part's receiver-sorted
     ``row_bounds``), so every unmasked edge must lie in its segment's
     range. A CUDA tensor launches the
-    Hopper kernel (float32, D a multiple of 32 up to 512 with a head_dim that
-    is a multiple of D/32, values 16-byte aligned; in the geometry
-    ``softmax_spmm_geometry`` gives) and adds one to
+    Hopper kernel (float32, D up to 512 and a multiple of H, any alignment;
+    in the geometry ``softmax_spmm_geometry`` and ``softmax_spmm_columns``
+    give) and adds one to
     ``csr_softmax_spmm.launches``; it trusts the layout (build graphs with
     ``pad_graph_csr_np``). A CPU tensor
     checks that precondition and takes ``csr_softmax_spmm_reference``.
@@ -962,30 +961,25 @@ def bf16_geometry(width: int, heads: int, interleaved: bool, aligned: bool = Tru
     return found[0] if found else None
 
 
-def stream_geometry(width: int, heads: int, aligned: int, pair: bool = True) -> Optional[SumGeometry]:
+def stream_geometry(width: int, heads: int, aligned: int) -> Optional[SumGeometry]:
     """The geometry a bf16 stream entry runs ``width`` columns in ``heads``
     heads with, where the bf16 value arrays are ``aligned``-byte aligned
     (``csr_segment.alignment``; ``out`` is the wrapper's own, 16-byte
-    aligned): K5's (``csr_softmax_spmm_pair_bf16_stream``, ``pair``) or
-    K2's (``csr_softmax_spmm_bf16_stream``), as ``csrc/csr_softmax_spmm_pair.cu``
-    and ``csrc/csr_softmax_spmm.cu`` choose it. Both: "words16" (8 bf16
-    columns of one head a lane, one 16-byte word) where the head width is a
-    multiple of 8, D <= 256 and the values 16-byte aligned; else "words8"
-    (4 columns, 8-byte words) where the head width is a multiple of 4,
+    aligned): K5's (``csr_softmax_spmm_pair_bf16_stream``) and K2's
+    (``csr_softmax_spmm_bf16_stream``) alike, as ``csrc/csr_softmax_spmm_pair.cu``
+    and ``csrc/csr_softmax_spmm.cu`` choose it. "words16" (8 bf16 columns of
+    one head a lane, one 16-byte word) where the head width is a multiple
+    of 8, D <= 256 and the values 16-byte aligned; else "words8" (4
+    columns, 8-byte words) where the head width is a multiple of 4,
     D <= 128 and the values 8-byte aligned; a row takes ``D / columns``
     lanes rounded up to a power of two, 32 / lanes rows a warp, 8 edges in
     flight. Else "general", a warp a row, one edge at a time, ``ceil(D /
-    32)`` columns a lane: K5's lane j the columns j, j + 32, ..., K2's
-    adjacent ones. None where the entry takes neither: past ``MAX_WIDTH``,
-    H not dividing D; for K2 also D not a multiple of 32 or a head not
-    whole ``D / 32``-column lanes (its kernel's instantiations), and a
-    general geometry whose vector loads (``2 min(8, V & -V)`` bytes,
-    ``V = D / 32``) the alignment does not take."""
+    32)`` columns a lane: lane j the columns j, j + 32, ... (K5, and K2
+    where ``softmax_spmm_columns`` says "strided"), or K2's V adjacent
+    ones ("adjacent"). None past ``MAX_WIDTH`` or where H does not divide D."""
     if not 0 < width <= MAX_WIDTH or heads <= 0 or width % heads:
         return None
     head_dim = width // heads
-    if not pair and (width % WARP or head_dim % (width // WARP)):
-        return None
     for cols, kind in ((8, "words16"), (4, "words8")):
         if head_dim % cols or width > WARP * cols or aligned % (2 * cols):
             continue
@@ -993,41 +987,47 @@ def stream_geometry(width: int, heads: int, aligned: int, pair: bool = True) -> 
         while lanes * cols < width:
             lanes *= 2
         return SumGeometry(kind, cols, lanes, WARP // lanes, EDGE_GROUP)
-    columns = -(-width // WARP)
-    if not pair and aligned % (2 * min(8, columns & -columns)):
-        return None
-    return SumGeometry("general", columns, WARP, 1, 1)
+    return SumGeometry("general", -(-width // WARP), WARP, 1, 1)
 
 
-def softmax_spmm_geometry(width: int, heads: int) -> Optional[SumGeometry]:
+def softmax_spmm_geometry(width: int, heads: int, aligned: int = VECTOR_ALIGNMENT) -> Optional[SumGeometry]:
     """The geometry K2's f32 entry (``csr_softmax_spmm_f32``) runs ``width``
-    columns in ``heads`` heads with, as ``csrc/csr_softmax_spmm.cu`` chooses
-    it: "words16" (4 f32 columns of one head a lane, one 16-byte word)
-    where the head width is a multiple of 4 and D <= 128, a row taking
-    ``D / 4`` lanes rounded up to a power of two, 32 / lanes rows a warp, 8
-    edges in flight; else "general", a warp a row, one edge at a time, the
-    ``D / 32`` adjacent columns of one head a lane. None where the entry
-    takes neither: D not a positive multiple of 32 up to ``MAX_WIDTH``, H
-    not dividing D, a head not whole ``D / 32``-column lanes. The wrapper
-    hands the kernel 16-byte aligned values and out, so alignment does not
-    enter the rule."""
-    if not 0 < width <= MAX_WIDTH or width % WARP or heads <= 0 or width % heads:
+    columns in ``heads`` heads with, where the values are ``aligned``-byte
+    aligned (``out`` is the wrapper's own, 16-byte aligned), as
+    ``csrc/csr_softmax_spmm.cu`` chooses it: "words16" (4 f32 columns of one
+    head a lane, one 16-byte word) where the head width is a multiple of 4,
+    D <= 128 and the values 16-byte aligned, a row taking ``D / 4`` lanes
+    rounded up to a power of two, 32 / lanes rows a warp, 8 edges in flight;
+    else "general", a warp a row, one edge at a time, ``ceil(D / 32)``
+    columns a lane, adjacent or strided as ``softmax_spmm_columns`` says.
+    None past ``MAX_WIDTH`` or where H does not divide D."""
+    if not 0 < width <= MAX_WIDTH or heads <= 0 or width % heads:
         return None
-    head_dim = width // heads
-    columns = width // WARP
-    if head_dim % columns:
-        return None
-    if head_dim % F32_WORD_COLUMNS == 0 and width <= WARP * F32_WORD_COLUMNS:
+    if (width // heads) % F32_WORD_COLUMNS == 0 and width <= WARP * F32_WORD_COLUMNS and aligned % 16 == 0:
         lanes = 1
         while lanes * F32_WORD_COLUMNS < width:
             lanes *= 2
         return SumGeometry("words16", F32_WORD_COLUMNS, lanes, WARP // lanes, EDGE_GROUP)
-    return SumGeometry("general", columns, WARP, 1, 1)
+    return SumGeometry("general", -(-width // WARP), WARP, 1, 1)
 
 
-def pair_stream_geometry(width: int, heads: int, aligned: int) -> Optional[SumGeometry]:
-    """K5's ``stream_geometry``."""
-    return stream_geometry(width, heads, aligned)
+def softmax_spmm_columns(width: int, heads: int, aligned: int, itemsize: int = 4) -> str:
+    """Which kernel a "general" geometry of K2 (f32, ``itemsize`` 4, or the
+    bf16 stream, 2) or of K3 (f32) is, for values ``aligned``-byte aligned,
+    as ``csrc/csr_softmax_spmm.cu`` and ``csr_softmax_spmm_bwd.cu`` choose
+    it: "adjacent", the V-column kernel (``V = D / 32`` contiguous
+    columns of one head a lane, vector loads), where D = 32 V, a head is
+    whole V-column lanes and the values aligned to those loads
+    (``itemsize * min(16 / itemsize, V & -V)`` bytes); else "strided", the
+    general geometry (``csrc/softmax_general.cuh``, K5's on one edge set:
+    lane j the columns j, j + 32, ..., a scalar load each), which takes
+    every D <= ``MAX_WIDTH`` with D % H == 0 and any alignment. K3's other
+    arrays (out, g: 16-byte aligned, the wrapper checks; dvalues its own)
+    take every load."""
+    v = width // WARP
+    if width % WARP or (width // heads) % v:
+        return "strided"
+    return "adjacent" if aligned % (itemsize * min(16 // itemsize, v & -v)) == 0 else "strided"
 
 
 # the fused kernels' entries by element type, and the byte alignment each

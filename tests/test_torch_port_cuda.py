@@ -189,7 +189,7 @@ def test_softmax_spmm_kernel_matches_plain(cuda, n, e, d, h, hi, n_pad, e_pad):
 
 def test_softmax_spmm_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     from graphphysics_torch.ops.attention import sparse_graph_attention
-    from graphphysics_torch.ops.csr_attention import csr_softmax_spmm
+    from graphphysics_torch.ops.csr_attention import csr_softmax_spmm, csr_softmax_spmm_reference
 
     g, scores, values, mask = _csr_case(128, 500, 64, 4, seed=0, n_pad=128, e_pad=512)
     seg = torch.from_numpy(g.senders).to(cuda)
@@ -197,11 +197,16 @@ def test_softmax_spmm_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     s, v = scores.to(cuda), values.to(cuda)
     with pytest.raises(ValueError, match="float32"):
         csr_softmax_spmm(s.double(), v, seg, bounds)
-    with pytest.raises(ValueError, match="positive multiple of 32"):
-        csr_softmax_spmm(s, v[:, :48].contiguous(), seg, bounds)
+    # D = 48 (heads of 12), refused before the general geometry: taken now
+    # (the padding edges masked, as the ranges leave them out)
+    v48, m = v[:, :48].contiguous(), torch.from_numpy(g.edge_mask).to(cuda)
+    out, ml = csr_softmax_spmm(s, v48, seg, bounds, m)
+    want, want_ml = csr_softmax_spmm_reference(s, v48, seg, g.num_nodes, m)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ml, want_ml, rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="at most 512"):
         csr_softmax_spmm(s, torch.zeros(512, 640, device=cuda), seg, bounds)
-    with pytest.raises(ValueError, match="head_dim"):
+    with pytest.raises(ValueError, match="multiple of H"):
         csr_softmax_spmm(s[:, :3].contiguous(), v, seg, bounds)
     with pytest.raises(ValueError, match="contiguous"):
         csr_softmax_spmm(s, torch.zeros(64, 512, device=cuda).t(), seg, bounds)
@@ -1352,7 +1357,7 @@ def test_pair_stream_geometries_match_plain(cuda, width, heads, aligned, kind):
         parts.append((scores[i].to(cuda, torch.bfloat16), view_at(values[i].to(cuda, torch.bfloat16), aligned),
                       seg[i].to(cuda, torch.int32), torch.from_numpy(rng).to(cuda), mask[i].to(cuda)))
     (sa, va, ga, ba, ma), (sb, vb, gb, bb, mb) = parts
-    assert ca.pair_stream_geometry(width, heads, alignment(va, vb)).kind == kind
+    assert ca.stream_geometry(width, heads, alignment(va, vb)).kind == kind
     out, ml = ca._launch_pair(sa, va, ba, ma, sb, vb, bb, mb)
     again, again_ml = ca._launch_pair(sa, va, ba, ma, sb, vb, bb, mb)
     assert torch.equal(out, again) and torch.equal(ml, again_ml)
@@ -1372,6 +1377,11 @@ def test_pair_stream_geometries_match_plain(cuda, width, heads, aligned, kind):
         (128, 4, 8, "words8"),  # 8-byte aligned values
         (64, 4, 4, "general"),  # 4-byte aligned values: 4-byte loads of 2 columns
         (512, 4, 16, "general"),  # past 32 words
+        (48, 4, 16, "words8"),  # heads of 12: 12 lanes of 16 (refused before the general geometry)
+        (96, 3, 16, "words16"),  # heads of 32: 12 lanes of 16
+        (40, 8, 16, "general"),  # heads of 5: strided columns
+        (128, 4, 4, "general"),  # strided: 8-byte loads of 4 columns on a 4-byte view
+        (512, 4, 8, "general"),  # strided: 16-byte loads on an 8-byte view
     ],
 )
 def test_softmax_spmm_stream_geometries_match_plain(cuda, width, heads, aligned, kind):
@@ -1390,7 +1400,7 @@ def test_softmax_spmm_stream_geometries_match_plain(cuda, width, heads, aligned,
     s = torch.where(m[:, None], scores.to(cuda), torch.full((), ca.NEG, device=cuda))
     v = values.to(cuda)
     s16, v16 = s.to(torch.bfloat16), view_at(v.to(torch.bfloat16), aligned)
-    assert ca.stream_geometry(width, heads, alignment(v16), pair=False).kind == kind
+    assert ca.stream_geometry(width, heads, alignment(v16)).kind == kind
     out, ml = ca._launch(s16, v16, bounds, m)
     again, again_ml = ca._launch(s16, v16, bounds, m)
     assert torch.equal(out, again) and torch.equal(ml, again_ml)
@@ -1401,19 +1411,26 @@ def test_softmax_spmm_stream_geometries_match_plain(cuda, width, heads, aligned,
     assert not torch.allclose(out, f32, rtol=1e-5, atol=1e-5)
 
 
-def test_softmax_spmm_stream_refuses_a_view_its_loads_do_not_take(cuda):
-    """K2's bf16 stream entry returns an error, and the wrapper raises, for
-    values whose alignment neither the word geometries nor the V-column
-    kernel's vector loads take (D = 128, 4 heads, a 4-byte aligned view)."""
+def test_softmax_spmm_stream_takes_a_view_its_vector_loads_do_not(cuda):
+    """Values whose alignment neither the word geometries nor the V-column
+    kernel's vector loads take (D = 128, 4 heads, a 4-byte aligned bf16
+    view), which K2's bf16 stream entry refused before, take the general
+    geometry's strided columns: against the plain version, the same bits
+    twice."""
     from chip_stream import view_at
     from graphphysics_torch.ops import csr_attention as ca
 
     g, scores, values, mask = _csr_case(128, 500, 128, 4, seed=0, n_pad=128, e_pad=512)
-    bounds = torch.from_numpy(g.sender_bounds).to(cuda)
-    v16 = view_at(values.to(cuda, torch.bfloat16), 4)
-    assert ca.stream_geometry(128, 4, 4, pair=False) is None
-    with pytest.raises(RuntimeError, match="csr_softmax_spmm_bf16_stream kernel launch failed"):
-        ca._launch(scores.to(cuda, torch.bfloat16), v16, bounds, mask.to(cuda))
+    seg, bounds, m = (torch.from_numpy(a).to(cuda) for a in (g.senders, g.sender_bounds, mask.numpy()))
+    s16, v16 = scores.to(cuda, torch.bfloat16), view_at(values.to(cuda, torch.bfloat16), 4)
+    assert ca.stream_geometry(128, 4, 4).kind == "general"
+    assert ca.softmax_spmm_columns(128, 4, 4, itemsize=2) == "strided"
+    out, ml = ca._launch(s16, v16, bounds, m)
+    again, again_ml = ca._launch(s16, v16, bounds, m)
+    assert torch.equal(out, again) and torch.equal(ml, again_ml)
+    want, want_ml = ca.csr_softmax_spmm_reference(s16.float(), v16.float(), seg, g.num_nodes, m)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ml, want_ml, rtol=1e-5, atol=1e-5)
 
 
 F32_GEOMETRY_CASES = [
@@ -1424,6 +1441,9 @@ F32_GEOMETRY_CASES = [
     (32, 16, "general"),  # heads of 2: one column a lane
     (256, 4, "general"),  # 8 columns a lane
     (512, 8, "general"),  # 16 columns a lane
+    (40, 8, "general"),  # heads of 5: strided columns (refused before the general geometry)
+    (48, 4, "words16"),  # heads of 12: 12 lanes of 16
+    (96, 3, "words16"),  # heads of 32: 24 lanes of 32
 ]
 
 
@@ -1496,20 +1516,32 @@ def test_softmax_spmm_f32_hub_row_matches_plain(cuda, width):
     assert float(ml[heads:, 0].min()) > 1.0
 
 
-def test_softmax_spmm_f32_refuses_a_view_not_16_byte_aligned(cuda):
-    """The f32 wrapper raises for values that are not 16-byte aligned, and
-    the entry itself returns an error for them (words and V columns)."""
+def test_softmax_spmm_f32_takes_a_view_not_16_byte_aligned(cuda):
+    """f32 values that are not 16-byte aligned, which the wrapper refused
+    before the general geometry: taken now, by the public call and by the
+    entry itself, in the strided general geometry (D = 128: no 16-byte
+    words; D = 256: 8 columns a lane would load 16 bytes), against the
+    plain version, K3 on them against its plain version."""
     from chip_stream import view_at
     from graphphysics_torch.ops import csr_attention as ca
 
     for width, heads in ((128, 4), (256, 4)):
         g, scores, values, mask = _csr_case(128, 500, width, heads, seed=0, n_pad=128, e_pad=512)
         seg, bounds = torch.from_numpy(g.senders).to(cuda), torch.from_numpy(g.sender_bounds).to(cuda)
-        s, v = scores.to(cuda), view_at(values.to(cuda), 8)
-        with pytest.raises(ValueError, match="16-byte aligned"):
-            ca.csr_softmax_spmm(s, v, seg, bounds, mask.to(cuda))
-        with pytest.raises(RuntimeError, match="csr_softmax_spmm_f32 kernel launch failed"):
-            ca._launch(s, v, bounds, mask.to(cuda))
+        s, v, m = scores.to(cuda), view_at(values.to(cuda), 8), mask.to(cuda)
+        assert ca.softmax_spmm_geometry(width, heads, 8).kind == "general"
+        assert ca.softmax_spmm_columns(width, heads, 8) == "strided"
+        out, ml = ca.csr_softmax_spmm(s, v, seg, bounds, m)
+        direct, direct_ml = ca._launch(s, v, bounds, m)
+        assert torch.equal(out, direct) and torch.equal(ml, direct_ml)
+        want, want_ml = ca.csr_softmax_spmm_reference(s, v, seg, g.num_nodes, m)
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(ml, want_ml, rtol=1e-5, atol=1e-5)
+        cot = torch.randn((g.num_nodes, width), device=cuda, generator=torch.Generator(device=cuda).manual_seed(2))
+        got = ca.csr_softmax_spmm_backward(s, v, seg, bounds, ml, out, cot, m)
+        for a, b in zip(got, ca.csr_softmax_spmm_backward_reference(s, v, seg, ml, out, cot, m)):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+            assert torch.all(a[~m] == 0)
 
 
 @pytest.mark.parametrize("width,heads", [(128, 4), (64, 4), (32, 16)])
@@ -1537,6 +1569,72 @@ def test_softmax_spmm_f32_autograd_matches_plain(cuda, width, heads):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
+# (D, H) that JAX's K2 takes and the port's K2 and K3 refused before the
+# general geometry: heads of 4, 5, 12, 32 and 8
+GENERAL_WIDTHS = [(16, 4), (40, 8), (48, 4), (96, 3), (24, 3)]
+
+
+@pytest.mark.parametrize("aligned", [16, 4])
+@pytest.mark.parametrize("stream_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("width,heads", GENERAL_WIDTHS)
+def test_softmax_spmm_general_widths_match_plain(cuda, width, heads, stream_dtype, aligned):
+    """K2 (f32 and bf16 stream entries) and K3 at the widths that only JAX
+    took, on values ``aligned``-byte aligned (a 4-byte view: no vector
+    loads): the forward against its plain version, the same bits twice,
+    empty rows and a row of only masked edges exactly out = 0, m = -1e30,
+    l = 0; K3 against its plain version with exact zeros on masked and
+    padded edges, the same bits twice; autograd through the public call
+    against autograd through the plain version, one launch of each."""
+    from chip_stream import view_at
+    from graphphysics_torch.ops import csr_attention as ca
+    from graphphysics_torch.ops.csr_segment import alignment
+
+    seg, bounds, m, s, v, n, empty = _f32_rows_case(width, heads, cuda)
+    v = view_at(v, aligned)
+    bf16 = stream_dtype == "bf16"
+    assert alignment(v) == aligned
+    kind = ca.stream_geometry(width, heads, aligned) if bf16 else ca.softmax_spmm_geometry(width, heads, aligned)
+    if kind.kind == "general":
+        assert ca.softmax_spmm_columns(width, heads, aligned, 2 if bf16 else 4) == "strided"
+    # the entry on the (rounded) inputs, twice
+    sk, vk = (s.to(torch.bfloat16), view_at(v.to(torch.bfloat16), aligned)) if bf16 else (s, v)
+    out, ml = ca._launch(sk, vk, bounds, m)
+    again, again_ml = ca._launch(sk, vk, bounds, m)
+    assert torch.equal(out, again) and torch.equal(ml, again_ml)
+    want, want_ml = ca.csr_softmax_spmm_reference(sk.float(), vk.float(), seg, n, m)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ml, want_ml, rtol=1e-5, atol=1e-5)
+    assert bool((out[empty] == 0).all())
+    assert bool((ml[:heads, empty] == ca.NEG).all()) and bool((ml[heads:, empty] == 0).all())
+    # K3 on the unrounded inputs with this pass's ml and out (poisoned memory:
+    # an edge row it does not write shows)
+    cot = torch.randn((n, width), generator=torch.Generator(device=cuda).manual_seed(width), device=cuda)
+    _poison_free_memory(cuda)
+    ds, dv = ca.csr_softmax_spmm_backward(s, v, seg, bounds, ml, out, cot, m)
+    ds2, dv2 = ca.csr_softmax_spmm_backward(s, v, seg, bounds, ml, out, cot, m)
+    assert torch.equal(ds, ds2) and torch.equal(dv, dv2)
+    for a, b in zip((ds, dv), ca.csr_softmax_spmm_backward_reference(s, v, seg, ml, out, cot, m)):
+        assert torch.isfinite(a).all() and torch.all(a[~m] == 0)
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    # autograd through the public call: one forward and one backward launch
+    counter = ca.csr_softmax_spmm.bf16_stream if bf16 else ca.csr_softmax_spmm
+    before = (counter.launches, ca.csr_softmax_spmm_backward.launches)
+    grads = []
+    for kernel in (True, False):
+        si, vi = s.clone().requires_grad_(True), v.clone().requires_grad_(True)
+        if kernel:
+            o, _ = ca.csr_softmax_spmm(si, vi, seg, bounds, m, stream_dtype=stream_dtype)
+        else:
+            o, _ = ca.csr_softmax_spmm_reference(ca.stream_round(si) if bf16 else si,
+                                                 ca.stream_round(vi) if bf16 else vi, seg, n, m)
+        grads.append(torch.autograd.grad(o, (si, vi), cot))
+    torch.cuda.synchronize()
+    assert (counter.launches, ca.csr_softmax_spmm_backward.launches) == (before[0] + 1, before[1] + 1)
+    if not bf16:  # the stream's gradient is the f32 one at the stream's ml, not plain's rounded one
+        for a, b in zip(*grads):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
 def _grid(t, interleaved):
     """``t`` on a 1/16 grid in [-2, 2] in its layout: with a power-of-two
     scale every f32 score is then exact in any summation order, so the
@@ -1548,9 +1646,9 @@ def _grid(t, interleaved):
 
 @pytest.mark.parametrize("width", [128, 48])
 def test_stream_entries_match_plain_and_differ_from_f32(cuda, width):
-    """``stream_dtype="bf16"`` of K2 (width 128 only: K2 takes multiples of
-    32), K5 and the fused forward on f32 and bf16 q, k, v: each against its
-    plain version (the f32 function of the bf16-rounded inputs), each
+    """``stream_dtype="bf16"`` of K2, K5 and the fused forward on f32 and
+    bf16 q, k, v: each against its plain version (the f32 function of the
+    bf16-rounded inputs), each
     farther than that tolerance from the mode without the stream, each
     stream entry launched once and the gradients through the existing
     backward entries, against their plain versions on the unrounded inputs
@@ -1569,20 +1667,19 @@ def test_stream_entries_match_plain_and_differ_from_f32(cuda, width):
     def counts(*counters):
         return [c.launches for c in counters]
 
-    if width % 32 == 0:
-        leaves = [s.clone().requires_grad_(True), v.clone().requires_grad_(True)]
-        before = counts(ca.csr_softmax_spmm.bf16_stream, ca.csr_softmax_spmm, ca.csr_softmax_spmm_backward)
-        out, ml = ca.csr_softmax_spmm(*leaves, seg, bounds, m, stream_dtype="bf16")
-        grads = torch.autograd.grad(out, leaves, cot)
-        torch.cuda.synchronize()
-        assert [a - b for a, b in zip(counts(ca.csr_softmax_spmm.bf16_stream, ca.csr_softmax_spmm,
-                                             ca.csr_softmax_spmm_backward), before)] == [1, 0, 1]
-        want, want_ml = ca.csr_softmax_spmm_reference(ca.stream_round(s), ca.stream_round(v), seg, n, m)
-        torch.testing.assert_close(out, want, **tol)
-        torch.testing.assert_close(ml, want_ml, **tol)
-        for a, b in zip(grads, ca.csr_softmax_spmm_backward_reference(s, v, seg, ml, out, cot, m)):
-            torch.testing.assert_close(a, b, **gtol)
-        assert not torch.allclose(out, ca.csr_softmax_spmm(s, v, seg, bounds, m)[0], **tol)
+    leaves = [s.clone().requires_grad_(True), v.clone().requires_grad_(True)]
+    before = counts(ca.csr_softmax_spmm.bf16_stream, ca.csr_softmax_spmm, ca.csr_softmax_spmm_backward)
+    out, ml = ca.csr_softmax_spmm(*leaves, seg, bounds, m, stream_dtype="bf16")
+    grads = torch.autograd.grad(out, leaves, cot)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(ca.csr_softmax_spmm.bf16_stream, ca.csr_softmax_spmm,
+                                         ca.csr_softmax_spmm_backward), before)] == [1, 0, 1]
+    want, want_ml = ca.csr_softmax_spmm_reference(ca.stream_round(s), ca.stream_round(v), seg, n, m)
+    torch.testing.assert_close(out, want, **tol)
+    torch.testing.assert_close(ml, want_ml, **tol)
+    for a, b in zip(grads, ca.csr_softmax_spmm_backward_reference(s, v, seg, ml, out, cot, m)):
+        torch.testing.assert_close(a, b, **gtol)
+    assert not torch.allclose(out, ca.csr_softmax_spmm(s, v, seg, bounds, m)[0], **tol)
 
     # K5: the edges split in two sets at a row boundary, each with its ranges
     half = int(bounds[0, n // 2].item())
@@ -1648,8 +1745,9 @@ def test_stream_entries_match_plain_and_differ_from_f32(cuda, width):
 
 def test_stream_refuses_what_no_entry_takes(cuda):
     """The stream entries take what the entries without the stream take: an
-    unknown mode, float64 scores or a K2 width that is not a multiple of 32
-    raise on the card as on the CPU."""
+    unknown mode or float64 scores raise on the card as on the CPU; a K2
+    width that is not a multiple of 32 (D = 48), refused before the general
+    geometry, runs against its plain version."""
     from graphphysics_torch.ops import csr_attention as ca
 
     g, scores, values, mask = _csr_case(128, 500, 64, 4, seed=0, n_pad=128, e_pad=512)
@@ -1659,5 +1757,8 @@ def test_stream_refuses_what_no_entry_takes(cuda):
         ca.csr_softmax_spmm(s, v, seg, bounds, stream_dtype="f16")
     with pytest.raises(ValueError, match="float32"):
         ca.csr_softmax_spmm(s.double(), v, seg, bounds, stream_dtype="bf16")
-    with pytest.raises(ValueError, match="positive multiple of 32"):
-        ca.csr_softmax_spmm(s, v[:, :48].contiguous(), seg, bounds, stream_dtype="bf16")
+    v48, m = v[:, :48].contiguous(), torch.from_numpy(g.edge_mask).to(cuda)
+    out, ml = ca.csr_softmax_spmm(s, v48, seg, bounds, m, stream_dtype="bf16")
+    want, want_ml = ca.csr_softmax_spmm_reference(ca.stream_round(s), ca.stream_round(v48), seg, g.num_nodes, m)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ml, want_ml, rtol=1e-5, atol=1e-5)

@@ -16,7 +16,7 @@ kernels' plain versions) against the JAX package:
   gradients, that the stream differs from the f32 mode, and the
   ``ValueError`` on an unknown mode.
 - The lane geometries K1's entries and K5's stream entry choose by width,
-  heads and alignment (``segment_sum_geometry``, ``pair_stream_geometry``,
+  heads and alignment (``segment_sum_geometry``, ``stream_geometry``,
   the CUDA sources' rules mirrored in Python), and ``alignment``.
 
 Inputs come from numpy with a seed and go to both sides."""
@@ -450,12 +450,12 @@ def test_segment_sum_geometry(width, dtype, aligned, want):
     (64, 4, 2, ("general", 2, 32, 1, 1)),
 ])
 def test_pair_stream_geometry(width, heads, aligned, want):
-    assert tuple(ca.pair_stream_geometry(width, heads, aligned)) == want
+    assert tuple(ca.stream_geometry(width, heads, aligned)) == want
 
 
 @pytest.mark.parametrize("width,heads", [(130, 4), (544, 4), (128, 0)])
 def test_pair_stream_geometry_refuses_what_the_entry_refuses(width, heads):
-    assert ca.pair_stream_geometry(width, heads, 16) is None
+    assert ca.stream_geometry(width, heads, 16) is None
 
 
 def test_alignment_reads_each_view_offset():
