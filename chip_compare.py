@@ -57,6 +57,22 @@ panels batch, 48 x 4 and 40 x 8 at part 0 of the unsplit mesh cut), with
 the geometry, ms, bound, plain ms and a digest of each output. The rest
 calls only ``k2_case``, ``unsplit_part0``, ``chip_partition.k5_inputs``
 and ``mesh_graph``, which a parent checkout's scripts have too.
+
+    python3 chip_compare.py <checkout root> [label] --width
+
+times instead that checkout's fused f32 forward and backward
+(``csr_attention``, ``csr_attention_backward``) on the panels batch at the
+widths without a fast geometry in the model's layout (48 x 4, 96 x 3,
+40 x 8; ``chip_smoke.GENERAL_WIDTHS``), in the model's (N, Dh, H) view and
+contiguous, through ``chip_smoke.fused_case(..., heads=, view=)``: ms, ms
+at each lane count the kernels take, bound, plain ms, the geometry and the
+error; with the seconds of the four fused sources' ``nvcc`` builds and
+digests of outputs that must not change with the width geometry: the f32
+forward's out and ml and the backward's dq (its dk and dv are atomic sums,
+whose bits vary from run to run) at 128 x 4 and 64 x 4, and the bf16
+entries' out, ml, dq, dk and dv at 48 x 4 (their general geometry), on the
+model's layout. It calls only ``fused_case`` and ``attention_inputs``,
+which a parent checkout's ``chip_smoke.py`` has too.
 """
 import json
 import os
@@ -359,6 +375,48 @@ def general_kernels(cs, torch) -> dict:
     return out
 
 
+WIDTH_SOURCES = ("csr_attention.cu", "csr_attention_bwd.cu", "csr_attention_bf16.cu",
+                 "csr_attention_bwd_bf16.cu")
+
+
+def width_kernels(cs, torch) -> dict:
+    """The fused f32 forward and backward at ``GENERAL_WIDTHS`` in both
+    views (``fused_case`` records), then the digests of the fast
+    geometries' f32 outputs and of the bf16 entries' at 48 x 4."""
+    from graphphysics_torch.ops import csr_attention as ca
+
+    batch = cs.panels_batch(200)
+    keep = ("ms", "ms_by_lanes", "plain_ms", "bound_ms", "max_abs_err", "geometry", "lanes_per_row")
+    out = {}
+    cases = [(w, v) for w in cs.GENERAL_WIDTHS for v in ("model", "contiguous")]
+    for i, ((d, h), view) in enumerate(cases):  # chip_smoke.py's kernel_width seeds
+        label = f"panels_csr_batch_8x2048_d{d}_h{h}_{view}"
+        records = cs.fused_case(label, batch, d, 15 + i, library=False, heads=h, view=view, replaced=False)
+        for name, record in zip(("fwd", "bwd"), records):
+            out[f"{name}_{label}"] = {**{k: record[k] for k in keep},
+                                      "bound_share": record["bound_ms"] / record["ms"]}
+    for d, h, dtype in ((128, 4, torch.float32), (64, 4, torch.float32), (48, 4, torch.bfloat16)):
+        seg, gather, bounds, mask, qkvg = cs.attention_inputs(batch, d, 40 + d, h)
+        q, k, v, g = (t.to(dtype) for t in qkvg)  # `to` keeps the layout
+        scale = h ** -0.5
+        with torch.no_grad():
+            got, ml = ca.csr_attention(q, k, v, seg, gather, bounds, mask, scale)
+            tc = ca.gather_csr(seg, gather, bounds, mask) if dtype == torch.bfloat16 else None
+            grads = ca.csr_attention_backward(q, k, v, seg, gather, bounds, ml, got, g, mask, scale, tc)
+        kept = grads if dtype == torch.bfloat16 else grads[:1]
+        out[f"digest_{'bf16' if dtype == torch.bfloat16 else 'f32'}_d{d}_h{h}_model"] = {
+            "geometry": None if dtype == torch.bfloat16 else f32_geometry(ca, d, h),
+            "out": _digest(torch, got), "ml": _digest(torch, ml),
+            "grads": [_digest(torch, t) for t in kept]}
+    return out
+
+
+def f32_geometry(ca, d, h) -> list:
+    """The f32 forward's and backward's geometry at width d in h heads, the
+    model's layout."""
+    return [ca.geometry_kind(ca.lanes_per_row(d, h, True, backward=b), d, h, True) for b in (False, True)]
+
+
 def main() -> int:
     root = os.path.abspath([a for a in sys.argv[1:] if not a.startswith("--")][0])
     sys.path.insert(0, root)
@@ -379,6 +437,11 @@ def main() -> int:
         out["nvcc_s"] = _native.build(("csr_softmax_spmm.cu", "csr_softmax_spmm_bwd.cu", "csr_softmax_spmm_pair.cu"))
         out.update(k2_kernels(cs, torch))
         out.update(general_kernels(cs, torch))
+        print("COMPARE " + json.dumps(out), flush=True)
+        return 0
+    if "--width" in sys.argv:
+        out["nvcc_s"] = _native.build(WIDTH_SOURCES)
+        out.update(width_kernels(cs, torch))
         print("COMPARE " + json.dumps(out), flush=True)
         return 0
     if "--stream" in sys.argv:

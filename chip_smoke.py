@@ -79,10 +79,20 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     checkpoint's bytes, save and load seconds and predict's ms per frame;
 11. fused attention widths: both fused kernels against their plain versions
     at (D, H) = (48, 4), (96, 3) and (40, 8), in the model's (N, Dh, H) view
-    and in contiguous [N, H, Dh], on the panels_csr batch (the general lane
-    geometry: a masked column tail and per-head sums in shared memory), and
-    the first train step of the panels transformer at ``hidden_size`` 48
-    against the CPU;
+    (beside SDPA) and in contiguous [N, H, Dh], on the panels_csr batch (the
+    word geometry of ``csrc/attention_words.cuh`` in the model's view and
+    at 96 x 3 contiguous: a word of columns a lane, per-head partials
+    reduced by shuffles, one head's softmax a lane; the fast geometry at
+    48 x 4 and 40 x 8 contiguous), timed at each lane count (the general
+    geometry of ``csrc/csr_attention.cuh`` at the others); the first
+    train step of the panels transformer at ``hidden_size`` 48 against
+    the CPU
+    (``width_first_step``); then that transformer trained (3 warm-up and
+    12 timed steps, its 15 + 15 fused launches a step all counted in the
+    word geometry, the fused kernels' device ms from a profile) and an
+    eager eval forward on the serving frame, beside the 128 x 4 step
+    (``width_training``; shared-card times, the multi-rank phases run
+    beside it);
 12. ``gmm_training``: ``Trainer`` on ``training_config/c-a-gmm.json``
     (EncodeTransformDecode 10 x 64, 4 heads, K = 3 diagonal GMM head) on one
     sender-sorted aneurysm-scale graph (66,000 real nodes and 520,000 real
@@ -401,6 +411,9 @@ GENERAL_WIDTHS = ((48, 4), (96, 3), (40, 8))
 # K2's and K3's general geometry on its path: part 0 of the unsplit 4-way
 # mesh cut at hidden 40 in 8 heads (K2 and K3 strided), the kernels line's shape
 MESH_GENERAL_SHAPE = "mesh_16384_part0_of_4_unsplit_d40_h8"
+# the shape the fused f32 word geometry runs on its path (width_training):
+# the panels batch at hidden 48 in 4 heads, the model's view
+WORD_SHAPE = "panels_csr_batch_8x2048_d48_h4_model"
 # the local widths of panels' 128 wide x 4 heads on 2 and 4 tensor-parallel ranks
 TP_LOCAL_WIDTHS = ((64, 2), (32, 1))
 # the card sampler's statistics: draws of a fixed mixture, and the most
@@ -1848,11 +1861,26 @@ def first_step(name, param, batch, seed, total_steps, grad_rtol, stats=None,
     return result
 
 
+def fused_geometries(reset=False) -> dict:
+    """The fused f32 forward's and backward's launches by the geometry that
+    ran (``csr_attention.geometries``, ``csr_attention_backward.geometries``),
+    read before ``reset`` sets them to 0."""
+    from graphphysics_torch.ops.csr_attention import csr_attention, csr_attention_backward
+
+    read = {"forward": dict(csr_attention.geometries), "backward": dict(csr_attention_backward.geometries)}
+    if reset:
+        for counter in (csr_attention.geometries, csr_attention_backward.geometries):
+            for kind in counter:
+                counter[kind] = 0
+    return read
+
+
 def train(name, param, batch, counts, expected, seed, grad_rtol, graphs=len(BATCH_NODES),
-          stats=None, check_batch=None, **limits):
+          stats=None, check_batch=None, first=None, **limits):
     """``Trainer`` on one concatenated batch (of ``graphs`` graphs) on the
     card: the first step against the CPU (``first_step``, from the
-    normalizer statistics ``stats`` where given), then on a fresh trainer
+    normalizer statistics ``stats`` where given; ``first``, a record of
+    that check already made, stands for it), then on a fresh trainer
     3 warm-up steps and TIMED_STEPS timed ones with every launch count zeroed just
     before them and checked just after against ``expected`` (kernel name
     -> launches per step), then a profile of 3 steps. ``check_batch``
@@ -1861,8 +1889,9 @@ def train(name, param, batch, counts, expected, seed, grad_rtol, graphs=len(BATC
     from graphphysics_torch.training import Trainer
 
     total_steps = 1 + WARMUP_STEPS + TIMED_STEPS + PROFILED_STEPS
-    first = first_step(name, param, batch if check_batch is None else check_batch, seed, total_steps,
-                       grad_rtol, stats=stats, **limits)
+    if first is None:
+        first = first_step(name, param, batch if check_batch is None else check_batch, seed, total_steps,
+                           grad_rtol, stats=stats, **limits)
 
     trainer = Trainer(param, learning_rate=1e-4, warmup=10, seed=seed, device="cuda")
     trainer.init_state(total_steps)
@@ -1876,12 +1905,14 @@ def train(name, param, batch, counts, expected, seed, grad_rtol, graphs=len(BATC
     for fn in counts.values():
         fn.launches = 0
     k1_geometries(reset=True)
+    fused_geometries(reset=True)
     t0 = time.perf_counter()
     losses = [trainer.train_step(dev_batch) for _ in range(TIMED_STEPS)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counts.items()}
     by_geometry = k1_geometries()
+    fused_by_geometry = fused_geometries()
     want = {k: expected.get(k, 0) * TIMED_STEPS for k in counts}
     if launches != want:
         raise AssertionError(f"{name}: launches {launches} in {TIMED_STEPS} steps, expected {want}")
@@ -1905,6 +1936,7 @@ def train(name, param, batch, counts, expected, seed, grad_rtol, graphs=len(BATC
         "steps_timed": TIMED_STEPS,
         "launches": launches,
         "k1_f32_launches_by_geometry": by_geometry,
+        "fused_f32_launches_by_geometry": fused_by_geometry,
         "launches_per_step": {k: v / TIMED_STEPS for k, v in launches.items()},
         "first_loss": losses[0],
         "last_loss": losses[-1],
@@ -1915,6 +1947,64 @@ def train(name, param, batch, counts, expected, seed, grad_rtol, graphs=len(BATC
         "device_idle_share": (
             None if breakdown is None else 1.0 - breakdown["device_ms_per_step"] / ms_per_step
         ),
+    }
+
+
+def width_training(param, batch, frame, counts, blocks, seed, first, wide):
+    """``train`` of the transformer at a width of the word geometry (its
+    first step against the CPU given as ``first``), with every fused launch
+    of its timed steps checked to have run the word geometry, the fused
+    kernels' device ms a step from its profile, and an eager eval forward
+    on a serving frame (its launches counted and checked the same way);
+    beside it the 128 x 4 ``transformer_training`` record ``wide``."""
+    expected = {"csr_attention": blocks, "csr_attention_backward": blocks}
+    result = train("width_training", param, batch, counts, expected, seed, TRANSFORMER_GRAD_RTOL, first=first)
+    words = {"forward": {"fast": 0, "words": blocks * TIMED_STEPS, "general": 0},
+             "backward": {"fast": 0, "words": blocks * TIMED_STEPS, "general": 0}}
+    if result["fused_f32_launches_by_geometry"] != words:
+        raise AssertionError(f"width_training: fused launches by geometry "
+                             f"{result['fused_f32_launches_by_geometry']}, expected {words}")
+    breakdown = result["breakdown"]
+    fused_ms = None
+    if isinstance(breakdown, dict):
+        groups = breakdown["by_category"]
+        fused_ms = {k: groups.get(k, {}).get("ms_per_step", 0.0) for k in ("csr_attention", "csr_attention_bwd")}
+    sim = build_transformer(param, seed, "cuda")
+    dev_frame = frame.to("cuda")
+    sim.accumulate_stats(dev_frame)
+    with torch.inference_mode():
+        sim(dev_frame)
+        torch.cuda.synchronize()
+        for fn in counts.values():
+            fn.launches = 0
+        fused_geometries(reset=True)
+        _, _, out = sim(dev_frame)
+        torch.cuda.synchronize()
+        frame_launches = {k: fn.launches for k, fn in counts.items() if fn.launches}
+        frame_geometries = fused_geometries()["forward"]
+        forward_ms = call_ms(lambda: sim(dev_frame))
+    if frame_launches != {"csr_attention": blocks} or frame_geometries["words"] != blocks:
+        raise AssertionError(f"width_training: an eval forward launched {frame_launches}, by geometry "
+                             f"{frame_geometries}; expected {blocks} word-geometry forwards")
+    if out.shape[0] != frame.num_nodes or not torch.isfinite(out).all():
+        raise AssertionError(f"width_training: bad eval outputs {tuple(out.shape)}")
+    wide_breakdown = wide["breakdown"]
+    return {
+        **result,
+        "fused_attention_device_ms_per_step": fused_ms,
+        "eval_frame_nodes": frame.num_nodes,
+        "forward_eager_ms": forward_ms,
+        "eval_frame_launches": frame_launches,
+        "eval_frame_launches_by_geometry": frame_geometries,
+        "transformer_training_128x4": {
+            "ms_per_step": wide["ms_per_step"],
+            "device_ms_per_step": (wide_breakdown["device_ms_per_step"] if isinstance(wide_breakdown, dict)
+                                   else None),
+            "fused_attention_device_ms_per_step": (
+                {k: wide_breakdown["by_category"].get(k, {}).get("ms_per_step", 0.0)
+                 for k in ("csr_attention", "csr_attention_bwd")} if isinstance(wide_breakdown, dict) else None),
+        },
+        "shared_card": "the multi-rank phases run in a second process on the same card meanwhile",
     }
 
 
@@ -4010,10 +4100,11 @@ def main() -> int:
     for s in fused_bwd_shapes:
         clock.emit({"phase": "kernel", "name": "csr_attention_backward", **s})
     del aneurysm_epd
-    # 11. the general geometry: widths without a power-of-two head split
+    # 11. widths without a power-of-two head split: the word geometry in the
+    # model's view (and at 96 x 3 contiguous), beside SDPA in that view
     widths = [
         fused_case(f"panels_csr_batch_8x2048_d{d}_h{h}_{view}", tf_batch, d, args.seed + 15 + i,
-                   library=False, heads=h, view=view, replaced=False)
+                   library=view == "model", heads=h, view=view, replaced=False)
         for i, ((d, h), view) in enumerate((w, v) for w in GENERAL_WIDTHS for v in ("model", "contiguous"))
     ]
     for s, _ in widths:
@@ -4121,16 +4212,21 @@ def main() -> int:
         {"csr_attention": (blocks, blocks), "csr_attention_backward": (blocks, 0)},
         "csr_attention", args.seed, TRANSFORMER_RESUME_WORST_RTOL)})
 
-    # 11. the first train step of the panels transformer at a width of the
-    # general geometry, against the CPU
+    # 11. the first train step of the panels transformer at a width without
+    # a fast geometry (the word geometry's), against the CPU; then that
+    # transformer trained and served, its fused kernels all in the word
+    # geometry, beside the 128 x 4 step
     total_steps = 1 + WARMUP_STEPS + TIMED_STEPS + PROFILED_STEPS
     panels48 = load_config(PANELS_CONFIG)
     panels48["model"]["hidden_size"] = 48
-    clock.emit({"phase": "width_first_step",
-          "model": f"EncodeTransformDecode {blocks}x48, {panels['model']['num_heads']} heads, "
-                   f"{PANELS_CONFIG} with hidden_size 48",
-          **first_step("width_first_step", panels48, tf_batch, args.seed, total_steps,
-                       TRANSFORMER_GRAD_RTOL)})
+    width_model = (f"EncodeTransformDecode {blocks}x48, {panels['model']['num_heads']} heads, "
+                   f"{PANELS_CONFIG} with hidden_size 48")
+    width_first = first_step("width_first_step", panels48, tf_batch, args.seed, total_steps,
+                             TRANSFORMER_GRAD_RTOL)
+    clock.emit({"phase": "width_first_step", "model": width_model, **width_first})
+    width_train = width_training(panels48, tf_batch, tf_frames[0], counts, blocks, args.seed, width_first,
+                                 tf_train)
+    clock.emit({"phase": "width_training", "model": width_model, **width_train})
 
     # 12. GMM training: c-a-gmm at the aneurysm scale --------------------------------
     gmm = load_config(GMM_CONFIG)
@@ -4330,6 +4426,34 @@ def main() -> int:
               entry_point="csr_softmax_spmm_bwd_f32 (csrc/csr_softmax_spmm_bwd.cu)",
               note="K3's general geometry: per-head sums over strided columns, zeros on masked and "
                    "uncovered edges"),
+    ]
+    # the word geometry of the fused f32 entries (attention_words.cuh), its
+    # launches from the transformer at hidden 48 in 4 heads (width_training),
+    # its time, bound and error at that path's shape: the batch, model view
+    word_launches = width_train["fused_f32_launches_by_geometry"]
+    word_cases = [(f, b) for f, b in widths if f["geometry"]["forward"] == "words"]
+    word_main = next((i for i, (f, _) in enumerate(word_cases) if f["shape"] == WORD_SHAPE), None)
+    if word_main is None or not (word_launches["forward"]["words"] and word_launches["backward"]["words"]):
+        raise AssertionError(f"the word geometry: launches {word_launches} on width_training, {WORD_SHAPE} "
+                             f"among the timed shapes {[f['shape'] for f, _ in word_cases]}")
+    kernels["kernels"] += [
+        entry("csr_attention_general", "graphphysics_torch/csrc/attention_words.cuh",
+              "graphphysics_tpu/ops/pallas_attention.py:255", word_launches["forward"]["words"],
+              [f for f, _ in word_cases], {"rtol": SOFTMAX_RTOL, "atol": SOFTMAX_ATOL}, main_shape=word_main,
+              launches_by_path={"width_training": word_launches["forward"]["words"]},
+              entry_point="csr_attention_f32 (csrc/csr_attention.cu)",
+              also_replaces="graphphysics_tpu/ops/pallas_attention.py:556 (csr_sparse_attention's gathers and "
+                            "SDDMM) at the widths without a fast geometry",
+              note="the fused f32 forward's word geometry: a word of columns a lane, per-head partials "
+                   "reduce-scattered by shuffles, one head's softmax a lane"),
+        entry("csr_attention_backward_general", "graphphysics_torch/csrc/attention_words.cuh",
+              "graphphysics_tpu/ops/pallas_attention.py:398", word_launches["backward"]["words"],
+              [b for _, b in word_cases], {"rtol": K3_GRAD_RTOL, "atol": K3_GRAD_ATOL}, main_shape=word_main,
+              launches_by_path={"width_training": word_launches["backward"]["words"]},
+              entry_point="csr_attention_bwd_f32 (csrc/csr_attention_bwd.cu)",
+              also_replaces="the backward of csr_sparse_attention's gathers and SDDMM "
+                            "(graphphysics_tpu/ops/pallas_attention.py:556) at those widths",
+              note="the word geometry's backward: dk and dv added as the lane's word"),
     ]
     # the 16-bit stream modes' entries: launches from their path alone
     for dt in ("bf16", "f16"):

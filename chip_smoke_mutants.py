@@ -1,8 +1,12 @@
 """How far a planted fault moves two checks of ``chip_smoke.py``: a fault in
 K1b or in the fused attention backward moves ``first_step``, the check of the first train step on the
 card against the CPU (the readings its per-model gradient limits
-``EPD_GRAD_RTOL``, ``TRANSFORMER_GRAD_RTOL`` must sit below), as does a
-fault in the general lane geometry of ``csrc/csr_attention.cuh``; a fault in
+``EPD_GRAD_RTOL``, ``TRANSFORMER_GRAD_RTOL`` must sit below); a fault in
+the fused f32 kernels' word geometry (``csrc/attention_words.cuh``: a
+row's last word read as an idle lane's zeros, the head sums' butterfly
+missing its last level) moves the ``kernel_width`` cases' check against
+the plain versions and ``width_first_step`` (the transformer at hidden 48
+in 4 heads, first step against the CPU); a fault in
 the checkpoint restore moves ``resume_runs``, the check of a resumed run
 against an uninterrupted one (the readings ``RESUME_MEDIAN_RTOL`` and the
 per-model worst limits must sit below); a fault in the fused attention's
@@ -50,11 +54,11 @@ For each fault the tree is copied to a temporary directory, one line of a
 source is replaced there, the kernels are built from the copy and the check
 runs with its limits lifted: ``first_step`` on the flagship batch (K1b
 faults, EPD 15 x 128) or the panels batch (faults in
-``csrc/csr_attention_bwd.cu``, transformer 15 x 128; faults in the general
-geometry, the same transformer at ``hidden_size`` 40, whose 4 heads of 10
-in the (N, Dh, H) view take it with 16 lanes of 3 columns, columns 32-39
-the tail); ``resume_runs`` on the in-memory trajectories of the checkpoint
-phases. One JSON line per fault. The repo itself is never changed. Needs
+``csrc/csr_attention_bwd.cu``, transformer 15 x 128; faults in the word
+geometry, the ``kernel_width`` cases and the same transformer at
+``hidden_size`` 48, whose 4 heads of 12 in the (N, Dh, H) view take it
+with 16 lanes of one 4-column word, lanes 12-15 idle); ``resume_runs`` on
+the in-memory trajectories of the checkpoint phases. One JSON line per fault. The repo itself is never changed. Needs
 one CUDA card:
 
     python3 chip_smoke_mutants.py [name prefix]
@@ -82,8 +86,10 @@ K1B_LIVE = "if (live) live = bounds[r] <= e && e < bounds[num_rows + r];"
 ATTN_DS = "ds[p] = attn[p] * (vg[p] - delta[p]);"
 ATTN_DK = "add_row<V, GEN>(dk, j, geo, r, dkr);"
 ATTN_DQ = "for (int i = 0; i < V; ++i) dqa[i] += ds[i % NP] * scale * kc[i];"
-HEADER = "graphphysics_torch/csrc/csr_attention.cuh"
-GENERAL_LOAD = "v[i] = c < geo.width ? to_float(row[c]) : 0.0f;"
+WORDS = "graphphysics_torch/csrc/attention_words.cuh"
+WORD_LOAD = "  if (!r.live) {"
+WORD_BUTTERFLY = ("for (int offset = geo.lo * P; offset < geo.hi; offset <<= 1) sum += "
+                  "__shfl_xor_sync(kFull, sum, offset);")
 BF16_BWD = "graphphysics_torch/csrc/csr_attention_bwd_bf16.cu"
 BF16_HEADER = "graphphysics_torch/csrc/csr_attention_bf16.cuh"
 BF16_DK = "dka[i] += d[u][i % NP] * scale * qr[i];"
@@ -131,11 +137,16 @@ FAULTS = {
     # each row's last edge adds nothing to dq
     "attn_dq_drop_last_edge": ("transformer", ATTN, ATTN_DQ, ATTN_DQ.replace(
         "+= ds[i % NP] * scale * kc[i];", "+= first + t + 1 < r.len ? ds[i % NP] * scale * kc[i] : 0.0f;")),
-    # the general geometry reads no column past the lanes' last full round
-    # (width 40 with 16 lanes: the tail columns 32-39 read as 0, in both
-    # kernels)
-    "width_drop_tail_columns": ("width40", HEADER, GENERAL_LOAD, GENERAL_LOAD.replace(
-        "c < geo.width ?", "c < geo.width / geo.lanes * geo.lanes ?")),
+    # the word geometry reads its row's last word as zeros, as an idle
+    # lane's (width 48 in 4 heads: lane 11 of 16, columns 44-47; 40: lane 9,
+    # columns 36-39; 96: lane 23), in both kernels
+    "width_drop_tail_columns": ("width", WORDS, WORD_LOAD, "  if (!r.live || r.col0 + W >= geo.width) {"),
+    # the word geometry's head sums without the butterfly's last level: each
+    # half of a head's lanes sums its own half of the head (48 x 4 and 40 x 8
+    # in the model's view: lanes 0-7 and 8-15; 96 x 3: 0-15 and 16-31, and
+    # contiguous a head's lanes 0-3 and 4-7), in both kernels
+    "width_head_sums_miss_last_level": ("width", WORDS, WORD_BUTTERFLY, WORD_BUTTERFLY.replace(
+        "offset < geo.hi;", "offset < geo.hi / 2;")),
     # the bf16 backward sums dk and dv in bf16 instead of f32: every partial
     # sum of a gather row rounded to bf16
     "bf16_dkdv_summed_in_bf16": ("bf16transformer+kernel", BF16_BWD, (BF16_DK, BF16_DV), (
@@ -426,6 +437,40 @@ def read_general_fault(name: str) -> dict:
     return out
 
 
+def read_width_fault(name: str) -> dict:
+    """The word geometry's checks: the ``kernel_width`` cases
+    (``fused_case`` at ``GENERAL_WIDTHS`` in both views on the panels
+    batch) with ``SOFTMAX_RTOL``/``ATOL`` and ``K3_GRAD_RTOL``/``ATOL``
+    lifted, each case's geometry and its forward's and backward's error
+    against the plain versions, whether the limits catch it; then
+    ``width_first_step`` (the panels transformer at hidden 48 in 4 heads,
+    first step on the card against the CPU) with its limits lifted."""
+    import chip_smoke as cs
+
+    out = {"fault": name}
+    limits = (cs.SOFTMAX_RTOL, cs.SOFTMAX_ATOL, cs.K3_GRAD_RTOL, cs.K3_GRAD_ATOL)
+    # 1e30, not inf: inf * 0 is NaN, and a plain zero would then fail
+    cs.SOFTMAX_RTOL = cs.SOFTMAX_ATOL = cs.K3_GRAD_RTOL = cs.K3_GRAD_ATOL = 1e30
+    batch = cs.panels_batch(200)
+    cases = [(w, v) for w in cs.GENERAL_WIDTHS for v in ("model", "contiguous")]
+    for i, ((d, h), view) in enumerate(cases):  # chip_smoke.py's kernel_width seeds
+        label = f"d{d}_h{h}_{view}"
+        f, b = cs.fused_case(label, batch, d, 15 + i, library=False, heads=h, view=view, replaced=False)
+        out[f"kernel_width_{label}"] = {
+            "geometry": f["geometry"], "fwd_max_abs_err": f["out_ml_max_abs_err"],
+            "bwd_max_abs_err": b["dq_dk_dv_max_abs_err"],
+            "caught": max(f["out_ml_max_abs_err"]) > limits[1] + limits[0]
+            or max(b["dq_dk_dv_max_abs_err"]) > limits[3] + limits[2]}
+    cs.SOFTMAX_RTOL, cs.SOFTMAX_ATOL, cs.K3_GRAD_RTOL, cs.K3_GRAD_ATOL = limits
+    cs.STEP_LOSS_RTOL = cs.STEP_ROUNDOFF_SHARE = math.inf
+    param = cs.load_config(cs.PANELS_CONFIG)
+    param["model"]["hidden_size"] = 48
+    total_steps = 1 + cs.WARMUP_STEPS + cs.TIMED_STEPS + cs.PROFILED_STEPS
+    step = cs.first_step(name, param, batch, 0, total_steps, math.inf)
+    out["width_first_step"] = {**step, "caught": step["first_step_grad_rel_err_worst"] > cs.TRANSFORMER_GRAD_RTOL}
+    return out
+
+
 def read_stream_fault(name: str) -> dict:
     """The ``stream_dtypes`` phase's checks with their limits lifted: the
     hub row and the 16-bit K1 against its plain version in ulps at the
@@ -539,6 +584,8 @@ def read_fault(model: str, name: str) -> dict:
         return read_k2f32_fault(name)
     if model == "general":
         return read_general_fault(name)
+    if model == "width":
+        return read_width_fault(name)
     cs.STEP_LOSS_RTOL = cs.STEP_ROUNDOFF_SHARE = math.inf
     total_steps = 1 + cs.WARMUP_STEPS + cs.TIMED_STEPS + cs.PROFILED_STEPS
     if model.startswith("bf16transformer"):
@@ -563,8 +610,6 @@ def read_fault(model: str, name: str) -> dict:
         param, batch = cs.load_config(cs.CYLINDER_CONFIG), cs.flagship_batch(0)
     else:
         param, batch = cs.load_config(cs.PANELS_CONFIG), cs.panels_batch(200)
-    if model.startswith("width"):
-        param["model"]["hidden_size"] = int(model[len("width"):])
     return {"fault": name, **cs.first_step(name, param, batch, 0, total_steps, math.inf)}
 
 

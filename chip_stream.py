@@ -591,8 +591,10 @@ def fused_stream_case(name, graph, width, seed, dtype):
         sets = _copies((q, k, v), copies)
         times = {"ms": cs.device_ms(lambda a, b, c: fused(a, b, c, "bf16"), sets),
                  "plain_ms": cs.device_ms(plain, sets), "without_stream_ms": cs.device_ms(fused, sets)}
+    interleaved = bool(ca._is_interleaved(q))
+    geometry = None if bf16 else ca.geometry_kind(ca.lanes_per_row(width, h, interleaved), width, h, interleaved)
     return {"shape": name, "nodes": n, "edges": seg.shape[0], "real_edges": real_edges, "width": width,
-            "heads": h, "dtype": str(dtype).replace("torch.", ""), "scale": scale,
+            "heads": h, "dtype": str(dtype).replace("torch.", ""), "scale": scale, "geometry": geometry,
             "inputs": "q, k on a 1/16 grid in [-2, 2]; v normal", "max_abs_err": max(errs),
             "out_ml_max_abs_err": errs, "out_mismatch_share": share, "tolerance": tol, **gap, **times,
             "without_stream_note": f"csr_attention_{'bf16' if bf16 else 'f32'}, the same inputs",
@@ -767,6 +769,9 @@ def stream_phase(clock, counts, seed, epd_frame, cyl_batch, aneurysm_epd, tf_fra
                                                    ("panels_csr_batch_8x2048", tf_batch, cs.HIDDEN),
                                                    ("aneurysm_csr_66560x524288", aneurysm_csr, 64))):
             emit(f"csr_attention_{key}_stream", fused_stream_case(label, graph, width, seed + 16 + i, dt))
+    # the f32 stream in the word geometry: 48 columns in 4 heads of 12
+    emit("csr_attention_f32_stream", fused_stream_case("panels_csr_batch_8x2048_d48_h4", tf_batch, 48, seed + 19,
+                                                       torch.float32))
     path = driven_path("stream_dtypes", counts, cyl_batch, tf_batch, mesh, seed + 20)
     clock.emit({"phase": "stream_dtypes", "name": "path", **path,
                 "stream_dtypes_s": time.perf_counter() - t0})

@@ -23,7 +23,10 @@
 // leaves the same bits in every lane of the set. These are the fast
 // geometries; they need D % G == 0 and a power-of-two head split.
 //
-// The general geometry takes every other width D <= 16 G with D % H == 0:
+// The f32 kernels take the widths without a fast geometry in the word
+// geometry of attention_words.cuh where it holds them. The general geometry
+// takes every other width D <= 16 G with D % H == 0 (and, in the bf16
+// kernels, every width without their 16-byte geometry):
 // lane `sub` holds the V = ceil(D/G) strided columns sub + G i (so a group's
 // loads stay coalesced as scalars), the columns past D are masked (the tail),
 // and each column is its own partial (NP = V). A head's sum goes through the

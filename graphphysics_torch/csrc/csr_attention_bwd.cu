@@ -37,10 +37,14 @@
 //
 // Design: the forward's (csr_attention.cu): a group of G lanes a row,
 // coalesced index loads broadcast by shuffles, the next edge's k and v rows
-// loaded while the current edge computes, and the same two geometries (the
-// general one sums each head through shared memory and adds its strided
-// columns with scalar atomics, the tail left out). dq needs no atomics: one group
-// owns the row. dk and dv are sums over the edges that gather a node, which
+// loaded while the current edge computes, and the same three geometries
+// (the word geometry, attention_words.cuh, holds a window of kEdges (2)
+// edges' k and v words in flight, reduce-scatters each dot to one head a
+// lane, whose softmax weight and score gradient the columns read back by
+// shuffles, and adds the lane's word of dk and dv with one vector atomic
+// each; the general one sums each head through shared memory and adds its
+// strided columns with scalar atomics, the tail left out). dq needs no
+// atomics: one group owns the row. dk and dv are sums over the edges that gather a node, which
 // lie in other rows; they go by Hopper's 16-byte vector atomicAdd on global
 // memory (float4; float2 or scalar where V is not a multiple of 4), so
 // their order of summation changes from run to run, as the index_add_
@@ -50,6 +54,7 @@
 // csr_attention_bwd_bf16.cu: no atomics, dk and dv summed by gather rows
 // over a transposed CSR.
 
+#include "attention_words.cuh"
 #include "csr_attention.cuh"
 
 namespace {
@@ -170,6 +175,105 @@ csr_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (r.has_row) store_row<V, GEN>(dq, r.row, geo, r, dqa);
 }
 
+// The lane's word added into node row j: one 16- or 8-byte vector atomic.
+template <int W>
+__device__ __forceinline__ void add_word(float* __restrict__ base, int32_t j,
+                                         const attention_words::WordGeometry& geo,
+                                         const attention_words::WordSlot& r, const float (&x)[W]) {
+  add_cols<W>(base + static_cast<int64_t>(j) * geo.width + r.col0, x);
+}
+
+// The word geometry (attention_words.cuh): the forward's lanes, words,
+// head sums and windows; the window's scores and <v, g> dots first, then
+// each lane's head's softmax weight and score gradient an edge, which the
+// columns read back by shuffles; dk and dv added as the lane's word, dq
+// summed in registers.
+template <int W, int P, bool ALIGNED>
+__global__ void __launch_bounds__(kThreads)
+csr_attention_bwd_words_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, const int32_t* __restrict__ gather_idx,
+                               const int32_t* __restrict__ bounds, const uint8_t* __restrict__ mask,
+                               const float* __restrict__ ml, const float* __restrict__ out,
+                               const float* __restrict__ g, float* __restrict__ dq, float* __restrict__ dk,
+                               float* __restrict__ dv, int64_t num_rows, int64_t num_edges,
+                               attention_words::WordGeometry geo, float scale) {
+  using namespace attention_words;
+  using Hd = Heads<W, P, ALIGNED>;
+  const WordSlot r = word_slot(geo, bounds, num_rows, num_edges);
+  float qr[W], gr[W];
+  load_word<W>(q, r.self, geo, r, qr);
+  load_word<W>(g, r.self, geo, r, gr);
+  const Hd h = make_heads<W, P, ALIGNED>(geo, r);
+  float delta;
+  {
+    float o[W];
+    load_word<W>(out, r.self, geo, r, o);
+    delta = head_sum<W, P, ALIGNED>(geo, r, h, o, gr);
+  }
+  float m = 0.0f, l = 1.0f;  // a padding partial or an idle lane's: its unused terms stay finite
+  if (h.own < geo.heads && r.has_row) {
+    m = ml[h.own * num_rows + r.row];
+    l = ml[(geo.heads + h.own) * num_rows + r.row];
+  }
+  float dqa[W];
+#pragma unroll
+  for (int i = 0; i < W; ++i) dqa[i] = 0.0f;
+
+  const int32_t trips = warp_max(r.len);  // uniform across the warp
+  for (int32_t first = 0; first < trips; first += geo.lanes) {
+    const int32_t mine = word_chunk_index(gather_idx, mask, r, first);
+    const int32_t count = min(geo.lanes, trips - first);
+    for (int32_t t0 = 0; t0 < count; t0 += kEdges) {
+      int32_t j[kEdges];
+      float kw[kEdges][W], vw[kEdges][W];
+      load_window<W>(k, v, geo, r, mine, t0, count, j, kw, vw);
+      float attn[kEdges], ds[kEdges];
+#pragma unroll
+      for (int u = 0; u < kEdges; ++u) {
+        const float s = head_sum<W, P, ALIGNED>(geo, r, h, qr, kw[u]) * scale;
+        const float vg = head_sum<W, P, ALIGNED>(geo, r, h, vw[u], gr);
+        attn[u] = j[u] >= 0 ? expf(s - m) / (l + kEps) : 0.0f;
+        ds[u] = attn[u] * (vg - delta);
+      }
+#pragma unroll
+      for (int u = 0; u < kEdges; ++u) {
+        float attns[Hd::kValues], dss[Hd::kValues];
+        read_back<W, P, ALIGNED>(geo, h, attn[u], attns);
+        read_back<W, P, ALIGNED>(geo, h, ds[u], dss);
+        float dkr[W], dvr[W];
+#pragma unroll
+        for (int i = 0; i < W; ++i) {
+          const int x = value_of<W, P, ALIGNED>(i);
+          dkr[i] = dss[x] * scale * qr[i];
+          dvr[i] = attns[x] * gr[i];
+          dqa[i] += dss[x] * scale * kw[u][i];
+        }
+        if (j[u] >= 0 && r.live) {  // uniform across the row's lanes but the idle ones
+          add_word<W>(dk, j[u], geo, r, dkr);
+          add_word<W>(dv, j[u], geo, r, dvr);
+        }
+      }
+    }
+  }
+  if (r.has_row && r.live) store_word<W>(dq, r.row, geo, r, dqa);
+}
+
+template <int W, int P, bool ALIGNED>
+cudaError_t launch_words(const void* q, const void* k, const void* v, const void* gather_idx,
+                         const void* bounds, const void* mask, const void* ml, const void* out,
+                         const void* g, void* dq, void* dk, void* dv, long long num_rows, long long num_edges,
+                         const attention_words::WordGeometry& geo, float scale, cudaStream_t stream) {
+  const long long threads = num_rows * geo.lanes;
+  const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) / kThreads));
+  csr_attention_bwd_words_kernel<W, P, ALIGNED><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int32_t*>(gather_idx), static_cast<const int32_t*>(bounds),
+      static_cast<const uint8_t*>(mask), static_cast<const float*>(ml), static_cast<const float*>(out),
+      static_cast<const float*>(g), static_cast<float*>(dq), static_cast<float*>(dk),
+      static_cast<float*>(dv), num_rows, num_edges, geo, scale);
+  return cudaGetLastError();
+}
+
 template <typename T, int V, int NP, bool GEN>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* gather_idx,
                    const void* bounds, const void* mask, const void* ml, const void* out,
@@ -194,10 +298,21 @@ int run(const void* q, const void* k, const void* v, const void* gather_idx, con
         int interleaved, int lanes, float scale, void* stream) {
   if (num_rows <= 0) return 0;
   Geometry geo;
-  if (!make_geometry(lanes, width, num_heads, interleaved, 16, &geo)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const bool valid = make_geometry(lanes, width, num_heads, interleaved, 16, &geo);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  attention_words::WordGeometry words;
+  if ((!valid || geo.general) && attention_words::make_word_geometry(width, num_heads, interleaved, lanes, &words)) {
+#define WORD_CASE(W, P, ALIGNED)                        \
+  case (W) * 256 + (P) * 2 + (ALIGNED):                 \
+    return static_cast<int>(launch_words<W, P, ALIGNED>(q, k, v, gather_idx, bounds, mask, ml, out, g, dq, dk, dv, num_rows, num_edges, words, scale, s));
+    switch (attention_words::word_case_key(words)) {
+      ATTENTION_WORD_CASES(WORD_CASE)
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef WORD_CASE
+  }
+  if (!valid) return static_cast<int>(cudaErrorInvalidValue);
 #define CASE(V, NP)      \
   case (V) * 32 + (NP): \
     return static_cast<int>(launch<T, V, NP, false>(q, k, v, gather_idx, bounds, mask, ml, out, g, dq, dk, dv, num_rows, num_edges, geo, scale, s));

@@ -20,9 +20,14 @@ edge-sized intermediate. float32 q, k, v take ``csrc/csr_attention.cu`` and
 ``csr_attention_bwd_f32``; the backward adds into ``dk`` and ``dv`` with
 atomics). They take every width ``D <= MAX_WIDTH`` and head count ``H``
 dividing it: the widths a lane count splits into power-of-two head partials
-take the fast lane geometries, every other one the general geometry (a
-masked column tail and per-head sums through shared memory), another
-instantiation of the same kernels. bfloat16 q, k, v (the bf16 model's) take
+take the fast lane geometries, every other one the word geometry
+(``word_geometry``, ``csrc/attention_words.cuh``: one word of columns a
+lane, per-head partials reduced by shuffles to one head a lane, which
+computes that head's softmax) where its lanes hold the row, else the general
+geometry (a masked column tail and per-head sums through shared memory),
+another instantiation of the same kernels; the f32 entries count their
+launches by geometry on ``csr_attention.geometries`` and
+``csr_attention_backward.geometries``. bfloat16 q, k, v (the bf16 model's) take
 ``csrc/csr_attention_bf16.cu`` and ``csrc/csr_attention_bwd_bf16.cu``
 (``csr_attention_bf16``, ``csr_attention_bwd_bf16``), kernels of their own:
 16-byte lanes of 8 bf16 columns where the width and alignment allow
@@ -87,6 +92,7 @@ can hold the host helpers against the JAX ones.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -126,11 +132,18 @@ BF16_ATTENTION_BACKWARD_SOURCE = "csr_attention_bwd_bf16.cu"
 FORWARD_LANES = (8, 16, 32)
 BACKWARD_LANES = (32, 16, 8)
 MAX_COLUMNS = 16  # the most columns a lane holds (csrc/csr_attention.cuh)
-# a width without a fast geometry takes the fewest lanes that give each at
-# most this many columns (32 lanes past 96 wide). On an H100 at the panels
-# batch both general kernels ran fastest with 3 columns a lane: each column
-# is a shared-memory write per edge and its own exponentials (chip_smoke.py
-# kernel-width phases, PERF.md).
+# a width without a fast geometry takes the word geometry where it applies
+# (word_geometry, csrc/attention_words.cuh): W consecutive columns a lane,
+# one word of the first of WORD_COLUMNS dividing D; a row's lanes D / W
+# rounded up to a power of two and to the power of two at least H, at most
+# WARP; at most MAX_PARTIALS heads.
+WORD_COLUMNS = (4, 2, 1)
+MAX_PARTIALS = 16
+# any other width takes the general geometry with the fewest lanes that give
+# each at most this many columns (32 lanes past 96 wide). On an H100 at the
+# panels batch both general kernels ran fastest with 3 columns a lane: each
+# column is a shared-memory write per edge and its own exponentials
+# (chip_smoke.py kernel-width phases, PERF.md).
 GENERAL_COLUMNS = 3
 # the bf16 kernels' 16-byte geometry: bf16 columns a lane (one or two
 # 16-byte loads a row), in order of preference, and the lane counts it
@@ -909,29 +922,102 @@ def _geometry_ok(lanes: int, width: int, heads: int, interleaved: bool) -> bool:
     return False
 
 
+class WordGeometry(NamedTuple):
+    """The word geometry of the fused f32 kernels (``word_geometry``)."""
+
+    cols: int  # W, consecutive columns a lane: one word
+    lanes: int  # L, lanes a row
+    partials: int  # P, head partials a lane
+    aligned: bool  # column i in partial i % P (else a select by the column's head)
+    lo: int  # xor offsets of a head's reduction: lo, 2 lo, ... < hi
+    hi: int
+
+
+def _pow2_at_least(x: int) -> int:
+    p = 1
+    while p < x:
+        p *= 2
+    return p
+
+
+@functools.lru_cache(maxsize=None)
+def word_geometry(width: int, heads: int, interleaved: bool) -> Optional[WordGeometry]:
+    """The word geometry of the fused f32 kernels for a width, head count
+    and layout (``make_word_geometry`` in ``csrc/attention_words.cuh``): a
+    lane owns W consecutive columns, one word of the first of
+    ``WORD_COLUMNS`` dividing D (so no word is cut by the row's end); a row
+    takes ``D / W`` lanes rounded up to a power of two and to the power of
+    two at least H. Each lane adds its columns into P per-head partials,
+    reduce-scattered over the xor offsets ``lo .. lo P / 2`` and
+    butterflied up to ``hi`` to one head a lane: "aligned" (column i in
+    partial ``i % P``) where a lane's heads follow from the column index,
+    as in the fast geometries (H = 1; interleaved rows with H dividing W,
+    P = H; interleaved rows with H / W a power of two, P = W, ``lo = H /
+    W``; blocked rows with Dh / W a power of two, P = 1, ``hi = Dh / W``),
+    else a select of each column's head with P the power of two at least H.
+    None where H does not divide D, past ``MAX_PARTIALS`` heads or past
+    ``WARP`` lanes: those widths keep the general geometry."""
+    if not 0 < width <= MAX_WIDTH or heads <= 0 or width % heads:
+        return None
+    cols = next(c for c in WORD_COLUMNS if width % c == 0)
+    head_dim = width // heads
+    select = _pow2_at_least(heads)
+    lanes = max(_pow2_at_least(width // cols), select)
+    if select > MAX_PARTIALS or lanes > WARP:
+        return None
+
+    def pow2(x):
+        return x > 0 and x & (x - 1) == 0
+
+    if heads == 1:
+        mode = (1, True, 1, lanes)
+    elif interleaved and cols % heads == 0:
+        mode = (heads, True, 1, lanes)
+    elif interleaved and heads % cols == 0 and pow2(heads // cols):
+        mode = (cols, True, heads // cols, lanes)
+    elif not interleaved and head_dim % cols == 0 and pow2(head_dim // cols):
+        mode = (1, True, 1, head_dim // cols)
+    else:
+        mode = (select, False, 1, lanes)
+    return WordGeometry(cols, lanes, *mode)
+
+
+@functools.lru_cache(maxsize=None)
 def geometry_kind(lanes: int, width: int, heads: int, interleaved: bool) -> Optional[str]:
-    """The geometry the fused kernels take with ``lanes`` lanes a row:
-    "fast", else "general" (``ceil(D / lanes)`` strided columns a lane with a
-    masked tail, per-head sums through shared memory), None if neither."""
+    """The geometry the fused f32 kernels take with ``lanes`` lanes a row,
+    as ``csr_attention.cu`` and ``csr_attention_bwd.cu`` choose it: "fast",
+    else "words" where ``lanes`` is the word geometry's, else "general"
+    (``ceil(D / lanes)`` strided columns a lane with a masked tail, per-head
+    sums through shared memory), None if none; the fast and general
+    geometries take 8, 16 or 32 lanes. Cached: the launches count by it."""
     if width <= 0 or heads <= 0 or width % heads:
         return None
-    if _geometry_ok(lanes, width, heads, interleaved):
+    if lanes in FORWARD_LANES and _geometry_ok(lanes, width, heads, interleaved):
         return "fast"
-    return "general" if -(-width // lanes) <= MAX_COLUMNS else None
+    words = word_geometry(width, heads, interleaved)
+    if words is not None and words.lanes == lanes:
+        return "words"
+    return "general" if lanes in FORWARD_LANES and -(-width // lanes) <= MAX_COLUMNS else None
 
 
+@functools.lru_cache(maxsize=None)
 def lanes_per_row(width: int, heads: int, interleaved: bool, backward: bool = False) -> Optional[int]:
-    """The lanes a sender row gets in the fused forward (or ``backward``)
-    kernel: the first of ``FORWARD_LANES`` (``BACKWARD_LANES``) with a fast
-    geometry, else the general geometry's fewest lanes with at most
+    """The lanes a sender row gets in the fused f32 forward (or
+    ``backward``) kernel: the first of ``FORWARD_LANES`` (``BACKWARD_LANES``)
+    with a fast geometry, else the word geometry's (``word_geometry``),
+    else the general geometry's fewest lanes with at most
     ``GENERAL_COLUMNS`` columns each (32 for wider rows); None where the
-    kernels take neither (past ``MAX_WIDTH``, or H not dividing D)."""
+    kernels take none (past ``MAX_WIDTH``, or H not dividing D). Cached:
+    every launch asks it."""
     if not 0 < width <= MAX_WIDTH or heads <= 0 or width % heads:
         return None
     order = BACKWARD_LANES if backward else FORWARD_LANES
     fast = next((g for g in order if _geometry_ok(g, width, heads, interleaved)), None)
     if fast is not None:
         return fast
+    words = word_geometry(width, heads, interleaved)
+    if words is not None:
+        return words.lanes
     return next((g for g in (8, 16) if -(-width // g) <= GENERAL_COLUMNS), 32)
 
 
@@ -1202,6 +1288,8 @@ def _launch_attention(q, k, v, gather_idx, bounds, mask, scale, interleaved, lan
     if err != 0:
         raise RuntimeError(f"csr_attention_{entry} kernel launch failed: CUDA error {err}")
     LAUNCHES[f"csr_attention_{entry}"].launches += 1
+    if entry == "f32":
+        csr_attention.geometries[geometry_kind(lanes, d, h, interleaved)] += 1
     return out, ml
 
 
@@ -1233,6 +1321,7 @@ def _launch_attention_backward(q, k, v, gather_idx, bounds, mask, ml, out, g, sc
     if err != 0:
         raise RuntimeError(f"csr_attention_bwd_f32 kernel launch failed: CUDA error {err}")
     csr_attention_backward.launches += 1
+    csr_attention_backward.geometries[geometry_kind(lanes, d, h, interleaved)] += 1
     return grads
 
 
@@ -1420,6 +1509,9 @@ def csr_attention(
 
 
 csr_attention.launches = 0
+# the f32 entry's launches by the geometry that ran (geometry_kind), so a
+# run can show which one its path took
+csr_attention.geometries = {"fast": 0, "words": 0, "general": 0}
 
 
 def _gather_args(gather: Optional[GatherCsr]) -> tuple:
@@ -1472,6 +1564,7 @@ def csr_attention_backward(
 
 
 csr_attention_backward.launches = 0
+csr_attention_backward.geometries = {"fast": 0, "words": 0, "general": 0}
 
 
 # the bf16 entries, and the bf16 stream's, count apart from the f32 ones,

@@ -443,7 +443,7 @@ def _model_view(t):
      ("two_graphs", 64, 4, "model"), ("two_graphs", 64, 4, "contiguous"), ("two_graphs", 96, 4, "model"),
      ("two_graphs", 96, 4, "contiguous"), ("two_graphs", 512, 8, "model"), ("two_graphs", 32, 4, "model"),
      ("two_graphs", 32, 1, "contiguous"),
-     # widths without a power-of-two head split: the general geometry
+     # widths without a power-of-two head split: the word geometry (the general one at 32 lanes, 500 x 5)
      ("two_graphs", 48, 4, "model"), ("two_graphs", 48, 4, "contiguous"), ("two_graphs", 96, 3, "model"),
      ("two_graphs", 96, 3, "contiguous"), ("two_graphs", 40, 8, "model"), ("two_graphs", 40, 8, "contiguous"),
      ("skewed", 48, 4, "model"), ("serving", 96, 3, "model"), ("two_graphs", 500, 5, "model")],
@@ -480,6 +480,73 @@ def test_fused_attention_kernels_match_plain(cuda, layout, d, h, view):
             assert torch.isfinite(a).all()
             # atomics and per-head sums in another order than index_add_
             torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=f"d{name}, {n} lanes")
+
+
+# (D, H): widths the fused f32 kernels run in the word geometry in the
+# model's view (most in both views): 4-column words with 4, 3, 8, 12 heads,
+# an odd count of them (20, 36; 20 in one head), 2-column words
+# (D % 4 != 0), single columns (odd D), fewer words than partials
+WORD_WIDTHS = [(48, 4), (96, 3), (40, 8), (24, 4), (80, 4), (112, 4), (20, 4), (36, 4), (20, 1), (12, 3),
+               (30, 3), (15, 5), (6, 2), (96, 12)]
+
+
+@pytest.mark.parametrize("view", ["model", "contiguous"])
+@pytest.mark.parametrize("d,h", WORD_WIDTHS)
+def test_word_geometry_matches_plain(cuda, d, h, view):
+    """The fused f32 forward, its bf16 stream and the backward in the word
+    geometry (``csrc/attention_words.cuh``) against their plain versions
+    on a layout with masked edges and empty rows, through the public
+    entries (each launch counted on ``geometries["words"]`` where the rule
+    picks it; a width with a fast geometry in the view runs that one) and
+    at each of the width's word geometries by its lane count."""
+    from graphphysics_torch.ops import csr_attention as ca
+
+    g, mask, qkv, cot = _fused_case("two_graphs", d, h, seed=d * h)
+    seg, gather = torch.from_numpy(g.senders).to(cuda), torch.from_numpy(g.receivers).to(cuda)
+    bounds, m = torch.from_numpy(g.sender_bounds).to(cuda), mask.to(cuda)
+    q, k, v, g_out = ((_model_view(t) if view == "model" else t).to(cuda) for t in (*qkv, cot))
+    interleaved = view == "model" and h > 1
+    kinds = [ca.geometry_kind(ca.lanes_per_row(d, h, interleaved, backward=b), d, h, interleaved)
+             for b in (False, True)]
+    _poison_free_memory(cuda)
+    before = (dict(ca.csr_attention.geometries), dict(ca.csr_attention_backward.geometries))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out, ml = ca.csr_attention(*leaves, seg, gather, bounds, m, h ** -0.5)
+    grads = torch.autograd.grad(out, leaves, g_out)
+    torch.cuda.synchronize()
+    for counter, old, kind in zip((ca.csr_attention, ca.csr_attention_backward), before, kinds):
+        assert counter.geometries[kind] == old[kind] + 1
+    assert view == "contiguous" or kinds == ["words", "words"]
+    want_out, want_ml = ca.csr_attention_reference(q, k, v, seg, gather, g.num_nodes, m, h ** -0.5)
+    torch.testing.assert_close(out, want_out, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ml, want_ml, rtol=1e-5, atol=1e-5)
+    want = ca.csr_attention_backward_reference(q, k, v, seg, gather, ml, out.detach(), g_out, m, h ** -0.5)
+    for a, b in zip(grads, want):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    # where a fast geometry ran the public entries, the word geometry too,
+    # launched by its lane count (where no fast geometry takes that count)
+    geo = ca.word_geometry(d, h, interleaved)
+    if kinds != ["words", "words"] and ca.geometry_kind(geo.lanes, d, h, interleaved) == "words":
+        got, got_ml = ca._launch_attention(q, k, v, gather, bounds, m, h ** -0.5, interleaved, lanes=geo.lanes)
+        dq, dkv = ca._launch_attention_backward(q, k, v, gather, bounds, m, got_ml, got, g_out, h ** -0.5,
+                                                interleaved, lanes=geo.lanes)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want_out, rtol=1e-5, atol=1e-5, msg=f"out, {geo}")
+        torch.testing.assert_close(got_ml, want_ml, rtol=1e-5, atol=1e-5, msg=f"ml, {geo}")
+        for a, b, name in zip((dq, *dkv.unbind(0)), want, "qkv"):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=f"d{name}, {geo}")
+    # the bf16 stream: q and k on a 1/16 grid, so each score is exact in any
+    # order and both sides round the same score to bf16
+    qs, ks = _grid(q, interleaved), _grid(k, interleaved)
+    with torch.no_grad():
+        got, got_ml = ca.csr_attention(qs, ks, v, seg, gather, bounds, m, 0.5, stream_dtype="bf16")
+        want_out, want_ml = ca.csr_attention_reference(qs, ks, v, seg, gather, g.num_nodes, m, 0.5,
+                                                       stream_dtype="bf16")
+        base, _ = ca.csr_attention(qs, ks, v, seg, gather, bounds, m, 0.5)
+    torch.testing.assert_close(got, want_out, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got_ml, want_ml, rtol=1e-5, atol=1e-5)
+    assert not torch.allclose(got, base, rtol=1e-5, atol=1e-5)
 
 
 def test_fused_attention_wrapper_refuses_what_the_kernel_does_not_take(cuda):

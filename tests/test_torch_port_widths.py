@@ -1,8 +1,9 @@
 """The fused attention's widths: the CUDA kernels take every width
 ``D <= MAX_WIDTH`` with ``D % H == 0``, by a fast lane geometry where a lane
-count splits the row into power-of-two head partials and by the general
-geometry (a masked column tail and per-head sums through shared memory)
-everywhere else. On the CPU: the geometry the wrappers pick for every such
+count splits the row into power-of-two head partials, by the f32 word
+geometry (a word of columns a lane, per-head partials reduced by shuffles)
+where its lanes hold the row, and by the general geometry (a masked column
+tail and per-head sums through shared memory) everywhere else. On the CPU: the geometry the wrappers pick for every such
 (D, H) in both layouts, the published widths keeping their fast geometries,
 the argument checks, and the transformer at widths outside the fast
 geometries (hidden 48 with 4 heads, 96 with 3, 40 with 8) against the JAX
@@ -46,18 +47,26 @@ def _divisor_pairs(limit):
 def test_every_width_has_a_geometry(interleaved):
     """Every (D, H) with D % H == 0 and D <= 512 gets a lane count in both
     kernels, with a geometry the kernels take; a fast one wherever one
-    exists, and the lane count's V = ceil(D / lanes) columns fit a lane."""
-    kinds = {"fast": 0, "general": 0}
+    exists, else the word geometry wherever it applies (its lanes, a power
+    of two up to 32, hold the row's words), else the general one, whose
+    V = ceil(D / lanes) columns fit a lane."""
+    kinds = {"fast": 0, "words": 0, "general": 0}
     for d, h in _divisor_pairs(ca.MAX_WIDTH):
         for backward in (False, True):
             lanes = ca.lanes_per_row(d, h, interleaved, backward=backward)
-            assert lanes in (8, 16, 32), (d, h, backward)
             kind = ca.geometry_kind(lanes, d, h, interleaved)
-            assert kind is not None and -(-d // lanes) <= ca.MAX_COLUMNS
             any_fast = any(ca._geometry_ok(g, d, h, interleaved) for g in (8, 16, 32))
+            words = ca.word_geometry(d, h, interleaved)
             assert (kind == "fast") == any_fast, (d, h, lanes)
+            assert (kind == "words") == (not any_fast and words is not None), (d, h, lanes)
+            if kind == "words":
+                assert lanes == words.lanes and d % words.cols == 0 and lanes * words.cols >= d
+                assert lanes in (1, 2, 4, 8, 16, 32)
+            else:
+                assert lanes in (8, 16, 32), (d, h, backward)
+                assert -(-d // lanes) <= ca.MAX_COLUMNS
             kinds[kind] += 1
-    assert kinds["fast"] and kinds["general"]
+    assert kinds["fast"] and kinds["words"] and kinds["general"]
     assert ca.lanes_per_row(ca.MAX_WIDTH + 1, 1, interleaved) is None
     assert ca.geometry_kind(8, 48, 5, interleaved) is None  # 5 does not divide 48
 
@@ -65,16 +74,21 @@ def test_every_width_has_a_geometry(interleaved):
 def test_published_widths_keep_their_fast_geometries():
     """The model's widths (64 and 128, 4 heads, the (N, Dh, H) view) keep
     the lanes measured fastest: 8 forward, 32 backward, fast geometry; the
-    widths of the general geometry's card phases take it in the model's
-    layout."""
+    widths of the card phases that have no fast geometry take the word
+    geometry in the model's layout, and a width past its 32 lanes the
+    general one."""
     for d in (64, 128):
         assert ca.lanes_per_row(d, 4, True) == 8 and ca.lanes_per_row(d, 4, True, backward=True) == 32
         assert ca.geometry_kind(8, d, 4, True) == ca.geometry_kind(32, d, 4, True) == "fast"
-    # the general geometry: the fewest lanes with at most 3 columns each
-    for (d, h), lanes in (((48, 4), 16), ((96, 3), 32), ((40, 8), 16), ((12, 4), 8), ((500, 5), 32)):
+    # the word geometry: D / 4 words rounded up to a power of two and to the
+    # head partials; the general geometry: the fewest lanes with at most 3
+    # columns each
+    for (d, h), lanes, kind in (((48, 4), (16, 16), "words"), ((96, 3), (32, 32), "words"),
+                                ((40, 8), (16, 16), "words"), ((12, 4), (4, 4), "words"),
+                                ((500, 5), (32, 32), "general")):
         for backward in (False, True):
-            assert ca.lanes_per_row(d, h, True, backward=backward) == lanes, (d, h)
-            assert ca.geometry_kind(lanes, d, h, True) == "general", (d, h)
+            assert ca.lanes_per_row(d, h, True, backward=backward) == lanes[backward], (d, h)
+            assert ca.geometry_kind(lanes[backward], d, h, True) == kind, (d, h)
     # blocked rows of 48 = 4 x 12 split into 2 lanes a head: fast
     assert ca.geometry_kind(8, 48, 4, False) == "fast"
 
