@@ -66,13 +66,18 @@ widths without a fast geometry in the model's layout (48 x 4, 96 x 3,
 40 x 8; ``chip_smoke.GENERAL_WIDTHS``), in the model's (N, Dh, H) view and
 contiguous, through ``chip_smoke.fused_case(..., heads=, view=)``: ms, ms
 at each lane count the kernels take, bound, plain ms, the geometry and the
-error; with the seconds of the four fused sources' ``nvcc`` builds and
-digests of outputs that must not change with the width geometry: the f32
-forward's out and ml and the backward's dq (its dk and dv are atomic sums,
-whose bits vary from run to run) at 128 x 4 and 64 x 4, and the bf16
-entries' out, ml, dq, dk and dv at 48 x 4 (their general geometry), on the
-model's layout. It calls only ``fused_case`` and ``attention_inputs``,
-which a parent checkout's ``chip_smoke.py`` has too.
+error; then the bf16 entries at the widths without their 16-byte geometry
+(``BF16_WIDTH_CASES``, through ``chip_smoke.fused_bf16_case``: ms, plain
+ms, the f32 entry's ms, bound, geometry, error); with the seconds of the
+fused sources' ``nvcc`` builds and digests of outputs (``DIGEST_CASES``)
+that must not change with the bf16 word geometry: every f32 geometry's
+forward out and ml and backward dq (its dk and dv are atomic sums, whose
+bits vary from run to run) and the bf16 16-byte geometry's out, ml, dq, dk
+and dv at 128 x 4 and 64 x 4; and the bf16 48 x 4 in the model's view,
+whose geometry the change replaces. It calls only ``fused_case``,
+``fused_bf16_case`` and ``attention_inputs``, which a parent checkout's
+``chip_smoke.py`` has too (the 8-byte-aligned bf16 view only where the
+checkout's ``fused_bf16_case`` takes it).
 """
 import json
 import os
@@ -376,13 +381,28 @@ def general_kernels(cs, torch) -> dict:
 
 
 WIDTH_SOURCES = ("csr_attention.cu", "csr_attention_bwd.cu", "csr_attention_bf16.cu",
-                 "csr_attention_bwd_bf16.cu")
+                 "csr_attention_bwd_bf16.cu", "csr_attention_bf16_words.cu")
+# the bf16 entries' cases at the widths without their 16-byte geometry
+# (chip_smoke.BF16_WORD_CASES, whose seeds they take); the 8-byte-aligned
+# view only where the checkout's fused_bf16_case takes it
+BF16_WIDTH_CASES = ((48, 4, "model"), (96, 3, "model"), (40, 8, "model"), (96, 3, "contiguous"),
+                    (48, 4, "contiguous"), (20, 4, "model"), (36, 4, "model"), (20, 1, "model"),
+                    (48, 4, "model_8_byte"))
+# (D, H, view, dtype) whose outputs' digests must not change with the bf16
+# word geometry: every f32 geometry (fast at 128 x 4, 64 x 4 and the
+# contiguous 48 x 4 and 40 x 8; words at the rest) and the bf16 16-byte
+# geometry; the bf16 48 x 4 in the model's view changes by design
+DIGEST_CASES = ((128, 4, "model", "f32"), (64, 4, "model", "f32"), (48, 4, "model", "f32"),
+                (96, 3, "model", "f32"), (40, 8, "model", "f32"), (96, 3, "contiguous", "f32"),
+                (48, 4, "contiguous", "f32"), (40, 8, "contiguous", "f32"), (128, 4, "model", "bf16"),
+                (64, 4, "model", "bf16"), (48, 4, "model", "bf16"))
 
 
 def width_kernels(cs, torch) -> dict:
     """The fused f32 forward and backward at ``GENERAL_WIDTHS`` in both
-    views (``fused_case`` records), then the digests of the fast
-    geometries' f32 outputs and of the bf16 entries' at 48 x 4."""
+    views (``fused_case`` records), the bf16 entries at ``BF16_WIDTH_CASES``
+    (``fused_bf16_case`` records), then the digests of ``DIGEST_CASES``'
+    outputs."""
     from graphphysics_torch.ops import csr_attention as ca
 
     batch = cs.panels_batch(200)
@@ -395,26 +415,39 @@ def width_kernels(cs, torch) -> dict:
         for name, record in zip(("fwd", "bwd"), records):
             out[f"{name}_{label}"] = {**{k: record[k] for k in keep},
                                       "bound_share": record["bound_ms"] / record["ms"]}
-    for d, h, dtype in ((128, 4, torch.float32), (64, 4, torch.float32), (48, 4, torch.bfloat16)):
-        seg, gather, bounds, mask, qkvg = cs.attention_inputs(batch, d, 40 + d, h)
+    keep16 = ("ms", "plain_ms", "f32_entry_ms", "bound_ms", "max_abs_err", "geometry", "lanes_per_row")
+    for i, (d, h, view) in enumerate(BF16_WIDTH_CASES):  # chip_smoke.py's fused_bf16_kernels seeds
+        if view == "model_8_byte" and not hasattr(cs, "eight_byte_view"):
+            continue
+        label = f"panels_csr_batch_8x2048_d{d}_h{h}_{view}"
+        records = cs.fused_bf16_case(label, batch, d, 44 + i, heads=h, view=view, library=False)
+        for name, record in zip(("bf16_fwd", "bf16_bwd"), records):
+            out[f"{name}_{label}"] = {**{k: record[k] for k in keep16},
+                                      "bound_share": record["bound_ms"] / record["ms"]}
+    for d, h, view, dt in DIGEST_CASES:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        seg, gather, bounds, mask, qkvg = cs.attention_inputs(batch, d, 40 + d, h, view)
         q, k, v, g = (t.to(dtype) for t in qkvg)  # `to` keeps the layout
         scale = h ** -0.5
         with torch.no_grad():
             got, ml = ca.csr_attention(q, k, v, seg, gather, bounds, mask, scale)
-            tc = ca.gather_csr(seg, gather, bounds, mask) if dtype == torch.bfloat16 else None
+            tc = ca.gather_csr(seg, gather, bounds, mask) if dt == "bf16" else None
             grads = ca.csr_attention_backward(q, k, v, seg, gather, bounds, ml, got, g, mask, scale, tc)
-        kept = grads if dtype == torch.bfloat16 else grads[:1]
-        out[f"digest_{'bf16' if dtype == torch.bfloat16 else 'f32'}_d{d}_h{h}_model"] = {
-            "geometry": None if dtype == torch.bfloat16 else f32_geometry(ca, d, h),
+        kept = grads if dt == "bf16" else grads[:1]
+        interleaved = view == "model"
+        out[f"digest_{dt}_d{d}_h{h}_{view}"] = {
+            "geometry": (ca.bf16_geometry(d, h, interleaved)[1:] if dt == "bf16"
+                         else f32_geometry(ca, d, h, interleaved)),
             "out": _digest(torch, got), "ml": _digest(torch, ml),
             "grads": [_digest(torch, t) for t in kept]}
     return out
 
 
-def f32_geometry(ca, d, h) -> list:
+def f32_geometry(ca, d, h, interleaved=True) -> list:
     """The f32 forward's and backward's geometry at width d in h heads, the
-    model's layout."""
-    return [ca.geometry_kind(ca.lanes_per_row(d, h, True, backward=b), d, h, True) for b in (False, True)]
+    model's layout (or contiguous)."""
+    return [ca.geometry_kind(ca.lanes_per_row(d, h, interleaved, backward=b), d, h, interleaved)
+            for b in (False, True)]
 
 
 def main() -> int:
@@ -440,7 +473,7 @@ def main() -> int:
         print("COMPARE " + json.dumps(out), flush=True)
         return 0
     if "--width" in sys.argv:
-        out["nvcc_s"] = _native.build(WIDTH_SOURCES)
+        out["nvcc_s"] = _native.build([x for x in WIDTH_SOURCES if (_native.CSRC / x).exists()])
         out.update(width_kernels(cs, torch))
         print("COMPARE " + json.dumps(out), flush=True)
         return 0

@@ -159,11 +159,20 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     ``BF16_MISMATCH_SHARE`` of the elements differing at all), the backward
     bit-equal on a second call, at the serving frame, the panels batch and
     the aneurysm scale (widths 128, 128, 64 in the model's (N, Dh, H) view)
-    and on the panels batch at widths 64 and 48 (the general geometry),
-    each timed beside its bound (2 bytes a q, k, v, out, g, dq, dk and dv
-    element), its plain version, the f32 entry on the same shapes and SDPA
-    in bf16 (frame and batch), the transposition timed on its own
-    (``transpose_ms``);
+    and on the panels batch at width 64; then the word geometry of
+    ``csr_attention_bf16_words.cu`` (one word of 8 or 4 bf16 columns a
+    lane, per-head partials reduced by shuffles, one head's softmax a lane;
+    the same two backward parts) at ``BF16_WORD_CASES`` on the panels
+    batch: 48 x 4, 96 x 3 and 40 x 8 in the model's view, 96 x 3 and 48 x 4
+    contiguous, 20 x 4, 36 x 4 and 20 x 1 (8-byte words) and 48 x 4 on rows
+    only 8-byte aligned; the general geometry at 160 x 4 on rows only
+    8-byte aligned (``BF16_GENERAL_CASE``: words past 32 lanes); each timed
+    beside its bound (2 bytes a q, k, v, out, g, dq, dk and dv element), its
+    plain version, the f32 entry on the same shapes and SDPA in bf16 (frame,
+    batch, d64, and once at 48 x 4, 96 x 3 and 40 x 8:
+    ``BF16_WORD_LIBRARY``), the transposition timed on its own
+    (``transpose_ms``); and the bf16 stream twin at 48 x 4
+    (``chip_stream.fused_stream_case``, q and k on a 1/16 grid);
 19. ``bf16_epd_training``, ``bf16_transformer_training``,
     ``bf16_gmm_training``: ``train`` of ``cylinder.json``, ``panels.json``
     (8 x 2,048 batches) and ``c-a-gmm.json`` (the 66,560-node graph) with
@@ -293,6 +302,16 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     with the stream, forward and backward, each new entry and each
     backward entry they take counted once, nothing else.
 
+51. ``bf16_width_training``: ``panels.json`` at ``hidden_size`` 48 in 4
+    heads with ``"precision": "bf16"`` (15 x 48, the bf16 word geometry's
+    path) on the panels batch: its first step against the CPU in bf16 on
+    one 2,048-node graph (``BF16_GRAD_RTOL``), 3 warm-up and 12 timed steps
+    with 15 + 15 bf16 fused launches a step all counted in the word
+    geometry (``csr_attention.bf16.geometries``, 0 general) and one
+    ``gather_csr``, two steps replayed bit for bit (asserted), the fused
+    kernels' device ms from a profile, an eager eval forward on the serving
+    frame (15 word-geometry forwards), beside the bf16 128 x 4 step and the
+    f32 ``width_training`` (shared-card times).
 The kernels are timed first (the bf16 fused kernels and K5 right after the
 others), alone on the card. Then a second process (``chip_parallel.
 start_multirank``) runs phases 17, 27-31 and 38-47, every phase that starts
@@ -414,6 +433,24 @@ MESH_GENERAL_SHAPE = "mesh_16384_part0_of_4_unsplit_d40_h8"
 # the shape the fused f32 word geometry runs on its path (width_training):
 # the panels batch at hidden 48 in 4 heads, the model's view
 WORD_SHAPE = "panels_csr_batch_8x2048_d48_h4_model"
+# the fused bf16 entries' word geometry (csrc/csr_attention_bf16_words.cu):
+# (D, H, view) on the panels batch: 16-byte words at 48 x 4, 96 x 3 and
+# 40 x 8 in the model's view and at 96 x 3 and 48 x 4 contiguous, 8-byte
+# words at 20 x 4, 36 x 4 and 20 x 1 (D % 8 == 4: the widths that caught a
+# cut word) and at 48 x 4 on rows only 8-byte aligned; its path's shape
+# (bf16_width_training) is BF16_WORD_SHAPE
+BF16_WORD_CASES = ((48, 4, "model"), (96, 3, "model"), (40, 8, "model"), (96, 3, "contiguous"),
+                   (48, 4, "contiguous"), (20, 4, "model"), (36, 4, "model"), (20, 1, "model"),
+                   (48, 4, "model_8_byte"))
+BF16_WORD_SHAPE = "panels_csr_batch_8x2048_d48_h4_model"
+# the word cases whose SDPA is timed: PERF.md's rows of the bf16 general
+# widths (the other cases check cut words and alignments, and each SDPA of a
+# dense 16,384^2 mask costs seconds of the script)
+BF16_WORD_LIBRARY = ((48, 4), (96, 3), (40, 8))
+# a width the bf16 word geometry cannot hold, which keeps the general
+# geometry of csr_attention.cuh (160 columns in 8-byte words: 40 words, past
+# 32 lanes): (D, H, view) on the panels batch
+BF16_GENERAL_CASE = (160, 4, "model_8_byte")
 # the local widths of panels' 128 wide x 4 heads on 2 and 4 tensor-parallel ranks
 TP_LOCAL_WIDTHS = ((64, 2), (32, 1))
 # the card sampler's statistics: draws of a fixed mixture, and the most
@@ -1861,15 +1898,19 @@ def first_step(name, param, batch, seed, total_steps, grad_rtol, stats=None,
     return result
 
 
-def fused_geometries(reset=False) -> dict:
+def fused_geometries(reset=False, bf16=False) -> dict:
     """The fused f32 forward's and backward's launches by the geometry that
-    ran (``csr_attention.geometries``, ``csr_attention_backward.geometries``),
-    read before ``reset`` sets them to 0."""
+    ran (``csr_attention.geometries``, ``csr_attention_backward.geometries``;
+    with ``bf16`` the bf16 entries', ``csr_attention.bf16.geometries`` and
+    ``csr_attention_backward.bf16.geometries``), read before ``reset`` sets
+    them to 0."""
     from graphphysics_torch.ops.csr_attention import csr_attention, csr_attention_backward
 
-    read = {"forward": dict(csr_attention.geometries), "backward": dict(csr_attention_backward.geometries)}
+    forward, backward = ((csr_attention.bf16, csr_attention_backward.bf16) if bf16
+                         else (csr_attention, csr_attention_backward))
+    read = {"forward": dict(forward.geometries), "backward": dict(backward.geometries)}
     if reset:
-        for counter in (csr_attention.geometries, csr_attention_backward.geometries):
+        for counter in (forward.geometries, backward.geometries):
             for kind in counter:
                 counter[kind] = 0
     return read
@@ -1906,6 +1947,7 @@ def train(name, param, batch, counts, expected, seed, grad_rtol, graphs=len(BATC
         fn.launches = 0
     k1_geometries(reset=True)
     fused_geometries(reset=True)
+    fused_geometries(reset=True, bf16=True)
     t0 = time.perf_counter()
     losses = [trainer.train_step(dev_batch) for _ in range(TIMED_STEPS)]
     torch.cuda.synchronize()
@@ -1913,6 +1955,7 @@ def train(name, param, batch, counts, expected, seed, grad_rtol, graphs=len(BATC
     launches = {k: fn.launches for k, fn in counts.items()}
     by_geometry = k1_geometries()
     fused_by_geometry = fused_geometries()
+    fused_bf16_by_geometry = fused_geometries(bf16=True)
     want = {k: expected.get(k, 0) * TIMED_STEPS for k in counts}
     if launches != want:
         raise AssertionError(f"{name}: launches {launches} in {TIMED_STEPS} steps, expected {want}")
@@ -1937,6 +1980,7 @@ def train(name, param, batch, counts, expected, seed, grad_rtol, graphs=len(BATC
         "launches": launches,
         "k1_f32_launches_by_geometry": by_geometry,
         "fused_f32_launches_by_geometry": fused_by_geometry,
+        "fused_bf16_launches_by_geometry": fused_bf16_by_geometry,
         "launches_per_step": {k: v / TIMED_STEPS for k, v in launches.items()},
         "first_loss": losses[0],
         "last_loss": losses[-1],
@@ -2004,6 +2048,74 @@ def width_training(param, batch, frame, counts, blocks, seed, first, wide):
                 {k: wide_breakdown["by_category"].get(k, {}).get("ms_per_step", 0.0)
                  for k in ("csr_attention", "csr_attention_bwd")} if isinstance(wide_breakdown, dict) else None),
         },
+        "shared_card": "the multi-rank phases run in a second process on the same card meanwhile",
+    }
+
+
+def bf16_width_training(param, batch, check_batch, frame, counts, blocks, seed, width_f32, wide_bf16):
+    """``bf16_train`` of the transformer ``param`` (a width of the bf16 word
+    geometry) on ``batch``, its first step against the CPU in bf16 on
+    ``check_batch``, with every bf16 fused launch of its timed steps checked
+    to have run the word geometry (``csr_attention.bf16.geometries``), one
+    transposed CSR a step, the fused kernels' device ms a step from its
+    profile, two steps replayed bit for bit (asserted: the backward has no
+    atomics) and an eager eval forward on a serving frame (its launches
+    counted and checked the same way); beside it the f32 transformer at the
+    same width (``width_f32``, ``width_training``) and the bf16 one at 128 x
+    4 (``wide_bf16``, ``bf16_transformer_training``)."""
+    name = "bf16_width_training"
+    expected = {"csr_attention_bf16": blocks, "csr_attention_backward_bf16": blocks, "gather_csr": 1}
+    result = bf16_train(name, param, batch, check_batch, counts, expected, seed, width_f32)
+    words = {"forward": {"fast": 0, "words": blocks * TIMED_STEPS, "general": 0},
+             "backward": {"fast": 0, "words": blocks * TIMED_STEPS, "general": 0}}
+    if result["fused_bf16_launches_by_geometry"] != words:
+        raise AssertionError(f"{name}: bf16 fused launches by geometry "
+                             f"{result['fused_bf16_launches_by_geometry']}, expected {words}")
+    replay = replay_bitwise(with_precision(param, "bf16"), batch, seed)
+    if not replay["bitwise"]:
+        raise AssertionError(f"{name}: two bf16 steps from one seeded state differ: {replay}")
+
+    def fused_ms(breakdown):
+        if not isinstance(breakdown, dict):
+            return None
+        groups = breakdown["by_category"]
+        return {k: groups.get(k, {}).get("ms_per_step", 0.0) for k in ("csr_attention", "csr_attention_bwd")}
+
+    sim = build_transformer(with_precision(param, "bf16"), seed, "cuda")
+    dev_frame = frame.to("cuda")
+    sim.accumulate_stats(dev_frame)
+    with torch.inference_mode():
+        sim(dev_frame)
+        torch.cuda.synchronize()
+        for fn in counts.values():
+            fn.launches = 0
+        fused_geometries(reset=True, bf16=True)
+        _, _, out = sim(dev_frame)
+        torch.cuda.synchronize()
+        frame_launches = {k: fn.launches for k, fn in counts.items() if fn.launches}
+        frame_geometries = fused_geometries(bf16=True)["forward"]
+        forward_ms = call_ms(lambda: sim(dev_frame))
+    if frame_launches != {"csr_attention_bf16": blocks} or frame_geometries["words"] != blocks:
+        raise AssertionError(f"{name}: an eval forward launched {frame_launches}, by geometry "
+                             f"{frame_geometries}; expected {blocks} word-geometry bf16 forwards")
+    if out.shape[0] != frame.num_nodes or not torch.isfinite(out.float()).all():
+        raise AssertionError(f"{name}: bad eval outputs {tuple(out.shape)}")
+    wide_breakdown = wide_bf16["breakdown"]
+    return {
+        **result,
+        "fused_attention_device_ms_per_step": fused_ms(result["breakdown"]),
+        "replay": replay,
+        "eval_frame_nodes": frame.num_nodes,
+        "forward_eager_ms": forward_ms,
+        "eval_frame_launches": frame_launches,
+        "eval_frame_launches_by_geometry": frame_geometries,
+        "bf16_transformer_training_128x4": {
+            "ms_per_step": wide_bf16["ms_per_step"],
+            "device_ms_per_step": (wide_breakdown["device_ms_per_step"] if isinstance(wide_breakdown, dict)
+                                   else None),
+            "fused_attention_device_ms_per_step": fused_ms(wide_breakdown)},
+        "f32_width_training_fused_attention_device_ms_per_step": width_f32.get(
+            "fused_attention_device_ms_per_step"),
         "shared_card": "the multi-rank phases run in a second process on the same card meanwhile",
     }
 
@@ -2721,28 +2833,47 @@ def plate_pipeline(name, param, counts, seed, workers):
 # bf16 compute, remat and the large mesh
 
 
+def eight_byte_view(t):
+    """A copy of ``t`` with its shape and strides in a buffer whose base is
+    8 bytes past a 16-byte boundary: every node row of a bf16 width D % 4 ==
+    0 8-byte, not 16-byte, aligned (the bf16 word geometry's 4-column
+    words)."""
+    flat = torch.empty(t.numel() + 8 // t.element_size(), dtype=t.dtype, device=t.device)[8 // t.element_size():]
+    return flat.as_strided(t.shape, t.stride()).copy_(t)
+
+
 def fused_bf16_case(name, graph, width, seed, heads=HEADS, view="model", library=True):
     """Hold the fused attention's bf16 entries (``csr_attention_bf16`` and
-    ``csr_attention_bwd_bf16``) against their plain versions on the same
-    bf16 inputs, the backward over the graph's transposed CSR
-    (``gather_csr``, built once and timed on its own as ``transpose_ms``)
-    and bit-equal on a second call, and time each beside its bound (bytes
-    at 2 per q, k, v, out, g, dq, dk and dv element), its plain version, the
-    f32 entry on the f32 inputs the bf16 ones were rounded from and, with
-    ``library``, SDPA in bf16 with the dense adjacency as its mask. Returns
-    (forward record, backward record)."""
+    ``csr_attention_bwd_bf16``, or in the word geometry
+    ``csr_attention_bf16_words`` and ``csr_attention_bwd_bf16_words``)
+    against their plain versions on the same bf16 inputs, the backward over
+    the graph's transposed CSR (``gather_csr``, built once and timed on its
+    own as ``transpose_ms``) and bit-equal on a second call, and time each
+    beside its bound (bytes at 2 per q, k, v, out, g, dq, dk and dv
+    element), its plain version, the f32 entry on the f32 inputs the bf16
+    ones were rounded from and, with ``library``, SDPA in bf16 with the
+    dense adjacency as its mask. ``view``: "model" (the model's (N, Dh, H)
+    memory), "contiguous" or "model_8_byte" (the model's, every row base
+    8-byte, not 16-byte, aligned: ``eight_byte_view``, its timed copies
+    too). Returns (forward record, backward record)."""
     import torch.nn.functional as F
 
     from graphphysics_torch.ops import csr_attention as ca
 
-    seg, gather, bounds, mask, f32s = attention_inputs(graph, width, seed, heads, view)
+    layout = "contiguous" if view == "contiguous" else "model"
+    seg, gather, bounds, mask, f32s = attention_inputs(graph, width, seed, heads, layout)
     q, k, v, g = (t.to(torch.bfloat16) for t in f32s)  # in their layout: `to` keeps strides
+    copy = eight_byte_view if view == "model_8_byte" else torch.clone  # clone keeps the strides
+    if view == "model_8_byte":
+        q, k, v, g = (copy(t) for t in (q, k, v, g))
     n, h = bounds.shape[1], heads
     scale = h ** -0.5
     interleaved = ca._is_interleaved(q)
     # with one head the model's (N, Dh, 1) layout is the contiguous one
-    if heads > 1 and interleaved is not (view == "model"):
+    if heads > 1 and interleaved is not (layout == "model"):
         raise AssertionError(f"{name}: the bf16 inputs lost their layout")
+    if ca._aligned(q, k, v, g) is (view == "model_8_byte"):
+        raise AssertionError(f"{name}: the bf16 inputs' row alignment is not the view's")
     with torch.no_grad():
         tc = ca.gather_csr(seg, gather, bounds, mask)
         out, ml = ca.csr_attention(q, k, v, seg, gather, bounds, mask, scale)
@@ -2779,7 +2910,7 @@ def fused_bf16_case(name, graph, width, seed, heads=HEADS, view="model", library
     fwd_ops = real_edges * (4 * width + 6 * h) + n * width
     bwd_ops = real_edges * (11 * width + 6 * h) + n * 2 * width
     copies = copies_past_l2(fwd_bytes)
-    sets = [(q, k, v, g)] + [tuple(t.clone() for t in (q, k, v, g)) for _ in range(copies - 1)]
+    sets = [(q, k, v, g)] + [tuple(copy(t) for t in (q, k, v, g)) for _ in range(copies - 1)]
     sets32 = [tuple(f32s)] + [tuple(t.clone() for t in f32s) for _ in range(copies - 1)]
     with torch.no_grad():
         saved = [ca.csr_attention(a, b, c, seg, gather, bounds, mask, scale) for a, b, c, _ in sets]
@@ -2824,9 +2955,10 @@ def fused_bf16_case(name, graph, width, seed, heads=HEADS, view="model", library
                 for x in ("forward", "backward")}
     common = {"shape": name, "nodes": n, "edges": seg.shape[0], "real_edges": real_edges,
               "width": width, "heads": h, "dtype": "bfloat16",
-              "layout": "(N, Dh, H) view" if view == "model" else "contiguous [N, H, Dh]",
+              "layout": {"model": "(N, Dh, H) view", "contiguous": "contiguous [N, H, Dh]",
+                         "model_8_byte": "(N, Dh, H) view, rows 8-byte aligned"}[view],
               "lanes_per_row": {x: lanes for x, (lanes, _) in geometry.items()},
-              "geometry": {x: "general" if general else "16-byte lanes" for x, (_, general) in geometry.items()},
+              "geometry": {x: kind for x, (_, kind) in geometry.items()},
               "f32_entry_lanes_per_row": {"forward": ca.lanes_per_row(width, h, interleaved),
                                           "backward": ca.lanes_per_row(width, h, interleaved, backward=True)},
               "input_copies": copies, "library_note": lib_note,
@@ -3062,18 +3194,42 @@ def large_mesh_training(lever, nodes, counts, seed):
 
 
 def bf16_kernel_cases(clock, seed, tf_frames, tf_batch, aneurysm_csr) -> list:
-    """The bf16 entries of the fused attention at their five shapes
-    (``fused_bf16_case``); returns (forward, backward) records."""
+    """The bf16 entries of the fused attention at their four shapes of the
+    16-byte geometry and, on the panels batch, the word geometry's cases
+    (``BF16_WORD_CASES``: ``fused_bf16_case``, SDPA timed once at each
+    width and head count of ``BF16_WORD_LIBRARY``) and the general
+    geometry at ``BF16_GENERAL_CASE``, then the bf16 stream twin at 48 x 4
+    (``chip_stream.fused_stream_case``); returns the (forward, backward)
+    records."""
+    from chip_stream import fused_stream_case
+
     bf16_kernels = [
         fused_bf16_case("transformer_serving_frame", tf_frames[0], HIDDEN, seed + 40),
         fused_bf16_case("panels_csr_batch_8x2048", tf_batch, HIDDEN, seed + 41),
         fused_bf16_case("aneurysm_csr_66560x524288", aneurysm_csr, 64, seed + 42, library=False),
         fused_bf16_case("panels_csr_batch_8x2048_d64_h4", tf_batch, 64, seed + 43),
-        fused_bf16_case("panels_csr_batch_8x2048_d48_h4", tf_batch, 48, seed + 44, library=False),
     ]
+    library = {}
+    for i, (d, h, view) in enumerate(BF16_WORD_CASES):
+        f, b = fused_bf16_case(f"panels_csr_batch_8x2048_d{d}_h{h}_{view}", tf_batch, d, seed + 44 + i,
+                               heads=h, view=view, library=(d, h) in BF16_WORD_LIBRARY and (d, h) not in library)
+        if (d, h) in library:  # SDPA's time depends on the width and heads, not the view
+            f["library_ms"], b["library_ms"] = library[d, h]
+            f["library_note"] = b["library_note"] = "SDPA in bf16 as timed at the first case of this width"
+        elif (d, h) in BF16_WORD_LIBRARY:
+            library[d, h] = f["library_ms"], b["library_ms"]
+        bf16_kernels.append((f, b))
+    d, h, view = BF16_GENERAL_CASE
+    f, b = fused_bf16_case(f"panels_csr_batch_8x2048_d{d}_h{h}_{view}", tf_batch, d, seed + 54, heads=h,
+                           view=view, library=False)
+    if set(f["geometry"].values()) != {"general"}:
+        raise AssertionError(f"{f['shape']}: ran {f['geometry']}, not the general geometry")
+    bf16_kernels.append((f, b))
     for f, b in bf16_kernels:
         clock.emit({"phase": "fused_bf16_kernels", "name": "csr_attention_bf16", **f})
         clock.emit({"phase": "fused_bf16_kernels", "name": "csr_attention_backward_bf16", **b})
+    stream = fused_stream_case(BF16_WORD_SHAPE.replace("_model", ""), tf_batch, 48, seed + 53, torch.bfloat16)
+    clock.emit({"phase": "fused_bf16_kernels", "name": "csr_attention_bf16_stream", **stream})
     return bf16_kernels
 
 
@@ -4293,6 +4449,14 @@ def main() -> int:
     bf16_paths = bf16_phases(clock, counts, args.seed, epd_frames, tf_frames, tf_batch, cyl_batch, panels,
                              cylinder, epd_train, tf_train, gmm_train)
     torch.cuda.empty_cache()
+    # 51. the bf16 transformer at a width of the bf16 word geometry: 48 in 4
+    # heads, its first step against the CPU in bf16 on one 2,048-node graph
+    check_csr = random_csr_graph(BATCH_NODES[1], BATCH_EDGES[1], 2048, 12288, args.seed + 51)
+    bf16_paths["bf16_width_training"] = bf16_width_training(
+        panels48, tf_batch, check_csr, tf_frames[0], counts, blocks, args.seed, width_train,
+        bf16_paths["bf16_transformer_training"])
+    clock.emit({"phase": "bf16_width_training", "model": f"{width_model}, bf16",
+                **bf16_paths["bf16_width_training"]})
 
     # 23-26. gradient accumulation, the ELL layout, size buckets, project_before_gather
     feature_paths = training_feature_phases(clock, counts, args.seed, cylinder, panels, cyl_graphs, tf_graphs)
@@ -4454,6 +4618,39 @@ def main() -> int:
               also_replaces="the backward of csr_sparse_attention's gathers and SDDMM "
                             "(graphphysics_tpu/ops/pallas_attention.py:556) at those widths",
               note="the word geometry's backward: dk and dv added as the lane's word"),
+    ]
+    # the word geometry of the fused bf16 entries (csr_attention_bf16_words.cu),
+    # its launches from the bf16 transformer at hidden 48 in 4 heads
+    # (bf16_width_training), its time, bound and error at that path's shape:
+    # the batch, model view
+    word16_launches = bf16_paths["bf16_width_training"]["fused_bf16_launches_by_geometry"]
+    word16_cases = [(f, b) for f, b in bf16_kernels if f["geometry"]["forward"] == "words"]
+    word16_main = next((i for i, (f, _) in enumerate(word16_cases) if f["shape"] == BF16_WORD_SHAPE), None)
+    if word16_main is None or not (word16_launches["forward"]["words"] and word16_launches["backward"]["words"]):
+        raise AssertionError(f"the bf16 word geometry: launches {word16_launches} on bf16_width_training, "
+                             f"{BF16_WORD_SHAPE} among the timed shapes {[f['shape'] for f, _ in word16_cases]}")
+    bf16_tolerance = {"rtol": BF16_KERNEL_RTOL, "atol": BF16_KERNEL_ATOL, "mismatch_share": BF16_MISMATCH_SHARE}
+    kernels["kernels"] += [
+        entry("csr_attention_bf16_general", "graphphysics_torch/csrc/csr_attention_bf16_words.cu",
+              "graphphysics_tpu/ops/pallas_attention.py:255", word16_launches["forward"]["words"],
+              [f for f, _ in word16_cases], bf16_tolerance, main_shape=word16_main,
+              launches_by_path={"bf16_width_training": word16_launches["forward"]["words"]},
+              f32_entry_ms=word16_cases[word16_main][0]["f32_entry_ms"],
+              entry_point="csr_attention_bf16_words (csrc/csr_attention_bf16_words.cu)",
+              also_replaces="graphphysics_tpu/ops/pallas_attention.py:556 (csr_sparse_attention's gathers and "
+                            "SDDMM) on bf16 q, k, v at the widths without the 16-byte geometry",
+              note="the fused bf16 forward's word geometry (attention_words.cuh): one word of 8 or 4 bf16 "
+                   "columns a lane, per-head partials reduce-scattered by shuffles, one head's softmax a lane"),
+        entry("csr_attention_backward_bf16_general", "graphphysics_torch/csrc/csr_attention_bf16_words.cu",
+              "graphphysics_tpu/ops/pallas_attention.py:398", word16_launches["backward"]["words"],
+              [b for _, b in word16_cases], bf16_tolerance, main_shape=word16_main,
+              launches_by_path={"bf16_width_training": word16_launches["backward"]["words"]},
+              f32_entry_ms=word16_cases[word16_main][1]["f32_entry_ms"],
+              entry_point="csr_attention_bwd_bf16_words (csrc/csr_attention_bf16_words.cu)",
+              also_replaces="the backward of csr_sparse_attention's gathers and SDDMM on bf16 q, k, v "
+                            "(graphphysics_tpu/ops/pallas_attention.py:556) at those widths",
+              note="the word geometry's backward without atomics: part A by sender rows, part B by gather "
+                   "rows over gather_csr"),
     ]
     # the 16-bit stream modes' entries: launches from their path alone
     for dt in ("bf16", "f16"):

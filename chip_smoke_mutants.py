@@ -6,7 +6,14 @@ the fused f32 kernels' word geometry (``csrc/attention_words.cuh``: a
 row's last word read as an idle lane's zeros, the head sums' butterfly
 missing its last level) moves the ``kernel_width`` cases' check against
 the plain versions and ``width_first_step`` (the transformer at hidden 48
-in 4 heads, first step against the CPU); a fault in
+in 4 heads, first step against the CPU); a fault in the fused bf16
+kernels' word geometry (``csrc/csr_attention_bf16_words.cu`` with
+``attention_words.cuh``: a row's last bf16 word read as zeros, the head
+sums' butterfly missing its last level, part B of the backward reading
+the (attn, ds) pair of the wrong head) moves the bf16 kernel phase's word
+cases against the plain versions and ``bf16_width_training``'s first step
+(the transformer at hidden 48 in 4 heads in bf16, on one 2,048-node
+graph, against the CPU in bf16); a fault in
 the checkpoint restore moves ``resume_runs``, the check of a resumed run
 against an uninterrupted one (the readings ``RESUME_MEDIAN_RTOL`` and the
 per-model worst limits must sit below); a fault in the fused attention's
@@ -64,8 +71,8 @@ one CUDA card:
     python3 chip_smoke_mutants.py [name prefix]
 
 A name prefix (``k1b``, ``k1f32``, ``k2f32``, ``general``, ``attn``,
-``width``, ``resume``, ``bf16``, ``microbatch``, ``ell``, ``stream``) runs
-those faults only. K2's and K3's faults are caught by their kernel phases
+``width``, ``resume``, ``bf16``, ``bf16words``, ``microbatch``, ``ell``,
+``stream``) runs those faults only. K2's and K3's faults are caught by their kernel phases
 against their plain versions, and the general geometry's also by the
 partitioned transformer's checks: no path of the unpartitioned models runs
 them.
@@ -88,8 +95,10 @@ ATTN_DK = "add_row<V, GEN>(dk, j, geo, r, dkr);"
 ATTN_DQ = "for (int i = 0; i < V; ++i) dqa[i] += ds[i % NP] * scale * kc[i];"
 WORDS = "graphphysics_torch/csrc/attention_words.cuh"
 WORD_LOAD = "  if (!r.live) {"
-WORD_BUTTERFLY = ("for (int offset = geo.lo * P; offset < geo.hi; offset <<= 1) sum += "
-                  "__shfl_xor_sync(kFull, sum, offset);")
+WORD_BUTTERFLY = "for (int offset = geo.lo * P; offset < geo.hi; offset <<= 1) {"
+BF16_WORDS = "graphphysics_torch/csrc/csr_attention_bf16_words.cu"
+BF16_WORDS_PAIR = "const int x = ALIGNED ? i % P : i;"
+BF16_WORDS_HEAD = "for (int i = 0; i < W; ++i) head[i] = word_head(geo, r, i);"
 BF16_BWD = "graphphysics_torch/csrc/csr_attention_bwd_bf16.cu"
 BF16_HEADER = "graphphysics_torch/csrc/csr_attention_bf16.cuh"
 BF16_DK = "dka[i] += d[u][i % NP] * scale * qr[i];"
@@ -147,6 +156,27 @@ FAULTS = {
     # contiguous a head's lanes 0-3 and 4-7), in both kernels
     "width_head_sums_miss_last_level": ("width", WORDS, WORD_BUTTERFLY, WORD_BUTTERFLY.replace(
         "offset < geo.hi;", "offset < geo.hi / 2;")),
+    # the bf16 word geometry (csr_attention_bf16_words.cu, attention_words.cuh
+    # with T = bf16) reads its row's last word as zeros, as an idle lane's
+    # (48 x 4 on 16-byte words: lane 5 of 8, columns 40-47; 20 x 4 on 8-byte
+    # words: lane 4, columns 16-19), in the forward and both backward parts;
+    # the f32 words keep theirs
+    "bf16words_drop_tail_word": ("bf16words", WORDS, WORD_LOAD,
+                                 "  if (!r.live || (sizeof(T) == 2 && r.col0 + W >= geo.width)) {"),
+    # the word geometry's head sums without the butterfly's last level (the
+    # f32 words' fault, read by the bf16 checks: 48 x 4 on 16-byte words,
+    # lanes 0-3 and 4-7 each sum their own half of a head)
+    "bf16words_head_sums_miss_last_level": ("bf16words", WORDS, WORD_BUTTERFLY, WORD_BUTTERFLY.replace(
+        "offset < geo.hi;", "offset < geo.hi / 2;")),
+    # part B of the bf16 word geometry's backward takes each column's (attn,
+    # ds) pair from the next head's slot (an aligned lane's P pairs)
+    "bf16words_gather_rows_read_wrong_head": ("bf16words", BF16_WORDS, BF16_WORDS_PAIR, BF16_WORDS_PAIR.replace(
+        "i % P :", "(i + 1) % P :")),
+    # the same fault in the select (96 x 3 in both views, 48 x 4
+    # contiguous): part B loads each column's (attn, ds) pair from the next
+    # head's slot
+    "bf16words_gather_rows_select_wrong_head": ("bf16words", BF16_WORDS, BF16_WORDS_HEAD, BF16_WORDS_HEAD.replace(
+        "word_head(geo, r, i);", "(word_head(geo, r, i) + 1) % geo.heads;")),
     # the bf16 backward sums dk and dv in bf16 instead of f32: every partial
     # sum of a gather row rounded to bf16
     "bf16_dkdv_summed_in_bf16": ("bf16transformer+kernel", BF16_BWD, (BF16_DK, BF16_DV), (
@@ -471,6 +501,44 @@ def read_width_fault(name: str) -> dict:
     return out
 
 
+def read_bf16_words_fault(name: str) -> dict:
+    """The bf16 word geometry's checks: the bf16 kernel phase's word cases
+    (``fused_bf16_case`` at ``BF16_WORD_CASES`` on the panels batch, SDPA
+    left out) at their limits (``BF16_KERNEL_RTOL``/``ATOL``,
+    ``BF16_MISMATCH_SHARE``, the backward's bits twice): a case is caught
+    where its check raises, whose message carries the errors and shares;
+    a case not caught gives its errors and shares. Then
+    ``bf16_width_training``'s first step (the panels transformer at hidden
+    48 in 4 heads in bf16, on the card against the CPU on one 2,048-node
+    graph) with its limits lifted."""
+    import chip_smoke as cs
+
+    out = {"fault": name}
+    batch = cs.panels_batch(200)
+    for i, (d, h, view) in enumerate(cs.BF16_WORD_CASES):  # chip_smoke.py's fused_bf16_kernels seeds
+        label = f"d{d}_h{h}_{view}"
+        try:
+            f, b = cs.fused_bf16_case(label, batch, d, 44 + i, heads=h, view=view, library=False)
+        except AssertionError as err:
+            out[f"kernel_{label}"] = {"caught": True, "check": str(err)}
+            continue
+        out[f"kernel_{label}"] = {
+            "caught": False, "geometry": f["geometry"], "fwd_max_abs_err": f["out_ml_max_abs_err"],
+            "bwd_max_abs_err": b["dq_dk_dv_max_abs_err"],
+            "mismatch_shares": [f["out_mismatch_share"], *b["dq_dk_dv_mismatch_share"]]}
+    cs.STEP_LOSS_RTOL = cs.STEP_ROUNDOFF_SHARE = math.inf
+    param = cs.with_precision(cs.load_config(cs.PANELS_CONFIG), "bf16", hidden_size=48)
+    check = cs.random_csr_graph(cs.BATCH_NODES[1], cs.BATCH_EDGES[1], 2048, 12288, 51)
+    total_steps = 1 + cs.WARMUP_STEPS + cs.TIMED_STEPS + cs.PROFILED_STEPS
+    step = cs.first_step(name, param, check, 0, total_steps, math.inf, loss_rtol=math.inf,
+                         roundoff_share=math.inf)
+    out["bf16_width_first_step"] = {
+        **step, "caught": step["first_step_grad_rel_err_worst"] > cs.BF16_GRAD_RTOL
+        or step["first_step_loss_rel_err"] > cs.BF16_STEP_LOSS_RTOL
+        or step["first_step_roundoff_share"] > cs.BF16_ROUNDOFF_SHARE}
+    return out
+
+
 def read_stream_fault(name: str) -> dict:
     """The ``stream_dtypes`` phase's checks with their limits lifted: the
     hub row and the 16-bit K1 against its plain version in ulps at the
@@ -586,6 +654,8 @@ def read_fault(model: str, name: str) -> dict:
         return read_general_fault(name)
     if model == "width":
         return read_width_fault(name)
+    if model == "bf16words":
+        return read_bf16_words_fault(name)
     cs.STEP_LOSS_RTOL = cs.STEP_ROUNDOFF_SHARE = math.inf
     total_steps = 1 + cs.WARMUP_STEPS + cs.TIMED_STEPS + cs.PROFILED_STEPS
     if model.startswith("bf16transformer"):

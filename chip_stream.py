@@ -592,7 +592,8 @@ def fused_stream_case(name, graph, width, seed, dtype):
         times = {"ms": cs.device_ms(lambda a, b, c: fused(a, b, c, "bf16"), sets),
                  "plain_ms": cs.device_ms(plain, sets), "without_stream_ms": cs.device_ms(fused, sets)}
     interleaved = bool(ca._is_interleaved(q))
-    geometry = None if bf16 else ca.geometry_kind(ca.lanes_per_row(width, h, interleaved), width, h, interleaved)
+    geometry = (ca.bf16_geometry(width, h, interleaved, ca._aligned(q, k, v))[1] if bf16
+                else ca.geometry_kind(ca.lanes_per_row(width, h, interleaved), width, h, interleaved))
     return {"shape": name, "nodes": n, "edges": seg.shape[0], "real_edges": real_edges, "width": width,
             "heads": h, "dtype": str(dtype).replace("torch.", ""), "scale": scale, "geometry": geometry,
             "inputs": "q, k on a 1/16 grid in [-2, 2]; v normal", "max_abs_err": max(errs),

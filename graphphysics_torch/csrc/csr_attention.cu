@@ -48,11 +48,13 @@
 //   lanes a row give each lane more columns, fewer butterfly levels per head
 //   and more rows per warp;
 // - a width or head split that no lane count divides into power-of-two head
-//   partials takes the word geometry (attention_words.cuh): a word of 4, 2
-//   or 1 columns a lane, per-head partials reduce-scattered by shuffles to
-//   one head a lane, which alone keeps that head's softmax state and
-//   computes its exponentials; a window of kEdges (2) edges' k and v words
-//   in flight. A width it cannot hold (more than 16 heads, more than 32
+//   partials takes the word geometry (attention_words.cuh, whose forward
+//   kernel, csr_attention_words_kernel, the bf16 entries' word geometry
+//   shares):
+//   a word of 4, 2 or 1 columns a lane, per-head partials reduce-scattered
+//   by shuffles to one head a lane, which alone keeps that head's softmax
+//   state and computes its exponentials; a window of kEdges (2) edges' k
+//   and v words in flight. A width it cannot hold (more than 16 heads, more than 32
 //   lanes of words) takes the general geometry (csr_attention.cuh): strided
 //   columns with a masked tail, per-head sums through shared memory, the
 //   softmax state a column.
@@ -172,99 +174,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* gath
   return cudaGetLastError();
 }
 
-// The word geometry (attention_words.cuh): W columns a lane as one word,
-// P head partials reduce-scattered to one head a lane, which alone keeps
-// that head's m and l; a window of kEdges edges at once, without a branch:
-// the window's scores, its largest live score a head, one rescale and one
-// weight an edge, read back by each column. Each score rounded to bf16
-// (STREAM) by the lanes holding its head.
-template <int W, int P, bool ALIGNED, bool STREAM>
-__global__ void __launch_bounds__(kThreads)
-csr_attention_words_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, const int32_t* __restrict__ gather_idx,
-                           const int32_t* __restrict__ bounds, const uint8_t* __restrict__ mask,
-                           float* __restrict__ out, float* __restrict__ ml, int64_t num_rows,
-                           int64_t num_edges, attention_words::WordGeometry geo, float scale) {
-  using namespace attention_words;
-  using Hd = Heads<W, P, ALIGNED>;
-  const WordSlot r = word_slot(geo, bounds, num_rows, num_edges);
-  float qr[W];
-  load_word<W>(q, r.self, geo, r, qr);
-  const Hd h = make_heads<W, P, ALIGNED>(geo, r);
-  float m = kNeg, l = 0.0f, acc[W];
-#pragma unroll
-  for (int i = 0; i < W; ++i) acc[i] = 0.0f;
-
-  const int32_t trips = warp_max(r.len);  // uniform across the warp
-  for (int32_t first = 0; first < trips; first += geo.lanes) {
-    const int32_t mine = word_chunk_index(gather_idx, mask, r, first);
-    const int32_t count = min(geo.lanes, trips - first);
-    for (int32_t t0 = 0; t0 < count; t0 += kEdges) {
-      int32_t j[kEdges];
-      float kw[kEdges][W], vw[kEdges][W];
-      load_window<W>(k, v, geo, r, mine, t0, count, j, kw, vw);
-      float s[kEdges];
-      float m_new = m;
-#pragma unroll
-      for (int u = 0; u < kEdges; ++u) {
-        s[u] = head_sum<W, P, ALIGNED>(geo, r, h, qr, kw[u]) * scale;
-        if constexpr (STREAM) s[u] = round_to<__nv_bfloat16>(s[u]);
-        m_new = j[u] >= 0 ? fmaxf(m_new, s[u]) : m_new;
-      }
-      const float alpha = expf(m - m_new);
-      float pe[kEdges];
-      l *= alpha;
-#pragma unroll
-      for (int u = 0; u < kEdges; ++u) {
-        pe[u] = j[u] >= 0 ? expf(s[u] - m_new) : 0.0f;
-        l += pe[u];
-      }
-      m = m_new;
-      float w[Hd::kValues];
-      read_back<W, P, ALIGNED>(geo, h, alpha, w);
-#pragma unroll
-      for (int i = 0; i < W; ++i) acc[i] *= w[value_of<W, P, ALIGNED>(i)];
-#pragma unroll
-      for (int u = 0; u < kEdges; ++u) {
-        read_back<W, P, ALIGNED>(geo, h, pe[u], w);
-#pragma unroll
-        for (int i = 0; i < W; ++i) {
-          const float x = STREAM ? round_to<__nv_bfloat16>(vw[u][i]) : vw[u][i];
-          acc[i] += w[value_of<W, P, ALIGNED>(i)] * x;
-        }
-      }
-    }
-  }
-  float ls[Hd::kValues];
-  read_back<W, P, ALIGNED>(geo, h, l, ls);
-  if (!r.has_row) return;
-  if (r.live) {
-    float o[W];
-#pragma unroll
-    for (int i = 0; i < W; ++i) o[i] = acc[i] / (ls[value_of<W, P, ALIGNED>(i)] + kEps);
-    store_word<W>(out, r.row, geo, r, o);
-  }
-  if (h.writes) {  // one lane of each head
-    ml[h.own * num_rows + r.row] = m;
-    ml[(geo.heads + h.own) * num_rows + r.row] = l;
-  }
-}
-
-template <int W, int P, bool ALIGNED, bool STREAM>
-cudaError_t launch_words(const void* q, const void* k, const void* v, const void* gather_idx,
-                         const void* bounds, const void* mask, void* out, void* ml, long long num_rows,
-                         long long num_edges, const attention_words::WordGeometry& geo, float scale,
-                         cudaStream_t stream) {
-  const long long threads = num_rows * geo.lanes;
-  const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) / kThreads));
-  csr_attention_words_kernel<W, P, ALIGNED, STREAM><<<grid, kThreads, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const int32_t*>(gather_idx), static_cast<const int32_t*>(bounds),
-      static_cast<const uint8_t*>(mask), static_cast<float*>(out), static_cast<float*>(ml), num_rows,
-      num_edges, geo, scale);
-  return cudaGetLastError();
-}
-
 // The instantiation of the geometry's case for element type T, with the
 // bf16 stream's roundings or without.
 template <typename T, bool STREAM>
@@ -279,7 +188,7 @@ int run(const void* q, const void* k, const void* v, const void* gather_idx, con
   if ((!valid || geo.general) && attention_words::make_word_geometry(width, num_heads, interleaved, lanes, &words)) {
 #define WORD_CASE(W, P, ALIGNED)                                     \
   case (W) * 256 + (P) * 2 + (ALIGNED):                              \
-    return static_cast<int>(launch_words<W, P, ALIGNED, STREAM>(q, k, v, gather_idx, bounds, mask, out, ml, num_rows, num_edges, words, scale, s));
+    return static_cast<int>(attention_words::launch_words_forward<float, W, P, ALIGNED, STREAM>(q, k, v, gather_idx, bounds, mask, out, ml, num_rows, num_edges, words, scale, s));
     switch (attention_words::word_case_key(words)) {
       ATTENTION_WORD_CASES(WORD_CASE)
       default:

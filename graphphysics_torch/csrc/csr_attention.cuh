@@ -24,9 +24,10 @@
 // geometries; they need D % G == 0 and a power-of-two head split.
 //
 // The f32 kernels take the widths without a fast geometry in the word
-// geometry of attention_words.cuh where it holds them. The general geometry
-// takes every other width D <= 16 G with D % H == 0 (and, in the bf16
-// kernels, every width without their 16-byte geometry):
+// geometry of attention_words.cuh where it holds them, and so do the bf16
+// kernels the widths without their 16-byte geometry
+// (csr_attention_bf16_words.cu). The general geometry takes every other
+// width D <= 16 G with D % H == 0:
 // lane `sub` holds the V = ceil(D/G) strided columns sub + G i (so a group's
 // loads stay coalesced as scalars), the columns past D are masked (the tail),
 // and each column is its own partial (NP = V). A head's sum goes through the

@@ -36,11 +36,13 @@
 // - per-head sums by reduce-scatter: each lane ends with NP >> RS heads'
 //   scores, computes only their exponentials, and the weights go back to
 //   the lanes' columns by the inverse all-gather;
-// - the general geometry (strided columns, per-head sums through shared
-//   memory) for the widths or layouts the 16-byte one does not take: a
-//   width not a multiple of 8, a head split that is not a power of two, a
-//   row base that is only 8-byte aligned. The host chooses by shape
-//   (ops/csr_attention.py, `bf16_geometry`).
+// - the widths or layouts the 16-byte one does not take (a width not a
+//   multiple of 8, a head split that is not a power of two, a row base that
+//   is only 8-byte aligned) run the word geometry of
+//   csr_attention_bf16_words.cu, an entry of its own, where its lanes hold
+//   the row; the rest (past 32 lanes of words or 16 heads) the general
+//   geometry here (strided columns, per-head sums through shared memory).
+//   The host chooses by shape (ops/csr_attention.py, `bf16_geometry`).
 // Tensor cores do not apply: every edge dots a different k row.
 //
 // stream_dtype="bf16" (entry csr_attention_bf16_stream): JAX's caller

@@ -2,7 +2,9 @@
 // (csr_attention_bf16.cu) and backward (csr_attention_bwd_bf16.cu): the
 // 16-byte lane geometry, node rows kept as raw bf16 words until used, and
 // per-head sums by reduce-scatter. The row slots, index chunks and the
-// general geometry are csr_attention.cuh's.
+// general geometry are csr_attention.cuh's; the word geometry of the widths
+// the 16-byte one does not take is attention_words.cuh's
+// (csr_attention_bf16_words.cu).
 //
 // The 16-byte geometry. A row of width D (D % 8 == 0, every row base
 // 16-byte aligned) is served by G = D / V lanes with V = 8 (or 16 where

@@ -200,16 +200,18 @@ csr_attention_bwd_words_kernel(const float* __restrict__ q, const float* __restr
   using namespace attention_words;
   using Hd = Heads<W, P, ALIGNED>;
   const WordSlot r = word_slot(geo, bounds, num_rows, num_edges);
-  float qr[W], gr[W];
-  load_word<W>(q, r.self, geo, r, qr);
-  load_word<W>(g, r.self, geo, r, gr);
-  const Hd h = make_heads<W, P, ALIGNED>(geo, r);
-  float delta;
+  float qr[W], gr[W], o[W];
   {
-    float o[W];
-    load_word<W>(out, r.self, geo, r, o);
-    delta = head_sum<W, P, ALIGNED>(geo, r, h, o, gr);
+    Word<float, W> qw, gw, ow;
+    load_word<float, W>(q, r.self, geo, r, qw);
+    load_word<float, W>(g, r.self, geo, r, gw);
+    load_word<float, W>(out, r.self, geo, r, ow);
+    widen<float, W>(qw, qr);
+    widen<float, W>(gw, gr);
+    widen<float, W>(ow, o);
   }
+  const Hd h = make_heads<W, P, ALIGNED>(geo, r);
+  const float delta = head_sum<W, P, ALIGNED>(geo, r, h, o, gr);
   float m = 0.0f, l = 1.0f;  // a padding partial or an idle lane's: its unused terms stay finite
   if (h.own < geo.heads && r.has_row) {
     m = ml[h.own * num_rows + r.row];
@@ -225,13 +227,13 @@ csr_attention_bwd_words_kernel(const float* __restrict__ q, const float* __restr
     const int32_t count = min(geo.lanes, trips - first);
     for (int32_t t0 = 0; t0 < count; t0 += kEdges) {
       int32_t j[kEdges];
-      float kw[kEdges][W], vw[kEdges][W];
-      load_window<W>(k, v, geo, r, mine, t0, count, j, kw, vw);
+      Word<float, W> kw[kEdges], vw[kEdges];
+      load_window<float, W>(k, v, geo, r, mine, t0, count, j, kw, vw);
       float attn[kEdges], ds[kEdges];
 #pragma unroll
       for (int u = 0; u < kEdges; ++u) {
-        const float s = head_sum<W, P, ALIGNED>(geo, r, h, qr, kw[u]) * scale;
-        const float vg = head_sum<W, P, ALIGNED>(geo, r, h, vw[u], gr);
+        const float s = head_sum<W, P, ALIGNED>(geo, r, h, qr, kw[u].v) * scale;
+        const float vg = head_sum<W, P, ALIGNED>(geo, r, h, vw[u].v, gr);
         attn[u] = j[u] >= 0 ? expf(s - m) / (l + kEps) : 0.0f;
         ds[u] = attn[u] * (vg - delta);
       }
@@ -246,7 +248,7 @@ csr_attention_bwd_words_kernel(const float* __restrict__ q, const float* __restr
           const int x = value_of<W, P, ALIGNED>(i);
           dkr[i] = dss[x] * scale * qr[i];
           dvr[i] = attns[x] * gr[i];
-          dqa[i] += dss[x] * scale * kw[u][i];
+          dqa[i] += dss[x] * scale * kw[u].v[i];
         }
         if (j[u] >= 0 && r.live) {  // uniform across the row's lanes but the idle ones
           add_word<W>(dk, j[u], geo, r, dkr);
@@ -255,7 +257,7 @@ csr_attention_bwd_words_kernel(const float* __restrict__ q, const float* __restr
       }
     }
   }
-  if (r.has_row && r.live) store_word<W>(dq, r.row, geo, r, dqa);
+  if (r.has_row && r.live) store_word<float, W>(dq, r.row, geo, r, dqa);
 }
 
 template <int W, int P, bool ALIGNED>

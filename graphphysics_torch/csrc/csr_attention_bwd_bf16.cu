@@ -47,7 +47,9 @@
 // edge, no zeroed f32 buffer and no cast pass, and the sums take the same
 // order on every run. Part A's and part B's lanes hold 16 columns each
 // where the width allows (8 lanes a row at D = 128; ops/csr_attention.py
-// `BF16_BACKWARD_COLUMNS`).
+// `BF16_BACKWARD_COLUMNS`). The widths without the 16-byte geometry run the
+// same two parts in the word geometry (csr_attention_bf16_words.cu) where
+// its lanes hold the row, the general geometry here past that.
 //
 // Bound: memory. The bytes that must move are
 //   N*2D*5           q, k, v, out and g read

@@ -26,6 +26,26 @@ struct WordOf<float, 4> {
   using type = uint4;
 };
 
+// the W f32 columns v as a word of T, each rounded to T once (to nearest
+// even)
+template <typename T, int W>
+__device__ __forceinline__ typename WordOf<T, W>::type pack_word(const float (&v)[W]) {
+  typename WordOf<T, W>::type w;
+  uint32_t bits[sizeof(w) / 4];
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int i = 0; i < W; ++i) bits[i] = __float_as_uint(v[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < W / 2; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      memcpy(&bits[i], &h, sizeof(h));
+    }
+  }
+  memcpy(&w, bits, sizeof(w));
+  return w;
+}
+
 // the W columns of T in the word w, as f32
 template <typename T, int W>
 __device__ __forceinline__ void unpack_word(const typename WordOf<T, W>::type& w, float (&v)[W]) {

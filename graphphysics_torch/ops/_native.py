@@ -40,7 +40,7 @@ OPS = "graphphysics_torch"  # the torch.library namespace of the kernels' operat
 SOURCES = (
     "csr_segment_sum.cu", "csr_softmax_spmm.cu", "csr_softmax_spmm_bwd.cu",
     "csr_attention.cu", "csr_attention_bwd.cu", "csr_attention_bf16.cu",
-    "csr_attention_bwd_bf16.cu", "csr_softmax_spmm_pair.cu",
+    "csr_attention_bwd_bf16.cu", "csr_attention_bf16_words.cu", "csr_softmax_spmm_pair.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

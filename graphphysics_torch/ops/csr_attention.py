@@ -31,8 +31,13 @@ launches by geometry on ``csr_attention.geometries`` and
 ``csrc/csr_attention_bf16.cu`` and ``csrc/csr_attention_bwd_bf16.cu``
 (``csr_attention_bf16``, ``csr_attention_bwd_bf16``), kernels of their own:
 16-byte lanes of 8 bf16 columns where the width and alignment allow
-(``bf16_geometry``), the general geometry elsewhere, and a backward
-without atomics in two parts, by sender rows (dq and each edge's softmax
+(``bf16_geometry``), else the word geometry of
+``csrc/csr_attention_bf16_words.cu`` (``bf16_word_geometry``: one word of 8
+or 4 bf16 columns a lane, ``attention_words.cuh``'s head sums) where its
+lanes hold the row, else the general geometry; the launches count by
+geometry on ``csr_attention.bf16.geometries`` (and the stream's) and
+``csr_attention_backward.bf16.geometries``. The bf16 backward has no
+atomics, in two parts, by sender rows (dq and each edge's softmax
 weight and score gradient) and by gather rows over the transposed CSR of
 ``gather_csr`` (dk and dv summed in a fixed order: the same bits every
 run). bf16 rows are read as bf16, computed on in f32 and the outputs
@@ -122,6 +127,7 @@ ATTENTION_SOURCE = "csr_attention.cu"
 ATTENTION_BACKWARD_SOURCE = "csr_attention_bwd.cu"
 BF16_ATTENTION_SOURCE = "csr_attention_bf16.cu"
 BF16_ATTENTION_BACKWARD_SOURCE = "csr_attention_bwd_bf16.cu"
+BF16_WORDS_SOURCE = "csr_attention_bf16_words.cu"  # the bf16 entries' word geometry, both directions
 # lanes serving one sender row in the fused kernels' fast geometries, in
 # order of preference: the first whose fast geometry the kernels take for a
 # width, head count and layout is used. On an H100 at the model's shapes
@@ -154,6 +160,12 @@ GENERAL_COLUMNS = 3
 BF16_COLUMNS = (8, 16)
 BF16_BACKWARD_COLUMNS = (16, 8)
 BF16_LANES = (4, 8, 16, 32)
+# a width without the 16-byte geometry takes the bf16 word geometry where
+# its lanes hold the row (bf16_word_geometry, csrc/attention_words.cuh): one
+# word of 8 bf16 columns (16 bytes) where D % 8 == 0 and every row base is
+# VECTOR_ALIGNMENT-byte aligned, else of 4 (8 bytes; bf16 rows are 8-byte
+# aligned, D % 4 == 0); any other width keeps the general geometry
+BF16_WORD_COLUMNS = (8, 4)
 VECTOR_ALIGNMENT = 16  # bytes of a row base the 16-byte geometry needs
 EPS = 1e-16  # the epsilon of the forward's normalization
 NEG = -1e30  # finite -inf stand-in, as the TPU kernel
@@ -957,9 +969,30 @@ def word_geometry(width: int, heads: int, interleaved: bool) -> Optional[WordGeo
     else a select of each column's head with P the power of two at least H.
     None where H does not divide D, past ``MAX_PARTIALS`` heads or past
     ``WARP`` lanes: those widths keep the general geometry."""
+    return _word_geometry(width, heads, interleaved, WORD_COLUMNS)
+
+
+@functools.lru_cache(maxsize=None)
+def bf16_word_geometry(width: int, heads: int, interleaved: bool,
+                       aligned: bool = True) -> Optional[WordGeometry]:
+    """The word geometry of the fused bf16 kernels
+    (``csrc/csr_attention_bf16_words.cu``; ``make_word_geometry`` with
+    16-byte words where ``aligned``): ``word_geometry``'s rule with words of
+    the first of ``BF16_WORD_COLUMNS`` dividing D, 8 columns (16 bytes) only
+    where every row base is ``VECTOR_ALIGNMENT``-byte ``aligned``. None where
+    D % 4 (bf16 rows are read 8-byte aligned), past ``MAX_PARTIALS`` heads or
+    past ``WARP`` lanes (D > 256 on 16-byte words, 128 on 8-byte ones): those
+    widths keep the general geometry."""
+    if width % BF16_WORD_COLUMNS[-1]:
+        return None
+    return _word_geometry(width, heads, interleaved, BF16_WORD_COLUMNS if aligned else BF16_WORD_COLUMNS[1:])
+
+
+def _word_geometry(width: int, heads: int, interleaved: bool, columns: tuple) -> Optional[WordGeometry]:
+    """The word geometry with words of the first of ``columns`` dividing D."""
     if not 0 < width <= MAX_WIDTH or heads <= 0 or width % heads:
         return None
-    cols = next(c for c in WORD_COLUMNS if width % c == 0)
+    cols = next(c for c in columns if width % c == 0)
     head_dim = width // heads
     select = _pow2_at_least(heads)
     lanes = max(_pow2_at_least(width // cols), select)
@@ -1021,28 +1054,36 @@ def lanes_per_row(width: int, heads: int, interleaved: bool, backward: bool = Fa
     return next((g for g in (8, 16) if -(-width // g) <= GENERAL_COLUMNS), 32)
 
 
+BF16_KINDS = ("fast", "words", "general")  # the bf16 kernels' geometries, in order of preference
+
+
 def bf16_geometries(width: int, heads: int, interleaved: bool, aligned: bool = True,
                     backward: bool = False) -> list:
-    """The ``(lanes, general)`` geometries the bf16 kernels take for a width,
-    head count and layout, the preferred first: the 16-byte geometry
-    (``lanes = D / c`` for ``c`` in ``BF16_COLUMNS``, or with ``backward``
-    ``BF16_BACKWARD_COLUMNS``; lanes in ``BF16_LANES``, a power-of-two head
-    split; only with ``aligned`` row bases, ``VECTOR_ALIGNMENT`` bytes),
-    then the general one with ``lanes_per_row``'s lanes; empty where
-    neither (past ``MAX_WIDTH``, H not dividing D)."""
+    """The ``(lanes, kind)`` geometries the bf16 kernels take for a width,
+    head count and layout, the preferred first: "fast", the 16-byte
+    geometry (``lanes = D / c`` for ``c`` in ``BF16_COLUMNS``, or with
+    ``backward`` ``BF16_BACKWARD_COLUMNS``; lanes in ``BF16_LANES``, a
+    power-of-two head split; only with ``aligned`` row bases,
+    ``VECTOR_ALIGNMENT`` bytes); then "words", the word geometry
+    (``bf16_word_geometry``'s lanes, the same both ways); then "general",
+    the general geometry with ``lanes_per_row``'s lanes, which takes
+    every width; empty where none (past ``MAX_WIDTH``, H not dividing D)."""
     if not 0 < width <= MAX_WIDTH or heads <= 0 or width % heads:
         return []
-    fast = [(width // c, False) for c in (BF16_BACKWARD_COLUMNS if backward else BF16_COLUMNS)
+    fast = [(width // c, "fast") for c in (BF16_BACKWARD_COLUMNS if backward else BF16_COLUMNS)
             if aligned and width % c == 0 and width // c in BF16_LANES
             and _geometry_ok(width // c, width, heads, interleaved)]
-    return fast + [(next((g for g in (8, 16) if -(-width // g) <= GENERAL_COLUMNS), 32), True)]
+    words = bf16_word_geometry(width, heads, interleaved, aligned)
+    words = [] if words is None else [(words.lanes, "words")]
+    return fast + words + [(next((g for g in (8, 16) if -(-width // g) <= GENERAL_COLUMNS), 32), "general")]
 
 
 def bf16_geometry(width: int, heads: int, interleaved: bool, aligned: bool = True,
                   backward: bool = False):
-    """The ``(lanes, general)`` geometry the bf16 forward (or ``backward``)
+    """The ``(lanes, kind)`` geometry the bf16 forward (or ``backward``)
     runs a width, head count and layout with (the first of
-    ``bf16_geometries``), or None."""
+    ``bf16_geometries``: the 16-byte geometry, else the word geometry, else
+    the general one), or None."""
     found = bf16_geometries(width, heads, interleaved, aligned, backward)
     return found[0] if found else None
 
@@ -1231,13 +1272,15 @@ def _aligned(*tensors) -> bool:
     return all(t.data_ptr() % VECTOR_ALIGNMENT == 0 for t in tensors)
 
 
-def _bf16_geometry(q, others, interleaved, lanes, general, backward=False):
-    """The bf16 launch's ``(lanes, general)``: the given one, else
+def _bf16_geometry(q, others, interleaved, lanes, kind, backward=False):
+    """The bf16 launch's ``(lanes, kind)``: the given one, else
     ``bf16_geometry`` of the shape and of the rows' alignment."""
     n, h, dh = q.shape
     if lanes is None:
-        lanes, general = bf16_geometry(h * dh, h, interleaved, _aligned(q, *others), backward)
-    return lanes, bool(general)
+        lanes, kind = bf16_geometry(h * dh, h, interleaved, _aligned(q, *others), backward)
+    if kind not in BF16_KINDS:
+        raise ValueError(f"bf16 geometry kind must be one of {BF16_KINDS}, got {kind!r}")
+    return lanes, kind
 
 
 def _as_pair_heads(flat: torch.Tensor, h: int, interleaved: bool) -> torch.Tensor:
@@ -1254,10 +1297,11 @@ def _layout_of(q: torch.Tensor) -> bool:
 
 
 def _launch_attention(q, k, v, gather_idx, bounds, mask, scale, interleaved, lanes=None,
-                      general=None, bf16_stream=False):
+                      kind=None, bf16_stream=False):
     """The fused forward entry of q's dtype, or with ``bf16_stream`` its
     stream twin (the same arguments and geometry, every score, and in f32
-    every gathered v element, rounded to bf16 before use)."""
+    every gathered v element, rounded to bf16 before use). bf16: the
+    geometry ``(lanes, kind)`` given, else ``bf16_geometry``'s."""
     bf16 = q.dtype == torch.bfloat16
     entry = ENTRIES[q.dtype] + ("_stream" if bf16_stream else "")
     n, h, dh = q.shape
@@ -1265,11 +1309,15 @@ def _launch_attention(q, k, v, gather_idx, bounds, mask, scale, interleaved, lan
     out = _as_heads(torch.empty((n, d), dtype=q.dtype, device=q.device), h, interleaved)
     ml = torch.empty((2 * h, n), dtype=torch.float32, device=q.device)
     if bf16:
-        lanes, general = _bf16_geometry(q, (k, v, out), interleaved, lanes, general)
-        fn = _native.function(BF16_ATTENTION_SOURCE, f"csr_attention_{entry}", 8,
+        lanes, kind = _bf16_geometry(q, (k, v, out), interleaved, lanes, kind)
+        words = kind == "words"
+        name = "csr_attention_bf16_words" + entry[4:] if words else f"csr_attention_{entry}"
+        fn = _native.function(BF16_WORDS_SOURCE if words else BF16_ATTENTION_SOURCE, name, 8,
                               (ctypes.c_longlong, ctypes.c_longlong) + (ctypes.c_int,) * 5
                               + (ctypes.c_float,))
-        tail = (int(general), scale)
+        # the word geometry's 16-byte words need every row base aligned;
+        # the others' last int is whether the general geometry runs
+        tail = (int(_aligned(q, k, v, out)) if words else int(kind == "general"), scale)
     else:
         lanes = lanes_per_row(d, h, interleaved) if lanes is None else lanes
         fn = _native.function(ATTENTION_SOURCE, f"csr_attention_{entry}", 8,
@@ -1286,18 +1334,21 @@ def _launch_attention(q, k, v, gather_idx, bounds, mask, scale, interleaved, lan
             n, gather_idx.shape[0], h, d, int(interleaved), lanes, *tail, stream,
         )
     if err != 0:
-        raise RuntimeError(f"csr_attention_{entry} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"csr_attention_{entry} kernel launch failed"
+                           f"{f' ({kind} geometry)' if bf16 else ''}: CUDA error {err}")
     LAUNCHES[f"csr_attention_{entry}"].launches += 1
     if entry == "f32":
         csr_attention.geometries[geometry_kind(lanes, d, h, interleaved)] += 1
+    elif bf16:
+        LAUNCHES[f"csr_attention_{entry}"].geometries[kind] += 1
     return out, ml
 
 
 def _launch_attention_backward(q, k, v, gather_idx, bounds, mask, ml, out, g, scale, interleaved,
-                               lanes=None, general=None, gather=None):
+                               lanes=None, kind=None, gather=None):
     if q.dtype == torch.bfloat16:
         return _launch_bf16_backward(q, k, v, gather_idx, bounds, mask, ml, out, g, scale,
-                                     interleaved, lanes, general, gather)
+                                     interleaved, lanes, kind, gather)
     fn = _native.function(ATTENTION_BACKWARD_SOURCE, "csr_attention_bwd_f32", 12,
                           (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, ctypes.c_int, ctypes.c_float))
@@ -1326,20 +1377,24 @@ def _launch_attention_backward(q, k, v, gather_idx, bounds, mask, ml, out, g, sc
 
 
 def _launch_bf16_backward(q, k, v, gather_idx, bounds, mask, ml, out, g, scale, interleaved, lanes,
-                          general, gather):
+                          kind, gather):
     """The bf16 backward: part A by sender rows, part B by gather rows over
-    ``gather`` (a ``GatherCsr``), both kernels of one entry; dq, dk and dv
-    written in bf16, every row, without a zeroed buffer or a cast. Returns
-    ``(dq, dkv)`` as ``_launch_attention_backward``."""
+    ``gather`` (a ``GatherCsr``), both kernels of one entry (of the word
+    geometry's source where ``kind`` is "words"); dq, dk and dv written in
+    bf16, every row, without a zeroed buffer or a cast. Returns ``(dq,
+    dkv)`` as ``_launch_attention_backward``."""
     n, h, dh = q.shape
     d, e = h * dh, gather_idx.shape[0]
     dq = _as_heads(torch.empty((n, d), dtype=q.dtype, device=q.device), h, interleaved)
     dkv = torch.empty((2, n, d), dtype=q.dtype, device=q.device)
     grads = (dq, *(_as_heads(t, h, interleaved) for t in dkv.unbind(0)))
-    lanes, general = _bf16_geometry(q, (k, v, out, g), interleaved, lanes, general, backward=True)
-    fn = _native.function(BF16_ATTENTION_BACKWARD_SOURCE, "csr_attention_bwd_bf16", 16,
+    lanes, kind = _bf16_geometry(q, (k, v, out, g), interleaved, lanes, kind, backward=True)
+    words = kind == "words"
+    fn = _native.function(BF16_WORDS_SOURCE if words else BF16_ATTENTION_BACKWARD_SOURCE,
+                          "csr_attention_bwd_bf16_words" if words else "csr_attention_bwd_bf16", 16,
                           (ctypes.c_longlong, ctypes.c_longlong) + (ctypes.c_int,) * 5
                           + (ctypes.c_float,))
+    last = int(_aligned(q, k, v, out, g, dq, dkv)) if words else int(kind == "general")
     attn_ds = torch.empty((e, h, 2), dtype=torch.float32, device=q.device)  # part A -> part B
     result = (dq, _as_pair_heads(dkv, h, interleaved))
     if n == 0:
@@ -1350,11 +1405,13 @@ def _launch_bf16_backward(q, k, v, gather_idx, bounds, mask, ml, out, g, scale, 
             q.data_ptr(), k.data_ptr(), v.data_ptr(), gather_idx.data_ptr(), bounds.data_ptr(),
             None if mask is None else mask.data_ptr(), ml.data_ptr(), out.data_ptr(), g.data_ptr(),
             *(t.data_ptr() for t in gather), attn_ds.data_ptr(), *(t.data_ptr() for t in grads),
-            n, e, h, d, int(interleaved), lanes, int(general), scale, stream,
+            n, e, h, d, int(interleaved), lanes, last, scale, stream,
         )
     if err != 0:
-        raise RuntimeError(f"csr_attention_bwd_bf16 kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"csr_attention_bwd_bf16 kernel launch failed ({kind} geometry): "
+                           f"CUDA error {err}")
     csr_attention_backward.bf16.launches += 1
+    csr_attention_backward.bf16.geometries[kind] += 1
     return result
 
 
@@ -1488,7 +1545,9 @@ def csr_attention(
     transpose of a contiguous ``(N, Dh, H)``; out comes in the same layout
     and dtype), any width D = H * Dh up to ``MAX_WIDTH`` (bf16: a multiple
     of 4), 16-byte aligned (bf16: 8-byte; the 16-byte geometry where the
-    width and every row base allow, ``bf16_geometry``), int32
+    width and every row base allow, else the word geometry where its lanes
+    hold the row, else the general one, ``bf16_geometry``; counted by the
+    geometry that ran on ``csr_attention.bf16.geometries``), int32
     ``gather_idx`` and ``sender_bounds``; it raises on anything else and
     trusts the edge layout (every unmasked edge in its sender's range,
     gather indices in ``[0, N)``: build graphs with ``pad_graph_csr_np``).
@@ -1556,7 +1615,8 @@ def csr_attention_backward(
     ``dk`` and ``dv`` summed with atomics, in an order that varies from run
     to run) or ``csr_attention_backward.bf16.launches`` (bfloat16: sender
     rows, then gather rows over ``gather``, the graph's ``gather_csr``,
-    which it needs; no atomics, the same bits every run); a CPU tensor takes
+    which it needs; no atomics, the same bits every run; by geometry on
+    ``csr_attention_backward.bf16.geometries``); a CPU tensor takes
     ``csr_attention_backward_reference``."""
     dq, dkv = _attention_backward_op(q, k, v, segments, gather_idx, sender_bounds, ml, out, g, mask,
                                      float(scale), *_gather_args(gather))
@@ -1573,6 +1633,10 @@ csr_attention.bf16 = LaunchCount()
 csr_attention.f32_stream = LaunchCount()
 csr_attention.bf16_stream = LaunchCount()
 csr_attention_backward.bf16 = LaunchCount()
+# the bf16 entries' launches by the geometry that ran (BF16_KINDS), as the
+# f32 entries' on csr_attention.geometries
+for _counter in (csr_attention.bf16, csr_attention.bf16_stream, csr_attention_backward.bf16):
+    _counter.geometries = dict.fromkeys(BF16_KINDS, 0)
 LAUNCHES = {
     "csr_attention_f32": csr_attention,
     "csr_attention_bf16": csr_attention.bf16,

@@ -160,7 +160,7 @@ def test_gather_csr_lists_every_real_unmasked_edge_once_in_order(case):
     ("padded", 64, 4, "interleaved"),   # the model's (N, Dh, H) view, the 16-byte geometry
     ("padded", 64, 4, "blocked"),       # contiguous [N, H, Dh]
     ("isolated", 64, 1, "interleaved"),  # one head
-    ("isolated", 48, 4, "interleaved"),  # the kernels' general geometry
+    ("isolated", 48, 4, "interleaved"),  # the kernels' word geometry
     ("concat", 64, 4, "interleaved"),
     ("concat", 32, 1, "blocked"),
 ])
@@ -184,7 +184,7 @@ def test_gather_rows_backward_matches_the_reference(case, width, heads, layout):
     if case == "isolated":
         for t in grads[1:]:
             assert torch.equal(t[list(ISOLATED)].float(), torch.zeros(len(ISOLATED), heads, width // heads))
-    assert ca.bf16_geometry(width, heads, layout == "interleaved")[1] is (width == 48)
+    assert ca.bf16_geometry(width, heads, layout == "interleaved")[1] == ("words" if width == 48 else "fast")
 
 
 @pytest.mark.parametrize("case,width,heads,layout", [
@@ -224,23 +224,27 @@ def test_bf16_geometry_takes_16_byte_lanes_where_width_and_alignment_allow():
     """The bf16 forward runs 8 columns (16 bytes) a lane where D % 8 == 0,
     D / 8 lanes in {4, 8, 16, 32} split the heads into power-of-two
     partials and every row base is 16-byte aligned (16 columns a lane at
-    D = 512), the backward 16 columns a lane where it can; the general
-    geometry elsewhere; nothing past 512 or with H not dividing D."""
-    assert ca.bf16_geometry(128, 4, True) == (16, False)  # the panels width: 2 rows a warp
-    assert ca.bf16_geometry(128, 4, False) == (16, False)
-    assert ca.bf16_geometry(64, 4, True) == (8, False)  # c-a-gmm and the large mesh
-    assert ca.bf16_geometry(32, 8, True) == (4, False)
-    assert ca.bf16_geometry(512, 4, True) == (32, False)  # 16 columns a lane
-    assert ca.bf16_geometries(128, 4, True) == [(16, False), (8, False), (32, True)]
+    D = 512), the backward 16 columns a lane where it can; the word
+    geometry (one word of 8 or 4 columns a lane, ``bf16_word_geometry``)
+    where its lanes hold the row, the general geometry elsewhere, listed
+    last; nothing past 512 or with H not dividing D."""
+    assert ca.bf16_geometry(128, 4, True) == (16, "fast")  # the panels width: 2 rows a warp
+    assert ca.bf16_geometry(128, 4, False) == (16, "fast")
+    assert ca.bf16_geometry(64, 4, True) == (8, "fast")  # c-a-gmm and the large mesh
+    assert ca.bf16_geometry(32, 8, True) == (4, "fast")
+    assert ca.bf16_geometry(512, 4, True) == (32, "fast")  # 16 columns a lane
+    assert ca.bf16_geometries(128, 4, True) == [(16, "fast"), (8, "fast"), (16, "words"), (32, "general")]
     # the backward prefers 16 columns a lane: 8 lanes a row at D = 128
-    assert ca.bf16_geometry(128, 4, True, backward=True) == (8, False)
-    assert ca.bf16_geometry(64, 4, True, backward=True) == (4, False)
-    assert ca.bf16_geometry(48, 4, True, backward=True) == (16, True)
-    assert ca.bf16_geometry(128, 4, True, aligned=False) == (32, True)  # 8-byte rows
-    assert ca.bf16_geometry(48, 4, True) == (16, True)  # 6 lanes: not a power of two
-    assert ca.bf16_geometry(96, 3, True) == (32, True)  # 3 heads
-    assert ca.bf16_geometry(40, 8, True) == (16, True)  # D % 8 == 0, 5 lanes
-    assert ca.bf16_geometry(36, 4, False) == (16, True)  # D % 8 != 0
+    assert ca.bf16_geometry(128, 4, True, backward=True) == (8, "fast")
+    assert ca.bf16_geometry(64, 4, True, backward=True) == (4, "fast")
+    assert ca.bf16_geometry(48, 4, True, backward=True) == (8, "words")  # the same lanes both ways
+    assert ca.bf16_geometry(128, 4, True, aligned=False) == (32, "words")  # 8-byte rows: 4-column words
+    assert ca.bf16_geometry(48, 4, True) == (8, "words")  # 6 16-byte words: not a power of two
+    assert ca.bf16_geometry(96, 3, True) == (16, "words")  # 3 heads
+    assert ca.bf16_geometry(40, 8, True) == (8, "words")  # D % 8 == 0, 5 words
+    assert ca.bf16_geometry(36, 4, False) == (16, "words")  # D % 8 != 0: 9 8-byte words
+    assert ca.bf16_geometries(512, 8, True) == [(32, "fast"), (32, "general")]  # 64 words: past 32 lanes
+    assert ca.bf16_geometries(264, 4, True) == [(32, "general")]  # 33 words
     assert ca.bf16_geometry(1024, 4, True) is None and ca.bf16_geometry(30, 4, True) is None
 
 

@@ -108,7 +108,7 @@ ATTN_GRAD_RTOL, ATTN_GRAD_ATOL = 3e-2, 3e-2
 @pytest.mark.parametrize("width,heads,layout", [
     (64, 4, "interleaved"),   # the model's (N, Dh, H) view
     (64, 4, "blocked"),       # contiguous [N, H, Dh]
-    (48, 4, "interleaved"),   # the kernels' general geometry
+    (48, 4, "interleaved"),   # the kernels' word geometry
 ])
 def test_csr_attention_plain_bf16_matches_jax(width, heads, layout):
     r = np.random.default_rng(width + heads)
@@ -186,11 +186,12 @@ def test_attention_checks_take_bf16_and_refuse_the_rest():
         ca._check_attention_args("t", shifted, shifted, shifted, gather, bounds, None)
     wide = torch.zeros(n, 4, 16, dtype=BF16)
     assert ca._check_attention_args("t", wide, wide, wide, gather, bounds, None) is False
-    assert ca._bf16_geometry(wide, (wide, wide), False, None, None) == (8, False)
+    assert ca._bf16_geometry(wide, (wide, wide), False, None, None) == (8, "fast")
     eight = torch.zeros(n * 64 + 4, dtype=BF16)[4:].view(n, 4, 16)  # 8-byte, not 16-byte, aligned
     assert ca._check_attention_args("t", eight, eight, eight, gather, bounds, None) is False
-    assert ca._bf16_geometry(eight, (eight, eight), False, None, None) == (32, True)
-    assert ca._bf16_geometry(wide, (wide, eight), False, None, None) == (32, True)
+    # 8-byte rows: the word geometry's 4-column words, 16 lanes a row
+    assert ca._bf16_geometry(eight, (eight, eight), False, None, None) == (16, "words")
+    assert ca._bf16_geometry(wide, (wide, eight), False, None, None) == (16, "words")
     assert ca.ENTRIES[torch.bfloat16] == "bf16" and ca.ENTRIES[torch.float32] == "f32"
     assert ca.LAUNCHES["csr_attention_bf16"] is ca.csr_attention.bf16
     assert ca.LAUNCHES["csr_attention_bwd_f32"] is ca.csr_attention_backward

@@ -788,10 +788,10 @@ BF16_RTOL, BF16_ATOL, BF16_DV_TERM = 2.0 ** -6, 1e-4, 2.0 ** -8
 def test_fused_attention_bf16_kernels_match_plain(cuda, layout, d, h, view):
     """``csr_attention_bf16`` and ``csr_attention_bwd_bf16`` against the
     plain versions on the same bf16 inputs, at every geometry the bf16
-    kernels take for the shape (16-byte lanes of 8 or 16 columns, the
-    general one); the launches count on the bf16 entries only, every output
-    is bf16 in q's layout, and the backward gives the same bits on a second
-    call (no atomics)."""
+    kernels take for the shape (16-byte lanes of 8 or 16 columns, the word
+    geometry, the general one); the launches count on the bf16 entries
+    only, by the geometry that ran, every output is bf16 in q's layout, and
+    the backward gives the same bits on a second call (no atomics)."""
     from graphphysics_torch.ops import csr_attention as ca
 
     g, mask, qkv, cot = _fused_case(layout, d, h, seed=d + h + 1)
@@ -803,25 +803,29 @@ def test_fused_attention_bf16_kernels_match_plain(cuda, layout, d, h, view):
     tc = ca.gather_csr(seg, gather, bounds, m)
     want_out, want_ml = ca.csr_attention_reference(q, k, v, seg, gather, g.num_nodes, m, 0.5)
     geometries = ca.bf16_geometries(d, h, interleaved)
-    assert geometries[-1][1] and (len(geometries) > 1) is (d in (32, 64, 128, 512))  # 16-byte lanes
-    for n, general in geometries:
+    kinds = [kind for _, kind in geometries]
+    assert kinds[-1] == "general" and ("fast" in kinds) is (d in (32, 64, 128, 512))  # 16-byte lanes
+    assert ("words" in kinds) is (d <= 256)  # at most 32 lanes of 16-byte words
+    for n, kind in geometries:
         _poison_free_memory(cuda)
         before = {name: c.launches for name, c in ca.LAUNCHES.items()}
-        out, ml = ca._launch_attention(q, k, v, gather, bounds, m, 0.5, interleaved, lanes=n,
-                                       general=general)
+        by_kind = (ca.csr_attention.bf16.geometries[kind], ca.csr_attention_backward.bf16.geometries[kind])
+        out, ml = ca._launch_attention(q, k, v, gather, bounds, m, 0.5, interleaved, lanes=n, kind=kind)
         want = ca.csr_attention_backward_reference(q, k, v, seg, gather, ml, out, g_out, m, 0.5)
         grads, again = ((dq, *dkv.unbind(0)) for dq, dkv in (
             ca._launch_attention_backward(q, k, v, gather, bounds, m, ml, out, g_out, 0.5,
-                                          interleaved, lanes=n, general=general, gather=tc)
+                                          interleaved, lanes=n, kind=kind, gather=tc)
             for _ in range(2)))
         torch.cuda.synchronize()
         after = {name: c.launches - before[name] for name, c in ca.LAUNCHES.items()}
         assert after == {"csr_attention_f32": 0, "csr_attention_bf16": 1, "csr_attention_f32_stream": 0,
                          "csr_attention_bf16_stream": 0, "csr_attention_bwd_f32": 0,
                          "csr_attention_bwd_bf16": 2}
+        assert (ca.csr_attention.bf16.geometries[kind], ca.csr_attention_backward.bf16.geometries[kind]) == (
+            by_kind[0] + 1, by_kind[1] + 2)
         assert out.dtype == torch.bfloat16 and ml.dtype == torch.float32
         assert ca._is_interleaved(out) is interleaved or h == 1
-        where = f"{n} lanes, general={general}"
+        where = f"{n} lanes, {kind} geometry"
         torch.testing.assert_close(out.float(), want_out.float(), rtol=BF16_RTOL, atol=BF16_ATOL,
                                    msg=f"out, {where}")
         torch.testing.assert_close(ml, want_ml, rtol=1e-5, atol=1e-5, msg=f"ml, {where}")
@@ -833,6 +837,100 @@ def test_fused_attention_bf16_kernels_match_plain(cuda, layout, d, h, view):
                                        atol=dv_atol if name == "v" else BF16_ATOL,
                                        msg=f"d{name}, {where}")
             assert torch.equal(a, c), f"d{name} differs between two calls, {where}"
+
+
+# (D, H): the widths the bf16 entries run in the word geometry: 16-byte
+# words at 48 x 4, 96 x 3, 40 x 8 (and 128 x 4, which runs the 16-byte
+# geometry through the public entries); 8-byte words where D % 8 == 4, an
+# odd count of them (20, 36; 20 in one head)
+BF16_WORD_WIDTHS = [(48, 4), (96, 3), (40, 8), (128, 4), (20, 4), (36, 4), (20, 1)]
+
+
+def _eight_byte_view(t, view):
+    """``t`` ([N, H, Dh]) in ``view`` ("model": the transpose of an (N, Dh,
+    H) tensor; else contiguous) in a buffer whose base is 8 bytes past a
+    16-byte boundary: every row base 8-byte, not 16-byte, aligned."""
+    n, h, dh = t.shape
+    src = t.transpose(1, 2) if view == "model" else t
+    flat = torch.empty(n * h * dh + 4, dtype=t.dtype, device=t.device)[4:]
+    out = flat.view(src.shape).copy_(src)
+    return out.transpose(1, 2) if view == "model" else out
+
+
+@pytest.mark.parametrize("view", ["model", "contiguous", "model_8_byte"])
+@pytest.mark.parametrize("d,h", BF16_WORD_WIDTHS)
+def test_bf16_word_geometry_matches_plain(cuda, d, h, view):
+    """The bf16 forward, its stream twin and the backward in the word
+    geometry (``csrc/csr_attention_bf16_words.cu``) against their plain
+    versions on a layout with masked edges and empty rows: through the
+    public entries (each launch counted by the geometry that ran: the words
+    wherever no 16-byte geometry takes the shape; an 8-byte-aligned view
+    takes 4-column words) and, where a 16-byte geometry ran, the word
+    geometry by its lanes; the backward the same bits on a second call."""
+    from graphphysics_torch.ops import csr_attention as ca
+
+    g, mask, qkv, cot = _fused_case("two_graphs", d, h, seed=d * h + 3)
+    seg, gather = torch.from_numpy(g.senders).to(cuda), torch.from_numpy(g.receivers).to(cuda)
+    bounds, m = torch.from_numpy(g.sender_bounds).to(cuda), mask.to(cuda)
+    layout = "contiguous" if view == "contiguous" else "model"
+    q, k, v, g_out = ((_model_view(t) if layout == "model" else t).to(cuda, torch.bfloat16)
+                      for t in (*qkv, cot))
+    if view == "model_8_byte":
+        q, k, v, g_out = (_eight_byte_view(t, layout) for t in (q, k, v, g_out))
+    interleaved = layout == "model" and h > 1
+    aligned = ca._aligned(q, k, v, g_out)
+    assert aligned is (view != "model_8_byte")
+    words = ca.bf16_word_geometry(d, h, interleaved, aligned)
+    assert words is not None and d % words.cols == 0 and words.cols == (8 if aligned and d % 8 == 0 else 4)
+    kind = ca.bf16_geometry(d, h, interleaved, aligned)[1]
+    assert kind == ("fast" if d == 128 and aligned else "words")
+    tc = ca.gather_csr(seg, gather, bounds, m)
+    scale = h ** -0.5
+    want_out, want_ml = ca.csr_attention_reference(q, k, v, seg, gather, g.num_nodes, m, scale)
+    runs = [("public", None)] + ([("words", words.lanes)] if kind != "words" else [])
+    for label, lanes in runs:
+        _poison_free_memory(cuda)
+        before = (dict(ca.csr_attention.bf16.geometries), dict(ca.csr_attention_backward.bf16.geometries))
+        if lanes is None:  # q, k, v as they are: a clone would lose the 8-byte view
+            with torch.no_grad():
+                out, ml = ca.csr_attention(q, k, v, seg, gather, bounds, m, scale, tc)
+        else:
+            out, ml = ca._launch_attention(q, k, v, gather, bounds, m, scale, interleaved, lanes=lanes,
+                                           kind="words")
+        grads, again = ((dq, *dkv.unbind(0)) for dq, dkv in (
+            ca._launch_attention_backward(q, k, v, gather, bounds, m, ml, out, g_out, scale, interleaved,
+                                          lanes=lanes, kind=None if lanes is None else "words", gather=tc)
+            for _ in range(2)))
+        torch.cuda.synchronize()
+        ran = "words" if lanes is not None else kind
+        assert ca.csr_attention.bf16.geometries[ran] == before[0][ran] + 1, label
+        assert ca.csr_attention_backward.bf16.geometries[ran] == before[1][ran] + 2, label
+        torch.testing.assert_close(out.float(), want_out.float(), rtol=BF16_RTOL, atol=BF16_ATOL, msg=label)
+        torch.testing.assert_close(ml, want_ml, rtol=1e-5, atol=1e-5, msg=label)
+        want = ca.csr_attention_backward_reference(q, k, v, seg, gather, ml, out, g_out, m, scale)
+        dv_atol = max(BF16_ATOL, BF16_DV_TERM * g_out.float().abs().max().item())
+        for a, b, c, name in zip(grads, want, again, "qkv"):
+            assert a.dtype == torch.bfloat16 and torch.isfinite(a.float()).all()
+            assert ca._is_interleaved(a) is interleaved or h == 1
+            torch.testing.assert_close(a.float(), b.float(), rtol=BF16_RTOL,
+                                       atol=dv_atol if name == "v" else BF16_ATOL, msg=f"d{name}, {label}")
+            assert torch.equal(a, c), f"d{name} differs between two calls, {label}"
+    # the bf16 stream: q and k on a 1/16 grid, so each score is exact in any
+    # order and both sides round the same score to bf16
+    qs, ks = (_grid(t.float(), interleaved).to(torch.bfloat16) for t in (q, k))
+    if view == "model_8_byte":
+        qs, ks = (_eight_byte_view(t, layout) for t in (qs, ks))
+    before = ca.csr_attention.bf16_stream.geometries[kind]
+    with torch.no_grad():
+        got, got_ml = ca.csr_attention(qs, ks, v, seg, gather, bounds, m, 0.5, stream_dtype="bf16")
+        want_out, want_ml = ca.csr_attention_reference(qs, ks, v, seg, gather, g.num_nodes, m, 0.5,
+                                                       stream_dtype="bf16")
+        base, _ = ca.csr_attention(qs, ks, v, seg, gather, bounds, m, 0.5)
+    torch.cuda.synchronize()
+    assert ca.csr_attention.bf16_stream.geometries[kind] == before + 1
+    torch.testing.assert_close(got.float(), want_out.float(), rtol=BF16_RTOL, atol=BF16_ATOL)
+    torch.testing.assert_close(got_ml, want_ml, rtol=1e-5, atol=1e-5)
+    assert not torch.equal(got, base)
 
 
 def test_fused_attention_bf16_refusals(cuda):
