@@ -54,9 +54,14 @@ D = 40 in 4 heads (its general geometry in f32 and bf16); last, where the
 checkout's ``k2_case`` and ``k3_case`` take a head count, K2 and K3 at the
 widths of their general geometry (``chip_smoke.GENERAL_WIDTHS`` on the
 panels batch, 48 x 4 and 40 x 8 at part 0 of the unsplit mesh cut), with
-the geometry, ms, bound, plain ms and a digest of each output. The rest
-calls only ``k2_case``, ``unsplit_part0``, ``chip_partition.k5_inputs``
-and ``mesh_graph``, which a parent checkout's scripts have too.
+the geometry, ms, bound, plain ms and a digest of each output, and at
+``VIEW_CASES`` (heads of 9 and of 5, 8- and 4-byte views of the values,
+``chip_smoke._geometry_case_inputs``) the ms and digests of K2 and K3:
+K2's out and ml and K3's dvalues are the same bits in the general
+geometry and in the word geometry that replaced it there, K3's dscores
+are summed in another order. The rest calls only ``k2_case``,
+``unsplit_part0``, ``chip_partition.k5_inputs`` and ``mesh_graph``, which
+a parent checkout's scripts have too.
 
     python3 chip_compare.py <checkout root> [label] --width
 
@@ -377,6 +382,42 @@ def general_kernels(cs, torch) -> dict:
         for name, case, seed in (("k2", cs.k2_case, k2_seed), ("k3", cs.k3_case, k3_seed)):
             record = case(label, graph, width, seed, heads=heads)
             out[f"{name}_{label}"] = {k: v for k, v in record.items() if k in keep}
+    out.update(view_kernels(cs, torch, batch))
+    return out
+
+
+# (D, H, aligned) on the panels batch whose K2 and K3 the word geometry of
+# K2's f32 entry and K3 takes (heads of 9 and of 5 with D % 8 == 4; 8- and
+# 4-byte views of the values) beside their general geometry's cases before it
+VIEW_CASES = ((36, 4, 16), (20, 4, 16), (40, 8, 8), (48, 4, 8), (20, 4, 4))
+
+
+def view_kernels(cs, torch, batch) -> dict:
+    """K2 and K3 at ``VIEW_CASES``: ms of each (over copies past L2, each
+    at the case's alignment) and digests of K2's out and ml and of K3's
+    dscores and dvalues, on ``chip_smoke._geometry_case_inputs``' seeded
+    inputs and a seeded gradient."""
+    from graphphysics_torch.ops import csr_attention as ca
+
+    out = {}
+    for i, (width, heads, aligned) in enumerate(VIEW_CASES):
+        seg, bounds, mask, scores, values = cs._geometry_case_inputs(batch, width, heads, aligned, 120 + i)
+        n = bounds.shape[1]
+        g = torch.randn((n, width), generator=torch.Generator(device="cuda").manual_seed(140 + i), device="cuda")
+        with torch.no_grad():
+            got, ml = ca.csr_softmax_spmm(scores, values, seg, bounds, mask)
+            ds, dv = ca.csr_softmax_spmm_backward(scores, values, seg, bounds, ml, got, g, mask)
+        real = int(mask.sum().item())
+        k2_bytes = real * (4 * heads + 4 * width + 1) + n * (4 * width + 8 * heads + 8)
+        k3_bytes = k2_bytes + n * 4 * width + mask.shape[0] * (4 * heads + 4 * width)
+        out[f"view_d{width}_h{heads}_{aligned}B"] = {
+            "k2_ms": cs.geometry_case_ms(lambda s_, v_: ca.csr_softmax_spmm(s_, v_, seg, bounds, mask), scores,
+                                         values, aligned, k2_bytes),
+            "k3_ms": cs.geometry_case_ms(lambda s_, v_: ca.csr_softmax_spmm_backward(s_, v_, seg, bounds, ml, got,
+                                                                                      g, mask),
+                                         scores, values, aligned, k3_bytes),
+            "digest": _digest(torch, got), "ml_digest": _digest(torch, ml),
+            "k3_digests": [_digest(torch, ds), _digest(torch, dv)]}
     return out
 
 

@@ -28,8 +28,10 @@ CUDA card; this module starts nothing on import):
   partitioned attention's receiver-side softmax needs to equal the
   unpartitioned sender-side one), split-edge (K5 forward and backward, 15
   each a step and rank) and unsplit (K2 and K3, 15 each); then at hidden
-  48 in 4 heads and 40 in 8 (``WIDTH_STEPS``: K3's general geometry,
-  and K2's at 40), each layout's first step and 2 counted steps, each
+  48 in 4 heads, 40 in 8 and 160 in 5 (``WIDTH_STEPS``: K3's word
+  geometry at 48 and 40, K2's at 40; both general at 160), each layout's
+  first step and 2 counted steps, the unsplit launches counted by the
+  geometry that ran (all in words at 48 and 40, all general at 160), each
   layout's first step against the unpartitioned card step at its width
   (the fused attention) and the unsplit first step against the
   split-edge one;
@@ -63,12 +65,14 @@ import torch
 PARTS = 4
 # 3 timed steps, cut from 5 to keep chip_smoke.py inside its time limit
 WARMUP, TIMED, PROFILED = 2, 3, 2
-# the transformer's steps at the widths only the general geometry of K2 and
-# K3 takes among the unsplit kernels (hidden 48 in 4 heads of 12: K2 in
-# 16-byte words, K3 strided; hidden 40 in 8 heads of 5: both strided), each
-# split-edge and unsplit: the first step, then LIGHT_TIMED steps counted
-# (no warm-up, no profile)
-WIDTH_STEPS = ((48, 4), (40, 8))
+# the transformer's steps at widths neither the 16-byte words of one head nor
+# the V columns take among the unsplit kernels (hidden 48 in 4 heads of 12:
+# K2 in 16-byte words of one head, K3 in the word geometry; hidden 40 in 8
+# heads of 5: both in the word geometry; hidden 160 in 5 heads of 32: 40
+# words, past 32 lanes, both in the general geometry), each split-edge and
+# unsplit: the first step, then LIGHT_TIMED steps counted (no warm-up, no
+# profile)
+WIDTH_STEPS = ((48, 4), (40, 8), (160, 5))
 LIGHT_TIMED = 2
 # the partitioned EPD step with the halo exchange stubbed to the identity
 STUB_WARMUP, STUB_TIMED = 1, 5
@@ -102,16 +106,17 @@ def _cs():
     return chip_smoke
 
 
-def k5_inputs(graph, width, seed):
+def k5_inputs(graph, width, seed, heads=None):
     """K5's inputs on part 0 of ``graph``'s 4-way split-edge partition, on
-    the card: ``(n, local slots, (seg_a, seg_b), (mask_a, mask_b),
-    (bounds_a, bounds_b), (scores_a, scores_b), (values_a, values_b), g)``,
-    masked scores at -1e30 as ``csr_sparse_attention`` masks them."""
+    the card, ``heads`` heads (``chip_smoke.HEADS`` by default): ``(n, local
+    slots, (seg_a, seg_b), (mask_a, mask_b), (bounds_a, bounds_b),
+    (scores_a, scores_b), (values_a, values_b), g)``, masked scores at -1e30
+    as ``csr_sparse_attention`` masks them."""
     from graphphysics_torch.ops.csr_attention import NEG
     from graphphysics_torch.parallel.graph_partition import partition_graph_halo_np
 
     part = partition_graph_halo_np(graph, PARTS, split_local=True)[0]
-    dev, h = torch.device("cuda"), _cs().HEADS
+    dev, h = torch.device("cuda"), heads or _cs().HEADS
     el, n = part.num_local_edges, part.num_nodes
     recv = torch.as_tensor(part.receivers).to(dev)
     mask = torch.as_tensor(part.edge_mask).to(dev)
@@ -128,10 +133,11 @@ def k5_inputs(graph, width, seed):
     return n, el, seg, masks, bounds, scores, values, g
 
 
-def k5_case(name, graph, width, seed, floor):
+def k5_case(name, graph, width, seed, floor, heads=None):
     """K5 forward and backward on part 0 of ``graph``'s 4-way split-edge
-    partition, against their plain versions on the card, timed beside
-    their bounds, the plain versions and the replaced path."""
+    partition (``heads`` heads, ``chip_smoke.HEADS`` by default), against
+    their plain versions on the card, timed beside their bounds, the plain
+    versions and the replaced path."""
     from graphphysics_torch.ops.csr_attention import (
         _merge_partials,
         csr_softmax_spmm,
@@ -143,8 +149,8 @@ def k5_case(name, graph, width, seed, floor):
     )
 
     cs = _cs()
-    h = cs.HEADS
-    n, el, seg, masks, bounds, scores, values, g = k5_inputs(graph, width, seed)
+    h = heads or cs.HEADS
+    n, el, seg, masks, bounds, scores, values, g = k5_inputs(graph, width, seed, h)
 
     def pair(sa, va, sb, vb):
         return csr_softmax_spmm_pair(sa, va, seg[0], bounds[0], sb, vb, seg[1], bounds[1], *masks)
@@ -270,6 +276,14 @@ def _counters():
     }
 
 
+def _geometries():
+    """The unsplit kernels' launch counts by geometry (K2's f32 entry, K3)."""
+    from graphphysics_torch.ops.csr_attention import csr_softmax_spmm, csr_softmax_spmm_backward
+
+    return {"csr_softmax_spmm": csr_softmax_spmm.geometries,
+            "csr_softmax_spmm_backward": csr_softmax_spmm_backward.geometries}
+
+
 def _sync(device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -311,11 +325,14 @@ def _rank_step(rank, case, total_steps, workdir, device):
     dist.barrier(group=graph_group(GRAPH_AXIS))
     for fn in counts.values():
         fn.launches = 0
+    for by_kind in _geometries().values():
+        by_kind.update(dict.fromkeys(by_kind, 0))
     t0 = time.perf_counter()
     losses = [tr.train_step(batch) for _ in range(timed)]
     _sync(device)
     seconds = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counts.items()}
+    geometries = {k: dict(by_kind) for k, by_kind in _geometries().items()}
     breakdown = _profiled_steps(tr, batch, device) if rank == 0 and not light else None
     if rank != 0 and not light:
         for _ in range(PROFILED):
@@ -336,6 +353,7 @@ def _rank_step(rank, case, total_steps, workdir, device):
         "timed_steps": timed,
         "ms_per_step": seconds / timed * 1e3,
         "launches": launches,
+        "geometries": geometries,
         "peak_memory_gb": _peak_gb(device),
         "host_ms_per_step": float(np.mean(tr.host_ms[-timed:])),
         "part_nodes": int(part.num_nodes),
@@ -486,16 +504,36 @@ def width_references(panels, mesh, seed, total_steps) -> dict:
     return refs
 
 
+def unsplit_geometries(name, ranks, key, width, heads, blocks):
+    """The unsplit layout's K2 and K3 launches by geometry, summed over the
+    ranks: every launch of each in the kind its rule gives the width
+    (``softmax_spmm_kind`` on the 16-byte aligned rows the partitioned
+    attention hands over), ``blocks`` a step and rank, none in another."""
+    from graphphysics_torch.ops.csr_attention import softmax_spmm_kind
+
+    timed = ranks[0][key]["timed_steps"]
+    got = {k: {kind: sum(r[key]["geometries"][k][kind] for r in ranks) for kind in by_kind}
+           for k, by_kind in ranks[0][key]["geometries"].items()}
+    for k, backward in (("csr_softmax_spmm", False), ("csr_softmax_spmm_backward", True)):
+        want = softmax_spmm_kind(width, heads, 16, backward)
+        expected = {kind: blocks * timed * len(ranks) if kind == want else 0 for kind in got[k]}
+        if got[k] != expected:
+            raise AssertionError(f"{name}: {k} launched {got[k]} by geometry, expected {expected}")
+    return got
+
+
 def width_checks(ranks, blocks, refs, loss_rtol, grad_rtol, unpartitioned_grad_rtol):
     """``width_cases``' results: each layout's launches (``blocks`` of K5,
-    or of K2 and K3, forward and backward a step and rank); each layout's
-    first step against the unpartitioned one (``refs``, the fused
-    attention) within ``loss_rtol`` and ``unpartitioned_grad_rtol``, as
-    the 128-wide steps are held; and the unsplit first step (K2, K3)
-    against the split-edge one (K5) within ``loss_rtol`` and
-    ``grad_rtol``. The first two see a fault of code K2, K3 and K5 share
-    (``softmax_general.cuh``), which moves both sides of the third.
-    Returns ``({"hidden_D_heads_H": readings}, {path: launches})``."""
+    or of K2 and K3, forward and backward a step and rank), the unsplit
+    ones by geometry (``unsplit_geometries``); each layout's first step
+    against the unpartitioned one (``refs``, the fused attention) within
+    ``loss_rtol`` and ``unpartitioned_grad_rtol``, as the 128-wide steps
+    are held; and the unsplit first step (K2, K3) against the split-edge
+    one (K5) within ``loss_rtol`` and ``grad_rtol``. At 160 the first two
+    see a fault of code K2, K3 and K5 share (``softmax_general.cuh``),
+    which moves both sides of the third. Returns ``({"hidden_D_heads_H":
+    readings}, {path: launches})``, the unsplit paths' launches with K2's
+    and K3's by geometry as ``"name:kind"``."""
     out, launched = {}, {}
     for d, h in WIDTH_STEPS:
         width = {}
@@ -510,6 +548,11 @@ def width_checks(ranks, blocks, refs, loss_rtol, grad_rtol, unpartitioned_grad_r
             width[layout].update(compare_step(f"partitioned_transformer_training:{key}", refs[d, h], ranks[0][key],
                                               loss_rtol, unpartitioned_grad_rtol))
             launched[f"partitioned_transformer_training:{key}"] = summary["launches"]
+            if layout == "unsplit":
+                kinds = unsplit_geometries(f"partitioned_transformer_training:{key}", ranks, key, d, h, blocks)
+                width[layout]["launches_by_geometry"] = kinds
+                launched[f"partitioned_transformer_training:{key}"].update(
+                    {f"{k}:{kind}": n for k, by_kind in kinds.items() for kind, n in by_kind.items()})
         unsplit = ranks[0][f"transformer_unsplit_w{d}"]
         width["split_against_unsplit"] = compare_step(
             f"partitioned_transformer_training:split_against_unsplit_w{d}",
@@ -738,11 +781,17 @@ def partitioned_fit(seed):
 
 def k5_phase(clock, seed, tf_frames, aneurysm_csr, floor):
     """K5 on the card; returns ``(forward shapes, backward shapes)`` for the
-    kernels line, the training path's shape second, as it reads them."""
+    kernels line, the training path's shape second, as it reads them. The
+    last shape is the split-edge path's at hidden 40 in 8 heads of 5, the
+    mesh's part 0: K5's general geometry (``softmax_general.cuh``; its f32
+    V columns take widths that are multiples of 32 only,
+    ``csr_softmax_spmm_pair.cu``)."""
     cs = _cs()
+    mesh = mesh_graph("csr", seed + 601)
     shapes = [k5_case("serving_frame_2048_part0_of_4", tf_frames[0], cs.HIDDEN, seed + 1, floor),
-              k5_case("mesh_16384_part0_of_4", mesh_graph("csr", seed + 601), cs.HIDDEN, seed, floor),
-              k5_case("aneurysm_csr_66560x524288_part0_of_4", aneurysm_csr, 64, seed + 2, floor)]
+              k5_case("mesh_16384_part0_of_4", mesh, cs.HIDDEN, seed, floor),
+              k5_case("aneurysm_csr_66560x524288_part0_of_4", aneurysm_csr, 64, seed + 2, floor),
+              k5_case("mesh_16384_part0_of_4_d40_h8", mesh, 40, seed + 3, floor, heads=8)]
     for f, b in shapes:
         clock.emit({"phase": "k5_pair", "name": "csr_softmax_spmm_pair", **f})
         clock.emit({"phase": "k5_pair", "name": "csr_softmax_spmm_pair_backward", **b})
@@ -761,7 +810,16 @@ def partition_phases(clock, seed, cylinder, panels, epd_frames, tf_frames):
     total_steps = 1 + WARMUP + TIMED + PROFILED
     ref = {"epd": unpartitioned_steps(cylinder, meshes["epd"], seed, total_steps),
            "transformer": unpartitioned_steps(panels, meshes["transformer"], seed, total_steps)}
+    # the fused f32 kernels' launches by geometry in those steps: the general
+    # code of csr_attention.cuh at 160 in 5 heads (40 words, past the word
+    # geometry)
+    from graphphysics_torch.ops.csr_attention import csr_attention, csr_attention_backward
+
+    before = [dict(fn.geometries) for fn in (csr_attention, csr_attention_backward)]
     width_refs = width_references(panels, meshes["transformer"], seed, total_steps)
+    fused_by_geometry = {name: {k: fn.geometries[k] - b[k] for k in b} for name, fn, b in
+                         (("csr_attention", csr_attention, before[0]),
+                          ("csr_attention_backward", csr_attention_backward, before[1]))}
     roll = {"epd": stack_graphs([epd_frames[t] for t in range(ROLLOUT_FRAMES)]),
             "transformer": stack_graphs([tf_frames[t] for t in range(ROLLOUT_FRAMES)])}
     torch.cuda.empty_cache()
@@ -832,6 +890,10 @@ def partition_phases(clock, seed, cylinder, panels, epd_frames, tf_frames):
                    **compare_step(f"partitioned_transformer_training:{key}", ref["transformer"],
                                   per_rank[0], cs.STEP_LOSS_RTOL,
                                   PARTITIONED_TRANSFORMER_GRAD_RTOL)}
+        if not split:  # K2 in 16-byte words of one head, K3 in V columns
+            tf[key]["launches_by_geometry"] = unsplit_geometries(
+                f"partitioned_transformer_training:{key}", ranks, key, panels["model"]["hidden_size"],
+                panels["model"]["num_heads"], tf_blocks)
         paths_launched[f"partitioned_transformer_training:{key}"] = summary["launches"]
     unsplit = ranks[0]["transformer_unsplit"]
     tf["split_against_unsplit"] = compare_step(
@@ -841,6 +903,7 @@ def partition_phases(clock, seed, cylinder, panels, epd_frames, tf_frames):
     widths, launched = width_checks(ranks, tf_blocks, width_refs, cs.STEP_LOSS_RTOL, cs.TRANSFORMER_GRAD_RTOL,
                                     PARTITIONED_TRANSFORMER_GRAD_RTOL)
     tf.update(widths)
+    tf["width_references_fused_launches_by_geometry"] = fused_by_geometry
     paths_launched.update(launched)
     clock.emit({"phase": "partitioned_transformer_training", "model": f"EncodeTransformDecode "
                 f"{tf_blocks}x{panels['model']['hidden_size']}, {cs.PANELS_CONFIG}",

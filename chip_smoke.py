@@ -32,10 +32,12 @@ and the CUDA toolkit. Phases, each of which raises on failure:
    16,384-node mesh, the shape their own path runs, and at the widths JAX
    takes that only the general geometry opened to them (``GENERAL_WIDTHS``
    at the batch, 48 x 4 and 40 x 8 at the mesh part; 40 x 8 there,
-   ``MESH_GENERAL_SHAPE``, is the shape the general geometry runs on its
-   path and the one its kernels-line entries report). K2's records name the
+   ``MESH_WORD_SHAPE``, is the shape the word geometry runs on its path and
+   the one its kernels-line entries report) and at 160 in 5 heads, past 32
+   words (the batch, and ``MESH_GENERAL_SHAPE`` at the mesh part: the
+   general geometry's entries). K2's records name the
    geometry that ran (``softmax_spmm_geometry``, and a general one's
-   columns, ``softmax_spmm_columns``), a digest of the output
+   columns, ``softmax_spmm_columns``; ``kind``, ``softmax_spmm_kind``), a digest of the output
    (bit-equal on a second run), the launch floor and the share of the
    bound; then the f32 K2 and K3 in each geometry
    (``K2_F32_GEOMETRY_CASES`` on the panels batch, views 16- and 4-byte
@@ -84,7 +86,8 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     at 96 x 3 contiguous: a word of columns a lane, per-head partials
     reduced by shuffles, one head's softmax a lane; the fast geometry at
     48 x 4 and 40 x 8 contiguous), timed at each lane count (the general
-    geometry of ``csrc/csr_attention.cuh`` at the others); the first
+    geometry of ``csrc/csr_attention.cuh`` at the others, and at
+   ``F32_GENERAL_CASE``, 160 x 4, past the word geometry's 32 lanes); the first
     train step of the panels transformer at ``hidden_size`` 48 against
     the CPU
     (``width_first_step``); then that transformer trained (3 warm-up and
@@ -225,13 +228,15 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     backward, each timed;
 27-31. edge partitioning (``chip_partition.py``): ``k5_pair`` (K5 forward
     and backward against their plain versions at three parts of a 4-way
-    split), ``partitioned_epd_training`` and
+    split, and at the split path's 40 x 8 shape, K5's general geometry),
+    ``partitioned_epd_training`` and
     ``partitioned_transformer_training`` (4 ranks sharing the card over
     gloo, the first step against the unpartitioned card step, 3 timed
     steps with the launches checked; the transformer also at hidden 48 in
-    4 heads and 40 in 8, split-edge and unsplit, 2 counted steps each, each
-    first step against the unpartitioned card step at its width and the
-    unsplit first step against the split-edge one), ``partitioned_rollout`` (10 frames
+    4 heads, 40 in 8 and 160 in 5, split-edge and unsplit, 2 counted steps
+    each, the unsplit K2 and K3 launches counted by geometry, each first
+    step against the unpartitioned card step at its width and the unsplit
+    first step against the split-edge one), ``partitioned_rollout`` (10 frames
     of each family against the unpartitioned card rollout) and
     ``partitioned_fit`` (``grph-torch train|predict --graph_partition 4``);
 32-37. the serving artifacts, the directory checkpoints and the utilities
@@ -376,11 +381,16 @@ SOFTMAX_RTOL = 1e-5
 # 32, 16 and 4); D / 32 adjacent columns a lane (heads of 2; past 128 wide;
 # K3's at every multiple of 32 whose heads are whole lanes); the widths JAX
 # takes that needed the general geometry (heads of 4, 5, 12, 32 and 8: K2's
-# words where a head is 4k wide, K3's strided columns), and views only
-# 4-byte aligned (strided columns for both)
+# 16-byte words where a head is 4k wide, else the 16-byte words that span
+# heads; K3's words), and views only 4-byte aligned (strided columns for
+# both); the words at heads of 9 and of 5 with D % 8 == 4; the general
+# geometry on 8-byte views at 40 x 8 and 48 x 4 and a 4-byte view at 20 x 4
+# (8- and 4-byte words ran slower there) and at 160 in 5 heads (40 words,
+# past 32 lanes)
 K2_F32_GEOMETRY_CASES = ((128, 4, 16), (128, 8, 16), (64, 4, 16), (32, 8, 16), (32, 16, 16), (256, 4, 16),
                          (512, 8, 16), (16, 4, 16), (40, 8, 16), (48, 4, 16), (96, 3, 16), (24, 3, 16),
-                         (128, 4, 4), (48, 4, 4), (256, 4, 4), (512, 8, 4))
+                         (128, 4, 4), (48, 4, 4), (256, 4, 4), (512, 8, 4),
+                         (36, 4, 16), (20, 4, 16), (40, 8, 8), (48, 4, 8), (20, 4, 4), (160, 5, 16))
 # GPU vs CPU rollout, f32 without TF32, first frames
 ROLLOUT_ATOL = 1e-4
 ROLLOUT_RTOL = 1e-4
@@ -427,9 +437,19 @@ FIDELITY_KERNELS = {
 }
 # (width, heads) of the fused kernels' general geometry phases
 GENERAL_WIDTHS = ((48, 4), (96, 3), (40, 8))
-# K2's and K3's general geometry on its path: part 0 of the unsplit 4-way
-# mesh cut at hidden 40 in 8 heads (K2 and K3 strided), the kernels line's shape
-MESH_GENERAL_SHAPE = "mesh_16384_part0_of_4_unsplit_d40_h8"
+# K2's and K3's word geometry on its path: part 0 of the unsplit 4-way mesh
+# cut at hidden 40 in 8 heads (both in words spanning heads of 5), the
+# kernels line's shape of csr_softmax_spmm_words and _backward_words (the
+# general geometry's shape until the words took the width)
+MESH_WORD_SHAPE = "mesh_16384_part0_of_4_unsplit_d40_h8"
+# their general geometry on its path: the same part at hidden 160 in 5 heads
+# (40 words of 4, past 32 lanes), the kernels line's shape of
+# csr_softmax_spmm_general and _backward_general
+MESH_GENERAL_SHAPE = "mesh_16384_part0_of_4_unsplit_d160_h5"
+# a width of the fused f32 entries past their word geometry (160 columns in
+# 16-byte words: 40 words, past 32 lanes), which keeps the general code of
+# csr_attention.cuh: (D, H, view) on the panels batch
+F32_GENERAL_CASE = (160, 4, "model")
 # the shape the fused f32 word geometry runs on its path (width_training):
 # the panels batch at hidden 48 in 4 heads, the model's view
 WORD_SHAPE = "panels_csr_batch_8x2048_d48_h4_model"
@@ -1066,6 +1086,7 @@ def k2_case(name, graph, width, seed, heads=HEADS):
         csr_softmax_spmm_reference,
         softmax_spmm_columns,
         softmax_spmm_geometry,
+        softmax_spmm_kind,
     )
 
     dev = torch.device("cuda")
@@ -1127,6 +1148,7 @@ def k2_case(name, graph, width, seed, heads=HEADS):
         "geometry": softmax_spmm_geometry(width, h)._asdict(),
         "columns": (softmax_spmm_columns(width, h, 16) if softmax_spmm_geometry(width, h).kind == "general"
                     else None),
+        "kind": softmax_spmm_kind(width, h, 16),
         "digest": digest(out),
         "ml_digest": digest(ml),
         "bit_equal_twice": True,
@@ -1212,7 +1234,8 @@ def k2_f32_geometry_cases(graph, seed) -> list:
         ms = geometry_case_ms(lambda s, v: ca.csr_softmax_spmm(s, v, seg, bounds, mask), scores, values, aligned,
                               bytes_moved)
         records.append({"entry": "csr_softmax_spmm_f32", "width": width, "heads": heads, "aligned": aligned,
-                        "geometry": geometry._asdict(), "columns": columns, "max_abs_err": max(errs),
+                        "geometry": geometry._asdict(), "columns": columns,
+                        "kind": ca.softmax_spmm_kind(width, heads, aligned), "max_abs_err": max(errs),
                         "out_ml_max_abs_err": errs, "tolerance": tol, "bit_equal_twice": True,
                         "empty_rows": int(empty.sum().item()), "digest": digest(out), "ms": ms,
                         "bound_ms": bytes_moved / H100_BYTES_PER_S * 1e3})
@@ -1256,7 +1279,8 @@ def k3_f32_geometry_cases(graph, seed) -> list:
         ms = geometry_case_ms(lambda s, v: ca.csr_softmax_spmm_backward(s, v, seg, bounds, ml, out, g, mask),
                               scores, values, aligned, bytes_moved)
         records.append({"entry": "csr_softmax_spmm_bwd_f32", "width": width, "heads": heads, "aligned": aligned,
-                        "columns": columns, "max_abs_err": max(errs), "dscores_dvalues_max_abs_err": errs,
+                        "columns": columns, "kind": ca.softmax_spmm_kind(width, heads, aligned, backward=True),
+                        "max_abs_err": max(errs), "dscores_dvalues_max_abs_err": errs,
                         "tolerance": tol, "bit_equal_twice": True, "digest": [digest(t) for t in got], "ms": ms,
                         "bound_ms": bytes_moved / H100_BYTES_PER_S * 1e3})
     return records
@@ -1358,6 +1382,7 @@ def k3_case(name, graph, width, seed, heads=HEADS):
         csr_softmax_spmm_backward_reference,
         csr_softmax_spmm_reference,
         softmax_spmm_columns,
+        softmax_spmm_kind,
     )
 
     dev = torch.device("cuda")
@@ -1429,6 +1454,7 @@ def k3_case(name, graph, width, seed, heads=HEADS):
         "dscores_dvalues_max_abs_err": errs,
         "tolerance": {"rtol": K3_RTOL, "atol": K3_ATOL},
         "columns": softmax_spmm_columns(width, h, 16),
+        "kind": softmax_spmm_kind(width, h, 16, backward=True),
         "digest": [digest(t) for t in got],
         "autograd_max_abs_err": grad_errs,
         "autograd_tolerance": {"rtol": K3_GRAD_RTOL, "atol": K3_GRAD_ATOL},
@@ -4205,9 +4231,12 @@ def main() -> int:
         *(k2_case(f"panels_csr_batch_8x2048_d{d}_h{h}", tf_batch, d, args.seed + 84 + i, heads=h)
           for i, (d, h) in enumerate(GENERAL_WIDTHS)),
         k2_case("mesh_16384_part0_of_4_unsplit_d48_h4", mesh_part, 48, args.seed + 87, heads=4),
-        # the shape K2's general geometry runs on its path: the unsplit
+        # the shape K2's word geometry runs on its path: the unsplit
         # partitioned transformer at hidden 40 in 8 heads, part 0
-        k2_case(MESH_GENERAL_SHAPE, mesh_part, 40, args.seed + 92, heads=8),
+        k2_case(MESH_WORD_SHAPE, mesh_part, 40, args.seed + 92, heads=8),
+        # the general geometry's: hidden 160 in 5 heads, there and at the batch
+        k2_case(MESH_GENERAL_SHAPE, mesh_part, 160, args.seed + 94, heads=5),
+        k2_case("panels_csr_batch_8x2048_d160_h5", tf_batch, 160, args.seed + 95, heads=5),
     ]
     for s in k2_shapes:
         s["launch_floor_ms"] = floor
@@ -4231,7 +4260,9 @@ def main() -> int:
         *(k3_case(f"panels_csr_batch_8x2048_d{d}_h{h}", tf_batch, d, args.seed + 88 + i, heads=h)
           for i, (d, h) in enumerate(GENERAL_WIDTHS)),
         k3_case("mesh_16384_part0_of_4_unsplit_d48_h4", mesh_part, 48, args.seed + 91, heads=4),
-        k3_case(MESH_GENERAL_SHAPE, mesh_part, 40, args.seed + 93, heads=8),
+        k3_case(MESH_WORD_SHAPE, mesh_part, 40, args.seed + 93, heads=8),
+        k3_case(MESH_GENERAL_SHAPE, mesh_part, 160, args.seed + 96, heads=5),
+        k3_case("panels_csr_batch_8x2048_d160_h5", tf_batch, 160, args.seed + 97, heads=5),
     ]
     for s in k3_shapes:
         clock.emit({"phase": "kernel", "name": "csr_softmax_spmm_backward", **s})
@@ -4263,6 +4294,14 @@ def main() -> int:
                    library=view == "model", heads=h, view=view, replaced=False)
         for i, ((d, h), view) in enumerate((w, v) for w in GENERAL_WIDTHS for v in ("model", "contiguous"))
     ]
+    # a width past the f32 word geometry's 32 lanes: the general code of
+    # csr_attention.cuh
+    d, h, view = F32_GENERAL_CASE
+    general = fused_case(f"panels_csr_batch_8x2048_d{d}_h{h}_{view}", tf_batch, d, args.seed + 21,
+                         library=False, heads=h, view=view, replaced=False)
+    if {*general[0]["geometry"].values(), *general[1]["geometry"].values()} != {"general"}:
+        raise AssertionError(f"{general[0]['shape']}: ran {general[0]['geometry']}, not the general geometry")
+    widths.append(general)
     for s, _ in widths:
         clock.emit({"phase": "kernel_width", "name": "csr_attention", **s})
     for _, s in widths:
@@ -4560,37 +4599,56 @@ def main() -> int:
               launches_by_path=by_path["csr_attention_backward_bf16"],
               also_replaces="the backward of csr_sparse_attention's gathers and SDDMM on bf16 q, k, v"),
     ]}
-    # the general geometry of K2 and K3 (softmax_general.cuh), its launches
-    # from the unsplit partitioned transformer at the widths that take it:
-    # K2's at hidden 40 in 8 heads of 5 (at 48 its 16-byte words run), K3's
-    # at 48 and at 40
-    unsplit = {d: f"partitioned_transformer_training:transformer_unsplit_w{d}" for d in (48, 40)}
-    general_launches = {"csr_softmax_spmm": by_path["csr_softmax_spmm"].get(unsplit[40], 0),
-                        "csr_softmax_spmm_backward": sum(by_path["csr_softmax_spmm_backward"].get(p, 0)
-                                                         for p in unsplit.values())}
-    k2_general = [r for r in k2_shapes if r["columns"] == "strided"]
-    k3_general = [r for r in k3_shapes if r["columns"] == "strided"]
-    # each entry's time, bound and error are those at the path's own shape
-    main = {k: next((i for i, r in enumerate(shapes) if r["shape"] == MESH_GENERAL_SHAPE), None)
-            for k, shapes in (("k2", k2_general), ("k3", k3_general))}
-    if not (all(general_launches.values()) and None not in main.values()):
-        raise AssertionError(f"the general geometry of K2 and K3: launches {general_launches} on the "
-                             f"unsplit partitioned paths, {MESH_GENERAL_SHAPE} among the timed shapes {main}")
-    kernels["kernels"] += [
-        entry("csr_softmax_spmm_general", "graphphysics_torch/csrc/softmax_general.cuh",
-              "graphphysics_tpu/ops/pallas_attention.py:255", general_launches["csr_softmax_spmm"], k2_general,
-              {"rtol": SOFTMAX_RTOL, "atol": SOFTMAX_ATOL}, main_shape=main["k2"],
-              launches_by_path={unsplit[40]: general_launches["csr_softmax_spmm"]},
-              entry_point="csr_softmax_spmm_f32 (csrc/csr_softmax_spmm.cu)",
-              note="K2's general geometry, K5's on one edge set: every D <= 512 with D % H == 0"),
-        entry("csr_softmax_spmm_backward_general", "graphphysics_torch/csrc/softmax_general.cuh",
-              "graphphysics_tpu/ops/pallas_attention.py:398", general_launches["csr_softmax_spmm_backward"],
-              k3_general, {"rtol": K3_RTOL, "atol": K3_ATOL}, main_shape=main["k3"],
-              launches_by_path={p: by_path["csr_softmax_spmm_backward"].get(p, 0) for p in unsplit.values()},
-              entry_point="csr_softmax_spmm_bwd_f32 (csrc/csr_softmax_spmm_bwd.cu)",
-              note="K3's general geometry: per-head sums over strided columns, zeros on masked and "
-                   "uncovered edges"),
-    ]
+    # K2's and K3's word geometry (forward_words, backward_words) and their
+    # general geometry (softmax_general.cuh), each with its launches counted
+    # by geometry on the unsplit partitioned transformer at the widths that
+    # take it: the words K2's at hidden 40 in 8 heads of 5 (at 48 its
+    # 16-byte words of one head run), K3's at 48 and at 40; the general
+    # geometry both at 160 in 5 heads; each entry's time, bound and error at
+    # its path's own shape (part 0 of the mesh cut)
+    unsplit = {d: f"partitioned_transformer_training:transformer_unsplit_w{d}" for d in (48, 40, 160)}
+
+    def unsplit_launches(name, kind, widths_):
+        return {unsplit[d]: multirank_paths[unsplit[d]]["launches"].get(f"{name}:{kind}", 0) for d in widths_}
+
+    by_kind = {("csr_softmax_spmm", "words"): unsplit_launches("csr_softmax_spmm", "words", (40,)),
+               ("csr_softmax_spmm_backward", "words"): unsplit_launches("csr_softmax_spmm_backward", "words",
+                                                                        (48, 40)),
+               ("csr_softmax_spmm", "general"): unsplit_launches("csr_softmax_spmm", "general", (160,)),
+               ("csr_softmax_spmm_backward", "general"): unsplit_launches("csr_softmax_spmm_backward", "general",
+                                                                          (160,))}
+    shapes_of = {(name, kind): [r for r in rs if r["kind"] == kind]
+                 for name, rs in (("csr_softmax_spmm", k2_shapes), ("csr_softmax_spmm_backward", k3_shapes))
+                 for kind in ("words", "general")}
+    main = {key: next((i for i, r in enumerate(shapes_of[key])
+                       if r["shape"] == (MESH_WORD_SHAPE if key[1] == "words" else MESH_GENERAL_SHAPE)), None)
+            for key in by_kind}
+    if not (all(all(v.values()) for v in by_kind.values()) and None not in main.values()):
+        raise AssertionError(f"K2's and K3's words and general geometry: launches {by_kind} on the unsplit "
+                             f"partitioned paths, {MESH_WORD_SHAPE} and {MESH_GENERAL_SHAPE} among the timed "
+                             f"shapes {main}")
+    sources = {"csr_softmax_spmm": ("graphphysics_torch/csrc/csr_softmax_spmm.cu",
+                                    "graphphysics_tpu/ops/pallas_attention.py:255",
+                                    {"rtol": SOFTMAX_RTOL, "atol": SOFTMAX_ATOL}, "csr_softmax_spmm_f32"),
+               "csr_softmax_spmm_backward": ("graphphysics_torch/csrc/csr_softmax_spmm_bwd.cu",
+                                             "graphphysics_tpu/ops/pallas_attention.py:398",
+                                             {"rtol": K3_RTOL, "atol": K3_ATOL}, "csr_softmax_spmm_bwd_f32")}
+    notes = {
+        ("csr_softmax_spmm", "words"): "K2's word geometry: one 16-byte word of 4 columns a lane, which may span "
+                                       "heads, each head's online step an edge, 8 edges in flight, no shuffles",
+        ("csr_softmax_spmm_backward", "words"): "K3's word geometry: head sums reduce-scattered by shuffles "
+                                                "(word_heads.cuh), one weight a head read back by its columns",
+        ("csr_softmax_spmm", "general"): "K2's general geometry, K5's on one edge set: past 32 words",
+        ("csr_softmax_spmm_backward", "general"): "K3's general geometry: per-head sums over strided columns, "
+                                                  "zeros on masked and uncovered edges"}
+    for (name, kind), launches_by_path in by_kind.items():
+        source, replaces, tolerance, entry_point = sources[name]
+        if kind == "general":
+            source = "graphphysics_torch/csrc/softmax_general.cuh"
+        kernels["kernels"].append(entry(
+            f"{name}_{kind}", source, replaces, sum(launches_by_path.values()), shapes_of[name, kind], tolerance,
+            main_shape=main[name, kind], launches_by_path=launches_by_path,
+            entry_point=f"{entry_point} ({sources[name][0].rsplit('/', 1)[1]})", note=notes[name, kind]))
     # the word geometry of the fused f32 entries (attention_words.cuh), its
     # launches from the transformer at hidden 48 in 4 heads (width_training),
     # its time, bound and error at that path's shape: the batch, model view

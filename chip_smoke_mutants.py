@@ -3,8 +3,8 @@ K1b or in the fused attention backward moves ``first_step``, the check of the fi
 card against the CPU (the readings its per-model gradient limits
 ``EPD_GRAD_RTOL``, ``TRANSFORMER_GRAD_RTOL`` must sit below); a fault in
 the fused f32 kernels' word geometry (``csrc/attention_words.cuh``: a
-row's last word read as an idle lane's zeros, the head sums' butterfly
-missing its last level) moves the ``kernel_width`` cases' check against
+row's last word read as an idle lane's zeros; ``csrc/word_heads.cuh``: the
+head sums' butterfly missing its last level) moves the ``kernel_width`` cases' check against
 the plain versions and ``width_first_step`` (the transformer at hidden 48
 in 4 heads, first step against the CPU); a fault in the fused bf16
 kernels' word geometry (``csrc/csr_attention_bf16_words.cu`` with
@@ -55,7 +55,18 @@ against the plain versions, the partitioned transformer's first steps at
 hidden 48 and 40 against the unpartitioned card step (the fused
 attention; ``STEP_LOSS_RTOL``, ``PARTITIONED_TRANSFORMER_GRAD_RTOL``) and
 its unsplit first step against the split-edge one (``STEP_LOSS_RTOL``,
-``TRANSFORMER_GRAD_RTOL``), which cannot see a fault in the shared walk.
+``TRANSFORMER_GRAD_RTOL``), which cannot see a fault in the shared walk;
+a fault in K2's and K3's word geometry (``csrc/csr_softmax_spmm.cu``'s
+words that span heads reading a row's last word as an idle lane's;
+``csrc/csr_softmax_spmm_bwd.cu``: the same in K3, the select's and the
+ALIGNED head sums summing the wrong heads, a gap left unzeroed when rows
+share a warp, the last warp's surplus row leaving before the shuffles)
+moves the geometry cases, the kernel phase's cases at part 0 of the
+unsplit mesh cut and the card test ``test_softmax_spmm_words_match_plain``
+(an odd row count, gaps), on memory poisoned with NaN; a lane leaving
+before the last whole-warp shuffle, undefined on the card, is caught by
+the source check ``returns_before_last_shuffle`` (the CPU test
+``test_k3_words_keep_every_lane_to_the_last_shuffle`` runs it).
 
 For each fault the tree is copied to a temporary directory, one line of a
 source is replaced there, the kernels are built from the copy and the check
@@ -70,7 +81,7 @@ one CUDA card:
 
     python3 chip_smoke_mutants.py [name prefix]
 
-A name prefix (``k1b``, ``k1f32``, ``k2f32``, ``general``, ``attn``,
+A name prefix (``k1b``, ``k1f32``, ``k2f32``, ``general``, ``softmaxwords``, ``attn``,
 ``width``, ``resume``, ``bf16``, ``bf16words``, ``microbatch``, ``ell``,
 ``stream``) runs those faults only. K2's and K3's faults are caught by their kernel phases
 against their plain versions, and the general geometry's also by the
@@ -81,6 +92,7 @@ them.
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -95,6 +107,7 @@ ATTN_DK = "add_row<V, GEN>(dk, j, geo, r, dkr);"
 ATTN_DQ = "for (int i = 0; i < V; ++i) dqa[i] += ds[i % NP] * scale * kc[i];"
 WORDS = "graphphysics_torch/csrc/attention_words.cuh"
 WORD_LOAD = "  if (!r.live) {"
+WORD_HEADS = "graphphysics_torch/csrc/word_heads.cuh"  # the head sums, shared with K3's words
 WORD_BUTTERFLY = "for (int offset = geo.lo * P; offset < geo.hi; offset <<= 1) {"
 BF16_WORDS = "graphphysics_torch/csrc/csr_attention_bf16_words.cu"
 BF16_WORDS_PAIR = "const int x = ALIGNED ? i % P : i;"
@@ -111,7 +124,15 @@ K1_F32_LOAD = "w[u] = *reinterpret_cast<const uint4*>(data + e * width + col);"
 K2 = "graphphysics_torch/csrc/csr_softmax_spmm.cu"
 K2_WORD = "w[u] = *reinterpret_cast<const Word*>(values + e * width + col0);"
 K2_SLOT = "if (!live[u]) continue;"
-K2_F32_STEP = "if (live[u]) {"
+K2_STEP = "        online_step<W>(m1, l1, a1, x[u], v);\n"  # the words of one head, not those that span heads
+K2_F32_STEP = K2_STEP + "        if (live[u]) {"
+K2_SPAN_RETURN = "  if (row >= num_rows || col0 >= width) return;  // no shuffles: a lane past its row leaves at once"
+K3 = "graphphysics_torch/csrc/csr_softmax_spmm_bwd.cu"
+K3_LIVE = "  r.live = r.col0 < geo.width;"
+K3_HEADS = "  const Hd h = make_heads<W, P, ALIGNED>(geo, r);"
+K3_HD = "  using Hd = Heads<W, P, ALIGNED>;"
+K3_GAP = "  zero_span<W>(dscores, dvalues, r.end < r.start ? r.start : r.end, next, geo, r.sub);"
+K3_WORDS = "  const bool words = r.has_row && r.live;"
 K5 = "graphphysics_torch/csrc/csr_softmax_spmm_pair.cu"
 GENERAL = "graphphysics_torch/csrc/softmax_general.cuh"
 GENERAL_OUT = "out[row * width + c] = acc[i] / (l[i] + kEps);"
@@ -154,7 +175,7 @@ FAULTS = {
     # half of a head's lanes sums its own half of the head (48 x 4 and 40 x 8
     # in the model's view: lanes 0-7 and 8-15; 96 x 3: 0-15 and 16-31, and
     # contiguous a head's lanes 0-3 and 4-7), in both kernels
-    "width_head_sums_miss_last_level": ("width", WORDS, WORD_BUTTERFLY, WORD_BUTTERFLY.replace(
+    "width_head_sums_miss_last_level": ("width", WORD_HEADS, WORD_BUTTERFLY, WORD_BUTTERFLY.replace(
         "offset < geo.hi;", "offset < geo.hi / 2;")),
     # the bf16 word geometry (csr_attention_bf16_words.cu, attention_words.cuh
     # with T = bf16) reads its row's last word as zeros, as an idle lane's
@@ -166,7 +187,7 @@ FAULTS = {
     # the word geometry's head sums without the butterfly's last level (the
     # f32 words' fault, read by the bf16 checks: 48 x 4 on 16-byte words,
     # lanes 0-3 and 4-7 each sum their own half of a head)
-    "bf16words_head_sums_miss_last_level": ("bf16words", WORDS, WORD_BUTTERFLY, WORD_BUTTERFLY.replace(
+    "bf16words_head_sums_miss_last_level": ("bf16words", WORD_HEADS, WORD_BUTTERFLY, WORD_BUTTERFLY.replace(
         "offset < geo.hi;", "offset < geo.hi / 2;")),
     # part B of the bf16 word geometry's backward takes each column's (attn,
     # ds) pair from the next head's slot (an aligned lane's P pairs)
@@ -222,7 +243,7 @@ FAULTS = {
     # the f32 K2's 16-byte words: each window's last live edge takes no
     # online step
     "k2f32_drops_window_last_live_edge": ("k2f32", K2, K2_F32_STEP, (
-        "if (live[u] && [&] { for (int k = u + 1; k < kEdgeGroup; ++k) if (live[k]) return true; "
+        K2_STEP + "        if (live[u] && [&] { for (int k = u + 1; k < kEdgeGroup; ++k) if (live[k]) return true; "
         "return false; }()) {")),
     # K2's general geometry (one edge set; K5's two keep theirs): a lane's
     # last column slot past the first 32 columns writes 0 (D = 40 in 8
@@ -243,6 +264,35 @@ FAULTS = {
     "general_k3_reads_column_one_stride_off": ("general", GENERAL, GENERAL_DOT,
                                                "ve[i] = c < width ? v[kZeroFill && c + kLanes < width ? "
                                                "c + kLanes : c] : 0.0f;"),
+    # K2's words that span heads (forward_span_words) read their row's last
+    # word as an idle lane's: that lane leaves, its columns unwritten (40 x
+    # 8: lane 9 of 16, columns 36-39; 36 x 4: lane 8, columns 32-35); the
+    # 16-byte words of one head keep theirs
+    "softmaxwords_k2_drops_tail_word": ("softmaxwords", K2, K2_SPAN_RETURN, K2_SPAN_RETURN.replace(
+        "col0 >= width)", "col0 + W >= width)")),
+    # K3's word geometry reads its row's last word as zeros, as an idle
+    # lane's: no value, g or out word, no dvalues store (48 x 4: lane 11 of
+    # 16, columns 44-47; 96 x 3: lane 23 of 32)
+    "softmaxwords_k3_drops_tail_word": ("softmaxwords", K3, K3_LIVE, "  r.live = r.col0 + W < geo.width;"),
+    # K3's select adds each column's product into the next head's partial
+    # (48 x 4, 40 x 8, 36 x 4, 20 x 4); the weights read back keep their
+    # heads
+    "softmaxwords_k3_select_wrong_head": ("softmaxwords", K3, K3_HEADS, (
+        "  Hd h = make_heads<W, P, ALIGNED>(geo, r);\n"
+        "  if (!ALIGNED) for (int i = 0; i < W; ++i) h.column[i] = (h.column[i] + 1) % geo.heads;")),
+    # the ALIGNED variant (96 x 3: a head's 8 lanes): the butterfly runs over
+    # 16 lanes, two heads' columns summed as one head's
+    "softmaxwords_k3_aligned_wrong_heads": ("softmaxwords", K3, K3_HD,
+                                            K3_HD + "\n  if (ALIGNED && geo.hi < geo.lanes) geo.hi *= 2;"),
+    # with several rows a warp, only each warp's first row zeroes the edges
+    # after its range (the trailing padding's row of an even row count is
+    # a warp's second at 16 lanes a row)
+    "softmaxwords_k3_gap_unzeroed_when_rows_share_a_warp": ("softmaxwords", K3, K3_GAP, (
+        "  if (geo.lanes == kLanes || r.row % (kLanes / geo.lanes) == 0)\n  " + K3_GAP.strip())),
+    # the last warp's row past the last leaves before the head sums and the
+    # warp's largest range length, which every lane of the warp must reach
+    "softmaxwords_k3_surplus_row_leaves_before_a_shuffle": ("softmaxwords", K3, K3_WORDS, (
+        "  if (!r.has_row) return;\n" + K3_WORDS)),
     # the fused bf16 stream entry skips its score rounding: the bf16 entry's
     # function again
     "stream_fused_skips_score_rounding": ("stream", BF16_FWD, BF16_SCORE_ROUND, BF16_SCORE_ROUND.replace(
@@ -467,6 +517,70 @@ def read_general_fault(name: str) -> dict:
     return out
 
 
+# the calls of K3's word kernel that shuffle across the whole warp
+WARP_SHUFFLES = ("warp_max(", "head_sum<", "head_sums<", "read_back<")
+
+
+def returns_before_last_shuffle(source: str, kernel: str = "backward_words") -> list:
+    """The lines of ``kernel``'s body in ``source`` that leave the kernel
+    (``return;``) before its last whole-warp shuffle (``WARP_SHUFFLES``): a
+    lane that leaves there is missing from shuffles that name it, which the
+    card need not show (what a shuffle reads from a lane that has left is
+    undefined)."""
+    start = source.index(f"{kernel}(const float*")
+    body = source[start:source.index("\n}\n", start)]
+    last = max(body.rindex(call) for call in WARP_SHUFFLES if call in body)
+    return [line.strip() for line in body[:last].splitlines() if re.search(r"\breturn\s*;", line)]
+
+
+def read_softmax_words_fault(name: str) -> dict:
+    """K2's and K3's word geometry's checks, each at its limits on memory
+    poisoned with NaN (an output the kernel leaves unwritten shows): the
+    geometry cases (``K2_F32_GEOMETRY_CASES`` on the panels batch, the
+    kernel phase's), the kernel phase's K2 and K3 at part 0 of the unsplit
+    mesh cut at 40 x 8 (``MESH_WORD_SHAPE``) and 48 x 4, and the card
+    tests ``test_softmax_spmm_words_match_plain`` (``WORD_CASES``: an odd
+    row count, a gap, empty rows, the same bits twice). A check that raises
+    catches the fault; its message is reported. Then the source check of
+    the copy's K3 (``returns_before_last_shuffle``)."""
+    import importlib.util
+
+    import torch
+
+    import chip_smoke as cs
+
+    # by its path: on the card's machine another package may own the name `tests`
+    spec = importlib.util.spec_from_file_location("card_tests", os.path.join("tests", "test_torch_port_cuda.py"))
+    cards = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cards)
+    dev = torch.device("cuda")
+    out = {"fault": name}
+
+    def check(label, fn):
+        cards._poison_free_memory(dev)
+        try:
+            fn()
+            out[label] = "passed"
+        except AssertionError as err:
+            out[f"{label}_caught_by"] = str(err)[:300]
+
+    batch = cs.panels_batch(200)
+    check("k2_geometry_cases", lambda: cs.k2_f32_geometry_cases(batch, 83))
+    check("k3_geometry_cases", lambda: cs.k3_f32_geometry_cases(batch, 83))
+    part = cs.unsplit_part0(601)
+    for label, width, heads, (k2_seed, k3_seed) in ((cs.MESH_WORD_SHAPE, 40, 8, (92, 93)),
+                                                    ("mesh_16384_part0_of_4_unsplit_d48_h4", 48, 4, (87, 91))):
+        check(f"k2_{label}", lambda: cs.k2_case(label, part, width, k2_seed, heads=heads))
+        check(f"k3_{label}", lambda: cs.k3_case(label, part, width, k3_seed, heads=heads))
+    for width, heads, aligned in cards.WORD_CASES:
+        check(f"card_test_{width}x{heads}_{aligned}B",
+              lambda: cards.test_softmax_spmm_words_match_plain(dev, width, heads, aligned))
+    with open(K3) as f:  # the copy's source, as tests/test_torch_port_softmax_words.py reads the repo's
+        early = returns_before_last_shuffle(f.read())
+    out["source_check"] = f"caught: {early}" if early else "passed"
+    return out
+
+
 def read_width_fault(name: str) -> dict:
     """The word geometry's checks: the ``kernel_width`` cases
     (``fused_case`` at ``GENERAL_WIDTHS`` in both views on the panels
@@ -634,9 +748,13 @@ def read_fault(model: str, name: str) -> dict:
 
     import chip_smoke as cs
     from graphphysics_torch.ops import _native
+    from graphphysics_torch.ops import csr_attention as ca
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if model == "softmaxwords":  # its checks launch K2's f32 entry and K3 only
+        _native.build((ca.SOURCE, ca.BACKWARD_SOURCE))
+        return read_softmax_words_fault(name)
     _native.build()
     if name.startswith("resume"):
         return read_resume_fault(model, name)

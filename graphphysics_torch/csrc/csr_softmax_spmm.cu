@@ -29,7 +29,7 @@
 //
 // Design. One warp or lane group owns one output row, so there are no
 // atomics, nothing is shared between rows, and every sum runs in a fixed
-// order (deterministic). Three geometries, chosen before the launch by
+// order (deterministic). Four geometries, chosen before the launch by
 // width, heads and alignment (the rule of ops/csr_attention.py
 // softmax_spmm_geometry and softmax_spmm_columns):
 // - 16-byte words, where a head's width is a multiple of 4, D <= 128 and
@@ -53,8 +53,8 @@
 //   the unsplit partitioned transformer's first step read 6.5e-4 of a
 //   gradient against the split-edge step (K5, an online step an edge),
 //   over the 1e-4 it is held to, ReLU inputs within round-off of 0
-//   flipping. A 64-register cap (80 are used), so that part 0's 4,096
-//   row warps fit the card at once, spilled and was 16-21% slower.
+//   flipping. A 64-register cap, so that part 0's 4,096 row warps fit the
+//   card at once, spilled and was 16-21% slower.
 // - V columns, where D = 32 V, a head's width is a multiple of V and the
 //   values aligned to the loads below (D = 256 and 512; D = 32 in 16 heads
 //   of 2): the first design, one warp a row, each lane V contiguous columns
@@ -68,13 +68,34 @@
 //   took 0.70 and 0.65 of the general geometry's time at D = 256 in 4 heads
 //   and 512 in 8, its bf16 stream 0.55 at 512 in 4 (chip_smoke.py's and
 //   chip_stream.py's geometry cases, the panels batch).
+// - 16-byte words that may span heads (f32), where the first two do not
+//   take the width, D % 4 == 0, values and out 16-byte aligned and 32
+//   lanes of words hold the row with at most 16 heads (word_heads.cuh
+//   blocked_word_geometry, K3's rule too: D = 40 in 8 heads of 5, 36 in 4
+//   of 9, 20 in 4 of 5): forward_span_words, a lane owns one word of 4
+//   adjacent columns; a row takes L lanes (D / 4 rounded up to a power of
+//   two, and to the power of two at least H), 32 / L rows a warp. The
+//   window loop above, 8 edges in flight (4 ran slower at the mesh part
+//   on an H100). A word touches at most K heads (2 at 40 x 8: the word of
+//   columns 4-7 holds heads 0 and 1 of 5); the lane loads those K scores an
+//   edge and takes each head's online step, and each column its head's
+//   step, picked by selects. Of the two designs that fit, one lane a head
+//   keeping m and l with the weights read back by shuffles
+//   (attention_words.cuh) and this one, this one: a lane waits on no other
+//   (no shuffle, so a lane past the row leaves at once), and a lane's K
+//   steps overlap where a head's lane and its shuffles would chain. Each
+//   column's arithmetic is the general geometry's (expf(m - m') and
+//   expf(s - m') on the same operands, an edge at a time), so out and ml
+//   are the same bits; a window's maximum first would round otherwise
+//   (above). 8- and 4-byte words (views 8 or 4 bytes aligned, D % 4 != 0)
+//   ran slower than the general geometry on an H100 (chip_compare.py
+//   --k2, PERF.md), which keeps them.
 // - the general geometry (softmax_general.cuh, K5's on one edge set) for
-//   every other width and view with D <= 512 and D % H == 0 (D = 40 in 8
-//   heads of 5; D = 160 in 5 heads of 32, past 128 wide and not whole
-//   5-column lanes; a values view only 4-byte aligned): lane j owns the
-//   columns j, j + 32, ..., one scalar load each, so a warp reads an edge's
-//   value row as 128-byte spans, and takes the same online step an edge
-//   for each of its columns.
+//   every other width and view with D <= 512 and D % H == 0 (D = 160 in 5
+//   heads of 32: 40 words, past 32 lanes; a 4-byte view past 32 columns;
+//   more than 16 heads): lane j owns the columns j, j + 32, ..., one scalar
+//   load each, so a warp reads an edge's value row as 128-byte spans, and
+//   takes the same online step an edge for each of its columns.
 // The first lane of each head writes that head's m and l. The models'
 // attention does not run this entry: csr_attention.cu fuses the q/k/v
 // gathers and the per-edge dot products into the same loop. The unsplit
@@ -125,6 +146,7 @@
 #include <string.h>
 
 #include "softmax_general.cuh"
+#include "word_heads.cuh"
 #include "words.cuh"
 
 namespace {
@@ -349,6 +371,106 @@ __global__ void forward_words(const T* __restrict__ scores, const T* __restrict_
   }
 }
 
+// ---- the f32 words that may span heads: one 16-byte word of 4 columns a
+// lane, touching at most K heads (h0 .. h0 + K - 1 from the head of its
+// first column h0); `lanes` lanes a row (a power of two), 32 / lanes rows a
+// warp. forward_words' window loop and f32 online step, once for each head
+// the word touches, each column taking its head's step.
+
+// v[k] for a run-time k < K, by selects: no register array indexed at run
+// time (which would live in local memory)
+template <int K>
+__device__ __forceinline__ float pick(const float (&v)[K], int k) {
+  float r = v[0];
+#pragma unroll
+  for (int j = 1; j < K; ++j) r = k == j ? v[j] : r;
+  return r;
+}
+
+template <int K>
+__global__ void forward_span_words(const float* __restrict__ scores, const float* __restrict__ values,
+                                   const int32_t* __restrict__ bounds, const uint8_t* __restrict__ mask,
+                                   float* __restrict__ out, float* __restrict__ ml, int64_t num_rows,
+                                   int64_t num_edges, int width, int num_heads, int lanes) {
+  constexpr int W = kF32WordCols;
+  const int slot = threadIdx.x / lanes;
+  const int sub = threadIdx.x % lanes;
+  const int64_t row = (static_cast<int64_t>(blockIdx.x) * kWordWarps + threadIdx.y) * (kLanes / lanes) + slot;
+  const int col0 = sub * W;
+  if (row >= num_rows || col0 >= width) return;  // no shuffles: a lane past its row leaves at once
+  const int head_dim = width / num_heads;
+  const int head = col0 / head_dim;
+  int hk[K], of[W];  // the word's heads; each column's head slot k (its head hk[k])
+#pragma unroll
+  for (int k = 0; k < K; ++k) hk[k] = head + k < num_heads ? head + k : num_heads - 1;
+#pragma unroll
+  for (int c = 0; c < W; ++c) of[c] = (col0 + c) / head_dim - head;
+  int64_t start = bounds[row];
+  int64_t end = bounds[num_rows + row];
+  start = start < 0 ? 0 : start;
+  end = end > num_edges ? num_edges : end;
+  float m[K], l[K], acc[W];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    m[k] = kNeg;
+    l[k] = 0.0f;
+  }
+#pragma unroll
+  for (int c = 0; c < W; ++c) acc[c] = 0.0f;
+  for (int64_t e0 = start; e0 < end; e0 += kEdgeGroup) {
+    uint4 w[kEdgeGroup];
+    float x[kEdgeGroup][K];
+    bool live[kEdgeGroup];
+#pragma unroll
+    for (int u = 0; u < kEdgeGroup; ++u) {
+      const int64_t e = e0 + u < end ? e0 + u : end - 1;  // past the row: its last edge, not added
+      live[u] = e0 + u < end && (mask == nullptr || mask[e] != 0);
+#pragma unroll
+      for (int k = 0; k < K; ++k) x[u][k] = scores[e * num_heads + hk[k]];
+      w[u] = *reinterpret_cast<const uint4*>(values + e * width + col0);
+    }
+    // the online step an edge, in edge order, once a head the word touches;
+    // taken for every slot and kept for the live ones, so no slot's
+    // exponentials wait on a branch
+#pragma unroll
+    for (int u = 0; u < kEdgeGroup; ++u) {
+      float v[W], m1[K], l1[K], alpha[K], p[K], a1[W];
+      unpack_word<float, W>(w[u], v);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const float m_new = fmaxf(m[k], x[u][k]);
+        alpha[k] = expf(m[k] - m_new);
+        p[k] = expf(x[u][k] - m_new);
+        l1[k] = l[k] * alpha[k] + p[k];
+        m1[k] = m_new;
+      }
+#pragma unroll
+      for (int c = 0; c < W; ++c) a1[c] = acc[c] * pick<K>(alpha, of[c]) + pick<K>(p, of[c]) * v[c];
+      if (live[u]) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          m[k] = m1[k];
+          l[k] = l1[k];
+        }
+#pragma unroll
+        for (int c = 0; c < W; ++c) acc[c] = a1[c];
+      }
+    }
+  }
+  *reinterpret_cast<float4*>(out + row * width + col0) =
+      make_float4(acc[0] / (pick<K>(l, of[0]) + kEps), acc[1] / (pick<K>(l, of[1]) + kEps),
+                  acc[2] / (pick<K>(l, of[2]) + kEps), acc[3] / (pick<K>(l, of[3]) + kEps));
+  // the lane of each head's first column writes its m and l
+#pragma unroll
+  for (int c = 0; c < W; ++c) {
+    if ((col0 + c) % head_dim == 0) {
+      const int h = (col0 + c) / head_dim;
+      ml[h * num_rows + row] = pick<K>(m, of[c]);
+      ml[(num_heads + h) * num_rows + row] = pick<K>(l, of[c]);
+    }
+  }
+}
+
 // The columns of T a lane owns in a word geometry, or 0 for the others;
 // `lanes` the lanes a row then takes. f32: 4 (a 16-byte word) where a head
 // is 4k wide, D <= 128 and values and out 16-byte aligned (the rule of
@@ -372,6 +494,17 @@ int word_columns(int width, int num_heads, const void* values, const void* out, 
   return 0;
 }
 
+// The most heads a word of `cols` columns touches, over the row's words.
+inline int heads_a_word(int width, int num_heads, int cols) {
+  const int head_dim = width / num_heads;
+  int most = 1;
+  for (int c0 = 0; c0 < width; c0 += cols) {
+    const int k = (c0 + cols - 1) / head_dim - c0 / head_dim + 1;
+    most = k > most ? k : most;
+  }
+  return most;
+}
+
 template <typename T, int W>
 cudaError_t launch_words(const void* scores, const void* values, const void* bounds, const void* mask,
                          void* out, void* ml, long long num_rows, long long num_edges, int num_heads,
@@ -381,6 +514,20 @@ cudaError_t launch_words(const void* scores, const void* values, const void* bou
   const dim3 grid(static_cast<unsigned>((num_rows + rows - 1) / rows));
   forward_words<T, W><<<grid, block, 0, stream>>>(
       static_cast<const T*>(scores), static_cast<const T*>(values), static_cast<const int32_t*>(bounds),
+      static_cast<const uint8_t*>(mask), static_cast<float*>(out), static_cast<float*>(ml), num_rows,
+      num_edges, width, num_heads, lanes);
+  return cudaGetLastError();
+}
+
+template <int K>
+cudaError_t launch_span_words(const void* scores, const void* values, const void* bounds, const void* mask,
+                              void* out, void* ml, long long num_rows, long long num_edges, int num_heads,
+                              int width, int lanes, cudaStream_t stream) {
+  const long long rows = static_cast<long long>(kWordWarps) * (kLanes / lanes);  // a block
+  const dim3 block(kLanes, kWordWarps);
+  const dim3 grid(static_cast<unsigned>((num_rows + rows - 1) / rows));
+  forward_span_words<K><<<grid, block, 0, stream>>>(
+      static_cast<const float*>(scores), static_cast<const float*>(values), static_cast<const int32_t*>(bounds),
       static_cast<const uint8_t*>(mask), static_cast<float*>(out), static_cast<float*>(ml), num_rows,
       num_edges, width, num_heads, lanes);
   return cudaGetLastError();
@@ -400,9 +547,17 @@ cudaError_t launch(const void* scores, const void* values, const void* bounds,
   return cudaGetLastError();
 }
 
+// K, the most heads a 4-column word touches, of the words that span heads: 2
+// (heads of 2 columns or more that are not 4k wide) or 4 (heads of 1; no
+// width gives 3: 4 columns from a multiple of 4 touch 4 heads of one
+// column, else at most 2). K = 1 is forward_words' 16-byte words of one
+// head, taken first.
+#define F32_SPAN_CASES(CASE) CASE(2) CASE(4)
+
 // The word geometry of width D, heads and alignment where one applies,
 // else the V-column kernel's instantiation of width D = 32 V for element
-// type T where it takes the shape and alignment, else the general geometry
+// type T where it takes the shape and alignment, else (f32) the 16-byte
+// words that may span heads where they hold the row, else the general geometry
 // (softmax_general.cuh) on one edge set.
 template <typename T>
 int run(const void* scores, const void* values, const void* bounds, const void* mask, void* out,
@@ -435,6 +590,23 @@ int run(const void* scores, const void* values, const void* bounds, const void* 
     }
 #undef CASE
   }
+  if constexpr (sizeof(T) == 4) {
+    // 16-byte words that may span heads (the rule of ops/csr_attention.py
+    // softmax_spmm_words, K3's too)
+    word_heads::WordGeometry geo;
+    if (word_heads::blocked_word_geometry(width, num_heads, word_heads::alignment_of({values, out}), &geo)) {
+      switch (heads_a_word(width, num_heads, geo.cols)) {
+#define CASE(K)                                                                                              \
+  case K:                                                                                                    \
+    return static_cast<int>(launch_span_words<K>(scores, values, bounds, mask, out, ml, num_rows, num_edges, \
+                                                 num_heads, width, geo.lanes, s));
+        F32_SPAN_CASES(CASE)
+#undef CASE
+        default:
+          return static_cast<int>(cudaErrorInvalidValue);
+      }
+    }
+  }
   const softmax_general::EdgeSetOf<T> edges{static_cast<const T*>(scores), static_cast<const T*>(values),
                                             static_cast<const int32_t*>(bounds),
                                             static_cast<const uint8_t*>(mask), num_edges};
@@ -451,7 +623,8 @@ int run(const void* scores, const void* values, const void* bounds, const void* 
 // wrapper checks; other shapes return cudaErrorInvalidValue): 16-byte words
 // where a head is 4k wide, D <= 128 and values and out 16-byte aligned; else
 // V = D/32 columns a lane where a head is whole V-column lanes and the
-// values aligned to their loads; else the general geometry. Launches on
+// values aligned to their loads; else words that may span heads where 32
+// lanes of them hold the row and H <= 16; else the general geometry. Launches on
 // `stream` and returns cudaGetLastError() (0 when the launch was accepted).
 extern "C" int csr_softmax_spmm_f32(const void* scores, const void* values,
                                     const void* bounds, const void* mask,

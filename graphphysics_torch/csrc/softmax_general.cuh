@@ -1,7 +1,10 @@
 // The general lane geometry of the segment softmax + SpMM kernels: K2 and K3
 // (csr_softmax_spmm.cu, csr_softmax_spmm_bwd.cu) on one edge set, K5
 // (csr_softmax_spmm_pair.cu) on two. It takes every width D <= 512 with
-// D % H == 0, and values of any element alignment.
+// D % H == 0, and values of any element alignment. K2's f32 entry and K3
+// run it only where neither their V columns nor their words (word_heads.cuh)
+// take the width; K2's bf16 stream and K5 wherever their other geometries
+// do not.
 //
 // One warp owns one row: no atomics, nothing shared between warps, every sum
 // in a fixed order, so two runs give the same bits. Lane j owns the columns

@@ -60,10 +60,17 @@ and ``csrc/csr_softmax_spmm_bwd.cu`` at every ``D <= MAX_WIDTH`` with
 ``D % H == 0``: the forward in 16-byte words of 4 columns of one head a
 lane, 8 edges in flight, where a head is 4k wide and D <= 128
 (``softmax_spmm_geometry``), else both in D/32 adjacent columns a lane
-where the width and alignment allow, else in the general geometry of
+where the width and alignment allow, else both in 16-byte words of 4
+columns a lane that may span heads where 32 lanes of them hold the row
+(``softmax_spmm_words``: the forward an online step a head its word
+touches, K3's head sums reduce-scattered by shuffles,
+``csrc/word_heads.cuh``), else in the general geometry of
 ``csrc/softmax_general.cuh``, K5's, lane j the columns j, j + 32, ...
-(``softmax_spmm_columns``); on the CPU they take
-``csr_softmax_spmm_reference`` and ``csr_softmax_spmm_backward_reference``.
+(``softmax_spmm_columns``); the f32 forward and K3 count their launches
+by that kernel on ``csr_softmax_spmm.geometries`` and
+``csr_softmax_spmm_backward.geometries`` (``softmax_spmm_kind``). On the
+CPU they take ``csr_softmax_spmm_reference`` and
+``csr_softmax_spmm_backward_reference``.
 The unsplit partitioned attention runs them, segmenting by receivers
 (``ops.attention``). ``csr_softmax_spmm_pair`` (K5) is the same function
 over the union of two edge sets that share the rows, each with its own
@@ -111,6 +118,7 @@ from graphphysics_torch.ops.csr_segment import (
     LaunchCount,
     SumGeometry,
     accumulation_dtype,
+    alignment,
     check_in_range,
     csr_segment_sum_reference,
 )
@@ -173,6 +181,11 @@ MAX_WIDTH = 512  # the widest D the TPU kernel's defaults were tuned for
 # the TPU kernel's stream modes: "f32", or "bf16" (scores and values rounded
 # to bf16 before the softmax + SpMM, which computes in f32 from them)
 STREAM_DTYPES = ("f32", "bf16")
+# the f32 K2's and K3's kernels by geometry, the keys of their launch counts
+# by geometry (csr_softmax_spmm.geometries, csr_softmax_spmm_backward.geometries):
+# the 16-byte words of one head (K2 only), the words that may span
+# heads, the V columns, the general geometry
+SOFTMAX_SPMM_KINDS = ("words16", "words", "columns", "general")
 
 
 def check_stream_dtype(stream_dtype: str) -> bool:
@@ -353,6 +366,8 @@ def _launch(scores, values, bounds, mask) -> Tuple[torch.Tensor, torch.Tensor]:
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
     counter.launches += 1
+    if not bf16:
+        csr_softmax_spmm.geometries[softmax_spmm_kind(d, h, alignment(values))] += 1
     return out, ml
 
 
@@ -389,6 +404,7 @@ def _launch_backward(scores, values, bounds, mask, ml, out, g) -> Tuple[torch.Te
     if err != 0:
         raise RuntimeError(f"csr_softmax_spmm backward kernel launch failed: CUDA error {err}")
     csr_softmax_spmm_backward.launches += 1
+    csr_softmax_spmm_backward.geometries[softmax_spmm_kind(d, h, alignment(values, out, g), backward=True)] += 1
     return dscores, dvalues
 
 
@@ -491,8 +507,9 @@ def csr_softmax_spmm(
     range. A CUDA tensor launches the
     Hopper kernel (float32, D up to 512 and a multiple of H, any alignment;
     in the geometry ``softmax_spmm_geometry`` and ``softmax_spmm_columns``
-    give) and adds one to
-    ``csr_softmax_spmm.launches``; it trusts the layout (build graphs with
+    give) and adds one to ``csr_softmax_spmm.launches`` and to its kernel's
+    count in ``csr_softmax_spmm.geometries`` (``softmax_spmm_kind``); it
+    trusts the layout (build graphs with
     ``pad_graph_csr_np``). A CPU tensor
     checks that precondition and takes ``csr_softmax_spmm_reference``.
 
@@ -509,6 +526,8 @@ def csr_softmax_spmm(
 
 
 csr_softmax_spmm.launches = 0
+# the f32 entry's launches by the kernel that ran (softmax_spmm_kind)
+csr_softmax_spmm.geometries = dict.fromkeys(SOFTMAX_SPMM_KINDS, 0)
 csr_softmax_spmm.bf16_stream = LaunchCount()
 
 
@@ -531,12 +550,14 @@ def csr_softmax_spmm_backward(
     tensor launches the Hopper kernel (float32, the forward's widths; every
     edge row is written, which needs the ranges ascending and disjoint, as
     the padding lays them out) and adds one to
-    ``csr_softmax_spmm_backward.launches``; a CPU tensor takes
+    ``csr_softmax_spmm_backward.launches`` and to its kernel's count in
+    ``csr_softmax_spmm_backward.geometries``; a CPU tensor takes
     ``csr_softmax_spmm_backward_reference``."""
     return _softmax_spmm_backward_op(scores, values, segments, bounds, ml, out, g, mask)
 
 
 csr_softmax_spmm_backward.launches = 0
+csr_softmax_spmm_backward.geometries = dict.fromkeys(SOFTMAX_SPMM_KINDS[1:], 0)
 
 
 def _merge_partials(out_a, ml_a, out_b, ml_b, h):
@@ -1125,9 +1146,12 @@ def softmax_spmm_geometry(width: int, heads: int, aligned: int = VECTOR_ALIGNMEN
     head a lane, one 16-byte word) where the head width is a multiple of 4,
     D <= 128 and the values 16-byte aligned, a row taking ``D / 4`` lanes
     rounded up to a power of two, 32 / lanes rows a warp, 8 edges in flight;
-    else "general", a warp a row, one edge at a time, ``ceil(D / 32)``
-    columns a lane, adjacent or strided as ``softmax_spmm_columns`` says.
-    None past ``MAX_WIDTH`` or where H does not divide D."""
+    else, where ``softmax_spmm_columns`` says "words", "words" (one 16-byte
+    word of 4 columns a lane, which may span heads, ``softmax_spmm_words``'
+    L lanes a row, 8 edges in flight); else "general", a warp a row, one edge
+    at a time, ``ceil(D / 32)`` columns a lane, adjacent or strided as
+    ``softmax_spmm_columns`` says. None past ``MAX_WIDTH`` or where H does
+    not divide D."""
     if not 0 < width <= MAX_WIDTH or heads <= 0 or width % heads:
         return None
     if (width // heads) % F32_WORD_COLUMNS == 0 and width <= WARP * F32_WORD_COLUMNS and aligned % 16 == 0:
@@ -1135,7 +1159,31 @@ def softmax_spmm_geometry(width: int, heads: int, aligned: int = VECTOR_ALIGNMEN
         while lanes * F32_WORD_COLUMNS < width:
             lanes *= 2
         return SumGeometry("words16", F32_WORD_COLUMNS, lanes, WARP // lanes, EDGE_GROUP)
+    if softmax_spmm_columns(width, heads, aligned) == "words":
+        words = softmax_spmm_words(width, heads, aligned)
+        return SumGeometry("words", words.cols, words.lanes, WARP // words.lanes, EDGE_GROUP)
     return SumGeometry("general", -(-width // WARP), WARP, 1, 1)
+
+
+@functools.lru_cache(maxsize=None)
+def softmax_spmm_words(width: int, heads: int, aligned: int) -> Optional[WordGeometry]:
+    """The word geometry of K2's f32 entry and of K3 on head-blocked rows
+    whose arrays are ``aligned``-byte aligned (``blocked_word_geometry`` in
+    ``csrc/word_heads.cuh``): a lane owns one 16-byte word of
+    ``F32_WORD_COLUMNS`` (4) consecutive columns, where D % 4 == 0 (no word
+    is cut by the row's end) and the arrays are 16-byte aligned; a row takes
+    ``D / 4`` lanes rounded up to a power of two and to the power of two at
+    least H. K3's head sums: "aligned" (P = 1, a head's ``Dh / 4`` lanes an
+    aligned group, ``hi = Dh / 4``) where that is a power of two or H = 1,
+    else a select of each column's head, P the power of two at least H
+    (``word_geometry``'s rule on blocked rows). None past ``MAX_PARTIALS``
+    heads or ``WARP`` lanes (D > 128), where H does not divide D, and for
+    8- and 4-byte words (D % 4 != 0, views 8 or 4 bytes aligned), which ran
+    no faster than the general geometry on an H100: those keep it. Cached:
+    every launch asks it."""
+    if width % F32_WORD_COLUMNS or aligned % VECTOR_ALIGNMENT:
+        return None
+    return _word_geometry(width, heads, False, (F32_WORD_COLUMNS,))
 
 
 def softmax_spmm_columns(width: int, heads: int, aligned: int, itemsize: int = 4) -> str:
@@ -1145,16 +1193,35 @@ def softmax_spmm_columns(width: int, heads: int, aligned: int, itemsize: int = 4
     it: "adjacent", the V-column kernel (``V = D / 32`` contiguous
     columns of one head a lane, vector loads), where D = 32 V, a head is
     whole V-column lanes and the values aligned to those loads
-    (``itemsize * min(16 / itemsize, V & -V)`` bytes); else "strided", the
-    general geometry (``csrc/softmax_general.cuh``, K5's on one edge set:
-    lane j the columns j, j + 32, ..., a scalar load each), which takes
-    every D <= ``MAX_WIDTH`` with D % H == 0 and any alignment. K3's other
-    arrays (out, g: 16-byte aligned, the wrapper checks; dvalues its own)
-    take every load."""
+    (``itemsize * min(16 / itemsize, V & -V)`` bytes); else, in f32,
+    "words", the word geometry (``softmax_spmm_words``: K2's forward an
+    online step a head its word touches, no shuffles; K3's head sums
+    reduce-scattered by shuffles, ``csrc/word_heads.cuh``), where its lanes
+    hold the row; else "strided", the general geometry
+    (``csrc/softmax_general.cuh``, K5's on one edge set: lane j the columns
+    j, j + 32, ..., a scalar load each), which takes every D <=
+    ``MAX_WIDTH`` with D % H == 0 and any alignment. K3's other arrays (out,
+    g: 16-byte aligned, the wrapper checks; dvalues its own) take every
+    load."""
     v = width // WARP
-    if width % WARP or (width // heads) % v:
-        return "strided"
-    return "adjacent" if aligned % (itemsize * min(16 // itemsize, v & -v)) == 0 else "strided"
+    if width % WARP == 0 and (width // heads) % v == 0 and aligned % (itemsize * min(16 // itemsize, v & -v)) == 0:
+        return "adjacent"
+    if itemsize == 4 and softmax_spmm_words(width, heads, aligned) is not None:
+        return "words"
+    return "strided"
+
+
+@functools.lru_cache(maxsize=None)
+def softmax_spmm_kind(width: int, heads: int, aligned: int, backward: bool = False) -> str:
+    """The kernel K2's f32 entry (or K3, ``backward``) runs for a width,
+    head count and the values' alignment (K3: the least of values', out's
+    and g's), one of ``SOFTMAX_SPMM_KINDS``. Cached: every launch asks it."""
+    if not backward:
+        kind = softmax_spmm_geometry(width, heads, aligned).kind
+        if kind != "general":
+            return kind
+    return {"adjacent": "columns", "words": "words", "strided": "general"}[
+        softmax_spmm_columns(width, heads, aligned)]
 
 
 # the fused kernels' entries by element type, and the byte alignment each

@@ -47,6 +47,7 @@ from tests.test_torch_port_cuda import BF16_ATOL, BF16_DV_TERM, BF16_RTOL
 
 CSRC = Path(ca.__file__).resolve().parents[1] / "csrc"
 HEADER = CSRC / "attention_words.cuh"
+HEADS = CSRC / "word_heads.cuh"  # the head sums and the rule, shared with K3's words
 SOURCE = CSRC / "csr_attention_bf16_words.cu"
 BF16 = torch.bfloat16
 
@@ -122,7 +123,7 @@ def test_bf16_word_rule_follows_the_kernels_constants():
     refuses words of fewer than 4 columns, and every (W, P, ALIGNED) it
     gives for a D <= 512 in either layout and alignment is one of the
     header's bf16 kernel cases, with whole words."""
-    text = HEADER.read_text()
+    text = HEADER.read_text() + HEADS.read_text()
     assert int(re.search(r"constexpr int kMaxPartials = (\d+);", text).group(1)) == ca.MAX_PARTIALS
     assert int(re.search(r"constexpr int kMaxLanes = (\d+);", text).group(1)) == WARP
     assert "eight && width % 8 == 0 ? 8 : (width % 4 == 0 ? 4 : (width % 2 == 0 ? 2 : 1))" in text

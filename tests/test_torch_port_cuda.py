@@ -1606,9 +1606,11 @@ F32_GEOMETRY_CASES = [
     (32, 16, "general"),  # heads of 2: one column a lane
     (256, 4, "general"),  # 8 columns a lane
     (512, 8, "general"),  # 16 columns a lane
-    (40, 8, "general"),  # heads of 5: strided columns (refused before the general geometry)
+    (40, 8, "words"),  # heads of 5: words spanning two heads, 16 lanes (the general geometry before)
     (48, 4, "words16"),  # heads of 12: 12 lanes of 16
     (96, 3, "words16"),  # heads of 32: 24 lanes of 32
+    (36, 4, "words"),  # heads of 9: 9 words, 16 lanes
+    (20, 4, "words"),  # heads of 5, D % 8 == 4: 5 words, 8 lanes
 ]
 
 
@@ -1731,6 +1733,91 @@ def test_softmax_spmm_f32_autograd_matches_plain(cuda, width, heads):
         assert (ca.csr_softmax_spmm.launches, ca.csr_softmax_spmm_backward.launches) == (
             before[0] + step, before[1] + step)
     for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+# (D, H, aligned) of K2's and K3's word geometry (softmax_spmm_words): 16-byte
+# words at 40 x 8, 48 x 4 (K3; K2 keeps its 16-byte words of one head), 96 x 3
+# (K3's ALIGNED head sums), 36 x 4, 20 x 4 and 16 x 16 (a word spans 4 heads)
+WORD_CASES = [(40, 8, 16), (48, 4, 16), (96, 3, 16), (36, 4, 16), (20, 4, 16), (16, 16, 16)]
+
+
+def _words_case(width, heads, aligned, cuda):
+    """A sender-sorted layout of 1,301 rows (an odd count: the last warp has
+    rows past the last at 2, 4 or 8 rows a warp) of 0-12 edges, a fifth
+    masked, rows 2-6 empty and row 7's edges all masked; gaps no range
+    covers after rows 100, 640 and 1,299 and 11 trailing padding edges
+    (masked, their segment the row before); scores masked as
+    ``csr_sparse_attention`` masks them, the values ``aligned``-byte
+    aligned. Returns the layout on the card, the row count and the rows
+    that must read as empty."""
+    from chip_stream import view_at
+    from graphphysics_torch.ops import csr_attention as ca
+
+    r = np.random.default_rng(width * heads + aligned)
+    n = 1301
+    counts = r.integers(0, 13, n)
+    counts[2:7], counts[7] = 0, 9
+    gaps = np.zeros(n, np.int64)
+    gaps[[100, 640, 1299]] = (3, 17, 5)
+    starts = np.concatenate([[0], np.cumsum(counts + gaps)[:-1]])
+    ends = starts + counts
+    seg = np.concatenate([np.repeat(np.arange(n), counts + gaps), np.full(11, n - 1)]).astype(np.int32)
+    e = len(seg)
+    covered = np.zeros(e, bool)
+    for lo, hi in zip(starts, ends):
+        covered[lo:hi] = True
+    mask = covered & (r.random(e) >= 0.2)
+    mask[starts[7]:ends[7]] = False
+    gen = torch.Generator(device=cuda).manual_seed(width + aligned)
+    m = torch.from_numpy(mask).to(cuda)
+    s = torch.where(m[:, None], 3 * torch.randn((e, heads), generator=gen, device=cuda),
+                    torch.full((), ca.NEG, device=cuda))
+    v = view_at(torch.randn((e, width), generator=gen, device=cuda), aligned)
+    bounds = torch.from_numpy(np.stack([starts, ends]).astype(np.int32)).to(cuda)
+    seg = torch.from_numpy(seg).to(cuda)
+    empty = [i for i in range(n) if i == 7 or counts[i] == 0]
+    return seg, bounds, m, s, v, n, torch.tensor(empty, device=cuda)
+
+
+@pytest.mark.parametrize("width,heads,aligned", WORD_CASES)
+def test_softmax_spmm_words_match_plain(cuda, width, heads, aligned):
+    """K2's f32 entry and K3 in the word geometry (``csrc/csr_softmax_spmm.cu``
+    ``forward_words``, ``csrc/csr_softmax_spmm_bwd.cu`` ``backward_words``)
+    against their plain versions at 1e-5, the same bits twice, each launch
+    counted under its geometry; empty rows and a row of only masked edges
+    exactly out = 0, m = -1e30, l = 0; K3 exactly 0 on masked edges, the
+    gap and the padding (poisoned memory: an edge row it does not write
+    shows)."""
+    from graphphysics_torch.ops import csr_attention as ca
+    from graphphysics_torch.ops.csr_segment import alignment
+
+    seg, bounds, m, s, v, n, empty = _words_case(width, heads, aligned, cuda)
+    assert alignment(v) == aligned
+    k2 = ca.softmax_spmm_kind(width, heads, aligned)
+    assert ca.softmax_spmm_kind(width, heads, aligned, backward=True) == "words"
+    assert k2 in ("words", "words16")
+    before = dict(ca.csr_softmax_spmm.geometries)
+    out, ml = ca.csr_softmax_spmm(s, v, seg, bounds, m)
+    again, again_ml = ca.csr_softmax_spmm(s, v, seg, bounds, m)
+    torch.cuda.synchronize()
+    assert ca.csr_softmax_spmm.geometries[k2] == before[k2] + 2
+    assert torch.equal(out, again) and torch.equal(ml, again_ml)
+    want, want_ml = ca.csr_softmax_spmm_reference(s, v, seg, n, m)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ml, want_ml, rtol=1e-5, atol=1e-5)
+    assert bool((out[empty] == 0).all())
+    assert bool((ml[:heads, empty] == ca.NEG).all()) and bool((ml[heads:, empty] == 0).all())
+    cot = torch.randn((n, width), generator=torch.Generator(device=cuda).manual_seed(width), device=cuda)
+    before = ca.csr_softmax_spmm_backward.geometries["words"]
+    _poison_free_memory(cuda)
+    ds, dv = ca.csr_softmax_spmm_backward(s, v, seg, bounds, ml, out, cot, m)
+    ds2, dv2 = ca.csr_softmax_spmm_backward(s, v, seg, bounds, ml, out, cot, m)
+    torch.cuda.synchronize()
+    assert ca.csr_softmax_spmm_backward.geometries["words"] == before + 2
+    assert torch.equal(ds, ds2) and torch.equal(dv, dv2)
+    for a, b in zip((ds, dv), ca.csr_softmax_spmm_backward_reference(s, v, seg, ml, out, cot, m)):
+        assert torch.isfinite(a).all() and torch.all(a[~m] == 0)
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 

@@ -114,7 +114,7 @@ def test_pair_stream_geometry_is_the_shared_rule(width, heads, aligned):
     (512, 8, ("general", 16, 32, 1, 1)),
     # refused before the general geometry (not a multiple of 32, heads not
     # whole 3-column lanes): heads 4k wide take 16-byte words
-    (40, 8, ("general", 2, 32, 1, 1)),  # heads of 5: strided columns
+    (40, 8, ("words", 4, 16, 2, 8)),  # heads of 5: 10 words spanning two heads, 16 lanes
     (48, 4, ("words16", 4, 16, 2, 8)),  # heads of 12: 12 lanes of 16, two rows a warp
     (96, 3, ("words16", 4, 32, 1, 8)),  # heads of 32: 24 lanes of 32
 ])
@@ -138,10 +138,12 @@ def test_softmax_spmm_f32_geometry_by_alignment(width, heads, aligned, want):
     (32, 16, 4, 4, "adjacent"),  # one column a lane takes any f32 view
     (96, 4, 4, 4, "adjacent"),  # 3 columns a lane: 4-byte loads
     (256, 4, 8, 4, "strided"),  # 16-byte loads on an 8-byte view
-    (48, 4, 16, 4, "strided"),  # not a multiple of 32
-    (96, 3, 16, 4, "strided"),  # heads of 32 not whole 3-column lanes
-    (40, 8, 16, 4, "strided"),
-    (16, 4, 16, 4, "strided"),  # half a warp of columns
+    (48, 4, 16, 4, "words"),  # not a multiple of 32: 16-byte words, 12 lanes of 16
+    (96, 3, 16, 4, "words"),  # heads of 32 not whole 3-column lanes: 24 words of 32 lanes
+    (40, 8, 16, 4, "words"),  # heads of 5: words spanning two heads
+    (16, 4, 16, 4, "words"),  # half a warp of columns: 4 words
+    (48, 4, 4, 4, "strided"),  # a 4-byte view: 48 single columns, past 32 lanes
+    (32, 8, 4, 4, "adjacent"),  # the V columns before the words
     (512, 4, 16, 2, "adjacent"),  # bf16 stream: 16-byte loads of 8 columns
     (512, 4, 8, 2, "strided"),
     (128, 4, 4, 2, "strided"),  # 8-byte loads of 4 bf16 columns on a 4-byte view
@@ -149,8 +151,8 @@ def test_softmax_spmm_f32_geometry_by_alignment(width, heads, aligned, want):
 ])
 def test_softmax_spmm_columns(width, heads, aligned, itemsize, want):
     """Which kernel a "general" geometry of K2 or K3 is: the V columns
-    where the width, heads and alignment allow, else the strided general
-    geometry."""
+    where the width, heads and alignment allow, else in f32 the words where
+    their lanes hold the row, else the strided general geometry."""
     assert ca.softmax_spmm_columns(width, heads, aligned, itemsize) == want
 
 

@@ -35,6 +35,7 @@ from tests import _torch_port_common  # noqa: F401  (caps torch's threads)
 # both sides in f32, sums in another order
 ORDER_RTOL, ORDER_ATOL = 1e-5, 1e-5
 HEADER = Path(ca.__file__).resolve().parents[1] / "csrc" / "attention_words.cuh"
+HEADS = HEADER.with_name("word_heads.cuh")  # the head sums and the rule, shared with K3's words
 EDGES = 2  # the kernels' window: kEdges edges whose k and v words a lane has in flight
 
 # (D, H, layout) -> (forward lanes, backward lanes, kind, (W, L, P,
@@ -132,7 +133,7 @@ def test_word_rule_follows_the_kernels_constants():
     the header's expression, and every (W, P, ALIGNED) it gives for a
     D <= 512 in either layout is one of the header's kernel cases, each
     with whole words (W divides D)."""
-    text = HEADER.read_text()
+    text = HEADER.read_text() + HEADS.read_text()
 
     def constant(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
